@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""Drive the pencil_tpu_torch flagship step on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+  1. device and toolchain: the card, its power limit, nvcc, the kernel build;
+  2. each fused kernel against its plain PyTorch version on the same CUDA
+     inputs at 64³ and 32×64×128 (each field within 2e-5 × its max, the
+     CFL maximum within 1e-6 relative), and three full steps on the card
+     against the same steps on the CPU at 32³;
+  3. the main path: the forced-MHD flagship at 256³ through
+     Model(cfg, device="cuda").init_state(0) and make_step(), 3 warm-up and
+     20 timed steps under torch.cuda.set_sync_debug_mode("error"), with
+     exactly one launch of each kernel per step;
+  4. each kernel's time against its plain version, and the plain chain's
+     step time, at 256³.
+The line before the last is the card's name and power limit as nvidia-smi
+reports them; the last line is {"ok": true, "device": {...}}.  Any failure
+raises, and the exit code is then not 0.  Without a CUDA device the script
+exits 1 and prints no result.  It imports no JAX.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+N_MAIN = 256
+WARM, TIMED = 3, 20
+RTOL_FIELD, RTOL_DT = 2e-5, 1e-6
+KERNEL_NAMES = ("rhs_first", "rhs_tail_defer", "rhs_tail_last")
+
+
+def flagship(pt, shape, fused=True):
+    """__graft_entry__._flagship_cfg, for the port."""
+    return pt.Config(
+        grid=pt.GridSpec(nx=shape[0], ny=shape[1], nz=shape[2]),
+        time=pt.TimeSpec(itorder=3), fused=fused,
+        modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0),
+                 pt.Density(lupw_lnrho=False),
+                 pt.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pt.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pt.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
+                 pt.Forcing(force=0.07, kf=3.0)))
+
+
+def random_fa(torch, shape, seed, device):
+    g = torch.Generator(device).manual_seed(seed)
+    amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * 3, device=device)
+    return (amp[:, None, None, None]
+            * torch.randn((7,) + shape, generator=g, device=device)).contiguous()
+
+
+def rel_err(a, b):
+    """(max |a−b|, that over max |b|), per field, worst field."""
+    worst = (0.0, 0.0)
+    for c in range(a.shape[0]):
+        d = float((a[c] - b[c]).abs().max())
+        r = d / max(float(b[c].abs().max()), 1e-30)
+        worst = max(worst, (d, r), key=lambda t: t[1])
+    return worst
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def compare_kernels(torch, pt, fr, shape, errs):
+    """Phase 2: every kernel against its plain version on CUDA inputs."""
+    dev = torch.device("cuda")
+    model = pt.Model(flagship(pt, shape), device=dev)
+    fa = random_fa(torch, shape, 1, dev)
+    alpha, beta, _ = model.rk
+    fr.reset_launches()
+    df1, dt1m = fr.rhs_first(model, fa)
+    df1_p, dt1m_p = fr.rhs_first_plain(model, fa)
+    dt = 1.0 / dt1m_p
+    c2 = torch.stack((model._alpha[1], beta[1] * dt, beta[0] * dt))
+    df2, f2 = fr.rhs_tail_defer(model, fa, df1_p, c2)
+    df2_p, f2_p = fr.rhs_tail_defer_plain(model, fa, df1_p, c2)
+    c3 = torch.stack((model._alpha[2], beta[2] * dt, model._zero))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt,
+                                     model.eos)
+    f3k = fr.rhs_tail_last(model, f2_p, df2_p, c3, kick)
+    f3k_p = fr.rhs_tail_last_plain(model, f2_p, df2_p, c3, kick)
+    f3 = fr.rhs_tail_last(model, f2_p, df2_p, c3, None)
+    f3_p = fr.rhs_tail_last_plain(model, f2_p, df2_p, c3, None)
+    torch.cuda.synchronize()
+    check(fr.LAUNCHES == {"rhs_first": 1, "rhs_tail_defer": 1,
+                          "rhs_tail_last": 2}, f"launch counts {fr.LAUNCHES}")
+    dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
+    check(dt_rel <= RTOL_DT, f"{shape} max 1/dt rel err {dt_rel}")
+    pairs = {"rhs_first": [(df1, df1_p)],
+             "rhs_tail_defer": [(df2, df2_p), (f2, f2_p)],
+             "rhs_tail_last": [(f3k, f3k_p), (f3, f3_p)]}
+    line = []
+    for name, ps in pairs.items():
+        for a, b in ps:
+            d, r = rel_err(a, b)
+            check(r <= RTOL_FIELD, f"{name} at {shape}: rel err {r}")
+            errs[name] = max(errs[name], d)
+            line.append(f"{name} {r:.2e}")
+    print(f"phase 2 {shape}: kernel vs plain, worst field rel err: "
+          + ", ".join(line) + f"; max 1/dt rel err {dt_rel:.2e}", flush=True)
+
+
+def compare_steps(torch, pt, shape=(32, 32, 32), nsteps=3):
+    """Phase 2b: full steps on the card against the CPU (plain versions),
+    same fields and the same forcing draws."""
+    cpu = torch.device("cpu")
+    fields = {k: v for k, v in pt.Model(flagship(pt, shape)).init_state(
+        5)["fields"].items()}
+    g = torch.Generator(cpu).manual_seed(9)
+    draws = [(torch.randint(0, 20, (1,), generator=g),
+              torch.rand((), generator=g) * 6.0 - 3.0,
+              torch.randn(3, generator=g)) for _ in range(nsteps)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.Model(flagship(pt, shape), device=dev)
+        it = iter([tuple(t.to(dev) for t in d) for d in draws])
+        model.forcing_draws = it.__next__
+        s = model.init_state(5, overrides=fields)
+        step = model.make_step()
+        for _ in range(nsteps):
+            s = step(s)
+        out[dev] = s
+    dt_rel = abs(float(out["cuda"]["dt"]) / float(out["cpu"]["dt"]) - 1.0)
+    check(dt_rel <= RTOL_DT, f"step dt rel err {dt_rel}")
+    worst = 0.0
+    for k, ref in out["cpu"]["fields"].items():
+        a = out["cuda"]["fields"][k].cpu()
+        r = float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        check(r <= RTOL_FIELD, f"step field {k} rel err {r}")
+        worst = max(worst, r)
+    print(f"phase 2b {shape}: {nsteps} steps on the card vs the CPU: worst "
+          f"field rel err {worst:.2e}, dt rel err {dt_rel:.2e}", flush=True)
+
+
+def time_ms(torch, fn, n):
+    """Mean ms of fn() over n calls, by CUDA events after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def urms(torch, fa):
+    return float(fa[0:3].pow(2).sum(0).mean().sqrt())
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pencil_tpu_torch as pt
+    from pencil_tpu_torch.ops import _build
+    from pencil_tpu_torch.ops import fused_rhs as fr
+
+    # ---- phase 1: device and toolchain --------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True)
+    print(f"phase 1: device {name}; nvidia-smi: {smi}", flush=True)
+    print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{nvcc.stdout.strip().splitlines()[-1]}", flush=True)
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds}) -> {lib_path.name}", flush=True)
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+
+    # ---- phase 2: kernels against their plain versions ----------------
+    errs = dict.fromkeys(KERNEL_NAMES, 0.0)
+    for shape in ((64, 64, 64), (32, 64, 128)):
+        compare_kernels(torch, pt, fr, shape, errs)
+    compare_steps(torch, pt)
+
+    # ---- phase 3: the main path at 256³ -------------------------------
+    shape = (N_MAIN,) * 3
+    cfg = flagship(pt, shape)
+    model = pt.Model(cfg, device="cuda")
+    state = model.pack_state(model.init_state(0))
+    u0 = urms(torch, state["_fa"])
+    step = model.make_step()
+    for _ in range(WARM):
+        state = step(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    e0.record()
+    for _ in range(TIMED):
+        state = step(state)
+    e1.record()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = dict(fr.LAUNCHES)
+    ms_step = e0.elapsed_time(e1) / TIMED
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == dict.fromkeys(KERNEL_NAMES, TIMED),
+          f"launches {launches}: need exactly one of each kernel per step")
+    fa = state["_fa"]
+    check(tuple(fa.shape) == (7,) + shape, f"state shape {tuple(fa.shape)}")
+    check(bool(torch.isfinite(fa).all()), "non-finite field")
+    dt = float(state["dt"])
+    # the u = 0, B = 0 CFL limit: sound speed and the viscous/resistive rate
+    tc, gs = cfg.time, cfg.grid
+    dxyz2 = sum((1.0 / d) ** 2 for d in (gs.dx, gs.dy, gs.dz))
+    dt_est = 1.0 / math.hypot(math.sqrt(dxyz2) / tc.cdt,
+                              5e-3 * dxyz2 / tc.cdtv)
+    check(0.5 * dt_est < dt <= dt_est,
+          f"dt {dt} not CFL-limited (estimate {dt_est})")
+    u1 = urms(torch, fa)
+    check(u1 > u0, f"urms did not grow: {u0} -> {u1}")
+    ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
+    print(f"phase 3 {N_MAIN}^3 main path on {smi}: {ms_step:.4f} ms/step, "
+          f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
+          f"(CFL estimate {dt_est:.6e}), urms {u0:.3e} -> {u1:.3e}, "
+          f"launches {launches}", flush=True)
+
+    # ---- phase 4: kernels and the plain chain, timed at 256³ ----------
+    alpha, beta, _ = model.rk
+    dt_t = state["dt"]
+    c2 = torch.stack((model._alpha[1], beta[1] * dt_t, beta[0] * dt_t))
+    c3 = torch.stack((model._alpha[2], beta[2] * dt_t, model._zero))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt_t,
+                                     model.eos)
+    df1, _ = fr.rhs_first_plain(model, fa)
+    df2, f2 = fr.rhs_tail_defer_plain(model, fa, df1, c2)
+    calls = {
+        "rhs_first": (lambda: fr.rhs_first(model, fa),
+                      lambda: fr.rhs_first_plain(model, fa)),
+        "rhs_tail_defer": (lambda: fr.rhs_tail_defer(model, fa, df1, c2),
+                           lambda: fr.rhs_tail_defer_plain(model, fa, df1, c2)),
+        "rhs_tail_last": (
+            lambda: fr.rhs_tail_last(model, f2, df2, c3, kick),
+            lambda: fr.rhs_tail_last_plain(model, f2, df2, c3, kick)),
+    }
+    timings = {}
+    for kname, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            if a.ndim == 0:
+                r = abs(float(a) / float(b) - 1.0)
+                check(r <= RTOL_DT, f"{kname} at 256^3: dt rel err {r}")
+                continue
+            d, r = rel_err(a, b)
+            check(r <= RTOL_FIELD, f"{kname} at 256^3: rel err {r}")
+            errs[kname] = max(errs[kname], d)
+        del got, want
+        timings[kname] = (time_ms(torch, kern, 20), time_ms(torch, plain, 3))
+        print(f"phase 4 {kname} at 256^3: kernel {timings[kname][0]:.4f} ms,"
+              f" plain {timings[kname][1]:.4f} ms", flush=True)
+    del df1, df2, f2
+    plain_chain = (fr.rhs_first_plain, fr.rhs_tail_defer_plain,
+                   fr.rhs_tail_last_plain)
+    plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
+                   "it": state["it"]}
+    plain_ms = time_ms(
+        torch, lambda: model._fused_step(plain_state, plain_chain), 3)
+    print(f"phase 4 plain chain at 256^3 on {smi}: {plain_ms:.4f} ms/step "
+          f"(kernel chain {ms_step:.4f} ms/step)", flush=True)
+
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda",
+         "source": "pencil_tpu_torch/csrc/fused_rhs.cu",
+         "replaces": ("pencil_tpu/ops/fused_rhs.py:306" if k == "rhs_first"
+                      else "pencil_tpu/ops/fused_rhs.py:379"),
+         "launches": launches[k], "max_abs_err": errs[k],
+         "ms": timings[k][0], "plain_ms": timings[k][1]}
+        for k in KERNEL_NAMES]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,271 @@
+"""Model assembly and the time step (counterpart of ``pencil_tpu/model.py``).
+
+The flagship configuration — ideal-gas EOS, lnρ density, hydro,
+'nu-const' viscosity, resistive-gauge magnetic, optional helical forcing,
+2N-RK3 — runs as the chain of three fused RHS kernels of the JAX package's
+wrap mode (model.py:650-703):
+
+  1. K1 evaluates df1 = RHS(f0) and the CFL maximum; dt stays on the device;
+  2. K2 rebuilds f1 = f0 + β₁Δt·df1 from raw f0 and df1 and writes df2, f2;
+  3. K3 writes f3 = f2 + β₃Δt·(α₃df2 + RHS(f2)) with the forcing kick on u.
+
+``fused_gate`` decides whether a configuration runs that chain.  On a CUDA
+device a configuration outside the gate raises; on the CPU it runs the
+eager 2N-RK path built from the same plain module code (the counterpart of
+the JAX package's jnp path).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .core.config import Config
+from .core.farray import Registry
+from .core.grid import make_grid
+from .integrate.timestep import RK_TABLES
+from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
+                            rhs_tail_last)
+from .physics.base import ModuleBase
+
+# Fixed RHS evaluation order (reference calc_all_pencils order,
+# src/equ.f90:766-814).
+MODULE_ORDER = (
+    "eos", "density", "hydro", "hydro_kinematic", "gravity", "shear",
+    "viscosity", "magnetic", "pscalar", "cosmicray", "dust", "neutrals",
+    "chemistry", "chiral", "polymer", "heatflux", "lorenz_gauge", "ascalar",
+    "interstellar", "radiation", "entropy", "temperature", "testfield",
+    "border", "forcing", "initial_condition", "shock",
+)
+
+# f-array slot order — the reference's registration sequence (uu, lnrho,
+# ss, aa, ...), so the stacked state lines up with the JAX package's.
+REGISTRATION_ORDER = (
+    "hydro", "density", "entropy", "temperature", "magnetic", "pscalar",
+    "cosmicray", "dust", "neutrals", "chemistry", "chiral", "polymer",
+    "heatflux", "lorenz_gauge", "ascalar", "testfield",
+)
+
+# the module set the fused kernels implement (forcing is optional)
+FLAGSHIP_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
+                              "magnetic"))
+
+
+def _order_key(order):
+    def key(m):
+        return order.index(m.name) if m.name in order else len(order)
+    return key
+
+
+def gate_reason(cfg: Config):
+    """Why ``cfg`` is outside the fused kernel chain, or None."""
+    names = [m.name for m in cfg.modules]
+    if not cfg.fused:
+        return "fused=False"
+    if cfg.time.itorder != 3:
+        return f"itorder={cfg.time.itorder} (the kernels implement 2N-RK3)"
+    if len(set(names)) != len(names) or set(names) - {"forcing"} \
+            != FLAGSHIP_MODULES:
+        return (f"modules {sorted(names)} (the kernels implement "
+                f"{sorted(FLAGSHIP_MODULES)} with optional forcing)")
+    return None
+
+
+def fused_gate(cfg: Config, device) -> bool:
+    """True when ``cfg`` runs the fused kernel chain on ``device``; False
+    when it runs the eager path (CPU only).  Raises NotImplementedError for
+    a configuration outside the gate on any other device: a GPU never
+    silently runs the plain path."""
+    reason = gate_reason(cfg)
+    if reason is None:
+        return True
+    if torch.device(device).type != "cpu":
+        raise NotImplementedError(
+            f"pencil_tpu_torch: no fused kernels for this configuration on "
+            f"{device}: {reason}")
+    return False
+
+
+def _check_supported(cfg: Config):
+    """What the port does not implement on any device."""
+    gs = cfg.grid
+    problems = []
+    if cfg.mesh.shape != (1, 1, 1):
+        problems.append(f"mesh {cfg.mesh.shape} (one device only)")
+    if cfg.dtype != "float32":
+        problems.append(f"dtype {cfg.dtype}")
+    if not all(gs.periodic) or cfg.bcx or cfg.bcy or cfg.bcz \
+            or cfg.force_bound != ("", ""):
+        problems.append("boundary conditions (fully periodic grids only)")
+    if gs.nghost != 3:
+        problems.append(f"nghost={gs.nghost}")
+    if cfg.time.itorder not in RK_TABLES:
+        problems.append(f"itorder={cfg.time.itorder}")
+    if not all(isinstance(m, ModuleBase) for m in cfg.modules):
+        problems.append("modules that are not pencil_tpu_torch modules")
+    elif not {"eos", "density", "hydro"} <= {m.name for m in cfg.modules}:
+        problems.append("a module set without eos, density and hydro")
+    if problems:
+        raise NotImplementedError("pencil_tpu_torch: " + "; ".join(problems))
+
+
+def _slots_of(m):
+    r = Registry()
+    m.register(r)
+    return set(r.finalize().slots)
+
+
+class Model:
+    def __init__(self, cfg: Config, device="cpu"):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.fused = fused_gate(cfg, self.device)
+        self.dtype = torch.float32
+        self.modules = tuple(sorted(cfg.modules, key=_order_key(MODULE_ORDER)))
+        self.reg = Registry()
+        for m in sorted(cfg.modules, key=_order_key(REGISTRATION_ORDER)):
+            m.register(self.reg)
+        self.reg.finalize()
+        self.eos = cfg.module("eos")
+        self.grid = make_grid(cfg.grid, self.device, self.dtype)
+        self.rk = RK_TABLES[cfg.time.itorder]
+        forcing = cfg.module("forcing")
+        self.forcing = forcing if forcing is not None and forcing.force != 0.0 \
+            else None
+        self._ftables = (self.forcing.tables(cfg.grid, self.device, self.dtype)
+                         if self.forcing is not None else None)
+        # the random stream of init_state and of the forcing draws
+        self.generator = torch.Generator(self.device)
+        # hook: a zero-argument callable returning one step's forcing draws
+        # (shell index, phase, e-vector) in place of the generator's
+        self.forcing_draws = None
+        dev = dict(dtype=self.dtype, device=self.device)
+        self._alpha = torch.tensor(self.rk[0], **dev)
+        self._zero = torch.zeros((), **dev)
+        self._dt1_floor = torch.tensor(1.0 / cfg.time.dtmax, **dev)
+
+    # ------------------------------------------------------------------
+    def init_state(self, seed: int = 0, overrides: Dict = None) -> Dict:
+        """``overrides``: field name → array replacing the module-generated
+        initial condition (the tests pass the JAX package's fields)."""
+        overrides = overrides or {}
+        self.generator.manual_seed(seed)
+        gs = self.cfg.grid
+        fields = {}
+        for m in self.modules:
+            if _slots_of(m) <= set(overrides):
+                continue
+            fields.update(m.init_fields(self.grid, gs, self.generator))
+        for name, arr in overrides.items():
+            fields[name] = torch.as_tensor(arr, dtype=self.dtype,
+                                           device=self.device).clone()
+        dev = dict(dtype=self.dtype, device=self.device)
+        return {
+            "fields": {k: fields[k] for k in self.reg.slots},
+            "t": torch.tensor(self.cfg.time.tstart, **dev),
+            "dt": torch.tensor(self.cfg.time.dt if self.cfg.time.dt > 0
+                               else 1e-4, **dev),
+            "it": torch.tensor(0, dtype=torch.int32, device=self.device),
+        }
+
+    def pack_state(self, state: Dict) -> Dict:
+        """Swap the per-field dict for the stacked ``_fa`` tensor, so a hot
+        loop carries one tensor.  No-op outside the fused chain, whose
+        eager path needs the dict for the forcing hook."""
+        if "_fa" in state or not self.fused:
+            return state
+        st = dict(state)
+        st["_fa"] = self.reg.stack(st.pop("fields"))
+        return st
+
+    def unpack_state(self, state: Dict) -> Dict:
+        """Inverse of pack_state (no-op on an unpacked state)."""
+        if "_fa" not in state:
+            return state
+        st = dict(state)
+        st["fields"] = self.reg.unstack(st.pop("_fa"))
+        return st
+
+    # ------------------------------------------------------------------
+    def _draws(self):
+        if self.forcing_draws is not None:
+            return self.forcing_draws()
+        return self.forcing.draw(self._ftables, self.generator)
+
+    def _new_dt(self, dt1m, dt_prev):
+        """dt from substep 1's CFL maximum, as device tensor ops
+        (JAX model.py:738-748)."""
+        tc = self.cfg.time
+        if tc.dt > 0:
+            return torch.full((), tc.dt, dtype=self.dtype, device=self.device)
+        dt = 1.0 / torch.maximum(dt1m, self._dt1_floor)
+        if tc.ddt > 0:
+            dt = torch.minimum(dt, tc.ddt * dt_prev)
+        return dt
+
+    def _fused_step(self, state: Dict,
+                    kernels=(rhs_first, rhs_tail_defer, rhs_tail_last)):
+        """One 2N-RK3 step as the three-kernel chain.  ``kernels`` lets a
+        measurement time the plain versions through the same chain."""
+        first, defer, last = kernels
+        alpha, beta, _ = self.rk
+        packed = "_fa" in state
+        fa = state["_fa"] if packed else self.reg.stack(state["fields"])
+        df1, dt1m = first(self, fa)
+        dt = self._new_dt(dt1m, state["dt"])
+        coef = torch.stack((self._alpha[1], beta[1] * dt, beta[0] * dt))
+        df2, f2 = defer(self, fa, df1, coef)
+        del df1
+        coef = torch.stack((self._alpha[2], beta[2] * dt, self._zero))
+        kick = None
+        if self.forcing is not None:
+            kick = self.forcing.kick_vector(self._ftables, self._draws(), dt,
+                                            self.eos)
+        f3 = last(self, f2, df2, coef, kick)
+        out = {"t": state["t"] + dt, "dt": dt, "it": state["it"] + 1}
+        if packed:
+            out["_fa"] = f3
+        else:
+            out["fields"] = self.reg.unstack(f3)
+        return out
+
+    def _eager_step(self, state: Dict):
+        """One 2N-RK step from the plain RHS, the kick applied after the
+        substeps (CPU only; JAX model.py:733-775, :924-933)."""
+        alpha, beta, _ = self.rk
+        fa = self.reg.stack(state["fields"])
+        df = dt = None
+        for isub in range(len(alpha)):
+            dfa, dt1m = rhs_plain(self, fa, want_dt1=isub == 0)
+            if isub == 0:
+                dt = self._new_dt(dt1m, state["dt"])
+                df = dfa
+            else:
+                df = alpha[isub] * df + dfa
+            fa = fa + beta[isub] * dt * df
+        fields = self.reg.unstack(fa)
+        if self.forcing is not None:
+            fields = self.forcing.after_timestep(
+                fields, self.grid, self._ftables, self._draws(), dt, self.eos)
+        return {"fields": fields, "t": state["t"] + dt, "dt": dt,
+                "it": state["it"] + 1}
+
+    def _local_step(self, state: Dict) -> Dict:
+        if self.fused:
+            return self._fused_step(state)
+        return self._eager_step(state)
+
+    def make_step(self):
+        """One full step per call; dt stays on the device."""
+        return self._local_step
+
+    def make_multi_step(self, k: int):
+        """k steps per call, carrying the packed state between them."""
+        def stepk(state):
+            s = self.pack_state(state)
+            for _ in range(k):
+                s = self._local_step(s)
+            return self.unpack_state(s)
+
+        return stepk

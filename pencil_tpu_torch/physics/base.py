@@ -1,0 +1,56 @@
+"""Physics-module protocol (counterpart of ``pencil_tpu/physics/base.py``).
+
+A module is a frozen config dataclass with optional hooks; an absent module
+is simply not composed in.  The flagship has no trained parameters, so no
+module is an ``nn.Module``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import ClassVar, Dict
+
+import torch
+
+
+class TimestepAccum:
+    """Per-point CFL accumulators (reference advec_*/maxdiffus*,
+    src/equ.f90:916-931).  Modules add; ``cfl_dt1`` reduces."""
+
+    def __init__(self):
+        self.maxadvec = 0.0    # Σ_a |u_a|·dline_1_a  (linear advection terms)
+        self.advec_cs2 = 0.0   # (cs² + vA²)·Σ_a Δ_a⁻²  (wave speeds, squared)
+        self.maxdiffus = 0.0   # max(ν, η, ...) — scaled by dxyz_2 at the end
+
+    def advec(self, val):
+        self.maxadvec = self.maxadvec + val
+
+    def advec2(self, val):
+        """Squared wave-speed term; its root joins maxadvec linearly."""
+        self.advec_cs2 = self.advec_cs2 + val
+
+    def diffus(self, val):
+        self.maxdiffus = max(self.maxdiffus, val)
+
+
+def accumulate(df: Dict[str, torch.Tensor], name: str, val: torch.Tensor):
+    if name in df:
+        df[name] = df[name] + val
+    else:
+        df[name] = val
+
+
+@dataclass(frozen=True)
+class ModuleBase:
+    """Base with no-op hooks; subclasses override what they provide."""
+
+    name: ClassVar[str] = "base"
+
+    def register(self, reg):
+        """Claim f-array slots."""
+
+    def rhs(self, pen, df, ts):
+        """Accumulate RHS contributions into df and CFL terms into ts."""
+
+    def init_fields(self, grid, spec, generator):
+        """Initial condition for this module's fields."""
+        return {}

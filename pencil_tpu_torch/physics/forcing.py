@@ -1,0 +1,118 @@
+"""Stochastic helical k-shell forcing (counterpart of
+``pencil_tpu/physics/forcing.py:27-40, :195-255``; reference forcing_hel,
+src/forcing.f90:1851-2259, applied once per full step).
+
+Each step draws a wavevector index into the shell |k| ∈ [kf−dk, kf+dk], a
+phase φ and a random direction e, and adds
+
+    Δu = N·dt·Re[(f_re + i·f_im)·e^{i(k·x+φ)}],   N = force·cs₀·√(|k|cs₀/dt)
+
+to u.  ``draw`` makes the three draws with a ``torch.Generator`` on the
+model's device; a caller may supply them instead (``Model.forcing_draws``),
+which is how the tests inject the JAX package's threefry draws.  Everything
+after the draws is device tensor arithmetic, so a step needs no host sync.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from .base import ModuleBase
+
+
+def shell_vectors(kf: float, dk: float) -> np.ndarray:
+    """Integer wavevectors with |k| ∈ [kf−dk, kf+dk] (excluding k=0)."""
+    kmax = int(np.ceil(kf + dk))
+    rng = np.arange(-kmax, kmax + 1)
+    kx, ky, kz = np.meshgrid(rng, rng, rng, indexing="ij")
+    kk = np.stack([kx.ravel(), ky.ravel(), kz.ravel()], axis=1).astype(np.float64)
+    kabs = np.sqrt((kk ** 2).sum(1))
+    sel = (kabs > 0) & (np.abs(kabs - kf) <= dk)
+    out = kk[sel]
+    if len(out) == 0:
+        raise ValueError(f"empty forcing shell kf={kf} dk={dk}")
+    return out
+
+
+@dataclass(frozen=True)
+class ForcingTables:
+    """Per-model constants on the device, built once so that a step never
+    copies from the host."""
+
+    shell: torch.Tensor      # (nk, 3) integer wavevectors
+    box: torch.Tensor        # (3,) 2π/L per axis
+    norm: torch.Tensor       # 0-d 1/√(1+σ²)
+    zero: torch.Tensor       # (1,) padding of the kick vector
+
+
+@dataclass(frozen=True)
+class Forcing(ModuleBase):
+    name: ClassVar[str] = "forcing"
+
+    force: float = 0.02
+    kf: float = 3.0      # forcing-shell radius in box-wavenumber units
+    dk: float = 0.5
+    relhel: float = 1.0  # σ: 1 = maximally helical, 0 = non-helical
+
+    def tables(self, spec, device, dtype=torch.float32) -> ForcingTables:
+        box = [2.0 * np.pi / L for L in (spec.Lx, spec.Ly, spec.Lz)]
+        return ForcingTables(
+            shell=torch.as_tensor(shell_vectors(self.kf, self.dk),
+                                  dtype=dtype, device=device),
+            box=torch.tensor(box, dtype=dtype, device=device),
+            norm=1.0 / torch.sqrt(torch.tensor(
+                1.0 + self.relhel * self.relhel, dtype=dtype, device=device)),
+            zero=torch.zeros(1, dtype=dtype, device=device))
+
+    @staticmethod
+    def draw(tables: ForcingTables, generator):
+        """One step's draws: (shell index, phase in [−π, π), normal e(3))."""
+        dev, dt = tables.box.device, tables.box.dtype
+        idx = torch.randint(0, tables.shell.shape[0], (1,),
+                            generator=generator, device=dev)
+        phase = (torch.rand((), generator=generator, device=dev, dtype=dt)
+                 * (2.0 * math.pi) - math.pi)
+        e = torch.randn(3, generator=generator, device=dev, dtype=dt)
+        return idx, phase, e
+
+    def kick_coeffs(self, tables: ForcingTables, draws, dt, eos):
+        """(k_phys(3), phase, f_re(3), f_im(3), N·dt) from one step's draws;
+        duu = N·dt·Re[(f_re + i f_im)·e^{i(k·x+phase)}]."""
+        idx, phase, e = draws
+        kvec = torch.index_select(tables.shell, 0, idx.reshape(1))[0]
+        e = e / torch.sqrt(torch.sum(e * e))
+        # Gram-Schmidt: remove the component along k
+        khat = kvec / torch.sqrt(torch.sum(kvec * kvec))
+        e = e - torch.sum(e * khat) * khat
+        e = e / torch.clamp_min(torch.sqrt(torch.sum(e * e)), 1e-12)
+        kxe = torch.linalg.cross(kvec, e)
+        kxe = kxe / torch.clamp_min(torch.sqrt(torch.sum(kxe * kxe)), 1e-12)
+        kxkxe = torch.linalg.cross(khat, kxe)
+        f_re = tables.norm * kxe                      # real part of f_k
+        f_im = -tables.norm * self.relhel * kxkxe     # imag part (−iσ k̂×(k×e))
+        k_phys = kvec * tables.box
+        cs0 = eos.cs0 if eos is not None else 1.0
+        kf_mag = torch.sqrt(torch.sum(k_phys * k_phys))
+        N = self.force * cs0 * torch.sqrt(
+            kf_mag * cs0 / torch.clamp_min(dt, 1e-30))
+        return k_phys, phase, f_re, f_im, N * dt
+
+    def kick_vector(self, tables: ForcingTables, draws, dt, eos):
+        """The (12,) kick vector the last-substep kernel reads:
+        [k_phys(3), phase, f_re(3), f_im(3), N·dt, 0] (JAX fused_rhs.py:600-606)."""
+        k_phys, phase, f_re, f_im, ndt = self.kick_coeffs(tables, draws, dt, eos)
+        return torch.cat([k_phys, phase.reshape(1), f_re, f_im,
+                          ndt.reshape(1), tables.zero])
+
+    def after_timestep(self, fields, grid, tables, draws, dt, eos):
+        """The kick as a separate pass over u (the eager path)."""
+        k_phys, phase, f_re, f_im, ndt = self.kick_coeffs(tables, draws, dt, eos)
+        theta = (k_phys[0] * grid.xg + k_phys[1] * grid.yg
+                 + k_phys[2] * grid.zg + phase)
+        c, s = torch.cos(theta), torch.sin(theta)
+        duu = ndt * torch.stack([f_re[i] * c - f_im[i] * s for i in range(3)])
+        return {**fields, "uu": fields["uu"] + duu}

@@ -1,0 +1,42 @@
+"""Induction equation for the vector potential A in the resistive gauge
+(counterpart of ``pencil_tpu/physics/magnetic.py:181-220, :333-377``):
+
+    ∂A/∂t = u×B + η∇²A,    du/dt += J×B/ρ   (µ₀ = 1)
+
+with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  The JAX
+module's other options (hyper-resistivity, Weyl gauge, B_ext, mean-field,
+Hall, ...) are not ported: their fields do not exist here."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import ClassVar
+
+from .base import ModuleBase, accumulate
+from .initcond import init_vector
+
+
+@dataclass(frozen=True)
+class Magnetic(ModuleBase):
+    name: ClassVar[str] = "magnetic"
+
+    eta: float = 0.0
+    init: str = "zero"
+    ampl: float = 0.0
+
+    def register(self, reg):
+        reg.register("aa", 3, "pde", comps=("ax", "ay", "az"))
+
+    def rhs(self, pen, df, ts):
+        out = pen.uxb()
+        if self.eta > 0.0:
+            out = out + self.eta * pen.del2a()
+            ts.diffus(self.eta)
+        accumulate(df, "aa", out)
+        bb = pen.bb()
+        d1 = pen.dline_1()
+        ts.advec2(sum((bb[a] * d1[a]) ** 2 for a in range(3)) * pen.rho1())
+        accumulate(df, "uu", pen.jxbr())
+
+    def init_fields(self, grid, spec, generator):
+        return {"aa": init_vector(self.init, grid, spec, generator,
+                                  ampl=self.ampl)}

@@ -1,0 +1,120 @@
+"""The CUDA kernels of pencil_tpu_torch against their plain PyTorch versions
+on the card.  Marked ``gpu``: they skip where there is no CUDA device.  On
+a machine with one, run them with
+
+    python -m pytest tests/test_torch_gpu.py -m gpu
+
+This file imports no JAX, so it also runs where JAX is not installed.
+Bounds: each field within 2e-5 × its max, the CFL maximum within 1e-6
+relative (the bounds of tests/test_fused.py:75-84).
+"""
+import pytest
+import torch
+
+import pencil_tpu_torch as pt
+from pencil_tpu_torch.ops import fused_rhs as fr
+
+RTOL_FIELD = 2e-5
+RTOL_DT = 1e-6
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def flagship(shape):
+    return pt.Config(
+        grid=pt.GridSpec(nx=shape[0], ny=shape[1], nz=shape[2]),
+        time=pt.TimeSpec(itorder=3), fused=True,
+        modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0), pt.Density(),
+                 pt.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pt.Viscosity(nu=5e-3),
+                 pt.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
+                 pt.Forcing(force=0.07, kf=3.0)))
+
+
+def random_fa(shape, device, seed=4):
+    g = torch.Generator(device).manual_seed(seed)
+    amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * 3, device=device)
+    return amp[:, None, None, None] * torch.randn(
+        (7,) + shape, generator=g, device=device)
+
+
+def assert_field_close(a, b, what):
+    for c in range(a.shape[0]):
+        err = float((a[c] - b[c]).abs().max())
+        assert err <= RTOL_FIELD * max(float(b[c].abs().max()), 1e-30), \
+            (what, c, err)
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (16, 24, 40)),
+                         ids=("32^3", "16x24x40"))
+def test_kernels_match_plain(cuda, shape):
+    """The second shape is not a multiple of the tile: ragged edges."""
+    pm = pt.Model(flagship(shape), device=cuda)
+    fa = random_fa(shape, cuda)
+    fr.reset_launches()
+    df1, dt1m = fr.rhs_first(pm, fa)
+    df1_p, dt1m_p = fr.rhs_first_plain(pm, fa)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    alpha, beta, _ = pm.rk
+    dt = 1.0 / dt1m_p
+    c2 = torch.stack((pm._alpha[1], beta[1] * dt, beta[0] * dt))
+    c3 = torch.stack((pm._alpha[2], beta[2] * dt, pm._zero))
+    got = {"df1": df1}
+    want = {"df1": df1_p}
+    got["df2"], got["f2"] = fr.rhs_tail_defer(pm, fa, df1_p, c2)
+    want["df2"], want["f2"] = fr.rhs_tail_defer_plain(pm, fa, df1_p, c2)
+    kick = pm.forcing.kick_vector(pm._ftables, pm._draws(), dt, pm.eos)
+    for name, k in (("f3", None), ("f3kick", kick)):
+        got[name] = fr.rhs_tail_last(pm, want["f2"], want["df2"], c3, k)
+        want[name] = fr.rhs_tail_last_plain(pm, want["f2"], want["df2"], c3, k)
+    torch.cuda.synchronize()
+    for name in got:
+        assert_field_close(got[name], want[name], name)
+    assert fr.LAUNCHES == {"rhs_first": 1, "rhs_tail_defer": 1,
+                           "rhs_tail_last": 2}
+
+
+def test_step_on_card_matches_cpu(cuda):
+    """Three full steps through the kernels against the same steps on the
+    CPU (plain versions), same fields and the same forcing draws."""
+    shape = (16, 16, 32)
+    fields = pt.Model(flagship(shape)).init_state(5)["fields"]
+    g = torch.Generator().manual_seed(9)
+    draws = [(torch.randint(0, 20, (1,), generator=g),
+              torch.rand((), generator=g) * 6.0 - 3.0,
+              torch.randn(3, generator=g)) for _ in range(3)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = pt.Model(flagship(shape), device=dev)
+        it = iter([tuple(t.to(dev) for t in d) for d in draws])
+        model.forcing_draws = it.__next__
+        s = model.init_state(5, overrides=fields)
+        for _ in range(3):
+            s = model.make_step()(s)
+        out[dev.type] = s
+    torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
+                               rtol=RTOL_DT, atol=0.0)
+    for k, ref in out["cpu"]["fields"].items():
+        a = out["cuda"]["fields"][k].cpu()
+        assert_field_close(a[None] if a.ndim == 3 else a,
+                           ref[None] if ref.ndim == 3 else ref, k)
+
+
+def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel; the plain version is not called."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(fr, "rhs_first_plain", boom)
+    monkeypatch.setattr(fr, "rhs_tail_defer_plain", boom)
+    monkeypatch.setattr(fr, "rhs_tail_last_plain", boom)
+    pm = pt.Model(flagship((32, 32, 32)), device=cuda)
+    s = pm.make_step()(pm.init_state(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(s["fields"]["uu"]).all()

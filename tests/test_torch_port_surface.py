@@ -1,0 +1,183 @@
+"""The port's public surface: no JAX behind it, configuration dataclasses
+that mirror the JAX package's, the fused-kernel gate, the state converter
+and the f32 precision settings."""
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pencil_tpu as pj
+import pencil_tpu_torch as pt
+from pencil_tpu_torch.compat.from_jax import state_from_numpy, state_to_numpy
+from pencil_tpu_torch.model import fused_gate, gate_reason
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_pulls_in_no_jax():
+    code = textwrap.dedent("""
+        import sys
+        import pencil_tpu_torch
+        import pencil_tpu_torch.compat.from_jax
+        import pencil_tpu_torch.ops.fused_rhs
+        bad = [m for m in sys.modules
+               if m.split('.')[0] in ('jax', 'jaxlib', 'pencil_tpu')]
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+PAIRS = [(pt.GridSpec, pj.GridSpec), (pt.TimeSpec, pj.TimeSpec),
+         (pt.MeshSpec, pj.MeshSpec), (pt.Config, pj.Config),
+         (pt.EosIdealGas, pj.EosIdealGas), (pt.Density, pj.Density),
+         (pt.Hydro, pj.Hydro), (pt.Viscosity, pj.Viscosity),
+         (pt.Magnetic, pj.Magnetic), (pt.Forcing, pj.Forcing)]
+
+
+def _defaults(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            out[f.name] = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            out[f.name] = type(f.default_factory()).__name__
+        else:
+            out[f.name] = None
+    return out
+
+
+@pytest.mark.parametrize("ours,theirs", PAIRS,
+                         ids=[p[0].__name__ for p in PAIRS])
+def test_config_fields_and_defaults_match_jax(ours, theirs):
+    """Every field of a port dataclass exists in the JAX one with the same
+    default; the configuration dataclasses carry all of the JAX fields."""
+    mine, ref = _defaults(ours), _defaults(theirs)
+    for name, default in mine.items():
+        assert name in ref, name
+        assert default == ref[name], name
+    if ours in (pt.GridSpec, pt.TimeSpec, pt.MeshSpec, pt.Config):
+        assert list(mine) == list(ref)
+    if hasattr(ours, "name"):
+        assert ours.name == theirs.name
+
+
+def flagship(**over):
+    kw = dict(
+        grid=pt.GridSpec(nx=16, ny=16, nz=16), time=pt.TimeSpec(itorder=3),
+        fused=True,
+        modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0), pt.Density(),
+                 pt.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pt.Viscosity(nu=5e-3),
+                 pt.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
+                 pt.Forcing(force=0.07, kf=3.0)))
+    kw.update(over)
+    return pt.Config(**kw)
+
+
+OUTSIDE = {
+    "unfused": dict(fused=False),
+    "rk2": dict(time=pt.TimeSpec(itorder=2)),
+    "no_magnetic": dict(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
+                                 pt.Viscosity(nu=1e-3))),
+    "twice_forced": dict(modules=flagship().modules + (pt.Forcing(),)),
+}
+
+
+def test_gate_accepts_the_flagship():
+    assert gate_reason(flagship()) is None
+    unforced = flagship(modules=flagship().modules[:-1])
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(flagship(), dev) is True
+        assert fused_gate(unforced, dev) is True
+
+
+@pytest.mark.parametrize("case", sorted(OUTSIDE))
+def test_gate_rejects_outside_configs_on_cuda(case):
+    cfg = flagship(**OUTSIDE[case])
+    assert gate_reason(cfg) is not None
+    assert fused_gate(cfg, "cpu") is False           # CPU: the eager path
+    with pytest.raises(NotImplementedError):
+        fused_gate(cfg, torch.device("cuda"))
+    with pytest.raises(NotImplementedError):
+        pt.Model(cfg, device="cuda")                 # before any allocation
+
+
+@pytest.mark.parametrize("over", [
+    dict(mesh=pt.MeshSpec(1, 1, 2)),
+    dict(grid=pt.GridSpec(nx=16, ny=16, nz=16, periodic=(True, True, False))),
+    dict(dtype="float64"),
+    dict(modules=(pt.EosIdealGas(), pt.Hydro())),
+], ids=("mesh", "nonperiodic", "float64", "no_density"))
+def test_unsupported_configs_raise_on_every_device(over):
+    with pytest.raises(NotImplementedError):
+        pt.Model(flagship(**over))
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        pt.Density(lupw_lnrho=True)
+    with pytest.raises(NotImplementedError):
+        pt.Viscosity(ivisc=("nu-shock",))
+    with pytest.raises(NotImplementedError):
+        pt.Model(flagship(modules=(pt.EosIdealGas(), pt.Density(init="xjump"),
+                                   pt.Hydro()), fused=False)).init_state(0)
+
+
+def test_state_converter_round_trips():
+    model = pt.Model(flagship())
+    state = model.init_state(3)
+    state = model.make_step()(state)
+    back = state_from_numpy(**state_to_numpy(state))
+    for key in ("t", "dt", "it"):
+        assert torch.equal(back[key], state[key])
+    for k, v in state["fields"].items():
+        assert torch.equal(back["fields"][k], v)
+    with pytest.raises(ValueError):
+        state_to_numpy(model.pack_state(state))
+
+
+def test_state_converter_takes_jax_state():
+    """A JAX package state crosses as numpy and steps in the port."""
+    jm = pj.Model(pj.Config(
+        grid=pj.GridSpec(nx=8, ny=8, nz=8),
+        modules=(pj.EosIdealGas(), pj.Density(),
+                 pj.Hydro(init="gaussian-noise", ampl=1e-3))))
+    js = jm.init_state(0)
+    st = state_from_numpy({k: np.asarray(v) for k, v in js["fields"].items()},
+                          js["t"], js["dt"], js["it"])
+    for k, v in js["fields"].items():
+        np.testing.assert_array_equal(st["fields"][k].numpy(), np.asarray(v))
+    pm = pt.Model(pt.Config(grid=pt.GridSpec(nx=8, ny=8, nz=8),
+                            modules=(pt.EosIdealGas(), pt.Density(),
+                                     pt.Hydro())))
+    out = pm.make_step()(st)
+    assert torch.isfinite(out["fields"]["uu"]).all()
+
+
+def test_tf32_is_off():
+    import pencil_tpu_torch.ops.fused_rhs  # noqa: F401  (sets the flags)
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_registry_layout_matches_jax():
+    pm = pt.Model(flagship())
+    jm = pj.Model(pj.Config(grid=pj.GridSpec(nx=16, ny=16, nz=16),
+                            modules=(pj.EosIdealGas(), pj.Density(),
+                                     pj.Hydro(), pj.Viscosity(),
+                                     pj.Magnetic(), pj.Forcing())))
+    assert pm.reg.comp_names == jm.reg.comp_names
+    assert (pm.reg.nvar, pm.reg.ncom) == (jm.reg.nvar, jm.reg.ncom) == (7, 7)
+    assert [m.name for m in pm.modules] == [m.name for m in jm.modules]
+    np.testing.assert_array_equal(pm.grid.z.numpy(),
+                                  np.asarray(jm.grid.z)[3:-3])
