@@ -1,15 +1,22 @@
 """pencil_tpu_torch — the PyTorch/CUDA port of pencil_tpu.
 
-The first slice: the flagship step (forced isothermal MHD in a periodic
-cube, 6th-order central differences, 2N-RK3, float32) runs on an NVIDIA
-Hopper GPU through three hand-written CUDA kernels, and on the CPU through
-their plain PyTorch versions.  The JAX package ``pencil_tpu`` is the
-reference it is held to; this package never imports it or JAX.
+Two slices run on an NVIDIA Hopper GPU through hand-written CUDA kernels,
+and on the CPU through their plain PyTorch versions (float32, 6th-order
+central differences, 2N-RK3):
+
+* the flagship step: forced isothermal MHD in a periodic cube;
+* stratified convection with a non-periodic z axis
+  (``configs.conv_slab``).
+
+The JAX package ``pencil_tpu`` is the reference it is held to; this
+package never imports it or JAX.
 """
+from . import configs
 from .core.config import Config, GridSpec, MeshSpec, TimeSpec
 from .core.grid import make_grid
 from .model import Model, fused_gate
-from .physics import (Density, EosIdealGas, Forcing, Hydro, Magnetic,
-                      Viscosity)
+from .ops.boundary import BC
+from .physics import (Density, Entropy, EosIdealGas, Forcing, Gravity, Hydro,
+                      Magnetic, Viscosity)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,8 +1,10 @@
 """State carried between the JAX package and the port as numpy arrays.
 
-The flagship has no weights: both packages build the same configuration
-from the same kwargs, so the state is all that crosses.  This module
-imports no JAX; the caller converts JAX arrays with ``np.asarray``.
+The port's configurations have no weights: both packages build the same
+configuration from the same kwargs, so the state is all that crosses —
+the flagship's 7 fields (uu, lnrho, aa) or stratified convection's 5 (uu,
+lnrho, ss).  This module imports no JAX; the caller converts JAX arrays
+with ``np.asarray``.
 """
 from __future__ import annotations
 
@@ -36,3 +38,22 @@ def state_to_numpy(state: Dict) -> Dict:
         "dt": float(state["dt"]),
         "it": int(state["it"]),
     }
+
+
+def overrides_from_numpy(fields: Dict[str, np.ndarray], reg) -> Dict:
+    """Numpy fields (e.g. a JAX state's) → ``Model.init_state(overrides=)``
+    for the registry ``reg``: one float32 array per slot, a scalar slot as
+    (nx, ny, nz) and a vector slot as (ncomp, nx, ny, nz).  Raises if a
+    slot is missing or has another shape."""
+    out = {}
+    for name, slot in reg.slots.items():
+        if name not in fields:
+            raise KeyError(f"no field {name!r} for the port's registry")
+        arr = np.array(fields[name], np.float32)   # a writable copy
+        want_vector = slot.ncomp > 1
+        if arr.ndim != (4 if want_vector else 3) or (
+                want_vector and arr.shape[0] != slot.ncomp):
+            raise ValueError(f"field {name!r}: shape {arr.shape} does not "
+                             f"fit a {slot.ncomp}-component slot")
+        out[name] = arr
+    return out

@@ -1,0 +1,47 @@
+"""Named configurations of the port, shared by its tests and
+``chip_smoke.py``.  Each builder takes the package whose classes it uses
+(``pencil_tpu_torch`` or ``pencil_tpu``), so the tests build the same
+configuration in both.
+"""
+from __future__ import annotations
+
+import sys
+
+
+def conv_slab(n, fused=True, pkg=None):
+    """Stratified convection in the style of the Pencil Code's conv-slab
+    sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
+    (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
+    gravity, with K-const conduction, a heating layer at the bottom, a
+    cooling layer at the top and viscous heating; unforced; 5 fields (uu,
+    lnrho, ss).  x and y are periodic; z has physical boundaries.  ``n``
+    is an int (a cube) or (nx, ny, nz).  The values are this
+    configuration's own, not the sample's start.in/run.in.
+
+    The bottom c1 flux follows the run-directory loader's rule
+    (pencil_tpu/compat/rundir.py:2400-2406):
+    −γ·gravz/((mpoly1+1)(γ−1)cp) = 0.625; the top cT holds cs² = cs2cool.
+    The bcz order matters: lnrho before ss, whose c1/cT read lnρ's ghosts.
+    """
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    gamma, cp, gravz, mpoly1, cs2cool = 5.0 / 3.0, 1.0, -1.0, 3.0, 1.0
+    lval = -gamma * gravz / ((mpoly1 + 1.0) * (gamma - 1.0) * cp)
+    bcz = (pkg.BC.parse("ux", "s"), pkg.BC.parse("uy", "s"),
+           pkg.BC.parse("uz", "a"), pkg.BC.parse("lnrho", "a2"),
+           pkg.BC.parse("ss", "c1:cT", lval=lval, hval=cs2cool))
+    return pkg.Config(
+        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
+                          Lx=1.0, Ly=1.0, Lz=1.0,
+                          periodic=(True, True, False)),
+        time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
+        modules=(pkg.EosIdealGas(gamma=gamma, cs0=1.0, cp=cp),
+                 pkg.Density(init="piecew-poly"),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pkg.Gravity(gravz_profile="const", gravz=gravz),
+                 pkg.Viscosity(ivisc=("nu-const",), nu=4e-3),
+                 pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
+                             mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
+                             iheatcond=("K-const",), hcond0=8e-3,
+                             luminosity=5e-3, wheat=0.1, cool=15.0,
+                             wcool=0.2, cs2cool=cs2cool)))

@@ -26,14 +26,16 @@
 // tile loads coalesce.  Outputs always go to buffers no block reads halos
 // from: blocks run in any order, so an aliased write would race.
 //
-// Parity: the stencil sums use round-to-nearest intrinsics (no FMA
-// contraction) in the JAX package's term order, so constant fields give
-// exactly zero derivatives and the sums match the plain PyTorch version.
+// Parity: the stencil sums (stencil.cuh) use round-to-nearest intrinsics
+// (no FMA contraction) in the JAX package's term order, so constant fields
+// give exactly zero derivatives and the sums match the plain PyTorch
+// version.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#define NG 3           // ghost width of the 6th-order stencil
+#include "stencil.cuh"
+
 #define NC 7           // ux uy uz lnrho ax ay az (registry order)
 #define TX 4
 #define TY 4
@@ -47,6 +49,11 @@
 
 enum { UX = 0, LNRHO = 3, AX = 4 };
 enum { FIRST = 0, DEFER = 1, LAST = 2 };
+
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
 
 // Host-filled constants, passed by value as the kernel parameter.  The
 // layout is mirrored by ctypes in ops/fused_rhs.py.
@@ -62,48 +69,6 @@ struct PcParams {
   float dxyz2, cdt, dif;     // dif = max(nu, eta)*dxyz2/cdtv
   float x0, y0, dx, dy;      // node coordinates for the kick
 };
-
-__device__ __forceinline__ int wrap_index(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-// sum_o w_o*(f[+o] - f[-o])
-__device__ __forceinline__ float d1(const float* p, int st, const float* w) {
-  float acc = __fmul_rn(w[0], __fsub_rn(p[st], p[-st]));
-  acc = __fadd_rn(acc, __fmul_rn(w[1], __fsub_rn(p[2 * st], p[-2 * st])));
-  acc = __fadd_rn(acc, __fmul_rn(w[2], __fsub_rn(p[3 * st], p[-3 * st])));
-  return acc;
-}
-
-// sum_o w_o*((f[+o] + f[-o]) - 2 f[0])
-__device__ __forceinline__ float d2(const float* p, int st, const float* w) {
-  const float c2 = 2.0f * p[0];
-  float acc = __fmul_rn(w[0], __fsub_rn(__fadd_rn(p[st], p[-st]), c2));
-  acc = __fadd_rn(acc, __fmul_rn(w[1],
-        __fsub_rn(__fadd_rn(p[2 * st], p[-2 * st]), c2)));
-  acc = __fadd_rn(acc, __fmul_rn(w[2],
-        __fsub_rn(__fadd_rn(p[3 * st], p[-3 * st]), c2)));
-  return acc;
-}
-
-// 12-point bidiagonal mixed derivative along strides s1 < s2 (axis order),
-// taps (o,o,+), (-o,o,-), (-o,-o,+), (o,-o,-) for o = 1, 2, 3.
-__device__ __forceinline__ float dmix(const float* p, int s1, int s2,
-                                      const float* wm) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int o = 1; o <= 3; ++o) {
-    const float* w = wm + 4 * (o - 1);
-    const int a = o * s1, b = o * s2;
-    const float t0 = __fmul_rn(w[0], p[a + b]);
-    acc = (o == 1) ? t0 : __fadd_rn(acc, t0);
-    acc = __fadd_rn(acc, __fmul_rn(w[1], p[-a + b]));
-    acc = __fadd_rn(acc, __fmul_rn(w[2], p[-a - b]));
-    acc = __fadd_rn(acc, __fmul_rn(w[3], p[a - b]));
-  }
-  return acc;
-}
 
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the shared tile; field c is at s + c*SVOL.  Term order follows the JAX
@@ -266,23 +231,9 @@ pc_flagship(const PcParams P, const float* __restrict__ fa,
 #pragma unroll
       for (int c = 0; c < NC; ++c) dfout[c * N + g] = r[c];
     }
-    // block max of 1/dt: warp shuffles, then one warp over the warp maxima
-    __shared__ float red[NTHREADS / 32];
-    float m = dt1;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if ((tid & 31) == 0) red[tid >> 5] = m;
-    __syncthreads();
-    if (tid < 32) {
-      m = tid < NTHREADS / 32 ? red[tid] : 0.0f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (tid == 0)
-        dt1blk[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
-               + blockIdx.x] = m;
-    }
+    block_max_store<NTHREADS>(
+        dt1, dt1blk + (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
+                 + blockIdx.x);
     return;
   }
   if (!active) return;

@@ -61,7 +61,7 @@ def cfl_dt1(ts, grid, time_cfg):
     if not isinstance(ts.advec_cs2, float):
         adv = adv + torch.sqrt(ts.advec_cs2)
     dt1_a = adv / time_cfg.cdt
-    if ts.maxdiffus == 0.0:
+    if not torch.is_tensor(ts.maxdiffus) and ts.maxdiffus == 0.0:
         return dt1_a
     dif = ts.maxdiffus * dxyz2(grid) / time_cfg.cdtv
     return torch.sqrt(dt1_a ** 2 + dif ** 2)

@@ -1,18 +1,31 @@
 """Model assembly and the time step (counterpart of ``pencil_tpu/model.py``).
 
-The flagship configuration — ideal-gas EOS, lnρ density, hydro,
-'nu-const' viscosity, resistive-gauge magnetic, optional helical forcing,
-2N-RK3 — runs as the chain of three fused RHS kernels of the JAX package's
-wrap mode (model.py:650-703):
+Two module sets run as chains of fused kernels (2N-RK3, f32):
 
-  1. K1 evaluates df1 = RHS(f0) and the CFL maximum; dt stays on the device;
-  2. K2 rebuilds f1 = f0 + β₁Δt·df1 from raw f0 and df1 and writes df2, f2;
-  3. K3 writes f3 = f2 + β₃Δt·(α₃df2 + RHS(f2)) with the forcing kick on u.
+* The flagship — ideal-gas EOS, lnρ density, hydro, 'nu-const'
+  viscosity, resistive-gauge magnetic, optional helical forcing — on a
+  fully periodic grid, as the JAX package's wrap mode (model.py:650-703):
 
-``fused_gate`` decides whether a configuration runs that chain.  On a CUDA
-device a configuration outside the gate raises; on the CPU it runs the
-eager 2N-RK path built from the same plain module code (the counterpart of
-the JAX package's jnp path).
+    1. K1 evaluates df1 = RHS(f0) and the CFL maximum; dt stays on the
+       device;
+    2. K2 rebuilds f1 = f0 + β₁Δt·df1 from raw f0 and df1, writes df2, f2;
+    3. K3 writes f3 = f2 + β₃Δt·(α₃df2 + RHS(f2)) with the forcing kick.
+
+* Stratified convection — the EOS with an entropy slot, lnρ density,
+  hydro, constant gravity, 'nu-const' viscosity, entropy — with a
+  non-periodic z axis, as the JAX package's zghost mode (model.py:704-775,
+  :891):
+
+    1. ``fill_ghosts`` (x/y wrap, z BCs), K6: df1 = RHS(f0) and the CFL
+       maximum, dt on the device, f1 = f0 + β₁Δt·df1 as a torch axpy;
+    2. and 3. ``fill_ghosts``, K7: df ← α·df + RHS(f), f ← f + βΔt·df;
+    then ``bc_writeback`` pins the boundary planes that value-setting BCs
+    fix.
+
+``fused_gate`` decides whether a configuration runs one of the chains.  On
+a CUDA device a configuration outside the gate raises; on the CPU it runs
+the eager 2N-RK path built from the same plain module code (the
+counterpart of the JAX package's jnp path).
 """
 from __future__ import annotations
 
@@ -24,8 +37,11 @@ from .core.config import Config
 from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
+from .ops.boundary import BC_REGISTRY
 from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
-                            rhs_tail_last)
+                            rhs_tail_last, rhs_zg, rhs_zg_upd)
+from .ops.stencil import NGHOST
+from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
 
 # Fixed RHS evaluation order (reference calc_all_pencils order,
@@ -46,9 +62,13 @@ REGISTRATION_ORDER = (
     "heatflux", "lorenz_gauge", "ascalar", "testfield",
 )
 
-# the module set the fused kernels implement (forcing is optional)
+# the module sets the fused kernels implement: the flagship (forcing is
+# optional) on a fully periodic grid, stratified convection with z
+# non-periodic and x, y periodic
 FLAGSHIP_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
                               "magnetic"))
+CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
+                              "viscosity", "entropy"))
 
 
 def _order_key(order):
@@ -57,22 +77,46 @@ def _order_key(order):
     return key
 
 
-def gate_reason(cfg: Config):
-    """Why ``cfg`` is outside the fused kernel chain, or None."""
+def _unported_bcs(cfg: Config):
+    """The BC mnemonics of ``cfg`` that the port does not implement."""
+    return sorted({code for bcs in (cfg.bcx, cfg.bcy, cfg.bcz) for bc in bcs
+                   for code in (bc.low, bc.high)
+                   if code and code not in BC_REGISTRY})
+
+
+def fused_mode(cfg: Config):
+    """(mode, None) with mode 'wrap' (the flagship chain) or 'zghost'
+    (stratified convection), or (None, why ``cfg`` is outside both)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
-        return "fused=False"
+        return None, "fused=False"
     if cfg.time.itorder != 3:
-        return f"itorder={cfg.time.itorder} (the kernels implement 2N-RK3)"
-    if len(set(names)) != len(names) or set(names) - {"forcing"} \
-            != FLAGSHIP_MODULES:
-        return (f"modules {sorted(names)} (the kernels implement "
-                f"{sorted(FLAGSHIP_MODULES)} with optional forcing)")
-    return None
+        return None, (f"itorder={cfg.time.itorder} (the kernels implement "
+                      "2N-RK3)")
+    bad = _unported_bcs(cfg)
+    if bad:
+        return None, f"BC mnemonics {bad} (not ported)"
+    mods = set(names)
+    periodic = tuple(cfg.grid.periodic)
+    if len(mods) == len(names):
+        if mods - {"forcing"} == FLAGSHIP_MODULES \
+                and periodic == (True, True, True):
+            return "wrap", None
+        if mods == CONVSLAB_MODULES and periodic == (True, True, False):
+            return "zghost", None
+    return None, (f"modules {sorted(names)} with periodic={periodic} (the "
+                  f"kernels implement {sorted(FLAGSHIP_MODULES)} with "
+                  "optional forcing on a periodic grid, and "
+                  f"{sorted(CONVSLAB_MODULES)} with a non-periodic z)")
+
+
+def gate_reason(cfg: Config):
+    """Why ``cfg`` is outside the fused kernel chains, or None."""
+    return fused_mode(cfg)[1]
 
 
 def fused_gate(cfg: Config, device) -> bool:
-    """True when ``cfg`` runs the fused kernel chain on ``device``; False
+    """True when ``cfg`` runs a fused kernel chain on ``device``; False
     when it runs the eager path (CPU only).  Raises NotImplementedError for
     a configuration outside the gate on any other device: a GPU never
     silently runs the plain path."""
@@ -86,6 +130,22 @@ def fused_gate(cfg: Config, device) -> bool:
     return False
 
 
+def _check_bcs(cfg: Config, problems):
+    gs = cfg.grid
+    if not (gs.periodic[0] and gs.periodic[1]):
+        problems.append("non-periodic x or y (only z may be non-periodic)")
+    for axis, bcs in enumerate((cfg.bcx, cfg.bcy, cfg.bcz)):
+        if gs.periodic[axis] and any(
+                code not in ("p", "") for bc in bcs
+                for code in (bc.low, bc.high)):
+            problems.append(f"physical BCs on periodic axis {'xyz'[axis]}")
+    bad = _unported_bcs(cfg)
+    if bad:
+        problems.append(f"BC mnemonics {bad}")
+    if cfg.force_bound != ("", ""):
+        problems.append("force_bound")
+
+
 def _check_supported(cfg: Config):
     """What the port does not implement on any device."""
     gs = cfg.grid
@@ -94,9 +154,7 @@ def _check_supported(cfg: Config):
         problems.append(f"mesh {cfg.mesh.shape} (one device only)")
     if cfg.dtype != "float32":
         problems.append(f"dtype {cfg.dtype}")
-    if not all(gs.periodic) or cfg.bcx or cfg.bcy or cfg.bcz \
-            or cfg.force_bound != ("", ""):
-        problems.append("boundary conditions (fully periodic grids only)")
+    _check_bcs(cfg, problems)
     if gs.nghost != 3:
         problems.append(f"nghost={gs.nghost}")
     if cfg.time.itorder not in RK_TABLES:
@@ -121,12 +179,23 @@ class Model:
         self.cfg = cfg
         self.device = torch.device(device)
         self.fused = fused_gate(cfg, self.device)
+        self.mode = fused_mode(cfg)[0] if self.fused else None
         self.dtype = torch.float32
         self.modules = tuple(sorted(cfg.modules, key=_order_key(MODULE_ORDER)))
         self.reg = Registry()
         for m in sorted(cfg.modules, key=_order_key(REGISTRATION_ORDER)):
             m.register(self.reg)
         self.reg.finalize()
+        self.bc_axes = (cfg.bcx, cfg.bcy, cfg.bcz)
+        self._nonperiodic = tuple(a for a in range(3)
+                                  if not cfg.grid.periodic[a])
+        comps = self.reg.comp_names[: self.reg.ncom]
+        for axis in self._nonperiodic:
+            named = [bc.comp for bc in self.bc_axes[axis]]
+            if sorted(named) != sorted(comps):
+                raise NotImplementedError(
+                    f"pencil_tpu_torch: the non-periodic {'xyz'[axis]} axis "
+                    f"needs one BC for each of {comps}, got {named}")
         self.eos = cfg.module("eos")
         self.grid = make_grid(cfg.grid, self.device, self.dtype)
         self.rk = RK_TABLES[cfg.time.itorder]
@@ -156,13 +225,20 @@ class Model:
         for m in self.modules:
             if _slots_of(m) <= set(overrides):
                 continue
-            fields.update(m.init_fields(self.grid, gs, self.generator))
+            fields.update(m.init_fields(self.grid, gs, self.generator,
+                                        cfg=self.cfg))
         for name, arr in overrides.items():
             fields[name] = torch.as_tensor(arr, dtype=self.dtype,
                                            device=self.device).clone()
+        fields = {k: fields[k] for k in self.reg.slots}
+        if self._nonperiodic:
+            # value-setting BCs pin the boundary planes from the start
+            # (JAX model.py:332-338)
+            fields = self.reg.unstack(
+                self.bc_writeback(self.reg.stack(fields)))
         dev = dict(dtype=self.dtype, device=self.device)
         return {
-            "fields": {k: fields[k] for k in self.reg.slots},
+            "fields": fields,
             "t": torch.tensor(self.cfg.time.tstart, **dev),
             "dt": torch.tensor(self.cfg.time.dt if self.cfg.time.dt > 0
                                else 1e-4, **dev),
@@ -188,6 +264,28 @@ class Model:
         return st
 
     # ------------------------------------------------------------------
+    def ghosted(self, fa, axes=(0, 1, 2)):
+        """The communicated components of ``fa`` with ghost zones along
+        ``axes``: wrap on periodic axes, the BCs on the others."""
+        return fill_ghosts(fa[: self.reg.ncom], self.cfg.grid, self.bc_axes,
+                           self.reg, self.grid, self.cfg, self.eos, axes)
+
+    def bc_writeback(self, fa):
+        """Copy the BC-applied boundary planes of every non-periodic axis
+        into ``fa``, in place, and return it: value-setting BCs ('a',
+        'set', 'cT') pin the state itself, not only its ghosted copy (JAX
+        model.py:962-996).  Every ported BC is pointwise across the
+        boundary plane, so ghosting that one axis gives the JAX package's
+        planes."""
+        g = NGHOST
+        for axis in self._nonperiodic:
+            fg = self.ghosted(fa, (axis,))
+            n = fa.shape[1 + axis]
+            for pos_f, pos_g in ((0, g), (n - 1, n - 1 + g)):
+                fa[: self.reg.ncom].narrow(1 + axis, pos_f, 1).copy_(
+                    fg.narrow(1 + axis, pos_g, 1))
+        return fa
+
     def _draws(self):
         if self.forcing_draws is not None:
             return self.forcing_draws()
@@ -230,21 +328,48 @@ class Model:
             out["fields"] = self.reg.unstack(f3)
         return out
 
+    def _zghost_step(self, state: Dict, kernels=(rhs_zg, rhs_zg_upd)):
+        """One 2N-RK3 step as the zghost chain (JAX model.py:704-775,
+        :891): K6 and a torch axpy, then K7 twice, each on a fresh ghost
+        fill, then the boundary-plane writeback.  ``kernels`` lets a
+        measurement time the plain versions through the same chain."""
+        first, upd = kernels
+        alpha, beta, _ = self.rk
+        packed = "_fa" in state
+        fa = state["_fa"] if packed else self.reg.stack(state["fields"])
+        df, dt1m = first(self, self.ghosted(fa))
+        dt = self._new_dt(dt1m, state["dt"])
+        fa = fa + beta[0] * dt * df
+        for isub in range(1, len(alpha)):
+            coef = torch.stack((self._alpha[isub], beta[isub] * dt))
+            df, fa = upd(self, self.ghosted(fa), df, coef)
+        fa = self.bc_writeback(fa)
+        out = {"t": state["t"] + dt, "dt": dt, "it": state["it"] + 1}
+        if packed:
+            out["_fa"] = fa
+        else:
+            out["fields"] = self.reg.unstack(fa)
+        return out
+
     def _eager_step(self, state: Dict):
-        """One 2N-RK step from the plain RHS, the kick applied after the
-        substeps (CPU only; JAX model.py:733-775, :924-933)."""
+        """One 2N-RK step from the plain RHS, the boundary-plane writeback
+        and the kick applied after the substeps (CPU only; JAX
+        model.py:733-775, :891, :924-933)."""
         alpha, beta, _ = self.rk
         fa = self.reg.stack(state["fields"])
+        ghosted = bool(self._nonperiodic)
         df = dt = None
         for isub in range(len(alpha)):
-            dfa, dt1m = rhs_plain(self, fa, want_dt1=isub == 0)
+            dfa, dt1m = rhs_plain(
+                self, self.ghosted(fa) if ghosted else fa,
+                want_dt1=isub == 0, ghosted=ghosted)
             if isub == 0:
                 dt = self._new_dt(dt1m, state["dt"])
                 df = dfa
             else:
                 df = alpha[isub] * df + dfa
             fa = fa + beta[isub] * dt * df
-        fields = self.reg.unstack(fa)
+        fields = self.reg.unstack(self.bc_writeback(fa))
         if self.forcing is not None:
             fields = self.forcing.after_timestep(
                 fields, self.grid, self._ftables, self._draws(), dt, self.eos)
@@ -252,8 +377,10 @@ class Model:
                 "it": state["it"] + 1}
 
     def _local_step(self, state: Dict) -> Dict:
-        if self.fused:
+        if self.mode == "wrap":
             return self._fused_step(state)
+        if self.mode == "zghost":
+            return self._zghost_step(state)
         return self._eager_step(state)
 
     def make_step(self):

@@ -1,9 +1,11 @@
-"""Build and load ``csrc/fused_rhs.cu`` with nvcc, at first use.
+"""Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
-The shared library has a plain C interface and is loaded with ``ctypes``,
-so the build needs no PyTorch headers and takes seconds.  It lands in
-``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash of the source
-and the flags, so an edited source rebuilds.  Nothing here runs at import.
+Each ``csrc/*.cu`` becomes its own shared library with a plain C
+interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
+takes seconds; the sources are compiled in parallel, one nvcc each.  They
+land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -17,14 +19,30 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_rhs.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the 2e-5 parity bound needs full-precision sincosf,
 # expf, sqrtf and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
+_p = ctypes.c_void_p
+# each library's entry points: name -> argtypes (all return an int)
+SIGNATURES = {
+    "fused_rhs": {
+        "pc_tile_shape": [_p],
+        "pc_rhs_first": [_p] * 5,
+        "pc_rhs_tail_defer": [_p] * 7,
+        "pc_rhs_tail_last": [_p] * 8,
+    },
+    "zghost_rhs": {
+        "pc_zg_tile_shape": [_p],
+        "pc_rhs_zg": [_p] * 7,
+        "pc_rhs_zg_upd": [_p] * 9,
+    },
+}
+
+_libs = {}
 build_seconds = None     # wall time of the last nvcc run, None if cached
 
 
@@ -38,51 +56,68 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def sources():
+    return {name: CSRC / f"{name}.cu" for name in SIGNATURES}
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fused_rhs_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for this source exists."""
+def build() -> dict:
+    """Compile every source whose library is missing, all nvcc runs at
+    once; returns name -> library path."""
     global build_seconds
-    out = library_path()
-    if out.exists():
+    out = {name: library_path(name) for name in SIGNATURES}
+    todo = {name: path for name, path in out.items() if not path.exists()}
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
+    procs, tmps = {}, {}
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        for name in todo:
+            fd, tmps[name] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[name] = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmps[name],
+                 str(sources()[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        failed = []
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):"
+                              f"\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, path in todo.items():
+            os.replace(tmps[name], path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps.values():
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     build_seconds = time.perf_counter() - t0
     return out
 
 
-def load():
-    """The loaded library with every entry point's ctypes signature set."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p = ctypes.c_void_p
-        sigs = {
-            "pc_tile_shape": [p],
-            "pc_rhs_first": [p, p, p, p, p],
-            "pc_rhs_tail_defer": [p, p, p, p, p, p, p],
-            "pc_rhs_tail_last": [p, p, p, p, p, p, p, p],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
+def load(name: str = "fused_rhs"):
+    """The loaded library ``name`` with every entry point's ctypes
+    signature set."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]

@@ -1,10 +1,13 @@
-"""The flagship step's three fused RHS kernels and their plain versions
-(counterpart of ``pencil_tpu/ops/fused_rhs.py``, wrap mode).
+"""The fused RHS kernels and their plain versions (counterpart of
+``pencil_tpu/ops/fused_rhs.py``).
 
 Each wrapper dispatches on the device of the tensor it is given: a CUDA
-tensor launches the hand-written kernel of ``csrc/fused_rhs.cu``, or
-raises; a CPU tensor runs the plain PyTorch version beside it.  There is no
-fallback from a kernel to its plain version.
+tensor launches the hand-written kernel of ``csrc/``, or raises; a CPU
+tensor runs the plain PyTorch version beside it.  There is no fallback
+from a kernel to its plain version.
+
+The flagship step (wrap mode, ``csrc/fused_rhs.cu``), on the raw periodic
+stack (7, nx, ny, nz):
 
   rhs_first        K1  df = RHS(f), max of the CFL 1/dt
   rhs_tail_defer   K2  f1 = f0 + cprev·df1 rebuilt from raw f0 and df1;
@@ -12,10 +15,17 @@ fallback from a kernel to its plain version.
   rhs_tail_last    K3  f3 = f2 + βΔt·(α·df2 + RHS(f2)), plus the helical
                        forcing kick on u when a kick vector is given
 
-``coef`` = [α, βΔt, cprev] and ``kick`` (12,) are device tensors, so no
-launch needs a host copy of dt.  Every wrapper returns fresh output
-tensors: a kernel must never write into a buffer another block reads halos
-from.
+Stratified convection (zghost mode, ``csrc/zghost_rhs.cu``), on the stack
+ghosted in all three axes by ``fill_ghosts`` (5, nx+6, ny+6, nz+6):
+
+  rhs_zg           K6  df = RHS(f), max of the CFL 1/dt
+  rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
+                       f ← f_interior + βΔt·df, a fresh tensor
+
+``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
+launch needs a host copy of dt.  Outputs never go to a buffer another
+block reads halos from; K7's df overwrites df_prev, which each point reads
+only at itself (the JAX alias {4: 0}).
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from ..integrate.timestep import cfl_dt1
 from ..physics.base import TimestepAccum
 from ..physics.pencils import Pencils
 from . import _build
-from .stencil import BIDIAG, BIDIAG_TAPS, paired_weights
+from .stencil import BIDIAG, BIDIAG_TAPS, NGHOST, i, paired_weights
 
 # Nothing here should reach cuDNN or a matmul, but a stencil written as a
 # conv3d would silently drop to TF32 on Hopper and lose f32 parity.
@@ -38,7 +48,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
-LAUNCHES = {"rhs_first": 0, "rhs_tail_defer": 0, "rhs_tail_last": 0}
+LAUNCHES = {"rhs_first": 0, "rhs_tail_defer": 0, "rhs_tail_last": 0,
+            "rhs_zg": 0, "rhs_zg_upd": 0}
 
 
 def reset_launches():
@@ -47,11 +58,15 @@ def reset_launches():
 
 
 # ---- plain PyTorch versions ---------------------------------------------
-def rhs_plain(model, f, want_dt1=True):
-    """(df, max 1/dt) of the composed module set on the periodic stack f.
-    The max is None when ``want_dt1`` is false."""
+def rhs_plain(model, f, want_dt1=True, ghosted=False):
+    """(df, max 1/dt) of the composed module set on the periodic stack f,
+    or on the fully ghosted stack f when ``ghosted``.  The max is None
+    when ``want_dt1`` is false."""
     reg = model.reg
-    pen = Pencils(f[: reg.ncom], model.grid, reg, model.cfg, model.eos)
+    pen = Pencils(f[: reg.ncom], model.grid, reg, model.cfg, model.eos,
+                  ghosted=ghosted)
+    shape = tuple(n - 2 * NGHOST for n in f.shape[1:]) if ghosted \
+        else tuple(f.shape[1:])
     df = {}
     ts = TimestepAccum()
     for m in model.modules:
@@ -62,7 +77,7 @@ def rhs_plain(model, f, want_dt1=True):
             continue
         d = df.get(name)
         if d is None:
-            d = torch.zeros((slot.ncomp,) + f.shape[1:], dtype=f.dtype,
+            d = torch.zeros((slot.ncomp,) + shape, dtype=f.dtype,
                             device=f.device)
         elif d.ndim == 3:
             d = d[None]
@@ -115,6 +130,19 @@ def rhs_tail_last_plain(model, fa, df2, coef, kick=None):
         V = a * sC + b * cC
         kicked.append(f3[iuu + c] + kick[10] * (P * U - Q * V))
     return torch.cat([f3[:iuu], torch.stack(kicked), f3[iuu + 3:]])
+
+
+def rhs_zg_plain(model, fg):
+    """K6's plain version: (df, 0-d max of 1/dt) on the ghosted stack."""
+    return rhs_plain(model, fg, ghosted=True)
+
+
+def rhs_zg_upd_plain(model, fg, df_prev, coef):
+    """K7's plain version: (df, f); df is written over df_prev."""
+    alpha, bdt = coef[0], coef[1]
+    dfa, _ = rhs_plain(model, fg, want_dt1=False, ghosted=True)
+    df_prev.copy_(alpha * df_prev + dfa)
+    return df_prev, i(fg[: model.reg.nvar]) + bdt * df_prev
 
 
 def _node0(gs):
@@ -181,10 +209,78 @@ def kernel_params(model) -> PcParams:
     return p
 
 
-def _nblocks(shape):
-    lib = _build.load()
+class ZgParams(ctypes.Structure):
+    """Mirror of ``struct ZgParams`` in csrc/zghost_rhs.cu."""
+
+    _fields_ = [
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("has_visc", ctypes.c_int), ("has_cond", ctypes.c_int),
+        ("has_cool", ctypes.c_int), ("has_heat", ctypes.c_int),
+        ("w1", ctypes.c_float * 3), ("w2", ctypes.c_float * 3),
+        ("wm", ctypes.c_float * 12),
+        ("inv", ctypes.c_float * 3), ("invsq", ctypes.c_float * 3),
+        ("nu", ctypes.c_float), ("two_nu", ctypes.c_float),
+        ("third", ctypes.c_float), ("gravz", ctypes.c_float),
+        ("cs20", ctypes.c_float), ("gm1", ctypes.c_float),
+        ("g_cp", ctypes.c_float), ("cp", ctypes.c_float),
+        ("gamma", ctypes.c_float), ("lnrho0", ctypes.c_float),
+        ("lnTT0", ctypes.c_float), ("hcond0", ctypes.c_float),
+        ("cool", ctypes.c_float), ("cs2c", ctypes.c_float),
+        ("heat_norm", ctypes.c_float),
+        ("dxyz2", ctypes.c_float), ("cdt", ctypes.c_float),
+        ("cdtv", ctypes.c_float),
+    ]
+
+
+# the zghost kernels' fixed field layout: the conv-slab registry order
+_ZG_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "ss": slice(4, 5)}
+
+
+def zg_params(model):
+    """(ZgParams, cooling profile, heating profile) of ``model``: the
+    kernel constants rounded to f32 as the plain version rounds them, and
+    the z profiles as device vectors (zeros where a layer is off); built
+    once per model."""
+    p = model.__dict__.get("_zg_params")
+    if p is not None:
+        return p
+    reg, cfg, gs = model.reg, model.cfg, model.cfg.grid
+    if reg.nvar != 5 or reg.nf != 5 or any(
+            reg.slice(k) != v for k, v in _ZG_LAYOUT.items()):
+        raise NotImplementedError("zghost kernels: conv-slab layout only")
+    eos, ent = model.eos, cfg.module("entropy")
+    nu = cfg.module("viscosity").nu
+    inv = np.array(inverse_spacings(gs), np.float32)
+    invsq = inv * inv
+    z = model.grid.z
+    prof_c, prof_h = ent.heat_cool_profiles(z, gs)
+    wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
+    params = ZgParams(
+        nx=gs.nx, ny=gs.ny, nz=gs.nz, has_visc=int(nu > 0.0),
+        has_cond=int(ent.conduction), has_cool=int(prof_c is not None),
+        has_heat=int(prof_h is not None),
+        w1=(ctypes.c_float * 3)(*paired_weights(1)),
+        w2=(ctypes.c_float * 3)(*paired_weights(2)),
+        wm=(ctypes.c_float * 12)(*wm),
+        inv=(ctypes.c_float * 3)(*inv), invsq=(ctypes.c_float * 3)(*invsq),
+        nu=max(nu, 0.0), two_nu=2.0 * max(nu, 0.0), third=1.0 / 3.0,
+        gravz=cfg.module("gravity").gravz,
+        cs20=eos.cs20, gm1=eos.gamma - 1.0, g_cp=eos.gamma / eos.cp,
+        cp=eos.cp, gamma=eos.gamma, lnrho0=eos.lnrho0, lnTT0=eos.lnTT0,
+        hcond0=ent.hcond0, cool=ent.cool, cs2c=ent.cs2c(eos),
+        heat_norm=ent.heat_norm(gs) if prof_h is not None else 0.0,
+        dxyz2=(invsq[0] + invsq[1]) + invsq[2], cdt=cfg.time.cdt,
+        cdtv=cfg.time.cdtv)
+    zero = torch.zeros_like(z)
+    p = (params, (zero if prof_c is None else prof_c).contiguous(),
+         (zero if prof_h is None else prof_h).contiguous())
+    model.__dict__["_zg_params"] = p
+    return p
+
+
+def _nblocks(shape, lib="fused_rhs", fn="pc_tile_shape"):
     t = (ctypes.c_int * 3)()
-    lib.pc_tile_shape(ctypes.addressof(t))
+    getattr(_build.load(lib), fn)(ctypes.addressof(t))
     n = 1
     for s, b in zip(shape, t):
         n *= -(-s // b)
@@ -199,10 +295,10 @@ def _check(t, shape, what):
                          f"{tuple(t.shape)}")
 
 
-def _launch(name, fa, *args):
+def _launch(name, fa, *args, lib="fused_rhs"):
     with torch.cuda.device(fa.device):
         stream = torch.cuda.current_stream(fa.device).cuda_stream
-        rc = getattr(_build.load(), "pc_" + name)(*args, stream)
+        rc = getattr(_build.load(lib), "pc_" + name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"pc_{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
@@ -269,3 +365,39 @@ def rhs_tail_last(model, fa, df2, coef, kick=None):
             None if kick is None else kick.data_ptr(), zc.data_ptr(),
             f3.data_ptr())
     return f3
+
+
+def rhs_zg(model, fg):
+    """K6: replaces ``kernel_zg`` + ``_fetch_zg``/``_halo_tile``/
+    ``_window_halo`` (fused_rhs.py:317, :292-304, :512).  Returns (df,
+    0-d max of 1/dt)."""
+    if not _dispatch(fg):
+        return rhs_zg_plain(model, fg)
+    p, prof_c, prof_h = zg_params(model)
+    g2 = 2 * NGHOST
+    _check(fg, (5, p.nx + g2, p.ny + g2, p.nz + g2), "fg")
+    df = fg.new_empty((5, p.nx, p.ny, p.nz))
+    blk = fg.new_empty(_nblocks((p.nx, p.ny, p.nz), "zghost_rhs",
+                                "pc_zg_tile_shape"))
+    _launch("rhs_zg", fg, ctypes.addressof(p), fg.data_ptr(),
+            prof_c.data_ptr(), prof_h.data_ptr(), df.data_ptr(),
+            blk.data_ptr(), lib="zghost_rhs")
+    return df, torch.amax(blk)
+
+
+def rhs_zg_upd(model, fg, df_prev, coef):
+    """K7: replaces ``kernel_zg_upd`` (fused_rhs.py:349).  Returns (df,
+    f); df is df_prev's buffer, overwritten."""
+    if not _dispatch(fg):
+        return rhs_zg_upd_plain(model, fg, df_prev, coef)
+    p, prof_c, prof_h = zg_params(model)
+    g2 = 2 * NGHOST
+    _check(fg, (5, p.nx + g2, p.ny + g2, p.nz + g2), "fg")
+    _check(df_prev, (5, p.nx, p.ny, p.nz), "df_prev")
+    _check(coef, (2,), "coef")
+    fa = df_prev.new_empty(df_prev.shape)
+    _launch("rhs_zg_upd", fg, ctypes.addressof(p), fg.data_ptr(),
+            prof_c.data_ptr(), prof_h.data_ptr(), df_prev.data_ptr(),
+            coef.data_ptr(), df_prev.data_ptr(), fa.data_ptr(),
+            lib="zghost_rhs")
+    return df_prev, fa

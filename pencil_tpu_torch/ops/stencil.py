@@ -1,9 +1,13 @@
-"""Periodic 6th-order central finite differences (counterpart of
-``pencil_tpu/ops/stencil.py`` for nghost = 3 with every axis wrapped).
+"""6th-order central finite differences (counterpart of
+``pencil_tpu/ops/stencil.py`` for nghost = 3).
 
-The port keeps no ghost zones: every axis is periodic over its full extent
-and a shift is a ``torch.roll``.  Operators take a tensor whose trailing
-three axes are (x, y, z) and return the same shape.  Weights come from the
+Two modes per axis, as in the JAX package.  Wrapped (``wrap=True``, the
+default): the axis is periodic over its full extent, a shift is a
+``torch.roll`` and the result keeps the input's shape.  Ghosted
+(``wrap=False``): the axis carries 3 ghost cells on each side, a shift is
+a slice, and the result has the interior extent along that axis; ``i()``
+crops the ghosts of the other axes.  Operators take a tensor whose
+trailing three axes are (x, y, z).  Weights come from the
 Taylor/Vandermonde system exactly as in the JAX package.
 """
 from __future__ import annotations
@@ -45,12 +49,23 @@ def paired_weights(deriv: int) -> tuple:
     return tuple(w[NGHOST + o] for o in range(1, NGHOST + 1))
 
 
-def _shift(f, ax, o):
-    """f[i + o] along array axis ``ax`` (periodic)."""
+def _shift(f, ax, o, wrap=True):
+    """f[i + o] along array axis ``ax``: a roll (periodic) or the slice of
+    the interior extent (ghosted)."""
+    if not wrap:
+        return f.narrow(ax, NGHOST + o, f.shape[ax] - 2 * NGHOST)
     return f if o == 0 else torch.roll(f, -o, dims=ax)
 
 
-def _paired(f, axis, deriv):
+def i(arr, axes=(0, 1, 2)):
+    """Crop the ghost zones of the given spatial axes (JAX ``stencil.i``)."""
+    for a in axes:
+        ax = arr.ndim - 3 + a
+        arr = arr.narrow(ax, NGHOST, arr.shape[ax] - 2 * NGHOST)
+    return arr
+
+
+def _paired(f, axis, deriv, wrap=True):
     """Central stencil in PAIRED form, so constants cancel exactly in f32
     (reference deriv.f90:89-171; JAX stencil.py:145-184):
 
@@ -58,32 +73,35 @@ def _paired(f, axis, deriv):
       even derivative:  Σ_{o>0} w_o·(f₊ₒ + f₋ₒ − 2·f₀)
     """
     ax = f.ndim - 3 + axis
+    f0 = _shift(f, ax, 0, wrap)
     out = None
     for o, w in zip(range(1, NGHOST + 1), paired_weights(deriv)):
         if deriv % 2:
-            term = w * (_shift(f, ax, o) - _shift(f, ax, -o))
+            term = w * (_shift(f, ax, o, wrap) - _shift(f, ax, -o, wrap))
         else:
-            term = w * (_shift(f, ax, o) + _shift(f, ax, -o) - 2.0 * f)
+            term = w * (_shift(f, ax, o, wrap) + _shift(f, ax, -o, wrap)
+                        - 2.0 * f0)
         out = term if out is None else out + term
     return out
 
 
-def der(f, axis, inv_d=None):
+def der(f, axis, inv_d=None, wrap=True):
     """1st derivative, 6th-order central (reference der_main, deriv.f90:89)."""
-    out = _paired(f, axis, 1)
+    out = _paired(f, axis, 1, wrap)
     return out if inv_d is None else out * inv_d
 
 
-def der2(f, axis, inv_d=None):
+def der2(f, axis, inv_d=None, wrap=True):
     """2nd derivative, 6th-order central (reference der2_main, deriv.f90:474)."""
-    out = _paired(f, axis, 2)
+    out = _paired(f, axis, 2, wrap)
     return out if inv_d is None else out * inv_d ** 2
 
 
-def derij_bidiag(f, ax1, ax2, inv1=None, inv2=None):
+def derij_bidiag(f, ax1, ax2, inv1=None, inv2=None, wrap=True):
     """Mixed second derivative ∂²/∂x_i∂x_j, 12-point bidiagonal scheme —
     the reference default (derij_main, deriv.f90:1376-1420): 6th order
-    from the three neighbours on each half-diagonal, in one pass."""
+    from the three neighbours on each half-diagonal, in one pass.  With
+    ``wrap=False`` both axes are ghosted and reduced to the interior."""
     if ax1 == ax2:
         raise ValueError("use der2 for repeated axes")
     a1 = f.ndim - 3 + ax1
@@ -91,7 +109,11 @@ def derij_bidiag(f, ax1, ax2, inv1=None, inv2=None):
     out = None
     for o, c in zip(range(1, NGHOST + 1), BIDIAG):
         for s1, s2, sgn in BIDIAG_TAPS:
-            t = (sgn * c) * torch.roll(f, (-s1 * o, -s2 * o), dims=(a1, a2))
+            if wrap:
+                sl = torch.roll(f, (-s1 * o, -s2 * o), dims=(a1, a2))
+            else:
+                sl = _shift(_shift(f, a1, s1 * o, False), a2, s2 * o, False)
+            t = (sgn * c) * sl
             out = t if out is None else out + t
     if inv1 is not None:
         out = out * inv1

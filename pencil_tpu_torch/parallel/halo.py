@@ -1,0 +1,53 @@
+"""Ghost-zone fill on one device (counterpart of ``fill_ghosts`` in
+``pencil_tpu/parallel/halo.py:67-111`` without a mesh, shear or alignment
+padding).
+
+Axes are filled in order x, y, z: each axis first wraps periodically from
+the interior, then, if it is not periodic, takes its physical BCs.  Every
+wrap copies the full extent of the axes filled before it, so the ghost
+corners (which the bidiagonal mixed derivative reads) come out as in the
+JAX package.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..ops.boundary import apply_axis_bcs
+
+
+def _wrap_axis(fg, axis, g):
+    """Periodic fill of one spatial axis from the interior, in place."""
+    ax = fg.ndim - 3 + axis
+    m = fg.shape[ax]
+    n = m - 2 * g
+    if n < g:
+        # a short axis: tile the interior periodically
+        idx = torch.remainder(torch.arange(m, device=fg.device) - g, n) + g
+        fg.copy_(fg.index_select(ax, idx))
+        return
+    fg.narrow(ax, 0, g).copy_(fg.narrow(ax, m - 2 * g, g))
+    fg.narrow(ax, m - g, g).copy_(fg.narrow(ax, g, g))
+
+
+def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
+                cfg, eos=None, axes: Tuple[int, ...] = (0, 1, 2)):
+    """Interior stack (nc, nx, ny, nz) → a new stack ghosted along
+    ``axes`` (nc, nx + 2g, ...).  ``fa`` is not modified."""
+    g = spec.nghost
+    lead = fa.ndim - 3
+    shape = list(fa.shape)
+    for a in axes:
+        shape[lead + a] += 2 * g
+    # every ghost cell is written below (wraps, then BCs), so no zero fill
+    fg = fa.new_empty(shape)
+    inner = fg
+    for a in axes:
+        inner = inner.narrow(lead + a, g, fa.shape[lead + a])
+    inner.copy_(fa)
+    for axis in axes:
+        _wrap_axis(fg, axis, g)
+        if not spec.periodic[axis]:
+            apply_axis_bcs(fg, axis, bc_axes[axis], reg, grid, cfg, eos)
+    return fg

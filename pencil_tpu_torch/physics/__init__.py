@@ -1,9 +1,11 @@
 from .density import Density
+from .entropy import Entropy
 from .eos import EosIdealGas
 from .forcing import Forcing
+from .gravity import Gravity
 from .hydro import Hydro
 from .magnetic import Magnetic
 from .viscosity import Viscosity
 
-__all__ = ["Density", "EosIdealGas", "Forcing", "Hydro", "Magnetic",
-           "Viscosity"]
+__all__ = ["Density", "Entropy", "EosIdealGas", "Forcing", "Gravity",
+           "Hydro", "Magnetic", "Viscosity"]

@@ -19,7 +19,7 @@ class TimestepAccum:
     def __init__(self):
         self.maxadvec = 0.0    # Σ_a |u_a|·dline_1_a  (linear advection terms)
         self.advec_cs2 = 0.0   # (cs² + vA²)·Σ_a Δ_a⁻²  (wave speeds, squared)
-        self.maxdiffus = 0.0   # max(ν, η, ...) — scaled by dxyz_2 at the end
+        self.maxdiffus = 0.0   # max(ν, η, χ, ...) — scaled by dxyz_2 at the end
 
     def advec(self, val):
         self.maxadvec = self.maxadvec + val
@@ -29,7 +29,20 @@ class TimestepAccum:
         self.advec_cs2 = self.advec_cs2 + val
 
     def diffus(self, val):
-        self.maxdiffus = max(self.maxdiffus, val)
+        """A diffusivity: a float (ν, η) or a pointwise tensor (the K-const
+        conduction's χ = K/(ρcp)·γ), kept as their elementwise maximum."""
+        self.maxdiffus = _maximum(self.maxdiffus, val)
+
+
+def _maximum(a, b):
+    """max of two rates, each a float or a tensor (JAX ``jnp.maximum``)."""
+    if not torch.is_tensor(a) and not torch.is_tensor(b):
+        return max(a, b)
+    if not torch.is_tensor(a):
+        return torch.clamp_min(b, a)
+    if not torch.is_tensor(b):
+        return torch.clamp_min(a, b)
+    return torch.maximum(a, b)
 
 
 def accumulate(df: Dict[str, torch.Tensor], name: str, val: torch.Tensor):
@@ -51,6 +64,6 @@ class ModuleBase:
     def rhs(self, pen, df, ts):
         """Accumulate RHS contributions into df and CFL terms into ts."""
 
-    def init_fields(self, grid, spec, generator):
+    def init_fields(self, grid, spec, generator, cfg=None):
         """Initial condition for this module's fields."""
         return {}

@@ -1,12 +1,16 @@
 """Continuity equation in the log formulation (counterpart of the lnρ branch
-of ``pencil_tpu/physics/density.py:113``):  Dlnρ/Dt = −∇·u."""
+of ``pencil_tpu/physics/density.py:113``):  Dlnρ/Dt = −∇·u.  Initial
+conditions: 'zero', 'gaussian-noise' and 'piecew-poly' (:214-227)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import ClassVar
 
+import torch
+
 from .base import ModuleBase, accumulate
 from .initcond import init_scalar
+from .stratification import piecew_poly_profiles
 
 
 @dataclass(frozen=True)
@@ -16,6 +20,7 @@ class Density(ModuleBase):
     lupw_lnrho: bool = False
     init: str = "zero"
     ampl: float = 0.0
+    width: float = 0.05
 
     def __post_init__(self):
         if self.lupw_lnrho:
@@ -27,6 +32,20 @@ class Density(ModuleBase):
     def rhs(self, pen, df, ts):
         accumulate(df, "lnrho", -pen.ugrad("lnrho") - pen.divu())
 
-    def init_fields(self, grid, spec, generator):
+    def init_fields(self, grid, spec, generator, cfg=None):
+        if self.init == "piecew-poly":
+            # the layers are the entropy module's (density.f90 piecew-poly)
+            ent = cfg.module("entropy") if cfg else None
+            grav = cfg.module("gravity") if cfg else None
+            lnrho, _ = piecew_poly_profiles(
+                grid.z, spec, cfg.module("eos"),
+                gravz=grav.gravz if grav else -1.0,
+                z1=ent.z1 if ent else 0.0, z2=ent.z2 if ent else 1.0,
+                mpoly0=ent.mpoly0 if ent else 1.0,
+                mpoly1=ent.mpoly1 if ent else 3.0,
+                mpoly2=ent.mpoly2 if ent else 0.0,
+                isothtop=ent.isothtop if ent else 1, width=self.width)
+            return {"lnrho": lnrho[None, None, :] * torch.ones(
+                spec.shape, dtype=lnrho.dtype, device=lnrho.device)}
         return {"lnrho": init_scalar(self.init, grid, spec, generator,
                                      ampl=self.ampl)}

@@ -31,6 +31,6 @@ class Hydro(ModuleBase):
         ts.advec(sum(uua[a].abs() * d1[a] for a in range(3)))
         ts.advec2(pen.cs2() * dxyz2(pen.grid))
 
-    def init_fields(self, grid, spec, generator):
+    def init_fields(self, grid, spec, generator, cfg=None):
         return {"uu": init_vector(self.init, grid, spec, generator,
                                   ampl=self.ampl)}

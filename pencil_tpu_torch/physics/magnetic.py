@@ -37,6 +37,6 @@ class Magnetic(ModuleBase):
         ts.advec2(sum((bb[a] * d1[a]) ** 2 for a in range(3)) * pen.rho1())
         accumulate(df, "uu", pen.jxbr())
 
-    def init_fields(self, grid, spec, generator):
+    def init_fields(self, grid, spec, generator, cfg=None):
         return {"aa": init_vector(self.init, grid, spec, generator,
                                   ampl=self.ampl)}

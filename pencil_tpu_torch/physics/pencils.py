@@ -1,10 +1,15 @@
 """Lazy derived-field container (counterpart of the subset of
-``pencil_tpu/physics/pencils.py`` the flagship reads).
+``pencil_tpu/physics/pencils.py`` that the flagship and stratified
+convection read).
 
-The whole periodic block is "the pencil": derived fields are memoized on
-first access.  Every axis wraps, so ``f`` is the raw stacked state
-(nc, nx, ny, nz) and each quantity has the interior shape.  This is the
-plain PyTorch evaluation of the RHS that the fused kernels are held to.
+The whole block is "the pencil": derived fields are memoized on first
+access, and each quantity has the interior shape (nx, ny, nz).  Two input
+modes: periodic (``ghosted=False``), where ``f`` is the raw stacked state
+(nc, nx, ny, nz) and every axis wraps; and ghosted, where ``f`` is the
+stack ghosted on all three axes (nc, nx+2g, ny+2g, nz+2g) by
+``fill_ghosts``, derivatives slice it and ``field`` crops it (the JAX
+package's default mode).  This is the plain PyTorch evaluation of the RHS
+that the fused kernels are held to.
 """
 from __future__ import annotations
 
@@ -34,12 +39,14 @@ def _cross(a, b):
 
 
 class Pencils:
-    def __init__(self, f, grid, reg, cfg, eos=None):
-        self.f = f              # periodic stack (nc, nx, ny, nz)
+    def __init__(self, f, grid, reg, cfg, eos=None, ghosted=False):
+        self.f = f              # periodic or fully ghosted stack
         self.grid = grid
         self.reg = reg
         self.cfg = cfg
         self.eos = eos
+        self.ghosted = ghosted
+        self._wrap = not ghosted
         self._cache = {}
 
     def _inv(self, axis):
@@ -51,15 +58,32 @@ class Pencils:
     def _slab(self, name):
         return self.f[self.reg.slice(name)]
 
+    def _crop(self, arr, axes):
+        """Interior along ``axes`` (ghosted mode; a no-op when periodic)."""
+        return st.i(arr, axes) if self.ghosted else arr
+
     # ---- derivatives -----------------------------------------------------
+    @_memo
+    def _gh_only(self, name, axis):
+        """Slab ghosted only along ``axis`` (the other axes cropped)."""
+        return self._crop(self._slab(name),
+                          tuple(a for a in range(3) if a != axis))
+
     @_memo
     def d(self, name, axis):
         """∂(field)/∂x_axis, shape (ncomp, nx, ny, nz)."""
-        return st.der(self._slab(name), axis) * self._inv(axis)
+        return st.der(self._gh_only(name, axis), axis,
+                      wrap=self._wrap) * self._inv(axis)
 
     @_memo
     def d2(self, name, axis):
-        return st.der2(self._slab(name), axis) * self._inv(axis) ** 2
+        return st.der2(self._gh_only(name, axis), axis,
+                       wrap=self._wrap) * self._inv(axis) ** 2
+
+    def _bidiag(self, sl, a, b):
+        rest = tuple({0, 1, 2} - {a, b})
+        out = st.derij_bidiag(self._crop(sl, rest), a, b, wrap=self._wrap)
+        return out * self._inv(a) * self._inv(b)
 
     @_memo
     def dij(self, name, ax1, ax2):
@@ -67,24 +91,25 @@ class Pencils:
         JAX default, PC_DERIJ='bidiag')."""
         if ax1 == ax2:
             return self.d2(name, ax1)
-        a, b = min(ax1, ax2), max(ax1, ax2)
-        out = st.derij_bidiag(self._slab(name), a, b)
-        return out * self._inv(a) * self._inv(b)
+        return self._bidiag(self._slab(name), min(ax1, ax2), max(ax1, ax2))
 
     @_memo
     def dij_comp(self, name, comp, ax1, ax2):
         """Mixed second derivative of ONE component (the graddiv pattern)."""
         if ax1 == ax2:
             return self.d2(name, ax1)[comp]
-        a, b = min(ax1, ax2), max(ax1, ax2)
-        sl = self._slab(name)[comp:comp + 1]
-        out = st.derij_bidiag(sl, a, b)
-        return (out * self._inv(a) * self._inv(b))[0]
+        return self._bidiag(self._slab(name)[comp:comp + 1],
+                            min(ax1, ax2), max(ax1, ax2))[0]
 
     @_memo
     def grad(self, name):
         """(3, nx, ny, nz) gradient of a scalar field."""
         return torch.stack([self.d(name, a)[0] for a in range(3)])
+
+    @_memo
+    def del2s(self, name):
+        """Laplacian of a scalar field."""
+        return sum(self.d2(name, a)[0] for a in range(3))
 
     @_memo
     def del2v(self, name):
@@ -104,7 +129,7 @@ class Pencils:
 
     @_memo
     def field(self, name):
-        arr = self._slab(name)
+        arr = self._crop(self._slab(name), (0, 1, 2))
         return arr[0] if self.reg.slots[name].ncomp == 1 else arr
 
     def ugrad(self, name):
@@ -180,6 +205,10 @@ class Pencils:
         return self.grad("lnrho")
 
     @_memo
+    def del2lnrho(self):
+        return self.del2s("lnrho")
+
+    @_memo
     def rho1(self):
         return torch.exp(-self.lnrho())
 
@@ -189,8 +218,54 @@ class Pencils:
 
     @_memo
     def fpres(self):
-        """−∇p/ρ = −cs²∇lnρ (ideal gas without an entropy slot)."""
-        return -self.cs2() * self.glnrho()
+        """−∇p/ρ for the ideal gas: −cs²(∇lnρ + ∇s/cp), or −cs²∇lnρ
+        without an entropy slot."""
+        gl = self.glnrho()
+        if "ss" in self.reg.slots:
+            gl = gl + self.gss() / self.eos.cp
+        return -self.cs2() * gl
+
+    # ---- entropy and temperature ------------------------------------------
+    @_memo
+    def ss(self):
+        return self.field("ss")
+
+    @_memo
+    def gss(self):
+        return self.grad("ss")
+
+    @_memo
+    def del2ss(self):
+        return self.del2s("ss")
+
+    @_memo
+    def lnTT(self):
+        return self.eos.lnTT(self)
+
+    @_memo
+    def TT(self):
+        return torch.exp(self.lnTT())
+
+    @_memo
+    def TT1(self):
+        return torch.exp(-self.lnTT())
+
+    @_memo
+    def glnTT(self):
+        """∇lnT = (γ−1)∇lnρ + γ∇s/cp (ideal gas)."""
+        e = self.eos
+        out = (e.gamma - 1.0) * self.glnrho()
+        if "ss" in self.reg.slots:
+            out = out + (e.gamma / e.cp) * self.gss()
+        return out
+
+    @_memo
+    def del2lnTT(self):
+        e = self.eos
+        out = (e.gamma - 1.0) * self.del2lnrho()
+        if "ss" in self.reg.slots:
+            out = out + (e.gamma / e.cp) * self.del2ss()
+        return out
 
     # ---- magnetic --------------------------------------------------------
     @_memo

@@ -2,6 +2,9 @@
 ``pencil_tpu/physics/viscosity.py:43-63``):
 
     f = ν(∇²u + ⅓∇∇·u + 2S·∇lnρ)
+
+With an entropy slot it publishes the viscous heating 2νS² into the pencil
+cache for the entropy module (JAX viscosity.py:224-227).
 """
 from __future__ import annotations
 
@@ -35,4 +38,6 @@ class Viscosity(ModuleBase):
         ])
         accumulate(df, "uu", self.nu * (
             pen.del2u() + (1.0 / 3.0) * pen.graddivu() + 2.0 * sglnrho))
+        if "ss" in pen.reg.slots:
+            pen._cache["visc_heat"] = 2.0 * self.nu * pen.sij2()
         ts.diffus(self.nu)

@@ -1,5 +1,5 @@
-"""The CUDA kernels of pencil_tpu_torch against their plain PyTorch versions
-on the card.  Marked ``gpu``: they skip where there is no CUDA device.  On
+"""The CUDA kernels of pencil_tpu_torch (K1-K3 of the flagship, K6/K7 of
+stratified convection) against their plain PyTorch versions on the card.  Marked ``gpu``: they skip where there is no CUDA device.  On
 a machine with one, run them with
 
     python -m pytest tests/test_torch_gpu.py -m gpu
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import pencil_tpu_torch as pt
+from pencil_tpu_torch.configs import conv_slab
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -78,7 +79,7 @@ def test_kernels_match_plain(cuda, shape):
     for name in got:
         assert_field_close(got[name], want[name], name)
     assert fr.LAUNCHES == {"rhs_first": 1, "rhs_tail_defer": 1,
-                           "rhs_tail_last": 2}
+                           "rhs_tail_last": 2, "rhs_zg": 0, "rhs_zg_upd": 0}
 
 
 def test_step_on_card_matches_cpu(cuda):
@@ -107,14 +108,78 @@ def test_step_on_card_matches_cpu(cuda):
                            ref[None] if ref.ndim == 3 else ref, k)
 
 
-def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
+def stratified_fg(pm, seed=4):
+    """A z-ghosted conv-slab stack on the card: the piecew-poly profiles
+    with noise."""
+    g = torch.Generator(pm.device).manual_seed(seed)
+    f = pm.init_state(0)["fields"]
+    shape = pm.cfg.grid.shape
+    fa = torch.cat([1e-2 * torch.randn((3,) + shape, generator=g,
+                                       device=pm.device),
+                    (f["lnrho"] + 1e-2 * torch.randn(
+                        shape, generator=g, device=pm.device))[None],
+                    (f["ss"] + 1e-2 * torch.randn(
+                        shape, generator=g, device=pm.device))[None]])
+    return pm.ghosted(fa)
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (16, 24, 40)),
+                         ids=("32^3", "16x24x40"))
+def test_zghost_kernels_match_plain(cuda, shape):
+    """K6 and K7 against their plain versions; the second shape is not a
+    multiple of the tile."""
+    pm = pt.Model(conv_slab(shape), device=cuda)
+    fg = stratified_fg(pm)
+    fr.reset_launches()
+    df, dt1m = fr.rhs_zg(pm, fg)
+    df_p, dt1m_p = fr.rhs_zg_plain(pm, fg)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K6)")
+    alpha, beta, _ = pm.rk
+    coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
+    fg2 = stratified_fg(pm, seed=5)
+    df2, f2 = fr.rhs_zg_upd(pm, fg2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, fg2, df_p.clone(), coef)
+    torch.cuda.synchronize()
+    assert_field_close(df2, df2_p, "df (K7)")
+    assert_field_close(f2, f2_p, "f (K7)")
+    assert fr.LAUNCHES == {"rhs_first": 0, "rhs_tail_defer": 0,
+                           "rhs_tail_last": 0, "rhs_zg": 1, "rhs_zg_upd": 1}
+
+
+def test_conv_slab_steps_on_card_match_cpu(cuda):
+    """Three zghost steps through K6/K7 against the same steps on the
+    CPU (plain versions) from the same fields.  The velocity noise is
+    1e-2, not the configuration's 1e-3: a velocity that small is the
+    residual of the O(1) hydrostatic balance and sits below its float32
+    floor (see tests/test_torch_zghost.py, UU_AMPL)."""
+    shape = (16, 16, 32)
+    fields = dict(pt.Model(conv_slab(shape)).init_state(5)["fields"])
+    g = torch.Generator().manual_seed(5)
+    fields["uu"] = 1e-2 * torch.randn((3,) + shape, generator=g)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = pt.Model(conv_slab(shape), device=dev)
+        s = model.make_multi_step(3)(model.init_state(5, overrides=fields))
+        out[dev.type] = s
+    torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
+                               rtol=RTOL_DT, atol=0.0)
+    for k, ref in out["cpu"]["fields"].items():
+        a = out["cuda"]["fields"][k].cpu()
+        assert_field_close(a[None] if a.ndim == 3 else a,
+                           ref[None] if ref.ndim == 3 else ref, k)
+
+
+@pytest.mark.parametrize("which", ("flagship", "conv_slab"))
+def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
-    monkeypatch.setattr(fr, "rhs_first_plain", boom)
-    monkeypatch.setattr(fr, "rhs_tail_defer_plain", boom)
-    monkeypatch.setattr(fr, "rhs_tail_last_plain", boom)
-    pm = pt.Model(flagship((32, 32, 32)), device=cuda)
+    for name in ("rhs_first_plain", "rhs_tail_defer_plain",
+                 "rhs_tail_last_plain", "rhs_zg_plain", "rhs_zg_upd_plain"):
+        monkeypatch.setattr(fr, name, boom)
+    cfg = flagship((32, 32, 32)) if which == "flagship" else conv_slab(32)
+    pm = pt.Model(cfg, device=cuda)
     s = pm.make_step()(pm.init_state(0))
     torch.cuda.synchronize()
     assert torch.isfinite(s["fields"]["uu"]).all()

@@ -13,7 +13,8 @@ import torch
 
 import pencil_tpu as pj
 import pencil_tpu_torch as pt
-from pencil_tpu_torch.compat.from_jax import state_from_numpy, state_to_numpy
+from pencil_tpu_torch.compat.from_jax import (overrides_from_numpy,
+                                              state_from_numpy, state_to_numpy)
 from pencil_tpu_torch.model import fused_gate, gate_reason
 
 torch.set_num_threads(1)
@@ -41,7 +42,8 @@ PAIRS = [(pt.GridSpec, pj.GridSpec), (pt.TimeSpec, pj.TimeSpec),
          (pt.MeshSpec, pj.MeshSpec), (pt.Config, pj.Config),
          (pt.EosIdealGas, pj.EosIdealGas), (pt.Density, pj.Density),
          (pt.Hydro, pj.Hydro), (pt.Viscosity, pj.Viscosity),
-         (pt.Magnetic, pj.Magnetic), (pt.Forcing, pj.Forcing)]
+         (pt.Magnetic, pj.Magnetic), (pt.Forcing, pj.Forcing),
+         (pt.Gravity, pj.Gravity), (pt.Entropy, pj.Entropy), (pt.BC, pj.BC)]
 
 
 def _defaults(cls):
@@ -181,3 +183,28 @@ def test_registry_layout_matches_jax():
     assert [m.name for m in pm.modules] == [m.name for m in jm.modules]
     np.testing.assert_array_equal(pm.grid.z.numpy(),
                                   np.asarray(jm.grid.z)[3:-3])
+
+
+def test_conv_slab_registry_layout_matches_jax():
+    """The 5-field layout (uu, lnrho, ss) and the module order."""
+    from pencil_tpu_torch.configs import conv_slab
+    pm = pt.Model(conv_slab(8))
+    jm = pj.Model(conv_slab(8, pkg=pj))
+    assert pm.reg.comp_names == jm.reg.comp_names \
+        == ["ux", "uy", "uz", "lnrho", "ss"]
+    assert (pm.reg.nvar, pm.reg.ncom, pm.reg.nf) == (5, 5, 5)
+    assert [m.name for m in pm.modules] == [m.name for m in jm.modules]
+
+
+def test_overrides_from_numpy_checks_the_layout():
+    from pencil_tpu_torch.configs import conv_slab
+    pm = pt.Model(conv_slab(8))
+    good = {k: np.asarray(v) for k, v in pm.init_state(1)["fields"].items()}
+    out = overrides_from_numpy(good, pm.reg)
+    assert sorted(out) == ["lnrho", "ss", "uu"]
+    assert all(v.dtype == np.float32 for v in out.values())
+    with pytest.raises(KeyError):
+        overrides_from_numpy({k: v for k, v in good.items() if k != "ss"},
+                             pm.reg)
+    with pytest.raises(ValueError):
+        overrides_from_numpy(dict(good, ss=good["uu"]), pm.reg)
