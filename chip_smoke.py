@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the pencil_tpu_torch main paths on one NVIDIA GPU: the forced-MHD
-flagship step (kernels K1-K3) and stratified convection with a
-non-periodic z (kernels K6, K7).
+flagship step (kernels K1-K3), stratified convection with a non-periodic z
+(kernels K6, K7) and the sheared, rotating MHD box with shock viscosity
+and hyper-diffusion (kernels K4, K5).
 
     python3 chip_smoke.py
 
@@ -10,14 +11,16 @@ Phases, each printing its own lines:
      build (one nvcc per csrc/*.cu, all at once);
   2. each fused kernel against its plain PyTorch version on the same CUDA
      inputs at 64³ and 32×64×128 (each field within 2e-5 × its max, the
-     CFL maximum within 1e-6 relative), and three full steps of each path
-     on the card against the same steps on the CPU at 32³;
+     CFL maximum within 1e-6 relative; the shear-box input at t = 0.37
+     with a positive shock slot), and three full steps of each path on
+     the card against the same steps on the CPU at 32³;
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
      just before each path's timed steps and read just after: the
-     flagship with exactly one launch of K1, K2, K3 per step, then the
-     conv-slab layer with exactly one K6 and two K7 launches per step;
+     flagship with exactly one launch of K1, K2, K3 per step, the
+     conv-slab layer with exactly one K6 and two K7 launches per step,
+     then the shear box with exactly one K4 and two K5 launches per step;
   4. each kernel's time against its plain version, and each plain chain's
      step time, at 256³.
 The line before the last is the card's name and power limit as nvidia-smi
@@ -35,20 +38,29 @@ N_MAIN = 256
 WARM, TIMED = 3, 20
 RTOL_FIELD, RTOL_DT = 2e-5, 1e-6
 FLAGSHIP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last")
+ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
-KERNEL_NAMES = FLAGSHIP_KERNELS + ZGHOST_KERNELS
-# launches of each zghost kernel in one step
+KERNEL_NAMES = FLAGSHIP_KERNELS + ZROLL_KERNELS + ZGHOST_KERNELS
+# launches of each zghost and zroll kernel in one step
 ZGHOST_PER_STEP = {"rhs_zg": 1, "rhs_zg_upd": 2}
+ZROLL_PER_STEP = {"rhs_zroll": 1, "rhs_zroll_upd": 2}
 REPLACES = {
     "rhs_first": "pencil_tpu/ops/fused_rhs.py:306",
     "rhs_tail_defer": "pencil_tpu/ops/fused_rhs.py:379",
     "rhs_tail_last": "pencil_tpu/ops/fused_rhs.py:379",
+    "rhs_zroll": "pencil_tpu/ops/fused_rhs.py:306",
+    "rhs_zroll_upd": "pencil_tpu/ops/fused_rhs.py:331",
     "rhs_zg": "pencil_tpu/ops/fused_rhs.py:317",
     "rhs_zg_upd": "pencil_tpu/ops/fused_rhs.py:349",
 }
 SOURCES = {k: "pencil_tpu_torch/csrc/fused_rhs.cu" for k in FLAGSHIP_KERNELS}
+SOURCES.update({k: "pencil_tpu_torch/csrc/zroll_rhs.cu"
+                for k in ZROLL_KERNELS})
 SOURCES.update({k: "pencil_tpu_torch/csrc/zghost_rhs.cu"
                 for k in ZGHOST_KERNELS})
+# the shear-box comparisons start here, where deltay = 0.555·Ly is not a
+# whole number of cells (at t = 0 the shifted faces are plain wraps)
+T_SHEAR = 0.37
 
 
 def flagship(pt, shape, fused=True):
@@ -228,6 +240,72 @@ def compare_steps(torch, pt, shape=(32, 32, 32), nsteps=3):
           f"field rel err {worst:.2e}, dt rel err {dt_rel:.2e}", flush=True)
 
 
+def sheared_fg(torch, pm, seed):
+    """(8, nx+6, ny+6, nz) on the card: noisy shear-box fields and a
+    positive shock slot, ghosted in x and y with the x faces shifted by
+    deltay at t = T_SHEAR."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    shape = pm.cfg.grid.shape
+    amp = torch.tensor([1e-2] * 4 + [1e-4] * 3, device="cuda")
+    fa = amp[:, None, None, None] * torch.randn(
+        (7,) + shape, generator=g, device="cuda")
+    shock = 1e-3 * torch.rand(shape, generator=g, device="cuda")
+    sdy = pm.deltay(torch.full((), T_SHEAR, device="cuda"))
+    return pm.ghosted(torch.cat([fa, shock[None]]), (0, 1), sdy)
+
+
+def compare_zroll_kernels(torch, pt, fr, shape, errs):
+    """Phase 2: K4 and K5 against their plain versions on CUDA inputs."""
+    pm = pt.Model(pt.configs.shear_box(shape), device="cuda")
+    fg = sheared_fg(torch, pm, 1)
+    fr.reset_launches()
+    df, dt1m = fr.rhs_zroll(pm, fg)
+    df_p, dt1m_p = fr.rhs_zroll_plain(pm, fg)
+    _, beta, _ = pm.rk
+    coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
+    fg2 = sheared_fg(torch, pm, 2)
+    df2, f2 = fr.rhs_zroll_upd(pm, fg2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_zroll_upd_plain(pm, fg2, df_p.clone(), coef)
+    torch.cuda.synchronize()
+    counts = {k: fr.LAUNCHES[k] for k in ZROLL_KERNELS}
+    check(counts == {"rhs_zroll": 1, "rhs_zroll_upd": 1},
+          f"launch counts {counts}")
+    dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
+    check(dt_rel <= RTOL_DT, f"{shape} K4 max 1/dt rel err {dt_rel}")
+    line = []
+    for name, a, b in (("rhs_zroll", df, df_p), ("rhs_zroll_upd", df2, df2_p),
+                       ("rhs_zroll_upd", f2, f2_p)):
+        d, r = rel_err(a, b)
+        check(r <= RTOL_FIELD, f"{name} at {shape}: rel err {r}")
+        errs[name] = max(errs[name], d)
+        line.append(f"{name} {r:.2e}")
+    print(f"phase 2 {shape} shear box: kernel vs plain, worst field rel err: "
+          + ", ".join(line) + f"; max 1/dt rel err {dt_rel:.2e}", flush=True)
+
+
+def compare_zroll_steps(torch, pt, shape=(32, 32, 32), nsteps=3):
+    """Phase 2b: shear-box steps on the card against the CPU, from
+    t = T_SHEAR."""
+    fields = pt.Model(pt.configs.shear_box(shape)).init_state(5)["fields"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.Model(pt.configs.shear_box(shape), device=dev)
+        s = model.init_state(5, overrides=fields)
+        s["t"] = torch.full((), T_SHEAR, device=dev)
+        out[dev] = model.make_multi_step(nsteps)(s)
+    dt_rel = abs(float(out["cuda"]["dt"]) / float(out["cpu"]["dt"]) - 1.0)
+    check(dt_rel <= RTOL_DT, f"shear-box step dt rel err {dt_rel}")
+    worst = 0.0
+    for k, ref in out["cpu"]["fields"].items():
+        a = out["cuda"]["fields"][k].cpu()
+        r = float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        check(r <= RTOL_FIELD, f"shear-box step field {k} rel err {r}")
+        worst = max(worst, r)
+    print(f"phase 2b {shape} shear box: {nsteps} steps on the card vs the "
+          f"CPU: worst field rel err {worst:.2e}, dt rel err {dt_rel:.2e}",
+          flush=True)
+
+
 def time_ms(torch, fn, n):
     """Mean ms of fn() over n calls, by CUDA events after one warm-up."""
     fn()
@@ -281,18 +359,22 @@ def main():
     for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
         compare_zghost_kernels(torch, pt, fr, shape, errs)
+        compare_zroll_kernels(torch, pt, fr, shape, errs)
     compare_steps(torch, pt)
     compare_zghost_steps(torch, pt)
+    compare_zroll_steps(torch, pt)
 
     # ---- phase 3: the main paths at 256³ ------------------------------
     shape = (N_MAIN,) * 3
     launches, timings = {}, {}
     fl = run_flagship(torch, pt, fr, smi, shape, launches)
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
+    sb = run_shear_box(torch, pt, fr, smi, shape, launches)
 
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings)
     time_conv_slab(torch, fr, smi, zg, errs, timings)
+    time_shear_box(torch, fr, smi, sb, errs, timings)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
@@ -412,6 +494,67 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches):
     return model, state, ms_step
 
 
+def run_shear_box(torch, pt, fr, smi, shape, launches):
+    """Phase 3, third path: the sheared, rotating MHD box."""
+    from pencil_tpu_torch.physics.pencils import Pencils
+    base = torch.cuda.memory_allocated()
+    model = pt.Model(pt.configs.shear_box(shape), device="cuda")
+    u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
+    want = dict(dict.fromkeys(KERNEL_NAMES, 0),
+                **{k: n * TIMED for k, n in ZROLL_PER_STEP.items()})
+    check(counts == want, f"launches {counts}: need one K4 and two K5 "
+          "launches per step")
+    launches.update({k: counts[k] for k in ZROLL_KERNELS})
+    fa = state["_fa"]
+    check(tuple(fa.shape) == (8,) + shape, f"state shape {tuple(fa.shape)}")
+    check(bool(torch.isfinite(fa).all()), "non-finite field")
+    dt = float(state["dt"])
+    # CFL bounds on the dt that the final state sets (one more step, out
+    # of the timed window).  1/dt is the max over points of the root sum
+    # of the advective and diffusive rates: at an x face, where |S·x| is
+    # largest, both are at least their u = B = 0, shock = 0 values; no
+    # point exceeds the sums of the fields' maxima
+    dt_next = float(model.make_step()(state)["dt"])
+    cfg, eos = model.cfg, model.eos
+    tc, gs = cfg.time, cfg.grid
+    inv = [1.0 / d for d in (gs.dx, gs.dy, gs.dz)]
+    dxyz2 = sum(i * i for i in inv)
+    dxyz6 = sum(i ** 6 for i in inv)
+    sdy = model.deltay(state["t"])
+    fg = model.ghosted(model._refresh_aux_fa(fa, sdy), shear_dy=sdy)
+    pen = Pencils(fg, model.grid, model.reg, cfg, eos, ghosted=True)
+    bb = pen.bb()
+    va2 = float((sum((bb[a] * inv[a]) ** 2 for a in range(3))
+                 * pen.rho1()).max())
+    shock = float(pen.field("shock").max())
+    del fg, pen, bb
+    vis, mag = cfg.module("viscosity"), cfg.module("magnetic")
+    nu, nu_shock, nu3 = vis.coefficients()
+    shear_rate = abs(cfg.module("shear").S) * float(model.grid.x.abs().max())
+    sound = math.sqrt(eos.cs20 * dxyz2)
+    umax = sum(float(fa[a].abs().max()) * inv[a] for a in range(3))
+    adv_lo = (shear_rate * inv[1] + sound) / tc.cdt
+    adv_hi = (umax + shear_rate * inv[1]
+              + math.sqrt(eos.cs20 * dxyz2 + va2)) / tc.cdt
+    dif3 = max(nu3, mag.eta_hyper3,
+               cfg.module("density").diffrho_hyper3) * dxyz6 / tc.cdtv3
+    dif_lo = max(nu, mag.eta) * dxyz2 / tc.cdtv + dif3
+    dif_hi = max(nu, mag.eta, nu_shock * shock) * dxyz2 / tc.cdtv + dif3
+    check(1.0 / math.hypot(adv_hi, dif_hi) * (1 - 1e-5) <= dt_next
+          <= 1.0 / math.hypot(adv_lo, dif_lo) * (1 + 1e-5),
+          f"dt {dt_next} outside the CFL bounds ({adv_lo}-{adv_hi}, "
+          f"{dif_lo}-{dif_hi})")
+    u1 = urms(torch, fa)
+    ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
+    print(f"phase 3 {N_MAIN}^3 shear box on {smi}: {ms_step:.4f} ms/step, "
+          f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
+          f"(1/dt bounds: advective {adv_lo:.4e}-{adv_hi:.4e}, diffusive "
+          f"{dif_lo:.4e}-{dif_hi:.4e}), max shock {shock:.3e}, urms "
+          f"{u0:.3e} -> {u1:.3e}, launches "
+          f"{ {k: counts[k] for k in ZROLL_KERNELS} }", flush=True)
+    return model, state, ms_step
+
+
 def time_pairs(torch, kname, kern, plain, errs, timings, fresh=None):
     """Check one kernel against its plain version, then time both.
     ``fresh`` gives the (kernel, plain) calls of the check when the timed
@@ -497,6 +640,41 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings):
     print(f"phase 4 conv-slab plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step); one fill_ghosts "
           f"{ghost_ms:.4f} ms", flush=True)
+
+
+def time_shear_box(torch, fr, smi, sb, errs, timings):
+    """K4/K5 checked and timed on the main path's final state, its shock
+    slot rebuilt and its x/y ghosts filled as a step does."""
+    model, state, ms_step = sb
+    fa = state["_fa"]
+    sdy = model.deltay(state["t"])
+    fg = model.ghosted(model._refresh_aux_fa(fa, sdy), (0, 1), sdy)
+    _, beta, _ = model.rk
+    df1, dt1m = fr.rhs_zroll_plain(model, fg)
+    coef = torch.stack((model._alpha[1], beta[1] / dt1m))
+    time_pairs(torch, "rhs_zroll", lambda: fr.rhs_zroll(model, fg),
+               lambda: fr.rhs_zroll_plain(model, fg), errs, timings)
+    # K5 writes the new df over df_prev: checked on fresh copies of df1,
+    # timed on one buffer that each call keeps updating in place
+    scratch = df1.clone()
+    time_pairs(
+        torch, "rhs_zroll_upd",
+        lambda: fr.rhs_zroll_upd(model, fg, scratch, coef),
+        lambda: fr.rhs_zroll_upd_plain(model, fg, scratch, coef), errs,
+        timings,
+        fresh=(lambda: fr.rhs_zroll_upd(model, fg, df1.clone(), coef),
+               lambda: fr.rhs_zroll_upd_plain(model, fg, df1.clone(), coef)))
+    del df1, scratch, fg
+    plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
+                   "it": state["it"]}
+    plain_ms = time_ms(torch, lambda: model._zroll_step(
+        plain_state, (fr.rhs_zroll_plain, fr.rhs_zroll_upd_plain)), 3)
+    aux_ms = time_ms(torch, lambda: model._refresh_aux_fa(fa, sdy), 20)
+    fill_ms = time_ms(torch, lambda: model.ghosted(fa, (0, 1), sdy), 20)
+    print(f"phase 4 shear-box plain chain at 256^3 on {smi}: {plain_ms:.4f} "
+          f"ms/step (kernel chain {ms_step:.4f} ms/step); one shock "
+          f"pre-pass {aux_ms:.4f} ms, one x/y fill with shifted faces "
+          f"{fill_ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

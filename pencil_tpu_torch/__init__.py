@@ -1,12 +1,14 @@
 """pencil_tpu_torch — the PyTorch/CUDA port of pencil_tpu.
 
-Two slices run on an NVIDIA Hopper GPU through hand-written CUDA kernels,
+Three slices run on an NVIDIA Hopper GPU through hand-written CUDA kernels,
 and on the CPU through their plain PyTorch versions (float32, 6th-order
 central differences, 2N-RK3):
 
 * the flagship step: forced isothermal MHD in a periodic cube;
 * stratified convection with a non-periodic z axis
-  (``configs.conv_slab``).
+  (``configs.conv_slab``);
+* the sheared, rotating MHD box with shock viscosity and hyper-diffusion
+  (``configs.shear_box``).
 
 The JAX package ``pencil_tpu`` is the reference it is held to; this
 package never imports it or JAX.
@@ -17,6 +19,6 @@ from .core.grid import make_grid
 from .model import Model, fused_gate
 from .ops.boundary import BC
 from .physics import (Density, Entropy, EosIdealGas, Forcing, Gravity, Hydro,
-                      Magnetic, Viscosity)
+                      Magnetic, Shear, Shock, Viscosity)
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

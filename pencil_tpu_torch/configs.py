@@ -45,3 +45,37 @@ def conv_slab(n, fused=True, pkg=None):
                              iheatcond=("K-const",), hcond0=8e-3,
                              luminosity=5e-3, wheat=0.1, cool=15.0,
                              wcool=0.2, cs2cool=cs2cool)))
+
+
+def shear_box(n, fused=True, pkg=None):
+    """A sheared, rotating MHD box with shock viscosity and
+    hyper-diffusion, the accretion-disk set-up of shearing-box MRI users:
+    a unit cube centred on the origin, fully periodic with shear-periodic
+    x faces (Keplerian shear q = 3/2, Ω = 1, Coriolis on), isothermal gas
+    (cs = 1), ν = η = 5e-4, shock viscosity ν_sh = 1, and del6
+    hyper-diffusion of u, A and lnρ; unforced; 8 slots (uu, lnrho, aa and
+    the shock profile).  ``n`` is an int (a cube) or (nx, ny, nz).  The
+    values are this configuration's own, not a reference sample's.
+
+    The hyper-diffusivity h3 = 5e-3·(1/n)⁵ keeps the del6 CFL rate
+    h3·dxyz6/cdtv3 (cdtv3 = 0.01) at about half the advective rate at
+    every n, so the term shows at 16³ and stays stable at 256³.
+    """
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    h3 = 5e-3 * (1.0 / nx) ** 5
+    return pkg.Config(
+        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.5,
+                          Lx=1.0, Ly=1.0, Lz=1.0),
+        time=pkg.TimeSpec(itorder=3), fused=fused,
+        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+                 pkg.Density(init="gaussian-noise", ampl=1e-2,
+                             diffrho_hyper3=h3),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-2, Omega=1.0),
+                 pkg.Shear(Omega=1.0, qshear=1.5),
+                 pkg.Viscosity(ivisc=("nu-const", "nu-shock",
+                                      "hyper3-simplified"),
+                               nu=5e-4, nu_shock=1.0, nu_hyper3=h3),
+                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-4,
+                              eta_hyper3=h3),
+                 pkg.Shock()))

@@ -1,6 +1,7 @@
 // Shared device helpers of the hand-written stencil kernels: the paired
-// 6th-order first and second derivatives, the 12-point bidiagonal mixed
-// derivative, and the per-block maximum of the CFL 1/dt.
+// 6th-order first and second derivatives, the 6th difference of the del6
+// hyper-diffusion, the 12-point bidiagonal mixed derivative, and the
+// per-block maximum of the CFL 1/dt.
 //
 // The sums use round-to-nearest intrinsics (no FMA contraction) in the
 // JAX package's term order (pencil_tpu/ops/stencil.py:145-184, :277-328),
@@ -27,6 +28,12 @@ __device__ __forceinline__ float d2(const float* p, int st, const float* w) {
   acc = __fadd_rn(acc, __fmul_rn(w[2],
         __fsub_rn(__fadd_rn(p[3 * st], p[-3 * st]), c2)));
   return acc;
+}
+
+// Unscaled 6th difference: the same even paired form as d2, with the
+// 6th-derivative weights (-6, 15, 1) (JAX stencil.py:239, der6).
+__device__ __forceinline__ float d6(const float* p, int st, const float* w) {
+  return d2(p, st, w);
 }
 
 // 12-point bidiagonal mixed derivative along strides s1 < s2 (axis order),

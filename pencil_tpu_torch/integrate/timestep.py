@@ -46,12 +46,28 @@ def dxyz2(grid):
     return grid.dx1 ** 2 + grid.dy1 ** 2 + grid.dz1 ** 2
 
 
+def pow6(x):
+    """x⁶ as x²·x⁴, the product order of JAX's integer_pow."""
+    x2 = x * x
+    return x2 * (x2 * x2)
+
+
+def dxyz6(grid):
+    """Σ_a Δ_a⁻⁶ in the working precision."""
+    return pow6(grid.dx1) + pow6(grid.dy1) + pow6(grid.dz1)
+
+
+def _zero(v):
+    return not torch.is_tensor(v) and v == 0.0
+
+
 def cfl_dt1(ts, grid, time_cfg):
-    """Pointwise inverse timestep (reference src/equ.f90:1100-1151):
+    """Pointwise inverse timestep (reference src/equ.f90:1100-1151; JAX
+    integrate/timestep.py:49-100):
 
         maxadvec   = Σ advec_lin + √advec_cs2
         dt1_advec  = maxadvec/cdt
-        dt1_diffus = maxdiffus·dxyz₂/cdtv
+        dt1_diffus = maxdiffus·dxyz₂/cdtv + maxdiffus3·dxyz₆/cdtv3
         dt1_max    = √(dt1_advec² + dt1_diffus²)
 
     The wave-speed root is added LINEARLY to the velocity advection; the
@@ -61,7 +77,11 @@ def cfl_dt1(ts, grid, time_cfg):
     if not isinstance(ts.advec_cs2, float):
         adv = adv + torch.sqrt(ts.advec_cs2)
     dt1_a = adv / time_cfg.cdt
-    if not torch.is_tensor(ts.maxdiffus) and ts.maxdiffus == 0.0:
+    if _zero(ts.maxdiffus) and _zero(ts.maxdiffus3):
         return dt1_a
-    dif = ts.maxdiffus * dxyz2(grid) / time_cfg.cdtv
+    dif = 0.0
+    if not _zero(ts.maxdiffus):
+        dif = ts.maxdiffus * dxyz2(grid) / time_cfg.cdtv
+    if not _zero(ts.maxdiffus3):
+        dif = dif + ts.maxdiffus3 * dxyz6(grid) / time_cfg.cdtv3
     return torch.sqrt(dt1_a ** 2 + dif ** 2)

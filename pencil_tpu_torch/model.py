@@ -22,6 +22,19 @@ Two module sets run as chains of fused kernels (2N-RK3, f32):
     then ``bc_writeback`` pins the boundary planes that value-setting BCs
     fix.
 
+* The sheared, rotating MHD box with shock viscosity and hyper-diffusion
+  — the flagship's modules with Coriolis, 'nu-shock' and
+  'hyper3-simplified' viscosity, hyper-resistivity and lnρ
+  hyper-diffusion, plus Shear and Shock — on a fully periodic grid whose x
+  faces are shear-periodic, as the JAX package's zroll mode
+  (model.py:576-730):
+
+    1. the shock pre-pass (``_refresh_aux_fa``), ``fill_ghosts`` in x and
+       y with the Fourier-shifted x faces, K4: df1 = RHS(f0) and the CFL
+       maximum, dt on the device, f1 = f0 + β₁Δt·df1 as a torch axpy;
+    2. and 3. the pre-pass and the fill again, K5: df ← α·df + RHS(f),
+       f ← f + βΔt·df.
+
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
 the eager 2N-RK path built from the same plain module code (the
@@ -39,10 +52,12 @@ from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import BC_REGISTRY
 from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
-                            rhs_tail_last, rhs_zg, rhs_zg_upd)
+                            rhs_tail_last, rhs_zg, rhs_zg_upd, rhs_zroll,
+                            rhs_zroll_upd)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
+from .physics.pencils import Pencils
 
 # Fixed RHS evaluation order (reference calc_all_pencils order,
 # src/equ.f90:766-814).
@@ -64,11 +79,12 @@ REGISTRATION_ORDER = (
 
 # the module sets the fused kernels implement: the flagship (forcing is
 # optional) on a fully periodic grid, stratified convection with z
-# non-periodic and x, y periodic
+# non-periodic and x, y periodic, the shearing box on a fully periodic grid
 FLAGSHIP_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
                               "magnetic"))
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
+ZROLL_MODULES = FLAGSHIP_MODULES | {"shear", "shock"}
 
 
 def _order_key(order):
@@ -84,9 +100,26 @@ def _unported_bcs(cfg: Config):
                    if code and code not in BC_REGISTRY})
 
 
+def _zroll_options(cfg: Config):
+    """The options in use that only the zroll kernels implement."""
+    out = []
+    hyd, visc = cfg.module("hydro"), cfg.module("viscosity")
+    mag, den = cfg.module("magnetic"), cfg.module("density")
+    if getattr(hyd, "Omega", 0.0) != 0.0:
+        out.append("Hydro.Omega")
+    if visc is not None and any(visc.coefficients()[1:]):
+        out.append("Viscosity nu-shock/hyper3-simplified")
+    if getattr(mag, "eta_hyper3", 0.0) > 0.0:
+        out.append("Magnetic.eta_hyper3")
+    if getattr(den, "diffrho_hyper3", 0.0) > 0.0:
+        out.append("Density.diffrho_hyper3")
+    return out
+
+
 def fused_mode(cfg: Config):
-    """(mode, None) with mode 'wrap' (the flagship chain) or 'zghost'
-    (stratified convection), or (None, why ``cfg`` is outside both)."""
+    """(mode, None) with mode 'wrap' (the flagship chain), 'zghost'
+    (stratified convection) or 'zroll' (the shearing box), or (None, why
+    ``cfg`` is outside all three)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -99,15 +132,24 @@ def fused_mode(cfg: Config):
     mods = set(names)
     periodic = tuple(cfg.grid.periodic)
     if len(mods) == len(names):
-        if mods - {"forcing"} == FLAGSHIP_MODULES \
-                and periodic == (True, True, True):
+        if mods == ZROLL_MODULES and periodic == (True, True, True):
+            return "zroll", None
+        extra = _zroll_options(cfg)
+        wrap = (mods - {"forcing"} == FLAGSHIP_MODULES
+                and periodic == (True, True, True))
+        zghost = mods == CONVSLAB_MODULES and periodic == (True, True, False)
+        if (wrap or zghost) and extra:
+            return None, (f"options {extra} (only the shear-box kernels "
+                          "implement them)")
+        if wrap:
             return "wrap", None
-        if mods == CONVSLAB_MODULES and periodic == (True, True, False):
+        if zghost:
             return "zghost", None
     return None, (f"modules {sorted(names)} with periodic={periodic} (the "
                   f"kernels implement {sorted(FLAGSHIP_MODULES)} with "
-                  "optional forcing on a periodic grid, and "
-                  f"{sorted(CONVSLAB_MODULES)} with a non-periodic z)")
+                  "optional forcing on a periodic grid, "
+                  f"{sorted(CONVSLAB_MODULES)} with a non-periodic z, and "
+                  f"{sorted(ZROLL_MODULES)} on a periodic grid)")
 
 
 def gate_reason(cfg: Config):
@@ -163,6 +205,13 @@ def _check_supported(cfg: Config):
         problems.append("modules that are not pencil_tpu_torch modules")
     elif not {"eos", "density", "hydro"} <= {m.name for m in cfg.modules}:
         problems.append("a module set without eos, density and hydro")
+    else:
+        visc = cfg.module("viscosity")
+        if cfg.module("shock") is not None and not all(gs.periodic):
+            problems.append("Shock on a non-periodic grid")
+        if visc is not None and visc.coefficients()[1] \
+                and cfg.module("shock") is None:
+            problems.append("Viscosity 'nu-shock' without the Shock module")
     if problems:
         raise NotImplementedError("pencil_tpu_torch: " + "; ".join(problems))
 
@@ -199,6 +248,10 @@ class Model:
         self.eos = cfg.module("eos")
         self.grid = make_grid(cfg.grid, self.device, self.dtype)
         self.rk = RK_TABLES[cfg.time.itorder]
+        self.shear = cfg.module("shear")
+        # farray-level auxiliaries built in a pre-pass (the shock profile)
+        self._aux_modules = tuple(m for m in self.modules
+                                  if hasattr(m, "compute_aux"))
         forcing = cfg.module("forcing")
         self.forcing = forcing if forcing is not None and forcing.force != 0.0 \
             else None
@@ -230,6 +283,13 @@ class Model:
         for name, arr in overrides.items():
             fields[name] = torch.as_tensor(arr, dtype=self.dtype,
                                            device=self.device).clone()
+        for name, slot in self.reg.slots.items():
+            if name not in fields:
+                # a slot no module initialises (the shock profile) starts
+                # at zero, as in the JAX package (model.py:234-240)
+                shape = ((slot.ncomp,) if slot.ncomp > 1 else ()) + gs.shape
+                fields[name] = torch.zeros(shape, dtype=self.dtype,
+                                           device=self.device)
         fields = {k: fields[k] for k in self.reg.slots}
         if self._nonperiodic:
             # value-setting BCs pin the boundary planes from the start
@@ -264,11 +324,58 @@ class Model:
         return st
 
     # ------------------------------------------------------------------
-    def ghosted(self, fa, axes=(0, 1, 2)):
+    def ghosted(self, fa, axes=(0, 1, 2), shear_dy=None):
         """The communicated components of ``fa`` with ghost zones along
-        ``axes``: wrap on periodic axes, the BCs on the others."""
+        ``axes``: wrap on periodic axes, the BCs on the others, and x faces
+        shifted by ``shear_dy`` when it is given."""
         return fill_ghosts(fa[: self.reg.ncom], self.cfg.grid, self.bc_axes,
-                           self.reg, self.grid, self.cfg, self.eos, axes)
+                           self.reg, self.grid, self.cfg, self.eos, axes,
+                           shear_dy=shear_dy)
+
+    def deltay(self, t):
+        """The shear-periodic y offset at device time ``t``, or None
+        without Shear (JAX physics/shear.py:45-46)."""
+        if self.shear is None:
+            return None
+        gs = self.cfg.grid
+        return self.shear.deltay(t, gs.Lx, gs.Ly)
+
+    def _make_halo1(self, shear_dy):
+        """Ghost fill of one interior scalar on the periodic grid (JAX
+        model.py:368-395; a Shock on a non-periodic grid is refused)."""
+        gs = self.cfg.grid
+
+        def halo1(x):
+            return fill_ghosts(x[None], gs, ((), (), ()), self.reg,
+                               self.grid, self.cfg, None,
+                               shear_dy=shear_dy)[0]
+
+        return halo1
+
+    def apply_aux(self, fg, shear_dy=None):
+        """Write each aux module's slot, ghost-filled, into the ghosted
+        stack ``fg`` in place and return it (the eager path; JAX
+        model.py:397-409).  The state itself keeps its old slot."""
+        halo1 = self._make_halo1(shear_dy)
+        pen = Pencils(fg, self.grid, self.reg, self.cfg, self.eos,
+                      ghosted=True)
+        for m in self._aux_modules:
+            for aname, interior in m.compute_aux(pen, halo1).items():
+                fg[self.reg.slice(aname)] = halo1(interior)[None]
+        return fg
+
+    def _refresh_aux_fa(self, fa, shear_dy=None):
+        """``fa`` with each aux slot rebuilt from its evolved fields, a new
+        tensor (the fused chains' pre-pass; JAX model.py:411-428)."""
+        halo1 = self._make_halo1(shear_dy)
+        pen = Pencils(self.ghosted(fa, shear_dy=shear_dy), self.grid,
+                      self.reg, self.cfg, self.eos, ghosted=True)
+        for m in self._aux_modules:
+            for aname, interior in m.compute_aux(pen, halo1).items():
+                sl = self.reg.slice(aname)
+                fa = torch.cat([fa[: sl.start], interior[None],
+                                fa[sl.stop:]])
+        return fa
 
     def bc_writeback(self, fa):
         """Copy the BC-applied boundary planes of every non-periodic axis
@@ -351,24 +458,67 @@ class Model:
             out["fields"] = self.reg.unstack(fa)
         return out
 
+    def _zroll_step(self, state: Dict, kernels=(rhs_zroll, rhs_zroll_upd)):
+        """One 2N-RK3 step as the zroll chain (JAX model.py:576-730): each
+        substep rebuilds the shock slot and fills the x/y ghosts with the
+        x faces shifted by deltay at t0 + c·dt (substep 1 with the old dt,
+        2 and 3 with the new one); K4 and a torch axpy, then K5 twice.  The
+        state's shock slot is the last pre-pass's.  ``kernels`` lets a
+        measurement time the plain versions through the same chain."""
+        first, upd = kernels
+        alpha, beta, cstage = self.rk
+        nvar = self.reg.nvar
+        packed = "_fa" in state
+        fa = state["_fa"] if packed else self.reg.stack(state["fields"])
+        t0, dt = state["t"], state["dt"]
+        sdy = self.deltay(t0 + cstage[0] * dt)
+        fg = self.ghosted(self._refresh_aux_fa(fa, sdy), (0, 1), sdy)
+        df, dt1m = first(self, fg)
+        del fg
+        dt = self._new_dt(dt1m, state["dt"])
+        fa = torch.cat([fa[:nvar] + beta[0] * dt * df, fa[nvar:]])
+        for isub in range(1, len(alpha)):
+            sdy = self.deltay(t0 + cstage[isub] * dt)
+            fa = self._refresh_aux_fa(fa, sdy)
+            coef = torch.stack((self._alpha[isub], beta[isub] * dt))
+            df, f_new = upd(self, self.ghosted(fa, (0, 1), sdy), df, coef)
+            fa = torch.cat([f_new, fa[nvar:]])
+        out = {"t": t0 + dt, "dt": dt, "it": state["it"] + 1}
+        if packed:
+            out["_fa"] = fa
+        else:
+            out["fields"] = self.reg.unstack(fa)
+        return out
+
     def _eager_step(self, state: Dict):
         """One 2N-RK step from the plain RHS, the boundary-plane writeback
         and the kick applied after the substeps (CPU only; JAX
-        model.py:733-775, :891, :924-933)."""
-        alpha, beta, _ = self.rk
+        model.py:733-775, :891, :924-933).  With a non-periodic axis, shear
+        or an aux module the RHS reads a ghosted stack; the aux slots are
+        written into that stack only, so the state keeps its own."""
+        alpha, beta, cstage = self.rk
+        nvar = self.reg.nvar
         fa = self.reg.stack(state["fields"])
-        ghosted = bool(self._nonperiodic)
-        df = dt = None
+        ghosted = bool(self._nonperiodic or self.shear is not None
+                       or self._aux_modules)
+        df = None
+        dt = state["dt"]
         for isub in range(len(alpha)):
-            dfa, dt1m = rhs_plain(
-                self, self.ghosted(fa) if ghosted else fa,
-                want_dt1=isub == 0, ghosted=ghosted)
+            f = fa
+            if ghosted:
+                sdy = self.deltay(state["t"] + cstage[isub] * dt)
+                f = self.ghosted(fa, shear_dy=sdy)
+                if self._aux_modules:
+                    f = self.apply_aux(f, sdy)
+            dfa, dt1m = rhs_plain(self, f, want_dt1=isub == 0,
+                                  ghosted=ghosted)
             if isub == 0:
                 dt = self._new_dt(dt1m, state["dt"])
                 df = dfa
             else:
                 df = alpha[isub] * df + dfa
-            fa = fa + beta[isub] * dt * df
+            upd = fa[:nvar] + beta[isub] * dt * df
+            fa = torch.cat([upd, fa[nvar:]]) if fa.shape[0] > nvar else upd
         fields = self.reg.unstack(self.bc_writeback(fa))
         if self.forcing is not None:
             fields = self.forcing.after_timestep(
@@ -381,6 +531,8 @@ class Model:
             return self._fused_step(state)
         if self.mode == "zghost":
             return self._zghost_step(state)
+        if self.mode == "zroll":
+            return self._zroll_step(state)
         return self._eager_step(state)
 
     def make_step(self):

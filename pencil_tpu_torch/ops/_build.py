@@ -40,6 +40,11 @@ SIGNATURES = {
         "pc_rhs_zg": [_p] * 7,
         "pc_rhs_zg_upd": [_p] * 9,
     },
+    "zroll_rhs": {
+        "pc_zr_tile_shape": [_p],
+        "pc_rhs_zroll": [_p] * 5,
+        "pc_rhs_zroll_upd": [_p] * 7,
+    },
 }
 
 _libs = {}

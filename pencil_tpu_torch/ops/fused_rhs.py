@@ -22,20 +22,29 @@ ghosted in all three axes by ``fill_ghosts`` (5, nx+6, ny+6, nz+6):
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
                        f ← f_interior + βΔt·df, a fresh tensor
 
+The shearing box (zroll mode, ``csrc/zroll_rhs.cu``), on the stack of all
+8 slots (uu, lnrho, aa, shock) ghosted in x and y by ``fill_ghosts`` with
+shear-periodic x faces, z unghosted and periodic (8, nx+6, ny+6, nz):
+
+  rhs_zroll        K4  df = RHS(f), max of the CFL 1/dt
+  rhs_zroll_upd    K5  df ← α·df_prev + RHS(f), written over df_prev;
+                       f ← f_interior + βΔt·df, a fresh (7, nx, ny, nz)
+
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
 block reads halos from; K7's df overwrites df_prev, which each point reads
-only at itself (the JAX alias {4: 0}).
+only at itself (the JAX aliases {4: 0} and {2: 0}).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..core.grid import inverse_spacings
-from ..integrate.timestep import cfl_dt1
+from ..integrate.timestep import cfl_dt1, pow6
 from ..physics.base import TimestepAccum
 from ..physics.pencils import Pencils
 from . import _build
@@ -49,7 +58,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
 LAUNCHES = {"rhs_first": 0, "rhs_tail_defer": 0, "rhs_tail_last": 0,
-            "rhs_zg": 0, "rhs_zg_upd": 0}
+            "rhs_zg": 0, "rhs_zg_upd": 0, "rhs_zroll": 0,
+            "rhs_zroll_upd": 0}
 
 
 def reset_launches():
@@ -58,15 +68,19 @@ def reset_launches():
 
 
 # ---- plain PyTorch versions ---------------------------------------------
-def rhs_plain(model, f, want_dt1=True, ghosted=False):
+def rhs_plain(model, f, want_dt1=True, ghosted=False, wrap_z=False,
+              grid=None):
     """(df, max 1/dt) of the composed module set on the periodic stack f,
-    or on the fully ghosted stack f when ``ghosted``.  The max is None
-    when ``want_dt1`` is false."""
+    on the fully ghosted stack f when ``ghosted``, or on the x/y-ghosted
+    stack f when ``wrap_z``.  The max is None when ``want_dt1`` is
+    false.  ``grid`` replaces the model's grid (the zroll kernels' node
+    coordinates)."""
     reg = model.reg
-    pen = Pencils(f[: reg.ncom], model.grid, reg, model.cfg, model.eos,
-                  ghosted=ghosted)
-    shape = tuple(n - 2 * NGHOST for n in f.shape[1:]) if ghosted \
-        else tuple(f.shape[1:])
+    pen = Pencils(f[: reg.ncom], grid or model.grid, reg, model.cfg,
+                  model.eos, ghosted=ghosted, wrap_z=wrap_z)
+    nghosted = 3 if ghosted else (2 if wrap_z else 0)
+    shape = tuple(n - 2 * NGHOST if a < nghosted else n
+                  for a, n in enumerate(f.shape[1:]))
     df = {}
     ts = TimestepAccum()
     for m in model.modules:
@@ -85,7 +99,7 @@ def rhs_plain(model, f, want_dt1=True, ghosted=False):
     dfa = torch.cat(parts, dim=0)
     if not want_dt1:
         return dfa, None
-    return dfa, cfl_dt1(ts, model.grid, model.cfg.time).max()
+    return dfa, cfl_dt1(ts, pen.grid, model.cfg.time).max()
 
 
 def rhs_first_plain(model, fa):
@@ -148,6 +162,35 @@ def rhs_zg_upd_plain(model, fg, df_prev, coef):
 def _node0(gs):
     """First node of each periodic axis: x0 + ½dx."""
     return gs.x0 + 0.5 * gs.dx, gs.y0 + 0.5 * gs.dy
+
+
+def node_grid(model):
+    """The model's grid with x at the zroll kernels' nodes x0 + ½dx + i·dx
+    in f32 (the JAX tile rule, fused_rhs.py:99-102, :151); built once per
+    model."""
+    g = model.__dict__.get("_node_grid")
+    if g is None:
+        gs = model.cfg.grid
+        x0, _ = _node0(gs)
+        i = torch.arange(gs.nx, dtype=model.dtype, device=model.device)
+        g = dataclasses.replace(model.grid, x=x0 + gs.dx * i)
+        model.__dict__["_node_grid"] = g
+    return g
+
+
+def rhs_zroll_plain(model, fg):
+    """K4's plain version: (df, 0-d max of 1/dt) on the x/y-ghosted
+    stack."""
+    return rhs_plain(model, fg, wrap_z=True, grid=node_grid(model))
+
+
+def rhs_zroll_upd_plain(model, fg, df_prev, coef):
+    """K5's plain version: (df, f); df is written over df_prev."""
+    alpha, bdt = coef[0], coef[1]
+    dfa, _ = rhs_plain(model, fg, want_dt1=False, wrap_z=True,
+                       grid=node_grid(model))
+    df_prev.copy_(alpha * df_prev + dfa)
+    return df_prev, i(fg[: model.reg.nvar], (0, 1)) + bdt * df_prev
 
 
 # ---- the kernels --------------------------------------------------------
@@ -278,6 +321,76 @@ def zg_params(model):
     return p
 
 
+class ZrParams(ctypes.Structure):
+    """Mirror of ``struct ZrParams`` in csrc/zroll_rhs.cu."""
+
+    _fields_ = [
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("isothermal", ctypes.c_int),
+        ("w1", ctypes.c_float * 3), ("w2", ctypes.c_float * 3),
+        ("w6", ctypes.c_float * 3), ("wm", ctypes.c_float * 12),
+        ("inv", ctypes.c_float * 3), ("invsq", ctypes.c_float * 3),
+        ("inv6", ctypes.c_float * 3),
+        ("nu", ctypes.c_float), ("nu_shock", ctypes.c_float),
+        ("nu3", ctypes.c_float), ("eta", ctypes.c_float),
+        ("eta3", ctypes.c_float), ("diff3", ctypes.c_float),
+        ("om", ctypes.c_float * 3), ("S", ctypes.c_float),
+        ("cs20", ctypes.c_float), ("gm1", ctypes.c_float),
+        ("lnrho0", ctypes.c_float),
+        ("dxyz2", ctypes.c_float), ("cdt", ctypes.c_float),
+        ("cdtv", ctypes.c_float), ("dif3", ctypes.c_float),
+        ("x0", ctypes.c_float), ("dx", ctypes.c_float),
+    ]
+
+
+# the zroll kernels' fixed field layout: the shear-box registry order
+_ZR_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "aa": slice(4, 7),
+              "shock": slice(7, 8)}
+
+
+def zr_params(model) -> ZrParams:
+    """The zroll kernel constants of ``model``, each the f32 rounding of
+    the value the plain version multiplies by; built once per model."""
+    p = model.__dict__.get("_zr_params")
+    if p is not None:
+        return p
+    reg, cfg, gs = model.reg, model.cfg, model.cfg.grid
+    if reg.nvar != 7 or reg.nf != 8 or any(
+            reg.slice(k) != v for k, v in _ZR_LAYOUT.items()):
+        raise NotImplementedError("zroll kernels: shear-box layout only")
+    f32 = np.float32
+    inv = np.array(inverse_spacings(gs), f32)
+    invsq = inv * inv
+    inv6 = pow6(inv)
+    dxyz2 = (invsq[0] + invsq[1]) + invsq[2]
+    nu, nu_shock, nu3 = cfg.module("viscosity").coefficients()
+    mag, den = cfg.module("magnetic"), cfg.module("density")
+    eta, eta3 = max(mag.eta, 0.0), max(mag.eta_hyper3, 0.0)
+    diff3 = max(den.diffrho_hyper3, 0.0)
+    # the constant hyper-diffusive CFL rate max(ν₃, η₃, D₃)·dxyz₆/cdtv3
+    m3 = max(nu3, eta3, diff3)
+    dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
+    dif3 = f32(m3) * dxyz6 / f32(cfg.time.cdtv3) if m3 > 0.0 else f32(0)
+    hyd = cfg.module("hydro")
+    eos = model.eos
+    x0, _ = _node0(gs)
+    wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
+    fl3 = ctypes.c_float * 3
+    p = ZrParams(
+        nx=gs.nx, ny=gs.ny, nz=gs.nz, isothermal=int(eos.gamma == 1.0),
+        w1=fl3(*paired_weights(1)), w2=fl3(*paired_weights(2)),
+        w6=fl3(*paired_weights(6)), wm=(ctypes.c_float * 12)(*wm),
+        inv=fl3(*inv), invsq=fl3(*invsq), inv6=fl3(*inv6),
+        nu=nu, nu_shock=nu_shock, nu3=nu3, eta=eta, eta3=eta3, diff3=diff3,
+        om=fl3(*(hyd.omega_vector() if hyd.Omega != 0.0 else (0, 0, 0))),
+        S=cfg.module("shear").S,
+        cs20=eos.cs20, gm1=eos.gamma - 1.0, lnrho0=eos.lnrho0,
+        dxyz2=dxyz2, cdt=cfg.time.cdt, cdtv=cfg.time.cdtv, dif3=dif3,
+        x0=x0, dx=gs.dx)
+    model.__dict__["_zr_params"] = p
+    return p
+
+
 def _nblocks(shape, lib="fused_rhs", fn="pc_tile_shape"):
     t = (ctypes.c_int * 3)()
     getattr(_build.load(lib), fn)(ctypes.addressof(t))
@@ -400,4 +513,39 @@ def rhs_zg_upd(model, fg, df_prev, coef):
             prof_c.data_ptr(), prof_h.data_ptr(), df_prev.data_ptr(),
             coef.data_ptr(), df_prev.data_ptr(), fa.data_ptr(),
             lib="zghost_rhs")
+    return df_prev, fa
+
+
+def _zr_shapes(model, fg):
+    p = zr_params(model)
+    g2 = 2 * NGHOST
+    _check(fg, (8, p.nx + g2, p.ny + g2, p.nz), "fg")
+    return p, (7, p.nx, p.ny, p.nz)
+
+
+def rhs_zroll(model, fg):
+    """K4: replaces ``kernel`` + ``_dma_tile`` (fused_rhs.py:306, :193,
+    zroll mode).  Returns (df, 0-d max of 1/dt)."""
+    if not _dispatch(fg):
+        return rhs_zroll_plain(model, fg)
+    p, shape = _zr_shapes(model, fg)
+    df = fg.new_empty(shape)
+    blk = fg.new_empty(_nblocks(shape[1:], "zroll_rhs", "pc_zr_tile_shape"))
+    _launch("rhs_zroll", fg, ctypes.addressof(p), fg.data_ptr(),
+            df.data_ptr(), blk.data_ptr(), lib="zroll_rhs")
+    return df, torch.amax(blk)
+
+
+def rhs_zroll_upd(model, fg, df_prev, coef):
+    """K5: replaces ``kernel_upd`` (fused_rhs.py:331) with the ``_dma_tile``
+    fetch.  Returns (df, f); df is df_prev's buffer, overwritten."""
+    if not _dispatch(fg):
+        return rhs_zroll_upd_plain(model, fg, df_prev, coef)
+    p, shape = _zr_shapes(model, fg)
+    _check(df_prev, shape, "df_prev")
+    _check(coef, (2,), "coef")
+    fa = df_prev.new_empty(shape)
+    _launch("rhs_zroll_upd", fg, ctypes.addressof(p), fg.data_ptr(),
+            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
+            fa.data_ptr(), lib="zroll_rhs")
     return df_prev, fa

@@ -97,22 +97,31 @@ def der2(f, axis, inv_d=None, wrap=True):
     return out if inv_d is None else out * inv_d ** 2
 
 
-def derij_bidiag(f, ax1, ax2, inv1=None, inv2=None, wrap=True):
+def der6(f, axis, wrap=True):
+    """Unscaled 6th difference on the 7-point stencil (JAX stencil.py:239
+    with inv_d=None), the building block of the del6 hyperdiffusion."""
+    return _paired(f, axis, 6, wrap)
+
+
+def derij_bidiag(f, ax1, ax2, inv1=None, inv2=None, wrap=True, wrap2=None):
     """Mixed second derivative ∂²/∂x_i∂x_j, 12-point bidiagonal scheme —
     the reference default (derij_main, deriv.f90:1376-1420): 6th order
     from the three neighbours on each half-diagonal, in one pass.  With
-    ``wrap=False`` both axes are ghosted and reduced to the interior."""
+    ``wrap=False`` ax1 is ghosted and reduced to the interior; ax2 follows
+    ``wrap2``, which defaults to ``wrap`` (the JAX package's wrap_z mode
+    rolls z while slicing x or y)."""
     if ax1 == ax2:
         raise ValueError("use der2 for repeated axes")
+    wrap2 = wrap if wrap2 is None else wrap2
     a1 = f.ndim - 3 + ax1
     a2 = f.ndim - 3 + ax2
     out = None
     for o, c in zip(range(1, NGHOST + 1), BIDIAG):
         for s1, s2, sgn in BIDIAG_TAPS:
-            if wrap:
+            if wrap and wrap2:
                 sl = torch.roll(f, (-s1 * o, -s2 * o), dims=(a1, a2))
             else:
-                sl = _shift(_shift(f, a1, s1 * o, False), a2, s2 * o, False)
+                sl = _shift(_shift(f, a1, s1 * o, wrap), a2, s2 * o, wrap2)
             t = (sgn * c) * sl
             out = t if out is None else out + t
     if inv1 is not None:

@@ -1,12 +1,14 @@
 """Ghost-zone fill on one device (counterpart of ``fill_ghosts`` in
-``pencil_tpu/parallel/halo.py:67-111`` without a mesh, shear or alignment
+``pencil_tpu/parallel/halo.py:67-158`` without a mesh or alignment
 padding).
 
 Axes are filled in order x, y, z: each axis first wraps periodically from
-the interior, then, if it is not periodic, takes its physical BCs.  Every
-wrap copies the full extent of the axes filled before it, so the ghost
-corners (which the bidiagonal mixed derivative reads) come out as in the
-JAX package.
+the interior, then, if it is not periodic, takes its physical BCs.  With
+``shear_dy`` the x faces are shear-periodic: right after the x wrap the
+two x ghost slabs are shifted in y by ±shear_dy (the JAX package's
+single-device branch, halo.py:112-152).  Every wrap copies the full extent
+of the axes filled before it, so the ghost corners (which the bidiagonal
+mixed derivative reads) come out as in the JAX package.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Tuple
 import torch
 
 from ..ops.boundary import apply_axis_bcs
+from ..physics.shear import shift_x_faces
 
 
 def _wrap_axis(fg, axis, g):
@@ -32,9 +35,11 @@ def _wrap_axis(fg, axis, g):
 
 
 def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
-                cfg, eos=None, axes: Tuple[int, ...] = (0, 1, 2)):
+                cfg, eos=None, axes: Tuple[int, ...] = (0, 1, 2),
+                shear_dy=None):
     """Interior stack (nc, nx, ny, nz) → a new stack ghosted along
-    ``axes`` (nc, nx + 2g, ...).  ``fa`` is not modified."""
+    ``axes`` (nc, nx + 2g, ...).  ``fa`` is not modified.  ``shear_dy``
+    (a 0-d device tensor) makes the x faces shear-periodic."""
     g = spec.nghost
     lead = fa.ndim - 3
     shape = list(fa.shape)
@@ -50,4 +55,6 @@ def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
         _wrap_axis(fg, axis, g)
         if not spec.periodic[axis]:
             apply_axis_bcs(fg, axis, bc_axes[axis], reg, grid, cfg, eos)
+        if axis == 0 and shear_dy is not None:
+            shift_x_faces(fg, shear_dy, spec.Ly, 1 in axes, 2 in axes)
     return fg

@@ -5,7 +5,9 @@ from .forcing import Forcing
 from .gravity import Gravity
 from .hydro import Hydro
 from .magnetic import Magnetic
+from .shear import Shear
+from .shock import Shock
 from .viscosity import Viscosity
 
 __all__ = ["Density", "Entropy", "EosIdealGas", "Forcing", "Gravity",
-           "Hydro", "Magnetic", "Viscosity"]
+           "Hydro", "Magnetic", "Shear", "Shock", "Viscosity"]

@@ -20,6 +20,7 @@ class TimestepAccum:
         self.maxadvec = 0.0    # Σ_a |u_a|·dline_1_a  (linear advection terms)
         self.advec_cs2 = 0.0   # (cs² + vA²)·Σ_a Δ_a⁻²  (wave speeds, squared)
         self.maxdiffus = 0.0   # max(ν, η, χ, ...) — scaled by dxyz_2 at the end
+        self.maxdiffus3 = 0.0  # hyper-diffusivities — scaled by dxyz_6
 
     def advec(self, val):
         self.maxadvec = self.maxadvec + val
@@ -32,6 +33,11 @@ class TimestepAccum:
         """A diffusivity: a float (ν, η) or a pointwise tensor (the K-const
         conduction's χ = K/(ρcp)·γ), kept as their elementwise maximum."""
         self.maxdiffus = _maximum(self.maxdiffus, val)
+
+    def diffus3(self, val):
+        """A hyper-diffusivity (ν₃, η₃, D₃), kept as their maximum (JAX
+        physics/base.py:59-60)."""
+        self.maxdiffus3 = _maximum(self.maxdiffus3, val)
 
 
 def _maximum(a, b):

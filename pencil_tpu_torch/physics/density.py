@@ -1,5 +1,9 @@
 """Continuity equation in the log formulation (counterpart of the lnρ branch
-of ``pencil_tpu/physics/density.py:113``):  Dlnρ/Dt = −∇·u.  Initial
+of ``pencil_tpu/physics/density.py:113-157``):
+
+    Dlnρ/Dt = −∇·u [+ D₃ Σ_a ∂⁶lnρ/∂x_a⁶]
+
+with the 'simplified' hyper-diffusion of lnρ (:137-149).  Initial
 conditions: 'zero', 'gaussian-noise' and 'piecew-poly' (:214-227)."""
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ class Density(ModuleBase):
     name: ClassVar[str] = "density"
 
     lupw_lnrho: bool = False
+    diffrho_hyper3: float = 0.0    # del6 hyperdiffusion (simplified flavor)
     init: str = "zero"
     ampl: float = 0.0
     width: float = 0.05
@@ -30,7 +35,11 @@ class Density(ModuleBase):
         reg.register("lnrho", 1, "pde")
 
     def rhs(self, pen, df, ts):
-        accumulate(df, "lnrho", -pen.ugrad("lnrho") - pen.divu())
+        out = -pen.ugrad("lnrho") - pen.divu()
+        if self.diffrho_hyper3 > 0.0:
+            out = out + self.diffrho_hyper3 * pen.del6s_scaled("lnrho")
+            ts.diffus3(self.diffrho_hyper3)
+        accumulate(df, "lnrho", out)
 
     def init_fields(self, grid, spec, generator, cfg=None):
         if self.init == "piecew-poly":

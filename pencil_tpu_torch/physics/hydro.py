@@ -1,13 +1,18 @@
 """Momentum equation (counterpart of ``pencil_tpu/physics/hydro.py:133-238``):
 
-    Du/Dt = −∇p/ρ + (viscous, Lorentz terms from their own modules)
+    Du/Dt = −∇p/ρ − 2Ω×u + (viscous, Lorentz, shear terms from their
+            own modules)
 
-Hydro owns advection, the pressure force and the advective CFL terms:
-advec_uu = Σ_a |u_a|·dline_1_a linearly, and cs²·Σ_a Δ_a⁻² squared."""
+Hydro owns advection, the pressure force, the Coriolis force (Ω at angle
+θ from the z axis, in degrees) and the advective CFL terms: advec_uu =
+Σ_a |u_a|·dline_1_a linearly, and cs²·Σ_a Δ_a⁻² squared."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import ClassVar
+
+import torch
 
 from ..integrate.timestep import dxyz2
 from .base import ModuleBase, accumulate
@@ -18,14 +23,31 @@ from .initcond import init_vector
 class Hydro(ModuleBase):
     name: ClassVar[str] = "hydro"
 
+    Omega: float = 0.0        # rotation rate
+    theta: float = 0.0        # angle of Ω from the z axis, degrees
     init: str = "zero"
     ampl: float = 0.0
 
     def register(self, reg):
         reg.register("uu", 3, "pde", comps=("ux", "uy", "uz"))
 
+    def omega_vector(self):
+        """Ω as (Ωx, Ωy, Ωz) host floats (JAX hydro.py:169-170)."""
+        th = math.radians(self.theta)
+        return (self.Omega * math.sin(th), 0.0, self.Omega * math.cos(th))
+
     def rhs(self, pen, df, ts):
-        accumulate(df, "uu", -pen.ugu() + pen.fpres())
+        out = -pen.ugu() + pen.fpres()
+        if self.Omega != 0.0:
+            om = self.omega_vector()
+            uu = pen.uu()
+            # −2Ω×u  (coriolis_cartesian, src/hydro.f90)
+            out = out + (-2.0) * torch.stack([
+                om[1] * uu[2] - om[2] * uu[1],
+                om[2] * uu[0] - om[0] * uu[2],
+                om[0] * uu[1] - om[1] * uu[0],
+            ])
+        accumulate(df, "uu", out)
         d1 = pen.dline_1()
         uua = pen.uu_advec()
         ts.advec(sum(uua[a].abs() * d1[a] for a in range(3)))

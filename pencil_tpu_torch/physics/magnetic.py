@@ -1,10 +1,10 @@
 """Induction equation for the vector potential A in the resistive gauge
-(counterpart of ``pencil_tpu/physics/magnetic.py:181-220, :333-377``):
+(counterpart of ``pencil_tpu/physics/magnetic.py:181-254, :333-377``):
 
-    ∂A/∂t = u×B + η∇²A,    du/dt += J×B/ρ   (µ₀ = 1)
+    ∂A/∂t = u×B + η∇²A + η₃ Σ_a ∂⁶A/∂x_a⁶,    du/dt += J×B/ρ   (µ₀ = 1)
 
 with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  The JAX
-module's other options (hyper-resistivity, Weyl gauge, B_ext, mean-field,
+module's other options (Weyl gauge, B_ext, shock resistivity, mean-field,
 Hall, ...) are not ported: their fields do not exist here."""
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ class Magnetic(ModuleBase):
     name: ClassVar[str] = "magnetic"
 
     eta: float = 0.0
+    eta_hyper3: float = 0.0
     init: str = "zero"
     ampl: float = 0.0
 
@@ -31,6 +32,9 @@ class Magnetic(ModuleBase):
         if self.eta > 0.0:
             out = out + self.eta * pen.del2a()
             ts.diffus(self.eta)
+        if self.eta_hyper3 > 0.0:
+            out = out + self.eta_hyper3 * pen.del6v_scaled("aa")
+            ts.diffus3(self.eta_hyper3)
         accumulate(df, "aa", out)
         bb = pen.bb()
         d1 = pen.dline_1()

@@ -1,20 +1,23 @@
 """Lazy derived-field container (counterpart of the subset of
-``pencil_tpu/physics/pencils.py`` that the flagship and stratified
-convection read).
+``pencil_tpu/physics/pencils.py`` that the flagship, stratified convection
+and the shearing box read).
 
 The whole block is "the pencil": derived fields are memoized on first
-access, and each quantity has the interior shape (nx, ny, nz).  Two input
-modes: periodic (``ghosted=False``), where ``f`` is the raw stacked state
-(nc, nx, ny, nz) and every axis wraps; and ghosted, where ``f`` is the
+access, and each quantity has the interior shape (nx, ny, nz).  Three
+input modes: periodic (``ghosted=False``), where ``f`` is the raw stacked
+state (nc, nx, ny, nz) and every axis wraps; ghosted, where ``f`` is the
 stack ghosted on all three axes (nc, nx+2g, ny+2g, nz+2g) by
 ``fill_ghosts``, derivatives slice it and ``field`` crops it (the JAX
-package's default mode).  This is the plain PyTorch evaluation of the RHS
-that the fused kernels are held to.
+package's default mode); and ``wrap_z``, where x and y are ghosted and z
+wraps (nc, nx+2g, ny+2g, nz) — the JAX package's zroll tiles
+(pencils.py:40-65).  This is the plain PyTorch evaluation of the RHS that
+the fused kernels are held to.
 """
 from __future__ import annotations
 
 import torch
 
+from ..integrate.timestep import pow6
 from ..ops import stencil as st
 
 
@@ -39,14 +42,15 @@ def _cross(a, b):
 
 
 class Pencils:
-    def __init__(self, f, grid, reg, cfg, eos=None, ghosted=False):
-        self.f = f              # periodic or fully ghosted stack
+    def __init__(self, f, grid, reg, cfg, eos=None, ghosted=False,
+                 wrap_z=False):
+        self.f = f              # periodic, fully ghosted or x/y-ghosted
         self.grid = grid
         self.reg = reg
         self.cfg = cfg
         self.eos = eos
-        self.ghosted = ghosted
-        self._wrap = not ghosted
+        # the axes that carry ghost zones; the others wrap
+        self._gh_axes = (0, 1, 2) if ghosted else ((0, 1) if wrap_z else ())
         self._cache = {}
 
     def _inv(self, axis):
@@ -55,12 +59,15 @@ class Pencils:
     def dline_1(self):
         return self.grid.dline_1()
 
+    def _wr(self, axis):
+        return axis not in self._gh_axes
+
     def _slab(self, name):
         return self.f[self.reg.slice(name)]
 
     def _crop(self, arr, axes):
-        """Interior along ``axes`` (ghosted mode; a no-op when periodic)."""
-        return st.i(arr, axes) if self.ghosted else arr
+        """Interior along those of ``axes`` that carry ghosts."""
+        return st.i(arr, tuple(a for a in axes if a in self._gh_axes))
 
     # ---- derivatives -----------------------------------------------------
     @_memo
@@ -73,16 +80,35 @@ class Pencils:
     def d(self, name, axis):
         """∂(field)/∂x_axis, shape (ncomp, nx, ny, nz)."""
         return st.der(self._gh_only(name, axis), axis,
-                      wrap=self._wrap) * self._inv(axis)
+                      wrap=self._wr(axis)) * self._inv(axis)
 
     @_memo
     def d2(self, name, axis):
         return st.der2(self._gh_only(name, axis), axis,
-                       wrap=self._wrap) * self._inv(axis) ** 2
+                       wrap=self._wr(axis)) * self._inv(axis) ** 2
+
+    @_memo
+    def d6_raw(self, name, axis):
+        """Plain 6th difference Σc_k f_{i+k}, not scaled by Δ⁻⁶ (JAX
+        pencils.py:229)."""
+        return st.der6(self._gh_only(name, axis), axis, wrap=self._wr(axis))
+
+    @_memo
+    def del6v_scaled(self, name):
+        """Σ_a ∂⁶f/∂x_a⁶ with the Δ⁻⁶ scaling (hyper3 'simplified'; JAX
+        pencils.py:302-305)."""
+        return sum(self.d6_raw(name, a) * pow6(self._inv(a))
+                   for a in range(3))
+
+    @_memo
+    def del6s_scaled(self, name):
+        return sum(self.d6_raw(name, a)[0] * pow6(self._inv(a))
+                   for a in range(3))
 
     def _bidiag(self, sl, a, b):
         rest = tuple({0, 1, 2} - {a, b})
-        out = st.derij_bidiag(self._crop(sl, rest), a, b, wrap=self._wrap)
+        out = st.derij_bidiag(self._crop(sl, rest), a, b, wrap=self._wr(a),
+                              wrap2=self._wr(b))
         return out * self._inv(a) * self._inv(b)
 
     @_memo
@@ -268,6 +294,10 @@ class Pencils:
         return out
 
     # ---- magnetic --------------------------------------------------------
+    @_memo
+    def aa(self):
+        return self.field("aa")
+
     @_memo
     def aij(self):
         return torch.stack([self.d("aa", j) for j in range(3)], dim=1)

@@ -1,10 +1,14 @@
-"""Viscous force, 'nu-const' on Cartesian grids (counterpart of
-``pencil_tpu/physics/viscosity.py:43-63``):
+"""Viscous force on Cartesian grids (counterpart of
+``pencil_tpu/physics/viscosity.py:38-227``), the sum of the selected
+flavours in the JAX order:
 
-    f = ν(∇²u + ⅓∇∇·u + 2S·∇lnρ)
+    'nu-const'           ν(∇²u + ⅓∇∇·u + 2S·∇lnρ)
+    'nu-shock'           ν_sh[shock(∇∇·u + ∇·u ∇lnρ) + ∇·u ∇shock]
+    'hyper3-simplified'  ν₃ Σ_a ∂⁶u/∂x_a⁶
 
-With an entropy slot it publishes the viscous heating 2νS² into the pencil
-cache for the entropy module (JAX viscosity.py:224-227).
+'nu-const' is always selected; the other two are optional.  With an
+entropy slot the viscous heating (2νS² + ν_sh·shock·(∇·u)²) goes into the
+pencil cache for the entropy module (JAX viscosity.py:224-227).
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch
 
 from .base import ModuleBase, accumulate
 
+OPTIONAL = ("nu-shock", "hyper3-simplified")
+
 
 @dataclass(frozen=True)
 class Viscosity(ModuleBase):
@@ -22,22 +28,55 @@ class Viscosity(ModuleBase):
 
     ivisc: Tuple[str, ...] = ("nu-const",)
     nu: float = 0.0
+    nu_hyper3: float = 0.0
+    nu_shock: float = 0.0
 
     def __post_init__(self):
-        if tuple(self.ivisc) != ("nu-const",):
+        iv = tuple(self.ivisc)
+        if "nu-const" not in iv or len(set(iv)) != len(iv) \
+                or not set(iv) <= {"nu-const", *OPTIONAL}:
             raise NotImplementedError(
-                f"pencil_tpu_torch: ivisc={self.ivisc!r} (only nu-const)")
+                f"pencil_tpu_torch: ivisc={self.ivisc!r} (nu-const, with "
+                f"optional {' and '.join(OPTIONAL)})")
+
+    def coefficients(self):
+        """(ν, ν_sh, ν₃) with 0 for a flavour that contributes nothing."""
+        iv = set(self.ivisc)
+        return (max(self.nu, 0.0),
+                max(self.nu_shock, 0.0) if "nu-shock" in iv else 0.0,
+                max(self.nu_hyper3, 0.0) if "hyper3-simplified" in iv
+                else 0.0)
 
     def rhs(self, pen, df, ts):
-        if self.nu <= 0.0:
-            return
-        sij = pen.sij()
-        glnrho = pen.glnrho()
-        sglnrho = torch.stack([
-            sum(sij[a, b] * glnrho[b] for b in range(3)) for a in range(3)
-        ])
-        accumulate(df, "uu", self.nu * (
-            pen.del2u() + (1.0 / 3.0) * pen.graddivu() + 2.0 * sglnrho))
-        if "ss" in pen.reg.slots:
-            pen._cache["visc_heat"] = 2.0 * self.nu * pen.sij2()
-        ts.diffus(self.nu)
+        nu, nu_shock, nu_hyper3 = self.coefficients()
+        heating = "ss" in pen.reg.slots
+        fvisc = 0.0
+        heat = 0.0
+        if nu > 0.0:
+            sij = pen.sij()
+            glnrho = pen.glnrho()
+            sglnrho = torch.stack([
+                sum(sij[a, b] * glnrho[b] for b in range(3))
+                for a in range(3)])
+            fvisc = fvisc + nu * (pen.del2u() + (1.0 / 3.0) * pen.graddivu()
+                                  + 2.0 * sglnrho)
+            if heating:
+                heat = heat + 2.0 * nu * pen.sij2()
+            ts.diffus(nu)
+        if nu_shock > 0.0:
+            shock = pen.field("shock")
+            gshock = pen.grad("shock")
+            divu = pen.divu()
+            fvisc = fvisc + nu_shock * (
+                shock[None] * (pen.graddivu() + divu[None] * pen.glnrho())
+                + divu[None] * gshock)
+            if heating:
+                heat = heat + nu_shock * shock * divu * divu
+            ts.diffus(nu_shock * shock)
+        if nu_hyper3 > 0.0:
+            fvisc = fvisc + nu_hyper3 * pen.del6v_scaled("uu")
+            ts.diffus3(nu_hyper3)
+        if not isinstance(fvisc, float):
+            accumulate(df, "uu", fvisc)
+        if not isinstance(heat, float):
+            pen._cache["visc_heat"] = heat

@@ -1,5 +1,6 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3 of the flagship, K6/K7 of
-stratified convection) against their plain PyTorch versions on the card.  Marked ``gpu``: they skip where there is no CUDA device.  On
+stratified convection, K4/K5 of the shearing box) against their plain
+PyTorch versions on the card.  Marked ``gpu``: they skip where there is no CUDA device.  On
 a machine with one, run them with
 
     python -m pytest tests/test_torch_gpu.py -m gpu
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 import pencil_tpu_torch as pt
-from pencil_tpu_torch.configs import conv_slab
+from pencil_tpu_torch.configs import conv_slab, shear_box
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -78,8 +79,8 @@ def test_kernels_match_plain(cuda, shape):
     torch.cuda.synchronize()
     for name in got:
         assert_field_close(got[name], want[name], name)
-    assert fr.LAUNCHES == {"rhs_first": 1, "rhs_tail_defer": 1,
-                           "rhs_tail_last": 2, "rhs_zg": 0, "rhs_zg_upd": 0}
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_first=1,
+                               rhs_tail_defer=1, rhs_tail_last=2)
 
 
 def test_step_on_card_matches_cpu(cuda):
@@ -143,8 +144,8 @@ def test_zghost_kernels_match_plain(cuda, shape):
     torch.cuda.synchronize()
     assert_field_close(df2, df2_p, "df (K7)")
     assert_field_close(f2, f2_p, "f (K7)")
-    assert fr.LAUNCHES == {"rhs_first": 0, "rhs_tail_defer": 0,
-                           "rhs_tail_last": 0, "rhs_zg": 1, "rhs_zg_upd": 1}
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zg=1,
+                               rhs_zg_upd=1)
 
 
 def test_conv_slab_steps_on_card_match_cpu(cuda):
@@ -170,15 +171,74 @@ def test_conv_slab_steps_on_card_match_cpu(cuda):
                            ref[None] if ref.ndim == 3 else ref, k)
 
 
-@pytest.mark.parametrize("which", ("flagship", "conv_slab"))
+def sheared_fg(pm, seed=4):
+    """An x/y-ghosted shear-box stack on the card at t = 0.37: noisy
+    fields and a positive shock slot, the x faces shifted by deltay."""
+    g = torch.Generator(pm.device).manual_seed(seed)
+    shape = pm.cfg.grid.shape
+    amp = torch.tensor([1e-2] * 4 + [1e-4] * 3, device=pm.device)
+    fa = amp[:, None, None, None] * torch.randn(
+        (7,) + shape, generator=g, device=pm.device)
+    shock = 1e-3 * torch.rand(shape, generator=g, device=pm.device)
+    sdy = pm.deltay(torch.tensor(0.37, device=pm.device))
+    return pm.ghosted(torch.cat([fa, shock[None]]), (0, 1), sdy)
+
+
+@pytest.mark.parametrize("shape", ((64, 64, 64), (32, 64, 128),
+                                   (16, 24, 40)),
+                         ids=("64^3", "32x64x128", "16x24x40"))
+def test_zroll_kernels_match_plain(cuda, shape):
+    """K4 and K5 against their plain versions; the last shape is not a
+    multiple of the tile."""
+    pm = pt.Model(shear_box(shape), device=cuda)
+    fg = sheared_fg(pm)
+    fr.reset_launches()
+    df, dt1m = fr.rhs_zroll(pm, fg)
+    df_p, dt1m_p = fr.rhs_zroll_plain(pm, fg)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K4)")
+    alpha, beta, _ = pm.rk
+    coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
+    fg2 = sheared_fg(pm, seed=5)
+    df2, f2 = fr.rhs_zroll_upd(pm, fg2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_zroll_upd_plain(pm, fg2, df_p.clone(), coef)
+    torch.cuda.synchronize()
+    assert_field_close(df2, df2_p, "df (K5)")
+    assert_field_close(f2, f2_p, "f (K5)")
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zroll=1,
+                               rhs_zroll_upd=1)
+
+
+def test_shear_box_steps_on_card_match_cpu(cuda):
+    """Three zroll steps through K4/K5 against the same steps on the CPU
+    (plain versions) from the same fields, starting at t = 0.37."""
+    shape = (16, 16, 32)
+    fields = pt.Model(shear_box(shape)).init_state(5)["fields"]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = pt.Model(shear_box(shape), device=dev)
+        s = model.init_state(5, overrides=fields)
+        s["t"] = torch.full((), 0.37, device=dev)
+        out[dev.type] = model.make_multi_step(3)(s)
+    torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
+                               rtol=RTOL_DT, atol=0.0)
+    for k, ref in out["cpu"]["fields"].items():
+        a = out["cuda"]["fields"][k].cpu()
+        assert_field_close(a[None] if a.ndim == 3 else a,
+                           ref[None] if ref.ndim == 3 else ref, k)
+
+
+@pytest.mark.parametrize("which", ("flagship", "conv_slab", "shear_box"))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
     for name in ("rhs_first_plain", "rhs_tail_defer_plain",
-                 "rhs_tail_last_plain", "rhs_zg_plain", "rhs_zg_upd_plain"):
+                 "rhs_tail_last_plain", "rhs_zg_plain", "rhs_zg_upd_plain",
+                 "rhs_zroll_plain", "rhs_zroll_upd_plain"):
         monkeypatch.setattr(fr, name, boom)
-    cfg = flagship((32, 32, 32)) if which == "flagship" else conv_slab(32)
+    cfg = {"flagship": flagship((32, 32, 32)), "conv_slab": conv_slab(32),
+           "shear_box": shear_box(32)}[which]
     pm = pt.Model(cfg, device=cuda)
     s = pm.make_step()(pm.init_state(0))
     torch.cuda.synchronize()

@@ -43,7 +43,8 @@ PAIRS = [(pt.GridSpec, pj.GridSpec), (pt.TimeSpec, pj.TimeSpec),
          (pt.EosIdealGas, pj.EosIdealGas), (pt.Density, pj.Density),
          (pt.Hydro, pj.Hydro), (pt.Viscosity, pj.Viscosity),
          (pt.Magnetic, pj.Magnetic), (pt.Forcing, pj.Forcing),
-         (pt.Gravity, pj.Gravity), (pt.Entropy, pj.Entropy), (pt.BC, pj.BC)]
+         (pt.Gravity, pj.Gravity), (pt.Entropy, pj.Entropy), (pt.BC, pj.BC),
+         (pt.Shear, pj.Shear), (pt.Shock, pj.Shock)]
 
 
 def _defaults(cls):
