@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the pencil_tpu_torch main paths on one NVIDIA GPU: the forced-MHD
-flagship step (kernels K1-K3), stratified convection with a non-periodic z
-(kernels K6, K7) and the sheared, rotating MHD box with shock viscosity
-and hyper-diffusion (kernels K4, K5).
+flagship step (kernels K1-K3; K2L at 2N-RK order 2, K3′ at order 4; the
+K8 memory floor), stratified convection with a non-periodic z (kernels K6,
+K7), the sheared, rotating MHD box with shock viscosity and
+hyper-diffusion (kernels K4, K5) and the shocked periodic box (kernels
+K1s, K5w).
 
     python3 chip_smoke.py
 
@@ -10,19 +12,25 @@ Phases, each printing its own lines:
   1. device and toolchain: the card, its power limit, nvcc, the kernel
      build (one nvcc per csrc/*.cu, all at once);
   2. each fused kernel against its plain PyTorch version on the same CUDA
-     inputs at 64³ and 32×64×128 (each field within 2e-5 × its max, the
-     CFL maximum within 1e-6 relative; the shear-box input at t = 0.37
-     with a positive shock slot), and three full steps of each path on
-     the card against the same steps on the CPU at 32³;
+     inputs at 64³ and 32×64×128 (each field within 2e-5 × its max, and
+     within 1e-6 for K1s, K5w, K3′, K2L and K8; the CFL maximum within
+     1e-6 relative; the shear-box input at t = 0.37 with a positive shock
+     slot, the shock-box input at urms ≈ 1 with its shock slot from the
+     pre-pass), and three full steps of each path on the card against the
+     same steps on the CPU at 32³ (the flagship at orders 2, 3 and 4);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
      just before each path's timed steps and read just after: the
      flagship with exactly one launch of K1, K2, K3 per step, the
-     conv-slab layer with exactly one K6 and two K7 launches per step,
-     then the shear box with exactly one K4 and two K5 launches per step;
-  4. each kernel's time against its plain version, and each plain chain's
-     step time, at 256³.
+     conv-slab layer with one K6 and two K7, the shear box with one K4
+     and two K5, the shock box with one K1s and two K5w, the flagship at
+     order 4 with K1, K2, two K3′ and K3, at order 2 with K1 and K2L, and
+     the K8 chain (Model(fake_rhs=True)) with one launch of each of its
+     three variants;
+  4. each kernel's time against its plain version, each plain chain's
+     step time, and the K8 chain's step time beside the flagship's, at
+     256³.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -37,37 +45,88 @@ import time
 N_MAIN = 256
 WARM, TIMED = 3, 20
 RTOL_FIELD, RTOL_DT = 2e-5, 1e-6
+RTOL_NEW = 1e-6      # K1s, K5w, K3′, K2L and K8 against their plain versions
 FLAGSHIP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last")
+FAKE_KERNELS = ("rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake")
 ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
+SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
-KERNEL_NAMES = FLAGSHIP_KERNELS + ZROLL_KERNELS + ZGHOST_KERNELS
-# launches of each zghost and zroll kernel in one step
-ZGHOST_PER_STEP = {"rhs_zg": 1, "rhs_zg_upd": 2}
-ZROLL_PER_STEP = {"rhs_zroll": 1, "rhs_zroll_upd": 2}
-REPLACES = {
-    "rhs_first": "pencil_tpu/ops/fused_rhs.py:306",
-    "rhs_tail_defer": "pencil_tpu/ops/fused_rhs.py:379",
-    "rhs_tail_last": "pencil_tpu/ops/fused_rhs.py:379",
-    "rhs_zroll": "pencil_tpu/ops/fused_rhs.py:306",
-    "rhs_zroll_upd": "pencil_tpu/ops/fused_rhs.py:331",
-    "rhs_zg": "pencil_tpu/ops/fused_rhs.py:317",
-    "rhs_zg_upd": "pencil_tpu/ops/fused_rhs.py:349",
+KERNEL_NAMES = (FLAGSHIP_KERNELS + ("rhs_tail_mid", "rhs_tail_defer_last")
+                + FAKE_KERNELS + ZROLL_KERNELS + SHOCK_KERNELS
+                + ZGHOST_KERNELS)
+# launches of each kernel in one step of each phase-3 path
+PER_STEP = {
+    "flagship": dict.fromkeys(FLAGSHIP_KERNELS, 1),
+    "flagship rk4": {"rhs_first": 1, "rhs_tail_defer": 1, "rhs_tail_mid": 2,
+                     "rhs_tail_last": 1},
+    "flagship rk2": {"rhs_first": 1, "rhs_tail_defer_last": 1},
+    "K8 chain": dict.fromkeys(FAKE_KERNELS, 1),
+    "conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
+    "shear box": {"rhs_zroll": 1, "rhs_zroll_upd": 2},
+    "shock box": {"rhs_wrap_shock": 1, "rhs_wrap_shock_upd": 2},
 }
-SOURCES = {k: "pencil_tpu_torch/csrc/fused_rhs.cu" for k in FLAGSHIP_KERNELS}
-SOURCES.update({k: "pencil_tpu_torch/csrc/zroll_rhs.cu"
-                for k in ZROLL_KERNELS})
-SOURCES.update({k: "pencil_tpu_torch/csrc/zghost_rhs.cu"
-                for k in ZGHOST_KERNELS})
+_FR = "pencil_tpu/ops/fused_rhs.py:"
+REPLACES = {
+    "rhs_first": _FR + "306", "rhs_tail_defer": _FR + "379",
+    "rhs_tail_last": _FR + "379",
+    # the JAX step's order-4 middle substeps build `kernel_upd` with the
+    # wrap fetch (pencil_tpu/model.py:690), not a `kernel_tail` variant
+    "rhs_tail_mid": _FR + "331", "rhs_tail_defer_last": _FR + "379",
+    "rhs_first_fake": _FR + "127", "rhs_tail_defer_fake": _FR + "127",
+    "rhs_tail_last_fake": _FR + "127",
+    "rhs_zroll": _FR + "306", "rhs_zroll_upd": _FR + "331",
+    "rhs_wrap_shock": _FR + "306", "rhs_wrap_shock_upd": _FR + "331",
+    "rhs_zg": _FR + "317", "rhs_zg_upd": _FR + "349",
+}
+SOURCES = {k: "pencil_tpu_torch/csrc/" + src for src, ks in (
+    ("fused_rhs.cu", FLAGSHIP_KERNELS + FAKE_KERNELS
+     + ("rhs_tail_mid", "rhs_tail_defer_last")),
+    ("zroll_rhs.cu", ZROLL_KERNELS + SHOCK_KERNELS),
+    ("zghost_rhs.cu", ZGHOST_KERNELS)) for k in ks}
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
+# memory at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# Operations per grid point, counted from the kernels' sources (csrc/*.cu,
+# stencil.cuh): a scaled paired first derivative is 9 (3 differences, 3
+# products, 2 sums, the 1/dx), a scaled second or 6th difference 13, a
+# bidiagonal mixed derivative 23 (12 products, 11 sums), the pointwise
+# physics of each module as written, a transcendental, root or division
+# counted as one; terms that this run's coefficients switch off are left
+# out.  The update per field (df = α·df_prev + r, f = f + βΔt·df) is 4,
+# the rebuilt f1 = f0 + cprev·df1 is 2, the angle-addition kick 53.
+D1, D2, DMIX, UPD, REBUILD, KICK_OPS = 9, 13, 23, 4, 2, 53
+FLAGSHIP_RHS = 21 * D1 + 18 * D2 + 12 * DMIX + 174
+SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX + 198
+# plus del6 of 7 components (21 scaled 6th differences and their sums),
+# the hyper-diffusive terms, Coriolis and the shear terms
+SHEARBOX_RHS = SHOCKBOX_RHS + 21 * D2 + 14 + 14 + 15 + 22
+CONVSLAB_RHS = 15 * D1 + 15 * D2 + 6 * DMIX + 204
+OPS = {
+    "rhs_first": FLAGSHIP_RHS + 26,
+    "rhs_tail_defer": FLAGSHIP_RHS + 7 * (REBUILD + UPD),
+    "rhs_tail_last": FLAGSHIP_RHS + 7 * UPD + KICK_OPS,
+    "rhs_tail_mid": FLAGSHIP_RHS + 7 * UPD,
+    "rhs_tail_defer_last": FLAGSHIP_RHS + 7 * (REBUILD + UPD) + KICK_OPS,
+    "rhs_first_fake": 7,
+    "rhs_tail_defer_fake": 7 * (REBUILD + 1 + UPD),
+    "rhs_tail_last_fake": 7 * (1 + UPD) + KICK_OPS,
+    "rhs_zroll": SHEARBOX_RHS + 35, "rhs_zroll_upd": SHEARBOX_RHS + 7 * UPD,
+    "rhs_wrap_shock": SHOCKBOX_RHS + 32,
+    "rhs_wrap_shock_upd": SHOCKBOX_RHS + 7 * UPD,
+    "rhs_zg": CONVSLAB_RHS + 19, "rhs_zg_upd": CONVSLAB_RHS + 5 * UPD,
+}
 # the shear-box comparisons start here, where deltay = 0.555·Ly is not a
 # whole number of cells (at t = 0 the shifted faces are plain wraps)
 T_SHEAR = 0.37
 
 
-def flagship(pt, shape, fused=True):
-    """__graft_entry__._flagship_cfg, for the port."""
+def flagship(pt, shape, fused=True, itorder=3, dt=0.0):
+    """__graft_entry__._flagship_cfg, for the port, at a 2N-RK order and
+    a fixed dt when ``dt`` > 0."""
     return pt.Config(
         grid=pt.GridSpec(nx=shape[0], ny=shape[1], nz=shape[2]),
-        time=pt.TimeSpec(itorder=3), fused=fused,
+        time=pt.TimeSpec(itorder=itorder, dt=dt), fused=fused,
         modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0),
                  pt.Density(lupw_lnrho=False),
                  pt.Hydro(init="gaussian-noise", ampl=1e-3),
@@ -98,6 +157,19 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def compare_pairs(label, shape, pairs, errs, rtol):
+    """Check each (kernel, plain) result pair; pairs: name -> list."""
+    line = []
+    for name, ps in pairs.items():
+        for a, b in ps:
+            d, r = rel_err(a, b)
+            check(r <= rtol, f"{name} at {shape}: rel err {r}")
+            errs[name] = max(errs[name], d)
+            line.append(f"{name} {r:.2e}")
+    print(f"phase 2 {shape} {label}: kernel vs plain, worst field rel err: "
+          + ", ".join(line), flush=True)
+
+
 def compare_kernels(torch, pt, fr, shape, errs):
     """Phase 2: every kernel against its plain version on CUDA inputs."""
     dev = torch.device("cuda")
@@ -124,18 +196,86 @@ def compare_kernels(torch, pt, fr, shape, errs):
                      "rhs_tail_last": 2}, f"launch counts {counts}")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{shape} max 1/dt rel err {dt_rel}")
-    pairs = {"rhs_first": [(df1, df1_p)],
-             "rhs_tail_defer": [(df2, df2_p), (f2, f2_p)],
-             "rhs_tail_last": [(f3k, f3k_p), (f3, f3_p)]}
-    line = []
-    for name, ps in pairs.items():
-        for a, b in ps:
-            d, r = rel_err(a, b)
-            check(r <= RTOL_FIELD, f"{name} at {shape}: rel err {r}")
-            errs[name] = max(errs[name], d)
-            line.append(f"{name} {r:.2e}")
-    print(f"phase 2 {shape}: kernel vs plain, worst field rel err: "
-          + ", ".join(line) + f"; max 1/dt rel err {dt_rel:.2e}", flush=True)
+    compare_pairs(f"flagship (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {"rhs_first": [(df1, df1_p)],
+                   "rhs_tail_defer": [(df2, df2_p), (f2, f2_p)],
+                   "rhs_tail_last": [(f3k, f3k_p), (f3, f3_p)]},
+                  errs, RTOL_FIELD)
+
+
+def compare_tail_kernels(torch, pt, fr, shape, errs):
+    """Phase 2: K3′, K2L (with and without the kick) and K8's three
+    variants against their plain versions on CUDA inputs."""
+    dev = torch.device("cuda")
+    model = pt.Model(flagship(pt, shape), device=dev)
+    fa = random_fa(torch, shape, 1, dev)
+    df1, dt1m = fr.rhs_first_plain(model, fa)
+    _, beta, _ = model.rk
+    dt = 1.0 / dt1m
+    coef = torch.stack((model._alpha[2], beta[2] * dt, beta[1] * dt))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt,
+                                     model.eos)
+    fr.reset_launches()
+    pairs = {
+        "rhs_tail_mid": [
+            (a, b) for a, b in zip(fr.rhs_tail_mid(model, fa, df1.clone(),
+                                                   coef),
+                                   fr.rhs_tail_mid_plain(model, fa,
+                                                         df1.clone(), coef))],
+        "rhs_tail_defer_last": [
+            (fr.rhs_tail_defer_last(model, fa, df1, coef, k),
+             fr.rhs_tail_defer_last_plain(model, fa, df1, coef, k))
+            for k in (kick, None)],
+        "rhs_first_fake": [(fr.rhs_first(model, fa, fake=True)[0],
+                            fr.rhs_first_plain(model, fa, fake=True)[0])],
+        "rhs_tail_defer_fake": list(zip(
+            fr.rhs_tail_defer(model, fa, df1, coef, fake=True),
+            fr.rhs_tail_defer_plain(model, fa, df1, coef, fake=True))),
+        "rhs_tail_last_fake": [
+            (fr.rhs_tail_last(model, fa, df1, coef, kick, fake=True),
+             fr.rhs_tail_last_plain(model, fa, df1, coef, kick, fake=True))],
+    }
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+    check(counts == {"rhs_tail_mid": 1, "rhs_tail_defer_last": 2,
+                     "rhs_first_fake": 1, "rhs_tail_defer_fake": 1,
+                     "rhs_tail_last_fake": 1}, f"launch counts {counts}")
+    compare_pairs("tail kernels and K8", shape, pairs, errs, RTOL_NEW)
+
+
+def shocked_fa(torch, pm, seed):
+    """(8, nx, ny, nz) on the card: a noisy shock-box state at urms ≈ 1 with
+    its shock slot built by the pre-pass, so the shock term is live."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    amp = torch.tensor([3 ** -0.5] * 3 + [5e-2] + [1e-2] * 3 + [0.0],
+                       device="cuda")
+    fa = amp[:, None, None, None] * torch.randn(
+        (8,) + pm.cfg.grid.shape, generator=g, device="cuda")
+    return pm._refresh_aux_fa(fa)
+
+
+def compare_shock_kernels(torch, pt, fr, shape, errs):
+    """Phase 2: K1s and K5w against their plain versions on CUDA inputs."""
+    pm = pt.Model(pt.configs.shock_box(shape), device="cuda")
+    fa = shocked_fa(torch, pm, 1)
+    check(float(fa[7].max()) > 0.0, "shock slot not positive")
+    fr.reset_launches()
+    df, dt1m = fr.rhs_wrap_shock(pm, fa)
+    df_p, dt1m_p = fr.rhs_wrap_shock_plain(pm, fa)
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    fa2 = shocked_fa(torch, pm, 2)
+    df2, f2 = fr.rhs_wrap_shock_upd(pm, fa2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_wrap_shock_upd_plain(pm, fa2, df_p.clone(), coef)
+    torch.cuda.synchronize()
+    counts = {k: fr.LAUNCHES[k] for k in SHOCK_KERNELS}
+    check(counts == dict.fromkeys(SHOCK_KERNELS, 1),
+          f"launch counts {counts}")
+    dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
+    check(dt_rel <= RTOL_DT, f"{shape} K1s max 1/dt rel err {dt_rel}")
+    compare_pairs(f"shock box (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {"rhs_wrap_shock": [(df, df_p)],
+                   "rhs_wrap_shock_upd": [(df2, df2_p), (f2, f2_p)]},
+                  errs, RTOL_NEW)
 
 
 def stratified_fa(torch, pm, seed):
@@ -170,74 +310,49 @@ def compare_zghost_kernels(torch, pt, fr, shape, errs):
           f"launch counts {counts}")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{shape} K6 max 1/dt rel err {dt_rel}")
-    line = []
-    for name, a, b in (("rhs_zg", df, df_p), ("rhs_zg_upd", df2, df2_p),
-                       ("rhs_zg_upd", f2, f2_p)):
-        d, r = rel_err(a, b)
-        check(r <= RTOL_FIELD, f"{name} at {shape}: rel err {r}")
-        errs[name] = max(errs[name], d)
-        line.append(f"{name} {r:.2e}")
-    print(f"phase 2 {shape} conv-slab: kernel vs plain, worst field rel err: "
-          + ", ".join(line) + f"; max 1/dt rel err {dt_rel:.2e}", flush=True)
+    compare_pairs(f"conv-slab (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {"rhs_zg": [(df, df_p)],
+                   "rhs_zg_upd": [(df2, df2_p), (f2, f2_p)]},
+                  errs, RTOL_FIELD)
 
 
-def compare_zghost_steps(torch, pt, shape=(32, 32, 32), nsteps=3):
-    """Phase 2b: conv-slab steps on the card against the CPU.  The
-    velocity noise is 1e-2, not the configuration's 1e-3, whose velocity
-    after 3 steps is the residual of the O(1) hydrostatic balance and
-    sits below its float32 floor (tests/test_torch_zghost.py, UU_AMPL)."""
-    fields = dict(pt.Model(pt.configs.conv_slab(shape)).init_state(
-        5)["fields"])
-    g = torch.Generator().manual_seed(5)
-    fields["uu"] = 1e-2 * torch.randn((3,) + shape, generator=g)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = pt.Model(pt.configs.conv_slab(shape), device=dev)
-        out[dev] = model.make_multi_step(nsteps)(
-            model.init_state(5, overrides=fields))
-    dt_rel = abs(float(out["cuda"]["dt"]) / float(out["cpu"]["dt"]) - 1.0)
-    check(dt_rel <= RTOL_DT, f"conv-slab step dt rel err {dt_rel}")
-    worst = 0.0
-    for k, ref in out["cpu"]["fields"].items():
-        a = out["cuda"]["fields"][k].cpu()
-        r = float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-        check(r <= RTOL_FIELD, f"conv-slab step field {k} rel err {r}")
-        worst = max(worst, r)
-    print(f"phase 2b {shape} conv-slab: {nsteps} steps on the card vs the "
-          f"CPU: worst field rel err {worst:.2e}, dt rel err {dt_rel:.2e}",
-          flush=True)
-
-
-def compare_steps(torch, pt, shape=(32, 32, 32), nsteps=3):
+def compare_steps(torch, pt, label, cfg, nsteps=3, uu_noise=0.0, t0=None):
     """Phase 2b: full steps on the card against the CPU (plain versions),
-    same fields and the same forcing draws."""
+    same fields and, when forced, the same forcing draws; ``uu_noise`` > 0
+    replaces the initial velocity with noise of that amplitude, ``t0``
+    the start time."""
     cpu = torch.device("cpu")
-    fields = {k: v for k, v in pt.Model(flagship(pt, shape)).init_state(
-        5)["fields"].items()}
+    shape = cfg.grid.shape
+    fields = dict(pt.Model(cfg).init_state(5)["fields"])
     g = torch.Generator(cpu).manual_seed(9)
+    if uu_noise:
+        fields["uu"] = uu_noise * torch.randn((3,) + shape, generator=g)
     draws = [(torch.randint(0, 20, (1,), generator=g),
               torch.rand((), generator=g) * 6.0 - 3.0,
               torch.randn(3, generator=g)) for _ in range(nsteps)]
     out = {}
     for dev in ("cuda", "cpu"):
-        model = pt.Model(flagship(pt, shape), device=dev)
+        model = pt.Model(cfg, device=dev)
         it = iter([tuple(t.to(dev) for t in d) for d in draws])
         model.forcing_draws = it.__next__
         s = model.init_state(5, overrides=fields)
+        if t0 is not None:
+            s["t"] = torch.full((), t0, device=dev)
         step = model.make_step()
         for _ in range(nsteps):
             s = step(s)
         out[dev] = s
     dt_rel = abs(float(out["cuda"]["dt"]) / float(out["cpu"]["dt"]) - 1.0)
-    check(dt_rel <= RTOL_DT, f"step dt rel err {dt_rel}")
+    check(dt_rel <= RTOL_DT, f"{label} step dt rel err {dt_rel}")
     worst = 0.0
     for k, ref in out["cpu"]["fields"].items():
         a = out["cuda"]["fields"][k].cpu()
         r = float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-        check(r <= RTOL_FIELD, f"step field {k} rel err {r}")
+        check(r <= RTOL_FIELD, f"{label} step field {k} rel err {r}")
         worst = max(worst, r)
-    print(f"phase 2b {shape}: {nsteps} steps on the card vs the CPU: worst "
-          f"field rel err {worst:.2e}, dt rel err {dt_rel:.2e}", flush=True)
+    print(f"phase 2b {shape} {label}: {nsteps} steps on the card vs the "
+          f"CPU: worst field rel err {worst:.2e}, dt rel err {dt_rel:.2e}",
+          flush=True)
 
 
 def sheared_fg(torch, pm, seed):
@@ -272,38 +387,10 @@ def compare_zroll_kernels(torch, pt, fr, shape, errs):
           f"launch counts {counts}")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{shape} K4 max 1/dt rel err {dt_rel}")
-    line = []
-    for name, a, b in (("rhs_zroll", df, df_p), ("rhs_zroll_upd", df2, df2_p),
-                       ("rhs_zroll_upd", f2, f2_p)):
-        d, r = rel_err(a, b)
-        check(r <= RTOL_FIELD, f"{name} at {shape}: rel err {r}")
-        errs[name] = max(errs[name], d)
-        line.append(f"{name} {r:.2e}")
-    print(f"phase 2 {shape} shear box: kernel vs plain, worst field rel err: "
-          + ", ".join(line) + f"; max 1/dt rel err {dt_rel:.2e}", flush=True)
-
-
-def compare_zroll_steps(torch, pt, shape=(32, 32, 32), nsteps=3):
-    """Phase 2b: shear-box steps on the card against the CPU, from
-    t = T_SHEAR."""
-    fields = pt.Model(pt.configs.shear_box(shape)).init_state(5)["fields"]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = pt.Model(pt.configs.shear_box(shape), device=dev)
-        s = model.init_state(5, overrides=fields)
-        s["t"] = torch.full((), T_SHEAR, device=dev)
-        out[dev] = model.make_multi_step(nsteps)(s)
-    dt_rel = abs(float(out["cuda"]["dt"]) / float(out["cpu"]["dt"]) - 1.0)
-    check(dt_rel <= RTOL_DT, f"shear-box step dt rel err {dt_rel}")
-    worst = 0.0
-    for k, ref in out["cpu"]["fields"].items():
-        a = out["cuda"]["fields"][k].cpu()
-        r = float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-        check(r <= RTOL_FIELD, f"shear-box step field {k} rel err {r}")
-        worst = max(worst, r)
-    print(f"phase 2b {shape} shear box: {nsteps} steps on the card vs the "
-          f"CPU: worst field rel err {worst:.2e}, dt rel err {dt_rel:.2e}",
-          flush=True)
+    compare_pairs(f"shear box (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {"rhs_zroll": [(df, df_p)],
+                   "rhs_zroll_upd": [(df2, df2_p), (f2, f2_p)]},
+                  errs, RTOL_FIELD)
 
 
 def time_ms(torch, fn, n):
@@ -358,29 +445,53 @@ def main():
     errs = dict.fromkeys(KERNEL_NAMES, 0.0)
     for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
+        compare_tail_kernels(torch, pt, fr, shape, errs)
         compare_zghost_kernels(torch, pt, fr, shape, errs)
         compare_zroll_kernels(torch, pt, fr, shape, errs)
-    compare_steps(torch, pt)
-    compare_zghost_steps(torch, pt)
-    compare_zroll_steps(torch, pt)
+        compare_shock_kernels(torch, pt, fr, shape, errs)
+    n32 = (32, 32, 32)
+    for order in (3, 2, 4):
+        compare_steps(torch, pt, f"flagship rk{order}",
+                      flagship(pt, n32, itorder=order))
+    compare_steps(torch, pt, "shock box", pt.configs.shock_box(n32),
+                  uu_noise=0.1)
+    # conv-slab: velocity noise 1e-2, not the configuration's 1e-3, whose
+    # velocity after 3 steps is the residual of the O(1) hydrostatic
+    # balance and sits below its float32 floor (tests/test_torch_zghost.py,
+    # UU_AMPL); the shear box from t = T_SHEAR
+    compare_steps(torch, pt, "conv-slab", pt.configs.conv_slab(n32),
+                  uu_noise=1e-2)
+    compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
+                  t0=T_SHEAR)
 
     # ---- phase 3: the main paths at 256³ ------------------------------
     shape = (N_MAIN,) * 3
-    launches, timings = {}, {}
+    launches, timings, bounds = {}, {}, {}
     fl = run_flagship(torch, pt, fr, smi, shape, launches)
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
-    sb = run_shear_box(torch, pt, fr, smi, shape, launches)
+    sb = run_aux_box(torch, pt, fr, smi, shape, launches, "shear box")
+    kb = run_aux_box(torch, pt, fr, smi, shape, launches, "shock box")
+    for order in (4, 2):
+        run_flagship(torch, pt, fr, smi, shape, launches, itorder=order)
+    k8 = run_fake_chain(torch, pt, fr, smi, shape, launches,
+                        float(fl[1]["dt"]))
 
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
-    time_flagship(torch, fr, smi, fl, errs, timings)
-    time_conv_slab(torch, fr, smi, zg, errs, timings)
-    time_shear_box(torch, fr, smi, sb, errs, timings)
+    time_flagship(torch, fr, smi, fl, errs, timings, bounds)
+    time_tails(torch, fr, fl, errs, timings, bounds)
+    print(f"phase 4 K8 chain at 256^3 on {smi}: {k8:.4f} ms/step, the "
+          f"flagship's kernel chain {fl[2]:.4f} ms/step", flush=True)
+    time_conv_slab(torch, fr, smi, zg, errs, timings, bounds)
+    time_aux_box(torch, fr, smi, sb, errs, timings, bounds)
+    time_aux_box(torch, fr, smi, kb, errs, timings, bounds)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": errs[k], "ms": timings[k][0],
-         "plain_ms": timings[k][1]}
+         "plain_ms": timings[k][1], "bytes_per_point": bounds[k][0],
+         "bound_ms": bounds[k][1], "bound_by": bounds[k][2],
+         "library_ms": timings[k][2]}
         for k in KERNEL_NAMES]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
@@ -419,16 +530,26 @@ def timed_steps(torch, fr, model, base):
             torch.cuda.max_memory_allocated() - base, launches)
 
 
-def run_flagship(torch, pt, fr, smi, shape, launches):
-    """Phase 3, first path: the forced-MHD flagship."""
-    cfg = flagship(pt, shape)
+def check_launches(label, counts, launches):
+    """Exactly the path's kernels, each its number of times per step; the
+    JSON line takes each kernel's count from the first path that runs
+    it."""
+    per_step = PER_STEP[label]
+    want = {k: n * TIMED for k, n in per_step.items()}
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{label} launches {got}: need {per_step} per step")
+    for k in per_step:
+        launches.setdefault(k, counts[k])
+
+
+def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3):
+    """Phase 3: the forced-MHD flagship at a 2N-RK order."""
+    label = "flagship" if itorder == 3 else f"flagship rk{itorder}"
+    cfg = flagship(pt, shape, itorder=itorder)
     base = torch.cuda.memory_allocated()
     model = pt.Model(cfg, device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
-    check(counts == dict(dict.fromkeys(KERNEL_NAMES, 0),
-                         **dict.fromkeys(FLAGSHIP_KERNELS, TIMED)),
-          f"launches {counts}: need exactly one of K1-K3 per step")
-    launches.update({k: counts[k] for k in FLAGSHIP_KERNELS})
+    check_launches(label, counts, launches)
     fa = state["_fa"]
     check(tuple(fa.shape) == (7,) + shape, f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
@@ -443,11 +564,29 @@ def run_flagship(torch, pt, fr, smi, shape, launches):
     u1 = urms(torch, fa)
     check(u1 > u0, f"urms did not grow: {u0} -> {u1}")
     ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
-    print(f"phase 3 {N_MAIN}^3 flagship on {smi}: {ms_step:.4f} ms/step, "
+    print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {ms_step:.4f} ms/step, "
           f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
           f"(CFL estimate {dt_est:.6e}), urms {u0:.3e} -> {u1:.3e}, "
-          f"launches {launches}", flush=True)
+          f"launches per step {PER_STEP[label]}", flush=True)
     return model, state, ms_step
+
+
+def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):
+    """Phase 3: the K8 chain, the flagship's loads and stores with the
+    RHS replaced by f·1.0000001, at the flagship's final dt (the fake K1
+    reports no CFL rate).  Returns its ms/step."""
+    base = torch.cuda.memory_allocated()
+    model = pt.Model(flagship(pt, shape, dt=dt), device="cuda",
+                     fake_rhs=True)
+    _, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
+    check_launches("K8 chain", counts, launches)
+    fa = state["_fa"]
+    check(tuple(fa.shape) == (7,) + shape, f"state shape {tuple(fa.shape)}")
+    check(bool(torch.isfinite(fa).all()), "non-finite field")
+    print(f"phase 3 {N_MAIN}^3 K8 chain on {smi}: {ms_step:.4f} ms/step, "
+          f"peak {peak / 2**30:.3f} GiB, fixed dt {dt:.6e}, launches per "
+          f"step {PER_STEP['K8 chain']}", flush=True)
+    return ms_step
 
 
 def run_conv_slab(torch, pt, fr, smi, shape, launches):
@@ -455,11 +594,7 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches):
     base = torch.cuda.memory_allocated()
     model = pt.Model(pt.configs.conv_slab(shape), device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
-    want = dict(dict.fromkeys(KERNEL_NAMES, 0),
-                **{k: n * TIMED for k, n in ZGHOST_PER_STEP.items()})
-    check(counts == want, f"launches {counts}: need one K6 and two K7 "
-          "launches per step")
-    launches.update({k: counts[k] for k in ZGHOST_KERNELS})
+    check_launches("conv-slab", counts, launches)
     fa = state["_fa"]
     check(tuple(fa.shape) == (5,) + shape, f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
@@ -494,17 +629,16 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches):
     return model, state, ms_step
 
 
-def run_shear_box(torch, pt, fr, smi, shape, launches):
-    """Phase 3, third path: the sheared, rotating MHD box."""
+def run_aux_box(torch, pt, fr, smi, shape, launches, label):
+    """Phase 3: the sheared, rotating MHD box or the shocked periodic box,
+    the two paths with a shock slot."""
     from pencil_tpu_torch.physics.pencils import Pencils
+    make_cfg = (pt.configs.shear_box if label == "shear box"
+                else pt.configs.shock_box)
     base = torch.cuda.memory_allocated()
-    model = pt.Model(pt.configs.shear_box(shape), device="cuda")
+    model = pt.Model(make_cfg(shape), device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
-    want = dict(dict.fromkeys(KERNEL_NAMES, 0),
-                **{k: n * TIMED for k, n in ZROLL_PER_STEP.items()})
-    check(counts == want, f"launches {counts}: need one K4 and two K5 "
-          "launches per step")
-    launches.update({k: counts[k] for k in ZROLL_KERNELS})
+    check_launches(label, counts, launches)
     fa = state["_fa"]
     check(tuple(fa.shape) == (8,) + shape, f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
@@ -530,7 +664,9 @@ def run_shear_box(torch, pt, fr, smi, shape, launches):
     del fg, pen, bb
     vis, mag = cfg.module("viscosity"), cfg.module("magnetic")
     nu, nu_shock, nu3 = vis.coefficients()
-    shear_rate = abs(cfg.module("shear").S) * float(model.grid.x.abs().max())
+    shear = cfg.module("shear")
+    shear_rate = (abs(shear.S) * float(model.grid.x.abs().max())
+                  if shear else 0.0)
     sound = math.sqrt(eos.cs20 * dxyz2)
     umax = sum(float(fa[a].abs().max()) * inv[a] for a in range(3))
     adv_lo = (shear_rate * inv[1] + sound) / tc.cdt
@@ -542,42 +678,61 @@ def run_shear_box(torch, pt, fr, smi, shape, launches):
     dif_hi = max(nu, mag.eta, nu_shock * shock) * dxyz2 / tc.cdtv + dif3
     check(1.0 / math.hypot(adv_hi, dif_hi) * (1 - 1e-5) <= dt_next
           <= 1.0 / math.hypot(adv_lo, dif_lo) * (1 + 1e-5),
-          f"dt {dt_next} outside the CFL bounds ({adv_lo}-{adv_hi}, "
+          f"{label} dt {dt_next} outside the CFL bounds ({adv_lo}-{adv_hi}, "
           f"{dif_lo}-{dif_hi})")
     u1 = urms(torch, fa)
+    if model.forcing is not None:
+        check(u1 > u0, f"{label} urms did not grow: {u0} -> {u1}")
     ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
-    print(f"phase 3 {N_MAIN}^3 shear box on {smi}: {ms_step:.4f} ms/step, "
+    print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {ms_step:.4f} ms/step, "
           f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
           f"(1/dt bounds: advective {adv_lo:.4e}-{adv_hi:.4e}, diffusive "
           f"{dif_lo:.4e}-{dif_hi:.4e}), max shock {shock:.3e}, urms "
-          f"{u0:.3e} -> {u1:.3e}, launches "
-          f"{ {k: counts[k] for k in ZROLL_KERNELS} }", flush=True)
-    return model, state, ms_step
+          f"{u0:.3e} -> {u1:.3e}, launches per step {PER_STEP[label]}",
+          flush=True)
+    return label, model, state, ms_step
 
 
-def time_pairs(torch, kname, kern, plain, errs, timings, fresh=None):
-    """Check one kernel against its plain version, then time both.
-    ``fresh`` gives the (kernel, plain) calls of the check when the timed
-    calls update their input in place."""
+def time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
+               fresh=None, library=None):
+    """Check one kernel against its plain version, then time both, and
+    set its bound from the bytes of ``inputs`` and of its outputs (each
+    read or written once) and its operations (OPS) at 256³.  ``fresh``
+    gives the (kernel, plain) calls of the check when the timed calls
+    update their input in place; ``library`` is one PyTorch call that
+    computes the same function, timed as a yardstick where there is
+    one."""
     ck, cp = fresh or (kern, plain)
     got, want = ck(), cp()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         if a.ndim == 0:
-            r = abs(float(a) / float(b) - 1.0)
+            r = 0.0 if float(a) == float(b) else abs(float(a) / float(b) - 1)
             check(r <= RTOL_DT, f"{kname} at 256^3: dt rel err {r}")
             continue
         d, r = rel_err(a, b)
         check(r <= RTOL_FIELD, f"{kname} at 256^3: rel err {r}")
         errs[kname] = max(errs[kname], d)
+    npts = N_MAIN ** 3
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *got)
+                 if t is not None)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = OPS[kname] * npts / PEAK_F32_S * 1e3
+    bounds[kname] = (nbytes / npts, max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
     del got, want
-    timings[kname] = (time_ms(torch, kern, 20), time_ms(torch, plain, 3))
+    timings[kname] = (time_ms(torch, kern, 20), time_ms(torch, plain, 3),
+                      library and time_ms(torch, library, 20))
     print(f"phase 4 {kname} at 256^3: kernel {timings[kname][0]:.4f} ms,"
-          f" plain {timings[kname][1]:.4f} ms", flush=True)
+          f" plain {timings[kname][1]:.4f} ms, library call "
+          f"{timings[kname][2] and round(timings[kname][2], 4)} ms, bound "
+          f"{bounds[kname][1]:.4f} ms ({bounds[kname][2]}: "
+          f"{bounds[kname][0]:.2f} B and {OPS[kname]} operations per point)",
+          flush=True)
 
 
-def time_flagship(torch, fr, smi, fl, errs, timings):
+def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
     model, state, ms_step = fl
     fa = state["_fa"]
     alpha, beta, _ = model.rk
@@ -586,22 +741,26 @@ def time_flagship(torch, fr, smi, fl, errs, timings):
     c3 = torch.stack((model._alpha[2], beta[2] * dt_t, model._zero))
     kick = model.forcing.kick_vector(model._ftables, model._draws(), dt_t,
                                      model.eos)
+    zc = model.grid.z
     df1, _ = fr.rhs_first_plain(model, fa)
     df2, f2 = fr.rhs_tail_defer_plain(model, fa, df1, c2)
     calls = {
         "rhs_first": (lambda: fr.rhs_first(model, fa),
-                      lambda: fr.rhs_first_plain(model, fa)),
+                      lambda: fr.rhs_first_plain(model, fa), [fa]),
         "rhs_tail_defer": (lambda: fr.rhs_tail_defer(model, fa, df1, c2),
-                           lambda: fr.rhs_tail_defer_plain(model, fa, df1, c2)),
+                           lambda: fr.rhs_tail_defer_plain(model, fa, df1, c2),
+                           [fa, df1, c2]),
         "rhs_tail_last": (
             lambda: fr.rhs_tail_last(model, f2, df2, c3, kick),
-            lambda: fr.rhs_tail_last_plain(model, f2, df2, c3, kick)),
+            lambda: fr.rhs_tail_last_plain(model, f2, df2, c3, kick),
+            [f2, df2, c3, kick, zc]),
     }
-    for kname, (kern, plain) in calls.items():
-        time_pairs(torch, kname, kern, plain, errs, timings)
+    for kname, (kern, plain, inputs) in calls.items():
+        time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs)
     del df1, df2, f2
     plain_chain = (fr.rhs_first_plain, fr.rhs_tail_defer_plain,
-                   fr.rhs_tail_last_plain)
+                   fr.rhs_tail_mid_plain, fr.rhs_tail_last_plain,
+                   fr.rhs_tail_defer_last_plain)
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
     plain_ms = time_ms(
@@ -610,7 +769,55 @@ def time_flagship(torch, fr, smi, fl, errs, timings):
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
 
 
-def time_conv_slab(torch, fr, smi, zg, errs, timings):
+def time_tails(torch, fr, fl, errs, timings, bounds):
+    """K3′, K2L and K8's three variants checked and timed on the
+    flagship's final state."""
+    model, state, _ = fl
+    fa = state["_fa"]
+    _, beta, _ = model.rk
+    dt_t = state["dt"]
+    coef = torch.stack((model._alpha[2], beta[2] * dt_t, beta[1] * dt_t))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt_t,
+                                     model.eos)
+    zc = model.grid.z
+    df1, _ = fr.rhs_first_plain(model, fa)
+    # K3′ writes the new df over df_prev: checked on fresh copies of df1,
+    # timed on one buffer that each call keeps updating in place
+    scratch = df1.clone()
+    time_pairs(
+        torch, "rhs_tail_mid",
+        lambda: fr.rhs_tail_mid(model, fa, scratch, coef),
+        lambda: fr.rhs_tail_mid_plain(model, fa, scratch, coef), errs,
+        timings, bounds, [fa, df1, coef],
+        fresh=(lambda: fr.rhs_tail_mid(model, fa, df1.clone(), coef),
+               lambda: fr.rhs_tail_mid_plain(model, fa, df1.clone(), coef)))
+    del scratch
+    calls = {
+        "rhs_tail_defer_last": (
+            lambda: fr.rhs_tail_defer_last(model, fa, df1, coef, kick),
+            lambda: fr.rhs_tail_defer_last_plain(model, fa, df1, coef, kick),
+            [fa, df1, coef, kick, zc]),
+        "rhs_first_fake": (
+            lambda: fr.rhs_first(model, fa, fake=True),
+            lambda: fr.rhs_first_plain(model, fa, fake=True), [fa],
+            # its function, f·1.0000001, is one PyTorch call
+            lambda: torch.mul(fa, fr.FAKE_FACTOR)),
+        "rhs_tail_defer_fake": (
+            lambda: fr.rhs_tail_defer(model, fa, df1, coef, fake=True),
+            lambda: fr.rhs_tail_defer_plain(model, fa, df1, coef, fake=True),
+            [fa, df1, coef]),
+        "rhs_tail_last_fake": (
+            lambda: fr.rhs_tail_last(model, fa, df1, coef, kick, fake=True),
+            lambda: fr.rhs_tail_last_plain(model, fa, df1, coef, kick,
+                                           fake=True),
+            [fa, df1, coef, kick, zc]),
+    }
+    for kname, (kern, plain, inputs, *library) in calls.items():
+        time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
+                   library=library[0] if library else None)
+
+
+def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
     """K6/K7 checked and timed on the stratified noisy input of phase 2 at
     256³, not on the main path's state: there uz's tendency is the small
     residual of the O(1) pressure and gravity forces, and the f32 rounding
@@ -621,14 +828,17 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings):
     _, beta, _ = model.rk
     df1, dt1m = fr.rhs_zg_plain(model, fg)
     coef = torch.stack((model._alpha[1], beta[1] / dt1m))
+    _, prof_c, prof_h = fr.zg_params(model)
     time_pairs(torch, "rhs_zg", lambda: fr.rhs_zg(model, fg),
-               lambda: fr.rhs_zg_plain(model, fg), errs, timings)
+               lambda: fr.rhs_zg_plain(model, fg), errs, timings, bounds,
+               [fg, prof_c, prof_h])
     # K7 writes the new df over df_prev: checked on fresh copies of df1,
     # timed on one buffer that each call keeps updating in place
     scratch = df1.clone()
     time_pairs(
         torch, "rhs_zg_upd", lambda: fr.rhs_zg_upd(model, fg, scratch, coef),
         lambda: fr.rhs_zg_upd_plain(model, fg, scratch, coef), errs, timings,
+        bounds, [fg, prof_c, prof_h, df1, coef],
         fresh=(lambda: fr.rhs_zg_upd(model, fg, df1.clone(), coef),
                lambda: fr.rhs_zg_upd_plain(model, fg, df1.clone(), coef)))
     del df1, scratch, fg
@@ -642,39 +852,61 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings):
           f"{ghost_ms:.4f} ms", flush=True)
 
 
-def time_shear_box(torch, fr, smi, sb, errs, timings):
-    """K4/K5 checked and timed on the main path's final state, its shock
-    slot rebuilt and its x/y ghosts filled as a step does."""
-    model, state, ms_step = sb
+def time_aux_box(torch, fr, smi, box, errs, timings, bounds):
+    """K4/K5 (shear box) or K1s/K5w (shock box) checked and timed on the
+    main path's final state, its shock slot rebuilt (and, for K4/K5, its
+    x/y ghosts filled) as a step does."""
+    label, model, state, ms_step = box
     fa = state["_fa"]
-    sdy = model.deltay(state["t"])
-    fg = model.ghosted(model._refresh_aux_fa(fa, sdy), (0, 1), sdy)
+    if label == "shear box":
+        names = ZROLL_KERNELS
+        first, upd = fr.rhs_zroll, fr.rhs_zroll_upd
+        first_p, upd_p = fr.rhs_zroll_plain, fr.rhs_zroll_upd_plain
+        sdy = model.deltay(state["t"])
+        fg = model.ghosted(model._refresh_aux_fa(fa, sdy), (0, 1), sdy)
+    else:
+        names = SHOCK_KERNELS
+        first, upd = fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd
+        first_p, upd_p = fr.rhs_wrap_shock_plain, fr.rhs_wrap_shock_upd_plain
+        sdy = None
+        fg = model._refresh_aux_fa(fa)
     _, beta, _ = model.rk
-    df1, dt1m = fr.rhs_zroll_plain(model, fg)
+    df1, dt1m = first_p(model, fg)
     coef = torch.stack((model._alpha[1], beta[1] / dt1m))
-    time_pairs(torch, "rhs_zroll", lambda: fr.rhs_zroll(model, fg),
-               lambda: fr.rhs_zroll_plain(model, fg), errs, timings)
-    # K5 writes the new df over df_prev: checked on fresh copies of df1,
-    # timed on one buffer that each call keeps updating in place
+    time_pairs(torch, names[0], lambda: first(model, fg),
+               lambda: first_p(model, fg), errs, timings, bounds, [fg])
+    # K5/K5w write the new df over df_prev: checked on fresh copies of
+    # df1, timed on one buffer that each call keeps updating in place
     scratch = df1.clone()
     time_pairs(
-        torch, "rhs_zroll_upd",
-        lambda: fr.rhs_zroll_upd(model, fg, scratch, coef),
-        lambda: fr.rhs_zroll_upd_plain(model, fg, scratch, coef), errs,
-        timings,
-        fresh=(lambda: fr.rhs_zroll_upd(model, fg, df1.clone(), coef),
-               lambda: fr.rhs_zroll_upd_plain(model, fg, df1.clone(), coef)))
+        torch, names[1], lambda: upd(model, fg, scratch, coef),
+        lambda: upd_p(model, fg, scratch, coef), errs, timings, bounds,
+        [fg, df1, coef],
+        fresh=(lambda: upd(model, fg, df1.clone(), coef),
+               lambda: upd_p(model, fg, df1.clone(), coef)))
     del df1, scratch, fg
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
-    plain_ms = time_ms(torch, lambda: model._zroll_step(
-        plain_state, (fr.rhs_zroll_plain, fr.rhs_zroll_upd_plain)), 3)
+    plain_ms = time_ms(torch, lambda: model._aux_step(
+        plain_state, (first_p, upd_p)), 3)
+    from pencil_tpu_torch.physics.pencils import Pencils
     aux_ms = time_ms(torch, lambda: model._refresh_aux_fa(fa, sdy), 20)
-    fill_ms = time_ms(torch, lambda: model.ghosted(fa, (0, 1), sdy), 20)
-    print(f"phase 4 shear-box plain chain at 256^3 on {smi}: {plain_ms:.4f} "
-          f"ms/step (kernel chain {ms_step:.4f} ms/step); one shock "
-          f"pre-pass {aux_ms:.4f} ms, one x/y fill with shifted faces "
-          f"{fill_ms:.4f} ms", flush=True)
+    # the pre-pass's two largest parts: its full ghost fill and ∇·u
+    fill3_ms = time_ms(torch, lambda: model.ghosted(fa, shear_dy=sdy), 20)
+    fg = model.ghosted(fa, shear_dy=sdy)
+    divu_ms = time_ms(torch, lambda: Pencils(
+        fg, model.grid, model.reg, model.cfg, model.eos,
+        ghosted=True).divu(), 20)
+    del fg
+    line = (f"phase 4 {label} plain chain at 256^3 on {smi}: "
+            f"{plain_ms:.4f} ms/step (kernel chain {ms_step:.4f} ms/step); "
+            f"one shock pre-pass {aux_ms:.4f} ms, of which its 8-slot "
+            f"ghost fill {fill3_ms:.4f} ms and the divergence "
+            f"{divu_ms:.4f} ms")
+    if sdy is not None:
+        fill_ms = time_ms(torch, lambda: model.ghosted(fa, (0, 1), sdy), 20)
+        line += f", one x/y fill with shifted faces {fill_ms:.4f} ms"
+    print(line, flush=True)
 
 
 if __name__ == "__main__":

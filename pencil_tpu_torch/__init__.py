@@ -1,14 +1,16 @@
 """pencil_tpu_torch — the PyTorch/CUDA port of pencil_tpu.
 
-Three slices run on an NVIDIA Hopper GPU through hand-written CUDA kernels,
+Four slices run on an NVIDIA Hopper GPU through hand-written CUDA kernels,
 and on the CPU through their plain PyTorch versions (float32, 6th-order
-central differences, 2N-RK3):
+central differences, the 2N-RK orders 1-4):
 
 * the flagship step: forced isothermal MHD in a periodic cube;
 * stratified convection with a non-periodic z axis
   (``configs.conv_slab``);
 * the sheared, rotating MHD box with shock viscosity and hyper-diffusion
-  (``configs.shear_box``).
+  (``configs.shear_box``);
+* the shocked periodic box: forced MHD with shock viscosity
+  (``configs.shock_box``).
 
 The JAX package ``pencil_tpu`` is the reference it is held to; this
 package never imports it or JAX.
@@ -21,4 +23,4 @@ from .ops.boundary import BC
 from .physics import (Density, Entropy, EosIdealGas, Forcing, Gravity, Hydro,
                       Magnetic, Shear, Shock, Viscosity)
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

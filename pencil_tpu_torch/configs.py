@@ -79,3 +79,26 @@ def shear_box(n, fused=True, pkg=None):
                  pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-4,
                               eta_hyper3=h3),
                  pkg.Shock()))
+
+
+def shock_box(n, fused=True, pkg=None):
+    """Supersonic forced MHD turbulence with shock viscosity, the Pencil
+    Code's shock-capturing set-up (Haugen, Brandenburg & Mee 2004, MNRAS
+    353, 947): the default 2π cube, fully periodic, isothermal gas
+    (cs = 1), ν = η = 1e-3, shock viscosity ν_sh = 1, non-helical forcing
+    (relhel = 0) of amplitude 0.2 at kf = 3; 8 slots (uu, lnrho, aa and the
+    shock profile).  ``n`` is an int (a cube) or (nx, ny, nz).  The values
+    are this configuration's own, not a reference sample's."""
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    return pkg.Config(
+        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
+        time=pkg.TimeSpec(itorder=3), fused=fused,
+        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+                 pkg.Density(),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-2),
+                 pkg.Viscosity(ivisc=("nu-const", "nu-shock"), nu=1e-3,
+                               nu_shock=1.0),
+                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=1e-3),
+                 pkg.Shock(),
+                 pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))

@@ -1,30 +1,47 @@
 // Fused RHS kernels of the flagship step: forced isothermal MHD (uu, lnrho,
-// aa; 6th-order central differences; 2N-RK3) on a fully periodic grid.
+// aa; 6th-order central differences; 2N-RK orders 1-4) on a fully periodic
+// grid.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each:
 //
-//   K1  pc_rhs_first       <- `kernel` + `_dma_tile_wrap` (wrap mode):
-//                             df = RHS(f), per-block max of the CFL 1/dt
-//   K2  pc_rhs_tail_defer  <- `kernel_tail(defer_prev=True)`:
-//                             f1 = f0 + cprev*df1 rebuilt in shared memory,
-//                             df2 = alpha*df1 + RHS(f1), f2 = f1 + bdt*df2
-//   K3  pc_rhs_tail_last   <- `kernel_tail(last=True, with_kick=...)`:
-//                             f3 = f2 + bdt*(alpha*df2 + RHS(f2)) plus the
-//                             helical forcing kick on uu; df3 never written
+//   K1  pc_rhs_first           <- `kernel` + `_dma_tile_wrap` (wrap mode):
+//                                 df = RHS(f), per-block max of the CFL 1/dt
+//   K2  pc_rhs_tail_defer      <- `kernel_tail(defer_prev=True)`:
+//                                 f1 = f0 + cprev*df1 rebuilt in shared
+//                                 memory, df2 = alpha*df1 + RHS(f1),
+//                                 f2 = f1 + bdt*df2
+//   K3  pc_rhs_tail_last       <- `kernel_tail(last=True, with_kick=...)`:
+//                                 f3 = f2 + bdt*(alpha*df2 + RHS(f2)) plus the
+//                                 helical forcing kick on uu; df3 never written
+//   K3' pc_rhs_tail_mid        <- the middle substeps of 2N-RK4, which the
+//                                 JAX step builds as `kernel_upd` with the
+//                                 `_dma_tile_wrap` fetch (:331, call :677):
+//                                 df <- alpha*df_prev + RHS(f), written over
+//                                 df_prev; f <- f + bdt*df
+//   K2L pc_rhs_tail_defer_last <- `kernel_tail(defer_prev=True, last=True,
+//                                 with_kick=...)`, the one tail substep of
+//                                 2N-RK2: K2's rebuilt f1 and K3's update
+//   K8  pc_rhs_*_fake          <- the `PC_FAKE_RHS` branch of `body`
+//                                 (:127-133): K1, K2 and K3's loads and
+//                                 stores with RHS(f) = f*1.0000001, dt1 = 0
 //
 // What bounds them on an H100: every kernel is a stencil over all 7 fields.
-// Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2: 2*nvar*4 B) out
-// per point, about 56-84 B, which at 3.35 TB/s is ~0.3 ms per kernel at
-// 256^3.  The per-point RHS reads ~420 shared-memory values (21 first, 18
-// second and 12 mixed derivatives of the paired/bidiagonal stencils), so
-// shared-memory bandwidth, not device memory, is the expected limit of this
-// first version.  Design: each block loads its (TX, TY, TZ) tile plus the
-// 3-cell halo of all fields into shared memory once, with periodic index
-// wrap in place of the TPU's wrapped DMAs and z rolls; one thread per
-// point, consecutive threads on consecutive z (the contiguous axis), so the
-// tile loads coalesce.  Outputs always go to buffers no block reads halos
-// from: blocks run in any order, so an aliased write would race.
+// Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2, K3': 2*nvar*4 B)
+// out per point, 56-112 B, which at 3.35 TB/s is ~0.3-0.6 ms per kernel at
+// 256^3; the ~900 operations per point take ~0.22 ms at 67 TFLOP/s, so
+// device memory is the bound.  The per-point RHS reads ~420 shared-memory
+// values (21 first, 18 second and 12 mixed derivatives of the
+// paired/bidiagonal stencils), so shared-memory traffic and latency, not
+// device memory, are the expected limit of this first version; K8 measures
+// what the tile load and the stores alone cost.  Design: each block loads
+// its (TX, TY, TZ) tile plus the 3-cell halo of all fields into shared
+// memory once, with periodic index wrap in place of the TPU's wrapped DMAs
+// and z rolls; one thread per point, consecutive threads on consecutive z
+// (the contiguous axis), so the tile loads coalesce.  Outputs go to buffers
+// no block reads halos from (blocks run in any order, so an aliased write
+// would race), except the df of K3', which overwrites df_prev: each point reads
+// df_prev only at itself, and every df_prev load precedes the first store.
 //
 // Parity: the stencil sums (stencil.cuh) use round-to-nearest intrinsics
 // (no FMA contraction) in the JAX package's term order, so constant fields
@@ -48,7 +65,6 @@
 #define SMEM_BYTES (NC * SVOL * (int)sizeof(float))
 
 enum { UX = 0, LNRHO = 3, AX = 4 };
-enum { FIRST = 0, DEFER = 1, LAST = 2 };
 
 __device__ __forceinline__ int wrap_index(int i, int n) {
   i %= n;
@@ -185,16 +201,19 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const PcParams& P,
   }
 }
 
-// One template for the three kernels.  coef = [alpha, beta*dt, cprev] and
-// kick = [k(3), phase, f_re(3), f_im(3), N*dt, 0] live on the device, so no
-// launch needs a host copy of dt.
-template <int MODE, bool KICK>
+// One template for every kernel: FIRST is substep 1; otherwise DEFER
+// rebuilds f1 = f0 + cprev*df1 in the tile and LAST skips the df store.
+// FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor).  coef =
+// [alpha, beta*dt, cprev] and kick = [k(3), phase, f_re(3), f_im(3), N*dt,
+// 0] live on the device, so no launch needs a host copy of dt.  dfin and
+// dfout may be one buffer (K3'): each thread reads and writes only its own
+// point of them, and loads all of its df_prev before its first store.
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 __global__ void __launch_bounds__(NTHREADS, 2)
-pc_flagship(const PcParams P, const float* __restrict__ fa,
-            const float* __restrict__ dfin, const float* __restrict__ coef,
-            const float* __restrict__ kick, const float* __restrict__ zc,
-            float* __restrict__ dfout, float* __restrict__ faout,
-            float* __restrict__ dt1blk) {
+pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
+            const float* __restrict__ coef, const float* __restrict__ kick,
+            const float* __restrict__ zc, float* dfout,
+            float* __restrict__ faout, float* __restrict__ dt1blk) {
   extern __shared__ float tile[];
   const int tid = threadIdx.x;
   const int tz = tid % TZ, ty = (tid / TZ) % TY, tx = tid / (TZ * TY);
@@ -202,7 +221,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa,
   const size_t N = (size_t)P.nx * P.ny * P.nz;
 
   // tile + halo -> shared memory, periodic wrap on every axis
-  const float cprev = MODE == DEFER ? coef[2] : 0.0f;
+  const float cprev = DEFER ? coef[2] : 0.0f;
   for (int e = tid; e < SVOL; e += NTHREADS) {
     const int iz = e % SZ, iy = (e / SZ) % SY, ix = e / (SZ * SY);
     const size_t g =
@@ -212,7 +231,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       float v = fa[c * N + g];
-      if (MODE == DEFER) v = __fadd_rn(v, __fmul_rn(cprev, dfin[c * N + g]));
+      if (DEFER) v = __fadd_rn(v, __fmul_rn(cprev, dfin[c * N + g]));
       tile[c * SVOL + e] = v;
     }
   }
@@ -223,10 +242,17 @@ pc_flagship(const PcParams P, const float* __restrict__ fa,
   const float* s = tile + ((tx + NG) * SY + (ty + NG)) * SZ + (tz + NG);
   float r[NC];
   float dt1 = 0.0f;
-  if (active) flagship_rhs<MODE == FIRST>(s, P, r, dt1);
+  if (active) {
+    if constexpr (FAKE) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) r[c] = __fmul_rn(s[c * SVOL], 1.0000001f);
+    } else {
+      flagship_rhs<FIRST>(s, P, r, dt1);
+    }
+  }
   const size_t g = ((size_t)gx * P.ny + gy) * P.nz + gz;
 
-  if (MODE == FIRST) {
+  if (FIRST) {
     if (active) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) dfout[c * N + g] = r[c];
@@ -239,11 +265,14 @@ pc_flagship(const PcParams P, const float* __restrict__ fa,
   if (!active) return;
 
   const float alpha = coef[0], bdt = coef[1];
+  float dfp[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) dfp[c] = dfin[c * N + g];
   float fnew[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const float dfn = __fadd_rn(__fmul_rn(alpha, dfin[c * N + g]), r[c]);
-    if (MODE == DEFER) dfout[c * N + g] = dfn;
+    const float dfn = __fadd_rn(__fmul_rn(alpha, dfp[c]), r[c]);
+    if (!LAST) dfout[c * N + g] = dfn;
     fnew[c] = __fadd_rn(s[c * SVOL], __fmul_rn(bdt, dfn));
   }
   if (KICK) {
@@ -272,11 +301,11 @@ pc_flagship(const PcParams P, const float* __restrict__ fa,
   for (int c = 0; c < NC; ++c) faout[c * N + g] = fnew[c];
 }
 
-template <int MODE, bool KICK>
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* zc,
                   float* dfout, float* faout, float* dt1blk, void* stream) {
-  auto kern = pc_flagship<MODE, KICK>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -285,6 +314,34 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
   kern<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       *p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk);
   return (int)cudaGetLastError();
+}
+
+// The substep-1 kernel and the three tail kinds, real or fake.
+template <bool FAKE>
+static int first(const PcParams* p, const float* fa, float* df,
+                 float* dt1blk, void* stream) {
+  return launch<true, false, false, false, FAKE>(
+      p, fa, nullptr, nullptr, nullptr, nullptr, df, nullptr, dt1blk, stream);
+}
+
+template <bool FAKE>
+static int tail_defer(const PcParams* p, const float* fa, const float* df1,
+                      const float* coef, float* df2, float* f2,
+                      void* stream) {
+  return launch<false, true, false, false, FAKE>(
+      p, fa, df1, coef, nullptr, nullptr, df2, f2, nullptr, stream);
+}
+
+// a null kick is an unforced run
+template <bool DEFER, bool FAKE>
+static int tail_last(const PcParams* p, const float* fa, const float* dfin,
+                     const float* coef, const float* kick, const float* zc,
+                     float* f, void* stream) {
+  if (kick)
+    return launch<false, DEFER, true, true, FAKE>(
+        p, fa, dfin, coef, kick, zc, nullptr, f, nullptr, stream);
+  return launch<false, DEFER, true, false, FAKE>(
+      p, fa, dfin, coef, nullptr, zc, nullptr, f, nullptr, stream);
 }
 
 extern "C" {
@@ -300,16 +357,14 @@ int pc_tile_shape(int* out) {
 // K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py).
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
                  float* dt1blk, void* stream) {
-  return launch<FIRST, false>(p, fa, nullptr, nullptr, nullptr, nullptr,
-                              df, nullptr, dt1blk, stream);
+  return first<false>(p, fa, df, dt1blk, stream);
 }
 
 // K2: replaces `kernel_tail(defer_prev=True)` (pencil_tpu/ops/fused_rhs.py).
 int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
                       const float* coef, float* df2, float* f2,
                       void* stream) {
-  return launch<DEFER, false>(p, fa, df1, coef, nullptr, nullptr, df2, f2,
-                              nullptr, stream);
+  return tail_defer<false>(p, fa, df1, coef, df2, f2, stream);
 }
 
 // K3: replaces `kernel_tail(last=True, with_kick)` (pencil_tpu/ops/
@@ -317,11 +372,44 @@ int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
 int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
                      const float* coef, const float* kick, const float* zc,
                      float* f3, void* stream) {
-  if (kick)
-    return launch<LAST, true>(p, fa, df2, coef, kick, zc, nullptr, f3,
-                              nullptr, stream);
-  return launch<LAST, false>(p, fa, df2, coef, nullptr, zc, nullptr, f3,
-                             nullptr, stream);
+  return tail_last<false, false>(p, fa, df2, coef, kick, zc, f3, stream);
+}
+
+// K3': replaces the 2N-RK4 middle substeps' `kernel_upd` with the wrap
+// fetch (pencil_tpu/ops/fused_rhs.py).  df may be df_prev's own buffer.
+int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
+                    const float* coef, float* df, float* f, void* stream) {
+  return launch<false, false, false, false, false>(
+      p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream);
+}
+
+// K2L: replaces `kernel_tail(defer_prev=True, last=True, with_kick)`
+// (pencil_tpu/ops/fused_rhs.py); kick may be null.
+int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
+                           const float* df1, const float* coef,
+                           const float* kick, const float* zc, float* f,
+                           void* stream) {
+  return tail_last<true, false>(p, fa, df1, coef, kick, zc, f, stream);
+}
+
+// K8: the `PC_FAKE_RHS` branch of `body` (pencil_tpu/ops/fused_rhs.py) in
+// K1, K2 and K3, with the same arguments as those.
+int pc_rhs_first_fake(const PcParams* p, const float* fa, float* df,
+                      float* dt1blk, void* stream) {
+  return first<true>(p, fa, df, dt1blk, stream);
+}
+
+int pc_rhs_tail_defer_fake(const PcParams* p, const float* fa,
+                           const float* df1, const float* coef, float* df2,
+                           float* f2, void* stream) {
+  return tail_defer<true>(p, fa, df1, coef, df2, f2, stream);
+}
+
+int pc_rhs_tail_last_fake(const PcParams* p, const float* fa,
+                          const float* df2, const float* coef,
+                          const float* kick, const float* zc, float* f3,
+                          void* stream) {
+  return tail_last<false, true>(p, fa, df2, coef, kick, zc, f3, stream);
 }
 
 }  // extern "C"

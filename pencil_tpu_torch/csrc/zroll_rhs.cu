@@ -2,46 +2,54 @@
 // lnrho, aa) with Coriolis, the shearing-box terms, 'nu-const' + 'nu-shock'
 // + 'hyper3-simplified' viscosity, resistivity and hyper-resistivity, and
 // lnrho hyper-diffusion, reading the shock profile from the 8th slot
-// (6th-order central differences; 2N-RK3) on a fully periodic grid whose x
-// faces are shear-periodic.
+// (6th-order central differences; 2N-RK orders 1-4) on a fully periodic
+// grid whose x faces are shear-periodic, and the same physics without the
+// Shear module on a plain periodic grid (the shocked periodic box).
 //
-// These replace the zroll-mode Pallas kernels of
-// pencil_tpu/ops/fused_rhs.py (model.py:576-730), one template instance
-// each:
+// These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that
+// carry an aux slot (model.py:576-730), one template instance each:
 //
-//   K4  pc_rhs_zroll      <- `kernel` + `_dma_tile` (zroll mode): df =
-//                            RHS(f) and the per-block max of the CFL 1/dt
-//   K5  pc_rhs_zroll_upd  <- `kernel_upd` (with the `_dma_tile` fetch):
-//                            df <- alpha*df_prev + RHS(f),
-//                            f <- f_interior + beta*dt*df
+//   K4  pc_rhs_zroll          <- `kernel` + `_dma_tile` (zroll mode): df =
+//                                RHS(f) and the per-block max of the CFL
+//                                1/dt
+//   K5  pc_rhs_zroll_upd      <- `kernel_upd` (with the `_dma_tile` fetch):
+//                                df <- alpha*df_prev + RHS(f),
+//                                f <- f_interior + beta*dt*df
+//   K1s pc_rhs_wrap_shock     <- `kernel` + `_dma_tile_wrap` with the shock
+//                                slot (wrap mode, an aux module, no Shear)
+//   K5w pc_rhs_wrap_shock_upd <- `kernel_upd` + `_dma_tile_wrap`
 //
-// The input is the 8-slot stack ghosted in x and y by fill_ghosts (the x
+// K4/K5 read the 8-slot stack ghosted in x and y by fill_ghosts (the x
 // ghost slabs already Fourier-shifted by +-deltay), z unghosted:
-// (8, nx+6, ny+6, nz).  A block loads its (TX, TY, TZ) tile plus the 3-cell
-// halo of all 8 slots into shared memory, x and y straight from the ghosted
-// stack and z with periodic index wrap, in place of the TPU's sublane-
-// aligned DMA slabs and z rolls.  The TPU-only pieces (ypad, extra_hi, the
-// NSLOT DMA pipeline) have no counterpart.
+// (8, nx+6, ny+6, nz).  K1s/K5w (WRAP) read the unghosted state
+// (8, nx, ny, nz) after the shock pre-pass, with periodic index wrap on all
+// three axes, and compile the shear terms out.  A block loads its (TX, TY,
+// TZ) tile plus the 3-cell halo of all 8 slots into shared memory, in place
+// of the TPU's sublane-aligned or wrapped DMA slabs and z rolls.  The
+// TPU-only pieces (ypad, extra_hi, GY = 8, the NSLOT DMA pipeline) have no
+// counterpart.
 //
 // What bounds them on an H100: like K1-K3 each is a stencil over every
-// field.  Device memory moves 8 in + 7 out = 60 B per point for K4 and
-// 8 + 7 + 14 = 116 B for K5 (df_prev read, df and f written), ~1-2 GB at
-// 256^3, ~0.3-0.6 ms at 3.35 TB/s.  The per-point RHS reads ~650 shared
+// field.  Device memory moves 8 in + 7 out = 60 B per point for K4/K1s and
+// 8 + 7 + 14 = 116 B for K5/K5w (df_prev read, df and f written), ~1-2 GB
+// at 256^3, ~0.3-0.6 ms at 3.35 TB/s (K4/K5 a little more: their input
+// carries the x/y ghosts).  The per-point RHS reads ~650 shared
 // values (24 first, 18 second, 12 mixed and 21 sixth derivatives), so, as
 // for K1-K3, shared-memory traffic and latency, not device memory, are the
 // expected limit of this first version.  One thread per point, consecutive
 // threads on consecutive z (the contiguous axis), so the tile loads
 // coalesce.  70.4 KB of shared memory per 256-thread block: two blocks fit
-// on an SM.  K5 reads df_prev only at its own point and writes the new df
-// over it in place (the JAX alias {2: 0}); f goes to a fresh buffer, since
-// other blocks read their halos from the input stack.
+// on an SM.  K5/K5w read df_prev only at their own point and write the new
+// df over it in place (the JAX alias {2: 0}); f goes to a fresh buffer,
+// since other blocks read their halos from the input stack.
 //
 // Parity: stencil sums in the JAX term order with round-to-nearest
 // intrinsics (stencil.cuh); the pointwise physics follows the order of the
 // JAX modules (density, hydro, shear, viscosity, magnetic) and, within
-// viscosity, nu-const, then nu-shock, then hyper3.  The node coordinate x
-// follows the JAX tile rule x0 + dx/2 + i*dx in f32.  Built without
-// --use_fast_math.
+// viscosity, nu-const, then nu-shock, then hyper3; without Shear its terms
+// are left out and aa's tendency starts at the magnetic module's, as in
+// the JAX sums.  The node coordinate x of the shear terms follows the JAX
+// tile rule x0 + dx/2 + i*dx in f32.  Built without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -86,6 +94,7 @@ struct ZrParams {
   float diff3;               // lnrho hyper-diffusion
   float om[3];               // Omega vector (Coriolis off when all 0)
   float S;                   // shear rate, background flow S*x in y
+                             // (0 without Shear)
   float cs20, gm1, lnrho0;   // cs2 = cs20*exp(gm1*(lnrho - lnrho0))
   float dxyz2, cdt, cdtv;
   float dif3;                // max(nu3, eta3, diff3)*dxyz6/cdtv3
@@ -126,8 +135,9 @@ __device__ __forceinline__ void del2_graddiv(const float* v, const int st[3],
 }
 
 // The shear-box RHS at one point.  `s` points at slot 0 of this point in
-// the shared tile; slot c is at s + c*SVOL.  `x` is the point's x node.
-template <bool WANT_DT1>
+// the shared tile; slot c is at s + c*SVOL.  `x` is the point's x node,
+// read only with SHEAR (the Shear module's terms).
+template <bool WANT_DT1, bool SHEAR>
 __device__ __forceinline__ void shearbox_rhs(const float* s, float x,
                                              const ZrParams& P,
                                              float r[NVAR], float& dt1) {
@@ -173,16 +183,18 @@ __device__ __forceinline__ void shearbox_rhs(const float* s, float x,
   }
 
   // shear: -S x d/dy on every evolved field, duy -= S ux, dAx -= S Ay
-  const float muy0 = -__fmul_rn(P.S, x);
+  const float muy0 = SHEAR ? -__fmul_rn(P.S, x) : 0.0f;
   float ra[3];
+  if (SHEAR) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    duu[a] = __fadd_rn(duu[a], __fmul_rn(muy0, uij[a][1]));
-    ra[a] = __fmul_rn(muy0, aij[a][1]);
+    for (int a = 0; a < 3; ++a) {
+      duu[a] = __fadd_rn(duu[a], __fmul_rn(muy0, uij[a][1]));
+      ra[a] = __fmul_rn(muy0, aij[a][1]);
+    }
+    rl = __fadd_rn(rl, __fmul_rn(muy0, gl[1]));
+    duu[1] = __fadd_rn(duu[1], __fmul_rn(-P.S, u[0]));
+    ra[0] = __fadd_rn(ra[0], __fmul_rn(-P.S, s[(AX + 1) * SVOL]));
   }
-  rl = __fadd_rn(rl, __fmul_rn(muy0, gl[1]));
-  duu[1] = __fadd_rn(duu[1], __fmul_rn(-P.S, u[0]));
-  ra[0] = __fadd_rn(ra[0], __fmul_rn(-P.S, s[(AX + 1) * SVOL]));
   r[LNRHO] = rl;
 
   // viscosity: nu (del2 u + grad(div u)/3 + 2 S.grad(lnrho)), then
@@ -243,7 +255,7 @@ __device__ __forceinline__ void shearbox_rhs(const float* s, float x,
       float out = u[b1] * bb[b2] - u[b2] * bb[b1];
       if (P.eta > 0.0f) out = out + P.eta * del2a[a];
       if (P.eta3 > 0.0f) out = out + P.eta3 * del6(s + (AX + a) * SVOL, st, P);
-      r[AX + a] = __fadd_rn(ra[a], out);
+      r[AX + a] = SHEAR ? __fadd_rn(ra[a], out) : out;
     }
   }
   const float rho1 = expf(-lnrho);
@@ -261,7 +273,7 @@ __device__ __forceinline__ void shearbox_rhs(const float* s, float x,
     // max(nu, nu_sh*shock, eta) at this point plus the constant del6 rate
     float adv = (fabsf(u[0]) * P.inv[0] + fabsf(u[1]) * P.inv[1])
                 + fabsf(u[2]) * P.inv[2];
-    adv = __fadd_rn(adv, __fmul_rn(fabsf(muy0), P.inv[1]));
+    if (SHEAR) adv = __fadd_rn(adv, __fmul_rn(fabsf(muy0), P.inv[1]));
     const float b0 = bb[0] * P.inv[0], b1 = bb[1] * P.inv[1],
                 b2 = bb[2] * P.inv[2];
     const float va2 = ((b0 * b0 + b1 * b1) + b2 * b2) * rho1;
@@ -278,10 +290,12 @@ __device__ __forceinline__ void shearbox_rhs(const float* s, float x,
   }
 }
 
-// One template for both kernels.  coef = [alpha, beta*dt] lives on the
-// device, so no launch needs a host copy of dt.  dfin and dfout may be the
-// same buffer (UPD_ZR): each thread reads and writes only its own point.
-template <int MODE>
+// One template for the four kernels: MODE is substep 1 or a later one;
+// WRAP reads the unghosted stack with index wrap and has no Shear module.
+// coef = [alpha, beta*dt] lives on the device, so no launch needs a host
+// copy of dt.  dfin and dfout may be the same buffer (UPD_ZR): each thread
+// reads and writes only its own point.
+template <int MODE, bool WRAP>
 __global__ void __launch_bounds__(NTHREADS, 2)
 pc_shearbox(const ZrParams P, const float* __restrict__ fg,
             const float* dfin, const float* __restrict__ coef, float* dfout,
@@ -294,13 +308,20 @@ pc_shearbox(const ZrParams P, const float* __restrict__ fg,
   const size_t MG = (size_t)MX * MY * P.nz;
   const size_t N = (size_t)P.nx * P.ny * P.nz;
 
-  // tile + halo -> shared memory; x and y are ghosted in the stack, so the
-  // halo of interior point (x, y) is at ghosted (x .. x + 2g, y .. y + 2g),
-  // and z wraps
+  // tile + halo -> shared memory.  WRAP: every axis wraps.  Otherwise x
+  // and y are ghosted in the stack, so the halo of interior point (x, y) is
+  // at ghosted (x .. x + 2g, y .. y + 2g), and z wraps
   for (int e = tid; e < SVOL; e += NTHREADS) {
     const int iz = e % SZ, iy = (e / SZ) % SY, ix = e / (SZ * SY);
     const int X = bx + ix, Y = by + iy;
-    if (X < MX && Y < MY) {
+    if (WRAP) {
+      const size_t g =
+          ((size_t)wrap_index(X - NG, P.nx) * P.ny
+           + wrap_index(Y - NG, P.ny)) * P.nz
+          + wrap_index(bz + iz - NG, P.nz);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) tile[c * SVOL + e] = fg[c * N + g];
+    } else if (X < MX && Y < MY) {
       const size_t g = ((size_t)X * MY + Y) * P.nz
                        + wrap_index(bz + iz - NG, P.nz);
 #pragma unroll
@@ -315,10 +336,10 @@ pc_shearbox(const ZrParams P, const float* __restrict__ fg,
   const int gx = bx + tx, gy = by + ty, gz = bz + tz;
   const bool active = gx < P.nx && gy < P.ny && gz < P.nz;
   const float* s = tile + ((tx + NG) * SY + (ty + NG)) * SZ + (tz + NG);
-  const float x = __fadd_rn(P.x0, __fmul_rn(P.dx, (float)gx));
+  const float x = WRAP ? 0.0f : __fadd_rn(P.x0, __fmul_rn(P.dx, (float)gx));
   float r[NVAR];
   float dt1 = 0.0f;
-  if (active) shearbox_rhs<MODE == FIRST_ZR>(s, x, P, r, dt1);
+  if (active) shearbox_rhs<MODE == FIRST_ZR, !WRAP>(s, x, P, r, dt1);
   const size_t g = ((size_t)gx * P.ny + gy) * P.nz + gz;
 
   if (MODE == FIRST_ZR) {
@@ -347,11 +368,11 @@ pc_shearbox(const ZrParams P, const float* __restrict__ fg,
   }
 }
 
-template <int MODE>
+template <int MODE, bool WRAP>
 static int launch(const ZrParams* p, const float* fg, const float* dfin,
                   const float* coef, float* dfout, float* faout,
                   float* dt1blk, void* stream) {
-  auto kern = pc_shearbox<MODE>;
+  auto kern = pc_shearbox<MODE, WRAP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -375,8 +396,8 @@ int pc_zr_tile_shape(int* out) {
 // K4: replaces `kernel` + `_dma_tile` (pencil_tpu/ops/fused_rhs.py, zroll).
 int pc_rhs_zroll(const ZrParams* p, const float* fg, float* df,
                  float* dt1blk, void* stream) {
-  return launch<FIRST_ZR>(p, fg, nullptr, nullptr, df, nullptr, dt1blk,
-                          stream);
+  return launch<FIRST_ZR, false>(p, fg, nullptr, nullptr, df, nullptr,
+                                 dt1blk, stream);
 }
 
 // K5: replaces `kernel_upd` (pencil_tpu/ops/fused_rhs.py).  df may be
@@ -384,7 +405,25 @@ int pc_rhs_zroll(const ZrParams* p, const float* fg, float* df,
 int pc_rhs_zroll_upd(const ZrParams* p, const float* fg,
                      const float* df_prev, const float* coef, float* df,
                      float* fa, void* stream) {
-  return launch<UPD_ZR>(p, fg, df_prev, coef, df, fa, nullptr, stream);
+  return launch<UPD_ZR, false>(p, fg, df_prev, coef, df, fa, nullptr,
+                               stream);
+}
+
+// K1s: replaces `kernel` + `_dma_tile_wrap` with the shock slot
+// (pencil_tpu/ops/fused_rhs.py, wrap mode with an aux module); fa is the
+// unghosted 8-slot state.
+int pc_rhs_wrap_shock(const ZrParams* p, const float* fa, float* df,
+                      float* dt1blk, void* stream) {
+  return launch<FIRST_ZR, true>(p, fa, nullptr, nullptr, df, nullptr, dt1blk,
+                                stream);
+}
+
+// K5w: replaces `kernel_upd` + `_dma_tile_wrap` (pencil_tpu/ops/
+// fused_rhs.py).  df may be df_prev's own buffer.
+int pc_rhs_wrap_shock_upd(const ZrParams* p, const float* fa,
+                          const float* df_prev, const float* coef, float* df,
+                          float* f, void* stream) {
+  return launch<UPD_ZR, true>(p, fa, df_prev, coef, df, f, nullptr, stream);
 }
 
 }  // extern "C"

@@ -1,39 +1,47 @@
 """Model assembly and the time step (counterpart of ``pencil_tpu/model.py``).
 
-Two module sets run as chains of fused kernels (2N-RK3, f32):
+Four module sets run as chains of fused kernels, f32, at any 2N-RK order
+of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 
 * The flagship — ideal-gas EOS, lnρ density, hydro, 'nu-const'
   viscosity, resistive-gauge magnetic, optional helical forcing — on a
   fully periodic grid, as the JAX package's wrap mode (model.py:650-703):
+  K1 evaluates df1 = RHS(f0) and the CFL maximum (dt stays on the
+  device); then
 
-    1. K1 evaluates df1 = RHS(f0) and the CFL maximum; dt stays on the
-       device;
-    2. K2 rebuilds f1 = f0 + β₁Δt·df1 from raw f0 and df1, writes df2, f2;
-    3. K3 writes f3 = f2 + β₃Δt·(α₃df2 + RHS(f2)) with the forcing kick.
+    order 1: a torch axpy, and the forcing kick after the step;
+    order 2: K2L: f = f1 + β₁Δt·(α₁df1 + RHS(f1)) with f1 = f0 + β₀Δt·df1
+             rebuilt from raw f0 and df1, and the kick;
+    order 3: K2 (the rebuilt f1, writes df2 and f2), then K3 with the kick;
+    order 4: K2, K3′ twice (df ← α·df + RHS(f), f ← f + βΔt·df), K3.
+
+  ``Model(..., fake_rhs=True)`` runs K8 in place of K1-K3 (order 3 only):
+  the same loads and stores with RHS(f) = f·1.0000001, the memory floor of
+  the chain, wrong physics by design.
 
 * Stratified convection — the EOS with an entropy slot, lnρ density,
   hydro, constant gravity, 'nu-const' viscosity, entropy — with a
   non-periodic z axis, as the JAX package's zghost mode (model.py:704-775,
-  :891):
-
-    1. ``fill_ghosts`` (x/y wrap, z BCs), K6: df1 = RHS(f0) and the CFL
-       maximum, dt on the device, f1 = f0 + β₁Δt·df1 as a torch axpy;
-    2. and 3. ``fill_ghosts``, K7: df ← α·df + RHS(f), f ← f + βΔt·df;
-    then ``bc_writeback`` pins the boundary planes that value-setting BCs
-    fix.
+  :891): ``fill_ghosts`` (x/y wrap, z BCs) and K6 (df1 and the CFL
+  maximum), f1 = f0 + β₀Δt·df1 as a torch axpy; then per substep
+  ``fill_ghosts`` and K7 (df ← α·df + RHS(f), f ← f + βΔt·df); then
+  ``bc_writeback`` pins the boundary planes that value-setting BCs fix.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
   'hyper3-simplified' viscosity, hyper-resistivity and lnρ
   hyper-diffusion, plus Shear and Shock — on a fully periodic grid whose x
   faces are shear-periodic, as the JAX package's zroll mode
-  (model.py:576-730):
+  (model.py:576-730): each substep runs the shock pre-pass
+  (``_refresh_aux_fa``) and ``fill_ghosts`` in x and y with the
+  Fourier-shifted x faces, then K4 (and a torch axpy) or K5.
 
-    1. the shock pre-pass (``_refresh_aux_fa``), ``fill_ghosts`` in x and
-       y with the Fourier-shifted x faces, K4: df1 = RHS(f0) and the CFL
-       maximum, dt on the device, f1 = f0 + β₁Δt·df1 as a torch axpy;
-    2. and 3. the pre-pass and the fill again, K5: df ← α·df + RHS(f),
-       f ← f + βΔt·df.
+* The shocked periodic box — the same modules without Shear, with
+  optional forcing — on a plain periodic grid, as the JAX package's wrap
+  mode with an aux module (model.py:433-445, :704-730): each substep runs
+  the shock pre-pass, then K1s (and a torch axpy) or K5w, which fetch
+  their halos by index wrap (no ghost fill); the forcing kick follows the
+  step.
 
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
@@ -52,8 +60,9 @@ from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import BC_REGISTRY
 from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
-                            rhs_tail_last, rhs_zg, rhs_zg_upd, rhs_zroll,
-                            rhs_zroll_upd)
+                            rhs_tail_defer_last, rhs_tail_last, rhs_tail_mid,
+                            rhs_wrap_shock, rhs_wrap_shock_upd, rhs_zg,
+                            rhs_zg_upd, rhs_zroll, rhs_zroll_upd)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
@@ -79,12 +88,14 @@ REGISTRATION_ORDER = (
 
 # the module sets the fused kernels implement: the flagship (forcing is
 # optional) on a fully periodic grid, stratified convection with z
-# non-periodic and x, y periodic, the shearing box on a fully periodic grid
+# non-periodic and x, y periodic, the shearing box on a fully periodic grid,
+# and the shocked box (forcing is optional) on a fully periodic grid
 FLAGSHIP_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
                               "magnetic"))
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
 ZROLL_MODULES = FLAGSHIP_MODULES | {"shear", "shock"}
+SHOCKBOX_MODULES = FLAGSHIP_MODULES | {"shock"}
 
 
 def _order_key(order):
@@ -118,29 +129,31 @@ def _zroll_options(cfg: Config):
 
 def fused_mode(cfg: Config):
     """(mode, None) with mode 'wrap' (the flagship chain), 'zghost'
-    (stratified convection) or 'zroll' (the shearing box), or (None, why
-    ``cfg`` is outside all three)."""
+    (stratified convection), 'zroll' (the shearing box) or 'wrap_aux' (the
+    shocked periodic box), or (None, why ``cfg`` is outside all four)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
-    if cfg.time.itorder != 3:
+    if cfg.time.itorder not in RK_TABLES:
         return None, (f"itorder={cfg.time.itorder} (the kernels implement "
-                      "2N-RK3)")
+                      f"the 2N-RK orders {sorted(RK_TABLES)})")
     bad = _unported_bcs(cfg)
     if bad:
         return None, f"BC mnemonics {bad} (not ported)"
     mods = set(names)
     periodic = tuple(cfg.grid.periodic)
     if len(mods) == len(names):
-        if mods == ZROLL_MODULES and periodic == (True, True, True):
+        full = periodic == (True, True, True)
+        if mods == ZROLL_MODULES and full:
             return "zroll", None
+        if mods - {"forcing"} == SHOCKBOX_MODULES and full:
+            return "wrap_aux", None
         extra = _zroll_options(cfg)
-        wrap = (mods - {"forcing"} == FLAGSHIP_MODULES
-                and periodic == (True, True, True))
+        wrap = mods - {"forcing"} == FLAGSHIP_MODULES and full
         zghost = mods == CONVSLAB_MODULES and periodic == (True, True, False)
         if (wrap or zghost) and extra:
-            return None, (f"options {extra} (only the shear-box kernels "
-                          "implement them)")
+            return None, (f"options {extra} (only the shear-box and "
+                          "shock-box kernels implement them)")
         if wrap:
             return "wrap", None
         if zghost:
@@ -148,8 +161,10 @@ def fused_mode(cfg: Config):
     return None, (f"modules {sorted(names)} with periodic={periodic} (the "
                   f"kernels implement {sorted(FLAGSHIP_MODULES)} with "
                   "optional forcing on a periodic grid, "
-                  f"{sorted(CONVSLAB_MODULES)} with a non-periodic z, and "
-                  f"{sorted(ZROLL_MODULES)} on a periodic grid)")
+                  f"{sorted(CONVSLAB_MODULES)} with a non-periodic z, "
+                  f"{sorted(ZROLL_MODULES)} on a periodic grid, and "
+                  f"{sorted(SHOCKBOX_MODULES)} with optional forcing on a "
+                  "periodic grid)")
 
 
 def gate_reason(cfg: Config):
@@ -223,12 +238,20 @@ def _slots_of(m):
 
 
 class Model:
-    def __init__(self, cfg: Config, device="cpu"):
+    def __init__(self, cfg: Config, device="cpu", fake_rhs=False):
+        """``fake_rhs``: run the K8 memory floor in place of K1-K3 (the
+        flagship chain at itorder 3 only) — a measurement mode whose
+        physics is wrong by design."""
         _check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.fused = fused_gate(cfg, self.device)
         self.mode = fused_mode(cfg)[0] if self.fused else None
+        self.fake_rhs = bool(fake_rhs)
+        if self.fake_rhs and (self.mode != "wrap" or cfg.time.itorder != 3):
+            raise NotImplementedError(
+                "pencil_tpu_torch: fake_rhs (K8) runs on the flagship's "
+                "fused 2N-RK3 chain only")
         self.dtype = torch.float32
         self.modules = tuple(sorted(cfg.modules, key=_order_key(MODULE_ORDER)))
         self.reg = Registry()
@@ -409,86 +432,118 @@ class Model:
             dt = torch.minimum(dt, tc.ddt * dt_prev)
         return dt
 
-    def _fused_step(self, state: Dict,
-                    kernels=(rhs_first, rhs_tail_defer, rhs_tail_last)):
-        """One 2N-RK3 step as the three-kernel chain.  ``kernels`` lets a
-        measurement time the plain versions through the same chain."""
-        first, defer, last = kernels
-        alpha, beta, _ = self.rk
-        packed = "_fa" in state
-        fa = state["_fa"] if packed else self.reg.stack(state["fields"])
-        df1, dt1m = first(self, fa)
-        dt = self._new_dt(dt1m, state["dt"])
-        coef = torch.stack((self._alpha[1], beta[1] * dt, beta[0] * dt))
-        df2, f2 = defer(self, fa, df1, coef)
-        del df1
-        coef = torch.stack((self._alpha[2], beta[2] * dt, self._zero))
-        kick = None
-        if self.forcing is not None:
-            kick = self.forcing.kick_vector(self._ftables, self._draws(), dt,
-                                            self.eos)
-        f3 = last(self, f2, df2, coef, kick)
+    def _finish(self, state: Dict, fa, dt) -> Dict:
+        """The state after one step from ``state``: ``fa`` packed or
+        unpacked as ``state`` was."""
         out = {"t": state["t"] + dt, "dt": dt, "it": state["it"] + 1}
-        if packed:
-            out["_fa"] = f3
+        if "_fa" in state:
+            out["_fa"] = fa
         else:
-            out["fields"] = self.reg.unstack(f3)
+            out["fields"] = self.reg.unstack(fa)
         return out
 
+    def _kick_after(self, fa, dt):
+        """``fa`` with the forcing kick added to its u rows after the step
+        (JAX model.py:924-933), for the chains whose kernels do not kick;
+        ``fa`` itself when the run is unforced."""
+        if self.forcing is None:
+            return fa
+        sl = self.reg.slice("uu")
+        uu = self.forcing.after_timestep({"uu": fa[sl]}, self.grid,
+                                         self._ftables, self._draws(), dt,
+                                         self.eos)["uu"]
+        return torch.cat([fa[: sl.start], uu, fa[sl.stop:]])
+
+    def _fused_step(self, state: Dict, kernels=None):
+        """One 2N-RK step of the flagship chain at the order of ``self.rk``
+        (JAX model.py:650-703).  ``kernels`` = (first, defer, mid, last,
+        defer_last) lets a measurement time the plain versions through
+        the same chain."""
+        first, defer, mid, last, defer_last = kernels or (
+            rhs_first, rhs_tail_defer, rhs_tail_mid, rhs_tail_last,
+            rhs_tail_defer_last)
+        fake = {"fake": True} if self.fake_rhs else {}
+        alpha, beta, _ = self.rk
+        nsub = len(alpha)
+        fa = state["_fa"] if "_fa" in state else self.reg.stack(
+            state["fields"])
+        df, dt1m = first(self, fa, **fake)
+        dt = self._new_dt(dt1m, state["dt"])
+        if nsub == 1:
+            return self._finish(state, self._kick_after(
+                fa + beta[0] * dt * df, dt), dt)
+        f = fa
+        for isub in range(1, nsub):
+            coef = torch.stack((self._alpha[isub], beta[isub] * dt,
+                                beta[0] * dt if isub == 1 else self._zero))
+            if isub < nsub - 1:
+                if isub == 1:
+                    df, f = defer(self, fa, df, coef, **fake)
+                else:
+                    df, f = mid(self, f, df, coef)
+                continue
+            kick = None
+            if self.forcing is not None:
+                kick = self.forcing.kick_vector(self._ftables, self._draws(),
+                                                dt, self.eos)
+            if isub == 1:
+                f = defer_last(self, fa, df, coef, kick)
+            else:
+                f = last(self, f, df, coef, kick, **fake)
+        return self._finish(state, f, dt)
+
     def _zghost_step(self, state: Dict, kernels=(rhs_zg, rhs_zg_upd)):
-        """One 2N-RK3 step as the zghost chain (JAX model.py:704-775,
-        :891): K6 and a torch axpy, then K7 twice, each on a fresh ghost
-        fill, then the boundary-plane writeback.  ``kernels`` lets a
+        """One 2N-RK step as the zghost chain (JAX model.py:704-775,
+        :891): K6 and a torch axpy, then K7 per substep, each on a fresh
+        ghost fill, then the boundary-plane writeback.  ``kernels`` lets a
         measurement time the plain versions through the same chain."""
         first, upd = kernels
         alpha, beta, _ = self.rk
-        packed = "_fa" in state
-        fa = state["_fa"] if packed else self.reg.stack(state["fields"])
+        fa = state["_fa"] if "_fa" in state else self.reg.stack(
+            state["fields"])
         df, dt1m = first(self, self.ghosted(fa))
         dt = self._new_dt(dt1m, state["dt"])
         fa = fa + beta[0] * dt * df
         for isub in range(1, len(alpha)):
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, fa = upd(self, self.ghosted(fa), df, coef)
-        fa = self.bc_writeback(fa)
-        out = {"t": state["t"] + dt, "dt": dt, "it": state["it"] + 1}
-        if packed:
-            out["_fa"] = fa
-        else:
-            out["fields"] = self.reg.unstack(fa)
-        return out
+        return self._finish(state, self.bc_writeback(fa), dt)
 
-    def _zroll_step(self, state: Dict, kernels=(rhs_zroll, rhs_zroll_upd)):
-        """One 2N-RK3 step as the zroll chain (JAX model.py:576-730): each
-        substep rebuilds the shock slot and fills the x/y ghosts with the
-        x faces shifted by deltay at t0 + c·dt (substep 1 with the old dt,
-        2 and 3 with the new one); K4 and a torch axpy, then K5 twice.  The
-        state's shock slot is the last pre-pass's.  ``kernels`` lets a
-        measurement time the plain versions through the same chain."""
-        first, upd = kernels
+    def _aux_step(self, state: Dict, kernels=None):
+        """One 2N-RK step of a chain with the shock slot: the zroll chain
+        (JAX model.py:576-730) or the wrap_aux chain (model.py:433-445,
+        :704-730).  Each substep rebuilds the shock slot; zroll then fills
+        the x/y ghosts with the x faces shifted by deltay at t0 + c·dt
+        (substep 1 with the old dt, the others with the new one), while
+        wrap_aux's kernels fetch their halos by index wrap.  K4/K1s and a
+        torch axpy, then K5/K5w per substep; the forcing kick (wrap_aux)
+        follows the step.  The state's shock slot is the last pre-pass's.
+        ``kernels`` = (first, upd) lets a measurement time the plain
+        versions through the same chain."""
+        wrap = self.mode == "wrap_aux"
+        first, upd = kernels or ((rhs_wrap_shock, rhs_wrap_shock_upd) if wrap
+                                 else (rhs_zroll, rhs_zroll_upd))
+
+        def kernel_input(fa, sdy):
+            return fa if wrap else self.ghosted(fa, (0, 1), sdy)
+
         alpha, beta, cstage = self.rk
         nvar = self.reg.nvar
-        packed = "_fa" in state
-        fa = state["_fa"] if packed else self.reg.stack(state["fields"])
+        fa = state["_fa"] if "_fa" in state else self.reg.stack(
+            state["fields"])
         t0, dt = state["t"], state["dt"]
-        sdy = self.deltay(t0 + cstage[0] * dt)
-        fg = self.ghosted(self._refresh_aux_fa(fa, sdy), (0, 1), sdy)
-        df, dt1m = first(self, fg)
-        del fg
+        sdy = None if wrap else self.deltay(t0 + cstage[0] * dt)
+        df, dt1m = first(self, kernel_input(self._refresh_aux_fa(fa, sdy),
+                                            sdy))
         dt = self._new_dt(dt1m, state["dt"])
         fa = torch.cat([fa[:nvar] + beta[0] * dt * df, fa[nvar:]])
         for isub in range(1, len(alpha)):
-            sdy = self.deltay(t0 + cstage[isub] * dt)
+            sdy = None if wrap else self.deltay(t0 + cstage[isub] * dt)
             fa = self._refresh_aux_fa(fa, sdy)
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
-            df, f_new = upd(self, self.ghosted(fa, (0, 1), sdy), df, coef)
+            df, f_new = upd(self, kernel_input(fa, sdy), df, coef)
             fa = torch.cat([f_new, fa[nvar:]])
-        out = {"t": t0 + dt, "dt": dt, "it": state["it"] + 1}
-        if packed:
-            out["_fa"] = fa
-        else:
-            out["fields"] = self.reg.unstack(fa)
-        return out
+        return self._finish(state, self._kick_after(fa, dt), dt)
 
     def _eager_step(self, state: Dict):
         """One 2N-RK step from the plain RHS, the boundary-plane writeback
@@ -531,8 +586,8 @@ class Model:
             return self._fused_step(state)
         if self.mode == "zghost":
             return self._zghost_step(state)
-        if self.mode == "zroll":
-            return self._zroll_step(state)
+        if self.mode in ("zroll", "wrap_aux"):
+            return self._aux_step(state)
         return self._eager_step(state)
 
     def make_step(self):

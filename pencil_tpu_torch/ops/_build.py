@@ -34,6 +34,11 @@ SIGNATURES = {
         "pc_rhs_first": [_p] * 5,
         "pc_rhs_tail_defer": [_p] * 7,
         "pc_rhs_tail_last": [_p] * 8,
+        "pc_rhs_tail_mid": [_p] * 7,
+        "pc_rhs_tail_defer_last": [_p] * 8,
+        "pc_rhs_first_fake": [_p] * 5,
+        "pc_rhs_tail_defer_fake": [_p] * 7,
+        "pc_rhs_tail_last_fake": [_p] * 8,
     },
     "zghost_rhs": {
         "pc_zg_tile_shape": [_p],
@@ -44,6 +49,8 @@ SIGNATURES = {
         "pc_zr_tile_shape": [_p],
         "pc_rhs_zroll": [_p] * 5,
         "pc_rhs_zroll_upd": [_p] * 7,
+        "pc_rhs_wrap_shock": [_p] * 5,
+        "pc_rhs_wrap_shock_upd": [_p] * 7,
     },
 }
 

@@ -9,11 +9,20 @@ from a kernel to its plain version.
 The flagship step (wrap mode, ``csrc/fused_rhs.cu``), on the raw periodic
 stack (7, nx, ny, nz):
 
-  rhs_first        K1  df = RHS(f), max of the CFL 1/dt
-  rhs_tail_defer   K2  f1 = f0 + cprev·df1 rebuilt from raw f0 and df1;
-                       df2 = α·df1 + RHS(f1), f2 = f1 + βΔt·df2
-  rhs_tail_last    K3  f3 = f2 + βΔt·(α·df2 + RHS(f2)), plus the helical
-                       forcing kick on u when a kick vector is given
+  rhs_first            K1   df = RHS(f), max of the CFL 1/dt
+  rhs_tail_defer       K2   f1 = f0 + cprev·df1 rebuilt from raw f0 and
+                            df1; df2 = α·df1 + RHS(f1), f2 = f1 + βΔt·df2
+  rhs_tail_mid         K3′  df ← α·df_prev + RHS(f), written over df_prev;
+                            f ← f + βΔt·df (the middle substeps of 2N-RK4)
+  rhs_tail_last        K3   f3 = f2 + βΔt·(α·df2 + RHS(f2)), plus the
+                            helical forcing kick on u when a kick vector is
+                            given
+  rhs_tail_defer_last  K2L  K2's rebuilt f1 with K3's update and kick (the
+                            one tail substep of 2N-RK2)
+
+``fake=True`` on K1, K2 and K3 is K8, the memory floor: the same loads and
+stores with RHS(f) = f·1.0000001 and a CFL maximum of 0 (wrong physics by
+design).
 
 Stratified convection (zghost mode, ``csrc/zghost_rhs.cu``), on the stack
 ghosted in all three axes by ``fill_ghosts`` (5, nx+6, ny+6, nz+6):
@@ -30,10 +39,18 @@ shear-periodic x faces, z unghosted and periodic (8, nx+6, ny+6, nz):
   rhs_zroll_upd    K5  df ← α·df_prev + RHS(f), written over df_prev;
                        f ← f_interior + βΔt·df, a fresh (7, nx, ny, nz)
 
+The shocked periodic box (wrap_aux mode, the same source without the shear
+terms), on the raw periodic 8-slot state (8, nx, ny, nz) after the shock
+pre-pass:
+
+  rhs_wrap_shock       K1s  df = RHS(f), max of the CFL 1/dt
+  rhs_wrap_shock_upd   K5w  K5's update on the raw state
+
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
 block reads halos from; K7's df overwrites df_prev, which each point reads
-only at itself (the JAX aliases {4: 0} and {2: 0}).
+only at itself (the JAX aliases {4: 0} and {2: 0}); so do K3′'s and
+K5/K5w's.
 """
 from __future__ import annotations
 
@@ -57,9 +74,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
-LAUNCHES = {"rhs_first": 0, "rhs_tail_defer": 0, "rhs_tail_last": 0,
-            "rhs_zg": 0, "rhs_zg_upd": 0, "rhs_zroll": 0,
-            "rhs_zroll_upd": 0}
+LAUNCHES = dict.fromkeys((
+    "rhs_first", "rhs_tail_defer", "rhs_tail_last", "rhs_tail_mid",
+    "rhs_tail_defer_last", "rhs_first_fake", "rhs_tail_defer_fake",
+    "rhs_tail_last_fake", "rhs_zg", "rhs_zg_upd", "rhs_zroll",
+    "rhs_zroll_upd", "rhs_wrap_shock", "rhs_wrap_shock_upd"), 0)
 
 
 def reset_launches():
@@ -102,28 +121,57 @@ def rhs_plain(model, f, want_dt1=True, ghosted=False, wrap_z=False,
     return dfa, cfl_dt1(ts, pen.grid, model.cfg.time).max()
 
 
-def rhs_first_plain(model, fa):
-    """K1's plain version: (df, 0-d max of 1/dt)."""
+FAKE_FACTOR = 1.0000001     # K8's stand-in RHS: f·(1 + 2⁻²³) in f32
+
+
+def _tail_rhs(model, f, fake):
+    """RHS(f) of a tail substep (no CFL), or K8's f·1.0000001."""
+    if fake:
+        return f[: model.reg.nvar] * FAKE_FACTOR
+    return rhs_plain(model, f, want_dt1=False)[0]
+
+
+def rhs_first_plain(model, fa, fake=False):
+    """K1's plain version (K8's with ``fake``): (df, 0-d max of 1/dt)."""
+    if fake:
+        return _tail_rhs(model, fa, True), fa.new_zeros(())
     return rhs_plain(model, fa)
 
 
-def rhs_tail_defer_plain(model, fa, df1, coef):
-    """K2's plain version: (df2, f2)."""
+def rhs_tail_defer_plain(model, fa, df1, coef, fake=False):
+    """K2's plain version (K8's with ``fake``): (df2, f2)."""
     alpha, bdt, cprev = coef[0], coef[1], coef[2]
     f1 = fa + cprev * df1
-    dfa, _ = rhs_plain(model, f1, want_dt1=False)
-    dfn = alpha * df1 + dfa
+    dfn = alpha * df1 + _tail_rhs(model, f1, fake)
     return dfn, f1 + bdt * dfn
 
 
-def rhs_tail_last_plain(model, fa, df2, coef, kick=None):
-    """K3's plain version: f3, kicked when ``kick`` is given."""
+def rhs_tail_mid_plain(model, fa, df_prev, coef):
+    """K3′'s plain version: (df, f); df is written over df_prev."""
     alpha, bdt = coef[0], coef[1]
-    dfa, _ = rhs_plain(model, fa, want_dt1=False)
-    f3 = fa + bdt * (alpha * df2 + dfa)
-    if kick is None:
-        return f3
-    # angle-addition form, as the kernel: θ = k·x + φ = A + B + C
+    df_prev.copy_(alpha * df_prev + _tail_rhs(model, fa, False))
+    return df_prev, fa + bdt * df_prev
+
+
+def rhs_tail_last_plain(model, fa, df2, coef, kick=None, fake=False):
+    """K3's plain version (K8's with ``fake``): f3, kicked when ``kick`` is
+    given."""
+    alpha, bdt = coef[0], coef[1]
+    f3 = fa + bdt * (alpha * df2 + _tail_rhs(model, fa, fake))
+    return f3 if kick is None else _kicked(model, f3, kick)
+
+
+def rhs_tail_defer_last_plain(model, fa, df1, coef, kick=None):
+    """K2L's plain version: f, kicked when ``kick`` is given."""
+    alpha, bdt, cprev = coef[0], coef[1], coef[2]
+    f1 = fa + cprev * df1
+    f = f1 + bdt * (alpha * df1 + _tail_rhs(model, f1, False))
+    return f if kick is None else _kicked(model, f, kick)
+
+
+def _kicked(model, fa, kick):
+    """fa with the helical forcing kick on u, in the angle-addition form
+    of the kernels: θ = k·x + φ = A + B + C."""
     gs, grid = model.cfg.grid, model.grid
     x0, y0 = _node0(gs)
     ar = {n: torch.arange(n, dtype=fa.dtype, device=fa.device)
@@ -142,8 +190,8 @@ def rhs_tail_last_plain(model, fa, df2, coef, kick=None):
         a, b = kick[4 + c], kick[7 + c]
         U = a * cC - b * sC
         V = a * sC + b * cC
-        kicked.append(f3[iuu + c] + kick[10] * (P * U - Q * V))
-    return torch.cat([f3[:iuu], torch.stack(kicked), f3[iuu + 3:]])
+        kicked.append(fa[iuu + c] + kick[10] * (P * U - Q * V))
+    return torch.cat([fa[:iuu], torch.stack(kicked), fa[iuu + 3:]])
 
 
 def rhs_zg_plain(model, fg):
@@ -191,6 +239,19 @@ def rhs_zroll_upd_plain(model, fg, df_prev, coef):
                        grid=node_grid(model))
     df_prev.copy_(alpha * df_prev + dfa)
     return df_prev, i(fg[: model.reg.nvar], (0, 1)) + bdt * df_prev
+
+
+def rhs_wrap_shock_plain(model, fa):
+    """K1s's plain version: (df, 0-d max of 1/dt) on the periodic 8-slot
+    state."""
+    return rhs_plain(model, fa)
+
+
+def rhs_wrap_shock_upd_plain(model, fa, df_prev, coef):
+    """K5w's plain version: (df, f); df is written over df_prev."""
+    alpha, bdt = coef[0], coef[1]
+    df_prev.copy_(alpha * df_prev + _tail_rhs(model, fa, False))
+    return df_prev, fa[: model.reg.nvar] + bdt * df_prev
 
 
 # ---- the kernels --------------------------------------------------------
@@ -383,7 +444,7 @@ def zr_params(model) -> ZrParams:
         inv=fl3(*inv), invsq=fl3(*invsq), inv6=fl3(*inv6),
         nu=nu, nu_shock=nu_shock, nu3=nu3, eta=eta, eta3=eta3, diff3=diff3,
         om=fl3(*(hyd.omega_vector() if hyd.Omega != 0.0 else (0, 0, 0))),
-        S=cfg.module("shear").S,
+        S=cfg.module("shear").S if cfg.module("shear") else 0.0,
         cs20=eos.cs20, gm1=eos.gamma - 1.0, lnrho0=eos.lnrho0,
         dxyz2=dxyz2, cdt=cfg.time.cdt, cdtv=cfg.time.cdtv, dif3=dif3,
         x0=x0, dx=gs.dx)
@@ -426,58 +487,94 @@ def _dispatch(fa):
     return False
 
 
-def rhs_first(model, fa):
-    """K1: replaces ``kernel`` + ``_dma_tile_wrap`` (fused_rhs.py:306, wrap
-    mode).  Returns (df, 0-d max of 1/dt)."""
-    if not _dispatch(fa):
-        return rhs_first_plain(model, fa)
+def _flagship_params(model, fa, df=None, coef=None):
+    """The flagship kernels' constants, after checking their inputs."""
     p = kernel_params(model)
-    _check(fa, (7, p.nx, p.ny, p.nz), "fa")
+    shape = (7, p.nx, p.ny, p.nz)
+    _check(fa, shape, "fa")
+    if df is not None:
+        _check(df, shape, "df")
+    if coef is not None:
+        _check(coef, (3,), "coef")
+    return p
+
+
+def _k8(name, fake):
+    """The launch name of a flagship kernel, or of its K8 variant."""
+    return name + "_fake" if fake else name
+
+
+def rhs_first(model, fa, fake=False):
+    """K1: replaces ``kernel`` + ``_dma_tile_wrap`` (fused_rhs.py:306, wrap
+    mode); K8 with ``fake`` (the ``PC_FAKE_RHS`` branch, :127-133).
+    Returns (df, 0-d max of 1/dt)."""
+    if not _dispatch(fa):
+        return rhs_first_plain(model, fa, fake)
+    p = _flagship_params(model, fa)
     df = torch.empty_like(fa)
     blk = torch.empty(_nblocks((p.nx, p.ny, p.nz)), dtype=fa.dtype,
                       device=fa.device)
-    _launch("rhs_first", fa, ctypes.addressof(p), fa.data_ptr(),
+    _launch(_k8("rhs_first", fake), fa, ctypes.addressof(p), fa.data_ptr(),
             df.data_ptr(), blk.data_ptr())
     return df, torch.amax(blk)
 
 
-def rhs_tail_defer(model, fa, df1, coef):
-    """K2: replaces ``kernel_tail(defer_prev=True)`` (fused_rhs.py:379).
-    Returns (df2, f2)."""
+def rhs_tail_defer(model, fa, df1, coef, fake=False):
+    """K2: replaces ``kernel_tail(defer_prev=True)`` (fused_rhs.py:379);
+    K8 with ``fake``.  Returns (df2, f2)."""
     if not _dispatch(fa):
-        return rhs_tail_defer_plain(model, fa, df1, coef)
-    p = kernel_params(model)
-    shape = (7, p.nx, p.ny, p.nz)
-    _check(fa, shape, "fa")
-    _check(df1, shape, "df1")
-    _check(coef, (3,), "coef")
+        return rhs_tail_defer_plain(model, fa, df1, coef, fake)
+    p = _flagship_params(model, fa, df1, coef)
     df2 = torch.empty_like(fa)
     f2 = torch.empty_like(fa)
-    _launch("rhs_tail_defer", fa, ctypes.addressof(p), fa.data_ptr(),
-            df1.data_ptr(), coef.data_ptr(), df2.data_ptr(), f2.data_ptr())
+    _launch(_k8("rhs_tail_defer", fake), fa, ctypes.addressof(p),
+            fa.data_ptr(), df1.data_ptr(), coef.data_ptr(), df2.data_ptr(),
+            f2.data_ptr())
     return df2, f2
 
 
-def rhs_tail_last(model, fa, df2, coef, kick=None):
-    """K3: replaces ``kernel_tail(last=True, with_kick=...)``
-    (fused_rhs.py:379, kick at :429-466).  Returns f3."""
+def rhs_tail_mid(model, fa, df_prev, coef):
+    """K3′: the middle substeps of 2N-RK4, which the JAX step builds as
+    ``kernel_upd`` + ``_dma_tile_wrap`` (fused_rhs.py:331, :677).  Returns
+    (df, f); df is df_prev's buffer, overwritten."""
     if not _dispatch(fa):
-        return rhs_tail_last_plain(model, fa, df2, coef, kick)
-    p = kernel_params(model)
-    shape = (7, p.nx, p.ny, p.nz)
-    _check(fa, shape, "fa")
-    _check(df2, shape, "df2")
-    _check(coef, (3,), "coef")
+        return rhs_tail_mid_plain(model, fa, df_prev, coef)
+    p = _flagship_params(model, fa, df_prev, coef)
+    f = torch.empty_like(fa)
+    _launch("rhs_tail_mid", fa, ctypes.addressof(p), fa.data_ptr(),
+            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
+            f.data_ptr())
+    return df_prev, f
+
+
+def _tail_last(name, model, fa, dfin, coef, kick):
+    p = _flagship_params(model, fa, dfin, coef)
     if kick is not None:
         _check(kick, (12,), "kick")
     zc = model.grid.z
     _check(zc, (p.nz,), "z")
-    f3 = torch.empty_like(fa)
-    _launch("rhs_tail_last", fa, ctypes.addressof(p), fa.data_ptr(),
-            df2.data_ptr(), coef.data_ptr(),
-            None if kick is None else kick.data_ptr(), zc.data_ptr(),
-            f3.data_ptr())
-    return f3
+    f = torch.empty_like(fa)
+    _launch(name, fa, ctypes.addressof(p), fa.data_ptr(), dfin.data_ptr(),
+            coef.data_ptr(), None if kick is None else kick.data_ptr(),
+            zc.data_ptr(), f.data_ptr())
+    return f
+
+
+def rhs_tail_last(model, fa, df2, coef, kick=None, fake=False):
+    """K3: replaces ``kernel_tail(last=True, with_kick=...)``
+    (fused_rhs.py:379, kick at :429-466); K8 with ``fake``.  Returns f3."""
+    if not _dispatch(fa):
+        return rhs_tail_last_plain(model, fa, df2, coef, kick, fake)
+    return _tail_last(_k8("rhs_tail_last", fake), model, fa, df2, coef, kick)
+
+
+def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
+    """K2L: replaces ``kernel_tail(defer_prev=True, last=True,
+    with_kick=...)`` (fused_rhs.py:379), the one tail substep of 2N-RK2.
+    Returns f."""
+    if not _dispatch(fa):
+        return rhs_tail_defer_last_plain(model, fa, df1, coef, kick)
+    return _tail_last("rhs_tail_defer_last", model, fa, df1, coef, kick)
 
 
 def rhs_zg(model, fg):
@@ -549,3 +646,39 @@ def rhs_zroll_upd(model, fg, df_prev, coef):
             df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
             fa.data_ptr(), lib="zroll_rhs")
     return df_prev, fa
+
+
+def _wrap_shock_shape(model, fa):
+    p = zr_params(model)
+    _check(fa, (8, p.nx, p.ny, p.nz), "fa")
+    return p, (7, p.nx, p.ny, p.nz)
+
+
+def rhs_wrap_shock(model, fa):
+    """K1s: replaces ``kernel`` + ``_dma_tile_wrap`` with the shock slot
+    (fused_rhs.py:306, :238; wrap mode with an aux module).  Returns (df,
+    0-d max of 1/dt)."""
+    if not _dispatch(fa):
+        return rhs_wrap_shock_plain(model, fa)
+    p, shape = _wrap_shock_shape(model, fa)
+    df = fa.new_empty(shape)
+    blk = fa.new_empty(_nblocks(shape[1:], "zroll_rhs", "pc_zr_tile_shape"))
+    _launch("rhs_wrap_shock", fa, ctypes.addressof(p), fa.data_ptr(),
+            df.data_ptr(), blk.data_ptr(), lib="zroll_rhs")
+    return df, torch.amax(blk)
+
+
+def rhs_wrap_shock_upd(model, fa, df_prev, coef):
+    """K5w: replaces ``kernel_upd`` + ``_dma_tile_wrap`` (fused_rhs.py:331,
+    :238; call :677).  Returns (df, f); df is df_prev's buffer,
+    overwritten."""
+    if not _dispatch(fa):
+        return rhs_wrap_shock_upd_plain(model, fa, df_prev, coef)
+    p, shape = _wrap_shock_shape(model, fa)
+    _check(df_prev, shape, "df_prev")
+    _check(coef, (2,), "coef")
+    f = df_prev.new_empty(shape)
+    _launch("rhs_wrap_shock_upd", fa, ctypes.addressof(p), fa.data_ptr(),
+            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
+            f.data_ptr(), lib="zroll_rhs")
+    return df_prev, f

@@ -1,6 +1,7 @@
-"""The CUDA kernels of pencil_tpu_torch (K1-K3 of the flagship, K6/K7 of
-stratified convection, K4/K5 of the shearing box) against their plain
-PyTorch versions on the card.  Marked ``gpu``: they skip where there is no CUDA device.  On
+"""The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
+flagship, K6/K7 of stratified convection, K4/K5 of the shearing box,
+K1s/K5w of the shocked periodic box) against their plain PyTorch versions
+on the card, and steps on the card against the same steps on the CPU.  Marked ``gpu``: they skip where there is no CUDA device.  On
 a machine with one, run them with
 
     python -m pytest tests/test_torch_gpu.py -m gpu
@@ -9,11 +10,12 @@ This file imports no JAX, so it also runs where JAX is not installed.
 Bounds: each field within 2e-5 × its max, the CFL maximum within 1e-6
 relative (the bounds of tests/test_fused.py:75-84).
 """
+
 import pytest
 import torch
 
 import pencil_tpu_torch as pt
-from pencil_tpu_torch.configs import conv_slab, shear_box
+from pencil_tpu_torch.configs import conv_slab, shear_box, shock_box
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -29,10 +31,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def flagship(shape):
+def flagship(shape, itorder=3, dt=0.0):
     return pt.Config(
         grid=pt.GridSpec(nx=shape[0], ny=shape[1], nz=shape[2]),
-        time=pt.TimeSpec(itorder=3), fused=True,
+        time=pt.TimeSpec(itorder=itorder, dt=dt), fused=True,
         modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0), pt.Density(),
                  pt.Hydro(init="gaussian-noise", ampl=1e-3),
                  pt.Viscosity(nu=5e-3),
@@ -83,9 +85,53 @@ def test_kernels_match_plain(cuda, shape):
                                rhs_tail_defer=1, rhs_tail_last=2)
 
 
-def test_step_on_card_matches_cpu(cuda):
-    """Three full steps through the kernels against the same steps on the
-    CPU (plain versions), same fields and the same forcing draws."""
+@pytest.mark.parametrize("shape", ((32, 32, 32), (16, 24, 40)),
+                         ids=("32^3", "16x24x40"))
+def test_tail_and_fake_kernels_match_plain(cuda, shape):
+    """K3′, K2L (with and without the kick) and K8's three variants
+    against their plain versions."""
+    pm = pt.Model(flagship(shape), device=cuda)
+    fa, df1 = random_fa(shape, cuda), random_fa(shape, cuda, seed=5)
+    alpha, beta, _ = pm.rk
+    coef = torch.stack((pm._alpha[2], beta[2] * 1e-2 + pm._zero,
+                        beta[1] * 1e-2 + pm._zero))
+    kick = pm.forcing.kick_vector(pm._ftables, pm._draws(),
+                                  pm._zero + 1e-2, pm.eos)
+    fr.reset_launches()
+    got, want = {}, {}
+    got["mid"] = fr.rhs_tail_mid(pm, fa, df1.clone(), coef)
+    want["mid"] = fr.rhs_tail_mid_plain(pm, fa, df1.clone(), coef)
+    for name, k in (("defer_last", None), ("defer_last_kick", kick)):
+        got[name] = fr.rhs_tail_defer_last(pm, fa, df1, coef, k)
+        want[name] = fr.rhs_tail_defer_last_plain(pm, fa, df1, coef, k)
+    got["first_fake"] = fr.rhs_first(pm, fa, fake=True)
+    want["first_fake"] = fr.rhs_first_plain(pm, fa, fake=True)
+    got["defer_fake"] = fr.rhs_tail_defer(pm, fa, df1, coef, fake=True)
+    want["defer_fake"] = fr.rhs_tail_defer_plain(pm, fa, df1, coef,
+                                                 fake=True)
+    got["last_fake"] = fr.rhs_tail_last(pm, fa, df1, coef, kick, fake=True)
+    want["last_fake"] = fr.rhs_tail_last_plain(pm, fa, df1, coef, kick,
+                                               fake=True)
+    torch.cuda.synchronize()
+    for name in got:
+        a = got[name] if isinstance(got[name], tuple) else (got[name],)
+        b = want[name] if isinstance(want[name], tuple) else (want[name],)
+        for x, y in zip(a, b):
+            if x.ndim == 0:
+                assert float(x) == float(y) == 0.0, name   # K8's CFL max
+            else:
+                assert_field_close(x, y, name)
+    assert fr.LAUNCHES == dict(
+        dict.fromkeys(fr.LAUNCHES, 0), rhs_tail_mid=1, rhs_tail_defer_last=2,
+        rhs_first_fake=1, rhs_tail_defer_fake=1, rhs_tail_last_fake=1)
+
+
+@pytest.mark.parametrize("itorder", (1, 2, 3, 4),
+                         ids=("rk1", "rk2", "rk3", "rk4"))
+def test_step_on_card_matches_cpu(cuda, itorder):
+    """Three full steps through the kernels at each 2N-RK order against
+    the same steps on the CPU (plain versions), same fields and the same
+    forcing draws."""
     shape = (16, 16, 32)
     fields = pt.Model(flagship(shape)).init_state(5)["fields"]
     g = torch.Generator().manual_seed(9)
@@ -94,7 +140,7 @@ def test_step_on_card_matches_cpu(cuda):
               torch.randn(3, generator=g)) for _ in range(3)]
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        model = pt.Model(flagship(shape), device=dev)
+        model = pt.Model(flagship(shape, itorder), device=dev)
         it = iter([tuple(t.to(dev) for t in d) for d in draws])
         model.forcing_draws = it.__next__
         s = model.init_state(5, overrides=fields)
@@ -228,17 +274,95 @@ def test_shear_box_steps_on_card_match_cpu(cuda):
                            ref[None] if ref.ndim == 3 else ref, k)
 
 
-@pytest.mark.parametrize("which", ("flagship", "conv_slab", "shear_box"))
+def shocked_fa(pm, seed=4):
+    """A noisy shock-box state on the card, urms ≈ 1, its shock slot built
+    by the pre-pass (positive, so the shock viscosity is live)."""
+    g = torch.Generator(pm.device).manual_seed(seed)
+    shape = pm.cfg.grid.shape
+    amp = torch.tensor([3 ** -0.5] * 3 + [5e-2] + [1e-2] * 3 + [0.0],
+                       device=pm.device)
+    fa = amp[:, None, None, None] * torch.randn(
+        (8,) + shape, generator=g, device=pm.device)
+    return pm._refresh_aux_fa(fa)
+
+
+@pytest.mark.parametrize("shape", ((64, 64, 64), (32, 64, 128),
+                                   (16, 24, 40)),
+                         ids=("64^3", "32x64x128", "16x24x40"))
+def test_shock_kernels_match_plain(cuda, shape):
+    """K1s and K5w against their plain versions; the last shape is not a
+    multiple of the tile."""
+    pm = pt.Model(shock_box(shape), device=cuda)
+    fa = shocked_fa(pm)
+    assert float(fa[7].max()) > 0.0
+    fr.reset_launches()
+    df, dt1m = fr.rhs_wrap_shock(pm, fa)
+    df_p, dt1m_p = fr.rhs_wrap_shock_plain(pm, fa)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K1s)")
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    fa2 = shocked_fa(pm, seed=5)
+    df2, f2 = fr.rhs_wrap_shock_upd(pm, fa2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_wrap_shock_upd_plain(pm, fa2, df_p.clone(), coef)
+    torch.cuda.synchronize()
+    assert_field_close(df2, df2_p, "df (K5w)")
+    assert_field_close(f2, f2_p, "f (K5w)")
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               rhs_wrap_shock=1, rhs_wrap_shock_upd=1)
+
+
+def test_shock_box_steps_on_card_match_cpu(cuda):
+    """Three forced wrap_aux steps through K1s/K5w against the same steps
+    on the CPU (plain versions) from the same fields and draws."""
+    shape = (16, 16, 32)
+    fields = dict(pt.Model(shock_box(shape)).init_state(5)["fields"])
+    g = torch.Generator().manual_seed(6)
+    fields["uu"] = 0.1 * torch.randn((3,) + shape, generator=g)
+    draws = [(torch.randint(0, 20, (1,), generator=g),
+              torch.rand((), generator=g) * 6.0 - 3.0,
+              torch.randn(3, generator=g)) for _ in range(3)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = pt.Model(shock_box(shape), device=dev)
+        it = iter([tuple(t.to(dev) for t in d) for d in draws])
+        model.forcing_draws = it.__next__
+        out[dev.type] = model.make_multi_step(3)(
+            model.init_state(5, overrides=fields))
+    torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
+                               rtol=RTOL_DT, atol=0.0)
+    for k, ref in out["cpu"]["fields"].items():
+        a = out["cuda"]["fields"][k].cpu()
+        assert_field_close(a[None] if a.ndim == 3 else a,
+                           ref[None] if ref.ndim == 3 else ref, k)
+
+
+def test_fake_rhs_chain_launches_k8(cuda):
+    """Model(fake_rhs=True) runs K8's three variants and no other kernel."""
+    pm = pt.Model(flagship((32, 32, 32), dt=1e-3), device=cuda,
+                  fake_rhs=True)
+    s = pm.pack_state(pm.init_state(0))
+    fr.reset_launches()
+    s = pm.make_step()(s)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               rhs_first_fake=1, rhs_tail_defer_fake=1,
+                               rhs_tail_last_fake=1)
+    assert torch.isfinite(s["_fa"]).all()
+
+
+@pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
+                                   "shear_box", "shock_box"))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
-    for name in ("rhs_first_plain", "rhs_tail_defer_plain",
-                 "rhs_tail_last_plain", "rhs_zg_plain", "rhs_zg_upd_plain",
-                 "rhs_zroll_plain", "rhs_zroll_upd_plain"):
-        monkeypatch.setattr(fr, name, boom)
-    cfg = {"flagship": flagship((32, 32, 32)), "conv_slab": conv_slab(32),
-           "shear_box": shear_box(32)}[which]
+    for name in dir(fr):
+        if name.startswith("rhs_") and name.endswith("_plain"):
+            monkeypatch.setattr(fr, name, boom)
+    n3 = (32, 32, 32)
+    cfg = {"flagship": flagship(n3), "rk2": flagship(n3, 2),
+           "rk4": flagship(n3, 4), "conv_slab": conv_slab(32),
+           "shear_box": shear_box(32), "shock_box": shock_box(32)}[which]
     pm = pt.Model(cfg, device=cuda)
     s = pm.make_step()(pm.init_state(0))
     torch.cuda.synchronize()

@@ -89,7 +89,8 @@ def flagship(**over):
 
 OUTSIDE = {
     "unfused": dict(fused=False),
-    "rk2": dict(time=pt.TimeSpec(itorder=2)),
+    # RKF45 (itorder 5) has no 2N-RK table: outside every chain
+    "rkf45": dict(time=pt.TimeSpec(itorder=5)),
     "no_magnetic": dict(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
                                  pt.Viscosity(nu=1e-3))),
     "twice_forced": dict(modules=flagship().modules + (pt.Forcing(),)),
@@ -102,6 +103,15 @@ def test_gate_accepts_the_flagship():
     for dev in ("cpu", "cuda"):
         assert fused_gate(flagship(), dev) is True
         assert fused_gate(unforced, dev) is True
+
+
+@pytest.mark.parametrize("itorder", (1, 2, 4), ids=("rk1", "rk2", "rk4"))
+def test_gate_accepts_rk_orders(itorder):
+    """Every 2N-RK order of RK_TABLES runs the flagship chain."""
+    cfg = flagship(time=pt.TimeSpec(itorder=itorder))
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
 
 
 @pytest.mark.parametrize("case", sorted(OUTSIDE))

@@ -307,6 +307,17 @@ def test_gate_accepts_shear_box():
         assert fused_gate(cfg, dev) is True
 
 
+def test_gate_accepts_shear_box_without_shear():
+    """Without Shear the shear box's modules, Coriolis and hyper3 included,
+    run the shocked periodic box's chain (K1s/K5w)."""
+    cfg = shear_box(16).replace(modules=tuple(
+        m for m in shear_box(16).modules if m.name != "shear"))
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    assert pt.Model(cfg).mode == "wrap_aux"
+
+
 def _replace_module(cfg, name, new):
     return cfg.replace(modules=tuple(new() if m.name == name else m
                                      for m in cfg.modules))
@@ -321,8 +332,9 @@ REJECTED = {
     "hyper3_mesh": lambda: _replace_module(
         shear_box(16), "viscosity",
         lambda: pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-4)),
-    "no_shear": lambda: shear_box(16).replace(modules=tuple(
-        m for m in shear_box(16).modules if m.name != "shear")),
+    # the zroll chain has no forcing kick
+    "forced": lambda: shear_box(16).replace(
+        modules=shear_box(16).modules + (pt.Forcing(),)),
     # the flagship's module set with an option only K4/K5 implement
     "coriolis_without_shear": lambda: shear_box(16).replace(modules=(
         pt.EosIdealGas(gamma=1.0), pt.Density(), pt.Hydro(Omega=1.0),
@@ -339,7 +351,7 @@ def test_gate_rejects_on_cuda(case):
         cfg = REJECTED[case]()
         assert gate_reason(cfg) is not None
         fused_gate(cfg, "cuda")
-    if case in ("no_shear", "coriolis_without_shear"):
+    if case in ("forced", "coriolis_without_shear"):
         with pytest.raises(NotImplementedError):
             pt.Model(REJECTED[case](), device="cuda")
         assert fused_gate(REJECTED[case](), "cpu") is False
