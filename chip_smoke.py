@@ -12,12 +12,14 @@ Phases, each printing its own lines:
   1. device and toolchain: the card, its power limit, nvcc, the kernel
      build (one nvcc per csrc/*.cu, all at once);
   2. each fused kernel against its plain PyTorch version on the same CUDA
-     inputs at 64³ and 32×64×128 (each field within 2e-5 × its max, and
-     within 1e-6 for K1s, K5w, K3′, K2L and K8; the CFL maximum within
-     1e-6 relative; the shear-box input at t = 0.37 with a positive shock
-     slot, the shock-box input at urms ≈ 1 with its shock slot from the
-     pre-pass), and three full steps of each path on the card against the
-     same steps on the CPU at 32³ (the flagship at orders 2, 3 and 4);
+     inputs at 64³ and 32×64×128, the flagship's instances also at
+     24×20×42, which breaks every edge of their x-march (each field within
+     2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L and K8, K8's
+     K1 and K2 variants bit for bit; the CFL maximum within 1e-6 relative;
+     the shear-box input at t = 0.37 with a positive shock slot, the
+     shock-box input at urms ≈ 1 with its shock slot from the pre-pass),
+     and three full steps of each path on the card against the same steps
+     on the CPU at 32³ (the flagship at orders 2, 3 and 4);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -30,7 +32,9 @@ Phases, each printing its own lines:
      three variants;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
-     256³.
+     256³; for each instance of the flagship template (csrc/fused_rhs.cu)
+     its registers, local bytes, static and dynamic shared memory per
+     block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -46,6 +50,12 @@ N_MAIN = 256
 WARM, TIMED = 3, 20
 RTOL_FIELD, RTOL_DT = 2e-5, 1e-6
 RTOL_NEW = 1e-6      # K1s, K5w, K3′, K2L and K8 against their plain versions
+# K8's K1 and K2 variants round once per operation, as their plain versions
+# do: they must agree bit for bit
+EXACT = ("rhs_first_fake", "rhs_tail_defer_fake")
+# the flagship instances' extra shape: nx below the x segment (64), ny not
+# a multiple of the column's 8, nz neither of its 32 nor of 4
+EDGE_SHAPE = (24, 20, 42)
 FLAGSHIP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last")
 FAKE_KERNELS = ("rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake")
 ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
@@ -164,6 +174,8 @@ def compare_pairs(label, shape, pairs, errs, rtol):
         for a, b in ps:
             d, r = rel_err(a, b)
             check(r <= rtol, f"{name} at {shape}: rel err {r}")
+            if name in EXACT:
+                check(bool((a == b).all()), f"{name} at {shape}: not exact")
             errs[name] = max(errs[name], d)
             line.append(f"{name} {r:.2e}")
     print(f"phase 2 {shape} {label}: kernel vs plain, worst field rel err: "
@@ -323,7 +335,7 @@ def compare_steps(torch, pt, label, cfg, nsteps=3, uu_noise=0.0, t0=None):
     the start time."""
     cpu = torch.device("cpu")
     shape = cfg.grid.shape
-    fields = dict(pt.Model(cfg).init_state(5)["fields"])
+    fields = dict(pt.Model(cfg, device=cpu).init_state(5)["fields"])
     g = torch.Generator(cpu).manual_seed(9)
     if uu_noise:
         fields["uu"] = uu_noise * torch.randn((3,) + shape, generator=g)
@@ -449,6 +461,8 @@ def main():
         compare_zghost_kernels(torch, pt, fr, shape, errs)
         compare_zroll_kernels(torch, pt, fr, shape, errs)
         compare_shock_kernels(torch, pt, fr, shape, errs)
+    compare_kernels(torch, pt, fr, EDGE_SHAPE, errs)
+    compare_tail_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     n32 = (32, 32, 32)
     for order in (3, 2, 4):
         compare_steps(torch, pt, f"flagship rk{order}",
@@ -479,6 +493,11 @@ def main():
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings, bounds)
     time_tails(torch, fr, fl, errs, timings, bounds)
+    for inst, a in fr.flagship_attrs().items():
+        print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
+              f"{a['local_bytes']} B local, shared {a['static_smem']} B "
+              f"static + {a['dynamic_smem']} B dynamic per block, "
+              f"{a['blocks_per_sm']} block(s) per SM", flush=True)
     print(f"phase 4 K8 chain at 256^3 on {smi}: {k8:.4f} ms/step, the "
           f"flagship's kernel chain {fl[2]:.4f} ms/step", flush=True)
     time_conv_slab(torch, fr, smi, zg, errs, timings, bounds)
@@ -713,6 +732,8 @@ def time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
             continue
         d, r = rel_err(a, b)
         check(r <= RTOL_FIELD, f"{kname} at 256^3: rel err {r}")
+        if kname in EXACT:
+            check(bool((a == b).all()), f"{kname} at 256^3: not exact")
         errs[kname] = max(errs[kname], d)
     npts = N_MAIN ** 3
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *got)

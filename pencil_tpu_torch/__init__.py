@@ -23,4 +23,4 @@ from .ops.boundary import BC
 from .physics import (Density, Entropy, EosIdealGas, Forcing, Gravity, Hydro,
                       Magnetic, Shear, Shock, Viscosity)
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -13,10 +13,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.device import require_device
+
 
 def state_from_numpy(fields: Dict[str, np.ndarray], t, dt, it,
-                     device="cpu") -> Dict:
-    """The port's (unpacked) state from numpy fields and scalars."""
+                     device="cuda") -> Dict:
+    """The port's (unpacked) state from numpy fields and scalars, on the
+    card unless ``device="cpu"`` (a RuntimeError if no card is present)."""
+    device = require_device(device)
     dev = dict(dtype=torch.float32, device=device)
     return {
         "fields": {k: torch.tensor(np.asarray(v), **dev)

@@ -46,7 +46,8 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
 the eager 2N-RK path built from the same plain module code (the
-counterpart of the JAX package's jnp path).
+counterpart of the JAX package's jnp path).  A model runs on the card
+unless the caller passes ``device="cpu"``; with no card it raises.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from typing import Dict
 import torch
 
 from .core.config import Config
+from .core.device import require_device
 from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
@@ -238,10 +240,12 @@ def _slots_of(m):
 
 
 class Model:
-    def __init__(self, cfg: Config, device="cpu", fake_rhs=False):
-        """``fake_rhs``: run the K8 memory floor in place of K1-K3 (the
-        flagship chain at itorder 3 only) — a measurement mode whose
-        physics is wrong by design."""
+    def __init__(self, cfg: Config, device="cuda", fake_rhs=False):
+        """``device``: the card by default (a RuntimeError if none is
+        present); ``"cpu"`` runs the plain PyTorch path.  ``fake_rhs``: run
+        the K8 memory floor in place of K1-K3 (the flagship chain at
+        itorder 3 only) — a measurement mode whose physics is wrong by
+        design."""
         _check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -252,6 +256,7 @@ class Model:
             raise NotImplementedError(
                 "pencil_tpu_torch: fake_rhs (K8) runs on the flagship's "
                 "fused 2N-RK3 chain only")
+        require_device(self.device)
         self.dtype = torch.float32
         self.modules = tuple(sorted(cfg.modules, key=_order_key(MODULE_ORDER)))
         self.reg = Registry()

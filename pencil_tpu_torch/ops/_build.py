@@ -31,6 +31,7 @@ _p = ctypes.c_void_p
 SIGNATURES = {
     "fused_rhs": {
         "pc_tile_shape": [_p],
+        "pc_flagship_attrs": [ctypes.c_int, _p],
         "pc_rhs_first": [_p] * 5,
         "pc_rhs_tail_defer": [_p] * 7,
         "pc_rhs_tail_last": [_p] * 8,

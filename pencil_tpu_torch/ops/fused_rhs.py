@@ -461,6 +461,31 @@ def _nblocks(shape, lib="fused_rhs", fn="pc_tile_shape"):
     return n
 
 
+# the instances of csrc/fused_rhs.cu's template, in pc_flagship_attrs order
+FLAGSHIP_INSTANCES = (
+    "rhs_first", "rhs_first_fake", "rhs_tail_defer", "rhs_tail_defer_fake",
+    "rhs_tail_last kick", "rhs_tail_last", "rhs_tail_last_fake kick",
+    "rhs_tail_last_fake", "rhs_tail_mid", "rhs_tail_defer_last kick",
+    "rhs_tail_defer_last")
+ATTR_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+             "blocks_per_sm")
+
+
+def flagship_attrs():
+    """Instance name -> its registers and local (spill and stack) bytes per
+    thread, static and dynamic shared bytes per block, and resident blocks
+    per SM, as the CUDA runtime reports them for the current card."""
+    lib = _build.load()
+    out = {}
+    for which, name in enumerate(FLAGSHIP_INSTANCES):
+        a = (ctypes.c_int * len(ATTR_KEYS))()
+        rc = lib.pc_flagship_attrs(which, ctypes.addressof(a))
+        if rc != 0:
+            raise RuntimeError(f"pc_flagship_attrs({name}): CUDA error {rc}")
+        out[name] = dict(zip(ATTR_KEYS, a))
+    return out
+
+
 def _check(t, shape, what):
     if t.dtype != torch.float32 or not t.is_contiguous() \
             or tuple(t.shape) != tuple(shape):
@@ -507,7 +532,8 @@ def _k8(name, fake):
 def rhs_first(model, fa, fake=False):
     """K1: replaces ``kernel`` + ``_dma_tile_wrap`` (fused_rhs.py:306, wrap
     mode); K8 with ``fake`` (the ``PC_FAKE_RHS`` branch, :127-133).
-    Returns (df, 0-d max of 1/dt)."""
+    Returns (df, 0-d max of 1/dt).  The kernel writes one maximum per
+    block of its grid, whose extent pc_tile_shape gives."""
     if not _dispatch(fa):
         return rhs_first_plain(model, fa, fake)
     p = _flagship_params(model, fa)

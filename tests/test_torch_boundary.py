@@ -33,7 +33,7 @@ FILL_SHAPES = SHAPES + ((8, 2, 12),)
 
 def models(shape):
     return (pj.Model(conv_slab(shape, pkg=pj)),
-            pt.Model(conv_slab(shape)))
+            pt.Model(conv_slab(shape), device="cpu"))
 
 
 def stratified_fields(pm, seed):
@@ -148,7 +148,7 @@ def test_bc_set_and_writeback_match_jax():
         bcz = (pkg.BC.parse("ux", "set", lval=0.1, hval=-0.2),) + base.bcz[1:]
         return base.replace(bcz=bcz)
 
-    jm, pm = pj.Model(cfg(pj)), pt.Model(cfg(pt))
+    jm, pm = pj.Model(cfg(pj)), pt.Model(cfg(pt), device="cpu")
     fa = stratified_fields(pm, seed=2)
     got = pm.bc_writeback(torch.tensor(fa)).numpy()
     want = np.asarray(jm.bc_writeback(jnp.asarray(fa), jm.grid, 0.0))

@@ -35,7 +35,7 @@ def test_fake_rhs_chain_matches_jax(monkeypatch):
     dtmax)."""
     monkeypatch.setenv("PC_FAKE_RHS", "1")
     jm = pj.Model(shaped(pj, dt=1e-2))
-    pm = pt.Model(shaped(pt, dt=1e-2), fake_rhs=True)
+    pm = pt.Model(shaped(pt, dt=1e-2), fake_rhs=True, device="cpu")
     fields = initial_fields(SHAPE, 11, pm.grid.z.numpy())
     js = jm.init_state(11, overrides=fields)
     ps = pm.init_state(11, overrides=fields)
@@ -53,7 +53,7 @@ def test_fake_kernels_match_jax(monkeypatch, kernel):
     PC_FAKE_RHS, on a fresh JAX Model (its kernels are cached per
     model)."""
     monkeypatch.setenv("PC_FAKE_RHS", "1")
-    jm, pm = pj.Model(shaped(pj)), pt.Model(shaped(pt))
+    jm, pm = pj.Model(shaped(pj)), pt.Model(shaped(pt), device="cpu")
     fa, df1 = noisy_fa(SHAPE, 3), noisy_fa(SHAPE, 4)
     z = jm.grid.z
     a, bdt, cprev = -5.0 / 9.0, 0.05, 0.02
@@ -82,7 +82,7 @@ def test_fake_kernels_match_jax(monkeypatch, kernel):
 def test_fake_rhs_outside_its_chain_raises():
     """K8 runs on the flagship's order-3 chain only."""
     with pytest.raises(NotImplementedError):
-        pt.Model(shaped(pt, itorder=4), fake_rhs=True)
+        pt.Model(shaped(pt, itorder=4), fake_rhs=True, device="cpu")
     with pytest.raises(NotImplementedError):
         pt.Model(dataclasses.replace(shaped(pt), fused=False),
-                 fake_rhs=True)
+                 fake_rhs=True, device="cpu")

@@ -77,7 +77,7 @@ def chain(request):
     shape = request.param
     kw = flagship_kwargs(shape)
     jm = pj.Model(pj.Config(**kw(pj)))
-    pm = pt.Model(pt.Config(**kw(pt)))
+    pm = pt.Model(pt.Config(**kw(pt)), device="cpu")
     fa = random_fa(shape, seed=3)
     z = jm.grid.z
     alpha, beta, _ = jm.rk

@@ -1,12 +1,14 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
 flagship, K6/K7 of stratified convection, K4/K5 of the shearing box,
 K1s/K5w of the shocked periodic box) against their plain PyTorch versions
-on the card, and steps on the card against the same steps on the CPU.  Marked ``gpu``: they skip where there is no CUDA device.  On
-a machine with one, run them with
+on the card, and steps on the card against the same steps on the CPU.
+Marked ``gpu``: they skip where there is no CUDA device.  On a machine
+with one, run them with
 
-    python -m pytest tests/test_torch_gpu.py -m gpu
+    python -m pytest --noconftest tests/test_torch_gpu.py
 
-This file imports no JAX, so it also runs where JAX is not installed.
+(``--noconftest`` because tests/conftest.py imports JAX).  This file
+imports no JAX, so it also runs where JAX is not installed.
 Bounds: each field within 2e-5 × its max, the CFL maximum within 1e-6
 relative (the bounds of tests/test_fused.py:75-84).
 """
@@ -56,10 +58,17 @@ def assert_field_close(a, b, what):
             (what, c, err)
 
 
-@pytest.mark.parametrize("shape", ((32, 32, 32), (16, 24, 40)),
-                         ids=("32^3", "16x24x40"))
+# the flagship kernels' shapes: the last breaks every edge of their x-march
+# (nx below the segment MX = 64, ny not a multiple of TY = 8, nz neither a
+# multiple of TZ = 32 nor of 4, so every row goes in 4-byte copies)
+FLAGSHIP_SHAPES = ((32, 32, 32), (16, 24, 40), (24, 20, 42))
+FLAGSHIP_IDS = ("32^3", "16x24x40", "24x20x42")
+
+
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
 def test_kernels_match_plain(cuda, shape):
-    """The second shape is not a multiple of the tile: ragged edges."""
+    """The second and third shapes are not multiples of the tile: ragged
+    edges."""
     pm = pt.Model(flagship(shape), device=cuda)
     fa = random_fa(shape, cuda)
     fr.reset_launches()
@@ -85,8 +94,7 @@ def test_kernels_match_plain(cuda, shape):
                                rhs_tail_defer=1, rhs_tail_last=2)
 
 
-@pytest.mark.parametrize("shape", ((32, 32, 32), (16, 24, 40)),
-                         ids=("32^3", "16x24x40"))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
 def test_tail_and_fake_kernels_match_plain(cuda, shape):
     """K3′, K2L (with and without the kick) and K8's three variants
     against their plain versions."""
@@ -126,6 +134,53 @@ def test_tail_and_fake_kernels_match_plain(cuda, shape):
         rhs_first_fake=1, rhs_tail_defer_fake=1, rhs_tail_last_fake=1)
 
 
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_fake_kernels_bit_exact(cuda, shape):
+    """K8's K1 and K2 variants equal their plain versions bit for bit:
+    their arithmetic is one rounding per operation in both, so any
+    difference is a value the loader put in the wrong place."""
+    pm = pt.Model(flagship(shape), device=cuda)
+    fa, df1 = random_fa(shape, cuda), random_fa(shape, cuda, seed=5)
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] * 1e-2 + pm._zero,
+                        pm.rk[1][0] * 1e-2 + pm._zero))
+    df, dt1m = fr.rhs_first(pm, fa, fake=True)
+    assert torch.equal(df, fr.rhs_first_plain(pm, fa, fake=True)[0])
+    assert float(dt1m) == 0.0
+    for got, want in zip(fr.rhs_tail_defer(pm, fa, df1, coef, fake=True),
+                         fr.rhs_tail_defer_plain(pm, fa, df1, coef,
+                                                 fake=True)):
+        assert torch.equal(got, want)
+
+
+def test_dt1_buffer_matches_the_grid(cuda):
+    """K1 writes one CFL maximum per block of its launch grid, which
+    pc_tile_shape's (MX, TY, TZ) sizes: at nx = 80 (two x segments, the
+    second 16 planes), every slot is written and nothing past them."""
+    import ctypes
+    import math
+    from pencil_tpu_torch.ops import _build
+    shape = (80, 16, 32)
+    pm = pt.Model(flagship(shape), device=cuda)
+    fa = random_fa(shape, cuda)
+    tile = (ctypes.c_int * 3)()
+    _build.load().pc_tile_shape(ctypes.addressof(tile))
+    n = fr._nblocks(shape)
+    assert n == math.prod(-(-s // t) for s, t in zip(shape, tile))
+    assert shape[0] % tile[0] != 0
+    blk = torch.full((n + 1,), float("nan"), device=cuda)
+    df = torch.empty_like(fa)
+    p = fr.kernel_params(pm)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _build.load().pc_rhs_first(
+        ctypes.addressof(p), fa.data_ptr(), df.data_ptr(), blk.data_ptr(),
+        stream) == 0
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(blk[:n]).all()) and bool((blk[:n] > 0).all())
+    assert math.isnan(float(blk[n]))
+    torch.testing.assert_close(blk[:n].max(), fr.rhs_first_plain(pm, fa)[1],
+                               rtol=RTOL_DT, atol=0.0)
+
+
 @pytest.mark.parametrize("itorder", (1, 2, 3, 4),
                          ids=("rk1", "rk2", "rk3", "rk4"))
 def test_step_on_card_matches_cpu(cuda, itorder):
@@ -133,7 +188,7 @@ def test_step_on_card_matches_cpu(cuda, itorder):
     the same steps on the CPU (plain versions), same fields and the same
     forcing draws."""
     shape = (16, 16, 32)
-    fields = pt.Model(flagship(shape)).init_state(5)["fields"]
+    fields = pt.Model(flagship(shape), device="cpu").init_state(5)["fields"]
     g = torch.Generator().manual_seed(9)
     draws = [(torch.randint(0, 20, (1,), generator=g),
               torch.rand((), generator=g) * 6.0 - 3.0,
@@ -201,7 +256,8 @@ def test_conv_slab_steps_on_card_match_cpu(cuda):
     residual of the O(1) hydrostatic balance and sits below its float32
     floor (see tests/test_torch_zghost.py, UU_AMPL)."""
     shape = (16, 16, 32)
-    fields = dict(pt.Model(conv_slab(shape)).init_state(5)["fields"])
+    fields = dict(pt.Model(conv_slab(shape),
+                           device="cpu").init_state(5)["fields"])
     g = torch.Generator().manual_seed(5)
     fields["uu"] = 1e-2 * torch.randn((3,) + shape, generator=g)
     out = {}
@@ -259,7 +315,7 @@ def test_shear_box_steps_on_card_match_cpu(cuda):
     """Three zroll steps through K4/K5 against the same steps on the CPU
     (plain versions) from the same fields, starting at t = 0.37."""
     shape = (16, 16, 32)
-    fields = pt.Model(shear_box(shape)).init_state(5)["fields"]
+    fields = pt.Model(shear_box(shape), device="cpu").init_state(5)["fields"]
     out = {}
     for dev in (cuda, torch.device("cpu")):
         model = pt.Model(shear_box(shape), device=dev)
@@ -315,7 +371,8 @@ def test_shock_box_steps_on_card_match_cpu(cuda):
     """Three forced wrap_aux steps through K1s/K5w against the same steps
     on the CPU (plain versions) from the same fields and draws."""
     shape = (16, 16, 32)
-    fields = dict(pt.Model(shock_box(shape)).init_state(5)["fields"])
+    fields = dict(pt.Model(shock_box(shape),
+                           device="cpu").init_state(5)["fields"])
     g = torch.Generator().manual_seed(6)
     fields["uu"] = 0.1 * torch.randn((3,) + shape, generator=g)
     draws = [(torch.randint(0, 20, (1,), generator=g),

@@ -81,7 +81,7 @@ def jax_forcing_draws(jm, key, nsteps):
 
 def run_both(cfg_fn, seed, nsteps=NSTEPS):
     jm = pj.Model(cfg_fn(pj))
-    pm = pt.Model(cfg_fn(pt))
+    pm = pt.Model(cfg_fn(pt), device="cpu")
     gs = jm.cfg.grid
     fields = initial_fields(gs.shape, seed, pm.grid.z.numpy())
     js = jm.init_state(seed, overrides=fields)
@@ -126,7 +126,7 @@ def test_eager_step_matches_jax_jnp_path():
 def test_packed_step_bit_identical_to_dict_step():
     """pack_state carries one stacked tensor; a packed step and a chunked
     multi-step must equal the dict step bit for bit, RNG stream included."""
-    pm = pt.Model(flagship(pt))
+    pm = pt.Model(flagship(pt), device="cpu")
     runs = []
     for mode in ("dict", "packed", "multi"):
         s = pm.init_state(7)
@@ -152,7 +152,7 @@ def test_packed_step_bit_identical_to_dict_step():
 def test_forced_flagship_grows_urms():
     """Production draws (torch.Generator): forcing 0.07 against 1e-3 noise
     raises urms, and dt stays positive and CFL-limited."""
-    pm = pt.Model(flagship(pt))
+    pm = pt.Model(flagship(pt), device="cpu")
     s = pm.init_state(0)
     u0 = float(s["fields"]["uu"].pow(2).sum(0).mean().sqrt())
     s = pm.make_multi_step(5)(s)

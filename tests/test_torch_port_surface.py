@@ -132,8 +132,9 @@ def test_gate_rejects_outside_configs_on_cuda(case):
     dict(modules=(pt.EosIdealGas(), pt.Hydro())),
 ], ids=("mesh", "nonperiodic", "float64", "no_density"))
 def test_unsupported_configs_raise_on_every_device(over):
-    with pytest.raises(NotImplementedError):
-        pt.Model(flagship(**over))
+    for dev in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError):
+            pt.Model(flagship(**over), device=dev)
 
 
 def test_unported_options_raise():
@@ -143,14 +144,39 @@ def test_unported_options_raise():
         pt.Viscosity(ivisc=("nu-shock",))
     with pytest.raises(NotImplementedError):
         pt.Model(flagship(modules=(pt.EosIdealGas(), pt.Density(init="xjump"),
-                                   pt.Hydro()), fused=False)).init_state(0)
+                                   pt.Hydro()), fused=False),
+                 device="cpu").init_state(0)
+
+
+def test_model_defaults_to_the_card():
+    """With no device named, a model runs on the card; without one it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert pt.Model(flagship()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA device.*device='cpu'"):
+        pt.Model(flagship())
+    assert pt.Model(flagship(), device="cpu").device.type == "cpu"
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    """The state converter, too, targets the card unless asked for the
+    CPU."""
+    kw = dict(fields={"lnrho": np.zeros((4, 4, 4), np.float32)}, t=0.0,
+              dt=1e-3, it=0)
+    if torch.cuda.is_available():
+        assert state_from_numpy(**kw)["t"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA device.*device='cpu'"):
+        state_from_numpy(**kw)
+    assert state_from_numpy(**kw, device="cpu")["t"].device.type == "cpu"
 
 
 def test_state_converter_round_trips():
-    model = pt.Model(flagship())
+    model = pt.Model(flagship(), device="cpu")
     state = model.init_state(3)
     state = model.make_step()(state)
-    back = state_from_numpy(**state_to_numpy(state))
+    back = state_from_numpy(**state_to_numpy(state), device="cpu")
     for key in ("t", "dt", "it"):
         assert torch.equal(back[key], state[key])
     for k, v in state["fields"].items():
@@ -167,12 +193,12 @@ def test_state_converter_takes_jax_state():
                  pj.Hydro(init="gaussian-noise", ampl=1e-3))))
     js = jm.init_state(0)
     st = state_from_numpy({k: np.asarray(v) for k, v in js["fields"].items()},
-                          js["t"], js["dt"], js["it"])
+                          js["t"], js["dt"], js["it"], device="cpu")
     for k, v in js["fields"].items():
         np.testing.assert_array_equal(st["fields"][k].numpy(), np.asarray(v))
     pm = pt.Model(pt.Config(grid=pt.GridSpec(nx=8, ny=8, nz=8),
                             modules=(pt.EosIdealGas(), pt.Density(),
-                                     pt.Hydro())))
+                                     pt.Hydro())), device="cpu")
     out = pm.make_step()(st)
     assert torch.isfinite(out["fields"]["uu"]).all()
 
@@ -184,7 +210,7 @@ def test_tf32_is_off():
 
 
 def test_registry_layout_matches_jax():
-    pm = pt.Model(flagship())
+    pm = pt.Model(flagship(), device="cpu")
     jm = pj.Model(pj.Config(grid=pj.GridSpec(nx=16, ny=16, nz=16),
                             modules=(pj.EosIdealGas(), pj.Density(),
                                      pj.Hydro(), pj.Viscosity(),
@@ -199,7 +225,7 @@ def test_registry_layout_matches_jax():
 def test_conv_slab_registry_layout_matches_jax():
     """The 5-field layout (uu, lnrho, ss) and the module order."""
     from pencil_tpu_torch.configs import conv_slab
-    pm = pt.Model(conv_slab(8))
+    pm = pt.Model(conv_slab(8), device="cpu")
     jm = pj.Model(conv_slab(8, pkg=pj))
     assert pm.reg.comp_names == jm.reg.comp_names \
         == ["ux", "uy", "uz", "lnrho", "ss"]
@@ -209,7 +235,7 @@ def test_conv_slab_registry_layout_matches_jax():
 
 def test_overrides_from_numpy_checks_the_layout():
     from pencil_tpu_torch.configs import conv_slab
-    pm = pt.Model(conv_slab(8))
+    pm = pt.Model(conv_slab(8), device="cpu")
     good = {k: np.asarray(v) for k, v in pm.init_state(1)["fields"].items()}
     out = overrides_from_numpy(good, pm.reg)
     assert sorted(out) == ["lnrho", "ss", "uu"]

@@ -36,7 +36,7 @@ def test_conv_slab_rk4_step_matches_jax_fused(monkeypatch):
     monkeypatch.setenv("PC_TX", "8")
     monkeypatch.setenv("PC_CX", "8")
     jm = pj.Model(with_order(conv_slab(shape, pkg=pj), 4))
-    pm = pt.Model(with_order(conv_slab(shape), 4))
+    pm = pt.Model(with_order(conv_slab(shape), 4), device="cpu")
     uu = (1e-2 * np.random.default_rng(11).standard_normal(
         (3,) + shape)).astype(np.float32)
     js = jm.init_state(11, overrides={"uu": uu})
@@ -52,7 +52,7 @@ def test_shear_box_rk4_step_matches_jax_fused():
     shifted faces are not a whole number of cells."""
     cfg = {pkg: with_order(shear_box(8, pkg=pkg), 4, tstart=0.37)
            for pkg in (pj, pt)}
-    jm, pm = pj.Model(cfg[pj]), pt.Model(cfg[pt])
+    jm, pm = pj.Model(cfg[pj]), pt.Model(cfg[pt], device="cpu")
     js = jm.init_state(5)
     fields = {k: np.asarray(v) for k, v in js["fields"].items()}
     ps = pm.init_state(5, overrides=overrides_from_numpy(fields, pm.reg))

@@ -40,7 +40,7 @@ def run_both(itorder, jax_fused, seed=11, nsteps=NSTEPS, **time):
     """The JAX step (fused or jnp path) and the port's fused chain from the
     same fields, with the same forcing draws."""
     jm = pj.Model(with_order(flagship(pj, fused=jax_fused), itorder, **time))
-    pm = pt.Model(with_order(flagship(pt), itorder, **time))
+    pm = pt.Model(with_order(flagship(pt), itorder, **time), device="cpu")
     assert pm.mode == "wrap"
     fields = initial_fields(jm.cfg.grid.shape, seed, pm.grid.z.numpy())
     js = jm.init_state(seed, overrides=fields)
@@ -80,7 +80,7 @@ def test_jax_fused_rk4_reference_fault():
 
 @pytest.mark.parametrize("itorder", (1, 2, 4), ids=("rk1", "rk2", "rk4"))
 def test_packed_step_bit_identical_to_dict_step(itorder):
-    pm = pt.Model(with_order(flagship(pt, n=8), itorder))
+    pm = pt.Model(with_order(flagship(pt, n=8), itorder), device="cpu")
     a = pm.init_state(3)
     for _ in range(2):
         a = pm.make_step()(a)
@@ -130,7 +130,7 @@ def tails():
     mode) on one input, df1 and dt from the port's plain K1 on another;
     numpy results."""
     jm = pj.Model(shaped(pj, itorder=4))
-    pm = pt.Model(shaped(pt, itorder=4))
+    pm = pt.Model(shaped(pt, itorder=4), device="cpu")
     fa, fa2 = noisy_fa(SHAPE, 3), noisy_fa(SHAPE, 4)
     df1, dt1m = fr.rhs_first(pm, torch.tensor(fa))
     dt = np.float32(1.0 / float(dt1m))

@@ -82,7 +82,7 @@ def j_ghosted(jm, fa, axes, sdy):
 
 @pytest.fixture(scope="module")
 def models():
-    return pj.Model(config(pj)), pt.Model(config(pt))
+    return pj.Model(config(pj)), pt.Model(config(pt), device="cpu")
 
 
 # ---- ported pieces --------------------------------------------------------
@@ -131,7 +131,8 @@ def test_deltay_matches_jax(models):
 def test_fill_ghosts_shear_matches_jax(shape, axes):
     """The shear-periodic fill: the x ghost slabs Fourier-shifted by
     ±deltay, y wrapped over the full x extent."""
-    jm, pm = pj.Model(config(pj, shape)), pt.Model(config(pt, shape))
+    jm = pj.Model(config(pj, shape))
+    pm = pt.Model(config(pt, shape), device="cpu")
     dj, dp = deltas(jm, pm)
     fa = noisy_fa(shape, 4)
     want = j_ghosted(jm, fa, axes, dj)
@@ -236,7 +237,7 @@ def jax_runs():
 
 
 def run_port(init, fused):
-    pm = pt.Model(config(pt, fused=fused))
+    pm = pt.Model(config(pt, fused=fused), device="cpu")
     assert pm.mode == ("zroll" if fused else None)
     ps = pm.init_state(5, overrides=overrides_from_numpy(init, pm.reg))
     for k, v in init.items():
@@ -280,7 +281,7 @@ def test_eager_step_matches_jax_jnp_path(jax_runs):
 
 
 def test_packed_multi_step_bit_identical_to_dict_step():
-    pm = pt.Model(shear_box(8))
+    pm = pt.Model(shear_box(8), device="cpu")
     a = pm.init_state(3)
     for _ in range(2):
         a = pm.make_step()(a)
@@ -292,7 +293,8 @@ def test_packed_multi_step_bit_identical_to_dict_step():
 
 
 def test_registry_layout_matches_jax():
-    pm, jm = pt.Model(shear_box(8)), pj.Model(shear_box(8, pkg=pj))
+    pm = pt.Model(shear_box(8), device="cpu")
+    jm = pj.Model(shear_box(8, pkg=pj))
     assert pm.reg.comp_names == jm.reg.comp_names == [
         "ux", "uy", "uz", "lnrho", "ax", "ay", "az", "shock"]
     assert (pm.reg.nvar, pm.reg.ncom, pm.reg.nf) == (7, 8, 8)
@@ -315,7 +317,7 @@ def test_gate_accepts_shear_box_without_shear():
     assert gate_reason(cfg) is None
     for dev in ("cpu", "cuda"):
         assert fused_gate(cfg, dev) is True
-    assert pt.Model(cfg).mode == "wrap_aux"
+    assert pt.Model(cfg, device="cpu").mode == "wrap_aux"
 
 
 def _replace_module(cfg, name, new):
@@ -361,7 +363,7 @@ def test_shock_outside_a_periodic_grid_raises():
     cfg = shear_box(16)
     with pytest.raises(NotImplementedError):
         pt.Model(cfg.replace(grid=dataclasses.replace(
-            cfg.grid, periodic=(True, True, False))))
+            cfg.grid, periodic=(True, True, False))), device="cpu")
     with pytest.raises(NotImplementedError):
         pt.Model(cfg.replace(modules=tuple(
-            m for m in cfg.modules if m.name not in ("shock",))))
+            m for m in cfg.modules if m.name not in ("shock",))), device="cpu")

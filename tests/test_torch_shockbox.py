@@ -59,7 +59,8 @@ def kernels():
     """K1s and K5w of the JAX package (wrap fetch, interpret mode) on the
     raw 8-slot state, every result kept as numpy."""
     shape = (N, N, N)
-    jm, pm = pj.Model(shock_box(N, pkg=pj)), pt.Model(shock_box(N))
+    jm = pj.Model(shock_box(N, pkg=pj))
+    pm = pt.Model(shock_box(N), device="cpu")
     assert jm._fused_mode(None, None, N) == "wrap" and jm._aux_modules
     fa, fa2 = noisy_fa(shape, 6), noisy_fa(shape, 7)
     z = jm.grid.z
@@ -145,7 +146,7 @@ def jax_runs():
 
 
 def run_port(ref, fused):
-    pm = pt.Model(shock_box(N, fused=fused))
+    pm = pt.Model(shock_box(N, fused=fused), device="cpu")
     assert pm.mode == ("wrap_aux" if fused else None)
     ps = pm.init_state(5, overrides=overrides_from_numpy(ref["init"], pm.reg))
     pm.forcing_draws = iter(ref["draws"]).__next__
@@ -171,7 +172,7 @@ def test_wrap_aux_step_matches_jax_fused(jax_runs):
     ps = run_port(ref, fused=True)
     assert_steps_close(ps, ref)
     shock = ref["fields"]["shock"]
-    nu, nu_shock, _ = pt.Model(shock_box(8)).cfg.module(
+    nu, nu_shock, _ = pt.Model(shock_box(8), device="cpu").cfg.module(
         "viscosity").coefficients()
     assert nu_shock * np.abs(shock).max() > 10 * nu
     assert_field_close(ps["fields"]["shock"], shock, "shock")
@@ -192,7 +193,7 @@ def test_eager_step_matches_jax_jnp_path(jax_runs):
 def test_packed_multi_step_bit_identical_to_dict_step():
     """The packed state takes the kick on its u rows: a chunked multi-step
     equals the dict step bit for bit, forcing draws included."""
-    pm = pt.Model(shock_box(8))
+    pm = pt.Model(shock_box(8), device="cpu")
     a = pm.init_state(3)
     for _ in range(2):
         a = pm.make_step()(a)
@@ -204,7 +205,8 @@ def test_packed_multi_step_bit_identical_to_dict_step():
 
 
 def test_registry_layout_matches_jax():
-    pm, jm = pt.Model(shock_box(8)), pj.Model(shock_box(8, pkg=pj))
+    pm = pt.Model(shock_box(8), device="cpu")
+    jm = pj.Model(shock_box(8, pkg=pj))
     assert pm.reg.comp_names == jm.reg.comp_names == [
         "ux", "uy", "uz", "lnrho", "ax", "ay", "az", "shock"]
     assert (pm.reg.nvar, pm.reg.ncom, pm.reg.nf) == (7, 8, 8)
@@ -221,9 +223,9 @@ def test_gate_accepts_shock_box(forced):
     assert gate_reason(cfg) is None
     for dev in ("cpu", "cuda"):
         assert fused_gate(cfg, dev) is True
-    assert pt.Model(cfg).mode == "wrap_aux"
+    assert pt.Model(cfg, device="cpu").mode == "wrap_aux"
 
 
 def test_fake_rhs_outside_the_flagship_raises():
     with pytest.raises(NotImplementedError):
-        pt.Model(shock_box(8), fake_rhs=True)
+        pt.Model(shock_box(8), fake_rhs=True, device="cpu")

@@ -102,7 +102,7 @@ def test_pencils_mixed_derivatives_agree():
     from pencil_tpu_torch.physics.pencils import Pencils
     model = pt.Model(pt.Config(grid=pt.GridSpec(nx=8, ny=10, nz=12),
                                modules=(pt.EosIdealGas(), pt.Density(),
-                                        pt.Hydro())))
+                                        pt.Hydro())), device="cpu")
     f = torch.tensor(np.random.default_rng(2).standard_normal(
         (4, 8, 10, 12)).astype(np.float32))
     pen = Pencils(f, model.grid, model.reg, model.cfg, model.eos)

@@ -80,7 +80,7 @@ def kernels(request):
         mp.setenv("PC_TX", str(shape[0]))
         mp.setenv("PC_CX", str(shape[0]))
         jm = pj.Model(conv_slab(shape, pkg=pj))
-        pm = pt.Model(conv_slab(shape))
+        pm = pt.Model(conv_slab(shape), device="cpu")
         fg = ghosted_input(jm, pm, seed=5)
         z = jm.grid.z
         df1, dt1 = jm._fused_rhs(shape, False, False, True)(jnp.asarray(fg), z)
@@ -121,7 +121,7 @@ def run_both(shape, fused, seed, nsteps=NSTEPS, ampl_uu=UU_AMPL):
     """Both packages from the JAX init (piecew-poly lnρ and s) with the
     velocity replaced by numpy noise of amplitude ``ampl_uu``."""
     jm = pj.Model(conv_slab(shape, fused=fused, pkg=pj))
-    pm = pt.Model(conv_slab(shape, fused=fused))
+    pm = pt.Model(conv_slab(shape, fused=fused), device="cpu")
     if fused:
         assert jm._fused_mode(None, None, shape[2]) == "zghost"
         assert pm.mode == "zghost"
@@ -187,7 +187,7 @@ def test_config_amplitude_within_float32_floor():
 
 
 def test_packed_multi_step_bit_identical_to_dict_step():
-    pm = pt.Model(conv_slab((8, 8, 16)))
+    pm = pt.Model(conv_slab((8, 8, 16)), device="cpu")
     a = pm.init_state(3)
     for _ in range(2):
         a = pm.make_step()(a)
@@ -201,7 +201,7 @@ def test_packed_multi_step_bit_identical_to_dict_step():
 def test_boundary_planes_stay_pinned():
     """uz = 0 on both walls and the top entropy at cs² = cs2cool after
     steps (the writeback); all fields finite."""
-    pm = pt.Model(conv_slab((8, 8, 16)))
+    pm = pt.Model(conv_slab((8, 8, 16)), device="cpu")
     s = pm.make_multi_step(3)(pm.init_state(0))
     f = s["fields"]
     assert all(bool(torch.isfinite(v).all()) for v in f.values())
@@ -252,8 +252,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         pt.Gravity(gravz_profile="linear-z")
     with pytest.raises(NotImplementedError):
-        pt.Model(conv_slab(16).replace(bcz=conv_slab(16).bcz[:4]))
+        pt.Model(conv_slab(16).replace(bcz=conv_slab(16).bcz[:4]),
+                 device="cpu")
     with pytest.raises(NotImplementedError):
         pt.Model(conv_slab(16).replace(
             grid=pt.GridSpec(nx=16, ny=16, nz=16,
-                             periodic=(False, True, False))))
+                             periodic=(False, True, False))), device="cpu")
