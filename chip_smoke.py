@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the pencil_tpu_torch main paths on one NVIDIA GPU: the forced-MHD
 flagship step (kernels K1-K3; K2L at 2N-RK order 2, K3′ at order 4; the
-K8 memory floor), stratified convection with a non-periodic z (kernels K6,
-K7), the sheared, rotating MHD box with shock viscosity and
+K8 memory floor), forced hydro turbulence on the same template's 4-field
+build (K1h-K3h, K3′h, K2Lh), stratified convection with a non-periodic z
+(kernels K6, K7), the sheared, rotating MHD box with shock viscosity and
 hyper-diffusion (kernels K4, K5) and the shocked periodic box (kernels
 K1s, K5w).
 
@@ -12,29 +13,32 @@ Phases, each printing its own lines:
   1. device and toolchain: the card, its power limit, nvcc, the kernel
      build (one nvcc per csrc/*.cu, all at once);
   2. each fused kernel against its plain PyTorch version on the same CUDA
-     inputs at 64³ and 32×64×128, the flagship's instances also at
-     24×20×42, which breaks every edge of their x-march (each field within
-     2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L and K8, K8's
-     K1 and K2 variants bit for bit; the CFL maximum within 1e-6 relative;
-     the shear-box input at t = 0.37 with a positive shock slot, the
-     shock-box input at urms ≈ 1 with its shock slot from the pre-pass),
-     and three full steps of each path on the card against the same steps
-     on the CPU at 32³ (the flagship at orders 2, 3 and 4);
+     inputs at 64³ and 32×64×128, the flagship template's instances also
+     at 24×20×42, which breaks every edge of their x-march (each field
+     within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
+     the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
+     variants bit for bit; the CFL maximum within 1e-6 relative; the
+     shear-box input at t = 0.37 with a positive shock slot, the shock-box
+     input at urms ≈ 1 with its shock slot from the pre-pass), and three
+     full steps of each path on the card against the same steps on the CPU
+     at 32³ (the flagship and forced hydro at orders 2, 3 and 4, both with
+     Ω = 1 at order 3, the shear box unforced and forced);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
      just before each path's timed steps and read just after: the
-     flagship with exactly one launch of K1, K2, K3 per step, the
-     conv-slab layer with one K6 and two K7, the shear box with one K4
-     and two K5, the shock box with one K1s and two K5w, the flagship at
-     order 4 with K1, K2, two K3′ and K3, at order 2 with K1 and K2L, and
-     the K8 chain (Model(fake_rhs=True)) with one launch of each of its
-     three variants;
+     flagship with exactly one launch of K1, K2, K3 per step, forced
+     hydro with one of K1h, K2h, K3h, the conv-slab layer with one K6 and
+     two K7, the shear box with one K4 and two K5, the shock box with one
+     K1s and two K5w, the flagship at order 4 with K1, K2, two K3′ and K3,
+     at order 2 with K1 and K2L (forced hydro likewise with their hydro
+     builds), and the K8 chain (Model(fake_rhs=True)) with one launch of
+     each of its three variants;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
-     256³; for each instance of the flagship template (csrc/fused_rhs.cu)
-     its registers, local bytes, static and dynamic shared memory per
-     block and resident blocks per SM.
+     256³; for each instance of the flagship template (csrc/fused_rhs.cu,
+     both builds) its registers, local bytes, static and dynamic shared
+     memory per block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -49,7 +53,9 @@ import time
 N_MAIN = 256
 WARM, TIMED = 3, 20
 RTOL_FIELD, RTOL_DT = 2e-5, 1e-6
-RTOL_NEW = 1e-6      # K1s, K5w, K3′, K2L and K8 against their plain versions
+# K1s, K5w, K3′, K2L, K8, the hydro instances and the Ω instances against
+# their plain versions
+RTOL_NEW = 1e-6
 # K8's K1 and K2 variants round once per operation, as their plain versions
 # do: they must agree bit for bit
 EXACT = ("rhs_first_fake", "rhs_tail_defer_fake")
@@ -57,12 +63,15 @@ EXACT = ("rhs_first_fake", "rhs_tail_defer_fake")
 # a multiple of the column's 8, nz neither of its 32 nor of 4
 EDGE_SHAPE = (24, 20, 42)
 FLAGSHIP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last")
+TAIL_KERNELS = ("rhs_tail_mid", "rhs_tail_defer_last")
+# the flagship template's 4-field build (PC_MAG=0): K1h-K3h, K3′h, K2Lh
+HYDRO_KERNELS = tuple(k + "_hydro" for k in FLAGSHIP_KERNELS + TAIL_KERNELS)
 FAKE_KERNELS = ("rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake")
 ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
 SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
-KERNEL_NAMES = (FLAGSHIP_KERNELS + ("rhs_tail_mid", "rhs_tail_defer_last")
-                + FAKE_KERNELS + ZROLL_KERNELS + SHOCK_KERNELS
+KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
+                + HYDRO_KERNELS + ZROLL_KERNELS + SHOCK_KERNELS
                 + ZGHOST_KERNELS)
 # launches of each kernel in one step of each phase-3 path
 PER_STEP = {
@@ -71,6 +80,11 @@ PER_STEP = {
                      "rhs_tail_last": 1},
     "flagship rk2": {"rhs_first": 1, "rhs_tail_defer_last": 1},
     "K8 chain": dict.fromkeys(FAKE_KERNELS, 1),
+    "forced hydro": dict.fromkeys(HYDRO_KERNELS[:3], 1),
+    "forced hydro rk4": {"rhs_first_hydro": 1, "rhs_tail_defer_hydro": 1,
+                         "rhs_tail_mid_hydro": 2, "rhs_tail_last_hydro": 1},
+    "forced hydro rk2": {"rhs_first_hydro": 1,
+                         "rhs_tail_defer_last_hydro": 1},
     "conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
     "shear box": {"rhs_zroll": 1, "rhs_zroll_upd": 2},
     "shock box": {"rhs_wrap_shock": 1, "rhs_wrap_shock_upd": 2},
@@ -88,9 +102,12 @@ REPLACES = {
     "rhs_wrap_shock": _FR + "306", "rhs_wrap_shock_upd": _FR + "331",
     "rhs_zg": _FR + "317", "rhs_zg_upd": _FR + "349",
 }
+# the hydro build replaces the same calls, traced for the hydro set
+REPLACES.update({k + "_hydro": REPLACES[k]
+                 for k in FLAGSHIP_KERNELS + TAIL_KERNELS})
 SOURCES = {k: "pencil_tpu_torch/csrc/" + src for src, ks in (
-    ("fused_rhs.cu", FLAGSHIP_KERNELS + FAKE_KERNELS
-     + ("rhs_tail_mid", "rhs_tail_defer_last")),
+    ("fused_rhs.cu", FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
+     + HYDRO_KERNELS),
     ("zroll_rhs.cu", ZROLL_KERNELS + SHOCK_KERNELS),
     ("zghost_rhs.cu", ZGHOST_KERNELS)) for k in ks}
 
@@ -107,6 +124,10 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # the rebuilt f1 = f0 + cprev·df1 is 2, the angle-addition kick 53.
 D1, D2, DMIX, UPD, REBUILD, KICK_OPS = 9, 13, 23, 4, 2, 53
 FLAGSHIP_RHS = 21 * D1 + 18 * D2 + 12 * DMIX + 174
+# the flagship's without the magnetic terms: the derivatives of u and lnρ
+# only, the pointwise density, hydro and viscosity terms (no Coriolis at
+# Ω = 0); its CFL maximum has no Alfvén speed (26 → 16)
+HYDRO_RHS = 12 * D1 + 9 * D2 + 6 * DMIX + 115
 SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX + 198
 # plus del6 of 7 components (21 scaled 6th differences and their sums),
 # the hyper-diffusive terms, Coriolis and the shear terms
@@ -121,6 +142,11 @@ OPS = {
     "rhs_first_fake": 7,
     "rhs_tail_defer_fake": 7 * (REBUILD + 1 + UPD),
     "rhs_tail_last_fake": 7 * (1 + UPD) + KICK_OPS,
+    "rhs_first_hydro": HYDRO_RHS + 16,
+    "rhs_tail_defer_hydro": HYDRO_RHS + 4 * (REBUILD + UPD),
+    "rhs_tail_last_hydro": HYDRO_RHS + 4 * UPD + KICK_OPS,
+    "rhs_tail_mid_hydro": HYDRO_RHS + 4 * UPD,
+    "rhs_tail_defer_last_hydro": HYDRO_RHS + 4 * (REBUILD + UPD) + KICK_OPS,
     "rhs_zroll": SHEARBOX_RHS + 35, "rhs_zroll_upd": SHEARBOX_RHS + 7 * UPD,
     "rhs_wrap_shock": SHOCKBOX_RHS + 32,
     "rhs_wrap_shock_upd": SHOCKBOX_RHS + 7 * UPD,
@@ -145,11 +171,26 @@ def flagship(pt, shape, fused=True, itorder=3, dt=0.0):
                  pt.Forcing(force=0.07, kf=3.0)))
 
 
-def random_fa(torch, shape, seed, device):
+def forced_hydro(pt, shape, itorder=3, Omega=0.0):
+    """configs.forced_hydro at a 2N-RK order."""
+    cfg = pt.configs.forced_hydro(shape, Omega=Omega)
+    return cfg.replace(time=pt.TimeSpec(itorder=itorder))
+
+
+def with_omega(pt, cfg, Omega):
+    """cfg with Hydro(Omega=...) in place of its Hydro."""
+    return cfg.replace(modules=tuple(
+        pt.Hydro(init=m.init, ampl=m.ampl, Omega=Omega) if m.name == "hydro"
+        else m for m in cfg.modules))
+
+
+def random_fa(torch, shape, seed, device, nvar=7):
+    """(nvar, *shape) noise: uu, lnrho and, with 7 fields, aa."""
     g = torch.Generator(device).manual_seed(seed)
-    amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * 3, device=device)
-    return (amp[:, None, None, None]
-            * torch.randn((7,) + shape, generator=g, device=device)).contiguous()
+    amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * (nvar - 4),
+                       device=device)
+    return (amp[:, None, None, None] * torch.randn(
+        (nvar,) + shape, generator=g, device=device)).contiguous()
 
 
 def rel_err(a, b):
@@ -253,6 +294,54 @@ def compare_tail_kernels(torch, pt, fr, shape, errs):
                      "rhs_first_fake": 1, "rhs_tail_defer_fake": 1,
                      "rhs_tail_last_fake": 1}, f"launch counts {counts}")
     compare_pairs("tail kernels and K8", shape, pairs, errs, RTOL_NEW)
+
+
+def compare_template(torch, pt, fr, label, cfg, errs):
+    """Phase 2: the five instances of the flagship template that ``cfg``'s
+    field layout selects (K1, K2, K3 with and without the kick, K3′, K2L
+    with and without; or their hydro builds) against their plain versions
+    on CUDA inputs, each field within RTOL_NEW × its max."""
+    dev = torch.device("cuda")
+    model = pt.Model(cfg, device=dev)
+    shape = cfg.grid.shape
+    sfx = "" if model.cfg.module("magnetic") else "_hydro"
+    fa = random_fa(torch, shape, 1, dev, model.reg.nvar)
+    alpha, beta, _ = model.rk
+    fr.reset_launches()
+    df1, dt1m = fr.rhs_first(model, fa)
+    df1_p, dt1m_p = fr.rhs_first_plain(model, fa)
+    dt = 1.0 / dt1m_p
+    c2 = torch.stack((model._alpha[1], beta[1] * dt, beta[0] * dt))
+    c3 = torch.stack((model._alpha[2], beta[2] * dt, beta[1] * dt))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt,
+                                     model.eos)
+    df2_p, f2_p = fr.rhs_tail_defer_plain(model, fa, df1_p, c2)
+    pairs = {
+        "rhs_first": [(df1, df1_p)],
+        "rhs_tail_defer": list(zip(fr.rhs_tail_defer(model, fa, df1_p, c2),
+                                   (df2_p, f2_p))),
+        "rhs_tail_last": [
+            (fr.rhs_tail_last(model, f2_p, df2_p, c3, k),
+             fr.rhs_tail_last_plain(model, f2_p, df2_p, c3, k))
+            for k in (kick, None)],
+        "rhs_tail_mid": list(zip(
+            fr.rhs_tail_mid(model, f2_p, df2_p.clone(), c3),
+            fr.rhs_tail_mid_plain(model, f2_p, df2_p.clone(), c3))),
+        "rhs_tail_defer_last": [
+            (fr.rhs_tail_defer_last(model, fa, df1_p, c3, k),
+             fr.rhs_tail_defer_last_plain(model, fa, df1_p, c3, k))
+            for k in (kick, None)],
+    }
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+    want = {k + sfx: n for k, n in (("rhs_first", 1), ("rhs_tail_defer", 1),
+                                    ("rhs_tail_last", 2), ("rhs_tail_mid", 1),
+                                    ("rhs_tail_defer_last", 2))}
+    check(counts == want, f"{label} launch counts {counts}")
+    dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
+    check(dt_rel <= RTOL_DT, f"{label} {shape} max 1/dt rel err {dt_rel}")
+    compare_pairs(f"{label} (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {k + sfx: v for k, v in pairs.items()}, errs, RTOL_NEW)
 
 
 def shocked_fa(torch, pm, seed):
@@ -455,6 +544,11 @@ def main():
 
     # ---- phase 2: kernels against their plain versions ----------------
     errs = dict.fromkeys(KERNEL_NAMES, 0.0)
+    for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
+        compare_template(torch, pt, fr, "forced hydro",
+                         forced_hydro(pt, shape), errs)
+        compare_template(torch, pt, fr, "flagship with Omega = 1",
+                         with_omega(pt, flagship(pt, shape), 1.0), errs)
     for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
@@ -467,6 +561,12 @@ def main():
     for order in (3, 2, 4):
         compare_steps(torch, pt, f"flagship rk{order}",
                       flagship(pt, n32, itorder=order))
+        compare_steps(torch, pt, f"forced hydro rk{order}",
+                      forced_hydro(pt, n32, itorder=order))
+    compare_steps(torch, pt, "forced hydro, Omega = 1",
+                  forced_hydro(pt, n32, Omega=1.0))
+    compare_steps(torch, pt, "flagship, Omega = 1",
+                  with_omega(pt, flagship(pt, n32), 1.0))
     compare_steps(torch, pt, "shock box", pt.configs.shock_box(n32),
                   uu_noise=0.1)
     # conv-slab: velocity noise 1e-2, not the configuration's 1e-3, whose
@@ -477,27 +577,37 @@ def main():
                   uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
                   t0=T_SHEAR)
+    sb = pt.configs.shear_box(n32)
+    compare_steps(torch, pt, "forced shear box",
+                  sb.replace(modules=sb.modules + (
+                      pt.Forcing(force=0.07, kf=3.0),)), t0=T_SHEAR)
 
     # ---- phase 3: the main paths at 256³ ------------------------------
     shape = (N_MAIN,) * 3
     launches, timings, bounds = {}, {}, {}
     fl = run_flagship(torch, pt, fr, smi, shape, launches)
+    hy = run_flagship(torch, pt, fr, smi, shape, launches, hydro=True)
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
     sb = run_aux_box(torch, pt, fr, smi, shape, launches, "shear box")
     kb = run_aux_box(torch, pt, fr, smi, shape, launches, "shock box")
     for order in (4, 2):
         run_flagship(torch, pt, fr, smi, shape, launches, itorder=order)
+        run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
+                     hydro=True)
     k8 = run_fake_chain(torch, pt, fr, smi, shape, launches,
                         float(fl[1]["dt"]))
 
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings, bounds)
     time_tails(torch, fr, fl, errs, timings, bounds)
-    for inst, a in fr.flagship_attrs().items():
-        print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
-              f"{a['local_bytes']} B local, shared {a['static_smem']} B "
-              f"static + {a['dynamic_smem']} B dynamic per block, "
-              f"{a['blocks_per_sm']} block(s) per SM", flush=True)
+    time_flagship(torch, fr, smi, hy, errs, timings, bounds)
+    time_tails(torch, fr, hy, errs, timings, bounds)
+    for lib in ("fused_rhs", "fused_rhs_hydro"):
+        for inst, a in fr.flagship_attrs(lib).items():
+            print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
+                  f"{a['local_bytes']} B local, shared {a['static_smem']} B "
+                  f"static + {a['dynamic_smem']} B dynamic per block, "
+                  f"{a['blocks_per_sm']} block(s) per SM", flush=True)
     print(f"phase 4 K8 chain at 256^3 on {smi}: {k8:.4f} ms/step, the "
           f"flagship's kernel chain {fl[2]:.4f} ms/step", flush=True)
     time_conv_slab(torch, fr, smi, zg, errs, timings, bounds)
@@ -561,19 +671,25 @@ def check_launches(label, counts, launches):
         launches.setdefault(k, counts[k])
 
 
-def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3):
-    """Phase 3: the forced-MHD flagship at a 2N-RK order."""
-    label = "flagship" if itorder == 3 else f"flagship rk{itorder}"
-    cfg = flagship(pt, shape, itorder=itorder)
+def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
+                 hydro=False):
+    """Phase 3: the forced-MHD flagship, or forced hydro on the same
+    template's 4-field build, at a 2N-RK order."""
+    name = "forced hydro" if hydro else "flagship"
+    label = name if itorder == 3 else f"{name} rk{itorder}"
+    cfg = (forced_hydro(pt, shape, itorder) if hydro
+           else flagship(pt, shape, itorder=itorder))
     base = torch.cuda.memory_allocated()
     model = pt.Model(cfg, device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches(label, counts, launches)
     fa = state["_fa"]
-    check(tuple(fa.shape) == (7,) + shape, f"state shape {tuple(fa.shape)}")
+    check(tuple(fa.shape) == (model.reg.nvar,) + shape,
+          f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
     dt = float(state["dt"])
-    # the u = 0, B = 0 CFL limit: sound speed and the viscous/resistive rate
+    # the u = 0, B = 0 CFL limit: sound speed and the viscous/resistive
+    # rate (ν = η = 5e-3; forced hydro: ν = 5e-3)
     tc, gs = cfg.time, cfg.grid
     dxyz2 = sum((1.0 / d) ** 2 for d in (gs.dx, gs.dy, gs.dz))
     dt_est = 1.0 / math.hypot(math.sqrt(dxyz2) / tc.cdt,
@@ -754,7 +870,10 @@ def time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
 
 
 def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
+    """K1-K3, or K1h-K3h, checked and timed on the main path's final
+    state, and the plain chain's step."""
     model, state, ms_step = fl
+    sfx = "" if model.cfg.module("magnetic") else "_hydro"
     fa = state["_fa"]
     alpha, beta, _ = model.rk
     dt_t = state["dt"]
@@ -777,7 +896,8 @@ def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
             [f2, df2, c3, kick, zc]),
     }
     for kname, (kern, plain, inputs) in calls.items():
-        time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs)
+        time_pairs(torch, kname + sfx, kern, plain, errs, timings, bounds,
+                   inputs)
     del df1, df2, f2
     plain_chain = (fr.rhs_first_plain, fr.rhs_tail_defer_plain,
                    fr.rhs_tail_mid_plain, fr.rhs_tail_last_plain,
@@ -786,14 +906,16 @@ def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
                    "it": state["it"]}
     plain_ms = time_ms(
         torch, lambda: model._fused_step(plain_state, plain_chain), 3)
-    print(f"phase 4 flagship plain chain at 256^3 on {smi}: {plain_ms:.4f} "
+    name = "forced hydro" if sfx else "flagship"
+    print(f"phase 4 {name} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
 
 
 def time_tails(torch, fr, fl, errs, timings, bounds):
-    """K3′, K2L and K8's three variants checked and timed on the
-    flagship's final state."""
+    """K3′, K2L and K8's three variants (K3′h and K2Lh) checked and timed
+    on the flagship's (forced hydro's) final state."""
     model, state, _ = fl
+    sfx = "" if model.cfg.module("magnetic") else "_hydro"
     fa = state["_fa"]
     _, beta, _ = model.rk
     dt_t = state["dt"]
@@ -806,7 +928,7 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
     # timed on one buffer that each call keeps updating in place
     scratch = df1.clone()
     time_pairs(
-        torch, "rhs_tail_mid",
+        torch, "rhs_tail_mid" + sfx,
         lambda: fr.rhs_tail_mid(model, fa, scratch, coef),
         lambda: fr.rhs_tail_mid_plain(model, fa, scratch, coef), errs,
         timings, bounds, [fa, df1, coef],
@@ -833,6 +955,8 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
                                            fake=True),
             [fa, df1, coef, kick, zc]),
     }
+    if sfx:      # K8 is built for the MHD layout only
+        calls = {"rhs_tail_defer_last_hydro": calls["rhs_tail_defer_last"]}
     for kname, (kern, plain, inputs, *library) in calls.items():
         time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
                    library=library[0] if library else None)

@@ -2,9 +2,10 @@
 
 The port's configurations have no weights: both packages build the same
 configuration from the same kwargs, so the state is all that crosses —
-the flagship's 7 fields (uu, lnrho, aa), stratified convection's 5 (uu,
-lnrho, ss) or the shear and shock boxes' 8 slots (uu, lnrho, aa, shock).  This module imports no JAX; the caller converts JAX arrays
-with ``np.asarray``.
+the flagship's 7 fields (uu, lnrho, aa), forced hydro's 4 (uu, lnrho),
+stratified convection's 5 (uu, lnrho, ss) or the shear and shock boxes'
+8 slots (uu, lnrho, aa, shock).  This module imports no JAX; the caller
+converts JAX arrays with ``np.asarray``.
 """
 from __future__ import annotations
 

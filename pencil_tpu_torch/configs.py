@@ -102,3 +102,22 @@ def shock_box(n, fused=True, pkg=None):
                  pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=1e-3),
                  pkg.Shock(),
                  pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))
+
+
+def forced_hydro(n, fused=True, pkg=None, Omega=0.0):
+    """Forced isothermal hydro turbulence, the flagship without Magnetic
+    (BASELINE config 2): the default 2π cube, fully periodic, isothermal
+    gas (cs = 1), ν = 5e-3, helical forcing of amplitude 0.07 at kf = 3;
+    4 fields (uu, lnrho).  ``Omega`` > 0 adds the Coriolis force of a
+    rotation about z.  ``n`` is an int (a cube) or (nx, ny, nz).  The
+    values are this configuration's own, not a reference sample's."""
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    return pkg.Config(
+        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
+        time=pkg.TimeSpec(itorder=3), fused=fused,
+        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+                 pkg.Density(lupw_lnrho=False),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
+                 pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pkg.Forcing(force=0.07, kf=3.0)))

@@ -1,9 +1,14 @@
 // Fused RHS kernels of the flagship step: forced isothermal MHD (uu, lnrho,
 // aa; 6th-order central differences; 2N-RK orders 1-4) on a fully periodic
-// grid.
+// grid, with optional Coriolis.  Built with -DPC_MAG=0 the same template
+// gives the hydro instances (K1h, K2h, K3h, K3'h, K2Lh): forced hydro
+// turbulence on the 4 fields uu, lnrho, with the magnetic terms, the
+// Alfven speed in the CFL and K8 compiled out.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
-// flagship step launches (model.py:650-703), one template instance each:
+// flagship step launches (model.py:650-703), one template instance each
+// (the JAX kernels trace whatever module set they are built for, so the
+// same calls serve both sets):
 //
 //   K1  pc_rhs_first           <- `kernel` + `_dma_tile_wrap` (wrap mode):
 //                                 df = RHS(f), per-block max of the CFL 1/dt
@@ -26,11 +31,12 @@
 //                                 (:127-133): K1, K2 and K3's loads and
 //                                 stores with RHS(f) = f*1.0000001, dt1 = 0
 //
-// What bounds them on an H100: every kernel is a stencil over all 7 fields.
-// Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2, K3': 2*nvar*4 B)
-// out per point, 56-112 B, which at 3.35 TB/s is ~0.3-0.6 ms per kernel at
-// 256^3; the ~900 operations per point take ~0.22 ms at 67 TFLOP/s, so
-// device memory is the bound.  Beyond it sit the ~280 shared-memory reads
+// What bounds them on an H100: every kernel is a stencil over all 7 fields
+// (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
+// K3': 2*nvar*4 B) out per point, 56-112 B (hydro 32-64 B), which at 3.35
+// TB/s is ~0.3-0.6 ms (0.16-0.32 ms) per kernel at 256^3; the ~900 (~460)
+// operations per point take ~0.22 (~0.11) ms at 67 TFLOP/s, so device
+// memory is the bound.  Beyond it sit the ~280 shared-memory reads
 // and ~1,300 issued instructions per point of the RHS, and, for a design
 // that reloads halos, the traffic from L2 into shared memory; K8 measures
 // what the loads and the stores alone cost.
@@ -39,7 +45,7 @@
 // thread per point with a warp along 32 consecutive z (the contiguous
 // axis: coalesced rows, stencil reads free of bank conflicts), and marches
 // along x over a segment of MX planes.  It keeps the 2*NG + 1 planes
-// x-3 .. x+3 of all 7 fields, each with its y/z halo, in a ring of shared-
+// x-3 .. x+3 of all NC fields, each with its y/z halo, in a ring of shared-
 // memory slots, so each step loads one new plane and the halo costs
 // (14*38)/(8*32) * (MX+6)/MX = 2.3x the points instead of the 8.6x of a
 // 4x4x16 tile.  The loads are cp.async copies PD planes ahead of the
@@ -53,7 +59,8 @@
 // the next planes in registers, so df1 is read from device memory once.
 // The other tails copy each point's own df_prev (no halo) with the same
 // cp.async groups into a small ring, so no step waits on a global load.
-// One 256-thread block per SM (141-188 KB of shared memory), 8 warps.
+// One 256-thread block per SM (141-188 KB of shared memory; hydro 81-105
+// KB), 8 warps.
 // Outputs go to buffers no block reads halos from (blocks run in any
 // order, so an aliased write would race), except the df of K3', which
 // overwrites df_prev: each point reads df_prev only at itself, and its
@@ -70,7 +77,10 @@
 
 #include "stencil.cuh"
 
-#define NC 7           // ux uy uz lnrho ax ay az (registry order)
+#ifndef PC_MAG
+#define PC_MAG 1       // 0: the hydro instances, no aa fields
+#endif
+#define NC (PC_MAG ? 7 : 4)   // ux uy uz lnrho [ax ay az] (registry order)
 #ifndef PC_MX
 #define PC_MX 64       // planes of a block's x segment
 #endif
@@ -110,6 +120,7 @@ struct PcParams {
   float cs20, gm1, lnrho0;   // cs2 = cs20*exp(gm1*(lnrho - lnrho0))
   float dxyz2, cdt, dif;     // dif = max(nu, eta)*dxyz2/cdtv
   float x0, y0, dx, dy;      // node coordinates for the kick
+  float om[3];               // Omega; -2 Omega x u when not all zero
 };
 
 // Derivatives along axis j of the ring layout: x (j = 0) from the ring
@@ -133,10 +144,11 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
 
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the ring slot of its plane; field c is at s + c*FPL, the x taps at the
-// offsets xo.  Term order follows the JAX modules (density, hydro,
-// viscosity, magnetic) so that the plain version and this kernel sum in
-// the same order.
-template <bool WANT_DT1>
+// offsets xo.  Term order follows the JAX modules (density, hydro with its
+// Coriolis force, viscosity, magnetic) so that the plain version and this
+// kernel sum in the same order.  ROT adds -2 Omega x u (a template flag,
+// so that the instances without rotation carry no trace of it).
+template <bool WANT_DT1, bool ROT>
 __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
                                              const PcParams& P, float r[NC],
                                              float& dt1) {
@@ -160,7 +172,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
   // density: -u.grad(lnrho) - div u
   r[LNRHO] = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
 
-  // hydro: -(u.grad)u - cs2 grad(lnrho)
+  // hydro: -(u.grad)u - cs2 grad(lnrho) - 2 Omega x u
   const float cs2 = P.isothermal
       ? P.cs20 : P.cs20 * expf(P.gm1 * (lnrho - P.lnrho0));
   float duu[3];
@@ -168,6 +180,15 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
   for (int a = 0; a < 3; ++a) {
     const float ugu = (u[0] * uij[a][0] + u[1] * uij[a][1]) + u[2] * uij[a][2];
     duu[a] = -ugu + (-cs2) * gl[a];
+  }
+  if constexpr (ROT) {
+    const float c[3] = {
+        __fsub_rn(__fmul_rn(P.om[1], u[2]), __fmul_rn(P.om[2], u[1])),
+        __fsub_rn(__fmul_rn(P.om[2], u[0]), __fmul_rn(P.om[0], u[2])),
+        __fsub_rn(__fmul_rn(P.om[0], u[1]), __fmul_rn(P.om[1], u[0]))};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      duu[a] = __fadd_rn(duu[a], __fmul_rn(-2.0f, c[a]));
   }
 
   // viscosity 'nu-const': nu*(del2 u + grad(div u)/3 + 2 S.grad(lnrho))
@@ -197,6 +218,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
     duu[a] = duu[a] + P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
   }
 
+#if PC_MAG
   // magnetic: B = curl A, dA/dt = u x B + eta del2 A, du += (J x B)/rho
   float aij[3][3];
 #pragma unroll
@@ -235,16 +257,24 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
     const float jxb = jj[b1] * bb[b2] - jj[b2] * bb[b1];
     r[UX + a] = duu[a] + jxb * rho1;
   }
+#else
+#pragma unroll
+  for (int a = 0; a < 3; ++a) r[UX + a] = duu[a];
+#endif
 
   if (WANT_DT1) {
     // CFL (JAX timestep.py:49-100): the wave-speed root joins the
     // advection linearly; advective and diffusive classes combine as RSS
     float adv = (fabsf(u[0]) * P.inv[0] + fabsf(u[1]) * P.inv[1])
                 + fabsf(u[2]) * P.inv[2];
+#if PC_MAG
     const float b0 = bb[0] * P.inv[0], b1 = bb[1] * P.inv[1],
                 b2 = bb[2] * P.inv[2];
     const float va2 = ((b0 * b0 + b1 * b1) + b2 * b2) * rho1;
     adv = adv + sqrtf(cs2 * P.dxyz2 + va2);
+#else
+    adv = adv + sqrtf(cs2 * P.dxyz2);
+#endif
     const float dt1a = adv / P.cdt;
     dt1 = P.dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + P.dif * P.dif);
   }
@@ -342,7 +372,8 @@ static_assert(SLOT % 4 == 0 && PZ % 4 == 0 && ZOFF % 4 == 0,
 
 // One template for every kernel: FIRST is substep 1; otherwise DEFER
 // rebuilds f1 = f0 + cprev*df1 in the ring and LAST skips the df store.
-// FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor).  coef =
+// FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor); ROT
+// adds the Coriolis force (launch() picks it where P.om is not 0).  coef =
 // [alpha, beta*dt, cprev] and kick = [k(3), phase, f_re(3), f_im(3), N*dt,
 // 0] live on the device, so no launch needs a host copy of dt.  dfin and
 // dfout may be one buffer (K3'): each thread reads and writes only its own
@@ -358,7 +389,7 @@ static_assert(SLOT % 4 == 0 && PZ % 4 == 0 && ZOFF % 4 == 0,
 // groups are committed one per plane, empty past the end, so the count to
 // wait for is always PD - 1.  (Rebuilding, each thread, only the elements
 // it copied, before a single barrier, measured 17-20 % slower on K2.)
-template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT>
 __global__ void __launch_bounds__(NTHREADS, 1)
 pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
             const float* __restrict__ coef, const float* __restrict__ kick,
@@ -485,7 +516,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
 #pragma unroll
       for (int c = 0; c < NC; ++c) r[c] = __fmul_rn(s[c * FPL], 1.0000001f);
     } else {
-      flagship_rhs<FIRST>(s, xo, P, r, dt1);
+      flagship_rhs<FIRST, ROT>(s, xo, P, r, dt1);
     }
     const size_t g = ((size_t)gx * P.ny + gy) * P.nz + gz;
 
@@ -540,11 +571,11 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
                     + blockIdx.x);
 }
 
-template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
-static int launch(const PcParams* p, const float* fa, const float* dfin,
-                  const float* coef, const float* kick, const float* zc,
-                  float* dfout, float* faout, float* dt1blk, void* stream) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE>;
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT>
+static int launch_as(const PcParams* p, const float* fa, const float* dfin,
+                     const float* coef, const float* kick, const float* zc,
+                     float* dfout, float* faout, float* dt1blk, void* stream) {
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -556,6 +587,20 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
   kern<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       *p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk, vec);
   return (int)cudaGetLastError();
+}
+
+// The instance with the Coriolis force where Omega is not 0 (K8 has none).
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
+static int launch(const PcParams* p, const float* fa, const float* dfin,
+                  const float* coef, const float* kick, const float* zc,
+                  float* dfout, float* faout, float* dt1blk, void* stream) {
+  if constexpr (!FAKE) {
+    if (p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f)
+      return launch_as<FIRST, DEFER, LAST, KICK, false, true>(
+          p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk, stream);
+  }
+  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false>(
+      p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk, stream);
 }
 
 // The substep-1 kernel and the three tail kinds, real or fake.
@@ -587,10 +632,11 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
 }
 
 // Registers, local (spill) bytes per thread, static and dynamic shared
-// memory per block, and resident blocks per SM of one instance.
+// memory per block, and resident blocks per SM of one instance (without
+// rotation).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int attrs(int* out) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, false>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -622,17 +668,19 @@ int pc_tile_shape(int* out) {
 
 // attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
 // and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
-// and without the kick.
+// and without the kick.  The hydro build has no K8 (1, 3, 6, 7).
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs<true, false, false, false, false>(out);
-    case 1: return attrs<true, false, false, false, true>(out);
     case 2: return attrs<false, true, false, false, false>(out);
-    case 3: return attrs<false, true, false, false, true>(out);
     case 4: return attrs<false, false, true, true, false>(out);
     case 5: return attrs<false, false, true, false, false>(out);
+#if PC_MAG
+    case 1: return attrs<true, false, false, false, true>(out);
+    case 3: return attrs<false, true, false, false, true>(out);
     case 6: return attrs<false, false, true, true, true>(out);
     case 7: return attrs<false, false, true, false, true>(out);
+#endif
     case 8: return attrs<false, false, false, false, false>(out);
     case 9: return attrs<false, true, true, true, false>(out);
     case 10: return attrs<false, true, true, false, false>(out);
@@ -678,6 +726,7 @@ int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
   return tail_last<true, false>(p, fa, df1, coef, kick, zc, f, stream);
 }
 
+#if PC_MAG
 // K8: the `PC_FAKE_RHS` branch of `body` (pencil_tpu/ops/fused_rhs.py) in
 // K1, K2 and K3, with the same arguments as those.
 int pc_rhs_first_fake(const PcParams* p, const float* fa, float* df,
@@ -697,5 +746,6 @@ int pc_rhs_tail_last_fake(const PcParams* p, const float* fa,
                           void* stream) {
   return tail_last<false, true>(p, fa, df2, coef, kick, zc, f3, stream);
 }
+#endif  // PC_MAG
 
 }  // extern "C"

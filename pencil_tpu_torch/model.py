@@ -1,13 +1,13 @@
 """Model assembly and the time step (counterpart of ``pencil_tpu/model.py``).
 
-Four module sets run as chains of fused kernels, f32, at any 2N-RK order
+Five module sets run as chains of fused kernels, f32, at any 2N-RK order
 of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 
-* The flagship — ideal-gas EOS, lnρ density, hydro, 'nu-const'
-  viscosity, resistive-gauge magnetic, optional helical forcing — on a
-  fully periodic grid, as the JAX package's wrap mode (model.py:650-703):
-  K1 evaluates df1 = RHS(f0) and the CFL maximum (dt stays on the
-  device); then
+* The flagship — ideal-gas EOS, lnρ density, hydro (with optional
+  Coriolis), 'nu-const' viscosity, resistive-gauge magnetic, optional
+  helical forcing — on a fully periodic grid, as the JAX package's wrap
+  mode (model.py:650-703): K1 evaluates df1 = RHS(f0) and the CFL maximum
+  (dt stays on the device); then
 
     order 1: a torch axpy, and the forcing kick after the step;
     order 2: K2L: f = f1 + β₁Δt·(α₁df1 + RHS(f1)) with f1 = f0 + β₀Δt·df1
@@ -15,9 +15,16 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
     order 3: K2 (the rebuilt f1, writes df2 and f2), then K3 with the kick;
     order 4: K2, K3′ twice (df ← α·df + RHS(f), f ← f + βΔt·df), K3.
 
-  ``Model(..., fake_rhs=True)`` runs K8 in place of K1-K3 (order 3 only):
-  the same loads and stores with RHS(f) = f·1.0000001, the memory floor of
-  the chain, wrong physics by design.
+  ``Model(..., fake_rhs=True)`` runs K8 in place of K1-K3 (order 3 with a
+  fixed ``TimeSpec.dt`` only: K8 reports no CFL rate): the same loads and
+  stores with RHS(f) = f·1.0000001, the memory floor of the chain, wrong
+  physics by design.
+
+* Forced hydro turbulence — the flagship without magnetic (``configs.
+  forced_hydro``), forcing and Coriolis optional — on the same chain of
+  the same template built for 4 fields (uu, lnρ): K1h, then K2Lh, K2h and
+  K3h, or K2h, 2×K3′h and K3h, by order (the wrappers pick the library by
+  the field layout, so the chain is one code path).
 
 * Stratified convection — the EOS with an entropy slot, lnρ density,
   hydro, constant gravity, 'nu-const' viscosity, entropy — with a
@@ -30,11 +37,12 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
   'hyper3-simplified' viscosity, hyper-resistivity and lnρ
-  hyper-diffusion, plus Shear and Shock — on a fully periodic grid whose x
-  faces are shear-periodic, as the JAX package's zroll mode
-  (model.py:576-730): each substep runs the shock pre-pass
+  hyper-diffusion, plus Shear and Shock, optional forcing — on a fully
+  periodic grid whose x faces are shear-periodic, as the JAX package's
+  zroll mode (model.py:576-730): each substep runs the shock pre-pass
   (``_refresh_aux_fa``) and ``fill_ghosts`` in x and y with the
-  Fourier-shifted x faces, then K4 (and a torch axpy) or K5.
+  Fourier-shifted x faces, then K4 (and a torch axpy) or K5; the forcing
+  kick follows the step, as JAX's ``after_timestep`` gives it.
 
 * The shocked periodic box — the same modules without Shear, with
   optional forcing — on a plain periodic grid, as the JAX package's wrap
@@ -88,12 +96,12 @@ REGISTRATION_ORDER = (
     "heatflux", "lorenz_gauge", "ascalar", "testfield",
 )
 
-# the module sets the fused kernels implement: the flagship (forcing is
-# optional) on a fully periodic grid, stratified convection with z
-# non-periodic and x, y periodic, the shearing box on a fully periodic grid,
-# and the shocked box (forcing is optional) on a fully periodic grid
-FLAGSHIP_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
-                              "magnetic"))
+# the module sets the fused kernels implement: the flagship and forced hydro
+# (forcing is optional) on a fully periodic grid, stratified convection
+# with z non-periodic and x, y periodic, and the shearing box and the
+# shocked box (forcing is optional) on a fully periodic grid
+HYDRO_MODULES = frozenset(("eos", "density", "hydro", "viscosity"))
+FLAGSHIP_MODULES = HYDRO_MODULES | {"magnetic"}
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
 ZROLL_MODULES = FLAGSHIP_MODULES | {"shear", "shock"}
@@ -116,10 +124,8 @@ def _unported_bcs(cfg: Config):
 def _zroll_options(cfg: Config):
     """The options in use that only the zroll kernels implement."""
     out = []
-    hyd, visc = cfg.module("hydro"), cfg.module("viscosity")
+    visc = cfg.module("viscosity")
     mag, den = cfg.module("magnetic"), cfg.module("density")
-    if getattr(hyd, "Omega", 0.0) != 0.0:
-        out.append("Hydro.Omega")
     if visc is not None and any(visc.coefficients()[1:]):
         out.append("Viscosity nu-shock/hyper3-simplified")
     if getattr(mag, "eta_hyper3", 0.0) > 0.0:
@@ -130,9 +136,10 @@ def _zroll_options(cfg: Config):
 
 
 def fused_mode(cfg: Config):
-    """(mode, None) with mode 'wrap' (the flagship chain), 'zghost'
-    (stratified convection), 'zroll' (the shearing box) or 'wrap_aux' (the
-    shocked periodic box), or (None, why ``cfg`` is outside all four)."""
+    """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain),
+    'zghost' (stratified convection), 'zroll' (the shearing box) or
+    'wrap_aux' (the shocked periodic box), or (None, why ``cfg`` is outside
+    all five sets)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -146,13 +153,16 @@ def fused_mode(cfg: Config):
     periodic = tuple(cfg.grid.periodic)
     if len(mods) == len(names):
         full = periodic == (True, True, True)
-        if mods == ZROLL_MODULES and full:
+        unforced = mods - {"forcing"}
+        if unforced == ZROLL_MODULES and full:
             return "zroll", None
-        if mods - {"forcing"} == SHOCKBOX_MODULES and full:
+        if unforced == SHOCKBOX_MODULES and full:
             return "wrap_aux", None
         extra = _zroll_options(cfg)
-        wrap = mods - {"forcing"} == FLAGSHIP_MODULES and full
+        wrap = unforced in (FLAGSHIP_MODULES, HYDRO_MODULES) and full
         zghost = mods == CONVSLAB_MODULES and periodic == (True, True, False)
+        if zghost and cfg.module("hydro").Omega != 0.0:
+            extra.append("Hydro.Omega")     # K6/K7 have no Coriolis
         if (wrap or zghost) and extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")
@@ -161,12 +171,12 @@ def fused_mode(cfg: Config):
         if zghost:
             return "zghost", None
     return None, (f"modules {sorted(names)} with periodic={periodic} (the "
-                  f"kernels implement {sorted(FLAGSHIP_MODULES)} with "
-                  "optional forcing on a periodic grid, "
+                  f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
+                  f"{sorted(HYDRO_MODULES)} with optional forcing on a "
+                  "periodic grid, "
                   f"{sorted(CONVSLAB_MODULES)} with a non-periodic z, "
-                  f"{sorted(ZROLL_MODULES)} on a periodic grid, and "
-                  f"{sorted(SHOCKBOX_MODULES)} with optional forcing on a "
-                  "periodic grid)")
+                  f"{sorted(ZROLL_MODULES)} and {sorted(SHOCKBOX_MODULES)} "
+                  "with optional forcing on a periodic grid)")
 
 
 def gate_reason(cfg: Config):
@@ -243,19 +253,25 @@ class Model:
     def __init__(self, cfg: Config, device="cuda", fake_rhs=False):
         """``device``: the card by default (a RuntimeError if none is
         present); ``"cpu"`` runs the plain PyTorch path.  ``fake_rhs``: run
-        the K8 memory floor in place of K1-K3 (the flagship chain at
-        itorder 3 only) — a measurement mode whose physics is wrong by
-        design."""
+        the K8 memory floor in place of K1-K3 (the MHD flagship chain at
+        itorder 3 with a fixed ``TimeSpec.dt`` only: K8 reports no CFL
+        rate, so an adaptive dt would be dtmax) — a measurement mode whose
+        physics is wrong by design."""
         _check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.fused = fused_gate(cfg, self.device)
         self.mode = fused_mode(cfg)[0] if self.fused else None
         self.fake_rhs = bool(fake_rhs)
-        if self.fake_rhs and (self.mode != "wrap" or cfg.time.itorder != 3):
+        if self.fake_rhs and (self.mode != "wrap" or cfg.time.itorder != 3
+                              or cfg.module("magnetic") is None):
             raise NotImplementedError(
-                "pencil_tpu_torch: fake_rhs (K8) runs on the flagship's "
-                "fused 2N-RK3 chain only")
+                "pencil_tpu_torch: fake_rhs (K8) runs on the MHD "
+                "flagship's fused 2N-RK3 chain only")
+        if self.fake_rhs and not cfg.time.dt > 0:
+            raise NotImplementedError(
+                "pencil_tpu_torch: fake_rhs (K8) needs a fixed "
+                "TimeSpec.dt > 0 (its K1 reports no CFL rate)")
         require_device(self.device)
         self.dtype = torch.float32
         self.modules = tuple(sorted(cfg.modules, key=_order_key(MODULE_ORDER)))
@@ -461,9 +477,10 @@ class Model:
 
     def _fused_step(self, state: Dict, kernels=None):
         """One 2N-RK step of the flagship chain at the order of ``self.rk``
-        (JAX model.py:650-703).  ``kernels`` = (first, defer, mid, last,
-        defer_last) lets a measurement time the plain versions through
-        the same chain."""
+        (JAX model.py:650-703), MHD or hydro: the wrappers launch the
+        library of the state's field layout.  ``kernels`` = (first, defer,
+        mid, last, defer_last) lets a measurement time the plain versions
+        through the same chain."""
         first, defer, mid, last, defer_last = kernels or (
             rhs_first, rhs_tail_defer, rhs_tail_mid, rhs_tail_last,
             rhs_tail_defer_last)

@@ -1,11 +1,13 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
-Each ``csrc/*.cu`` becomes its own shared library with a plain C
+Each library is one ``csrc/*.cu`` built with its own -D definitions
+(``LIBRARIES``: the flagship template's source gives two, the MHD
+instances and the 4-field hydro ones with ``PC_MAG=0``), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
-takes seconds; the sources are compiled in parallel, one nvcc each.  They
-land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source rebuilds.  Nothing here runs at import.
+takes seconds; the libraries are compiled in parallel, one nvcc each.
+They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
+of the source, the shared headers (``csrc/*.cuh``), the flags and the
+definitions, so an edited source rebuilds.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -26,21 +28,35 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# each library: its source in csrc/ and the -D definitions it is built with
+LIBRARIES = {
+    "fused_rhs": ("fused_rhs.cu", ()),
+    "fused_rhs_hydro": ("fused_rhs.cu", ("-DPC_MAG=0",)),
+    "zghost_rhs": ("zghost_rhs.cu", ()),
+    "zroll_rhs": ("zroll_rhs.cu", ()),
+}
+
 _p = ctypes.c_void_p
+# the flagship template's entry points in both of its libraries; K8 (the
+# fake RHS) is built for the MHD instances only
+_FLAGSHIP = {
+    "pc_tile_shape": [_p],
+    "pc_flagship_attrs": [ctypes.c_int, _p],
+    "pc_rhs_first": [_p] * 5,
+    "pc_rhs_tail_defer": [_p] * 7,
+    "pc_rhs_tail_last": [_p] * 8,
+    "pc_rhs_tail_mid": [_p] * 7,
+    "pc_rhs_tail_defer_last": [_p] * 8,
+}
 # each library's entry points: name -> argtypes (all return an int)
 SIGNATURES = {
     "fused_rhs": {
-        "pc_tile_shape": [_p],
-        "pc_flagship_attrs": [ctypes.c_int, _p],
-        "pc_rhs_first": [_p] * 5,
-        "pc_rhs_tail_defer": [_p] * 7,
-        "pc_rhs_tail_last": [_p] * 8,
-        "pc_rhs_tail_mid": [_p] * 7,
-        "pc_rhs_tail_defer_last": [_p] * 8,
+        **_FLAGSHIP,
         "pc_rhs_first_fake": [_p] * 5,
         "pc_rhs_tail_defer_fake": [_p] * 7,
         "pc_rhs_tail_last_fake": [_p] * 8,
     },
+    "fused_rhs_hydro": _FLAGSHIP,
     "zghost_rhs": {
         "pc_zg_tile_shape": [_p],
         "pc_rhs_zg": [_p] * 7,
@@ -70,7 +86,8 @@ def nvcc_path() -> str:
 
 
 def sources():
-    return {name: CSRC / f"{name}.cu" for name in SIGNATURES}
+    """Library name -> the path of its source."""
+    return {name: CSRC / src for name, (src, _) in LIBRARIES.items()}
 
 
 def library_path(name: str) -> Path:
@@ -78,15 +95,15 @@ def library_path(name: str) -> Path:
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LIBRARIES[name][1]).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
-    """Compile every source whose library is missing, all nvcc runs at
-    once; returns name -> library path."""
+    """Compile every library that is missing, all nvcc runs at once;
+    returns name -> library path."""
     global build_seconds
-    out = {name: library_path(name) for name in SIGNATURES}
+    out = {name: library_path(name) for name in LIBRARIES}
     todo = {name: path for name, path in out.items() if not path.exists()}
     if not todo:
         return out
@@ -98,15 +115,15 @@ def build() -> dict:
             fd, tmps[name] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             procs[name] = subprocess.Popen(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmps[name],
-                 str(sources()[name])],
+                [nvcc_path(), *NVCC_FLAGS, *LIBRARIES[name][1], "-o",
+                 tmps[name], str(sources()[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         failed = []
         for name, proc in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):"
-                              f"\n{log}")
+                failed.append(f"{name} ({sources()[name].name}): nvcc "
+                              f"failed ({proc.returncode}):\n{log}")
         if failed:
             raise RuntimeError("\n".join(failed))
         for name, path in todo.items():

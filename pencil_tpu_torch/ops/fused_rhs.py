@@ -7,7 +7,9 @@ tensor runs the plain PyTorch version beside it.  There is no fallback
 from a kernel to its plain version.
 
 The flagship step (wrap mode, ``csrc/fused_rhs.cu``), on the raw periodic
-stack (7, nx, ny, nz):
+stack (7, nx, ny, nz) of forced MHD, or (4, nx, ny, nz) of forced hydro
+(the same source built with ``PC_MAG=0``, library ``fused_rhs_hydro``,
+launch names with the suffix ``_hydro``: K1h, K2h, K3h, K3′h, K2Lh):
 
   rhs_first            K1   df = RHS(f), max of the CFL 1/dt
   rhs_tail_defer       K2   f1 = f0 + cprev·df1 rebuilt from raw f0 and
@@ -22,7 +24,8 @@ stack (7, nx, ny, nz):
 
 ``fake=True`` on K1, K2 and K3 is K8, the memory floor: the same loads and
 stores with RHS(f) = f·1.0000001 and a CFL maximum of 0 (wrong physics by
-design).
+design; the MHD layout only).  The wrappers pick the library from the
+model's field layout (``flagship_library``).
 
 Stratified convection (zghost mode, ``csrc/zghost_rhs.cu``), on the stack
 ghosted in all three axes by ``fill_ghosts`` (5, nx+6, ny+6, nz+6):
@@ -77,8 +80,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 LAUNCHES = dict.fromkeys((
     "rhs_first", "rhs_tail_defer", "rhs_tail_last", "rhs_tail_mid",
     "rhs_tail_defer_last", "rhs_first_fake", "rhs_tail_defer_fake",
-    "rhs_tail_last_fake", "rhs_zg", "rhs_zg_upd", "rhs_zroll",
-    "rhs_zroll_upd", "rhs_wrap_shock", "rhs_wrap_shock_upd"), 0)
+    "rhs_tail_last_fake", "rhs_first_hydro", "rhs_tail_defer_hydro",
+    "rhs_tail_last_hydro", "rhs_tail_mid_hydro", "rhs_tail_defer_last_hydro",
+    "rhs_zg", "rhs_zg_upd", "rhs_zroll", "rhs_zroll_upd", "rhs_wrap_shock",
+    "rhs_wrap_shock_upd"), 0)
 
 
 def reset_launches():
@@ -271,11 +276,34 @@ class PcParams(ctypes.Structure):
         ("dif", ctypes.c_float),
         ("x0", ctypes.c_float), ("y0", ctypes.c_float),
         ("dx", ctypes.c_float), ("dy", ctypes.c_float),
+        ("om", ctypes.c_float * 3),
     ]
 
 
-# the kernel's fixed field layout: the flagship registry order
-_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "aa": slice(4, 7)}
+# the flagship template's field layouts (registry order), each with the
+# library built for it: forced MHD, and forced hydro (PC_MAG=0)
+_LAYOUTS = {
+    "fused_rhs": {"uu": slice(0, 3), "lnrho": slice(3, 4),
+                  "aa": slice(4, 7)},
+    "fused_rhs_hydro": {"uu": slice(0, 3), "lnrho": slice(3, 4)},
+}
+# the suffix of each library's launch names
+_SUFFIX = {"fused_rhs": "", "fused_rhs_hydro": "_hydro"}
+
+
+def flagship_library(model) -> str:
+    """The library of the flagship template whose field layout is
+    ``model``'s: 'fused_rhs' (uu, lnrho, aa) or 'fused_rhs_hydro' (uu,
+    lnrho); raises for any other layout."""
+    reg = model.reg
+    for lib, layout in _LAYOUTS.items():
+        n = sum(sl.stop - sl.start for sl in layout.values())
+        if reg.nvar == reg.ncom == n and set(reg.slots) == set(layout) \
+                and all(reg.slice(k) == v for k, v in layout.items()):
+            return lib
+    raise NotImplementedError(
+        "fused kernels: the flagship's (uu, lnrho, aa) or the hydro "
+        f"(uu, lnrho) field layout only, got {reg.comp_names}")
 
 
 def kernel_params(model) -> PcParams:
@@ -284,19 +312,19 @@ def kernel_params(model) -> PcParams:
     p = model.__dict__.get("_pc_params")
     if p is not None:
         return p
-    reg, cfg, gs = model.reg, model.cfg, model.cfg.grid
-    if reg.nvar != 7 or reg.ncom != 7 or any(
-            reg.slice(k) != v for k, v in _LAYOUT.items()):
-        raise NotImplementedError("fused kernels: flagship field layout only")
+    cfg, gs = model.cfg, model.cfg.grid
+    flagship_library(model)
     f32 = np.float32
     inv = np.array(inverse_spacings(gs), f32)
     invsq = inv * inv
     dxyz2 = (invsq[0] + invsq[1]) + invsq[2]
     nu = cfg.module("viscosity").nu
-    eta = cfg.module("magnetic").eta
+    mag = cfg.module("magnetic")
+    eta = mag.eta if mag is not None else 0.0
     maxdiffus = max([v for v in (nu, eta) if v > 0.0], default=0.0)
     dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
     eos = model.eos
+    hyd = cfg.module("hydro")
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
     p = PcParams(
@@ -308,7 +336,9 @@ def kernel_params(model) -> PcParams:
         nu=max(nu, 0.0), eta=max(eta, 0.0),
         cs20=eos.cs20, gm1=eos.gamma - 1.0, lnrho0=eos.lnrho0,
         dxyz2=dxyz2, cdt=cfg.time.cdt, dif=dif,
-        x0=x0, y0=y0, dx=gs.dx, dy=gs.dy)
+        x0=x0, y0=y0, dx=gs.dx, dy=gs.dy,
+        om=(ctypes.c_float * 3)(*(hyd.omega_vector() if hyd.Omega != 0.0
+                                  else (0, 0, 0))))
     model.__dict__["_pc_params"] = p
     return p
 
@@ -467,19 +497,26 @@ FLAGSHIP_INSTANCES = (
     "rhs_tail_last kick", "rhs_tail_last", "rhs_tail_last_fake kick",
     "rhs_tail_last_fake", "rhs_tail_mid", "rhs_tail_defer_last kick",
     "rhs_tail_defer_last")
+# those of the hydro build (no K8), under their launch names
+HYDRO_INSTANCES = tuple(
+    n.replace(" ", "_hydro ") if " " in n else n + "_hydro"
+    for n in FLAGSHIP_INSTANCES if "fake" not in n)
 ATTR_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
              "blocks_per_sm")
 
 
-def flagship_attrs():
+def flagship_attrs(lib="fused_rhs"):
     """Instance name -> its registers and local (spill and stack) bytes per
     thread, static and dynamic shared bytes per block, and resident blocks
-    per SM, as the CUDA runtime reports them for the current card."""
-    lib = _build.load()
+    per SM, as the CUDA runtime reports them for the current card, for
+    the flagship template's library ``lib``."""
+    names = HYDRO_INSTANCES if lib == "fused_rhs_hydro" else FLAGSHIP_INSTANCES
+    so = _build.load(lib)
     out = {}
-    for which, name in enumerate(FLAGSHIP_INSTANCES):
+    for name in names:
+        which = FLAGSHIP_INSTANCES.index(name.replace("_hydro", ""))
         a = (ctypes.c_int * len(ATTR_KEYS))()
-        rc = lib.pc_flagship_attrs(which, ctypes.addressof(a))
+        rc = so.pc_flagship_attrs(which, ctypes.addressof(a))
         if rc != 0:
             raise RuntimeError(f"pc_flagship_attrs({name}): CUDA error {rc}")
         out[name] = dict(zip(ATTR_KEYS, a))
@@ -494,12 +531,15 @@ def _check(t, shape, what):
                          f"{tuple(t.shape)}")
 
 
-def _launch(name, fa, *args, lib="fused_rhs"):
+def _launch(name, fa, *args, lib="fused_rhs", entry=None):
+    """Launch ``pc_<entry>`` (default ``pc_<name>``) of ``lib`` on fa's
+    stream, and count it under ``name``."""
+    fn = "pc_" + (entry or name)
     with torch.cuda.device(fa.device):
         stream = torch.cuda.current_stream(fa.device).cuda_stream
-        rc = getattr(_build.load(lib), "pc_" + name)(*args, stream)
+        rc = getattr(_build.load(lib), fn)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"pc_{name}: CUDA error {rc} at launch")
+        raise RuntimeError(f"{fn} ({lib}): CUDA error {rc} at launch")
     LAUNCHES[name] += 1
 
 
@@ -512,21 +552,29 @@ def _dispatch(fa):
     return False
 
 
-def _flagship_params(model, fa, df=None, coef=None):
-    """The flagship kernels' constants, after checking their inputs."""
+def _flagship_check(model, fa, df=None, coef=None, fake=False):
+    """The library of ``model``'s flagship kernels, after checking their
+    inputs."""
     p = kernel_params(model)
-    shape = (7, p.nx, p.ny, p.nz)
+    lib = flagship_library(model)
+    shape = (model.reg.nvar, p.nx, p.ny, p.nz)
     _check(fa, shape, "fa")
     if df is not None:
         _check(df, shape, "df")
     if coef is not None:
         _check(coef, (3,), "coef")
-    return p
+    if fake and lib != "fused_rhs":
+        raise NotImplementedError("K8: the MHD flagship layout only")
+    return lib
 
 
-def _k8(name, fake):
-    """The launch name of a flagship kernel, or of its K8 variant."""
-    return name + "_fake" if fake else name
+def _flagship_launch(name, lib, model, fa, *args, fake=False):
+    """Launch the flagship template's entry ``name`` (its K8 variant with
+    ``fake``) of library ``lib``, counted under that library's launch
+    name; ``args`` follow the constants and ``fa``."""
+    name += "_fake" if fake else ""
+    _launch(name + _SUFFIX[lib], fa, ctypes.addressof(kernel_params(model)),
+            fa.data_ptr(), *args, lib=lib, entry=name)
 
 
 def rhs_first(model, fa, fake=False):
@@ -536,12 +584,11 @@ def rhs_first(model, fa, fake=False):
     block of its grid, whose extent pc_tile_shape gives."""
     if not _dispatch(fa):
         return rhs_first_plain(model, fa, fake)
-    p = _flagship_params(model, fa)
+    lib = _flagship_check(model, fa, fake=fake)
     df = torch.empty_like(fa)
-    blk = torch.empty(_nblocks((p.nx, p.ny, p.nz)), dtype=fa.dtype,
-                      device=fa.device)
-    _launch(_k8("rhs_first", fake), fa, ctypes.addressof(p), fa.data_ptr(),
-            df.data_ptr(), blk.data_ptr())
+    blk = fa.new_empty(_nblocks(fa.shape[1:], lib))
+    _flagship_launch("rhs_first", lib, model, fa, df.data_ptr(),
+                     blk.data_ptr(), fake=fake)
     return df, torch.amax(blk)
 
 
@@ -550,12 +597,12 @@ def rhs_tail_defer(model, fa, df1, coef, fake=False):
     K8 with ``fake``.  Returns (df2, f2)."""
     if not _dispatch(fa):
         return rhs_tail_defer_plain(model, fa, df1, coef, fake)
-    p = _flagship_params(model, fa, df1, coef)
+    lib = _flagship_check(model, fa, df1, coef, fake)
     df2 = torch.empty_like(fa)
     f2 = torch.empty_like(fa)
-    _launch(_k8("rhs_tail_defer", fake), fa, ctypes.addressof(p),
-            fa.data_ptr(), df1.data_ptr(), coef.data_ptr(), df2.data_ptr(),
-            f2.data_ptr())
+    _flagship_launch("rhs_tail_defer", lib, model, fa, df1.data_ptr(),
+                     coef.data_ptr(), df2.data_ptr(), f2.data_ptr(),
+                     fake=fake)
     return df2, f2
 
 
@@ -565,24 +612,23 @@ def rhs_tail_mid(model, fa, df_prev, coef):
     (df, f); df is df_prev's buffer, overwritten."""
     if not _dispatch(fa):
         return rhs_tail_mid_plain(model, fa, df_prev, coef)
-    p = _flagship_params(model, fa, df_prev, coef)
+    lib = _flagship_check(model, fa, df_prev, coef)
     f = torch.empty_like(fa)
-    _launch("rhs_tail_mid", fa, ctypes.addressof(p), fa.data_ptr(),
-            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
-            f.data_ptr())
+    _flagship_launch("rhs_tail_mid", lib, model, fa, df_prev.data_ptr(),
+                     coef.data_ptr(), df_prev.data_ptr(), f.data_ptr())
     return df_prev, f
 
 
-def _tail_last(name, model, fa, dfin, coef, kick):
-    p = _flagship_params(model, fa, dfin, coef)
+def _tail_last(name, model, fa, dfin, coef, kick, fake=False):
+    lib = _flagship_check(model, fa, dfin, coef, fake)
     if kick is not None:
         _check(kick, (12,), "kick")
     zc = model.grid.z
-    _check(zc, (p.nz,), "z")
+    _check(zc, fa.shape[3:], "z")
     f = torch.empty_like(fa)
-    _launch(name, fa, ctypes.addressof(p), fa.data_ptr(), dfin.data_ptr(),
-            coef.data_ptr(), None if kick is None else kick.data_ptr(),
-            zc.data_ptr(), f.data_ptr())
+    _flagship_launch(name, lib, model, fa, dfin.data_ptr(), coef.data_ptr(),
+                     None if kick is None else kick.data_ptr(),
+                     zc.data_ptr(), f.data_ptr(), fake=fake)
     return f
 
 
@@ -591,7 +637,7 @@ def rhs_tail_last(model, fa, df2, coef, kick=None, fake=False):
     (fused_rhs.py:379, kick at :429-466); K8 with ``fake``.  Returns f3."""
     if not _dispatch(fa):
         return rhs_tail_last_plain(model, fa, df2, coef, kick, fake)
-    return _tail_last(_k8("rhs_tail_last", fake), model, fa, df2, coef, kick)
+    return _tail_last("rhs_tail_last", model, fa, df2, coef, kick, fake)
 
 
 def rhs_tail_defer_last(model, fa, df1, coef, kick=None):

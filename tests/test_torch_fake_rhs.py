@@ -79,10 +79,19 @@ def test_fake_kernels_match_jax(monkeypatch, kernel):
             assert_field_close(g[c], np.asarray(w)[c], f"{kernel}[{c}]")
 
 
+def test_fake_rhs_without_a_fixed_dt_raises():
+    """K8's K1 reports no CFL rate: with an adaptive dt the step would take
+    dt = dtmax and overflow, so the model refuses it."""
+    with pytest.raises(NotImplementedError, match="fixed"):
+        pt.Model(shaped(pt), fake_rhs=True, device="cpu")
+    assert pt.Model(shaped(pt, dt=1e-2), fake_rhs=True,
+                    device="cpu").fake_rhs
+
+
 def test_fake_rhs_outside_its_chain_raises():
     """K8 runs on the flagship's order-3 chain only."""
     with pytest.raises(NotImplementedError):
-        pt.Model(shaped(pt, itorder=4), fake_rhs=True, device="cpu")
+        pt.Model(shaped(pt, itorder=4, dt=1e-2), fake_rhs=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        pt.Model(dataclasses.replace(shaped(pt), fused=False),
+        pt.Model(dataclasses.replace(shaped(pt, dt=1e-2), fused=False),
                  fake_rhs=True, device="cpu")

@@ -1,7 +1,8 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
-flagship, K6/K7 of stratified convection, K4/K5 of the shearing box,
-K1s/K5w of the shocked periodic box) against their plain PyTorch versions
-on the card, and steps on the card against the same steps on the CPU.
+flagship, their hydro builds K1h-K3h, K3′h, K2Lh, K6/K7 of stratified
+convection, K4/K5 of the shearing box, K1s/K5w of the shocked periodic
+box) against their plain PyTorch versions on the card, and steps on the
+card against the same steps on the CPU.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
 with one, run them with
 
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 import pencil_tpu_torch as pt
-from pencil_tpu_torch.configs import conv_slab, shear_box, shock_box
+from pencil_tpu_torch.configs import (conv_slab, forced_hydro, shear_box,
+                                     shock_box)
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -44,11 +46,12 @@ def flagship(shape, itorder=3, dt=0.0):
                  pt.Forcing(force=0.07, kf=3.0)))
 
 
-def random_fa(shape, device, seed=4):
+def random_fa(shape, device, seed=4, nvar=7):
     g = torch.Generator(device).manual_seed(seed)
-    amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * 3, device=device)
+    amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * (nvar - 4),
+                       device=device)
     return amp[:, None, None, None] * torch.randn(
-        (7,) + shape, generator=g, device=device)
+        (nvar,) + shape, generator=g, device=device)
 
 
 def assert_field_close(a, b, what):
@@ -181,33 +184,117 @@ def test_dt1_buffer_matches_the_grid(cuda):
                                rtol=RTOL_DT, atol=0.0)
 
 
-@pytest.mark.parametrize("itorder", (1, 2, 3, 4),
-                         ids=("rk1", "rk2", "rk3", "rk4"))
-def test_step_on_card_matches_cpu(cuda, itorder):
-    """Three full steps through the kernels at each 2N-RK order against
-    the same steps on the CPU (plain versions), same fields and the same
-    forcing draws."""
-    shape = (16, 16, 32)
-    fields = pt.Model(flagship(shape), device="cpu").init_state(5)["fields"]
+def _steps_match(cuda, cfg, t0=None, nsteps=3):
+    """nsteps on the card against the same steps on the CPU from the same
+    fields and forcing draws."""
+    fields = pt.Model(cfg, device="cpu").init_state(5)["fields"]
     g = torch.Generator().manual_seed(9)
     draws = [(torch.randint(0, 20, (1,), generator=g),
               torch.rand((), generator=g) * 6.0 - 3.0,
-              torch.randn(3, generator=g)) for _ in range(3)]
+              torch.randn(3, generator=g)) for _ in range(nsteps)]
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        model = pt.Model(flagship(shape, itorder), device=dev)
+        model = pt.Model(cfg, device=dev)
         it = iter([tuple(t.to(dev) for t in d) for d in draws])
         model.forcing_draws = it.__next__
         s = model.init_state(5, overrides=fields)
-        for _ in range(3):
+        if t0 is not None:
+            s["t"] = torch.full((), t0, device=dev)
+        for _ in range(nsteps):
             s = model.make_step()(s)
         out[dev.type] = s
+    assert out["cuda"]["fields"].keys() == out["cpu"]["fields"].keys()
     torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
                                rtol=RTOL_DT, atol=0.0)
     for k, ref in out["cpu"]["fields"].items():
         a = out["cuda"]["fields"][k].cpu()
         assert_field_close(a[None] if a.ndim == 3 else a,
                            ref[None] if ref.ndim == 3 else ref, k)
+
+
+@pytest.mark.parametrize("itorder", (1, 2, 3, 4),
+                         ids=("rk1", "rk2", "rk3", "rk4"))
+def test_step_on_card_matches_cpu(cuda, itorder):
+    """Three full steps through the kernels at each 2N-RK order against
+    the same steps on the CPU (plain versions), same fields and the same
+    forcing draws."""
+    _steps_match(cuda, flagship((16, 16, 32), itorder))
+
+
+def with_omega(cfg, omega):
+    return cfg.replace(modules=tuple(
+        pt.Hydro(init=m.init, ampl=m.ampl, Omega=omega) if m.name == "hydro"
+        else m for m in cfg.modules))
+
+
+TEMPLATE_CASES = {
+    "hydro": lambda shape: forced_hydro(shape),
+    "hydro_omega": lambda shape: forced_hydro(shape, Omega=1.0),
+    "flagship_omega": lambda shape: with_omega(flagship(shape), 1.0),
+}
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("case", sorted(TEMPLATE_CASES))
+def test_template_instances_match_plain(cuda, case, shape):
+    """The hydro build's five instances (K1h, K2h, K3h, K3′h, K2Lh), and
+    the MHD ones with Coriolis, against their plain versions: each field
+    within 1e-6 × its max, the CFL maximum within 1e-6 relative."""
+    pm = pt.Model(TEMPLATE_CASES[case](shape), device=cuda)
+    sfx = "" if pm.cfg.module("magnetic") else "_hydro"
+    fa = random_fa(shape, cuda, nvar=pm.reg.nvar)
+    alpha, beta, _ = pm.rk
+    fr.reset_launches()
+    df1, dt1m = fr.rhs_first(pm, fa)
+    df1_p, dt1m_p = fr.rhs_first_plain(pm, fa)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    dt = 1.0 / dt1m_p
+    c2 = torch.stack((pm._alpha[1], beta[1] * dt, beta[0] * dt))
+    c3 = torch.stack((pm._alpha[2], beta[2] * dt, beta[1] * dt))
+    kick = pm.forcing.kick_vector(pm._ftables, pm._draws(), dt, pm.eos)
+    df2_p, f2_p = fr.rhs_tail_defer_plain(pm, fa, df1_p, c2)
+    got = {"df1": df1}
+    want = {"df1": df1_p}
+    got["df2"], got["f2"] = fr.rhs_tail_defer(pm, fa, df1_p, c2)
+    want["df2"], want["f2"] = df2_p, f2_p
+    for name, k in (("f3", None), ("f3kick", kick)):
+        got[name] = fr.rhs_tail_last(pm, f2_p, df2_p, c3, k)
+        want[name] = fr.rhs_tail_last_plain(pm, f2_p, df2_p, c3, k)
+        got["L" + name] = fr.rhs_tail_defer_last(pm, fa, df1_p, c3, k)
+        want["L" + name] = fr.rhs_tail_defer_last_plain(pm, fa, df1_p, c3,
+                                                        k)
+    got["mid_df"], got["mid_f"] = fr.rhs_tail_mid(pm, f2_p, df2_p.clone(), c3)
+    want["mid_df"], want["mid_f"] = fr.rhs_tail_mid_plain(
+        pm, f2_p, df2_p.clone(), c3)
+    torch.cuda.synchronize()
+    for name in got:
+        for c in range(pm.reg.nvar):
+            err = float((got[name][c] - want[name][c]).abs().max())
+            assert err <= 1e-6 * max(float(want[name][c].abs().max()),
+                                     1e-30), (name, c, err)
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), **{
+        "rhs_first" + sfx: 1, "rhs_tail_defer" + sfx: 1,
+        "rhs_tail_last" + sfx: 2, "rhs_tail_defer_last" + sfx: 2,
+        "rhs_tail_mid" + sfx: 1})
+
+
+@pytest.mark.parametrize("itorder", (1, 2, 3, 4),
+                         ids=("rk1", "rk2", "rk3", "rk4"))
+def test_forced_hydro_steps_on_card_match_cpu(cuda, itorder):
+    """Three forced-hydro steps through K1h-K3h (K1h, the axpy and the kick
+    after the step at order 1, K2Lh at order 2, K3′h at order 4) against
+    the plain versions on the CPU."""
+    cfg = forced_hydro((16, 16, 32))
+    _steps_match(cuda, cfg.replace(time=pt.TimeSpec(itorder=itorder)))
+
+
+def test_forced_shear_box_steps_on_card_match_cpu(cuda):
+    """Three forced zroll steps (K4/K5, the kick after the step) from
+    t = 0.37 against the CPU."""
+    cfg = shear_box((16, 16, 32))
+    _steps_match(cuda, cfg.replace(modules=cfg.modules + (
+        pt.Forcing(force=0.07, kf=3.0),)), t0=0.37)
 
 
 def stratified_fg(pm, seed=4):
@@ -408,7 +495,8 @@ def test_fake_rhs_chain_launches_k8(cuda):
 
 
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
-                                   "shear_box", "shock_box"))
+                                   "shear_box", "shock_box", "hydro",
+                                   "hydro_rk2", "hydro_rk4"))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -419,7 +507,11 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     n3 = (32, 32, 32)
     cfg = {"flagship": flagship(n3), "rk2": flagship(n3, 2),
            "rk4": flagship(n3, 4), "conv_slab": conv_slab(32),
-           "shear_box": shear_box(32), "shock_box": shock_box(32)}[which]
+           "shear_box": shear_box(32), "shock_box": shock_box(32),
+           "hydro": forced_hydro(32),
+           "hydro_rk2": forced_hydro(32).replace(time=pt.TimeSpec(itorder=2)),
+           "hydro_rk4": forced_hydro(32).replace(
+               time=pt.TimeSpec(itorder=4))}[which]
     pm = pt.Model(cfg, device=cuda)
     s = pm.make_step()(pm.init_state(0))
     torch.cuda.synchronize()

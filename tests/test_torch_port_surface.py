@@ -91,8 +91,11 @@ OUTSIDE = {
     "unfused": dict(fused=False),
     # RKF45 (itorder 5) has no 2N-RK table: outside every chain
     "rkf45": dict(time=pt.TimeSpec(itorder=5)),
-    "no_magnetic": dict(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
-                                 pt.Viscosity(nu=1e-3))),
+    # forced hydro with an entropy slot (non-isothermal; ROADMAP Queue 2 A
+    # item 3): fused in JAX, eager here on the CPU
+    "entropy_slot": dict(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
+                                  pt.Viscosity(nu=1e-3), pt.Entropy(),
+                                  pt.Forcing())),
     "twice_forced": dict(modules=flagship().modules + (pt.Forcing(),)),
 }
 
@@ -103,6 +106,16 @@ def test_gate_accepts_the_flagship():
     for dev in ("cpu", "cuda"):
         assert fused_gate(flagship(), dev) is True
         assert fused_gate(unforced, dev) is True
+
+
+def test_gate_accepts_the_flagship_without_magnetic():
+    """Hydro alone (the flagship's modules without Magnetic) runs the wrap
+    chain on the hydro build of the flagship template."""
+    cfg = flagship(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
+                            pt.Viscosity(nu=1e-3)))
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
 
 
 @pytest.mark.parametrize("itorder", (1, 2, 4), ids=("rk1", "rk2", "rk4"))

@@ -334,13 +334,6 @@ REJECTED = {
     "hyper3_mesh": lambda: _replace_module(
         shear_box(16), "viscosity",
         lambda: pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-4)),
-    # the zroll chain has no forcing kick
-    "forced": lambda: shear_box(16).replace(
-        modules=shear_box(16).modules + (pt.Forcing(),)),
-    # the flagship's module set with an option only K4/K5 implement
-    "coriolis_without_shear": lambda: shear_box(16).replace(modules=(
-        pt.EosIdealGas(gamma=1.0), pt.Density(), pt.Hydro(Omega=1.0),
-        pt.Viscosity(nu=5e-4), pt.Magnetic(eta=5e-4))),
 }
 
 
@@ -353,10 +346,44 @@ def test_gate_rejects_on_cuda(case):
         cfg = REJECTED[case]()
         assert gate_reason(cfg) is not None
         fused_gate(cfg, "cuda")
-    if case in ("forced", "coriolis_without_shear"):
-        with pytest.raises(NotImplementedError):
-            pt.Model(REJECTED[case](), device="cuda")
-        assert fused_gate(REJECTED[case](), "cpu") is False
+
+
+ACCEPTED = {
+    # the zroll chain kicks after the step, as JAX's zroll mode does in
+    # after_timestep
+    "forced": (lambda: shear_box(16).replace(
+        modules=shear_box(16).modules + (pt.Forcing(),)), "zroll"),
+    # the flagship's module set with Coriolis: K1-K3 carry −2Ω×u
+    "coriolis_without_shear": (lambda: shear_box(16).replace(modules=(
+        pt.EosIdealGas(gamma=1.0), pt.Density(), pt.Hydro(Omega=1.0),
+        pt.Viscosity(nu=5e-4), pt.Magnetic(eta=5e-4))), "wrap"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ACCEPTED))
+def test_gate_accepts_on_cuda(case):
+    """The forced shear box and the flagship with Coriolis run a fused
+    chain on the card and on the CPU."""
+    make, mode = ACCEPTED[case]
+    cfg = make()
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    assert pt.Model(cfg, device="cpu").mode == mode
+
+
+def test_coriolis_stays_outside_the_zghost_chain():
+    """K6/K7 have no Coriolis: conv-slab with Ω raises on the card and runs
+    the eager path on the CPU."""
+    from pencil_tpu_torch.configs import conv_slab
+    cfg = conv_slab(8)
+    cfg = cfg.replace(modules=tuple(
+        pt.Hydro(init=m.init, ampl=m.ampl, Omega=1.0) if m.name == "hydro"
+        else m for m in cfg.modules))
+    assert "Hydro.Omega" in gate_reason(cfg)
+    with pytest.raises(NotImplementedError):
+        pt.Model(cfg, device="cuda")
+    assert fused_gate(cfg, "cpu") is False
 
 
 def test_shock_outside_a_periodic_grid_raises():
