@@ -2,10 +2,12 @@
 """Drive the pencil_tpu_torch main paths on one NVIDIA GPU: the forced-MHD
 flagship step (kernels K1-K3; K2L at 2N-RK order 2, K3′ at order 4; the
 K8 memory floor), forced hydro turbulence on the same template's 4-field
-build (K1h-K3h, K3′h, K2Lh), stratified convection with a non-periodic z
-(kernels K6, K7), the sheared, rotating MHD box with shock viscosity and
-hyper-diffusion (kernels K4, K5) and the shocked periodic box (kernels
-K1s, K5w).
+build (K1h-K3h, K3′h, K2Lh), non-isothermal forced turbulence on its
+entropy builds (K1e-K2Le with Magnetic, K1he-K2Lhe without) and through
+the run loop (``simulate``: time_series.dat, checkpoints, a bit-exact
+restart), stratified convection with a non-periodic z (kernels K6, K7),
+the sheared, rotating MHD box with shock viscosity and hyper-diffusion
+(kernels K4, K5) and the shocked periodic box (kernels K1s, K5w).
 
     python3 chip_smoke.py
 
@@ -19,10 +21,13 @@ Phases, each printing its own lines:
      the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
      variants bit for bit; the CFL maximum within 1e-6 relative; the
      shear-box input at t = 0.37 with a positive shock slot, the shock-box
-     input at urms ≈ 1 with its shock slot from the pre-pass), and three
-     full steps of each path on the card against the same steps on the CPU
-     at 32³ (the flagship and forced hydro at orders 2, 3 and 4, both with
-     Ω = 1 at order 3, the shear box unforced and forced);
+     input at urms ≈ 1 with its shock slot from the pre-pass; the entropy
+     instances within 2e-5, with chi-const alone, with K-const beside it
+     and with K-const alone, the last two with Ω = 1), and three full
+     steps of each path on the card against the same steps on the CPU at
+     32³ (the flagship, forced hydro and both entropy sets at orders 2, 3
+     and 4, the first two with Ω = 1 at order 3, the shear box unforced
+     and forced);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -31,23 +36,33 @@ Phases, each printing its own lines:
      hydro with one of K1h, K2h, K3h, the conv-slab layer with one K6 and
      two K7, the shear box with one K4 and two K5, the shock box with one
      K1s and two K5w, the flagship at order 4 with K1, K2, two K3′ and K3,
-     at order 2 with K1 and K2L (forced hydro likewise with their hydro
-     builds), and the K8 chain (Model(fake_rhs=True)) with one launch of
-     each of its three variants;
+     at order 2 with K1 and K2L (forced hydro and both entropy sets
+     likewise with their builds), and the K8 chain (Model(fake_rhs=True))
+     with one launch of each of its three variants; then
+     simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
+     checkpoint every 20, every chunk of steps under the sync debug mode
+     "error": the rows it = 0, 1, 10, 20, 30, 40 all finite, COMPLETED,
+     40 launches each of K1e, K2e, K3e, and a second run of 20 steps, a
+     new model resumed from its var.npz and 20 more steps that gives the
+     first run's fields bit for bit;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
      256³; for each instance of the flagship template (csrc/fused_rhs.cu,
-     both builds) its registers, local bytes, static and dynamic shared
-     memory per block and resident blocks per SM.
+     all four builds) its registers, local bytes, static and dynamic
+     shared memory per block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
 exits 1 and prints no result.  It imports no JAX.
 """
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 N_MAIN = 256
@@ -66,13 +81,21 @@ FLAGSHIP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last")
 TAIL_KERNELS = ("rhs_tail_mid", "rhs_tail_defer_last")
 # the flagship template's 4-field build (PC_MAG=0): K1h-K3h, K3′h, K2Lh
 HYDRO_KERNELS = tuple(k + "_hydro" for k in FLAGSHIP_KERNELS + TAIL_KERNELS)
+# its builds with an entropy field (PC_ENT=1): K1e-K3e, K3′e, K2Le on 8
+# fields, K1he-K3he, K3′he, K2Lhe on 5
+ENT_KERNELS = tuple(k + "_ent" for k in FLAGSHIP_KERNELS + TAIL_KERNELS)
+HYDRO_ENT_KERNELS = tuple(k + "_hydro_ent"
+                          for k in FLAGSHIP_KERNELS + TAIL_KERNELS)
 FAKE_KERNELS = ("rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake")
 ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
 SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
-                + HYDRO_KERNELS + ZROLL_KERNELS + SHOCK_KERNELS
-                + ZGHOST_KERNELS)
+                + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
+                + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS)
+# the phase-3 paths on the flagship template: name -> launch suffix
+TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
+                  "entropy MHD": "_ent", "entropy hydro": "_hydro_ent"}
 # launches of each kernel in one step of each phase-3 path
 PER_STEP = {
     "flagship": dict.fromkeys(FLAGSHIP_KERNELS, 1),
@@ -80,15 +103,15 @@ PER_STEP = {
                      "rhs_tail_last": 1},
     "flagship rk2": {"rhs_first": 1, "rhs_tail_defer_last": 1},
     "K8 chain": dict.fromkeys(FAKE_KERNELS, 1),
-    "forced hydro": dict.fromkeys(HYDRO_KERNELS[:3], 1),
-    "forced hydro rk4": {"rhs_first_hydro": 1, "rhs_tail_defer_hydro": 1,
-                         "rhs_tail_mid_hydro": 2, "rhs_tail_last_hydro": 1},
-    "forced hydro rk2": {"rhs_first_hydro": 1,
-                         "rhs_tail_defer_last_hydro": 1},
     "conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
     "shear box": {"rhs_zroll": 1, "rhs_zroll_upd": 2},
     "shock box": {"rhs_wrap_shock": 1, "rhs_wrap_shock_upd": 2},
 }
+# the other template paths launch the flagship's kernels of their builds
+for _name, _sfx in TEMPLATE_PATHS.items():
+    for _order in ("", " rk4", " rk2"):
+        PER_STEP[_name + _order] = {
+            k + _sfx: n for k, n in PER_STEP["flagship" + _order].items()}
 _FR = "pencil_tpu/ops/fused_rhs.py:"
 REPLACES = {
     "rhs_first": _FR + "306", "rhs_tail_defer": _FR + "379",
@@ -103,11 +126,12 @@ REPLACES = {
     "rhs_zg": _FR + "317", "rhs_zg_upd": _FR + "349",
 }
 # the hydro build replaces the same calls, traced for the hydro set
-REPLACES.update({k + "_hydro": REPLACES[k]
-                 for k in FLAGSHIP_KERNELS + TAIL_KERNELS})
+REPLACES.update({k + sfx: REPLACES[k]
+                 for k in FLAGSHIP_KERNELS + TAIL_KERNELS
+                 for sfx in ("_hydro", "_ent", "_hydro_ent")})
 SOURCES = {k: "pencil_tpu_torch/csrc/" + src for src, ks in (
     ("fused_rhs.cu", FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
-     + HYDRO_KERNELS),
+     + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS),
     ("zroll_rhs.cu", ZROLL_KERNELS + SHOCK_KERNELS),
     ("zghost_rhs.cu", ZGHOST_KERNELS)) for k in ks}
 
@@ -128,6 +152,14 @@ FLAGSHIP_RHS = 21 * D1 + 18 * D2 + 12 * DMIX + 174
 # only, the pointwise density, hydro and viscosity terms (no Coriolis at
 # Ω = 0); its CFL maximum has no Alfvén speed (26 → 16)
 HYDRO_RHS = 12 * D1 + 9 * D2 + 6 * DMIX + 115
+# with the entropy field and chi-const conduction (K-const off): ∇s and
+# the Laplacians of lnρ and s, then pointwise the equation of state (cs²,
+# 1/T), the pressure force of ∇s, S², −u·∇s, ∇lnT and the conduction term,
+# the viscous heat (70), with Magnetic the Ohmic heat (9), without it 1/ρ
+# (2), which the magnetic terms otherwise hold
+ENT_TERMS = 3 * D1 + 6 * D2 + 70
+ENT_MHD_RHS = FLAGSHIP_RHS + ENT_TERMS + 9
+ENT_HYDRO_RHS = HYDRO_RHS + ENT_TERMS + 2
 SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX + 198
 # plus del6 of 7 components (21 scaled 6th differences and their sums),
 # the hyper-diffusive terms, Coriolis and the shear terms
@@ -147,6 +179,17 @@ OPS = {
     "rhs_tail_last_hydro": HYDRO_RHS + 4 * UPD + KICK_OPS,
     "rhs_tail_mid_hydro": HYDRO_RHS + 4 * UPD,
     "rhs_tail_defer_last_hydro": HYDRO_RHS + 4 * (REBUILD + UPD) + KICK_OPS,
+    "rhs_first_ent": ENT_MHD_RHS + 26,
+    "rhs_tail_defer_ent": ENT_MHD_RHS + 8 * (REBUILD + UPD),
+    "rhs_tail_last_ent": ENT_MHD_RHS + 8 * UPD + KICK_OPS,
+    "rhs_tail_mid_ent": ENT_MHD_RHS + 8 * UPD,
+    "rhs_tail_defer_last_ent": ENT_MHD_RHS + 8 * (REBUILD + UPD) + KICK_OPS,
+    "rhs_first_hydro_ent": ENT_HYDRO_RHS + 16,
+    "rhs_tail_defer_hydro_ent": ENT_HYDRO_RHS + 5 * (REBUILD + UPD),
+    "rhs_tail_last_hydro_ent": ENT_HYDRO_RHS + 5 * UPD + KICK_OPS,
+    "rhs_tail_mid_hydro_ent": ENT_HYDRO_RHS + 5 * UPD,
+    "rhs_tail_defer_last_hydro_ent": (ENT_HYDRO_RHS + 5 * (REBUILD + UPD)
+                                      + KICK_OPS),
     "rhs_zroll": SHEARBOX_RHS + 35, "rhs_zroll_upd": SHEARBOX_RHS + 7 * UPD,
     "rhs_wrap_shock": SHOCKBOX_RHS + 32,
     "rhs_wrap_shock_upd": SHOCKBOX_RHS + 7 * UPD,
@@ -157,24 +200,37 @@ OPS = {
 T_SHEAR = 0.37
 
 
-def flagship(pt, shape, fused=True, itorder=3, dt=0.0):
-    """__graft_entry__._flagship_cfg, for the port, at a 2N-RK order and
-    a fixed dt when ``dt`` > 0."""
-    return pt.Config(
-        grid=pt.GridSpec(nx=shape[0], ny=shape[1], nz=shape[2]),
-        time=pt.TimeSpec(itorder=itorder, dt=dt), fused=fused,
-        modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0),
-                 pt.Density(lupw_lnrho=False),
-                 pt.Hydro(init="gaussian-noise", ampl=1e-3),
-                 pt.Viscosity(ivisc=("nu-const",), nu=5e-3),
-                 pt.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
-                 pt.Forcing(force=0.07, kf=3.0)))
+def flagship(pt, shape, itorder=3, dt=0.0):
+    """configs.flagship at a 2N-RK order, with a fixed dt when ``dt`` >
+    0."""
+    return pt.configs.flagship(shape, itorder=itorder, dt=dt)
 
 
 def forced_hydro(pt, shape, itorder=3, Omega=0.0):
     """configs.forced_hydro at a 2N-RK order."""
     cfg = pt.configs.forced_hydro(shape, Omega=Omega)
     return cfg.replace(time=pt.TimeSpec(itorder=itorder))
+
+
+def forced_entropy(pt, shape, magnetic=True, itorder=3, Omega=0.0,
+                   entropy=None):
+    """configs.forced_entropy at a 2N-RK order; ``entropy`` = keyword
+    arguments of another Entropy module in place of its chi-const one."""
+    cfg = pt.configs.forced_entropy(shape, magnetic=magnetic, Omega=Omega)
+    if entropy is not None:
+        cfg = cfg.replace(modules=tuple(
+            pt.Entropy(**entropy) if m.name == "entropy" else m
+            for m in cfg.modules))
+    return cfg.replace(time=pt.TimeSpec(itorder=itorder))
+
+
+def template_cfg(pt, name, shape, itorder=3):
+    """The configuration of the phase-3 path ``name`` (TEMPLATE_PATHS)."""
+    if name == "flagship":
+        return flagship(pt, shape, itorder=itorder)
+    if name == "forced hydro":
+        return forced_hydro(pt, shape, itorder)
+    return forced_entropy(pt, shape, name == "entropy MHD", itorder)
 
 
 def with_omega(pt, cfg, Omega):
@@ -185,7 +241,8 @@ def with_omega(pt, cfg, Omega):
 
 
 def random_fa(torch, shape, seed, device, nvar=7):
-    """(nvar, *shape) noise: uu, lnrho and, with 7 fields, aa."""
+    """(nvar, *shape) noise: uu, lnrho and the fields after them (aa; ss;
+    ss and aa)."""
     g = torch.Generator(device).manual_seed(seed)
     amp = torch.tensor([1e-2] * 3 + [5e-2] + [1e-2] * (nvar - 4),
                        device=device)
@@ -296,15 +353,15 @@ def compare_tail_kernels(torch, pt, fr, shape, errs):
     compare_pairs("tail kernels and K8", shape, pairs, errs, RTOL_NEW)
 
 
-def compare_template(torch, pt, fr, label, cfg, errs):
+def compare_template(torch, pt, fr, label, cfg, errs, rtol=RTOL_NEW):
     """Phase 2: the five instances of the flagship template that ``cfg``'s
     field layout selects (K1, K2, K3 with and without the kick, K3′, K2L
-    with and without; or their hydro builds) against their plain versions
-    on CUDA inputs, each field within RTOL_NEW × its max."""
+    with and without; or their hydro or entropy builds) against their
+    plain versions on CUDA inputs, each field within ``rtol`` × its max."""
     dev = torch.device("cuda")
     model = pt.Model(cfg, device=dev)
     shape = cfg.grid.shape
-    sfx = "" if model.cfg.module("magnetic") else "_hydro"
+    sfx = fr.launch_suffix(model)
     fa = random_fa(torch, shape, 1, dev, model.reg.nvar)
     alpha, beta, _ = model.rk
     fr.reset_launches()
@@ -341,7 +398,7 @@ def compare_template(torch, pt, fr, label, cfg, errs):
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{label} {shape} max 1/dt rel err {dt_rel}")
     compare_pairs(f"{label} (max 1/dt rel err {dt_rel:.2e})", shape,
-                  {k + sfx: v for k, v in pairs.items()}, errs, RTOL_NEW)
+                  {k + sfx: v for k, v in pairs.items()}, errs, rtol)
 
 
 def shocked_fa(torch, pm, seed):
@@ -549,6 +606,20 @@ def main():
                          forced_hydro(pt, shape), errs)
         compare_template(torch, pt, fr, "flagship with Omega = 1",
                          with_omega(pt, flagship(pt, shape), 1.0), errs)
+        for magnetic, label in ((True, "entropy MHD"),
+                                (False, "entropy hydro")):
+            compare_template(torch, pt, fr, label,
+                             forced_entropy(pt, shape, magnetic), errs,
+                             RTOL_FIELD)
+        compare_template(
+            torch, pt, fr, "entropy MHD, K-const and chi-const, Omega = 1",
+            forced_entropy(pt, shape, True, Omega=1.0, entropy=dict(
+                iheatcond=("chi-const", "K-const"), chi=5e-3, hcond0=4e-3)),
+            errs, RTOL_FIELD)
+        compare_template(
+            torch, pt, fr, "entropy hydro, K-const alone, Omega = 1",
+            forced_entropy(pt, shape, False, Omega=1.0, entropy=dict(
+                iheatcond=("K-const",), hcond0=4e-3)), errs, RTOL_FIELD)
     for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
@@ -563,6 +634,10 @@ def main():
                       flagship(pt, n32, itorder=order))
         compare_steps(torch, pt, f"forced hydro rk{order}",
                       forced_hydro(pt, n32, itorder=order))
+        compare_steps(torch, pt, f"entropy MHD rk{order}",
+                      forced_entropy(pt, n32, True, order))
+        compare_steps(torch, pt, f"entropy hydro rk{order}",
+                      forced_entropy(pt, n32, False, order))
     compare_steps(torch, pt, "forced hydro, Omega = 1",
                   forced_hydro(pt, n32, Omega=1.0))
     compare_steps(torch, pt, "flagship, Omega = 1",
@@ -586,23 +661,31 @@ def main():
     shape = (N_MAIN,) * 3
     launches, timings, bounds = {}, {}, {}
     fl = run_flagship(torch, pt, fr, smi, shape, launches)
-    hy = run_flagship(torch, pt, fr, smi, shape, launches, hydro=True)
+    hy = run_flagship(torch, pt, fr, smi, shape, launches,
+                      name="forced hydro")
+    em = run_flagship(torch, pt, fr, smi, shape, launches,
+                      name="entropy MHD")
+    eh = run_flagship(torch, pt, fr, smi, shape, launches,
+                      name="entropy hydro")
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
     sb = run_aux_box(torch, pt, fr, smi, shape, launches, "shear box")
     kb = run_aux_box(torch, pt, fr, smi, shape, launches, "shock box")
     for order in (4, 2):
-        run_flagship(torch, pt, fr, smi, shape, launches, itorder=order)
-        run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
-                     hydro=True)
+        for path in TEMPLATE_PATHS:
+            run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
+                         name=path)
+    run_simulate(torch, pt, fr, smi, shape)
     k8 = run_fake_chain(torch, pt, fr, smi, shape, launches,
                         float(fl[1]["dt"]))
 
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings, bounds)
     time_tails(torch, fr, fl, errs, timings, bounds)
-    time_flagship(torch, fr, smi, hy, errs, timings, bounds)
-    time_tails(torch, fr, hy, errs, timings, bounds)
-    for lib in ("fused_rhs", "fused_rhs_hydro"):
+    for path in (hy, em, eh):
+        time_flagship(torch, fr, smi, path, errs, timings, bounds)
+        time_tails(torch, fr, path, errs, timings, bounds)
+    for lib in ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
+                "fused_rhs_hydro_ent"):
         for inst, a in fr.flagship_attrs(lib).items():
             print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
                   f"{a['local_bytes']} B local, shared {a['static_smem']} B "
@@ -672,13 +755,12 @@ def check_launches(label, counts, launches):
 
 
 def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
-                 hydro=False):
-    """Phase 3: the forced-MHD flagship, or forced hydro on the same
-    template's 4-field build, at a 2N-RK order."""
-    name = "forced hydro" if hydro else "flagship"
+                 name="flagship"):
+    """Phase 3: one of the flagship template's paths (TEMPLATE_PATHS: the
+    forced-MHD flagship, forced hydro on the 4-field build, non-isothermal
+    turbulence on the 8- and 5-field builds) at a 2N-RK order."""
     label = name if itorder == 3 else f"{name} rk{itorder}"
-    cfg = (forced_hydro(pt, shape, itorder) if hydro
-           else flagship(pt, shape, itorder=itorder))
+    cfg = template_cfg(pt, name, shape, itorder)
     base = torch.cuda.memory_allocated()
     model = pt.Model(cfg, device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
@@ -688,12 +770,15 @@ def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
           f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
     dt = float(state["dt"])
-    # the u = 0, B = 0 CFL limit: sound speed and the viscous/resistive
-    # rate (ν = η = 5e-3; forced hydro: ν = 5e-3)
+    # the u = 0, B = 0, s = 0 CFL limit: sound speed (cs0 = 1) and the
+    # largest diffusive rate (ν = η = 5e-3; with the entropy field χγ =
+    # 5e-3 · 5/3)
     tc, gs = cfg.time, cfg.grid
     dxyz2 = sum((1.0 / d) ** 2 for d in (gs.dx, gs.dy, gs.dz))
+    ent = cfg.module("entropy")
+    diffus = max(5e-3, ent.chi * model.eos.gamma if ent else 0.0)
     dt_est = 1.0 / math.hypot(math.sqrt(dxyz2) / tc.cdt,
-                              5e-3 * dxyz2 / tc.cdtv)
+                              diffus * dxyz2 / tc.cdtv)
     check(0.5 * dt_est < dt <= dt_est,
           f"dt {dt} not CFL-limited (estimate {dt_est})")
     u1 = urms(torch, fa)
@@ -704,6 +789,80 @@ def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
           f"(CFL estimate {dt_est:.6e}), urms {u0:.3e} -> {u1:.3e}, "
           f"launches per step {PER_STEP[label]}", flush=True)
     return model, state, ms_step
+
+
+def run_simulate(torch, pt, fr, smi, shape):
+    """Phase 3, through the run loop: simulate(forced_entropy) for 40
+    steps with a row every 10 and a checkpoint every 20, every chunk of
+    steps under the sync debug mode "error"; then 20 steps, a checkpoint
+    and a resumed run of 20 more in a second directory, which must give
+    the first run's fields bit for bit."""
+    from pencil_tpu_torch import run as prun
+    from pencil_tpu_torch.io.timeseries import read_time_series
+    columns = ("it", "t", "dt", "urms", "umax", "u2m", "rhom", "rhomin",
+               "rhomax", "ssm", "TTm", "csm", "ethm", "brms", "bmax", "b2m",
+               "jrms", "jmax", "abm")
+    cfg = pt.configs.forced_entropy(shape)
+    params = prun.RunParams(it1=10, isave=20, print_columns=columns)
+    advance = prun.Run._advance
+
+    def guarded(self, state, k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return advance(self, state, k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    prun.Run._advance = guarded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fr.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                whole = prun.simulate(cfg, nt=40, datadir=tmp, params=params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+            print(out.getvalue(), end="", flush=True)
+            check(counts == dict.fromkeys(ENT_KERNELS[:3], 40),
+                  f"simulate launches {counts}")
+            rows = read_time_series(os.path.join(tmp, "time_series.dat"))
+            check(list(rows) == list(columns), f"columns {list(rows)}")
+            its = [int(v) for v in rows["it"]]
+            check(its == [0, 1, 10, 20, 30, 40], f"rows {its}")
+            check(all(math.isfinite(v) for vs in rows.values() for v in vs),
+                  "non-finite value in time_series.dat")
+            check(rows["urms"][-1] > rows["urms"][0]
+                  and rows["ssm"][-1] > rows["ssm"][0],
+                  "urms and the mean entropy must grow")
+            check(os.path.exists(os.path.join(tmp, "COMPLETED")),
+                  "no COMPLETED")
+            line = [ln for ln in out.getvalue().splitlines()
+                    if ln.startswith("Wall clock time/timestep/meshpoint")]
+            check(len(line) == 1, "no wall-clock line")
+            us = float(line[0].split("=")[1])
+        with tempfile.TemporaryDirectory() as tmp:
+            with contextlib.redirect_stdout(io.StringIO()):
+                prun.simulate(cfg, nt=20, datadir=tmp, params=params)
+                again = prun.simulate(cfg, nt=20, datadir=tmp, params=params,
+                                      resume=True)
+            rows2 = read_time_series(os.path.join(tmp, "time_series.dat"))
+    finally:
+        prun.Run._advance = advance
+    its2 = [int(v) for v in rows2["it"]]
+    check(int(again["it"]) == 40 and its2 == [0, 1, 10, 20, 21, 30, 40],
+          f"resumed run: it {int(again['it'])}, rows {its2}")
+    for k, v in whole["fields"].items():
+        check(v.is_cuda and torch.equal(again["fields"][k], v),
+              f"restart: field {k} differs")
+    check(torch.equal(again["t"], whole["t"]), "restart: t differs")
+    print(f"phase 3 {N_MAIN}^3 simulate(forced_entropy, nt=40, it1=10, "
+          f"isave=20) on {smi}: wall clock {us:.4e} microsec per step and "
+          f"meshpoint ({wall:.2f} s with the model's set-up), rows "
+          f"{its}, COMPLETED, launches {counts}; 20 steps + resume "
+          f"from var.npz + 20 steps: the same fields bit for bit",
+          flush=True)
 
 
 def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):
@@ -873,7 +1032,7 @@ def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
     """K1-K3, or K1h-K3h, checked and timed on the main path's final
     state, and the plain chain's step."""
     model, state, ms_step = fl
-    sfx = "" if model.cfg.module("magnetic") else "_hydro"
+    sfx = fr.launch_suffix(model)
     fa = state["_fa"]
     alpha, beta, _ = model.rk
     dt_t = state["dt"]
@@ -906,7 +1065,7 @@ def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
                    "it": state["it"]}
     plain_ms = time_ms(
         torch, lambda: model._fused_step(plain_state, plain_chain), 3)
-    name = "forced hydro" if sfx else "flagship"
+    name = {v: k for k, v in TEMPLATE_PATHS.items()}[sfx]
     print(f"phase 4 {name} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
 
@@ -915,7 +1074,7 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
     """K3′, K2L and K8's three variants (K3′h and K2Lh) checked and timed
     on the flagship's (forced hydro's) final state."""
     model, state, _ = fl
-    sfx = "" if model.cfg.module("magnetic") else "_hydro"
+    sfx = fr.launch_suffix(model)
     fa = state["_fa"]
     _, beta, _ = model.rk
     dt_t = state["dt"]
@@ -955,8 +1114,8 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
                                            fake=True),
             [fa, df1, coef, kick, zc]),
     }
-    if sfx:      # K8 is built for the MHD layout only
-        calls = {"rhs_tail_defer_last_hydro": calls["rhs_tail_defer_last"]}
+    if sfx:      # K8 is built for the isothermal MHD layout only
+        calls = {"rhs_tail_defer_last" + sfx: calls["rhs_tail_defer_last"]}
     for kname, (kern, plain, inputs, *library) in calls.items():
         time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
                    library=library[0] if library else None)

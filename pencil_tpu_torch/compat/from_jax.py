@@ -3,8 +3,9 @@
 The port's configurations have no weights: both packages build the same
 configuration from the same kwargs, so the state is all that crosses —
 the flagship's 7 fields (uu, lnrho, aa), forced hydro's 4 (uu, lnrho),
-stratified convection's 5 (uu, lnrho, ss) or the shear and shock boxes'
-8 slots (uu, lnrho, aa, shock).  This module imports no JAX; the caller
+the 8 and 5 of non-isothermal turbulence (uu, lnrho, ss, aa; uu, lnrho,
+ss), stratified convection's 5 (uu, lnrho, ss) or the shear and shock
+boxes' 8 slots (uu, lnrho, aa, shock).  This module imports no JAX; the caller
 converts JAX arrays with ``np.asarray``.
 """
 from __future__ import annotations
@@ -62,3 +63,17 @@ def overrides_from_numpy(fields: Dict[str, np.ndarray], reg) -> Dict:
                              f"fit a {slot.ncomp}-component slot")
         out[name] = arr
     return out
+
+
+def snapshot_from_jax(npz_path, model) -> Dict:
+    """A JAX ``var.npz`` (``pencil_tpu.io.snapshot.save_snapshot``) as the
+    port's state on ``model``'s device: the fields (checked against the
+    registry), t, dt and it.  The JAX PRNG ``key`` is dropped: the two
+    packages draw different numbers from any seed, so a forced run goes on
+    with ``model.generator`` as it stands (seed it first to repeat a
+    run)."""
+    with np.load(npz_path) as z:
+        fields = {k[6:]: z[k] for k in z.files if k.startswith("field_")}
+        over = overrides_from_numpy(fields, model.reg)
+        return state_from_numpy(over, z["t"], z["dt"], z["it"],
+                                device=model.device)

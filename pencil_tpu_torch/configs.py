@@ -121,3 +121,51 @@ def forced_hydro(n, fused=True, pkg=None, Omega=0.0):
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
                  pkg.Forcing(force=0.07, kf=3.0)))
+
+
+def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0):
+    """Forced isothermal MHD turbulence, the package's headline workload
+    (the configuration ``bench.py`` times): the default 2π cube, fully
+    periodic, isothermal gas (cs = 1), ν = η = 5e-3, gaussian-noise u and A,
+    helical forcing of amplitude 0.07 at kf = 3; 7 fields (uu, lnrho, aa).
+    ``itorder`` is the 2N-RK order; ``dt`` > 0 fixes the time step.  ``n``
+    is an int (a cube) or (nx, ny, nz).  The values are this repository's
+    own, not a reference sample's."""
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    return pkg.Config(
+        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
+        time=pkg.TimeSpec(itorder=itorder, dt=dt), fused=fused,
+        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+                 pkg.Density(lupw_lnrho=False),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
+                 pkg.Forcing(force=0.07, kf=3.0)))
+
+
+def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0):
+    """Non-isothermal forced turbulence, the flagship with an entropy
+    field: the default 2π cube, fully periodic, an ideal gas with γ = 5/3
+    (cs0 = 1, cp = 1), ν = 5e-3, thermal diffusion 'chi-const' with
+    χ = 5e-3, viscous heating, helical forcing of amplitude 0.07 at
+    kf = 3; with ``magnetic`` also A with η = 5e-3, the Lorentz force and
+    Ohmic heating.  8 fields (uu, lnrho, ss, aa), or 5 (uu, lnrho, ss)
+    without Magnetic.  ``Omega`` > 0 adds the Coriolis force of a rotation
+    about z.  ``n`` is an int (a cube) or (nx, ny, nz).  The values are
+    this repository's own (the flagship's, plus χ = ν), not a reference
+    sample's."""
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    mag = (pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),) \
+        if magnetic else ()
+    return pkg.Config(
+        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
+        time=pkg.TimeSpec(itorder=3), fused=fused,
+        modules=(pkg.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0),
+                 pkg.Density(),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
+                 pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pkg.Entropy(iheatcond=("chi-const",), chi=5e-3),
+                 *mag,
+                 pkg.Forcing(force=0.07, kf=3.0)))

@@ -3,7 +3,14 @@
 // grid, with optional Coriolis.  Built with -DPC_MAG=0 the same template
 // gives the hydro instances (K1h, K2h, K3h, K3'h, K2Lh): forced hydro
 // turbulence on the 4 fields uu, lnrho, with the magnetic terms, the
-// Alfven speed in the CFL and K8 compiled out.
+// Alfven speed in the CFL and K8 compiled out.  Built with -DPC_ENT=1 it
+// gives the non-isothermal instances, with an entropy field ss between
+// lnrho and aa (the registry order): K1e, K2e, K3e, K3'e, K2Le on the 8
+// fields uu, lnrho, ss, aa, and with -DPC_MAG=0 as well K1he ... K2Lhe on
+// the 5 fields uu, lnrho, ss.  They add the ideal-gas cs2(lnrho, ss), the
+// pressure force of grad ss, Ds/Dt = -u.grad ss, 'chi-const' and 'K-const'
+// conduction, viscous and Ohmic heating, and the conductive rate in the
+// CFL; with PC_ENT=0 all of that compiles out.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -33,10 +40,11 @@
 //
 // What bounds them on an H100: every kernel is a stencil over all 7 fields
 // (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
-// K3': 2*nvar*4 B) out per point, 56-112 B (hydro 32-64 B), which at 3.35
-// TB/s is ~0.3-0.6 ms (0.16-0.32 ms) per kernel at 256^3; the ~900 (~460)
-// operations per point take ~0.22 (~0.11) ms at 67 TFLOP/s, so device
-// memory is the bound.  Beyond it sit the ~280 shared-memory reads
+// K3': 2*nvar*4 B) out per point, 56-112 B (hydro 32-64 B; with the
+// entropy field 64-128 B and 40-80 B), which at 3.35 TB/s is ~0.3-0.6 ms
+// (0.16-0.32 ms; 0.32-0.64 and 0.20-0.40 ms) per kernel at 256^3; the ~900
+// (~460; ~1,100 and ~670) operations per point take ~0.22 (~0.11; ~0.27
+// and ~0.17) ms at 67 TFLOP/s, so device memory is the bound.  Beyond it sit the ~280 shared-memory reads
 // and ~1,300 issued instructions per point of the RHS, and, for a design
 // that reloads halos, the traffic from L2 into shared memory; K8 measures
 // what the loads and the stores alone cost.
@@ -60,7 +68,7 @@
 // The other tails copy each point's own df_prev (no halo) with the same
 // cp.async groups into a small ring, so no step waits on a global load.
 // One 256-thread block per SM (141-188 KB of shared memory; hydro 81-105
-// KB), 8 warps.
+// KB; with the entropy field 161-197 KB and 101-132 KB), 8 warps.
 // Outputs go to buffers no block reads halos from (blocks run in any
 // order, so an aliased write would race), except the df of K3', which
 // overwrites df_prev: each point reads df_prev only at itself, and its
@@ -80,7 +88,11 @@
 #ifndef PC_MAG
 #define PC_MAG 1       // 0: the hydro instances, no aa fields
 #endif
-#define NC (PC_MAG ? 7 : 4)   // ux uy uz lnrho [ax ay az] (registry order)
+#ifndef PC_ENT
+#define PC_ENT 0       // 1: the non-isothermal instances, with the ss field
+#endif
+// ux uy uz lnrho [ss] [ax ay az] (registry order)
+#define NC (4 + PC_ENT + (PC_MAG ? 3 : 0))
 #ifndef PC_MX
 #define PC_MX 64       // planes of a block's x segment
 #endif
@@ -100,7 +112,7 @@
 #define SLOT (NC * FPL)        // one plane of all fields
 #define NROWS (NC * PY)
 
-enum { UX = 0, LNRHO = 3, AX = 4 };
+enum { UX = 0, LNRHO = 3, SS = 4, AX = 4 + PC_ENT };
 
 __device__ __forceinline__ int wrap_index(int i, int n) {
   i %= n;
@@ -121,6 +133,14 @@ struct PcParams {
   float dxyz2, cdt, dif;     // dif = max(nu, eta)*dxyz2/cdtv
   float x0, y0, dx, dy;      // node coordinates for the kick
   float om[3];               // Omega; -2 Omega x u when not all zero
+  // the entropy instances (PC_ENT): cs2 = cs20*exp(g_cp*ss + gm1*(lnrho -
+  // lnrho0)), lnT = lnTT0 + g_cp*ss + gm1*(lnrho - lnrho0)
+  float g_cp, cp, gamma, lnTT0;
+  float cpchi;               // cp*chi of 'chi-const', 0 when off
+  float hcond0;              // K of 'K-const', 0 when off
+  float two_nu, eta_heat;    // heating: 2 nu S^2, eta J^2 (0: none)
+  float maxdif, cdtv;        // K-const: dif = max(maxdif, K gamma/(rho cp))
+                             //          * dxyz2 / cdtv at each point
 };
 
 // Derivatives along axis j of the ring layout: x (j = 0) from the ring
@@ -145,8 +165,11 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the ring slot of its plane; field c is at s + c*FPL, the x taps at the
 // offsets xo.  Term order follows the JAX modules (density, hydro with its
-// Coriolis force, viscosity, magnetic) so that the plain version and this
-// kernel sum in the same order.  ROT adds -2 Omega x u (a template flag,
+// Coriolis force, viscosity, magnetic, entropy) so that the plain version
+// and this kernel sum in the same order; the heating terms are formed
+// where viscosity and magnetic form them and added to ds last.  grad lnT
+// and del2 lnT are built from the derivatives of lnrho and ss, never from
+// a summed field, as Pencils.glnTT and del2lnTT build them.  ROT adds -2 Omega x u (a template flag,
 // so that the instances without rotation carry no trace of it).
 template <bool WANT_DT1, bool ROT>
 __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
@@ -168,18 +191,36 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
   for (int a = 0; a < 3; ++a)
     gl[a] = __fmul_rn(dj1(s + LNRHO * FPL, a, st, xo, P.w1), P.inv[a]);
   const float divu = (uij[0][0] + uij[1][1]) + uij[2][2];
+#if PC_ENT
+  float gs[3];       // grad ss
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    gs[a] = __fmul_rn(dj1(s + SS * FPL, a, st, xo, P.w1), P.inv[a]);
+#endif
 
   // density: -u.grad(lnrho) - div u
   r[LNRHO] = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
 
-  // hydro: -(u.grad)u - cs2 grad(lnrho) - 2 Omega x u
+  // hydro: -(u.grad)u - cs2 (grad(lnrho) + grad(ss)/cp) - 2 Omega x u
+#if PC_ENT
+  const float dlnrho = lnrho - P.lnrho0;
+  const float ssg = P.g_cp * s[SS * FPL];
+  const float cs2 = P.cs20 * expf(ssg + P.gm1 * dlnrho);
+  const float TT1 = expf(-((P.lnTT0 + ssg) + P.gm1 * dlnrho));
+  const float rho1 = expf(-lnrho);
+#else
   const float cs2 = P.isothermal
       ? P.cs20 : P.cs20 * expf(P.gm1 * (lnrho - P.lnrho0));
+#endif
   float duu[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float ugu = (u[0] * uij[a][0] + u[1] * uij[a][1]) + u[2] * uij[a][2];
+#if PC_ENT
+    duu[a] = -ugu + (-cs2) * (gl[a] + gs[a] / P.cp);
+#else
     duu[a] = -ugu + (-cs2) * gl[a];
+#endif
   }
   if constexpr (ROT) {
     const float c[3] = {
@@ -191,8 +232,12 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
       duu[a] = __fadd_rn(duu[a], __fmul_rn(-2.0f, c[a]));
   }
 
-  // viscosity 'nu-const': nu*(del2 u + grad(div u)/3 + 2 S.grad(lnrho))
+  // viscosity 'nu-const': nu*(del2 u + grad(div u)/3 + 2 S.grad(lnrho));
+  // with PC_ENT also S^2 for the heating 2 nu S^2
   const float div3 = divu / 3.0f;
+#if PC_ENT
+  float sij2 = 0.0f;
+#endif
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float* ua = s + (UX + a) * FPL;
@@ -202,6 +247,9 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
       float sab = 0.5f * (uij[a][b] + uij[b][a]);
       if (a == b) sab = sab - div3;
       sgl = (b == 0) ? sab * gl[0] : sgl + sab * gl[b];
+#if PC_ENT
+      sij2 = (a == 0 && b == 0) ? sab * sab : sij2 + sab * sab;
+#endif
     }
     const float dd[3] = {__fmul_rn(dj2(ua, 0, st, xo, P.w2), P.invsq[0]),
                          __fmul_rn(dj2(ua, 1, st, xo, P.w2), P.invsq[1]),
@@ -250,7 +298,9 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
     const float uxb = u[b1] * bb[b2] - u[b2] * bb[b1];
     r[AX + a] = P.eta > 0.0f ? uxb + P.eta * del2 : uxb;
   }
+#if !PC_ENT
   const float rho1 = expf(-lnrho);
+#endif
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const int b1 = (a + 1) % 3, b2 = (a + 2) % 3;
@@ -260,6 +310,46 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
 #else
 #pragma unroll
   for (int a = 0; a < 3; ++a) r[UX + a] = duu[a];
+#endif
+
+#if PC_ENT
+  // entropy: -u.grad(ss) + K-const and chi-const conduction + viscous and
+  // Ohmic heating
+  float ds = -((u[0] * gs[0] + u[1] * gs[1]) + u[2] * gs[2]);
+  float chik = 0.0f;   // the K-const CFL rate K gamma/(rho cp) at this point
+  if (P.hcond0 > 0.0f || P.cpchi > 0.0f) {
+    float gt[3], d2l = 0.0f, d2s = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      gt[a] = P.gm1 * gl[a] + P.g_cp * gs[a];
+      const float l2 = __fmul_rn(dj2(s + LNRHO * FPL, a, st, xo, P.w2),
+                                 P.invsq[a]);
+      const float s2 = __fmul_rn(dj2(s + SS * FPL, a, st, xo, P.w2),
+                                 P.invsq[a]);
+      d2l = (a == 0) ? l2 : d2l + l2;
+      d2s = (a == 0) ? s2 : d2s + s2;
+    }
+    const float del2lnTT = P.gm1 * d2l + P.g_cp * d2s;
+    if (P.hcond0 > 0.0f) {
+      const float glnTT2 = (gt[0] * gt[0] + gt[1] * gt[1]) + gt[2] * gt[2];
+      const float krho1 = P.hcond0 * rho1;
+      ds = ds + krho1 * (del2lnTT + glnTT2);
+      chik = (krho1 / P.cp) * P.gamma;
+    }
+    if (P.cpchi > 0.0f) {
+      const float gdot = (gt[0] * (gt[0] + gl[0]) + gt[1] * (gt[1] + gl[1]))
+                         + gt[2] * (gt[2] + gl[2]);
+      ds = ds + P.cpchi * (del2lnTT + gdot);
+    }
+  }
+  if (P.two_nu > 0.0f) ds = ds + (P.two_nu * sij2) * TT1;
+#if PC_MAG
+  if (P.eta_heat > 0.0f) {
+    const float j2 = (jj[0] * jj[0] + jj[1] * jj[1]) + jj[2] * jj[2];
+    ds = ds + ((P.eta_heat * j2) * rho1) * TT1;
+  }
+#endif
+  r[SS] = ds;
 #endif
 
   if (WANT_DT1) {
@@ -276,7 +366,14 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
     adv = adv + sqrtf(cs2 * P.dxyz2);
 #endif
     const float dt1a = adv / P.cdt;
+#if PC_ENT
+    // the K-const rate varies from point to point
+    const float dif = P.hcond0 > 0.0f
+        ? (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv : P.dif;
+    dt1 = dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + dif * dif);
+#else
     dt1 = P.dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + P.dif * P.dif);
+#endif
   }
 }
 
@@ -355,8 +452,16 @@ __device__ __forceinline__ RowCopy row_copy_plan(int bz, int nz, bool vec) {
 // thread's own df_prev (no halo) of the planes in flight.  Past ~196 KB
 // the SM's L1 shrinks to 28 KB and the copies slow down (PD = 3 and padded
 // builds measured 2-25 % slower), so PD = 2 keeps every instance below.
+// A tail copies its own df_prev of plane l - OQLAG with the group of plane
+// l; the copy must land by step l - OQLAG - NG, so OQLAG may be 0 .. NG,
+// and NQ slots hold the planes in flight.  The 8-field tails take NG, which
+// keeps them at 186 KB; the others 0.
+#ifndef PC_OQLAG
+#define PC_OQLAG ((PC_ENT && PC_MAG) ? NG : 0)
+#endif
+#define OQLAG PC_OQLAG
 #define NS PD
-#define NQ (PD + NG + 1)
+#define NQ (PD + NG + 1 - OQLAG)
 template <bool FIRST, bool DEFER>
 constexpr int smem_floats() {
   return NR * SLOT + (DEFER ? NS * SLOT : 0)
@@ -369,6 +474,7 @@ static_assert(4 * smem_floats<false, true>() + 256 <= 232448, "DEFER ring");
 static_assert(4 * smem_floats<false, false>() + 256 <= 232448, "tail ring");
 static_assert(SLOT % 4 == 0 && PZ % 4 == 0 && ZOFF % 4 == 0,
               "16-byte rows");
+static_assert(OQLAG >= 0 && OQLAG <= NG, "own df_prev lag");
 
 // One template for every kernel: FIRST is substep 1; otherwise DEFER
 // rebuilds f1 = f0 + cprev*df1 in the ring and LAST skips the df store.
@@ -437,9 +543,12 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
           if (DEFER) cp_async4(stg + d + rc.d1, dfin + g + rc.z1);
         }
       }
-      if (OWN && active && l >= NG && l < np + NG) {
-        const size_t g = xoff + (size_t)gy * P.nz + gz;
-        float* o = ownq + (l % NQ) * NC * NTHREADS + tid;
+      const int m = l - OQLAG;   // the plane whose own df_prev goes along
+      if (OWN && active && m >= NG && m < np + NG) {
+        const size_t xoffm = OQLAG
+            ? (size_t)wrap_index(x0 - NG + m, P.nx) * plane : xoff;
+        const size_t g = xoffm + (size_t)gy * P.nz + gz;
+        float* o = ownq + (m % NQ) * NC * NTHREADS + tid;
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           cp_async4(o + c * NTHREADS, dfin + c * N + g);
@@ -668,14 +777,15 @@ int pc_tile_shape(int* out) {
 
 // attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
 // and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
-// and without the kick.  The hydro build has no K8 (1, 3, 6, 7).
+// and without the kick.  Only the isothermal MHD build has K8 (1, 3, 6,
+// 7).
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs<true, false, false, false, false>(out);
     case 2: return attrs<false, true, false, false, false>(out);
     case 4: return attrs<false, false, true, true, false>(out);
     case 5: return attrs<false, false, true, false, false>(out);
-#if PC_MAG
+#if PC_MAG && !PC_ENT
     case 1: return attrs<true, false, false, false, true>(out);
     case 3: return attrs<false, true, false, false, true>(out);
     case 6: return attrs<false, false, true, true, true>(out);
@@ -726,7 +836,7 @@ int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
   return tail_last<true, false>(p, fa, df1, coef, kick, zc, f, stream);
 }
 
-#if PC_MAG
+#if PC_MAG && !PC_ENT
 // K8: the `PC_FAKE_RHS` branch of `body` (pencil_tpu/ops/fused_rhs.py) in
 // K1, K2 and K3, with the same arguments as those.
 int pc_rhs_first_fake(const PcParams* p, const float* fa, float* df,
@@ -746,6 +856,6 @@ int pc_rhs_tail_last_fake(const PcParams* p, const float* fa,
                           void* stream) {
   return tail_last<false, true>(p, fa, df2, coef, kick, zc, f3, stream);
 }
-#endif  // PC_MAG
+#endif  // PC_MAG && !PC_ENT
 
 }  // extern "C"

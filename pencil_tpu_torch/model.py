@@ -1,6 +1,6 @@
 """Model assembly and the time step (counterpart of ``pencil_tpu/model.py``).
 
-Five module sets run as chains of fused kernels, f32, at any 2N-RK order
+Seven module sets run as chains of fused kernels, f32, at any 2N-RK order
 of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 
 * The flagship — ideal-gas EOS, lnρ density, hydro (with optional
@@ -25,6 +25,12 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   the same template built for 4 fields (uu, lnρ): K1h, then K2Lh, K2h and
   K3h, or K2h, 2×K3′h and K3h, by order (the wrappers pick the library by
   the field layout, so the chain is one code path).
+
+* Non-isothermal forced turbulence — either of the two sets above with
+  an entropy field (``configs.forced_entropy``: γ ≠ 1, 'chi-const' or
+  'K-const' conduction, viscous and Ohmic heating; no layer profiles) — on
+  the same chain of the template built for 8 fields (uu, lnρ, s, A: K1e,
+  K2e, K3e, K3′e, K2Le) or 5 (uu, lnρ, s: K1he … K2Lhe).
 
 * Stratified convection — the EOS with an entropy slot, lnρ density,
   hydro, constant gravity, 'nu-const' viscosity, entropy — with a
@@ -102,6 +108,11 @@ REGISTRATION_ORDER = (
 # shocked box (forcing is optional) on a fully periodic grid
 HYDRO_MODULES = frozenset(("eos", "density", "hydro", "viscosity"))
 FLAGSHIP_MODULES = HYDRO_MODULES | {"magnetic"}
+# the same two with an entropy field (non-isothermal turbulence)
+ENT_HYDRO_MODULES = HYDRO_MODULES | {"entropy"}
+ENT_MHD_MODULES = FLAGSHIP_MODULES | {"entropy"}
+WRAP_SETS = (FLAGSHIP_MODULES, HYDRO_MODULES, ENT_MHD_MODULES,
+             ENT_HYDRO_MODULES)
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
 ZROLL_MODULES = FLAGSHIP_MODULES | {"shear", "shock"}
@@ -136,10 +147,10 @@ def _zroll_options(cfg: Config):
 
 
 def fused_mode(cfg: Config):
-    """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain),
-    'zghost' (stratified convection), 'zroll' (the shearing box) or
-    'wrap_aux' (the shocked periodic box), or (None, why ``cfg`` is outside
-    all five sets)."""
+    """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain,
+    with or without an entropy field), 'zghost' (stratified convection),
+    'zroll' (the shearing box) or 'wrap_aux' (the shocked periodic box), or
+    (None, why ``cfg`` is outside all of these sets)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -159,21 +170,30 @@ def fused_mode(cfg: Config):
         if unforced == SHOCKBOX_MODULES and full:
             return "wrap_aux", None
         extra = _zroll_options(cfg)
-        wrap = unforced in (FLAGSHIP_MODULES, HYDRO_MODULES) and full
+        wrap = unforced in WRAP_SETS and full
         zghost = mods == CONVSLAB_MODULES and periodic == (True, True, False)
         if zghost and cfg.module("hydro").Omega != 0.0:
             extra.append("Hydro.Omega")     # K6/K7 have no Coriolis
         if (wrap or zghost) and extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")
+        ent = cfg.module("entropy")
+        if wrap and ent is not None and (ent.cool != 0.0
+                                         or ent.luminosity != 0.0):
+            return None, ("options ['Entropy.cool/luminosity'] (the layer "
+                          "profiles: only the conv-slab kernels implement "
+                          "them)")
+        if zghost and ent.chi_conduction:
+            return None, ("options ['Entropy chi-const'] (only the "
+                          "flagship template's kernels implement it)")
         if wrap:
             return "wrap", None
         if zghost:
             return "zghost", None
     return None, (f"modules {sorted(names)} with periodic={periodic} (the "
                   f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
-                  f"{sorted(HYDRO_MODULES)} with optional forcing on a "
-                  "periodic grid, "
+                  f"{sorted(HYDRO_MODULES)}, each with or without "
+                  "'entropy', with optional forcing on a periodic grid, "
                   f"{sorted(CONVSLAB_MODULES)} with a non-periodic z, "
                   f"{sorted(ZROLL_MODULES)} and {sorted(SHOCKBOX_MODULES)} "
                   "with optional forcing on a periodic grid)")
@@ -264,7 +284,8 @@ class Model:
         self.mode = fused_mode(cfg)[0] if self.fused else None
         self.fake_rhs = bool(fake_rhs)
         if self.fake_rhs and (self.mode != "wrap" or cfg.time.itorder != 3
-                              or cfg.module("magnetic") is None):
+                              or cfg.module("magnetic") is None
+                              or cfg.module("entropy") is not None):
             raise NotImplementedError(
                 "pencil_tpu_torch: fake_rhs (K8) runs on the MHD "
                 "flagship's fused 2N-RK3 chain only")

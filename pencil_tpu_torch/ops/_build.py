@@ -1,8 +1,9 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives two, the MHD
-instances and the 4-field hydro ones with ``PC_MAG=0``), with a plain C
+(``LIBRARIES``: the flagship template's source gives four, the MHD
+instances, the 4-field hydro ones with ``PC_MAG=0``, and both with an
+entropy field, ``PC_ENT=1``), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each.
 They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
@@ -32,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARIES = {
     "fused_rhs": ("fused_rhs.cu", ()),
     "fused_rhs_hydro": ("fused_rhs.cu", ("-DPC_MAG=0",)),
+    "fused_rhs_ent": ("fused_rhs.cu", ("-DPC_ENT=1",)),
+    "fused_rhs_hydro_ent": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1")),
     "zghost_rhs": ("zghost_rhs.cu", ()),
     "zroll_rhs": ("zroll_rhs.cu", ()),
 }
@@ -57,6 +60,8 @@ SIGNATURES = {
         "pc_rhs_tail_last_fake": [_p] * 8,
     },
     "fused_rhs_hydro": _FLAGSHIP,
+    "fused_rhs_ent": _FLAGSHIP,
+    "fused_rhs_hydro_ent": _FLAGSHIP,
     "zghost_rhs": {
         "pc_zg_tile_shape": [_p],
         "pc_rhs_zg": [_p] * 7,

@@ -9,7 +9,10 @@ from a kernel to its plain version.
 The flagship step (wrap mode, ``csrc/fused_rhs.cu``), on the raw periodic
 stack (7, nx, ny, nz) of forced MHD, or (4, nx, ny, nz) of forced hydro
 (the same source built with ``PC_MAG=0``, library ``fused_rhs_hydro``,
-launch names with the suffix ``_hydro``: K1h, K2h, K3h, K3′h, K2Lh):
+launch names with the suffix ``_hydro``: K1h, K2h, K3h, K3′h, K2Lh), or
+with an entropy field (8, nx, ny, nz) and (5, nx, ny, nz) (built with
+``PC_ENT=1``, libraries ``fused_rhs_ent`` and ``fused_rhs_hydro_ent``,
+suffixes ``_ent`` and ``_hydro_ent``: K1e … K2Le and K1he … K2Lhe):
 
   rhs_first            K1   df = RHS(f), max of the CFL 1/dt
   rhs_tail_defer       K2   f1 = f0 + cprev·df1 rebuilt from raw f0 and
@@ -82,6 +85,10 @@ LAUNCHES = dict.fromkeys((
     "rhs_tail_defer_last", "rhs_first_fake", "rhs_tail_defer_fake",
     "rhs_tail_last_fake", "rhs_first_hydro", "rhs_tail_defer_hydro",
     "rhs_tail_last_hydro", "rhs_tail_mid_hydro", "rhs_tail_defer_last_hydro",
+    "rhs_first_ent", "rhs_tail_defer_ent", "rhs_tail_last_ent",
+    "rhs_tail_mid_ent", "rhs_tail_defer_last_ent", "rhs_first_hydro_ent",
+    "rhs_tail_defer_hydro_ent", "rhs_tail_last_hydro_ent",
+    "rhs_tail_mid_hydro_ent", "rhs_tail_defer_last_hydro_ent",
     "rhs_zg", "rhs_zg_upd", "rhs_zroll", "rhs_zroll_upd", "rhs_wrap_shock",
     "rhs_wrap_shock_upd"), 0)
 
@@ -277,33 +284,62 @@ class PcParams(ctypes.Structure):
         ("x0", ctypes.c_float), ("y0", ctypes.c_float),
         ("dx", ctypes.c_float), ("dy", ctypes.c_float),
         ("om", ctypes.c_float * 3),
+        ("g_cp", ctypes.c_float), ("cp", ctypes.c_float),
+        ("gamma", ctypes.c_float), ("lnTT0", ctypes.c_float),
+        ("cpchi", ctypes.c_float), ("hcond0", ctypes.c_float),
+        ("two_nu", ctypes.c_float), ("eta_heat", ctypes.c_float),
+        ("maxdif", ctypes.c_float), ("cdtv", ctypes.c_float),
     ]
 
 
 # the flagship template's field layouts (registry order), each with the
-# library built for it: forced MHD, and forced hydro (PC_MAG=0)
+# library built for it: forced MHD, forced hydro (PC_MAG=0), and the two
+# with an entropy field between lnrho and aa (PC_ENT=1)
 _LAYOUTS = {
     "fused_rhs": {"uu": slice(0, 3), "lnrho": slice(3, 4),
                   "aa": slice(4, 7)},
     "fused_rhs_hydro": {"uu": slice(0, 3), "lnrho": slice(3, 4)},
+    "fused_rhs_ent": {"uu": slice(0, 3), "lnrho": slice(3, 4),
+                      "ss": slice(4, 5), "aa": slice(5, 8)},
+    "fused_rhs_hydro_ent": {"uu": slice(0, 3), "lnrho": slice(3, 4),
+                            "ss": slice(4, 5)},
 }
 # the suffix of each library's launch names
-_SUFFIX = {"fused_rhs": "", "fused_rhs_hydro": "_hydro"}
+_SUFFIX = {"fused_rhs": "", "fused_rhs_hydro": "_hydro",
+           "fused_rhs_ent": "_ent", "fused_rhs_hydro_ent": "_hydro_ent"}
+# the modules whose terms the template implements (forcing rides along as
+# the kick); a layout with any other module (gravity, shear, shock) is not
+# the template's
+_TEMPLATE_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
+                               "magnetic", "entropy", "forcing"))
 
 
 def flagship_library(model) -> str:
     """The library of the flagship template whose field layout is
-    ``model``'s: 'fused_rhs' (uu, lnrho, aa) or 'fused_rhs_hydro' (uu,
-    lnrho); raises for any other layout."""
-    reg = model.reg
-    for lib, layout in _LAYOUTS.items():
-        n = sum(sl.stop - sl.start for sl in layout.values())
-        if reg.nvar == reg.ncom == n and set(reg.slots) == set(layout) \
-                and all(reg.slice(k) == v for k, v in layout.items()):
-            return lib
+    ``model``'s: 'fused_rhs' (uu, lnrho, aa), 'fused_rhs_hydro' (uu,
+    lnrho), 'fused_rhs_ent' (uu, lnrho, ss, aa) or 'fused_rhs_hydro_ent'
+    (uu, lnrho, ss); raises for any other layout, and for a module or an
+    entropy layer profile that the template has no terms for."""
+    reg, cfg = model.reg, model.cfg
+    ent = cfg.module("entropy")
+    if {m.name for m in cfg.modules} <= _TEMPLATE_MODULES and (
+            ent is None or (ent.cool == 0.0 and ent.luminosity == 0.0)):
+        for lib, layout in _LAYOUTS.items():
+            n = sum(sl.stop - sl.start for sl in layout.values())
+            if reg.nvar == reg.ncom == n and set(reg.slots) == set(layout) \
+                    and all(reg.slice(k) == v for k, v in layout.items()):
+                return lib
     raise NotImplementedError(
         "fused kernels: the flagship's (uu, lnrho, aa) or the hydro "
-        f"(uu, lnrho) field layout only, got {reg.comp_names}")
+        "(uu, lnrho) field layout, each with or without ss, and their "
+        f"modules only, got {reg.comp_names} of "
+        f"{sorted(m.name for m in cfg.modules)}")
+
+
+def launch_suffix(model) -> str:
+    """The suffix of the launch names of ``model``'s flagship-template
+    library: '', '_hydro', '_ent' or '_hydro_ent'."""
+    return _SUFFIX[flagship_library(model)]
 
 
 def kernel_params(model) -> PcParams:
@@ -321,9 +357,15 @@ def kernel_params(model) -> PcParams:
     nu = cfg.module("viscosity").nu
     mag = cfg.module("magnetic")
     eta = mag.eta if mag is not None else 0.0
-    maxdiffus = max([v for v in (nu, eta) if v > 0.0], default=0.0)
-    dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
     eos = model.eos
+    ent = cfg.module("entropy")
+    chi = ent.chi if ent is not None and ent.chi_conduction else 0.0
+    hcond0 = ent.hcond0 if ent is not None and ent.conduction else 0.0
+    # the constant diffusive rates; K-const's K·γ/(ρ·cp) joins per point
+    maxdiffus = max([v for v in (nu, eta, chi * eos.gamma) if v > 0.0],
+                    default=0.0)
+    dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
+    heats = ent is not None
     hyd = cfg.module("hydro")
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
@@ -338,7 +380,13 @@ def kernel_params(model) -> PcParams:
         dxyz2=dxyz2, cdt=cfg.time.cdt, dif=dif,
         x0=x0, y0=y0, dx=gs.dx, dy=gs.dy,
         om=(ctypes.c_float * 3)(*(hyd.omega_vector() if hyd.Omega != 0.0
-                                  else (0, 0, 0))))
+                                  else (0, 0, 0))),
+        g_cp=eos.gamma / eos.cp, cp=eos.cp, gamma=eos.gamma,
+        lnTT0=eos.lnTT0, cpchi=eos.cp * chi, hcond0=hcond0,
+        two_nu=2.0 * max(nu, 0.0) if heats else 0.0,
+        eta_heat=max(eta, 0.0) if heats and mag is not None
+        and mag.lohmic_heat else 0.0,
+        maxdif=maxdiffus, cdtv=cfg.time.cdtv)
     model.__dict__["_pc_params"] = p
     return p
 
@@ -497,10 +545,21 @@ FLAGSHIP_INSTANCES = (
     "rhs_tail_last kick", "rhs_tail_last", "rhs_tail_last_fake kick",
     "rhs_tail_last_fake", "rhs_tail_mid", "rhs_tail_defer_last kick",
     "rhs_tail_defer_last")
-# those of the hydro build (no K8), under their launch names
-HYDRO_INSTANCES = tuple(
-    n.replace(" ", "_hydro ") if " " in n else n + "_hydro"
-    for n in FLAGSHIP_INSTANCES if "fake" not in n)
+
+
+def library_instances(lib):
+    """Launch name -> ``pc_flagship_attrs`` index of each instance of the
+    template's library ``lib`` (only the isothermal MHD build has K8)."""
+    sfx = _SUFFIX[lib]
+    out = {}
+    for which, name in enumerate(FLAGSHIP_INSTANCES):
+        if sfx and "fake" in name:
+            continue
+        kernel, _, flag = name.partition(" ")
+        out[(kernel + sfx + " " + flag).strip()] = which
+    return out
+
+
 ATTR_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
              "blocks_per_sm")
 
@@ -510,11 +569,9 @@ def flagship_attrs(lib="fused_rhs"):
     thread, static and dynamic shared bytes per block, and resident blocks
     per SM, as the CUDA runtime reports them for the current card, for
     the flagship template's library ``lib``."""
-    names = HYDRO_INSTANCES if lib == "fused_rhs_hydro" else FLAGSHIP_INSTANCES
     so = _build.load(lib)
     out = {}
-    for name in names:
-        which = FLAGSHIP_INSTANCES.index(name.replace("_hydro", ""))
+    for name, which in library_instances(lib).items():
         a = (ctypes.c_int * len(ATTR_KEYS))()
         rc = so.pc_flagship_attrs(which, ctypes.addressof(a))
         if rc != 0:

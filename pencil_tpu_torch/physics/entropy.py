@@ -1,13 +1,16 @@
 """Entropy equation (counterpart of the subset of
-``pencil_tpu/physics/entropy.py`` that stratified convection reads;
-reference src/entropy.f90 ``denergy_dt``):
+``pencil_tpu/physics/entropy.py`` that stratified convection and
+non-isothermal turbulence read; reference src/entropy.f90 ``denergy_dt``):
 
-    Ds/Dt = −u·∇s + (K/ρ)(∇²lnT + |∇lnT|²) + 2νS²/T
+    Ds/Dt = −u·∇s + (K/ρ)(∇²lnT + |∇lnT|²)
+            + cp·χ·(∇²lnT + ∇lnT·(∇lnT + ∇lnρ)) + 2νS²/T + ηJ²/(ρT)
             − cool·p_c(z)·(cs² − cs²_cool)/(cs²_cool·ρT) + L·p_h(z)/(N·ρT)
 
 with constant conductivity K ('K-const', its CFL rate χ = Kγ/(ρcp) per
-point), viscous heating published by Viscosity, a gaussian cooling layer
-at the top and a volume-normalized gaussian heating layer at the bottom.
+point), constant thermal diffusivity χ ('chi-const', CFL rate χγ), viscous
+heating published by Viscosity, Ohmic heating published by Magnetic, a
+gaussian cooling layer at the top and a volume-normalized gaussian heating
+layer at the bottom.
 The layer profiles depend on z alone; ``heat_cool_profiles`` computes them
 once per model, so the plain version and the kernel read the same f32
 vectors.  Every other option of the JAX module raises or has no field.
@@ -31,6 +34,7 @@ class Entropy(ModuleBase):
 
     iheatcond: Tuple[str, ...] = ("K-const",)
     hcond0: float = 0.0        # K for 'K-const'
+    chi: float = 0.0           # χ for 'chi-const'
     luminosity: float = 0.0    # bottom heating layer
     wheat: float = 0.1
     cool: float = 0.0          # top cooling layer
@@ -49,10 +53,10 @@ class Entropy(ModuleBase):
     width: float = 0.05
 
     def __post_init__(self):
-        if not set(self.iheatcond) <= {"K-const"}:
+        if not set(self.iheatcond) <= {"K-const", "chi-const"}:
             raise NotImplementedError(
                 f"pencil_tpu_torch: iheatcond={self.iheatcond!r} "
-                "(only K-const)")
+                "(only K-const and chi-const)")
         if self.cooling_profile != "gaussian":
             raise NotImplementedError(
                 f"pencil_tpu_torch: cooling_profile="
@@ -64,6 +68,10 @@ class Entropy(ModuleBase):
     @property
     def conduction(self) -> bool:
         return "K-const" in self.iheatcond and self.hcond0 > 0.0
+
+    @property
+    def chi_conduction(self) -> bool:
+        return "chi-const" in self.iheatcond and self.chi > 0.0
 
     def cs2c(self, eos) -> float:
         """The cooling target: cs2cool, or cs20 when it is 0."""
@@ -97,9 +105,18 @@ class Entropy(ModuleBase):
             # (1/ρT)∇·(K∇T) = (K/ρ)(∇²lnT + |∇lnT|²)
             out = out + self.hcond0 * pen.rho1() * (pen.del2lnTT() + glnTT2)
             ts.diffus(self.hcond0 * pen.rho1() / eos.cp * eos.gamma)
+        if self.chi_conduction:
+            glnrho = pen.glnrho()
+            gdot = sum(glnTT[a] * (glnTT[a] + glnrho[a]) for a in range(3))
+            out = out + eos.cp * self.chi * (pen.del2lnTT() + gdot)
+            ts.diffus(self.chi * eos.gamma)
+        # viscous and Ohmic heating published by those modules
         heat = pen._cache.get("visc_heat")
         if heat is not None:
             out = out + heat * pen.TT1()
+        ohm = pen._cache.get("ohmic_heat")
+        if ohm is not None:
+            out = out + ohm * pen.rho1() * pen.TT1()
         gs = pen.cfg.grid
         prof_c, prof_h = self.heat_cool_profiles(pen.grid.zg, gs)
         if prof_c is not None:

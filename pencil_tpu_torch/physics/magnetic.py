@@ -3,7 +3,9 @@
 
     ∂A/∂t = u×B + η∇²A + η₃ Σ_a ∂⁶A/∂x_a⁶,    du/dt += J×B/ρ   (µ₀ = 1)
 
-with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  The JAX
+with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  With an
+entropy slot the Ohmic heating η J² goes into the pencil cache for the
+entropy module (``lohmic_heat``; JAX magnetic.py:378-380).  The JAX
 module's other options (Weyl gauge, B_ext, shock resistivity, mean-field,
 Hall, ...) are not ported: their fields do not exist here."""
 from __future__ import annotations
@@ -21,6 +23,7 @@ class Magnetic(ModuleBase):
 
     eta: float = 0.0
     eta_hyper3: float = 0.0
+    lohmic_heat: bool = True
     init: str = "zero"
     ampl: float = 0.0
 
@@ -40,6 +43,8 @@ class Magnetic(ModuleBase):
         d1 = pen.dline_1()
         ts.advec2(sum((bb[a] * d1[a]) ** 2 for a in range(3)) * pen.rho1())
         accumulate(df, "uu", pen.jxbr())
+        if self.lohmic_heat and self.eta > 0.0 and "ss" in pen.reg.slots:
+            pen._cache["ohmic_heat"] = self.eta * pen.j2()
 
     def init_fields(self, grid, spec, generator, cfg=None):
         return {"aa": init_vector(self.init, grid, spec, generator,

@@ -174,6 +174,11 @@ class Pencils:
         return self.uu()
 
     @_memo
+    def u2(self):
+        uu = self.uu()
+        return uu[0] ** 2 + uu[1] ** 2 + uu[2] ** 2
+
+    @_memo
     def uij(self):
         """u_{i;j} = ∂u_i/∂x_j: (3, 3, nx, ny, nz)."""
         return torch.stack([self.d("uu", j) for j in range(3)], dim=1)
@@ -233,6 +238,10 @@ class Pencils:
     @_memo
     def del2lnrho(self):
         return self.del2s("lnrho")
+
+    @_memo
+    def rho(self):
+        return torch.exp(self.lnrho())
 
     @_memo
     def rho1(self):
@@ -313,6 +322,11 @@ class Pencils:
         ])
 
     @_memo
+    def b2(self):
+        bb = self.bb()
+        return bb[0] ** 2 + bb[1] ** 2 + bb[2] ** 2
+
+    @_memo
     def del2a(self):
         return self.del2v("aa")
 
@@ -324,6 +338,11 @@ class Pencils:
     def jj(self):
         """J = ∇×B = ∇(∇·A) − ∇²A (µ₀ = 1)."""
         return self.graddiva() - self.del2a()
+
+    @_memo
+    def j2(self):
+        jj = self.jj()
+        return jj[0] ** 2 + jj[1] ** 2 + jj[2] ** 2
 
     @_memo
     def uxb(self):

@@ -237,13 +237,15 @@ def test_kernel_params_take_both_layouts():
 
 @pytest.mark.parametrize("which", ("conv_slab", "shear_box", "entropy"))
 def test_kernel_params_refuse_other_layouts(which):
-    """(uu, lnrho, ss) and the 8-slot shear box are not the flagship
-    template's layouts."""
+    """The conv-slab set (uu, lnrho, ss under gravity), the 8-slot shear
+    box and an entropy slot with a cooling layer are not the flagship
+    template's layouts and module sets."""
     from pencil_tpu_torch.configs import conv_slab
     cfg = {"conv_slab": lambda: conv_slab(8),
            "shear_box": lambda: shear_box(8),
            "entropy": lambda: config(pt, n=8).replace(
-               modules=config(pt, n=8).modules + (pt.Entropy(),))}[which]()
+               modules=config(pt, n=8).modules + (
+                   pt.Entropy(cool=15.0, cs2cool=1.0),))}[which]()
     pm = pt.Model(dataclasses.replace(cfg, fused=False), device="cpu")
     with pytest.raises(NotImplementedError, match="layout"):
         fr.kernel_params(pm)

@@ -1,8 +1,10 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
-flagship, their hydro builds K1h-K3h, K3′h, K2Lh, K6/K7 of stratified
+flagship, their hydro builds K1h-K3h, K3′h, K2Lh, their entropy builds
+K1e-K2Le and K1he-K2Lhe, K6/K7 of stratified
 convection, K4/K5 of the shearing box, K1s/K5w of the shocked periodic
 box) against their plain PyTorch versions on the card, and steps on the
-card against the same steps on the CPU.
+card against the same steps on the CPU, and the run loop's restart on
+the card.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
 with one, run them with
 
@@ -18,8 +20,8 @@ import pytest
 import torch
 
 import pencil_tpu_torch as pt
-from pencil_tpu_torch.configs import (conv_slab, forced_hydro, shear_box,
-                                     shock_box)
+from pencil_tpu_torch.configs import (conv_slab, forced_entropy,
+                                     forced_hydro, shear_box, shock_box)
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -227,10 +229,26 @@ def with_omega(cfg, omega):
         else m for m in cfg.modules))
 
 
+def with_entropy(cfg, **kw):
+    return cfg.replace(modules=tuple(
+        pt.Entropy(**kw) if m.name == "entropy" else m for m in cfg.modules))
+
+
+K_AND_CHI = dict(iheatcond=("chi-const", "K-const"), chi=5e-3, hcond0=4e-3)
+# case -> (configuration, bound on each field's error over its max): the
+# entropy builds sum more terms into ss and u than the others
 TEMPLATE_CASES = {
-    "hydro": lambda shape: forced_hydro(shape),
-    "hydro_omega": lambda shape: forced_hydro(shape, Omega=1.0),
-    "flagship_omega": lambda shape: with_omega(flagship(shape), 1.0),
+    "hydro": (lambda shape: forced_hydro(shape), 1e-6),
+    "hydro_omega": (lambda shape: forced_hydro(shape, Omega=1.0), 1e-6),
+    "flagship_omega": (lambda shape: with_omega(flagship(shape), 1.0), 1e-6),
+    "ent_mhd": (lambda shape: forced_entropy(shape), RTOL_FIELD),
+    "ent_hydro": (lambda shape: forced_entropy(shape, magnetic=False),
+                  RTOL_FIELD),
+    "ent_mhd_K_omega": (lambda shape: with_entropy(
+        forced_entropy(shape, Omega=1.0), **K_AND_CHI), RTOL_FIELD),
+    "ent_hydro_K_omega": (lambda shape: with_entropy(
+        forced_entropy(shape, magnetic=False, Omega=1.0),
+        iheatcond=("K-const",), hcond0=4e-3), RTOL_FIELD),
 }
 
 
@@ -238,11 +256,14 @@ TEMPLATE_CASES = {
                          ids=("32^3", "24x20x42"))
 @pytest.mark.parametrize("case", sorted(TEMPLATE_CASES))
 def test_template_instances_match_plain(cuda, case, shape):
-    """The hydro build's five instances (K1h, K2h, K3h, K3′h, K2Lh), and
-    the MHD ones with Coriolis, against their plain versions: each field
-    within 1e-6 × its max, the CFL maximum within 1e-6 relative."""
-    pm = pt.Model(TEMPLATE_CASES[case](shape), device=cuda)
-    sfx = "" if pm.cfg.module("magnetic") else "_hydro"
+    """The hydro build's five instances (K1h, K2h, K3h, K3′h, K2Lh), the
+    MHD ones with Coriolis, and the entropy builds' (K1e-K2Le, K1he-K2Lhe;
+    with K-const conduction and Coriolis too) against their plain
+    versions: each field within the case's bound × its max, the CFL
+    maximum within 1e-6 relative."""
+    make_cfg, rtol = TEMPLATE_CASES[case]
+    pm = pt.Model(make_cfg(shape), device=cuda)
+    sfx = fr.launch_suffix(pm)
     fa = random_fa(shape, cuda, nvar=pm.reg.nvar)
     alpha, beta, _ = pm.rk
     fr.reset_launches()
@@ -271,7 +292,7 @@ def test_template_instances_match_plain(cuda, case, shape):
     for name in got:
         for c in range(pm.reg.nvar):
             err = float((got[name][c] - want[name][c]).abs().max())
-            assert err <= 1e-6 * max(float(want[name][c].abs().max()),
+            assert err <= rtol * max(float(want[name][c].abs().max()),
                                      1e-30), (name, c, err)
     assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), **{
         "rhs_first" + sfx: 1, "rhs_tail_defer" + sfx: 1,
@@ -287,6 +308,42 @@ def test_forced_hydro_steps_on_card_match_cpu(cuda, itorder):
     the plain versions on the CPU."""
     cfg = forced_hydro((16, 16, 32))
     _steps_match(cuda, cfg.replace(time=pt.TimeSpec(itorder=itorder)))
+
+
+@pytest.mark.parametrize("itorder", (1, 2, 3, 4),
+                         ids=("rk1", "rk2", "rk3", "rk4"))
+@pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
+def test_forced_entropy_steps_on_card_match_cpu(cuda, magnetic, itorder):
+    """Three steps of non-isothermal forced turbulence through the entropy
+    builds at each 2N-RK order against the plain versions on the CPU."""
+    cfg = forced_entropy((16, 16, 32), magnetic=magnetic)
+    _steps_match(cuda, cfg.replace(time=pt.TimeSpec(itorder=itorder)))
+
+
+def test_run_restart_on_card_is_bit_exact(cuda, tmp_path):
+    """simulate on the card: 8 forced steps in one go against 4, a
+    checkpoint, and 4 more from var.npz in a new model: the same fields
+    bit for bit; the rows and COMPLETED are there."""
+    from pencil_tpu_torch.io.timeseries import read_time_series
+    from pencil_tpu_torch.run import RunParams, simulate
+    cfg = forced_entropy(32)
+    params = RunParams(it1=4, isave=4, print_columns=(
+        "it", "t", "dt", "urms", "ssm", "brms", "jmax"))
+    whole = simulate(cfg, nt=8, datadir=tmp_path / "a", params=params,
+                     quiet=True, seed=2)
+    assert whole["fields"]["uu"].is_cuda
+    simulate(cfg, nt=4, datadir=tmp_path / "b", params=params, quiet=True,
+             seed=2)
+    again = simulate(cfg, nt=4, datadir=tmp_path / "b", params=params,
+                     quiet=True, resume=True)
+    assert int(again["it"]) == 8
+    for k, v in whole["fields"].items():
+        assert torch.equal(again["fields"][k], v), k
+    assert torch.equal(again["t"], whole["t"])
+    rows = read_time_series(tmp_path / "a" / "time_series.dat")
+    assert rows["it"] == [0, 1, 4, 8]
+    assert all(torch.isfinite(torch.tensor(v)).all() for v in rows.values())
+    assert (tmp_path / "a" / "COMPLETED").exists()
 
 
 def test_forced_shear_box_steps_on_card_match_cpu(cuda):
@@ -496,7 +553,10 @@ def test_fake_rhs_chain_launches_k8(cuda):
 
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "shear_box", "shock_box", "hydro",
-                                   "hydro_rk2", "hydro_rk4"))
+                                   "hydro_rk2", "hydro_rk4", "ent_mhd",
+                                   "ent_mhd_rk2", "ent_mhd_rk4",
+                                   "ent_hydro", "ent_hydro_rk2",
+                                   "ent_hydro_rk4"))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -511,7 +571,13 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
            "hydro": forced_hydro(32),
            "hydro_rk2": forced_hydro(32).replace(time=pt.TimeSpec(itorder=2)),
            "hydro_rk4": forced_hydro(32).replace(
-               time=pt.TimeSpec(itorder=4))}[which]
+               time=pt.TimeSpec(itorder=4))}
+    for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
+        for order in (3, 2, 4):
+            cfg[name + ("" if order == 3 else f"_rk{order}")] = \
+                forced_entropy(32, magnetic=magnetic).replace(
+                    time=pt.TimeSpec(itorder=order))
+    cfg = cfg[which]
     pm = pt.Model(cfg, device=cuda)
     s = pm.make_step()(pm.init_state(0))
     torch.cuda.synchronize()

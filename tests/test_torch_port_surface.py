@@ -28,6 +28,11 @@ def test_import_pulls_in_no_jax():
         import pencil_tpu_torch
         import pencil_tpu_torch.compat.from_jax
         import pencil_tpu_torch.ops.fused_rhs
+        import pencil_tpu_torch.configs
+        import pencil_tpu_torch.run
+        import pencil_tpu_torch.io.diagnostics
+        import pencil_tpu_torch.io.snapshot
+        import pencil_tpu_torch.io.timeseries
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'pencil_tpu')]
         print(bad)
@@ -91,11 +96,10 @@ OUTSIDE = {
     "unfused": dict(fused=False),
     # RKF45 (itorder 5) has no 2N-RK table: outside every chain
     "rkf45": dict(time=pt.TimeSpec(itorder=5)),
-    # forced hydro with an entropy slot (non-isothermal; ROADMAP Queue 2 A
-    # item 3): fused in JAX, eager here on the CPU
-    "entropy_slot": dict(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
-                                  pt.Viscosity(nu=1e-3), pt.Entropy(),
-                                  pt.Forcing())),
+    # the flagship under constant gravity (ROADMAP Queue 2 A): fused in
+    # JAX, eager here on the CPU; the template has no gravity term
+    "mhd_with_gravity": dict(modules=flagship().modules + (
+        pt.Gravity(gravz_profile="const", gravz=-1.0),)),
     "twice_forced": dict(modules=flagship().modules + (pt.Forcing(),)),
 }
 
@@ -116,6 +120,20 @@ def test_gate_accepts_the_flagship_without_magnetic():
     assert gate_reason(cfg) is None
     for dev in ("cpu", "cuda"):
         assert fused_gate(cfg, dev) is True
+
+
+@pytest.mark.parametrize("magnetic", (False, True), ids=("hydro", "mhd"))
+def test_gate_accepts_an_entropy_slot(magnetic):
+    """Forced hydro and the flagship with an entropy slot (non-isothermal)
+    run the wrap chain on the entropy builds of the flagship template."""
+    mag = (pt.Magnetic(eta=1e-3),) if magnetic else ()
+    cfg = flagship(modules=(pt.EosIdealGas(), pt.Density(), pt.Hydro(),
+                            pt.Viscosity(nu=1e-3), pt.Entropy(), *mag,
+                            pt.Forcing()))
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    assert pt.Model(cfg, device="cpu").mode == "wrap"
 
 
 @pytest.mark.parametrize("itorder", (1, 2, 4), ids=("rk1", "rk2", "rk4"))

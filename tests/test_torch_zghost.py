@@ -246,7 +246,7 @@ def test_gate_rejects_on_cuda(case):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        pt.Entropy(iheatcond=("chi-const",))
+        pt.Entropy(iheatcond=("K-profile",))
     with pytest.raises(NotImplementedError):
         pt.Entropy(cooling_profile="step")
     with pytest.raises(NotImplementedError):
