@@ -48,8 +48,9 @@ Phases, each printing its own lines:
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
      256³; for each instance of the flagship template (csrc/fused_rhs.cu,
-     all four builds) its registers, local bytes, static and dynamic
-     shared memory per block and resident blocks per SM.
+     all four builds) its registers, local bytes (which must be 0: no
+     spill, no stack), static and dynamic shared memory per block and
+     resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -144,14 +145,22 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # bidiagonal mixed derivative 23 (12 products, 11 sums), the pointwise
 # physics of each module as written, a transcendental, root or division
 # counted as one; terms that this run's coefficients switch off are left
-# out.  The update per field (df = α·df_prev + r, f = f + βΔt·df) is 4,
-# the rebuilt f1 = f0 + cprev·df1 is 2, the angle-addition kick 53.
-D1, D2, DMIX, UPD, REBUILD, KICK_OPS = 9, 13, 23, 4, 2, 53
-FLAGSHIP_RHS = 21 * D1 + 18 * D2 + 12 * DMIX + 174
+# out.  The flagship template (csrc/fused_rhs.cu) joins each weighted term
+# to its sum by one FMA, still two operations, so its first and second
+# derivatives count the same; it sums the four taps of a diagonal offset
+# before their one weight multiplies them, so its mixed derivative is 14
+# (9 sums and differences, 3 products, 2 sums).  The update per field (df
+# = α·df_prev + r, f = f + βΔt·df) is 4, the rebuilt f1 = f0 + cprev·df1
+# is 2.  The kick at a point is 21: cos(A+B) and sin(A+B) by angle
+# addition (6), and per component P·U − Q·V, the amplitude and the sum
+# (5); the sin and cos of A, B, C and the rotated amplitudes U, V are
+# formed once per plane, row and thread of a block, outside its march.
+D1, D2, DMIX, DMIX_FACTORED, UPD, REBUILD, KICK_OPS = 9, 13, 23, 14, 4, 2, 21
+FLAGSHIP_RHS = 21 * D1 + 18 * D2 + 12 * DMIX_FACTORED + 174
 # the flagship's without the magnetic terms: the derivatives of u and lnρ
 # only, the pointwise density, hydro and viscosity terms (no Coriolis at
 # Ω = 0); its CFL maximum has no Alfvén speed (26 → 16)
-HYDRO_RHS = 12 * D1 + 9 * D2 + 6 * DMIX + 115
+HYDRO_RHS = 12 * D1 + 9 * D2 + 6 * DMIX_FACTORED + 115
 # with the entropy field and chi-const conduction (K-const off): ∇s and
 # the Laplacians of lnρ and s, then pointwise the equation of state (cs²,
 # 1/T), the pressure force of ∇s, S², −u·∇s, ∇lnT and the conduction term,
@@ -687,6 +696,8 @@ def main():
     for lib in ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
                 "fused_rhs_hydro_ent"):
         for inst, a in fr.flagship_attrs(lib).items():
+            check(a["local_bytes"] == 0,
+                  f"{inst}: {a['local_bytes']} B of local memory")
             print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
                   f"{a['local_bytes']} B local, shared {a['static_smem']} B "
                   f"static + {a['dynamic_smem']} B dynamic per block, "

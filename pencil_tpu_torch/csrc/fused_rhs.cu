@@ -42,12 +42,21 @@
 // (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
 // K3': 2*nvar*4 B) out per point, 56-112 B (hydro 32-64 B; with the
 // entropy field 64-128 B and 40-80 B), which at 3.35 TB/s is ~0.3-0.6 ms
-// (0.16-0.32 ms; 0.32-0.64 and 0.20-0.40 ms) per kernel at 256^3; the ~900
-// (~460; ~1,100 and ~670) operations per point take ~0.22 (~0.11; ~0.27
-// and ~0.17) ms at 67 TFLOP/s, so device memory is the bound.  Beyond it sit the ~280 shared-memory reads
-// and ~1,300 issued instructions per point of the RHS, and, for a design
-// that reloads halos, the traffic from L2 into shared memory; K8 measures
-// what the loads and the stores alone cost.
+// (0.16-0.32 ms; 0.32-0.64 and 0.20-0.40 ms) per kernel at 256^3; the ~800
+// (~440; ~980 and ~620) operations per point take ~0.20 ms at 67 TFLOP/s,
+// so by the roofline device memory is the bound.  That rate assumes that
+// every instruction is an FMA, and what these kernels are held by comes
+// before it: the instructions they issue.  Counted in the SASS
+// (sass_counts.py), K1 issues 1,169 instructions per point at 256^3, of
+// which 628 FP32, 249 shared-memory loads and 213 integer and address
+// arithmetic (K3: 1,215; K2: 1,333; before the redesign of this phase K1
+// issued 1,658: 832 FP32, 298 loads); 132 SMs x 4 schedulers x 32 lanes
+// at 1.98 GHz issue them in 0.59 ms, above the 0.28 ms of its bytes, and
+// the shared-memory loads alone (one warp's worth per SM and clock) take
+// 0.50 ms.  The kernels reach ~0.6 instructions per scheduler and
+// clock: with one 256-thread block per SM a scheduler has two warps to
+// cover the latency of a shared load (~23 clocks) and of the dependent
+// sums.  K8 measures what the loads and the stores alone cost.
 //
 // Design: a block owns a column of TY x TZ = 8 x 32 points in (y, z), one
 // thread per point with a warp along 32 consecutive z (the contiguous
@@ -58,26 +67,49 @@
 // (14*38)/(8*32) * (MX+6)/MX = 2.3x the points instead of the 8.6x of a
 // 4x4x16 tile.  The loads are cp.async copies PD planes ahead of the
 // planes the stencil needs, so they overlap the compute of the current
-// plane; wrapped addresses are computed once per block (z) and once per
-// row (x, y), never per element, and the aligned body of a row goes in
-// 16-byte copies when nz % 4 == 0.  The x taps come from ring slots (the
-// *_ring helpers of stencil.cuh, same sums as d1/d2/dmix).  DEFER lands df1
-// of each incoming plane in a staging slot and rebuilds f1 = f0 + cprev*df1
-// in the ring slot once per element; a thread keeps its own point's df1 of
-// the next planes in registers, so df1 is read from device memory once.
-// The other tails copy each point's own df_prev (no halo) with the same
-// cp.async groups into a small ring, so no step waits on a global load.
+// plane.  All threads issue a plane's copies right after the step's
+// barrier, so what the copies cost is their instructions and the latency
+// of the chain that forms their addresses: each row's offsets (the field,
+// the wrapped y) sit in a table in shared memory, every wrap of z is done
+// once per thread, the wrapped x and the slots are carried from plane to
+// plane, and a row's copies are predicated straight-line code (no branch
+// per row), the aligned body in 16-byte pieces when nz % 4 == 0.  DEFER
+// lands df1 of each incoming plane in a staging slot and rebuilds f1 = f0
+// + cprev*df1 in the ring slot once per element; a thread keeps its own
+// point's df1 of the next planes in registers, so df1 is read from device
+// memory once.  The other tails copy each point's own df_prev (no halo)
+// with the same cp.async groups into a small ring, so no step waits on a
+// global load.
+//
+// The RHS phase is built to issue less.  A thread marches along x, so the
+// seven x taps of each field at its point are values it has already read:
+// it keeps them in registers, moves them one plane on per step and reads
+// one new tap per field (1 shared load where there were 7; the y, z and
+// diagonal taps still come from the ring).  The stencil sums use FMAs and
+// factor the diagonal pairs (see sum1, sum2, summix).  Of the forcing
+// kick's phase theta = A(x) + B(y) + C(z), sin and cos of every A, B and C
+// are formed once per launch by a pre-pass (pc_kick_phases); a block reads
+// its planes' into shared memory and a thread its row's and its own
+// before the march, where the rotated amplitudes U, V are formed too, so
+// that a point pays two angle additions and no sincosf.  Outputs go
+// through one pointer per buffer that moves a plane on per step.
 // One 256-thread block per SM (141-188 KB of shared memory; hydro 81-105
-// KB; with the entropy field 161-197 KB and 101-132 KB), 8 warps.
+// KB; with the entropy field 161-197 KB and 101-132 KB), 8 warps, up to
+// 255 registers a thread; the 4-field K1, whose ring is 81 KB, runs two
+// blocks per SM at 128 registers.  Splitting a point's RHS over two warp
+// groups (512 threads: the uu and lnrho terms, the aa terms, four floats
+// handed over through shared memory at a named barrier) was built and
+// measured: at 128 registers a thread K2, K3 and K2L spill, and K1, which
+// does not, is still 5 % slower than one group with 255.
 // Outputs go to buffers no block reads halos from (blocks run in any
 // order, so an aliased write would race), except the df of K3', which
 // overwrites df_prev: each point reads df_prev only at itself, and its
 // copy of a plane's df_prev lands before it stores there.
 //
-// Parity: the stencil sums (stencil.cuh) use round-to-nearest intrinsics
-// (no FMA contraction) in the JAX package's term order, so constant fields
-// give exactly zero derivatives and the sums match the plain PyTorch
-// version.
+// Parity: the stencil sums form their differences first, round to nearest
+// and follow the JAX package's term order up to the FMA and the factored
+// diagonal pairs, so constant fields give exactly zero derivatives and the
+// sums match the plain PyTorch version within 1e-6 of a field's maximum.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -99,12 +131,13 @@
 #define MX PC_MX
 #define TY 8
 #define TZ 32
-#define NTHREADS (TY * TZ)
+#define NTHREADS (TY * TZ)     // one thread per point of the column
 #ifndef PC_PD
 #define PC_PD 2        // planes in flight beyond those the stencil needs
 #endif
 #define PD PC_PD
-#define NR (2 * NG + 1 + PD)   // ring slots
+#define NX (2 * NG + 1)        // x taps of the stencil
+#define NR (NX + PD)           // ring slots
 #define PY (TY + 2 * NG)       // rows of a plane: y with its halo
 #define PZ 40                  // row pitch; z = bz + i sits at ZOFF + i
 #define ZOFF 4                 // so the row body is 16-byte aligned
@@ -143,59 +176,120 @@ struct PcParams {
                              //          * dxyz2 / cdtv at each point
 };
 
-// Derivatives along axis j of the ring layout: x (j = 0) from the ring
-// slots at offsets xo, y and z at the fixed strides st[1], st[2].
-__device__ __forceinline__ float dj1(const float* p, int j, const int* st,
-                                     const int* xo, const float* w) {
-  return j == 0 ? d1_ring(p, xo, w) : d1(p, st[j], w);
+// ---- the template's own stencil sums --------------------------------------
+// The paired sums of stencil.cuh on values instead of addresses, so that
+// the x taps can come from registers, and with fewer instructions: each
+// weighted term joins its sum by one FMA, and the four taps of a diagonal
+// offset, whose weights are +-one value, are summed before that value
+// multiplies them: 6, 10 and 12 instructions for d1, d2 and dmix instead
+// of 8, 12 and 23.  Differences are still formed first, so a constant
+// field gives exactly zero; the rounding differs from stencil.cuh's sums
+// by less than 1e-6 of a field's maximum.
+
+// sum_o w_o*(p_o - m_o)
+__device__ __forceinline__ float sum1(float p1, float m1, float p2, float m2,
+                                      float p3, float m3, const float* w) {
+  float acc = __fmul_rn(w[0], __fsub_rn(p1, m1));
+  acc = __fmaf_rn(w[1], __fsub_rn(p2, m2), acc);
+  return __fmaf_rn(w[2], __fsub_rn(p3, m3), acc);
 }
 
-__device__ __forceinline__ float dj2(const float* p, int j, const int* st,
-                                     const int* xo, const float* w) {
-  return j == 0 ? d2_ring(p, xo, w) : d2(p, st[j], w);
+// sum_o w_o*((p_o + m_o) - 2 c)
+__device__ __forceinline__ float sum2(float c, float p1, float m1, float p2,
+                                      float m2, float p3, float m3,
+                                      const float* w) {
+  const float c2 = 2.0f * c;
+  float acc = __fmul_rn(w[0], __fsub_rn(__fadd_rn(p1, m1), c2));
+  acc = __fmaf_rn(w[1], __fsub_rn(__fadd_rn(p2, m2), c2), acc);
+  return __fmaf_rn(w[2], __fsub_rn(__fadd_rn(p3, m3), c2), acc);
 }
 
+// The 12-point bidiagonal mixed derivative: hi[o] and lo[o] point at this
+// point's field o + 1 steps up and down the first axis, s2 is the stride
+// of the second; taps (o,o,+), (-o,o,-), (-o,-o,+), (o,-o,-), whose
+// weights are wm[4 o] times +1, -1, +1, -1.
+__device__ __forceinline__ float summix(const float* const* hi,
+                                        const float* const* lo, int s2,
+                                        const float* wm) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    const int b = (o + 1) * s2;
+    const float t = __fadd_rn(__fsub_rn(hi[o][b], lo[o][b]),
+                              __fsub_rn(lo[o][-b], hi[o][-b]));
+    acc = (o == 0) ? __fmul_rn(wm[0], t) : __fmaf_rn(wm[4 * o], t, acc);
+  }
+  return acc;
+}
+
+// Derivatives of one field along axis j: p points at the field at this
+// point in its ring slot, x holds its NX taps along x (x[NG]: the point),
+// y and z sit at the fixed strides PZ and 1.
+__device__ __forceinline__ float dj1(const float* p, const float* x, int j,
+                                     const float* w) {
+  if (j == 0) return sum1(x[4], x[2], x[5], x[1], x[6], x[0], w);
+  const int st = j == 1 ? PZ : 1;
+  return sum1(p[st], p[-st], p[2 * st], p[-2 * st], p[3 * st], p[-3 * st],
+              w);
+}
+
+__device__ __forceinline__ float dj2(const float* p, const float* x, int j,
+                                     const float* w) {
+  if (j == 0) return sum2(x[NG], x[4], x[2], x[5], x[1], x[6], x[0], w);
+  const int st = j == 1 ? PZ : 1;
+  return sum2(x[NG], p[st], p[-st], p[2 * st], p[-2 * st], p[3 * st],
+              p[-3 * st], w);
+}
+
+// mixed derivative along axes lo < hi; the x neighbours' planes sit at the
+// offsets xo from this plane's slot (xo[NG] = 0)
 __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
-                                       const int* st, const int* xo,
-                                       const float* wm) {
-  return lo == 0 ? dmix_ring(p, xo, st[hi], wm)
-                 : dmix(p, st[lo], st[hi], wm);
+                                       const int* xo, const float* wm) {
+  if (lo == 0) {
+    const float* const up[3] = {p + xo[4], p + xo[5], p + xo[6]};
+    const float* const dn[3] = {p + xo[2], p + xo[1], p + xo[0]};
+    return summix(up, dn, hi == 1 ? PZ : 1, wm);
+  }
+  const float* const up[3] = {p + PZ, p + 2 * PZ, p + 3 * PZ};
+  const float* const dn[3] = {p - PZ, p - 2 * PZ, p - 3 * PZ};
+  return summix(up, dn, 1, wm);
 }
 
 // The flagship RHS at one point.  `s` points at field 0 of this point in
-// the ring slot of its plane; field c is at s + c*FPL, the x taps at the
-// offsets xo.  Term order follows the JAX modules (density, hydro with its
-// Coriolis force, viscosity, magnetic, entropy) so that the plain version
-// and this kernel sum in the same order; the heating terms are formed
-// where viscosity and magnetic form them and added to ds last.  grad lnT
-// and del2 lnT are built from the derivatives of lnrho and ss, never from
-// a summed field, as Pencils.glnTT and del2lnTT build them.  ROT adds -2 Omega x u (a template flag,
-// so that the instances without rotation carry no trace of it).
+// the ring slot of its plane; field c is at s + c*FPL, its x taps in
+// xt[c], the x neighbours' planes at the offsets xo.  Term order follows
+// the JAX modules (density, hydro with its Coriolis force, viscosity,
+// magnetic, entropy) so that the plain version and this kernel sum in the
+// same order; the heating terms are formed where viscosity and magnetic
+// form them and added to ds last.  grad lnT and del2 lnT are built from the
+// derivatives of lnrho and ss, never from a summed field, as Pencils.glnTT
+// and del2lnTT build them.  ROT adds -2 Omega x u (a template flag, so
+// that the instances without rotation carry no trace of it).
 template <bool WANT_DT1, bool ROT>
-__device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
-                                             const PcParams& P, float r[NC],
+__device__ __forceinline__ void flagship_rhs(const float* s,
+                                             float (*xt)[NX], const int* xo,
+                                             const PcParams& P, float* r,
                                              float& dt1) {
-  const int st[3] = {0, PZ, 1};
-  const float u[3] = {s[0], s[FPL], s[2 * FPL]};
-  const float lnrho = s[LNRHO * FPL];
+  const float u[3] = {xt[0][NG], xt[1][NG], xt[2][NG]};
+  const float lnrho = xt[LNRHO][NG];
 
   float uij[3][3];   // du_i/dx_j
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      uij[i][j] = __fmul_rn(dj1(s + (UX + i) * FPL, j, st, xo, P.w1),
+      uij[i][j] = __fmul_rn(dj1(s + (UX + i) * FPL, xt[UX + i], j, P.w1),
                             P.inv[j]);
   float gl[3];       // grad lnrho
 #pragma unroll
   for (int a = 0; a < 3; ++a)
-    gl[a] = __fmul_rn(dj1(s + LNRHO * FPL, a, st, xo, P.w1), P.inv[a]);
+    gl[a] = __fmul_rn(dj1(s + LNRHO * FPL, xt[LNRHO], a, P.w1), P.inv[a]);
   const float divu = (uij[0][0] + uij[1][1]) + uij[2][2];
 #if PC_ENT
   float gs[3];       // grad ss
 #pragma unroll
   for (int a = 0; a < 3; ++a)
-    gs[a] = __fmul_rn(dj1(s + SS * FPL, a, st, xo, P.w1), P.inv[a]);
+    gs[a] = __fmul_rn(dj1(s + SS * FPL, xt[SS], a, P.w1), P.inv[a]);
 #endif
 
   // density: -u.grad(lnrho) - div u
@@ -204,7 +298,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
   // hydro: -(u.grad)u - cs2 (grad(lnrho) + grad(ss)/cp) - 2 Omega x u
 #if PC_ENT
   const float dlnrho = lnrho - P.lnrho0;
-  const float ssg = P.g_cp * s[SS * FPL];
+  const float ssg = P.g_cp * xt[SS][NG];
   const float cs2 = P.cs20 * expf(ssg + P.gm1 * dlnrho);
   const float TT1 = expf(-((P.lnTT0 + ssg) + P.gm1 * dlnrho));
   const float rho1 = expf(-lnrho);
@@ -251,16 +345,17 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
       sij2 = (a == 0 && b == 0) ? sab * sab : sij2 + sab * sab;
 #endif
     }
-    const float dd[3] = {__fmul_rn(dj2(ua, 0, st, xo, P.w2), P.invsq[0]),
-                         __fmul_rn(dj2(ua, 1, st, xo, P.w2), P.invsq[1]),
-                         __fmul_rn(dj2(ua, 2, st, xo, P.w2), P.invsq[2])};
+    const float dd[3] = {
+        __fmul_rn(dj2(ua, xt[UX + a], 0, P.w2), P.invsq[0]),
+        __fmul_rn(dj2(ua, xt[UX + a], 1, P.w2), P.invsq[1]),
+        __fmul_rn(dj2(ua, xt[UX + a], 2, P.w2), P.invsq[2])};
     const float del2 = (dd[0] + dd[1]) + dd[2];
     float gdiv = dd[a];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       if (j == a) continue;
       const int lo = a < j ? a : j, hi = a < j ? j : a;
-      const float m = djmix(s + (UX + j) * FPL, lo, hi, st, xo, P.wm);
+      const float m = djmix(s + (UX + j) * FPL, lo, hi, xo, P.wm);
       gdiv = gdiv + __fmul_rn(__fmul_rn(m, P.inv[lo]), P.inv[hi]);
     }
     duu[a] = duu[a] + P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
@@ -273,7 +368,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      aij[i][j] = __fmul_rn(dj1(s + (AX + i) * FPL, j, st, xo, P.w1),
+      aij[i][j] = __fmul_rn(dj1(s + (AX + i) * FPL, xt[AX + i], j, P.w1),
                             P.inv[j]);
   const float bb[3] = {aij[2][1] - aij[1][2], aij[0][2] - aij[2][0],
                        aij[1][0] - aij[0][1]};
@@ -281,16 +376,17 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float* aa = s + (AX + a) * FPL;
-    const float dd[3] = {__fmul_rn(dj2(aa, 0, st, xo, P.w2), P.invsq[0]),
-                         __fmul_rn(dj2(aa, 1, st, xo, P.w2), P.invsq[1]),
-                         __fmul_rn(dj2(aa, 2, st, xo, P.w2), P.invsq[2])};
+    const float dd[3] = {
+        __fmul_rn(dj2(aa, xt[AX + a], 0, P.w2), P.invsq[0]),
+        __fmul_rn(dj2(aa, xt[AX + a], 1, P.w2), P.invsq[1]),
+        __fmul_rn(dj2(aa, xt[AX + a], 2, P.w2), P.invsq[2])};
     const float del2 = (dd[0] + dd[1]) + dd[2];
     float gdiv = dd[a];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       if (j == a) continue;
       const int lo = a < j ? a : j, hi = a < j ? j : a;
-      const float m = djmix(s + (AX + j) * FPL, lo, hi, st, xo, P.wm);
+      const float m = djmix(s + (AX + j) * FPL, lo, hi, xo, P.wm);
       gdiv = gdiv + __fmul_rn(__fmul_rn(m, P.inv[lo]), P.inv[hi]);
     }
     jj[a] = gdiv - del2;
@@ -322,9 +418,9 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       gt[a] = P.gm1 * gl[a] + P.g_cp * gs[a];
-      const float l2 = __fmul_rn(dj2(s + LNRHO * FPL, a, st, xo, P.w2),
+      const float l2 = __fmul_rn(dj2(s + LNRHO * FPL, xt[LNRHO], a, P.w2),
                                  P.invsq[a]);
-      const float s2 = __fmul_rn(dj2(s + SS * FPL, a, st, xo, P.w2),
+      const float s2 = __fmul_rn(dj2(s + SS * FPL, xt[SS], a, P.w2),
                                  P.invsq[a]);
       d2l = (a == 0) ? l2 : d2l + l2;
       d2s = (a == 0) ? s2 : d2s + s2;
@@ -378,16 +474,21 @@ __device__ __forceinline__ void flagship_rhs(const float* s, const int* xo,
 }
 
 // ---- the plane loader -----------------------------------------------------
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(d), "l"(src) : "memory");
+// cp.async copies to a shared-memory address (bytes, shared state space),
+// each under a predicate of its own, so that a row's copies are straight-
+// line code whatever the lane copies
+__device__ __forceinline__ void cp_async4(unsigned dst, const float* src,
+                                          bool on = true) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+               " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n"
+               :: "r"(dst), "l"(src), "r"((int)on) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src) : "memory");
+__device__ __forceinline__ void cp_async16(unsigned dst, const float* src,
+                                           bool on = true) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+               " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n"
+               :: "r"(dst), "l"(src), "r"((int)on) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -402,44 +503,44 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // What one thread copies of each row (one field, one y, the 38 z of the
 // column with its halo) it takes, fixed for the block: rows r0, r0 +
-// rstep, ...; copy k takes z index zk to row position dk (dk < 0: none).
-// With `vec` a half-warp takes a row: 8 lanes copy its 32-float body in
-// 16-byte pieces, 6 lanes its 3 + 3 halo floats; otherwise a warp takes a
-// row in 4-byte pieces.  Every wrap is done here, once.
+// rstep, ...; copy k takes z index zk to row position dk.  With `vec` a
+// half-warp takes a row: 8 lanes copy its 32-float body in 16-byte pieces
+// (p16), 6 lanes its 3 + 3 halo floats (p4); otherwise a warp takes a row
+// in 4-byte pieces, 6 of its lanes a second one (p4b).  Every wrap is done
+// here, once.
 struct RowCopy {
   int r0, rstep, z0, d0, z1, d1;
-  bool v16;        // copy 0 is 16 bytes
+  bool p16, p4, p4b;
 };
 
 __device__ __forceinline__ RowCopy row_copy_plan(int bz, int nz, bool vec) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   RowCopy rc;
-  rc.z1 = 0;
-  rc.d1 = -1;
+  rc.z0 = rc.z1 = rc.d0 = rc.d1 = 0;
+  rc.p16 = rc.p4 = rc.p4b = false;
   if (vec) {
     const int h = lane & 15;
     rc.r0 = 2 * warp + (lane >> 4);
     rc.rstep = NTHREADS / 16;
-    rc.v16 = h < TZ / 4;
     if (h < TZ / 4) {                   // the body, no wrap (bz + TZ <= nz)
+      rc.p16 = true;
       rc.z0 = bz + 4 * h;
       rc.d0 = ZOFF + 4 * h;
     } else if (h < TZ / 4 + 2 * NG) {   // the low, then the high halo
       const int k = h - TZ / 4;
       const int i = k < NG ? k - NG : TZ + k - NG;
+      rc.p4 = true;
       rc.z0 = wrap_index(bz + i, nz);
       rc.d0 = ZOFF + i;
-    } else {
-      rc.z0 = 0;
-      rc.d0 = -1;
     }
   } else {
     rc.r0 = warp;
     rc.rstep = NTHREADS / 32;
-    rc.v16 = false;
+    rc.p4 = true;
     rc.z0 = wrap_index(bz - NG + lane, nz);
     rc.d0 = ZOFF - NG + lane;
     if (32 + lane < TZ + 2 * NG) {
+      rc.p4b = true;
       rc.z1 = wrap_index(bz - NG + 32 + lane, nz);
       rc.d1 = ZOFF - NG + 32 + lane;
     }
@@ -447,9 +548,39 @@ __device__ __forceinline__ RowCopy row_copy_plan(int bz, int nz, bool vec) {
   return rc;
 }
 
+// One plane's rows of this thread: from f0/f1 (the plane of fa, at the z
+// of the thread's copies) to the slot at dst0/dst1, with DEFER also from
+// g0/g1 (the plane of df1) to the staging slot.  rowg and rowd are the
+// block's row table.  VEC picks the trip count: a half-warp or a warp per
+// row.
+template <bool VEC, bool DEFER>
+__device__ __forceinline__ void copy_rows(
+    const RowCopy& rc, const long long* rowg, const int* rowd, unsigned dst0,
+    unsigned dst1, unsigned stg0, unsigned stg1, const float* f0,
+    const float* f1, const float* g0, const float* g1) {
+  constexpr int per = NTHREADS / (VEC ? 16 : 32);
+  constexpr int trips = (NROWS + per - 1) / per;
+#pragma unroll
+  for (int k = 0; k < trips; ++k) {
+    const int r = rc.r0 + k * per;
+    const bool ok = r < NROWS;
+    const int rr = ok ? r : rc.r0;
+    const long long g = rowg[rr];
+    const unsigned d = rowd[rr];
+    if (VEC) cp_async16(dst0 + d, f0 + g, ok && rc.p16);
+    cp_async4(dst0 + d, f0 + g, ok && rc.p4);
+    if (!VEC) cp_async4(dst1 + d, f1 + g, ok && rc.p4b);
+    if (DEFER) {
+      if (VEC) cp_async16(stg0 + d, g0 + g, ok && rc.p16);
+      cp_async4(stg0 + d, g0 + g, ok && rc.p4);
+      if (!VEC) cp_async4(stg1 + d, g1 + g, ok && rc.p4b);
+    }
+  }
+}
+
 // Shared memory of an instance, in floats: the ring; with DEFER, NS
 // staging slots of df1's planes; in the other tails, NQ slots of each
-// thread's own df_prev (no halo) of the planes in flight.  Past ~196 KB
+// point's own df_prev (no halo) of the planes in flight.  Past ~196 KB
 // the SM's L1 shrinks to 28 KB and the copies slow down (PD = 3 and padded
 // builds measured 2-25 % slower), so PD = 2 keeps every instance below.
 // A tail copies its own df_prev of plane l - OQLAG with the group of plane
@@ -463,18 +594,31 @@ __device__ __forceinline__ RowCopy row_copy_plan(int bz, int nz, bool vec) {
 #define NS PD
 #define NQ (PD + NG + 1 - OQLAG)
 template <bool FIRST, bool DEFER>
-constexpr int smem_floats() {
+__host__ __device__ constexpr int smem_floats() {
   return NR * SLOT + (DEFER ? NS * SLOT : 0)
          + (!FIRST && !DEFER ? NQ * NC * NTHREADS : 0);
 }
 
-// 227 KB is what one block may use on Hopper; the static yrow and
-// block_max_store's red[] take the last few bytes
-static_assert(4 * smem_floats<false, true>() + 256 <= 232448, "DEFER ring");
-static_assert(4 * smem_floats<false, false>() + 256 <= 232448, "tail ring");
+// Static shared memory, in bytes, at most: the row table, the kick's
+// sin/cos per plane, block_max_store's red[].  227 KB is what one block
+// may use on Hopper.
+#define STATIC_SMEM (12 * NROWS + 8 * MX + 4 * (NTHREADS / 32) + 64)
+// Two blocks per SM where two rings fit under the ~196 KB carve-out (the
+// 4-field K1; each block with the 1 KB the system keeps): those instances
+// are held to 128 registers.
+template <bool FIRST, bool DEFER>
+__host__ __device__ constexpr int min_blocks() {
+  return 2 * (4 * smem_floats<FIRST, DEFER>() + STATIC_SMEM + 1024) <= 200704
+      ? 2 : 1;
+}
+static_assert(4 * smem_floats<false, true>() + STATIC_SMEM <= 232448,
+              "DEFER ring");
+static_assert(4 * smem_floats<false, false>() + STATIC_SMEM <= 232448,
+              "tail ring");
 static_assert(SLOT % 4 == 0 && PZ % 4 == 0 && ZOFF % 4 == 0,
               "16-byte rows");
 static_assert(OQLAG >= 0 && OQLAG <= NG, "own df_prev lag");
+static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 
 // One template for every kernel: FIRST is substep 1; otherwise DEFER
 // rebuilds f1 = f0 + cprev*df1 in the ring and LAST skips the df store.
@@ -495,18 +639,26 @@ static_assert(OQLAG >= 0 && OQLAG <= NG, "own df_prev lag");
 // groups are committed one per plane, empty past the end, so the count to
 // wait for is always PD - 1.  (Rebuilding, each thread, only the elements
 // it copied, before a single barrier, measured 17-20 % slower on K2.)
+//
+// Every thread computes every plane, also one whose point lies outside
+// the grid (its ring position holds wrapped data): it just loads and
+// stores nothing of its own there.
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, min_blocks<FIRST, DEFER>())
 pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
             const float* __restrict__ coef, const float* __restrict__ kick,
-            const float* __restrict__ zc, float* dfout,
+            const float* __restrict__ ktab, float* dfout,
             float* __restrict__ faout, float* __restrict__ dt1blk, int vec) {
   constexpr bool OWN = !FIRST && !DEFER;   // df_prev at the point, staged
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* stage = smem + NR * SLOT;     // DEFER
   float* ownq = smem + NR * SLOT;      // OWN: [NQ][NC][NTHREADS]
-  __shared__ int yrow[PY];             // wrapped y of each row, times nz
+  // of each row of a plane: its offset in fa less the plane's (the field,
+  // the wrapped y) and its byte offset in a slot
+  __shared__ long long rowg[NROWS];
+  __shared__ int rowd[NROWS];
+  __shared__ float kick_a[KICK ? 2 * MX : 1];     // sin, cos of A per plane
   const int tid = threadIdx.x;
   const int tz = tid % TZ, ty = tid / TZ;
   const int x0 = blockIdx.z * MX, by = blockIdx.y * TY, bz = blockIdx.x * TZ;
@@ -516,45 +668,86 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   const int nl = np + 2 * NG;          // planes loaded
   const size_t N = (size_t)P.nx * P.ny * P.nz;
   const size_t plane = (size_t)P.ny * P.nz;
-  if (tid < PY) yrow[tid] = wrap_index(by - NG + tid, P.ny) * P.nz;
-  const RowCopy rc = row_copy_plan(bz, P.nz, vec && bz + TZ <= P.nz);
+  for (int r = tid; r < NROWS; r += NTHREADS) {
+    const int c = r / PY, iy = r - c * PY;
+    rowg[r] = (long long)(c * N)
+              + (long long)wrap_index(by - NG + iy, P.ny) * P.nz;
+    rowd[r] = 4 * (c * FPL + iy * PZ);
+  }
+  // 16-byte row copies where the caller allows them and the column does
+  // not hang over the end of z
+  const bool vecblk = vec && bz + TZ <= P.nz;
+  const RowCopy rc = row_copy_plan(bz, P.nz, vecblk);
+
+  // The kick's factors that do not change along the march (JAX
+  // fused_rhs.py:441-466: theta = k.x + phase = A + B + C, one axis each):
+  // sin and cos of B (this row's) and C (this thread's) and the rotated
+  // amplitudes U, V per thread, sin and cos of A per plane in shared
+  // memory, all from the table that pc_kick_phases filled.
+  float k_sb = 0.0f, k_cb = 0.0f, k_amp = 0.0f, k_u[3], k_v[3];
+  if constexpr (KICK) {
+    const int nt = P.nx + P.ny + P.nz;     // sines, then cosines
+    if (tid < np) {
+      kick_a[tid] = ktab[x0 + tid];
+      kick_a[MX + tid] = ktab[nt + x0 + tid];
+    }
+    const int iy = P.nx + (active ? gy : 0);
+    const int iz = P.nx + P.ny + (active ? gz : 0);
+    k_sb = ktab[iy];
+    k_cb = ktab[nt + iy];
+    const float sC = ktab[iz], cC = ktab[nt + iz];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float a = kick[4 + i], b = kick[7 + i];
+      k_u[i] = a * cC - b * sC;
+      k_v[i] = a * sC + b * cC;
+    }
+    k_amp = kick[10];
+  }
   __syncthreads();
 
-  auto issue = [&](int l) {
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+  const unsigned stage_s = (unsigned)__cvta_generic_to_shared(stage);
+  const unsigned ownq_s = (unsigned)__cvta_generic_to_shared(ownq);
+  // planes are issued in order, l = 0, 1, ...: the next one's wrapped x
+  // and its ring, staging and own-df_prev slots are carried along
+  int il = 0, ix = wrap_index(x0 - NG, P.nx), ir = 0, is = 0;
+  int iq = OQLAG ? (NQ - OQLAG % NQ) % NQ : 0;       // (il - OQLAG) % NQ
+  auto issue = [&]() {
+    const int l = il;
     if (l < nl) {
-      const size_t xoff = (size_t)wrap_index(x0 - NG + l, P.nx) * plane;
-      float* slot = ring + (l % NR) * SLOT;
-      float* stg = stage + (l % NS) * SLOT;
-      for (int r = rc.r0; r < NROWS; r += rc.rstep) {
-        const int c = r / PY, iy = r - c * PY;
-        const size_t g = c * N + xoff + yrow[iy];
-        const int d = c * FPL + iy * PZ;
-        if (rc.d0 >= 0) {
-          if (rc.v16) {
-            cp_async16(slot + d + rc.d0, fa + g + rc.z0);
-            if (DEFER) cp_async16(stg + d + rc.d0, dfin + g + rc.z0);
-          } else {
-            cp_async4(slot + d + rc.d0, fa + g + rc.z0);
-            if (DEFER) cp_async4(stg + d + rc.d0, dfin + g + rc.z0);
-          }
-        }
-        if (rc.d1 >= 0) {
-          cp_async4(slot + d + rc.d1, fa + g + rc.z1);
-          if (DEFER) cp_async4(stg + d + rc.d1, dfin + g + rc.z1);
-        }
-      }
+      const size_t xoff = (size_t)ix * plane;
+      const unsigned slot = ring_s + 4 * ir * SLOT;
+      const unsigned stg = stage_s + 4 * is * SLOT;
+      const float* f0 = fa + xoff + rc.z0;
+      const float* f1 = fa + xoff + rc.z1;
+      const float* g0 = DEFER ? dfin + xoff + rc.z0 : nullptr;
+      const float* g1 = DEFER ? dfin + xoff + rc.z1 : nullptr;
+      if (vecblk)
+        copy_rows<true, DEFER>(rc, rowg, rowd, slot + 4 * rc.d0,
+                               slot + 4 * rc.d1, stg + 4 * rc.d0,
+                               stg + 4 * rc.d1, f0, f1, g0, g1);
+      else
+        copy_rows<false, DEFER>(rc, rowg, rowd, slot + 4 * rc.d0,
+                                slot + 4 * rc.d1, stg + 4 * rc.d0,
+                                stg + 4 * rc.d1, f0, f1, g0, g1);
       const int m = l - OQLAG;   // the plane whose own df_prev goes along
       if (OWN && active && m >= NG && m < np + NG) {
         const size_t xoffm = OQLAG
             ? (size_t)wrap_index(x0 - NG + m, P.nx) * plane : xoff;
-        const size_t g = xoffm + (size_t)gy * P.nz + gz;
-        float* o = ownq + (m % NQ) * NC * NTHREADS + tid;
+        const float* src = dfin + xoffm + (size_t)gy * P.nz + gz;
+        const unsigned o = ownq_s + 4 * (iq * NC * NTHREADS + tid);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          cp_async4(o + c * NTHREADS, dfin + c * N + g);
+          cp_async4(o + 4 * c * NTHREADS, src + c * N);
       }
     }
     cp_async_commit();
+    il = l + 1;
+    ix = ix + 1 == P.nx ? 0 : ix + 1;
+    ir = ir + 1 == NR ? 0 : ir + 1;
+    is = is + 1 == NS ? 0 : is + 1;
+    iq = iq + 1 == NQ ? 0 : iq + 1;
   };
 
   // DEFER, once plane l has landed: this thread's own df1 of it onto the
@@ -565,15 +758,16 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   const float cprev = DEFER ? coef[2] : 0.0f;
   float q[NG + 1][NC];
   auto rebuild = [&](int l) {
-    const float* stg = stage + (l % NS) * SLOT;
+    const float* stg = stage + (l % NS) * SLOT + own;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int k = 0; k < NG; ++k) q[k][c] = q[k + 1][c];
-      q[NG][c] = stg[c * FPL + own];
+      q[NG][c] = stg[c * FPL];
     }
     float4* s4 = reinterpret_cast<float4*>(ring + (l % NR) * SLOT);
-    const float4* d4 = reinterpret_cast<const float4*>(stg);
+    const float4* d4 =
+        reinterpret_cast<const float4*>(stage + (l % NS) * SLOT);
     for (int e = tid; e < SLOT / 4; e += NTHREADS) {
       float4 v = s4[e];
       const float4 d = d4[e];
@@ -588,91 +782,103 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   if (DEFER) {
     // PD planes in flight at a time: a staging slot frees when its plane
     // is rebuilt
-    for (int l = 0; l < PD; ++l) issue(l);
+    for (int l = 0; l < PD; ++l) issue();
     for (int l = 0; l < 2 * NG; ++l) {
       cp_async_wait<PD - 1>();
       __syncthreads();
       rebuild(l);
       __syncthreads();
-      issue(l + PD);
+      issue();
     }
   } else {
-    for (int l = 0; l < 2 * NG + PD; ++l) issue(l);
+    for (int l = 0; l < 2 * NG + PD; ++l) issue();
   }
 
+  const float alpha = FIRST ? 0.0f : coef[0], bdt = FIRST ? 0.0f : coef[1];
   const float* s0 = ring + own;
+  float xt[NC][NX];      // the x taps of every field at this thread's point
   float dt1max = 0.0f;
-  for (int j = 0; j < np; ++j) {
+  int jm = 0;            // j % NR
+  // field 0 at this thread's point of plane x0, in dfout and faout
+  size_t g = ((size_t)x0 * P.ny + gy) * P.nz + gz;
+  for (int j = 0; j < np; ++j, jm = jm + 1 == NR ? 0 : jm + 1, g += plane) {
     cp_async_wait<PD - 1>();
     __syncthreads();
     if (DEFER) {
       rebuild(j + 2 * NG);
       __syncthreads();
     }
-    issue(j + 2 * NG + PD);
+    issue();          // plane j + 2 NG + PD
 
     // this plane's slot, and its x neighbours' offsets from it
-    const int sc = (j + NG) % NR;
-    int xo[2 * NG + 1];
+    const int sc = jm + NG < NR ? jm + NG : jm + NG - NR;
+    int xo[NX];
 #pragma unroll
-    for (int k = 0; k <= 2 * NG; ++k) xo[k] = ((j + k) % NR - sc) * SLOT;
+    for (int k = 0; k < NX; ++k)
+      xo[k] = ((jm + k < NR ? jm + k : jm + k - NR) - sc) * SLOT;
     const float* s = s0 + sc * SLOT;
-    const int gx = x0 + j;
+    // the column of x taps moves one plane on: one new tap per field (on
+    // the first plane all of them)
+    if (j == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 1; k < NX; ++k) xt[c][k] = s[c * FPL + xo[k - 1]];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int k = 0; k < NX - 1; ++k) xt[c][k] = xt[c][k + 1];
+      xt[c][NX - 1] = s[c * FPL + xo[NX - 1]];
+    }
+
     float r[NC];
     float dt1 = 0.0f;
-    if (!active) continue;
     if constexpr (FAKE) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) r[c] = __fmul_rn(s[c * FPL], 1.0000001f);
+      for (int c = 0; c < NC; ++c) r[c] = __fmul_rn(xt[c][NG], 1.0000001f);
     } else {
-      flagship_rhs<FIRST, ROT>(s, xo, P, r, dt1);
+      flagship_rhs<FIRST, ROT>(s, xt, xo, P, r, dt1);
     }
-    const size_t g = ((size_t)gx * P.ny + gy) * P.nz + gz;
 
     if (FIRST) {
+      if (active) {
+        float* o = dfout + g;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) dfout[c * N + g] = r[c];
-      dt1max = fmaxf(dt1max, dt1);
+        for (int c = 0; c < NC; ++c, o += N) *o = r[c];
+        dt1max = fmaxf(dt1max, dt1);
+      }
       continue;
     }
 
-    const float alpha = coef[0], bdt = coef[1];
-    float dfp[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      dfp[c] = DEFER ? q[0][c]
-                     : ownq[((j + NG) % NQ * NC + c) * NTHREADS + tid];
-    float fnew[NC];
+    float dfn[NC], fnew[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const float dfn = __fadd_rn(__fmul_rn(alpha, dfp[c]), r[c]);
-      if (!LAST) dfout[c * N + g] = dfn;
-      fnew[c] = __fadd_rn(s[c * FPL], __fmul_rn(bdt, dfn));
+      const float dfp = DEFER
+          ? q[0][c] : ownq[(((j + NG) % NQ) * NC + c) * NTHREADS + tid];
+      dfn[c] = __fadd_rn(__fmul_rn(alpha, dfp), r[c]);
+      fnew[c] = __fadd_rn(xt[c][NG], __fmul_rn(bdt, dfn[c]));
     }
     if (KICK) {
-      // helical kick in angle-addition form (JAX fused_rhs.py:441-466):
-      // theta = k.x + phase = A + B + C with A, B, C on one axis each
-      const float xg = __fadd_rn(P.x0, __fmul_rn(P.dx, (float)gx));
-      const float yg = __fadd_rn(P.y0, __fmul_rn(P.dy, (float)gy));
-      const float A = __fadd_rn(__fmul_rn(kick[0], xg), kick[3]);
-      const float B = __fmul_rn(kick[1], yg);
-      const float C = __fmul_rn(kick[2], zc[gz]);
-      float sA, cA, sB, cB, sC, cC;
-      sincosf(A, &sA, &cA);
-      sincosf(B, &sB, &cB);
-      sincosf(C, &sC, &cC);
-      const float Pc = cA * cB - sA * sB;   // cos(A+B)
-      const float Qs = sA * cB + cA * sB;   // sin(A+B)
-      const float amp = kick[10];
+      // theta = A + B + C in angle-addition form, the plane's sin A, cos A
+      // from shared memory
+      const float sA = kick_a[j], cA = kick_a[MX + j];
+      const float Pc = cA * k_cb - sA * k_sb;   // cos(A+B)
+      const float Qs = sA * k_cb + cA * k_sb;   // sin(A+B)
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float a = kick[4 + i], b = kick[7 + i];
-        const float U = a * cC - b * sC, V = a * sC + b * cC;
-        fnew[UX + i] = fnew[UX + i] + amp * (Pc * U - Qs * V);
+      for (int i = 0; i < 3; ++i)
+        fnew[UX + i] = fnew[UX + i] + k_amp * (Pc * k_u[i] - Qs * k_v[i]);
+    }
+    if (active) {
+      float* o = faout + g;
+#pragma unroll
+      for (int c = 0; c < NC; ++c, o += N) *o = fnew[c];
+      if (!LAST) {
+        o = dfout + g;
+#pragma unroll
+        for (int c = 0; c < NC; ++c, o += N) *o = dfn[c];
       }
     }
-#pragma unroll
-    for (int c = 0; c < NC; ++c) faout[c * N + g] = fnew[c];
   }
   if (FIRST)
     block_max_store<NTHREADS>(
@@ -682,7 +888,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
 
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT>
 static int launch_as(const PcParams* p, const float* fa, const float* dfin,
-                     const float* coef, const float* kick, const float* zc,
+                     const float* coef, const float* kick, const float* ktab,
                      float* dfout, float* faout, float* dt1blk, void* stream) {
   auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
@@ -694,22 +900,22 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
   const dim3 grid((p->nz + TZ - 1) / TZ, (p->ny + TY - 1) / TY,
                   (p->nx + MX - 1) / MX);
   kern<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      *p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk, vec);
+      *p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, vec);
   return (int)cudaGetLastError();
 }
 
 // The instance with the Coriolis force where Omega is not 0 (K8 has none).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
-                  const float* coef, const float* kick, const float* zc,
+                  const float* coef, const float* kick, const float* ktab,
                   float* dfout, float* faout, float* dt1blk, void* stream) {
   if constexpr (!FAKE) {
     if (p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f)
       return launch_as<FIRST, DEFER, LAST, KICK, false, true>(
-          p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk, stream);
+          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
   }
   return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false>(
-      p, fa, dfin, coef, kick, zc, dfout, faout, dt1blk, stream);
+      p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
 }
 
 // The substep-1 kernel and the three tail kinds, real or fake.
@@ -728,16 +934,47 @@ static int tail_defer(const PcParams* p, const float* fa, const float* df1,
       p, fa, df1, coef, nullptr, nullptr, df2, f2, nullptr, stream);
 }
 
-// a null kick is an unforced run
+// The sines, then the cosines, of the kick's partial phases A = kx*x +
+// phase at each x, B = ky*y at each y and C = kz*z at each z (nx + ny + nz
+// of each), in the kernels' rounding, for the tails to read: the march
+// itself calls no sincosf.
+__global__ void pc_kick_phases(const PcParams P,
+                               const float* __restrict__ kick,
+                               const float* __restrict__ zc,
+                               float* __restrict__ tab) {
+  const int nt = P.nx + P.ny + P.nz;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nt) return;
+  float ang;
+  if (i < P.nx) {
+    const float xg = __fadd_rn(P.x0, __fmul_rn(P.dx, (float)i));
+    ang = __fadd_rn(__fmul_rn(kick[0], xg), kick[3]);
+  } else if (i < P.nx + P.ny) {
+    const float yg = __fadd_rn(P.y0, __fmul_rn(P.dy, (float)(i - P.nx)));
+    ang = __fmul_rn(kick[1], yg);
+  } else {
+    ang = __fmul_rn(kick[2], zc[i - P.nx - P.ny]);
+  }
+  sincosf(ang, &tab[i], &tab[nt + i]);
+}
+
+// a null kick is an unforced run; tab is scratch for pc_kick_phases,
+// 2 (nx + ny + nz) floats
 template <bool DEFER, bool FAKE>
 static int tail_last(const PcParams* p, const float* fa, const float* dfin,
                      const float* coef, const float* kick, const float* zc,
-                     float* f, void* stream) {
-  if (kick)
+                     float* tab, float* f, void* stream) {
+  if (kick) {
+    const int nt = p->nx + p->ny + p->nz;
+    pc_kick_phases<<<(nt + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        *p, kick, zc, tab);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     return launch<false, DEFER, true, true, FAKE>(
-        p, fa, dfin, coef, kick, zc, nullptr, f, nullptr, stream);
+        p, fa, dfin, coef, kick, tab, nullptr, f, nullptr, stream);
+  }
   return launch<false, DEFER, true, false, FAKE>(
-      p, fa, dfin, coef, nullptr, zc, nullptr, f, nullptr, stream);
+      p, fa, dfin, coef, nullptr, nullptr, nullptr, f, nullptr, stream);
 }
 
 // Registers, local (spill) bytes per thread, static and dynamic shared
@@ -812,11 +1049,13 @@ int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
 }
 
 // K3: replaces `kernel_tail(last=True, with_kick)` (pencil_tpu/ops/
-// fused_rhs.py); kick may be null (unforced runs).
+// fused_rhs.py); kick may be null (unforced runs), else tab is scratch of
+// 2 (nx + ny + nz) floats (it follows the stream, so that a caller of the
+// older interface, without it, still runs an unforced tail).
 int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
                      const float* coef, const float* kick, const float* zc,
-                     float* f3, void* stream) {
-  return tail_last<false, false>(p, fa, df2, coef, kick, zc, f3, stream);
+                     float* f3, void* stream, float* tab) {
+  return tail_last<false, false>(p, fa, df2, coef, kick, zc, tab, f3, stream);
 }
 
 // K3': replaces the 2N-RK4 middle substeps' `kernel_upd` with the wrap
@@ -828,12 +1067,12 @@ int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
 }
 
 // K2L: replaces `kernel_tail(defer_prev=True, last=True, with_kick)`
-// (pencil_tpu/ops/fused_rhs.py); kick may be null.
+// (pencil_tpu/ops/fused_rhs.py); kick may be null, else tab as for K3.
 int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
                            const float* df1, const float* coef,
                            const float* kick, const float* zc, float* f,
-                           void* stream) {
-  return tail_last<true, false>(p, fa, df1, coef, kick, zc, f, stream);
+                           void* stream, float* tab) {
+  return tail_last<true, false>(p, fa, df1, coef, kick, zc, tab, f, stream);
 }
 
 #if PC_MAG && !PC_ENT
@@ -853,8 +1092,8 @@ int pc_rhs_tail_defer_fake(const PcParams* p, const float* fa,
 int pc_rhs_tail_last_fake(const PcParams* p, const float* fa,
                           const float* df2, const float* coef,
                           const float* kick, const float* zc, float* f3,
-                          void* stream) {
-  return tail_last<false, true>(p, fa, df2, coef, kick, zc, f3, stream);
+                          void* stream, float* tab) {
+  return tail_last<false, true>(p, fa, df2, coef, kick, zc, tab, f3, stream);
 }
 #endif  // PC_MAG && !PC_ENT
 

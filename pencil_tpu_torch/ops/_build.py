@@ -47,9 +47,9 @@ _FLAGSHIP = {
     "pc_flagship_attrs": [ctypes.c_int, _p],
     "pc_rhs_first": [_p] * 5,
     "pc_rhs_tail_defer": [_p] * 7,
-    "pc_rhs_tail_last": [_p] * 8,
+    "pc_rhs_tail_last": [_p] * 9,
     "pc_rhs_tail_mid": [_p] * 7,
-    "pc_rhs_tail_defer_last": [_p] * 8,
+    "pc_rhs_tail_defer_last": [_p] * 9,
 }
 # each library's entry points: name -> argtypes (all return an int)
 SIGNATURES = {
@@ -57,7 +57,7 @@ SIGNATURES = {
         **_FLAGSHIP,
         "pc_rhs_first_fake": [_p] * 5,
         "pc_rhs_tail_defer_fake": [_p] * 7,
-        "pc_rhs_tail_last_fake": [_p] * 8,
+        "pc_rhs_tail_last_fake": [_p] * 9,
     },
     "fused_rhs_hydro": _FLAGSHIP,
     "fused_rhs_ent": _FLAGSHIP,

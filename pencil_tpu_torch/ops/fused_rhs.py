@@ -588,13 +588,14 @@ def _check(t, shape, what):
                          f"{tuple(t.shape)}")
 
 
-def _launch(name, fa, *args, lib="fused_rhs", entry=None):
+def _launch(name, fa, *args, lib="fused_rhs", entry=None, after=()):
     """Launch ``pc_<entry>`` (default ``pc_<name>``) of ``lib`` on fa's
-    stream, and count it under ``name``."""
+    stream, and count it under ``name``; ``after`` are the arguments that
+    follow the stream."""
     fn = "pc_" + (entry or name)
     with torch.cuda.device(fa.device):
         stream = torch.cuda.current_stream(fa.device).cuda_stream
-        rc = getattr(_build.load(lib), fn)(*args, stream)
+        rc = getattr(_build.load(lib), fn)(*args, stream, *after)
     if rc != 0:
         raise RuntimeError(f"{fn} ({lib}): CUDA error {rc} at launch")
     LAUNCHES[name] += 1
@@ -625,13 +626,14 @@ def _flagship_check(model, fa, df=None, coef=None, fake=False):
     return lib
 
 
-def _flagship_launch(name, lib, model, fa, *args, fake=False):
+def _flagship_launch(name, lib, model, fa, *args, fake=False, after=()):
     """Launch the flagship template's entry ``name`` (its K8 variant with
     ``fake``) of library ``lib``, counted under that library's launch
-    name; ``args`` follow the constants and ``fa``."""
+    name; ``args`` follow the constants and ``fa``, ``after`` the
+    stream."""
     name += "_fake" if fake else ""
     _launch(name + _SUFFIX[lib], fa, ctypes.addressof(kernel_params(model)),
-            fa.data_ptr(), *args, lib=lib, entry=name)
+            fa.data_ptr(), *args, lib=lib, entry=name, after=after)
 
 
 def rhs_first(model, fa, fake=False):
@@ -683,9 +685,13 @@ def _tail_last(name, model, fa, dfin, coef, kick, fake=False):
     zc = model.grid.z
     _check(zc, fa.shape[3:], "z")
     f = torch.empty_like(fa)
+    # scratch for the sines and cosines of the kick's phases along each
+    # axis, which the entry point fills before its march
+    tab = None if kick is None else fa.new_empty(2 * sum(fa.shape[1:]))
     _flagship_launch(name, lib, model, fa, dfin.data_ptr(), coef.data_ptr(),
                      None if kick is None else kick.data_ptr(),
-                     zc.data_ptr(), f.data_ptr(), fake=fake)
+                     zc.data_ptr(), f.data_ptr(), fake=fake,
+                     after=(None if tab is None else tab.data_ptr(),))
     return f
 
 

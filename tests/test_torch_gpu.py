@@ -262,7 +262,14 @@ def test_template_instances_match_plain(cuda, case, shape):
     versions: each field within the case's bound × its max, the CFL
     maximum within 1e-6 relative."""
     make_cfg, rtol = TEMPLATE_CASES[case]
-    pm = pt.Model(make_cfg(shape), device=cuda)
+    _template_instances_match_plain(cuda, make_cfg(shape), rtol)
+
+
+def _template_instances_match_plain(cuda, cfg, rtol):
+    """K1, K2, K3 and K2L with and without the kick, and K3′ of ``cfg``'s
+    build against their plain versions on one noisy input."""
+    pm = pt.Model(cfg, device=cuda)
+    shape = cfg.grid.shape
     sfx = fr.launch_suffix(pm)
     fa = random_fa(shape, cuda, nvar=pm.reg.nvar)
     alpha, beta, _ = pm.rk
@@ -298,6 +305,62 @@ def test_template_instances_match_plain(cuda, case, shape):
         "rhs_first" + sfx: 1, "rhs_tail_defer" + sfx: 1,
         "rhs_tail_last" + sfx: 2, "rhs_tail_defer_last" + sfx: 2,
         "rhs_tail_mid" + sfx: 1})
+
+
+
+# nx over one x segment (MX = 64) with a short second one, ny not a multiple
+# of the column's 8 rows, nz odd: every row goes in 4-byte copies, and the
+# last blocks in y and z hold points outside the grid, which must compute
+# along (the barriers are the block's) and store nothing
+RAGGED_SHAPE = (70, 13, 45)
+BUILDS = {
+    "mhd": (lambda shape: flagship(shape), 1e-6),
+    "hydro": TEMPLATE_CASES["hydro"],
+    "ent_mhd": TEMPLATE_CASES["ent_mhd"],
+    "ent_hydro": TEMPLATE_CASES["ent_hydro"],
+}
+
+
+@pytest.mark.parametrize("build", sorted(BUILDS))
+def test_all_builds_match_plain_at_a_ragged_shape(cuda, build):
+    """K1, K2, K3, K3′ and K2L of all four builds of the flagship template
+    at a shape that leaves part of a block idle in y and in z."""
+    make_cfg, rtol = BUILDS[build]
+    _template_instances_match_plain(cuda, make_cfg(RAGGED_SHAPE), rtol)
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), RAGGED_SHAPE),
+                         ids=("32^3", "70x13x45"))
+@pytest.mark.parametrize("build", sorted(BUILDS))
+def test_constant_fields_give_exactly_zero_tendencies(cuda, build, shape):
+    """Every term of these module sets is a derivative or multiplies one,
+    and the stencil sums form their differences first: on fields that are
+    constant in space K1's df is exactly zero, and the tails reduce to
+    their updates, bit for bit.  (With the FMA sums too.)"""
+    pm = pt.Model(BUILDS[build][0](shape), device=cuda)
+    nvar = pm.reg.nvar
+    vals = torch.tensor([0.3, -0.2, 0.1, 0.05, 0.02, 0.01, -0.02, 0.03],
+                        device=cuda)[:nvar]
+    fa = vals[:, None, None, None].expand((nvar,) + shape).contiguous()
+    df1 = (0.5 * vals.flip(0))[:, None, None, None].expand(
+        (nvar,) + shape).contiguous()
+    df, dt1m = fr.rhs_first(pm, fa)
+    assert not df.any()
+    torch.testing.assert_close(dt1m, fr.rhs_first_plain(pm, fa)[1],
+                               rtol=RTOL_DT, atol=0.0)
+    coef = torch.tensor([-0.6, 3e-2, 1e-2], device=cuda)
+    alpha, bdt, cprev = coef
+    df2, f2 = fr.rhs_tail_defer(pm, fa, df1, coef)
+    f1 = fa + cprev * df1
+    assert torch.equal(df2, alpha * df1)
+    assert torch.equal(f2, f1 + bdt * (alpha * df1))
+    assert torch.equal(fr.rhs_tail_defer_last(pm, fa, df1, coef, None),
+                       f1 + bdt * (alpha * df1))
+    assert torch.equal(fr.rhs_tail_last(pm, fa, df1, coef, None),
+                       fa + bdt * (alpha * df1))
+    dfm, fm = fr.rhs_tail_mid(pm, fa, df1.clone(), coef)
+    assert torch.equal(dfm, alpha * df1)
+    assert torch.equal(fm, fa + bdt * (alpha * df1))
 
 
 @pytest.mark.parametrize("itorder", (1, 2, 3, 4),

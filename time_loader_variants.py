@@ -8,8 +8,12 @@ process on one card.
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
 package's) and -D definitions for it, e.g. ``:PC_PD=1`` or
-``old/fused_rhs.cu``.  ``--lib`` names the template's library whose
-definitions every variant is built with and whose instances are timed:
+``old/fused_rhs.cu``.  A leading ``~`` marks a variant whose results are
+wrong by design (a phase left out to time the rest alone): it is timed
+only, and the agreement check, which stays as it is for every other
+variant, is skipped for it and said so.  ``--lib`` names the template's
+library whose definitions every variant is built with and whose
+instances are timed:
 ``fused_rhs`` (the MHD flagship), ``fused_rhs_hydro``, ``fused_rhs_ent``
 or ``fused_rhs_hydro_ent`` (e.g. ``--lib fused_rhs_ent "" :PC_PD=1
 :PC_OQLAG=0`` for the 8-field tails).  Each variant is built with the
@@ -17,8 +21,9 @@ package's nvcc flags into pencil_tpu_torch/_build/variants/, all builds at
 once; then every instance of each variant is checked against the plain
 PyTorch version (K8's K1 and K2 variants bit for bit; K8 exists in
 ``fused_rhs`` only) and timed by CUDA events over 20 launches, the variants
-in turns (v1, v2, ..., then again) ``--reps`` times.  Prints one line per kernel and variant and, last, one JSON object.
-Needs a CUDA device; imports no JAX.
+in turns (v1, v2, ..., then again) ``--reps`` times, the SM clock and the
+power draw sampled meanwhile.  Prints one line per kernel and variant and,
+last, one JSON object.  Needs a CUDA device; imports no JAX.
 """
 import argparse
 import ctypes
@@ -36,7 +41,7 @@ def build(specs, base="fused_rhs"):
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, spec in enumerate(specs):
-        src, _, defs = spec.partition(":")
+        src, _, defs = spec.lstrip("~").partition(":")
         src = Path(src) if src else _build.sources()["fused_rhs"]
         flags = list(_build.LIBRARIES[base][1]) + [
             f"-D{d}" for d in defs.split(",") if d]
@@ -139,6 +144,10 @@ def main():
     print(f"time_loader_variants on {smi}, {shape}, {args.lib}",
           flush=True)
     for spec, lib in libs.items():
+        if spec.startswith("~"):
+            print(f"variant {spec!r}: timed only, wrong by design, not "
+                  f"checked", flush=True)
+            continue
         _build._libs[args.lib] = lib
         for k, fn in calls.items():
             got = (fr.rhs_tail_mid(model, fa, df1.clone(), coef)
@@ -158,12 +167,28 @@ def main():
         print(f"variant {spec or 'default'!r}: every kernel agrees with "
               f"its plain version", flush=True)
     times = {spec: {k: [] for k in calls} for spec in libs}
+    # the SM clock and the power draw while the kernels run, every 100 ms
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
     for _ in range(args.reps):
         for spec, lib in libs.items():
             _build._libs[args.lib] = lib
             for k, fn in calls.items():
                 times[spec][k].append(cs.time_ms(torch, fn, 20))
     mul = cs.time_ms(torch, lambda: torch.mul(fa, fr.FAKE_FACTOR), 20)
+    sampler.terminate()
+    samples = [tuple(float(v) for v in ln.split(","))
+               for ln in sampler.communicate()[0].splitlines()
+               if ln.count(",") == 1]
+    clocks = sorted(c for c, _ in samples)
+    load = {"samples": len(samples),
+            "sm_mhz_min": clocks[0] if clocks else None,
+            "sm_mhz_median": clocks[len(clocks) // 2] if clocks else None,
+            "sm_mhz_max": clocks[-1] if clocks else None,
+            "watts_max": max((w for _, w in samples), default=None)}
+    print(f"under load: {load}", flush=True)
     for k in calls:
         for spec in libs:
             print(f"{k:22s} {spec or 'default':40s} "
@@ -172,7 +197,7 @@ def main():
     print(f"torch.mul over the {model.reg.nvar} fields: {mul:.4f} ms",
           flush=True)
     print(json.dumps({"device": smi, "shape": shape, "lib": args.lib,
-                      "torch_mul_ms": mul,
+                      "torch_mul_ms": mul, "under_load": load,
                       "ms": times}), flush=True)
     return 0
 
