@@ -7,7 +7,8 @@ entropy builds (K1e-K2Le with Magnetic, K1he-K2Lhe without) and through
 the run loop (``simulate``: time_series.dat, checkpoints, a bit-exact
 restart), stratified convection with a non-periodic z (kernels K6, K7),
 the sheared, rotating MHD box with shock viscosity and hyper-diffusion
-(kernels K4, K5) and the shocked periodic box (kernels K1s, K5w).
+(kernels K4, K5) and the shocked periodic box (kernels K1s, K5w), these
+four on the same template's two shock builds.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,8 @@ Phases, each printing its own lines:
      build (one nvcc per csrc/*.cu, all at once);
   2. each fused kernel against its plain PyTorch version on the same CUDA
      inputs at 64³ and 32×64×128, the flagship template's instances also
-     at 24×20×42, which breaks every edge of their x-march (each field
+     at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s
+     and K5w also at 16×24×40 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
      the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
      variants bit for bit; the CFL maximum within 1e-6 relative; the
@@ -48,9 +50,9 @@ Phases, each printing its own lines:
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
      256³; for each instance of the flagship template (csrc/fused_rhs.cu,
-     all four builds) its registers, local bytes (which must be 0: no
-     spill, no stack), static and dynamic shared memory per block and
-     resident blocks per SM.
+     all six builds, the shock builds' with and without rotation) its
+     registers, local bytes (which must be 0: no spill, no stack), static
+     and dynamic shared memory per block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -132,8 +134,8 @@ REPLACES.update({k + sfx: REPLACES[k]
                  for sfx in ("_hydro", "_ent", "_hydro_ent")})
 SOURCES = {k: "pencil_tpu_torch/csrc/" + src for src, ks in (
     ("fused_rhs.cu", FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
-     + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS),
-    ("zroll_rhs.cu", ZROLL_KERNELS + SHOCK_KERNELS),
+     + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS + ZROLL_KERNELS
+     + SHOCK_KERNELS),
     ("zghost_rhs.cu", ZGHOST_KERNELS)) for k in ks}
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
@@ -145,11 +147,13 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # bidiagonal mixed derivative 23 (12 products, 11 sums), the pointwise
 # physics of each module as written, a transcendental, root or division
 # counted as one; terms that this run's coefficients switch off are left
-# out.  The flagship template (csrc/fused_rhs.cu) joins each weighted term
-# to its sum by one FMA, still two operations, so its first and second
-# derivatives count the same; it sums the four taps of a diagonal offset
-# before their one weight multiplies them, so its mixed derivative is 14
-# (9 sums and differences, 3 products, 2 sums).  The update per field (df
+# out.  The flagship template (csrc/fused_rhs.cu, all its builds, the
+# shock builds too) joins each weighted term to its sum by one FMA, still
+# two operations, so its first and second derivatives count the same, and
+# a scaled 6th difference, summed as the second derivative is, 13 too; it
+# sums the four taps of a diagonal offset before their one weight
+# multiplies them, so its mixed derivative is 14 (9 sums and differences,
+# 3 products, 2 sums).  The update per field (df
 # = α·df_prev + r, f = f + βΔt·df) is 4, the rebuilt f1 = f0 + cprev·df1
 # is 2.  The kick at a point is 21: cos(A+B) and sin(A+B) by angle
 # addition (6), and per component P·U − Q·V, the amplitude and the sum
@@ -169,7 +173,9 @@ HYDRO_RHS = 12 * D1 + 9 * D2 + 6 * DMIX_FACTORED + 115
 ENT_TERMS = 3 * D1 + 6 * D2 + 70
 ENT_MHD_RHS = FLAGSHIP_RHS + ENT_TERMS + 9
 ENT_HYDRO_RHS = HYDRO_RHS + ENT_TERMS + 2
-SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX + 198
+# the flagship's with the shock slot: ∇shock, the ν_sh force, the shock
+# diffusivity in the CFL maximum
+SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX_FACTORED + 198
 # plus del6 of 7 components (21 scaled 6th differences and their sums),
 # the hyper-diffusive terms, Coriolis and the shear terms
 SHEARBOX_RHS = SHOCKBOX_RHS + 21 * D2 + 14 + 14 + 15 + 22
@@ -633,6 +639,7 @@ def main():
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
         compare_zghost_kernels(torch, pt, fr, shape, errs)
+    for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE):
         compare_zroll_kernels(torch, pt, fr, shape, errs)
         compare_shock_kernels(torch, pt, fr, shape, errs)
     compare_kernels(torch, pt, fr, EDGE_SHAPE, errs)
@@ -694,7 +701,7 @@ def main():
         time_flagship(torch, fr, smi, path, errs, timings, bounds)
         time_tails(torch, fr, path, errs, timings, bounds)
     for lib in ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
-                "fused_rhs_hydro_ent"):
+                "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear"):
         for inst, a in fr.flagship_attrs(lib).items():
             check(a["local_bytes"] == 0,
                   f"{inst}: {a['local_bytes']} B of local memory")

@@ -10,7 +10,18 @@
 // the 5 fields uu, lnrho, ss.  They add the ideal-gas cs2(lnrho, ss), the
 // pressure force of grad ss, Ds/Dt = -u.grad ss, 'chi-const' and 'K-const'
 // conduction, viscous and Ohmic heating, and the conductive rate in the
-// CFL; with PC_ENT=0 all of that compiles out.
+// CFL; with PC_ENT=0 all of that compiles out.  Built with -DPC_SHOCK=1 it
+// gives the shocked periodic box's K1s (pc_rhs_first) and K5w
+// (pc_rhs_tail_mid): the MHD fields with the shock profile as an 8th,
+// read-only slot, and its terms (nu-shock, the shock diffusivity in the
+// CFL, and in the instances with the flag H3 del6 hyper-diffusion of u, A
+// and lnrho);
+// with -DPC_SHEAR=1 as well, the shear box's K4 and K5, which read the
+// stack ghosted in x and y by the shear-periodic fill, (8, nx+6, ny+6,
+// nz), and add the Shear module's terms.  These two builds replace the
+// `kernel` / `kernel_upd` calls with an aux slot (model.py:576-730, wrap
+// and zroll fetches) and have no DEFER, LAST, KICK or FAKE instance: the
+// shock pre-pass rebuilds the slot between substeps.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -44,13 +55,17 @@
 // entropy field 64-128 B and 40-80 B), which at 3.35 TB/s is ~0.3-0.6 ms
 // (0.16-0.32 ms; 0.32-0.64 and 0.20-0.40 ms) per kernel at 256^3; the ~800
 // (~440; ~980 and ~620) operations per point take ~0.20 ms at 67 TFLOP/s,
-// so by the roofline device memory is the bound.  That rate assumes that
-// every instruction is an FMA, and what these kernels are held by comes
-// before it: the instructions they issue.  Counted in the SASS
-// (sass_counts.py), K1 issues 1,169 instructions per point at 256^3, of
-// which 628 FP32, 249 shared-memory loads and 213 integer and address
-// arithmetic (K3: 1,215; K2: 1,333; before the redesign of this phase K1
-// issued 1,658: 832 FP32, 298 loads); 132 SMs x 4 schedulers x 32 lanes
+// so by the roofline device memory is the bound.  The shock builds read
+// 8 slots and write 7 fields (K1s, K4: 60 B a point, K4's ghosted input a
+// little more; K5w, K5: 116 B) in 0.30-0.59 ms, and do ~850 operations a
+// point (K4, K5 with del6 of 7 fields: ~1,190, 0.30 ms).  That rate
+// assumes that every instruction is an FMA, and what these kernels are
+// held by comes before it: the instructions they issue.  Counted in the
+// SASS (sass_counts.py), K1 issues 1,169 instructions per point at 256^3,
+// of which 628 FP32, 249 shared-memory loads and 213 integer and address
+// arithmetic (K3: 1,215; K2: 1,333; K1s 1,301, K5w 1,346, K4 1,488, K5
+// 1,523; before the redesign of this phase K1 issued 1,658: 832 FP32, 298
+// loads); 132 SMs x 4 schedulers x 32 lanes
 // at 1.98 GHz issue them in 0.59 ms, above the 0.28 ms of its bytes, and
 // the shared-memory loads alone (one warp's worth per SM and clock) take
 // 0.50 ms.  The kernels reach ~0.6 instructions per scheduler and
@@ -81,6 +96,10 @@
 // with the same cp.async groups into a small ring, so no step waits on a
 // global load.
 //
+// The shear build's source is the stack ghosted in x and y: its rows and
+// planes sit at ghosted offsets without a wrap (z still wraps), and its
+// outputs and df_prev keep the unghosted layout.
+//
 // The RHS phase is built to issue less.  A thread marches along x, so the
 // seven x taps of each field at its point are values it has already read:
 // it keeps them in registers, moves them one plane on per step and reads
@@ -94,9 +113,11 @@
 // that a point pays two angle additions and no sincosf.  Outputs go
 // through one pointer per buffer that moves a plane on per step.
 // One 256-thread block per SM (141-188 KB of shared memory; hydro 81-105
-// KB; with the entropy field 161-197 KB and 101-132 KB), 8 warps, up to
-// 255 registers a thread; the 4-field K1, whose ring is 81 KB, runs two
-// blocks per SM at 128 registers.  Splitting a point's RHS over two warp
+// KB; with the entropy field 161-197 KB and 101-132 KB; the shock builds
+// 161-183 KB: a 9-slot ring of 8-slot planes and, in the update, the own
+// df_prev queue of 7 fields), 8 warps, up to 255 registers a thread; the
+// 4-field K1, whose ring is 81 KB, runs two blocks per SM at 128
+// registers.  Splitting a point's RHS over two warp
 // groups (512 threads: the uu and lnrho terms, the aa terms, four floats
 // handed over through shared memory at a named barrier) was built and
 // measured: at 128 registers a thread K2, K3 and K2L spill, and K1, which
@@ -123,8 +144,21 @@
 #ifndef PC_ENT
 #define PC_ENT 0       // 1: the non-isothermal instances, with the ss field
 #endif
-// ux uy uz lnrho [ss] [ax ay az] (registry order)
-#define NC (4 + PC_ENT + (PC_MAG ? 3 : 0))
+#ifndef PC_SHOCK
+#define PC_SHOCK 0     // 1: the shock slot and its terms (K1s, K5w)
+#endif
+#ifndef PC_SHEAR
+#define PC_SHEAR 0     // 1: the shear box's ghosted source and terms (K4, K5)
+#endif
+#if PC_SHOCK && (PC_ENT || !PC_MAG)
+#error "the shock builds take the isothermal MHD layout"
+#endif
+#if PC_SHEAR && !PC_SHOCK
+#error "the shear build is a shock build"
+#endif
+// ux uy uz lnrho [ss] [ax ay az] [shock] (registry order)
+#define NC (4 + PC_ENT + (PC_MAG ? 3 : 0) + PC_SHOCK)
+#define NV (NC - PC_SHOCK)     // evolved fields: the shock slot is only read
 #ifndef PC_MX
 #define PC_MX 64       // planes of a block's x segment
 #endif
@@ -145,7 +179,7 @@
 #define SLOT (NC * FPL)        // one plane of all fields
 #define NROWS (NC * PY)
 
-enum { UX = 0, LNRHO = 3, SS = 4, AX = 4 + PC_ENT };
+enum { UX = 0, LNRHO = 3, SS = 4, AX = 4 + PC_ENT, SHOCK = NV };
 
 __device__ __forceinline__ int wrap_index(int i, int n) {
   i %= n;
@@ -174,6 +208,14 @@ struct PcParams {
   float two_nu, eta_heat;    // heating: 2 nu S^2, eta J^2 (0: none)
   float maxdif, cdtv;        // K-const: dif = max(maxdif, K gamma/(rho cp))
                              //          * dxyz2 / cdtv at each point
+  // the shock builds (PC_SHOCK), each 0 where its term is off: nu-shock,
+  // del6 hyper-diffusion of u, A and lnrho and its constant CFL rate
+  // max(nu3, eta3, diff3)*dxyz6/cdtv3, and (PC_SHEAR) the shear rate S of
+  // the background flow S*x along y
+  float nu_shock, nu3, eta3, diff3, dif3;
+  float w6[3];     // 6th difference, paired weights o = 1..3
+  float inv6[3];   // 1/dx^6, 1/dy^6, 1/dz^6 as x^2*x^4 in f32
+  float S;
 };
 
 // ---- the template's own stencil sums --------------------------------------
@@ -255,6 +297,18 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
   return summix(up, dn, 1, wm);
 }
 
+#if PC_SHOCK
+// del6 of one field at one point: the 6th difference has the even paired
+// form of the second derivative (weights 15, -6, 1), so dj2 with w6 sums it,
+// differences first; the three axes join in stencil.cuh's order
+__device__ __forceinline__ float del6(const float* p, const float* x,
+                                      const PcParams& P) {
+  float acc = __fmul_rn(dj2(p, x, 0, P.w6), P.inv6[0]);
+  acc = __fadd_rn(acc, __fmul_rn(dj2(p, x, 1, P.w6), P.inv6[1]));
+  return __fadd_rn(acc, __fmul_rn(dj2(p, x, 2, P.w6), P.inv6[2]));
+}
+#endif
+
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the ring slot of its plane; field c is at s + c*FPL, its x taps in
 // xt[c], the x neighbours' planes at the offsets xo.  Term order follows
@@ -264,12 +318,20 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
 // form them and added to ds last.  grad lnT and del2 lnT are built from the
 // derivatives of lnrho and ss, never from a summed field, as Pencils.glnTT
 // and del2lnTT build them.  ROT adds -2 Omega x u (a template flag, so
-// that the instances without rotation carry no trace of it).
-template <bool WANT_DT1, bool ROT>
+// that the instances without rotation carry no trace of it).  The shock
+// builds follow the JAX modules in the order density, hydro, shear,
+// viscosity (nu-const, nu-shock, hyper3 as one force), magnetic, with the
+// joins of the zroll kernels that these builds replace; xn is the x node
+// of this point's plane (the Shear terms).  H3 adds the del6
+// hyper-diffusion terms of u, A and lnrho, all three, a coefficient of 0
+// adding 0 (a flag as ROT is, picked on the host: without it the shocked
+// box's K1s and K5w measured 4-5 % faster; testing each coefficient inside
+// made K4 and K5 4-6 % slower).
+template <bool WANT_DT1, bool ROT, bool H3>
 __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
-                                             const PcParams& P, float* r,
-                                             float& dt1) {
+                                             const PcParams& P, float xn,
+                                             float* r, float& dt1) {
   const float u[3] = {xt[0][NG], xt[1][NG], xt[2][NG]};
   const float lnrho = xt[LNRHO][NG];
 
@@ -291,9 +353,26 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   for (int a = 0; a < 3; ++a)
     gs[a] = __fmul_rn(dj1(s + SS * FPL, xt[SS], a, P.w1), P.inv[a]);
 #endif
+#if PC_SHOCK
+  // the shock profile (its x taps in registers too: read from the ring
+  // they measured 0-4 % slower), and its gradient where nu-shock is on
+  const float shock = xt[SHOCK][NG];
+  float gsh[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    gsh[a] = P.nu_shock > 0.0f
+        ? __fmul_rn(dj1(s + SHOCK * FPL, xt[SHOCK], a, P.w1), P.inv[a])
+        : 0.0f;
+#endif
 
+#if PC_SHOCK
+  // density: -u.grad(lnrho) - div u [+ D3 del6 lnrho], then the shear term
+  float rl = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+  if (H3) rl = rl + P.diff3 * del6(s + LNRHO * FPL, xt[LNRHO], P);
+#else
   // density: -u.grad(lnrho) - div u
   r[LNRHO] = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+#endif
 
   // hydro: -(u.grad)u - cs2 (grad(lnrho) + grad(ss)/cp) - 2 Omega x u
 #if PC_ENT
@@ -325,6 +404,19 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     for (int a = 0; a < 3; ++a)
       duu[a] = __fadd_rn(duu[a], __fmul_rn(-2.0f, c[a]));
   }
+#if PC_SHEAR
+  // shear: -S x d/dy of every evolved field, duy -= S ux (dAx -= S Ay
+  // joins where grad A is formed)
+  const float muy0 = -__fmul_rn(P.S, xn);
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    duu[a] = __fadd_rn(duu[a], __fmul_rn(muy0, uij[a][1]));
+  rl = __fadd_rn(rl, __fmul_rn(muy0, gl[1]));
+  duu[1] = __fadd_rn(duu[1], __fmul_rn(-P.S, u[0]));
+#endif
+#if PC_SHOCK
+  r[LNRHO] = rl;
+#endif
 
   // viscosity 'nu-const': nu*(del2 u + grad(div u)/3 + 2 S.grad(lnrho));
   // with PC_ENT also S^2 for the heating 2 nu S^2
@@ -358,7 +450,18 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
       const float m = djmix(s + (UX + j) * FPL, lo, hi, xo, P.wm);
       gdiv = gdiv + __fmul_rn(__fmul_rn(m, P.inv[lo]), P.inv[hi]);
     }
+#if PC_SHOCK
+    // nu-const, then nu-shock [shock (grad div u + div u grad lnrho) + div
+    // u grad shock], then nu3 del6 u, joined to du as one force
+    float fv = P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
+    if (P.nu_shock > 0.0f)
+      fv = __fadd_rn(fv, P.nu_shock * (shock * (gdiv + divu * gl[a])
+                                       + divu * gsh[a]));
+    if (H3) fv = __fadd_rn(fv, P.nu3 * del6(ua, xt[UX + a], P));
+    duu[a] = __fadd_rn(duu[a], fv);
+#else
     duu[a] = duu[a] + P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
+#endif
   }
 
 #if PC_MAG
@@ -392,7 +495,20 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     jj[a] = gdiv - del2;
     const int b1 = (a + 1) % 3, b2 = (a + 2) % 3;
     const float uxb = u[b1] * bb[b2] - u[b2] * bb[b1];
+#if PC_SHOCK
+    float out = uxb;
+    if (P.eta > 0.0f) out = out + P.eta * del2;
+    if (H3) out = out + P.eta3 * del6(aa, xt[AX + a], P);
+#if PC_SHEAR
+    // the Shear module's terms come first: -S x dA/dy, and -S Ay on Ax
+    float ra = __fmul_rn(muy0, aij[a][1]);
+    if (a == 0) ra = __fadd_rn(ra, __fmul_rn(-P.S, xt[AX + 1][NG]));
+    out = __fadd_rn(ra, out);
+#endif
+    r[AX + a] = out;
+#else
     r[AX + a] = P.eta > 0.0f ? uxb + P.eta * del2 : uxb;
+#endif
   }
 #if !PC_ENT
   const float rho1 = expf(-lnrho);
@@ -401,7 +517,11 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   for (int a = 0; a < 3; ++a) {
     const int b1 = (a + 1) % 3, b2 = (a + 2) % 3;
     const float jxb = jj[b1] * bb[b2] - jj[b2] * bb[b1];
+#if PC_SHOCK
+    r[UX + a] = __fadd_rn(duu[a], jxb * rho1);
+#else
     r[UX + a] = duu[a] + jxb * rho1;
+#endif
   }
 #else
 #pragma unroll
@@ -453,6 +573,9 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     // advection linearly; advective and diffusive classes combine as RSS
     float adv = (fabsf(u[0]) * P.inv[0] + fabsf(u[1]) * P.inv[1])
                 + fabsf(u[2]) * P.inv[2];
+#if PC_SHEAR
+    adv = __fadd_rn(adv, __fmul_rn(fabsf(muy0), P.inv[1]));   // S x along y
+#endif
 #if PC_MAG
     const float b0 = bb[0] * P.inv[0], b1 = bb[1] * P.inv[1],
                 b2 = bb[2] * P.inv[2];
@@ -462,7 +585,18 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     adv = adv + sqrtf(cs2 * P.dxyz2);
 #endif
     const float dt1a = adv / P.cdt;
-#if PC_ENT
+#if PC_SHOCK
+    // the diffusivity max(nu, nu_sh*shock, eta) at this point, plus the
+    // constant del6 rate
+    const bool has_dif = P.nu > 0.0f || P.nu_shock > 0.0f || P.eta > 0.0f;
+    float md = 0.0f;
+    if (P.nu > 0.0f) md = P.nu;
+    if (P.nu_shock > 0.0f) md = fmaxf(md, P.nu_shock * shock);
+    if (P.eta > 0.0f) md = fmaxf(md, P.eta);
+    float dif = has_dif ? (md * P.dxyz2) / P.cdtv : 0.0f;
+    if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
+    dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
+#elif PC_ENT
     // the K-const rate varies from point to point
     const float dif = P.hcond0 > 0.0f
         ? (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv : P.dif;
@@ -585,10 +719,11 @@ __device__ __forceinline__ void copy_rows(
 // builds measured 2-25 % slower), so PD = 2 keeps every instance below.
 // A tail copies its own df_prev of plane l - OQLAG with the group of plane
 // l; the copy must land by step l - OQLAG - NG, so OQLAG may be 0 .. NG,
-// and NQ slots hold the planes in flight.  The 8-field tails take NG, which
-// keeps them at 186 KB; the others 0.
+// and NQ slots hold the planes in flight (of the NV evolved fields: a
+// shock slot has no df).  The 8-field tails take NG, which keeps them at
+// 183-186 KB; the others 0.
 #ifndef PC_OQLAG
-#define PC_OQLAG ((PC_ENT && PC_MAG) ? NG : 0)
+#define PC_OQLAG (NC >= 8 ? NG : 0)
 #endif
 #define OQLAG PC_OQLAG
 #define NS PD
@@ -596,7 +731,7 @@ __device__ __forceinline__ void copy_rows(
 template <bool FIRST, bool DEFER>
 __host__ __device__ constexpr int smem_floats() {
   return NR * SLOT + (DEFER ? NS * SLOT : 0)
-         + (!FIRST && !DEFER ? NQ * NC * NTHREADS : 0);
+         + (!FIRST && !DEFER ? NQ * NV * NTHREADS : 0);
 }
 
 // Static shared memory, in bytes, at most: the row table, the kick's
@@ -611,7 +746,8 @@ __host__ __device__ constexpr int min_blocks() {
   return 2 * (4 * smem_floats<FIRST, DEFER>() + STATIC_SMEM + 1024) <= 200704
       ? 2 : 1;
 }
-static_assert(4 * smem_floats<false, true>() + STATIC_SMEM <= 232448,
+static_assert(PC_SHOCK   // no DEFER instance in the shock builds
+              || 4 * smem_floats<false, true>() + STATIC_SMEM <= 232448,
               "DEFER ring");
 static_assert(4 * smem_floats<false, false>() + STATIC_SMEM <= 232448,
               "tail ring");
@@ -623,7 +759,8 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // One template for every kernel: FIRST is substep 1; otherwise DEFER
 // rebuilds f1 = f0 + cprev*df1 in the ring and LAST skips the df store.
 // FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor); ROT
-// adds the Coriolis force (launch() picks it where P.om is not 0).  coef =
+// adds the Coriolis force (launch() picks it where P.om is not 0), H3 the
+// shock builds' del6 terms (picked where a hyper coefficient is not 0).  coef =
 // [alpha, beta*dt, cprev] and kick = [k(3), phase, f_re(3), f_im(3), N*dt,
 // 0] live on the device, so no launch needs a host copy of dt.  dfin and
 // dfout may be one buffer (K3'): each thread reads and writes only its own
@@ -643,7 +780,8 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // Every thread computes every plane, also one whose point lies outside
 // the grid (its ring position holds wrapped data): it just loads and
 // stores nothing of its own there.
-template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT>
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
+          bool H3>
 __global__ void __launch_bounds__(NTHREADS, min_blocks<FIRST, DEFER>())
 pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
             const float* __restrict__ coef, const float* __restrict__ kick,
@@ -653,9 +791,9 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* stage = smem + NR * SLOT;     // DEFER
-  float* ownq = smem + NR * SLOT;      // OWN: [NQ][NC][NTHREADS]
+  float* ownq = smem + NR * SLOT;      // OWN: [NQ][NV][NTHREADS]
   // of each row of a plane: its offset in fa less the plane's (the field,
-  // the wrapped y) and its byte offset in a slot
+  // the wrapped y; PC_SHEAR: the ghosted y) and its byte offset in a slot
   __shared__ long long rowg[NROWS];
   __shared__ int rowd[NROWS];
   __shared__ float kick_a[KICK ? 2 * MX : 1];     // sin, cos of A per plane
@@ -668,12 +806,28 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   const int nl = np + 2 * NG;          // planes loaded
   const size_t N = (size_t)P.nx * P.ny * P.nz;
   const size_t plane = (size_t)P.ny * P.nz;
+#if PC_SHEAR
+  // fa is ghosted in x and y, (NC, nx + 2 NG, ny + 2 NG, nz): plane l is
+  // ghosted x = x0 + l and row iy ghosted y = by + iy, no wrap but in z.  A
+  // block over the end of y repeats the last row for points that store
+  // nothing
+  const size_t fplane = (size_t)(P.ny + 2 * NG) * P.nz;
+  const size_t MG = (size_t)(P.nx + 2 * NG) * fplane;
+  for (int r = tid; r < NROWS; r += NTHREADS) {
+    const int c = r / PY, iy = r - c * PY;
+    rowg[r] = (long long)(c * MG)
+              + (long long)min(by + iy, P.ny + 2 * NG - 1) * P.nz;
+    rowd[r] = 4 * (c * FPL + iy * PZ);
+  }
+#else
+  const size_t fplane = plane;
   for (int r = tid; r < NROWS; r += NTHREADS) {
     const int c = r / PY, iy = r - c * PY;
     rowg[r] = (long long)(c * N)
               + (long long)wrap_index(by - NG + iy, P.ny) * P.nz;
     rowd[r] = 4 * (c * FPL + iy * PZ);
   }
+#endif
   // 16-byte row copies where the caller allows them and the column does
   // not hang over the end of z
   const bool vecblk = vec && bz + TZ <= P.nz;
@@ -710,13 +864,18 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   const unsigned stage_s = (unsigned)__cvta_generic_to_shared(stage);
   const unsigned ownq_s = (unsigned)__cvta_generic_to_shared(ownq);
   // planes are issued in order, l = 0, 1, ...: the next one's wrapped x
-  // and its ring, staging and own-df_prev slots are carried along
+  // (PC_SHEAR: ghosted x) and its ring, staging and own-df_prev slots are
+  // carried along
+#if PC_SHEAR
+  int il = 0, ix = x0, ir = 0, is = 0;
+#else
   int il = 0, ix = wrap_index(x0 - NG, P.nx), ir = 0, is = 0;
+#endif
   int iq = OQLAG ? (NQ - OQLAG % NQ) % NQ : 0;       // (il - OQLAG) % NQ
   auto issue = [&]() {
     const int l = il;
     if (l < nl) {
-      const size_t xoff = (size_t)ix * plane;
+      const size_t xoff = (size_t)ix * fplane;
       const unsigned slot = ring_s + 4 * ir * SLOT;
       const unsigned stg = stage_s + 4 * is * SLOT;
       const float* f0 = fa + xoff + rc.z0;
@@ -733,18 +892,22 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
                                 stg + 4 * rc.d1, f0, f1, g0, g1);
       const int m = l - OQLAG;   // the plane whose own df_prev goes along
       if (OWN && active && m >= NG && m < np + NG) {
-        const size_t xoffm = OQLAG
+        const size_t xoffm = (OQLAG || PC_SHEAR)
             ? (size_t)wrap_index(x0 - NG + m, P.nx) * plane : xoff;
         const float* src = dfin + xoffm + (size_t)gy * P.nz + gz;
-        const unsigned o = ownq_s + 4 * (iq * NC * NTHREADS + tid);
+        const unsigned o = ownq_s + 4 * (iq * NV * NTHREADS + tid);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NV; ++c)
           cp_async4(o + 4 * c * NTHREADS, src + c * N);
       }
     }
     cp_async_commit();
     il = l + 1;
+#if PC_SHEAR
+    ix = ix + 1;
+#else
     ix = ix + 1 == P.nx ? 0 : ix + 1;
+#endif
     ir = ir + 1 == NR ? 0 : ir + 1;
     is = is + 1 == NS ? 0 : is + 1;
     iq = iq + 1 == NQ ? 0 : iq + 1;
@@ -756,11 +919,11 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // slot, shared by all threads
   const int own = (ty + NG) * PZ + ZOFF + tz;
   const float cprev = DEFER ? coef[2] : 0.0f;
-  float q[NG + 1][NC];
+  float q[NG + 1][NV];
   auto rebuild = [&](int l) {
     const float* stg = stage + (l % NS) * SLOT + own;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < NV; ++c) {
 #pragma unroll
       for (int k = 0; k < NG; ++k) q[k][c] = q[k + 1][c];
       q[NG][c] = stg[c * FPL];
@@ -832,30 +995,33 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       xt[c][NX - 1] = s[c * FPL + xo[NX - 1]];
     }
 
-    float r[NC];
+    float r[NV];
     float dt1 = 0.0f;
     if constexpr (FAKE) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) r[c] = __fmul_rn(xt[c][NG], 1.0000001f);
+      for (int c = 0; c < NV; ++c) r[c] = __fmul_rn(xt[c][NG], 1.0000001f);
     } else {
-      flagship_rhs<FIRST, ROT>(s, xt, xo, P, r, dt1);
+      // PC_SHEAR: the node x of this plane, the JAX tile rule in f32
+      const float xn = PC_SHEAR
+          ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
+      flagship_rhs<FIRST, ROT, H3>(s, xt, xo, P, xn, r, dt1);
     }
 
     if (FIRST) {
       if (active) {
         float* o = dfout + g;
 #pragma unroll
-        for (int c = 0; c < NC; ++c, o += N) *o = r[c];
+        for (int c = 0; c < NV; ++c, o += N) *o = r[c];
         dt1max = fmaxf(dt1max, dt1);
       }
       continue;
     }
 
-    float dfn[NC], fnew[NC];
+    float dfn[NV], fnew[NV];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < NV; ++c) {
       const float dfp = DEFER
-          ? q[0][c] : ownq[(((j + NG) % NQ) * NC + c) * NTHREADS + tid];
+          ? q[0][c] : ownq[(((j + NG) % NQ) * NV + c) * NTHREADS + tid];
       dfn[c] = __fadd_rn(__fmul_rn(alpha, dfp), r[c]);
       fnew[c] = __fadd_rn(xt[c][NG], __fmul_rn(bdt, dfn[c]));
     }
@@ -872,11 +1038,11 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     if (active) {
       float* o = faout + g;
 #pragma unroll
-      for (int c = 0; c < NC; ++c, o += N) *o = fnew[c];
+      for (int c = 0; c < NV; ++c, o += N) *o = fnew[c];
       if (!LAST) {
         o = dfout + g;
 #pragma unroll
-        for (int c = 0; c < NC; ++c, o += N) *o = dfn[c];
+        for (int c = 0; c < NV; ++c, o += N) *o = dfn[c];
       }
     }
   }
@@ -886,11 +1052,12 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
                     + blockIdx.x);
 }
 
-template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT>
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
+          bool H3>
 static int launch_as(const PcParams* p, const float* fa, const float* dfin,
                      const float* coef, const float* kick, const float* ktab,
                      float* dfout, float* faout, float* dt1blk, void* stream) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -904,17 +1071,28 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
   return (int)cudaGetLastError();
 }
 
-// The instance with the Coriolis force where Omega is not 0 (K8 has none).
+// The instance with the Coriolis force where Omega is not 0 (K8 has none),
+// in the shock builds with the del6 terms where a hyper coefficient is not
+// 0.
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
                   float* dfout, float* faout, float* dt1blk, void* stream) {
   if constexpr (!FAKE) {
-    if (p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f)
-      return launch_as<FIRST, DEFER, LAST, KICK, false, true>(
+    const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
+#if PC_SHOCK
+    if (p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f)
+      return rot
+          ? launch_as<FIRST, DEFER, LAST, KICK, false, true, true>(
+                p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream)
+          : launch_as<FIRST, DEFER, LAST, KICK, false, false, true>(
+                p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
+#endif
+    if (rot)
+      return launch_as<FIRST, DEFER, LAST, KICK, false, true, false>(
           p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
   }
-  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false>(
+  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false>(
       p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
 }
 
@@ -926,6 +1104,7 @@ static int first(const PcParams* p, const float* fa, float* df,
       p, fa, nullptr, nullptr, nullptr, nullptr, df, nullptr, dt1blk, stream);
 }
 
+#if !PC_SHOCK
 template <bool FAKE>
 static int tail_defer(const PcParams* p, const float* fa, const float* df1,
                       const float* coef, float* df2, float* f2,
@@ -976,13 +1155,14 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
   return launch<false, DEFER, true, false, FAKE>(
       p, fa, dfin, coef, nullptr, nullptr, nullptr, f, nullptr, stream);
 }
+#endif  // !PC_SHOCK
 
 // Registers, local (spill) bytes per thread, static and dynamic shared
-// memory per block, and resident blocks per SM of one instance (without
-// rotation).
-template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
+// memory per block, and resident blocks per SM of one instance.
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE,
+          bool ROT = false, bool H3 = false>
 static int attrs(int* out) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, false>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1012,35 +1192,51 @@ int pc_tile_shape(int* out) {
   return 0;
 }
 
-// attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
-// and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
-// and without the kick.  Only the isothermal MHD build has K8 (1, 3, 6,
-// 7).
+// attrs() of instance `which`, without rotation: 0 K1, 1 K8-K1, 2 K2, 3
+// K8-K2, 4/5 K3 with and without the kick, 6/7 K8-K3 with and without, 8
+// K3', 9/10 K2L with and without the kick.  Only the isothermal MHD build
+// has K8 (1, 3, 6, 7).  The shock builds have 0 and 8 (K1s and K5w, or K4
+// and K5), + 16 with rotation, + 32 with the del6 terms.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs<true, false, false, false, false>(out);
+#if !PC_SHOCK
     case 2: return attrs<false, true, false, false, false>(out);
     case 4: return attrs<false, false, true, true, false>(out);
     case 5: return attrs<false, false, true, false, false>(out);
-#if PC_MAG && !PC_ENT
+#endif
+#if PC_MAG && !PC_ENT && !PC_SHOCK
     case 1: return attrs<true, false, false, false, true>(out);
     case 3: return attrs<false, true, false, false, true>(out);
     case 6: return attrs<false, false, true, true, true>(out);
     case 7: return attrs<false, false, true, false, true>(out);
 #endif
     case 8: return attrs<false, false, false, false, false>(out);
+#if PC_SHOCK
+    case 16: return attrs<true, false, false, false, false, true>(out);
+    case 24: return attrs<false, false, false, false, false, true>(out);
+    case 32: return attrs<true, false, false, false, false, false, true>(out);
+    case 40: return attrs<false, false, false, false, false, false, true>(out);
+    case 48: return attrs<true, false, false, false, false, true, true>(out);
+    case 56: return attrs<false, false, false, false, false, true, true>(out);
+#else
     case 9: return attrs<false, true, true, true, false>(out);
     case 10: return attrs<false, true, true, false, false>(out);
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py).
+// K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py);
+// in the shock builds K1s (the same with the shock slot) and K4 (`kernel`
+// + `_dma_tile`, zroll), fa then the 8-slot state, ghosted in x and y for
+// K4.
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
                  float* dt1blk, void* stream) {
   return first<false>(p, fa, df, dt1blk, stream);
 }
 
+#if !PC_SHOCK
 // K2: replaces `kernel_tail(defer_prev=True)` (pencil_tpu/ops/fused_rhs.py).
 int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
                       const float* coef, float* df2, float* f2,
@@ -1057,15 +1253,19 @@ int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
                      float* f3, void* stream, float* tab) {
   return tail_last<false, false>(p, fa, df2, coef, kick, zc, tab, f3, stream);
 }
+#endif  // !PC_SHOCK
 
 // K3': replaces the 2N-RK4 middle substeps' `kernel_upd` with the wrap
-// fetch (pencil_tpu/ops/fused_rhs.py).  df may be df_prev's own buffer.
+// fetch (pencil_tpu/ops/fused_rhs.py); in the shock builds K5w (the same
+// with the shock slot) and K5 (`kernel_upd` with the zroll `_dma_tile`
+// fetch).  df may be df_prev's own buffer.
 int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
                     const float* coef, float* df, float* f, void* stream) {
   return launch<false, false, false, false, false>(
       p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream);
 }
 
+#if !PC_SHOCK
 // K2L: replaces `kernel_tail(defer_prev=True, last=True, with_kick)`
 // (pencil_tpu/ops/fused_rhs.py); kick may be null, else tab as for K3.
 int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
@@ -1074,8 +1274,9 @@ int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
                            void* stream, float* tab) {
   return tail_last<true, false>(p, fa, df1, coef, kick, zc, tab, f, stream);
 }
+#endif
 
-#if PC_MAG && !PC_ENT
+#if PC_MAG && !PC_ENT && !PC_SHOCK
 // K8: the `PC_FAKE_RHS` branch of `body` (pencil_tpu/ops/fused_rhs.py) in
 // K1, K2 and K3, with the same arguments as those.
 int pc_rhs_first_fake(const PcParams* p, const float* fa, float* df,
@@ -1095,6 +1296,6 @@ int pc_rhs_tail_last_fake(const PcParams* p, const float* fa,
                           void* stream, float* tab) {
   return tail_last<false, true>(p, fa, df2, coef, kick, zc, tab, f3, stream);
 }
-#endif  // PC_MAG && !PC_ENT
+#endif  // PC_MAG && !PC_ENT && !PC_SHOCK
 
 }  // extern "C"

@@ -1,8 +1,7 @@
 // Shared device helpers of the hand-written stencil kernels: the paired
-// 6th-order first and second derivatives, the 6th difference of the del6
-// hyper-diffusion, the 12-point bidiagonal mixed derivative, their x-axis
-// counterparts for planes kept in a ring, and the per-block maximum of the
-// CFL 1/dt.
+// 6th-order first and second derivatives and the 12-point bidiagonal mixed
+// derivative of the zghost template, and the per-block maximum of the CFL
+// 1/dt of every template.
 //
 // The sums use round-to-nearest intrinsics (no FMA contraction) in the
 // JAX package's term order (pencil_tpu/ops/stencil.py:145-184, :277-328),
@@ -31,12 +30,6 @@ __device__ __forceinline__ float d2(const float* p, int st, const float* w) {
   return acc;
 }
 
-// Unscaled 6th difference: the same even paired form as d2, with the
-// 6th-derivative weights (-6, 15, 1) (JAX stencil.py:239, der6).
-__device__ __forceinline__ float d6(const float* p, int st, const float* w) {
-  return d2(p, st, w);
-}
-
 // 12-point bidiagonal mixed derivative along strides s1 < s2 (axis order),
 // taps (o,o,+), (-o,o,-), (-o,-o,+), (o,-o,-) for o = 1, 2, 3.
 __device__ __forceinline__ float dmix(const float* p, int s1, int s2,
@@ -50,46 +43,6 @@ __device__ __forceinline__ float dmix(const float* p, int s1, int s2,
     acc = (o == 1) ? t0 : __fadd_rn(acc, t0);
     acc = __fadd_rn(acc, __fmul_rn(w[1], p[-a + b]));
     acc = __fadd_rn(acc, __fmul_rn(w[2], p[-a - b]));
-    acc = __fadd_rn(acc, __fmul_rn(w[3], p[a - b]));
-  }
-  return acc;
-}
-
-// The x-axis counterparts of d1, d2 and dmix for a kernel that keeps its x
-// planes in a ring: tap o along x is p[xo[3 + o]] (xo[3] = 0), so the
-// planes need not sit at a fixed stride.  Same terms, same sum order.
-__device__ __forceinline__ float d1_ring(const float* p, const int* xo,
-                                         const float* w) {
-  float acc = __fmul_rn(w[0], __fsub_rn(p[xo[4]], p[xo[2]]));
-  acc = __fadd_rn(acc, __fmul_rn(w[1], __fsub_rn(p[xo[5]], p[xo[1]])));
-  acc = __fadd_rn(acc, __fmul_rn(w[2], __fsub_rn(p[xo[6]], p[xo[0]])));
-  return acc;
-}
-
-__device__ __forceinline__ float d2_ring(const float* p, const int* xo,
-                                         const float* w) {
-  const float c2 = 2.0f * p[0];
-  float acc = __fmul_rn(w[0], __fsub_rn(__fadd_rn(p[xo[4]], p[xo[2]]), c2));
-  acc = __fadd_rn(acc, __fmul_rn(w[1],
-        __fsub_rn(__fadd_rn(p[xo[5]], p[xo[1]]), c2)));
-  acc = __fadd_rn(acc, __fmul_rn(w[2],
-        __fsub_rn(__fadd_rn(p[xo[6]], p[xo[0]]), c2)));
-  return acc;
-}
-
-// dmix with x as the first axis (x is always the lower one): the same taps
-// (o,o,+), (-o,o,-), (-o,-o,+), (o,-o,-) with the x offsets from the ring
-__device__ __forceinline__ float dmix_ring(const float* p, const int* xo,
-                                           int s2, const float* wm) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int o = 1; o <= 3; ++o) {
-    const float* w = wm + 4 * (o - 1);
-    const int a = xo[3 + o], am = xo[3 - o], b = o * s2;
-    const float t0 = __fmul_rn(w[0], p[a + b]);
-    acc = (o == 1) ? t0 : __fadd_rn(acc, t0);
-    acc = __fadd_rn(acc, __fmul_rn(w[1], p[am + b]));
-    acc = __fadd_rn(acc, __fmul_rn(w[2], p[am - b]));
     acc = __fadd_rn(acc, __fmul_rn(w[3], p[a - b]));
   }
   return acc;

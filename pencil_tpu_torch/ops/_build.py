@@ -1,9 +1,11 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives four, the MHD
-instances, the 4-field hydro ones with ``PC_MAG=0``, and both with an
-entropy field, ``PC_ENT=1``), with a plain C
+(``LIBRARIES``: the flagship template's source gives six, the MHD
+instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
+entropy field, ``PC_ENT=1``, and the MHD ones with the shock slot,
+``PC_SHOCK=1``, on the periodic state or, with ``PC_SHEAR=1``, on the
+shear box's ghosted stack), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each.
 They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
@@ -35,20 +37,25 @@ LIBRARIES = {
     "fused_rhs_hydro": ("fused_rhs.cu", ("-DPC_MAG=0",)),
     "fused_rhs_ent": ("fused_rhs.cu", ("-DPC_ENT=1",)),
     "fused_rhs_hydro_ent": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1")),
+    "fused_rhs_shock": ("fused_rhs.cu", ("-DPC_SHOCK=1",)),
+    "fused_rhs_shear": ("fused_rhs.cu", ("-DPC_SHOCK=1", "-DPC_SHEAR=1")),
     "zghost_rhs": ("zghost_rhs.cu", ()),
-    "zroll_rhs": ("zroll_rhs.cu", ()),
 }
 
 _p = ctypes.c_void_p
-# the flagship template's entry points in both of its libraries; K8 (the
-# fake RHS) is built for the MHD instances only
-_FLAGSHIP = {
+# the flagship template's entry points in its libraries: the shock builds
+# have the first and the middle kernel only (K1s and K5w, K4 and K5); K8
+# (the fake RHS) is built for the MHD instances only
+_SHOCK = {
     "pc_tile_shape": [_p],
     "pc_flagship_attrs": [ctypes.c_int, _p],
     "pc_rhs_first": [_p] * 5,
+    "pc_rhs_tail_mid": [_p] * 7,
+}
+_FLAGSHIP = {
+    **_SHOCK,
     "pc_rhs_tail_defer": [_p] * 7,
     "pc_rhs_tail_last": [_p] * 9,
-    "pc_rhs_tail_mid": [_p] * 7,
     "pc_rhs_tail_defer_last": [_p] * 9,
 }
 # each library's entry points: name -> argtypes (all return an int)
@@ -62,17 +69,12 @@ SIGNATURES = {
     "fused_rhs_hydro": _FLAGSHIP,
     "fused_rhs_ent": _FLAGSHIP,
     "fused_rhs_hydro_ent": _FLAGSHIP,
+    "fused_rhs_shock": _SHOCK,
+    "fused_rhs_shear": _SHOCK,
     "zghost_rhs": {
         "pc_zg_tile_shape": [_p],
         "pc_rhs_zg": [_p] * 7,
         "pc_rhs_zg_upd": [_p] * 9,
-    },
-    "zroll_rhs": {
-        "pc_zr_tile_shape": [_p],
-        "pc_rhs_zroll": [_p] * 5,
-        "pc_rhs_zroll_upd": [_p] * 7,
-        "pc_rhs_wrap_shock": [_p] * 5,
-        "pc_rhs_wrap_shock_upd": [_p] * 7,
     },
 }
 

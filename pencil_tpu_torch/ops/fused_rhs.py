@@ -37,20 +37,22 @@ ghosted in all three axes by ``fill_ghosts`` (5, nx+6, ny+6, nz+6):
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
                        f ← f_interior + βΔt·df, a fresh tensor
 
-The shearing box (zroll mode, ``csrc/zroll_rhs.cu``), on the stack of all
-8 slots (uu, lnrho, aa, shock) ghosted in x and y by ``fill_ghosts`` with
-shear-periodic x faces, z unghosted and periodic (8, nx+6, ny+6, nz):
-
-  rhs_zroll        K4  df = RHS(f), max of the CFL 1/dt
-  rhs_zroll_upd    K5  df ← α·df_prev + RHS(f), written over df_prev;
-                       f ← f_interior + βΔt·df, a fresh (7, nx, ny, nz)
-
-The shocked periodic box (wrap_aux mode, the same source without the shear
-terms), on the raw periodic 8-slot state (8, nx, ny, nz) after the shock
-pre-pass:
+The shocked periodic box (wrap_aux mode), on the raw periodic 8-slot state
+(8, nx, ny, nz) (uu, lnrho, aa, shock) after the shock pre-pass: the
+flagship template built with ``PC_SHOCK=1`` (library ``fused_rhs_shock``,
+its ``pc_rhs_first`` and ``pc_rhs_tail_mid``):
 
   rhs_wrap_shock       K1s  df = RHS(f), max of the CFL 1/dt
-  rhs_wrap_shock_upd   K5w  K5's update on the raw state
+  rhs_wrap_shock_upd   K5w  df ← α·df_prev + RHS(f), written over df_prev;
+                            f ← f + βΔt·df, a fresh (7, nx, ny, nz)
+
+The shearing box (zroll mode), on the stack of all 8 slots ghosted in x and
+y by ``fill_ghosts`` with shear-periodic x faces, z unghosted and periodic
+(8, nx+6, ny+6, nz): the same template built with ``PC_SHOCK=1
+PC_SHEAR=1`` (library ``fused_rhs_shear``), which adds the Shear terms:
+
+  rhs_zroll        K4  K1s's function with the Shear terms
+  rhs_zroll_upd    K5  K5w's, f ← f_interior + βΔt·df
 
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
@@ -289,6 +291,11 @@ class PcParams(ctypes.Structure):
         ("cpchi", ctypes.c_float), ("hcond0", ctypes.c_float),
         ("two_nu", ctypes.c_float), ("eta_heat", ctypes.c_float),
         ("maxdif", ctypes.c_float), ("cdtv", ctypes.c_float),
+        ("nu_shock", ctypes.c_float), ("nu3", ctypes.c_float),
+        ("eta3", ctypes.c_float), ("diff3", ctypes.c_float),
+        ("dif3", ctypes.c_float),
+        ("w6", ctypes.c_float * 3), ("inv6", ctypes.c_float * 3),
+        ("S", ctypes.c_float),
     ]
 
 
@@ -336,6 +343,33 @@ def flagship_library(model) -> str:
         f"{sorted(m.name for m in cfg.modules)}")
 
 
+# the shock builds' field layout: the MHD flagship's and the shock profile,
+# an aux slot that the kernels read and never write
+_SHOCK_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "aa": slice(4, 7),
+                 "shock": slice(7, 8)}
+_SHOCK_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
+                            "magnetic", "shock", "forcing"))
+# each shock build's launch names: its first and its update kernel
+AUX_KERNELS = {"fused_rhs_shock": ("rhs_wrap_shock", "rhs_wrap_shock_upd"),
+               "fused_rhs_shear": ("rhs_zroll", "rhs_zroll_upd")}
+
+
+def shock_library(model) -> str:
+    """The shock build of the flagship template for ``model``:
+    'fused_rhs_shear' with the Shear module (the shear box), else
+    'fused_rhs_shock' (the shocked periodic box); raises for another
+    layout or a module the builds have no terms for."""
+    reg, cfg = model.reg, model.cfg
+    names = {m.name for m in cfg.modules}
+    if names - {"shear"} <= _SHOCK_MODULES and reg.nvar == 7 \
+            and reg.nf == 8 and all(reg.slice(k) == v
+                                    for k, v in _SHOCK_LAYOUT.items()):
+        return "fused_rhs_shear" if "shear" in names else "fused_rhs_shock"
+    raise NotImplementedError(
+        "shock kernels: the (uu, lnrho, aa, shock) layout of the shear and "
+        f"shocked boxes only, got {reg.comp_names} of {sorted(names)}")
+
+
 def launch_suffix(model) -> str:
     """The suffix of the launch names of ``model``'s flagship-template
     library: '', '_hydro', '_ent' or '_hydro_ent'."""
@@ -349,14 +383,26 @@ def kernel_params(model) -> PcParams:
     if p is not None:
         return p
     cfg, gs = model.cfg, model.cfg.grid
-    flagship_library(model)
+    if "shock" in model.reg.slots:
+        shock_library(model)
+    else:
+        flagship_library(model)
     f32 = np.float32
     inv = np.array(inverse_spacings(gs), f32)
     invsq = inv * inv
     dxyz2 = (invsq[0] + invsq[1]) + invsq[2]
-    nu = cfg.module("viscosity").nu
+    nu, nu_shock, nu3 = cfg.module("viscosity").coefficients()
     mag = cfg.module("magnetic")
     eta = mag.eta if mag is not None else 0.0
+    # the shock builds' del6 hyper-diffusion and its constant CFL rate
+    # max(ν₃, η₃, D₃)·dxyz₆/cdtv3
+    eta3 = max(mag.eta_hyper3, 0.0) if mag is not None else 0.0
+    diff3 = max(cfg.module("density").diffrho_hyper3, 0.0)
+    inv6 = pow6(inv)
+    m3 = max(nu3, eta3, diff3)
+    dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
+    dif3 = f32(m3) * dxyz6 / f32(cfg.time.cdtv3) if m3 > 0.0 else f32(0)
+    shear = cfg.module("shear")
     eos = model.eos
     ent = cfg.module("entropy")
     chi = ent.chi if ent is not None and ent.chi_conduction else 0.0
@@ -369,6 +415,7 @@ def kernel_params(model) -> PcParams:
     hyd = cfg.module("hydro")
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
+    fl3 = ctypes.c_float * 3
     p = PcParams(
         nx=gs.nx, ny=gs.ny, nz=gs.nz, isothermal=int(eos.gamma == 1.0),
         w1=(ctypes.c_float * 3)(*paired_weights(1)),
@@ -386,7 +433,10 @@ def kernel_params(model) -> PcParams:
         two_nu=2.0 * max(nu, 0.0) if heats else 0.0,
         eta_heat=max(eta, 0.0) if heats and mag is not None
         and mag.lohmic_heat else 0.0,
-        maxdif=maxdiffus, cdtv=cfg.time.cdtv)
+        maxdif=maxdiffus, cdtv=cfg.time.cdtv,
+        nu_shock=nu_shock, nu3=nu3, eta3=eta3, diff3=diff3, dif3=dif3,
+        w6=fl3(*paired_weights(6)), inv6=fl3(*inv6),
+        S=shear.S if shear is not None else 0.0)
     model.__dict__["_pc_params"] = p
     return p
 
@@ -460,76 +510,6 @@ def zg_params(model):
     return p
 
 
-class ZrParams(ctypes.Structure):
-    """Mirror of ``struct ZrParams`` in csrc/zroll_rhs.cu."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
-        ("isothermal", ctypes.c_int),
-        ("w1", ctypes.c_float * 3), ("w2", ctypes.c_float * 3),
-        ("w6", ctypes.c_float * 3), ("wm", ctypes.c_float * 12),
-        ("inv", ctypes.c_float * 3), ("invsq", ctypes.c_float * 3),
-        ("inv6", ctypes.c_float * 3),
-        ("nu", ctypes.c_float), ("nu_shock", ctypes.c_float),
-        ("nu3", ctypes.c_float), ("eta", ctypes.c_float),
-        ("eta3", ctypes.c_float), ("diff3", ctypes.c_float),
-        ("om", ctypes.c_float * 3), ("S", ctypes.c_float),
-        ("cs20", ctypes.c_float), ("gm1", ctypes.c_float),
-        ("lnrho0", ctypes.c_float),
-        ("dxyz2", ctypes.c_float), ("cdt", ctypes.c_float),
-        ("cdtv", ctypes.c_float), ("dif3", ctypes.c_float),
-        ("x0", ctypes.c_float), ("dx", ctypes.c_float),
-    ]
-
-
-# the zroll kernels' fixed field layout: the shear-box registry order
-_ZR_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "aa": slice(4, 7),
-              "shock": slice(7, 8)}
-
-
-def zr_params(model) -> ZrParams:
-    """The zroll kernel constants of ``model``, each the f32 rounding of
-    the value the plain version multiplies by; built once per model."""
-    p = model.__dict__.get("_zr_params")
-    if p is not None:
-        return p
-    reg, cfg, gs = model.reg, model.cfg, model.cfg.grid
-    if reg.nvar != 7 or reg.nf != 8 or any(
-            reg.slice(k) != v for k, v in _ZR_LAYOUT.items()):
-        raise NotImplementedError("zroll kernels: shear-box layout only")
-    f32 = np.float32
-    inv = np.array(inverse_spacings(gs), f32)
-    invsq = inv * inv
-    inv6 = pow6(inv)
-    dxyz2 = (invsq[0] + invsq[1]) + invsq[2]
-    nu, nu_shock, nu3 = cfg.module("viscosity").coefficients()
-    mag, den = cfg.module("magnetic"), cfg.module("density")
-    eta, eta3 = max(mag.eta, 0.0), max(mag.eta_hyper3, 0.0)
-    diff3 = max(den.diffrho_hyper3, 0.0)
-    # the constant hyper-diffusive CFL rate max(ν₃, η₃, D₃)·dxyz₆/cdtv3
-    m3 = max(nu3, eta3, diff3)
-    dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
-    dif3 = f32(m3) * dxyz6 / f32(cfg.time.cdtv3) if m3 > 0.0 else f32(0)
-    hyd = cfg.module("hydro")
-    eos = model.eos
-    x0, _ = _node0(gs)
-    wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
-    fl3 = ctypes.c_float * 3
-    p = ZrParams(
-        nx=gs.nx, ny=gs.ny, nz=gs.nz, isothermal=int(eos.gamma == 1.0),
-        w1=fl3(*paired_weights(1)), w2=fl3(*paired_weights(2)),
-        w6=fl3(*paired_weights(6)), wm=(ctypes.c_float * 12)(*wm),
-        inv=fl3(*inv), invsq=fl3(*invsq), inv6=fl3(*inv6),
-        nu=nu, nu_shock=nu_shock, nu3=nu3, eta=eta, eta3=eta3, diff3=diff3,
-        om=fl3(*(hyd.omega_vector() if hyd.Omega != 0.0 else (0, 0, 0))),
-        S=cfg.module("shear").S if cfg.module("shear") else 0.0,
-        cs20=eos.cs20, gm1=eos.gamma - 1.0, lnrho0=eos.lnrho0,
-        dxyz2=dxyz2, cdt=cfg.time.cdt, cdtv=cfg.time.cdtv, dif3=dif3,
-        x0=x0, dx=gs.dx)
-    model.__dict__["_zr_params"] = p
-    return p
-
-
 def _nblocks(shape, lib="fused_rhs", fn="pc_tile_shape"):
     t = (ctypes.c_int * 3)()
     getattr(_build.load(lib), fn)(ctypes.addressof(t))
@@ -549,7 +529,14 @@ FLAGSHIP_INSTANCES = (
 
 def library_instances(lib):
     """Launch name -> ``pc_flagship_attrs`` index of each instance of the
-    template's library ``lib`` (only the isothermal MHD build has K8)."""
+    template's library ``lib`` (only the isothermal MHD build has K8; the
+    shock builds have their two kernels, each without and with rotation
+    and the del6 terms)."""
+    if lib in AUX_KERNELS:
+        return {(kernel + flags).rstrip(): which + extra
+                for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
+                for flags, extra in (("", 0), (" rot", 16), (" h3", 32),
+                                     (" rot h3", 48))}
     sfx = _SUFFIX[lib]
     out = {}
     for which, name in enumerate(FLAGSHIP_INSTANCES):
@@ -748,11 +735,45 @@ def rhs_zg_upd(model, fg, df_prev, coef):
     return df_prev, fa
 
 
-def _zr_shapes(model, fg):
-    p = zr_params(model)
-    g2 = 2 * NGHOST
-    _check(fg, (8, p.nx + g2, p.ny + g2, p.nz), "fg")
-    return p, (7, p.nx, p.ny, p.nz)
+def _aux_check(model, fa, shear, df_prev=None, coef=None):
+    """(library, output shape) of ``model``'s shock build after checking
+    the inputs: fa the 8-slot state, ghosted in x and y for the shear
+    build (``shear``), which must be the one that ``model`` takes."""
+    p = kernel_params(model)
+    lib = shock_library(model)
+    if (lib == "fused_rhs_shear") != shear:
+        raise NotImplementedError(
+            f"{AUX_KERNELS[lib][0]} runs this model, not "
+            f"{'rhs_zroll' if shear else 'rhs_wrap_shock'}")
+    g2 = 2 * NGHOST if shear else 0
+    _check(fa, (8, p.nx + g2, p.ny + g2, p.nz), "fg" if shear else "fa")
+    shape = (7, p.nx, p.ny, p.nz)
+    if df_prev is not None:
+        _check(df_prev, shape, "df_prev")
+    if coef is not None:
+        _check(coef, (2,), "coef")
+    return lib, shape
+
+
+def _aux_first(name, model, fa, shear):
+    """K4 or K1s: the shock build's ``pc_rhs_first``."""
+    lib, shape = _aux_check(model, fa, shear)
+    df = fa.new_empty(shape)
+    blk = fa.new_empty(_nblocks(shape[1:], lib))
+    _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
+            df.data_ptr(), blk.data_ptr(), lib=lib, entry="rhs_first")
+    return df, torch.amax(blk)
+
+
+def _aux_upd(name, model, fa, df_prev, coef, shear):
+    """K5 or K5w: the shock build's ``pc_rhs_tail_mid``; the new df
+    overwrites df_prev."""
+    lib, shape = _aux_check(model, fa, shear, df_prev, coef)
+    f = df_prev.new_empty(shape)
+    _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
+            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
+            f.data_ptr(), lib=lib, entry="rhs_tail_mid")
+    return df_prev, f
 
 
 def rhs_zroll(model, fg):
@@ -760,12 +781,7 @@ def rhs_zroll(model, fg):
     zroll mode).  Returns (df, 0-d max of 1/dt)."""
     if not _dispatch(fg):
         return rhs_zroll_plain(model, fg)
-    p, shape = _zr_shapes(model, fg)
-    df = fg.new_empty(shape)
-    blk = fg.new_empty(_nblocks(shape[1:], "zroll_rhs", "pc_zr_tile_shape"))
-    _launch("rhs_zroll", fg, ctypes.addressof(p), fg.data_ptr(),
-            df.data_ptr(), blk.data_ptr(), lib="zroll_rhs")
-    return df, torch.amax(blk)
+    return _aux_first("rhs_zroll", model, fg, True)
 
 
 def rhs_zroll_upd(model, fg, df_prev, coef):
@@ -773,20 +789,7 @@ def rhs_zroll_upd(model, fg, df_prev, coef):
     fetch.  Returns (df, f); df is df_prev's buffer, overwritten."""
     if not _dispatch(fg):
         return rhs_zroll_upd_plain(model, fg, df_prev, coef)
-    p, shape = _zr_shapes(model, fg)
-    _check(df_prev, shape, "df_prev")
-    _check(coef, (2,), "coef")
-    fa = df_prev.new_empty(shape)
-    _launch("rhs_zroll_upd", fg, ctypes.addressof(p), fg.data_ptr(),
-            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
-            fa.data_ptr(), lib="zroll_rhs")
-    return df_prev, fa
-
-
-def _wrap_shock_shape(model, fa):
-    p = zr_params(model)
-    _check(fa, (8, p.nx, p.ny, p.nz), "fa")
-    return p, (7, p.nx, p.ny, p.nz)
+    return _aux_upd("rhs_zroll_upd", model, fg, df_prev, coef, True)
 
 
 def rhs_wrap_shock(model, fa):
@@ -795,12 +798,7 @@ def rhs_wrap_shock(model, fa):
     0-d max of 1/dt)."""
     if not _dispatch(fa):
         return rhs_wrap_shock_plain(model, fa)
-    p, shape = _wrap_shock_shape(model, fa)
-    df = fa.new_empty(shape)
-    blk = fa.new_empty(_nblocks(shape[1:], "zroll_rhs", "pc_zr_tile_shape"))
-    _launch("rhs_wrap_shock", fa, ctypes.addressof(p), fa.data_ptr(),
-            df.data_ptr(), blk.data_ptr(), lib="zroll_rhs")
-    return df, torch.amax(blk)
+    return _aux_first("rhs_wrap_shock", model, fa, False)
 
 
 def rhs_wrap_shock_upd(model, fa, df_prev, coef):
@@ -809,11 +807,4 @@ def rhs_wrap_shock_upd(model, fa, df_prev, coef):
     overwritten."""
     if not _dispatch(fa):
         return rhs_wrap_shock_upd_plain(model, fa, df_prev, coef)
-    p, shape = _wrap_shock_shape(model, fa)
-    _check(df_prev, shape, "df_prev")
-    _check(coef, (2,), "coef")
-    f = df_prev.new_empty(shape)
-    _launch("rhs_wrap_shock_upd", fa, ctypes.addressof(p), fa.data_ptr(),
-            df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
-            f.data_ptr(), lib="zroll_rhs")
-    return df_prev, f
+    return _aux_upd("rhs_wrap_shock_upd", model, fa, df_prev, coef, False)

@@ -9,9 +9,14 @@ shared-memory loads, integer and address arithmetic, and the rest.
                            [--skip K1:0x41c0-0x5100,0x58d0-0x5db0 ...]
     python3 sass_counts.py --from-dump DIR/STEM [--kernel ...] [--skip ...]
 
-``--lib`` builds (or finds built) the package's library of that name;
+``--lib`` builds (or finds built) the package's library of that name
+(K1s and K5w are instances of ``fused_rhs_shock``, K4 and K5 of
+``fused_rhs_shear``, with rotation and the del6 terms as the shear box
+runs them);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
-that time_loader_variants.py left in pencil_tpu_torch/_build/variants/.
+that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
+or its build of the 4×4×16 template of earlier commits (``zroll.so``:
+kernels zr-K4, zr-K5, zr-K1s, zr-K5w, whose one loop is the tile load).
 The x-march is the largest loop of an instance; the loops inside it (the
 rebuild loop of the DEFER instances) are listed with their own counts,
 so that instructions per grid point = the march body outside its inner
@@ -19,7 +24,11 @@ loops + each inner loop's body times its trips.  ``--skip``
 leaves address ranges of an instance out of every count: the paths that
 the run in question never takes (the 4-byte row copies where nz is a
 multiple of 4, the first plane's fill of the x taps), read off the dump's
-forward branches.  ``--dump`` writes each instance's SASS there, as
+forward branches; ``--auto-skip`` finds those two paths itself inside the
+march loop: the 4-byte copies are the branch over the most copies
+(LDGSTS) within the block that issues a plane's copies, the fill the
+branch over 6 shared loads a field and no FP32.  ``--dump`` writes each
+instance's SASS there, as
 DIR/<library stem>_<kernel>.sass; ``--from-dump DIR/STEM`` counts such
 files again (no toolkit needed), e.g. with other ``--skip`` ranges.
 Otherwise it needs cuobjdump (the CUDA toolkit); no card.  Prints one
@@ -33,14 +42,34 @@ import subprocess
 import sys
 from pathlib import Path
 
-# template arguments FIRST, DEFER, LAST, KICK, FAKE, ROT of each instance
+# template arguments FIRST, DEFER, LAST, KICK, FAKE, ROT, H3 of each
+# instance of pc_flagship
 INSTANCES = {
-    "K1": (1, 0, 0, 0, 0, 0), "K2": (0, 1, 0, 0, 0, 0),
-    "K3": (0, 0, 1, 1, 0, 0), "K3nokick": (0, 0, 1, 0, 0, 0),
-    "K3mid": (0, 0, 0, 0, 0, 0), "K2L": (0, 1, 1, 1, 0, 0),
-    "K8-K1": (1, 0, 0, 0, 1, 0), "K8-K2": (0, 1, 0, 0, 1, 0),
-    "K8-K3": (0, 0, 1, 1, 1, 0),
+    "K1": (1, 0, 0, 0, 0, 0, 0), "K2": (0, 1, 0, 0, 0, 0, 0),
+    "K3": (0, 0, 1, 1, 0, 0, 0), "K3nokick": (0, 0, 1, 0, 0, 0, 0),
+    "K3mid": (0, 0, 0, 0, 0, 0, 0), "K2L": (0, 1, 1, 1, 0, 0, 0),
+    "K8-K1": (1, 0, 0, 0, 1, 0, 0), "K8-K2": (0, 1, 0, 0, 1, 0, 0),
+    "K8-K3": (0, 0, 1, 1, 1, 0, 0),
+    "K1s": (1, 0, 0, 0, 0, 0, 0), "K5w": (0, 0, 0, 0, 0, 0, 0),
+    "K4": (1, 0, 0, 0, 0, 1, 1), "K5": (0, 0, 0, 0, 0, 1, 1),
 }
+# MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template
+ZR_INSTANCES = {"zr-K4": (0, 0), "zr-K5": (1, 0), "zr-K1s": (0, 1),
+                "zr-K5w": (1, 1)}
+
+
+def mangled(kname):
+    """The part of an instance's mangled name that picks it; without H3
+    also the name of builds from before that flag (six arguments)."""
+    if kname in ZR_INSTANCES:
+        mode, wrap = ZR_INSTANCES[kname]
+        return [f"pc_shearboxILi{mode}ELb{wrap}E"]
+    args = INSTANCES[kname]
+    keys = ["pc_flagshipI" + "".join(f"Lb{b}E" for b in args) + "E"]
+    if not args[-1]:
+        keys.append("pc_flagshipI" + "".join(f"Lb{b}E" for b in args[:-1])
+                    + "E")
+    return keys
 CLASSES = {
     "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSET", "FSETP",
              "FCHK"},
@@ -126,6 +155,30 @@ def counts(ins, lo, hi, holes=()):
 SKIP = []     # address ranges left out of the instance being counted
 
 
+def auto_skip(ins, nfields):
+    """The march loop's 4-byte row copies and first-plane x-tap fill, as
+    address ranges (see the module's docstring)."""
+    lo, hi = loops(ins)[0]
+    fwd = []
+    for addr, text in ins:
+        m = TARGET.search(text)
+        if lo <= addr <= hi and m and m.group(1).startswith("0x"):
+            tgt = int(m.group(1), 16)
+            if tgt > addr:
+                body = [t for a, t in ins if addr < a < tgt]
+                cls = collections.Counter(classify(opcode(t)) for t in body)
+                copies = sum(opcode(t) == "LDGSTS" for t in body)
+                fwd.append((addr, tgt, cls, copies))
+    blocks = sorted((f for f in fwd if f[3]), key=lambda f: -f[3])
+    outer = blocks[0]
+    four_byte = [f for f in blocks[1:]
+                 if outer[0] <= f[0] and f[1] <= outer[1]][0]
+    # K8 reads only the centre tap: its march has no such fill
+    fill = [f for f in fwd if f[2]["lds"] == 6 * nfields and not f[3]
+            and not f[2]["fp32"]][:1]
+    return [(f[0] + 0x10, f[1] - 0x10) for f in [four_byte] + fill]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--lib", default="fused_rhs")
@@ -134,6 +187,9 @@ def main():
     ap.add_argument("--dump")
     ap.add_argument("--skip", nargs="*", default=[])
     ap.add_argument("--from-dump")
+    ap.add_argument("--auto-skip", type=int, metavar="FIELDS",
+                    help="find the skipped paths of a march over FIELDS "
+                    "ring fields (7 for the flagship, 8 with ss or shock)")
     args = ap.parse_args()
     skips = {}
     for item in args.skip:
@@ -144,8 +200,7 @@ def main():
         so = Path(args.from_dump)
         funcs = {}
         for kname in args.kernel:
-            key = "pc_flagshipI" + "".join(f"Lb{b}E"
-                                           for b in INSTANCES[kname])
+            key = mangled(kname)[0]
             path = so.with_name(f"{so.name}_{kname}.sass")
             if path.exists():
                 funcs[key] = [(int(ln.split()[0], 16),
@@ -158,17 +213,18 @@ def main():
         funcs = functions(so, cuobjdump)
     result = {"library": str(so), "kernels": {}}
     for kname in args.kernel:
-        key = "pc_flagshipI" + "".join(f"Lb{b}E" for b in INSTANCES[kname])
-        match = [n for n in funcs if key in n]
+        keys = mangled(kname)
+        match = [n for key in keys for n in funcs if key in n]
         if not match:
-            print(f"{kname}: no instance {key} in {so.name}", flush=True)
+            print(f"{kname}: no instance {keys} in {so.name}", flush=True)
             continue
         ins = funcs[match[0]]
         if args.dump:
             Path(args.dump).mkdir(parents=True, exist_ok=True)
             (Path(args.dump) / f"{so.stem}_{kname}.sass").write_text(
                 "\n".join(f"{a:06x} {t}" for a, t in ins) + "\n")
-        SKIP[:] = skips.get(kname, [])
+        SKIP[:] = (auto_skip(ins, args.auto_skip) if args.auto_skip
+                   else skips.get(kname, []))
         spans = loops(ins)
         total = counts(ins, 0, ins[-1][0])
         print(f"{kname} {match[0]}: {len(ins)} instructions "

@@ -1,10 +1,9 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
 flagship, their hydro builds K1h-K3h, K3′h, K2Lh, their entropy builds
-K1e-K2Le and K1he-K2Lhe, K6/K7 of stratified
-convection, K4/K5 of the shearing box, K1s/K5w of the shocked periodic
-box) against their plain PyTorch versions on the card, and steps on the
-card against the same steps on the CPU, and the run loop's restart on
-the card.
+K1e-K2Le and K1he-K2Lhe, its shock builds' K1s/K5w of the shocked periodic
+box and K4/K5 of the shearing box, K6/K7 of stratified convection) against
+their plain PyTorch versions on the card, and steps on the card against
+the same steps on the CPU, and the run loop's restart on the card.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
 with one, run them with
 
@@ -157,32 +156,45 @@ def test_fake_kernels_bit_exact(cuda, shape):
         assert torch.equal(got, want)
 
 
-def test_dt1_buffer_matches_the_grid(cuda):
-    """K1 writes one CFL maximum per block of its launch grid, which
-    pc_tile_shape's (MX, TY, TZ) sizes: at nx = 80 (two x segments, the
-    second 16 planes), every slot is written and nothing past them."""
+@pytest.mark.parametrize("lib", ("fused_rhs", "fused_rhs_shock",
+                                 "fused_rhs_shear"))
+def test_dt1_buffer_matches_the_grid(cuda, lib):
+    """K1 (K1s, K4) writes one CFL maximum per block of its launch grid,
+    which its library's pc_tile_shape (MX, TY, TZ) sizes: at nx = 80 (two
+    x segments, the second 16 planes), every slot is written and nothing
+    past them."""
     import ctypes
     import math
     from pencil_tpu_torch.ops import _build
     shape = (80, 16, 32)
-    pm = pt.Model(flagship(shape), device=cuda)
-    fa = random_fa(shape, cuda)
+    if lib == "fused_rhs":
+        pm = pt.Model(flagship(shape), device=cuda)
+        fa = random_fa(shape, cuda)
+        plain = fr.rhs_first_plain
+    elif lib == "fused_rhs_shock":
+        pm = pt.Model(shock_box(shape), device=cuda)
+        fa = shocked_fa(pm)
+        plain = fr.rhs_wrap_shock_plain
+    else:
+        pm = pt.Model(shear_box(shape), device=cuda)
+        fa = sheared_fg(pm)
+        plain = fr.rhs_zroll_plain
     tile = (ctypes.c_int * 3)()
-    _build.load().pc_tile_shape(ctypes.addressof(tile))
-    n = fr._nblocks(shape)
+    _build.load(lib).pc_tile_shape(ctypes.addressof(tile))
+    n = fr._nblocks(shape, lib)
     assert n == math.prod(-(-s // t) for s, t in zip(shape, tile))
     assert shape[0] % tile[0] != 0
     blk = torch.full((n + 1,), float("nan"), device=cuda)
-    df = torch.empty_like(fa)
+    df = fa.new_empty((pm.reg.nvar,) + shape)
     p = fr.kernel_params(pm)
     stream = torch.cuda.current_stream().cuda_stream
-    assert _build.load().pc_rhs_first(
+    assert _build.load(lib).pc_rhs_first(
         ctypes.addressof(p), fa.data_ptr(), df.data_ptr(), blk.data_ptr(),
         stream) == 0
     torch.cuda.synchronize()
     assert bool(torch.isfinite(blk[:n]).all()) and bool((blk[:n] > 0).all())
     assert math.isnan(float(blk[n]))
-    torch.testing.assert_close(blk[:n].max(), fr.rhs_first_plain(pm, fa)[1],
+    torch.testing.assert_close(blk[:n].max(), plain(pm, fa)[1],
                                rtol=RTOL_DT, atol=0.0)
 
 
@@ -318,15 +330,24 @@ BUILDS = {
     "hydro": TEMPLATE_CASES["hydro"],
     "ent_mhd": TEMPLATE_CASES["ent_mhd"],
     "ent_hydro": TEMPLATE_CASES["ent_hydro"],
+    # the shock builds: K1s/K5w within 1e-6, K4/K5 (del6 of 7 fields and
+    # the shifted faces) within 2e-5, chip_smoke.py's bounds
+    "shock": (lambda shape: shock_box(shape), 1e-6),
+    "shear": (lambda shape: shear_box(shape), RTOL_FIELD),
 }
+AUX_BUILDS = ("shock", "shear")
 
 
 @pytest.mark.parametrize("build", sorted(BUILDS))
 def test_all_builds_match_plain_at_a_ragged_shape(cuda, build):
-    """K1, K2, K3, K3′ and K2L of all four builds of the flagship template
-    at a shape that leaves part of a block idle in y and in z."""
+    """K1, K2, K3, K3′ and K2L of the four flagship builds of the template,
+    and K1s/K5w and K4/K5 of its two shock builds, at a shape that leaves
+    part of a block idle in y and in z."""
     make_cfg, rtol = BUILDS[build]
-    _template_instances_match_plain(cuda, make_cfg(RAGGED_SHAPE), rtol)
+    if build in AUX_BUILDS:
+        _aux_kernels_match_plain(cuda, make_cfg(RAGGED_SHAPE), rtol)
+    else:
+        _template_instances_match_plain(cuda, make_cfg(RAGGED_SHAPE), rtol)
 
 
 @pytest.mark.parametrize("shape", ((32, 32, 32), RAGGED_SHAPE),
@@ -336,7 +357,12 @@ def test_constant_fields_give_exactly_zero_tendencies(cuda, build, shape):
     """Every term of these module sets is a derivative or multiplies one,
     and the stencil sums form their differences first: on fields that are
     constant in space K1's df is exactly zero, and the tails reduce to
-    their updates, bit for bit.  (With the FMA sums too.)"""
+    their updates, bit for bit.  (With the FMA sums too.)  The shear
+    build takes u = 0 and A_y = 0, where its Coriolis and shear terms
+    vanish, on a constant x/y-ghosted stack."""
+    if build in AUX_BUILDS:
+        _aux_constant_fields(cuda, BUILDS[build][0](shape))
+        return
     pm = pt.Model(BUILDS[build][0](shape), device=cuda)
     nvar = pm.reg.nvar
     vals = torch.tensor([0.3, -0.2, 0.1, 0.05, 0.02, 0.01, -0.02, 0.03],
@@ -361,6 +387,37 @@ def test_constant_fields_give_exactly_zero_tendencies(cuda, build, shape):
     dfm, fm = fr.rhs_tail_mid(pm, fa, df1.clone(), coef)
     assert torch.equal(dfm, alpha * df1)
     assert torch.equal(fm, fa + bdt * (alpha * df1))
+
+
+def _aux_constant_fields(cuda, cfg):
+    """K1s/K5w or K4/K5 on constant fields with a positive shock slot."""
+    pm = pt.Model(cfg, device=cuda)
+    shear = pm.mode == "zroll"
+    shape = cfg.grid.shape
+    vals = torch.tensor([0.3, -0.2, 0.1, 0.05, 0.02, 0.01, -0.02, 0.03],
+                        device=cuda)
+    if shear:
+        vals[[0, 1, 2, 5]] = 0.0
+        first, upd = fr.rhs_zroll, fr.rhs_zroll_upd
+        g = (3, 3)
+    else:
+        first, upd = fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd
+        g = (0, 0)
+    fa = vals[:, None, None, None].expand(
+        (8, shape[0] + 2 * g[0], shape[1] + 2 * g[1], shape[2])).contiguous()
+    df1 = (0.5 * vals[:7].flip(0))[:, None, None, None].expand(
+        (7,) + shape).contiguous()
+    df, dt1m = first(pm, fa)
+    assert not df.any()
+    plain = fr.rhs_zroll_plain if shear else fr.rhs_wrap_shock_plain
+    torch.testing.assert_close(dt1m, plain(pm, fa)[1], rtol=RTOL_DT,
+                               atol=0.0)
+    coef = torch.tensor([-0.6, 3e-2], device=cuda)
+    alpha, bdt = coef
+    dfm, fm = upd(pm, fa, df1.clone(), coef)
+    assert torch.equal(dfm, alpha * df1)
+    f0 = vals[:7, None, None, None].expand((7,) + shape)
+    assert torch.equal(fm, f0 + bdt * (alpha * df1))
 
 
 @pytest.mark.parametrize("itorder", (1, 2, 3, 4),
@@ -493,29 +550,49 @@ def sheared_fg(pm, seed=4):
     return pm.ghosted(torch.cat([fa, shock[None]]), (0, 1), sdy)
 
 
-@pytest.mark.parametrize("shape", ((64, 64, 64), (32, 64, 128),
-                                   (16, 24, 40)),
-                         ids=("64^3", "32x64x128", "16x24x40"))
-def test_zroll_kernels_match_plain(cuda, shape):
-    """K4 and K5 against their plain versions; the last shape is not a
-    multiple of the tile."""
-    pm = pt.Model(shear_box(shape), device=cuda)
-    fg = sheared_fg(pm)
+# the shock builds' shapes: the last two are not multiples of the column,
+# and the last also breaks every edge of the x-march (FLAGSHIP_SHAPES)
+AUX_SHAPES = ((64, 64, 64), (32, 64, 128), (16, 24, 40), (24, 20, 42))
+AUX_IDS = ("64^3", "32x64x128", "16x24x40", "24x20x42")
+
+
+def _aux_kernels_match_plain(cuda, cfg, rtol):
+    """K4 and K5 (the shear box) or K1s and K5w (the shocked box) against
+    their plain versions: each field within ``rtol`` × its max."""
+    pm = pt.Model(cfg, device=cuda)
+    if pm.mode == "zroll":
+        make, names = sheared_fg, ("rhs_zroll", "rhs_zroll_upd")
+    else:
+        make, names = shocked_fa, ("rhs_wrap_shock", "rhs_wrap_shock_upd")
+    first, upd = (getattr(fr, k) for k in names)
+    first_p, upd_p = (getattr(fr, k + "_plain") for k in names)
+    fg = make(pm)
+    assert float(fg[7].max()) > 0.0
     fr.reset_launches()
-    df, dt1m = fr.rhs_zroll(pm, fg)
-    df_p, dt1m_p = fr.rhs_zroll_plain(pm, fg)
+    df, dt1m = first(pm, fg)
+    df_p, dt1m_p = first_p(pm, fg)
     torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
-    assert_field_close(df, df_p, "df (K4)")
     alpha, beta, _ = pm.rk
     coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
-    fg2 = sheared_fg(pm, seed=5)
-    df2, f2 = fr.rhs_zroll_upd(pm, fg2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_zroll_upd_plain(pm, fg2, df_p.clone(), coef)
+    fg2 = make(pm, seed=5)
+    got = {"df": df}
+    want = {"df": df_p}
+    got["df2"], got["f2"] = upd(pm, fg2, df_p.clone(), coef)
+    want["df2"], want["f2"] = upd_p(pm, fg2, df_p.clone(), coef)
     torch.cuda.synchronize()
-    assert_field_close(df2, df2_p, "df (K5)")
-    assert_field_close(f2, f2_p, "f (K5)")
-    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zroll=1,
-                               rhs_zroll_upd=1)
+    for name in got:
+        for c in range(7):
+            err = float((got[name][c] - want[name][c]).abs().max())
+            assert err <= rtol * max(float(want[name][c].abs().max()),
+                                     1e-30), (name, c, err)
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               **dict.fromkeys(names, 1))
+
+
+@pytest.mark.parametrize("shape", AUX_SHAPES, ids=AUX_IDS)
+def test_zroll_kernels_match_plain(cuda, shape):
+    """K4 and K5 against their plain versions."""
+    _aux_kernels_match_plain(cuda, shear_box(shape), RTOL_FIELD)
 
 
 def test_shear_box_steps_on_card_match_cpu(cuda):
@@ -549,29 +626,11 @@ def shocked_fa(pm, seed=4):
     return pm._refresh_aux_fa(fa)
 
 
-@pytest.mark.parametrize("shape", ((64, 64, 64), (32, 64, 128),
-                                   (16, 24, 40)),
-                         ids=("64^3", "32x64x128", "16x24x40"))
+@pytest.mark.parametrize("shape", AUX_SHAPES, ids=AUX_IDS)
 def test_shock_kernels_match_plain(cuda, shape):
-    """K1s and K5w against their plain versions; the last shape is not a
-    multiple of the tile."""
-    pm = pt.Model(shock_box(shape), device=cuda)
-    fa = shocked_fa(pm)
-    assert float(fa[7].max()) > 0.0
-    fr.reset_launches()
-    df, dt1m = fr.rhs_wrap_shock(pm, fa)
-    df_p, dt1m_p = fr.rhs_wrap_shock_plain(pm, fa)
-    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
-    assert_field_close(df, df_p, "df (K1s)")
-    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
-    fa2 = shocked_fa(pm, seed=5)
-    df2, f2 = fr.rhs_wrap_shock_upd(pm, fa2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_wrap_shock_upd_plain(pm, fa2, df_p.clone(), coef)
-    torch.cuda.synchronize()
-    assert_field_close(df2, df2_p, "df (K5w)")
-    assert_field_close(f2, f2_p, "f (K5w)")
-    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
-                               rhs_wrap_shock=1, rhs_wrap_shock_upd=1)
+    """K1s and K5w against their plain versions, within 1e-6 of each
+    field's max (chip_smoke.py's bound)."""
+    _aux_kernels_match_plain(cuda, shock_box(shape), 1e-6)
 
 
 def test_shock_box_steps_on_card_match_cpu(cuda):

@@ -147,12 +147,20 @@ def test_every_kernel_has_its_tables(kernel):
 
 def test_flagship_operation_counts_follow_the_kernels():
     """The bound counts what the kernels do: the diagonal pairs factored
-    (14 operations a mixed derivative, not 23), the kick without its
-    hoisted sin/cos and amplitudes."""
+    (14 operations a mixed derivative, not 23) in every build of the
+    flagship template, the kick without its hoisted sin/cos and
+    amplitudes."""
     assert cs.DMIX_FACTORED == 14 and cs.DMIX == 23
     assert cs.KICK_OPS == 21
     assert cs.FLAGSHIP_RHS == 21 * cs.D1 + 18 * cs.D2 \
         + 12 * cs.DMIX_FACTORED + 174
     assert cs.OPS["rhs_tail_last"] - cs.OPS["rhs_tail_mid"] == cs.KICK_OPS
-    # the other templates keep stencil.cuh's sums
-    assert cs.SHOCKBOX_RHS == 24 * cs.D1 + 18 * cs.D2 + 12 * cs.DMIX + 198
+    # the shock builds of the same template sum the same way; their del6
+    # is summed as a second derivative is (13 a scaled 6th difference),
+    # then 2 sums, the coefficient's product and the join per component
+    assert cs.SHOCKBOX_RHS == 24 * cs.D1 + 18 * cs.D2 \
+        + 12 * cs.DMIX_FACTORED + 198
+    assert cs.SHEARBOX_RHS == cs.SHOCKBOX_RHS + 21 * cs.D2 + 14 + 14 \
+        + 15 + 22
+    # the zghost template keeps stencil.cuh's sums
+    assert cs.CONVSLAB_RHS == 15 * cs.D1 + 15 * cs.D2 + 6 * cs.DMIX + 204
