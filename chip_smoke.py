@@ -5,10 +5,11 @@ K8 memory floor), forced hydro turbulence on the same template's 4-field
 build (K1h-K3h, K3′h, K2Lh), non-isothermal forced turbulence on its
 entropy builds (K1e-K2Le with Magnetic, K1he-K2Lhe without) and through
 the run loop (``simulate``: time_series.dat, checkpoints, a bit-exact
-restart), stratified convection with a non-periodic z (kernels K6, K7),
-the sheared, rotating MHD box with shock viscosity and hyper-diffusion
-(kernels K4, K5) and the shocked periodic box (kernels K1s, K5w), these
-four on the same template's two shock builds.
+restart), stratified convection with a non-periodic z (kernels K6, K7,
+on the template's z-ghosted build), the sheared, rotating MHD box with
+shock viscosity and hyper-diffusion (kernels K4, K5) and the shocked
+periodic box (kernels K1s, K5w), these four on the same template's two
+shock builds.
 
     python3 chip_smoke.py
 
@@ -17,8 +18,9 @@ Phases, each printing its own lines:
      build (one nvcc per csrc/*.cu, all at once);
   2. each fused kernel against its plain PyTorch version on the same CUDA
      inputs at 64³ and 32×64×128, the flagship template's instances also
-     at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s
-     and K5w also at 16×24×40 and 24×20×42 (each field
+     at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s,
+     K5w, K6 and K7 also at 16×24×40 and 24×20×42, K6 and K7 at 32³ too
+     (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
      the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
      variants bit for bit; the CFL maximum within 1e-6 relative; the
@@ -36,7 +38,8 @@ Phases, each printing its own lines:
      just before each path's timed steps and read just after: the
      flagship with exactly one launch of K1, K2, K3 per step, forced
      hydro with one of K1h, K2h, K3h, the conv-slab layer with one K6 and
-     two K7, the shear box with one K4 and two K5, the shock box with one
+     two K7 (timed in 5 windows of 20 steps, their spread printed), the
+     shear box with one K4 and two K5, the shock box with one
      K1s and two K5w, the flagship at order 4 with K1, K2, two K3′ and K3,
      at order 2 with K1 and K2L (forced hydro and both entropy sets
      likewise with their builds), and the K8 chain (Model(fake_rhs=True))
@@ -49,8 +52,12 @@ Phases, each printing its own lines:
      first run's fields bit for bit;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
-     256³; for each instance of the flagship template (csrc/fused_rhs.cu,
-     all six builds, the shock builds' with and without rotation) its
+     256³, and the conv-slab step's split (K6, K7, the z-halo fills, the
+     boundary-plane writeback, the glue: each part's device time from
+     one torch.profiler trace, its host issue time from a run without
+     it); for each instance of the
+     flagship template (csrc/fused_rhs.cu, all seven builds, the shock
+     builds' with and without rotation) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
@@ -132,23 +139,20 @@ REPLACES = {
 REPLACES.update({k + sfx: REPLACES[k]
                  for k in FLAGSHIP_KERNELS + TAIL_KERNELS
                  for sfx in ("_hydro", "_ent", "_hydro_ent")})
-SOURCES = {k: "pencil_tpu_torch/csrc/" + src for src, ks in (
-    ("fused_rhs.cu", FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
-     + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS + ZROLL_KERNELS
-     + SHOCK_KERNELS),
-    ("zghost_rhs.cu", ZGHOST_KERNELS)) for k in ks}
+# every kernel is an instance of the flagship template
+SOURCES = dict.fromkeys(KERNEL_NAMES, "pencil_tpu_torch/csrc/fused_rhs.cu")
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
-# Operations per grid point, counted from the kernels' sources (csrc/*.cu,
-# stencil.cuh): a scaled paired first derivative is 9 (3 differences, 3
-# products, 2 sums, the 1/dx), a scaled second or 6th difference 13, a
-# bidiagonal mixed derivative 23 (12 products, 11 sums), the pointwise
-# physics of each module as written, a transcendental, root or division
-# counted as one; terms that this run's coefficients switch off are left
-# out.  The flagship template (csrc/fused_rhs.cu, all its builds, the
-# shock builds too) joins each weighted term to its sum by one FMA, still
+# Operations per grid point, counted from the kernels' source
+# (csrc/fused_rhs.cu): a scaled paired first derivative is 9 (3
+# differences, 3 products, 2 sums, the 1/dx), a scaled second or 6th
+# difference 13, a bidiagonal mixed derivative in the JAX package's form
+# 23 (12 products, 11 sums), the pointwise physics of each module as
+# written, a transcendental, root or division counted as one; terms that
+# this run's coefficients switch off are left out.  The flagship template
+# (all its builds) joins each weighted term to its sum by one FMA, still
 # two operations, so its first and second derivatives count the same, and
 # a scaled 6th difference, summed as the second derivative is, 13 too; it
 # sums the four taps of a diagonal offset before their one weight
@@ -179,7 +183,10 @@ SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX_FACTORED + 198
 # plus del6 of 7 components (21 scaled 6th differences and their sums),
 # the hyper-diffusive terms, Coriolis and the shear terms
 SHEARBOX_RHS = SHOCKBOX_RHS + 21 * D2 + 14 + 14 + 15 + 22
-CONVSLAB_RHS = 15 * D1 + 15 * D2 + 6 * DMIX + 204
+# the conv-slab (the z-ghosted build): ∇u, ∇lnρ, ∇s, the Laplacians of
+# u, lnρ and s, grad div u; pointwise the EOS, pressure and gravity, the
+# viscous force and heat, K-const conduction and the two layers
+CONVSLAB_RHS = 15 * D1 + 15 * D2 + 6 * DMIX_FACTORED + 204
 OPS = {
     "rhs_first": FLAGSHIP_RHS + 26,
     "rhs_tail_defer": FLAGSHIP_RHS + 7 * (REBUILD + UPD),
@@ -466,17 +473,18 @@ def stratified_fa(torch, pm, seed):
 
 
 def compare_zghost_kernels(torch, pt, fr, shape, errs):
-    """Phase 2: K6 and K7 against their plain versions on CUDA inputs."""
+    """Phase 2: K6 and K7 against their plain versions on CUDA inputs: the
+    interior stack, its boundary planes pinned, and its z-halo slabs."""
     pm = pt.Model(pt.configs.conv_slab(shape), device="cuda")
-    fg = pm.ghosted(stratified_fa(torch, pm, 1))
+    inp = pm.z_slabs(stratified_fa(torch, pm, 1))
     fr.reset_launches()
-    df, dt1m = fr.rhs_zg(pm, fg)
-    df_p, dt1m_p = fr.rhs_zg_plain(pm, fg)
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = fr.rhs_zg_plain(pm, *inp)
     alpha, beta, _ = pm.rk
     coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
-    fg2 = pm.ghosted(stratified_fa(torch, pm, 2))
-    df2, f2 = fr.rhs_zg_upd(pm, fg2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, fg2, df_p.clone(), coef)
+    inp2 = pm.z_slabs(stratified_fa(torch, pm, 2))
+    df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, *inp2, df_p.clone(), coef)
     torch.cuda.synchronize()
     counts = {k: fr.LAUNCHES[k] for k in ZGHOST_KERNELS}
     check(counts == {"rhs_zg": 1, "rhs_zg_upd": 1},
@@ -638,10 +646,11 @@ def main():
     for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
-        compare_zghost_kernels(torch, pt, fr, shape, errs)
     for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE):
         compare_zroll_kernels(torch, pt, fr, shape, errs)
         compare_shock_kernels(torch, pt, fr, shape, errs)
+        compare_zghost_kernels(torch, pt, fr, shape, errs)
+    compare_zghost_kernels(torch, pt, fr, (32, 32, 32), errs)
     compare_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     compare_tail_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     n32 = (32, 32, 32)
@@ -700,8 +709,7 @@ def main():
     for path in (hy, em, eh):
         time_flagship(torch, fr, smi, path, errs, timings, bounds)
         time_tails(torch, fr, path, errs, timings, bounds)
-    for lib in ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
-                "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear"):
+    for lib in _build.LIBRARIES:
         for inst, a in fr.flagship_attrs(lib).items():
             check(a["local_bytes"] == 0,
                   f"{inst}: {a['local_bytes']} B of local memory")
@@ -901,12 +909,42 @@ def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):
     return ms_step
 
 
+# windows of TIMED steps of the conv-slab path in phase 3: its step is
+# bound by the host's issue rate, which varies from run to run
+CONV_SLAB_WINDOWS = 5
+
+
 def run_conv_slab(torch, pt, fr, smi, shape, launches):
-    """Phase 3, second path: stratified convection, non-periodic z."""
+    """Phase 3, second path: stratified convection, non-periodic z; the
+    step timed in CONV_SLAB_WINDOWS windows one after the other, the
+    launches counted in the first."""
     base = torch.cuda.memory_allocated()
     model = pt.Model(pt.configs.conv_slab(shape), device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches("conv-slab", counts, launches)
+    step = model.make_step()
+    windows, issue = [ms_step], []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(CONV_SLAB_WINDOWS - 1):
+        torch.cuda.set_sync_debug_mode("error")
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(TIMED):
+            state = step(state)
+        issue.append((time.perf_counter() - t0) * 1e3 / TIMED)
+        e1.record()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        windows.append(e0.elapsed_time(e1) / TIMED)
+    ms_step = sorted(windows)[len(windows) // 2]
+    print(f"phase 3 {N_MAIN}^3 conv-slab on {smi}: {len(windows)} windows "
+          f"of {TIMED} steps: " + ", ".join(f"{w:.4f}" for w in windows)
+          + f" ms/step; median {ms_step:.4f}, spread "
+          f"{max(windows) - min(windows):.4f} ms "
+          f"({(max(windows) / min(windows) - 1) * 100:.2f} %); the host "
+          f"issued windows 2-{CONV_SLAB_WINDOWS} in "
+          + ", ".join(f"{w:.4f}" for w in issue) + " ms/step", flush=True)
     fa = state["_fa"]
     check(tuple(fa.shape) == (5,) + shape, f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
@@ -1143,35 +1181,154 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
     """K6/K7 checked and timed on the stratified noisy input of phase 2 at
     256³, not on the main path's state: there uz's tendency is the small
     residual of the O(1) pressure and gravity forces, and the f32 rounding
-    of those forces alone reaches 2e-5 of its max."""
+    of those forces alone reaches 2e-5 of its max.  Then the step's split:
+    its kernels, its three z-halo fills, the boundary-plane writeback and
+    the glue (the axpy, dt, the RK coefficients), on the card and on the
+    host, from one torch.profiler trace (``conv_slab_split``)."""
     model, state, ms_step = zg
     fa = state["_fa"]
-    fg = model.ghosted(stratified_fa(torch, model, 3))
+    inp = model.z_slabs(stratified_fa(torch, model, 3))
     _, beta, _ = model.rk
-    df1, dt1m = fr.rhs_zg_plain(model, fg)
+    df1, dt1m = fr.rhs_zg_plain(model, *inp)
     coef = torch.stack((model._alpha[1], beta[1] / dt1m))
-    _, prof_c, prof_h = fr.zg_params(model)
-    time_pairs(torch, "rhs_zg", lambda: fr.rhs_zg(model, fg),
-               lambda: fr.rhs_zg_plain(model, fg), errs, timings, bounds,
-               [fg, prof_c, prof_h])
+    prof = fr.zg_profiles(model)
+    time_pairs(torch, "rhs_zg", lambda: fr.rhs_zg(model, *inp),
+               lambda: fr.rhs_zg_plain(model, *inp), errs, timings, bounds,
+               [*inp, *prof])
     # K7 writes the new df over df_prev: checked on fresh copies of df1,
     # timed on one buffer that each call keeps updating in place
     scratch = df1.clone()
     time_pairs(
-        torch, "rhs_zg_upd", lambda: fr.rhs_zg_upd(model, fg, scratch, coef),
-        lambda: fr.rhs_zg_upd_plain(model, fg, scratch, coef), errs, timings,
-        bounds, [fg, prof_c, prof_h, df1, coef],
-        fresh=(lambda: fr.rhs_zg_upd(model, fg, df1.clone(), coef),
-               lambda: fr.rhs_zg_upd_plain(model, fg, df1.clone(), coef)))
-    del df1, scratch, fg
+        torch, "rhs_zg_upd",
+        lambda: fr.rhs_zg_upd(model, *inp, scratch, coef),
+        lambda: fr.rhs_zg_upd_plain(model, *inp, scratch, coef), errs,
+        timings, bounds, [*inp, *prof, df1, coef],
+        fresh=(lambda: fr.rhs_zg_upd(model, *inp, df1.clone(), coef),
+               lambda: fr.rhs_zg_upd_plain(model, *inp, df1.clone(), coef)))
+    del df1, scratch, inp
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
     plain_ms = time_ms(torch, lambda: model._zghost_step(
         plain_state, (fr.rhs_zg_plain, fr.rhs_zg_upd_plain)), 3)
-    ghost_ms = time_ms(torch, lambda: model.ghosted(fa), 20)
     print(f"phase 4 conv-slab plain chain at 256^3 on {smi}: {plain_ms:.4f} "
-          f"ms/step (kernel chain {ms_step:.4f} ms/step); one fill_ghosts "
-          f"{ghost_ms:.4f} ms", flush=True)
+          f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
+    dev, host, lost = conv_slab_split(torch, fr, model, state, 3)
+    busy = sum(d for d, _ in dev.values())
+    head = f"phase 4 conv-slab step split at 256^3 on {smi} (3 steps)"
+    if not busy:
+        print(f"{head}: device time not measured (torch.profiler recorded "
+              f"none)", flush=True)
+        return
+    print(f"{head}: device ms a step from torch.profiler's records under "
+          f"each part's range, in so many kernels a step, and the host's "
+          f"ms to issue the part (perf_counter, a run without the "
+          f"profiler): "
+          + "; ".join(f"{k} {d:.4f} ms in {c:g} kernels, host {host[k]:.4f}"
+                      for k, (d, c) in dev.items())
+          + f"; the card busy {busy:.4f} ms of the {ms_step:.4f} ms step "
+          f"(idle {(1 - busy / ms_step) * 100:.1f} %), the host "
+          f"{host['step']:.4f} ms to issue it"
+          + (f"; {lost} device records matched no launch" if lost else ""),
+          flush=True)
+
+
+# the conv-slab step's parts: the step's call -> its name in the split
+ZG_PARTS = {"rhs_zg": "K6", "rhs_zg_upd": "K7 x2", "z_slabs": "z_slabs x3",
+            "bc_writeback": "bc_writeback"}
+
+
+def conv_slab_split(torch, fr, model, state, n):
+    """The conv-slab step from ``state`` split into its parts, each under
+    a torch.profiler range: ({part: (device ms, kernels)}, {part: host
+    ms}, device records whose launch was not found), each a step's mean
+    over n steps.  A device record belongs to the innermost range in
+    which the host launched it (the runtime call that shares its
+    correlation id, else the op it is linked to); "glue" (the axpy, dt,
+    RK coefficients, the copy of the input) is what the step's range
+    launched outside every part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    parts = list(ZG_PARTS.values())
+    spent = dict.fromkeys(parts + ["step"], 0.0)
+
+    def ranged(name, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            with record_function(name):
+                out = fn(*a)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    # instance attributes shadow the methods that _zghost_step calls
+    model.z_slabs = ranged(ZG_PARTS["z_slabs"], model.z_slabs)
+    model.bc_writeback = ranged(ZG_PARTS["bc_writeback"], model.bc_writeback)
+    kernels = (ranged(ZG_PARTS["rhs_zg"], fr.rhs_zg),
+               ranged(ZG_PARTS["rhs_zg_upd"], fr.rhs_zg_upd))
+    step = ranged("step", lambda: model._zghost_step(state, kernels))
+    try:
+        step()
+        torch.cuda.synchronize()
+        spent.update(dict.fromkeys(spent, 0.0))
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        host = {k: v * 1e3 / n for k, v in spent.items()}
+        host["glue"] = host["step"] - sum(host[k] for k in parts)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        del model.z_slabs, model.bc_writeback
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in cpu
+              if e.name in spent]
+    runtime = {e.id: e.time_range.start for e in cpu
+               if e.name.startswith("cu")}
+    ops = {e.id: e.time_range.start for e in cpu
+           if not e.name.startswith("cu")}
+    dev = {k: [0.0, 0] for k in parts + ["glue"]}
+    lost = 0
+    for e in device_records(torch, events):
+        t = runtime.get(e.id,
+                        ops.get(getattr(e, "linked_correlation_id", 0)))
+        inner = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+        if not inner:
+            lost += 1
+            continue
+        name = min(inner, key=lambda r: r[1] - r[0])[2]
+        d = dev["glue" if name == "step" else name]
+        d[0] += e.device_time_total / 1e3 / n
+        d[1] += 1 / n
+    return {k: tuple(v) for k, v in dev.items()}, host, lost
+
+
+def device_records(torch, events):
+    """The device's kernel, copy and fill records among torch.profiler's
+    events (without the ranges it mirrors on the device)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_busy(torch, fn, n):
+    """(ms of device time per call, kernels per call) of fn() over n
+    calls, from torch.profiler's kernel records; (0, 0) where it records
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_records(torch, prof.events())
+    busy = sum(e.device_time_total for e in kernels)
+    return busy / 1e3 / n, len(kernels) // n
 
 
 def time_aux_box(torch, fr, smi, box, errs, timings, bounds):

@@ -21,7 +21,18 @@
 // nz), and add the Shear module's terms.  These two builds replace the
 // `kernel` / `kernel_upd` calls with an aux slot (model.py:576-730, wrap
 // and zroll fetches) and have no DEFER, LAST, KICK or FAKE instance: the
-// shock pre-pass rebuilds the slot between substeps.
+// shock pre-pass rebuilds the slot between substeps.  Built with -DPC_ZG=1
+// (with -DPC_MAG=0 -DPC_ENT=1) it gives stratified convection's K6
+// (pc_rhs_first) and K7 (pc_rhs_tail_mid) on the 5 fields uu, lnrho, ss:
+// the entropy-hydro terms with K-const conduction and viscous heating
+// compiled in, constant gravity on uz, and the cooling and heating layers,
+// whose profiles depend on z alone; z has physical boundaries.  Its march
+// reads the body rows from the interior stack, x and y wrapped as in the
+// periodic builds, and the three z-ghost cells below z = 0 and above z =
+// nz - 1 from two slabs (5, nx, ny, NG), zlo and zhi, that a z-only ghost
+// fill cut (the split of JAX's `_fetch_zg`): only the halo lanes of the
+// blocks at the two z ends read a slab.  No DEFER, LAST, KICK or FAKE
+// instance either.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -48,6 +59,9 @@
 //   K8  pc_rhs_*_fake          <- the `PC_FAKE_RHS` branch of `body`
 //                                 (:127-133): K1, K2 and K3's loads and
 //                                 stores with RHS(f) = f*1.0000001, dt1 = 0
+//   K6  pc_rhs_first (PC_ZG)   <- `kernel_zg` + `_fetch_zg` (:317, :301)
+//   K7  pc_rhs_tail_mid (PC_ZG) <- `kernel_zg_upd` (:349): df written over
+//                                 df_prev, f = f + bdt*df
 //
 // What bounds them on an H100: every kernel is a stencil over all 7 fields
 // (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
@@ -58,14 +72,17 @@
 // so by the roofline device memory is the bound.  The shock builds read
 // 8 slots and write 7 fields (K1s, K4: 60 B a point, K4's ghosted input a
 // little more; K5w, K5: 116 B) in 0.30-0.59 ms, and do ~850 operations a
-// point (K4, K5 with del6 of 7 fields: ~1,190, 0.30 ms).  That rate
+// point (K4, K5 with del6 of 7 fields: ~1,190, 0.30 ms).  The z-ghosted
+// build reads 5 fields and the slabs (0.5 B a point at 256^3) and writes
+// 5 (K6: 40.5 B, 0.21 ms) or reads df_prev and writes 10 (K7: 80.5 B,
+// 0.41 ms), ~750 operations a point.  That rate
 // assumes that every instruction is an FMA, and what these kernels are
 // held by comes before it: the instructions they issue.  Counted in the
 // SASS (sass_counts.py), K1 issues 1,169 instructions per point at 256^3,
 // of which 628 FP32, 249 shared-memory loads and 213 integer and address
 // arithmetic (K3: 1,215; K2: 1,333; K1s 1,301, K5w 1,346, K4 1,488, K5
-// 1,523; before the redesign of this phase K1 issued 1,658: 832 FP32, 298
-// loads); 132 SMs x 4 schedulers x 32 lanes
+// 1,523, K6 990, K7 989; before the redesign of this phase K1 issued
+// 1,658: 832 FP32, 298 loads); 132 SMs x 4 schedulers x 32 lanes
 // at 1.98 GHz issue them in 0.59 ms, above the 0.28 ms of its bytes, and
 // the shared-memory loads alone (one warp's worth per SM and clock) take
 // 0.50 ms.  The kernels reach ~0.6 instructions per scheduler and
@@ -123,9 +140,10 @@
 // measured: at 128 registers a thread K2, K3 and K2L spill, and K1, which
 // does not, is still 5 % slower than one group with 255.
 // Outputs go to buffers no block reads halos from (blocks run in any
-// order, so an aliased write would race), except the df of K3', which
-// overwrites df_prev: each point reads df_prev only at itself, and its
-// copy of a plane's df_prev lands before it stores there.
+// order, so an aliased write would race), except the df of K3' (K5, K5w,
+// K7), which overwrites df_prev: each point reads df_prev only at itself,
+// and its copy of a plane's df_prev lands (cp.async.wait_group at the top
+// of the step that computes the plane) before it stores there.
 //
 // Parity: the stencil sums form their differences first, round to nearest
 // and follow the JAX package's term order up to the FMA and the factored
@@ -150,12 +168,20 @@
 #ifndef PC_SHEAR
 #define PC_SHEAR 0     // 1: the shear box's ghosted source and terms (K4, K5)
 #endif
+#ifndef PC_ZG
+#define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7)
+#endif
 #if PC_SHOCK && (PC_ENT || !PC_MAG)
 #error "the shock builds take the isothermal MHD layout"
 #endif
 #if PC_SHEAR && !PC_SHOCK
 #error "the shear build is a shock build"
 #endif
+#if PC_ZG && (!PC_ENT || PC_MAG || PC_SHOCK || PC_SHEAR)
+#error "the z-ghosted build takes the entropy-hydro layout"
+#endif
+// the builds with the DEFER, LAST and KICK instances
+#define PC_TAILS (!PC_SHOCK && !PC_ZG)
 // ux uy uz lnrho [ss] [ax ay az] [shock] (registry order)
 #define NC (4 + PC_ENT + (PC_MAG ? 3 : 0) + PC_SHOCK)
 #define NV (NC - PC_SHOCK)     // evolved fields: the shock slot is only read
@@ -216,17 +242,33 @@ struct PcParams {
   float w6[3];     // 6th difference, paired weights o = 1..3
   float inv6[3];   // 1/dx^6, 1/dy^6, 1/dz^6 as x^2*x^4 in f32
   float S;
+  // the z-ghosted build (PC_ZG): gravity on uz, the cooling layer
+  // cool*prof_c*(cs2 - cs2c)/(cs2c rho T) and the heating layer
+  // heat_norm*prof_h/(rho T)
+  float gravz, cool, cs2c, heat_norm;
+};
+
+// The z-ghosted build's inputs beside the interior stack: the z-halo slabs
+// (NV, nx, ny, NG) below z = 0 and above z = nz - 1, and the cooling and
+// heating profiles (nz; zeros where a layer is off).  The other builds
+// pass none.
+struct ZgIn {
+  const float* zlo;
+  const float* zhi;
+  const float* prof_c;
+  const float* prof_h;
 };
 
 // ---- the template's own stencil sums --------------------------------------
-// The paired sums of stencil.cuh on values instead of addresses, so that
+// The paired sums of the JAX stencils (pencil_tpu/ops/stencil.py:145-184,
+// :277-328) on values instead of addresses, so that
 // the x taps can come from registers, and with fewer instructions: each
 // weighted term joins its sum by one FMA, and the four taps of a diagonal
 // offset, whose weights are +-one value, are summed before that value
 // multiplies them: 6, 10 and 12 instructions for d1, d2 and dmix instead
 // of 8, 12 and 23.  Differences are still formed first, so a constant
-// field gives exactly zero; the rounding differs from stencil.cuh's sums
-// by less than 1e-6 of a field's maximum.
+// field gives exactly zero; the rounding differs from sums in the JAX
+// order by less than 1e-6 of a field's maximum.
 
 // sum_o w_o*(p_o - m_o)
 __device__ __forceinline__ float sum1(float p1, float m1, float p2, float m2,
@@ -300,7 +342,7 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
 #if PC_SHOCK
 // del6 of one field at one point: the 6th difference has the even paired
 // form of the second derivative (weights 15, -6, 1), so dj2 with w6 sums it,
-// differences first; the three axes join in stencil.cuh's order
+// differences first; the three axes join in the JAX order
 __device__ __forceinline__ float del6(const float* p, const float* x,
                                       const PcParams& P) {
   float acc = __fmul_rn(dj2(p, x, 0, P.w6), P.inv6[0]);
@@ -326,11 +368,17 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // hyper-diffusion terms of u, A and lnrho, all three, a coefficient of 0
 // adding 0 (a flag as ROT is, picked on the host: without it the shocked
 // box's K1s and K5w measured 4-5 % faster; testing each coefficient inside
-// made K4 and K5 4-6 % slower).
+// made K4 and K5 4-6 % slower).  The z-ghosted build adds gravity after
+// the pressure force and the layer terms after the heating, in the order
+// of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
+// point's cooling profile, lay_h heat_norm times its heating profile, and
+// its conduction and heating terms are compiled in (no test of a
+// coefficient: a layer that is off has a profile of zeros).
 template <bool WANT_DT1, bool ROT, bool H3>
 __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
                                              const PcParams& P, float xn,
+                                             float lay_c, float lay_h,
                                              float* r, float& dt1) {
   const float u[3] = {xt[0][NG], xt[1][NG], xt[2][NG]};
   const float lnrho = xt[LNRHO][NG];
@@ -404,6 +452,9 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     for (int a = 0; a < 3; ++a)
       duu[a] = __fadd_rn(duu[a], __fmul_rn(-2.0f, c[a]));
   }
+#if PC_ZG
+  duu[2] = duu[2] + P.gravz;   // constant gravity
+#endif
 #if PC_SHEAR
   // shear: -S x d/dy of every evolved field, duy -= S ux (dAx -= S Ay
   // joins where grad A is formed)
@@ -533,7 +584,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   // Ohmic heating
   float ds = -((u[0] * gs[0] + u[1] * gs[1]) + u[2] * gs[2]);
   float chik = 0.0f;   // the K-const CFL rate K gamma/(rho cp) at this point
-  if (P.hcond0 > 0.0f || P.cpchi > 0.0f) {
+  if (PC_ZG || P.hcond0 > 0.0f || P.cpchi > 0.0f) {
     float gt[3], d2l = 0.0f, d2s = 0.0f;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -546,24 +597,29 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
       d2s = (a == 0) ? s2 : d2s + s2;
     }
     const float del2lnTT = P.gm1 * d2l + P.g_cp * d2s;
-    if (P.hcond0 > 0.0f) {
+    if (PC_ZG || P.hcond0 > 0.0f) {
       const float glnTT2 = (gt[0] * gt[0] + gt[1] * gt[1]) + gt[2] * gt[2];
       const float krho1 = P.hcond0 * rho1;
       ds = ds + krho1 * (del2lnTT + glnTT2);
       chik = (krho1 / P.cp) * P.gamma;
     }
-    if (P.cpchi > 0.0f) {
+    if (!PC_ZG && P.cpchi > 0.0f) {
       const float gdot = (gt[0] * (gt[0] + gl[0]) + gt[1] * (gt[1] + gl[1]))
                          + gt[2] * (gt[2] + gl[2]);
       ds = ds + P.cpchi * (del2lnTT + gdot);
     }
   }
-  if (P.two_nu > 0.0f) ds = ds + (P.two_nu * sij2) * TT1;
+  if (PC_ZG || P.two_nu > 0.0f) ds = ds + (P.two_nu * sij2) * TT1;
 #if PC_MAG
   if (P.eta_heat > 0.0f) {
     const float j2 = (jj[0] * jj[0] + jj[1] * jj[1]) + jj[2] * jj[2];
     ds = ds + ((P.eta_heat * j2) * rho1) * TT1;
   }
+#endif
+#if PC_ZG
+  // the cooling layer, then the heating layer
+  ds = ds - ((((rho1 * TT1) * P.cool) * lay_c) * (cs2 - P.cs2c)) / P.cs2c;
+  ds = ds + (lay_h * rho1) * TT1;
 #endif
   r[SS] = ds;
 #endif
@@ -596,6 +652,11 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     float dif = has_dif ? (md * P.dxyz2) / P.cdtv : 0.0f;
     if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
     dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
+#elif PC_ZG
+    // max(nu, K gamma/(rho cp)) at this point (maxdif = nu): with nothing
+    // diffusive dif = 0 and the root gives dt1a exactly
+    const float dif = (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv;
+    dt1 = sqrtf(dt1a * dt1a + dif * dif);
 #elif PC_ENT
     // the K-const rate varies from point to point
     const float dif = P.hcond0 > 0.0f
@@ -712,6 +773,51 @@ __device__ __forceinline__ void copy_rows(
   }
 }
 
+#if PC_ZG
+// The z-ghosted build's source of one copy of the row plan, fixed for the
+// thread: for the row position d of the column at bz, its z in fa (x
+// planes of ny*nz floats, the row table at 0), or in the slab zlo or zhi
+// (planes of ny*NG, the slabs' row table at NROWS) where that z lies
+// below 0 or at nz and above.  A z past nz + NG - 1 feeds only points
+// outside the grid, and a lane without that copy issues none: both read a
+// clamped cell.
+struct ZgSrc {
+  const float* base;   // the copy's z at x = 0, row offset 0
+  size_t pstride;      // floats per x plane
+  int tab;             // its row table's offset in rowg
+};
+
+__device__ __forceinline__ ZgSrc zg_source(int d, int bz, const PcParams& P,
+                                           const float* fa, const ZgIn& zg) {
+  const int z = bz + d - ZOFF;
+  const size_t slab = (size_t)P.ny * NG;
+  if (z < 0) return {zg.zlo + max(z + NG, 0), slab, NROWS};
+  if (z >= P.nz) return {zg.zhi + min(z - P.nz, NG - 1), slab, NROWS};
+  return {fa + z, (size_t)P.ny * P.nz, 0};
+}
+
+// copy_rows of the z-ghosted build: f0 and f1 are the plane of each copy's
+// own source, t0 and t1 its row table.
+template <bool VEC>
+__device__ __forceinline__ void copy_rows_zg(
+    const RowCopy& rc, const long long* rowg, const int* rowd, unsigned dst0,
+    unsigned dst1, const float* f0, const float* f1, int t0, int t1) {
+  constexpr int per = NTHREADS / (VEC ? 16 : 32);
+  constexpr int trips = (NROWS + per - 1) / per;
+#pragma unroll
+  for (int k = 0; k < trips; ++k) {
+    const int r = rc.r0 + k * per;
+    const bool ok = r < NROWS;
+    const int rr = ok ? r : rc.r0;
+    const long long g = rowg[t0 + rr];
+    const unsigned d = rowd[rr];
+    if (VEC) cp_async16(dst0 + d, f0 + g, ok && rc.p16);
+    cp_async4(dst0 + d, f0 + g, ok && rc.p4);
+    if (!VEC) cp_async4(dst1 + d, f1 + rowg[t1 + rr], ok && rc.p4b);
+  }
+}
+#endif
+
 // Shared memory of an instance, in floats: the ring; with DEFER, NS
 // staging slots of df1's planes; in the other tails, NQ slots of each
 // point's own df_prev (no halo) of the planes in flight.  Past ~196 KB
@@ -734,10 +840,11 @@ __host__ __device__ constexpr int smem_floats() {
          + (!FIRST && !DEFER ? NQ * NV * NTHREADS : 0);
 }
 
-// Static shared memory, in bytes, at most: the row table, the kick's
-// sin/cos per plane, block_max_store's red[].  227 KB is what one block
-// may use on Hopper.
-#define STATIC_SMEM (12 * NROWS + 8 * MX + 4 * (NTHREADS / 32) + 64)
+// Static shared memory, in bytes, at most: the row table (PC_ZG: two, fa's
+// and the slabs'), the kick's sin/cos per plane, block_max_store's red[].
+// 227 KB is what one block may use on Hopper.
+#define STATIC_SMEM ((12 + 8 * PC_ZG) * NROWS + 8 * MX + 4 * (NTHREADS / 32) \
+                     + 64)
 // Two blocks per SM where two rings fit under the ~196 KB carve-out (the
 // 4-field K1; each block with the 1 KB the system keeps): those instances
 // are held to 128 registers.
@@ -746,7 +853,7 @@ __host__ __device__ constexpr int min_blocks() {
   return 2 * (4 * smem_floats<FIRST, DEFER>() + STATIC_SMEM + 1024) <= 200704
       ? 2 : 1;
 }
-static_assert(PC_SHOCK   // no DEFER instance in the shock builds
+static_assert(!PC_TAILS  // no DEFER instance in the shock and zg builds
               || 4 * smem_floats<false, true>() + STATIC_SMEM <= 232448,
               "DEFER ring");
 static_assert(4 * smem_floats<false, false>() + STATIC_SMEM <= 232448,
@@ -766,6 +873,7 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // dfout may be one buffer (K3'): each thread reads and writes only its own
 // point of them, and copies its df_prev of a plane before it stores there.
 // `vec`: nz % 4 == 0 and fa (and, with DEFER, dfin) 16-byte aligned.
+// `zg`: the z-ghosted build's slabs and profiles (the others get none).
 //
 // Plane l of the block is x = x0 - NG + l, l = 0 .. np + 2 NG - 1, in ring
 // slot l % NR (staging slot l % NS); computing plane j (x0 + j) reads
@@ -786,15 +894,17 @@ __global__ void __launch_bounds__(NTHREADS, min_blocks<FIRST, DEFER>())
 pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
             const float* __restrict__ coef, const float* __restrict__ kick,
             const float* __restrict__ ktab, float* dfout,
-            float* __restrict__ faout, float* __restrict__ dt1blk, int vec) {
+            float* __restrict__ faout, float* __restrict__ dt1blk, int vec,
+            const ZgIn zg) {
   constexpr bool OWN = !FIRST && !DEFER;   // df_prev at the point, staged
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* stage = smem + NR * SLOT;     // DEFER
   float* ownq = smem + NR * SLOT;      // OWN: [NQ][NV][NTHREADS]
   // of each row of a plane: its offset in fa less the plane's (the field,
-  // the wrapped y; PC_SHEAR: the ghosted y) and its byte offset in a slot
-  __shared__ long long rowg[NROWS];
+  // the wrapped y; PC_SHEAR: the ghosted y; PC_ZG: then in the slabs) and
+  // its byte offset in a slot
+  __shared__ long long rowg[(1 + PC_ZG) * NROWS];
   __shared__ int rowd[NROWS];
   __shared__ float kick_a[KICK ? 2 * MX : 1];     // sin, cos of A per plane
   const int tid = threadIdx.x;
@@ -826,12 +936,27 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     rowg[r] = (long long)(c * N)
               + (long long)wrap_index(by - NG + iy, P.ny) * P.nz;
     rowd[r] = 4 * (c * FPL + iy * PZ);
+#if PC_ZG
+    rowg[NROWS + r] = (long long)c * P.nx * P.ny * NG
+                      + (long long)wrap_index(by - NG + iy, P.ny) * NG;
+#endif
   }
 #endif
   // 16-byte row copies where the caller allows them and the column does
   // not hang over the end of z
   const bool vecblk = vec && bz + TZ <= P.nz;
   const RowCopy rc = row_copy_plan(bz, P.nz, vecblk);
+#if PC_ZG
+  // each copy's source: fa, or a z-halo slab at the two ends of z
+  const ZgSrc src0 = zg_source(rc.d0, bz, P, fa, zg);
+  const ZgSrc src1 = zg_source(rc.d1, bz, P, fa, zg);
+  // the layer profiles at this thread's z, fixed along the march
+  const int izl = min(gz, P.nz - 1);
+  const float lay_c = zg.prof_c[izl];
+  const float lay_h = P.heat_norm * zg.prof_h[izl];
+#else
+  const float lay_c = 0.0f, lay_h = 0.0f;
+#endif
 
   // The kick's factors that do not change along the march (JAX
   // fused_rhs.py:441-466: theta = k.x + phase = A + B + C, one axis each):
@@ -877,6 +1002,16 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     if (l < nl) {
       const size_t xoff = (size_t)ix * fplane;
       const unsigned slot = ring_s + 4 * ir * SLOT;
+#if PC_ZG
+      const float* f0 = src0.base + ix * src0.pstride;
+      const float* f1 = src1.base + ix * src1.pstride;
+      if (vecblk)
+        copy_rows_zg<true>(rc, rowg, rowd, slot + 4 * rc.d0,
+                           slot + 4 * rc.d1, f0, f1, src0.tab, src1.tab);
+      else
+        copy_rows_zg<false>(rc, rowg, rowd, slot + 4 * rc.d0,
+                            slot + 4 * rc.d1, f0, f1, src0.tab, src1.tab);
+#else
       const unsigned stg = stage_s + 4 * is * SLOT;
       const float* f0 = fa + xoff + rc.z0;
       const float* f1 = fa + xoff + rc.z1;
@@ -890,6 +1025,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
         copy_rows<false, DEFER>(rc, rowg, rowd, slot + 4 * rc.d0,
                                 slot + 4 * rc.d1, stg + 4 * rc.d0,
                                 stg + 4 * rc.d1, f0, f1, g0, g1);
+#endif
       const int m = l - OQLAG;   // the plane whose own df_prev goes along
       if (OWN && active && m >= NG && m < np + NG) {
         const size_t xoffm = (OQLAG || PC_SHEAR)
@@ -1004,7 +1140,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       // PC_SHEAR: the node x of this plane, the JAX tile rule in f32
       const float xn = PC_SHEAR
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
-      flagship_rhs<FIRST, ROT, H3>(s, xt, xo, P, xn, r, dt1);
+      flagship_rhs<FIRST, ROT, H3>(s, xt, xo, P, xn, lay_c, lay_h, r, dt1);
     }
 
     if (FIRST) {
@@ -1056,7 +1192,8 @@ template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
           bool H3>
 static int launch_as(const PcParams* p, const float* fa, const float* dfin,
                      const float* coef, const float* kick, const float* ktab,
-                     float* dfout, float* faout, float* dt1blk, void* stream) {
+                     float* dfout, float* faout, float* dt1blk, void* stream,
+                     const ZgIn& zg) {
   auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -1067,7 +1204,7 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
   const dim3 grid((p->nz + TZ - 1) / TZ, (p->ny + TY - 1) / TY,
                   (p->nx + MX - 1) / MX);
   kern<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      *p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, vec);
+      *p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, vec, zg);
   return (int)cudaGetLastError();
 }
 
@@ -1077,34 +1214,42 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
-                  float* dfout, float* faout, float* dt1blk, void* stream) {
+                  float* dfout, float* faout, float* dt1blk, void* stream,
+                  const ZgIn& zg = ZgIn{}) {
   if constexpr (!FAKE) {
     const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
 #if PC_SHOCK
     if (p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f)
       return rot
           ? launch_as<FIRST, DEFER, LAST, KICK, false, true, true>(
-                p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream)
+                p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
+                zg)
           : launch_as<FIRST, DEFER, LAST, KICK, false, false, true>(
-                p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
+                p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
+                zg);
 #endif
+#if !PC_ZG   // the z-ghosted build has no Coriolis instance
     if (rot)
       return launch_as<FIRST, DEFER, LAST, KICK, false, true, false>(
-          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
+          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+#else
+    (void)rot;
+#endif
   }
   return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false>(
-      p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream);
+      p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
 }
 
 // The substep-1 kernel and the three tail kinds, real or fake.
 template <bool FAKE>
 static int first(const PcParams* p, const float* fa, float* df,
-                 float* dt1blk, void* stream) {
+                 float* dt1blk, void* stream, const ZgIn& zg = ZgIn{}) {
   return launch<true, false, false, false, FAKE>(
-      p, fa, nullptr, nullptr, nullptr, nullptr, df, nullptr, dt1blk, stream);
+      p, fa, nullptr, nullptr, nullptr, nullptr, df, nullptr, dt1blk, stream,
+      zg);
 }
 
-#if !PC_SHOCK
+#if PC_TAILS
 template <bool FAKE>
 static int tail_defer(const PcParams* p, const float* fa, const float* df1,
                       const float* coef, float* df2, float* f2,
@@ -1155,7 +1300,7 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
   return launch<false, DEFER, true, false, FAKE>(
       p, fa, dfin, coef, nullptr, nullptr, nullptr, f, nullptr, stream);
 }
-#endif  // !PC_SHOCK
+#endif  // PC_TAILS
 
 // Registers, local (spill) bytes per thread, static and dynamic shared
 // memory per block, and resident blocks per SM of one instance.
@@ -1196,11 +1341,12 @@ int pc_tile_shape(int* out) {
 // K8-K2, 4/5 K3 with and without the kick, 6/7 K8-K3 with and without, 8
 // K3', 9/10 K2L with and without the kick.  Only the isothermal MHD build
 // has K8 (1, 3, 6, 7).  The shock builds have 0 and 8 (K1s and K5w, or K4
-// and K5), + 16 with rotation, + 32 with the del6 terms.
+// and K5), + 16 with rotation, + 32 with the del6 terms; the z-ghosted
+// build 0 and 8 (K6 and K7).
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs<true, false, false, false, false>(out);
-#if !PC_SHOCK
+#if PC_TAILS
     case 2: return attrs<false, true, false, false, false>(out);
     case 4: return attrs<false, false, true, true, false>(out);
     case 5: return attrs<false, false, true, false, false>(out);
@@ -1219,7 +1365,7 @@ int pc_flagship_attrs(int which, int* out) {
     case 40: return attrs<false, false, false, false, false, false, true>(out);
     case 48: return attrs<true, false, false, false, false, true, true>(out);
     case 56: return attrs<false, false, false, false, false, true, true>(out);
-#else
+#elif PC_TAILS
     case 9: return attrs<false, true, true, true, false>(out);
     case 10: return attrs<false, true, true, false, false>(out);
 #endif
@@ -1227,16 +1373,27 @@ int pc_flagship_attrs(int which, int* out) {
   }
 }
 
+#if PC_ZG
+// the z-ghosted build's inputs after the stream: the slabs and profiles
+#define ZG_INPUTS , const float *zlo, const float *zhi, const float *prof_c, \
+                  const float *prof_h
+#define ZG_IN , ZgIn{zlo, zhi, prof_c, prof_h}
+#else
+#define ZG_INPUTS
+#define ZG_IN
+#endif
+
 // K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py);
 // in the shock builds K1s (the same with the shock slot) and K4 (`kernel`
 // + `_dma_tile`, zroll), fa then the 8-slot state, ghosted in x and y for
-// K4.
+// K4; in the z-ghosted build K6 (`kernel_zg` + `_fetch_zg`), fa the
+// interior (5, nx, ny, nz) with its z-halo slabs after the stream.
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
-                 float* dt1blk, void* stream) {
-  return first<false>(p, fa, df, dt1blk, stream);
+                 float* dt1blk, void* stream ZG_INPUTS) {
+  return first<false>(p, fa, df, dt1blk, stream ZG_IN);
 }
 
-#if !PC_SHOCK
+#if PC_TAILS
 // K2: replaces `kernel_tail(defer_prev=True)` (pencil_tpu/ops/fused_rhs.py).
 int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
                       const float* coef, float* df2, float* f2,
@@ -1253,19 +1410,21 @@ int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
                      float* f3, void* stream, float* tab) {
   return tail_last<false, false>(p, fa, df2, coef, kick, zc, tab, f3, stream);
 }
-#endif  // !PC_SHOCK
+#endif  // PC_TAILS
 
 // K3': replaces the 2N-RK4 middle substeps' `kernel_upd` with the wrap
 // fetch (pencil_tpu/ops/fused_rhs.py); in the shock builds K5w (the same
 // with the shock slot) and K5 (`kernel_upd` with the zroll `_dma_tile`
-// fetch).  df may be df_prev's own buffer.
+// fetch); in the z-ghosted build K7 (`kernel_zg_upd`).  df may be
+// df_prev's own buffer.
 int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
-                    const float* coef, float* df, float* f, void* stream) {
+                    const float* coef, float* df, float* f,
+                    void* stream ZG_INPUTS) {
   return launch<false, false, false, false, false>(
-      p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream);
+      p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream ZG_IN);
 }
 
-#if !PC_SHOCK
+#if PC_TAILS
 // K2L: replaces `kernel_tail(defer_prev=True, last=True, with_kick)`
 // (pencil_tpu/ops/fused_rhs.py); kick may be null, else tab as for K3.
 int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,

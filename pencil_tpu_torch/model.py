@@ -35,10 +35,11 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 * Stratified convection — the EOS with an entropy slot, lnρ density,
   hydro, constant gravity, 'nu-const' viscosity, entropy — with a
   non-periodic z axis, as the JAX package's zghost mode (model.py:704-775,
-  :891): ``fill_ghosts`` (x/y wrap, z BCs) and K6 (df1 and the CFL
-  maximum), f1 = f0 + β₀Δt·df1 as a torch axpy; then per substep
-  ``fill_ghosts`` and K7 (df ← α·df + RHS(f), f ← f + βΔt·df); then
-  ``bc_writeback`` pins the boundary planes that value-setting BCs fix.
+  :891): a z-only ghost fill cuts the z-halo slabs (``z_slabs``) for K6
+  (df1 and the CFL maximum), which wraps x and y itself, f1 = f0 +
+  β₀Δt·df1 as a torch axpy; then per substep ``z_slabs`` and K7 (df ←
+  α·df + RHS(f), f ← f + βΔt·df); then ``bc_writeback`` pins the boundary
+  planes that value-setting BCs fix.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -397,6 +398,26 @@ class Model:
                            self.reg, self.grid, self.cfg, self.eos, axes,
                            shear_dy=shear_dy)
 
+    def z_slabs(self, fa):
+        """(fa, zlo, zhi): the z-halo slabs (ncom, nx, ny, g) below z = 0
+        and above z = nz − 1 of ``fa``'s communicated components, cut from
+        a z-only ``fill_ghosts`` of the g + 1 planes at each end of z (all
+        that a ported BC reads); the boundary planes that value-setting BCs
+        pin ('a', 'set', 'cT') are written into ``fa`` itself, in place,
+        as ``bc_writeback`` writes them (a no-op on a state that
+        ``init_state`` or a step made).  The 3-axis fill's z ghosts are
+        these slabs with x and y wrapped (JAX's ``_fetch_zg`` split)."""
+        g, n, nz = NGHOST, self.reg.ncom, fa.shape[3]
+        w = g + 1
+        fw = fill_ghosts(torch.cat([fa[:n, ..., :w], fa[:n, ..., nz - w:]],
+                                   dim=3),
+                         self.cfg.grid, self.bc_axes, self.reg, self.grid,
+                         self.cfg, self.eos, axes=(2,))
+        fa[:n, ..., :1].copy_(fw[..., g:g + 1])
+        fa[:n, ..., nz - 1:].copy_(fw[..., g + 2 * w - 1:g + 2 * w])
+        return (fa, fw[..., :g].contiguous(),
+                fw[..., g + 2 * w:].contiguous())
+
     def deltay(self, t):
         """The shear-periodic y offset at device time ``t``, or None
         without Shear (JAX physics/shear.py:45-46)."""
@@ -537,19 +558,21 @@ class Model:
 
     def _zghost_step(self, state: Dict, kernels=(rhs_zg, rhs_zg_upd)):
         """One 2N-RK step as the zghost chain (JAX model.py:704-775,
-        :891): K6 and a torch axpy, then K7 per substep, each on a fresh
-        ghost fill, then the boundary-plane writeback.  ``kernels`` lets a
-        measurement time the plain versions through the same chain."""
+        :891): K6 and a torch axpy, then K7 per substep, each on fresh
+        z-halo slabs, then the boundary-plane writeback.  ``kernels`` lets
+        a measurement time the plain versions through the same chain."""
         first, upd = kernels
         alpha, beta, _ = self.rk
         fa = state["_fa"] if "_fa" in state else self.reg.stack(
             state["fields"])
-        df, dt1m = first(self, self.ghosted(fa))
+        # z_slabs pins the boundary planes in place: K6 reads a copy, the
+        # axpy (as JAX's) the caller's stack, which stays as it was
+        df, dt1m = first(self, *self.z_slabs(fa.clone()))
         dt = self._new_dt(dt1m, state["dt"])
         fa = fa + beta[0] * dt * df
         for isub in range(1, len(alpha)):
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
-            df, fa = upd(self, self.ghosted(fa), df, coef)
+            df, fa = upd(self, *self.z_slabs(fa), df, coef)
         return self._finish(state, self.bc_writeback(fa), dt)
 
     def _aux_step(self, state: Dict, kernels=None):

@@ -1,11 +1,13 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives six, the MHD
+(``LIBRARIES``: the flagship template's source gives seven, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
-entropy field, ``PC_ENT=1``, and the MHD ones with the shock slot,
+entropy field, ``PC_ENT=1``, the MHD ones with the shock slot,
 ``PC_SHOCK=1``, on the periodic state or, with ``PC_SHEAR=1``, on the
-shear box's ghosted stack), with a plain C
+shear box's ghosted stack, and the 5-field entropy-hydro ones with
+``PC_ZG=1``, stratified convection on the interior stack and its z-halo
+slabs), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each.
 They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
@@ -39,13 +41,16 @@ LIBRARIES = {
     "fused_rhs_hydro_ent": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1")),
     "fused_rhs_shock": ("fused_rhs.cu", ("-DPC_SHOCK=1",)),
     "fused_rhs_shear": ("fused_rhs.cu", ("-DPC_SHOCK=1", "-DPC_SHEAR=1")),
-    "zghost_rhs": ("zghost_rhs.cu", ()),
+    "fused_rhs_zg": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
+                                      "-DPC_ZG=1")),
 }
 
 _p = ctypes.c_void_p
 # the flagship template's entry points in its libraries: the shock builds
-# have the first and the middle kernel only (K1s and K5w, K4 and K5); K8
-# (the fake RHS) is built for the MHD instances only
+# have the first and the middle kernel only (K1s and K5w, K4 and K5), and
+# so has the z-ghosted build (K6 and K7), whose two take its z-halo slabs
+# and layer profiles after the stream; K8 (the fake RHS) is built for the
+# MHD instances only
 _SHOCK = {
     "pc_tile_shape": [_p],
     "pc_flagship_attrs": [ctypes.c_int, _p],
@@ -71,11 +76,8 @@ SIGNATURES = {
     "fused_rhs_hydro_ent": _FLAGSHIP,
     "fused_rhs_shock": _SHOCK,
     "fused_rhs_shear": _SHOCK,
-    "zghost_rhs": {
-        "pc_zg_tile_shape": [_p],
-        "pc_rhs_zg": [_p] * 7,
-        "pc_rhs_zg_upd": [_p] * 9,
-    },
+    "fused_rhs_zg": {**_SHOCK, "pc_rhs_first": [_p] * 9,
+                     "pc_rhs_tail_mid": [_p] * 11},
 }
 
 _libs = {}

@@ -30,12 +30,17 @@ stores with RHS(f) = f·1.0000001 and a CFL maximum of 0 (wrong physics by
 design; the MHD layout only).  The wrappers pick the library from the
 model's field layout (``flagship_library``).
 
-Stratified convection (zghost mode, ``csrc/zghost_rhs.cu``), on the stack
-ghosted in all three axes by ``fill_ghosts`` (5, nx+6, ny+6, nz+6):
+Stratified convection (zghost mode), on the interior stack (5, nx, ny, nz)
+and its z-halo slabs zlo and zhi (5, nx, ny, 3), cut by a z-only ghost
+fill (``Model.z_slabs``; the split of JAX's ``_fetch_zg``): the flagship
+template built with ``PC_MAG=0 PC_ENT=1 PC_ZG=1`` (library
+``fused_rhs_zg``, its ``pc_rhs_first`` and ``pc_rhs_tail_mid``), which
+adds gravity and the cooling and heating layers and reads its z halo
+from the slabs:
 
   rhs_zg           K6  df = RHS(f), max of the CFL 1/dt
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
-                       f ← f_interior + βΔt·df, a fresh tensor
+                       f ← f + βΔt·df, a fresh tensor
 
 The shocked periodic box (wrap_aux mode), on the raw periodic 8-slot state
 (8, nx, ny, nz) (uu, lnrho, aa, shock) after the shock pre-pass: the
@@ -70,6 +75,7 @@ import torch
 
 from ..core.grid import inverse_spacings
 from ..integrate.timestep import cfl_dt1, pow6
+from ..parallel.halo import ghosted_from_z_slabs
 from ..physics.base import TimestepAccum
 from ..physics.pencils import Pencils
 from . import _build
@@ -208,17 +214,19 @@ def _kicked(model, fa, kick):
     return torch.cat([fa[:iuu], torch.stack(kicked), fa[iuu + 3:]])
 
 
-def rhs_zg_plain(model, fg):
-    """K6's plain version: (df, 0-d max of 1/dt) on the ghosted stack."""
-    return rhs_plain(model, fg, ghosted=True)
+def rhs_zg_plain(model, fa, zlo, zhi):
+    """K6's plain version: (df, 0-d max of 1/dt) on the interior stack and
+    its z-halo slabs."""
+    return rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi), ghosted=True)
 
 
-def rhs_zg_upd_plain(model, fg, df_prev, coef):
+def rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef):
     """K7's plain version: (df, f); df is written over df_prev."""
     alpha, bdt = coef[0], coef[1]
-    dfa, _ = rhs_plain(model, fg, want_dt1=False, ghosted=True)
+    dfa, _ = rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi),
+                       want_dt1=False, ghosted=True)
     df_prev.copy_(alpha * df_prev + dfa)
-    return df_prev, i(fg[: model.reg.nvar]) + bdt * df_prev
+    return df_prev, fa + bdt * df_prev
 
 
 def _node0(gs):
@@ -296,6 +304,8 @@ class PcParams(ctypes.Structure):
         ("dif3", ctypes.c_float),
         ("w6", ctypes.c_float * 3), ("inv6", ctypes.c_float * 3),
         ("S", ctypes.c_float),
+        ("gravz", ctypes.c_float), ("cool", ctypes.c_float),
+        ("cs2c", ctypes.c_float), ("heat_norm", ctypes.c_float),
     ]
 
 
@@ -370,6 +380,45 @@ def shock_library(model) -> str:
         f"shocked boxes only, got {reg.comp_names} of {sorted(names)}")
 
 
+# the z-ghosted build's field layout and modules: the conv-slab's
+_ZG_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "ss": slice(4, 5)}
+_ZG_MODULES = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
+                         "entropy"))
+ZG_LIBRARY = "fused_rhs_zg"
+
+
+def zg_check(model):
+    """Raise unless ``model`` is one the z-ghosted build runs: the
+    conv-slab's (uu, lnrho, ss) layout and module set, without Ω and
+    chi-const conduction, which the build has no terms for."""
+    reg, cfg = model.reg, model.cfg
+    names = {m.name for m in cfg.modules}
+    ent = cfg.module("entropy")
+    if names == _ZG_MODULES and reg.nvar == reg.nf == 5 and all(
+            reg.slice(k) == v for k, v in _ZG_LAYOUT.items()) \
+            and cfg.module("hydro").Omega == 0.0 and not ent.chi_conduction:
+        return
+    raise NotImplementedError(
+        "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules "
+        f"without Omega or chi-const only, got {reg.comp_names} of "
+        f"{sorted(names)}")
+
+
+def zg_profiles(model):
+    """(cooling profile, heating profile) of ``model`` as device vectors
+    (nz,), zeros where a layer is off, as the plain version computes them;
+    built once per model."""
+    p = model.__dict__.get("_zg_profiles")
+    if p is None:
+        z = model.grid.z
+        prof = model.cfg.module("entropy").heat_cool_profiles(
+            z, model.cfg.grid)
+        p = tuple((torch.zeros_like(z) if v is None else v).contiguous()
+                  for v in prof)
+        model.__dict__["_zg_profiles"] = p
+    return p
+
+
 def launch_suffix(model) -> str:
     """The suffix of the launch names of ``model``'s flagship-template
     library: '', '_hydro', '_ent' or '_hydro_ent'."""
@@ -385,6 +434,8 @@ def kernel_params(model) -> PcParams:
     cfg, gs = model.cfg, model.cfg.grid
     if "shock" in model.reg.slots:
         shock_library(model)
+    elif cfg.module("gravity") is not None:
+        zg_check(model)
     else:
         flagship_library(model)
     f32 = np.float32
@@ -413,6 +464,7 @@ def kernel_params(model) -> PcParams:
     dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
     heats = ent is not None
     hyd = cfg.module("hydro")
+    grav = cfg.module("gravity")
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
     fl3 = ctypes.c_float * 3
@@ -436,83 +488,18 @@ def kernel_params(model) -> PcParams:
         maxdif=maxdiffus, cdtv=cfg.time.cdtv,
         nu_shock=nu_shock, nu3=nu3, eta3=eta3, diff3=diff3, dif3=dif3,
         w6=fl3(*paired_weights(6)), inv6=fl3(*inv6),
-        S=shear.S if shear is not None else 0.0)
+        S=shear.S if shear is not None else 0.0,
+        gravz=grav.gravz if grav is not None else 0.0,
+        cool=ent.cool if heats else 0.0,
+        cs2c=ent.cs2c(eos) if heats else 0.0,
+        heat_norm=ent.heat_norm(gs) if heats else 0.0)
     model.__dict__["_pc_params"] = p
     return p
 
 
-class ZgParams(ctypes.Structure):
-    """Mirror of ``struct ZgParams`` in csrc/zghost_rhs.cu."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
-        ("has_visc", ctypes.c_int), ("has_cond", ctypes.c_int),
-        ("has_cool", ctypes.c_int), ("has_heat", ctypes.c_int),
-        ("w1", ctypes.c_float * 3), ("w2", ctypes.c_float * 3),
-        ("wm", ctypes.c_float * 12),
-        ("inv", ctypes.c_float * 3), ("invsq", ctypes.c_float * 3),
-        ("nu", ctypes.c_float), ("two_nu", ctypes.c_float),
-        ("third", ctypes.c_float), ("gravz", ctypes.c_float),
-        ("cs20", ctypes.c_float), ("gm1", ctypes.c_float),
-        ("g_cp", ctypes.c_float), ("cp", ctypes.c_float),
-        ("gamma", ctypes.c_float), ("lnrho0", ctypes.c_float),
-        ("lnTT0", ctypes.c_float), ("hcond0", ctypes.c_float),
-        ("cool", ctypes.c_float), ("cs2c", ctypes.c_float),
-        ("heat_norm", ctypes.c_float),
-        ("dxyz2", ctypes.c_float), ("cdt", ctypes.c_float),
-        ("cdtv", ctypes.c_float),
-    ]
-
-
-# the zghost kernels' fixed field layout: the conv-slab registry order
-_ZG_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "ss": slice(4, 5)}
-
-
-def zg_params(model):
-    """(ZgParams, cooling profile, heating profile) of ``model``: the
-    kernel constants rounded to f32 as the plain version rounds them, and
-    the z profiles as device vectors (zeros where a layer is off); built
-    once per model."""
-    p = model.__dict__.get("_zg_params")
-    if p is not None:
-        return p
-    reg, cfg, gs = model.reg, model.cfg, model.cfg.grid
-    if reg.nvar != 5 or reg.nf != 5 or any(
-            reg.slice(k) != v for k, v in _ZG_LAYOUT.items()):
-        raise NotImplementedError("zghost kernels: conv-slab layout only")
-    eos, ent = model.eos, cfg.module("entropy")
-    nu = cfg.module("viscosity").nu
-    inv = np.array(inverse_spacings(gs), np.float32)
-    invsq = inv * inv
-    z = model.grid.z
-    prof_c, prof_h = ent.heat_cool_profiles(z, gs)
-    wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
-    params = ZgParams(
-        nx=gs.nx, ny=gs.ny, nz=gs.nz, has_visc=int(nu > 0.0),
-        has_cond=int(ent.conduction), has_cool=int(prof_c is not None),
-        has_heat=int(prof_h is not None),
-        w1=(ctypes.c_float * 3)(*paired_weights(1)),
-        w2=(ctypes.c_float * 3)(*paired_weights(2)),
-        wm=(ctypes.c_float * 12)(*wm),
-        inv=(ctypes.c_float * 3)(*inv), invsq=(ctypes.c_float * 3)(*invsq),
-        nu=max(nu, 0.0), two_nu=2.0 * max(nu, 0.0), third=1.0 / 3.0,
-        gravz=cfg.module("gravity").gravz,
-        cs20=eos.cs20, gm1=eos.gamma - 1.0, g_cp=eos.gamma / eos.cp,
-        cp=eos.cp, gamma=eos.gamma, lnrho0=eos.lnrho0, lnTT0=eos.lnTT0,
-        hcond0=ent.hcond0, cool=ent.cool, cs2c=ent.cs2c(eos),
-        heat_norm=ent.heat_norm(gs) if prof_h is not None else 0.0,
-        dxyz2=(invsq[0] + invsq[1]) + invsq[2], cdt=cfg.time.cdt,
-        cdtv=cfg.time.cdtv)
-    zero = torch.zeros_like(z)
-    p = (params, (zero if prof_c is None else prof_c).contiguous(),
-         (zero if prof_h is None else prof_h).contiguous())
-    model.__dict__["_zg_params"] = p
-    return p
-
-
-def _nblocks(shape, lib="fused_rhs", fn="pc_tile_shape"):
+def _nblocks(shape, lib="fused_rhs"):
     t = (ctypes.c_int * 3)()
-    getattr(_build.load(lib), fn)(ctypes.addressof(t))
+    _build.load(lib).pc_tile_shape(ctypes.addressof(t))
     n = 1
     for s, b in zip(shape, t):
         n *= -(-s // b)
@@ -532,6 +519,8 @@ def library_instances(lib):
     template's library ``lib`` (only the isothermal MHD build has K8; the
     shock builds have their two kernels, each without and with rotation
     and the del6 terms)."""
+    if lib == ZG_LIBRARY:
+        return {"rhs_zg": 0, "rhs_zg_upd": 8}
     if lib in AUX_KERNELS:
         return {(kernel + flags).rstrip(): which + extra
                 for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
@@ -699,40 +688,49 @@ def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
     return _tail_last("rhs_tail_defer_last", model, fa, df1, coef, kick)
 
 
-def rhs_zg(model, fg):
-    """K6: replaces ``kernel_zg`` + ``_fetch_zg``/``_halo_tile``/
-    ``_window_halo`` (fused_rhs.py:317, :292-304, :512).  Returns (df,
-    0-d max of 1/dt)."""
-    if not _dispatch(fg):
-        return rhs_zg_plain(model, fg)
-    p, prof_c, prof_h = zg_params(model)
-    g2 = 2 * NGHOST
-    _check(fg, (5, p.nx + g2, p.ny + g2, p.nz + g2), "fg")
-    df = fg.new_empty((5, p.nx, p.ny, p.nz))
-    blk = fg.new_empty(_nblocks((p.nx, p.ny, p.nz), "zghost_rhs",
-                                "pc_zg_tile_shape"))
-    _launch("rhs_zg", fg, ctypes.addressof(p), fg.data_ptr(),
-            prof_c.data_ptr(), prof_h.data_ptr(), df.data_ptr(),
-            blk.data_ptr(), lib="zghost_rhs")
+def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
+    """The z-ghosted build's inputs after the stream (the slabs and the
+    layer profiles), after checking every input."""
+    p = kernel_params(model)
+    shape = (5, p.nx, p.ny, p.nz)
+    _check(fa, shape, "fa")
+    for name, t in (("zlo", zlo), ("zhi", zhi)):
+        _check(t, shape[:3] + (NGHOST,), name)
+    if df_prev is not None:
+        _check(df_prev, shape, "df_prev")
+    if coef is not None:
+        _check(coef, (2,), "coef")
+    return (zlo.data_ptr(), zhi.data_ptr(),
+            *(v.data_ptr() for v in zg_profiles(model)))
+
+
+def rhs_zg(model, fa, zlo, zhi):
+    """K6: replaces ``kernel_zg`` + ``_fetch_zg`` (fused_rhs.py:317, :301),
+    on the interior stack and its z-halo slabs.  Returns (df, 0-d max of
+    1/dt)."""
+    if not _dispatch(fa):
+        return rhs_zg_plain(model, fa, zlo, zhi)
+    after = _zg_inputs(model, fa, zlo, zhi)
+    df = torch.empty_like(fa)
+    blk = fa.new_empty(_nblocks(fa.shape[1:], ZG_LIBRARY))
+    _launch("rhs_zg", fa, ctypes.addressof(kernel_params(model)),
+            fa.data_ptr(), df.data_ptr(), blk.data_ptr(), lib=ZG_LIBRARY,
+            entry="rhs_first", after=after)
     return df, torch.amax(blk)
 
 
-def rhs_zg_upd(model, fg, df_prev, coef):
+def rhs_zg_upd(model, fa, zlo, zhi, df_prev, coef):
     """K7: replaces ``kernel_zg_upd`` (fused_rhs.py:349).  Returns (df,
     f); df is df_prev's buffer, overwritten."""
-    if not _dispatch(fg):
-        return rhs_zg_upd_plain(model, fg, df_prev, coef)
-    p, prof_c, prof_h = zg_params(model)
-    g2 = 2 * NGHOST
-    _check(fg, (5, p.nx + g2, p.ny + g2, p.nz + g2), "fg")
-    _check(df_prev, (5, p.nx, p.ny, p.nz), "df_prev")
-    _check(coef, (2,), "coef")
-    fa = df_prev.new_empty(df_prev.shape)
-    _launch("rhs_zg_upd", fg, ctypes.addressof(p), fg.data_ptr(),
-            prof_c.data_ptr(), prof_h.data_ptr(), df_prev.data_ptr(),
-            coef.data_ptr(), df_prev.data_ptr(), fa.data_ptr(),
-            lib="zghost_rhs")
-    return df_prev, fa
+    if not _dispatch(fa):
+        return rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef)
+    after = _zg_inputs(model, fa, zlo, zhi, df_prev, coef)
+    f = torch.empty_like(fa)
+    _launch("rhs_zg_upd", fa, ctypes.addressof(kernel_params(model)),
+            fa.data_ptr(), df_prev.data_ptr(), coef.data_ptr(),
+            df_prev.data_ptr(), f.data_ptr(), lib=ZG_LIBRARY,
+            entry="rhs_tail_mid", after=after)
+    return df_prev, f
 
 
 def _aux_check(model, fa, shear, df_prev=None, coef=None):

@@ -58,3 +58,21 @@ def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
         if axis == 0 and shear_dy is not None:
             shift_x_faces(fg, shear_dy, spec.Ly, 1 in axes, 2 in axes)
     return fg
+
+
+def ghosted_from_z_slabs(fa, zlo, zhi):
+    """The stack ghosted in all three axes from the interior ``fa`` (nc,
+    nx, ny, nz) and its z-halo slabs ``zlo`` and ``zhi`` (nc, nx, ny, g),
+    cut from a z-only fill: z joined, then x and y wrapped.  Every ported
+    BC acts on each (x, y) column by itself, so this is ``fill_ghosts``'
+    3-axis result, the ghost corners included."""
+    g = zlo.shape[-1]
+    nc, nx, ny, nz = fa.shape
+    fg = fa.new_empty((nc, nx + 2 * g, ny + 2 * g, nz + 2 * g))
+    inner = fg[:, g:g + nx, g:g + ny]
+    inner[..., :g] = zlo
+    inner[..., g:g + nz] = fa
+    inner[..., g + nz:] = zhi
+    _wrap_axis(fg, 0, g)
+    _wrap_axis(fg, 1, g)
+    return fg

@@ -8,15 +8,17 @@ shared-memory loads, integer and address arithmetic, and the rest.
                            [--kernel K1 K3 ...] [--dump DIR]
                            [--skip K1:0x41c0-0x5100,0x58d0-0x5db0 ...]
     python3 sass_counts.py --from-dump DIR/STEM [--kernel ...] [--skip ...]
+    python3 sass_counts.py --parent OLD/fused_rhs.cu [--libs LIB ...]
 
 ``--lib`` builds (or finds built) the package's library of that name
 (K1s and K5w are instances of ``fused_rhs_shock``, K4 and K5 of
 ``fused_rhs_shear``, with rotation and the del6 terms as the shear box
-runs them);
+runs them, K6 and K7 of ``fused_rhs_zg``);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
 that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
-or its build of the 4×4×16 template of earlier commits (``zroll.so``:
-kernels zr-K4, zr-K5, zr-K1s, zr-K5w, whose one loop is the tile load).
+or the 4×4×16 template of earlier commits that its ``--parent-tree``
+built (the zroll_rhs library under that tree's _build/: kernels zr-K4,
+zr-K5, zr-K1s, zr-K5w, whose one loop is the tile load).
 The x-march is the largest loop of an instance; the loops inside it (the
 rebuild loop of the DEFER instances) are listed with their own counts,
 so that instructions per grid point = the march body outside its inner
@@ -31,8 +33,14 @@ branch over 6 shared loads a field and no FP32.  ``--dump`` writes each
 instance's SASS there, as
 DIR/<library stem>_<kernel>.sass; ``--from-dump DIR/STEM`` counts such
 files again (no toolkit needed), e.g. with other ``--skip`` ranges.
+``--parent`` builds each library of ``--libs`` (default: every library
+but ``fused_rhs_zg``) from another copy of csrc/fused_rhs.cu, with that
+library's definitions, into pencil_tpu_torch/_build/parent/, all nvcc runs
+at once, and compares every instance of the template in the two builds
+instruction for instruction (the constant-bank offsets of the kernel
+parameters, which move where the parameter struct grows, left out).
 Otherwise it needs cuobjdump (the CUDA toolkit); no card.  Prints one
-line per loop and, last, one JSON object.
+line per loop (per library with ``--parent``) and, last, one JSON object.
 """
 import argparse
 import collections
@@ -52,6 +60,7 @@ INSTANCES = {
     "K8-K3": (0, 0, 1, 1, 1, 0, 0),
     "K1s": (1, 0, 0, 0, 0, 0, 0), "K5w": (0, 0, 0, 0, 0, 0, 0),
     "K4": (1, 0, 0, 0, 0, 1, 1), "K5": (0, 0, 0, 0, 0, 1, 1),
+    "K6": (1, 0, 0, 0, 0, 0, 0), "K7": (0, 0, 0, 0, 0, 0, 0),
 }
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template
 ZR_INSTANCES = {"zr-K4": (0, 0), "zr-K5": (1, 0), "zr-K1s": (0, 1),
@@ -179,6 +188,61 @@ def auto_skip(ins, nfields):
     return [(f[0] + 0x10, f[1] - 0x10) for f in [four_byte] + fill]
 
 
+def instance_key(name):
+    """The template arguments of a pc_flagship instance in its mangled
+    name (the parameter types after them may differ between commits)."""
+    m = re.search(r"pc_flagshipI((?:Lb[01]E)+)E", name)
+    return m.group(1) if m else name
+
+
+def normalized(ins):
+    """An instance's instructions without the constant-bank offsets."""
+    return [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", t)
+            for _, t in ins]
+
+
+def compare_parent(src, libs):
+    """Each library of ``libs`` built from ``src`` against the package's
+    build: per library, its instances and those whose instructions
+    differ."""
+    from pencil_tpu_torch.ops import _build
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    procs = {lib: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, *_build.LIBRARIES[lib][1], "-o",
+         str(out_dir / f"{lib}.so"), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for lib in libs}
+    new = _build.build()
+    result = {}
+    for lib, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{lib} from {src}: nvcc failed\n{log}")
+        old_f = {instance_key(n): i for n, i in functions(
+            out_dir / f"{lib}.so", cuobjdump).items()}
+        new_f = {instance_key(n): i for n, i in functions(
+            new[lib], cuobjdump).items()}
+        differ = {}
+        for key in sorted(set(old_f) | set(new_f)):
+            if key not in old_f or key not in new_f:
+                differ[key] = "only in " + ("parent" if key in old_f
+                                            else "change")
+                continue
+            a, b = normalized(old_f[key]), normalized(new_f[key])
+            if a != b:
+                first = next((k for k, (x, y) in enumerate(zip(a, b))
+                              if x != y), min(len(a), len(b)))
+                differ[key] = (f"{len(a)} -> {len(b)} instructions, first "
+                               f"difference at {first}")
+        result[lib] = {"instances": len(new_f), "differ": differ}
+        print(f"{lib}: {len(new_f)} functions, "
+              + ("every one the parent's, instruction for instruction"
+                 if not differ else f"differ: {differ}"), flush=True)
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--lib", default="fused_rhs")
@@ -190,7 +254,17 @@ def main():
     ap.add_argument("--auto-skip", type=int, metavar="FIELDS",
                     help="find the skipped paths of a march over FIELDS "
                     "ring fields (7 for the flagship, 8 with ss or shock)")
+    ap.add_argument("--parent", help="another copy of csrc/fused_rhs.cu "
+                    "(its headers beside it) to compare every build with")
+    ap.add_argument("--libs", nargs="*")
     args = ap.parse_args()
+    if args.parent:
+        from pencil_tpu_torch.ops import _build
+        libs = args.libs or [k for k in _build.LIBRARIES
+                             if k != "fused_rhs_zg"]
+        print(json.dumps({"parent": args.parent, "libraries":
+                          compare_parent(args.parent, libs)}), flush=True)
+        return 0
     skips = {}
     for item in args.skip:
         kname, _, ranges = item.partition(":")

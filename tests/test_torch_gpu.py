@@ -157,7 +157,7 @@ def test_fake_kernels_bit_exact(cuda, shape):
 
 
 @pytest.mark.parametrize("lib", ("fused_rhs", "fused_rhs_shock",
-                                 "fused_rhs_shear"))
+                                 "fused_rhs_shear", "fused_rhs_zg"))
 def test_dt1_buffer_matches_the_grid(cuda, lib):
     """K1 (K1s, K4) writes one CFL maximum per block of its launch grid,
     which its library's pc_tile_shape (MX, TY, TZ) sizes: at nx = 80 (two
@@ -175,6 +175,15 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
         pm = pt.Model(shock_box(shape), device=cuda)
         fa = shocked_fa(pm)
         plain = fr.rhs_wrap_shock_plain
+    elif lib == "fused_rhs_zg":
+        pm = pt.Model(conv_slab(shape), device=cuda)
+        fa, zlo, zhi = stratified_fg(pm)
+        prof = fr.zg_profiles(pm)
+        after = (zlo.data_ptr(), zhi.data_ptr(), prof[0].data_ptr(),
+                 prof[1].data_ptr())
+
+        def plain(pm, fa):
+            return fr.rhs_zg_plain(pm, fa, zlo, zhi)
     else:
         pm = pt.Model(shear_box(shape), device=cuda)
         fa = sheared_fg(pm)
@@ -190,7 +199,7 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
     stream = torch.cuda.current_stream().cuda_stream
     assert _build.load(lib).pc_rhs_first(
         ctypes.addressof(p), fa.data_ptr(), df.data_ptr(), blk.data_ptr(),
-        stream) == 0
+        stream, *(after if lib == "fused_rhs_zg" else ())) == 0
     torch.cuda.synchronize()
     assert bool(torch.isfinite(blk[:n]).all()) and bool((blk[:n] > 0).all())
     assert math.isnan(float(blk[n]))
@@ -475,8 +484,9 @@ def test_forced_shear_box_steps_on_card_match_cpu(cuda):
 
 
 def stratified_fg(pm, seed=4):
-    """A z-ghosted conv-slab stack on the card: the piecew-poly profiles
-    with noise."""
+    """A conv-slab state on the card, the piecew-poly profiles with noise,
+    as the z-ghosted kernels take it: (fa, zlo, zhi), fa's boundary planes
+    pinned, the slabs from the z-only fill."""
     g = torch.Generator(pm.device).manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
@@ -486,31 +496,67 @@ def stratified_fg(pm, seed=4):
                         shape, generator=g, device=pm.device))[None],
                     (f["ss"] + 1e-2 * torch.randn(
                         shape, generator=g, device=pm.device))[None]])
-    return pm.ghosted(fa)
+    return pm.z_slabs(fa.contiguous())
 
 
-@pytest.mark.parametrize("shape", ((32, 32, 32), (16, 24, 40)),
-                         ids=("32^3", "16x24x40"))
+# the z-ghosted build's shapes: the flagship template's (FLAGSHIP_SHAPES);
+# at 24x20x42 no row goes in 16-byte copies and the last column of z
+# blocks hangs over the end of z
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
 def test_zghost_kernels_match_plain(cuda, shape):
-    """K6 and K7 against their plain versions; the second shape is not a
-    multiple of the tile."""
+    """K6 and K7 (the z-ghosted build of the flagship template) against
+    their plain versions."""
     pm = pt.Model(conv_slab(shape), device=cuda)
-    fg = stratified_fg(pm)
+    inp = stratified_fg(pm)
     fr.reset_launches()
-    df, dt1m = fr.rhs_zg(pm, fg)
-    df_p, dt1m_p = fr.rhs_zg_plain(pm, fg)
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = fr.rhs_zg_plain(pm, *inp)
     torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
     assert_field_close(df, df_p, "df (K6)")
     alpha, beta, _ = pm.rk
     coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
-    fg2 = stratified_fg(pm, seed=5)
-    df2, f2 = fr.rhs_zg_upd(pm, fg2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, fg2, df_p.clone(), coef)
+    inp2 = stratified_fg(pm, seed=5)
+    df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
+    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, *inp2, df_p.clone(), coef)
     torch.cuda.synchronize()
     assert_field_close(df2, df2_p, "df (K7)")
     assert_field_close(f2, f2_p, "f (K7)")
     assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zg=1,
                                rhs_zg_upd=1)
+
+
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_zghost_update_in_place_equals_a_separate_df(cuda, shape):
+    """K7 with dfin and dfout as one buffer (the wrapper's contract: the
+    new df over df_prev) gives, bit for bit, what it writes to a buffer of
+    its own: no point's df store lands before its own df_prev load."""
+    import ctypes
+    from pencil_tpu_torch.ops import _build
+    pm = pt.Model(conv_slab(shape), device=cuda)
+    fa, zlo, zhi = stratified_fg(pm)
+    df_prev, dt1m = fr.rhs_zg_plain(pm, fa, zlo, zhi)
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m))
+    df_in, f_in = fr.rhs_zg_upd(pm, fa, zlo, zhi, df_prev.clone(), coef)
+    df_out, f_out = torch.empty_like(fa), torch.empty_like(fa)
+    prof = fr.zg_profiles(pm)
+    assert _build.load("fused_rhs_zg").pc_rhs_tail_mid(
+        ctypes.addressof(fr.kernel_params(pm)), fa.data_ptr(),
+        df_prev.data_ptr(), coef.data_ptr(), df_out.data_ptr(),
+        f_out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        zlo.data_ptr(), zhi.data_ptr(), prof[0].data_ptr(),
+        prof[1].data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(df_in, df_out) and torch.equal(f_in, f_out)
+
+
+def test_zghost_instances_hold_no_local_memory(cuda):
+    """K6 and K7 of fused_rhs_zg: no spill and no stack, one 256-thread
+    block per SM or more."""
+    attrs = fr.flagship_attrs("fused_rhs_zg")
+    assert set(attrs) == {"rhs_zg", "rhs_zg_upd"}
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+        assert a["blocks_per_sm"] >= 1, (name, a)
 
 
 def test_conv_slab_steps_on_card_match_cpu(cuda):

@@ -1,20 +1,24 @@
 """The builds of the flagship template (csrc/fused_rhs.cu) as far as the
 CPU can hold them: the libraries and their -D definitions, the library
-each shock-box and shear-box wrapper launches on a CUDA tensor, and the
-ctypes mirror of the kernels' constants against the C struct.
+each shock-box, shear-box and conv-slab wrapper launches on a CUDA
+tensor, and the ctypes mirror of the kernels' constants against the C
+struct.
 
 The kernels themselves run only on the card (tests/test_torch_gpu.py);
 here a wrapper's launch is recorded instead of made, by replacing the
 loader's entry point.
 """
 import ctypes
+import dataclasses
 import re
 
+import numpy as np
 import pytest
 import torch
 
 import pencil_tpu_torch as pt
-from pencil_tpu_torch.configs import flagship, shear_box, shock_box
+from pencil_tpu_torch.configs import (conv_slab, flagship, shear_box,
+                                     shock_box)
 from pencil_tpu_torch.ops import _build
 from pencil_tpu_torch.ops import fused_rhs as fr
 from pencil_tpu_torch.ops.stencil import NGHOST
@@ -36,6 +40,26 @@ def test_libraries_hold_the_shock_builds_and_no_zroll():
         assert set(_build.SIGNATURES[lib]) == {
             "pc_tile_shape", "pc_flagship_attrs", "pc_rhs_first",
             "pc_rhs_tail_mid"}
+
+
+def test_libraries_hold_the_zg_build_and_no_zghost_template():
+    """K6 and K7 are the flagship source built with PC_ZG=1 on the 5-field
+    entropy-hydro layout, with the shock builds' four entry points; the
+    4x4x16 zghost template is gone from the build and from csrc/."""
+    libs = _build.LIBRARIES
+    assert libs["fused_rhs_zg"] == ("fused_rhs.cu", (
+        "-DPC_MAG=0", "-DPC_ENT=1", "-DPC_ZG=1"))
+    assert "zghost_rhs" not in libs and "zghost_rhs" not in _build.SIGNATURES
+    assert not (_build.CSRC / "zghost_rhs.cu").exists()
+    assert sorted(p.name for p in _build.CSRC.iterdir()) == [
+        "fused_rhs.cu", "stencil.cuh"]
+    sig = _build.SIGNATURES["fused_rhs_zg"]
+    assert set(sig) == set(_build.SIGNATURES["fused_rhs_shock"])
+    # the slabs and the two profiles follow the stream
+    assert len(sig["pc_rhs_first"]) == 5 + 4
+    assert len(sig["pc_rhs_tail_mid"]) == 7 + 4
+    assert fr.library_instances("fused_rhs_zg") == {"rhs_zg": 0,
+                                                    "rhs_zg_upd": 8}
 
 
 @pytest.mark.parametrize("lib", sorted(fr.AUX_KERNELS))
@@ -129,6 +153,84 @@ def test_shear_box_wrappers_launch_the_shear_build(recorded):
         fr.rhs_wrap_shock(pm, torch.zeros((8,) + SHAPE))
     with pytest.raises(ValueError):     # the unghosted state
         fr.rhs_zroll(pm, torch.zeros((8,) + SHAPE))
+
+
+def test_conv_slab_wrappers_launch_the_zg_build(recorded):
+    """K6 and K7 launch pc_rhs_first and pc_rhs_tail_mid of fused_rhs_zg
+    on the interior stack and its z-halo slabs, counted under rhs_zg and
+    rhs_zg_upd; the 3-axis ghosted stack of the parent's kernels is
+    refused."""
+    pm = pt.Model(conv_slab(SHAPE), device="cpu")
+    fa = torch.zeros((5,) + SHAPE)
+    slab = torch.zeros((5,) + SHAPE[:2] + (NGHOST,))
+    df = torch.zeros((5,) + SHAPE)
+    coef = torch.zeros(2)
+    fr.rhs_zg(pm, fa, slab, slab)
+    fr.rhs_zg_upd(pm, fa, slab, slab, df, coef)
+    assert recorded == [("fused_rhs_zg", "pc_rhs_first"),
+                        ("fused_rhs_zg", "pc_rhs_tail_mid")]
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zg=1,
+                               rhs_zg_upd=1)
+    g2 = 2 * NGHOST
+    with pytest.raises(ValueError):
+        fr.rhs_zg(pm, torch.zeros((5,) + tuple(n + g2 for n in SHAPE)),
+                  slab, slab)
+    with pytest.raises(ValueError):     # slabs of the wrong depth
+        fr.rhs_zg(pm, fa, fa, fa)
+
+
+def test_conv_slab_step_launches_one_k6_and_two_k7(recorded, monkeypatch):
+    """The zghost chain at order 3 (as the card runs it): one K6 and two
+    K7 per step, each on the z-only fill's slabs."""
+    pm = pt.Model(conv_slab(SHAPE), device="cpu")
+    state = pm.init_state(0)
+    monkeypatch.setattr(fr, "_nblocks", lambda shape, lib: 1)
+    monkeypatch.setattr(torch, "amax", lambda t: torch.ones(()))
+    pm._zghost_step(state)
+    assert recorded == [("fused_rhs_zg", "pc_rhs_first")] + [
+        ("fused_rhs_zg", "pc_rhs_tail_mid")] * 2
+
+
+def test_kernel_params_carry_the_conv_slab_terms():
+    """kernel_params(conv_slab) holds what the retired ZgParams held:
+    gravity, the cooling layer and its target cs², the heating layer's
+    norm, K and ν, each the f32 of the value the plain version uses; and
+    max(ν, ·) as the CFL's constant diffusivity."""
+    pm = pt.Model(conv_slab(SHAPE), device="cpu")
+    p = fr.kernel_params(pm)
+    ent, eos = pm.cfg.module("entropy"), pm.eos
+    f32 = np.float32
+    want = {"gravz": pm.cfg.module("gravity").gravz, "cool": ent.cool,
+            "cs2c": ent.cs2c(eos), "heat_norm": ent.heat_norm(pm.cfg.grid),
+            "hcond0": ent.hcond0, "nu": pm.cfg.module("viscosity").nu,
+            "two_nu": 2.0 * pm.cfg.module("viscosity").nu,
+            "maxdif": pm.cfg.module("viscosity").nu,
+            "g_cp": eos.gamma / eos.cp, "gm1": eos.gamma - 1.0,
+            "cpchi": 0.0}
+    for name, v in want.items():
+        assert getattr(p, name) == f32(v), name
+    assert p.gravz < 0.0 and p.cool > 0.0 and p.heat_norm > 0.0
+    assert p.hcond0 > 0.0 and p.isothermal == 0
+    prof_c, prof_h = fr.zg_profiles(pm)
+    want_c, want_h = ent.heat_cool_profiles(pm.grid.z, pm.cfg.grid)
+    assert torch.equal(prof_c, want_c) and torch.equal(prof_h, want_h)
+
+
+@pytest.mark.parametrize("case", ("omega", "chi_const"))
+def test_zg_build_refuses_what_it_has_no_terms_for(case):
+    """Ω or chi-const in the conv-slab set: the z-ghosted build has no
+    Coriolis or chi-const terms."""
+    cfg = conv_slab(SHAPE)
+    if case == "omega":
+        swap = {"hydro": lambda m: pt.Hydro(init=m.init, ampl=m.ampl,
+                                            Omega=1.0)}
+    else:
+        swap = {"entropy": lambda m: dataclasses.replace(
+            m, iheatcond=("K-const", "chi-const"), chi=1e-3)}
+    cfg = cfg.replace(fused=False, modules=tuple(
+        swap[m.name](m) if m.name in swap else m for m in cfg.modules))
+    with pytest.raises(NotImplementedError):
+        fr.kernel_params(pt.Model(cfg, device="cpu"))
 
 
 def test_shock_library_follows_the_modules():

@@ -148,8 +148,8 @@ def test_every_kernel_has_its_tables(kernel):
 def test_flagship_operation_counts_follow_the_kernels():
     """The bound counts what the kernels do: the diagonal pairs factored
     (14 operations a mixed derivative, not 23) in every build of the
-    flagship template, the kick without its hoisted sin/cos and
-    amplitudes."""
+    flagship template, the conv-slab's too, the kick without its hoisted
+    sin/cos and amplitudes."""
     assert cs.DMIX_FACTORED == 14 and cs.DMIX == 23
     assert cs.KICK_OPS == 21
     assert cs.FLAGSHIP_RHS == 21 * cs.D1 + 18 * cs.D2 \
@@ -162,5 +162,8 @@ def test_flagship_operation_counts_follow_the_kernels():
         + 12 * cs.DMIX_FACTORED + 198
     assert cs.SHEARBOX_RHS == cs.SHOCKBOX_RHS + 21 * cs.D2 + 14 + 14 \
         + 15 + 22
-    # the zghost template keeps stencil.cuh's sums
-    assert cs.CONVSLAB_RHS == 15 * cs.D1 + 15 * cs.D2 + 6 * cs.DMIX + 204
+    # the conv-slab's K6 and K7 are the template's z-ghosted build: its
+    # six mixed derivatives are factored too
+    assert cs.CONVSLAB_RHS == 15 * cs.D1 + 15 * cs.D2 \
+        + 6 * cs.DMIX_FACTORED + 204
+    assert set(cs.SOURCES.values()) == {"pencil_tpu_torch/csrc/fused_rhs.cu"}

@@ -1,7 +1,9 @@
 """Stratified convection (non-periodic z) in pencil_tpu_torch against
 pencil_tpu: K6 and K7's plain versions against the zghost Pallas kernels
-they replace, the whole step against the JAX fused (zghost) and jnp
-paths, and the gate.
+they replace, on the interior stack and the z-halo slabs cut from the
+JAX package's ghosted stack (the split of its ``_fetch_zg``), the z-only
+fill that cuts the slabs against the 3-axis fill, the whole step against
+the JAX fused (zghost) and jnp paths, and the gate.
 
 The JAX side runs as tests/test_fused.py runs it on the CPU, the Pallas
 kernels in interpret mode, with one tile over the whole domain
@@ -23,6 +25,7 @@ from pencil_tpu_torch.compat.from_jax import overrides_from_numpy
 from pencil_tpu_torch.configs import conv_slab
 from pencil_tpu_torch.model import fused_gate, gate_reason
 from pencil_tpu_torch.ops import fused_rhs as fr
+from pencil_tpu_torch.parallel.halo import ghosted_from_z_slabs
 
 torch.set_num_threads(1)
 
@@ -53,6 +56,15 @@ def assert_field_close(a, b, what, rtol=RTOL_FIELD):
     assert a.shape == b.shape, (what, a.shape, b.shape)
     err = np.abs(a - b).max()
     assert err <= rtol * max(np.abs(b).max(), 1e-30), (what, err)
+
+
+def z_split(fg):
+    """(fa, zlo, zhi) of a 3-axis ghosted stack: its interior and its z
+    ghosts over the interior x and y, as the z-ghosted kernels take them."""
+    g = 3
+    body = torch.tensor(fg[:, g:-g, g:-g])
+    return (body[..., g:-g].contiguous(), body[..., :g].contiguous(),
+            body[..., -g:].contiguous())
 
 
 def ghosted_input(jm, pm, seed):
@@ -96,7 +108,7 @@ def kernels(request):
 
 def test_rhs_zg_matches_pallas(kernels):
     """K6's plain version: df and the max 1/dt over tiles."""
-    df, dt1m = fr.rhs_zg(kernels["pm"], torch.tensor(kernels["fg"]))
+    df, dt1m = fr.rhs_zg(kernels["pm"], *z_split(kernels["fg"]))
     assert dt1m.ndim == 0
     np.testing.assert_allclose(float(dt1m), kernels["dt1max"], rtol=RTOL_DT)
     for c in range(5):
@@ -110,11 +122,66 @@ def test_rhs_zg_upd_matches_pallas(kernels):
     coef = torch.stack((torch.tensor(alpha[1], dtype=torch.float32),
                         beta[1] * torch.tensor(kernels["dt"])))
     df_prev = torch.tensor(kernels["df1"])
-    df, f = fr.rhs_zg_upd(pm, torch.tensor(kernels["fg2"]), df_prev, coef)
+    df, f = fr.rhs_zg_upd(pm, *z_split(kernels["fg2"]), df_prev, coef)
     assert df is df_prev
     for c in range(5):
         assert_field_close(df[c], kernels["df2"][c], f"df[{c}]")
         assert_field_close(f[c], kernels["f2"][c], f"f[{c}]")
+
+
+def noisy_state(pm, seed):
+    """(5, nx, ny, nz): the conv-slab's initial lnρ and s with noise and
+    noisy velocities, the walls' uz and the top s unpinned."""
+    rng = np.random.default_rng(seed)
+    fa = pm.reg.stack(pm.init_state(0)["fields"])
+    return fa + torch.tensor(
+        1e-2 * rng.standard_normal(tuple(fa.shape)), dtype=fa.dtype)
+
+
+@pytest.mark.parametrize("shape", SHAPES + ((8, 12, 10),),
+                         ids=IDS + ("8x12x10",))
+def test_z_slabs_are_the_3_axis_fill(shape):
+    """Model.z_slabs (a z-only fill of the 4 planes at each end of z) gives
+    the 3-axis fill's z ghosts over the interior x and y and its pinned
+    boundary planes, bit for bit; joined and wrapped in x and y they are
+    the whole 3-axis ghosted stack, its ghost corners included."""
+    pm = pt.Model(conv_slab(shape), device="cpu")
+    fa = noisy_state(pm, 7)
+    fg = pm.ghosted(fa)
+    pinned, zlo, zhi = pm.z_slabs(fa.clone())
+    want = z_split(fg.numpy())
+    for name, a, b in zip(("fa", "zlo", "zhi"), (pinned, zlo, zhi), want):
+        assert torch.equal(a, b), name
+    assert not torch.equal(pinned, fa)       # the walls' uz was not 0
+    assert torch.equal(ghosted_from_z_slabs(pinned, zlo, zhi), fg)
+
+
+def test_z_slabs_pin_in_place_what_bc_writeback_pins():
+    """z_slabs writes the pinned boundary planes into its input, the same
+    values bc_writeback writes, and leaves a pinned state as it is."""
+    pm = pt.Model(conv_slab((8, 8, 16)), device="cpu")
+    fa = noisy_state(pm, 8)
+    want = pm.bc_writeback(fa.clone())
+    got = fa.clone()
+    assert pm.z_slabs(got)[0] is got
+    assert torch.equal(got, want)
+    again = got.clone()
+    pm.z_slabs(again)
+    assert torch.equal(again, got)
+
+
+def test_step_leaves_its_input_alone():
+    """A step on a packed stack whose walls are not pinned leaves that
+    stack as it was, and gives the step of the same fields unpacked."""
+    pm = pt.Model(conv_slab((8, 8, 16)), device="cpu")
+    s0 = pm.init_state(4)
+    fa = noisy_state(pm, 9)
+    before = fa.clone()
+    packed = pm.make_step()({"_fa": fa, "t": s0["t"], "dt": s0["dt"],
+                             "it": s0["it"]})
+    assert torch.equal(fa, before)
+    unpacked = pm.make_step()(dict(s0, fields=pm.reg.unstack(before)))
+    assert torch.equal(packed["_fa"], pm.reg.stack(unpacked["fields"]))
 
 
 def run_both(shape, fused, seed, nsteps=NSTEPS, ampl_uu=UU_AMPL):

@@ -4,7 +4,7 @@ settings, or from another copy of the source, against each other in one
 process on one card.
 
     python3 time_loader_variants.py [VARIANT ...] [--n 256] [--reps 2]
-                                    [--lib fused_rhs] [--zroll FILE]
+                                    [--lib fused_rhs] [--parent-tree DIR]
                                     [--steps]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
@@ -18,70 +18,61 @@ instances are timed:
 ``fused_rhs`` (the MHD flagship), ``fused_rhs_hydro``, ``fused_rhs_ent``,
 ``fused_rhs_hydro_ent`` (e.g. ``--lib fused_rhs_ent "" :PC_PD=1
 :PC_OQLAG=0`` for the 8-field tails), ``fused_rhs_shock`` (K1s and K5w on
-chip_smoke.py's shocked-box input) or ``fused_rhs_shear`` (K4 and K5 on
-its sheared stack at t = 0.37).  ``--zroll FILE`` adds the 4×4×16
-template of earlier commits as one more variant of a shock build, timed
-under the same kernel names through its own interface: its K1s/K5w or
-K4/K5 (write it first from git, e.g. ``git show
-4a21894:pencil_tpu_torch/csrc/zroll_rhs.cu >
-pencil_tpu_torch/_build/variants/zroll_rhs.cu``: the chip's copy of the
-repository has no git).  ``--steps`` (with a shock build) also times
-its box's whole step through each variant's kernels, from the box's
-initial state: the shock pre-passes, fills and axpy included.  Each
-variant is built with the package's nvcc
-flags into pencil_tpu_torch/_build/variants/, all builds at once; then
-every instance of each variant is checked against the plain PyTorch
-version (K8's K1 and K2 variants bit for bit; K8 exists in ``fused_rhs``
+chip_smoke.py's shocked-box input), ``fused_rhs_shear`` (K4 and K5 on
+its sheared stack at t = 0.37) or ``fused_rhs_zg`` (K6 and K7 on its
+stratified conv-slab input, the interior and its z-halo slabs).
+``--parent-tree DIR`` (with a shock build or ``fused_rhs_zg``) adds
+another checkout's package as one more column, ``parent``: DIR holds an
+unpacked ``git archive`` of an earlier commit (e.g. ``git archive
+9dab6e0 pencil_tpu_torch | tar -x -C _archive/parent``, made where
+git is at hand), whose ``pencil_tpu_torch`` is imported
+beside this one and builds its own kernels from its own csrc/ into its
+own _build/; the same kernels are timed through its own wrappers and
+model, whatever template they had then (the 4×4×16 tiles of
+zroll_rhs.cu up to 4a21894, of zghost_rhs.cu up to 9dab6e0; the latter on
+its stack ghosted in all three axes).  ``--steps`` (with a shock build
+or ``fused_rhs_zg``) also times the path's whole step from its initial
+state, through each variant's kernels and the parent's own
+``make_step``: the shock pre-passes, fills and axpy included; each step
+also under the sync debug mode "error", as chip_smoke.py times it ("step
+sync-debug"), by the host's clock alone, the time to issue it ("step
+host"), and by the card's busy time in torch.profiler's kernel records
+("step device").  Each variant is
+built with the package's nvcc flags into
+pencil_tpu_torch/_build/variants/, all builds (and the parent's) at
+once; then every
+instance of each variant is checked against the plain PyTorch version
+(K8's K1 and K2 variants bit for bit; K8 exists in ``fused_rhs``
 only) and timed by CUDA events over 20 launches, the variants in turns
 (v1, v2, ..., then again) ``--reps`` times, the SM clock and the power
 draw sampled meanwhile.  Prints one line per kernel and variant and,
 last, one JSON object.  Needs a CUDA device; imports no JAX.
 """
 import argparse
+import concurrent.futures
 import ctypes
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 LIBS = ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
-        "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear")
-ZROLL = "zroll"      # the spec under which --zroll is built and timed
-_p = ctypes.c_void_p
-# the 4×4×16 template's interface (zroll_rhs.cu of earlier commits)
-ZROLL_SIGNATURES = {"pc_zr_tile_shape": [_p], "pc_rhs_zroll": [_p] * 5,
-                    "pc_rhs_zroll_upd": [_p] * 7,
-                    "pc_rhs_wrap_shock": [_p] * 5,
-                    "pc_rhs_wrap_shock_upd": [_p] * 7}
+        "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear",
+        "fused_rhs_zg")
+PARENT = "parent"    # the column of --parent-tree
+# the name its package is imported under
+PARENT_PKG = "parent_pencil_tpu_torch"
+# the configuration that runs each build with two kernels
+PATH_CONFIG = {"fused_rhs_shock": "shock_box", "fused_rhs_shear": "shear_box",
+               "fused_rhs_zg": "conv_slab"}
 
 
-class ZrParams(ctypes.Structure):
-    """``struct ZrParams`` of the 4×4×16 template: a subset of PcParams's
-    fields, by name, in its own order."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
-        ("isothermal", ctypes.c_int),
-        ("w1", ctypes.c_float * 3), ("w2", ctypes.c_float * 3),
-        ("w6", ctypes.c_float * 3), ("wm", ctypes.c_float * 12),
-        ("inv", ctypes.c_float * 3), ("invsq", ctypes.c_float * 3),
-        ("inv6", ctypes.c_float * 3),
-        ("nu", ctypes.c_float), ("nu_shock", ctypes.c_float),
-        ("nu3", ctypes.c_float), ("eta", ctypes.c_float),
-        ("eta3", ctypes.c_float), ("diff3", ctypes.c_float),
-        ("om", ctypes.c_float * 3), ("S", ctypes.c_float),
-        ("cs20", ctypes.c_float), ("gm1", ctypes.c_float),
-        ("lnrho0", ctypes.c_float),
-        ("dxyz2", ctypes.c_float), ("cdt", ctypes.c_float),
-        ("cdtv", ctypes.c_float), ("dif3", ctypes.c_float),
-        ("x0", ctypes.c_float), ("dx", ctypes.c_float),
-    ]
-
-
-def build(specs, base="fused_rhs", zroll=None):
+def build(specs, base="fused_rhs"):
     """spec -> loaded library built with library ``base``'s definitions
-    and the spec's own, and ZROLL -> the build of ``zroll``, all nvcc runs
-    at once."""
+    and the spec's own, all nvcc runs at once."""
     from pencil_tpu_torch.ops import _build
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -91,24 +82,19 @@ def build(specs, base="fused_rhs", zroll=None):
         src = Path(src) if src else _build.sources()["fused_rhs"]
         flags = list(_build.LIBRARIES[base][1]) + [
             f"-D{d}" for d in defs.split(",") if d]
-        jobs[spec] = (out_dir / f"v{i}.so", src, flags,
-                      _build.SIGNATURES[base])
-    if zroll:
-        jobs[ZROLL] = (out_dir / "zroll.so", Path(zroll), [],
-                       ZROLL_SIGNATURES)
+        jobs[spec] = (out_dir / f"v{i}.so", src, flags)
     procs = {spec: subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(so),
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for spec, (so, src, flags, _) in jobs.items()}
+        text=True) for spec, (so, src, flags) in jobs.items()}
     libs = {}
     for spec, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{spec}: nvcc failed\n{log}")
-        so, _, _, sigs = jobs[spec]
-        lib = ctypes.CDLL(str(so))
-        for name, argtypes in sigs.items():
-            if hasattr(lib, name):
+        lib = ctypes.CDLL(str(jobs[spec][0]))
+        for name, argtypes in _build.SIGNATURES[base].items():
+            if hasattr(lib, name):      # an older source may lack one
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -116,40 +102,42 @@ def build(specs, base="fused_rhs", zroll=None):
     return libs
 
 
-def zroll_kernels(torch, fr, lib, model, names):
-    """The two kernels of the 4×4×16 template under ``names`` (first,
-    update) with the wrappers' interface: first(model, fa) -> (df, 1/dt
-    max), upd(model, fa, df_prev, coef) -> (df, f), df written over
-    df_prev."""
-    pc = fr.kernel_params(model)
-    p = ZrParams(**{n: getattr(pc, n) for n, _ in ZrParams._fields_})
-    shape = (7, pc.nx, pc.ny, pc.nz)
-    t = (ctypes.c_int * 3)()
-    lib.pc_zr_tile_shape(ctypes.addressof(t))
-    nblk = 1
-    for s, b in zip(shape[1:], t):
-        nblk *= -(-s // b)
-    fn_first, fn_upd = (getattr(lib, "pc_" + k) for k in names)
+def load_parent(tree):
+    """The package pencil_tpu_torch of the checkout ``tree``, imported as
+    PARENT_PKG beside this one (it imports its own modules relatively)."""
+    pkg = Path(tree).resolve() / "pencil_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        PARENT_PKG, pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[PARENT_PKG] = mod
+    spec.loader.exec_module(mod)
+    for sub in ("configs", "ops._build", "ops.fused_rhs"):
+        importlib.import_module(f"{PARENT_PKG}.{sub}")
+    return mod
 
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
 
-    def first(_, fa):
-        df = fa.new_empty(shape)
-        blk = fa.new_empty(nblk)
-        rc = fn_first(ctypes.addressof(p), fa.data_ptr(), df.data_ptr(),
-                      blk.data_ptr(), stream())
-        assert rc == 0, rc
-        return df, torch.amax(blk)
+def kernel_pair(fr, model, names, inp, scratch, df1, coef):
+    """A two-kernel path's calls through ``fr``'s wrappers: name -> the
+    timed call (the update into ``scratch``, in place), and the update's
+    check on a fresh copy of df1."""
+    first, upd = (getattr(fr, k) for k in names)
+    return ({names[0]: lambda: first(model, *inp),
+             names[1]: lambda: upd(model, *inp, scratch, coef)},
+            {names[1]: lambda: upd(model, *inp, df1.clone(), coef)})
 
-    def upd(_, fa, dfp, coef):
-        f = fa.new_empty(shape)
-        rc = fn_upd(ctypes.addressof(p), fa.data_ptr(), dfp.data_ptr(),
-                    coef.data_ptr(), dfp.data_ptr(), f.data_ptr(), stream())
-        assert rc == 0, rc
-        return dfp, f
 
-    return first, upd
+def host_ms(torch, fn, n):
+    """Mean ms the host takes to issue fn() over n calls (after one
+    warm-up), not waiting for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
 
 
 def main():
@@ -158,11 +146,11 @@ def main():
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--lib", default="fused_rhs", choices=LIBS)
-    ap.add_argument("--zroll")
+    ap.add_argument("--parent-tree", metavar="DIR")
     ap.add_argument("--steps", action="store_true",
-                    help="with a shock build: time its box's whole step "
-                    "(the shock pre-pass, fills and both kernels) per "
-                    "variant too")
+                    help="with a shock build or fused_rhs_zg: time its "
+                    "path's whole step (the shock pre-pass, fills and "
+                    "both kernels) per variant too")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -174,34 +162,45 @@ def main():
     from pencil_tpu_torch.ops import _build
     from pencil_tpu_torch.ops import fused_rhs as fr
 
-    aux = args.lib in fr.AUX_KERNELS
-    if args.zroll and not aux:
-        ap.error("--zroll takes a shock build's --lib")
+    two = args.lib in PATH_CONFIG      # a path of two kernels
+    if (args.parent_tree or args.steps) and not two:
+        ap.error("--parent-tree and --steps take a shock build's --lib or "
+                 "fused_rhs_zg")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    libs = build(args.variants, args.lib, args.zroll)
+    pp = load_parent(args.parent_tree) if args.parent_tree else None
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pbuild = pool.submit(pp.ops._build.build) if pp else None
+        libs = build(args.variants, args.lib)
+        if pbuild:
+            pbuild.result()
+    specs = list(libs) + ([PARENT] if pp else [])
     shape = (args.n,) * 3
     # name -> the timed call; the check's call where the timed one
     # updates its input in place; the plain results; the bound (None: bit
     # for bit)
-    if aux:
-        shear = args.lib == "fused_rhs_shear"
-        model = pt.Model((pt.configs.shear_box if shear
-                          else pt.configs.shock_box)(shape), device="cuda")
-        fa = (cs.sheared_fg if shear else cs.shocked_fa)(torch, model, 1)
-        first, upd = fr.AUX_KERNELS[args.lib]
-        df1, dt1m = getattr(fr, first + "_plain")(model, fa)
+    if two:
+        names = fr.AUX_KERNELS.get(args.lib, ("rhs_zg", "rhs_zg_upd"))
+        cfg = PATH_CONFIG[args.lib]
+        model = pt.Model(getattr(pt.configs, cfg)(shape), device="cuda")
+        if cfg == "conv_slab":
+            fa = cs.stratified_fa(torch, model, 1)
+            inp = model.z_slabs(fa)      # pins fa's walls in place
+        else:
+            fa = (cs.sheared_fg if cfg == "shear_box"
+                  else cs.shocked_fa)(torch, model, 1)
+            inp = (fa,)
+        df1, dt1m = getattr(fr, names[0] + "_plain")(model, *inp)
         coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
         scratch = df1.clone()
-        calls = {first: lambda: getattr(fr, first)(model, fa),
-                 upd: lambda: getattr(fr, upd)(model, fa, scratch, coef)}
-        fresh = {upd: lambda: getattr(fr, upd)(model, fa, df1.clone(), coef)}
-        want = {first: [df1],
-                upd: list(getattr(fr, upd + "_plain")(model, fa, df1.clone(),
-                                                      coef))}
-        rtol = dict.fromkeys(calls, cs.RTOL_FIELD if shear else cs.RTOL_NEW)
+        calls, fresh = kernel_pair(fr, model, names, inp, scratch, df1, coef)
+        want = {names[0]: [df1],
+                names[1]: list(getattr(fr, names[1] + "_plain")(
+                    model, *inp, df1.clone(), coef))}
+        rtol = dict.fromkeys(calls, cs.RTOL_NEW if cfg == "shock_box"
+                             else cs.RTOL_FIELD)
     else:
         path = {"fused_rhs" + sfx: name
                 for name, sfx in cs.TEMPLATE_PATHS.items()}[args.lib]
@@ -264,38 +263,56 @@ def main():
                 or "ent" in args.lib else cs.RTOL_NEW for k in calls}
     variant_calls = {spec: dict(calls) for spec in libs}
     variant_fresh = {spec: fresh for spec in libs}
-    if args.zroll:
-        zfirst, zupd = zroll_kernels(torch, fr, libs[ZROLL], model,
-                                     fr.AUX_KERNELS[args.lib])
-        variant_calls[ZROLL] = {
-            first: lambda: zfirst(model, fa),
-            upd: lambda: zupd(model, fa, scratch, coef)}
-        variant_fresh[ZROLL] = {upd: lambda: zupd(model, fa, df1.clone(),
-                                                  coef)}
-    if args.steps and aux:
-        # the box's step from its initial state, through each variant's
-        # kernels (the 4×4×16 template's through the chain's `kernels`)
-        state = model.pack_state(model.init_state(0))
-        for spec in libs:
-            kern = (zfirst, zupd) if spec == ZROLL else None
-            variant_calls[spec]["step"] = (
-                lambda kern=kern: model._aux_step(state, kern))
-        calls = dict(calls, step=None)
+    if pp:
+        # the parent's kernels through its own wrappers and model; its
+        # zghost template read the stack ghosted in all three axes
+        pmodel = pp.Model(getattr(pp.configs, cfg)(shape), device="cuda")
+        pinp = (inp if cfg != "conv_slab" else pmodel.z_slabs(fa.clone())
+                if hasattr(pmodel, "z_slabs") else (pmodel.ghosted(fa),))
+        variant_calls[PARENT], variant_fresh[PARENT] = kernel_pair(
+            pp.ops.fused_rhs, pmodel, names, pinp, scratch, df1, coef)
+    if args.steps:
+        # the path's step from its initial state, through each variant's
+        # kernels, and the parent's own step
+        steps = {spec: (model, model.make_step()) for spec in libs}
+        if pp:
+            steps[PARENT] = (pmodel, pmodel.make_step())
+        for spec, (m, step) in steps.items():
+            state = m.pack_state(m.init_state(0))
+
+            def guarded(step=step, state=state):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return step(state)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            def run(step=step, state=state):
+                return step(state)
+
+            # the step as it is, under the sync debug mode "error" as
+            # chip_smoke.py times it, the host's time to issue one (no
+            # synchronize) and the card's busy time
+            variant_calls[spec].update({
+                "step": run, "step sync-debug": guarded, "step host": run,
+                "step device": run})
+        calls = dict(calls, **dict.fromkeys(
+            ("step", "step sync-debug", "step host", "step device")))
 
     def use(spec):
-        if spec != ZROLL:
+        if spec in libs:
             _build._libs[args.lib] = libs[spec]
 
     print(f"time_loader_variants on {smi}, {shape}, {args.lib}",
           flush=True)
-    for spec in libs:
+    for spec in specs:
         if spec.startswith("~"):
             print(f"variant {spec!r}: timed only, wrong by design, not "
                   f"checked", flush=True)
             continue
         use(spec)
         for k, fn in variant_calls[spec].items():
-            if k == "step":
+            if k.startswith("step"):
                 continue
             got = variant_fresh[spec].get(k, fn)()
             got = [t for t in (got if isinstance(got, tuple) else (got,))
@@ -308,18 +325,22 @@ def main():
                              f"{spec} {k}: rel err {cs.rel_err(a, b)}")
         print(f"variant {spec or 'default'!r}: every kernel agrees with "
               f"its plain version", flush=True)
-    times = {spec: {k: [] for k in calls} for spec in libs}
+    times = {spec: {k: [] for k in calls} for spec in specs}
     # the SM clock and the power draw while the kernels run, every 100 ms
     sampler = subprocess.Popen(
         ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", "100"],
         stdout=subprocess.PIPE, text=True)
     for _ in range(args.reps):
-        for spec in libs:
+        for spec in specs:
             use(spec)
             for k, fn in variant_calls[spec].items():
-                times[spec][k].append(cs.time_ms(torch, fn,
-                                                 5 if k == "step" else 20))
+                times[spec][k].append(
+                    host_ms(torch, fn, 5) if k == "step host"
+                    else cs.device_busy(torch, fn, 5)[0]
+                    if k == "step device"
+                    else cs.time_ms(torch, fn, 5 if k.startswith("step")
+                                    else 20))
     mul = cs.time_ms(torch, lambda: torch.mul(fa, fr.FAKE_FACTOR), 20)
     sampler.terminate()
     samples = [tuple(float(v) for v in ln.split(","))
@@ -333,7 +354,7 @@ def main():
             "watts_max": max((w for _, w in samples), default=None)}
     print(f"under load: {load}", flush=True)
     for k in calls:
-        for spec in libs:
+        for spec in specs:
             print(f"{k:22s} {spec or 'default':40s} "
                   + " ".join(f"{t:.4f}" for t in times[spec][k]) + " ms",
                   flush=True)
