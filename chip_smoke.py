@@ -6,7 +6,8 @@ build (K1h-K3h, K3′h, K2Lh), non-isothermal forced turbulence on its
 entropy builds (K1e-K2Le with Magnetic, K1he-K2Lhe without) and through
 the run loop (``simulate``: time_series.dat, checkpoints, a bit-exact
 restart), stratified convection with a non-periodic z (kernels K6, K7,
-on the template's z-ghosted build), the sheared, rotating MHD box with
+on the template's z-ghosted build) and magnetoconvection (K6m, K7m, on
+its 8-field z-ghosted build), the sheared, rotating MHD box with
 shock viscosity and hyper-diffusion (kernels K4, K5) and the shocked
 periodic box (kernels K1s, K5w), these four on the same template's two
 shock builds.
@@ -19,8 +20,9 @@ Phases, each printing its own lines:
   2. each fused kernel against its plain PyTorch version on the same CUDA
      inputs at 64³ and 32×64×128, the flagship template's instances also
      at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s,
-     K5w, K6 and K7 also at 16×24×40 and 24×20×42, K6 and K7 at 32³ too
-     (each field
+     K5w, K6, K7, K6m and K7m also at 16×24×40 and 24×20×42, the last
+     four at 32³ too, and each with Ω = 1 (their Coriolis instances) at
+     the same five shapes (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
      the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
      variants bit for bit; the CFL maximum within 1e-6 relative; the
@@ -31,14 +33,16 @@ Phases, each printing its own lines:
      steps of each path on the card against the same steps on the CPU at
      32³ (the flagship, forced hydro and both entropy sets at orders 2, 3
      and 4, the first two with Ω = 1 at order 3, the shear box unforced
-     and forced);
+     and forced, the conv-slab with Magnetic, with Ω = 1 and with both);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
      just before each path's timed steps and read just after: the
      flagship with exactly one launch of K1, K2, K3 per step, forced
      hydro with one of K1h, K2h, K3h, the conv-slab layer with one K6 and
-     two K7 (timed in 5 windows of 20 steps, their spread printed), the
+     two K7 and magnetoconvection with one K6m and two K7m (each timed in
+     5 windows of 20 steps, their spread and the card's busy time
+     printed), the
      shear box with one K4 and two K5, the shock box with one
      K1s and two K5w, the flagship at order 4 with K1, K2, two K3′ and K3,
      at order 2 with K1 and K2L (forced hydro and both entropy sets
@@ -52,12 +56,12 @@ Phases, each printing its own lines:
      first run's fields bit for bit;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
-     256³, and the conv-slab step's split (K6, K7, the z-halo fills, the
-     boundary-plane writeback, the glue: each part's device time from
-     one torch.profiler trace, its host issue time from a run without
-     it); for each instance of the
-     flagship template (csrc/fused_rhs.cu, all seven builds, the shock
-     builds' with and without rotation) its
+     256³, and the conv-slab's and magnetoconvection's step split (K6 or
+     K6m, K7 or K7m, the z-halo fills, the boundary-plane writeback, the
+     glue: each part's device time from one torch.profiler trace, its
+     host issue time from a run without it); for each instance of the
+     flagship template (csrc/fused_rhs.cu, all eight builds, the shock
+     and z-ghosted builds' with and without rotation) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
@@ -100,9 +104,12 @@ FAKE_KERNELS = ("rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake")
 ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
 SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
+# the template's 8-field z-ghosted build: K6m, K7m
+ZGHOST_MAG_KERNELS = ("rhs_zg_mag", "rhs_zg_upd_mag")
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
-                + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS)
+                + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
+                + ZGHOST_MAG_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
                   "entropy MHD": "_ent", "entropy hydro": "_hydro_ent"}
@@ -114,6 +121,7 @@ PER_STEP = {
     "flagship rk2": {"rhs_first": 1, "rhs_tail_defer_last": 1},
     "K8 chain": dict.fromkeys(FAKE_KERNELS, 1),
     "conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
+    "magnetoconvection": {"rhs_zg_mag": 1, "rhs_zg_upd_mag": 2},
     "shear box": {"rhs_zroll": 1, "rhs_zroll_upd": 2},
     "shock box": {"rhs_wrap_shock": 1, "rhs_wrap_shock_upd": 2},
 }
@@ -134,6 +142,7 @@ REPLACES = {
     "rhs_zroll": _FR + "306", "rhs_zroll_upd": _FR + "331",
     "rhs_wrap_shock": _FR + "306", "rhs_wrap_shock_upd": _FR + "331",
     "rhs_zg": _FR + "317", "rhs_zg_upd": _FR + "349",
+    "rhs_zg_mag": _FR + "317", "rhs_zg_upd_mag": _FR + "349",
 }
 # the hydro build replaces the same calls, traced for the hydro set
 REPLACES.update({k + sfx: REPLACES[k]
@@ -187,6 +196,10 @@ SHEARBOX_RHS = SHOCKBOX_RHS + 21 * D2 + 14 + 14 + 15 + 22
 # u, lnρ and s, grad div u; pointwise the EOS, pressure and gravity, the
 # viscous force and heat, K-const conduction and the two layers
 CONVSLAB_RHS = 15 * D1 + 15 * D2 + 6 * DMIX_FACTORED + 204
+# magnetoconvection adds the flagship's magnetic terms (∇A, ∇²A, grad div
+# A, u×B, η∇²A, J×B/ρ) and the Ohmic heat, less the 1/ρ they share with
+# the entropy terms; its CFL maximum adds the Alfvén speed (19 → 29)
+MAGCONV_RHS = CONVSLAB_RHS + (FLAGSHIP_RHS - HYDRO_RHS) + 9 - 2
 OPS = {
     "rhs_first": FLAGSHIP_RHS + 26,
     "rhs_tail_defer": FLAGSHIP_RHS + 7 * (REBUILD + UPD),
@@ -216,6 +229,7 @@ OPS = {
     "rhs_wrap_shock": SHOCKBOX_RHS + 32,
     "rhs_wrap_shock_upd": SHOCKBOX_RHS + 7 * UPD,
     "rhs_zg": CONVSLAB_RHS + 19, "rhs_zg_upd": CONVSLAB_RHS + 5 * UPD,
+    "rhs_zg_mag": MAGCONV_RHS + 29, "rhs_zg_upd_mag": MAGCONV_RHS + 8 * UPD,
 }
 # the shear-box comparisons start here, where deltay = 0.555·Ly is not a
 # whole number of cells (at t = 0 the shifted faces are plain wraps)
@@ -459,8 +473,9 @@ def compare_shock_kernels(torch, pt, fr, shape, errs):
 
 
 def stratified_fa(torch, pm, seed):
-    """(5, nx, ny, nz) on the card: the piecew-poly lnρ and s with noise,
-    and noisy velocities."""
+    """(5, nx, ny, nz) on the card, or (8, ...) with Magnetic: the
+    piecew-poly lnρ and s with noise, noisy velocities and a noisy vector
+    potential."""
     g = torch.Generator("cuda").manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
@@ -468,14 +483,22 @@ def stratified_fa(torch, pm, seed):
     def noise(sh):
         return 1e-2 * torch.randn(sh, generator=g, device="cuda")
 
-    return torch.cat([noise((3,) + shape), (f["lnrho"] + noise(shape))[None],
-                      (f["ss"] + noise(shape))[None]]).contiguous()
+    parts = [noise((3,) + shape), (f["lnrho"] + noise(shape))[None],
+             (f["ss"] + noise(shape))[None]]
+    if "aa" in pm.reg.slots:
+        parts.append(noise((3,) + shape))
+    return torch.cat(parts).contiguous()
 
 
-def compare_zghost_kernels(torch, pt, fr, shape, errs):
-    """Phase 2: K6 and K7 against their plain versions on CUDA inputs: the
-    interior stack, its boundary planes pinned, and its z-halo slabs."""
-    pm = pt.Model(pt.configs.conv_slab(shape), device="cuda")
+def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
+                           Omega=0.0):
+    """Phase 2: K6 and K7 (K6m and K7m with ``magnetic``; their Coriolis
+    instances with ``Omega``) against their plain versions on CUDA
+    inputs: the interior stack, its boundary planes pinned, and its z-halo
+    slabs."""
+    pm = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic,
+                                       Omega=Omega), device="cuda")
+    first, upd = fr.ZG_KERNELS[fr.zg_library(pm)]
     inp = pm.z_slabs(stratified_fa(torch, pm, 1))
     fr.reset_launches()
     df, dt1m = fr.rhs_zg(pm, *inp)
@@ -486,14 +509,15 @@ def compare_zghost_kernels(torch, pt, fr, shape, errs):
     df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
     df2_p, f2_p = fr.rhs_zg_upd_plain(pm, *inp2, df_p.clone(), coef)
     torch.cuda.synchronize()
-    counts = {k: fr.LAUNCHES[k] for k in ZGHOST_KERNELS}
-    check(counts == {"rhs_zg": 1, "rhs_zg_upd": 1},
-          f"launch counts {counts}")
+    counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+    check(counts == {first: 1, upd: 1}, f"launch counts {counts}")
+    label = ("magnetoconvection" if magnetic else "conv-slab") + (
+        f", Omega = {Omega:g}" if Omega else "")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
-    check(dt_rel <= RTOL_DT, f"{shape} K6 max 1/dt rel err {dt_rel}")
-    compare_pairs(f"conv-slab (max 1/dt rel err {dt_rel:.2e})", shape,
-                  {"rhs_zg": [(df, df_p)],
-                   "rhs_zg_upd": [(df2, df2_p), (f2, f2_p)]},
+    check(dt_rel <= RTOL_DT, f"{shape} {label} {first} max 1/dt rel err "
+          f"{dt_rel}")
+    compare_pairs(f"{label} (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {first: [(df, df_p)], upd: [(df2, df2_p), (f2, f2_p)]},
                   errs, RTOL_FIELD)
 
 
@@ -649,8 +673,12 @@ def main():
     for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE):
         compare_zroll_kernels(torch, pt, fr, shape, errs)
         compare_shock_kernels(torch, pt, fr, shape, errs)
-        compare_zghost_kernels(torch, pt, fr, shape, errs)
-    compare_zghost_kernels(torch, pt, fr, (32, 32, 32), errs)
+    for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE,
+                  (32, 32, 32)):
+        for magnetic in (False, True):
+            for Omega in (0.0, 1.0):
+                compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic,
+                                       Omega)
     compare_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     compare_tail_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     n32 = (32, 32, 32)
@@ -675,6 +703,12 @@ def main():
     # UU_AMPL); the shear box from t = T_SHEAR
     compare_steps(torch, pt, "conv-slab", pt.configs.conv_slab(n32),
                   uu_noise=1e-2)
+    for label, kw in (("magnetoconvection", dict(magnetic=True)),
+                      ("conv-slab, Omega = 1", dict(Omega=1.0)),
+                      ("magnetoconvection, Omega = 1",
+                       dict(magnetic=True, Omega=1.0))):
+        compare_steps(torch, pt, label, pt.configs.conv_slab(n32, **kw),
+                      uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
                   t0=T_SHEAR)
     sb = pt.configs.shear_box(n32)
@@ -693,6 +727,7 @@ def main():
     eh = run_flagship(torch, pt, fr, smi, shape, launches,
                       name="entropy hydro")
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
+    zm = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True)
     sb = run_aux_box(torch, pt, fr, smi, shape, launches, "shear box")
     kb = run_aux_box(torch, pt, fr, smi, shape, launches, "shock box")
     for order in (4, 2):
@@ -720,6 +755,7 @@ def main():
     print(f"phase 4 K8 chain at 256^3 on {smi}: {k8:.4f} ms/step, the "
           f"flagship's kernel chain {fl[2]:.4f} ms/step", flush=True)
     time_conv_slab(torch, fr, smi, zg, errs, timings, bounds)
+    time_conv_slab(torch, fr, smi, zm, errs, timings, bounds)
     time_aux_box(torch, fr, smi, sb, errs, timings, bounds)
     time_aux_box(torch, fr, smi, kb, errs, timings, bounds)
 
@@ -914,14 +950,18 @@ def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):
 CONV_SLAB_WINDOWS = 5
 
 
-def run_conv_slab(torch, pt, fr, smi, shape, launches):
-    """Phase 3, second path: stratified convection, non-periodic z; the
-    step timed in CONV_SLAB_WINDOWS windows one after the other, the
-    launches counted in the first."""
+def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False):
+    """Phase 3: stratified convection, non-periodic z (with ``magnetic``
+    magnetoconvection, on K6m/K7m); the step timed in CONV_SLAB_WINDOWS
+    windows one after the other, the launches counted in the first, the
+    card's busy time from torch.profiler's kernel records."""
+    from pencil_tpu_torch.physics.pencils import Pencils
+    label = "magnetoconvection" if magnetic else "conv-slab"
     base = torch.cuda.memory_allocated()
-    model = pt.Model(pt.configs.conv_slab(shape), device="cuda")
+    model = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic),
+                     device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
-    check_launches("conv-slab", counts, launches)
+    check_launches(label, counts, launches)
     step = model.make_step()
     windows, issue = [ms_step], []
     e0 = torch.cuda.Event(enable_timing=True)
@@ -938,44 +978,67 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches):
         torch.cuda.synchronize()
         windows.append(e0.elapsed_time(e1) / TIMED)
     ms_step = sorted(windows)[len(windows) // 2]
-    print(f"phase 3 {N_MAIN}^3 conv-slab on {smi}: {len(windows)} windows "
+    busy, nkern = device_busy(torch, lambda: step(state), 3)
+    print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {len(windows)} windows "
           f"of {TIMED} steps: " + ", ".join(f"{w:.4f}" for w in windows)
           + f" ms/step; median {ms_step:.4f}, spread "
           f"{max(windows) - min(windows):.4f} ms "
           f"({(max(windows) / min(windows) - 1) * 100:.2f} %); the host "
           f"issued windows 2-{CONV_SLAB_WINDOWS} in "
-          + ", ".join(f"{w:.4f}" for w in issue) + " ms/step", flush=True)
+          + ", ".join(f"{w:.4f}" for w in issue) + " ms/step; the card "
+          + (f"busy {busy:.4f} ms a step in {nkern} kernels"
+             if busy else "busy: not measured (torch.profiler recorded "
+             "none)"), flush=True)
     fa = state["_fa"]
-    check(tuple(fa.shape) == (5,) + shape, f"state shape {tuple(fa.shape)}")
+    nvar = model.reg.nvar
+    check(tuple(fa.shape) == (nvar,) + shape,
+          f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
-    check(bool((fa[2][:, :, [0, -1]] == 0).all()), "uz not 0 on the walls")
+    # uz, and with Magnetic A_x and A_y, are 0 on the walls
+    for c in (2, 5, 6) if magnetic else (2,):
+        check(bool((fa[c][:, :, [0, -1]] == 0).all()),
+              f"{model.reg.comp_names[c]} not 0 on the walls")
     dt = float(state["dt"])
     # CFL bounds on the dt that the final state sets (one more step, out
     # of the timed window): 1/dt = max over points of the root sum of the
     # advective and diffusive rates, so it lies between the larger of
-    # their maxima and the root sum of their maxima
+    # their maxima and the root sum of their maxima (with Magnetic the
+    # latter holds the largest Alfvén speed too)
     dt_next = float(model.make_step()(state)["dt"])
     cfg, eos, ent = model.cfg, model.eos, model.cfg.module("entropy")
     tc, gs = cfg.time, cfg.grid
-    dxyz2 = sum((1.0 / d) ** 2 for d in (gs.dx, gs.dy, gs.dz))
+    inv = [1.0 / d for d in (gs.dx, gs.dy, gs.dz)]
+    dxyz2 = sum(i * i for i in inv)
     lnrho, ss = fa[3], fa[4]
     cs2 = eos.cs20 * torch.exp(eos.gamma / eos.cp * ss
                                + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
-    umax = sum(fa[a].abs().max() * (1.0 / d)
-               for a, d in enumerate((gs.dx, gs.dy, gs.dz)))
+    umax = sum(fa[a].abs().max() * inv[a] for a in range(3))
     adv = float((umax + torch.sqrt(cs2.max() * dxyz2)) / tc.cdt)
+    va2 = 0.0
+    if magnetic:
+        pen = Pencils(model.ghosted(fa), model.grid, model.reg, cfg, eos,
+                      ghosted=True)
+        bb = pen.bb()
+        va2 = float((sum((bb[a] * inv[a]) ** 2 for a in range(3))
+                     * pen.rho1()).max())
+        del pen, bb
+    adv_b = float((umax + torch.sqrt(cs2.max() * dxyz2 + va2)) / tc.cdt)
     chi = ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
-    dif = max(cfg.module("viscosity").nu, chi) * dxyz2 / tc.cdtv
-    check(1.0 / math.hypot(adv, dif) * (1 - 1e-5) <= dt_next
+    mag = cfg.module("magnetic")
+    dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0,
+              chi) * dxyz2 / tc.cdtv
+    check(1.0 / math.hypot(adv_b, dif) * (1 - 1e-5) <= dt_next
           <= 1.0 / max(adv, dif) * (1 + 1e-5),
-          f"dt {dt_next} outside the CFL bounds ({adv}, {dif})")
+          f"dt {dt_next} outside the CFL bounds ({adv}-{adv_b}, {dif})")
     u1 = urms(torch, fa)
     ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
-    print(f"phase 3 {N_MAIN}^3 conv-slab on {smi}: {ms_step:.4f} ms/step, "
+    names = ZGHOST_MAG_KERNELS if magnetic else ZGHOST_KERNELS
+    print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {ms_step:.4f} ms/step, "
           f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
-          f"(advective 1/dt {adv:.4e}, diffusive {dif:.4e}), "
+          f"(advective 1/dt {adv:.4e}, with the largest Alfvén speed "
+          f"{adv_b:.4e}, diffusive {dif:.4e}), "
           f"urms {u0:.3e} -> {u1:.3e}, launches "
-          f"{ {k: counts[k] for k in ZGHOST_KERNELS} }", flush=True)
+          f"{ {k: counts[k] for k in names} }", flush=True)
     return model, state, ms_step
 
 
@@ -1178,28 +1241,31 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
 
 
 def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
-    """K6/K7 checked and timed on the stratified noisy input of phase 2 at
-    256³, not on the main path's state: there uz's tendency is the small
-    residual of the O(1) pressure and gravity forces, and the f32 rounding
-    of those forces alone reaches 2e-5 of its max.  Then the step's split:
-    its kernels, its three z-halo fills, the boundary-plane writeback and
-    the glue (the axpy, dt, the RK coefficients), on the card and on the
-    host, from one torch.profiler trace (``conv_slab_split``)."""
+    """K6/K7 (K6m/K7m) checked and timed on the stratified noisy input of
+    phase 2 at 256³, not on the main path's state: there uz's tendency is
+    the small residual of the O(1) pressure and gravity forces, and the
+    f32 rounding of those forces alone reaches 2e-5 of its max.  Then the
+    step's split: its kernels, its three z-halo fills, the boundary-plane
+    writeback and the glue (the axpy, dt, the RK coefficients), on the
+    card and on the host, from one torch.profiler trace
+    (``conv_slab_split``)."""
     model, state, ms_step = zg
+    first, upd = fr.ZG_KERNELS[fr.zg_library(model)]
+    label = "magnetoconvection" if "aa" in model.reg.slots else "conv-slab"
     fa = state["_fa"]
     inp = model.z_slabs(stratified_fa(torch, model, 3))
     _, beta, _ = model.rk
     df1, dt1m = fr.rhs_zg_plain(model, *inp)
     coef = torch.stack((model._alpha[1], beta[1] / dt1m))
     prof = fr.zg_profiles(model)
-    time_pairs(torch, "rhs_zg", lambda: fr.rhs_zg(model, *inp),
+    time_pairs(torch, first, lambda: fr.rhs_zg(model, *inp),
                lambda: fr.rhs_zg_plain(model, *inp), errs, timings, bounds,
                [*inp, *prof])
     # K7 writes the new df over df_prev: checked on fresh copies of df1,
     # timed on one buffer that each call keeps updating in place
     scratch = df1.clone()
     time_pairs(
-        torch, "rhs_zg_upd",
+        torch, upd,
         lambda: fr.rhs_zg_upd(model, *inp, scratch, coef),
         lambda: fr.rhs_zg_upd_plain(model, *inp, scratch, coef), errs,
         timings, bounds, [*inp, *prof, df1, coef],
@@ -1210,11 +1276,13 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
                    "it": state["it"]}
     plain_ms = time_ms(torch, lambda: model._zghost_step(
         plain_state, (fr.rhs_zg_plain, fr.rhs_zg_upd_plain)), 3)
-    print(f"phase 4 conv-slab plain chain at 256^3 on {smi}: {plain_ms:.4f} "
+    print(f"phase 4 {label} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
-    dev, host, lost = conv_slab_split(torch, fr, model, state, 3)
+    time_rot_instances(torch, fr, smi, model)
+    parts = ZG_PARTS_MAG if label == "magnetoconvection" else ZG_PARTS
+    dev, host, lost = conv_slab_split(torch, fr, model, state, 3, parts)
     busy = sum(d for d, _ in dev.values())
-    head = f"phase 4 conv-slab step split at 256^3 on {smi} (3 steps)"
+    head = f"phase 4 {label} step split at 256^3 on {smi} (3 steps)"
     if not busy:
         print(f"{head}: device time not measured (torch.profiler recorded "
               f"none)", flush=True)
@@ -1232,23 +1300,52 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
           flush=True)
 
 
+def time_rot_instances(torch, fr, smi, model):
+    """The Coriolis instances of ``model``'s z-ghosted build (its
+    configuration with Ω = 1) timed against the Ω = 0 ones on one
+    stratified input at 256³, in turns (Ω = 0, Ω = 1, Ω = 1, Ω = 0); phase
+    2 checks them against their plain versions."""
+    import dataclasses
+    cfg = model.cfg
+    rot = type(model)(cfg.replace(modules=tuple(
+        dataclasses.replace(m, Omega=1.0) if m.name == "hydro" else m
+        for m in cfg.modules)), device="cuda")
+    first, upd = fr.ZG_KERNELS[fr.zg_library(rot)]
+    inp = model.z_slabs(stratified_fa(torch, model, 3))
+    df1, dt1m = fr.rhs_zg_plain(model, *inp)
+    coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
+    times = {}
+    for m, om in ((model, 0), (rot, 1), (rot, 1), (model, 0)):
+        for name, fn in ((first, lambda: fr.rhs_zg(m, *inp)),
+                         (upd, lambda: fr.rhs_zg_upd(m, *inp, df1, coef))):
+            times.setdefault((name, om), []).append(time_ms(torch, fn, 20))
+    print(f"phase 4 {first}, {upd} at 256^3 on {smi}, in turns: "
+          + "; ".join(f"{name} Omega = {om}: "
+                      + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+                      for (name, om), ts in sorted(times.items())),
+          flush=True)
+
+
 # the conv-slab step's parts: the step's call -> its name in the split
 ZG_PARTS = {"rhs_zg": "K6", "rhs_zg_upd": "K7 x2", "z_slabs": "z_slabs x3",
             "bc_writeback": "bc_writeback"}
+# magnetoconvection's: the same calls, K6m and K7m behind them
+ZG_PARTS_MAG = dict(ZG_PARTS, rhs_zg="K6m", rhs_zg_upd="K7m x2")
 
 
-def conv_slab_split(torch, fr, model, state, n):
-    """The conv-slab step from ``state`` split into its parts, each under
-    a torch.profiler range: ({part: (device ms, kernels)}, {part: host
-    ms}, device records whose launch was not found), each a step's mean
-    over n steps.  A device record belongs to the innermost range in
-    which the host launched it (the runtime call that shares its
-    correlation id, else the op it is linked to); "glue" (the axpy, dt,
-    RK coefficients, the copy of the input) is what the step's range
-    launched outside every part."""
+def conv_slab_split(torch, fr, model, state, n, parts=None):
+    """The conv-slab step from ``state`` split into its parts (``parts``:
+    ZG_PARTS or ZG_PARTS_MAG), each under a torch.profiler range: ({part:
+    (device ms, kernels)}, {part: host ms}, device records whose launch
+    was not found), each a step's mean over n steps.  A device record
+    belongs to the innermost range in which the host launched it (the
+    runtime call that shares its correlation id, else the op it is linked
+    to); "glue" (the axpy, dt, RK coefficients, the copy of the input) is
+    what the step's range launched outside every part."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    parts = list(ZG_PARTS.values())
+    names = parts or ZG_PARTS
+    parts = list(names.values())
     spent = dict.fromkeys(parts + ["step"], 0.0)
 
     def ranged(name, fn):
@@ -1261,10 +1358,10 @@ def conv_slab_split(torch, fr, model, state, n):
         return run
 
     # instance attributes shadow the methods that _zghost_step calls
-    model.z_slabs = ranged(ZG_PARTS["z_slabs"], model.z_slabs)
-    model.bc_writeback = ranged(ZG_PARTS["bc_writeback"], model.bc_writeback)
-    kernels = (ranged(ZG_PARTS["rhs_zg"], fr.rhs_zg),
-               ranged(ZG_PARTS["rhs_zg_upd"], fr.rhs_zg_upd))
+    model.z_slabs = ranged(names["z_slabs"], model.z_slabs)
+    model.bc_writeback = ranged(names["bc_writeback"], model.bc_writeback)
+    kernels = (ranged(names["rhs_zg"], fr.rhs_zg),
+               ranged(names["rhs_zg_upd"], fr.rhs_zg_upd))
     step = ranged("step", lambda: model._zghost_step(state, kernels))
     try:
         step()

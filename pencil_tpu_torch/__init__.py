@@ -9,8 +9,8 @@ central differences, the 2N-RK orders 1-4):
   (``configs.forced_hydro``);
 * non-isothermal forced turbulence: the flagship with an entropy field,
   with and without Magnetic (``configs.forced_entropy``);
-* stratified convection with a non-periodic z axis
-  (``configs.conv_slab``);
+* stratified convection with a non-periodic z axis, with and without
+  Magnetic (magnetoconvection) and rotation (``configs.conv_slab``);
 * the sheared, rotating MHD box with shock viscosity and hyper-diffusion
   (``configs.shear_box``);
 * the shocked periodic box: forced MHD with shock viscosity

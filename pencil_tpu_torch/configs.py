@@ -8,14 +8,21 @@ from __future__ import annotations
 import sys
 
 
-def conv_slab(n, fused=True, pkg=None):
+def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
     gravity, with K-const conduction, a heating layer at the bottom, a
     cooling layer at the top and viscous heating; unforced; 5 fields (uu,
     lnrho, ss).  x and y are periodic; z has physical boundaries.  ``n``
-    is an int (a cube) or (nx, ny, nz).  The values are this
+    is an int (a cube) or (nx, ny, nz).
+
+    ``magnetic`` makes it magnetoconvection: the vector potential with
+    η = 4e-3 (magnetic Prandtl number ν/η = 1), a weak gaussian-noise seed
+    field of amplitude 1e-4, the Lorentz force and Ohmic heating; 8 fields
+    (uu, lnrho, ss, aa), with the perfect-conductor walls A_x = A_y = 0,
+    ∂A_z/∂z = 0 ('a', 'a', 's').  ``Omega`` > 0 adds the Coriolis force of
+    a rotation about z (rotating convection).  The values are this
     configuration's own, not the sample's start.in/run.in.
 
     The bottom c1 flux follows the run-directory loader's rule
@@ -30,6 +37,11 @@ def conv_slab(n, fused=True, pkg=None):
     bcz = (pkg.BC.parse("ux", "s"), pkg.BC.parse("uy", "s"),
            pkg.BC.parse("uz", "a"), pkg.BC.parse("lnrho", "a2"),
            pkg.BC.parse("ss", "c1:cT", lval=lval, hval=cs2cool))
+    mag = ()
+    if magnetic:
+        bcz += (pkg.BC.parse("ax", "a"), pkg.BC.parse("ay", "a"),
+                pkg.BC.parse("az", "s"))
+        mag = (pkg.Magnetic(eta=4e-3, init="gaussian-noise", ampl=1e-4),)
     return pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
                           Lx=1.0, Ly=1.0, Lz=1.0,
@@ -37,14 +49,15 @@ def conv_slab(n, fused=True, pkg=None):
         time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
         modules=(pkg.EosIdealGas(gamma=gamma, cs0=1.0, cp=cp),
                  pkg.Density(init="piecew-poly"),
-                 pkg.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Gravity(gravz_profile="const", gravz=gravz),
                  pkg.Viscosity(ivisc=("nu-const",), nu=4e-3),
                  pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
                              mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
                              iheatcond=("K-const",), hcond0=8e-3,
                              luminosity=5e-3, wheat=0.1, cool=15.0,
-                             wcool=0.2, cs2cool=cs2cool)))
+                             wcool=0.2, cs2cool=cs2cool),
+                 *mag))
 
 
 def shear_box(n, fused=True, pkg=None):

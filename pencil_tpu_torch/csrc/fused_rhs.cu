@@ -32,7 +32,13 @@
 // nz - 1 from two slabs (5, nx, ny, NG), zlo and zhi, that a z-only ghost
 // fill cut (the split of JAX's `_fetch_zg`): only the halo lanes of the
 // blocks at the two z ends read a slab.  No DEFER, LAST, KICK or FAKE
-// instance either.
+// instance either.  Built with -DPC_ENT=1 -DPC_ZG=1 (PC_MAG left at 1) it
+// gives magnetoconvection's K6m and K7m on the 8 fields uu, lnrho, ss, aa
+// and their slabs (8, nx, ny, NG): the z-ghosted terms with the MHD ones
+// of the wrap builds (u x B + eta del2 A, the Lorentz force, Ohmic heating,
+// the Alfven speed in the CFL), eta and the Ohmic heat compiled in as the
+// conduction is.  Both z-ghosted builds have a Coriolis (ROT) instance of
+// each kernel, the rotating conv-slab's.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -62,6 +68,7 @@
 //   K6  pc_rhs_first (PC_ZG)   <- `kernel_zg` + `_fetch_zg` (:317, :301)
 //   K7  pc_rhs_tail_mid (PC_ZG) <- `kernel_zg_upd` (:349): df written over
 //                                 df_prev, f = f + bdt*df
+//   K6m, K7m                    <- the same two, traced with Magnetic
 //
 // What bounds them on an H100: every kernel is a stencil over all 7 fields
 // (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
@@ -75,7 +82,8 @@
 // point (K4, K5 with del6 of 7 fields: ~1,190, 0.30 ms).  The z-ghosted
 // build reads 5 fields and the slabs (0.5 B a point at 256^3) and writes
 // 5 (K6: 40.5 B, 0.21 ms) or reads df_prev and writes 10 (K7: 80.5 B,
-// 0.41 ms), ~750 operations a point.  That rate
+// 0.41 ms), ~750 operations a point; with aa (K6m: 64.75 B, 0.32 ms; K7m:
+// 128.75 B, 0.64 ms) ~1,070.  That rate
 // assumes that every instruction is an FMA, and what these kernels are
 // held by comes before it: the instructions they issue.  Counted in the
 // SASS (sass_counts.py), K1 issues 1,169 instructions per point at 256^3,
@@ -169,16 +177,16 @@
 #define PC_SHEAR 0     // 1: the shear box's ghosted source and terms (K4, K5)
 #endif
 #ifndef PC_ZG
-#define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7)
-#endif
+#define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
+#endif                 //    with PC_MAG K6m, K7m)
 #if PC_SHOCK && (PC_ENT || !PC_MAG)
 #error "the shock builds take the isothermal MHD layout"
 #endif
 #if PC_SHEAR && !PC_SHOCK
 #error "the shear build is a shock build"
 #endif
-#if PC_ZG && (!PC_ENT || PC_MAG || PC_SHOCK || PC_SHEAR)
-#error "the z-ghosted build takes the entropy-hydro layout"
+#if PC_ZG && (!PC_ENT || PC_SHOCK || PC_SHEAR)
+#error "the z-ghosted builds take the entropy layouts"
 #endif
 // the builds with the DEFER, LAST and KICK instances
 #define PC_TAILS (!PC_SHOCK && !PC_ZG)
@@ -372,8 +380,9 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // the pressure force and the layer terms after the heating, in the order
 // of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
 // point's cooling profile, lay_h heat_norm times its heating profile, and
-// its conduction and heating terms are compiled in (no test of a
-// coefficient: a layer that is off has a profile of zeros).
+// its conduction and heating terms, and with aa eta del2 A and the Ohmic
+// heat, are compiled in (no test of a coefficient: a layer that is off
+// has a profile of zeros, a coefficient that is off adds 0).
 template <bool WANT_DT1, bool ROT, bool H3>
 __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
@@ -558,7 +567,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #endif
     r[AX + a] = out;
 #else
-    r[AX + a] = P.eta > 0.0f ? uxb + P.eta * del2 : uxb;
+    r[AX + a] = PC_ZG || P.eta > 0.0f ? uxb + P.eta * del2 : uxb;
 #endif
   }
 #if !PC_ENT
@@ -611,7 +620,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   }
   if (PC_ZG || P.two_nu > 0.0f) ds = ds + (P.two_nu * sij2) * TT1;
 #if PC_MAG
-  if (P.eta_heat > 0.0f) {
+  if (PC_ZG || P.eta_heat > 0.0f) {
     const float j2 = (jj[0] * jj[0] + jj[1] * jj[1]) + jj[2] * jj[2];
     ds = ds + ((P.eta_heat * j2) * rho1) * TT1;
   }
@@ -653,8 +662,8 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
     dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
 #elif PC_ZG
-    // max(nu, K gamma/(rho cp)) at this point (maxdif = nu): with nothing
-    // diffusive dif = 0 and the root gives dt1a exactly
+    // max(nu, [eta,] K gamma/(rho cp)) at this point (maxdif = max(nu,
+    // eta)): with nothing diffusive dif = 0 and the root gives dt1a exactly
     const float dif = (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv;
     dt1 = sqrtf(dt1a * dt1a + dif * dif);
 #elif PC_ENT
@@ -1183,7 +1192,10 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     }
   }
   if (FIRST)
-    block_max_store<NTHREADS>(
+    // a red[] of its own for the z-ghosted builds' Coriolis K6, so that K6
+    // has its red[] to itself and the shared layout of a build without
+    // that instance
+    block_max_store<NTHREADS, PC_ZG && ROT>(
         dt1max, dt1blk + (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                     + blockIdx.x);
 }
@@ -1228,13 +1240,9 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
                 p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
                 zg);
 #endif
-#if !PC_ZG   // the z-ghosted build has no Coriolis instance
     if (rot)
       return launch_as<FIRST, DEFER, LAST, KICK, false, true, false>(
           p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
-#else
-    (void)rot;
-#endif
   }
   return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false>(
       p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
@@ -1342,7 +1350,7 @@ int pc_tile_shape(int* out) {
 // K3', 9/10 K2L with and without the kick.  Only the isothermal MHD build
 // has K8 (1, 3, 6, 7).  The shock builds have 0 and 8 (K1s and K5w, or K4
 // and K5), + 16 with rotation, + 32 with the del6 terms; the z-ghosted
-// build 0 and 8 (K6 and K7).
+// builds 0 and 8 (K6 and K7, K6m and K7m), + 16 with rotation.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs<true, false, false, false, false>(out);
@@ -1365,6 +1373,9 @@ int pc_flagship_attrs(int which, int* out) {
     case 40: return attrs<false, false, false, false, false, false, true>(out);
     case 48: return attrs<true, false, false, false, false, true, true>(out);
     case 56: return attrs<false, false, false, false, false, true, true>(out);
+#elif PC_ZG
+    case 16: return attrs<true, false, false, false, false, true>(out);
+    case 24: return attrs<false, false, false, false, false, true>(out);
 #elif PC_TAILS
     case 9: return attrs<false, true, true, true, false>(out);
     case 10: return attrs<false, true, true, false, false>(out);
@@ -1386,8 +1397,9 @@ int pc_flagship_attrs(int which, int* out) {
 // K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py);
 // in the shock builds K1s (the same with the shock slot) and K4 (`kernel`
 // + `_dma_tile`, zroll), fa then the 8-slot state, ghosted in x and y for
-// K4; in the z-ghosted build K6 (`kernel_zg` + `_fetch_zg`), fa the
-// interior (5, nx, ny, nz) with its z-halo slabs after the stream.
+// K4; in the z-ghosted builds K6 and K6m (`kernel_zg` + `_fetch_zg`), fa
+// the interior (5 or 8, nx, ny, nz) with its z-halo slabs after the
+// stream.
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
                  float* dt1blk, void* stream ZG_INPUTS) {
   return first<false>(p, fa, df, dt1blk, stream ZG_IN);
@@ -1415,7 +1427,7 @@ int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
 // K3': replaces the 2N-RK4 middle substeps' `kernel_upd` with the wrap
 // fetch (pencil_tpu/ops/fused_rhs.py); in the shock builds K5w (the same
 // with the shock slot) and K5 (`kernel_upd` with the zroll `_dma_tile`
-// fetch); in the z-ghosted build K7 (`kernel_zg_upd`).  df may be
+// fetch); in the z-ghosted builds K7 and K7m (`kernel_zg_upd`).  df may be
 // df_prev's own buffer.
 int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
                     const float* coef, float* df, float* f,

@@ -6,8 +6,11 @@
 #define NG 3           // ghost width of the 6th-order stencil
 
 // Block maximum of v over NT threads, written by thread 0 to *out: warp
-// shuffles, then one warp over the warp maxima.
-template <int NT>
+// shuffles, then one warp over the warp maxima.  Each TAG has a red[] of
+// its own: where two kernels of a library share one, ptxas lays it out
+// after their other shared variables, which moves every shared offset of
+// a kernel that had it to itself.
+template <int NT, int TAG = 0>
 __device__ __forceinline__ void block_max_store(float v, float* out) {
   __shared__ float red[NT / 32];
   const int tid = threadIdx.x;

@@ -33,13 +33,15 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   K2e, K3e, K3′e, K2Le) or 5 (uu, lnρ, s: K1he … K2Lhe).
 
 * Stratified convection — the EOS with an entropy slot, lnρ density,
-  hydro, constant gravity, 'nu-const' viscosity, entropy — with a
-  non-periodic z axis, as the JAX package's zghost mode (model.py:704-775,
-  :891): a z-only ghost fill cuts the z-halo slabs (``z_slabs``) for K6
-  (df1 and the CFL maximum), which wraps x and y itself, f1 = f0 +
-  β₀Δt·df1 as a torch axpy; then per substep ``z_slabs`` and K7 (df ←
-  α·df + RHS(f), f ← f + βΔt·df); then ``bc_writeback`` pins the boundary
-  planes that value-setting BCs fix.
+  hydro (with optional Coriolis), constant gravity, 'nu-const' viscosity,
+  entropy, and magnetoconvection, the same with resistive-gauge magnetic —
+  with a non-periodic z axis, as the JAX package's zghost mode
+  (model.py:704-775, :891): a z-only ghost fill cuts the z-halo slabs
+  (``z_slabs``) for K6 (df1 and the CFL maximum), which wraps x and y
+  itself, f1 = f0 + β₀Δt·df1 as a torch axpy; then per substep
+  ``z_slabs`` and K7 (df ← α·df + RHS(f), f ← f + βΔt·df); then
+  ``bc_writeback`` pins the boundary planes that value-setting BCs fix.
+  With Magnetic the wrappers launch K6m and K7m, the 8-field build.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -105,8 +107,9 @@ REGISTRATION_ORDER = (
 
 # the module sets the fused kernels implement: the flagship and forced hydro
 # (forcing is optional) on a fully periodic grid, stratified convection
-# with z non-periodic and x, y periodic, and the shearing box and the
-# shocked box (forcing is optional) on a fully periodic grid
+# and magnetoconvection with z non-periodic and x, y periodic, and the
+# shearing box and the shocked box (forcing is optional) on a fully
+# periodic grid
 HYDRO_MODULES = frozenset(("eos", "density", "hydro", "viscosity"))
 FLAGSHIP_MODULES = HYDRO_MODULES | {"magnetic"}
 # the same two with an entropy field (non-isothermal turbulence)
@@ -116,6 +119,8 @@ WRAP_SETS = (FLAGSHIP_MODULES, HYDRO_MODULES, ENT_MHD_MODULES,
              ENT_HYDRO_MODULES)
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
+# stratified convection and magnetoconvection (Ω optional in both)
+ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"})
 ZROLL_MODULES = FLAGSHIP_MODULES | {"shear", "shock"}
 SHOCKBOX_MODULES = FLAGSHIP_MODULES | {"shock"}
 
@@ -149,7 +154,8 @@ def _zroll_options(cfg: Config):
 
 def fused_mode(cfg: Config):
     """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain,
-    with or without an entropy field), 'zghost' (stratified convection),
+    with or without an entropy field), 'zghost' (stratified convection
+    and magnetoconvection, each with or without Ω),
     'zroll' (the shearing box) or 'wrap_aux' (the shocked periodic box), or
     (None, why ``cfg`` is outside all of these sets)."""
     names = [m.name for m in cfg.modules]
@@ -172,9 +178,7 @@ def fused_mode(cfg: Config):
             return "wrap_aux", None
         extra = _zroll_options(cfg)
         wrap = unforced in WRAP_SETS and full
-        zghost = mods == CONVSLAB_MODULES and periodic == (True, True, False)
-        if zghost and cfg.module("hydro").Omega != 0.0:
-            extra.append("Hydro.Omega")     # K6/K7 have no Coriolis
+        zghost = mods in ZGHOST_SETS and periodic == (True, True, False)
         if (wrap or zghost) and extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")
@@ -195,7 +199,8 @@ def fused_mode(cfg: Config):
                   f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
                   f"{sorted(HYDRO_MODULES)}, each with or without "
                   "'entropy', with optional forcing on a periodic grid, "
-                  f"{sorted(CONVSLAB_MODULES)} with a non-periodic z, "
+                  f"{sorted(CONVSLAB_MODULES)} with or without 'magnetic' "
+                  "with a non-periodic z, "
                   f"{sorted(ZROLL_MODULES)} and {sorted(SHOCKBOX_MODULES)} "
                   "with optional forcing on a periodic grid)")
 

@@ -1,13 +1,13 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives seven, the MHD
+(``LIBRARIES``: the flagship template's source gives eight, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
 entropy field, ``PC_ENT=1``, the MHD ones with the shock slot,
 ``PC_SHOCK=1``, on the periodic state or, with ``PC_SHEAR=1``, on the
-shear box's ghosted stack, and the 5-field entropy-hydro ones with
-``PC_ZG=1``, stratified convection on the interior stack and its z-halo
-slabs), with a plain C
+shear box's ghosted stack, and the 5- and 8-field entropy ones with
+``PC_ZG=1``, stratified convection and magnetoconvection on the interior
+stack and its z-halo slabs), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each.
 They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
@@ -43,14 +43,15 @@ LIBRARIES = {
     "fused_rhs_shear": ("fused_rhs.cu", ("-DPC_SHOCK=1", "-DPC_SHEAR=1")),
     "fused_rhs_zg": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
                                       "-DPC_ZG=1")),
+    "fused_rhs_zg_mag": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1")),
 }
 
 _p = ctypes.c_void_p
 # the flagship template's entry points in its libraries: the shock builds
 # have the first and the middle kernel only (K1s and K5w, K4 and K5), and
-# so has the z-ghosted build (K6 and K7), whose two take its z-halo slabs
-# and layer profiles after the stream; K8 (the fake RHS) is built for the
-# MHD instances only
+# so have the z-ghosted builds (K6 and K7, K6m and K7m), whose two take
+# their z-halo slabs and layer profiles after the stream; K8 (the fake RHS)
+# is built for the MHD instances only
 _SHOCK = {
     "pc_tile_shape": [_p],
     "pc_flagship_attrs": [ctypes.c_int, _p],
@@ -63,6 +64,7 @@ _FLAGSHIP = {
     "pc_rhs_tail_last": [_p] * 9,
     "pc_rhs_tail_defer_last": [_p] * 9,
 }
+_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 9, "pc_rhs_tail_mid": [_p] * 11}
 # each library's entry points: name -> argtypes (all return an int)
 SIGNATURES = {
     "fused_rhs": {
@@ -76,8 +78,8 @@ SIGNATURES = {
     "fused_rhs_hydro_ent": _FLAGSHIP,
     "fused_rhs_shock": _SHOCK,
     "fused_rhs_shear": _SHOCK,
-    "fused_rhs_zg": {**_SHOCK, "pc_rhs_first": [_p] * 9,
-                     "pc_rhs_tail_mid": [_p] * 11},
+    "fused_rhs_zg": _ZG,
+    "fused_rhs_zg_mag": _ZG,
 }
 
 _libs = {}

@@ -36,7 +36,10 @@ fill (``Model.z_slabs``; the split of JAX's ``_fetch_zg``): the flagship
 template built with ``PC_MAG=0 PC_ENT=1 PC_ZG=1`` (library
 ``fused_rhs_zg``, its ``pc_rhs_first`` and ``pc_rhs_tail_mid``), which
 adds gravity and the cooling and heating layers and reads its z halo
-from the slabs:
+from the slabs; magnetoconvection on the 8 fields (uu, lnrho, ss, aa) and
+slabs (8, nx, ny, 3) on the same template built with ``PC_ENT=1 PC_ZG=1``
+(library ``fused_rhs_zg_mag``, launch names with the suffix ``_mag``: K6m,
+K7m); with Ω either build launches its Coriolis instances:
 
   rhs_zg           K6  df = RHS(f), max of the CFL 1/dt
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
@@ -97,8 +100,8 @@ LAUNCHES = dict.fromkeys((
     "rhs_tail_mid_ent", "rhs_tail_defer_last_ent", "rhs_first_hydro_ent",
     "rhs_tail_defer_hydro_ent", "rhs_tail_last_hydro_ent",
     "rhs_tail_mid_hydro_ent", "rhs_tail_defer_last_hydro_ent",
-    "rhs_zg", "rhs_zg_upd", "rhs_zroll", "rhs_zroll_upd", "rhs_wrap_shock",
-    "rhs_wrap_shock_upd"), 0)
+    "rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag", "rhs_zroll",
+    "rhs_zroll_upd", "rhs_wrap_shock", "rhs_wrap_shock_upd"), 0)
 
 
 def reset_launches():
@@ -215,13 +218,14 @@ def _kicked(model, fa, kick):
 
 
 def rhs_zg_plain(model, fa, zlo, zhi):
-    """K6's plain version: (df, 0-d max of 1/dt) on the interior stack and
-    its z-halo slabs."""
+    """K6's (K6m's) plain version: (df, 0-d max of 1/dt) on the interior
+    stack and its z-halo slabs."""
     return rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi), ghosted=True)
 
 
 def rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef):
-    """K7's plain version: (df, f); df is written over df_prev."""
+    """K7's (K7m's) plain version: (df, f); df is written over
+    df_prev."""
     alpha, bdt = coef[0], coef[1]
     dfa, _ = rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi),
                        want_dt1=False, ghosted=True)
@@ -380,28 +384,43 @@ def shock_library(model) -> str:
         f"shocked boxes only, got {reg.comp_names} of {sorted(names)}")
 
 
-# the z-ghosted build's field layout and modules: the conv-slab's
-_ZG_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "ss": slice(4, 5)}
-_ZG_MODULES = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
-                         "entropy"))
-ZG_LIBRARY = "fused_rhs_zg"
+# the z-ghosted builds, each with its field layout, its module set (the
+# conv-slab's, and with Magnetic) and its two launch names
+_CONVSLAB = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
+                       "entropy"))
+_ZG_BUILDS = {
+    "fused_rhs_zg": (_LAYOUTS["fused_rhs_hydro_ent"], _CONVSLAB,
+                     ("rhs_zg", "rhs_zg_upd")),
+    "fused_rhs_zg_mag": (_LAYOUTS["fused_rhs_ent"], _CONVSLAB | {"magnetic"},
+                         ("rhs_zg_mag", "rhs_zg_upd_mag")),
+}
+ZG_KERNELS = {lib: names for lib, (_, _, names) in _ZG_BUILDS.items()}
 
 
-def zg_check(model):
-    """Raise unless ``model`` is one the z-ghosted build runs: the
-    conv-slab's (uu, lnrho, ss) layout and module set, without Ω and
-    chi-const conduction, which the build has no terms for."""
+def zg_library(model) -> str:
+    """The z-ghosted build of the flagship template for ``model``:
+    'fused_rhs_zg' (the conv-slab's uu, lnrho, ss) or 'fused_rhs_zg_mag'
+    (with aa and Magnetic), with or without Ω; raises for another layout
+    or module set, and for chi-const conduction, which the builds have no
+    terms for.  Found once per model: the conv-slab step is bound by the
+    host."""
+    lib = model.__dict__.get("_zg_library")
+    if lib is not None:
+        return lib
     reg, cfg = model.reg, model.cfg
     names = {m.name for m in cfg.modules}
     ent = cfg.module("entropy")
-    if names == _ZG_MODULES and reg.nvar == reg.nf == 5 and all(
-            reg.slice(k) == v for k, v in _ZG_LAYOUT.items()) \
-            and cfg.module("hydro").Omega == 0.0 and not ent.chi_conduction:
-        return
+    for lib, (layout, modules, _) in _ZG_BUILDS.items():
+        n = sum(sl.stop - sl.start for sl in layout.values())
+        if names == modules and reg.nvar == reg.nf == n and all(
+                reg.slice(k) == v for k, v in layout.items()) \
+                and not ent.chi_conduction:
+            model.__dict__["_zg_library"] = lib
+            return lib
     raise NotImplementedError(
-        "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules "
-        f"without Omega or chi-const only, got {reg.comp_names} of "
-        f"{sorted(names)}")
+        "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules, "
+        "with or without Magnetic's aa, without chi-const only, got "
+        f"{reg.comp_names} of {sorted(names)}")
 
 
 def zg_profiles(model):
@@ -435,7 +454,7 @@ def kernel_params(model) -> PcParams:
     if "shock" in model.reg.slots:
         shock_library(model)
     elif cfg.module("gravity") is not None:
-        zg_check(model)
+        zg_library(model)
     else:
         flagship_library(model)
     f32 = np.float32
@@ -518,14 +537,16 @@ def library_instances(lib):
     """Launch name -> ``pc_flagship_attrs`` index of each instance of the
     template's library ``lib`` (only the isothermal MHD build has K8; the
     shock builds have their two kernels, each without and with rotation
-    and the del6 terms)."""
-    if lib == ZG_LIBRARY:
-        return {"rhs_zg": 0, "rhs_zg_upd": 8}
-    if lib in AUX_KERNELS:
-        return {(kernel + flags).rstrip(): which + extra
-                for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
-                for flags, extra in (("", 0), (" rot", 16), (" h3", 32),
-                                     (" rot h3", 48))}
+    and the del6 terms, the z-ghosted builds theirs without and with
+    rotation)."""
+    pair = AUX_KERNELS.get(lib) or ZG_KERNELS.get(lib)
+    if pair:
+        flags = (("", 0), (" rot", 16))
+        if lib in AUX_KERNELS:
+            flags += ((" h3", 32), (" rot h3", 48))
+        return {(kernel + flag).rstrip(): which + extra
+                for kernel, which in zip(pair, (0, 8))
+                for flag, extra in flags}
     sfx = _SUFFIX[lib]
     out = {}
     for which, name in enumerate(FLAGSHIP_INSTANCES):
@@ -689,10 +710,12 @@ def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
 
 
 def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
-    """The z-ghosted build's inputs after the stream (the slabs and the
-    layer profiles), after checking every input."""
+    """(library, its launch names, the inputs after the stream: the slabs
+    and the layer profiles) of ``model``'s z-ghosted build, after checking
+    every input."""
     p = kernel_params(model)
-    shape = (5, p.nx, p.ny, p.nz)
+    lib = zg_library(model)
+    shape = (model.reg.nvar, p.nx, p.ny, p.nz)
     _check(fa, shape, "fa")
     for name, t in (("zlo", zlo), ("zhi", zhi)):
         _check(t, shape[:3] + (NGHOST,), name)
@@ -700,35 +723,35 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
         _check(df_prev, shape, "df_prev")
     if coef is not None:
         _check(coef, (2,), "coef")
-    return (zlo.data_ptr(), zhi.data_ptr(),
-            *(v.data_ptr() for v in zg_profiles(model)))
+    return lib, ZG_KERNELS[lib], (zlo.data_ptr(), zhi.data_ptr(),
+                                  *(v.data_ptr() for v in zg_profiles(model)))
 
 
 def rhs_zg(model, fa, zlo, zhi):
-    """K6: replaces ``kernel_zg`` + ``_fetch_zg`` (fused_rhs.py:317, :301),
-    on the interior stack and its z-halo slabs.  Returns (df, 0-d max of
-    1/dt)."""
+    """K6 (K6m with aa): replaces ``kernel_zg`` + ``_fetch_zg``
+    (fused_rhs.py:317, :301), on the interior stack and its z-halo slabs.
+    Returns (df, 0-d max of 1/dt)."""
     if not _dispatch(fa):
         return rhs_zg_plain(model, fa, zlo, zhi)
-    after = _zg_inputs(model, fa, zlo, zhi)
+    lib, (name, _), after = _zg_inputs(model, fa, zlo, zhi)
     df = torch.empty_like(fa)
-    blk = fa.new_empty(_nblocks(fa.shape[1:], ZG_LIBRARY))
-    _launch("rhs_zg", fa, ctypes.addressof(kernel_params(model)),
-            fa.data_ptr(), df.data_ptr(), blk.data_ptr(), lib=ZG_LIBRARY,
-            entry="rhs_first", after=after)
+    blk = fa.new_empty(_nblocks(fa.shape[1:], lib))
+    _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
+            df.data_ptr(), blk.data_ptr(), lib=lib, entry="rhs_first",
+            after=after)
     return df, torch.amax(blk)
 
 
 def rhs_zg_upd(model, fa, zlo, zhi, df_prev, coef):
-    """K7: replaces ``kernel_zg_upd`` (fused_rhs.py:349).  Returns (df,
-    f); df is df_prev's buffer, overwritten."""
+    """K7 (K7m with aa): replaces ``kernel_zg_upd`` (fused_rhs.py:349).
+    Returns (df, f); df is df_prev's buffer, overwritten."""
     if not _dispatch(fa):
         return rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef)
-    after = _zg_inputs(model, fa, zlo, zhi, df_prev, coef)
+    lib, (_, name), after = _zg_inputs(model, fa, zlo, zhi, df_prev, coef)
     f = torch.empty_like(fa)
-    _launch("rhs_zg_upd", fa, ctypes.addressof(kernel_params(model)),
+    _launch(name, fa, ctypes.addressof(kernel_params(model)),
             fa.data_ptr(), df_prev.data_ptr(), coef.data_ptr(),
-            df_prev.data_ptr(), f.data_ptr(), lib=ZG_LIBRARY,
+            df_prev.data_ptr(), f.data_ptr(), lib=lib,
             entry="rhs_tail_mid", after=after)
     return df_prev, f
 

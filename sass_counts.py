@@ -13,7 +13,9 @@ shared-memory loads, integer and address arithmetic, and the rest.
 ``--lib`` builds (or finds built) the package's library of that name
 (K1s and K5w are instances of ``fused_rhs_shock``, K4 and K5 of
 ``fused_rhs_shear``, with rotation and the del6 terms as the shear box
-runs them, K6 and K7 of ``fused_rhs_zg``);
+runs them, K6 and K7 of ``fused_rhs_zg``, the same names of
+``fused_rhs_zg_mag`` its K6m and K7m, and K6rot, K7rot their Coriolis
+instances);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
 that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
 or the 4×4×16 template of earlier commits that its ``--parent-tree``
@@ -33,12 +35,14 @@ branch over 6 shared loads a field and no FP32.  ``--dump`` writes each
 instance's SASS there, as
 DIR/<library stem>_<kernel>.sass; ``--from-dump DIR/STEM`` counts such
 files again (no toolkit needed), e.g. with other ``--skip`` ranges.
-``--parent`` builds each library of ``--libs`` (default: every library
-but ``fused_rhs_zg``) from another copy of csrc/fused_rhs.cu, with that
-library's definitions, into pencil_tpu_torch/_build/parent/, all nvcc runs
-at once, and compares every instance of the template in the two builds
-instruction for instruction (the constant-bank offsets of the kernel
-parameters, which move where the parameter struct grows, left out).
+``--parent`` builds each library of ``--libs`` (default: every library)
+from another copy of csrc/fused_rhs.cu, with that library's definitions,
+into pencil_tpu_torch/_build/parent/, all nvcc runs at once, and compares
+every instance of the template in the two builds instruction for
+instruction (the constant-bank offsets of the kernel parameters, which
+move where the parameter struct grows, left out); a library that the
+old copy does not build (its ``#error``) is listed as new, and an
+instance in one build only as "only in" that one.
 Otherwise it needs cuobjdump (the CUDA toolkit); no card.  Prints one
 line per loop (per library with ``--parent``) and, last, one JSON object.
 """
@@ -61,6 +65,7 @@ INSTANCES = {
     "K1s": (1, 0, 0, 0, 0, 0, 0), "K5w": (0, 0, 0, 0, 0, 0, 0),
     "K4": (1, 0, 0, 0, 0, 1, 1), "K5": (0, 0, 0, 0, 0, 1, 1),
     "K6": (1, 0, 0, 0, 0, 0, 0), "K7": (0, 0, 0, 0, 0, 0, 0),
+    "K6rot": (1, 0, 0, 0, 0, 1, 0), "K7rot": (0, 0, 0, 0, 0, 1, 0),
 }
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template
 ZR_INSTANCES = {"zr-K4": (0, 0), "zr-K5": (1, 0), "zr-K1s": (0, 1),
@@ -219,7 +224,11 @@ def compare_parent(src, libs):
     for lib, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{lib} from {src}: nvcc failed\n{log}")
+            if "#error" not in log:
+                raise RuntimeError(f"{lib} from {src}: nvcc failed\n{log}")
+            result[lib] = {"instances": None, "differ": "new library"}
+            print(f"{lib}: not built by {src} (its #error): new", flush=True)
+            continue
         old_f = {instance_key(n): i for n, i in functions(
             out_dir / f"{lib}.so", cuobjdump).items()}
         new_f = {instance_key(n): i for n, i in functions(
@@ -232,10 +241,13 @@ def compare_parent(src, libs):
                 continue
             a, b = normalized(old_f[key]), normalized(new_f[key])
             if a != b:
-                first = next((k for k, (x, y) in enumerate(zip(a, b))
-                              if x != y), min(len(a), len(b)))
-                differ[key] = (f"{len(a)} -> {len(b)} instructions, first "
-                               f"difference at {first}")
+                pairs = [(k, x, y) for k, (x, y) in enumerate(zip(a, b))
+                         if x != y]
+                first = pairs[0][0] if pairs else min(len(a), len(b))
+                differ[key] = (f"{len(a)} -> {len(b)} instructions, "
+                               f"{len(pairs)} differ, first at {first}: "
+                               + "; ".join(f"{k}: {x} -> {y}"
+                                           for k, x, y in pairs[:4]))
         result[lib] = {"instances": len(new_f), "differ": differ}
         print(f"{lib}: {len(new_f)} functions, "
               + ("every one the parent's, instruction for instruction"
@@ -260,8 +272,7 @@ def main():
     args = ap.parse_args()
     if args.parent:
         from pencil_tpu_torch.ops import _build
-        libs = args.libs or [k for k in _build.LIBRARIES
-                             if k != "fused_rhs_zg"]
+        libs = args.libs or list(_build.LIBRARIES)
         print(json.dumps({"parent": args.parent, "libraries":
                           compare_parent(args.parent, libs)}), flush=True)
         return 0

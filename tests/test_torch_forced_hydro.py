@@ -237,17 +237,20 @@ def test_kernel_params_take_both_layouts():
 
 @pytest.mark.parametrize("which", ("conv_slab", "shear_box", "entropy"))
 def test_kernel_params_refuse_other_layouts(which):
-    """The conv-slab set with Magnetic (uu, lnrho, ss, aa under gravity:
-    the template's z-ghosted build takes the conv-slab's 5 fields only),
-    the shear box without Magnetic (uu, lnrho and the shock slot: the
-    template's shock builds take the 8-slot MHD layout only) and an
-    entropy slot with a cooling layer are not layouts and module sets of
-    the flagship template's builds."""
+    """The conv-slab's gravity and walls on the isothermal MHD set (uu,
+    lnrho, aa under gravity, no ss: the template's z-ghosted builds take
+    the conv-slab's entropy layouts only; the conv-slab with Magnetic runs
+    them, tests/test_torch_zghost_mhd.py), the shear box without Magnetic
+    (uu, lnrho and the shock slot: the template's shock builds take the
+    8-slot MHD layout only) and an entropy slot with a cooling layer are
+    not layouts and module sets of the flagship template's builds."""
     from pencil_tpu_torch.configs import conv_slab
-    cfg = {"conv_slab": lambda: conv_slab(8).replace(
-               modules=conv_slab(8).modules + (pt.Magnetic(eta=1e-3),),
-               bcz=conv_slab(8).bcz + tuple(pt.BC.parse(c, "s")
-                                            for c in ("ax", "ay", "az"))),
+    mag = conv_slab(8, magnetic=True)
+    cfg = {"conv_slab": lambda: mag.replace(
+               modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0), pt.Density(),
+                        pt.Hydro(), mag.module("gravity"),
+                        mag.module("viscosity"), mag.module("magnetic")),
+               bcz=tuple(bc for bc in mag.bcz if bc.comp != "ss")),
            "shear_box": lambda: shear_box(8).replace(modules=tuple(
                m for m in shear_box(8).modules if m.name != "magnetic")),
            "entropy": lambda: config(pt, n=8).replace(

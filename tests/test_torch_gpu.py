@@ -1,7 +1,8 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
 flagship, their hydro builds K1h-K3h, K3′h, K2Lh, their entropy builds
 K1e-K2Le and K1he-K2Lhe, its shock builds' K1s/K5w of the shocked periodic
-box and K4/K5 of the shearing box, K6/K7 of stratified convection) against
+box and K4/K5 of the shearing box, K6/K7 of stratified convection, K6m/K7m
+of magnetoconvection, each z-ghosted pair also with Ω) against
 their plain PyTorch versions on the card, and steps on the card against
 the same steps on the CPU, and the run loop's restart on the card.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
@@ -157,7 +158,8 @@ def test_fake_kernels_bit_exact(cuda, shape):
 
 
 @pytest.mark.parametrize("lib", ("fused_rhs", "fused_rhs_shock",
-                                 "fused_rhs_shear", "fused_rhs_zg"))
+                                 "fused_rhs_shear", "fused_rhs_zg",
+                                 "fused_rhs_zg_mag"))
 def test_dt1_buffer_matches_the_grid(cuda, lib):
     """K1 (K1s, K4) writes one CFL maximum per block of its launch grid,
     which its library's pc_tile_shape (MX, TY, TZ) sizes: at nx = 80 (two
@@ -175,8 +177,9 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
         pm = pt.Model(shock_box(shape), device=cuda)
         fa = shocked_fa(pm)
         plain = fr.rhs_wrap_shock_plain
-    elif lib == "fused_rhs_zg":
-        pm = pt.Model(conv_slab(shape), device=cuda)
+    elif lib in fr.ZG_KERNELS:
+        pm = pt.Model(conv_slab(shape, magnetic=lib == "fused_rhs_zg_mag"),
+                      device=cuda)
         fa, zlo, zhi = stratified_fg(pm)
         prof = fr.zg_profiles(pm)
         after = (zlo.data_ptr(), zhi.data_ptr(), prof[0].data_ptr(),
@@ -199,7 +202,7 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
     stream = torch.cuda.current_stream().cuda_stream
     assert _build.load(lib).pc_rhs_first(
         ctypes.addressof(p), fa.data_ptr(), df.data_ptr(), blk.data_ptr(),
-        stream, *(after if lib == "fused_rhs_zg" else ())) == 0
+        stream, *(after if lib in fr.ZG_KERNELS else ())) == 0
     torch.cuda.synchronize()
     assert bool(torch.isfinite(blk[:n]).all()) and bool((blk[:n] > 0).all())
     assert math.isnan(float(blk[n]))
@@ -485,28 +488,40 @@ def test_forced_shear_box_steps_on_card_match_cpu(cuda):
 
 def stratified_fg(pm, seed=4):
     """A conv-slab state on the card, the piecew-poly profiles with noise,
-    as the z-ghosted kernels take it: (fa, zlo, zhi), fa's boundary planes
-    pinned, the slabs from the z-only fill."""
+    with Magnetic a noisy vector potential, as the z-ghosted kernels take
+    it: (fa, zlo, zhi), fa's boundary planes pinned, the slabs from the
+    z-only fill."""
     g = torch.Generator(pm.device).manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
-    fa = torch.cat([1e-2 * torch.randn((3,) + shape, generator=g,
-                                       device=pm.device),
-                    (f["lnrho"] + 1e-2 * torch.randn(
-                        shape, generator=g, device=pm.device))[None],
-                    (f["ss"] + 1e-2 * torch.randn(
-                        shape, generator=g, device=pm.device))[None]])
-    return pm.z_slabs(fa.contiguous())
+
+    def noise(sh):
+        return 1e-2 * torch.randn(sh, generator=g, device=pm.device)
+
+    parts = [noise((3,) + shape), (f["lnrho"] + noise(shape))[None],
+             (f["ss"] + noise(shape))[None]]
+    if "aa" in pm.reg.slots:
+        parts.append(noise((3,) + shape))
+    return pm.z_slabs(torch.cat(parts).contiguous())
 
 
-# the z-ghosted build's shapes: the flagship template's (FLAGSHIP_SHAPES);
+# the conv-slab's module sets: conv_slab keyword arguments; K6/K7, their
+# Coriolis instances, K6m/K7m and theirs
+ZG_CASES = {"conv_slab": {}, "rot": dict(Omega=1.0),
+            "mag": dict(magnetic=True), "mag_rot": dict(magnetic=True,
+                                                        Omega=1.0)}
+
+
+# the z-ghosted builds' shapes: the flagship template's (FLAGSHIP_SHAPES);
 # at 24x20x42 no row goes in 16-byte copies and the last column of z
 # blocks hangs over the end of z
+@pytest.mark.parametrize("case", ZG_CASES)
 @pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
-def test_zghost_kernels_match_plain(cuda, shape):
-    """K6 and K7 (the z-ghosted build of the flagship template) against
-    their plain versions."""
-    pm = pt.Model(conv_slab(shape), device=cuda)
+def test_zghost_kernels_match_plain(cuda, shape, case):
+    """K6 and K7 (the z-ghosted build of the flagship template), K6m and
+    K7m (its 8-field build), each without and with Ω, against their plain
+    versions."""
+    pm = pt.Model(conv_slab(shape, **ZG_CASES[case]), device=cuda)
     inp = stratified_fg(pm)
     fr.reset_launches()
     df, dt1m = fr.rhs_zg(pm, *inp)
@@ -521,25 +536,28 @@ def test_zghost_kernels_match_plain(cuda, shape):
     torch.cuda.synchronize()
     assert_field_close(df2, df2_p, "df (K7)")
     assert_field_close(f2, f2_p, "f (K7)")
-    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zg=1,
-                               rhs_zg_upd=1)
+    first, upd = fr.ZG_KERNELS[fr.zg_library(pm)]
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               **{first: 1, upd: 1})
 
 
+@pytest.mark.parametrize("case", ZG_CASES)
 @pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
-def test_zghost_update_in_place_equals_a_separate_df(cuda, shape):
-    """K7 with dfin and dfout as one buffer (the wrapper's contract: the
-    new df over df_prev) gives, bit for bit, what it writes to a buffer of
-    its own: no point's df store lands before its own df_prev load."""
+def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
+    """K7 (K7m) with dfin and dfout as one buffer (the wrapper's contract:
+    the new df over df_prev) gives, bit for bit, what it writes to a
+    buffer of its own: no point's df store lands before its own df_prev
+    load."""
     import ctypes
     from pencil_tpu_torch.ops import _build
-    pm = pt.Model(conv_slab(shape), device=cuda)
+    pm = pt.Model(conv_slab(shape, **ZG_CASES[case]), device=cuda)
     fa, zlo, zhi = stratified_fg(pm)
     df_prev, dt1m = fr.rhs_zg_plain(pm, fa, zlo, zhi)
     coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m))
     df_in, f_in = fr.rhs_zg_upd(pm, fa, zlo, zhi, df_prev.clone(), coef)
     df_out, f_out = torch.empty_like(fa), torch.empty_like(fa)
     prof = fr.zg_profiles(pm)
-    assert _build.load("fused_rhs_zg").pc_rhs_tail_mid(
+    assert _build.load(fr.zg_library(pm)).pc_rhs_tail_mid(
         ctypes.addressof(fr.kernel_params(pm)), fa.data_ptr(),
         df_prev.data_ptr(), coef.data_ptr(), df_out.data_ptr(),
         f_out.data_ptr(), torch.cuda.current_stream().cuda_stream,
@@ -549,30 +567,37 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape):
     assert torch.equal(df_in, df_out) and torch.equal(f_in, f_out)
 
 
-def test_zghost_instances_hold_no_local_memory(cuda):
-    """K6 and K7 of fused_rhs_zg: no spill and no stack, one 256-thread
+@pytest.mark.parametrize("lib", sorted(fr.ZG_KERNELS))
+def test_zghost_instances_hold_no_local_memory(cuda, lib):
+    """K6 and K7 of fused_rhs_zg, K6m and K7m of fused_rhs_zg_mag, each
+    without and with rotation: no spill and no stack, one 256-thread
     block per SM or more."""
-    attrs = fr.flagship_attrs("fused_rhs_zg")
-    assert set(attrs) == {"rhs_zg", "rhs_zg_upd"}
+    attrs = fr.flagship_attrs(lib)
+    first, upd = fr.ZG_KERNELS[lib]
+    assert set(attrs) == {first, upd, first + " rot", upd + " rot"}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1, (name, a)
 
 
-def test_conv_slab_steps_on_card_match_cpu(cuda):
-    """Three zghost steps through K6/K7 against the same steps on the
-    CPU (plain versions) from the same fields.  The velocity noise is
-    1e-2, not the configuration's 1e-3: a velocity that small is the
+@pytest.mark.parametrize("case", ZG_CASES)
+def test_conv_slab_steps_on_card_match_cpu(cuda, case):
+    """Three zghost steps through K6/K7 (K6m/K7m; with Ω their Coriolis
+    instances) against the same steps on the CPU (plain versions) from
+    the same fields.  The velocity and vector-potential noise is 1e-2, not
+    the configuration's 1e-3 and 1e-4: a velocity that small is the
     residual of the O(1) hydrostatic balance and sits below its float32
     floor (see tests/test_torch_zghost.py, UU_AMPL)."""
     shape = (16, 16, 32)
-    fields = dict(pt.Model(conv_slab(shape),
-                           device="cpu").init_state(5)["fields"])
+    cfg = conv_slab(shape, **ZG_CASES[case])
+    fields = dict(pt.Model(cfg, device="cpu").init_state(5)["fields"])
     g = torch.Generator().manual_seed(5)
-    fields["uu"] = 1e-2 * torch.randn((3,) + shape, generator=g)
+    for k in ("uu", "aa"):
+        if k in fields:
+            fields[k] = 1e-2 * torch.randn((3,) + shape, generator=g)
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        model = pt.Model(conv_slab(shape), device=dev)
+        model = pt.Model(cfg, device=dev)
         s = model.make_multi_step(3)(model.init_state(5, overrides=fields))
         out[dev.type] = s
     torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
@@ -720,6 +745,8 @@ def test_fake_rhs_chain_launches_k8(cuda):
 
 
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
+                                   "conv_slab_rot", "conv_slab_mag",
+                                   "conv_slab_mag_rot",
                                    "shear_box", "shock_box", "hydro",
                                    "hydro_rk2", "hydro_rk4", "ent_mhd",
                                    "ent_mhd_rk2", "ent_mhd_rk4",
@@ -735,6 +762,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     n3 = (32, 32, 32)
     cfg = {"flagship": flagship(n3), "rk2": flagship(n3, 2),
            "rk4": flagship(n3, 4), "conv_slab": conv_slab(32),
+           **{"conv_slab_" + k: conv_slab(32, **kw)
+              for k, kw in ZG_CASES.items() if kw},
            "shear_box": shear_box(32), "shock_box": shock_box(32),
            "hydro": forced_hydro(32),
            "hydro_rk2": forced_hydro(32).replace(time=pt.TimeSpec(itorder=2)),

@@ -44,22 +44,31 @@ def test_libraries_hold_the_shock_builds_and_no_zroll():
 
 def test_libraries_hold_the_zg_build_and_no_zghost_template():
     """K6 and K7 are the flagship source built with PC_ZG=1 on the 5-field
-    entropy-hydro layout, with the shock builds' four entry points; the
-    4x4x16 zghost template is gone from the build and from csrc/."""
+    entropy-hydro layout, K6m and K7m the same on the 8-field entropy MHD
+    layout (PC_MAG left at 1), each with the shock builds' four entry
+    points and a Coriolis instance (+16) of both kernels; the 4x4x16
+    zghost template is gone from the build and from csrc/."""
     libs = _build.LIBRARIES
     assert libs["fused_rhs_zg"] == ("fused_rhs.cu", (
         "-DPC_MAG=0", "-DPC_ENT=1", "-DPC_ZG=1"))
+    assert libs["fused_rhs_zg_mag"] == ("fused_rhs.cu", (
+        "-DPC_ENT=1", "-DPC_ZG=1"))
     assert "zghost_rhs" not in libs and "zghost_rhs" not in _build.SIGNATURES
     assert not (_build.CSRC / "zghost_rhs.cu").exists()
     assert sorted(p.name for p in _build.CSRC.iterdir()) == [
         "fused_rhs.cu", "stencil.cuh"]
-    sig = _build.SIGNATURES["fused_rhs_zg"]
-    assert set(sig) == set(_build.SIGNATURES["fused_rhs_shock"])
-    # the slabs and the two profiles follow the stream
-    assert len(sig["pc_rhs_first"]) == 5 + 4
-    assert len(sig["pc_rhs_tail_mid"]) == 7 + 4
-    assert fr.library_instances("fused_rhs_zg") == {"rhs_zg": 0,
-                                                    "rhs_zg_upd": 8}
+    for lib, (first, upd) in (("fused_rhs_zg", ("rhs_zg", "rhs_zg_upd")),
+                              ("fused_rhs_zg_mag",
+                               ("rhs_zg_mag", "rhs_zg_upd_mag"))):
+        sig = _build.SIGNATURES[lib]
+        assert set(sig) == set(_build.SIGNATURES["fused_rhs_shock"])
+        # the slabs and the two profiles follow the stream
+        assert len(sig["pc_rhs_first"]) == 5 + 4
+        assert len(sig["pc_rhs_tail_mid"]) == 7 + 4
+        assert fr.ZG_KERNELS[lib] == (first, upd)
+        assert fr.library_instances(lib) == {
+            first: 0, upd: 8, first + " rot": 16, upd + " rot": 24}
+        assert first in fr.LAUNCHES and upd in fr.LAUNCHES
 
 
 @pytest.mark.parametrize("lib", sorted(fr.AUX_KERNELS))
@@ -191,6 +200,48 @@ def test_conv_slab_step_launches_one_k6_and_two_k7(recorded, monkeypatch):
         ("fused_rhs_zg", "pc_rhs_tail_mid")] * 2
 
 
+def test_magnetoconvection_wrappers_launch_the_zg_mag_build(recorded):
+    """K6m and K7m launch pc_rhs_first and pc_rhs_tail_mid of
+    fused_rhs_zg_mag on the 8-field interior stack and its 8-field slabs,
+    counted under rhs_zg_mag and rhs_zg_upd_mag; the 5-field stack and
+    slabs are refused."""
+    pm = pt.Model(conv_slab(SHAPE, magnetic=True), device="cpu")
+    fa = torch.zeros((8,) + SHAPE)
+    slab = torch.zeros((8,) + SHAPE[:2] + (NGHOST,))
+    df = torch.zeros((8,) + SHAPE)
+    coef = torch.zeros(2)
+    fr.rhs_zg(pm, fa, slab, slab)
+    fr.rhs_zg_upd(pm, fa, slab, slab, df, coef)
+    assert recorded == [("fused_rhs_zg_mag", "pc_rhs_first"),
+                        ("fused_rhs_zg_mag", "pc_rhs_tail_mid")]
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rhs_zg_mag=1,
+                               rhs_zg_upd_mag=1)
+    with pytest.raises(ValueError):
+        fr.rhs_zg(pm, fa[:5].contiguous(), slab[:5].contiguous(),
+                  slab[:5].contiguous())
+    with pytest.raises(ValueError):     # 5-field slabs
+        fr.rhs_zg(pm, fa, slab[:5].contiguous(), slab[:5].contiguous())
+
+
+@pytest.mark.parametrize("magnetic", (False, True), ids=("hydro", "mag"))
+def test_rotating_conv_slab_step_launches_its_zg_build(recorded, monkeypatch,
+                                                       magnetic):
+    """The rotating conv-slab and rotating magnetoconvection at order 3:
+    one K6 and two K7 (K6m, K7m) per step, of the build of the layout; the
+    Coriolis instance is picked inside the library from Ω."""
+    pm = pt.Model(conv_slab(SHAPE, magnetic=magnetic, Omega=1.0),
+                  device="cpu")
+    lib = "fused_rhs_zg_mag" if magnetic else "fused_rhs_zg"
+    monkeypatch.setattr(fr, "_nblocks", lambda shape, lib: 1)
+    monkeypatch.setattr(torch, "amax", lambda t: torch.ones(()))
+    pm._zghost_step(pm.init_state(0))
+    assert recorded == [(lib, "pc_rhs_first")] + [
+        (lib, "pc_rhs_tail_mid")] * 2
+    first, upd = fr.ZG_KERNELS[lib]
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               **{first: 1, upd: 2})
+
+
 def test_kernel_params_carry_the_conv_slab_terms():
     """kernel_params(conv_slab) holds what the retired ZgParams held:
     gravity, the cooling layer and its target cs², the heating layer's
@@ -216,17 +267,14 @@ def test_kernel_params_carry_the_conv_slab_terms():
     assert torch.equal(prof_c, want_c) and torch.equal(prof_h, want_h)
 
 
-@pytest.mark.parametrize("case", ("omega", "chi_const"))
+@pytest.mark.parametrize("case", ("magnetic_chi_const", "chi_const"))
 def test_zg_build_refuses_what_it_has_no_terms_for(case):
-    """Ω or chi-const in the conv-slab set: the z-ghosted build has no
-    Coriolis or chi-const terms."""
-    cfg = conv_slab(SHAPE)
-    if case == "omega":
-        swap = {"hydro": lambda m: pt.Hydro(init=m.init, ampl=m.ampl,
-                                            Omega=1.0)}
-    else:
-        swap = {"entropy": lambda m: dataclasses.replace(
-            m, iheatcond=("K-const", "chi-const"), chi=1e-3)}
+    """chi-const in the conv-slab set, with or without Magnetic: the
+    z-ghosted builds have no chi-const terms (Ω they have: the ROT
+    instances)."""
+    cfg = conv_slab(SHAPE, magnetic=case.startswith("magnetic"))
+    swap = {"entropy": lambda m: dataclasses.replace(
+        m, iheatcond=("K-const", "chi-const"), chi=1e-3)}
     cfg = cfg.replace(fused=False, modules=tuple(
         swap[m.name](m) if m.name in swap else m for m in cfg.modules))
     with pytest.raises(NotImplementedError):

@@ -373,17 +373,25 @@ def test_gate_accepts_on_cuda(case):
 
 
 def test_coriolis_stays_outside_the_zghost_chain():
-    """K6/K7 have no Coriolis: conv-slab with Ω raises on the card and runs
-    the eager path on the CPU."""
+    """Whether Coriolis stays outside the zghost chain: it does not. K6/K7
+    have a ROT instance each, so the conv-slab with Ω runs the zghost
+    chain on the card and on the CPU, with Ω about z in the kernels'
+    constants."""
     from pencil_tpu_torch.configs import conv_slab
     cfg = conv_slab(8)
     cfg = cfg.replace(modules=tuple(
         pt.Hydro(init=m.init, ampl=m.ampl, Omega=1.0) if m.name == "hydro"
         else m for m in cfg.modules))
-    assert "Hydro.Omega" in gate_reason(cfg)
-    with pytest.raises(NotImplementedError):
-        pt.Model(cfg, device="cuda")
-    assert fused_gate(cfg, "cpu") is False
+    assert cfg == conv_slab(8, Omega=1.0)
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    pm = pt.Model(cfg, device="cpu")
+    assert pm.mode == "zghost"
+    from pencil_tpu_torch.ops import fused_rhs as fr
+    assert list(fr.kernel_params(pm).om) == [0.0, 0.0, 1.0]
+    assert {"rhs_zg rot", "rhs_zg_upd rot"} <= set(
+        fr.library_instances(fr.zg_library(pm)))
 
 
 def test_shock_outside_a_periodic_grid_raises():

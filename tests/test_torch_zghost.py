@@ -291,14 +291,15 @@ def test_gate_accepts_conv_slab():
 @pytest.mark.parametrize("case", ("unported_bc", "extra_module",
                                   "missing_module", "periodic_z"))
 def test_gate_rejects_on_cuda(case):
-    """Outside both module sets, or with a BC the port lacks, a CUDA
-    configuration raises (no GPU needed: the gate raises first)."""
+    """Outside the conv-slab's module sets (the set alone or with
+    Magnetic), or with a BC the port lacks, a CUDA configuration raises (no
+    GPU needed: the gate raises first)."""
     cfg = conv_slab(16)
     if case == "unported_bc":
         cfg = cfg.replace(bcz=cfg.bcz[:2] + (pt.BC("uz", "cop", "cop"),)
                           + cfg.bcz[3:])
     elif case == "extra_module":
-        cfg = cfg.replace(modules=cfg.modules + (pt.Magnetic(eta=1e-3),))
+        cfg = cfg.replace(modules=cfg.modules + (pt.Forcing(),))
     elif case == "missing_module":
         cfg = cfg.replace(modules=tuple(m for m in cfg.modules
                                         if m.name != "gravity"))

@@ -19,8 +19,10 @@ instances are timed:
 ``fused_rhs_hydro_ent`` (e.g. ``--lib fused_rhs_ent "" :PC_PD=1
 :PC_OQLAG=0`` for the 8-field tails), ``fused_rhs_shock`` (K1s and K5w on
 chip_smoke.py's shocked-box input), ``fused_rhs_shear`` (K4 and K5 on
-its sheared stack at t = 0.37) or ``fused_rhs_zg`` (K6 and K7 on its
-stratified conv-slab input, the interior and its z-halo slabs).
+its sheared stack at t = 0.37), ``fused_rhs_zg`` (K6 and K7 on its
+stratified conv-slab input, the interior and its z-halo slabs) or
+``fused_rhs_zg_mag`` (K6m and K7m on the same with a noisy vector
+potential; no ``--parent-tree``: the build is new in this tree).
 ``--parent-tree DIR`` (with a shock build or ``fused_rhs_zg``) adds
 another checkout's package as one more column, ``parent``: DIR holds an
 unpacked ``git archive`` of an earlier commit (e.g. ``git archive
@@ -61,13 +63,20 @@ from pathlib import Path
 
 LIBS = ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
         "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear",
-        "fused_rhs_zg")
+        "fused_rhs_zg", "fused_rhs_zg_mag")
 PARENT = "parent"    # the column of --parent-tree
 # the name its package is imported under
 PARENT_PKG = "parent_pencil_tpu_torch"
-# the configuration that runs each build with two kernels
-PATH_CONFIG = {"fused_rhs_shock": "shock_box", "fused_rhs_shear": "shear_box",
-               "fused_rhs_zg": "conv_slab"}
+# the configuration that runs each build with two kernels, with its
+# keyword arguments, and the two wrappers that launch them
+PATH_CONFIG = {"fused_rhs_shock": ("shock_box", {}),
+               "fused_rhs_shear": ("shear_box", {}),
+               "fused_rhs_zg": ("conv_slab", {}),
+               "fused_rhs_zg_mag": ("conv_slab", {"magnetic": True})}
+WRAPPERS = {"fused_rhs_shock": ("rhs_wrap_shock", "rhs_wrap_shock_upd"),
+            "fused_rhs_shear": ("rhs_zroll", "rhs_zroll_upd"),
+            "fused_rhs_zg": ("rhs_zg", "rhs_zg_upd"),
+            "fused_rhs_zg_mag": ("rhs_zg", "rhs_zg_upd")}
 
 
 def build(specs, base="fused_rhs"):
@@ -117,11 +126,12 @@ def load_parent(tree):
     return mod
 
 
-def kernel_pair(fr, model, names, inp, scratch, df1, coef):
-    """A two-kernel path's calls through ``fr``'s wrappers: name -> the
-    timed call (the update into ``scratch``, in place), and the update's
-    check on a fresh copy of df1."""
-    first, upd = (getattr(fr, k) for k in names)
+def kernel_pair(fr, model, names, inp, scratch, df1, coef, wrappers):
+    """A two-kernel path's calls through ``fr``'s wrappers (their names
+    ``wrappers``): launch name -> the timed call (the update into
+    ``scratch``, in place), and the update's check on a fresh copy of
+    df1."""
+    first, upd = (getattr(fr, k) for k in wrappers)
     return ({names[0]: lambda: first(model, *inp),
              names[1]: lambda: upd(model, *inp, scratch, coef)},
             {names[1]: lambda: upd(model, *inp, df1.clone(), coef)})
@@ -148,7 +158,7 @@ def main():
     ap.add_argument("--lib", default="fused_rhs", choices=LIBS)
     ap.add_argument("--parent-tree", metavar="DIR")
     ap.add_argument("--steps", action="store_true",
-                    help="with a shock build or fused_rhs_zg: time its "
+                    help="with a shock or z-ghosted build: time its "
                     "path's whole step (the shock pre-pass, fills and "
                     "both kernels) per variant too")
     args = ap.parse_args()
@@ -165,7 +175,9 @@ def main():
     two = args.lib in PATH_CONFIG      # a path of two kernels
     if (args.parent_tree or args.steps) and not two:
         ap.error("--parent-tree and --steps take a shock build's --lib or "
-                 "fused_rhs_zg")
+                 "a z-ghosted one")
+    if args.parent_tree and args.lib == "fused_rhs_zg_mag":
+        ap.error("--parent-tree: fused_rhs_zg_mag is new in this tree")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -182,9 +194,11 @@ def main():
     # updates its input in place; the plain results; the bound (None: bit
     # for bit)
     if two:
-        names = fr.AUX_KERNELS.get(args.lib, ("rhs_zg", "rhs_zg_upd"))
-        cfg = PATH_CONFIG[args.lib]
-        model = pt.Model(getattr(pt.configs, cfg)(shape), device="cuda")
+        names = fr.AUX_KERNELS.get(args.lib) or fr.ZG_KERNELS[args.lib]
+        wrappers = WRAPPERS[args.lib]
+        cfg, kw = PATH_CONFIG[args.lib]
+        model = pt.Model(getattr(pt.configs, cfg)(shape, **kw),
+                         device="cuda")
         if cfg == "conv_slab":
             fa = cs.stratified_fa(torch, model, 1)
             inp = model.z_slabs(fa)      # pins fa's walls in place
@@ -192,12 +206,13 @@ def main():
             fa = (cs.sheared_fg if cfg == "shear_box"
                   else cs.shocked_fa)(torch, model, 1)
             inp = (fa,)
-        df1, dt1m = getattr(fr, names[0] + "_plain")(model, *inp)
+        df1, dt1m = getattr(fr, wrappers[0] + "_plain")(model, *inp)
         coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
         scratch = df1.clone()
-        calls, fresh = kernel_pair(fr, model, names, inp, scratch, df1, coef)
+        calls, fresh = kernel_pair(fr, model, names, inp, scratch, df1, coef,
+                                   wrappers)
         want = {names[0]: [df1],
-                names[1]: list(getattr(fr, names[1] + "_plain")(
+                names[1]: list(getattr(fr, wrappers[1] + "_plain")(
                     model, *inp, df1.clone(), coef))}
         rtol = dict.fromkeys(calls, cs.RTOL_NEW if cfg == "shock_box"
                              else cs.RTOL_FIELD)
@@ -270,7 +285,8 @@ def main():
         pinp = (inp if cfg != "conv_slab" else pmodel.z_slabs(fa.clone())
                 if hasattr(pmodel, "z_slabs") else (pmodel.ghosted(fa),))
         variant_calls[PARENT], variant_fresh[PARENT] = kernel_pair(
-            pp.ops.fused_rhs, pmodel, names, pinp, scratch, df1, coef)
+            pp.ops.fused_rhs, pmodel, names, pinp, scratch, df1, coef,
+            wrappers)
     if args.steps:
         # the path's step from its initial state, through each variant's
         # kernels, and the parent's own step
