@@ -5,12 +5,15 @@ K8 memory floor), forced hydro turbulence on the same template's 4-field
 build (K1h-K3h, K3′h, K2Lh), non-isothermal forced turbulence on its
 entropy builds (K1e-K2Le with Magnetic, K1he-K2Lhe without) and through
 the run loop (``simulate``: time_series.dat, checkpoints, a bit-exact
-restart), stratified convection with a non-periodic z (kernels K6, K7,
+restart), each of these four also with del6 hyper-diffusion
+(``hyper3=True``: the H3 instances of the same kernels, launch names
+``*_h3``), stratified convection with a non-periodic z (kernels K6, K7,
 on the template's z-ghosted build) and magnetoconvection (K6m, K7m, on
-its 8-field z-ghosted build), the sheared, rotating MHD box with
-shock viscosity and hyper-diffusion (kernels K4, K5) and the shocked
-periodic box (kernels K1s, K5w), these four on the same template's two
-shock builds.
+its 8-field z-ghosted build), each also with chi-const conduction
+(``chi=4e-3``: their CHI instances, ``*_chi``), the sheared, rotating
+MHD box with shock viscosity and hyper-diffusion (kernels K4, K5) and
+the shocked periodic box (kernels K1s, K5w), these four on the same
+template's two shock builds.
 
     python3 chip_smoke.py
 
@@ -22,7 +25,9 @@ Phases, each printing its own lines:
      at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s,
      K5w, K6, K7, K6m and K7m also at 16×24×40 and 24×20×42, the last
      four at 32³ too, and each with Ω = 1 (their Coriolis instances) at
-     the same five shapes (each field
+     the same five shapes, and with chi-const (their CHI instances, with
+     and without Ω), the four periodic builds' H3 instances with and
+     without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
      the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
      variants bit for bit; the CFL maximum within 1e-6 relative; the
@@ -32,8 +37,11 @@ Phases, each printing its own lines:
      and with K-const alone, the last two with Ω = 1), and three full
      steps of each path on the card against the same steps on the CPU at
      32³ (the flagship, forced hydro and both entropy sets at orders 2, 3
-     and 4, the first two with Ω = 1 at order 3, the shear box unforced
-     and forced, the conv-slab with Magnetic, with Ω = 1 and with both);
+     and 4, the first two with Ω = 1 at order 3, the four with
+     hyper-diffusion at order 3 and the flagship with it at orders 2 and
+     4 and with Ω = 1, the shear box unforced and forced, the conv-slab
+     with Magnetic, with Ω = 1 and with both, with chi-const, with
+     Magnetic and chi-const, and with all three);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -46,7 +54,9 @@ Phases, each printing its own lines:
      shear box with one K4 and two K5, the shock box with one
      K1s and two K5w, the flagship at order 4 with K1, K2, two K3′ and K3,
      at order 2 with K1 and K2L (forced hydro and both entropy sets
-     likewise with their builds), and the K8 chain (Model(fake_rhs=True))
+     likewise with their builds; the four again with hyper3=True, on
+     their H3 instances), the conv-slab and magnetoconvection again with
+     chi-const (their CHI instances), and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
      checkpoint every 20, every chunk of steps under the sync debug mode
@@ -59,9 +69,11 @@ Phases, each printing its own lines:
      256³, and the conv-slab's and magnetoconvection's step split (K6 or
      K6m, K7 or K7m, the z-halo fills, the boundary-plane writeback, the
      glue: each part's device time from one torch.profiler trace, its
-     host issue time from a run without it); for each instance of the
-     flagship template (csrc/fused_rhs.cu, all eight builds, the shock
-     and z-ghosted builds' with and without rotation) its
+     host issue time from a run without it); each H3 instance in turns
+     with the instance without H3 and each CHI instance with the one
+     without CHI (with and without Ω), kernel by kernel; for each
+     instance of the flagship template (csrc/fused_rhs.cu, all eight
+     builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
 The line before the last is the card's name and power limit as nvidia-smi
@@ -106,13 +118,25 @@ SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
 # the template's 8-field z-ghosted build: K6m, K7m
 ZGHOST_MAG_KERNELS = ("rhs_zg_mag", "rhs_zg_upd_mag")
+# the H3 instances (del6 hyper-diffusion) of the four periodic builds
+H3_KERNELS = tuple(k + sfx + "_h3" for sfx in ("", "_hydro", "_ent",
+                                               "_hydro_ent")
+                   for k in FLAGSHIP_KERNELS + TAIL_KERNELS)
+# the CHI instances (chi-const) of the two z-ghosted builds
+CHI_KERNELS = tuple(k + "_chi" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
-                + ZGHOST_MAG_KERNELS)
-# the phase-3 paths on the flagship template: name -> launch suffix
+                + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS)
+# the phase-3 paths on the flagship template: name -> launch suffix; " h3"
+# the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
                   "entropy MHD": "_ent", "entropy hydro": "_hydro_ent"}
+TEMPLATE_PATHS.update({k + " h3": v + "_h3"
+                       for k, v in TEMPLATE_PATHS.items()})
+# the chi-const value of the conv-slab paths with it (χ = ν, a Prandtl
+# number of 1)
+CHI = 4e-3
 # launches of each kernel in one step of each phase-3 path
 PER_STEP = {
     "flagship": dict.fromkeys(FLAGSHIP_KERNELS, 1),
@@ -122,6 +146,8 @@ PER_STEP = {
     "K8 chain": dict.fromkeys(FAKE_KERNELS, 1),
     "conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
     "magnetoconvection": {"rhs_zg_mag": 1, "rhs_zg_upd_mag": 2},
+    "conv-slab chi": {"rhs_zg_chi": 1, "rhs_zg_upd_chi": 2},
+    "magnetoconvection chi": {"rhs_zg_mag_chi": 1, "rhs_zg_upd_mag_chi": 2},
     "shear box": {"rhs_zroll": 1, "rhs_zroll_upd": 2},
     "shock box": {"rhs_wrap_shock": 1, "rhs_wrap_shock_upd": 2},
 }
@@ -144,10 +170,15 @@ REPLACES = {
     "rhs_zg": _FR + "317", "rhs_zg_upd": _FR + "349",
     "rhs_zg_mag": _FR + "317", "rhs_zg_upd_mag": _FR + "349",
 }
-# the hydro build replaces the same calls, traced for the hydro set
+# the hydro build replaces the same calls, traced for the hydro set; the
+# H3 and CHI instances the same calls, traced with those terms
 REPLACES.update({k + sfx: REPLACES[k]
                  for k in FLAGSHIP_KERNELS + TAIL_KERNELS
                  for sfx in ("_hydro", "_ent", "_hydro_ent")})
+REPLACES.update({k + "_h3": REPLACES[k] for k in KERNEL_NAMES
+                 if k + "_h3" in H3_KERNELS})
+REPLACES.update({k + "_chi": REPLACES[k] for k in KERNEL_NAMES
+                 if k + "_chi" in CHI_KERNELS})
 # every kernel is an instance of the flagship template
 SOURCES = dict.fromkeys(KERNEL_NAMES, "pencil_tpu_torch/csrc/fused_rhs.cu")
 
@@ -200,6 +231,13 @@ CONVSLAB_RHS = 15 * D1 + 15 * D2 + 6 * DMIX_FACTORED + 204
 # A, u×B, η∇²A, J×B/ρ) and the Ohmic heat, less the 1/ρ they share with
 # the entropy terms; its CFL maximum adds the Alfvén speed (19 → 29)
 MAGCONV_RHS = CONVSLAB_RHS + (FLAGSHIP_RHS - HYDRO_RHS) + 9 - 2
+# del6 hyper-diffusion of one field, as the shear box counts it: three
+# scaled 6th differences, their 2 sums, the coefficient's product and the
+# join; the H3 instances' first kernel adds the del6 rate to the CFL's (1)
+HYPER3 = 3 * D2 + 4
+# chi-const beside K-const (the Laplacian of lnT and ∇lnT are K-const's):
+# ∇lnT·(∇lnT + ∇lnρ) (8), the sum with ∇²lnT, cp·χ's product, the join
+CHI_OPS = 11
 OPS = {
     "rhs_first": FLAGSHIP_RHS + 26,
     "rhs_tail_defer": FLAGSHIP_RHS + 7 * (REBUILD + UPD),
@@ -231,28 +269,38 @@ OPS = {
     "rhs_zg": CONVSLAB_RHS + 19, "rhs_zg_upd": CONVSLAB_RHS + 5 * UPD,
     "rhs_zg_mag": MAGCONV_RHS + 29, "rhs_zg_upd_mag": MAGCONV_RHS + 8 * UPD,
 }
+# the H3 instances: del6 of every field, the first kernel's CFL +1; the
+# CHI instances: the chi-const term
+_NFIELDS = {"": 7, "_hydro": 4, "_ent": 8, "_hydro_ent": 5}
+OPS.update({k + sfx + "_h3": OPS[k + sfx] + n * HYPER3
+            + (k == "rhs_first")
+            for sfx, n in _NFIELDS.items()
+            for k in FLAGSHIP_KERNELS + TAIL_KERNELS})
+OPS.update({k + "_chi": OPS[k] + CHI_OPS
+            for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS})
 # the shear-box comparisons start here, where deltay = 0.555·Ly is not a
 # whole number of cells (at t = 0 the shifted faces are plain wraps)
 T_SHEAR = 0.37
 
 
-def flagship(pt, shape, itorder=3, dt=0.0):
+def flagship(pt, shape, itorder=3, dt=0.0, hyper3=False):
     """configs.flagship at a 2N-RK order, with a fixed dt when ``dt`` >
     0."""
-    return pt.configs.flagship(shape, itorder=itorder, dt=dt)
+    return pt.configs.flagship(shape, itorder=itorder, dt=dt, hyper3=hyper3)
 
 
-def forced_hydro(pt, shape, itorder=3, Omega=0.0):
+def forced_hydro(pt, shape, itorder=3, Omega=0.0, hyper3=False):
     """configs.forced_hydro at a 2N-RK order."""
-    cfg = pt.configs.forced_hydro(shape, Omega=Omega)
+    cfg = pt.configs.forced_hydro(shape, Omega=Omega, hyper3=hyper3)
     return cfg.replace(time=pt.TimeSpec(itorder=itorder))
 
 
 def forced_entropy(pt, shape, magnetic=True, itorder=3, Omega=0.0,
-                   entropy=None):
+                   entropy=None, hyper3=False):
     """configs.forced_entropy at a 2N-RK order; ``entropy`` = keyword
     arguments of another Entropy module in place of its chi-const one."""
-    cfg = pt.configs.forced_entropy(shape, magnetic=magnetic, Omega=Omega)
+    cfg = pt.configs.forced_entropy(shape, magnetic=magnetic, Omega=Omega,
+                                    hyper3=hyper3)
     if entropy is not None:
         cfg = cfg.replace(modules=tuple(
             pt.Entropy(**entropy) if m.name == "entropy" else m
@@ -260,13 +308,18 @@ def forced_entropy(pt, shape, magnetic=True, itorder=3, Omega=0.0,
     return cfg.replace(time=pt.TimeSpec(itorder=itorder))
 
 
-def template_cfg(pt, name, shape, itorder=3):
-    """The configuration of the phase-3 path ``name`` (TEMPLATE_PATHS)."""
-    if name == "flagship":
-        return flagship(pt, shape, itorder=itorder)
-    if name == "forced hydro":
-        return forced_hydro(pt, shape, itorder)
-    return forced_entropy(pt, shape, name == "entropy MHD", itorder)
+def template_cfg(pt, name, shape, itorder=3, Omega=0.0):
+    """The configuration of the phase-3 path ``name`` (TEMPLATE_PATHS),
+    with Ω about z where ``Omega`` is not 0."""
+    hyper3 = name.endswith(" h3")
+    base = name[:-3] if hyper3 else name
+    if base == "flagship":
+        cfg = flagship(pt, shape, itorder=itorder, hyper3=hyper3)
+        return with_omega(pt, cfg, Omega) if Omega else cfg
+    if base == "forced hydro":
+        return forced_hydro(pt, shape, itorder, Omega, hyper3)
+    return forced_entropy(pt, shape, base == "entropy MHD", itorder, Omega,
+                          hyper3=hyper3)
 
 
 def with_omega(pt, cfg, Omega):
@@ -437,6 +490,21 @@ def compare_template(torch, pt, fr, label, cfg, errs, rtol=RTOL_NEW):
                   {k + sfx: v for k, v in pairs.items()}, errs, rtol)
 
 
+def compare_hyper3(torch, pt, fr, shape, errs):
+    """Phase 2: the H3 instances of the four periodic builds (each kernel
+    kind, with and without the kick) against their plain versions on CUDA
+    inputs, without and with Ω = 1 (their Coriolis H3 instances), each
+    field within 2e-5 × its max."""
+    for name in TEMPLATE_PATHS:
+        if not name.endswith(" h3"):
+            continue
+        for Omega in (0.0, 1.0):
+            label = name + (f", Omega = {Omega:g}" if Omega else "")
+            compare_template(torch, pt, fr, label,
+                             template_cfg(pt, name, shape, Omega=Omega),
+                             errs, RTOL_FIELD)
+
+
 def shocked_fa(torch, pm, seed):
     """(8, nx, ny, nz) on the card: a noisy shock-box state at urms ≈ 1 with
     its shock slot built by the pre-pass, so the shock term is live."""
@@ -491,14 +559,14 @@ def stratified_fa(torch, pm, seed):
 
 
 def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
-                           Omega=0.0):
+                           Omega=0.0, chi=0.0):
     """Phase 2: K6 and K7 (K6m and K7m with ``magnetic``; their Coriolis
-    instances with ``Omega``) against their plain versions on CUDA
-    inputs: the interior stack, its boundary planes pinned, and its z-halo
-    slabs."""
+    instances with ``Omega``, their CHI instances with ``chi``) against
+    their plain versions on CUDA inputs: the interior stack, its boundary
+    planes pinned, and its z-halo slabs."""
     pm = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic,
-                                       Omega=Omega), device="cuda")
-    first, upd = fr.ZG_KERNELS[fr.zg_library(pm)]
+                                       Omega=Omega, chi=chi), device="cuda")
+    first, upd = fr.zg_kernels(pm)
     inp = pm.z_slabs(stratified_fa(torch, pm, 1))
     fr.reset_launches()
     df, dt1m = fr.rhs_zg(pm, *inp)
@@ -512,6 +580,7 @@ def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
     counts = {k: v for k, v in fr.LAUNCHES.items() if v}
     check(counts == {first: 1, upd: 1}, f"launch counts {counts}")
     label = ("magnetoconvection" if magnetic else "conv-slab") + (
+        f", chi = {chi:g}" if chi else "") + (
         f", Omega = {Omega:g}" if Omega else "")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{shape} {label} {first} max 1/dt rel err "
@@ -667,6 +736,7 @@ def main():
             torch, pt, fr, "entropy hydro, K-const alone, Omega = 1",
             forced_entropy(pt, shape, False, Omega=1.0, entropy=dict(
                 iheatcond=("K-const",), hcond0=4e-3)), errs, RTOL_FIELD)
+        compare_hyper3(torch, pt, fr, shape, errs)
     for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
@@ -677,8 +747,9 @@ def main():
                   (32, 32, 32)):
         for magnetic in (False, True):
             for Omega in (0.0, 1.0):
-                compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic,
-                                       Omega)
+                for chi in (0.0, CHI):
+                    compare_zghost_kernels(torch, pt, fr, shape, errs,
+                                           magnetic, Omega, chi)
     compare_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     compare_tail_kernels(torch, pt, fr, EDGE_SHAPE, errs)
     n32 = (32, 32, 32)
@@ -691,6 +762,14 @@ def main():
                       forced_entropy(pt, n32, True, order))
         compare_steps(torch, pt, f"entropy hydro rk{order}",
                       forced_entropy(pt, n32, False, order))
+    for path in TEMPLATE_PATHS:
+        if path.endswith(" h3"):
+            compare_steps(torch, pt, path, template_cfg(pt, path, n32))
+    for order in (2, 4):
+        compare_steps(torch, pt, f"flagship h3 rk{order}",
+                      template_cfg(pt, "flagship h3", n32, order))
+    compare_steps(torch, pt, "flagship h3, Omega = 1",
+                  template_cfg(pt, "flagship h3", n32, Omega=1.0))
     compare_steps(torch, pt, "forced hydro, Omega = 1",
                   forced_hydro(pt, n32, Omega=1.0))
     compare_steps(torch, pt, "flagship, Omega = 1",
@@ -706,7 +785,11 @@ def main():
     for label, kw in (("magnetoconvection", dict(magnetic=True)),
                       ("conv-slab, Omega = 1", dict(Omega=1.0)),
                       ("magnetoconvection, Omega = 1",
-                       dict(magnetic=True, Omega=1.0))):
+                       dict(magnetic=True, Omega=1.0)),
+                      ("conv-slab chi", dict(chi=CHI)),
+                      ("magnetoconvection chi", dict(magnetic=True, chi=CHI)),
+                      ("magnetoconvection chi, Omega = 1",
+                       dict(magnetic=True, Omega=1.0, chi=CHI))):
         compare_steps(torch, pt, label, pt.configs.conv_slab(n32, **kw),
                       uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
@@ -726,8 +809,13 @@ def main():
                       name="entropy MHD")
     eh = run_flagship(torch, pt, fr, smi, shape, launches,
                       name="entropy hydro")
+    h3 = [run_flagship(torch, pt, fr, smi, shape, launches, name=name)
+          for name in TEMPLATE_PATHS if name.endswith(" h3")]
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
     zm = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True)
+    zc = run_conv_slab(torch, pt, fr, smi, shape, launches, chi=CHI)
+    zmc = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True,
+                        chi=CHI)
     sb = run_aux_box(torch, pt, fr, smi, shape, launches, "shear box")
     kb = run_aux_box(torch, pt, fr, smi, shape, launches, "shock box")
     for order in (4, 2):
@@ -741,9 +829,11 @@ def main():
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings, bounds)
     time_tails(torch, fr, fl, errs, timings, bounds)
-    for path in (hy, em, eh):
+    for path in (hy, em, eh, *h3):
         time_flagship(torch, fr, smi, path, errs, timings, bounds)
         time_tails(torch, fr, path, errs, timings, bounds)
+    for path in h3:
+        time_h3_instances(torch, pt, fr, smi, path)
     for lib in _build.LIBRARIES:
         for inst, a in fr.flagship_attrs(lib).items():
             check(a["local_bytes"] == 0,
@@ -756,6 +846,8 @@ def main():
           f"flagship's kernel chain {fl[2]:.4f} ms/step", flush=True)
     time_conv_slab(torch, fr, smi, zg, errs, timings, bounds)
     time_conv_slab(torch, fr, smi, zm, errs, timings, bounds)
+    time_conv_slab(torch, fr, smi, zc, errs, timings, bounds, full=False)
+    time_conv_slab(torch, fr, smi, zmc, errs, timings, bounds, full=False)
     time_aux_box(torch, fr, smi, sb, errs, timings, bounds)
     time_aux_box(torch, fr, smi, kb, errs, timings, bounds)
 
@@ -834,13 +926,15 @@ def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
     dt = float(state["dt"])
     # the u = 0, B = 0, s = 0 CFL limit: sound speed (cs0 = 1) and the
     # largest diffusive rate (ν = η = 5e-3; with the entropy field χγ =
-    # 5e-3 · 5/3)
+    # 5e-3 · 5/3), plus the del6 rate max(ν₃, η₃, D₃)·dxyz₆/cdtv3
     tc, gs = cfg.time, cfg.grid
     dxyz2 = sum((1.0 / d) ** 2 for d in (gs.dx, gs.dy, gs.dz))
+    dxyz6 = sum((1.0 / d) ** 6 for d in (gs.dx, gs.dy, gs.dz))
     ent = cfg.module("entropy")
     diffus = max(5e-3, ent.chi * model.eos.gamma if ent else 0.0)
+    dif3 = max(fr.hyper3_coefficients(cfg)) * dxyz6 / tc.cdtv3
     dt_est = 1.0 / math.hypot(math.sqrt(dxyz2) / tc.cdt,
-                              diffus * dxyz2 / tc.cdtv)
+                              diffus * dxyz2 / tc.cdtv + dif3)
     check(0.5 * dt_est < dt <= dt_est,
           f"dt {dt} not CFL-limited (estimate {dt_est})")
     u1 = urms(torch, fa)
@@ -950,15 +1044,19 @@ def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):
 CONV_SLAB_WINDOWS = 5
 
 
-def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False):
+def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
+                  chi=0.0):
     """Phase 3: stratified convection, non-periodic z (with ``magnetic``
-    magnetoconvection, on K6m/K7m); the step timed in CONV_SLAB_WINDOWS
-    windows one after the other, the launches counted in the first, the
-    card's busy time from torch.profiler's kernel records."""
+    magnetoconvection, on K6m/K7m; with ``chi`` chi-const conduction
+    beside K-const, on their CHI instances); the step timed in
+    CONV_SLAB_WINDOWS windows one after the other, the launches counted in
+    the first, the card's busy time from torch.profiler's kernel
+    records."""
     from pencil_tpu_torch.physics.pencils import Pencils
-    label = "magnetoconvection" if magnetic else "conv-slab"
+    label = ("magnetoconvection" if magnetic else "conv-slab") + (
+        " chi" if chi else "")
     base = torch.cuda.memory_allocated()
-    model = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic),
+    model = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic, chi=chi),
                      device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches(label, counts, launches)
@@ -1023,16 +1121,17 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False):
                      * pen.rho1()).max())
         del pen, bb
     adv_b = float((umax + torch.sqrt(cs2.max() * dxyz2 + va2)) / tc.cdt)
-    chi = ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
+    chik = ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
     mag = cfg.module("magnetic")
-    dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0,
-              chi) * dxyz2 / tc.cdtv
+    dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0, chik,
+              ent.chi * eos.gamma if ent.chi_conduction else 0.0) \
+        * dxyz2 / tc.cdtv
     check(1.0 / math.hypot(adv_b, dif) * (1 - 1e-5) <= dt_next
           <= 1.0 / max(adv, dif) * (1 + 1e-5),
           f"dt {dt_next} outside the CFL bounds ({adv}-{adv_b}, {dif})")
     u1 = urms(torch, fa)
     ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
-    names = ZGHOST_MAG_KERNELS if magnetic else ZGHOST_KERNELS
+    names = fr.zg_kernels(model)
     print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {ms_step:.4f} ms/step, "
           f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
           f"(advective 1/dt {adv:.4e}, with the largest Alfvén speed "
@@ -1240,18 +1339,21 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
                    library=library[0] if library else None)
 
 
-def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
-    """K6/K7 (K6m/K7m) checked and timed on the stratified noisy input of
-    phase 2 at 256³, not on the main path's state: there uz's tendency is
-    the small residual of the O(1) pressure and gravity forces, and the
-    f32 rounding of those forces alone reaches 2e-5 of its max.  Then the
-    step's split: its kernels, its three z-halo fills, the boundary-plane
+def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds, full=True):
+    """K6/K7 (K6m/K7m; their CHI instances) checked and timed on the
+    stratified noisy input of phase 2 at 256³, not on the main path's
+    state: there uz's tendency is the small residual of the O(1) pressure
+    and gravity forces, and the f32 rounding of those forces alone reaches
+    2e-5 of its max.  With ``full`` then the Coriolis and chi-const
+    instances in turns with these (``time_zg_instances``) and the step's
+    split: its kernels, its three z-halo fills, the boundary-plane
     writeback and the glue (the axpy, dt, the RK coefficients), on the
     card and on the host, from one torch.profiler trace
     (``conv_slab_split``)."""
     model, state, ms_step = zg
-    first, upd = fr.ZG_KERNELS[fr.zg_library(model)]
-    label = "magnetoconvection" if "aa" in model.reg.slots else "conv-slab"
+    first, upd = fr.zg_kernels(model)
+    label = ("magnetoconvection" if "aa" in model.reg.slots
+             else "conv-slab") + (" chi" if first.endswith("_chi") else "")
     fa = state["_fa"]
     inp = model.z_slabs(stratified_fa(torch, model, 3))
     _, beta, _ = model.rk
@@ -1278,7 +1380,9 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
         plain_state, (fr.rhs_zg_plain, fr.rhs_zg_upd_plain)), 3)
     print(f"phase 4 {label} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
-    time_rot_instances(torch, fr, smi, model)
+    if not full:
+        return
+    time_zg_instances(torch, fr, smi, model)
     parts = ZG_PARTS_MAG if label == "magnetoconvection" else ZG_PARTS
     dev, host, lost = conv_slab_split(torch, fr, model, state, 3, parts)
     busy = sum(d for d, _ in dev.values())
@@ -1300,30 +1404,85 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds):
           flush=True)
 
 
-def time_rot_instances(torch, fr, smi, model):
-    """The Coriolis instances of ``model``'s z-ghosted build (its
-    configuration with Ω = 1) timed against the Ω = 0 ones on one
-    stratified input at 256³, in turns (Ω = 0, Ω = 1, Ω = 1, Ω = 0); phase
-    2 checks them against their plain versions."""
+def in_turns(torch, variants, kernels):
+    """ms of each kernel of each variant, timed in turns kernel by kernel:
+    the variants in order, then in reverse (A, B, ..., B, A), 20 launches
+    a turn, so that a variant and the one it is compared with run close
+    in time.  ``variants``: label -> model; ``kernels``: name ->
+    fn(model).  Returns {(name, label): [ms, ms]}."""
+    order = list(variants) + list(variants)[::-1]
+    times = {}
+    for name, fn in kernels.items():
+        for label in order:
+            times.setdefault((name, label), []).append(
+                time_ms(torch, lambda: fn(variants[label]), 20))
+    return times
+
+
+def print_turns(head, times):
+    print(f"{head}, in turns: " + "; ".join(
+        f"{name} {label}: " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+        for (name, label), ts in times.items()), flush=True)
+
+
+def time_zg_instances(torch, fr, smi, model):
+    """The Coriolis and chi-const instances of ``model``'s z-ghosted build
+    (its configuration with Ω = 1, with χ = CHI, with both) timed against
+    the plain ones on one stratified input at 256³, in turns; phase 2
+    checks them against their plain versions."""
     import dataclasses
     cfg = model.cfg
-    rot = type(model)(cfg.replace(modules=tuple(
-        dataclasses.replace(m, Omega=1.0) if m.name == "hydro" else m
-        for m in cfg.modules)), device="cuda")
-    first, upd = fr.ZG_KERNELS[fr.zg_library(rot)]
+
+    def variant(Omega, chi):
+        mods = tuple(
+            dataclasses.replace(m, Omega=Omega) if m.name == "hydro" and Omega
+            else dataclasses.replace(m, iheatcond=("K-const", "chi-const"),
+                                     chi=chi)
+            if m.name == "entropy" and chi else m for m in cfg.modules)
+        return type(model)(cfg.replace(modules=mods), device="cuda")
+
+    variants = {"Omega = 0": model, "Omega = 1": variant(1.0, 0.0),
+                f"chi = {CHI:g}": variant(0.0, CHI),
+                f"Omega = 1, chi = {CHI:g}": variant(1.0, CHI)}
+    first, upd = fr.zg_kernels(model)
     inp = model.z_slabs(stratified_fa(torch, model, 3))
     df1, dt1m = fr.rhs_zg_plain(model, *inp)
     coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
-    times = {}
-    for m, om in ((model, 0), (rot, 1), (rot, 1), (model, 0)):
-        for name, fn in ((first, lambda: fr.rhs_zg(m, *inp)),
-                         (upd, lambda: fr.rhs_zg_upd(m, *inp, df1, coef))):
-            times.setdefault((name, om), []).append(time_ms(torch, fn, 20))
-    print(f"phase 4 {first}, {upd} at 256^3 on {smi}, in turns: "
-          + "; ".join(f"{name} Omega = {om}: "
-                      + ", ".join(f"{t:.4f}" for t in ts) + " ms"
-                      for (name, om), ts in sorted(times.items())),
-          flush=True)
+    times = in_turns(torch, variants, {
+        first: lambda m: fr.rhs_zg(m, *inp),
+        upd: lambda m: fr.rhs_zg_upd(m, *inp, df1, coef)})
+    print_turns(f"phase 4 {first}, {upd} and their Coriolis and chi-const "
+                f"instances at 256^3 on {smi}", times)
+
+
+def time_h3_instances(torch, pt, fr, smi, path):
+    """The H3 instances of a periodic build, each kernel kind with and
+    without Ω = 1, timed against the same instances without H3 on the
+    main path's final state at 256³, in turns; phase 2 checks them
+    against their plain versions."""
+    model, state, _ = path
+    name = {v: k for k, v in TEMPLATE_PATHS.items()}[fr.launch_suffix(model)]
+    base = name[:-3]
+    variants = {f"{v}Omega = {om:g}": pt.Model(template_cfg(
+        pt, base + h3, model.cfg.grid.shape, Omega=om), device="cuda")
+        for om in (0.0, 1.0) for h3, v in (("", ""), (" h3", "h3, "))}
+    fa = state["_fa"]
+    alpha, beta, _ = model.rk
+    dt_t = state["dt"]
+    c2 = torch.stack((model._alpha[1], beta[1] * dt_t, beta[0] * dt_t))
+    c3 = torch.stack((model._alpha[2], beta[2] * dt_t, beta[1] * dt_t))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt_t,
+                                     model.eos)
+    df1, _ = fr.rhs_first_plain(model, fa)
+    scratch = df1.clone()
+    times = in_turns(torch, variants, {
+        "K1": lambda m: fr.rhs_first(m, fa),
+        "K2": lambda m: fr.rhs_tail_defer(m, fa, df1, c2),
+        "K3 kick": lambda m: fr.rhs_tail_last(m, fa, df1, c3, kick),
+        "K3'": lambda m: fr.rhs_tail_mid(m, fa, scratch, c3),
+        "K2L kick": lambda m: fr.rhs_tail_defer_last(m, fa, df1, c3, kick)})
+    print_turns(f"phase 4 {base} kernels with and without H3 at 256^3 on "
+                f"{smi}", times)
 
 
 # the conv-slab step's parts: the step's call -> its name in the split

@@ -8,9 +8,11 @@ central differences, the 2N-RK orders 1-4):
   (``configs.flagship``), and the same without Magnetic
   (``configs.forced_hydro``);
 * non-isothermal forced turbulence: the flagship with an entropy field,
-  with and without Magnetic (``configs.forced_entropy``);
+  with and without Magnetic (``configs.forced_entropy``); these four also
+  with del6 hyper-diffusion (``hyper3=True``);
 * stratified convection with a non-periodic z axis, with and without
-  Magnetic (magnetoconvection) and rotation (``configs.conv_slab``);
+  Magnetic (magnetoconvection), rotation and chi-const conduction
+  (``configs.conv_slab``);
 * the sheared, rotating MHD box with shock viscosity and hyper-diffusion
   (``configs.shear_box``);
 * the shocked periodic box: forced MHD with shock viscosity

@@ -8,7 +8,7 @@ from __future__ import annotations
 import sys
 
 
-def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0):
+def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -22,7 +22,10 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0):
     field of amplitude 1e-4, the Lorentz force and Ohmic heating; 8 fields
     (uu, lnrho, ss, aa), with the perfect-conductor walls A_x = A_y = 0,
     ∂A_z/∂z = 0 ('a', 'a', 's').  ``Omega`` > 0 adds the Coriolis force of
-    a rotation about z (rotating convection).  The values are this
+    a rotation about z (rotating convection).  ``chi`` > 0 adds
+    'chi-const' conduction with that χ beside K-const, the Pencil Code's
+    usual stand-in for turbulent heat diffusion (χ = 4e-3 = ν, a Prandtl
+    number of 1, is the value this repository runs).  The values are this
     configuration's own, not the sample's start.in/run.in.
 
     The bottom c1 flux follows the run-directory loader's rule
@@ -42,6 +45,8 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0):
         bcz += (pkg.BC.parse("ax", "a"), pkg.BC.parse("ay", "a"),
                 pkg.BC.parse("az", "s"))
         mag = (pkg.Magnetic(eta=4e-3, init="gaussian-noise", ampl=1e-4),)
+    heat = (dict(iheatcond=("K-const", "chi-const"), chi=chi) if chi > 0.0
+            else dict(iheatcond=("K-const",)))
     return pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
                           Lx=1.0, Ly=1.0, Lz=1.0,
@@ -54,10 +59,24 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0):
                  pkg.Viscosity(ivisc=("nu-const",), nu=4e-3),
                  pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
                              mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
-                             iheatcond=("K-const",), hcond0=8e-3,
+                             **heat, hcond0=8e-3,
                              luminosity=5e-3, wheat=0.1, cool=15.0,
                              wcool=0.2, cs2cool=cs2cool),
                  *mag))
+
+
+def _hyper3(pkg, gs, hyper3):
+    """(Density, Viscosity, Magnetic keyword arguments) of del6
+    hyper-diffusion with h3 = 5e-3·dx⁵ where ``hyper3``, else ({}, {}, {})
+    and the viscosity's 'nu-const' alone: ν₃ = η₃ = D₃ = h3, the shear box's
+    rule, which keeps the del6 CFL rate at about a third of the advective
+    rate at every n on the 2π box."""
+    if not hyper3:
+        return {}, dict(ivisc=("nu-const",)), {}
+    h3 = 5e-3 * gs.dx ** 5
+    return (dict(diffrho_hyper3=h3),
+            dict(ivisc=("nu-const", "hyper3-simplified"), nu_hyper3=h3),
+            dict(eta_hyper3=h3))
 
 
 def shear_box(n, fused=True, pkg=None):
@@ -117,47 +136,57 @@ def shock_box(n, fused=True, pkg=None):
                  pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))
 
 
-def forced_hydro(n, fused=True, pkg=None, Omega=0.0):
+def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False):
     """Forced isothermal hydro turbulence, the flagship without Magnetic
     (BASELINE config 2): the default 2π cube, fully periodic, isothermal
     gas (cs = 1), ν = 5e-3, helical forcing of amplitude 0.07 at kf = 3;
     4 fields (uu, lnrho).  ``Omega`` > 0 adds the Coriolis force of a
-    rotation about z.  ``n`` is an int (a cube) or (nx, ny, nz).  The
-    values are this configuration's own, not a reference sample's."""
+    rotation about z; ``hyper3`` del6 hyper-diffusion of u and lnρ with
+    ν₃ = D₃ = 5e-3·dx⁵ ('hyper3-simplified', ``diffrho_hyper3``), ν
+    unchanged.  ``n`` is an int (a cube) or (nx, ny, nz).  The values are
+    this repository's own, not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
+    den, visc, _ = _hyper3(pkg, grid, hyper3)
     return pkg.Config(
-        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
-        time=pkg.TimeSpec(itorder=3), fused=fused,
+        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused,
         modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
-                 pkg.Density(lupw_lnrho=False),
+                 pkg.Density(lupw_lnrho=False, **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
-                 pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pkg.Viscosity(nu=5e-3, **visc),
                  pkg.Forcing(force=0.07, kf=3.0)))
 
 
-def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0):
+def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False):
     """Forced isothermal MHD turbulence, the package's headline workload
     (the configuration ``bench.py`` times): the default 2π cube, fully
     periodic, isothermal gas (cs = 1), ν = η = 5e-3, gaussian-noise u and A,
     helical forcing of amplitude 0.07 at kf = 3; 7 fields (uu, lnrho, aa).
-    ``itorder`` is the 2N-RK order; ``dt`` > 0 fixes the time step.  ``n``
-    is an int (a cube) or (nx, ny, nz).  The values are this repository's
-    own, not a reference sample's."""
+    ``itorder`` is the 2N-RK order; ``dt`` > 0 fixes the time step;
+    ``hyper3`` adds del6 hyper-diffusion of u, A and lnρ with ν₃ = η₃ =
+    D₃ = 5e-3·dx⁵ ('hyper3-simplified', ``eta_hyper3``,
+    ``diffrho_hyper3``: hyper-diffusive turbulence, a longer inertial
+    range at a given n), ν and η unchanged.  ``n`` is an int (a cube) or
+    (nx, ny, nz).  The values are this repository's own, not a reference
+    sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
+    den, visc, mag = _hyper3(pkg, grid, hyper3)
     return pkg.Config(
-        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
-        time=pkg.TimeSpec(itorder=itorder, dt=dt), fused=fused,
+        grid=grid, time=pkg.TimeSpec(itorder=itorder, dt=dt), fused=fused,
         modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
-                 pkg.Density(lupw_lnrho=False),
+                 pkg.Density(lupw_lnrho=False, **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3),
-                 pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
-                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
+                 pkg.Viscosity(nu=5e-3, **visc),
+                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3,
+                              **mag),
                  pkg.Forcing(force=0.07, kf=3.0)))
 
 
-def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0):
+def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0,
+                   hyper3=False):
     """Non-isothermal forced turbulence, the flagship with an entropy
     field: the default 2π cube, fully periodic, an ideal gas with γ = 5/3
     (cs0 = 1, cp = 1), ν = 5e-3, thermal diffusion 'chi-const' with
@@ -165,20 +194,22 @@ def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0):
     kf = 3; with ``magnetic`` also A with η = 5e-3, the Lorentz force and
     Ohmic heating.  8 fields (uu, lnrho, ss, aa), or 5 (uu, lnrho, ss)
     without Magnetic.  ``Omega`` > 0 adds the Coriolis force of a rotation
-    about z.  ``n`` is an int (a cube) or (nx, ny, nz).  The values are
-    this repository's own (the flagship's, plus χ = ν), not a reference
-    sample's."""
+    about z; ``hyper3`` del6 hyper-diffusion of u, lnρ and (with Magnetic)
+    A with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as in ``flagship``.  ``n`` is an int
+    (a cube) or (nx, ny, nz).  The values are this repository's own (the
+    flagship's, plus χ = ν), not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
-    mag = (pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),) \
-        if magnetic else ()
+    grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
+    den, visc, eta3 = _hyper3(pkg, grid, hyper3)
+    mag = (pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3,
+                        **eta3),) if magnetic else ()
     return pkg.Config(
-        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
-        time=pkg.TimeSpec(itorder=3), fused=fused,
+        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused,
         modules=(pkg.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0),
-                 pkg.Density(),
+                 pkg.Density(**den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
-                 pkg.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pkg.Viscosity(nu=5e-3, **visc),
                  pkg.Entropy(iheatcond=("chi-const",), chi=5e-3),
                  *mag,
                  pkg.Forcing(force=0.07, kf=3.0)))

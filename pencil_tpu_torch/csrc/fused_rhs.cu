@@ -10,7 +10,12 @@
 // the 5 fields uu, lnrho, ss.  They add the ideal-gas cs2(lnrho, ss), the
 // pressure force of grad ss, Ds/Dt = -u.grad ss, 'chi-const' and 'K-const'
 // conduction, viscous and Ohmic heating, and the conductive rate in the
-// CFL; with PC_ENT=0 all of that compiles out.  Built with -DPC_SHOCK=1 it
+// CFL; with PC_ENT=0 all of that compiles out.  Each of these four builds
+// has an instance with the flag H3 of every kernel: del6 hyper-diffusion
+// of u, A and lnrho ('hyper3-simplified', eta_hyper3, diffrho_hyper3) and
+// its constant rate in the CFL, picked on the host where a hyper
+// coefficient is not 0 (forced turbulence with a long inertial range).
+// Built with -DPC_SHOCK=1 it
 // gives the shocked periodic box's K1s (pc_rhs_first) and K5w
 // (pc_rhs_tail_mid): the MHD fields with the shock profile as an 8th,
 // read-only slot, and its terms (nu-shock, the shock diffusivity in the
@@ -38,7 +43,9 @@
 // of the wrap builds (u x B + eta del2 A, the Lorentz force, Ohmic heating,
 // the Alfven speed in the CFL), eta and the Ohmic heat compiled in as the
 // conduction is.  Both z-ghosted builds have a Coriolis (ROT) instance of
-// each kernel, the rotating conv-slab's.
+// each kernel, the rotating conv-slab's, and one with the flag CHI, which
+// adds 'chi-const' conduction beside K-const (its rate chi gamma is part
+// of the constant maxdif of the CFL), with and without rotation.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -347,7 +354,6 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
   return summix(up, dn, 1, wm);
 }
 
-#if PC_SHOCK
 // del6 of one field at one point: the 6th difference has the even paired
 // form of the second derivative (weights 15, -6, 1), so dj2 with w6 sums it,
 // differences first; the three axes join in the JAX order
@@ -357,7 +363,6 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
   acc = __fadd_rn(acc, __fmul_rn(dj2(p, x, 1, P.w6), P.inv6[1]));
   return __fadd_rn(acc, __fmul_rn(dj2(p, x, 2, P.w6), P.inv6[2]));
 }
-#endif
 
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the ring slot of its plane; field c is at s + c*FPL, its x taps in
@@ -376,14 +381,20 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // hyper-diffusion terms of u, A and lnrho, all three, a coefficient of 0
 // adding 0 (a flag as ROT is, picked on the host: without it the shocked
 // box's K1s and K5w measured 4-5 % faster; testing each coefficient inside
-// made K4 and K5 4-6 % slower).  The z-ghosted build adds gravity after
+// made K4 and K5 4-6 % slower).  The four periodic builds take H3 too, in
+// the same places: D3 del6 lnrho after the density terms, nu3 del6 u
+// joined to the nu-const force as one force before it is added to du,
+// eta3 del6 A after eta del2 A, and the constant rate dif3 added to the
+// diffusive one.  The z-ghosted build adds gravity after
 // the pressure force and the layer terms after the heating, in the order
 // of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
 // point's cooling profile, lay_h heat_norm times its heating profile, and
 // its conduction and heating terms, and with aa eta del2 A and the Ohmic
 // heat, are compiled in (no test of a coefficient: a layer that is off
-// has a profile of zeros, a coefficient that is off adds 0).
-template <bool WANT_DT1, bool ROT, bool H3>
+// has a profile of zeros, a coefficient that is off adds 0); CHI adds
+// 'chi-const' conduction after K-const, a flag as ROT is (a term behind a
+// runtime test measured 3-6 %).
+template <bool WANT_DT1, bool ROT, bool H3, bool CHI>
 __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
                                              const PcParams& P, float xn,
@@ -427,8 +438,11 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   float rl = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
   if (H3) rl = rl + P.diff3 * del6(s + LNRHO * FPL, xt[LNRHO], P);
 #else
-  // density: -u.grad(lnrho) - div u
+  // density: -u.grad(lnrho) - div u [+ D3 del6 lnrho]
   r[LNRHO] = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+  if constexpr (H3)
+    r[LNRHO] = __fadd_rn(
+        r[LNRHO], __fmul_rn(P.diff3, del6(s + LNRHO * FPL, xt[LNRHO], P)));
 #endif
 
   // hydro: -(u.grad)u - cs2 (grad(lnrho) + grad(ss)/cp) - 2 Omega x u
@@ -520,7 +534,14 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     if (H3) fv = __fadd_rn(fv, P.nu3 * del6(ua, xt[UX + a], P));
     duu[a] = __fadd_rn(duu[a], fv);
 #else
-    duu[a] = duu[a] + P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
+    if constexpr (H3) {
+      // nu-const, then nu3 del6 u, joined to du as one force
+      float fv = P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
+      fv = __fadd_rn(fv, __fmul_rn(P.nu3, del6(ua, xt[UX + a], P)));
+      duu[a] = __fadd_rn(duu[a], fv);
+    } else {
+      duu[a] = duu[a] + P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
+    }
 #endif
   }
 
@@ -568,6 +589,9 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     r[AX + a] = out;
 #else
     r[AX + a] = PC_ZG || P.eta > 0.0f ? uxb + P.eta * del2 : uxb;
+    if constexpr (H3)
+      r[AX + a] = __fadd_rn(r[AX + a],
+                            __fmul_rn(P.eta3, del6(aa, xt[AX + a], P)));
 #endif
   }
 #if !PC_ENT
@@ -612,7 +636,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
       ds = ds + krho1 * (del2lnTT + glnTT2);
       chik = (krho1 / P.cp) * P.gamma;
     }
-    if (!PC_ZG && P.cpchi > 0.0f) {
+    if (PC_ZG ? CHI : P.cpchi > 0.0f) {
       const float gdot = (gt[0] * (gt[0] + gl[0]) + gt[1] * (gt[1] + gl[1]))
                          + gt[2] * (gt[2] + gl[2]);
       ds = ds + P.cpchi * (del2lnTT + gdot);
@@ -667,12 +691,20 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     const float dif = (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv;
     dt1 = sqrtf(dt1a * dt1a + dif * dif);
 #elif PC_ENT
-    // the K-const rate varies from point to point
-    const float dif = P.hcond0 > 0.0f
+    // the K-const rate varies from point to point; H3: plus the constant
+    // del6 rate
+    float dif = P.hcond0 > 0.0f
         ? (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv : P.dif;
+    if constexpr (H3) dif = __fadd_rn(dif, P.dif3);
     dt1 = dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + dif * dif);
 #else
-    dt1 = P.dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + P.dif * P.dif);
+    if constexpr (H3) {
+      // the constant rates, diffusive plus del6 (dif3 > 0 here)
+      const float dif = __fadd_rn(P.dif, P.dif3);
+      dt1 = sqrtf(dt1a * dt1a + dif * dif);
+    } else {
+      dt1 = P.dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + P.dif * P.dif);
+    }
 #endif
   }
 }
@@ -876,7 +908,9 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // rebuilds f1 = f0 + cprev*df1 in the ring and LAST skips the df store.
 // FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor); ROT
 // adds the Coriolis force (launch() picks it where P.om is not 0), H3 the
-// shock builds' del6 terms (picked where a hyper coefficient is not 0).  coef =
+// del6 terms (picked where a hyper coefficient is not 0; the z-ghosted
+// builds have none), CHI the z-ghosted builds' chi-const term (picked
+// where cp chi is not 0).  coef =
 // [alpha, beta*dt, cprev] and kick = [k(3), phase, f_re(3), f_im(3), N*dt,
 // 0] live on the device, so no launch needs a host copy of dt.  dfin and
 // dfout may be one buffer (K3'): each thread reads and writes only its own
@@ -898,7 +932,7 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // the grid (its ring position holds wrapped data): it just loads and
 // stores nothing of its own there.
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
-          bool H3>
+          bool H3, bool CHI>
 __global__ void __launch_bounds__(NTHREADS, min_blocks<FIRST, DEFER>())
 pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
             const float* __restrict__ coef, const float* __restrict__ kick,
@@ -1149,7 +1183,8 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       // PC_SHEAR: the node x of this plane, the JAX tile rule in f32
       const float xn = PC_SHEAR
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
-      flagship_rhs<FIRST, ROT, H3>(s, xt, xo, P, xn, lay_c, lay_h, r, dt1);
+      flagship_rhs<FIRST, ROT, H3, CHI>(s, xt, xo, P, xn, lay_c, lay_h, r,
+                                        dt1);
     }
 
     if (FIRST) {
@@ -1191,22 +1226,24 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       }
     }
   }
+  // a red[] of its own for the z-ghosted builds' Coriolis K6 and for each
+  // instance with the H3 (periodic builds) or CHI flag, so that the
+  // instances without them keep the shared layout of a build that lacks
+  // those
+  constexpr bool XT = CHI || (H3 && PC_TAILS);
   if (FIRST)
-    // a red[] of its own for the z-ghosted builds' Coriolis K6, so that K6
-    // has its red[] to itself and the shared layout of a build without
-    // that instance
-    block_max_store<NTHREADS, PC_ZG && ROT>(
+    block_max_store<NTHREADS, ((PC_ZG || XT) && ROT) + 2 * XT>(
         dt1max, dt1blk + (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                     + blockIdx.x);
 }
 
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
-          bool H3>
+          bool H3, bool CHI>
 static int launch_as(const PcParams* p, const float* fa, const float* dfin,
                      const float* coef, const float* kick, const float* ktab,
                      float* dfout, float* faout, float* dt1blk, void* stream,
                      const ZgIn& zg) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1220,9 +1257,11 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
   return (int)cudaGetLastError();
 }
 
-// The instance with the Coriolis force where Omega is not 0 (K8 has none),
-// in the shock builds with the del6 terms where a hyper coefficient is not
-// 0.
+// The instance with the Coriolis force where Omega is not 0 (K8 has none)
+// and with the build's own terms where they are on: the del6 terms where a
+// hyper coefficient is not 0 (H3: the periodic and shock builds), chi-const
+// where cp chi is not 0 (CHI: the z-ghosted builds, which have no del6
+// terms and refuse the hyper coefficients rather than drop them).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
@@ -1230,21 +1269,27 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const ZgIn& zg = ZgIn{}) {
   if constexpr (!FAKE) {
     const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
-#if PC_SHOCK
-    if (p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f)
+    const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
+#if PC_ZG
+    if (hyper) return (int)cudaErrorNotSupported;
+    const bool extra = p->cpchi > 0.0f;
+#else
+    const bool extra = hyper;
+#endif
+    constexpr bool H3 = !PC_ZG, CHI = PC_ZG;
+    if (extra)
       return rot
-          ? launch_as<FIRST, DEFER, LAST, KICK, false, true, true>(
+          ? launch_as<FIRST, DEFER, LAST, KICK, false, true, H3, CHI>(
                 p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
                 zg)
-          : launch_as<FIRST, DEFER, LAST, KICK, false, false, true>(
+          : launch_as<FIRST, DEFER, LAST, KICK, false, false, H3, CHI>(
                 p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
                 zg);
-#endif
     if (rot)
-      return launch_as<FIRST, DEFER, LAST, KICK, false, true, false>(
+      return launch_as<FIRST, DEFER, LAST, KICK, false, true, false, false>(
           p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
   }
-  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false>(
+  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false, false>(
       p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
 }
 
@@ -1311,11 +1356,13 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
 #endif  // PC_TAILS
 
 // Registers, local (spill) bytes per thread, static and dynamic shared
-// memory per block, and resident blocks per SM of one instance.
+// memory per block, and resident blocks per SM of one instance; X: with the
+// build's own terms (H3, or CHI in the z-ghosted builds).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE,
-          bool ROT = false, bool H3 = false>
+          bool ROT = false, bool X = false>
 static int attrs(int* out) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, X && !PC_ZG,
+                          X && PC_ZG>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1334,6 +1381,24 @@ static int attrs(int* out) {
   return 0;
 }
 
+// attrs() of the instance `base` of pc_flagship_attrs with rotation ROT and
+// the build's own terms X
+template <bool ROT, bool X>
+static int attrs_of(int base, int* out) {
+  switch (base) {
+    case 0: return attrs<true, false, false, false, false, ROT, X>(out);
+    case 8: return attrs<false, false, false, false, false, ROT, X>(out);
+#if PC_TAILS
+    case 2: return attrs<false, true, false, false, false, ROT, X>(out);
+    case 4: return attrs<false, false, true, true, false, ROT, X>(out);
+    case 5: return attrs<false, false, true, false, false, ROT, X>(out);
+    case 9: return attrs<false, true, true, true, false, ROT, X>(out);
+    case 10: return attrs<false, true, true, false, false, ROT, X>(out);
+#endif
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" {
 
 // The per-block extent (x, y, z) = (MX, TY, TZ), so the caller can size
@@ -1345,41 +1410,29 @@ int pc_tile_shape(int* out) {
   return 0;
 }
 
-// attrs() of instance `which`, without rotation: 0 K1, 1 K8-K1, 2 K2, 3
-// K8-K2, 4/5 K3 with and without the kick, 6/7 K8-K3 with and without, 8
-// K3', 9/10 K2L with and without the kick.  Only the isothermal MHD build
-// has K8 (1, 3, 6, 7).  The shock builds have 0 and 8 (K1s and K5w, or K4
-// and K5), + 16 with rotation, + 32 with the del6 terms; the z-ghosted
-// builds 0 and 8 (K6 and K7, K6m and K7m), + 16 with rotation.
+// attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
+// and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
+// and without the kick; + 16 with rotation, + 32 with the build's own
+// terms (H3; CHI in the z-ghosted builds).  Only the isothermal MHD build
+// has K8 (1, 3, 6, 7; none with rotation or H3).  The shock builds have 0
+// and 8 (K1s and K5w, or K4 and K5), the z-ghosted builds 0 and 8 (K6 and
+// K7, K6m and K7m), each with the four flag sets.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
-    case 0: return attrs<true, false, false, false, false>(out);
-#if PC_TAILS
-    case 2: return attrs<false, true, false, false, false>(out);
-    case 4: return attrs<false, false, true, true, false>(out);
-    case 5: return attrs<false, false, true, false, false>(out);
-#endif
 #if PC_MAG && !PC_ENT && !PC_SHOCK
     case 1: return attrs<true, false, false, false, true>(out);
     case 3: return attrs<false, true, false, false, true>(out);
     case 6: return attrs<false, false, true, true, true>(out);
     case 7: return attrs<false, false, true, false, true>(out);
 #endif
-    case 8: return attrs<false, false, false, false, false>(out);
-#if PC_SHOCK
-    case 16: return attrs<true, false, false, false, false, true>(out);
-    case 24: return attrs<false, false, false, false, false, true>(out);
-    case 32: return attrs<true, false, false, false, false, false, true>(out);
-    case 40: return attrs<false, false, false, false, false, false, true>(out);
-    case 48: return attrs<true, false, false, false, false, true, true>(out);
-    case 56: return attrs<false, false, false, false, false, true, true>(out);
-#elif PC_ZG
-    case 16: return attrs<true, false, false, false, false, true>(out);
-    case 24: return attrs<false, false, false, false, false, true>(out);
-#elif PC_TAILS
-    case 9: return attrs<false, true, true, true, false>(out);
-    case 10: return attrs<false, true, true, false, false>(out);
-#endif
+    default: break;
+  }
+  const int base = which & 15;
+  switch (which >> 4) {
+    case 0: return attrs_of<false, false>(base, out);
+    case 1: return attrs_of<true, false>(base, out);
+    case 2: return attrs_of<false, true>(base, out);
+    case 3: return attrs_of<true, true>(base, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -32,6 +32,10 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   the same chain of the template built for 8 fields (uu, lnρ, s, A: K1e,
   K2e, K3e, K3′e, K2Le) or 5 (uu, lnρ, s: K1he … K2Lhe).
 
+  Each of these four sets may add del6 hyper-diffusion ('hyper3-simplified'
+  viscosity, η₃, D₃): the wrappers then launch the H3 instances of the
+  same kernels.
+
 * Stratified convection — the EOS with an entropy slot, lnρ density,
   hydro (with optional Coriolis), constant gravity, 'nu-const' viscosity,
   entropy, and magnetoconvection, the same with resistive-gauge magnetic —
@@ -41,7 +45,9 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   itself, f1 = f0 + β₀Δt·df1 as a torch axpy; then per substep
   ``z_slabs`` and K7 (df ← α·df + RHS(f), f ← f + βΔt·df); then
   ``bc_writeback`` pins the boundary planes that value-setting BCs fix.
-  With Magnetic the wrappers launch K6m and K7m, the 8-field build.
+  With Magnetic the wrappers launch K6m and K7m, the 8-field build; with
+  'chi-const' conduction beside K-const either build's CHI instances.
+  Hyper-diffusion stays outside (the z-ghosted builds have no del6 terms).
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -78,10 +84,11 @@ from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import BC_REGISTRY
-from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
-                            rhs_tail_defer_last, rhs_tail_last, rhs_tail_mid,
-                            rhs_wrap_shock, rhs_wrap_shock_upd, rhs_zg,
-                            rhs_zg_upd, rhs_zroll, rhs_zroll_upd)
+from .ops.fused_rhs import (hyper3_coefficients, rhs_first, rhs_plain,
+                            rhs_tail_defer, rhs_tail_defer_last,
+                            rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
+                            rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
+                            rhs_zroll, rhs_zroll_upd)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
@@ -138,24 +145,28 @@ def _unported_bcs(cfg: Config):
                    if code and code not in BC_REGISTRY})
 
 
-def _zroll_options(cfg: Config):
-    """The options in use that only the zroll kernels implement."""
-    out = []
+def _shock_options(cfg: Config):
+    """The options in use that only the shear-box and shock-box kernels
+    implement: nu-shock."""
     visc = cfg.module("viscosity")
-    mag, den = cfg.module("magnetic"), cfg.module("density")
-    if visc is not None and any(visc.coefficients()[1:]):
-        out.append("Viscosity nu-shock/hyper3-simplified")
-    if getattr(mag, "eta_hyper3", 0.0) > 0.0:
-        out.append("Magnetic.eta_hyper3")
-    if getattr(den, "diffrho_hyper3", 0.0) > 0.0:
-        out.append("Density.diffrho_hyper3")
-    return out
+    return (["Viscosity nu-shock"]
+            if visc is not None and visc.coefficients()[1] else [])
+
+
+def _hyper3_options(cfg: Config):
+    """The del6 hyper-diffusion options in use, which the periodic and
+    shock builds implement (their H3 instances) and the z-ghosted builds
+    do not."""
+    names = ("Viscosity hyper3-simplified", "Magnetic.eta_hyper3",
+             "Density.diffrho_hyper3")
+    return [n for n, c in zip(names, hyper3_coefficients(cfg)) if c > 0.0]
 
 
 def fused_mode(cfg: Config):
     """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain,
-    with or without an entropy field), 'zghost' (stratified convection
-    and magnetoconvection, each with or without Ω),
+    with or without an entropy field, each with or without del6
+    hyper-diffusion), 'zghost' (stratified convection and
+    magnetoconvection, each with or without Ω and chi-const),
     'zroll' (the shearing box) or 'wrap_aux' (the shocked periodic box), or
     (None, why ``cfg`` is outside all of these sets)."""
     names = [m.name for m in cfg.modules]
@@ -176,21 +187,22 @@ def fused_mode(cfg: Config):
             return "zroll", None
         if unforced == SHOCKBOX_MODULES and full:
             return "wrap_aux", None
-        extra = _zroll_options(cfg)
+        extra = _shock_options(cfg)
         wrap = unforced in WRAP_SETS and full
         zghost = mods in ZGHOST_SETS and periodic == (True, True, False)
         if (wrap or zghost) and extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")
+        hyper3 = _hyper3_options(cfg)
+        if zghost and hyper3:
+            return None, (f"options {hyper3} (del6 hyper-diffusion: the "
+                          "z-ghosted kernels have no hyper3 terms)")
         ent = cfg.module("entropy")
         if wrap and ent is not None and (ent.cool != 0.0
                                          or ent.luminosity != 0.0):
             return None, ("options ['Entropy.cool/luminosity'] (the layer "
                           "profiles: only the conv-slab kernels implement "
                           "them)")
-        if zghost and ent.chi_conduction:
-            return None, ("options ['Entropy chi-const'] (only the "
-                          "flagship template's kernels implement it)")
         if wrap:
             return "wrap", None
         if zghost:

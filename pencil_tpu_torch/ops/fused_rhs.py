@@ -28,7 +28,11 @@ suffixes ``_ent`` and ``_hydro_ent``: K1e … K2Le and K1he … K2Lhe):
 ``fake=True`` on K1, K2 and K3 is K8, the memory floor: the same loads and
 stores with RHS(f) = f·1.0000001 and a CFL maximum of 0 (wrong physics by
 design; the MHD layout only).  The wrappers pick the library from the
-model's field layout (``flagship_library``).
+model's field layout (``flagship_library``).  Where a del6 coefficient
+(ν₃ of 'hyper3-simplified', η₃, D₃) is on, each of the five launches the
+library's H3 instance, which adds the hyper-diffusion of u, A and lnρ and
+its CFL rate, counted under the launch name with the suffix ``_h3``
+(``launch_suffix``).
 
 Stratified convection (zghost mode), on the interior stack (5, nx, ny, nz)
 and its z-halo slabs zlo and zhi (5, nx, ny, 3), cut by a z-only ghost
@@ -39,7 +43,9 @@ adds gravity and the cooling and heating layers and reads its z halo
 from the slabs; magnetoconvection on the 8 fields (uu, lnrho, ss, aa) and
 slabs (8, nx, ny, 3) on the same template built with ``PC_ENT=1 PC_ZG=1``
 (library ``fused_rhs_zg_mag``, launch names with the suffix ``_mag``: K6m,
-K7m); with Ω either build launches its Coriolis instances:
+K7m); with Ω either build launches its Coriolis instances, and with
+'chi-const' conduction beside K-const its CHI instances, counted under
+the launch names with the suffix ``_chi`` (``zg_kernels``):
 
   rhs_zg           K6  df = RHS(f), max of the CFL 1/dt
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
@@ -89,19 +95,26 @@ from .stencil import BIDIAG, BIDIAG_TAPS, NGHOST, i, paired_weights
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
+# the suffix of each periodic library's launch names
+_SUFFIX = {"fused_rhs": "", "fused_rhs_hydro": "_hydro",
+           "fused_rhs_ent": "_ent", "fused_rhs_hydro_ent": "_hydro_ent"}
+WRAP_LIBRARIES = tuple(_SUFFIX)
+# the five kernels of each periodic library
+_WRAP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last",
+                "rhs_tail_mid", "rhs_tail_defer_last")
+
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
-LAUNCHES = dict.fromkeys((
-    "rhs_first", "rhs_tail_defer", "rhs_tail_last", "rhs_tail_mid",
-    "rhs_tail_defer_last", "rhs_first_fake", "rhs_tail_defer_fake",
-    "rhs_tail_last_fake", "rhs_first_hydro", "rhs_tail_defer_hydro",
-    "rhs_tail_last_hydro", "rhs_tail_mid_hydro", "rhs_tail_defer_last_hydro",
-    "rhs_first_ent", "rhs_tail_defer_ent", "rhs_tail_last_ent",
-    "rhs_tail_mid_ent", "rhs_tail_defer_last_ent", "rhs_first_hydro_ent",
-    "rhs_tail_defer_hydro_ent", "rhs_tail_last_hydro_ent",
-    "rhs_tail_mid_hydro_ent", "rhs_tail_defer_last_hydro_ent",
-    "rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag", "rhs_zroll",
-    "rhs_zroll_upd", "rhs_wrap_shock", "rhs_wrap_shock_upd"), 0)
+# The H3 instances of the periodic builds (suffix _h3) and the CHI
+# instances of the z-ghosted builds (_chi) count under names of their own.
+LAUNCHES = dict.fromkeys(
+    [k + sfx + h3 for h3 in ("", "_h3") for sfx in _SUFFIX.values()
+     for k in _WRAP_KERNELS]
+    + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
+    + [k + chi for chi in ("", "_chi")
+       for k in ("rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag")]
+    + ["rhs_zroll", "rhs_zroll_upd", "rhs_wrap_shock",
+       "rhs_wrap_shock_upd"], 0)
 
 
 def reset_launches():
@@ -325,9 +338,6 @@ _LAYOUTS = {
     "fused_rhs_hydro_ent": {"uu": slice(0, 3), "lnrho": slice(3, 4),
                             "ss": slice(4, 5)},
 }
-# the suffix of each library's launch names
-_SUFFIX = {"fused_rhs": "", "fused_rhs_hydro": "_hydro",
-           "fused_rhs_ent": "_ent", "fused_rhs_hydro_ent": "_hydro_ent"}
 # the modules whose terms the template implements (forcing rides along as
 # the kick); a layout with any other module (gravity, shear, shock) is not
 # the template's
@@ -339,8 +349,9 @@ def flagship_library(model) -> str:
     """The library of the flagship template whose field layout is
     ``model``'s: 'fused_rhs' (uu, lnrho, aa), 'fused_rhs_hydro' (uu,
     lnrho), 'fused_rhs_ent' (uu, lnrho, ss, aa) or 'fused_rhs_hydro_ent'
-    (uu, lnrho, ss); raises for any other layout, and for a module or an
-    entropy layer profile that the template has no terms for."""
+    (uu, lnrho, ss), each with its H3 instances for del6 hyper-diffusion;
+    raises for any other layout, and for a module or an entropy layer
+    profile that the template has no terms for."""
     reg, cfg = model.reg, model.cfg
     ent = cfg.module("entropy")
     if {m.name for m in cfg.modules} <= _TEMPLATE_MODULES and (
@@ -397,30 +408,54 @@ _ZG_BUILDS = {
 ZG_KERNELS = {lib: names for lib, (_, _, names) in _ZG_BUILDS.items()}
 
 
+def hyper3_coefficients(cfg):
+    """(ν₃, η₃, D₃) of ``cfg``, 0 for each that is off: the
+    'hyper3-simplified' viscosity, the hyper-resistivity and the lnρ
+    hyper-diffusion."""
+    visc, mag = cfg.module("viscosity"), cfg.module("magnetic")
+    den = cfg.module("density")
+    return (visc.coefficients()[2] if visc is not None else 0.0,
+            max(mag.eta_hyper3, 0.0) if mag is not None else 0.0,
+            max(den.diffrho_hyper3, 0.0) if den is not None else 0.0)
+
+
 def zg_library(model) -> str:
     """The z-ghosted build of the flagship template for ``model``:
     'fused_rhs_zg' (the conv-slab's uu, lnrho, ss) or 'fused_rhs_zg_mag'
-    (with aa and Magnetic), with or without Ω; raises for another layout
-    or module set, and for chi-const conduction, which the builds have no
-    terms for.  Found once per model: the conv-slab step is bound by the
-    host."""
+    (with aa and Magnetic), with or without Ω and chi-const conduction;
+    raises for another layout or module set, and for del6
+    hyper-diffusion, which the builds have no terms for.  Found once per
+    model: the conv-slab step is bound by the host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
     reg, cfg = model.reg, model.cfg
     names = {m.name for m in cfg.modules}
-    ent = cfg.module("entropy")
     for lib, (layout, modules, _) in _ZG_BUILDS.items():
         n = sum(sl.stop - sl.start for sl in layout.values())
         if names == modules and reg.nvar == reg.nf == n and all(
                 reg.slice(k) == v for k, v in layout.items()) \
-                and not ent.chi_conduction:
+                and not any(hyper3_coefficients(cfg)):
             model.__dict__["_zg_library"] = lib
             return lib
     raise NotImplementedError(
         "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules, "
-        "with or without Magnetic's aa, without chi-const only, got "
-        f"{reg.comp_names} of {sorted(names)}")
+        "with or without Magnetic's aa, without hyper-diffusion "
+        "(hyper3-simplified, eta_hyper3, diffrho_hyper3) only, got "
+        f"{reg.comp_names} of {sorted(names)} with (ν₃, η₃, D₃) = "
+        f"{hyper3_coefficients(cfg)}")
+
+
+def zg_kernels(model):
+    """The launch names (first, update) of ``model``'s z-ghosted build:
+    ZG_KERNELS's, with the suffix _chi where its CHI instances run
+    (chi-const on); found once per model."""
+    names = model.__dict__.get("_zg_kernels")
+    if names is None:
+        chi = "_chi" if kernel_params(model).cpchi > 0.0 else ""
+        names = tuple(k + chi for k in ZG_KERNELS[zg_library(model)])
+        model.__dict__["_zg_kernels"] = names
+    return names
 
 
 def zg_profiles(model):
@@ -439,9 +474,17 @@ def zg_profiles(model):
 
 
 def launch_suffix(model) -> str:
-    """The suffix of the launch names of ``model``'s flagship-template
-    library: '', '_hydro', '_ent' or '_hydro_ent'."""
-    return _SUFFIX[flagship_library(model)]
+    """The suffix of the launch names of ``model``'s instances of the
+    flagship template: its library's ('', '_hydro', '_ent' or
+    '_hydro_ent'), then '_h3' where it launches the H3 instances."""
+    return _SUFFIX[flagship_library(model)] + _h3_suffix(model)
+
+
+def _h3_suffix(model) -> str:
+    """'_h3' where ``model``'s del6 coefficients are not all 0 in f32 (the
+    kernels' own test, which picks the H3 instances), else ''."""
+    p = kernel_params(model)
+    return "_h3" if p.nu3 > 0.0 or p.eta3 > 0.0 or p.diff3 > 0.0 else ""
 
 
 def kernel_params(model) -> PcParams:
@@ -461,13 +504,12 @@ def kernel_params(model) -> PcParams:
     inv = np.array(inverse_spacings(gs), f32)
     invsq = inv * inv
     dxyz2 = (invsq[0] + invsq[1]) + invsq[2]
-    nu, nu_shock, nu3 = cfg.module("viscosity").coefficients()
+    nu, nu_shock, _ = cfg.module("viscosity").coefficients()
     mag = cfg.module("magnetic")
     eta = mag.eta if mag is not None else 0.0
-    # the shock builds' del6 hyper-diffusion and its constant CFL rate
-    # max(ν₃, η₃, D₃)·dxyz₆/cdtv3
-    eta3 = max(mag.eta_hyper3, 0.0) if mag is not None else 0.0
-    diff3 = max(cfg.module("density").diffrho_hyper3, 0.0)
+    # the del6 hyper-diffusion (the H3 instances) and its constant CFL
+    # rate max(ν₃, η₃, D₃)·dxyz₆/cdtv3
+    nu3, eta3, diff3 = hyper3_coefficients(cfg)
     inv6 = pow6(inv)
     m3 = max(nu3, eta3, diff3)
     dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
@@ -534,26 +576,34 @@ FLAGSHIP_INSTANCES = (
 
 
 def library_instances(lib):
-    """Launch name -> ``pc_flagship_attrs`` index of each instance of the
-    template's library ``lib`` (only the isothermal MHD build has K8; the
-    shock builds have their two kernels, each without and with rotation
-    and the del6 terms, the z-ghosted builds theirs without and with
-    rotation)."""
-    pair = AUX_KERNELS.get(lib) or ZG_KERNELS.get(lib)
-    if pair:
-        flags = (("", 0), (" rot", 16))
-        if lib in AUX_KERNELS:
-            flags += ((" h3", 32), (" rot h3", 48))
-        return {(kernel + flag).rstrip(): which + extra
-                for kernel, which in zip(pair, (0, 8))
-                for flag, extra in flags}
+    """Instance name (its launch name first) -> ``pc_flagship_attrs``
+    index of each instance of the template's library ``lib``: +16 with
+    rotation (" rot"), +32 with the build's own terms.  The periodic
+    builds have the five kernels (and the kick's) with H3 (launch names
+    with _h3), only the isothermal MHD build K8 (no rotation or H3); the
+    shock builds have their two kernels with the del6 terms (" h3"), the
+    z-ghosted builds theirs with chi-const (launch names with _chi)."""
+    rot = (("", 0), (" rot", 16))
+    if lib in AUX_KERNELS:
+        return {(kernel + flag + h3).rstrip(): which + r + x
+                for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
+                for h3, x in (("", 0), (" h3", 32)) for flag, r in rot}
+    if lib in ZG_KERNELS:
+        return {kernel + chi + flag: which + r + x
+                for kernel, which in zip(ZG_KERNELS[lib], (0, 8))
+                for chi, x in (("", 0), ("_chi", 32)) for flag, r in rot}
     sfx = _SUFFIX[lib]
     out = {}
     for which, name in enumerate(FLAGSHIP_INSTANCES):
-        if sfx and "fake" in name:
+        kernel, _, kick = name.partition(" ")
+        if "fake" in name:
+            if not sfx:
+                out[name] = which
             continue
-        kernel, _, flag = name.partition(" ")
-        out[(kernel + sfx + " " + flag).strip()] = which
+        for h3, x in (("", 0), ("_h3", 32)):
+            for flag, r in rot:
+                out[(kernel + sfx + h3 + " " + kick).strip() + flag] = \
+                    which + r + x
     return out
 
 
@@ -629,7 +679,8 @@ def _flagship_launch(name, lib, model, fa, *args, fake=False, after=()):
     name; ``args`` follow the constants and ``fa``, ``after`` the
     stream."""
     name += "_fake" if fake else ""
-    _launch(name + _SUFFIX[lib], fa, ctypes.addressof(kernel_params(model)),
+    sfx = _SUFFIX[lib] + ("" if fake else _h3_suffix(model))
+    _launch(name + sfx, fa, ctypes.addressof(kernel_params(model)),
             fa.data_ptr(), *args, lib=lib, entry=name, after=after)
 
 
@@ -710,9 +761,9 @@ def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
 
 
 def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
-    """(library, its launch names, the inputs after the stream: the slabs
-    and the layer profiles) of ``model``'s z-ghosted build, after checking
-    every input."""
+    """(library, its launch names (``zg_kernels``), the inputs after the
+    stream: the slabs and the layer profiles) of ``model``'s z-ghosted
+    build, after checking every input."""
     p = kernel_params(model)
     lib = zg_library(model)
     shape = (model.reg.nvar, p.nx, p.ny, p.nz)
@@ -723,7 +774,7 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
         _check(df_prev, shape, "df_prev")
     if coef is not None:
         _check(coef, (2,), "coef")
-    return lib, ZG_KERNELS[lib], (zlo.data_ptr(), zhi.data_ptr(),
+    return lib, zg_kernels(model), (zlo.data_ptr(), zhi.data_ptr(),
                                   *(v.data_ptr() for v in zg_profiles(model)))
 
 

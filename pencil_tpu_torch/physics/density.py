@@ -26,10 +26,20 @@ class Density(ModuleBase):
     init: str = "zero"
     ampl: float = 0.0
     width: float = 0.05
+    # the JAX module's other hyper-diffusion flavours, not ported
+    lhyper3_polar: bool = False
+    diffrho_hyper3_mesh: float = 0.0
+    diffrho_hyper3_aniso: tuple = (0.0, 0.0, 0.0)
 
     def __post_init__(self):
         if self.lupw_lnrho:
             raise NotImplementedError("pencil_tpu_torch: lupw_lnrho")
+        if self.lhyper3_polar or self.diffrho_hyper3_mesh \
+                or any(self.diffrho_hyper3_aniso):
+            raise NotImplementedError(
+                "pencil_tpu_torch: Density hyper-diffusion other than the "
+                "'simplified' diffrho_hyper3 (lhyper3_polar, "
+                "diffrho_hyper3_mesh, diffrho_hyper3_aniso)")
 
     def register(self, reg):
         reg.register("lnrho", 1, "pde")

@@ -15,7 +15,8 @@ shared-memory loads, integer and address arithmetic, and the rest.
 ``fused_rhs_shear``, with rotation and the del6 terms as the shear box
 runs them, K6 and K7 of ``fused_rhs_zg``, the same names of
 ``fused_rhs_zg_mag`` its K6m and K7m, and K6rot, K7rot their Coriolis
-instances);
+instances, K6chi, K7chi their chi-const ones; K1h3, K2h3, K3h3, K3midh3
+and K2Lh3 are the del6 instances of the four periodic builds);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
 that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
 or the 4×4×16 template of earlier commits that its ``--parent-tree``
@@ -54,8 +55,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-# template arguments FIRST, DEFER, LAST, KICK, FAKE, ROT, H3 of each
-# instance of pc_flagship
+# template arguments FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI of each
+# instance of pc_flagship (trailing false flags may be left out)
 INSTANCES = {
     "K1": (1, 0, 0, 0, 0, 0, 0), "K2": (0, 1, 0, 0, 0, 0, 0),
     "K3": (0, 0, 1, 1, 0, 0, 0), "K3nokick": (0, 0, 1, 0, 0, 0, 0),
@@ -66,24 +67,32 @@ INSTANCES = {
     "K4": (1, 0, 0, 0, 0, 1, 1), "K5": (0, 0, 0, 0, 0, 1, 1),
     "K6": (1, 0, 0, 0, 0, 0, 0), "K7": (0, 0, 0, 0, 0, 0, 0),
     "K6rot": (1, 0, 0, 0, 0, 1, 0), "K7rot": (0, 0, 0, 0, 0, 1, 0),
+    # the periodic builds' del6 instances, the z-ghosted builds' chi-const
+    "K1h3": (1, 0, 0, 0, 0, 0, 1), "K2h3": (0, 1, 0, 0, 0, 0, 1),
+    "K3h3": (0, 0, 1, 1, 0, 0, 1), "K3midh3": (0, 0, 0, 0, 0, 0, 1),
+    "K2Lh3": (0, 1, 1, 1, 0, 0, 1),
+    "K6chi": (1, 0, 0, 0, 0, 0, 0, 1), "K7chi": (0, 0, 0, 0, 0, 0, 0, 1),
 }
+NFLAGS = 8       # the template arguments of pc_flagship
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template
 ZR_INSTANCES = {"zr-K4": (0, 0), "zr-K5": (1, 0), "zr-K1s": (0, 1),
                 "zr-K5w": (1, 1)}
 
 
 def mangled(kname):
-    """The part of an instance's mangled name that picks it; without H3
-    also the name of builds from before that flag (six arguments)."""
+    """The parts of mangled names that pick an instance: its NFLAGS
+    arguments, then, while the last is false, the names of builds from
+    before that flag (CHI, then H3: seven and six arguments)."""
     if kname in ZR_INSTANCES:
         mode, wrap = ZR_INSTANCES[kname]
         return [f"pc_shearboxILi{mode}ELb{wrap}E"]
-    args = INSTANCES[kname]
-    keys = ["pc_flagshipI" + "".join(f"Lb{b}E" for b in args) + "E"]
-    if not args[-1]:
-        keys.append("pc_flagshipI" + "".join(f"Lb{b}E" for b in args[:-1])
-                    + "E")
-    return keys
+    args = tuple(INSTANCES[kname]) + (0,) * (NFLAGS - len(INSTANCES[kname]))
+    keys = []
+    while True:
+        keys.append("pc_flagshipI" + "".join(f"Lb{b}E" for b in args) + "E")
+        if len(args) <= 6 or args[-1]:
+            return keys
+        args = args[:-1]
 CLASSES = {
     "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSET", "FSETP",
              "FCHK"},
@@ -195,9 +204,13 @@ def auto_skip(ins, nfields):
 
 def instance_key(name):
     """The template arguments of a pc_flagship instance in its mangled
-    name (the parameter types after them may differ between commits)."""
+    name (the parameter types after them may differ between commits),
+    padded with false flags to NFLAGS, so that an instance of a build from
+    before a flag was added has the key of its counterpart."""
     m = re.search(r"pc_flagshipI((?:Lb[01]E)+)E", name)
-    return m.group(1) if m else name
+    if not m:
+        return name
+    return m.group(1) + "Lb0E" * (NFLAGS - m.group(1).count("Lb"))
 
 
 def normalized(ins):

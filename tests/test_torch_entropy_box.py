@@ -92,11 +92,21 @@ def build_kernels(magnetic, shape, entropy):
     """Every wrap-mode call shape of the JAX package (interpret mode) built
     for one of the two entropy sets, on numpy inputs; numpy results.  The
     K cases add K-const conduction, whose CFL rate varies per point."""
-    jm = pj.Model(config(pj, n=shape, magnetic=magnetic, entropy=entropy))
-    pm = pt.Model(config(pt, n=shape, magnetic=magnetic, entropy=entropy),
-                  device="cpu")
+    out = pallas_calls(
+        config(pj, n=shape, magnetic=magnetic, entropy=entropy),
+        config(pt, n=shape, magnetic=magnetic, entropy=entropy))
+    assert out["nvar"] == (8 if magnetic else 5)
+    return out
+
+
+def pallas_calls(jcfg, pcfg):
+    """Every wrap-mode call shape of the JAX package (interpret mode)
+    built for ``jcfg`` on numpy inputs, the port's CPU model of ``pcfg``
+    beside them; numpy results."""
+    jm = pj.Model(jcfg)
+    pm = pt.Model(pcfg, device="cpu")
+    shape = jm.cfg.grid.shape
     nvar = pm.reg.nvar
-    assert nvar == (8 if magnetic else 5)
     fa, fa2 = noisy_fa(nvar, shape, 3), noisy_fa(nvar, shape, 4)
     z = jm.grid.z
     alpha, beta, _ = jm.rk
@@ -293,46 +303,75 @@ REFUSED = {
     "luminosity": (dict(luminosity=5e-3), (), "cool/luminosity"),
     "gravity": (None, (pt.Gravity(gravz_profile="const", gravz=-1.0),),
                 "gravity"),
-    "hyper3": (None, (), "hyper3"),
+    "hyper3": (None, (), "hyper3-mesh"),
 }
 
 
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_gate_refuses_what_the_entropy_kernels_lack(case, magnetic):
-    """The layer profiles, gravity and the shear-box options stay outside:
-    a reason on the CPU (the eager path), NotImplementedError on the
-    card."""
+    """The layer profiles and gravity stay outside: a reason on the CPU
+    (the eager path), NotImplementedError on the card.  Of del6
+    hyper-diffusion the H3 instances take 'hyper3-simplified' only: the
+    'hyper3-mesh' flavour, which JAX has, raises as the port's Viscosity
+    is built, with its name."""
     entropy, extra, word = REFUSED[case]
+    if case == "hyper3":
+        with pytest.raises(NotImplementedError, match=word):
+            pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-3,
+                         nu_hyper3=1e-9)
+        return
     cfg = config(pt, magnetic=magnetic, entropy=entropy)
     cfg = cfg.replace(modules=cfg.modules + extra)
-    if case == "hyper3":
-        cfg = cfg.replace(modules=tuple(
-            pt.Viscosity(ivisc=("nu-const", "hyper3-simplified"), nu=5e-3,
-                         nu_hyper3=1e-9) if m.name == "viscosity" else m
-            for m in cfg.modules))
     assert word in gate_reason(cfg)
     assert fused_gate(cfg, "cpu") is False
     with pytest.raises(NotImplementedError, match=word):
         fused_gate(cfg, "cuda")
     pm = pt.Model(cfg, device="cpu")
     assert pm.mode is None
-    if case != "hyper3":
-        with pytest.raises(NotImplementedError, match="layout"):
-            fr.kernel_params(pm)
+    with pytest.raises(NotImplementedError, match="layout"):
+        fr.kernel_params(pm)
 
 
-def test_gate_refuses_chi_const_on_the_conv_slab():
-    """K6/K7 implement K-const only: the conv-slab set with chi-const
-    beside it runs eagerly on the CPU and raises on the card."""
+@pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
+def test_gate_admits_hyper3_on_the_entropy_sets(magnetic):
+    """Both entropy sets with 'hyper3-simplified' viscosity (and η₃ with
+    Magnetic, D₃) run the wrap chain on their builds' H3 instances, counted
+    under the launch names with _h3."""
+    cfg = config(pt, magnetic=magnetic).replace(modules=tuple(
+        pt.Viscosity(ivisc=("nu-const", "hyper3-simplified"), nu=5e-3,
+                     nu_hyper3=1e-9) if m.name == "viscosity" else m
+        for m in config(pt, magnetic=magnetic).modules))
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    pm = pt.Model(cfg, device="cpu")
+    assert pm.mode == "wrap"
+    assert fr.launch_suffix(pm) == ("_ent_h3" if magnetic
+                                    else "_hydro_ent_h3")
+    assert fr.kernel_params(pm).nu3 == np.float32(1e-9)
+
+
+def test_gate_admits_chi_const_on_the_conv_slab():
+    """The z-ghosted builds' CHI instances take chi-const beside K-const:
+    the conv-slab set with it runs the zghost chain; del6
+    hyper-diffusion on the same set stays refused (the builds have no
+    hyper3 terms), with the option's name."""
     cfg = conv_slab(8)
     cfg = cfg.replace(modules=tuple(
         dataclasses.replace(m, iheatcond=("K-const", "chi-const"), chi=1e-3)
         if m.name == "entropy" else m for m in cfg.modules))
-    assert "chi-const" in gate_reason(cfg)
-    assert fused_gate(cfg, "cpu") is False
-    with pytest.raises(NotImplementedError, match="chi-const"):
-        fused_gate(cfg, "cuda")
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    assert pt.Model(cfg, device="cpu").mode == "zghost"
+    hyper = cfg.replace(modules=tuple(
+        pt.Density(init="piecew-poly", diffrho_hyper3=1e-9)
+        if m.name == "density" else m for m in cfg.modules))
+    assert "diffrho_hyper3" in gate_reason(hyper)
+    assert fused_gate(hyper, "cpu") is False
+    with pytest.raises(NotImplementedError, match="hyper"):
+        fused_gate(hyper, "cuda")
     assert gate_reason(conv_slab(8)) is None
 
 

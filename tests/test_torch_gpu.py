@@ -2,9 +2,11 @@
 flagship, their hydro builds K1h-K3h, K3′h, K2Lh, their entropy builds
 K1e-K2Le and K1he-K2Lhe, its shock builds' K1s/K5w of the shocked periodic
 box and K4/K5 of the shearing box, K6/K7 of stratified convection, K6m/K7m
-of magnetoconvection, each z-ghosted pair also with Ω) against
-their plain PyTorch versions on the card, and steps on the card against
-the same steps on the CPU, and the run loop's restart on the card.
+of magnetoconvection, each z-ghosted pair also with Ω, the H3 instances
+of the four periodic builds (del6 hyper-diffusion) and the CHI instances
+of the z-ghosted builds (chi-const)) against their plain PyTorch versions
+on the card, and steps on the card against the same steps on the CPU, and
+the run loop's restart on the card.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
 with one, run them with
 
@@ -521,7 +523,13 @@ def test_zghost_kernels_match_plain(cuda, shape, case):
     """K6 and K7 (the z-ghosted build of the flagship template), K6m and
     K7m (its 8-field build), each without and with Ω, against their plain
     versions."""
-    pm = pt.Model(conv_slab(shape, **ZG_CASES[case]), device=cuda)
+    _zghost_kernels_match_plain(cuda, conv_slab(shape, **ZG_CASES[case]))
+
+
+def _zghost_kernels_match_plain(cuda, cfg):
+    """K6 and K7 of ``cfg``'s z-ghosted build and instance against their
+    plain versions, each launched once under its own name."""
+    pm = pt.Model(cfg, device=cuda)
     inp = stratified_fg(pm)
     fr.reset_launches()
     df, dt1m = fr.rhs_zg(pm, *inp)
@@ -536,7 +544,7 @@ def test_zghost_kernels_match_plain(cuda, shape, case):
     torch.cuda.synchronize()
     assert_field_close(df2, df2_p, "df (K7)")
     assert_field_close(f2, f2_p, "f (K7)")
-    first, upd = fr.ZG_KERNELS[fr.zg_library(pm)]
+    first, upd = fr.zg_kernels(pm)
     assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
                                **{first: 1, upd: 1})
 
@@ -570,11 +578,12 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
 @pytest.mark.parametrize("lib", sorted(fr.ZG_KERNELS))
 def test_zghost_instances_hold_no_local_memory(cuda, lib):
     """K6 and K7 of fused_rhs_zg, K6m and K7m of fused_rhs_zg_mag, each
-    without and with rotation: no spill and no stack, one 256-thread
-    block per SM or more."""
+    without and with rotation and chi-const: no spill and no stack, one
+    256-thread block per SM or more."""
     attrs = fr.flagship_attrs(lib)
     first, upd = fr.ZG_KERNELS[lib]
-    assert set(attrs) == {first, upd, first + " rot", upd + " rot"}
+    assert set(attrs) == {k + chi + rot for k in (first, upd)
+                          for chi in ("", "_chi") for rot in ("", " rot")}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1, (name, a)
@@ -588,8 +597,11 @@ def test_conv_slab_steps_on_card_match_cpu(cuda, case):
     the configuration's 1e-3 and 1e-4: a velocity that small is the
     residual of the O(1) hydrostatic balance and sits below its float32
     floor (see tests/test_torch_zghost.py, UU_AMPL)."""
-    shape = (16, 16, 32)
-    cfg = conv_slab(shape, **ZG_CASES[case])
+    _conv_slab_steps_match(cuda, conv_slab((16, 16, 32), **ZG_CASES[case]))
+
+
+def _conv_slab_steps_match(cuda, cfg):
+    shape = cfg.grid.shape
     fields = dict(pt.Model(cfg, device="cpu").init_state(5)["fields"])
     g = torch.Generator().manual_seed(5)
     for k in ("uu", "aa"):
@@ -744,6 +756,74 @@ def test_fake_rhs_chain_launches_k8(cuda):
     assert torch.isfinite(s["_fa"]).all()
 
 
+# ---- the H3 and CHI instances -----------------------------------------------
+# the four periodic sets with del6 hyper-diffusion (their H3 instances)
+H3_CASES = {
+    "mhd": lambda shape, **kw: pt.configs.flagship(shape, hyper3=True),
+    "hydro": lambda shape, **kw: forced_hydro(shape, hyper3=True, **kw),
+    "ent_mhd": lambda shape, **kw: forced_entropy(shape, hyper3=True, **kw),
+    "ent_hydro": lambda shape, **kw: forced_entropy(
+        shape, magnetic=False, hyper3=True, **kw)}
+
+
+@pytest.mark.parametrize("omega", (0.0, 1.0), ids=("still", "rot"))
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("case", sorted(H3_CASES))
+def test_h3_instances_match_plain(cuda, case, shape, omega):
+    """K1, K2, K3 and K2L with and without the kick, and K3′ of each
+    periodic build with del6 hyper-diffusion (the H3 instances, with Ω
+    their Coriolis H3 instances) against their plain versions, counted
+    under the launch names with _h3: each field within 2e-5 × its max,
+    the CFL maximum within 1e-6 relative."""
+    cfg = H3_CASES[case](shape)
+    if omega:
+        cfg = with_omega(cfg, omega)
+    assert fr.launch_suffix(pt.Model(cfg, device="cpu")).endswith("_h3")
+    _template_instances_match_plain(cuda, cfg, RTOL_FIELD)
+
+
+@pytest.mark.parametrize("case", sorted(H3_CASES))
+def test_h3_steps_on_card_match_cpu(cuda, case):
+    """Three forced steps of each periodic set with hyper-diffusion on the
+    card against the same steps on the CPU."""
+    _steps_match(cuda, H3_CASES[case]((16, 16, 32)))
+
+
+@pytest.mark.parametrize("lib", sorted(fr.WRAP_LIBRARIES))
+def test_h3_instances_hold_no_local_memory(cuda, lib):
+    """Every instance of the four periodic builds, the H3 ones included:
+    no spill and no stack, one 256-thread block per SM or more."""
+    attrs = fr.flagship_attrs(lib)
+    assert sum(name.split()[0].endswith("_h3") for name in attrs) == 14
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+        assert a["blocks_per_sm"] >= 1, (name, a)
+
+
+# the conv-slab sets with chi-const beside K-const (the CHI instances)
+CHI_CASES = {"chi": dict(chi=4e-3), "chi_rot": dict(chi=4e-3, Omega=1.0),
+             "mag_chi": dict(magnetic=True, chi=4e-3),
+             "mag_chi_rot": dict(magnetic=True, chi=4e-3, Omega=1.0)}
+
+
+@pytest.mark.parametrize("case", CHI_CASES)
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_chi_instances_match_plain(cuda, shape, case):
+    """K6 and K7 (K6m and K7m) with chi-const, without and with Ω, against
+    their plain versions, counted under the launch names with _chi."""
+    cfg = conv_slab(shape, **CHI_CASES[case])
+    assert fr.zg_kernels(pt.Model(cfg, device="cpu"))[0].endswith("_chi")
+    _zghost_kernels_match_plain(cuda, cfg)
+
+
+@pytest.mark.parametrize("case", CHI_CASES)
+def test_chi_steps_on_card_match_cpu(cuda, case):
+    """Three zghost steps with chi-const on the card against the same
+    steps on the CPU."""
+    _conv_slab_steps_match(cuda, conv_slab((16, 16, 32), **CHI_CASES[case]))
+
+
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "conv_slab_rot", "conv_slab_mag",
                                    "conv_slab_mag_rot",
@@ -751,7 +831,8 @@ def test_fake_rhs_chain_launches_k8(cuda):
                                    "hydro_rk2", "hydro_rk4", "ent_mhd",
                                    "ent_mhd_rk2", "ent_mhd_rk4",
                                    "ent_hydro", "ent_hydro_rk2",
-                                   "ent_hydro_rk4"))
+                                   "ent_hydro_rk4", "flagship_h3",
+                                   "conv_slab_mag_chi"))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -768,7 +849,9 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
            "hydro": forced_hydro(32),
            "hydro_rk2": forced_hydro(32).replace(time=pt.TimeSpec(itorder=2)),
            "hydro_rk4": forced_hydro(32).replace(
-               time=pt.TimeSpec(itorder=4))}
+               time=pt.TimeSpec(itorder=4)),
+           "flagship_h3": pt.configs.flagship(32, hyper3=True),
+           "conv_slab_mag_chi": conv_slab(32, magnetic=True, chi=4e-3)}
     for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
         for order in (3, 2, 4):
             cfg[name + ("" if order == 3 else f"_rk{order}")] = \

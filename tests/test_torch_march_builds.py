@@ -46,8 +46,9 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
     """K6 and K7 are the flagship source built with PC_ZG=1 on the 5-field
     entropy-hydro layout, K6m and K7m the same on the 8-field entropy MHD
     layout (PC_MAG left at 1), each with the shock builds' four entry
-    points and a Coriolis instance (+16) of both kernels; the 4x4x16
-    zghost template is gone from the build and from csrc/."""
+    points, a Coriolis instance (+16) and a chi-const one (+32, launch
+    names with _chi) of both kernels; the 4x4x16 zghost template is gone
+    from the build and from csrc/."""
     libs = _build.LIBRARIES
     assert libs["fused_rhs_zg"] == ("fused_rhs.cu", (
         "-DPC_MAG=0", "-DPC_ENT=1", "-DPC_ZG=1"))
@@ -67,8 +68,11 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
         assert len(sig["pc_rhs_tail_mid"]) == 7 + 4
         assert fr.ZG_KERNELS[lib] == (first, upd)
         assert fr.library_instances(lib) == {
-            first: 0, upd: 8, first + " rot": 16, upd + " rot": 24}
+            first: 0, upd: 8, first + " rot": 16, upd + " rot": 24,
+            first + "_chi": 32, upd + "_chi": 40, first + "_chi rot": 48,
+            upd + "_chi rot": 56}
         assert first in fr.LAUNCHES and upd in fr.LAUNCHES
+        assert first + "_chi" in fr.LAUNCHES and upd + "_chi" in fr.LAUNCHES
 
 
 @pytest.mark.parametrize("lib", sorted(fr.AUX_KERNELS))
@@ -267,18 +271,40 @@ def test_kernel_params_carry_the_conv_slab_terms():
     assert torch.equal(prof_c, want_c) and torch.equal(prof_h, want_h)
 
 
-@pytest.mark.parametrize("case", ("magnetic_chi_const", "chi_const"))
+@pytest.mark.parametrize("case", ("magnetic_hyper3", "hyper3"))
 def test_zg_build_refuses_what_it_has_no_terms_for(case):
-    """chi-const in the conv-slab set, with or without Magnetic: the
-    z-ghosted builds have no chi-const terms (Ω they have: the ROT
-    instances)."""
+    """del6 hyper-diffusion in the conv-slab set, with or without
+    Magnetic: the z-ghosted builds have no del6 terms (Ω and chi-const
+    they have: the ROT and CHI instances)."""
     cfg = conv_slab(SHAPE, magnetic=case.startswith("magnetic"))
-    swap = {"entropy": lambda m: dataclasses.replace(
-        m, iheatcond=("K-const", "chi-const"), chi=1e-3)}
+    swap = {"viscosity": lambda m: dataclasses.replace(
+        m, ivisc=("nu-const", "hyper3-simplified"), nu_hyper3=1e-9)}
     cfg = cfg.replace(fused=False, modules=tuple(
         swap[m.name](m) if m.name in swap else m for m in cfg.modules))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="hyper"):
         fr.kernel_params(pt.Model(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
+def test_zg_build_takes_chi_const(magnetic, recorded):
+    """chi-const beside K-const in the conv-slab set, with or without
+    Magnetic: the wrappers launch the same entry points of the same
+    build, which picks its CHI instances from cp·χ > 0, counted under the
+    launch names with _chi."""
+    cfg = conv_slab(SHAPE, magnetic=magnetic, chi=4e-3)
+    pm = pt.Model(cfg, device="cpu")
+    lib = "fused_rhs_zg_mag" if magnetic else "fused_rhs_zg"
+    assert fr.zg_library(pm) == lib
+    assert fr.kernel_params(pm).cpchi == np.float32(4e-3)
+    first, upd = (k + "_chi" for k in fr.ZG_KERNELS[lib])
+    nv = pm.reg.nvar
+    fa = torch.zeros((nv,) + SHAPE)
+    slab = torch.zeros((nv,) + SHAPE[:2] + (NGHOST,))
+    fr.rhs_zg(pm, fa, slab, slab)
+    fr.rhs_zg_upd(pm, fa, slab, slab, torch.zeros_like(fa), torch.zeros(2))
+    assert recorded == [(lib, "pc_rhs_first"), (lib, "pc_rhs_tail_mid")]
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               **{first: 1, upd: 1})
 
 
 def test_shock_library_follows_the_modules():

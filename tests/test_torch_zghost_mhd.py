@@ -221,18 +221,26 @@ def test_fused_mode_takes_the_zg_build_of_the_layout(case):
                                              else []))
 
 
-def test_chi_const_stays_refused():
-    """chi-const in magnetoconvection with Ω: the z-ghosted builds have no
-    chi-const terms, so it raises on the card and runs eagerly on the CPU
-    (the conv-slab's own case: tests/test_torch_entropy_box.py)."""
+def test_chi_const_is_admitted():
+    """chi-const in magnetoconvection with Ω runs the zghost chain on the
+    8-field build's CHI instances (the conv-slab's own case:
+    tests/test_torch_entropy_box.py): cp·χ in the kernel constants, χγ in
+    the CFL's constant diffusivity, the launch names with _chi."""
     cfg = conv_slab(8, magnetic=True, Omega=OMEGA)
     cfg = cfg.replace(modules=tuple(
         dataclasses.replace(m, iheatcond=("K-const", "chi-const"), chi=1e-3)
         if m.name == "entropy" else m for m in cfg.modules))
-    assert "chi-const" in gate_reason(cfg)
-    assert fused_gate(cfg, "cpu") is False
-    with pytest.raises(NotImplementedError, match="chi-const"):
-        pt.Model(cfg, device="cuda")
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    pm = pt.Model(cfg, device="cpu")
+    assert pm.mode == "zghost"
+    assert fr.zg_library(pm) == "fused_rhs_zg_mag"
+    assert fr.zg_kernels(pm) == ("rhs_zg_mag_chi", "rhs_zg_upd_mag_chi")
+    p = fr.kernel_params(pm)
+    f32 = np.float32
+    assert p.cpchi == f32(pm.eos.cp * 1e-3)
+    assert p.maxdif == f32(max(4e-3, 1e-3 * pm.eos.gamma))
 
 
 def test_other_sets_stay_refused():
