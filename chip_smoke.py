@@ -13,7 +13,11 @@ its 8-field z-ghosted build), each also with chi-const conduction
 (``chi=4e-3``: their CHI instances, ``*_chi``), the sheared, rotating
 MHD box with shock viscosity and hyper-diffusion (kernels K4, K5) and
 the shocked periodic box (kernels K1s, K5w), these four on the same
-template's two shock builds.
+template's two shock builds, and the other isothermal layouts of those
+two chains, each on a build of its own: supersonic hydro turbulence (the
+shocked box without Magnetic: K1sh, K5wh), the shear box without the
+shock slot (K4n, K5n) and the forced hydro shear box with and without it
+(K4h, K5h; K4hn, K5hn).
 
     python3 chip_smoke.py
 
@@ -23,8 +27,11 @@ Phases, each printing its own lines:
   2. each fused kernel against its plain PyTorch version on the same CUDA
      inputs at 64³ and 32×64×128, the flagship template's instances also
      at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s,
-     K5w, K6, K7, K6m and K7m also at 16×24×40 and 24×20×42, the last
-     four at 32³ too, and each with Ω = 1 (their Coriolis instances) at
+     K5w, K6, K7, K6m and K7m also at 16×24×40 and 24×20×42, and so
+     K1sh/K5wh, K4n/K5n, K4h/K5h and K4hn/K5hn (each of these eight also
+     with and without Ω = 1 and del6 at 64³ and 24×20×42), the
+     z-ghosted four at 32³ too, and each with Ω = 1 (their Coriolis
+     instances) at
      the same five shapes, and with chi-const (their CHI instances, with
      and without Ω), the four periodic builds' H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
@@ -41,7 +48,8 @@ Phases, each printing its own lines:
      hyper-diffusion at order 3 and the flagship with it at orders 2 and
      4 and with Ω = 1, the shear box unforced and forced, the conv-slab
      with Magnetic, with Ω = 1 and with both, with chi-const, with
-     Magnetic and chi-const, and with all three);
+     Magnetic and chi-const, and with all three, the hydro shock box
+     and the three other shear-box layouts);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -52,7 +60,11 @@ Phases, each printing its own lines:
      5 windows of 20 steps, their spread and the card's busy time
      printed), the
      shear box with one K4 and two K5, the shock box with one
-     K1s and two K5w, the flagship at order 4 with K1, K2, two K3′ and K3,
+     K1s and two K5w, the hydro shock box, the shear box without the
+     shock slot and the hydro shear box with and without it with one
+     first and two update kernels of their builds (each of the six with
+     the card's busy time of a step), the flagship at order 4 with K1,
+     K2, two K3′ and K3,
      at order 2 with K1 and K2L (forced hydro and both entropy sets
      likewise with their builds; the four again with hyper3=True, on
      their H3 instances), the conv-slab and magnetoconvection again with
@@ -71,8 +83,10 @@ Phases, each printing its own lines:
      glue: each part's device time from one torch.profiler trace, its
      host issue time from a run without it); each H3 instance in turns
      with the instance without H3 and each CHI instance with the one
-     without CHI (with and without Ω), kernel by kernel; for each
-     instance of the flagship template (csrc/fused_rhs.cu, all eight
+     without CHI (with and without Ω), kernel by kernel; K1sh/K5wh in
+     turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5, K4hn/K5hn with
+     K4h/K5h, each on its own path's final state; for each
+     instance of the flagship template (csrc/fused_rhs.cu, all twelve
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
@@ -115,6 +129,34 @@ HYDRO_ENT_KERNELS = tuple(k + "_hydro_ent"
 FAKE_KERNELS = ("rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake")
 ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
 SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
+# the paths of the shock and shear builds (the aux chains): label ->
+# (configuration function, its keyword arguments, launch-name suffix); the
+# last four are the builds' other isothermal layouts: K1sh/K5wh, K4n/K5n,
+# K4h/K5h, K4hn/K5hn
+AUX_PATHS = {
+    "shear box": ("shear_box", {}, ""),
+    "shock box": ("shock_box", {}, ""),
+    "hydro shock box": ("shock_box", dict(magnetic=False), "_hydro"),
+    "shear box ns": ("shear_box", dict(shock=False), "_ns"),
+    "hydro shear box": ("shear_box", dict(magnetic=False), "_hydro"),
+    "hydro shear box ns": ("shear_box", dict(magnetic=False, shock=False),
+                           "_hydro_ns"),
+}
+NEW_AUX_PATHS = tuple(AUX_PATHS)[2:]
+# each aux path's kernels (first, update) and the one its phase-4 turns
+# hold it against: the MHD or shock-slot counterpart
+AUX_NAMES = {label: tuple(k + sfx for k in (
+    ZROLL_KERNELS if make == "shear_box" else SHOCK_KERNELS))
+    for label, (make, _, sfx) in AUX_PATHS.items()}
+AUX_COUNTERPART = {"hydro shock box": "shock box", "shear box ns": "shear box",
+                   "hydro shear box": "shear box",
+                   "hydro shear box ns": "hydro shear box"}
+NEW_AUX_KERNELS = tuple(k for label in NEW_AUX_PATHS
+                        for k in AUX_NAMES[label])
+# each aux path's bound against its plain version in phase 2: the shocked
+# boxes' 1e-6, the shear boxes' (del6 and the shifted faces) 2e-5
+AUX_RTOL = {label: 1e-6 if AUX_PATHS[label][0] == "shock_box" else 2e-5
+            for label in AUX_PATHS}
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
 # the template's 8-field z-ghosted build: K6m, K7m
 ZGHOST_MAG_KERNELS = ("rhs_zg_mag", "rhs_zg_upd_mag")
@@ -127,7 +169,8 @@ CHI_KERNELS = tuple(k + "_chi" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
-                + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS)
+                + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
+                + NEW_AUX_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -148,9 +191,9 @@ PER_STEP = {
     "magnetoconvection": {"rhs_zg_mag": 1, "rhs_zg_upd_mag": 2},
     "conv-slab chi": {"rhs_zg_chi": 1, "rhs_zg_upd_chi": 2},
     "magnetoconvection chi": {"rhs_zg_mag_chi": 1, "rhs_zg_upd_mag_chi": 2},
-    "shear box": {"rhs_zroll": 1, "rhs_zroll_upd": 2},
-    "shock box": {"rhs_wrap_shock": 1, "rhs_wrap_shock_upd": 2},
 }
+PER_STEP.update({label: {first: 1, upd: 2}
+                 for label, (first, upd) in AUX_NAMES.items()})
 # the other template paths launch the flagship's kernels of their builds
 for _name, _sfx in TEMPLATE_PATHS.items():
     for _order in ("", " rk4", " rk2"):
@@ -179,6 +222,11 @@ REPLACES.update({k + "_h3": REPLACES[k] for k in KERNEL_NAMES
                  if k + "_h3" in H3_KERNELS})
 REPLACES.update({k + "_chi": REPLACES[k] for k in KERNEL_NAMES
                  if k + "_chi" in CHI_KERNELS})
+# the aux builds' other layouts replace the same calls, traced for theirs
+REPLACES.update({k: REPLACES[base] for label in NEW_AUX_PATHS
+                 for k, base in zip(AUX_NAMES[label], AUX_NAMES[
+                     "shear box" if AUX_PATHS[label][0] == "shear_box"
+                     else "shock box"])})
 # every kernel is an instance of the flagship template
 SOURCES = dict.fromkeys(KERNEL_NAMES, "pencil_tpu_torch/csrc/fused_rhs.cu")
 
@@ -223,6 +271,24 @@ SHOCKBOX_RHS = 24 * D1 + 18 * D2 + 12 * DMIX_FACTORED + 198
 # plus del6 of 7 components (21 scaled 6th differences and their sums),
 # the hyper-diffusive terms, Coriolis and the shear terms
 SHEARBOX_RHS = SHOCKBOX_RHS + 21 * D2 + 14 + 14 + 15 + 22
+# the shock slot's share of those: ∇shock, the ν_sh force, the shock
+# diffusivity; and the shear box's share of its own: del6 of n fields (3 n
+# scaled 6th differences, 2 n sums, 2 n for the coefficient and the join),
+# Coriolis (15), the shear terms (−S x ∂/∂y of n fields, −S u_x, with A
+# −S A_y, −S x itself, |S x|/Δy in the CFL: 2 n + 6 + 2 with A)
+SHOCK_TERMS = SHOCKBOX_RHS - FLAGSHIP_RHS
+
+
+def shear_terms(n, magnetic):
+    return 3 * n * D2 + 4 * n + 15 + 2 * n + 6 + 2 * magnetic
+
+
+# the new aux layouts: the hydro shock box; the shear box without the
+# shock slot, and the hydro shear box with and without it
+SHOCK_HYDRO_RHS = HYDRO_RHS + SHOCK_TERMS
+SHEAR_NS_RHS = FLAGSHIP_RHS + shear_terms(7, True)
+SHEAR_HYDRO_NS_RHS = HYDRO_RHS + shear_terms(4, False)
+SHEAR_HYDRO_RHS = SHEAR_HYDRO_NS_RHS + SHOCK_TERMS
 # the conv-slab (the z-ghosted build): ∇u, ∇lnρ, ∇s, the Laplacians of
 # u, lnρ and s, grad div u; pointwise the EOS, pressure and gravity, the
 # viscous force and heat, K-const conduction and the two layers
@@ -266,6 +332,16 @@ OPS = {
     "rhs_zroll": SHEARBOX_RHS + 35, "rhs_zroll_upd": SHEARBOX_RHS + 7 * UPD,
     "rhs_wrap_shock": SHOCKBOX_RHS + 32,
     "rhs_wrap_shock_upd": SHOCKBOX_RHS + 7 * UPD,
+    # the first kernels' CFL maximum: 26 with A, 16 without, the shock
+    # diffusivity 6, the del6 rate 3
+    "rhs_wrap_shock_hydro": SHOCK_HYDRO_RHS + 22,
+    "rhs_wrap_shock_upd_hydro": SHOCK_HYDRO_RHS + 4 * UPD,
+    "rhs_zroll_ns": SHEAR_NS_RHS + 29,
+    "rhs_zroll_upd_ns": SHEAR_NS_RHS + 7 * UPD,
+    "rhs_zroll_hydro": SHEAR_HYDRO_RHS + 25,
+    "rhs_zroll_upd_hydro": SHEAR_HYDRO_RHS + 4 * UPD,
+    "rhs_zroll_hydro_ns": SHEAR_HYDRO_NS_RHS + 19,
+    "rhs_zroll_upd_hydro_ns": SHEAR_HYDRO_NS_RHS + 4 * UPD,
     "rhs_zg": CONVSLAB_RHS + 19, "rhs_zg_upd": CONVSLAB_RHS + 5 * UPD,
     "rhs_zg_mag": MAGCONV_RHS + 29, "rhs_zg_upd_mag": MAGCONV_RHS + 8 * UPD,
 }
@@ -506,38 +582,80 @@ def compare_hyper3(torch, pt, fr, shape, errs):
 
 
 def shocked_fa(torch, pm, seed):
-    """(8, nx, ny, nz) on the card: a noisy shock-box state at urms ≈ 1 with
-    its shock slot built by the pre-pass, so the shock term is live."""
+    """(nf, nx, ny, nz) on the card: a noisy shock-box state of the
+    model's layout at urms ≈ 1 with its shock slot built by the pre-pass,
+    so the shock term is live."""
     g = torch.Generator("cuda").manual_seed(seed)
-    amp = torch.tensor([3 ** -0.5] * 3 + [5e-2] + [1e-2] * 3 + [0.0],
-                       device="cuda")
+    amp = torch.tensor([{"u": 3 ** -0.5, "l": 5e-2, "a": 1e-2, "s": 0.0}[
+        c[0]] for c in pm.reg.comp_names], device="cuda")
     fa = amp[:, None, None, None] * torch.randn(
-        (8,) + pm.cfg.grid.shape, generator=g, device="cuda")
+        (pm.reg.nf,) + pm.cfg.grid.shape, generator=g, device="cuda")
     return pm._refresh_aux_fa(fa)
 
 
-def compare_shock_kernels(torch, pt, fr, shape, errs):
-    """Phase 2: K1s and K5w against their plain versions on CUDA inputs."""
-    pm = pt.Model(pt.configs.shock_box(shape), device="cuda")
-    fa = shocked_fa(torch, pm, 1)
-    check(float(fa[7].max()) > 0.0, "shock slot not positive")
+def aux_cfg(pt, label, shape):
+    """The configuration of the aux path ``label`` (AUX_PATHS)."""
+    make, kw, _ = AUX_PATHS[label]
+    return getattr(pt.configs, make)(shape, **kw)
+
+
+def aux_variant(pt, cfg, Omega, hyper3):
+    """``cfg`` with Ω about z and with or without del6 hyper-diffusion at
+    ν₃ = η₃ = D₃ = 5e-3·dx⁵: the instance (ROT, H3) that its build
+    launches."""
+    import dataclasses
+    h3 = 5e-3 * cfg.grid.dx ** 5 if hyper3 else 0.0
+    ivisc = tuple(v for v in cfg.module("viscosity").ivisc
+                  if v != "hyper3-simplified") + (
+        ("hyper3-simplified",) if hyper3 else ())
+    new = {"hydro": dict(Omega=Omega), "density": dict(diffrho_hyper3=h3),
+           "magnetic": dict(eta_hyper3=h3),
+           "viscosity": dict(ivisc=ivisc, nu_hyper3=h3)}
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **new[m.name]) if m.name in new else m
+        for m in cfg.modules))
+
+
+def aux_input(torch, pm, seed):
+    """The first kernel's input of an aux path on the card: the shear
+    boxes' x/y-ghosted stack (sheared_fg), the shocked boxes' state
+    (shocked_fa)."""
+    return (sheared_fg if pm.mode == "zroll" else shocked_fa)(torch, pm, seed)
+
+
+def compare_aux_kernels(torch, pt, fr, label, cfg, errs, rtol):
+    """Phase 2: the first and update kernel of an aux path's build (K4/K5,
+    K1s/K5w and their other layouts' K4n/K5n, K4h/K5h, K4hn/K5hn,
+    K1sh/K5wh) against their plain versions on CUDA inputs."""
+    pm = pt.Model(cfg, device="cuda")
+    zroll = pm.mode == "zroll"
+    first, upd = ((fr.rhs_zroll, fr.rhs_zroll_upd) if zroll
+                  else (fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd))
+    first_p, upd_p = ((fr.rhs_zroll_plain, fr.rhs_zroll_upd_plain) if zroll
+                      else (fr.rhs_wrap_shock_plain,
+                            fr.rhs_wrap_shock_upd_plain))
+    names = fr.AUX_KERNELS[fr.aux_library(pm)]
+    shape = cfg.grid.shape
+    fg = aux_input(torch, pm, 1)
+    nvar = pm.reg.nvar
+    if pm.reg.nf > nvar:
+        check(float(fg[nvar].max()) > 0.0, "shock slot not positive")
     fr.reset_launches()
-    df, dt1m = fr.rhs_wrap_shock(pm, fa)
-    df_p, dt1m_p = fr.rhs_wrap_shock_plain(pm, fa)
+    df, dt1m = first(pm, fg)
+    df_p, dt1m_p = first_p(pm, fg)
     coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
-    fa2 = shocked_fa(torch, pm, 2)
-    df2, f2 = fr.rhs_wrap_shock_upd(pm, fa2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_wrap_shock_upd_plain(pm, fa2, df_p.clone(), coef)
+    fg2 = aux_input(torch, pm, 2)
+    df2, f2 = upd(pm, fg2, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, fg2, df_p.clone(), coef)
     torch.cuda.synchronize()
-    counts = {k: fr.LAUNCHES[k] for k in SHOCK_KERNELS}
-    check(counts == dict.fromkeys(SHOCK_KERNELS, 1),
-          f"launch counts {counts}")
+    counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+    check(counts == dict.fromkeys(names, 1), f"launch counts {counts}")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
-    check(dt_rel <= RTOL_DT, f"{shape} K1s max 1/dt rel err {dt_rel}")
-    compare_pairs(f"shock box (max 1/dt rel err {dt_rel:.2e})", shape,
-                  {"rhs_wrap_shock": [(df, df_p)],
-                   "rhs_wrap_shock_upd": [(df2, df2_p), (f2, f2_p)]},
-                  errs, RTOL_NEW)
+    check(dt_rel <= RTOL_DT, f"{shape} {names[0]} max 1/dt rel err {dt_rel}")
+    compare_pairs(f"{label} (max 1/dt rel err {dt_rel:.2e})", shape,
+                  {names[0]: [(df, df_p)],
+                   names[1]: [(df2, df2_p), (f2, f2_p)]},
+                  errs, rtol)
 
 
 def stratified_fa(torch, pm, seed):
@@ -630,41 +748,22 @@ def compare_steps(torch, pt, label, cfg, nsteps=3, uu_noise=0.0, t0=None):
 
 
 def sheared_fg(torch, pm, seed):
-    """(8, nx+6, ny+6, nz) on the card: noisy shear-box fields and a
-    positive shock slot, ghosted in x and y with the x faces shifted by
-    deltay at t = T_SHEAR."""
+    """(nf, nx+6, ny+6, nz) on the card: noisy shear-box fields of the
+    model's layout (u, lnρ 1e-2, A 1e-4) and a positive shock slot where
+    it has one, ghosted in x and y with the x faces shifted by deltay at t
+    = T_SHEAR."""
     g = torch.Generator("cuda").manual_seed(seed)
     shape = pm.cfg.grid.shape
-    amp = torch.tensor([1e-2] * 4 + [1e-4] * 3, device="cuda")
-    fa = amp[:, None, None, None] * torch.randn(
-        (7,) + shape, generator=g, device="cuda")
-    shock = 1e-3 * torch.rand(shape, generator=g, device="cuda")
+    nvar = pm.reg.nvar
+    amp = torch.tensor([1e-4 if c[0] == "a" else 1e-2
+                        for c in pm.reg.comp_names[:nvar]], device="cuda")
+    parts = [amp[:, None, None, None] * torch.randn(
+        (nvar,) + shape, generator=g, device="cuda")]
+    if pm.reg.nf > nvar:
+        parts.append(1e-3 * torch.rand((1,) + shape, generator=g,
+                                       device="cuda"))
     sdy = pm.deltay(torch.full((), T_SHEAR, device="cuda"))
-    return pm.ghosted(torch.cat([fa, shock[None]]), (0, 1), sdy)
-
-
-def compare_zroll_kernels(torch, pt, fr, shape, errs):
-    """Phase 2: K4 and K5 against their plain versions on CUDA inputs."""
-    pm = pt.Model(pt.configs.shear_box(shape), device="cuda")
-    fg = sheared_fg(torch, pm, 1)
-    fr.reset_launches()
-    df, dt1m = fr.rhs_zroll(pm, fg)
-    df_p, dt1m_p = fr.rhs_zroll_plain(pm, fg)
-    _, beta, _ = pm.rk
-    coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
-    fg2 = sheared_fg(torch, pm, 2)
-    df2, f2 = fr.rhs_zroll_upd(pm, fg2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_zroll_upd_plain(pm, fg2, df_p.clone(), coef)
-    torch.cuda.synchronize()
-    counts = {k: fr.LAUNCHES[k] for k in ZROLL_KERNELS}
-    check(counts == {"rhs_zroll": 1, "rhs_zroll_upd": 1},
-          f"launch counts {counts}")
-    dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
-    check(dt_rel <= RTOL_DT, f"{shape} K4 max 1/dt rel err {dt_rel}")
-    compare_pairs(f"shear box (max 1/dt rel err {dt_rel:.2e})", shape,
-                  {"rhs_zroll": [(df, df_p)],
-                   "rhs_zroll_upd": [(df2, df2_p), (f2, f2_p)]},
-                  errs, RTOL_FIELD)
+    return pm.ghosted(torch.cat(parts), (0, 1), sdy)
 
 
 def time_ms(torch, fn, n):
@@ -741,8 +840,20 @@ def main():
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
     for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE):
-        compare_zroll_kernels(torch, pt, fr, shape, errs)
-        compare_shock_kernels(torch, pt, fr, shape, errs)
+        for label in AUX_PATHS:
+            compare_aux_kernels(torch, pt, fr, label,
+                                aux_cfg(pt, label, shape), errs,
+                                AUX_RTOL[label])
+    # the new aux builds' other instances: with and without Ω and del6
+    for shape in ((64, 64, 64), EDGE_SHAPE):
+        for label in NEW_AUX_PATHS:
+            for Omega in (0.0, 1.0):
+                for hyper3 in (False, True):
+                    compare_aux_kernels(
+                        torch, pt, fr, f"{label}, Omega = {Omega:g}, "
+                        f"{'with' if hyper3 else 'without'} del6",
+                        aux_variant(pt, aux_cfg(pt, label, shape), Omega,
+                                    hyper3), errs, AUX_RTOL[label])
     for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE,
                   (32, 32, 32)):
         for magnetic in (False, True):
@@ -798,6 +909,11 @@ def main():
     compare_steps(torch, pt, "forced shear box",
                   sb.replace(modules=sb.modules + (
                       pt.Forcing(force=0.07, kf=3.0),)), t0=T_SHEAR)
+    for label in NEW_AUX_PATHS:
+        shear = AUX_PATHS[label][0] == "shear_box"
+        compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
+                      uu_noise=0.0 if shear else 0.1,
+                      t0=T_SHEAR if shear else None)
 
     # ---- phase 3: the main paths at 256³ ------------------------------
     shape = (N_MAIN,) * 3
@@ -816,8 +932,8 @@ def main():
     zc = run_conv_slab(torch, pt, fr, smi, shape, launches, chi=CHI)
     zmc = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True,
                         chi=CHI)
-    sb = run_aux_box(torch, pt, fr, smi, shape, launches, "shear box")
-    kb = run_aux_box(torch, pt, fr, smi, shape, launches, "shock box")
+    aux = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
+           for label in AUX_PATHS}
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -848,8 +964,11 @@ def main():
     time_conv_slab(torch, fr, smi, zm, errs, timings, bounds)
     time_conv_slab(torch, fr, smi, zc, errs, timings, bounds, full=False)
     time_conv_slab(torch, fr, smi, zmc, errs, timings, bounds, full=False)
-    time_aux_box(torch, fr, smi, sb, errs, timings, bounds)
-    time_aux_box(torch, fr, smi, kb, errs, timings, bounds)
+    for box in aux.values():
+        time_aux_box(torch, fr, smi, box, errs, timings, bounds)
+    for label in NEW_AUX_PATHS:
+        time_aux_turns(torch, fr, smi, aux[label],
+                       aux[AUX_COUNTERPART[label]])
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
@@ -1142,25 +1261,27 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
 
 
 def run_aux_box(torch, pt, fr, smi, shape, launches, label):
-    """Phase 3: the sheared, rotating MHD box or the shocked periodic box,
-    the two paths with a shock slot."""
+    """Phase 3: an aux path (AUX_PATHS): the sheared, rotating box, MHD or
+    hydro, with or without the shock slot, or the shocked periodic box,
+    MHD or hydro; the card's busy time of one step from torch.profiler."""
     from pencil_tpu_torch.physics.pencils import Pencils
-    make_cfg = (pt.configs.shear_box if label == "shear box"
-                else pt.configs.shock_box)
     base = torch.cuda.memory_allocated()
-    model = pt.Model(make_cfg(shape), device="cuda")
+    model = pt.Model(aux_cfg(pt, label, shape), device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches(label, counts, launches)
     fa = state["_fa"]
-    check(tuple(fa.shape) == (8,) + shape, f"state shape {tuple(fa.shape)}")
+    check(tuple(fa.shape) == (model.reg.nf,) + shape,
+          f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
     dt = float(state["dt"])
+    step = model.make_step()
+    busy, nkern = device_busy(torch, lambda: step(state), 3)
     # CFL bounds on the dt that the final state sets (one more step, out
     # of the timed window).  1/dt is the max over points of the root sum
     # of the advective and diffusive rates: at an x face, where |S·x| is
     # largest, both are at least their u = B = 0, shock = 0 values; no
     # point exceeds the sums of the fields' maxima
-    dt_next = float(model.make_step()(state)["dt"])
+    dt_next = float(step(state)["dt"])
     cfg, eos = model.cfg, model.eos
     tc, gs = cfg.time, cfg.grid
     inv = [1.0 / d for d in (gs.dx, gs.dy, gs.dz)]
@@ -1169,12 +1290,17 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     sdy = model.deltay(state["t"])
     fg = model.ghosted(model._refresh_aux_fa(fa, sdy), shear_dy=sdy)
     pen = Pencils(fg, model.grid, model.reg, cfg, eos, ghosted=True)
-    bb = pen.bb()
-    va2 = float((sum((bb[a] * inv[a]) ** 2 for a in range(3))
-                 * pen.rho1()).max())
-    shock = float(pen.field("shock").max())
-    del fg, pen, bb
+    va2, shock = 0.0, 0.0
+    if "aa" in model.reg.slots:
+        bb = pen.bb()
+        va2 = float((sum((bb[a] * inv[a]) ** 2 for a in range(3))
+                     * pen.rho1()).max())
+        del bb
+    if "shock" in model.reg.slots:
+        shock = float(pen.field("shock").max())
+    del fg, pen
     vis, mag = cfg.module("viscosity"), cfg.module("magnetic")
+    eta, eta3 = (mag.eta, mag.eta_hyper3) if mag else (0.0, 0.0)
     nu, nu_shock, nu3 = vis.coefficients()
     shear = cfg.module("shear")
     shear_rate = (abs(shear.S) * float(model.grid.x.abs().max())
@@ -1184,10 +1310,10 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     adv_lo = (shear_rate * inv[1] + sound) / tc.cdt
     adv_hi = (umax + shear_rate * inv[1]
               + math.sqrt(eos.cs20 * dxyz2 + va2)) / tc.cdt
-    dif3 = max(nu3, mag.eta_hyper3,
+    dif3 = max(nu3, eta3,
                cfg.module("density").diffrho_hyper3) * dxyz6 / tc.cdtv3
-    dif_lo = max(nu, mag.eta) * dxyz2 / tc.cdtv + dif3
-    dif_hi = max(nu, mag.eta, nu_shock * shock) * dxyz2 / tc.cdtv + dif3
+    dif_lo = max(nu, eta) * dxyz2 / tc.cdtv + dif3
+    dif_hi = max(nu, eta, nu_shock * shock) * dxyz2 / tc.cdtv + dif3
     check(1.0 / math.hypot(adv_hi, dif_hi) * (1 - 1e-5) <= dt_next
           <= 1.0 / math.hypot(adv_lo, dif_lo) * (1 + 1e-5),
           f"{label} dt {dt_next} outside the CFL bounds ({adv_lo}-{adv_hi}, "
@@ -1200,8 +1326,11 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
           f"{ups:.4e} updates/s, peak {peak / 2**30:.3f} GiB, dt {dt:.6e} "
           f"(1/dt bounds: advective {adv_lo:.4e}-{adv_hi:.4e}, diffusive "
           f"{dif_lo:.4e}-{dif_hi:.4e}), max shock {shock:.3e}, urms "
-          f"{u0:.3e} -> {u1:.3e}, launches per step {PER_STEP[label]}",
-          flush=True)
+          f"{u0:.3e} -> {u1:.3e}, launches per step {PER_STEP[label]}; the "
+          "card " + (f"busy {busy:.4f} ms a step in {nkern} kernels "
+                     f"(idle {(1 - busy / ms_step) * 100:.1f} %)" if busy
+                     else "busy: not measured (torch.profiler recorded "
+                     "none)"), flush=True)
     return label, model, state, ms_step
 
 
@@ -1587,27 +1716,35 @@ def device_busy(torch, fn, n):
     return busy / 1e3 / n, len(kernels) // n
 
 
-def time_aux_box(torch, fr, smi, box, errs, timings, bounds):
-    """K4/K5 (shear box) or K1s/K5w (shock box) checked and timed on the
-    main path's final state, its shock slot rebuilt (and, for K4/K5, its
-    x/y ghosts filled) as a step does."""
-    label, model, state, ms_step = box
+def aux_kernel_inputs(torch, fr, model, state):
+    """(first, update, their plain versions, input, df1, coef) of an aux
+    path's kernels on its final state, its shock slot rebuilt (and, for
+    the shear boxes, its x/y ghosts filled) as a step does."""
     fa = state["_fa"]
-    if label == "shear box":
-        names = ZROLL_KERNELS
-        first, upd = fr.rhs_zroll, fr.rhs_zroll_upd
-        first_p, upd_p = fr.rhs_zroll_plain, fr.rhs_zroll_upd_plain
+    if model.mode == "zroll":
+        kern = (fr.rhs_zroll, fr.rhs_zroll_upd, fr.rhs_zroll_plain,
+                fr.rhs_zroll_upd_plain)
         sdy = model.deltay(state["t"])
         fg = model.ghosted(model._refresh_aux_fa(fa, sdy), (0, 1), sdy)
     else:
-        names = SHOCK_KERNELS
-        first, upd = fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd
-        first_p, upd_p = fr.rhs_wrap_shock_plain, fr.rhs_wrap_shock_upd_plain
-        sdy = None
+        kern = (fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd,
+                fr.rhs_wrap_shock_plain, fr.rhs_wrap_shock_upd_plain)
         fg = model._refresh_aux_fa(fa)
-    _, beta, _ = model.rk
-    df1, dt1m = first_p(model, fg)
-    coef = torch.stack((model._alpha[1], beta[1] / dt1m))
+    df1, dt1m = kern[2](model, fg)
+    coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
+    return (*kern, fg, df1, coef)
+
+
+def time_aux_box(torch, fr, smi, box, errs, timings, bounds):
+    """K4/K5 (shear box), K1s/K5w (shock box) or those of their other
+    layouts checked and timed on the main path's final state, then the
+    plain chain's step and the parts of the step around the kernels."""
+    label, model, state, ms_step = box
+    fa = state["_fa"]
+    names = fr.AUX_KERNELS[fr.aux_library(model)]
+    first, upd, first_p, upd_p, fg, df1, coef = aux_kernel_inputs(
+        torch, fr, model, state)
+    sdy = model.deltay(state["t"])
     time_pairs(torch, names[0], lambda: first(model, fg),
                lambda: first_p(model, fg), errs, timings, bounds, [fg])
     # K5/K5w write the new df over df_prev: checked on fresh copies of
@@ -1624,24 +1761,51 @@ def time_aux_box(torch, fr, smi, box, errs, timings, bounds):
                    "it": state["it"]}
     plain_ms = time_ms(torch, lambda: model._aux_step(
         plain_state, (first_p, upd_p)), 3)
-    from pencil_tpu_torch.physics.pencils import Pencils
-    aux_ms = time_ms(torch, lambda: model._refresh_aux_fa(fa, sdy), 20)
-    # the pre-pass's two largest parts: its full ghost fill and ∇·u
-    fill3_ms = time_ms(torch, lambda: model.ghosted(fa, shear_dy=sdy), 20)
-    fg = model.ghosted(fa, shear_dy=sdy)
-    divu_ms = time_ms(torch, lambda: Pencils(
-        fg, model.grid, model.reg, model.cfg, model.eos,
-        ghosted=True).divu(), 20)
-    del fg
     line = (f"phase 4 {label} plain chain at 256^3 on {smi}: "
-            f"{plain_ms:.4f} ms/step (kernel chain {ms_step:.4f} ms/step); "
-            f"one shock pre-pass {aux_ms:.4f} ms, of which its 8-slot "
-            f"ghost fill {fill3_ms:.4f} ms and the divergence "
-            f"{divu_ms:.4f} ms")
+            f"{plain_ms:.4f} ms/step (kernel chain {ms_step:.4f} ms/step)")
+    if model.reg.nf > model.reg.nvar:
+        from pencil_tpu_torch.physics.pencils import Pencils
+        aux_ms = time_ms(torch, lambda: model._refresh_aux_fa(fa, sdy), 20)
+        # the pre-pass's two largest parts: its full ghost fill and ∇·u
+        fill3_ms = time_ms(torch, lambda: model.ghosted(fa, shear_dy=sdy),
+                           20)
+        fg = model.ghosted(fa, shear_dy=sdy)
+        divu_ms = time_ms(torch, lambda: Pencils(
+            fg, model.grid, model.reg, model.cfg, model.eos,
+            ghosted=True).divu(), 20)
+        del fg
+        line += (f"; one shock pre-pass {aux_ms:.4f} ms, of which its "
+                 f"{model.reg.nf}-slot ghost fill {fill3_ms:.4f} ms and the "
+                 f"divergence {divu_ms:.4f} ms")
     if sdy is not None:
         fill_ms = time_ms(torch, lambda: model.ghosted(fa, (0, 1), sdy), 20)
         line += f", one x/y fill with shifted faces {fill_ms:.4f} ms"
     print(line, flush=True)
+
+
+def time_aux_turns(torch, fr, smi, box, other):
+    """The first and update kernel of a new aux build timed in turns (A,
+    B, B, A, 20 launches a turn) with those of its MHD or shock-slot
+    counterpart ``other``, each on its own path's final state at 256³;
+    phase 2 and time_aux_box check them against their plain versions."""
+    paths = {}
+    for label, model, state, _ in (box, other):
+        first, upd, _, _, fg, df1, coef = aux_kernel_inputs(
+            torch, fr, model, state)
+        names = fr.AUX_KERNELS[fr.aux_library(model)]
+        paths[label] = ((names[0], lambda m=model, g=fg, k=first: k(m, g)),
+                        (names[1], lambda m=model, g=fg, d=df1, c=coef,
+                         k=upd: k(m, g, d, c)))
+    order = [box[0], other[0], other[0], box[0]]
+    times = {}
+    for kind in (0, 1):
+        for label in order:
+            name, fn = paths[label][kind]
+            times.setdefault(name, []).append(time_ms(torch, fn, 20))
+    print(f"phase 4 {box[0]} against {other[0]} at 256^3 on {smi}, in "
+          f"turns ({box[0]}, {other[0]}, {other[0]}, {box[0]}): "
+          + "; ".join(f"{name} " + ", ".join(f"{t:.4f}" for t in ts)
+                      + " ms" for name, ts in times.items()), flush=True)
 
 
 if __name__ == "__main__":

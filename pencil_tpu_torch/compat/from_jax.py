@@ -5,8 +5,11 @@ configuration from the same kwargs, so the state is all that crosses —
 the flagship's 7 fields (uu, lnrho, aa), forced hydro's 4 (uu, lnrho),
 the 8 and 5 of non-isothermal turbulence (uu, lnrho, ss, aa; uu, lnrho,
 ss), stratified convection's 5 (uu, lnrho, ss), magnetoconvection's 8
-(uu, lnrho, ss, aa) or the shear and shock boxes' 8 slots (uu, lnrho, aa,
-shock).  This module imports no JAX; the caller
+(uu, lnrho, ss, aa), the shear and shock boxes' 8 slots (uu, lnrho, aa,
+shock), or their other isothermal layouts: uu, lnrho, shock (the hydro
+shock and shear boxes), uu, lnrho, aa (the shear box without the shock
+slot) and uu, lnrho (the hydro shear box without it), always in the JAX
+package's registration order.  This module imports no JAX; the caller
 converts JAX arrays with ``np.asarray``.
 """
 from __future__ import annotations

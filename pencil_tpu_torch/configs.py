@@ -79,7 +79,7 @@ def _hyper3(pkg, gs, hyper3):
             dict(eta_hyper3=h3))
 
 
-def shear_box(n, fused=True, pkg=None):
+def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True):
     """A sheared, rotating MHD box with shock viscosity and
     hyper-diffusion, the accretion-disk set-up of shearing-box MRI users:
     a unit cube centred on the origin, fully periodic with shear-periodic
@@ -89,6 +89,13 @@ def shear_box(n, fused=True, pkg=None):
     the shock profile).  ``n`` is an int (a cube) or (nx, ny, nz).  The
     values are this configuration's own, not a reference sample's.
 
+    ``shock=False`` drops the Shock module and 'nu-shock': the shearing
+    box as most MRI users run it (Hawley, Gammie & Balbus 1995); 7 fields.
+    ``magnetic=False`` drops Magnetic and forces the flow instead
+    (non-helical, amplitude 0.05 at kf = 3): the forced shear flow of the
+    shear-dynamo studies (Yousef et al. 2008) without its field; 5 slots
+    (uu, lnrho, shock), or 4 without the shock slot.
+
     The hyper-diffusivity h3 = 5e-3·(1/n)⁵ keeps the del6 CFL rate
     h3·dxyz6/cdtv3 (cdtv3 = 0.01) at about half the advective rate at
     every n, so the term shows at 16³ and stays stable at 256³.
@@ -96,6 +103,12 @@ def shear_box(n, fused=True, pkg=None):
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     h3 = 5e-3 * (1.0 / nx) ** 5
+    visc = (dict(ivisc=("nu-const", "nu-shock", "hyper3-simplified"),
+                 nu_shock=1.0) if shock
+            else dict(ivisc=("nu-const", "hyper3-simplified")))
+    tail = ((pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-4,
+                          eta_hyper3=h3),) if magnetic
+            else (pkg.Forcing(force=0.05, kf=3.0, relhel=0.0),))
     return pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.5,
                           Lx=1.0, Ly=1.0, Lz=1.0),
@@ -105,24 +118,27 @@ def shear_box(n, fused=True, pkg=None):
                              diffrho_hyper3=h3),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-2, Omega=1.0),
                  pkg.Shear(Omega=1.0, qshear=1.5),
-                 pkg.Viscosity(ivisc=("nu-const", "nu-shock",
-                                      "hyper3-simplified"),
-                               nu=5e-4, nu_shock=1.0, nu_hyper3=h3),
-                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-4,
-                              eta_hyper3=h3),
-                 pkg.Shock()))
+                 pkg.Viscosity(nu=5e-4, nu_hyper3=h3, **visc),
+                 *tail,
+                 *((pkg.Shock(),) if shock else ())))
 
 
-def shock_box(n, fused=True, pkg=None):
+def shock_box(n, fused=True, pkg=None, magnetic=True):
     """Supersonic forced MHD turbulence with shock viscosity, the Pencil
     Code's shock-capturing set-up (Haugen, Brandenburg & Mee 2004, MNRAS
     353, 947): the default 2π cube, fully periodic, isothermal gas
     (cs = 1), ν = η = 1e-3, shock viscosity ν_sh = 1, non-helical forcing
     (relhel = 0) of amplitude 0.2 at kf = 3; 8 slots (uu, lnrho, aa and the
-    shock profile).  ``n`` is an int (a cube) or (nx, ny, nz).  The values
-    are this configuration's own, not a reference sample's."""
+    shock profile).  ``magnetic=False`` drops Magnetic: supersonic
+    isothermal hydro turbulence with shock viscosity, the
+    compressible-turbulence benchmark of Kritsuk et al. 2007 (ApJ 665,
+    416); 5 slots (uu, lnrho, shock).  ``n`` is an int (a cube) or (nx,
+    ny, nz).  The values are this configuration's own, not a reference
+    sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    mag = ((pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=1e-3),)
+           if magnetic else ())
     return pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
         time=pkg.TimeSpec(itorder=3), fused=fused,
@@ -131,7 +147,7 @@ def shock_box(n, fused=True, pkg=None):
                  pkg.Hydro(init="gaussian-noise", ampl=1e-2),
                  pkg.Viscosity(ivisc=("nu-const", "nu-shock"), nu=1e-3,
                                nu_shock=1.0),
-                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=1e-3),
+                 *mag,
                  pkg.Shock(),
                  pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))
 

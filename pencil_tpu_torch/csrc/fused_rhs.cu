@@ -20,13 +20,19 @@
 // (pc_rhs_tail_mid): the MHD fields with the shock profile as an 8th,
 // read-only slot, and its terms (nu-shock, the shock diffusivity in the
 // CFL, and in the instances with the flag H3 del6 hyper-diffusion of u, A
-// and lnrho);
-// with -DPC_SHEAR=1 as well, the shear box's K4 and K5, which read the
-// stack ghosted in x and y by the shear-periodic fill, (8, nx+6, ny+6,
-// nz), and add the Shear module's terms.  These two builds replace the
-// `kernel` / `kernel_upd` calls with an aux slot (model.py:576-730, wrap
-// and zroll fetches) and have no DEFER, LAST, KICK or FAKE instance: the
-// shock pre-pass rebuilds the slot between substeps.  Built with -DPC_ZG=1
+// and lnrho); with -DPC_MAG=0 as well K1sh and K5wh, supersonic hydro
+// turbulence on the 5 slots uu, lnrho, shock.  With -DPC_SHEAR=1 it gives
+// the shear box's K4 and K5, which read the stack ghosted in x and y by
+// the shear-periodic fill, (nc, nx+6, ny+6, nz), and add the Shear
+// module's terms: with -DPC_SHOCK=1 on the 8 slots uu, lnrho, aa, shock
+// (K4, K5), without it on the 7 fields uu, lnrho, aa (K4n, K5n), and
+// with -DPC_MAG=0 on uu, lnrho, shock (K4h, K5h) or uu, lnrho (K4hn,
+// K5hn).  These builds replace the `kernel` / `kernel_upd` calls of the
+// zroll fetch and of the wrap fetch with an aux slot (model.py:576-730)
+// and have no DEFER, LAST, KICK or FAKE instance: the shock pre-pass
+// rebuilds the slot between substeps, and the shear box kicks after the
+// step.  They join their terms in the Pallas kernels' order, each join
+// rounded on its own (PC_JOINS), shock slot or not.  Built with -DPC_ZG=1
 // (with -DPC_MAG=0 -DPC_ENT=1) it gives stratified convection's K6
 // (pc_rhs_first) and K7 (pc_rhs_tail_mid) on the 5 fields uu, lnrho, ss:
 // the entropy-hydro terms with K-const conduction and viscous heating
@@ -186,17 +192,21 @@
 #ifndef PC_ZG
 #define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
 #endif                 //    with PC_MAG K6m, K7m)
-#if PC_SHOCK && (PC_ENT || !PC_MAG)
-#error "the shock builds take the isothermal MHD layout"
-#endif
-#if PC_SHEAR && !PC_SHOCK
-#error "the shear build is a shock build"
+// The shock and shear builds take the isothermal layouts, with or without
+// aa: a shock slot beside ss would make a 9-slot ring, and the 8-field
+// tails already hold 241-255 registers
+#if (PC_SHOCK || PC_SHEAR) && PC_ENT
+#error "the shock and shear builds take the isothermal layouts"
 #endif
 #if PC_ZG && (!PC_ENT || PC_SHOCK || PC_SHEAR)
 #error "the z-ghosted builds take the entropy layouts"
 #endif
-// the builds with the DEFER, LAST and KICK instances
-#define PC_TAILS (!PC_SHOCK && !PC_ZG)
+// the builds with the DEFER, LAST and KICK instances: a shear build, with
+// or without the shock slot, runs its first kernel and the update only
+#define PC_TAILS (!PC_SHOCK && !PC_SHEAR && !PC_ZG)
+// the shock and shear builds join their terms in the order of the Pallas
+// zroll and wrap kernels they replace, each join rounded on its own
+#define PC_JOINS (PC_SHOCK || PC_SHEAR)
 // ux uy uz lnrho [ss] [ax ay az] [shock] (registry order)
 #define NC (4 + PC_ENT + (PC_MAG ? 3 : 0) + PC_SHOCK)
 #define NV (NC - PC_SHOCK)     // evolved fields: the shock slot is only read
@@ -374,9 +384,10 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // derivatives of lnrho and ss, never from a summed field, as Pencils.glnTT
 // and del2lnTT build them.  ROT adds -2 Omega x u (a template flag, so
 // that the instances without rotation carry no trace of it).  The shock
-// builds follow the JAX modules in the order density, hydro, shear,
-// viscosity (nu-const, nu-shock, hyper3 as one force), magnetic, with the
-// joins of the zroll kernels that these builds replace; xn is the x node
+// and shear builds follow the JAX modules in the order density, hydro,
+// shear, viscosity (nu-const, nu-shock, hyper3 as one force; without the
+// shock slot the periodic builds' form), magnetic, with the joins of the
+// zroll kernels that these builds replace (PC_JOINS); xn is the x node
 // of this point's plane (the Shear terms).  H3 adds the del6
 // hyper-diffusion terms of u, A and lnrho, all three, a coefficient of 0
 // adding 0 (a flag as ROT is, picked on the host: without it the shocked
@@ -433,7 +444,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
         : 0.0f;
 #endif
 
-#if PC_SHOCK
+#if PC_JOINS
   // density: -u.grad(lnrho) - div u [+ D3 del6 lnrho], then the shear term
   float rl = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
   if (H3) rl = rl + P.diff3 * del6(s + LNRHO * FPL, xt[LNRHO], P);
@@ -488,7 +499,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   rl = __fadd_rn(rl, __fmul_rn(muy0, gl[1]));
   duu[1] = __fadd_rn(duu[1], __fmul_rn(-P.S, u[0]));
 #endif
-#if PC_SHOCK
+#if PC_JOINS
   r[LNRHO] = rl;
 #endif
 
@@ -576,7 +587,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     jj[a] = gdiv - del2;
     const int b1 = (a + 1) % 3, b2 = (a + 2) % 3;
     const float uxb = u[b1] * bb[b2] - u[b2] * bb[b1];
-#if PC_SHOCK
+#if PC_JOINS
     float out = uxb;
     if (P.eta > 0.0f) out = out + P.eta * del2;
     if (H3) out = out + P.eta3 * del6(aa, xt[AX + a], P);
@@ -601,7 +612,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   for (int a = 0; a < 3; ++a) {
     const int b1 = (a + 1) % 3, b2 = (a + 2) % 3;
     const float jxb = jj[b1] * bb[b2] - jj[b2] * bb[b1];
-#if PC_SHOCK
+#if PC_JOINS
     r[UX + a] = __fadd_rn(duu[a], jxb * rho1);
 #else
     r[UX + a] = duu[a] + jxb * rho1;
@@ -674,14 +685,17 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     adv = adv + sqrtf(cs2 * P.dxyz2);
 #endif
     const float dt1a = adv / P.cdt;
-#if PC_SHOCK
-    // the diffusivity max(nu, nu_sh*shock, eta) at this point, plus the
-    // constant del6 rate
-    const bool has_dif = P.nu > 0.0f || P.nu_shock > 0.0f || P.eta > 0.0f;
+#if PC_JOINS
+    // the diffusivity max(nu, nu_sh*shock, eta) at this point (the terms of
+    // the build's layout), plus the constant del6 rate
+    const bool has_dif = P.nu > 0.0f || (PC_SHOCK && P.nu_shock > 0.0f)
+                         || (PC_MAG && P.eta > 0.0f);
     float md = 0.0f;
     if (P.nu > 0.0f) md = P.nu;
+#if PC_SHOCK
     if (P.nu_shock > 0.0f) md = fmaxf(md, P.nu_shock * shock);
-    if (P.eta > 0.0f) md = fmaxf(md, P.eta);
+#endif
+    if (PC_MAG && P.eta > 0.0f) md = fmaxf(md, P.eta);
     float dif = has_dif ? (md * P.dxyz2) / P.cdtv : 0.0f;
     if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
     dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
@@ -1419,7 +1433,7 @@ int pc_tile_shape(int* out) {
 // K7, K6m and K7m), each with the four flag sets.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
-#if PC_MAG && !PC_ENT && !PC_SHOCK
+#if PC_MAG && !PC_ENT && PC_TAILS
     case 1: return attrs<true, false, false, false, true>(out);
     case 3: return attrs<false, true, false, false, true>(out);
     case 6: return attrs<false, false, true, true, true>(out);
@@ -1500,7 +1514,7 @@ int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
 }
 #endif
 
-#if PC_MAG && !PC_ENT && !PC_SHOCK
+#if PC_MAG && !PC_ENT && PC_TAILS
 // K8: the `PC_FAKE_RHS` branch of `body` (pencil_tpu/ops/fused_rhs.py) in
 // K1, K2 and K3, with the same arguments as those.
 int pc_rhs_first_fake(const PcParams* p, const float* fa, float* df,
@@ -1520,6 +1534,6 @@ int pc_rhs_tail_last_fake(const PcParams* p, const float* fa,
                           void* stream, float* tab) {
   return tail_last<false, true>(p, fa, df2, coef, kick, zc, tab, f3, stream);
 }
-#endif  // PC_MAG && !PC_ENT && !PC_SHOCK
+#endif  // PC_MAG && !PC_ENT && PC_TAILS
 
 }  // extern "C"

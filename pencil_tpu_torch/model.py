@@ -1,6 +1,6 @@
 """Model assembly and the time step (counterpart of ``pencil_tpu/model.py``).
 
-Seven module sets run as chains of fused kernels, f32, at any 2N-RK order
+These module sets run as chains of fused kernels, f32, at any 2N-RK order
 of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 
 * The flagship — ideal-gas EOS, lnρ density, hydro (with optional
@@ -66,6 +66,12 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   their halos by index wrap (no ghost fill); the forcing kick follows the
   step.
 
+  Both chains take the other isothermal layouts of these sets, each on a
+  build of its own: the shocked box without Magnetic (supersonic hydro
+  turbulence: K1sh, K5wh), the shear box without the shock slot (K4n,
+  K5n), and the hydro shear box with and without it (K4h, K5h; K4hn,
+  K5hn).  Without the shock slot a substep has no pre-pass.
+
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
 the eager 2N-RK path built from the same plain module code (the
@@ -128,8 +134,13 @@ CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
 # stratified convection and magnetoconvection (Ω optional in both)
 ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"})
-ZROLL_MODULES = FLAGSHIP_MODULES | {"shear", "shock"}
-SHOCKBOX_MODULES = FLAGSHIP_MODULES | {"shock"}
+# the shearing box, MHD or hydro, each with or without the shock slot, and
+# the shocked periodic box, MHD or hydro (forcing optional in all; the
+# isothermal layouts: a shock slot beside an entropy field stays refused)
+ZROLL_SETS = tuple(base | {"shear"} | shock
+                   for base in (FLAGSHIP_MODULES, HYDRO_MODULES)
+                   for shock in ({"shock"}, set()))
+SHOCKBOX_SETS = (FLAGSHIP_MODULES | {"shock"}, HYDRO_MODULES | {"shock"})
 
 
 def _order_key(order):
@@ -167,7 +178,8 @@ def fused_mode(cfg: Config):
     with or without an entropy field, each with or without del6
     hyper-diffusion), 'zghost' (stratified convection and
     magnetoconvection, each with or without Ω and chi-const),
-    'zroll' (the shearing box) or 'wrap_aux' (the shocked periodic box), or
+    'zroll' (the shearing box, MHD or hydro, with or without the shock
+    slot) or 'wrap_aux' (the shocked periodic box, MHD or hydro), or
     (None, why ``cfg`` is outside all of these sets)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
@@ -183,11 +195,19 @@ def fused_mode(cfg: Config):
     if len(mods) == len(names):
         full = periodic == (True, True, True)
         unforced = mods - {"forcing"}
-        if unforced == ZROLL_MODULES and full:
-            return "zroll", None
-        if unforced == SHOCKBOX_MODULES and full:
-            return "wrap_aux", None
         extra = _shock_options(cfg)
+        # nu-shock reads the Shock module's slot
+        aux = full and ("shock" in mods or not extra)
+        if aux and unforced in ZROLL_SETS:
+            return "zroll", None
+        if aux and unforced in SHOCKBOX_SETS:
+            return "wrap_aux", None
+        if extra and "shock" not in mods and unforced in ZROLL_SETS:
+            return None, (f"options {extra} without the Shock module, "
+                          "whose slot nu-shock reads")
+        if {"shock", "entropy"} <= mods:
+            return None, ("a shock slot beside 'entropy' (the shock and "
+                          "shear kernels take the isothermal layouts)")
         wrap = unforced in WRAP_SETS and full
         zghost = mods in ZGHOST_SETS and periodic == (True, True, False)
         if (wrap or zghost) and extra:
@@ -213,8 +233,10 @@ def fused_mode(cfg: Config):
                   "'entropy', with optional forcing on a periodic grid, "
                   f"{sorted(CONVSLAB_MODULES)} with or without 'magnetic' "
                   "with a non-periodic z, "
-                  f"{sorted(ZROLL_MODULES)} and {sorted(SHOCKBOX_MODULES)} "
-                  "with optional forcing on a periodic grid)")
+                  f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
+                  f"{sorted(HYDRO_MODULES | {'shear'})}, each with or "
+                  "without 'shock', and both with 'shock' in place of "
+                  "'shear', with optional forcing on a periodic grid)")
 
 
 def gate_reason(cfg: Config):
@@ -593,39 +615,45 @@ class Model:
         return self._finish(state, self.bc_writeback(fa), dt)
 
     def _aux_step(self, state: Dict, kernels=None):
-        """One 2N-RK step of a chain with the shock slot: the zroll chain
-        (JAX model.py:576-730) or the wrap_aux chain (model.py:433-445,
-        :704-730).  Each substep rebuilds the shock slot; zroll then fills
-        the x/y ghosts with the x faces shifted by deltay at t0 + c·dt
-        (substep 1 with the old dt, the others with the new one), while
-        wrap_aux's kernels fetch their halos by index wrap.  K4/K1s and a
-        torch axpy, then K5/K5w per substep; the forcing kick (wrap_aux)
-        follows the step.  The state's shock slot is the last pre-pass's.
-        ``kernels`` = (first, upd) lets a measurement time the plain
-        versions through the same chain."""
+        """One 2N-RK step of the zroll chain (JAX model.py:576-730) or the
+        wrap_aux chain (model.py:433-445, :704-730).  Where the state has
+        the shock slot, each substep rebuilds it; zroll then fills the x/y
+        ghosts with the x faces shifted by deltay at t0 + c·dt (substep 1
+        with the old dt, the others with the new one), while wrap_aux's
+        kernels fetch their halos by index wrap.  K4/K1s and a torch axpy,
+        then K5/K5w per substep; the forcing kick follows the step.  The
+        state's shock slot is the last pre-pass's.  No tensor of
+        ``state`` is written.  ``kernels`` = (first, upd) lets a
+        measurement time the plain versions through the same chain."""
         wrap = self.mode == "wrap_aux"
         first, upd = kernels or ((rhs_wrap_shock, rhs_wrap_shock_upd) if wrap
                                  else (rhs_zroll, rhs_zroll_upd))
+        nvar = self.reg.nvar
+        aux = self.reg.nf > nvar
+
+        def refreshed(fa, sdy):
+            return self._refresh_aux_fa(fa, sdy) if aux else fa
 
         def kernel_input(fa, sdy):
             return fa if wrap else self.ghosted(fa, (0, 1), sdy)
 
+        def updated(fa, f_new):
+            return torch.cat([f_new, fa[nvar:]]) if aux else f_new
+
         alpha, beta, cstage = self.rk
-        nvar = self.reg.nvar
         fa = state["_fa"] if "_fa" in state else self.reg.stack(
             state["fields"])
         t0, dt = state["t"], state["dt"]
         sdy = None if wrap else self.deltay(t0 + cstage[0] * dt)
-        df, dt1m = first(self, kernel_input(self._refresh_aux_fa(fa, sdy),
-                                            sdy))
+        df, dt1m = first(self, kernel_input(refreshed(fa, sdy), sdy))
         dt = self._new_dt(dt1m, state["dt"])
-        fa = torch.cat([fa[:nvar] + beta[0] * dt * df, fa[nvar:]])
+        fa = updated(fa, fa[:nvar] + beta[0] * dt * df)
         for isub in range(1, len(alpha)):
             sdy = None if wrap else self.deltay(t0 + cstage[isub] * dt)
-            fa = self._refresh_aux_fa(fa, sdy)
+            fa = refreshed(fa, sdy)
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, f_new = upd(self, kernel_input(fa, sdy), df, coef)
-            fa = torch.cat([f_new, fa[nvar:]])
+            fa = updated(fa, f_new)
         return self._finish(state, self._kick_after(fa, dt), dt)
 
     def _eager_step(self, state: Dict):

@@ -1,13 +1,14 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives eight, the MHD
+(``LIBRARIES``: the flagship template's source gives twelve, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
-entropy field, ``PC_ENT=1``, the MHD ones with the shock slot,
-``PC_SHOCK=1``, on the periodic state or, with ``PC_SHEAR=1``, on the
-shear box's ghosted stack, and the 5- and 8-field entropy ones with
-``PC_ZG=1``, stratified convection and magnetoconvection on the interior
-stack and its z-halo slabs), with a plain C
+entropy field, ``PC_ENT=1``, the MHD and hydro ones with the shock slot,
+``PC_SHOCK=1``, on the periodic state, the shear box's on its ghosted
+stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, and
+the 5- and 8-field entropy ones with ``PC_ZG=1``, stratified convection
+and magnetoconvection on the interior stack and its z-halo slabs), with
+a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each.
 They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
@@ -41,14 +42,25 @@ LIBRARIES = {
     "fused_rhs_hydro_ent": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1")),
     "fused_rhs_shock": ("fused_rhs.cu", ("-DPC_SHOCK=1",)),
     "fused_rhs_shear": ("fused_rhs.cu", ("-DPC_SHOCK=1", "-DPC_SHEAR=1")),
+    # the isothermal layouts of the shock and shear builds: supersonic
+    # hydro turbulence, the shear box without the shock slot, and the
+    # hydro shear box with and without it
+    "fused_rhs_shock_hydro": ("fused_rhs.cu", ("-DPC_MAG=0",
+                                               "-DPC_SHOCK=1")),
+    "fused_rhs_shear_ns": ("fused_rhs.cu", ("-DPC_SHEAR=1",)),
+    "fused_rhs_shear_hydro": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_SHOCK=1",
+                                               "-DPC_SHEAR=1")),
+    "fused_rhs_shear_hydro_ns": ("fused_rhs.cu", ("-DPC_MAG=0",
+                                                  "-DPC_SHEAR=1")),
     "fused_rhs_zg": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
                                       "-DPC_ZG=1")),
     "fused_rhs_zg_mag": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1")),
 }
 
 _p = ctypes.c_void_p
-# the flagship template's entry points in its libraries: the shock builds
-# have the first and the middle kernel only (K1s and K5w, K4 and K5), and
+# the flagship template's entry points in its libraries: the shock and
+# shear builds have the first and the middle kernel only (K1s and K5w, K4
+# and K5, and those of their other layouts), and
 # so have the z-ghosted builds (K6 and K7, K6m and K7m), whose two take
 # their z-halo slabs and layer profiles after the stream; K8 (the fake RHS)
 # is built for the MHD instances only
@@ -78,6 +90,10 @@ SIGNATURES = {
     "fused_rhs_hydro_ent": _FLAGSHIP,
     "fused_rhs_shock": _SHOCK,
     "fused_rhs_shear": _SHOCK,
+    "fused_rhs_shock_hydro": _SHOCK,
+    "fused_rhs_shear_ns": _SHOCK,
+    "fused_rhs_shear_hydro": _SHOCK,
+    "fused_rhs_shear_hydro_ns": _SHOCK,
     "fused_rhs_zg": _ZG,
     "fused_rhs_zg_mag": _ZG,
 }

@@ -68,6 +68,16 @@ PC_SHEAR=1`` (library ``fused_rhs_shear``), which adds the Shear terms:
   rhs_zroll        K4  K1s's function with the Shear terms
   rhs_zroll_upd    K5  K5w's, f ← f_interior + βΔt·df
 
+The same wrappers serve the other isothermal layouts of these chains, each
+on a build of its own (``_AUX_BUILDS``, ``aux_library``), counted under the
+launch names with its suffix: supersonic hydro turbulence (uu, lnrho,
+shock; ``PC_MAG=0 PC_SHOCK=1``, ``fused_rhs_shock_hydro``: K1sh, K5wh,
+``*_hydro``), the shear box without the shock slot (uu, lnrho, aa;
+``PC_SHEAR=1``, ``fused_rhs_shear_ns``: K4n, K5n, ``*_ns``) and the hydro
+shear box with and without it (``PC_MAG=0 PC_SHOCK=1 PC_SHEAR=1``,
+``fused_rhs_shear_hydro``: K4h, K5h, ``*_hydro``; ``PC_MAG=0
+PC_SHEAR=1``, ``fused_rhs_shear_hydro_ns``: K4hn, K5hn, ``*_hydro_ns``).
+
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
 block reads halos from; K7's df overwrites df_prev, which each point reads
@@ -102,24 +112,6 @@ WRAP_LIBRARIES = tuple(_SUFFIX)
 # the five kernels of each periodic library
 _WRAP_KERNELS = ("rhs_first", "rhs_tail_defer", "rhs_tail_last",
                 "rhs_tail_mid", "rhs_tail_defer_last")
-
-# Launches of each kernel: a wrapper adds one where it launches, and
-# nowhere else, so a run can show that its main path went through them.
-# The H3 instances of the periodic builds (suffix _h3) and the CHI
-# instances of the z-ghosted builds (_chi) count under names of their own.
-LAUNCHES = dict.fromkeys(
-    [k + sfx + h3 for h3 in ("", "_h3") for sfx in _SUFFIX.values()
-     for k in _WRAP_KERNELS]
-    + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
-    + [k + chi for chi in ("", "_chi")
-       for k in ("rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag")]
-    + ["rhs_zroll", "rhs_zroll_upd", "rhs_wrap_shock",
-       "rhs_wrap_shock_upd"], 0)
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -368,31 +360,73 @@ def flagship_library(model) -> str:
         f"{sorted(m.name for m in cfg.modules)}")
 
 
-# the shock builds' field layout: the MHD flagship's and the shock profile,
-# an aux slot that the kernels read and never write
-_SHOCK_LAYOUT = {"uu": slice(0, 3), "lnrho": slice(3, 4), "aa": slice(4, 7),
-                 "shock": slice(7, 8)}
-_SHOCK_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
-                            "magnetic", "shock", "forcing"))
-# each shock build's launch names: its first and its update kernel
-AUX_KERNELS = {"fused_rhs_shock": ("rhs_wrap_shock", "rhs_wrap_shock_upd"),
-               "fused_rhs_shear": ("rhs_zroll", "rhs_zroll_upd")}
+# The shock and shear builds of the template (the aux chains), each with
+# its field layout (an aux slot last, which the kernels read and never
+# write), its module set (forcing rides along as the kick after the step),
+# the base of its launch names (first, update) and their suffix: the
+# shocked periodic box, MHD or hydro (wrap_aux), and the shear box, MHD or
+# hydro, each with or without the shock slot (zroll).
+_ISO = frozenset(("eos", "density", "hydro", "viscosity"))
+_MHD, _HYD = _LAYOUTS["fused_rhs"], _LAYOUTS["fused_rhs_hydro"]
+_WRAP_AUX = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
+_ZROLL = ("rhs_zroll", "rhs_zroll_upd")
+_AUX_BUILDS = {
+    "fused_rhs_shock": (dict(_MHD, shock=slice(7, 8)),
+                        _ISO | {"magnetic", "shock"}, _WRAP_AUX, ""),
+    "fused_rhs_shock_hydro": (dict(_HYD, shock=slice(4, 5)),
+                              _ISO | {"shock"}, _WRAP_AUX, "_hydro"),
+    "fused_rhs_shear": (dict(_MHD, shock=slice(7, 8)),
+                        _ISO | {"magnetic", "shock", "shear"}, _ZROLL, ""),
+    "fused_rhs_shear_ns": (_MHD, _ISO | {"magnetic", "shear"}, _ZROLL,
+                           "_ns"),
+    "fused_rhs_shear_hydro": (dict(_HYD, shock=slice(4, 5)),
+                              _ISO | {"shock", "shear"}, _ZROLL, "_hydro"),
+    "fused_rhs_shear_hydro_ns": (_HYD, _ISO | {"shear"}, _ZROLL,
+                                 "_hydro_ns"),
+}
+# each aux build's launch names: its first and its update kernel
+AUX_KERNELS = {lib: tuple(k + sfx for k in base)
+               for lib, (_, _, base, sfx) in _AUX_BUILDS.items()}
 
 
-def shock_library(model) -> str:
-    """The shock build of the flagship template for ``model``:
-    'fused_rhs_shear' with the Shear module (the shear box), else
-    'fused_rhs_shock' (the shocked periodic box); raises for another
-    layout or a module the builds have no terms for."""
-    reg, cfg = model.reg, model.cfg
-    names = {m.name for m in cfg.modules}
-    if names - {"shear"} <= _SHOCK_MODULES and reg.nvar == 7 \
-            and reg.nf == 8 and all(reg.slice(k) == v
-                                    for k, v in _SHOCK_LAYOUT.items()):
-        return "fused_rhs_shear" if "shear" in names else "fused_rhs_shock"
+# Launches of each kernel: a wrapper adds one where it launches, and
+# nowhere else, so a run can show that its main path went through them.
+# The H3 instances of the periodic builds (suffix _h3) and the CHI
+# instances of the z-ghosted builds (_chi) count under names of their own;
+# the aux builds' H3 instances under their builds' names.
+LAUNCHES = dict.fromkeys(
+    [k + sfx + h3 for h3 in ("", "_h3") for sfx in _SUFFIX.values()
+     for k in _WRAP_KERNELS]
+    + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
+    + [k + chi for chi in ("", "_chi")
+       for k in ("rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag")]
+    + [k for names in AUX_KERNELS.values() for k in names], 0)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def aux_library(model) -> str:
+    """The shock or shear build of the flagship template whose layout and
+    module set are ``model``'s (``_AUX_BUILDS``); raises for any other, a
+    shock slot beside ss among them (a 9-slot ring the builds refuse)."""
+    lib = model.__dict__.get("_aux_library")
+    if lib is not None:
+        return lib
+    reg = model.reg
+    names = {m.name for m in model.cfg.modules} - {"forcing"}
+    for lib, (layout, modules, _, _) in _AUX_BUILDS.items():
+        n = max(sl.stop for sl in layout.values())
+        if names == modules and reg.nf == n and set(reg.slots) == set(
+                layout) and all(reg.slice(k) == v for k, v in layout.items()):
+            model.__dict__["_aux_library"] = lib
+            return lib
     raise NotImplementedError(
-        "shock kernels: the (uu, lnrho, aa, shock) layout of the shear and "
-        f"shocked boxes only, got {reg.comp_names} of {sorted(names)}")
+        "shock and shear kernels: the isothermal (uu, lnrho[, aa][, shock]) "
+        "layouts of the shear and shocked boxes only (no shock slot beside "
+        f"ss), got {reg.comp_names} of {sorted(names)}")
 
 
 # the z-ghosted builds, each with its field layout, its module set (the
@@ -475,8 +509,12 @@ def zg_profiles(model):
 
 def launch_suffix(model) -> str:
     """The suffix of the launch names of ``model``'s instances of the
-    flagship template: its library's ('', '_hydro', '_ent' or
-    '_hydro_ent'), then '_h3' where it launches the H3 instances."""
+    flagship template: its periodic library's ('', '_hydro', '_ent' or
+    '_hydro_ent'), then '_h3' where it launches the H3 instances; or its
+    aux build's ('', '_hydro', '_ns', '_hydro_ns'), whose H3 instances
+    count under the same names."""
+    if model.mode in ("zroll", "wrap_aux"):
+        return _AUX_BUILDS[aux_library(model)][3]
     return _SUFFIX[flagship_library(model)] + _h3_suffix(model)
 
 
@@ -494,8 +532,8 @@ def kernel_params(model) -> PcParams:
     if p is not None:
         return p
     cfg, gs = model.cfg, model.cfg.grid
-    if "shock" in model.reg.slots:
-        shock_library(model)
+    if "shock" in model.reg.slots or cfg.module("shear") is not None:
+        aux_library(model)
     elif cfg.module("gravity") is not None:
         zg_library(model)
     else:
@@ -808,28 +846,31 @@ def rhs_zg_upd(model, fa, zlo, zhi, df_prev, coef):
 
 
 def _aux_check(model, fa, shear, df_prev=None, coef=None):
-    """(library, output shape) of ``model``'s shock build after checking
-    the inputs: fa the 8-slot state, ghosted in x and y for the shear
-    build (``shear``), which must be the one that ``model`` takes."""
+    """(library, its launch names, output shape) of ``model``'s shock or
+    shear build after checking the inputs: fa the state of all nf slots,
+    ghosted in x and y for a shear build (``shear``), which must be the
+    kind that ``model`` takes."""
     p = kernel_params(model)
-    lib = shock_library(model)
-    if (lib == "fused_rhs_shear") != shear:
+    lib = aux_library(model)
+    names = AUX_KERNELS[lib]
+    if (_AUX_BUILDS[lib][2] == _ZROLL) != shear:
         raise NotImplementedError(
-            f"{AUX_KERNELS[lib][0]} runs this model, not "
+            f"{names[0]} runs this model, not "
             f"{'rhs_zroll' if shear else 'rhs_wrap_shock'}")
     g2 = 2 * NGHOST if shear else 0
-    _check(fa, (8, p.nx + g2, p.ny + g2, p.nz), "fg" if shear else "fa")
-    shape = (7, p.nx, p.ny, p.nz)
+    _check(fa, (model.reg.nf, p.nx + g2, p.ny + g2, p.nz),
+           "fg" if shear else "fa")
+    shape = (model.reg.nvar, p.nx, p.ny, p.nz)
     if df_prev is not None:
         _check(df_prev, shape, "df_prev")
     if coef is not None:
         _check(coef, (2,), "coef")
-    return lib, shape
+    return lib, names, shape
 
 
-def _aux_first(name, model, fa, shear):
-    """K4 or K1s: the shock build's ``pc_rhs_first``."""
-    lib, shape = _aux_check(model, fa, shear)
+def _aux_first(model, fa, shear):
+    """K4 or K1s (of the model's layout): the build's ``pc_rhs_first``."""
+    lib, (name, _), shape = _aux_check(model, fa, shear)
     df = fa.new_empty(shape)
     blk = fa.new_empty(_nblocks(shape[1:], lib))
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
@@ -837,10 +878,10 @@ def _aux_first(name, model, fa, shear):
     return df, torch.amax(blk)
 
 
-def _aux_upd(name, model, fa, df_prev, coef, shear):
-    """K5 or K5w: the shock build's ``pc_rhs_tail_mid``; the new df
-    overwrites df_prev."""
-    lib, shape = _aux_check(model, fa, shear, df_prev, coef)
+def _aux_upd(model, fa, df_prev, coef, shear):
+    """K5 or K5w (of the model's layout): the build's ``pc_rhs_tail_mid``;
+    the new df overwrites df_prev."""
+    lib, (_, name), shape = _aux_check(model, fa, shear, df_prev, coef)
     f = df_prev.new_empty(shape)
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
             df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
@@ -853,7 +894,7 @@ def rhs_zroll(model, fg):
     zroll mode).  Returns (df, 0-d max of 1/dt)."""
     if not _dispatch(fg):
         return rhs_zroll_plain(model, fg)
-    return _aux_first("rhs_zroll", model, fg, True)
+    return _aux_first(model, fg, True)
 
 
 def rhs_zroll_upd(model, fg, df_prev, coef):
@@ -861,7 +902,7 @@ def rhs_zroll_upd(model, fg, df_prev, coef):
     fetch.  Returns (df, f); df is df_prev's buffer, overwritten."""
     if not _dispatch(fg):
         return rhs_zroll_upd_plain(model, fg, df_prev, coef)
-    return _aux_upd("rhs_zroll_upd", model, fg, df_prev, coef, True)
+    return _aux_upd(model, fg, df_prev, coef, True)
 
 
 def rhs_wrap_shock(model, fa):
@@ -870,7 +911,7 @@ def rhs_wrap_shock(model, fa):
     0-d max of 1/dt)."""
     if not _dispatch(fa):
         return rhs_wrap_shock_plain(model, fa)
-    return _aux_first("rhs_wrap_shock", model, fa, False)
+    return _aux_first(model, fa, False)
 
 
 def rhs_wrap_shock_upd(model, fa, df_prev, coef):
@@ -879,4 +920,4 @@ def rhs_wrap_shock_upd(model, fa, df_prev, coef):
     overwritten."""
     if not _dispatch(fa):
         return rhs_wrap_shock_upd_plain(model, fa, df_prev, coef)
-    return _aux_upd("rhs_wrap_shock_upd", model, fa, df_prev, coef, False)
+    return _aux_upd(model, fa, df_prev, coef, False)

@@ -13,7 +13,10 @@ shared-memory loads, integer and address arithmetic, and the rest.
 ``--lib`` builds (or finds built) the package's library of that name
 (K1s and K5w are instances of ``fused_rhs_shock``, K4 and K5 of
 ``fused_rhs_shear``, with rotation and the del6 terms as the shear box
-runs them, K6 and K7 of ``fused_rhs_zg``, the same names of
+runs them, the same names of ``fused_rhs_shock_hydro`` its K1sh and
+K5wh, of ``fused_rhs_shear_ns``, ``fused_rhs_shear_hydro`` and
+``fused_rhs_shear_hydro_ns`` their K4n/K5n, K4h/K5h and K4hn/K5hn, K6
+and K7 of ``fused_rhs_zg``, the same names of
 ``fused_rhs_zg_mag`` its K6m and K7m, and K6rot, K7rot their Coriolis
 instances, K6chi, K7chi their chi-const ones; K1h3, K2h3, K3h3, K3midh3
 and K2Lh3 are the del6 instances of the four periodic builds);

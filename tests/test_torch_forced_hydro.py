@@ -240,10 +240,12 @@ def test_kernel_params_refuse_other_layouts(which):
     """The conv-slab's gravity and walls on the isothermal MHD set (uu,
     lnrho, aa under gravity, no ss: the template's z-ghosted builds take
     the conv-slab's entropy layouts only; the conv-slab with Magnetic runs
-    them, tests/test_torch_zghost_mhd.py), the shear box without Magnetic
-    (uu, lnrho and the shock slot: the template's shock builds take the
-    8-slot MHD layout only) and an entropy slot with a cooling layer are
-    not layouts and module sets of the flagship template's builds."""
+    them, tests/test_torch_zghost_mhd.py), the shear box with an entropy
+    field beside its shock slot (uu, lnrho, ss, aa, shock: the template's
+    shock and shear builds take the isothermal layouts only; the shear box
+    without Magnetic runs them, tests/test_torch_shear_layouts.py) and an
+    entropy slot with a cooling layer are not layouts and module sets of
+    the flagship template's builds."""
     from pencil_tpu_torch.configs import conv_slab
     mag = conv_slab(8, magnetic=True)
     cfg = {"conv_slab": lambda: mag.replace(
@@ -252,7 +254,9 @@ def test_kernel_params_refuse_other_layouts(which):
                         mag.module("viscosity"), mag.module("magnetic")),
                bcz=tuple(bc for bc in mag.bcz if bc.comp != "ss")),
            "shear_box": lambda: shear_box(8).replace(modules=tuple(
-               m for m in shear_box(8).modules if m.name != "magnetic")),
+               pt.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0)
+               if m.name == "eos" else m for m in shear_box(8).modules)
+               + (pt.Entropy(iheatcond=("chi-const",), chi=5e-3),)),
            "entropy": lambda: config(pt, n=8).replace(
                modules=config(pt, n=8).modules + (
                    pt.Entropy(cool=15.0, cs2cool=1.0),))}[which]()

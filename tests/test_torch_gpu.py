@@ -1,7 +1,9 @@
 """The CUDA kernels of pencil_tpu_torch (K1-K3, K3′, K2L and K8 of the
 flagship, their hydro builds K1h-K3h, K3′h, K2Lh, their entropy builds
 K1e-K2Le and K1he-K2Lhe, its shock builds' K1s/K5w of the shocked periodic
-box and K4/K5 of the shearing box, K6/K7 of stratified convection, K6m/K7m
+box and K4/K5 of the shearing box and those of their other isothermal
+layouts (K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, each with and without Ω
+and del6), K6/K7 of stratified convection, K6m/K7m
 of magnetoconvection, each z-ghosted pair also with Ω, the H3 instances
 of the four periodic builds (del6 hyper-diffusion) and the CHI instances
 of the z-ghosted builds (chi-const)) against their plain PyTorch versions
@@ -17,6 +19,8 @@ imports no JAX, so it also runs where JAX is not installed.
 Bounds: each field within 2e-5 × its max, the CFL maximum within 1e-6
 relative (the bounds of tests/test_fused.py:75-84).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -212,11 +216,15 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
                                rtol=RTOL_DT, atol=0.0)
 
 
-def _steps_match(cuda, cfg, t0=None, nsteps=3):
+def _steps_match(cuda, cfg, t0=None, nsteps=3, uu_noise=0.0):
     """nsteps on the card against the same steps on the CPU from the same
-    fields and forcing draws."""
-    fields = pt.Model(cfg, device="cpu").init_state(5)["fields"]
+    fields and forcing draws; ``uu_noise`` > 0 replaces the initial
+    velocity with noise of that amplitude."""
+    fields = dict(pt.Model(cfg, device="cpu").init_state(5)["fields"])
     g = torch.Generator().manual_seed(9)
+    if uu_noise:
+        fields["uu"] = uu_noise * torch.randn(fields["uu"].shape,
+                                              generator=g)
     draws = [(torch.randint(0, 20, (1,), generator=g),
               torch.rand((), generator=g) * 6.0 - 3.0,
               torch.randn(3, generator=g)) for _ in range(nsteps)]
@@ -348,8 +356,18 @@ BUILDS = {
     # the shifted faces) within 2e-5, chip_smoke.py's bounds
     "shock": (lambda shape: shock_box(shape), 1e-6),
     "shear": (lambda shape: shear_box(shape), RTOL_FIELD),
+    # their other isothermal layouts: K1sh/K5wh within K1s/K5w's bound,
+    # K4n/K5n, K4h/K5h and K4hn/K5hn within K4/K5's
+    "shock_hydro": (lambda shape: shock_box(shape, magnetic=False), 1e-6),
+    "shear_ns": (lambda shape: shear_box(shape, shock=False), RTOL_FIELD),
+    "shear_hydro": (lambda shape: shear_box(shape, magnetic=False),
+                    RTOL_FIELD),
+    "shear_hydro_ns": (lambda shape: shear_box(shape, magnetic=False,
+                                               shock=False), RTOL_FIELD),
 }
-AUX_BUILDS = ("shock", "shear")
+AUX_BUILDS = ("shock", "shear", "shock_hydro", "shear_ns", "shear_hydro",
+              "shear_hydro_ns")
+NEW_AUX = AUX_BUILDS[2:]
 
 
 @pytest.mark.parametrize("build", sorted(BUILDS))
@@ -403,24 +421,33 @@ def test_constant_fields_give_exactly_zero_tendencies(cuda, build, shape):
     assert torch.equal(fm, fa + bdt * (alpha * df1))
 
 
+# the constant value of each slot in the constant-field tests of the aux
+# builds
+CONSTANTS = {"ux": 0.3, "uy": -0.2, "uz": 0.1, "lnrho": 0.05, "ax": 0.02,
+             "ay": 0.01, "az": -0.02, "shock": 0.03}
+
+
 def _aux_constant_fields(cuda, cfg):
-    """K1s/K5w or K4/K5 on constant fields with a positive shock slot."""
+    """K1s/K5w or K4/K5 (of the layout's build) on constant fields, with a
+    positive shock slot where the layout has one."""
     pm = pt.Model(cfg, device=cuda)
     shear = pm.mode == "zroll"
     shape = cfg.grid.shape
-    vals = torch.tensor([0.3, -0.2, 0.1, 0.05, 0.02, 0.01, -0.02, 0.03],
-                        device=cuda)
+    names = pm.reg.comp_names
+    nf, nvar = pm.reg.nf, pm.reg.nvar
+    vals = torch.tensor([CONSTANTS[c] for c in names], device=cuda)
     if shear:
-        vals[[0, 1, 2, 5]] = 0.0
+        vals[[k for k, c in enumerate(names)
+              if c in ("ux", "uy", "uz", "ay")]] = 0.0
         first, upd = fr.rhs_zroll, fr.rhs_zroll_upd
         g = (3, 3)
     else:
         first, upd = fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd
         g = (0, 0)
     fa = vals[:, None, None, None].expand(
-        (8, shape[0] + 2 * g[0], shape[1] + 2 * g[1], shape[2])).contiguous()
-    df1 = (0.5 * vals[:7].flip(0))[:, None, None, None].expand(
-        (7,) + shape).contiguous()
+        (nf, shape[0] + 2 * g[0], shape[1] + 2 * g[1], shape[2])).contiguous()
+    df1 = (0.5 * vals[:nvar].flip(0))[:, None, None, None].expand(
+        (nvar,) + shape).contiguous()
     df, dt1m = first(pm, fa)
     assert not df.any()
     plain = fr.rhs_zroll_plain if shear else fr.rhs_wrap_shock_plain
@@ -430,7 +457,7 @@ def _aux_constant_fields(cuda, cfg):
     alpha, bdt = coef
     dfm, fm = upd(pm, fa, df1.clone(), coef)
     assert torch.equal(dfm, alpha * df1)
-    f0 = vals[:7, None, None, None].expand((7,) + shape)
+    f0 = vals[:nvar, None, None, None].expand((nvar,) + shape)
     assert torch.equal(fm, f0 + bdt * (alpha * df1))
 
 
@@ -621,16 +648,21 @@ def _conv_slab_steps_match(cuda, cfg):
 
 
 def sheared_fg(pm, seed=4):
-    """An x/y-ghosted shear-box stack on the card at t = 0.37: noisy
-    fields and a positive shock slot, the x faces shifted by deltay."""
+    """An x/y-ghosted shear-box stack of the model's layout on the card at
+    t = 0.37: noisy fields (u, lnρ 1e-2, A 1e-4) and a positive shock slot
+    where the layout has one, the x faces shifted by deltay."""
     g = torch.Generator(pm.device).manual_seed(seed)
     shape = pm.cfg.grid.shape
-    amp = torch.tensor([1e-2] * 4 + [1e-4] * 3, device=pm.device)
-    fa = amp[:, None, None, None] * torch.randn(
-        (7,) + shape, generator=g, device=pm.device)
-    shock = 1e-3 * torch.rand(shape, generator=g, device=pm.device)
+    nvar = pm.reg.nvar
+    amp = torch.tensor([1e-4 if c[0] == "a" else 1e-2
+                        for c in pm.reg.comp_names[:nvar]], device=pm.device)
+    parts = [amp[:, None, None, None] * torch.randn(
+        (nvar,) + shape, generator=g, device=pm.device)]
+    if pm.reg.nf > nvar:
+        parts.append(1e-3 * torch.rand((1,) + shape, generator=g,
+                                       device=pm.device))
     sdy = pm.deltay(torch.tensor(0.37, device=pm.device))
-    return pm.ghosted(torch.cat([fa, shock[None]]), (0, 1), sdy)
+    return pm.ghosted(torch.cat(parts), (0, 1), sdy)
 
 
 # the shock builds' shapes: the last two are not multiples of the column,
@@ -640,17 +672,21 @@ AUX_IDS = ("64^3", "32x64x128", "16x24x40", "24x20x42")
 
 
 def _aux_kernels_match_plain(cuda, cfg, rtol):
-    """K4 and K5 (the shear box) or K1s and K5w (the shocked box) against
-    their plain versions: each field within ``rtol`` × its max."""
+    """K4 and K5 (the shear box) or K1s and K5w (the shocked box), of the
+    build of ``cfg``'s layout, against their plain versions: each field
+    within ``rtol`` × its max."""
     pm = pt.Model(cfg, device=cuda)
     if pm.mode == "zroll":
-        make, names = sheared_fg, ("rhs_zroll", "rhs_zroll_upd")
+        make, kinds = sheared_fg, ("rhs_zroll", "rhs_zroll_upd")
     else:
-        make, names = shocked_fa, ("rhs_wrap_shock", "rhs_wrap_shock_upd")
-    first, upd = (getattr(fr, k) for k in names)
-    first_p, upd_p = (getattr(fr, k + "_plain") for k in names)
+        make, kinds = shocked_fa, ("rhs_wrap_shock", "rhs_wrap_shock_upd")
+    names = fr.AUX_KERNELS[fr.aux_library(pm)]
+    first, upd = (getattr(fr, k) for k in kinds)
+    first_p, upd_p = (getattr(fr, k + "_plain") for k in kinds)
     fg = make(pm)
-    assert float(fg[7].max()) > 0.0
+    nvar = pm.reg.nvar
+    if pm.reg.nf > nvar:
+        assert float(fg[nvar].max()) > 0.0
     fr.reset_launches()
     df, dt1m = first(pm, fg)
     df_p, dt1m_p = first_p(pm, fg)
@@ -664,7 +700,7 @@ def _aux_kernels_match_plain(cuda, cfg, rtol):
     want["df2"], want["f2"] = upd_p(pm, fg2, df_p.clone(), coef)
     torch.cuda.synchronize()
     for name in got:
-        for c in range(7):
+        for c in range(nvar):
             err = float((got[name][c] - want[name][c]).abs().max())
             assert err <= rtol * max(float(want[name][c].abs().max()),
                                      1e-30), (name, c, err)
@@ -698,14 +734,15 @@ def test_shear_box_steps_on_card_match_cpu(cuda):
 
 
 def shocked_fa(pm, seed=4):
-    """A noisy shock-box state on the card, urms ≈ 1, its shock slot built
-    by the pre-pass (positive, so the shock viscosity is live)."""
+    """A noisy shock-box state of the model's layout on the card, urms ≈
+    1, its shock slot built by the pre-pass (positive, so the shock
+    viscosity is live)."""
     g = torch.Generator(pm.device).manual_seed(seed)
     shape = pm.cfg.grid.shape
-    amp = torch.tensor([3 ** -0.5] * 3 + [5e-2] + [1e-2] * 3 + [0.0],
-                       device=pm.device)
+    amp = torch.tensor([{"u": 3 ** -0.5, "l": 5e-2, "a": 1e-2, "s": 0.0}[
+        c[0]] for c in pm.reg.comp_names], device=pm.device)
     fa = amp[:, None, None, None] * torch.randn(
-        (8,) + shape, generator=g, device=pm.device)
+        (pm.reg.nf,) + shape, generator=g, device=pm.device)
     return pm._refresh_aux_fa(fa)
 
 
@@ -754,6 +791,64 @@ def test_fake_rhs_chain_launches_k8(cuda):
                                rhs_first_fake=1, rhs_tail_defer_fake=1,
                                rhs_tail_last_fake=1)
     assert torch.isfinite(s["_fa"]).all()
+
+
+# ---- the other isothermal layouts of the shock and shear builds ------------
+def aux_variant(cfg, omega, hyper3):
+    """``cfg`` with Coriolis Ω about z, and with or without del6
+    hyper-diffusion of u, lnρ (and A) at ν₃ = η₃ = D₃ = 5e-3·dx⁵: its
+    ROT and H3 instances, picked on the host."""
+    h3 = 5e-3 * cfg.grid.dx ** 5 if hyper3 else 0.0
+    visc = cfg.module("viscosity")
+    ivisc = tuple(v for v in visc.ivisc if v != "hyper3-simplified") + (
+        ("hyper3-simplified",) if hyper3 else ())
+    new = {"hydro": dict(Omega=omega), "density": dict(diffrho_hyper3=h3),
+           "magnetic": dict(eta_hyper3=h3),
+           "viscosity": dict(ivisc=ivisc, nu_hyper3=h3)}
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **new[m.name]) if m.name in new else m
+        for m in cfg.modules))
+
+
+@pytest.mark.parametrize("hyper3", (False, True), ids=("plain", "h3"))
+@pytest.mark.parametrize("omega", (0.0, 1.0), ids=("still", "rot"))
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("case", NEW_AUX)
+def test_new_aux_instances_match_plain(cuda, case, shape, omega, hyper3):
+    """K1sh/K5wh, K4n/K5n, K4h/K5h and K4hn/K5hn, each instance (without
+    and with Ω, without and with the del6 terms) against its plain
+    version, counted under its build's launch names."""
+    make_cfg, rtol = BUILDS[case]
+    cfg = aux_variant(make_cfg(shape), omega, hyper3)
+    p = fr.kernel_params(pt.Model(cfg, device="cpu"))
+    assert (any(p.om), p.nu3 > 0.0) == (bool(omega), hyper3)
+    _aux_kernels_match_plain(cuda, cfg, rtol)
+
+
+@pytest.mark.parametrize("case", NEW_AUX)
+def test_new_aux_steps_on_card_match_cpu(cuda, case):
+    """Three steps of each new set through its kernels (the shear boxes
+    from t = 0.37, the hydro shock box at urms ≈ 0.1, both forced hydro
+    sets with the same draws) against the same steps on the CPU."""
+    cfg = BUILDS[case][0]((16, 16, 32))
+    if case.startswith("shear"):
+        _steps_match(cuda, cfg, t0=0.37)
+    else:
+        _steps_match(cuda, cfg, uu_noise=0.1)
+
+
+@pytest.mark.parametrize("lib", sorted(
+    set(fr.AUX_KERNELS) - {"fused_rhs_shock", "fused_rhs_shear"}))
+def test_new_aux_instances_hold_no_local_memory(cuda, lib):
+    """Every instance of the four new builds (first and update, with and
+    without Ω and the del6 terms): no spill and no stack, one 256-thread
+    block per SM or more."""
+    attrs = fr.flagship_attrs(lib)
+    assert len(attrs) == 8
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+        assert a["blocks_per_sm"] >= 1, (name, a)
 
 
 # ---- the H3 and CHI instances -----------------------------------------------
@@ -832,7 +927,7 @@ def test_chi_steps_on_card_match_cpu(cuda, case):
                                    "ent_mhd_rk2", "ent_mhd_rk4",
                                    "ent_hydro", "ent_hydro_rk2",
                                    "ent_hydro_rk4", "flagship_h3",
-                                   "conv_slab_mag_chi"))
+                                   "conv_slab_mag_chi", *NEW_AUX))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -851,7 +946,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
            "hydro_rk4": forced_hydro(32).replace(
                time=pt.TimeSpec(itorder=4)),
            "flagship_h3": pt.configs.flagship(32, hyper3=True),
-           "conv_slab_mag_chi": conv_slab(32, magnetic=True, chi=4e-3)}
+           "conv_slab_mag_chi": conv_slab(32, magnetic=True, chi=4e-3),
+           **{k: BUILDS[k][0](32) for k in NEW_AUX}}
     for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
         for order in (3, 2, 4):
             cfg[name + ("" if order == 3 else f"_rk{order}")] = \

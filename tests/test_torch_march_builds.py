@@ -308,12 +308,22 @@ def test_zg_build_takes_chi_const(magnetic, recorded):
 
 
 def test_shock_library_follows_the_modules():
-    assert fr.shock_library(pt.Model(shock_box(SHAPE), device="cpu")) \
-        == "fused_rhs_shock"
-    assert fr.shock_library(pt.Model(shear_box(SHAPE), device="cpu")) \
-        == "fused_rhs_shear"
+    """The build of the shock and shear chains follows the module set and
+    the layout (``aux_library``, which took over from shock_library when
+    the builds gained their other isothermal layouts)."""
+    want = {(shock_box, ()): "fused_rhs_shock",
+            (shock_box, (("magnetic", False),)): "fused_rhs_shock_hydro",
+            (shear_box, ()): "fused_rhs_shear",
+            (shear_box, (("shock", False),)): "fused_rhs_shear_ns",
+            (shear_box, (("magnetic", False),)): "fused_rhs_shear_hydro",
+            (shear_box, (("magnetic", False), ("shock", False))):
+                "fused_rhs_shear_hydro_ns"}
+    for (make, kw), lib in want.items():
+        pm = pt.Model(make(SHAPE, **dict(kw)), device="cpu")
+        assert fr.aux_library(pm) == lib
+    assert set(want.values()) == set(fr.AUX_KERNELS)
     with pytest.raises(NotImplementedError):
-        fr.shock_library(pt.Model(flagship(SHAPE), device="cpu"))
+        fr.aux_library(pt.Model(flagship(SHAPE), device="cpu"))
 
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
