@@ -10,30 +10,39 @@ restart), each of these four also with del6 hyper-diffusion
 ``*_h3``), stratified convection with a non-periodic z (kernels K6, K7,
 on the template's z-ghosted build) and magnetoconvection (K6m, K7m, on
 its 8-field z-ghosted build), each also with chi-const conduction
-(``chi=4e-3``: their CHI instances, ``*_chi``), the sheared, rotating
+(``chi=4e-3``: their CHI instances, ``*_chi``) and with del6
+hyper-diffusion (``hyper3=True``: their H3 instances, ``*_h3``), the
+sheared, rotating
 MHD box with shock viscosity and hyper-diffusion (kernels K4, K5) and
 the shocked periodic box (kernels K1s, K5w), these four on the same
 template's two shock builds, and the other isothermal layouts of those
 two chains, each on a build of its own: supersonic hydro turbulence (the
 shocked box without Magnetic: K1sh, K5wh), the shear box without the
 shock slot (K4n, K5n) and the forced hydro shear box with and without it
-(K4h, K5h; K4hn, K5hn).
+(K4h, K5h; K4hn, K5hn), and the hydro ones with an entropy field:
+non-isothermal supersonic turbulence (K1she, K5whe) and the hydro shear
+box with ss, with and without the shock slot (K4he, K5he; K4hne, K5hne).
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. device and toolchain: the card, its power limit, nvcc, the kernel
-     build (one nvcc per csrc/*.cu, all at once);
+  1. device and toolchain: the card, its power limit, nvcc, and the
+     kernel build started in the background (one nvcc per library, at
+     most one per CPU, the longest first; a kernel's first call waits for
+     its own library, and phase 2 takes the builds in the order they
+     finish);
   2. each fused kernel against its plain PyTorch version on the same CUDA
      inputs at 64³ and 32×64×128, the flagship template's instances also
      at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s,
      K5w, K6, K7, K6m and K7m also at 16×24×40 and 24×20×42, and so
-     K1sh/K5wh, K4n/K5n, K4h/K5h and K4hn/K5hn (each of these eight also
-     with and without Ω = 1 and del6 at 64³ and 24×20×42), the
-     z-ghosted four at 32³ too, and each with Ω = 1 (their Coriolis
-     instances) at
+     K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, K1she/K5whe, K4he/K5he and
+     K4hne/K5hne (each of these fourteen also with and without Ω = 1 and
+     del6 at 64³ and 24×20×42), the z-ghosted four at 32³ too, and each
+     with Ω = 1 (their Coriolis instances) at
      the same five shapes, and with chi-const (their CHI instances, with
-     and without Ω), the four periodic builds' H3 instances with and
+     and without Ω), and their H3 instances at 64³ and, with and
+     without Ω and chi-const, at 24×20×42, the four periodic builds'
+     H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
      the hydro instances and K1-K3, K3′, K2L with Ω = 1, K8's K1 and K2
@@ -48,8 +57,10 @@ Phases, each printing its own lines:
      hyper-diffusion at order 3 and the flagship with it at orders 2 and
      4 and with Ω = 1, the shear box unforced and forced, the conv-slab
      with Magnetic, with Ω = 1 and with both, with chi-const, with
-     Magnetic and chi-const, and with all three, the hydro shock box
-     and the three other shear-box layouts);
+     Magnetic and chi-const, and with all three, both with del6 and
+     magnetoconvection with del6, chi-const and Ω, the hydro shock box,
+     the three other shear-box layouts and the three hydro layouts with
+     ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -61,14 +72,16 @@ Phases, each printing its own lines:
      printed), the
      shear box with one K4 and two K5, the shock box with one
      K1s and two K5w, the hydro shock box, the shear box without the
-     shock slot and the hydro shear box with and without it with one
-     first and two update kernels of their builds (each of the six with
+     shock slot, the hydro shear box with and without it and the three
+     hydro layouts with ss with one first and two update kernels of their
+     builds (each of the nine with
      the card's busy time of a step), the flagship at order 4 with K1,
      K2, two K3′ and K3,
      at order 2 with K1 and K2L (forced hydro and both entropy sets
      likewise with their builds; the four again with hyper3=True, on
      their H3 instances), the conv-slab and magnetoconvection again with
-     chi-const (their CHI instances), and the K8 chain (Model(fake_rhs=True))
+     chi-const (their CHI instances) and with del6 (their H3 instances),
+     and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
      checkpoint every 20, every chunk of steps under the sync debug mode
@@ -82,11 +95,13 @@ Phases, each printing its own lines:
      K6m, K7 or K7m, the z-halo fills, the boundary-plane writeback, the
      glue: each part's device time from one torch.profiler trace, its
      host issue time from a run without it); each H3 instance in turns
-     with the instance without H3 and each CHI instance with the one
-     without CHI (with and without Ω), kernel by kernel; K1sh/K5wh in
-     turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5, K4hn/K5hn with
-     K4h/K5h, each on its own path's final state; for each
-     instance of the flagship template (csrc/fused_rhs.cu, all twelve
+     with the instance without H3 and each CHI and z-ghosted H3 instance
+     with the one without (with and without Ω), kernel by kernel;
+     K1sh/K5wh in turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5,
+     K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
+     K4h/K5h, K4hne/K5hne with K4hn/K5hn, each on its own path's final
+     state; for each
+     instance of the flagship template (csrc/fused_rhs.cu, all fifteen
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
@@ -107,6 +122,11 @@ import time
 
 N_MAIN = 256
 WARM, TIMED = 3, 20
+# calls of a plain version or a plain chain timed: each takes 50-450 ms at
+# 256³, a yardstick where one call is enough; timed with no warm-up call
+# of its own, after the check's call of the same plain version (a chain:
+# after its plain versions' calls)
+PLAIN_CALLS = 1
 RTOL_FIELD, RTOL_DT = 2e-5, 1e-6
 # K1s, K5w, K3′, K2L, K8, the hydro instances and the Ω instances against
 # their plain versions
@@ -141,6 +161,14 @@ AUX_PATHS = {
     "hydro shear box": ("shear_box", dict(magnetic=False), "_hydro"),
     "hydro shear box ns": ("shear_box", dict(magnetic=False, shock=False),
                            "_hydro_ns"),
+    # the hydro layouts with an entropy field: K1she/K5whe, K4he/K5he,
+    # K4hne/K5hne
+    "hydro shock box ent": ("shock_box", dict(magnetic=False, entropy=True),
+                            "_hydro_ent"),
+    "hydro shear box ent": ("shear_box", dict(magnetic=False, entropy=True),
+                            "_hydro_ent"),
+    "hydro shear box ent ns": ("shear_box", dict(
+        magnetic=False, entropy=True, shock=False), "_hydro_ent_ns"),
 }
 NEW_AUX_PATHS = tuple(AUX_PATHS)[2:]
 # each aux path's kernels (first, update) and the one its phase-4 turns
@@ -150,7 +178,10 @@ AUX_NAMES = {label: tuple(k + sfx for k in (
     for label, (make, _, sfx) in AUX_PATHS.items()}
 AUX_COUNTERPART = {"hydro shock box": "shock box", "shear box ns": "shear box",
                    "hydro shear box": "shear box",
-                   "hydro shear box ns": "hydro shear box"}
+                   "hydro shear box ns": "hydro shear box",
+                   "hydro shock box ent": "hydro shock box",
+                   "hydro shear box ent": "hydro shear box",
+                   "hydro shear box ent ns": "hydro shear box ns"}
 NEW_AUX_KERNELS = tuple(k for label in NEW_AUX_PATHS
                         for k in AUX_NAMES[label])
 # each aux path's bound against its plain version in phase 2: the shocked
@@ -164,13 +195,15 @@ ZGHOST_MAG_KERNELS = ("rhs_zg_mag", "rhs_zg_upd_mag")
 H3_KERNELS = tuple(k + sfx + "_h3" for sfx in ("", "_hydro", "_ent",
                                                "_hydro_ent")
                    for k in FLAGSHIP_KERNELS + TAIL_KERNELS)
-# the CHI instances (chi-const) of the two z-ghosted builds
+# the CHI instances (chi-const) and the H3 instances (del6) of the two
+# z-ghosted builds
 CHI_KERNELS = tuple(k + "_chi" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
+ZG_H3_KERNELS = tuple(k + "_h3" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
                 + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
-                + NEW_AUX_KERNELS)
+                + NEW_AUX_KERNELS + ZG_H3_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -191,6 +224,8 @@ PER_STEP = {
     "magnetoconvection": {"rhs_zg_mag": 1, "rhs_zg_upd_mag": 2},
     "conv-slab chi": {"rhs_zg_chi": 1, "rhs_zg_upd_chi": 2},
     "magnetoconvection chi": {"rhs_zg_mag_chi": 1, "rhs_zg_upd_mag_chi": 2},
+    "conv-slab h3": {"rhs_zg_h3": 1, "rhs_zg_upd_h3": 2},
+    "magnetoconvection h3": {"rhs_zg_mag_h3": 1, "rhs_zg_upd_mag_h3": 2},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -220,8 +255,9 @@ REPLACES.update({k + sfx: REPLACES[k]
                  for sfx in ("_hydro", "_ent", "_hydro_ent")})
 REPLACES.update({k + "_h3": REPLACES[k] for k in KERNEL_NAMES
                  if k + "_h3" in H3_KERNELS})
-REPLACES.update({k + "_chi": REPLACES[k] for k in KERNEL_NAMES
-                 if k + "_chi" in CHI_KERNELS})
+REPLACES.update({k + sfx: REPLACES[k] for k in KERNEL_NAMES
+                 for sfx in ("_chi", "_h3")
+                 if k + sfx in CHI_KERNELS + ZG_H3_KERNELS})
 # the aux builds' other layouts replace the same calls, traced for theirs
 REPLACES.update({k: REPLACES[base] for label in NEW_AUX_PATHS
                  for k, base in zip(AUX_NAMES[label], AUX_NAMES[
@@ -289,6 +325,11 @@ SHOCK_HYDRO_RHS = HYDRO_RHS + SHOCK_TERMS
 SHEAR_NS_RHS = FLAGSHIP_RHS + shear_terms(7, True)
 SHEAR_HYDRO_NS_RHS = HYDRO_RHS + shear_terms(4, False)
 SHEAR_HYDRO_RHS = SHEAR_HYDRO_NS_RHS + SHOCK_TERMS
+# the hydro layouts with ss add the entropy terms and 1/ρ; with the shock
+# slot the shock heat ν_sh·shock·(∇·u)² (4), with the shear −S x ∂s/∂y (2)
+SHOCK_HYDRO_ENT_RHS = SHOCK_HYDRO_RHS + ENT_TERMS + 2 + 4
+SHEAR_HYDRO_ENT_NS_RHS = SHEAR_HYDRO_NS_RHS + ENT_TERMS + 2 + 2
+SHEAR_HYDRO_ENT_RHS = SHEAR_HYDRO_ENT_NS_RHS + SHOCK_TERMS + 4
 # the conv-slab (the z-ghosted build): ∇u, ∇lnρ, ∇s, the Laplacians of
 # u, lnρ and s, grad div u; pointwise the EOS, pressure and gravity, the
 # viscous force and heat, K-const conduction and the two layers
@@ -342,18 +383,28 @@ OPS = {
     "rhs_zroll_upd_hydro": SHEAR_HYDRO_RHS + 4 * UPD,
     "rhs_zroll_hydro_ns": SHEAR_HYDRO_NS_RHS + 19,
     "rhs_zroll_upd_hydro_ns": SHEAR_HYDRO_NS_RHS + 4 * UPD,
+    # with ss: χγ among the CFL's diffusivities (2), 5 fields updated
+    "rhs_wrap_shock_hydro_ent": SHOCK_HYDRO_ENT_RHS + 24,
+    "rhs_wrap_shock_upd_hydro_ent": SHOCK_HYDRO_ENT_RHS + 5 * UPD,
+    "rhs_zroll_hydro_ent": SHEAR_HYDRO_ENT_RHS + 27,
+    "rhs_zroll_upd_hydro_ent": SHEAR_HYDRO_ENT_RHS + 5 * UPD,
+    "rhs_zroll_hydro_ent_ns": SHEAR_HYDRO_ENT_NS_RHS + 21,
+    "rhs_zroll_upd_hydro_ent_ns": SHEAR_HYDRO_ENT_NS_RHS + 5 * UPD,
     "rhs_zg": CONVSLAB_RHS + 19, "rhs_zg_upd": CONVSLAB_RHS + 5 * UPD,
     "rhs_zg_mag": MAGCONV_RHS + 29, "rhs_zg_upd_mag": MAGCONV_RHS + 8 * UPD,
 }
-# the H3 instances: del6 of every field, the first kernel's CFL +1; the
-# CHI instances: the chi-const term
-_NFIELDS = {"": 7, "_hydro": 4, "_ent": 8, "_hydro_ent": 5}
+# the H3 instances: del6 of u, lnρ and A (not of s), the first kernel's
+# CFL +1; the CHI instances: the chi-const term
+_NFIELDS = {"": 7, "_hydro": 4, "_ent": 7, "_hydro_ent": 4}
 OPS.update({k + sfx + "_h3": OPS[k + sfx] + n * HYPER3
             + (k == "rhs_first")
             for sfx, n in _NFIELDS.items()
             for k in FLAGSHIP_KERNELS + TAIL_KERNELS})
 OPS.update({k + "_chi": OPS[k] + CHI_OPS
             for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS})
+OPS.update({k + "_h3": OPS[k] + n * HYPER3 + (k in ("rhs_zg", "rhs_zg_mag"))
+            for ks, n in ((ZGHOST_KERNELS, 4), (ZGHOST_MAG_KERNELS, 7))
+            for k in ks})
 # the shear-box comparisons start here, where deltay = 0.555·Ly is not a
 # whole number of cells (at t = 0 the shifted faces are plain wraps)
 T_SHEAR = 0.37
@@ -430,6 +481,13 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def note_err(errs, name, d):
+    """Keep the largest abs error ``d`` of kernel ``name`` against its
+    plain version; ``errs`` holds every launch name (a misspelled one
+    raises KeyError), None for one that no check has reached."""
+    errs[name] = d if errs[name] is None else max(errs[name], d)
+
+
 def compare_pairs(label, shape, pairs, errs, rtol):
     """Check each (kernel, plain) result pair; pairs: name -> list."""
     line = []
@@ -439,7 +497,7 @@ def compare_pairs(label, shape, pairs, errs, rtol):
             check(r <= rtol, f"{name} at {shape}: rel err {r}")
             if name in EXACT:
                 check(bool((a == b).all()), f"{name} at {shape}: not exact")
-            errs[name] = max(errs[name], d)
+            note_err(errs, name, d)
             line.append(f"{name} {r:.2e}")
     print(f"phase 2 {shape} {label}: kernel vs plain, worst field rel err: "
           + ", ".join(line), flush=True)
@@ -583,11 +641,12 @@ def compare_hyper3(torch, pt, fr, shape, errs):
 
 def shocked_fa(torch, pm, seed):
     """(nf, nx, ny, nz) on the card: a noisy shock-box state of the
-    model's layout at urms ≈ 1 with its shock slot built by the pre-pass,
-    so the shock term is live."""
+    model's layout at urms ≈ 1 (lnρ 5e-2, s and A 1e-2) with its shock
+    slot built by the pre-pass, so the shock term is live."""
     g = torch.Generator("cuda").manual_seed(seed)
-    amp = torch.tensor([{"u": 3 ** -0.5, "l": 5e-2, "a": 1e-2, "s": 0.0}[
-        c[0]] for c in pm.reg.comp_names], device="cuda")
+    amp = torch.tensor([3 ** -0.5 if c[0] == "u" else 5e-2 if c == "lnrho"
+                        else 0.0 if c == "shock" else 1e-2
+                        for c in pm.reg.comp_names], device="cuda")
     fa = amp[:, None, None, None] * torch.randn(
         (pm.reg.nf,) + pm.cfg.grid.shape, generator=g, device="cuda")
     return pm._refresh_aux_fa(fa)
@@ -677,13 +736,15 @@ def stratified_fa(torch, pm, seed):
 
 
 def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
-                           Omega=0.0, chi=0.0):
+                           Omega=0.0, chi=0.0, hyper3=False):
     """Phase 2: K6 and K7 (K6m and K7m with ``magnetic``; their Coriolis
-    instances with ``Omega``, their CHI instances with ``chi``) against
-    their plain versions on CUDA inputs: the interior stack, its boundary
-    planes pinned, and its z-halo slabs."""
+    instances with ``Omega``, their CHI instances with ``chi``, their H3
+    instances with ``hyper3``) against their plain versions on CUDA
+    inputs: the interior stack, its boundary planes pinned, and its
+    z-halo slabs."""
     pm = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic,
-                                       Omega=Omega, chi=chi), device="cuda")
+                                       Omega=Omega, chi=chi, hyper3=hyper3),
+                  device="cuda")
     first, upd = fr.zg_kernels(pm)
     inp = pm.z_slabs(stratified_fa(torch, pm, 1))
     fr.reset_launches()
@@ -698,7 +759,7 @@ def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
     counts = {k: v for k, v in fr.LAUNCHES.items() if v}
     check(counts == {first: 1, upd: 1}, f"launch counts {counts}")
     label = ("magnetoconvection" if magnetic else "conv-slab") + (
-        f", chi = {chi:g}" if chi else "") + (
+        f", chi = {chi:g}" if chi else "") + (", del6" if hyper3 else "") + (
         f", Omega = {Omega:g}" if Omega else "")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{shape} {label} {first} max 1/dt rel err "
@@ -766,9 +827,11 @@ def sheared_fg(torch, pm, seed):
     return pm.ghosted(torch.cat(parts), (0, 1), sdy)
 
 
-def time_ms(torch, fn, n):
-    """Mean ms of fn() over n calls, by CUDA events after one warm-up."""
-    fn()
+def time_ms(torch, fn, n, warm=True):
+    """Mean ms of fn() over n calls, by CUDA events, after one warm-up call
+    where ``warm``."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -794,6 +857,11 @@ def main():
     import pencil_tpu_torch.configs  # noqa: F401  (pt.configs)
     from pencil_tpu_torch.ops import _build
     from pencil_tpu_torch.ops import fused_rhs as fr
+    # every library compiles in the background, the longest first; each
+    # kernel's first call waits for its own library only, so phase 2 takes
+    # the builds in the order they finish: the aux builds, the z-ghosted,
+    # then the periodic ones
+    _build.start()
 
     # ---- phase 1: device and toolchain --------------------------------
     name = torch.cuda.get_device_name(0)
@@ -806,16 +874,52 @@ def main():
     print(f"phase 1: device {name}; nvidia-smi: {smi}", flush=True)
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{nvcc.stdout.strip().splitlines()[-1]}", flush=True)
-    t0 = time.perf_counter()
-    libs = _build.build()
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds}) -> "
-          + ", ".join(p.name for p in libs.values()), flush=True)
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
 
+    def mark(what):
+        print(f"chip_smoke: {what} ended at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    mark("phase 1")
     # ---- phase 2: kernels against their plain versions ----------------
-    errs = dict.fromkeys(KERNEL_NAMES, 0.0)
+    # every instance checked, also those no phase-3 path runs (the
+    # z-ghosted builds' CHI and H3 instances together)
+    errs = dict.fromkeys(fr.LAUNCHES)
+    for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE):
+        for label in AUX_PATHS:
+            compare_aux_kernels(torch, pt, fr, label,
+                                aux_cfg(pt, label, shape), errs,
+                                AUX_RTOL[label])
+    mark("phase 2, the aux builds")
+    # the new aux builds' other instances: with and without Ω and del6
+    for shape in ((64, 64, 64), EDGE_SHAPE):
+        for label in NEW_AUX_PATHS:
+            for Omega in (0.0, 1.0):
+                for hyper3 in (False, True):
+                    compare_aux_kernels(
+                        torch, pt, fr, f"{label}, Omega = {Omega:g}, "
+                        f"{'with' if hyper3 else 'without'} del6",
+                        aux_variant(pt, aux_cfg(pt, label, shape), Omega,
+                                    hyper3), errs, AUX_RTOL[label])
+    mark("phase 2, the aux builds' instances")
+    for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE,
+                  (32, 32, 32)):
+        for magnetic in (False, True):
+            for Omega in (0.0, 1.0):
+                for chi in (0.0, CHI):
+                    compare_zghost_kernels(torch, pt, fr, shape, errs,
+                                           magnetic, Omega, chi)
+    # their H3 instances: alone at 64³, with and without Ω and chi-const
+    # at the edge shape
+    for magnetic in (False, True):
+        compare_zghost_kernels(torch, pt, fr, (64, 64, 64), errs, magnetic,
+                               hyper3=True)
+        for Omega in (0.0, 1.0):
+            for chi in (0.0, CHI):
+                compare_zghost_kernels(torch, pt, fr, EDGE_SHAPE, errs,
+                                       magnetic, Omega, chi, True)
+    mark("phase 2, the z-ghosted builds")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
                          forced_hydro(pt, shape), errs)
@@ -836,33 +940,15 @@ def main():
             forced_entropy(pt, shape, False, Omega=1.0, entropy=dict(
                 iheatcond=("K-const",), hcond0=4e-3)), errs, RTOL_FIELD)
         compare_hyper3(torch, pt, fr, shape, errs)
-    for shape in ((64, 64, 64), (32, 64, 128)):
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
-    for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE):
-        for label in AUX_PATHS:
-            compare_aux_kernels(torch, pt, fr, label,
-                                aux_cfg(pt, label, shape), errs,
-                                AUX_RTOL[label])
-    # the new aux builds' other instances: with and without Ω and del6
-    for shape in ((64, 64, 64), EDGE_SHAPE):
-        for label in NEW_AUX_PATHS:
-            for Omega in (0.0, 1.0):
-                for hyper3 in (False, True):
-                    compare_aux_kernels(
-                        torch, pt, fr, f"{label}, Omega = {Omega:g}, "
-                        f"{'with' if hyper3 else 'without'} del6",
-                        aux_variant(pt, aux_cfg(pt, label, shape), Omega,
-                                    hyper3), errs, AUX_RTOL[label])
-    for shape in ((64, 64, 64), (32, 64, 128), (16, 24, 40), EDGE_SHAPE,
-                  (32, 32, 32)):
-        for magnetic in (False, True):
-            for Omega in (0.0, 1.0):
-                for chi in (0.0, CHI):
-                    compare_zghost_kernels(torch, pt, fr, shape, errs,
-                                           magnetic, Omega, chi)
-    compare_kernels(torch, pt, fr, EDGE_SHAPE, errs)
-    compare_tail_kernels(torch, pt, fr, EDGE_SHAPE, errs)
+    libs = _build.build()
+    print(f"phase 2: kernels built in {_build.build_seconds:.1f} s, each "
+          "library's nvcc ended at: " + ", ".join(
+              f"{k} {t:.1f} s" for k, t in sorted(
+                  _build.build_times.items(), key=lambda kv: kv[1]))
+          + " -> " + ", ".join(p.name for p in libs.values()), flush=True)
+    mark("phase 2")
     n32 = (32, 32, 32)
     for order in (3, 2, 4):
         compare_steps(torch, pt, f"flagship rk{order}",
@@ -900,7 +986,13 @@ def main():
                       ("conv-slab chi", dict(chi=CHI)),
                       ("magnetoconvection chi", dict(magnetic=True, chi=CHI)),
                       ("magnetoconvection chi, Omega = 1",
-                       dict(magnetic=True, Omega=1.0, chi=CHI))):
+                       dict(magnetic=True, Omega=1.0, chi=CHI)),
+                      ("conv-slab h3", dict(hyper3=True)),
+                      ("magnetoconvection h3", dict(magnetic=True,
+                                                    hyper3=True)),
+                      ("magnetoconvection chi h3, Omega = 1",
+                       dict(magnetic=True, Omega=1.0, chi=CHI,
+                            hyper3=True))):
         compare_steps(torch, pt, label, pt.configs.conv_slab(n32, **kw),
                       uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
@@ -915,6 +1007,7 @@ def main():
                       uu_noise=0.0 if shear else 0.1,
                       t0=T_SHEAR if shear else None)
 
+    mark("phase 2b")
     # ---- phase 3: the main paths at 256³ ------------------------------
     shape = (N_MAIN,) * 3
     launches, timings, bounds = {}, {}, {}
@@ -927,13 +1020,18 @@ def main():
                       name="entropy hydro")
     h3 = [run_flagship(torch, pt, fr, smi, shape, launches, name=name)
           for name in TEMPLATE_PATHS if name.endswith(" h3")]
+    mark("phase 3, the periodic builds at order 3")
     zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
     zm = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True)
-    zc = run_conv_slab(torch, pt, fr, smi, shape, launches, chi=CHI)
-    zmc = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True,
-                        chi=CHI)
+    zc, zmc, zh, zmh = (
+        run_conv_slab(torch, pt, fr, smi, shape, launches,
+                      nwin=VARIANT_WINDOWS, **kw)
+        for kw in (dict(chi=CHI), dict(magnetic=True, chi=CHI),
+                   dict(hyper3=True), dict(magnetic=True, hyper3=True)))
+    mark("phase 3, the z-ghosted builds")
     aux = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
            for label in AUX_PATHS}
+    mark("phase 3, the aux builds")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -942,6 +1040,7 @@ def main():
     k8 = run_fake_chain(torch, pt, fr, smi, shape, launches,
                         float(fl[1]["dt"]))
 
+    mark("phase 3")
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings, bounds)
     time_tails(torch, fr, fl, errs, timings, bounds)
@@ -950,6 +1049,7 @@ def main():
         time_tails(torch, fr, path, errs, timings, bounds)
     for path in h3:
         time_h3_instances(torch, pt, fr, smi, path)
+    mark("phase 4, the periodic builds")
     for lib in _build.LIBRARIES:
         for inst, a in fr.flagship_attrs(lib).items():
             check(a["local_bytes"] == 0,
@@ -960,16 +1060,24 @@ def main():
                   f"{a['blocks_per_sm']} block(s) per SM", flush=True)
     print(f"phase 4 K8 chain at 256^3 on {smi}: {k8:.4f} ms/step, the "
           f"flagship's kernel chain {fl[2]:.4f} ms/step", flush=True)
+    mark("phase 4, the attributes")
     time_conv_slab(torch, fr, smi, zg, errs, timings, bounds)
     time_conv_slab(torch, fr, smi, zm, errs, timings, bounds)
     time_conv_slab(torch, fr, smi, zc, errs, timings, bounds, full=False)
     time_conv_slab(torch, fr, smi, zmc, errs, timings, bounds, full=False)
+    time_conv_slab(torch, fr, smi, zh, errs, timings, bounds, full=False)
+    time_conv_slab(torch, fr, smi, zmh, errs, timings, bounds, full=False)
+    mark("phase 4, the z-ghosted builds")
     for box in aux.values():
         time_aux_box(torch, fr, smi, box, errs, timings, bounds)
     for label in NEW_AUX_PATHS:
         time_aux_turns(torch, fr, smi, aux[label],
                        aux[AUX_COUNTERPART[label]])
 
+    mark("phase 4")
+    unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
+    check(not unchecked, f"kernels never held against their plain versions "
+          f"in this run: {unchecked}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],
@@ -1159,31 +1267,35 @@ def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):
 
 
 # windows of TIMED steps of the conv-slab path in phase 3: its step is
-# bound by the host's issue rate, which varies from run to run
+# bound by the host's issue rate, which varies from run to run; its CHI
+# and H3 instances' paths, whose kernels phase 4 times in turns, take
+# fewer
 CONV_SLAB_WINDOWS = 5
+VARIANT_WINDOWS = 3
 
 
 def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
-                  chi=0.0):
+                  chi=0.0, hyper3=False, nwin=CONV_SLAB_WINDOWS):
     """Phase 3: stratified convection, non-periodic z (with ``magnetic``
     magnetoconvection, on K6m/K7m; with ``chi`` chi-const conduction
-    beside K-const, on their CHI instances); the step timed in
-    CONV_SLAB_WINDOWS windows one after the other, the launches counted in
+    beside K-const, on their CHI instances; with ``hyper3`` del6
+    hyper-diffusion, on their H3 instances); the step timed in ``nwin``
+    windows one after the other, the launches counted in
     the first, the card's busy time from torch.profiler's kernel
     records."""
     from pencil_tpu_torch.physics.pencils import Pencils
     label = ("magnetoconvection" if magnetic else "conv-slab") + (
-        " chi" if chi else "")
+        " chi" if chi else "") + (" h3" if hyper3 else "")
     base = torch.cuda.memory_allocated()
-    model = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic, chi=chi),
-                     device="cuda")
+    model = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic, chi=chi,
+                                          hyper3=hyper3), device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches(label, counts, launches)
     step = model.make_step()
     windows, issue = [ms_step], []
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    for _ in range(CONV_SLAB_WINDOWS - 1):
+    for _ in range(nwin - 1):
         torch.cuda.set_sync_debug_mode("error")
         e0.record()
         t0 = time.perf_counter()
@@ -1201,7 +1313,7 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
           + f" ms/step; median {ms_step:.4f}, spread "
           f"{max(windows) - min(windows):.4f} ms "
           f"({(max(windows) / min(windows) - 1) * 100:.2f} %); the host "
-          f"issued windows 2-{CONV_SLAB_WINDOWS} in "
+          f"issued windows 2-{nwin} in "
           + ", ".join(f"{w:.4f}" for w in issue) + " ms/step; the card "
           + (f"busy {busy:.4f} ms a step in {nkern} kernels"
              if busy else "busy: not measured (torch.profiler recorded "
@@ -1220,7 +1332,8 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
     # of the timed window): 1/dt = max over points of the root sum of the
     # advective and diffusive rates, so it lies between the larger of
     # their maxima and the root sum of their maxima (with Magnetic the
-    # latter holds the largest Alfvén speed too)
+    # latter holds the largest Alfvén speed too; with del6 the diffusive
+    # rate holds the constant dxyz₆ one)
     dt_next = float(model.make_step()(state)["dt"])
     cfg, eos, ent = model.cfg, model.eos, model.cfg.module("entropy")
     tc, gs = cfg.time, cfg.grid
@@ -1242,9 +1355,11 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
     adv_b = float((umax + torch.sqrt(cs2.max() * dxyz2 + va2)) / tc.cdt)
     chik = ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
     mag = cfg.module("magnetic")
+    dxyz6 = sum(i ** 6 for i in inv)
     dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0, chik,
               ent.chi * eos.gamma if ent.chi_conduction else 0.0) \
-        * dxyz2 / tc.cdtv
+        * dxyz2 / tc.cdtv \
+        + max(fr.hyper3_coefficients(cfg)) * dxyz6 / tc.cdtv3
     check(1.0 / math.hypot(adv_b, dif) * (1 - 1e-5) <= dt_next
           <= 1.0 / max(adv, dif) * (1 + 1e-5),
           f"dt {dt_next} outside the CFL bounds ({adv}-{adv_b}, {dif})")
@@ -1291,6 +1406,12 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     fg = model.ghosted(model._refresh_aux_fa(fa, sdy), shear_dy=sdy)
     pen = Pencils(fg, model.grid, model.reg, cfg, eos, ghosted=True)
     va2, shock = 0.0, 0.0
+    # the squared sound speed, cs0² but with ss (γ = 5/3) at each point
+    cs2_lo = cs2_hi = eos.cs20
+    if "ss" in model.reg.slots:
+        cs2 = pen.cs2()
+        cs2_lo, cs2_hi = float(cs2.min()), float(cs2.max())
+        del cs2
     if "aa" in model.reg.slots:
         bb = pen.bb()
         va2 = float((sum((bb[a] * inv[a]) ** 2 for a in range(3))
@@ -1302,18 +1423,20 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     vis, mag = cfg.module("viscosity"), cfg.module("magnetic")
     eta, eta3 = (mag.eta, mag.eta_hyper3) if mag else (0.0, 0.0)
     nu, nu_shock, nu3 = vis.coefficients()
+    ent = cfg.module("entropy")
+    chig = ent.chi * eos.gamma if ent is not None else 0.0
     shear = cfg.module("shear")
     shear_rate = (abs(shear.S) * float(model.grid.x.abs().max())
                   if shear else 0.0)
-    sound = math.sqrt(eos.cs20 * dxyz2)
+    sound = math.sqrt(cs2_lo * dxyz2)
     umax = sum(float(fa[a].abs().max()) * inv[a] for a in range(3))
     adv_lo = (shear_rate * inv[1] + sound) / tc.cdt
     adv_hi = (umax + shear_rate * inv[1]
-              + math.sqrt(eos.cs20 * dxyz2 + va2)) / tc.cdt
+              + math.sqrt(cs2_hi * dxyz2 + va2)) / tc.cdt
     dif3 = max(nu3, eta3,
                cfg.module("density").diffrho_hyper3) * dxyz6 / tc.cdtv3
-    dif_lo = max(nu, eta) * dxyz2 / tc.cdtv + dif3
-    dif_hi = max(nu, eta, nu_shock * shock) * dxyz2 / tc.cdtv + dif3
+    dif_lo = max(nu, eta, chig) * dxyz2 / tc.cdtv + dif3
+    dif_hi = max(nu, eta, chig, nu_shock * shock) * dxyz2 / tc.cdtv + dif3
     check(1.0 / math.hypot(adv_hi, dif_hi) * (1 - 1e-5) <= dt_next
           <= 1.0 / math.hypot(adv_lo, dif_lo) * (1 + 1e-5),
           f"{label} dt {dt_next} outside the CFL bounds ({adv_lo}-{adv_hi}, "
@@ -1356,7 +1479,7 @@ def time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
         check(r <= RTOL_FIELD, f"{kname} at 256^3: rel err {r}")
         if kname in EXACT:
             check(bool((a == b).all()), f"{kname} at 256^3: not exact")
-        errs[kname] = max(errs[kname], d)
+        note_err(errs, kname, d)
     npts = N_MAIN ** 3
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *got)
                  if t is not None)
@@ -1365,7 +1488,8 @@ def time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
     bounds[kname] = (nbytes / npts, max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations")
     del got, want
-    timings[kname] = (time_ms(torch, kern, 20), time_ms(torch, plain, 3),
+    timings[kname] = (time_ms(torch, kern, 20),
+                      time_ms(torch, plain, PLAIN_CALLS, warm=False),
                       library and time_ms(torch, library, 20))
     print(f"phase 4 {kname} at 256^3: kernel {timings[kname][0]:.4f} ms,"
           f" plain {timings[kname][1]:.4f} ms, library call "
@@ -1411,7 +1535,8 @@ def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
     plain_ms = time_ms(
-        torch, lambda: model._fused_step(plain_state, plain_chain), 3)
+        torch, lambda: model._fused_step(plain_state, plain_chain),
+        PLAIN_CALLS, warm=False)
     name = {v: k for k, v in TEMPLATE_PATHS.items()}[sfx]
     print(f"phase 4 {name} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
@@ -1469,7 +1594,7 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
 
 
 def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds, full=True):
-    """K6/K7 (K6m/K7m; their CHI instances) checked and timed on the
+    """K6/K7 (K6m/K7m; their CHI or H3 instances) checked and timed on the
     stratified noisy input of phase 2 at 256³, not on the main path's
     state: there uz's tendency is the small residual of the O(1) pressure
     and gravity forces, and the f32 rounding of those forces alone reaches
@@ -1482,7 +1607,8 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds, full=True):
     model, state, ms_step = zg
     first, upd = fr.zg_kernels(model)
     label = ("magnetoconvection" if "aa" in model.reg.slots
-             else "conv-slab") + (" chi" if first.endswith("_chi") else "")
+             else "conv-slab") + (" chi" if "_chi" in first else "") + (
+        " h3" if first.endswith("_h3") else "")
     fa = state["_fa"]
     inp = model.z_slabs(stratified_fa(torch, model, 3))
     _, beta, _ = model.rk
@@ -1506,7 +1632,8 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds, full=True):
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
     plain_ms = time_ms(torch, lambda: model._zghost_step(
-        plain_state, (fr.rhs_zg_plain, fr.rhs_zg_upd_plain)), 3)
+        plain_state, (fr.rhs_zg_plain, fr.rhs_zg_upd_plain)), PLAIN_CALLS,
+        warm=False)
     print(f"phase 4 {label} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
     if not full:
@@ -1555,24 +1682,26 @@ def print_turns(head, times):
 
 
 def time_zg_instances(torch, fr, smi, model):
-    """The Coriolis and chi-const instances of ``model``'s z-ghosted build
-    (its configuration with Ω = 1, with χ = CHI, with both) timed against
-    the plain ones on one stratified input at 256³, in turns; phase 2
-    checks them against their plain versions."""
-    import dataclasses
+    """The Coriolis, chi-const and H3 instances of ``model``'s z-ghosted
+    build (its configuration with Ω = 1, with χ = CHI, with both, with
+    del6, with all three) timed against the plain ones on one stratified
+    input at 256³, in turns; phase 2 checks them against their plain
+    versions."""
     cfg = model.cfg
 
-    def variant(Omega, chi):
-        mods = tuple(
-            dataclasses.replace(m, Omega=Omega) if m.name == "hydro" and Omega
-            else dataclasses.replace(m, iheatcond=("K-const", "chi-const"),
-                                     chi=chi)
-            if m.name == "entropy" and chi else m for m in cfg.modules)
-        return type(model)(cfg.replace(modules=mods), device="cuda")
+    import pencil_tpu_torch.configs as pc
+    magnetic = cfg.module("magnetic") is not None
+
+    def variant(Omega, chi, hyper3=False):
+        return type(model)(pc.conv_slab(cfg.grid.shape, magnetic=magnetic,
+                                        Omega=Omega, chi=chi, hyper3=hyper3),
+                           device="cuda")
 
     variants = {"Omega = 0": model, "Omega = 1": variant(1.0, 0.0),
                 f"chi = {CHI:g}": variant(0.0, CHI),
-                f"Omega = 1, chi = {CHI:g}": variant(1.0, CHI)}
+                f"Omega = 1, chi = {CHI:g}": variant(1.0, CHI),
+                "del6": variant(0.0, 0.0, True),
+                f"Omega = 1, chi = {CHI:g}, del6": variant(1.0, CHI, True)}
     first, upd = fr.zg_kernels(model)
     inp = model.z_slabs(stratified_fa(torch, model, 3))
     df1, dt1m = fr.rhs_zg_plain(model, *inp)
@@ -1580,8 +1709,8 @@ def time_zg_instances(torch, fr, smi, model):
     times = in_turns(torch, variants, {
         first: lambda m: fr.rhs_zg(m, *inp),
         upd: lambda m: fr.rhs_zg_upd(m, *inp, df1, coef)})
-    print_turns(f"phase 4 {first}, {upd} and their Coriolis and chi-const "
-                f"instances at 256^3 on {smi}", times)
+    print_turns(f"phase 4 {first}, {upd} and their Coriolis, chi-const "
+                f"and del6 instances at 256^3 on {smi}", times)
 
 
 def time_h3_instances(torch, pt, fr, smi, path):
@@ -1760,7 +1889,7 @@ def time_aux_box(torch, fr, smi, box, errs, timings, bounds):
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
     plain_ms = time_ms(torch, lambda: model._aux_step(
-        plain_state, (first_p, upd_p)), 3)
+        plain_state, (first_p, upd_p)), PLAIN_CALLS, warm=False)
     line = (f"phase 4 {label} plain chain at 256^3 on {smi}: "
             f"{plain_ms:.4f} ms/step (kernel chain {ms_step:.4f} ms/step)")
     if model.reg.nf > model.reg.nvar:
@@ -1809,4 +1938,11 @@ def time_aux_turns(torch, fr, smi, box, other):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        # a failure stops the nvcc runs still going
+        build = sys.modules.get("pencil_tpu_torch.ops._build")
+        if build is not None:
+            build.cancel()
+    sys.exit(rc)

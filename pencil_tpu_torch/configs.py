@@ -8,7 +8,8 @@ from __future__ import annotations
 import sys
 
 
-def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0):
+def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
+              hyper3=False):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -25,8 +26,12 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0):
     a rotation about z (rotating convection).  ``chi`` > 0 adds
     'chi-const' conduction with that χ beside K-const, the Pencil Code's
     usual stand-in for turbulent heat diffusion (χ = 4e-3 = ν, a Prandtl
-    number of 1, is the value this repository runs).  The values are this
-    configuration's own, not the sample's start.in/run.in.
+    number of 1, is the value this repository runs).  ``hyper3`` adds del6
+    hyper-diffusion of u, lnρ and (with Magnetic) A with ν₃ = D₃ = η₃ =
+    5e-3·dx⁵ ('hyper3-simplified', ``diffrho_hyper3``, ``eta_hyper3``), as
+    in ``flagship``: hyper-diffusive convection, ν and η unchanged.  The
+    values are this configuration's own, not the sample's
+    start.in/run.in.
 
     The bottom c1 flux follows the run-directory loader's rule
     (pencil_tpu/compat/rundir.py:2400-2406):
@@ -35,6 +40,9 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0):
     """
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
+                        Lx=1.0, Ly=1.0, Lz=1.0, periodic=(True, True, False))
+    den, visc, eta3 = _hyper3(pkg, grid, hyper3)
     gamma, cp, gravz, mpoly1, cs2cool = 5.0 / 3.0, 1.0, -1.0, 3.0, 1.0
     lval = -gamma * gravz / ((mpoly1 + 1.0) * (gamma - 1.0) * cp)
     bcz = (pkg.BC.parse("ux", "s"), pkg.BC.parse("uy", "s"),
@@ -44,19 +52,17 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0):
     if magnetic:
         bcz += (pkg.BC.parse("ax", "a"), pkg.BC.parse("ay", "a"),
                 pkg.BC.parse("az", "s"))
-        mag = (pkg.Magnetic(eta=4e-3, init="gaussian-noise", ampl=1e-4),)
+        mag = (pkg.Magnetic(eta=4e-3, init="gaussian-noise", ampl=1e-4,
+                            **eta3),)
     heat = (dict(iheatcond=("K-const", "chi-const"), chi=chi) if chi > 0.0
             else dict(iheatcond=("K-const",)))
     return pkg.Config(
-        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
-                          Lx=1.0, Ly=1.0, Lz=1.0,
-                          periodic=(True, True, False)),
-        time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
+        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
         modules=(pkg.EosIdealGas(gamma=gamma, cs0=1.0, cp=cp),
-                 pkg.Density(init="piecew-poly"),
+                 pkg.Density(init="piecew-poly", **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Gravity(gravz_profile="const", gravz=gravz),
-                 pkg.Viscosity(ivisc=("nu-const",), nu=4e-3),
+                 pkg.Viscosity(nu=4e-3, **visc),
                  pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
                              mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
                              **heat, hcond0=8e-3,
@@ -79,7 +85,8 @@ def _hyper3(pkg, gs, hyper3):
             dict(eta_hyper3=h3))
 
 
-def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True):
+def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True,
+              entropy=False):
     """A sheared, rotating MHD box with shock viscosity and
     hyper-diffusion, the accretion-disk set-up of shearing-box MRI users:
     a unit cube centred on the origin, fully periodic with shear-periodic
@@ -94,7 +101,12 @@ def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True):
     ``magnetic=False`` drops Magnetic and forces the flow instead
     (non-helical, amplitude 0.05 at kf = 3): the forced shear flow of the
     shear-dynamo studies (Yousef et al. 2008) without its field; 5 slots
-    (uu, lnrho, shock), or 4 without the shock slot.
+    (uu, lnrho, shock), or 4 without the shock slot.  ``entropy`` makes
+    the gas an ideal gas with γ = 5/3 (cs0 = 1, cp = 1) and an entropy
+    field with 'chi-const' conduction, χ = ν = 5e-4, and viscous (with
+    Magnetic also Ohmic) heating: the forced hydro shear flow with an
+    energy equation, 6 slots (uu, lnrho, ss, shock), or 5 without the
+    shock slot.
 
     The hyper-diffusivity h3 = 5e-3·(1/n)⁵ keeps the del6 CFL rate
     h3·dxyz6/cdtv3 (cdtv3 = 0.01) at about half the advective rate at
@@ -109,21 +121,32 @@ def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True):
     tail = ((pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-4,
                           eta_hyper3=h3),) if magnetic
             else (pkg.Forcing(force=0.05, kf=3.0, relhel=0.0),))
+    eos, ent = _energy(pkg, entropy, 5e-4)
     return pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.5,
                           Lx=1.0, Ly=1.0, Lz=1.0),
         time=pkg.TimeSpec(itorder=3), fused=fused,
-        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+        modules=(eos,
                  pkg.Density(init="gaussian-noise", ampl=1e-2,
                              diffrho_hyper3=h3),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-2, Omega=1.0),
                  pkg.Shear(Omega=1.0, qshear=1.5),
                  pkg.Viscosity(nu=5e-4, nu_hyper3=h3, **visc),
-                 *tail,
+                 *tail, *ent,
                  *((pkg.Shock(),) if shock else ())))
 
 
-def shock_box(n, fused=True, pkg=None, magnetic=True):
+def _energy(pkg, entropy, chi):
+    """(EOS, (Entropy,) or ()) of the shock and shear boxes: the
+    isothermal gas (cs = 1), or with ``entropy`` an ideal gas with γ = 5/3
+    (cs0 = 1, cp = 1) and 'chi-const' conduction with χ = ``chi``."""
+    if not entropy:
+        return pkg.EosIdealGas(gamma=1.0, cs0=1.0), ()
+    return (pkg.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0),
+            (pkg.Entropy(iheatcond=("chi-const",), chi=chi),))
+
+
+def shock_box(n, fused=True, pkg=None, magnetic=True, entropy=False):
     """Supersonic forced MHD turbulence with shock viscosity, the Pencil
     Code's shock-capturing set-up (Haugen, Brandenburg & Mee 2004, MNRAS
     353, 947): the default 2π cube, fully periodic, isothermal gas
@@ -132,22 +155,27 @@ def shock_box(n, fused=True, pkg=None, magnetic=True):
     shock profile).  ``magnetic=False`` drops Magnetic: supersonic
     isothermal hydro turbulence with shock viscosity, the
     compressible-turbulence benchmark of Kritsuk et al. 2007 (ApJ 665,
-    416); 5 slots (uu, lnrho, shock).  ``n`` is an int (a cube) or (nx,
-    ny, nz).  The values are this configuration's own, not a reference
-    sample's."""
+    416); 5 slots (uu, lnrho, shock).  ``entropy`` makes the gas an ideal
+    gas with γ = 5/3 (cs0 = 1, cp = 1) and an entropy field with
+    'chi-const' conduction, χ = ν = 1e-3, and viscous (shock heating
+    included) and Ohmic heating: supersonic turbulence with an energy
+    equation, 6 slots without Magnetic (uu, lnrho, ss, shock), 9 with it.
+    ``n`` is an int (a cube) or (nx, ny, nz).  The values are this
+    configuration's own, not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     mag = ((pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=1e-3),)
            if magnetic else ())
+    eos, ent = _energy(pkg, entropy, 1e-3)
     return pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
         time=pkg.TimeSpec(itorder=3), fused=fused,
-        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+        modules=(eos,
                  pkg.Density(),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-2),
                  pkg.Viscosity(ivisc=("nu-const", "nu-shock"), nu=1e-3,
                                nu_shock=1.0),
-                 *mag,
+                 *mag, *ent,
                  pkg.Shock(),
                  pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))
 

@@ -27,7 +27,13 @@
 // module's terms: with -DPC_SHOCK=1 on the 8 slots uu, lnrho, aa, shock
 // (K4, K5), without it on the 7 fields uu, lnrho, aa (K4n, K5n), and
 // with -DPC_MAG=0 on uu, lnrho, shock (K4h, K5h) or uu, lnrho (K4hn,
-// K5hn).  These builds replace the `kernel` / `kernel_upd` calls of the
+// K5hn).  With -DPC_MAG=0 -DPC_ENT=1 the shock and shear builds take an
+// entropy field too: K1she, K5whe on uu, lnrho, ss, shock (non-isothermal
+// supersonic turbulence), K4he, K5he and K4hne, K5hne the hydro shear box
+// with ss, with and without the shock slot; they add the entropy terms of
+// the periodic entropy builds, the shock's viscous heat nu_sh shock
+// (div u)^2 and the shear's -S x dss/dy.  These builds replace the
+// `kernel` / `kernel_upd` calls of the
 // zroll fetch and of the wrap fetch with an aux slot (model.py:576-730)
 // and have no DEFER, LAST, KICK or FAKE instance: the shock pre-pass
 // rebuilds the slot between substeps, and the shear box kicks after the
@@ -51,7 +57,10 @@
 // conduction is.  Both z-ghosted builds have a Coriolis (ROT) instance of
 // each kernel, the rotating conv-slab's, and one with the flag CHI, which
 // adds 'chi-const' conduction beside K-const (its rate chi gamma is part
-// of the constant maxdif of the CFL), with and without rotation.
+// of the constant maxdif of the CFL), with and without rotation, and
+// instances with the flag H3, the del6 terms of the periodic builds (their
+// +-3 taps in z are what the slabs hold), with and without CHI and
+// rotation: eight instances of each kernel.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -192,11 +201,12 @@
 #ifndef PC_ZG
 #define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
 #endif                 //    with PC_MAG K6m, K7m)
-// The shock and shear builds take the isothermal layouts, with or without
-// aa: a shock slot beside ss would make a 9-slot ring, and the 8-field
-// tails already hold 241-255 registers
-#if (PC_SHOCK || PC_SHEAR) && PC_ENT
-#error "the shock and shear builds take the isothermal layouts"
+// The shock and shear builds take the layouts without aa with or without
+// ss, and the isothermal ones with aa: ss beside aa would make an 8-field
+// shear box or a 9-slot ring with the shock slot, and the 8-field tails
+// already hold 241-255 registers
+#if (PC_SHOCK || PC_SHEAR) && PC_ENT && PC_MAG
+#error "the shock and shear builds take no MHD layout with ss (8 or 9 slots)"
 #endif
 #if PC_ZG && (!PC_ENT || PC_SHOCK || PC_SHEAR)
 #error "the z-ghosted builds take the entropy layouts"
@@ -392,11 +402,15 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // hyper-diffusion terms of u, A and lnrho, all three, a coefficient of 0
 // adding 0 (a flag as ROT is, picked on the host: without it the shocked
 // box's K1s and K5w measured 4-5 % faster; testing each coefficient inside
-// made K4 and K5 4-6 % slower).  The four periodic builds take H3 too, in
-// the same places: D3 del6 lnrho after the density terms, nu3 del6 u
-// joined to the nu-const force as one force before it is added to du,
-// eta3 del6 A after eta del2 A, and the constant rate dif3 added to the
-// diffusive one.  The z-ghosted build adds gravity after
+// made K4 and K5 4-6 % slower).  The four periodic and the two z-ghosted
+// builds take H3 too, in the same places: D3 del6 lnrho after the density
+// terms, nu3 del6 u joined to the nu-const force as one force before it
+// is added to du, eta3 del6 A after eta del2 A, and the constant rate
+// dif3 added to the diffusive one.  With ss the shock and shear builds
+// add nu_sh shock (div u)^2 to the viscous heat and, with the shear, its
+// -S x dss/dy before the entropy terms (the Shear module comes first);
+// their CFL takes chi gamma and K-const's rate among the diffusivities.
+// The z-ghosted build adds gravity after
 // the pressure force and the layer terms after the heating, in the order
 // of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
 // point's cooling profile, lay_h heat_norm times its heating profile, and
@@ -653,7 +667,18 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
       ds = ds + P.cpchi * (del2lnTT + gdot);
     }
   }
+#if PC_SHOCK
+  // the viscous heat 2 nu S^2 + nu_sh shock (div u)^2, in Viscosity's order
+  if (P.two_nu > 0.0f || P.nu_shock > 0.0f) {
+    float heat = P.two_nu * sij2;
+    if (P.nu_shock > 0.0f)
+      heat = __fadd_rn(heat, __fmul_rn(__fmul_rn(__fmul_rn(P.nu_shock, shock),
+                                                 divu), divu));
+    ds = ds + heat * TT1;
+  }
+#else
   if (PC_ZG || P.two_nu > 0.0f) ds = ds + (P.two_nu * sij2) * TT1;
+#endif
 #if PC_MAG
   if (PC_ZG || P.eta_heat > 0.0f) {
     const float j2 = (jj[0] * jj[0] + jj[1] * jj[1]) + jj[2] * jj[2];
@@ -665,7 +690,12 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   ds = ds - ((((rho1 * TT1) * P.cool) * lay_c) * (cs2 - P.cs2c)) / P.cs2c;
   ds = ds + (lay_h * rho1) * TT1;
 #endif
+#if PC_SHEAR
+  // the Shear module's -S x dss/dy comes first
+  r[SS] = __fadd_rn(__fmul_rn(muy0, gs[1]), ds);
+#else
   r[SS] = ds;
+#endif
 #endif
 
   if (WANT_DT1) {
@@ -687,22 +717,29 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     const float dt1a = adv / P.cdt;
 #if PC_JOINS
     // the diffusivity max(nu, nu_sh*shock, eta) at this point (the terms of
-    // the build's layout), plus the constant del6 rate
+    // the build's layout; with ss also chi gamma of chi-const, in maxdif,
+    // and K-const's K gamma/(rho cp)), plus the constant del6 rate
     const bool has_dif = P.nu > 0.0f || (PC_SHOCK && P.nu_shock > 0.0f)
-                         || (PC_MAG && P.eta > 0.0f);
+                         || (PC_MAG && P.eta > 0.0f)
+                         || (PC_ENT && (P.maxdif > 0.0f || P.hcond0 > 0.0f));
     float md = 0.0f;
     if (P.nu > 0.0f) md = P.nu;
 #if PC_SHOCK
     if (P.nu_shock > 0.0f) md = fmaxf(md, P.nu_shock * shock);
 #endif
     if (PC_MAG && P.eta > 0.0f) md = fmaxf(md, P.eta);
+#if PC_ENT
+    md = fmaxf(fmaxf(md, P.maxdif), chik);
+#endif
     float dif = has_dif ? (md * P.dxyz2) / P.cdtv : 0.0f;
     if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
     dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
 #elif PC_ZG
     // max(nu, [eta,] K gamma/(rho cp)) at this point (maxdif = max(nu,
     // eta)): with nothing diffusive dif = 0 and the root gives dt1a exactly
-    const float dif = (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv;
+    // H3: plus the constant del6 rate
+    float dif = (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv;
+    if constexpr (H3) dif = __fadd_rn(dif, P.dif3);
     dt1 = sqrtf(dt1a * dt1a + dif * dif);
 #elif PC_ENT
     // the K-const rate varies from point to point; H3: plus the constant
@@ -922,9 +959,8 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // rebuilds f1 = f0 + cprev*df1 in the ring and LAST skips the df store.
 // FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor); ROT
 // adds the Coriolis force (launch() picks it where P.om is not 0), H3 the
-// del6 terms (picked where a hyper coefficient is not 0; the z-ghosted
-// builds have none), CHI the z-ghosted builds' chi-const term (picked
-// where cp chi is not 0).  coef =
+// del6 terms (picked where a hyper coefficient is not 0), CHI the
+// z-ghosted builds' chi-const term (picked where cp chi is not 0).  coef =
 // [alpha, beta*dt, cprev] and kick = [k(3), phase, f_re(3), f_im(3), N*dt,
 // 0] live on the device, so no launch needs a host copy of dt.  dfin and
 // dfout may be one buffer (K3'): each thread reads and writes only its own
@@ -1241,12 +1277,14 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     }
   }
   // a red[] of its own for the z-ghosted builds' Coriolis K6 and for each
-  // instance with the H3 (periodic builds) or CHI flag, so that the
-  // instances without them keep the shared layout of a build that lacks
-  // those
+  // instance with the H3 (periodic and z-ghosted builds) or CHI flag, so
+  // that the instances without them keep the shared layout of a build
+  // that lacks those
   constexpr bool XT = CHI || (H3 && PC_TAILS);
+  constexpr bool ZH3 = H3 && PC_ZG;
   if (FIRST)
-    block_max_store<NTHREADS, ((PC_ZG || XT) && ROT) + 2 * XT>(
+    block_max_store<NTHREADS,
+                    ((PC_ZG || XT) && ROT) + 2 * XT + 4 * ZH3>(
         dt1max, dt1blk + (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                     + blockIdx.x);
 }
@@ -1271,34 +1309,46 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
   return (int)cudaGetLastError();
 }
 
+// launch_as with the Coriolis force where Omega is not 0
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool H3, bool CHI>
+static int launch_rot(const PcParams* p, const float* fa, const float* dfin,
+                      const float* coef, const float* kick, const float* ktab,
+                      float* dfout, float* faout, float* dt1blk, void* stream,
+                      const ZgIn& zg) {
+  const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
+  return rot
+      ? launch_as<FIRST, DEFER, LAST, KICK, false, true, H3, CHI>(
+            p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg)
+      : launch_as<FIRST, DEFER, LAST, KICK, false, false, H3, CHI>(
+            p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+}
+
 // The instance with the Coriolis force where Omega is not 0 (K8 has none)
 // and with the build's own terms where they are on: the del6 terms where a
-// hyper coefficient is not 0 (H3: the periodic and shock builds), chi-const
-// where cp chi is not 0 (CHI: the z-ghosted builds, which have no del6
-// terms and refuse the hyper coefficients rather than drop them).
+// hyper coefficient is not 0 (H3: every build), chi-const where cp chi is
+// not 0 (CHI: the z-ghosted builds, each with both flags, four instances
+// a rotation).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
                   float* dfout, float* faout, float* dt1blk, void* stream,
                   const ZgIn& zg = ZgIn{}) {
   if constexpr (!FAKE) {
-    const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
     const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
 #if PC_ZG
-    if (hyper) return (int)cudaErrorNotSupported;
-    const bool extra = p->cpchi > 0.0f;
-#else
-    const bool extra = hyper;
-#endif
-    constexpr bool H3 = !PC_ZG, CHI = PC_ZG;
-    if (extra)
-      return rot
-          ? launch_as<FIRST, DEFER, LAST, KICK, false, true, H3, CHI>(
+    if (p->cpchi > 0.0f)
+      return hyper
+          ? launch_rot<FIRST, DEFER, LAST, KICK, true, true>(
                 p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
                 zg)
-          : launch_as<FIRST, DEFER, LAST, KICK, false, false, H3, CHI>(
+          : launch_rot<FIRST, DEFER, LAST, KICK, false, true>(
                 p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream,
                 zg);
+#endif
+    if (hyper)
+      return launch_rot<FIRST, DEFER, LAST, KICK, true, false>(
+          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+    const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
     if (rot)
       return launch_as<FIRST, DEFER, LAST, KICK, false, true, false, false>(
           p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
@@ -1370,13 +1420,11 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
 #endif  // PC_TAILS
 
 // Registers, local (spill) bytes per thread, static and dynamic shared
-// memory per block, and resident blocks per SM of one instance; X: with the
-// build's own terms (H3, or CHI in the z-ghosted builds).
+// memory per block, and resident blocks per SM of one instance.
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE,
-          bool ROT = false, bool X = false>
+          bool ROT = false, bool H3 = false, bool CHI = false>
 static int attrs(int* out) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, X && !PC_ZG,
-                          X && PC_ZG>;
+  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1396,18 +1444,19 @@ static int attrs(int* out) {
 }
 
 // attrs() of the instance `base` of pc_flagship_attrs with rotation ROT and
-// the build's own terms X
-template <bool ROT, bool X>
+// the flags H3 and CHI
+template <bool ROT, bool H3, bool CHI>
 static int attrs_of(int base, int* out) {
   switch (base) {
-    case 0: return attrs<true, false, false, false, false, ROT, X>(out);
-    case 8: return attrs<false, false, false, false, false, ROT, X>(out);
+    case 0: return attrs<true, false, false, false, false, ROT, H3, CHI>(out);
+    case 8: return attrs<false, false, false, false, false, ROT, H3, CHI>(out);
 #if PC_TAILS
-    case 2: return attrs<false, true, false, false, false, ROT, X>(out);
-    case 4: return attrs<false, false, true, true, false, ROT, X>(out);
-    case 5: return attrs<false, false, true, false, false, ROT, X>(out);
-    case 9: return attrs<false, true, true, true, false, ROT, X>(out);
-    case 10: return attrs<false, true, true, false, false, ROT, X>(out);
+    case 2: return attrs<false, true, false, false, false, ROT, H3, CHI>(out);
+    case 4: return attrs<false, false, true, true, false, ROT, H3, CHI>(out);
+    case 5: return attrs<false, false, true, false, false, ROT, H3, CHI>(out);
+    case 9: return attrs<false, true, true, true, false, ROT, H3, CHI>(out);
+    case 10:
+      return attrs<false, true, true, false, false, ROT, H3, CHI>(out);
 #endif
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1426,11 +1475,11 @@ int pc_tile_shape(int* out) {
 
 // attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
 // and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
-// and without the kick; + 16 with rotation, + 32 with the build's own
-// terms (H3; CHI in the z-ghosted builds).  Only the isothermal MHD build
-// has K8 (1, 3, 6, 7; none with rotation or H3).  The shock builds have 0
-// and 8 (K1s and K5w, or K4 and K5), the z-ghosted builds 0 and 8 (K6 and
-// K7, K6m and K7m), each with the four flag sets.
+// and without the kick; + 16 with rotation, + 32 with the del6 terms (H3),
+// + 64 with chi-const (CHI, the z-ghosted builds only).  Only the
+// isothermal MHD build has K8 (1, 3, 6, 7; none with rotation or H3).  The shock builds have 0 and 8 (K1s and K5w, or K4 and
+// K5), each with the four flag sets, the z-ghosted builds 0 and 8 (K6 and
+// K7, K6m and K7m) with the eight.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
 #if PC_MAG && !PC_ENT && PC_TAILS
@@ -1443,10 +1492,16 @@ int pc_flagship_attrs(int which, int* out) {
   }
   const int base = which & 15;
   switch (which >> 4) {
-    case 0: return attrs_of<false, false>(base, out);
-    case 1: return attrs_of<true, false>(base, out);
-    case 2: return attrs_of<false, true>(base, out);
-    case 3: return attrs_of<true, true>(base, out);
+    case 0: return attrs_of<false, false, false>(base, out);
+    case 1: return attrs_of<true, false, false>(base, out);
+    case 2: return attrs_of<false, true, false>(base, out);
+    case 3: return attrs_of<true, true, false>(base, out);
+#if PC_ZG
+    case 4: return attrs_of<false, false, true>(base, out);
+    case 5: return attrs_of<true, false, true>(base, out);
+    case 6: return attrs_of<false, true, true>(base, out);
+    case 7: return attrs_of<true, true, true>(base, out);
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -46,8 +46,9 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   ``z_slabs`` and K7 (df ← α·df + RHS(f), f ← f + βΔt·df); then
   ``bc_writeback`` pins the boundary planes that value-setting BCs fix.
   With Magnetic the wrappers launch K6m and K7m, the 8-field build; with
-  'chi-const' conduction beside K-const either build's CHI instances.
-  Hyper-diffusion stays outside (the z-ghosted builds have no del6 terms).
+  'chi-const' conduction beside K-const either build's CHI instances, and
+  with del6 hyper-diffusion ('hyper3-simplified', η₃, D₃) its H3
+  instances.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -70,7 +71,9 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   build of its own: the shocked box without Magnetic (supersonic hydro
   turbulence: K1sh, K5wh), the shear box without the shock slot (K4n,
   K5n), and the hydro shear box with and without it (K4h, K5h; K4hn,
-  K5hn).  Without the shock slot a substep has no pre-pass.
+  K5hn); and the three hydro ones with an entropy field (K1she, K5whe;
+  K4he, K5he; K4hne, K5hne).  Without the shock slot a substep has no
+  pre-pass.  The MHD layouts with an entropy field stay outside.
 
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
@@ -90,11 +93,10 @@ from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import BC_REGISTRY
-from .ops.fused_rhs import (hyper3_coefficients, rhs_first, rhs_plain,
-                            rhs_tail_defer, rhs_tail_defer_last,
-                            rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
-                            rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
-                            rhs_zroll, rhs_zroll_upd)
+from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
+                            rhs_tail_defer_last, rhs_tail_last, rhs_tail_mid,
+                            rhs_wrap_shock, rhs_wrap_shock_upd, rhs_zg,
+                            rhs_zg_upd, rhs_zroll, rhs_zroll_upd)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
@@ -136,11 +138,14 @@ CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
 ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"})
 # the shearing box, MHD or hydro, each with or without the shock slot, and
 # the shocked periodic box, MHD or hydro (forcing optional in all; the
-# isothermal layouts: a shock slot beside an entropy field stays refused)
+# hydro ones also with an entropy field: the MHD layouts with ss stay
+# refused)
 ZROLL_SETS = tuple(base | {"shear"} | shock
-                   for base in (FLAGSHIP_MODULES, HYDRO_MODULES)
+                   for base in (FLAGSHIP_MODULES, HYDRO_MODULES,
+                                ENT_HYDRO_MODULES)
                    for shock in ({"shock"}, set()))
-SHOCKBOX_SETS = (FLAGSHIP_MODULES | {"shock"}, HYDRO_MODULES | {"shock"})
+SHOCKBOX_SETS = (FLAGSHIP_MODULES | {"shock"}, HYDRO_MODULES | {"shock"},
+                 ENT_HYDRO_MODULES | {"shock"})
 
 
 def _order_key(order):
@@ -164,23 +169,16 @@ def _shock_options(cfg: Config):
             if visc is not None and visc.coefficients()[1] else [])
 
 
-def _hyper3_options(cfg: Config):
-    """The del6 hyper-diffusion options in use, which the periodic and
-    shock builds implement (their H3 instances) and the z-ghosted builds
-    do not."""
-    names = ("Viscosity hyper3-simplified", "Magnetic.eta_hyper3",
-             "Density.diffrho_hyper3")
-    return [n for n, c in zip(names, hyper3_coefficients(cfg)) if c > 0.0]
-
-
 def fused_mode(cfg: Config):
     """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain,
     with or without an entropy field, each with or without del6
     hyper-diffusion), 'zghost' (stratified convection and
-    magnetoconvection, each with or without Ω and chi-const),
-    'zroll' (the shearing box, MHD or hydro, with or without the shock
-    slot) or 'wrap_aux' (the shocked periodic box, MHD or hydro), or
-    (None, why ``cfg`` is outside all of these sets)."""
+    magnetoconvection, each with or without Ω, chi-const and del6
+    hyper-diffusion), 'zroll' (the shearing box, MHD or hydro, with or
+    without the shock slot, the hydro one also with an entropy field) or
+    'wrap_aux' (the shocked periodic box, MHD, hydro or hydro with an
+    entropy field), or (None, why ``cfg`` is outside all of these
+    sets)."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -196,6 +194,13 @@ def fused_mode(cfg: Config):
         full = periodic == (True, True, True)
         unforced = mods - {"forcing"}
         extra = _shock_options(cfg)
+        zghost = mods in ZGHOST_SETS and periodic == (True, True, False)
+        ent = cfg.module("entropy")
+        if not zghost and ent is not None and (ent.cool != 0.0
+                                               or ent.luminosity != 0.0):
+            return None, ("options ['Entropy.cool/luminosity'] (the layer "
+                          "profiles: only the conv-slab kernels implement "
+                          "them)")
         # nu-shock reads the Shock module's slot
         aux = full and ("shock" in mods or not extra)
         if aux and unforced in ZROLL_SETS:
@@ -205,24 +210,18 @@ def fused_mode(cfg: Config):
         if extra and "shock" not in mods and unforced in ZROLL_SETS:
             return None, (f"options {extra} without the Shock module, "
                           "whose slot nu-shock reads")
-        if {"shock", "entropy"} <= mods:
-            return None, ("a shock slot beside 'entropy' (the shock and "
-                          "shear kernels take the isothermal layouts)")
+        if {"shock", "entropy", "magnetic"} <= mods:
+            return None, ("a shock slot beside 'entropy' and 'magnetic' "
+                          "(a 9-slot ring: the shock and shear kernels "
+                          "take the MHD layouts without ss)")
+        if full and {"shear", "entropy", "magnetic"} <= mods:
+            return None, ("the shear box with 'entropy' and 'magnetic' (8 "
+                          "fields: the shear kernels take the MHD layouts "
+                          "without ss)")
         wrap = unforced in WRAP_SETS and full
-        zghost = mods in ZGHOST_SETS and periodic == (True, True, False)
         if (wrap or zghost) and extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")
-        hyper3 = _hyper3_options(cfg)
-        if zghost and hyper3:
-            return None, (f"options {hyper3} (del6 hyper-diffusion: the "
-                          "z-ghosted kernels have no hyper3 terms)")
-        ent = cfg.module("entropy")
-        if wrap and ent is not None and (ent.cool != 0.0
-                                         or ent.luminosity != 0.0):
-            return None, ("options ['Entropy.cool/luminosity'] (the layer "
-                          "profiles: only the conv-slab kernels implement "
-                          "them)")
         if wrap:
             return "wrap", None
         if zghost:
@@ -235,8 +234,9 @@ def fused_mode(cfg: Config):
                   "with a non-periodic z, "
                   f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
                   f"{sorted(HYDRO_MODULES | {'shear'})}, each with or "
-                  "without 'shock', and both with 'shock' in place of "
-                  "'shear', with optional forcing on a periodic grid)")
+                  "without 'shock', the latter also with 'entropy', and "
+                  "these with 'shock' in place of 'shear', with optional "
+                  "forcing on a periodic grid)")
 
 
 def gate_reason(cfg: Config):

@@ -1,16 +1,18 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives twelve, the MHD
+(``LIBRARIES``: the flagship template's source gives fifteen, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
 entropy field, ``PC_ENT=1``, the MHD and hydro ones with the shock slot,
 ``PC_SHOCK=1``, on the periodic state, the shear box's on its ghosted
-stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, and
-the 5- and 8-field entropy ones with ``PC_ZG=1``, stratified convection
-and magnetoconvection on the interior stack and its z-halo slabs), with
-a plain C
+stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, the
+hydro ones of both with an entropy field, and the 5- and 8-field entropy
+ones with ``PC_ZG=1``, stratified convection and magnetoconvection on the
+interior stack and its z-halo slabs), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
-takes seconds; the libraries are compiled in parallel, one nvcc each.
+takes seconds; the libraries are compiled in parallel, one nvcc each, at
+most one per CPU, the longest first, in the background (``start``), and
+``load`` waits for its own library only.
 They land in ``pencil_tpu_torch/_build/`` (git-ignored), keyed by a hash
 of the source, the shared headers (``csrc/*.cuh``), the flags and the
 definitions, so an edited source rebuilds.  Nothing here runs at import.
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +55,17 @@ LIBRARIES = {
                                                "-DPC_SHEAR=1")),
     "fused_rhs_shear_hydro_ns": ("fused_rhs.cu", ("-DPC_MAG=0",
                                                   "-DPC_SHEAR=1")),
+    # the hydro layouts with an entropy field: non-isothermal supersonic
+    # turbulence, and the hydro shear box with ss with and without the
+    # shock slot
+    "fused_rhs_shock_hydro_ent": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
+                                                   "-DPC_SHOCK=1")),
+    "fused_rhs_shear_hydro_ent": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
+                                                   "-DPC_SHOCK=1",
+                                                   "-DPC_SHEAR=1")),
+    "fused_rhs_shear_hydro_ent_ns": ("fused_rhs.cu", ("-DPC_MAG=0",
+                                                      "-DPC_ENT=1",
+                                                      "-DPC_SHEAR=1")),
     "fused_rhs_zg": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
                                       "-DPC_ZG=1")),
     "fused_rhs_zg_mag": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1")),
@@ -94,12 +108,17 @@ SIGNATURES = {
     "fused_rhs_shear_ns": _SHOCK,
     "fused_rhs_shear_hydro": _SHOCK,
     "fused_rhs_shear_hydro_ns": _SHOCK,
+    "fused_rhs_shock_hydro_ent": _SHOCK,
+    "fused_rhs_shear_hydro_ent": _SHOCK,
+    "fused_rhs_shear_hydro_ent_ns": _SHOCK,
     "fused_rhs_zg": _ZG,
     "fused_rhs_zg_mag": _ZG,
 }
 
 _libs = {}
+_job = None              # the last build started (``start``)
 build_seconds = None     # wall time of the last nvcc run, None if cached
+build_times = {}         # library -> s from that run's start to its nvcc's end
 
 
 def nvcc_path() -> str:
@@ -126,52 +145,132 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile every library that is missing, all nvcc runs at once;
-    returns name -> library path."""
-    global build_seconds
-    out = {name: library_path(name) for name in LIBRARIES}
-    todo = {name: path for name, path in out.items() if not path.exists()}
-    if not todo:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs, tmps = {}, {}
-    try:
-        for name in todo:
-            fd, tmps[name] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            procs[name] = subprocess.Popen(
-                [nvcc_path(), *NVCC_FLAGS, *LIBRARIES[name][1], "-o",
-                 tmps[name], str(sources()[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        failed = []
-        for name, proc in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name} ({sources()[name].name}): nvcc "
-                              f"failed ({proc.returncode}):\n{log}")
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        for name, path in todo.items():
-            os.replace(tmps[name], path)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
+def _nvcc_order() -> list:
+    """The libraries in the order their nvcc runs start, the longest first:
+    by entry points (the periodic builds' tails), then the z-ghosted
+    builds (eight instances a kernel, the shock builds four), then
+    fields."""
+    def key(name):
+        defs = LIBRARIES[name][1]
+        fields = 4 + 3 * ("-DPC_MAG=0" not in defs) + ("-DPC_ENT=1" in defs)
+        return len(SIGNATURES[name]), "-DPC_ZG=1" in defs, fields
+    return sorted(LIBRARIES, key=key, reverse=True)
+
+
+class _Build:
+    """The nvcc runs of the libraries missing when it was made, at most one
+    per CPU at a time, the longest first (``_nvcc_order``): the build then
+    ends about when its longest run does.  A thread of its own runs them;
+    ``done[name]`` is set when ``name``'s run has ended, ``failed[name]``
+    then holds its error."""
+
+    def __init__(self):
+        self.out = {name: library_path(name) for name in LIBRARIES}
+        self.todo = [n for n in _nvcc_order() if not self.out[n].exists()]
+        self.done = {name: threading.Event() for name in LIBRARIES}
+        for name in LIBRARIES:
+            if name not in self.todo:
+                self.done[name].set()
+        self.failed, self.cancelled = {}, False
+        self.thread = threading.Thread(target=self._run, name="nvcc")
+
+    def _run(self):
+        global build_seconds
+        if not self.todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        todo, running, tmps = list(self.todo), {}, {}
+        try:
+            while (todo or running) and not self.cancelled:
+                while todo and len(running) < (os.cpu_count() or 1):
+                    name = todo.pop(0)
+                    for ext in (".so", ".log"):
+                        fd, tmps[name + ext] = tempfile.mkstemp(
+                            suffix=ext, dir=BUILD_DIR)
+                        os.close(fd)
+                    with open(tmps[name + ".log"], "w") as log:
+                        running[name] = subprocess.Popen(
+                            [nvcc_path(), *NVCC_FLAGS, *LIBRARIES[name][1],
+                             "-o", tmps[name + ".so"], str(sources()[name])],
+                            stdout=log, stderr=subprocess.STDOUT)
+                time.sleep(0.05)
+                for name, proc in list(running.items()):
+                    if proc.poll() is None:
+                        continue
+                    del running[name]
+                    build_times[name] = time.perf_counter() - t0
+                    log = tmps.pop(name + ".log")
+                    if proc.returncode != 0:
+                        self.failed[name] = (
+                            f"{name} ({sources()[name].name}): nvcc failed "
+                            f"({proc.returncode}):\n{Path(log).read_text()}")
+                    else:
+                        os.replace(tmps[name + ".so"], self.out[name])
+                    for tmp in (log, tmps.pop(name + ".so")):
+                        if os.path.exists(tmp):
+                            os.unlink(tmp)
+                    self.done[name].set()
+        except Exception as e:          # nvcc not found, a full disk, ...
+            for name in self.todo:
+                if not self.done[name].is_set():
+                    self.failed[name] = f"{name}: {e!r}"
+        finally:
+            for proc in running.values():
                 proc.kill()
                 proc.wait()
-        for tmp in tmps.values():
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    build_seconds = time.perf_counter() - t0
-    return out
+            for tmp in tmps.values():
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            for name in self.todo:
+                if not self.done[name].is_set():
+                    self.failed.setdefault(name, f"{name}: build cancelled")
+                    self.done[name].set()
+        build_seconds = time.perf_counter() - t0
+
+
+def start():
+    """Start compiling every missing library in the background, unless a
+    build is running; returns at once.  ``load`` waits for its library
+    alone, so a caller can use the first ones built while the rest
+    compile."""
+    global _job
+    if _job is None or not _job.thread.is_alive():
+        _job = _Build()
+        _job.thread.start()
+    return _job
+
+
+def cancel():
+    """Stop the running build, if any: its nvcc runs are killed."""
+    if _job is not None and _job.thread.is_alive():
+        _job.cancelled = True
+        _job.thread.join()
+
+
+def _wait(job, names):
+    for name in names:
+        job.done[name].wait()
+    errors = [job.failed[name] for name in names if name in job.failed]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build() -> dict:
+    """Compile every library that is missing (``start``) and wait for all
+    of them; returns name -> library path."""
+    job = start()
+    _wait(job, list(LIBRARIES))
+    return job.out
 
 
 def load(name: str = "fused_rhs"):
     """The loaded library ``name`` with every entry point's ctypes
     signature set."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
+        job = start() if _job is None or name in _job.failed else _job
+        _wait(job, [name])
+        lib = ctypes.CDLL(str(job.out[name]))
         for fn_name, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes

@@ -43,9 +43,10 @@ adds gravity and the cooling and heating layers and reads its z halo
 from the slabs; magnetoconvection on the 8 fields (uu, lnrho, ss, aa) and
 slabs (8, nx, ny, 3) on the same template built with ``PC_ENT=1 PC_ZG=1``
 (library ``fused_rhs_zg_mag``, launch names with the suffix ``_mag``: K6m,
-K7m); with Ω either build launches its Coriolis instances, and with
-'chi-const' conduction beside K-const its CHI instances, counted under
-the launch names with the suffix ``_chi`` (``zg_kernels``):
+K7m); with Ω either build launches its Coriolis instances, with
+'chi-const' conduction beside K-const its CHI instances, and with a del6
+coefficient (ν₃, η₃, D₃) its H3 instances, counted under the launch names
+with the suffixes ``_chi`` and ``_h3``, in that order (``zg_kernels``):
 
   rhs_zg           K6  df = RHS(f), max of the CFL 1/dt
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
@@ -76,7 +77,13 @@ shock; ``PC_MAG=0 PC_SHOCK=1``, ``fused_rhs_shock_hydro``: K1sh, K5wh,
 ``PC_SHEAR=1``, ``fused_rhs_shear_ns``: K4n, K5n, ``*_ns``) and the hydro
 shear box with and without it (``PC_MAG=0 PC_SHOCK=1 PC_SHEAR=1``,
 ``fused_rhs_shear_hydro``: K4h, K5h, ``*_hydro``; ``PC_MAG=0
-PC_SHEAR=1``, ``fused_rhs_shear_hydro_ns``: K4hn, K5hn, ``*_hydro_ns``).
+PC_SHEAR=1``, ``fused_rhs_shear_hydro_ns``: K4hn, K5hn, ``*_hydro_ns``),
+and the hydro layouts of both chains with an entropy field (``PC_MAG=0
+PC_ENT=1``): non-isothermal supersonic turbulence (uu, lnrho, ss, shock;
+``fused_rhs_shock_hydro_ent``: K1she, K5whe, ``*_hydro_ent``) and the
+hydro shear box with ss, with and without the shock slot
+(``fused_rhs_shear_hydro_ent``: K4he, K5he, ``*_hydro_ent``;
+``fused_rhs_shear_hydro_ent_ns``: K4hne, K5hne, ``*_hydro_ent_ns``).
 
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
@@ -365,9 +372,11 @@ def flagship_library(model) -> str:
 # write), its module set (forcing rides along as the kick after the step),
 # the base of its launch names (first, update) and their suffix: the
 # shocked periodic box, MHD or hydro (wrap_aux), and the shear box, MHD or
-# hydro, each with or without the shock slot (zroll).
+# hydro, each with or without the shock slot (zroll); the hydro ones also
+# with an entropy field.
 _ISO = frozenset(("eos", "density", "hydro", "viscosity"))
 _MHD, _HYD = _LAYOUTS["fused_rhs"], _LAYOUTS["fused_rhs_hydro"]
+_HENT = _LAYOUTS["fused_rhs_hydro_ent"]
 _WRAP_AUX = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 _ZROLL = ("rhs_zroll", "rhs_zroll_upd")
 _AUX_BUILDS = {
@@ -383,6 +392,14 @@ _AUX_BUILDS = {
                               _ISO | {"shock", "shear"}, _ZROLL, "_hydro"),
     "fused_rhs_shear_hydro_ns": (_HYD, _ISO | {"shear"}, _ZROLL,
                                  "_hydro_ns"),
+    "fused_rhs_shock_hydro_ent": (dict(_HENT, shock=slice(5, 6)),
+                                  _ISO | {"entropy", "shock"}, _WRAP_AUX,
+                                  "_hydro_ent"),
+    "fused_rhs_shear_hydro_ent": (dict(_HENT, shock=slice(5, 6)),
+                                  _ISO | {"entropy", "shock", "shear"},
+                                  _ZROLL, "_hydro_ent"),
+    "fused_rhs_shear_hydro_ent_ns": (_HENT, _ISO | {"entropy", "shear"},
+                                     _ZROLL, "_hydro_ent_ns"),
 }
 # each aux build's launch names: its first and its update kernel
 AUX_KERNELS = {lib: tuple(k + sfx for k in base)
@@ -391,14 +408,14 @@ AUX_KERNELS = {lib: tuple(k + sfx for k in base)
 
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
-# The H3 instances of the periodic builds (suffix _h3) and the CHI
-# instances of the z-ghosted builds (_chi) count under names of their own;
-# the aux builds' H3 instances under their builds' names.
+# The H3 instances of the periodic builds (suffix _h3) and the CHI and H3
+# instances of the z-ghosted builds (_chi, _h3, _chi_h3) count under names
+# of their own; the aux builds' H3 instances under their builds' names.
 LAUNCHES = dict.fromkeys(
     [k + sfx + h3 for h3 in ("", "_h3") for sfx in _SUFFIX.values()
      for k in _WRAP_KERNELS]
     + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
-    + [k + chi for chi in ("", "_chi")
+    + [k + chi + h3 for chi in ("", "_chi") for h3 in ("", "_h3")
        for k in ("rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag")]
     + [k for names in AUX_KERNELS.values() for k in names], 0)
 
@@ -410,13 +427,20 @@ def reset_launches():
 
 def aux_library(model) -> str:
     """The shock or shear build of the flagship template whose layout and
-    module set are ``model``'s (``_AUX_BUILDS``); raises for any other, a
-    shock slot beside ss among them (a 9-slot ring the builds refuse)."""
+    module set are ``model``'s (``_AUX_BUILDS``); raises for any other,
+    the MHD layouts with ss among them (8 fields, or a 9-slot ring with
+    the shock slot, which the builds refuse), and for an entropy layer
+    profile, which only the z-ghosted builds have terms for."""
     lib = model.__dict__.get("_aux_library")
     if lib is not None:
         return lib
     reg = model.reg
     names = {m.name for m in model.cfg.modules} - {"forcing"}
+    ent = model.cfg.module("entropy")
+    if ent is not None and (ent.cool != 0.0 or ent.luminosity != 0.0):
+        raise NotImplementedError(
+            "shock and shear kernels: no terms for the entropy layer "
+            "profiles (Entropy.cool/luminosity)")
     for lib, (layout, modules, _, _) in _AUX_BUILDS.items():
         n = max(sl.stop for sl in layout.values())
         if names == modules and reg.nf == n and set(reg.slots) == set(
@@ -424,9 +448,10 @@ def aux_library(model) -> str:
             model.__dict__["_aux_library"] = lib
             return lib
     raise NotImplementedError(
-        "shock and shear kernels: the isothermal (uu, lnrho[, aa][, shock]) "
-        "layouts of the shear and shocked boxes only (no shock slot beside "
-        f"ss), got {reg.comp_names} of {sorted(names)}")
+        "shock and shear kernels: the (uu, lnrho[, ss][, shock]) and the "
+        "isothermal (uu, lnrho, aa[, shock]) layouts of the shear and "
+        "shocked boxes only (no MHD layout with ss: 8 fields, or 9 slots "
+        f"with the shock slot), got {reg.comp_names} of {sorted(names)}")
 
 
 # the z-ghosted builds, each with its field layout, its module set (the
@@ -456,10 +481,9 @@ def hyper3_coefficients(cfg):
 def zg_library(model) -> str:
     """The z-ghosted build of the flagship template for ``model``:
     'fused_rhs_zg' (the conv-slab's uu, lnrho, ss) or 'fused_rhs_zg_mag'
-    (with aa and Magnetic), with or without Ω and chi-const conduction;
-    raises for another layout or module set, and for del6
-    hyper-diffusion, which the builds have no terms for.  Found once per
-    model: the conv-slab step is bound by the host."""
+    (with aa and Magnetic), with or without Ω, chi-const conduction and
+    del6 hyper-diffusion; raises for another layout or module set.  Found
+    once per model: the conv-slab step is bound by the host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
@@ -468,26 +492,25 @@ def zg_library(model) -> str:
     for lib, (layout, modules, _) in _ZG_BUILDS.items():
         n = sum(sl.stop - sl.start for sl in layout.values())
         if names == modules and reg.nvar == reg.nf == n and all(
-                reg.slice(k) == v for k, v in layout.items()) \
-                and not any(hyper3_coefficients(cfg)):
+                reg.slice(k) == v for k, v in layout.items()):
             model.__dict__["_zg_library"] = lib
             return lib
     raise NotImplementedError(
         "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules, "
-        "with or without Magnetic's aa, without hyper-diffusion "
-        "(hyper3-simplified, eta_hyper3, diffrho_hyper3) only, got "
-        f"{reg.comp_names} of {sorted(names)} with (ν₃, η₃, D₃) = "
-        f"{hyper3_coefficients(cfg)}")
+        f"with or without Magnetic's aa, only, got {reg.comp_names} of "
+        f"{sorted(names)}")
 
 
 def zg_kernels(model):
     """The launch names (first, update) of ``model``'s z-ghosted build:
     ZG_KERNELS's, with the suffix _chi where its CHI instances run
-    (chi-const on); found once per model."""
+    (chi-const on), then _h3 where its H3 instances run (a del6
+    coefficient on); found once per model."""
     names = model.__dict__.get("_zg_kernels")
     if names is None:
         chi = "_chi" if kernel_params(model).cpchi > 0.0 else ""
-        names = tuple(k + chi for k in ZG_KERNELS[zg_library(model)])
+        sfx = chi + _h3_suffix(model)
+        names = tuple(k + sfx for k in ZG_KERNELS[zg_library(model)])
         model.__dict__["_zg_kernels"] = names
     return names
 
@@ -511,8 +534,8 @@ def launch_suffix(model) -> str:
     """The suffix of the launch names of ``model``'s instances of the
     flagship template: its periodic library's ('', '_hydro', '_ent' or
     '_hydro_ent'), then '_h3' where it launches the H3 instances; or its
-    aux build's ('', '_hydro', '_ns', '_hydro_ns'), whose H3 instances
-    count under the same names."""
+    aux build's ('', '_hydro', '_ns', '_hydro_ns', '_hydro_ent',
+    '_hydro_ent_ns'), whose H3 instances count under the same names."""
     if model.mode in ("zroll", "wrap_aux"):
         return _AUX_BUILDS[aux_library(model)][3]
     return _SUFFIX[flagship_library(model)] + _h3_suffix(model)
@@ -616,20 +639,22 @@ FLAGSHIP_INSTANCES = (
 def library_instances(lib):
     """Instance name (its launch name first) -> ``pc_flagship_attrs``
     index of each instance of the template's library ``lib``: +16 with
-    rotation (" rot"), +32 with the build's own terms.  The periodic
-    builds have the five kernels (and the kick's) with H3 (launch names
-    with _h3), only the isothermal MHD build K8 (no rotation or H3); the
-    shock builds have their two kernels with the del6 terms (" h3"), the
-    z-ghosted builds theirs with chi-const (launch names with _chi)."""
+    rotation (" rot"), +32 with the del6 terms (H3), +64 with chi-const
+    (CHI).  The periodic builds have the five kernels (and the kick's)
+    with H3 (launch names with _h3), only the isothermal MHD build K8 (no
+    rotation or H3); the shock builds have their two kernels with H3
+    (" h3"), the z-ghosted builds theirs with CHI (launch names with _chi)
+    and with H3 (_h3), each with or without the other."""
     rot = (("", 0), (" rot", 16))
     if lib in AUX_KERNELS:
         return {(kernel + flag + h3).rstrip(): which + r + x
                 for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
                 for h3, x in (("", 0), (" h3", 32)) for flag, r in rot}
     if lib in ZG_KERNELS:
-        return {kernel + chi + flag: which + r + x
+        return {kernel + chi + h3 + flag: which + r + x + y
                 for kernel, which in zip(ZG_KERNELS[lib], (0, 8))
-                for chi, x in (("", 0), ("_chi", 32)) for flag, r in rot}
+                for chi, x in (("", 0), ("_chi", 64))
+                for h3, y in (("", 0), ("_h3", 32)) for flag, r in rot}
     sfx = _SUFFIX[lib]
     out = {}
     for which, name in enumerate(FLAGSHIP_INSTANCES):

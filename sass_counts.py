@@ -15,10 +15,13 @@ shared-memory loads, integer and address arithmetic, and the rest.
 ``fused_rhs_shear``, with rotation and the del6 terms as the shear box
 runs them, the same names of ``fused_rhs_shock_hydro`` its K1sh and
 K5wh, of ``fused_rhs_shear_ns``, ``fused_rhs_shear_hydro`` and
-``fused_rhs_shear_hydro_ns`` their K4n/K5n, K4h/K5h and K4hn/K5hn, K6
-and K7 of ``fused_rhs_zg``, the same names of
+``fused_rhs_shear_hydro_ns`` their K4n/K5n, K4h/K5h and K4hn/K5hn, of
+``fused_rhs_shock_hydro_ent``, ``fused_rhs_shear_hydro_ent`` and
+``fused_rhs_shear_hydro_ent_ns`` K1she/K5whe, K4he/K5he and K4hne/K5hne,
+K6 and K7 of ``fused_rhs_zg``, the same names of
 ``fused_rhs_zg_mag`` its K6m and K7m, and K6rot, K7rot their Coriolis
-instances, K6chi, K7chi their chi-const ones; K1h3, K2h3, K3h3, K3midh3
+instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones
+and K6chih3, K7chih3 both; K1h3, K2h3, K3h3, K3midh3
 and K2Lh3 are the del6 instances of the four periodic builds);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
 that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
@@ -75,6 +78,9 @@ INSTANCES = {
     "K3h3": (0, 0, 1, 1, 0, 0, 1), "K3midh3": (0, 0, 0, 0, 0, 0, 1),
     "K2Lh3": (0, 1, 1, 1, 0, 0, 1),
     "K6chi": (1, 0, 0, 0, 0, 0, 0, 1), "K7chi": (0, 0, 0, 0, 0, 0, 0, 1),
+    # the z-ghosted builds' del6 instances, alone and beside chi-const
+    "K6h3": (1, 0, 0, 0, 0, 0, 1), "K7h3": (0, 0, 0, 0, 0, 0, 1),
+    "K6chih3": (1, 0, 0, 0, 0, 0, 1, 1), "K7chih3": (0, 0, 0, 0, 0, 0, 1, 1),
 }
 NFLAGS = 8       # the template arguments of pc_flagship
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template

@@ -354,9 +354,10 @@ def test_gate_admits_hyper3_on_the_entropy_sets(magnetic):
 
 def test_gate_admits_chi_const_on_the_conv_slab():
     """The z-ghosted builds' CHI instances take chi-const beside K-const:
-    the conv-slab set with it runs the zghost chain; del6
-    hyper-diffusion on the same set stays refused (the builds have no
-    hyper3 terms), with the option's name."""
+    the conv-slab set with it runs the zghost chain, and so does the same
+    set with D₃ del6 hyper-diffusion (their H3 instances); the 'mesh'
+    flavour of D₃, which JAX has, stays refused: the port's Density raises
+    as it is built, with the option's name."""
     cfg = conv_slab(8)
     cfg = cfg.replace(modules=tuple(
         dataclasses.replace(m, iheatcond=("K-const", "chi-const"), chi=1e-3)
@@ -368,10 +369,11 @@ def test_gate_admits_chi_const_on_the_conv_slab():
     hyper = cfg.replace(modules=tuple(
         pt.Density(init="piecew-poly", diffrho_hyper3=1e-9)
         if m.name == "density" else m for m in cfg.modules))
-    assert "diffrho_hyper3" in gate_reason(hyper)
-    assert fused_gate(hyper, "cpu") is False
-    with pytest.raises(NotImplementedError, match="hyper"):
-        fused_gate(hyper, "cuda")
+    assert gate_reason(hyper) is None
+    assert fused_gate(hyper, "cuda") is True
+    assert pt.Model(hyper, device="cpu").mode == "zghost"
+    with pytest.raises(NotImplementedError, match="diffrho_hyper3_mesh"):
+        pt.Density(init="piecew-poly", diffrho_hyper3_mesh=1e-9)
     assert gate_reason(conv_slab(8)) is None
 
 

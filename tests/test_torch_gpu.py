@@ -3,10 +3,12 @@ flagship, their hydro builds K1h-K3h, K3′h, K2Lh, their entropy builds
 K1e-K2Le and K1he-K2Lhe, its shock builds' K1s/K5w of the shocked periodic
 box and K4/K5 of the shearing box and those of their other isothermal
 layouts (K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, each with and without Ω
-and del6), K6/K7 of stratified convection, K6m/K7m
+and del6) and of their hydro layouts with an entropy field (K1she/K5whe,
+K4he/K5he, K4hne/K5hne), K6/K7 of stratified convection, K6m/K7m
 of magnetoconvection, each z-ghosted pair also with Ω, the H3 instances
-of the four periodic builds (del6 hyper-diffusion) and the CHI instances
-of the z-ghosted builds (chi-const)) against their plain PyTorch versions
+of the four periodic builds (del6 hyper-diffusion) and the CHI and H3
+instances of the z-ghosted builds (chi-const, del6)) against their plain
+PyTorch versions
 on the card, and steps on the card against the same steps on the CPU, and
 the run loop's restart on the card.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
@@ -364,9 +366,18 @@ BUILDS = {
                     RTOL_FIELD),
     "shear_hydro_ns": (lambda shape: shear_box(shape, magnetic=False,
                                                shock=False), RTOL_FIELD),
+    # their hydro layouts with an entropy field, within their parents'
+    # bounds (chip_smoke.py's AUX_RTOL)
+    "shock_hydro_ent": (lambda shape: shock_box(shape, magnetic=False,
+                                                entropy=True), 1e-6),
+    "shear_hydro_ent": (lambda shape: shear_box(shape, magnetic=False,
+                                                entropy=True), RTOL_FIELD),
+    "shear_hydro_ent_ns": (lambda shape: shear_box(
+        shape, magnetic=False, entropy=True, shock=False), RTOL_FIELD),
 }
 AUX_BUILDS = ("shock", "shear", "shock_hydro", "shear_ns", "shear_hydro",
-              "shear_hydro_ns")
+              "shear_hydro_ns", "shock_hydro_ent", "shear_hydro_ent",
+              "shear_hydro_ent_ns")
 NEW_AUX = AUX_BUILDS[2:]
 
 
@@ -423,8 +434,8 @@ def test_constant_fields_give_exactly_zero_tendencies(cuda, build, shape):
 
 # the constant value of each slot in the constant-field tests of the aux
 # builds
-CONSTANTS = {"ux": 0.3, "uy": -0.2, "uz": 0.1, "lnrho": 0.05, "ax": 0.02,
-             "ay": 0.01, "az": -0.02, "shock": 0.03}
+CONSTANTS = {"ux": 0.3, "uy": -0.2, "uz": 0.1, "lnrho": 0.05, "ss": 0.04,
+             "ax": 0.02, "ay": 0.01, "az": -0.02, "shock": 0.03}
 
 
 def _aux_constant_fields(cuda, cfg):
@@ -605,12 +616,13 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
 @pytest.mark.parametrize("lib", sorted(fr.ZG_KERNELS))
 def test_zghost_instances_hold_no_local_memory(cuda, lib):
     """K6 and K7 of fused_rhs_zg, K6m and K7m of fused_rhs_zg_mag, each
-    without and with rotation and chi-const: no spill and no stack, one
-    256-thread block per SM or more."""
+    without and with rotation, chi-const and del6: no spill and no stack,
+    one 256-thread block per SM or more."""
     attrs = fr.flagship_attrs(lib)
     first, upd = fr.ZG_KERNELS[lib]
-    assert set(attrs) == {k + chi + rot for k in (first, upd)
-                          for chi in ("", "_chi") for rot in ("", " rot")}
+    assert set(attrs) == {k + chi + h3 + rot for k in (first, upd)
+                          for chi in ("", "_chi") for h3 in ("", "_h3")
+                          for rot in ("", " rot")}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1, (name, a)
@@ -735,12 +747,13 @@ def test_shear_box_steps_on_card_match_cpu(cuda):
 
 def shocked_fa(pm, seed=4):
     """A noisy shock-box state of the model's layout on the card, urms ≈
-    1, its shock slot built by the pre-pass (positive, so the shock
-    viscosity is live)."""
+    1, lnρ 5e-2, s and A 1e-2, its shock slot built by the pre-pass
+    (positive, so the shock viscosity is live)."""
     g = torch.Generator(pm.device).manual_seed(seed)
     shape = pm.cfg.grid.shape
-    amp = torch.tensor([{"u": 3 ** -0.5, "l": 5e-2, "a": 1e-2, "s": 0.0}[
-        c[0]] for c in pm.reg.comp_names], device=pm.device)
+    amp = torch.tensor([3 ** -0.5 if c[0] == "u" else 5e-2 if c == "lnrho"
+                        else 0.0 if c == "shock" else 1e-2
+                        for c in pm.reg.comp_names], device=pm.device)
     fa = amp[:, None, None, None] * torch.randn(
         (pm.reg.nf,) + shape, generator=g, device=pm.device)
     return pm._refresh_aux_fa(fa)
@@ -816,9 +829,10 @@ def aux_variant(cfg, omega, hyper3):
                          ids=("32^3", "24x20x42"))
 @pytest.mark.parametrize("case", NEW_AUX)
 def test_new_aux_instances_match_plain(cuda, case, shape, omega, hyper3):
-    """K1sh/K5wh, K4n/K5n, K4h/K5h and K4hn/K5hn, each instance (without
-    and with Ω, without and with the del6 terms) against its plain
-    version, counted under its build's launch names."""
+    """K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, K1she/K5whe, K4he/K5he
+    and K4hne/K5hne, each instance (without and with Ω, without and with
+    the del6 terms) against its plain version, counted under its build's
+    launch names."""
     make_cfg, rtol = BUILDS[case]
     cfg = aux_variant(make_cfg(shape), omega, hyper3)
     p = fr.kernel_params(pt.Model(cfg, device="cpu"))
@@ -841,9 +855,9 @@ def test_new_aux_steps_on_card_match_cpu(cuda, case):
 @pytest.mark.parametrize("lib", sorted(
     set(fr.AUX_KERNELS) - {"fused_rhs_shock", "fused_rhs_shear"}))
 def test_new_aux_instances_hold_no_local_memory(cuda, lib):
-    """Every instance of the four new builds (first and update, with and
-    without Ω and the del6 terms): no spill and no stack, one 256-thread
-    block per SM or more."""
+    """Every instance of the seven newer builds (first and update, with
+    and without Ω and the del6 terms): no spill and no stack, one
+    256-thread block per SM or more."""
     attrs = fr.flagship_attrs(lib)
     assert len(attrs) == 8
     for name, a in attrs.items():
@@ -919,6 +933,36 @@ def test_chi_steps_on_card_match_cpu(cuda, case):
     _conv_slab_steps_match(cuda, conv_slab((16, 16, 32), **CHI_CASES[case]))
 
 
+# the conv-slab sets with del6 hyper-diffusion (the z-ghosted H3
+# instances), with Ω and with chi-const beside it
+ZG_H3_CASES = {"h3": dict(hyper3=True), "h3_rot": dict(hyper3=True,
+                                                       Omega=1.0),
+               "chi_h3": dict(hyper3=True, chi=4e-3),
+               "mag_h3": dict(magnetic=True, hyper3=True),
+               "mag_h3_rot": dict(magnetic=True, hyper3=True, Omega=1.0),
+               "mag_chi_h3_rot": dict(magnetic=True, hyper3=True, chi=4e-3,
+                                      Omega=1.0)}
+
+
+@pytest.mark.parametrize("case", ZG_H3_CASES)
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_zg_h3_instances_match_plain(cuda, shape, case):
+    """K6 and K7 (K6m and K7m) with del6, without and with Ω and
+    chi-const, against their plain versions, counted under the launch
+    names with _h3."""
+    cfg = conv_slab(shape, **ZG_H3_CASES[case])
+    assert fr.zg_kernels(pt.Model(cfg, device="cpu"))[0].endswith("_h3")
+    _zghost_kernels_match_plain(cuda, cfg)
+
+
+@pytest.mark.parametrize("case", ZG_H3_CASES)
+def test_zg_h3_steps_on_card_match_cpu(cuda, case):
+    """Three zghost steps with del6 on the card against the same steps on
+    the CPU."""
+    _conv_slab_steps_match(cuda, conv_slab((16, 16, 32),
+                                           **ZG_H3_CASES[case]))
+
+
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "conv_slab_rot", "conv_slab_mag",
                                    "conv_slab_mag_rot",
@@ -927,7 +971,8 @@ def test_chi_steps_on_card_match_cpu(cuda, case):
                                    "ent_mhd_rk2", "ent_mhd_rk4",
                                    "ent_hydro", "ent_hydro_rk2",
                                    "ent_hydro_rk4", "flagship_h3",
-                                   "conv_slab_mag_chi", *NEW_AUX))
+                                   "conv_slab_mag_chi", "conv_slab_h3",
+                                   "conv_slab_mag_chi_h3_rot", *NEW_AUX))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -947,6 +992,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
                time=pt.TimeSpec(itorder=4)),
            "flagship_h3": pt.configs.flagship(32, hyper3=True),
            "conv_slab_mag_chi": conv_slab(32, magnetic=True, chi=4e-3),
+           **{"conv_slab_" + k: conv_slab(32, **ZG_H3_CASES[k])
+              for k in ("h3", "mag_chi_h3_rot")},
            **{k: BUILDS[k][0](32) for k in NEW_AUX}}
     for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
         for order in (3, 2, 4):

@@ -42,13 +42,70 @@ def test_libraries_hold_the_shock_builds_and_no_zroll():
             "pc_rhs_tail_mid"}
 
 
+_FAKE_NVCC = """#!{python}
+import sys, time
+args = sys.argv[1:]
+name = {names}[tuple(a for a in args if a.startswith("-D"))]
+with open({log!r}, "a") as f:
+    f.write(f"start {{name}}\\n")
+time.sleep(0.2)
+with open({log!r}, "a") as f:
+    f.write(f"end {{name}}\\n")
+if name == "fused_rhs_zg":
+    print("fake nvcc: refused")
+    sys.exit(2)
+open(args[args.index("-o") + 1], "w").close()
+"""
+
+
+def test_build_starts_the_longest_first_one_per_cpu(tmp_path, monkeypatch):
+    """The nvcc runs start in the background, the periodic builds first,
+    then the z-ghosted ones, then the shock and shear builds, at most one
+    per CPU at a time; waiting for one library does not wait for the
+    rest, and a failed run raises with nvcc's output while the others
+    are built (a fake nvcc that logs its runs)."""
+    import sys
+    log = tmp_path / "runs.log"
+    nvcc = tmp_path / "nvcc"
+    names = {defs: name for name, (_, defs) in _build.LIBRARIES.items()}
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, names=names,
+                                      log=str(log)))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_job", None)
+    monkeypatch.setattr(_build.os, "cpu_count", lambda: 2)
+    job = _build.start()
+    _build._wait(job, ["fused_rhs"])
+    assert _build.library_path("fused_rhs").exists()
+    with pytest.raises(RuntimeError, match="(?s)fused_rhs_zg .*fake nvcc: refused"):
+        _build.build()
+    runs = log.read_text().split()
+    events = list(zip(runs[::2], runs[1::2]))
+    started = [name for word, name in events if word == "start"]
+    # two runs start together: their log lines may come in either order
+    assert set(started[:4]) == {"fused_rhs", "fused_rhs_ent",
+                                "fused_rhs_hydro_ent", "fused_rhs_hydro"}
+    assert set(started[4:6]) == {"fused_rhs_zg_mag", "fused_rhs_zg"}
+    assert sorted(started) == sorted(_build.LIBRARIES)
+    at_once = peak = 0
+    for word, _ in events:
+        at_once += 1 if word == "start" else -1
+        peak = max(peak, at_once)
+    assert peak <= 2
+    built = sorted(p.name.rsplit("_", 1)[0]
+                   for p in (tmp_path / "build").iterdir())
+    assert built == sorted(set(_build.LIBRARIES) - {"fused_rhs_zg"})
+
+
 def test_libraries_hold_the_zg_build_and_no_zghost_template():
     """K6 and K7 are the flagship source built with PC_ZG=1 on the 5-field
     entropy-hydro layout, K6m and K7m the same on the 8-field entropy MHD
     layout (PC_MAG left at 1), each with the shock builds' four entry
-    points, a Coriolis instance (+16) and a chi-const one (+32, launch
-    names with _chi) of both kernels; the 4x4x16 zghost template is gone
-    from the build and from csrc/."""
+    points, a Coriolis instance (+16), a del6 one (+32, launch names with
+    _h3) and a chi-const one (+64, launch names with _chi) of both
+    kernels, each with or without the others; the 4x4x16 zghost template
+    is gone from the build and from csrc/."""
     libs = _build.LIBRARIES
     assert libs["fused_rhs_zg"] == ("fused_rhs.cu", (
         "-DPC_MAG=0", "-DPC_ENT=1", "-DPC_ZG=1"))
@@ -69,10 +126,13 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
         assert fr.ZG_KERNELS[lib] == (first, upd)
         assert fr.library_instances(lib) == {
             first: 0, upd: 8, first + " rot": 16, upd + " rot": 24,
-            first + "_chi": 32, upd + "_chi": 40, first + "_chi rot": 48,
-            upd + "_chi rot": 56}
-        assert first in fr.LAUNCHES and upd in fr.LAUNCHES
-        assert first + "_chi" in fr.LAUNCHES and upd + "_chi" in fr.LAUNCHES
+            first + "_h3": 32, upd + "_h3": 40, first + "_h3 rot": 48,
+            upd + "_h3 rot": 56, first + "_chi": 64, upd + "_chi": 72,
+            first + "_chi rot": 80, upd + "_chi rot": 88,
+            first + "_chi_h3": 96, upd + "_chi_h3": 104,
+            first + "_chi_h3 rot": 112, upd + "_chi_h3 rot": 120}
+        for sfx in ("", "_chi", "_h3", "_chi_h3"):
+            assert first + sfx in fr.LAUNCHES and upd + sfx in fr.LAUNCHES
 
 
 @pytest.mark.parametrize("lib", sorted(fr.AUX_KERNELS))
@@ -273,16 +333,19 @@ def test_kernel_params_carry_the_conv_slab_terms():
 
 @pytest.mark.parametrize("case", ("magnetic_hyper3", "hyper3"))
 def test_zg_build_refuses_what_it_has_no_terms_for(case):
-    """del6 hyper-diffusion in the conv-slab set, with or without
-    Magnetic: the z-ghosted builds have no del6 terms (Ω and chi-const
-    they have: the ROT and CHI instances)."""
-    cfg = conv_slab(SHAPE, magnetic=case.startswith("magnetic"))
-    swap = {"viscosity": lambda m: dataclasses.replace(
-        m, ivisc=("nu-const", "hyper3-simplified"), nu_hyper3=1e-9)}
-    cfg = cfg.replace(fused=False, modules=tuple(
-        swap[m.name](m) if m.name in swap else m for m in cfg.modules))
-    with pytest.raises(NotImplementedError, match="hyper"):
-        fr.kernel_params(pt.Model(cfg, device="cpu"))
+    """The 'hyper3-mesh' viscosity in the conv-slab set, with or without
+    Magnetic: the z-ghosted builds have no mesh hyper-diffusion, and the
+    port's Viscosity refuses it as it is built, naming it ('hyper3-
+    simplified', Ω and chi-const they have: the H3, ROT and CHI
+    instances, whose constants this set fills)."""
+    cfg = conv_slab(SHAPE, magnetic=case.startswith("magnetic"),
+                    hyper3=True)
+    p = fr.kernel_params(pt.Model(cfg, device="cpu"))
+    assert p.nu3 > 0.0 and p.diff3 > 0.0 and p.dif3 > 0.0
+    assert (p.eta3 > 0.0) == case.startswith("magnetic")
+    visc = cfg.module("viscosity")
+    with pytest.raises(NotImplementedError, match="hyper3-mesh"):
+        dataclasses.replace(visc, ivisc=("nu-const", "hyper3-mesh"))
 
 
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
@@ -310,14 +373,21 @@ def test_zg_build_takes_chi_const(magnetic, recorded):
 def test_shock_library_follows_the_modules():
     """The build of the shock and shear chains follows the module set and
     the layout (``aux_library``, which took over from shock_library when
-    the builds gained their other isothermal layouts)."""
+    the builds gained their other isothermal layouts, and their hydro
+    layouts with an entropy field)."""
     want = {(shock_box, ()): "fused_rhs_shock",
             (shock_box, (("magnetic", False),)): "fused_rhs_shock_hydro",
             (shear_box, ()): "fused_rhs_shear",
             (shear_box, (("shock", False),)): "fused_rhs_shear_ns",
             (shear_box, (("magnetic", False),)): "fused_rhs_shear_hydro",
             (shear_box, (("magnetic", False), ("shock", False))):
-                "fused_rhs_shear_hydro_ns"}
+                "fused_rhs_shear_hydro_ns",
+            (shock_box, (("magnetic", False), ("entropy", True))):
+                "fused_rhs_shock_hydro_ent",
+            (shear_box, (("magnetic", False), ("entropy", True))):
+                "fused_rhs_shear_hydro_ent",
+            (shear_box, (("magnetic", False), ("shock", False),
+                         ("entropy", True))): "fused_rhs_shear_hydro_ent_ns"}
     for (make, kw), lib in want.items():
         pm = pt.Model(make(SHAPE, **dict(kw)), device="cpu")
         assert fr.aux_library(pm) == lib

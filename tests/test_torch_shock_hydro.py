@@ -26,7 +26,7 @@ import pencil_tpu_torch as pt
 from pencil_tpu_torch.compat.from_jax import (overrides_from_numpy,
                                              state_from_numpy,
                                              state_to_numpy)
-from pencil_tpu_torch.configs import forced_entropy, shock_box
+from pencil_tpu_torch.configs import forced_entropy, shear_box, shock_box
 from pencil_tpu_torch.model import fused_gate, gate_reason
 from pencil_tpu_torch.ops import fused_rhs as fr
 from test_torch_march_builds import _Recorder, recorded  # noqa: F401
@@ -299,15 +299,26 @@ def test_gate_accepts_the_hydro_shock_box(forced):
 
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
 def test_a_shock_slot_beside_entropy_stays_refused(magnetic):
-    """Non-isothermal turbulence with shock viscosity (9 or 6 slots) runs
-    no kernel: the gate names it, a CUDA model raises before it allocates
-    (no GPU needed), and the CPU runs the eager path."""
-    cfg = forced_entropy(8, magnetic=magnetic)
-    cfg = cfg.replace(modules=tuple(
-        pt.Viscosity(ivisc=("nu-const", "nu-shock"), nu=5e-3, nu_shock=1.0)
-        if m.name == "viscosity" else m for m in cfg.modules)
-        + (pt.Shock(),))
-    assert "shock slot beside 'entropy'" in gate_reason(cfg)
+    """The MHD layouts with an entropy field on the shock and shear builds
+    run no kernel: non-isothermal MHD turbulence with shock viscosity (9
+    slots), and (``magnetic=False``: the hydro layout with ss and the slot
+    runs K1she/K5whe, tests/test_torch_aux_entropy.py) the shear box with
+    ss and A without the slot (8 fields).  The gate names each, a CUDA
+    model raises before it allocates (no GPU needed), and the CPU runs the
+    eager path."""
+    if magnetic:
+        cfg = forced_entropy(8, magnetic=True)
+        cfg = cfg.replace(modules=tuple(
+            pt.Viscosity(ivisc=("nu-const", "nu-shock"), nu=5e-3,
+                         nu_shock=1.0)
+            if m.name == "viscosity" else m for m in cfg.modules)
+            + (pt.Shock(),))
+        assert "shock slot beside 'entropy'" in gate_reason(cfg)
+        assert "9-slot" in gate_reason(cfg)
+    else:
+        cfg = shear_box(8, entropy=True, shock=False)
+        assert "shear box with 'entropy' and 'magnetic'" in gate_reason(cfg)
+        assert "8 fields" in gate_reason(cfg)
     with pytest.raises(NotImplementedError, match="entropy"):
         pt.Model(cfg, device="cuda")
     pm = pt.Model(cfg, device="cpu")

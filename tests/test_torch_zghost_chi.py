@@ -195,19 +195,21 @@ def test_fused_mode_takes_the_chi_instances(case):
 
 
 def test_hyper3_on_the_conv_slab_stays_refused():
-    """del6 hyper-diffusion on the z-ghosted sets, which JAX fuses: the
-    builds have no del6 terms, so it raises on the card, naming the
-    option, and runs eagerly on the CPU."""
-    cfg = conv_slab(8, magnetic=True, chi=CHI)
-    cfg = cfg.replace(modules=tuple(
-        pt.Magnetic(eta=4e-3, eta_hyper3=1e-9) if m.name == "magnetic"
-        else m for m in cfg.modules))
-    assert "eta_hyper3" in gate_reason(cfg)
-    assert fused_gate(cfg, "cpu") is False
-    with pytest.raises(NotImplementedError, match="eta_hyper3"):
-        pt.Model(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="hyper"):
-        fr.zg_library(pt.Model(cfg, device="cpu"))
+    """Of del6 hyper-diffusion on the z-ghosted sets, which JAX fuses, the
+    H3 instances take 'hyper3-simplified', η₃ and D₃
+    (tests/test_torch_zghost_hyper3.py); the 'hyper3-mesh' flavour, which
+    JAX has, stays refused: the port's Viscosity raises as it is built,
+    naming it, beside the set with chi-const that the zghost chain
+    runs."""
+    cfg = conv_slab(8, magnetic=True, chi=CHI, hyper3=True)
+    assert gate_reason(cfg) is None
+    assert fr.zg_kernels(pt.Model(cfg, device="cpu")) == (
+        "rhs_zg_mag_chi_h3", "rhs_zg_upd_mag_chi_h3")
+    with pytest.raises(NotImplementedError, match="hyper3-mesh"):
+        cfg.replace(modules=tuple(
+            pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=4e-3,
+                         nu_hyper3=1e-9) if m.name == "viscosity"
+            else m for m in cfg.modules))
 
 
 @pytest.mark.parametrize("pkg", (pt, pj), ids=("port", "jax"))
