@@ -19,9 +19,12 @@ template's two shock builds, and the other isothermal layouts of those
 two chains, each on a build of its own: supersonic hydro turbulence (the
 shocked box without Magnetic: K1sh, K5wh), the shear box without the
 shock slot (K4n, K5n) and the forced hydro shear box with and without it
-(K4h, K5h; K4hn, K5hn), and the hydro ones with an entropy field:
+(K4h, K5h; K4hn, K5hn), the hydro ones with an entropy field:
 non-isothermal supersonic turbulence (K1she, K5whe) and the hydro shear
-box with ss, with and without the shock slot (K4he, K5he; K4hne, K5hne).
+box with ss, with and without the shock slot (K4he, K5he; K4hne, K5hne),
+and the MHD ones with an entropy field: non-isothermal MHD shock
+turbulence (K1se, K5wse) and the MHD shear box with ss, with and without
+the shock slot (K4e, K5e; K4ne, K5ne).
 
     python3 chip_smoke.py
 
@@ -35,9 +38,10 @@ Phases, each printing its own lines:
      inputs at 64³ and 32×64×128, the flagship template's instances also
      at 24×20×42, which breaks every edge of their x-march, K4, K5, K1s,
      K5w, K6, K7, K6m and K7m also at 16×24×40 and 24×20×42, and so
-     K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, K1she/K5whe, K4he/K5he and
-     K4hne/K5hne (each of these fourteen also with and without Ω = 1 and
-     del6 at 64³ and 24×20×42), the z-ghosted four at 32³ too, and each
+     K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, K1she/K5whe, K4he/K5he,
+     K4hne/K5hne, K1se/K5wse, K4e/K5e and K4ne/K5ne (each of these
+     twenty also with and without Ω = 1 and del6 at 64³ and 24×20×42),
+     the z-ghosted four at 32³ too, and each
      with Ω = 1 (their Coriolis instances) at
      the same five shapes, and with chi-const (their CHI instances, with
      and without Ω), and their H3 instances at 64³ and, with and
@@ -59,8 +63,8 @@ Phases, each printing its own lines:
      with Magnetic, with Ω = 1 and with both, with chi-const, with
      Magnetic and chi-const, and with all three, both with del6 and
      magnetoconvection with del6, chi-const and Ω, the hydro shock box,
-     the three other shear-box layouts and the three hydro layouts with
-     ss);
+     the three other shear-box layouts, the three hydro layouts with ss
+     and the three MHD layouts with ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -72,9 +76,10 @@ Phases, each printing its own lines:
      printed), the
      shear box with one K4 and two K5, the shock box with one
      K1s and two K5w, the hydro shock box, the shear box without the
-     shock slot, the hydro shear box with and without it and the three
-     hydro layouts with ss with one first and two update kernels of their
-     builds (each of the nine with
+     shock slot, the hydro shear box with and without it, the three
+     hydro layouts with ss and the three MHD layouts with ss with one
+     first and two update kernels of their builds (each of the twelve
+     with
      the card's busy time of a step), the flagship at order 4 with K1,
      K2, two K3′ and K3,
      at order 2 with K1 and K2L (forced hydro and both entropy sets
@@ -99,9 +104,10 @@ Phases, each printing its own lines:
      with the one without (with and without Ω), kernel by kernel;
      K1sh/K5wh in turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5,
      K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
-     K4h/K5h, K4hne/K5hne with K4hn/K5hn, each on its own path's final
-     state; for each
-     instance of the flagship template (csrc/fused_rhs.cu, all fifteen
+     K4h/K5h, K4hne/K5hne with K4hn/K5hn, K1se/K5wse with K1s/K5w,
+     K4e/K5e with K4/K5, K4ne/K5ne with K4n/K5n, each on its own path's
+     final state; for each
+     instance of the flagship template (csrc/fused_rhs.cu, all eighteen
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
@@ -151,7 +157,7 @@ ZROLL_KERNELS = ("rhs_zroll", "rhs_zroll_upd")
 SHOCK_KERNELS = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 # the paths of the shock and shear builds (the aux chains): label ->
 # (configuration function, its keyword arguments, launch-name suffix); the
-# last four are the builds' other isothermal layouts: K1sh/K5wh, K4n/K5n,
+# next four are the builds' other isothermal layouts: K1sh/K5wh, K4n/K5n,
 # K4h/K5h, K4hn/K5hn
 AUX_PATHS = {
     "shear box": ("shear_box", {}, ""),
@@ -169,6 +175,12 @@ AUX_PATHS = {
                             "_hydro_ent"),
     "hydro shear box ent ns": ("shear_box", dict(
         magnetic=False, entropy=True, shock=False), "_hydro_ent_ns"),
+    # the MHD layouts with an entropy field: K1se/K5wse, K4e/K5e,
+    # K4ne/K5ne
+    "shock box ent": ("shock_box", dict(entropy=True), "_ent"),
+    "shear box ent": ("shear_box", dict(entropy=True), "_ent"),
+    "shear box ent ns": ("shear_box", dict(entropy=True, shock=False),
+                         "_ent_ns"),
 }
 NEW_AUX_PATHS = tuple(AUX_PATHS)[2:]
 # each aux path's kernels (first, update) and the one its phase-4 turns
@@ -181,7 +193,10 @@ AUX_COUNTERPART = {"hydro shock box": "shock box", "shear box ns": "shear box",
                    "hydro shear box ns": "hydro shear box",
                    "hydro shock box ent": "hydro shock box",
                    "hydro shear box ent": "hydro shear box",
-                   "hydro shear box ent ns": "hydro shear box ns"}
+                   "hydro shear box ent ns": "hydro shear box ns",
+                   "shock box ent": "shock box",
+                   "shear box ent": "shear box",
+                   "shear box ent ns": "shear box ns"}
 NEW_AUX_KERNELS = tuple(k for label in NEW_AUX_PATHS
                         for k in AUX_NAMES[label])
 # each aux path's bound against its plain version in phase 2: the shocked
@@ -330,6 +345,12 @@ SHEAR_HYDRO_RHS = SHEAR_HYDRO_NS_RHS + SHOCK_TERMS
 SHOCK_HYDRO_ENT_RHS = SHOCK_HYDRO_RHS + ENT_TERMS + 2 + 4
 SHEAR_HYDRO_ENT_NS_RHS = SHEAR_HYDRO_NS_RHS + ENT_TERMS + 2 + 2
 SHEAR_HYDRO_ENT_RHS = SHEAR_HYDRO_ENT_NS_RHS + SHOCK_TERMS + 4
+# the MHD layouts with ss add the entropy terms and the Ohmic heat (9, as
+# ENT_MHD_RHS), with the shock slot the shock heat (4), with the shear
+# −S x ∂s/∂y (2)
+SHOCK_ENT_RHS = SHOCKBOX_RHS + ENT_TERMS + 9 + 4
+SHEAR_ENT_NS_RHS = SHEAR_NS_RHS + ENT_TERMS + 9 + 2
+SHEAR_ENT_RHS = SHEAR_ENT_NS_RHS + SHOCK_TERMS + 4
 # the conv-slab (the z-ghosted build): ∇u, ∇lnρ, ∇s, the Laplacians of
 # u, lnρ and s, grad div u; pointwise the EOS, pressure and gravity, the
 # viscous force and heat, K-const conduction and the two layers
@@ -390,6 +411,12 @@ OPS = {
     "rhs_zroll_upd_hydro_ent": SHEAR_HYDRO_ENT_RHS + 5 * UPD,
     "rhs_zroll_hydro_ent_ns": SHEAR_HYDRO_ENT_NS_RHS + 21,
     "rhs_zroll_upd_hydro_ent_ns": SHEAR_HYDRO_ENT_NS_RHS + 5 * UPD,
+    "rhs_wrap_shock_ent": SHOCK_ENT_RHS + 34,
+    "rhs_wrap_shock_upd_ent": SHOCK_ENT_RHS + 8 * UPD,
+    "rhs_zroll_ent": SHEAR_ENT_RHS + 37,
+    "rhs_zroll_upd_ent": SHEAR_ENT_RHS + 8 * UPD,
+    "rhs_zroll_ent_ns": SHEAR_ENT_NS_RHS + 31,
+    "rhs_zroll_upd_ent_ns": SHEAR_ENT_NS_RHS + 8 * UPD,
     "rhs_zg": CONVSLAB_RHS + 19, "rhs_zg_upd": CONVSLAB_RHS + 5 * UPD,
     "rhs_zg_mag": MAGCONV_RHS + 29, "rhs_zg_upd_mag": MAGCONV_RHS + 8 * UPD,
 }

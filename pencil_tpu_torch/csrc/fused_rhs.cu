@@ -27,12 +27,16 @@
 // module's terms: with -DPC_SHOCK=1 on the 8 slots uu, lnrho, aa, shock
 // (K4, K5), without it on the 7 fields uu, lnrho, aa (K4n, K5n), and
 // with -DPC_MAG=0 on uu, lnrho, shock (K4h, K5h) or uu, lnrho (K4hn,
-// K5hn).  With -DPC_MAG=0 -DPC_ENT=1 the shock and shear builds take an
-// entropy field too: K1she, K5whe on uu, lnrho, ss, shock (non-isothermal
-// supersonic turbulence), K4he, K5he and K4hne, K5hne the hydro shear box
-// with ss, with and without the shock slot; they add the entropy terms of
-// the periodic entropy builds, the shock's viscous heat nu_sh shock
-// (div u)^2 and the shear's -S x dss/dy.  These builds replace the
+// K5hn).  With -DPC_ENT=1 the shock and shear builds take an entropy
+// field too: with -DPC_MAG=0 K1she, K5whe on uu, lnrho, ss, shock
+// (non-isothermal supersonic turbulence), K4he, K5he and K4hne, K5hne the
+// hydro shear box with ss, with and without the shock slot; with aa K1se,
+// K5wse on the 9 slots uu, lnrho, ss, aa, shock (non-isothermal MHD shock
+// turbulence), K4e, K5e and K4ne, K5ne the MHD shear box with ss, with and
+// without the shock slot (9 slots, 8 fields); they add the entropy terms
+// of the periodic entropy builds, the shock's viscous heat nu_sh shock
+// (div u)^2, with aa the Ohmic heat after it, and the shear's -S x
+// dss/dy.  These builds replace the
 // `kernel` / `kernel_upd` calls of the
 // zroll fetch and of the wrap fetch with an aux slot (model.py:576-730)
 // and have no DEFER, LAST, KICK or FAKE instance: the shock pre-pass
@@ -162,7 +166,9 @@
 // One 256-thread block per SM (141-188 KB of shared memory; hydro 81-105
 // KB; with the entropy field 161-197 KB and 101-132 KB; the shock builds
 // 161-183 KB: a 9-slot ring of 8-slot planes and, in the update, the own
-// df_prev queue of 7 fields), 8 warps, up to 255 registers a thread; the
+// df_prev queue of 7 fields; with ss and aa 161-186 KB: 9-slot planes in
+// a ring of 8 (PD = 1), or 8-slot ones in 9, and an 8-field queue), 8
+// warps, up to 255 registers a thread; the
 // 4-field K1, whose ring is 81 KB, runs two blocks per SM at 128
 // registers.  Splitting a point's RHS over two warp
 // groups (512 threads: the uu and lnrho terms, the aa terms, four floats
@@ -201,13 +207,6 @@
 #ifndef PC_ZG
 #define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
 #endif                 //    with PC_MAG K6m, K7m)
-// The shock and shear builds take the layouts without aa with or without
-// ss, and the isothermal ones with aa: ss beside aa would make an 8-field
-// shear box or a 9-slot ring with the shock slot, and the 8-field tails
-// already hold 241-255 registers
-#if (PC_SHOCK || PC_SHEAR) && PC_ENT && PC_MAG
-#error "the shock and shear builds take no MHD layout with ss (8 or 9 slots)"
-#endif
 #if PC_ZG && (!PC_ENT || PC_SHOCK || PC_SHEAR)
 #error "the z-ghosted builds take the entropy layouts"
 #endif
@@ -227,8 +226,12 @@
 #define TY 8
 #define TZ 32
 #define NTHREADS (TY * TZ)     // one thread per point of the column
+// planes in flight beyond those the stencil needs: 2, or 1 for a 9-slot
+// ring, whose update at 2 holds 206 KB, past the ~196 KB carve-out
+// (measured 9-11 % slower than at 1 on an NVIDIA H100 80GB HBM3 at
+// 700 W; the first kernel the same)
 #ifndef PC_PD
-#define PC_PD 2        // planes in flight beyond those the stencil needs
+#define PC_PD (NC >= 9 ? 1 : 2)
 #endif
 #define PD PC_PD
 #define NX (2 * NG + 1)        // x taps of the stencil
@@ -409,7 +412,9 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // dif3 added to the diffusive one.  With ss the shock and shear builds
 // add nu_sh shock (div u)^2 to the viscous heat and, with the shear, its
 // -S x dss/dy before the entropy terms (the Shear module comes first);
-// their CFL takes chi gamma and K-const's rate among the diffusivities.
+// their CFL takes chi gamma and K-const's rate among the diffusivities;
+// with aa they join the Ohmic heat after the viscous one, as Entropy adds
+// what Viscosity and Magnetic publish.
 // The z-ghosted build adds gravity after
 // the pressure force and the layer terms after the heating, in the order
 // of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
@@ -914,12 +919,13 @@ __device__ __forceinline__ void copy_rows_zg(
 // staging slots of df1's planes; in the other tails, NQ slots of each
 // point's own df_prev (no halo) of the planes in flight.  Past ~196 KB
 // the SM's L1 shrinks to 28 KB and the copies slow down (PD = 3 and padded
-// builds measured 2-25 % slower), so PD = 2 keeps every instance below.
+// builds measured 2-25 % slower), so PD = 2 keeps every instance below
+// but those of a 9-slot ring, which take PD = 1.
 // A tail copies its own df_prev of plane l - OQLAG with the group of plane
 // l; the copy must land by step l - OQLAG - NG, so OQLAG may be 0 .. NG,
 // and NQ slots hold the planes in flight (of the NV evolved fields: a
 // shock slot has no df).  The 8-field tails take NG, which keeps them at
-// 183-186 KB; the others 0.
+// 183-186 KB (the 9-slot ones at PD = 1 at 177 KB); the others 0.
 #ifndef PC_OQLAG
 #define PC_OQLAG (NC >= 8 ? NG : 0)
 #endif
@@ -1279,12 +1285,15 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // a red[] of its own for the z-ghosted builds' Coriolis K6 and for each
   // instance with the H3 (periodic and z-ghosted builds) or CHI flag, so
   // that the instances without them keep the shared layout of a build
-  // that lacks those
+  // that lacks those; each first kernel of the aux builds with ss and aa
+  // has one of its own too (tags 8-11)
   constexpr bool XT = CHI || (H3 && PC_TAILS);
   constexpr bool ZH3 = H3 && PC_ZG;
+  constexpr int TAG = PC_JOINS && PC_ENT && PC_MAG
+      ? 8 + ROT + 2 * H3
+      : ((PC_ZG || XT) && ROT) + 2 * XT + 4 * ZH3;
   if (FIRST)
-    block_max_store<NTHREADS,
-                    ((PC_ZG || XT) && ROT) + 2 * XT + 4 * ZH3>(
+    block_max_store<NTHREADS, TAG>(
         dt1max, dt1blk + (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                     + blockIdx.x);
 }
@@ -1477,8 +1486,10 @@ int pc_tile_shape(int* out) {
 // and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
 // and without the kick; + 16 with rotation, + 32 with the del6 terms (H3),
 // + 64 with chi-const (CHI, the z-ghosted builds only).  Only the
-// isothermal MHD build has K8 (1, 3, 6, 7; none with rotation or H3).  The shock builds have 0 and 8 (K1s and K5w, or K4 and
-// K5), each with the four flag sets, the z-ghosted builds 0 and 8 (K6 and
+// isothermal MHD build has K8 (1, 3, 6, 7; none with rotation or H3).  The
+// shock and shear builds have 0 and 8 (K1s and K5w, or K4 and K5, and
+// those of their other layouts), each with the four flag sets, the
+// z-ghosted builds 0 and 8 (K6 and
 // K7, K6m and K7m) with the eight.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {

@@ -71,9 +71,11 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   build of its own: the shocked box without Magnetic (supersonic hydro
   turbulence: K1sh, K5wh), the shear box without the shock slot (K4n,
   K5n), and the hydro shear box with and without it (K4h, K5h; K4hn,
-  K5hn); and the three hydro ones with an entropy field (K1she, K5whe;
-  K4he, K5he; K4hne, K5hne).  Without the shock slot a substep has no
-  pre-pass.  The MHD layouts with an entropy field stay outside.
+  K5hn); and all four of those with an entropy field: the three hydro
+  ones (K1she, K5whe; K4he, K5he; K4hne, K5hne) and the MHD ones (the
+  shocked box: K1se, K5wse; the shear box with and without the shock
+  slot: K4e, K5e; K4ne, K5ne).  Without the shock slot a substep has no
+  pre-pass.
 
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
@@ -137,15 +139,14 @@ CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
 # stratified convection and magnetoconvection (Ω optional in both)
 ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"})
 # the shearing box, MHD or hydro, each with or without the shock slot, and
-# the shocked periodic box, MHD or hydro (forcing optional in all; the
-# hydro ones also with an entropy field: the MHD layouts with ss stay
-# refused)
+# the shocked periodic box, MHD or hydro (forcing optional in all; each
+# also with an entropy field)
 ZROLL_SETS = tuple(base | {"shear"} | shock
                    for base in (FLAGSHIP_MODULES, HYDRO_MODULES,
-                                ENT_HYDRO_MODULES)
+                                ENT_HYDRO_MODULES, ENT_MHD_MODULES)
                    for shock in ({"shock"}, set()))
 SHOCKBOX_SETS = (FLAGSHIP_MODULES | {"shock"}, HYDRO_MODULES | {"shock"},
-                 ENT_HYDRO_MODULES | {"shock"})
+                 ENT_HYDRO_MODULES | {"shock"}, ENT_MHD_MODULES | {"shock"})
 
 
 def _order_key(order):
@@ -175,8 +176,8 @@ def fused_mode(cfg: Config):
     hyper-diffusion), 'zghost' (stratified convection and
     magnetoconvection, each with or without Ω, chi-const and del6
     hyper-diffusion), 'zroll' (the shearing box, MHD or hydro, with or
-    without the shock slot, the hydro one also with an entropy field) or
-    'wrap_aux' (the shocked periodic box, MHD, hydro or hydro with an
+    without the shock slot, each also with an entropy field) or
+    'wrap_aux' (the shocked periodic box, MHD or hydro, each also with an
     entropy field), or (None, why ``cfg`` is outside all of these
     sets)."""
     names = [m.name for m in cfg.modules]
@@ -210,14 +211,6 @@ def fused_mode(cfg: Config):
         if extra and "shock" not in mods and unforced in ZROLL_SETS:
             return None, (f"options {extra} without the Shock module, "
                           "whose slot nu-shock reads")
-        if {"shock", "entropy", "magnetic"} <= mods:
-            return None, ("a shock slot beside 'entropy' and 'magnetic' "
-                          "(a 9-slot ring: the shock and shear kernels "
-                          "take the MHD layouts without ss)")
-        if full and {"shear", "entropy", "magnetic"} <= mods:
-            return None, ("the shear box with 'entropy' and 'magnetic' (8 "
-                          "fields: the shear kernels take the MHD layouts "
-                          "without ss)")
         wrap = unforced in WRAP_SETS and full
         if (wrap or zghost) and extra:
             return None, (f"options {extra} (only the shear-box and "
@@ -234,7 +227,7 @@ def fused_mode(cfg: Config):
                   "with a non-periodic z, "
                   f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
                   f"{sorted(HYDRO_MODULES | {'shear'})}, each with or "
-                  "without 'shock', the latter also with 'entropy', and "
+                  "without 'shock' and with or without 'entropy', and "
                   "these with 'shock' in place of 'shear', with optional "
                   "forcing on a periodic grid)")
 

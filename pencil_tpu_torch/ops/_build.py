@@ -1,12 +1,12 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives fifteen, the MHD
+(``LIBRARIES``: the flagship template's source gives eighteen, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
 entropy field, ``PC_ENT=1``, the MHD and hydro ones with the shock slot,
 ``PC_SHOCK=1``, on the periodic state, the shear box's on its ghosted
-stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, the
-hydro ones of both with an entropy field, and the 5- and 8-field entropy
+stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, all
+of both with an entropy field too, and the 5- and 8-field entropy
 ones with ``PC_ZG=1``, stratified convection and magnetoconvection on the
 interior stack and its z-halo slabs), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
@@ -66,6 +66,13 @@ LIBRARIES = {
     "fused_rhs_shear_hydro_ent_ns": ("fused_rhs.cu", ("-DPC_MAG=0",
                                                       "-DPC_ENT=1",
                                                       "-DPC_SHEAR=1")),
+    # the MHD layouts with ss: non-isothermal MHD shock turbulence, and
+    # the MHD shear box with ss with and without the shock slot
+    "fused_rhs_shock_ent": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_SHOCK=1")),
+    "fused_rhs_shear_ent": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_SHOCK=1",
+                                             "-DPC_SHEAR=1")),
+    "fused_rhs_shear_ent_ns": ("fused_rhs.cu", ("-DPC_ENT=1",
+                                                "-DPC_SHEAR=1")),
     "fused_rhs_zg": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
                                       "-DPC_ZG=1")),
     "fused_rhs_zg_mag": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1")),
@@ -111,6 +118,9 @@ SIGNATURES = {
     "fused_rhs_shock_hydro_ent": _SHOCK,
     "fused_rhs_shear_hydro_ent": _SHOCK,
     "fused_rhs_shear_hydro_ent_ns": _SHOCK,
+    "fused_rhs_shock_ent": _SHOCK,
+    "fused_rhs_shear_ent": _SHOCK,
+    "fused_rhs_shear_ent_ns": _SHOCK,
     "fused_rhs_zg": _ZG,
     "fused_rhs_zg_mag": _ZG,
 }

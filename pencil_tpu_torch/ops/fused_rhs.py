@@ -83,7 +83,12 @@ PC_ENT=1``): non-isothermal supersonic turbulence (uu, lnrho, ss, shock;
 ``fused_rhs_shock_hydro_ent``: K1she, K5whe, ``*_hydro_ent``) and the
 hydro shear box with ss, with and without the shock slot
 (``fused_rhs_shear_hydro_ent``: K4he, K5he, ``*_hydro_ent``;
-``fused_rhs_shear_hydro_ent_ns``: K4hne, K5hne, ``*_hydro_ent_ns``).
+``fused_rhs_shear_hydro_ent_ns``: K4hne, K5hne, ``*_hydro_ent_ns``), and
+the MHD layouts with an entropy field (``PC_ENT=1``): non-isothermal MHD
+shock turbulence (uu, lnrho, ss, aa, shock; ``fused_rhs_shock_ent``:
+K1se, K5wse, ``*_ent``) and the MHD shear box with ss, with and without
+the shock slot (``fused_rhs_shear_ent``: K4e, K5e, ``*_ent``;
+``fused_rhs_shear_ent_ns``: K4ne, K5ne, ``*_ent_ns``).
 
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
@@ -372,11 +377,11 @@ def flagship_library(model) -> str:
 # write), its module set (forcing rides along as the kick after the step),
 # the base of its launch names (first, update) and their suffix: the
 # shocked periodic box, MHD or hydro (wrap_aux), and the shear box, MHD or
-# hydro, each with or without the shock slot (zroll); the hydro ones also
-# with an entropy field.
+# hydro, each with or without the shock slot (zroll); each also with an
+# entropy field.
 _ISO = frozenset(("eos", "density", "hydro", "viscosity"))
 _MHD, _HYD = _LAYOUTS["fused_rhs"], _LAYOUTS["fused_rhs_hydro"]
-_HENT = _LAYOUTS["fused_rhs_hydro_ent"]
+_HENT, _ENT = _LAYOUTS["fused_rhs_hydro_ent"], _LAYOUTS["fused_rhs_ent"]
 _WRAP_AUX = ("rhs_wrap_shock", "rhs_wrap_shock_upd")
 _ZROLL = ("rhs_zroll", "rhs_zroll_upd")
 _AUX_BUILDS = {
@@ -400,6 +405,14 @@ _AUX_BUILDS = {
                                   _ZROLL, "_hydro_ent"),
     "fused_rhs_shear_hydro_ent_ns": (_HENT, _ISO | {"entropy", "shear"},
                                      _ZROLL, "_hydro_ent_ns"),
+    "fused_rhs_shock_ent": (dict(_ENT, shock=slice(8, 9)),
+                            _ISO | {"magnetic", "entropy", "shock"},
+                            _WRAP_AUX, "_ent"),
+    "fused_rhs_shear_ent": (dict(_ENT, shock=slice(8, 9)),
+                            _ISO | {"magnetic", "entropy", "shock", "shear"},
+                            _ZROLL, "_ent"),
+    "fused_rhs_shear_ent_ns": (_ENT, _ISO | {"magnetic", "entropy", "shear"},
+                               _ZROLL, "_ent_ns"),
 }
 # each aux build's launch names: its first and its update kernel
 AUX_KERNELS = {lib: tuple(k + sfx for k in base)
@@ -428,9 +441,8 @@ def reset_launches():
 def aux_library(model) -> str:
     """The shock or shear build of the flagship template whose layout and
     module set are ``model``'s (``_AUX_BUILDS``); raises for any other,
-    the MHD layouts with ss among them (8 fields, or a 9-slot ring with
-    the shock slot, which the builds refuse), and for an entropy layer
-    profile, which only the z-ghosted builds have terms for."""
+    and for an entropy layer profile, which only the z-ghosted builds
+    have terms for."""
     lib = model.__dict__.get("_aux_library")
     if lib is not None:
         return lib
@@ -448,10 +460,9 @@ def aux_library(model) -> str:
             model.__dict__["_aux_library"] = lib
             return lib
     raise NotImplementedError(
-        "shock and shear kernels: the (uu, lnrho[, ss][, shock]) and the "
-        "isothermal (uu, lnrho, aa[, shock]) layouts of the shear and "
-        "shocked boxes only (no MHD layout with ss: 8 fields, or 9 slots "
-        f"with the shock slot), got {reg.comp_names} of {sorted(names)}")
+        "shock and shear kernels: the (uu, lnrho[, ss][, aa][, shock]) "
+        "layouts of the shear and shocked boxes and their modules only, "
+        f"got {reg.comp_names} of {sorted(names)}")
 
 
 # the z-ghosted builds, each with its field layout, its module set (the
@@ -535,7 +546,8 @@ def launch_suffix(model) -> str:
     flagship template: its periodic library's ('', '_hydro', '_ent' or
     '_hydro_ent'), then '_h3' where it launches the H3 instances; or its
     aux build's ('', '_hydro', '_ns', '_hydro_ns', '_hydro_ent',
-    '_hydro_ent_ns'), whose H3 instances count under the same names."""
+    '_hydro_ent_ns', '_ent', '_ent_ns'), whose H3 instances count under
+    the same names."""
     if model.mode in ("zroll", "wrap_aux"):
         return _AUX_BUILDS[aux_library(model)][3]
     return _SUFFIX[flagship_library(model)] + _h3_suffix(model)

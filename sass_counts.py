@@ -18,6 +18,9 @@ K5wh, of ``fused_rhs_shear_ns``, ``fused_rhs_shear_hydro`` and
 ``fused_rhs_shear_hydro_ns`` their K4n/K5n, K4h/K5h and K4hn/K5hn, of
 ``fused_rhs_shock_hydro_ent``, ``fused_rhs_shear_hydro_ent`` and
 ``fused_rhs_shear_hydro_ent_ns`` K1she/K5whe, K4he/K5he and K4hne/K5hne,
+of ``fused_rhs_shock_ent``, ``fused_rhs_shear_ent`` and
+``fused_rhs_shear_ent_ns`` K1se/K5wse, K4e/K5e and K4ne/K5ne (9, 9 and 8
+ring fields for ``--auto-skip``),
 K6 and K7 of ``fused_rhs_zg``, the same names of
 ``fused_rhs_zg_mag`` its K6m and K7m, and K6rot, K7rot their Coriolis
 instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones
@@ -287,7 +290,8 @@ def main():
     ap.add_argument("--from-dump")
     ap.add_argument("--auto-skip", type=int, metavar="FIELDS",
                     help="find the skipped paths of a march over FIELDS "
-                    "ring fields (7 for the flagship, 8 with ss or shock)")
+                    "ring fields (7 for the flagship, 8 with ss or shock, "
+                    "9 with both)")
     ap.add_argument("--parent", help="another copy of csrc/fused_rhs.cu "
                     "(its headers beside it) to compare every build with")
     ap.add_argument("--libs", nargs="*")

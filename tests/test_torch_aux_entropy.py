@@ -9,8 +9,12 @@ traced for each set, at 16³ and 8×16×24; the shock heating
 ν_sh·shock·(∇·u)²/T in ds and the shear's −S·x·∂s/∂y, each shown on its
 own; the shifted x faces of s; the launches of each build; the registry
 against JAX's and the state carried from it; the gate, the MHD layouts
-with ss that stay refused, and the builders' defaults.  Steps are in
-tests/test_torch_aux_entropy_steps.py.
+with ss that the gate now admits, the layer profiles that stay refused
+(each also for the MHD layouts with ss: ``shock_box(n, entropy=True)``,
+``shear_box(n, entropy=True[, shock=False])``), and the builders'
+defaults.  Steps are in tests/test_torch_aux_entropy_steps.py; the MHD
+layouts' Pallas kernels and steps in tests/test_torch_aux_mhd_entropy.py
+and tests/test_torch_aux_mhd_entropy_steps.py.
 
 The JAX side runs as tests/test_fused.py runs it on the CPU, the Pallas
 kernels in interpret mode: the shocked box on its raw periodic state, the
@@ -50,8 +54,10 @@ TSTART = 0.37
 SHAPES = ((16, 16, 16), (8, 16, 24))
 IDS = ("16^3", "8x16x24")
 ENT = ["ux", "uy", "uz", "lnrho", "ss"]
+AA = ["ax", "ay", "az"]
 # each layout: its builder and keyword arguments, its build, its slots and
-# the suffix of its launch names
+# the suffix of its launch names; the hydro ones, then the MHD ones
+# (their Pallas kernels and steps: tests/test_torch_aux_mhd_entropy*.py)
 LAYOUTS = {
     "shock": (shock_box, dict(magnetic=False, entropy=True),
               "fused_rhs_shock_hydro_ent", ENT + ["shock"], "_hydro_ent"),
@@ -59,7 +65,23 @@ LAYOUTS = {
               "fused_rhs_shear_hydro_ent", ENT + ["shock"], "_hydro_ent"),
     "shear_ns": (shear_box, dict(magnetic=False, entropy=True, shock=False),
                  "fused_rhs_shear_hydro_ent_ns", ENT, "_hydro_ent_ns"),
+    "mhd_shock": (shock_box, dict(entropy=True), "fused_rhs_shock_ent",
+                  ENT + AA + ["shock"], "_ent"),
+    "mhd_shear": (shear_box, dict(entropy=True), "fused_rhs_shear_ent",
+                  ENT + AA + ["shock"], "_ent"),
+    "mhd_shear_ns": (shear_box, dict(entropy=True, shock=False),
+                     "fused_rhs_shear_ent_ns", ENT + AA, "_ent_ns"),
 }
+HYDRO = ("shock", "shear", "shear_ns")
+
+
+def nvar(layout):
+    """The evolved fields of the layout (its slots but the shock's)."""
+    return len([c for c in LAYOUTS[layout][3] if c != "shock"])
+
+
+def is_shock_box(layout):
+    return LAYOUTS[layout][0] is shock_box
 
 
 def config(pkg, layout, shape=16, fused=True):
@@ -110,15 +132,15 @@ def j_ghosted(jm, fa, sdy, axes=(0, 1)):
 
 def first_kernel(layout):
     """(the first kernel, its update kernel) of the layout's chain."""
-    if layout == "shock":
+    if is_shock_box(layout):
         return fr.rhs_wrap_shock, fr.rhs_wrap_shock_upd
     return fr.rhs_zroll, fr.rhs_zroll_upd
 
 
 # ---- the first and update kernel of each layout against the Pallas ones ----
-@pytest.fixture(scope="module", params=[(lay, s) for lay in LAYOUTS
+@pytest.fixture(scope="module", params=[(lay, s) for lay in HYDRO
                                         for s in SHAPES],
-                ids=[f"{lay}-{i}" for lay in LAYOUTS for i in IDS])
+                ids=[f"{lay}-{i}" for lay in HYDRO for i in IDS])
 def kernels(request):
     """The first and update Pallas kernels of the JAX package, traced for
     the layout (interpret mode): the wrap fetch on the raw state for the
@@ -274,18 +296,19 @@ def test_wrappers_launch_the_layouts_build(recorded, layout):  # noqa: F811
     shape = (16, 16, 32)
     pm = pt.Model(config(pt, layout, shape), device="cpu")
     _, _, lib, names, sfx = LAYOUTS[layout]
-    g2 = 0 if layout == "shock" else 2 * NGHOST
+    shocked = is_shock_box(layout)
+    g2 = 0 if shocked else 2 * NGHOST
     fa = torch.zeros((len(names), shape[0] + g2, shape[1] + g2, shape[2]))
     first, upd = first_kernel(layout)
     first(pm, fa)
-    upd(pm, fa, torch.zeros((5,) + shape), torch.zeros(2))
+    upd(pm, fa, torch.zeros((nvar(layout),) + shape), torch.zeros(2))
     assert recorded == [(lib, "pc_rhs_first"), (lib, "pc_rhs_tail_mid")]
-    base = (fr._WRAP_AUX if layout == "shock" else fr._ZROLL)
+    base = (fr._WRAP_AUX if shocked else fr._ZROLL)
     assert fr.AUX_KERNELS[lib] == tuple(k + sfx for k in base)
     assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
                                **dict.fromkeys(fr.AUX_KERNELS[lib], 1))
     assert fr.launch_suffix(pm) == sfx
-    other = fr.rhs_zroll if layout == "shock" else fr.rhs_wrap_shock
+    other = fr.rhs_zroll if shocked else fr.rhs_wrap_shock
     with pytest.raises(NotImplementedError):
         other(pm, fa)
 
@@ -319,7 +342,7 @@ def test_registry_layout_matches_jax(layout):
     assert pm.reg.comp_names == jm.reg.comp_names == names
     assert list(pm.reg.slots) == list(jm.reg.slots)
     assert (pm.reg.nvar, pm.reg.nf) == (jm.reg.nvar, jm.reg.nf) \
-        == (5, len(names))
+        == (nvar(layout), len(names))
     assert [m.name for m in pm.modules] == [m.name for m in jm.modules]
 
 
@@ -351,20 +374,25 @@ def test_state_from_jax_round_trips(layout):
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_kernel_params_of_the_layout(layout):
     """The entropy constants (γ = 5/3, cp = 1, cp·χ, 2ν, χγ among the
-    diffusivities) beside the layout's ν_sh, S, Ω and del6 rate."""
+    diffusivities) beside the layout's ν_sh, S, Ω and del6 rate; with A
+    η, its Ohmic heat and (in the shear boxes) η₃, η among the
+    diffusivities."""
     cfg = config(pt, layout, 8)
     pm = pt.Model(cfg, device="cpu")
     p = fr.kernel_params(pm)
     f32 = np.float32
     nu = cfg.module("viscosity").nu
     chi = cfg.module("entropy").chi
+    mag = cfg.module("magnetic")
+    eta = mag.eta if mag is not None else 0.0
     assert p.isothermal == 0 and p.gamma == f32(5.0 / 3.0) and p.cp == 1.0
     assert p.cpchi == f32(chi) and p.hcond0 == 0.0
     assert p.two_nu == f32(2.0 * nu)
-    assert p.maxdif == f32(max(nu, chi * 5.0 / 3.0))
-    assert p.eta == 0.0 and p.eta3 == 0.0
+    assert p.maxdif == f32(max(nu, eta, chi * 5.0 / 3.0))
+    assert p.eta == p.eta_heat == f32(eta)
+    assert p.eta3 == (f32(mag.eta_hyper3) if mag is not None else 0.0)
     assert p.nu_shock == (1.0 if "shock" in LAYOUTS[layout][3] else 0.0)
-    shear = layout != "shock"
+    shear = not is_shock_box(layout)
     assert (p.S == f32(-1.5), p.dif3 > 0.0, p.om[2] == 1.0) == (
         (True,) * 3 if shear else (False,) * 3)
 
@@ -382,27 +410,30 @@ def test_gate_accepts_the_layout(layout, forced):
     for dev in ("cpu", "cuda"):
         assert fused_gate(cfg, dev) is True
     assert pt.Model(cfg, device="cpu").mode == (
-        "wrap_aux" if layout == "shock" else "zroll")
+        "wrap_aux" if is_shock_box(layout) else "zroll")
 
 
-@pytest.mark.parametrize("make, kw, word", (
-    (shock_box, {}, "9-slot"), (shear_box, {}, "9-slot"),
-    (shear_box, dict(shock=False), "8 fields")),
+@pytest.mark.parametrize("make, kw, lib", (
+    (shock_box, {}, "fused_rhs_shock_ent"),
+    (shear_box, {}, "fused_rhs_shear_ent"),
+    (shear_box, dict(shock=False), "fused_rhs_shear_ent_ns")),
     ids=("shock_box", "shear_box", "shear_box_ns"))
-def test_mhd_layouts_with_ss_stay_refused(make, kw, word):
-    """``magnetic=True, entropy=True`` builds in both packages, and is
-    refused on the card with a reason that names its layout (the builds'
-    register and shared-memory budget, ROADMAP Queue 2 A); the CPU runs
-    the eager path, and the aux builds refuse its layout."""
+def test_mhd_layouts_with_ss_stay_refused(make, kw, lib):
+    """``magnetic=True, entropy=True`` as the builders make it, in both
+    packages: the gate admits it on the card and on the CPU, in the mode
+    of its chain, and the aux builds take its layout (9 slots with the
+    shock slot, 8 fields without) on a build of its own; what stays
+    refused beside these layouts is Entropy's layer profiles
+    (test_layer_profiles_stay_refused)."""
     cfg = make(8, entropy=True, **kw)
     assert make(8, pkg=pj, entropy=True, **kw).module("entropy") is not None
-    assert word in gate_reason(cfg) and "magnetic" in gate_reason(cfg)
-    with pytest.raises(NotImplementedError, match=word):
-        pt.Model(cfg, device="cuda")
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
     pm = pt.Model(cfg, device="cpu")
-    assert pm.mode is None
-    with pytest.raises(NotImplementedError, match="no MHD layout with ss"):
-        fr.aux_library(pm)
+    assert pm.mode == ("wrap_aux" if make is shock_box else "zroll")
+    assert fr.aux_library(pm) == lib
+    assert pm.reg.nf == (8 if kw else 9) and pm.reg.nvar == 8
 
 
 @pytest.mark.parametrize("option", (dict(cool=15.0, cs2cool=1.0),

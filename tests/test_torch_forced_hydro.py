@@ -241,9 +241,9 @@ def test_kernel_params_refuse_other_layouts(which):
     lnrho, aa under gravity, no ss: the template's z-ghosted builds take
     the conv-slab's entropy layouts only; the conv-slab with Magnetic runs
     them, tests/test_torch_zghost_mhd.py), the shear box with an entropy
-    field beside its shock slot (uu, lnrho, ss, aa, shock: the template's
-    shock and shear builds take the isothermal layouts only; the shear box
-    without Magnetic runs them, tests/test_torch_shear_layouts.py) and an
+    field beside its shock slot under constant gravity (uu, lnrho, ss,
+    aa, shock: the template's shock and shear builds take that layout,
+    tests/test_torch_aux_mhd_entropy.py, but have no gravity term) and an
     entropy slot with a cooling layer are not layouts and module sets of
     the flagship template's builds."""
     from pencil_tpu_torch.configs import conv_slab
@@ -256,7 +256,8 @@ def test_kernel_params_refuse_other_layouts(which):
            "shear_box": lambda: shear_box(8).replace(modules=tuple(
                pt.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0)
                if m.name == "eos" else m for m in shear_box(8).modules)
-               + (pt.Entropy(iheatcond=("chi-const",), chi=5e-3),)),
+               + (pt.Entropy(iheatcond=("chi-const",), chi=5e-3),
+                  pt.Gravity(gravz_profile="const", gravz=-1.0))),
            "entropy": lambda: config(pt, n=8).replace(
                modules=config(pt, n=8).modules + (
                    pt.Entropy(cool=15.0, cs2cool=1.0),))}[which]()

@@ -374,10 +374,17 @@ BUILDS = {
                                                 entropy=True), RTOL_FIELD),
     "shear_hydro_ent_ns": (lambda shape: shear_box(
         shape, magnetic=False, entropy=True, shock=False), RTOL_FIELD),
+    # and their MHD layouts with an entropy field (9 slots, or 8 fields)
+    "shock_ent": (lambda shape: shock_box(shape, entropy=True), 1e-6),
+    "shear_ent": (lambda shape: shear_box(shape, entropy=True), RTOL_FIELD),
+    "shear_ent_ns": (lambda shape: shear_box(shape, entropy=True,
+                                             shock=False), RTOL_FIELD),
 }
 AUX_BUILDS = ("shock", "shear", "shock_hydro", "shear_ns", "shear_hydro",
               "shear_hydro_ns", "shock_hydro_ent", "shear_hydro_ent",
-              "shear_hydro_ent_ns")
+              "shear_hydro_ent_ns", "shock_ent", "shear_ent",
+              "shear_ent_ns")
+MHD_ENT = ("shock_ent", "shear_ent", "shear_ent_ns")
 NEW_AUX = AUX_BUILDS[2:]
 
 
@@ -721,6 +728,16 @@ def _aux_kernels_match_plain(cuda, cfg, rtol):
 
 
 @pytest.mark.parametrize("shape", AUX_SHAPES, ids=AUX_IDS)
+@pytest.mark.parametrize("case", MHD_ENT)
+def test_mhd_entropy_kernels_match_plain(cuda, case, shape):
+    """K1se/K5wse (within K1s/K5w's 1e-6), K4e/K5e and K4ne/K5ne (within
+    K4/K5's 2e-5) against their plain versions at the shock builds'
+    shapes."""
+    make_cfg, rtol = BUILDS[case]
+    _aux_kernels_match_plain(cuda, make_cfg(shape), rtol)
+
+
+@pytest.mark.parametrize("shape", AUX_SHAPES, ids=AUX_IDS)
 def test_zroll_kernels_match_plain(cuda, shape):
     """K4 and K5 against their plain versions."""
     _aux_kernels_match_plain(cuda, shear_box(shape), RTOL_FIELD)
@@ -829,10 +846,10 @@ def aux_variant(cfg, omega, hyper3):
                          ids=("32^3", "24x20x42"))
 @pytest.mark.parametrize("case", NEW_AUX)
 def test_new_aux_instances_match_plain(cuda, case, shape, omega, hyper3):
-    """K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, K1she/K5whe, K4he/K5he
-    and K4hne/K5hne, each instance (without and with Ω, without and with
-    the del6 terms) against its plain version, counted under its build's
-    launch names."""
+    """K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, K1she/K5whe, K4he/K5he,
+    K4hne/K5hne, K1se/K5wse, K4e/K5e and K4ne/K5ne, each instance
+    (without and with Ω, without and with the del6 terms) against its
+    plain version, counted under its build's launch names."""
     make_cfg, rtol = BUILDS[case]
     cfg = aux_variant(make_cfg(shape), omega, hyper3)
     p = fr.kernel_params(pt.Model(cfg, device="cpu"))
@@ -843,8 +860,8 @@ def test_new_aux_instances_match_plain(cuda, case, shape, omega, hyper3):
 @pytest.mark.parametrize("case", NEW_AUX)
 def test_new_aux_steps_on_card_match_cpu(cuda, case):
     """Three steps of each new set through its kernels (the shear boxes
-    from t = 0.37, the hydro shock box at urms ≈ 0.1, both forced hydro
-    sets with the same draws) against the same steps on the CPU."""
+    from t = 0.37, the shocked boxes at urms ≈ 0.1, the forced sets with
+    the same draws) against the same steps on the CPU."""
     cfg = BUILDS[case][0]((16, 16, 32))
     if case.startswith("shear"):
         _steps_match(cuda, cfg, t0=0.37)
@@ -855,14 +872,17 @@ def test_new_aux_steps_on_card_match_cpu(cuda, case):
 @pytest.mark.parametrize("lib", sorted(
     set(fr.AUX_KERNELS) - {"fused_rhs_shock", "fused_rhs_shear"}))
 def test_new_aux_instances_hold_no_local_memory(cuda, lib):
-    """Every instance of the seven newer builds (first and update, with
+    """Every instance of the ten newer builds (first and update, with
     and without Ω and the del6 terms): no spill and no stack, one
-    256-thread block per SM or more."""
+    256-thread block per SM or more, its shared memory within a block's
+    227 KB."""
     attrs = fr.flagship_attrs(lib)
     assert len(attrs) == 8
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1, (name, a)
+        assert a["static_smem"] + a["dynamic_smem"] <= 232448, (name, a)
+        assert 0 < a["registers"] <= 255, (name, a)
 
 
 # ---- the H3 and CHI instances -----------------------------------------------

@@ -373,8 +373,8 @@ def test_zg_build_takes_chi_const(magnetic, recorded):
 def test_shock_library_follows_the_modules():
     """The build of the shock and shear chains follows the module set and
     the layout (``aux_library``, which took over from shock_library when
-    the builds gained their other isothermal layouts, and their hydro
-    layouts with an entropy field)."""
+    the builds gained their other isothermal layouts, and their hydro and
+    MHD layouts with an entropy field)."""
     want = {(shock_box, ()): "fused_rhs_shock",
             (shock_box, (("magnetic", False),)): "fused_rhs_shock_hydro",
             (shear_box, ()): "fused_rhs_shear",
@@ -387,7 +387,11 @@ def test_shock_library_follows_the_modules():
             (shear_box, (("magnetic", False), ("entropy", True))):
                 "fused_rhs_shear_hydro_ent",
             (shear_box, (("magnetic", False), ("shock", False),
-                         ("entropy", True))): "fused_rhs_shear_hydro_ent_ns"}
+                         ("entropy", True))): "fused_rhs_shear_hydro_ent_ns",
+            (shock_box, (("entropy", True),)): "fused_rhs_shock_ent",
+            (shear_box, (("entropy", True),)): "fused_rhs_shear_ent",
+            (shear_box, (("shock", False), ("entropy", True))):
+                "fused_rhs_shear_ent_ns"}
     for (make, kw), lib in want.items():
         pm = pt.Model(make(SHAPE, **dict(kw)), device="cpu")
         assert fr.aux_library(pm) == lib

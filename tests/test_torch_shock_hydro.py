@@ -299,13 +299,14 @@ def test_gate_accepts_the_hydro_shock_box(forced):
 
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
 def test_a_shock_slot_beside_entropy_stays_refused(magnetic):
-    """The MHD layouts with an entropy field on the shock and shear builds
-    run no kernel: non-isothermal MHD turbulence with shock viscosity (9
-    slots), and (``magnetic=False``: the hydro layout with ss and the slot
-    runs K1she/K5whe, tests/test_torch_aux_entropy.py) the shear box with
-    ss and A without the slot (8 fields).  The gate names each, a CUDA
-    model raises before it allocates (no GPU needed), and the CPU runs the
-    eager path."""
+    """The MHD layouts with an entropy field on the shock and shear
+    builds: non-isothermal MHD turbulence with shock viscosity (the
+    flagship's entropy set with nu-shock and the Shock module, 9 slots)
+    and (``magnetic=False``: the hydro layout with ss and the slot runs
+    K1she/K5whe, tests/test_torch_aux_entropy.py) the shear box with ss
+    and A without the slot (8 fields).  The gate admits each, on the card
+    and on the CPU, in the mode of its chain, and its kernel constants
+    come from its own build (K1se/K5wse, K4ne/K5ne)."""
     if magnetic:
         cfg = forced_entropy(8, magnetic=True)
         cfg = cfg.replace(modules=tuple(
@@ -313,18 +314,18 @@ def test_a_shock_slot_beside_entropy_stays_refused(magnetic):
                          nu_shock=1.0)
             if m.name == "viscosity" else m for m in cfg.modules)
             + (pt.Shock(),))
-        assert "shock slot beside 'entropy'" in gate_reason(cfg)
-        assert "9-slot" in gate_reason(cfg)
+        mode, lib = "wrap_aux", "fused_rhs_shock_ent"
     else:
         cfg = shear_box(8, entropy=True, shock=False)
-        assert "shear box with 'entropy' and 'magnetic'" in gate_reason(cfg)
-        assert "8 fields" in gate_reason(cfg)
-    with pytest.raises(NotImplementedError, match="entropy"):
-        pt.Model(cfg, device="cuda")
+        mode, lib = "zroll", "fused_rhs_shear_ent_ns"
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
     pm = pt.Model(cfg, device="cpu")
-    assert pm.mode is None
-    with pytest.raises(NotImplementedError, match="layout"):
-        fr.kernel_params(pm)
+    assert pm.mode == mode
+    assert fr.aux_library(pm) == lib
+    p = fr.kernel_params(pm)
+    assert p.eta > 0.0 and p.eta_heat == p.eta and p.cpchi > 0.0
 
 
 @pytest.mark.parametrize("pkg", (pt, pj), ids=("port", "jax"))

@@ -19,12 +19,16 @@ instances are timed:
 ``fused_rhs_hydro_ent`` (e.g. ``--lib fused_rhs_ent "" :PC_PD=1
 :PC_OQLAG=0`` for the 8-field tails), ``fused_rhs_shock`` (K1s and K5w on
 chip_smoke.py's shocked-box input), ``fused_rhs_shear`` (K4 and K5 on
-its sheared stack at t = 0.37), ``fused_rhs_zg`` (K6 and K7 on its
+its sheared stack at t = 0.37), ``fused_rhs_shock_ent``,
+``fused_rhs_shear_ent`` and ``fused_rhs_shear_ent_ns`` (K1se/K5wse,
+K4e/K5e and K4ne/K5ne on the same inputs of their layouts, with ss and
+A), ``fused_rhs_zg`` (K6 and K7 on its
 stratified conv-slab input, the interior and its z-halo slabs) or
 ``fused_rhs_zg_mag`` (K6m and K7m on the same with a noisy vector
-potential; no ``--parent-tree``: the build is new in this tree).
-``--parent-tree DIR`` (with a shock build or ``fused_rhs_zg``) adds
-another checkout's package as one more column, ``parent``: DIR holds an
+potential).
+``--parent-tree DIR`` (with a shock or a z-ghosted build) adds
+another checkout's package as one more column, ``parent``, on the same
+configuration (one it has no kernels for raises there): DIR holds an
 unpacked ``git archive`` of an earlier commit (e.g. ``git archive
 9dab6e0 pencil_tpu_torch | tar -x -C _archive/parent``, made where
 git is at hand), whose ``pencil_tpu_torch`` is imported
@@ -32,8 +36,8 @@ beside this one and builds its own kernels from its own csrc/ into its
 own _build/; the same kernels are timed through its own wrappers and
 model, whatever template they had then (the 4×4×16 tiles of
 zroll_rhs.cu up to 4a21894, of zghost_rhs.cu up to 9dab6e0; the latter on
-its stack ghosted in all three axes).  ``--steps`` (with a shock build
-or ``fused_rhs_zg``) also times the path's whole step from its initial
+its stack ghosted in all three axes).  ``--steps`` (with a shock or a
+z-ghosted build) also times the path's whole step from its initial
 state, through each variant's kernels and the parent's own
 ``make_step``: the shock pre-passes, fills and axpy included; each step
 also under the sync debug mode "error", as chip_smoke.py times it ("step
@@ -42,7 +46,8 @@ host"), and by the card's busy time in torch.profiler's kernel records
 ("step device").  Each variant is
 built with the package's nvcc flags into
 pencil_tpu_torch/_build/variants/, all builds (and the parent's) at
-once; then every
+once, and its instances' registers, local bytes, shared memory and
+blocks per SM printed; then every
 instance of each variant is checked against the plain PyTorch version
 (K8's K1 and K2 variants bit for bit; K8 exists in ``fused_rhs``
 only) and timed by CUDA events over 20 launches, the variants in turns
@@ -63,7 +68,8 @@ from pathlib import Path
 
 LIBS = ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
         "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear",
-        "fused_rhs_zg", "fused_rhs_zg_mag")
+        "fused_rhs_shock_ent", "fused_rhs_shear_ent",
+        "fused_rhs_shear_ent_ns", "fused_rhs_zg", "fused_rhs_zg_mag")
 PARENT = "parent"    # the column of --parent-tree
 # the name its package is imported under
 PARENT_PKG = "parent_pencil_tpu_torch"
@@ -71,10 +77,17 @@ PARENT_PKG = "parent_pencil_tpu_torch"
 # keyword arguments, and the two wrappers that launch them
 PATH_CONFIG = {"fused_rhs_shock": ("shock_box", {}),
                "fused_rhs_shear": ("shear_box", {}),
+               "fused_rhs_shock_ent": ("shock_box", {"entropy": True}),
+               "fused_rhs_shear_ent": ("shear_box", {"entropy": True}),
+               "fused_rhs_shear_ent_ns": ("shear_box", {"entropy": True,
+                                                        "shock": False}),
                "fused_rhs_zg": ("conv_slab", {}),
                "fused_rhs_zg_mag": ("conv_slab", {"magnetic": True})}
-WRAPPERS = {"fused_rhs_shock": ("rhs_wrap_shock", "rhs_wrap_shock_upd"),
-            "fused_rhs_shear": ("rhs_zroll", "rhs_zroll_upd"),
+_SHOCK_W, _SHEAR_W = ("rhs_wrap_shock", "rhs_wrap_shock_upd"), (
+    "rhs_zroll", "rhs_zroll_upd")
+WRAPPERS = {"fused_rhs_shock": _SHOCK_W, "fused_rhs_shear": _SHEAR_W,
+            "fused_rhs_shock_ent": _SHOCK_W, "fused_rhs_shear_ent": _SHEAR_W,
+            "fused_rhs_shear_ent_ns": _SHEAR_W,
             "fused_rhs_zg": ("rhs_zg", "rhs_zg_upd"),
             "fused_rhs_zg_mag": ("rhs_zg", "rhs_zg_upd")}
 
@@ -176,8 +189,6 @@ def main():
     if (args.parent_tree or args.steps) and not two:
         ap.error("--parent-tree and --steps take a shock build's --lib or "
                  "a z-ghosted one")
-    if args.parent_tree and args.lib == "fused_rhs_zg_mag":
-        ap.error("--parent-tree: fused_rhs_zg_mag is new in this tree")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -190,6 +201,16 @@ def main():
             pbuild.result()
     specs = list(libs) + ([PARENT] if pp else [])
     shape = (args.n,) * 3
+    # each variant's instances: registers, local bytes, shared memory and
+    # resident blocks per SM (pc_flagship_attrs)
+    for spec, lib in libs.items():
+        for inst, which in fr.library_instances(args.lib).items():
+            a = (ctypes.c_int * len(fr.ATTR_KEYS))()
+            rc = lib.pc_flagship_attrs(which, ctypes.addressof(a))
+            cs.check(rc == 0, f"{spec} {inst}: pc_flagship_attrs {rc}")
+            print(f"variant {spec or 'default'!r} {inst} on {smi}: "
+                  + ", ".join(f"{k} {v}" for k, v in zip(fr.ATTR_KEYS, a)),
+                  flush=True)
     # name -> the timed call; the check's call where the timed one
     # updates its input in place; the plain results; the bound (None: bit
     # for bit)
@@ -281,7 +302,8 @@ def main():
     if pp:
         # the parent's kernels through its own wrappers and model; its
         # zghost template read the stack ghosted in all three axes
-        pmodel = pp.Model(getattr(pp.configs, cfg)(shape), device="cuda")
+        pmodel = pp.Model(getattr(pp.configs, cfg)(shape, **kw),
+                          device="cuda")
         pinp = (inp if cfg != "conv_slab" else pmodel.z_slabs(fa.clone())
                 if hasattr(pmodel, "z_slabs") else (pmodel.ghosted(fa),))
         variant_calls[PARENT], variant_fresh[PARENT] = kernel_pair(
