@@ -11,7 +11,10 @@ restart), each of these four also with del6 hyper-diffusion
 on the template's z-ghosted build) and magnetoconvection (K6m, K7m, on
 its 8-field z-ghosted build), each also with chi-const conduction
 (``chi=4e-3``: their CHI instances, ``*_chi``) and with del6
-hyper-diffusion (``hyper3=True``: their H3 instances, ``*_h3``), the
+hyper-diffusion (``hyper3=True``: their H3 instances, ``*_h3``), both
+in a shearing box (``shear=True``, the stratified shearing box: kernels
+K6s, K7s and K6ms, K7ms, on the z-ghosted shear builds) and forced
+convection (``forcing=0.05``: K6, K7 and the kick after the step), the
 sheared, rotating
 MHD box with shock viscosity and hyper-diffusion (kernels K4, K5) and
 the shocked periodic box (kernels K1s, K5w), these four on the same
@@ -45,7 +48,9 @@ Phases, each printing its own lines:
      with Ω = 1 (their Coriolis instances) at
      the same five shapes, and with chi-const (their CHI instances, with
      and without Ω), and their H3 instances at 64³ and, with and
-     without Ω and chi-const, at 24×20×42, the four periodic builds'
+     without Ω and chi-const, at 24×20×42, K6s/K7s and K6ms/K7ms (Ω = 1,
+     the input at t = 0.37) with and without chi-const and del6 at 64³
+     and 24×20×42, the four periodic builds'
      H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
@@ -62,7 +67,9 @@ Phases, each printing its own lines:
      4 and with Ω = 1, the shear box unforced and forced, the conv-slab
      with Magnetic, with Ω = 1 and with both, with chi-const, with
      Magnetic and chi-const, and with all three, both with del6 and
-     magnetoconvection with del6, chi-const and Ω, the hydro shock box,
+     magnetoconvection with del6, chi-const and Ω, the sheared conv-slab
+     and magnetoconvection from t = 0.37, forced convection, the hydro
+     shock box,
      the three other shear-box layouts, the three hydro layouts with ss
      and the three MHD layouts with ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
@@ -86,6 +93,9 @@ Phases, each printing its own lines:
      likewise with their builds; the four again with hyper3=True, on
      their H3 instances), the conv-slab and magnetoconvection again with
      chi-const (their CHI instances) and with del6 (their H3 instances),
+     both in the shearing box (Ω = 0.5: one K6s and two K7s, one K6ms and
+     two K7ms) and forced convection (one K6, two K7), each in 3 windows
+     with the card's busy time,
      and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
@@ -102,12 +112,15 @@ Phases, each printing its own lines:
      host issue time from a run without it); each H3 instance in turns
      with the instance without H3 and each CHI and z-ghosted H3 instance
      with the one without (with and without Ω), kernel by kernel;
+     K6s/K7s and K6ms/K7ms in turns with K6/K7 and K6m/K7m, the sheared
+     paths' and forced convection's step split (the x/y fills with the
+     shifted faces and the kick among the parts);
      K1sh/K5wh in turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5,
      K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
      K4h/K5h, K4hne/K5hne with K4hn/K5hn, K1se/K5wse with K1s/K5w,
      K4e/K5e with K4/K5, K4ne/K5ne with K4n/K5n, each on its own path's
      final state; for each
-     instance of the flagship template (csrc/fused_rhs.cu, all eighteen
+     instance of the flagship template (csrc/fused_rhs.cu, all twenty
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
@@ -206,6 +219,10 @@ AUX_RTOL = {label: 1e-6 if AUX_PATHS[label][0] == "shock_box" else 2e-5
 ZGHOST_KERNELS = ("rhs_zg", "rhs_zg_upd")
 # the template's 8-field z-ghosted build: K6m, K7m
 ZGHOST_MAG_KERNELS = ("rhs_zg_mag", "rhs_zg_upd_mag")
+# the z-ghosted shear builds (the stratified shearing box): K6s, K7s and
+# K6ms, K7ms
+ZG_SHEAR_KERNELS = ("rhs_zg_shear", "rhs_zg_upd_shear",
+                    "rhs_zg_mag_shear", "rhs_zg_upd_mag_shear")
 # the H3 instances (del6 hyper-diffusion) of the four periodic builds
 H3_KERNELS = tuple(k + sfx + "_h3" for sfx in ("", "_hydro", "_ent",
                                                "_hydro_ent")
@@ -218,7 +235,7 @@ KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
                 + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
-                + NEW_AUX_KERNELS + ZG_H3_KERNELS)
+                + NEW_AUX_KERNELS + ZG_H3_KERNELS + ZG_SHEAR_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -228,6 +245,20 @@ TEMPLATE_PATHS.update({k + " h3": v + "_h3"
 # the chi-const value of the conv-slab paths with it (χ = ν, a Prandtl
 # number of 1)
 CHI = 4e-3
+# the rotation of the sheared conv-slab paths in phase 3 (S = −1.5 Ω) and
+# the amplitude of forced convection
+OMEGA_SHEAR, FORCE = 0.5, 0.05
+# the conv-slab paths of phase 3: label -> conv_slab keyword arguments
+CONV_SLAB_PATHS = {
+    "conv-slab": {}, "magnetoconvection": dict(magnetic=True),
+    "conv-slab chi": dict(chi=CHI),
+    "magnetoconvection chi": dict(magnetic=True, chi=CHI),
+    "conv-slab h3": dict(hyper3=True),
+    "magnetoconvection h3": dict(magnetic=True, hyper3=True),
+    "sheared conv-slab": dict(Omega=OMEGA_SHEAR, shear=True),
+    "sheared magnetoconvection": dict(magnetic=True, Omega=OMEGA_SHEAR,
+                                      shear=True),
+    "forced conv-slab": dict(forcing=FORCE)}
 # launches of each kernel in one step of each phase-3 path
 PER_STEP = {
     "flagship": dict.fromkeys(FLAGSHIP_KERNELS, 1),
@@ -241,6 +272,10 @@ PER_STEP = {
     "magnetoconvection chi": {"rhs_zg_mag_chi": 1, "rhs_zg_upd_mag_chi": 2},
     "conv-slab h3": {"rhs_zg_h3": 1, "rhs_zg_upd_h3": 2},
     "magnetoconvection h3": {"rhs_zg_mag_h3": 1, "rhs_zg_upd_mag_h3": 2},
+    "sheared conv-slab": {"rhs_zg_shear": 1, "rhs_zg_upd_shear": 2},
+    "sheared magnetoconvection": {"rhs_zg_mag_shear": 1,
+                                  "rhs_zg_upd_mag_shear": 2},
+    "forced conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -262,6 +297,8 @@ REPLACES = {
     "rhs_wrap_shock": _FR + "306", "rhs_wrap_shock_upd": _FR + "331",
     "rhs_zg": _FR + "317", "rhs_zg_upd": _FR + "349",
     "rhs_zg_mag": _FR + "317", "rhs_zg_upd_mag": _FR + "349",
+    "rhs_zg_shear": _FR + "317", "rhs_zg_upd_shear": _FR + "349",
+    "rhs_zg_mag_shear": _FR + "317", "rhs_zg_upd_mag_shear": _FR + "349",
 }
 # the hydro build replaces the same calls, traced for the hydro set; the
 # H3 and CHI instances the same calls, traced with those terms
@@ -432,6 +469,20 @@ OPS.update({k + "_chi": OPS[k] + CHI_OPS
 OPS.update({k + "_h3": OPS[k] + n * HYPER3 + (k in ("rhs_zg", "rhs_zg_mag"))
             for ks, n in ((ZGHOST_KERNELS, 4), (ZGHOST_MAG_KERNELS, 7))
             for k in ks})
+
+
+def zg_shear_ops(n, magnetic, first):
+    """The shear terms of the z-ghosted shear builds on n fields: the node
+    x and −S·x (4), −S x ∂f/∂y of each field (2 n), −S u_x on u_y (2),
+    with A −S A_y on A_x (2), and in the first kernel |S x|/Δy in the
+    CFL maximum (3)."""
+    return 4 + 2 * n + 2 + 2 * magnetic + 3 * first
+
+
+OPS.update({k + "_shear": OPS[k] + zg_shear_ops(n, n == 8, first)
+            for k, n, first in (("rhs_zg", 5, True), ("rhs_zg_upd", 5, False),
+                                ("rhs_zg_mag", 8, True),
+                                ("rhs_zg_upd_mag", 8, False))})
 # the shear-box comparisons start here, where deltay = 0.555·Ly is not a
 # whole number of cells (at t = 0 the shifted faces are plain wraps)
 T_SHEAR = 0.37
@@ -762,30 +813,42 @@ def stratified_fa(torch, pm, seed):
     return torch.cat(parts).contiguous()
 
 
+def zg_input(torch, pm, seed):
+    """A z-ghosted kernel's input on the card from stratified_fa
+    (``Model.zg_input``): with Shear the x/y-ghosted stack with the x
+    faces shifted by deltay at t = T_SHEAR, and its z slabs."""
+    sdy = (pm.deltay(torch.full((), T_SHEAR, device="cuda"))
+           if pm.shear is not None else None)
+    return pm.zg_input(stratified_fa(torch, pm, seed), sdy)
+
+
 def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
-                           Omega=0.0, chi=0.0, hyper3=False):
+                           Omega=0.0, chi=0.0, hyper3=False, shear=False):
     """Phase 2: K6 and K7 (K6m and K7m with ``magnetic``; their Coriolis
     instances with ``Omega``, their CHI instances with ``chi``, their H3
-    instances with ``hyper3``) against their plain versions on CUDA
-    inputs: the interior stack, its boundary planes pinned, and its
-    z-halo slabs."""
+    instances with ``hyper3``; K6s/K7s or K6ms/K7ms with ``shear``)
+    against their plain versions on CUDA inputs: the interior stack (with
+    Shear ghosted in x and y, the faces shifted), its boundary planes
+    pinned, and its z-halo slabs."""
     pm = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic,
-                                       Omega=Omega, chi=chi, hyper3=hyper3),
-                  device="cuda")
+                                       Omega=Omega, chi=chi, hyper3=hyper3,
+                                       shear=shear), device="cuda")
     first, upd = fr.zg_kernels(pm)
-    inp = pm.z_slabs(stratified_fa(torch, pm, 1))
+    first_p, upd_p = fr.zg_plain(pm)
+    inp = zg_input(torch, pm, 1)
     fr.reset_launches()
     df, dt1m = fr.rhs_zg(pm, *inp)
-    df_p, dt1m_p = fr.rhs_zg_plain(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
     alpha, beta, _ = pm.rk
     coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
-    inp2 = pm.z_slabs(stratified_fa(torch, pm, 2))
+    inp2 = zg_input(torch, pm, 2)
     df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, *inp2, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp2, df_p.clone(), coef)
     torch.cuda.synchronize()
     counts = {k: v for k, v in fr.LAUNCHES.items() if v}
     check(counts == {first: 1, upd: 1}, f"launch counts {counts}")
-    label = ("magnetoconvection" if magnetic else "conv-slab") + (
+    label = ("sheared " if shear else "") + (
+        "magnetoconvection" if magnetic else "conv-slab") + (
         f", chi = {chi:g}" if chi else "") + (", del6" if hyper3 else "") + (
         f", Omega = {Omega:g}" if Omega else "")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
@@ -946,6 +1009,14 @@ def main():
             for chi in (0.0, CHI):
                 compare_zghost_kernels(torch, pt, fr, EDGE_SHAPE, errs,
                                        magnetic, Omega, chi, True)
+    # the shear builds (Ω = 1): with and without chi-const and del6
+    for shape in ((64, 64, 64), EDGE_SHAPE):
+        for magnetic in (False, True):
+            for chi in (0.0, CHI):
+                for hyper3 in (False, True):
+                    compare_zghost_kernels(torch, pt, fr, shape, errs,
+                                           magnetic, 1.0, chi, hyper3,
+                                           shear=True)
     mark("phase 2, the z-ghosted builds")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
@@ -1019,9 +1090,13 @@ def main():
                                                     hyper3=True)),
                       ("magnetoconvection chi h3, Omega = 1",
                        dict(magnetic=True, Omega=1.0, chi=CHI,
-                            hyper3=True))):
+                            hyper3=True)),
+                      ("forced conv-slab", dict(forcing=FORCE))):
         compare_steps(torch, pt, label, pt.configs.conv_slab(n32, **kw),
                       uu_noise=1e-2)
+    for label in ("sheared conv-slab", "sheared magnetoconvection"):
+        compare_steps(torch, pt, label, pt.configs.conv_slab(
+            n32, **CONV_SLAB_PATHS[label]), uu_noise=1e-2, t0=T_SHEAR)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
                   t0=T_SHEAR)
     sb = pt.configs.shear_box(n32)
@@ -1048,13 +1123,15 @@ def main():
     h3 = [run_flagship(torch, pt, fr, smi, shape, launches, name=name)
           for name in TEMPLATE_PATHS if name.endswith(" h3")]
     mark("phase 3, the periodic builds at order 3")
-    zg = run_conv_slab(torch, pt, fr, smi, shape, launches)
-    zm = run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=True)
-    zc, zmc, zh, zmh = (
-        run_conv_slab(torch, pt, fr, smi, shape, launches,
-                      nwin=VARIANT_WINDOWS, **kw)
-        for kw in (dict(chi=CHI), dict(magnetic=True, chi=CHI),
-                   dict(hyper3=True), dict(magnetic=True, hyper3=True)))
+    zg, zm = (run_conv_slab(torch, pt, fr, smi, shape, launches, label)
+              for label in ("conv-slab", "magnetoconvection"))
+    zc, zmc, zh, zmh, zs, zms, zf = (
+        run_conv_slab(torch, pt, fr, smi, shape, launches, label,
+                      nwin=VARIANT_WINDOWS)
+        for label in ("conv-slab chi", "magnetoconvection chi",
+                      "conv-slab h3", "magnetoconvection h3",
+                      "sheared conv-slab", "sheared magnetoconvection",
+                      "forced conv-slab"))
     mark("phase 3, the z-ghosted builds")
     aux = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
            for label in AUX_PATHS}
@@ -1094,6 +1171,13 @@ def main():
     time_conv_slab(torch, fr, smi, zmc, errs, timings, bounds, full=False)
     time_conv_slab(torch, fr, smi, zh, errs, timings, bounds, full=False)
     time_conv_slab(torch, fr, smi, zmh, errs, timings, bounds, full=False)
+    for path in (zs, zms):
+        time_conv_slab(torch, fr, smi, path, errs, timings, bounds,
+                       full=False)
+        print_split(torch, fr, smi, path)
+    time_zg_turns(torch, fr, smi, zs, zg)
+    time_zg_turns(torch, fr, smi, zms, zm)
+    print_split(torch, fr, smi, zf)
     mark("phase 4, the z-ghosted builds")
     for box in aux.values():
         time_aux_box(torch, fr, smi, box, errs, timings, bounds)
@@ -1301,21 +1385,21 @@ CONV_SLAB_WINDOWS = 5
 VARIANT_WINDOWS = 3
 
 
-def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
-                  chi=0.0, hyper3=False, nwin=CONV_SLAB_WINDOWS):
-    """Phase 3: stratified convection, non-periodic z (with ``magnetic``
-    magnetoconvection, on K6m/K7m; with ``chi`` chi-const conduction
-    beside K-const, on their CHI instances; with ``hyper3`` del6
-    hyper-diffusion, on their H3 instances); the step timed in ``nwin``
-    windows one after the other, the launches counted in
-    the first, the card's busy time from torch.profiler's kernel
+def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
+                  nwin=CONV_SLAB_WINDOWS):
+    """Phase 3: a conv-slab path (CONV_SLAB_PATHS): stratified
+    convection, non-periodic z, or magnetoconvection on K6m/K7m, with
+    chi-const conduction beside K-const on their CHI instances, with del6
+    hyper-diffusion on their H3 instances, in the shearing box on
+    K6s/K7s or K6ms/K7ms, or forced, the kick after the step; the step
+    timed in ``nwin`` windows one after the other, the launches counted
+    in the first, the card's busy time from torch.profiler's kernel
     records."""
     from pencil_tpu_torch.physics.pencils import Pencils
-    label = ("magnetoconvection" if magnetic else "conv-slab") + (
-        " chi" if chi else "") + (" h3" if hyper3 else "")
     base = torch.cuda.memory_allocated()
-    model = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic, chi=chi,
-                                          hyper3=hyper3), device="cuda")
+    model = pt.Model(pt.configs.conv_slab(shape, **CONV_SLAB_PATHS[label]),
+                     device="cuda")
+    magnetic = "aa" in model.reg.slots
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches(label, counts, launches)
     step = model.make_step()
@@ -1350,8 +1434,10 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
     check(tuple(fa.shape) == (nvar,) + shape,
           f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
-    # uz, and with Magnetic A_x and A_y, are 0 on the walls
-    for c in (2, 5, 6) if magnetic else (2,):
+    # uz, and with Magnetic A_x and A_y, are 0 on the walls (forced, the
+    # kick after the writeback moves u off them, as JAX's does)
+    for c in (() if model.forcing is not None else (2, 5, 6) if magnetic
+              else (2,)):
         check(bool((fa[c][:, :, [0, -1]] == 0).all()),
               f"{model.reg.comp_names[c]} not 0 on the walls")
     dt = float(state["dt"])
@@ -1360,7 +1446,8 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
     # advective and diffusive rates, so it lies between the larger of
     # their maxima and the root sum of their maxima (with Magnetic the
     # latter holds the largest Alfvén speed too; with del6 the diffusive
-    # rate holds the constant dxyz₆ one)
+    # rate holds the constant dxyz₆ one; with Shear both hold |S·x|/Δy at
+    # the x faces)
     dt_next = float(model.make_step()(state)["dt"])
     cfg, eos, ent = model.cfg, model.eos, model.cfg.module("entropy")
     tc, gs = cfg.time, cfg.grid
@@ -1369,7 +1456,10 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
     lnrho, ss = fa[3], fa[4]
     cs2 = eos.cs20 * torch.exp(eos.gamma / eos.cp * ss
                                + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
-    umax = sum(fa[a].abs().max() * inv[a] for a in range(3))
+    shear = cfg.module("shear")
+    umax = sum(fa[a].abs().max() * inv[a] for a in range(3)) + (
+        abs(shear.S) * float(model.grid.x.abs().max()) * inv[1]
+        if shear else 0.0)
     adv = float((umax + torch.sqrt(cs2.max() * dxyz2)) / tc.cdt)
     va2 = 0.0
     if magnetic:
@@ -1399,7 +1489,7 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, magnetic=False,
           f"{adv_b:.4e}, diffusive {dif:.4e}), "
           f"urms {u0:.3e} -> {u1:.3e}, launches "
           f"{ {k: counts[k] for k in names} }", flush=True)
-    return model, state, ms_step
+    return model, state, ms_step, label
 
 
 def run_aux_box(torch, pt, fr, smi, shape, launches, label):
@@ -1621,29 +1711,24 @@ def time_tails(torch, fr, fl, errs, timings, bounds):
 
 
 def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds, full=True):
-    """K6/K7 (K6m/K7m; their CHI or H3 instances) checked and timed on the
-    stratified noisy input of phase 2 at 256³, not on the main path's
-    state: there uz's tendency is the small residual of the O(1) pressure
-    and gravity forces, and the f32 rounding of those forces alone reaches
-    2e-5 of its max.  With ``full`` then the Coriolis and chi-const
-    instances in turns with these (``time_zg_instances``) and the step's
-    split: its kernels, its three z-halo fills, the boundary-plane
-    writeback and the glue (the axpy, dt, the RK coefficients), on the
-    card and on the host, from one torch.profiler trace
-    (``conv_slab_split``)."""
-    model, state, ms_step = zg
+    """K6/K7 (K6m/K7m; their CHI or H3 instances; K6s/K7s, K6ms/K7ms)
+    checked and timed on the stratified noisy input of phase 2 at 256³
+    (``zg_input``), not on the main path's state: there uz's tendency is
+    the small residual of the O(1) pressure and gravity forces, and the
+    f32 rounding of those forces alone reaches 2e-5 of its max.  With
+    ``full`` then the Coriolis and chi-const instances in turns with these
+    (``time_zg_instances``) and the step's split (``print_split``)."""
+    model, state, ms_step, label = zg
     first, upd = fr.zg_kernels(model)
-    label = ("magnetoconvection" if "aa" in model.reg.slots
-             else "conv-slab") + (" chi" if "_chi" in first else "") + (
-        " h3" if first.endswith("_h3") else "")
+    first_p, upd_p = fr.zg_plain(model)
     fa = state["_fa"]
-    inp = model.z_slabs(stratified_fa(torch, model, 3))
+    inp = zg_input(torch, model, 3)
     _, beta, _ = model.rk
-    df1, dt1m = fr.rhs_zg_plain(model, *inp)
+    df1, dt1m = first_p(model, *inp)
     coef = torch.stack((model._alpha[1], beta[1] / dt1m))
     prof = fr.zg_profiles(model)
     time_pairs(torch, first, lambda: fr.rhs_zg(model, *inp),
-               lambda: fr.rhs_zg_plain(model, *inp), errs, timings, bounds,
+               lambda: first_p(model, *inp), errs, timings, bounds,
                [*inp, *prof])
     # K7 writes the new df over df_prev: checked on fresh copies of df1,
     # timed on one buffer that each call keeps updating in place
@@ -1651,23 +1736,31 @@ def time_conv_slab(torch, fr, smi, zg, errs, timings, bounds, full=True):
     time_pairs(
         torch, upd,
         lambda: fr.rhs_zg_upd(model, *inp, scratch, coef),
-        lambda: fr.rhs_zg_upd_plain(model, *inp, scratch, coef), errs,
+        lambda: upd_p(model, *inp, scratch, coef), errs,
         timings, bounds, [*inp, *prof, df1, coef],
         fresh=(lambda: fr.rhs_zg_upd(model, *inp, df1.clone(), coef),
-               lambda: fr.rhs_zg_upd_plain(model, *inp, df1.clone(), coef)))
+               lambda: upd_p(model, *inp, df1.clone(), coef)))
     del df1, scratch, inp
     plain_state = {"_fa": fa.clone(), "t": state["t"], "dt": state["dt"],
                    "it": state["it"]}
     plain_ms = time_ms(torch, lambda: model._zghost_step(
-        plain_state, (fr.rhs_zg_plain, fr.rhs_zg_upd_plain)), PLAIN_CALLS,
-        warm=False)
+        plain_state, (first_p, upd_p)), PLAIN_CALLS, warm=False)
     print(f"phase 4 {label} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
     if not full:
         return
     time_zg_instances(torch, fr, smi, model)
-    parts = ZG_PARTS_MAG if label == "magnetoconvection" else ZG_PARTS
-    dev, host, lost = conv_slab_split(torch, fr, model, state, 3, parts)
+    print_split(torch, fr, smi, zg)
+
+
+def print_split(torch, fr, smi, zg):
+    """A conv-slab path's step split: its kernels, its three z-halo
+    fills, with Shear its three x/y fills with the shifted faces, the
+    boundary-plane writeback, forced the kick, and the glue (the axpy,
+    dt, the RK coefficients), on the card and on the host, from one
+    torch.profiler trace (``conv_slab_split``)."""
+    model, state, ms_step, label = zg
+    dev, host, lost = conv_slab_split(torch, fr, model, state, 3)
     busy = sum(d for d, _ in dev.values())
     head = f"phase 4 {label} step split at 256^3 on {smi} (3 steps)"
     if not busy:
@@ -1706,6 +1799,24 @@ def print_turns(head, times):
     print(f"{head}, in turns: " + "; ".join(
         f"{name} {label}: " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
         for (name, label), ts in times.items()), flush=True)
+
+
+def time_zg_turns(torch, fr, smi, sheared, parent):
+    """K6s/K7s (K6ms/K7ms) of the sheared path ``sheared`` timed in turns
+    with K6/K7 (K6m/K7m) of its unsheared ``parent`` path, each on its own
+    stratified input at 256³; phase 2 and time_conv_slab check them
+    against their plain versions."""
+    variants, inputs = {}, {}
+    for model, _, _, label in (sheared, parent):
+        inp = zg_input(torch, model, 3)
+        df1, dt1m = fr.zg_plain(model)[0](model, *inp)
+        coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
+        variants[label], inputs[model] = model, (inp, df1, coef)
+    times = in_turns(torch, variants, {
+        "K6": lambda m: fr.rhs_zg(m, *inputs[m][0]),
+        "K7": lambda m: fr.rhs_zg_upd(m, *inputs[m][0], *inputs[m][1:])})
+    print_turns(f"phase 4 {sheared[3]} against {parent[3]} at 256^3 on "
+                f"{smi}", times)
 
 
 def time_zg_instances(torch, fr, smi, model):
@@ -1770,30 +1881,42 @@ def time_h3_instances(torch, pt, fr, smi, path):
                 f"{smi}", times)
 
 
-# the conv-slab step's parts: the step's call -> its name in the split
-ZG_PARTS = {"rhs_zg": "K6", "rhs_zg_upd": "K7 x2", "z_slabs": "z_slabs x3",
-            "bc_writeback": "bc_writeback"}
-# magnetoconvection's: the same calls, K6m and K7m behind them
-ZG_PARTS_MAG = dict(ZG_PARTS, rhs_zg="K6m", rhs_zg_upd="K7m x2")
+def zg_parts(model):
+    """The conv-slab step's parts: the step's call -> its name in the
+    split (K6/K7, with aa K6m/K7m, with Shear K6s/K7s or K6ms/K7ms and
+    the x/y fills with the shifted faces, forced the kick)."""
+    sfx = ("m" if "aa" in model.reg.slots else "") + (
+        "s" if model.shear is not None else "")
+    parts = {"rhs_zg": "K6" + sfx, "rhs_zg_upd": f"K7{sfx} x2",
+             "z_slabs": "z_slabs x3", "bc_writeback": "bc_writeback"}
+    if model.shear is not None:
+        parts["ghosted"] = "x/y fills x3"
+    if model.forcing is not None:
+        parts["_kick_after"] = "kick"
+    return parts
 
 
-def conv_slab_split(torch, fr, model, state, n, parts=None):
-    """The conv-slab step from ``state`` split into its parts (``parts``:
-    ZG_PARTS or ZG_PARTS_MAG), each under a torch.profiler range: ({part:
-    (device ms, kernels)}, {part: host ms}, device records whose launch
-    was not found), each a step's mean over n steps.  A device record
-    belongs to the innermost range in which the host launched it (the
-    runtime call that shares its correlation id, else the op it is linked
-    to); "glue" (the axpy, dt, RK coefficients, the copy of the input) is
-    what the step's range launched outside every part."""
+def conv_slab_split(torch, fr, model, state, n):
+    """The conv-slab step from ``state`` split into its parts
+    (``zg_parts``), each under a torch.profiler range: ({part: (device ms,
+    kernels)}, {part: host ms}, device records whose launch was not
+    found), each a step's mean over n steps.  A device record belongs to
+    the innermost range in which the host launched it (the runtime call
+    that shares its correlation id, else the op it is linked to); "glue"
+    (the axpy, dt, RK coefficients, the copy of the input) is what the
+    step's range launched outside every part.  Of ``Model.ghosted``'s
+    calls only the x/y fills with shifted faces are a part of their own
+    (``bc_writeback`` fills its axis through it too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    names = parts or ZG_PARTS
+    names = zg_parts(model)
     parts = list(names.values())
     spent = dict.fromkeys(parts + ["step"], 0.0)
 
-    def ranged(name, fn):
+    def ranged(name, fn, when=None):
         def run(*a):
+            if when is not None and not when(*a):
+                return fn(*a)
             t0 = time.perf_counter()
             with record_function(name):
                 out = fn(*a)
@@ -1802,8 +1925,12 @@ def conv_slab_split(torch, fr, model, state, n, parts=None):
         return run
 
     # instance attributes shadow the methods that _zghost_step calls
-    model.z_slabs = ranged(names["z_slabs"], model.z_slabs)
-    model.bc_writeback = ranged(names["bc_writeback"], model.bc_writeback)
+    methods = [m for m in ("z_slabs", "bc_writeback", "ghosted",
+                           "_kick_after") if m in names]
+    for m in methods:
+        setattr(model, m, ranged(names[m], getattr(model, m), (
+            lambda fa, axes=(0, 1, 2), sdy=None: sdy is not None)
+            if m == "ghosted" else None))
     kernels = (ranged(names["rhs_zg"], fr.rhs_zg),
                ranged(names["rhs_zg_upd"], fr.rhs_zg_upd))
     step = ranged("step", lambda: model._zghost_step(state, kernels))
@@ -1822,7 +1949,8 @@ def conv_slab_split(torch, fr, model, state, n, parts=None):
                 step()
             torch.cuda.synchronize()
     finally:
-        del model.z_slabs, model.bc_writeback
+        for m in methods:
+            delattr(model, m)
     events = prof.events()
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     ranges = [(e.time_range.start, e.time_range.end, e.name) for e in cpu

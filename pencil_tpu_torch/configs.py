@@ -9,7 +9,7 @@ import sys
 
 
 def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
-              hyper3=False):
+              hyper3=False, shear=False, forcing=0.0):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -29,15 +29,26 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     number of 1, is the value this repository runs).  ``hyper3`` adds del6
     hyper-diffusion of u, lnρ and (with Magnetic) A with ν₃ = D₃ = η₃ =
     5e-3·dx⁵ ('hyper3-simplified', ``diffrho_hyper3``, ``eta_hyper3``), as
-    in ``flagship``: hyper-diffusive convection, ν and η unchanged.  The
-    values are this configuration's own, not the sample's
-    start.in/run.in.
+    in ``flagship``: hyper-diffusive convection, ν and η unchanged.
+    ``shear`` puts the slab in a shearing box: Shear with Keplerian
+    shear q = 3/2 at the rotation rate ``Omega`` (which must be > 0; the
+    Coriolis force of that Ω is on too), its background flow S·x along y
+    with S = −qΩ and shear-periodic x faces; the stratified shearing box
+    of convection-driven dynamo runs in a rotating, sheared slab with z
+    walls (Käpylä, Korpi & Brandenburg 2008, A&A 491, 353).  ``forcing``
+    > 0 adds helical forcing of that amplitude at kf = 3, kicked after
+    each step: forced convection (with ``magnetic`` forced
+    magnetoconvection).  The values are this configuration's own, not the
+    sample's start.in/run.in.
 
     The bottom c1 flux follows the run-directory loader's rule
     (pencil_tpu/compat/rundir.py:2400-2406):
     −γ·gravz/((mpoly1+1)(γ−1)cp) = 0.625; the top cT holds cs² = cs2cool.
     The bcz order matters: lnrho before ss, whose c1/cT read lnρ's ghosts.
     """
+    if shear and not Omega > 0.0:
+        raise ValueError("conv_slab: shear=True needs Omega > 0 "
+                         "(S = -q Omega)")
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
@@ -62,13 +73,15 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                  pkg.Density(init="piecew-poly", **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Gravity(gravz_profile="const", gravz=gravz),
+                 *((pkg.Shear(Omega=Omega, qshear=1.5),) if shear else ()),
                  pkg.Viscosity(nu=4e-3, **visc),
                  pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
                              mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
                              **heat, hcond0=8e-3,
                              luminosity=5e-3, wheat=0.1, cool=15.0,
                              wcool=0.2, cs2cool=cs2cool),
-                 *mag))
+                 *mag,
+                 *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
 
 
 def _hyper3(pkg, gs, hyper3):

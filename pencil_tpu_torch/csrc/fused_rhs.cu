@@ -64,7 +64,16 @@
 // of the constant maxdif of the CFL), with and without rotation, and
 // instances with the flag H3, the del6 terms of the periodic builds (their
 // +-3 taps in z are what the slabs hold), with and without CHI and
-// rotation: eight instances of each kernel.
+// rotation: eight instances of each kernel.  Built with -DPC_ZG=1
+// -DPC_SHEAR=1 (and -DPC_ENT=1, with or without -DPC_MAG=0) they give the
+// stratified shearing box's K6s and K7s on uu, lnrho, ss and, with aa,
+// K6ms and K7ms: the same z-ghosted terms and instances plus the Shear
+// module's, joined as the shear builds join theirs (PC_JOINS).  Their
+// body is the stack ghosted in x and y by the shear-periodic fill, (nc,
+// nx+6, ny+6, nz), read at ghosted offsets as the shear builds read it,
+// and their slabs are the z ghosts of that ghosted stack, (nc, nx+6,
+// ny+6, NG), so the z ghosts beside the shifted x faces are the z BCs
+// applied to those faces, as JAX's 3-axis fill gives them.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -95,6 +104,9 @@
 //   K7  pc_rhs_tail_mid (PC_ZG) <- `kernel_zg_upd` (:349): df written over
 //                                 df_prev, f = f + bdt*df
 //   K6m, K7m                    <- the same two, traced with Magnetic
+//   K6s, K7s, K6ms, K7ms        <- the same two, traced with Shear (and
+//                                 Magnetic): `_fetch_zg` of the 3-axis fill
+//                                 with the shifted x faces
 //
 // What bounds them on an H100: every kernel is a stencil over all 7 fields
 // (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
@@ -207,15 +219,19 @@
 #ifndef PC_ZG
 #define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
 #endif                 //    with PC_MAG K6m, K7m)
-#if PC_ZG && (!PC_ENT || PC_SHOCK || PC_SHEAR)
-#error "the z-ghosted builds take the entropy layouts"
+#if PC_ZG && (!PC_ENT || PC_SHOCK)
+#error "the z-ghosted builds take the entropy layouts without a shock slot"
 #endif
 // the builds with the DEFER, LAST and KICK instances: a shear build, with
 // or without the shock slot, runs its first kernel and the update only
 #define PC_TAILS (!PC_SHOCK && !PC_SHEAR && !PC_ZG)
 // the shock and shear builds join their terms in the order of the Pallas
-// zroll and wrap kernels they replace, each join rounded on its own
+// zroll and wrap kernels they replace, each join rounded on its own (the
+// z-ghosted shear builds too, in the order of the zghost kernel traced
+// with Shear: gravity, shear, viscosity, magnetic, entropy)
 #define PC_JOINS (PC_SHOCK || PC_SHEAR)
+// rows of the source's y: the shear builds' source is ghosted in y
+#define SRC_NY(ny) ((ny) + (PC_SHEAR ? 2 * NG : 0))
 // ux uy uz lnrho [ss] [ax ay az] [shock] (registry order)
 #define NC (4 + PC_ENT + (PC_MAG ? 3 : 0) + PC_SHOCK)
 #define NV (NC - PC_SHOCK)     // evolved fields: the shock slot is only read
@@ -608,7 +624,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     const float uxb = u[b1] * bb[b2] - u[b2] * bb[b1];
 #if PC_JOINS
     float out = uxb;
-    if (P.eta > 0.0f) out = out + P.eta * del2;
+    if (PC_ZG || P.eta > 0.0f) out = out + P.eta * del2;
     if (H3) out = out + P.eta3 * del6(aa, xt[AX + a], P);
 #if PC_SHEAR
     // the Shear module's terms come first: -S x dA/dy, and -S Ay on Ax
@@ -720,7 +736,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     adv = adv + sqrtf(cs2 * P.dxyz2);
 #endif
     const float dt1a = adv / P.cdt;
-#if PC_JOINS
+#if PC_JOINS && !PC_ZG
     // the diffusivity max(nu, nu_sh*shock, eta) at this point (the terms of
     // the build's layout; with ss also chi gamma of chi-const, in maxdif,
     // and K-const's K gamma/(rho cp)), plus the constant del6 rate
@@ -875,9 +891,10 @@ __device__ __forceinline__ void copy_rows(
 // thread: for the row position d of the column at bz, its z in fa (x
 // planes of ny*nz floats, the row table at 0), or in the slab zlo or zhi
 // (planes of ny*NG, the slabs' row table at NROWS) where that z lies
-// below 0 or at nz and above.  A z past nz + NG - 1 feeds only points
-// outside the grid, and a lane without that copy issues none: both read a
-// clamped cell.
+// below 0 or at nz and above; with PC_SHEAR both are ghosted in y (planes
+// of (ny + 2 NG)*nz and (ny + 2 NG)*NG).  A z past nz + NG - 1 feeds only
+// points outside the grid, and a lane without that copy issues none: both
+// read a clamped cell.
 struct ZgSrc {
   const float* base;   // the copy's z at x = 0, row offset 0
   size_t pstride;      // floats per x plane
@@ -887,10 +904,10 @@ struct ZgSrc {
 __device__ __forceinline__ ZgSrc zg_source(int d, int bz, const PcParams& P,
                                            const float* fa, const ZgIn& zg) {
   const int z = bz + d - ZOFF;
-  const size_t slab = (size_t)P.ny * NG;
+  const size_t slab = (size_t)SRC_NY(P.ny) * NG;
   if (z < 0) return {zg.zlo + max(z + NG, 0), slab, NROWS};
   if (z >= P.nz) return {zg.zhi + min(z - P.nz, NG - 1), slab, NROWS};
-  return {fa + z, (size_t)P.ny * P.nz, 0};
+  return {fa + z, (size_t)SRC_NY(P.ny) * P.nz, 0};
 }
 
 // copy_rows of the z-ghosted build: f0 and f1 are the plane of each copy's
@@ -1001,8 +1018,8 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   float* stage = smem + NR * SLOT;     // DEFER
   float* ownq = smem + NR * SLOT;      // OWN: [NQ][NV][NTHREADS]
   // of each row of a plane: its offset in fa less the plane's (the field,
-  // the wrapped y; PC_SHEAR: the ghosted y; PC_ZG: then in the slabs) and
-  // its byte offset in a slot
+  // the wrapped y; PC_SHEAR: the ghosted y; PC_ZG: then in the slabs, each
+  // of them ghosted in x and y with PC_SHEAR) and its byte offset in a slot
   __shared__ long long rowg[(1 + PC_ZG) * NROWS];
   __shared__ int rowd[NROWS];
   __shared__ float kick_a[KICK ? 2 * MX : 1];     // sin, cos of A per plane
@@ -1027,6 +1044,10 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     rowg[r] = (long long)(c * MG)
               + (long long)min(by + iy, P.ny + 2 * NG - 1) * P.nz;
     rowd[r] = 4 * (c * FPL + iy * PZ);
+#if PC_ZG
+    rowg[NROWS + r] = (long long)c * (P.nx + 2 * NG) * (P.ny + 2 * NG) * NG
+                      + (long long)min(by + iy, P.ny + 2 * NG - 1) * NG;
+#endif
   }
 #else
   const size_t fplane = plane;
@@ -1286,10 +1307,13 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // instance with the H3 (periodic and z-ghosted builds) or CHI flag, so
   // that the instances without them keep the shared layout of a build
   // that lacks those; each first kernel of the aux builds with ss and aa
-  // has one of its own too (tags 8-11)
+  // has one of its own too (tags 8-11), and so has each of the z-ghosted
+  // shear builds (tags 12-19)
   constexpr bool XT = CHI || (H3 && PC_TAILS);
   constexpr bool ZH3 = H3 && PC_ZG;
-  constexpr int TAG = PC_JOINS && PC_ENT && PC_MAG
+  constexpr int TAG = PC_ZG && PC_SHEAR
+      ? 12 + ROT + 2 * CHI + 4 * H3
+      : PC_JOINS && PC_ENT && PC_MAG
       ? 8 + ROT + 2 * H3
       : ((PC_ZG || XT) && ROT) + 2 * XT + 4 * ZH3;
   if (FIRST)

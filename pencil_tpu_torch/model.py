@@ -48,7 +48,11 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   With Magnetic the wrappers launch K6m and K7m, the 8-field build; with
   'chi-const' conduction beside K-const either build's CHI instances, and
   with del6 hyper-diffusion ('hyper3-simplified', η₃, D₃) its H3
-  instances.
+  instances.  With Shear (the stratified shearing box) the kernels are
+  K6s/K7s and K6ms/K7ms, which read the stack ghosted in x and y with the
+  x faces shifted by deltay at t0 + c·dt (``zg_input``) and the z slabs
+  of that stack.  With forcing (forced convection) the kick follows the
+  writeback, as JAX's ``after_timestep`` gives it.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -124,7 +128,8 @@ REGISTRATION_ORDER = (
 
 # the module sets the fused kernels implement: the flagship and forced hydro
 # (forcing is optional) on a fully periodic grid, stratified convection
-# and magnetoconvection with z non-periodic and x, y periodic, and the
+# and magnetoconvection, with or without Shear, with z non-periodic and x,
+# y periodic (forcing is optional), and the
 # shearing box and the shocked box (forcing is optional) on a fully
 # periodic grid
 HYDRO_MODULES = frozenset(("eos", "density", "hydro", "viscosity"))
@@ -136,8 +141,11 @@ WRAP_SETS = (FLAGSHIP_MODULES, HYDRO_MODULES, ENT_MHD_MODULES,
              ENT_HYDRO_MODULES)
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
-# stratified convection and magnetoconvection (Ω optional in both)
-ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"})
+# stratified convection and magnetoconvection, and each in a shearing box
+# (Ω and forcing optional in all)
+ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"},
+               CONVSLAB_MODULES | {"shear"},
+               CONVSLAB_MODULES | {"magnetic", "shear"})
 # the shearing box, MHD or hydro, each with or without the shock slot, and
 # the shocked periodic box, MHD or hydro (forcing optional in all; each
 # also with an entropy field)
@@ -174,12 +182,13 @@ def fused_mode(cfg: Config):
     """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain,
     with or without an entropy field, each with or without del6
     hyper-diffusion), 'zghost' (stratified convection and
-    magnetoconvection, each with or without Ω, chi-const and del6
-    hyper-diffusion), 'zroll' (the shearing box, MHD or hydro, with or
-    without the shock slot, each also with an entropy field) or
+    magnetoconvection, each with or without Shear, forcing, Ω, chi-const
+    and del6 hyper-diffusion), 'zroll' (the shearing box, MHD or hydro,
+    with or without the shock slot, each also with an entropy field) or
     'wrap_aux' (the shocked periodic box, MHD or hydro, each also with an
-    entropy field), or (None, why ``cfg`` is outside all of these
-    sets)."""
+    entropy field), or (None, why ``cfg`` is outside all of these sets).
+    The module set is tested before any option of it, so a set that no
+    chain takes is refused for its modules."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -195,7 +204,11 @@ def fused_mode(cfg: Config):
         full = periodic == (True, True, True)
         unforced = mods - {"forcing"}
         extra = _shock_options(cfg)
-        zghost = mods in ZGHOST_SETS and periodic == (True, True, False)
+        zghost = unforced in ZGHOST_SETS and periodic == (True, True, False)
+        wrap = unforced in WRAP_SETS and full
+        aux = full and (unforced in ZROLL_SETS or unforced in SHOCKBOX_SETS)
+        if not (zghost or wrap or aux):
+            return None, _outside(names, periodic)
         ent = cfg.module("entropy")
         if not zghost and ent is not None and (ent.cool != 0.0
                                                or ent.luminosity != 0.0):
@@ -203,33 +216,31 @@ def fused_mode(cfg: Config):
                           "profiles: only the conv-slab kernels implement "
                           "them)")
         # nu-shock reads the Shock module's slot
-        aux = full and ("shock" in mods or not extra)
-        if aux and unforced in ZROLL_SETS:
-            return "zroll", None
-        if aux and unforced in SHOCKBOX_SETS:
-            return "wrap_aux", None
+        if aux and ("shock" in mods or not extra):
+            return ("zroll" if unforced in ZROLL_SETS else "wrap_aux"), None
         if extra and "shock" not in mods and unforced in ZROLL_SETS:
             return None, (f"options {extra} without the Shock module, "
                           "whose slot nu-shock reads")
-        wrap = unforced in WRAP_SETS and full
-        if (wrap or zghost) and extra:
+        if extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")
-        if wrap:
-            return "wrap", None
-        if zghost:
-            return "zghost", None
-    return None, (f"modules {sorted(names)} with periodic={periodic} (the "
-                  f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
-                  f"{sorted(HYDRO_MODULES)}, each with or without "
-                  "'entropy', with optional forcing on a periodic grid, "
-                  f"{sorted(CONVSLAB_MODULES)} with or without 'magnetic' "
-                  "with a non-periodic z, "
-                  f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
-                  f"{sorted(HYDRO_MODULES | {'shear'})}, each with or "
-                  "without 'shock' and with or without 'entropy', and "
-                  "these with 'shock' in place of 'shear', with optional "
-                  "forcing on a periodic grid)")
+        return ("wrap" if wrap else "zghost"), None
+    return None, _outside(names, periodic)
+
+
+def _outside(names, periodic):
+    """The refusal of a module set (with the grid's periodicity) that no
+    chain takes."""
+    return (f"modules {sorted(names)} with periodic={periodic} (the "
+            f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
+            f"{sorted(HYDRO_MODULES)}, each with or without 'entropy', on "
+            f"a periodic grid, {sorted(CONVSLAB_MODULES)} with or without "
+            "'magnetic' and with or without 'shear' with a non-periodic z, "
+            f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
+            f"{sorted(HYDRO_MODULES | {'shear'})}, each with or without "
+            "'shock' and with or without 'entropy', and these with "
+            "'shock' in place of 'shear' on a periodic grid, all with "
+            "optional forcing)")
 
 
 def gate_reason(cfg: Config):
@@ -450,6 +461,17 @@ class Model:
         return (fa, fw[..., :g].contiguous(),
                 fw[..., g + 2 * w:].contiguous())
 
+    def zg_input(self, fa, sdy=None):
+        """(body, zlo, zhi), the z-ghosted kernels' input from ``fa``:
+        without Shear ``z_slabs(fa)``, which pins ``fa``'s boundary planes
+        in place; with Shear (``sdy``, the y offset of the x faces) the
+        stack ghosted in x and y with the shifted faces and ``z_slabs`` of
+        that new stack, whose z BCs then act on the shifted faces over the
+        whole ghosted x/y extent, as JAX's 3-axis fill does (``fa`` is not
+        written)."""
+        return self.z_slabs(fa if sdy is None
+                            else self.ghosted(fa, (0, 1), sdy))
+
     def deltay(self, t):
         """The shear-periodic y offset at device time ``t``, or None
         without Shear (JAX physics/shear.py:45-46)."""
@@ -590,22 +612,34 @@ class Model:
 
     def _zghost_step(self, state: Dict, kernels=(rhs_zg, rhs_zg_upd)):
         """One 2N-RK step as the zghost chain (JAX model.py:704-775,
-        :891): K6 and a torch axpy, then K7 per substep, each on fresh
-        z-halo slabs, then the boundary-plane writeback.  ``kernels`` lets
-        a measurement time the plain versions through the same chain."""
+        :891, :924-933): K6 and a torch axpy, then K7 per substep, each on
+        a fresh ``zg_input`` (with Shear the x faces shifted by deltay at
+        t0 + c·dt: substep 1 with the old dt, the others with the new
+        one), then the boundary-plane writeback and the forcing kick.  No
+        tensor of ``state`` is written.  ``kernels`` lets a measurement
+        time the plain versions through the same chain."""
         first, upd = kernels
-        alpha, beta, _ = self.rk
+        alpha, beta, cstage = self.rk
         fa = state["_fa"] if "_fa" in state else self.reg.stack(
             state["fields"])
-        # z_slabs pins the boundary planes in place: K6 reads a copy, the
-        # axpy (as JAX's) the caller's stack, which stays as it was
-        df, dt1m = first(self, *self.z_slabs(fa.clone()))
+        shear = self.shear is not None
+
+        def sdy(isub, dt):
+            return self.deltay(state["t"] + cstage[isub] * dt) if shear \
+                else None
+
+        # z_slabs pins the boundary planes of its argument in place: K6
+        # reads a copy (with Shear the x/y-ghosted one), the axpy (as
+        # JAX's) the caller's stack, which stays as it was
+        df, dt1m = first(self, *self.zg_input(fa if shear else fa.clone(),
+                                              sdy(0, state["dt"])))
         dt = self._new_dt(dt1m, state["dt"])
         fa = fa + beta[0] * dt * df
         for isub in range(1, len(alpha)):
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
-            df, fa = upd(self, *self.z_slabs(fa), df, coef)
-        return self._finish(state, self.bc_writeback(fa), dt)
+            df, fa = upd(self, *self.zg_input(fa, sdy(isub, dt)), df, coef)
+        return self._finish(state, self._kick_after(self.bc_writeback(fa),
+                                                    dt), dt)
 
     def _aux_step(self, state: Dict, kernels=None):
         """One 2N-RK step of the zroll chain (JAX model.py:576-730) or the

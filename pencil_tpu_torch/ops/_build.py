@@ -1,14 +1,16 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives eighteen, the MHD
+(``LIBRARIES``: the flagship template's source gives twenty, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
 entropy field, ``PC_ENT=1``, the MHD and hydro ones with the shock slot,
 ``PC_SHOCK=1``, on the periodic state, the shear box's on its ghosted
 stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, all
 of both with an entropy field too, and the 5- and 8-field entropy
 ones with ``PC_ZG=1``, stratified convection and magnetoconvection on the
-interior stack and its z-halo slabs), with a plain C
+interior stack and its z-halo slabs, both also with ``PC_SHEAR=1``, the
+stratified shearing box on the x/y-ghosted stack and its slabs), with a
+plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each, at
 most one per CPU, the longest first, in the background (``start``), and
@@ -76,6 +78,12 @@ LIBRARIES = {
     "fused_rhs_zg": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
                                       "-DPC_ZG=1")),
     "fused_rhs_zg_mag": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1")),
+    # the stratified shearing box, hydro and MHD: the z-ghosted builds with
+    # the Shear terms on the x/y-ghosted stack
+    "fused_rhs_zg_shear": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
+                                            "-DPC_ZG=1", "-DPC_SHEAR=1")),
+    "fused_rhs_zg_mag_shear": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1",
+                                                "-DPC_SHEAR=1")),
 }
 
 _p = ctypes.c_void_p
@@ -123,6 +131,8 @@ SIGNATURES = {
     "fused_rhs_shear_ent_ns": _SHOCK,
     "fused_rhs_zg": _ZG,
     "fused_rhs_zg_mag": _ZG,
+    "fused_rhs_zg_shear": _ZG,
+    "fused_rhs_zg_mag_shear": _ZG,
 }
 
 _libs = {}

@@ -52,6 +52,13 @@ with the suffixes ``_chi`` and ``_h3``, in that order (``zg_kernels``):
   rhs_zg_upd       K7  df ← α·df_prev + RHS(f), written over df_prev;
                        f ← f + βΔt·df, a fresh tensor
 
+The stratified shearing box (either set with Shear) runs the same two
+wrappers on the template built with ``PC_SHEAR=1`` too (libraries
+``fused_rhs_zg_shear``, K6s and K7s, launch names with ``_shear``, and
+``fused_rhs_zg_mag_shear``, K6ms and K7ms, ``*_mag_shear``), on the stack
+ghosted in x and y with the shifted x faces (nc, nx+6, ny+6, nz) and the
+z-halo slabs of that stack (nc, nx+6, ny+6, 3) (``Model.zg_input``).
+
 The shocked periodic box (wrap_aux mode), on the raw periodic 8-slot state
 (8, nx, ny, nz) (uu, lnrho, aa, shock) after the shock pre-pass: the
 flagship template built with ``PC_SHOCK=1`` (library ``fused_rhs_shock``,
@@ -106,7 +113,8 @@ import torch
 
 from ..core.grid import inverse_spacings
 from ..integrate.timestep import cfl_dt1, pow6
-from ..parallel.halo import ghosted_from_z_slabs
+from ..parallel.halo import (ghosted_from_sheared_z_slabs,
+                             ghosted_from_z_slabs)
 from ..physics.base import TimestepAccum
 from ..physics.pencils import Pencils
 from . import _build
@@ -248,6 +256,32 @@ def rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef):
                        want_dt1=False, ghosted=True)
     df_prev.copy_(alpha * df_prev + dfa)
     return df_prev, fa + bdt * df_prev
+
+
+def rhs_zg_shear_plain(model, fg, zlo, zhi):
+    """K6s's (K6ms's) plain version: (df, 0-d max of 1/dt) on the
+    x/y-ghosted stack with the shifted x faces and its z-halo slabs, x at
+    the kernels' nodes."""
+    return rhs_plain(model, ghosted_from_sheared_z_slabs(fg, zlo, zhi),
+                     ghosted=True, grid=node_grid(model))
+
+
+def rhs_zg_shear_upd_plain(model, fg, zlo, zhi, df_prev, coef):
+    """K7s's (K7ms's) plain version: (df, f); df is written over
+    df_prev."""
+    alpha, bdt = coef[0], coef[1]
+    dfa, _ = rhs_plain(model, ghosted_from_sheared_z_slabs(fg, zlo, zhi),
+                       want_dt1=False, ghosted=True, grid=node_grid(model))
+    df_prev.copy_(alpha * df_prev + dfa)
+    return df_prev, i(fg[: model.reg.nvar], (0, 1)) + bdt * df_prev
+
+
+def zg_plain(model):
+    """The plain versions (first, update) of ``model``'s z-ghosted
+    kernels: K6/K7's, or with Shear K6s/K7s's."""
+    if model.shear is None:
+        return rhs_zg_plain, rhs_zg_upd_plain
+    return rhs_zg_shear_plain, rhs_zg_shear_upd_plain
 
 
 def _node0(gs):
@@ -419,6 +453,23 @@ AUX_KERNELS = {lib: tuple(k + sfx for k in base)
                for lib, (_, _, base, sfx) in _AUX_BUILDS.items()}
 
 
+# the z-ghosted builds, each with its field layout, its module set (the
+# conv-slab's, with Magnetic, and each with Shear; forcing rides along as
+# the kick after the step) and its two launch names
+_CONVSLAB = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
+                       "entropy"))
+_ZG_BUILDS = {
+    "fused_rhs_zg": (_HENT, _CONVSLAB, ("rhs_zg", "rhs_zg_upd")),
+    "fused_rhs_zg_mag": (_ENT, _CONVSLAB | {"magnetic"},
+                         ("rhs_zg_mag", "rhs_zg_upd_mag")),
+    "fused_rhs_zg_shear": (_HENT, _CONVSLAB | {"shear"},
+                           ("rhs_zg_shear", "rhs_zg_upd_shear")),
+    "fused_rhs_zg_mag_shear": (_ENT, _CONVSLAB | {"magnetic", "shear"},
+                               ("rhs_zg_mag_shear", "rhs_zg_upd_mag_shear")),
+}
+ZG_KERNELS = {lib: names for lib, (_, _, names) in _ZG_BUILDS.items()}
+
+
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
 # The H3 instances of the periodic builds (suffix _h3) and the CHI and H3
@@ -429,7 +480,7 @@ LAUNCHES = dict.fromkeys(
      for k in _WRAP_KERNELS]
     + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
     + [k + chi + h3 for chi in ("", "_chi") for h3 in ("", "_h3")
-       for k in ("rhs_zg", "rhs_zg_upd", "rhs_zg_mag", "rhs_zg_upd_mag")]
+       for names in ZG_KERNELS.values() for k in names]
     + [k for names in AUX_KERNELS.values() for k in names], 0)
 
 
@@ -465,19 +516,6 @@ def aux_library(model) -> str:
         f"got {reg.comp_names} of {sorted(names)}")
 
 
-# the z-ghosted builds, each with its field layout, its module set (the
-# conv-slab's, and with Magnetic) and its two launch names
-_CONVSLAB = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
-                       "entropy"))
-_ZG_BUILDS = {
-    "fused_rhs_zg": (_LAYOUTS["fused_rhs_hydro_ent"], _CONVSLAB,
-                     ("rhs_zg", "rhs_zg_upd")),
-    "fused_rhs_zg_mag": (_LAYOUTS["fused_rhs_ent"], _CONVSLAB | {"magnetic"},
-                         ("rhs_zg_mag", "rhs_zg_upd_mag")),
-}
-ZG_KERNELS = {lib: names for lib, (_, _, names) in _ZG_BUILDS.items()}
-
-
 def hyper3_coefficients(cfg):
     """(ν₃, η₃, D₃) of ``cfg``, 0 for each that is off: the
     'hyper3-simplified' viscosity, the hyper-resistivity and the lnρ
@@ -492,24 +530,28 @@ def hyper3_coefficients(cfg):
 def zg_library(model) -> str:
     """The z-ghosted build of the flagship template for ``model``:
     'fused_rhs_zg' (the conv-slab's uu, lnrho, ss) or 'fused_rhs_zg_mag'
-    (with aa and Magnetic), with or without Ω, chi-const conduction and
-    del6 hyper-diffusion; raises for another layout or module set.  Found
-    once per model: the conv-slab step is bound by the host."""
+    (with aa and Magnetic), or with Shear 'fused_rhs_zg_shear' and
+    'fused_rhs_zg_mag_shear', each with or without forcing, Ω, chi-const
+    conduction and del6 hyper-diffusion, on a grid with z walls and x, y
+    periodic; raises for another layout, module set or grid.  Found once
+    per model: the conv-slab step is bound by the host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
     reg, cfg = model.reg, model.cfg
-    names = {m.name for m in cfg.modules}
+    names = {m.name for m in cfg.modules} - {"forcing"}
+    walls = tuple(cfg.grid.periodic) == (True, True, False)
     for lib, (layout, modules, _) in _ZG_BUILDS.items():
         n = sum(sl.stop - sl.start for sl in layout.values())
-        if names == modules and reg.nvar == reg.nf == n and all(
+        if walls and names == modules and reg.nvar == reg.nf == n and all(
                 reg.slice(k) == v for k, v in layout.items()):
             model.__dict__["_zg_library"] = lib
             return lib
     raise NotImplementedError(
         "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules, "
-        f"with or without Magnetic's aa, only, got {reg.comp_names} of "
-        f"{sorted(names)}")
+        f"with or without Magnetic's aa and Shear, with z walls only, got "
+        f"{reg.comp_names} of {sorted(names)}, periodic="
+        f"{tuple(cfg.grid.periodic)}")
 
 
 def zg_kernels(model):
@@ -567,10 +609,10 @@ def kernel_params(model) -> PcParams:
     if p is not None:
         return p
     cfg, gs = model.cfg, model.cfg.grid
-    if "shock" in model.reg.slots or cfg.module("shear") is not None:
-        aux_library(model)
-    elif cfg.module("gravity") is not None:
+    if cfg.module("gravity") is not None:
         zg_library(model)
+    elif "shock" in model.reg.slots or cfg.module("shear") is not None:
+        aux_library(model)
     else:
         flagship_library(model)
     f32 = np.float32
@@ -836,32 +878,37 @@ def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
 
 
 def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
-    """(library, its launch names (``zg_kernels``), the inputs after the
-    stream: the slabs and the layer profiles) of ``model``'s z-ghosted
-    build, after checking every input."""
+    """(library, its launch names (``zg_kernels``), the output shape, the
+    inputs after the stream: the slabs and the layer profiles) of
+    ``model``'s z-ghosted build, after checking every input: fa and the
+    slabs ghosted in x and y for a shear build."""
     p = kernel_params(model)
     lib = zg_library(model)
     shape = (model.reg.nvar, p.nx, p.ny, p.nz)
-    _check(fa, shape, "fa")
+    g2 = 2 * NGHOST if model.shear is not None else 0
+    src = (shape[0], p.nx + g2, p.ny + g2)
+    _check(fa, src + (p.nz,), "fa")
     for name, t in (("zlo", zlo), ("zhi", zhi)):
-        _check(t, shape[:3] + (NGHOST,), name)
+        _check(t, src + (NGHOST,), name)
     if df_prev is not None:
         _check(df_prev, shape, "df_prev")
     if coef is not None:
         _check(coef, (2,), "coef")
-    return lib, zg_kernels(model), (zlo.data_ptr(), zhi.data_ptr(),
-                                  *(v.data_ptr() for v in zg_profiles(model)))
+    return lib, zg_kernels(model), shape, (
+        zlo.data_ptr(), zhi.data_ptr(),
+        *(v.data_ptr() for v in zg_profiles(model)))
 
 
 def rhs_zg(model, fa, zlo, zhi):
-    """K6 (K6m with aa): replaces ``kernel_zg`` + ``_fetch_zg``
-    (fused_rhs.py:317, :301), on the interior stack and its z-halo slabs.
-    Returns (df, 0-d max of 1/dt)."""
+    """K6 (K6m with aa; K6s, K6ms with Shear): replaces ``kernel_zg`` +
+    ``_fetch_zg`` (fused_rhs.py:317, :301), on the interior stack (with
+    Shear: the x/y-ghosted one) and its z-halo slabs.  Returns (df, 0-d
+    max of 1/dt)."""
     if not _dispatch(fa):
-        return rhs_zg_plain(model, fa, zlo, zhi)
-    lib, (name, _), after = _zg_inputs(model, fa, zlo, zhi)
-    df = torch.empty_like(fa)
-    blk = fa.new_empty(_nblocks(fa.shape[1:], lib))
+        return zg_plain(model)[0](model, fa, zlo, zhi)
+    lib, (name, _), shape, after = _zg_inputs(model, fa, zlo, zhi)
+    df = fa.new_empty(shape)
+    blk = fa.new_empty(_nblocks(shape[1:], lib))
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
             df.data_ptr(), blk.data_ptr(), lib=lib, entry="rhs_first",
             after=after)
@@ -869,12 +916,14 @@ def rhs_zg(model, fa, zlo, zhi):
 
 
 def rhs_zg_upd(model, fa, zlo, zhi, df_prev, coef):
-    """K7 (K7m with aa): replaces ``kernel_zg_upd`` (fused_rhs.py:349).
-    Returns (df, f); df is df_prev's buffer, overwritten."""
+    """K7 (K7m with aa; K7s, K7ms with Shear): replaces ``kernel_zg_upd``
+    (fused_rhs.py:349).  Returns (df, f); df is df_prev's buffer,
+    overwritten."""
     if not _dispatch(fa):
-        return rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef)
-    lib, (_, name), after = _zg_inputs(model, fa, zlo, zhi, df_prev, coef)
-    f = torch.empty_like(fa)
+        return zg_plain(model)[1](model, fa, zlo, zhi, df_prev, coef)
+    lib, (_, name), shape, after = _zg_inputs(model, fa, zlo, zhi, df_prev,
+                                              coef)
+    f = fa.new_empty(shape)
     _launch(name, fa, ctypes.addressof(kernel_params(model)),
             fa.data_ptr(), df_prev.data_ptr(), coef.data_ptr(),
             df_prev.data_ptr(), f.data_ptr(), lib=lib,

@@ -76,3 +76,15 @@ def ghosted_from_z_slabs(fa, zlo, zhi):
     _wrap_axis(fg, 0, g)
     _wrap_axis(fg, 1, g)
     return fg
+
+
+def ghosted_from_sheared_z_slabs(fg, zlo, zhi):
+    """The stack ghosted in all three axes from the x/y-ghosted stack
+    ``fg`` (nc, nx+2g, ny+2g, nz) and its z-halo slabs ``zlo`` and
+    ``zhi`` (nc, nx+2g, ny+2g, g), cut from a z-only fill of ``fg``'s end
+    planes (``Model.z_slabs`` of ``Model.ghosted(fa, (0, 1), shear_dy)``):
+    the sheared counterpart of ``ghosted_from_z_slabs``.  The x/y fill
+    shifts the x faces before the z BCs act on them, so this is
+    ``fill_ghosts``' 3-axis result with ``shear_dy``, the corners beside
+    the shifted faces included."""
+    return torch.cat([zlo, fg, zhi], dim=-1)

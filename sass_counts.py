@@ -22,7 +22,9 @@ of ``fused_rhs_shock_ent``, ``fused_rhs_shear_ent`` and
 ``fused_rhs_shear_ent_ns`` K1se/K5wse, K4e/K5e and K4ne/K5ne (9, 9 and 8
 ring fields for ``--auto-skip``),
 K6 and K7 of ``fused_rhs_zg``, the same names of
-``fused_rhs_zg_mag`` its K6m and K7m, and K6rot, K7rot their Coriolis
+``fused_rhs_zg_mag`` its K6m and K7m, of ``fused_rhs_zg_shear`` and
+``fused_rhs_zg_mag_shear`` their K6s/K7s and K6ms/K7ms (5 and 8 ring
+fields), and K6rot, K7rot their Coriolis
 instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones
 and K6chih3, K7chih3 both; K1h3, K2h3, K3h3, K3midh3
 and K2Lh3 are the del6 instances of the four periodic builds);

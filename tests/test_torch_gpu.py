@@ -5,12 +5,14 @@ box and K4/K5 of the shearing box and those of their other isothermal
 layouts (K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, each with and without Ω
 and del6) and of their hydro layouts with an entropy field (K1she/K5whe,
 K4he/K5he, K4hne/K5hne), K6/K7 of stratified convection, K6m/K7m
-of magnetoconvection, each z-ghosted pair also with Ω, the H3 instances
+of magnetoconvection, each z-ghosted pair also with Ω, K6s/K7s and
+K6ms/K7ms of the stratified shearing box, the H3 instances
 of the four periodic builds (del6 hyper-diffusion) and the CHI and H3
 instances of the z-ghosted builds (chi-const, del6)) against their plain
 PyTorch versions
-on the card, and steps on the card against the same steps on the CPU, and
-the run loop's restart on the card.
+on the card, and steps on the card against the same steps on the CPU
+(forced convection and the stratified shearing box among them), and the
+run loop's restart on the card.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
 with one, run them with
 
@@ -167,7 +169,8 @@ def test_fake_kernels_bit_exact(cuda, shape):
 
 @pytest.mark.parametrize("lib", ("fused_rhs", "fused_rhs_shock",
                                  "fused_rhs_shear", "fused_rhs_zg",
-                                 "fused_rhs_zg_mag"))
+                                 "fused_rhs_zg_mag", "fused_rhs_zg_shear",
+                                 "fused_rhs_zg_mag_shear"))
 def test_dt1_buffer_matches_the_grid(cuda, lib):
     """K1 (K1s, K4) writes one CFL maximum per block of its launch grid,
     which its library's pc_tile_shape (MX, TY, TZ) sizes: at nx = 80 (two
@@ -186,15 +189,16 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
         fa = shocked_fa(pm)
         plain = fr.rhs_wrap_shock_plain
     elif lib in fr.ZG_KERNELS:
-        pm = pt.Model(conv_slab(shape, magnetic=lib == "fused_rhs_zg_mag"),
-                      device=cuda)
+        pm = pt.Model(conv_slab(shape, magnetic="_mag" in lib, **(
+            dict(Omega=1.0, shear=True) if "shear" in lib else {})),
+            device=cuda)
         fa, zlo, zhi = stratified_fg(pm)
         prof = fr.zg_profiles(pm)
         after = (zlo.data_ptr(), zhi.data_ptr(), prof[0].data_ptr(),
                  prof[1].data_ptr())
 
         def plain(pm, fa):
-            return fr.rhs_zg_plain(pm, fa, zlo, zhi)
+            return fr.zg_plain(pm)[0](pm, fa, zlo, zhi)
     else:
         pm = pt.Model(shear_box(shape), device=cuda)
         fa = sheared_fg(pm)
@@ -536,8 +540,9 @@ def test_forced_shear_box_steps_on_card_match_cpu(cuda):
 def stratified_fg(pm, seed=4):
     """A conv-slab state on the card, the piecew-poly profiles with noise,
     with Magnetic a noisy vector potential, as the z-ghosted kernels take
-    it: (fa, zlo, zhi), fa's boundary planes pinned, the slabs from the
-    z-only fill."""
+    it (``Model.zg_input``): (fa, zlo, zhi), fa's boundary planes pinned,
+    the slabs from the z-only fill; with Shear fa ghosted in x and y with
+    the x faces shifted by deltay at t = 0.37, and its slabs."""
     g = torch.Generator(pm.device).manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
@@ -549,14 +554,23 @@ def stratified_fg(pm, seed=4):
              (f["ss"] + noise(shape))[None]]
     if "aa" in pm.reg.slots:
         parts.append(noise((3,) + shape))
-    return pm.z_slabs(torch.cat(parts).contiguous())
+    sdy = (pm.deltay(torch.tensor(0.37, device=pm.device))
+           if pm.shear is not None else None)
+    return pm.zg_input(torch.cat(parts).contiguous(), sdy)
 
 
 # the conv-slab's module sets: conv_slab keyword arguments; K6/K7, their
-# Coriolis instances, K6m/K7m and theirs
+# Coriolis instances, K6m/K7m and theirs, K6s/K7s and K6ms/K7ms (the
+# stratified shearing box), and forced convection (the kernels of the
+# unforced set, the kick after the step), also sheared
 ZG_CASES = {"conv_slab": {}, "rot": dict(Omega=1.0),
             "mag": dict(magnetic=True), "mag_rot": dict(magnetic=True,
-                                                        Omega=1.0)}
+                                                        Omega=1.0),
+            "shear": dict(Omega=1.0, shear=True),
+            "mag_shear": dict(magnetic=True, Omega=1.0, shear=True),
+            "forced": dict(forcing=0.05),
+            "forced_mag_shear": dict(magnetic=True, Omega=1.0, shear=True,
+                                     forcing=0.05)}
 
 
 # the z-ghosted builds' shapes: the flagship template's (FLAGSHIP_SHAPES);
@@ -566,8 +580,8 @@ ZG_CASES = {"conv_slab": {}, "rot": dict(Omega=1.0),
 @pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
 def test_zghost_kernels_match_plain(cuda, shape, case):
     """K6 and K7 (the z-ghosted build of the flagship template), K6m and
-    K7m (its 8-field build), each without and with Ω, against their plain
-    versions."""
+    K7m (its 8-field build), each without and with Ω, and K6s/K7s and
+    K6ms/K7ms (its shear builds), against their plain versions."""
     _zghost_kernels_match_plain(cuda, conv_slab(shape, **ZG_CASES[case]))
 
 
@@ -575,17 +589,18 @@ def _zghost_kernels_match_plain(cuda, cfg):
     """K6 and K7 of ``cfg``'s z-ghosted build and instance against their
     plain versions, each launched once under its own name."""
     pm = pt.Model(cfg, device=cuda)
+    first_p, upd_p = fr.zg_plain(pm)
     inp = stratified_fg(pm)
     fr.reset_launches()
     df, dt1m = fr.rhs_zg(pm, *inp)
-    df_p, dt1m_p = fr.rhs_zg_plain(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
     torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
     assert_field_close(df, df_p, "df (K6)")
     alpha, beta, _ = pm.rk
     coef = torch.stack((pm._alpha[1], beta[1] / dt1m_p))
     inp2 = stratified_fg(pm, seed=5)
     df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
-    df2_p, f2_p = fr.rhs_zg_upd_plain(pm, *inp2, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp2, df_p.clone(), coef)
     torch.cuda.synchronize()
     assert_field_close(df2, df2_p, "df (K7)")
     assert_field_close(f2, f2_p, "f (K7)")
@@ -605,10 +620,10 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
     from pencil_tpu_torch.ops import _build
     pm = pt.Model(conv_slab(shape, **ZG_CASES[case]), device=cuda)
     fa, zlo, zhi = stratified_fg(pm)
-    df_prev, dt1m = fr.rhs_zg_plain(pm, fa, zlo, zhi)
+    df_prev, dt1m = fr.zg_plain(pm)[0](pm, fa, zlo, zhi)
     coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m))
     df_in, f_in = fr.rhs_zg_upd(pm, fa, zlo, zhi, df_prev.clone(), coef)
-    df_out, f_out = torch.empty_like(fa), torch.empty_like(fa)
+    df_out, f_out = torch.empty_like(df_prev), torch.empty_like(df_prev)
     prof = fr.zg_profiles(pm)
     assert _build.load(fr.zg_library(pm)).pc_rhs_tail_mid(
         ctypes.addressof(fr.kernel_params(pm)), fa.data_ptr(),
@@ -622,9 +637,10 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
 
 @pytest.mark.parametrize("lib", sorted(fr.ZG_KERNELS))
 def test_zghost_instances_hold_no_local_memory(cuda, lib):
-    """K6 and K7 of fused_rhs_zg, K6m and K7m of fused_rhs_zg_mag, each
-    without and with rotation, chi-const and del6: no spill and no stack,
-    one 256-thread block per SM or more."""
+    """K6 and K7 of fused_rhs_zg, K6m and K7m of fused_rhs_zg_mag, and
+    those of the shear builds (K6s, K7s, K6ms, K7ms), each without and
+    with rotation, chi-const and del6: no spill and no stack, one
+    256-thread block per SM or more."""
     attrs = fr.flagship_attrs(lib)
     first, upd = fr.ZG_KERNELS[lib]
     assert set(attrs) == {k + chi + h3 + rot for k in (first, upd)
@@ -638,24 +654,33 @@ def test_zghost_instances_hold_no_local_memory(cuda, lib):
 @pytest.mark.parametrize("case", ZG_CASES)
 def test_conv_slab_steps_on_card_match_cpu(cuda, case):
     """Three zghost steps through K6/K7 (K6m/K7m; with Ω their Coriolis
-    instances) against the same steps on the CPU (plain versions) from
-    the same fields.  The velocity and vector-potential noise is 1e-2, not
-    the configuration's 1e-3 and 1e-4: a velocity that small is the
-    residual of the O(1) hydrostatic balance and sits below its float32
-    floor (see tests/test_torch_zghost.py, UU_AMPL)."""
+    instances; with Shear K6s/K7s, K6ms/K7ms from t = 0.37; forced, the
+    same draws kicked after each step) against the same steps on the CPU
+    (plain versions) from the same fields.  The velocity and
+    vector-potential noise is 1e-2, not the configuration's 1e-3 and 1e-4:
+    a velocity that small is the residual of the O(1) hydrostatic balance
+    and sits below its float32 floor (see tests/test_torch_zghost.py,
+    UU_AMPL)."""
     _conv_slab_steps_match(cuda, conv_slab((16, 16, 32), **ZG_CASES[case]))
 
 
 def _conv_slab_steps_match(cuda, cfg):
     shape = cfg.grid.shape
+    if cfg.module("shear") is not None:
+        cfg = cfg.replace(time=pt.TimeSpec(itorder=3, tstart=0.37))
     fields = dict(pt.Model(cfg, device="cpu").init_state(5)["fields"])
     g = torch.Generator().manual_seed(5)
     for k in ("uu", "aa"):
         if k in fields:
             fields[k] = 1e-2 * torch.randn((3,) + shape, generator=g)
+    draws = [(torch.randint(0, 20, (1,), generator=g),
+              torch.rand((), generator=g) * 6.0 - 3.0,
+              torch.randn(3, generator=g)) for _ in range(3)]
     out = {}
     for dev in (cuda, torch.device("cpu")):
         model = pt.Model(cfg, device=dev)
+        it = iter([tuple(t.to(dev) for t in d) for d in draws])
+        model.forcing_draws = it.__next__
         s = model.make_multi_step(3)(model.init_state(5, overrides=fields))
         out[dev.type] = s
     torch.testing.assert_close(out["cuda"]["dt"].cpu(), out["cpu"]["dt"],
@@ -933,7 +958,10 @@ def test_h3_instances_hold_no_local_memory(cuda, lib):
 # the conv-slab sets with chi-const beside K-const (the CHI instances)
 CHI_CASES = {"chi": dict(chi=4e-3), "chi_rot": dict(chi=4e-3, Omega=1.0),
              "mag_chi": dict(magnetic=True, chi=4e-3),
-             "mag_chi_rot": dict(magnetic=True, chi=4e-3, Omega=1.0)}
+             "mag_chi_rot": dict(magnetic=True, chi=4e-3, Omega=1.0),
+             "shear_chi": dict(chi=4e-3, Omega=1.0, shear=True),
+             "mag_shear_chi": dict(magnetic=True, chi=4e-3, Omega=1.0,
+                                   shear=True)}
 
 
 @pytest.mark.parametrize("case", CHI_CASES)
@@ -961,7 +989,14 @@ ZG_H3_CASES = {"h3": dict(hyper3=True), "h3_rot": dict(hyper3=True,
                "mag_h3": dict(magnetic=True, hyper3=True),
                "mag_h3_rot": dict(magnetic=True, hyper3=True, Omega=1.0),
                "mag_chi_h3_rot": dict(magnetic=True, hyper3=True, chi=4e-3,
-                                      Omega=1.0)}
+                                      Omega=1.0),
+               "shear_h3": dict(hyper3=True, Omega=1.0, shear=True),
+               "shear_chi_h3": dict(hyper3=True, chi=4e-3, Omega=1.0,
+                                    shear=True),
+               "mag_shear_h3": dict(magnetic=True, hyper3=True, Omega=1.0,
+                                    shear=True),
+               "mag_shear_chi_h3": dict(magnetic=True, hyper3=True,
+                                        chi=4e-3, Omega=1.0, shear=True)}
 
 
 @pytest.mark.parametrize("case", ZG_H3_CASES)
@@ -985,7 +1020,9 @@ def test_zg_h3_steps_on_card_match_cpu(cuda, case):
 
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "conv_slab_rot", "conv_slab_mag",
-                                   "conv_slab_mag_rot",
+                                   "conv_slab_mag_rot", "conv_slab_shear",
+                                   "conv_slab_mag_shear", "conv_slab_forced",
+                                   "conv_slab_forced_mag_shear",
                                    "shear_box", "shock_box", "hydro",
                                    "hydro_rk2", "hydro_rk4", "ent_mhd",
                                    "ent_mhd_rk2", "ent_mhd_rk4",

@@ -86,7 +86,9 @@ def test_build_starts_the_longest_first_one_per_cpu(tmp_path, monkeypatch):
     # two runs start together: their log lines may come in either order
     assert set(started[:4]) == {"fused_rhs", "fused_rhs_ent",
                                 "fused_rhs_hydro_ent", "fused_rhs_hydro"}
-    assert set(started[4:6]) == {"fused_rhs_zg_mag", "fused_rhs_zg"}
+    assert set(started[4:8]) == {"fused_rhs_zg_mag", "fused_rhs_zg",
+                                 "fused_rhs_zg_mag_shear",
+                                 "fused_rhs_zg_shear"}
     assert sorted(started) == sorted(_build.LIBRARIES)
     at_once = peak = 0
     for word, _ in events:

@@ -291,15 +291,17 @@ def test_gate_accepts_conv_slab():
 @pytest.mark.parametrize("case", ("unported_bc", "extra_module",
                                   "missing_module", "periodic_z"))
 def test_gate_rejects_on_cuda(case):
-    """Outside the conv-slab's module sets (the set alone or with
-    Magnetic), or with a BC the port lacks, a CUDA configuration raises (no
-    GPU needed: the gate raises first)."""
+    """Outside the conv-slab's module sets (the set alone, with
+    Magnetic, with Shear, each with optional forcing), or with a BC the
+    port lacks, a CUDA configuration raises (no GPU needed: the gate
+    raises first); the extra module is Shock, which no z-ghosted build
+    has (forcing, the extra module here before, is admitted now)."""
     cfg = conv_slab(16)
     if case == "unported_bc":
         cfg = cfg.replace(bcz=cfg.bcz[:2] + (pt.BC("uz", "cop", "cop"),)
                           + cfg.bcz[3:])
     elif case == "extra_module":
-        cfg = cfg.replace(modules=cfg.modules + (pt.Forcing(),))
+        cfg = cfg.replace(modules=cfg.modules + (pt.Shock(),))
     elif case == "missing_module":
         cfg = cfg.replace(modules=tuple(m for m in cfg.modules
                                         if m.name != "gravity"))

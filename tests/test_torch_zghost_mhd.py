@@ -244,16 +244,21 @@ def test_chi_const_is_admitted():
 
 
 def test_other_sets_stay_refused():
-    """The isothermal MHD set under gravity, and forced magnetoconvection
-    (the z-ghosted builds have no forcing kick; η₃ they have since the H3
-    instances, tests/test_torch_zghost_hyper3.py), raise on the card."""
+    """The isothermal MHD set under gravity, and magnetoconvection with
+    Shock (no z-ghosted build has the shock slot; forced magnetoconvection,
+    the case here before, runs since the kick after the step,
+    tests/test_torch_zghost_forced.py; η₃ since the H3 instances,
+    tests/test_torch_zghost_hyper3.py), raise on the card, each for its
+    module set: the set is tested before Entropy's layer profiles."""
     base = conv_slab(8, magnetic=True)
-    forced = base.replace(modules=base.modules + (pt.Forcing(),))
+    shocked = base.replace(modules=base.modules + (pt.Shock(),))
     iso = base.replace(modules=tuple(
         m for m in base.modules if m.name != "entropy"), bcz=tuple(
         bc for bc in base.bcz if bc.comp != "ss"))
-    for cfg in (forced, iso):
-        assert gate_reason(cfg) is not None
+    for cfg in (shocked, iso):
+        reason = gate_reason(cfg)
+        assert reason is not None and reason.startswith("modules "), reason
+        assert "cool/luminosity" not in reason
         with pytest.raises(NotImplementedError):
             pt.Model(cfg, device="cuda")
 
