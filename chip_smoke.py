@@ -15,7 +15,10 @@ hyper-diffusion (``hyper3=True``: their H3 instances, ``*_h3``), both
 in a shearing box (``shear=True``, the stratified shearing box: kernels
 K6s, K7s and K6ms, K7ms, on the z-ghosted shear builds) and forced
 convection (``forcing=0.05``: K6, K7 and the kick after the step), the
-sheared, rotating
+isothermal stratified layer (``strat_box``: the stratified MRI box and
+its hydro flow, and forced stratified MHD and hydro under constant
+gravity: K6msi/K7msi, K6si/K7si, K6mi/K7mi, K6i/K7i, on the z-ghosted
+builds without ss), the sheared, rotating
 MHD box with shock viscosity and hyper-diffusion (kernels K4, K5) and
 the shocked periodic box (kernels K1s, K5w), these four on the same
 template's two shock builds, and the other isothermal layouts of those
@@ -50,7 +53,9 @@ Phases, each printing its own lines:
      and without Ω), and their H3 instances at 64³ and, with and
      without Ω and chi-const, at 24×20×42, K6s/K7s and K6ms/K7ms (Ω = 1,
      the input at t = 0.37) with and without chi-const and del6 at 64³
-     and 24×20×42, the four periodic builds'
+     and 24×20×42, the z-ghosted builds without ss (K6i/K7i … K6msi/K7msi)
+     with and without Ω and del6 at 64³, 32³, 16×24×40 and 24×20×42 (the
+     sheared ones at Ω = 1 from t = 0.37), the four periodic builds'
      H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
@@ -68,7 +73,8 @@ Phases, each printing its own lines:
      with Magnetic, with Ω = 1 and with both, with chi-const, with
      Magnetic and chi-const, and with all three, both with del6 and
      magnetoconvection with del6, chi-const and Ω, the sheared conv-slab
-     and magnetoconvection from t = 0.37, forced convection, the hydro
+     and magnetoconvection from t = 0.37, forced convection, the four
+     isothermal stratified sets and forced stratified MHD, the hydro
      shock box,
      the three other shear-box layouts, the three hydro layouts with ss
      and the three MHD layouts with ss);
@@ -95,7 +101,10 @@ Phases, each printing its own lines:
      chi-const (their CHI instances) and with del6 (their H3 instances),
      both in the shearing box (Ω = 0.5: one K6s and two K7s, one K6ms and
      two K7ms) and forced convection (one K6, two K7), each in 3 windows
-     with the card's busy time,
+     with the card's busy time, the isothermal stratified layer
+     (strat_box(256) with and without hyper3=True, strat_box(256,
+     magnetic=False), both with shear=False and forcing=0.05: one K6x
+     and two K7x a step of their builds), in 3 windows likewise,
      and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
@@ -114,13 +123,16 @@ Phases, each printing its own lines:
      with the one without (with and without Ω), kernel by kernel;
      K6s/K7s and K6ms/K7ms in turns with K6/K7 and K6m/K7m, the sheared
      paths' and forced convection's step split (the x/y fills with the
-     shifted faces and the kick among the parts);
+     shifted faces and the kick among the parts); the isothermal
+     stratified paths' kernels and splits, K6i/K7i, K6mi/K7mi, K6si/K7si
+     and K6msi/K7msi in turns with K6/K7, K6m/K7m, K6s/K7s and
+     K6ms/K7ms;
      K1sh/K5wh in turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5,
      K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
      K4h/K5h, K4hne/K5hne with K4hn/K5hn, K1se/K5wse with K1s/K5w,
      K4e/K5e with K4/K5, K4ne/K5ne with K4n/K5n, each on its own path's
      final state; for each
-     instance of the flagship template (csrc/fused_rhs.cu, all twenty
+     instance of the flagship template (csrc/fused_rhs.cu, all 24
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
@@ -231,11 +243,18 @@ H3_KERNELS = tuple(k + sfx + "_h3" for sfx in ("", "_hydro", "_ent",
 # z-ghosted builds
 CHI_KERNELS = tuple(k + "_chi" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
 ZG_H3_KERNELS = tuple(k + "_h3" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
+# the z-ghosted builds without ss (the isothermal stratified layer): K6i,
+# K7i, K6mi, K7mi, K6si, K7si, K6msi, K7msi, and the MRI box's H3
+# instances (K6msi, K7msi with del6)
+ISO_SFX = ("_iso", "_iso_mag", "_iso_shear", "_iso_mag_shear")
+ZG_ISO_KERNELS = tuple(k + sfx for sfx in ISO_SFX for k in ZGHOST_KERNELS)
+ZG_ISO_H3_KERNELS = tuple(k + "_iso_mag_shear_h3" for k in ZGHOST_KERNELS)
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
                 + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
-                + NEW_AUX_KERNELS + ZG_H3_KERNELS + ZG_SHEAR_KERNELS)
+                + NEW_AUX_KERNELS + ZG_H3_KERNELS + ZG_SHEAR_KERNELS
+                + ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -259,6 +278,25 @@ CONV_SLAB_PATHS = {
     "sheared magnetoconvection": dict(magnetic=True, Omega=OMEGA_SHEAR,
                                       shear=True),
     "forced conv-slab": dict(forcing=FORCE)}
+# the isothermal stratified layer's paths of phase 3: label -> strat_box
+# keyword arguments (the MRI box: Magnetic, Shear, g_z = −z, Ω = 1)
+STRAT_PATHS = {
+    "stratified MRI box": {},
+    "stratified MRI box h3": dict(hyper3=True),
+    "forced stratified MHD": dict(shear=False, forcing=FORCE),
+    "forced stratified hydro": dict(magnetic=False, shear=False,
+                                    forcing=FORCE),
+    "stratified shear hydro": dict(magnetic=False)}
+# the four sets of the builds without ss in phase 2: label -> strat_box
+# keyword arguments
+ISO_SETS = {"hydro": dict(magnetic=False, shear=False),
+            "MHD": dict(shear=False), "shear hydro": dict(magnetic=False),
+            "MRI box": {}}
+# each one's entropy counterpart, timed in turns with it in phase 4
+STRAT_COUNTERPART = {"stratified MRI box": "sheared magnetoconvection",
+                     "forced stratified MHD": "magnetoconvection",
+                     "forced stratified hydro": "conv-slab",
+                     "stratified shear hydro": "sheared conv-slab"}
 # launches of each kernel in one step of each phase-3 path
 PER_STEP = {
     "flagship": dict.fromkeys(FLAGSHIP_KERNELS, 1),
@@ -276,6 +314,14 @@ PER_STEP = {
     "sheared magnetoconvection": {"rhs_zg_mag_shear": 1,
                                   "rhs_zg_upd_mag_shear": 2},
     "forced conv-slab": {"rhs_zg": 1, "rhs_zg_upd": 2},
+    "stratified MRI box": {"rhs_zg_iso_mag_shear": 1,
+                           "rhs_zg_upd_iso_mag_shear": 2},
+    "stratified MRI box h3": {"rhs_zg_iso_mag_shear_h3": 1,
+                              "rhs_zg_upd_iso_mag_shear_h3": 2},
+    "forced stratified MHD": {"rhs_zg_iso_mag": 1, "rhs_zg_upd_iso_mag": 2},
+    "forced stratified hydro": {"rhs_zg_iso": 1, "rhs_zg_upd_iso": 2},
+    "stratified shear hydro": {"rhs_zg_iso_shear": 1,
+                               "rhs_zg_upd_iso_shear": 2},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -300,6 +346,9 @@ REPLACES = {
     "rhs_zg_shear": _FR + "317", "rhs_zg_upd_shear": _FR + "349",
     "rhs_zg_mag_shear": _FR + "317", "rhs_zg_upd_mag_shear": _FR + "349",
 }
+# the builds without ss replace the same calls, traced without Entropy
+REPLACES.update({k: REPLACES[k.split("_iso")[0]]
+                 for k in ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS})
 # the hydro build replaces the same calls, traced for the hydro set; the
 # H3 and CHI instances the same calls, traced with those terms
 REPLACES.update({k + sfx: REPLACES[k]
@@ -483,6 +532,22 @@ OPS.update({k + "_shear": OPS[k] + zg_shear_ops(n, n == 8, first)
             for k, n, first in (("rhs_zg", 5, True), ("rhs_zg_upd", 5, False),
                                 ("rhs_zg_mag", 8, True),
                                 ("rhs_zg_upd_mag", 8, False))})
+# the builds without ss: the periodic isothermal terms (HYDRO_RHS, or
+# FLAGSHIP_RHS with A), g_z(z) on u_z (1), the CFL maximum of the periodic
+# builds (16, with A 26) in the first kernel, the update of n fields in
+# the other; sheared the shear terms, with del6 that of n fields and the
+# del6 rate (1)
+for _sfx, _rhs, _n in (("_iso", HYDRO_RHS, 4), ("_iso_mag", FLAGSHIP_RHS, 7)):
+    for _shear in (False, True):
+        _name = _sfx + ("_shear" if _shear else "")
+        for _k, _first in (("rhs_zg", True), ("rhs_zg_upd", False)):
+            _ops = _rhs + 1 + ((16 + 10 * (_n == 7)) if _first
+                               else _n * UPD)
+            if _shear:
+                _ops += zg_shear_ops(_n, _n == 7, _first)
+            OPS[_k + _name] = _ops
+            if _name == "_iso_mag_shear":
+                OPS[_k + _name + "_h3"] = _ops + _n * HYPER3 + _first
 # the shear-box comparisons start here, where deltay = 0.555·Ly is not a
 # whole number of cells (at t = 0 the shifted faces are plain wraps)
 T_SHEAR = 0.37
@@ -525,6 +590,21 @@ def template_cfg(pt, name, shape, itorder=3, Omega=0.0):
         return forced_hydro(pt, shape, itorder, Omega, hyper3)
     return forced_entropy(pt, shape, base == "entropy MHD", itorder, Omega,
                           hyper3=hyper3)
+
+
+def strat_cfg(pt, shape, Omega=None, **kw):
+    """configs.strat_box with ``kw``, the sheared ones from t = T_SHEAR;
+    ``Omega`` sets Ω: of the shear (and g_z = −Ω²z), or of Coriolis alone
+    in an unsheared set."""
+    sheared = kw.get("shear", True)
+    if sheared and Omega is not None:
+        kw = dict(kw, Omega=Omega)
+    cfg = pt.configs.strat_box(shape, **kw)
+    if not sheared and Omega:
+        cfg = with_omega(pt, cfg, Omega)
+    if sheared:
+        cfg = cfg.replace(time=pt.TimeSpec(itorder=3, tstart=T_SHEAR))
+    return cfg
 
 
 def with_omega(pt, cfg, Omega):
@@ -798,7 +878,8 @@ def compare_aux_kernels(torch, pt, fr, label, cfg, errs, rtol):
 def stratified_fa(torch, pm, seed):
     """(5, nx, ny, nz) on the card, or (8, ...) with Magnetic: the
     piecew-poly lnρ and s with noise, noisy velocities and a noisy vector
-    potential."""
+    potential; without ss (the isothermal stratified layer, 4 or 7) the
+    hydrostatic lnρ with noise."""
     g = torch.Generator("cuda").manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
@@ -806,8 +887,9 @@ def stratified_fa(torch, pm, seed):
     def noise(sh):
         return 1e-2 * torch.randn(sh, generator=g, device="cuda")
 
-    parts = [noise((3,) + shape), (f["lnrho"] + noise(shape))[None],
-             (f["ss"] + noise(shape))[None]]
+    parts = [noise((3,) + shape), (f["lnrho"] + noise(shape))[None]]
+    if "ss" in pm.reg.slots:
+        parts.append((f["ss"] + noise(shape))[None])
     if "aa" in pm.reg.slots:
         parts.append(noise((3,) + shape))
     return torch.cat(parts).contiguous()
@@ -830,9 +912,21 @@ def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
     against their plain versions on CUDA inputs: the interior stack (with
     Shear ghosted in x and y, the faces shifted), its boundary planes
     pinned, and its z-halo slabs."""
-    pm = pt.Model(pt.configs.conv_slab(shape, magnetic=magnetic,
-                                       Omega=Omega, chi=chi, hyper3=hyper3,
-                                       shear=shear), device="cuda")
+    label = ("sheared " if shear else "") + (
+        "magnetoconvection" if magnetic else "conv-slab") + (
+        f", chi = {chi:g}" if chi else "") + (", del6" if hyper3 else "") + (
+        f", Omega = {Omega:g}" if Omega else "")
+    compare_zg_cfg(torch, pt, fr, pt.configs.conv_slab(
+        shape, magnetic=magnetic, Omega=Omega, chi=chi, hyper3=hyper3,
+        shear=shear), label, errs)
+
+
+def compare_zg_cfg(torch, pt, fr, cfg, label, errs):
+    """Phase 2: the first and update kernel of ``cfg``'s z-ghosted build
+    and instance against their plain versions (``compare_zghost_kernels``;
+    the isothermal stratified layer's with ``strat_cfg``)."""
+    shape = cfg.grid.shape
+    pm = pt.Model(cfg, device="cuda")
     first, upd = fr.zg_kernels(pm)
     first_p, upd_p = fr.zg_plain(pm)
     inp = zg_input(torch, pm, 1)
@@ -847,10 +941,6 @@ def compare_zghost_kernels(torch, pt, fr, shape, errs, magnetic=False,
     torch.cuda.synchronize()
     counts = {k: v for k, v in fr.LAUNCHES.items() if v}
     check(counts == {first: 1, upd: 1}, f"launch counts {counts}")
-    label = ("sheared " if shear else "") + (
-        "magnetoconvection" if magnetic else "conv-slab") + (
-        f", chi = {chi:g}" if chi else "") + (", del6" if hyper3 else "") + (
-        f", Omega = {Omega:g}" if Omega else "")
     dt_rel = abs(float(dt1m) / float(dt1m_p) - 1.0)
     check(dt_rel <= RTOL_DT, f"{shape} {label} {first} max 1/dt rel err "
           f"{dt_rel}")
@@ -1017,6 +1107,17 @@ def main():
                     compare_zghost_kernels(torch, pt, fr, shape, errs,
                                            magnetic, 1.0, chi, hyper3,
                                            shear=True)
+    # the builds without ss: each set with and without Ω (the sheared ones
+    # at Ω = 1, the input at t = T_SHEAR) and with and without del6
+    for shape in ((64, 64, 64), (32, 32, 32), (16, 24, 40), EDGE_SHAPE):
+        for iso, kw in ISO_SETS.items():
+            for Omega in ((1.0,) if kw.get("shear", True) else (0.0, 1.0)):
+                for hyper3 in (False, True):
+                    compare_zg_cfg(
+                        torch, pt, fr,
+                        strat_cfg(pt, shape, Omega, hyper3=hyper3, **kw),
+                        f"isothermal stratified {iso}, Omega = {Omega:g}"
+                        + (", del6" if hyper3 else ""), errs)
     mark("phase 2, the z-ghosted builds")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
@@ -1097,6 +1198,13 @@ def main():
     for label in ("sheared conv-slab", "sheared magnetoconvection"):
         compare_steps(torch, pt, label, pt.configs.conv_slab(
             n32, **CONV_SLAB_PATHS[label]), uu_noise=1e-2, t0=T_SHEAR)
+    # the isothermal stratified layer: its sets' initial velocity (1e-3)
+    # sits beside the O(1) pressure and gravity forces, so noise of 1e-2,
+    # as the conv-slab's
+    for iso, kw in dict(ISO_SETS, **{
+            "forced MHD": dict(shear=False, forcing=FORCE)}).items():
+        compare_steps(torch, pt, f"isothermal stratified {iso}",
+                      strat_cfg(pt, n32, **kw), uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
                   t0=T_SHEAR)
     sb = pt.configs.shear_box(n32)
@@ -1132,6 +1240,9 @@ def main():
                       "conv-slab h3", "magnetoconvection h3",
                       "sheared conv-slab", "sheared magnetoconvection",
                       "forced conv-slab"))
+    strat = {label: run_conv_slab(torch, pt, fr, smi, shape, launches,
+                                  label, nwin=VARIANT_WINDOWS)
+             for label in STRAT_PATHS}
     mark("phase 3, the z-ghosted builds")
     aux = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
            for label in AUX_PATHS}
@@ -1178,6 +1289,14 @@ def main():
     time_zg_turns(torch, fr, smi, zs, zg)
     time_zg_turns(torch, fr, smi, zms, zm)
     print_split(torch, fr, smi, zf)
+    zpaths = {path[3]: path for path in (zg, zm, zs, zms)}
+    for label, path in strat.items():
+        time_conv_slab(torch, fr, smi, path, errs, timings, bounds,
+                       full=False)
+        print_split(torch, fr, smi, path)
+        if label in STRAT_COUNTERPART:
+            time_zg_turns(torch, fr, smi, path,
+                          zpaths[STRAT_COUNTERPART[label]])
     mark("phase 4, the z-ghosted builds")
     for box in aux.values():
         time_aux_box(torch, fr, smi, box, errs, timings, bounds)
@@ -1200,6 +1319,7 @@ def main():
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(smi, flush=True)
+    check(name == torch.cuda.get_device_name(0), "the device name was lost")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1391,14 +1511,18 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     convection, non-periodic z, or magnetoconvection on K6m/K7m, with
     chi-const conduction beside K-const on their CHI instances, with del6
     hyper-diffusion on their H3 instances, in the shearing box on
-    K6s/K7s or K6ms/K7ms, or forced, the kick after the step; the step
-    timed in ``nwin`` windows one after the other, the launches counted
+    K6s/K7s or K6ms/K7ms, or forced, the kick after the step; or a path
+    of the isothermal stratified layer (STRAT_PATHS) on the builds without
+    ss; the step timed in ``nwin`` windows one after the other, the
+    launches counted
     in the first, the card's busy time from torch.profiler's kernel
     records."""
     from pencil_tpu_torch.physics.pencils import Pencils
     base = torch.cuda.memory_allocated()
-    model = pt.Model(pt.configs.conv_slab(shape, **CONV_SLAB_PATHS[label]),
-                     device="cuda")
+    cfg = (pt.configs.strat_box(shape, **STRAT_PATHS[label])
+           if label in STRAT_PATHS
+           else pt.configs.conv_slab(shape, **CONV_SLAB_PATHS[label]))
+    model = pt.Model(cfg, device="cuda")
     magnetic = "aa" in model.reg.slots
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
     check_launches(label, counts, launches)
@@ -1436,8 +1560,9 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     check(bool(torch.isfinite(fa).all()), "non-finite field")
     # uz, and with Magnetic A_x and A_y, are 0 on the walls (forced, the
     # kick after the writeback moves u off them, as JAX's does)
-    for c in (() if model.forcing is not None else (2, 5, 6) if magnetic
-              else (2,)):
+    comps = model.reg.comp_names
+    for c in (() if model.forcing is not None else
+              [comps.index(k) for k in ("uz", "ax", "ay") if k in comps]):
         check(bool((fa[c][:, :, [0, -1]] == 0).all()),
               f"{model.reg.comp_names[c]} not 0 on the walls")
     dt = float(state["dt"])
@@ -1447,20 +1572,26 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     # their maxima and the root sum of their maxima (with Magnetic the
     # latter holds the largest Alfvén speed too; with del6 the diffusive
     # rate holds the constant dxyz₆ one; with Shear both hold |S·x|/Δy at
-    # the x faces)
+    # the x faces).  The advective maximum is at least its u = 0 value at
+    # the point of the largest cs² and at an x face with the smallest
+    # (``adv_lo``), and at most the sum of the maxima (``adv_b``)
     dt_next = float(model.make_step()(state)["dt"])
     cfg, eos, ent = model.cfg, model.eos, model.cfg.module("entropy")
     tc, gs = cfg.time, cfg.grid
     inv = [1.0 / d for d in (gs.dx, gs.dy, gs.dz)]
     dxyz2 = sum(i * i for i in inv)
-    lnrho, ss = fa[3], fa[4]
-    cs2 = eos.cs20 * torch.exp(eos.gamma / eos.cp * ss
-                               + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
+    lnrho = fa[3]
+    # the sound speed: with ss at each point, isothermal cs0²
+    cs2 = (eos.cs20 * torch.exp(eos.gamma / eos.cp * fa[4]
+                                + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
+           if ent is not None else torch.full((), eos.cs20, device="cuda"))
     shear = cfg.module("shear")
-    umax = sum(fa[a].abs().max() * inv[a] for a in range(3)) + (
-        abs(shear.S) * float(model.grid.x.abs().max()) * inv[1]
-        if shear else 0.0)
+    shear_rate = (abs(shear.S) * float(model.grid.x.abs().max()) * inv[1]
+                  if shear else 0.0)
+    umax = sum(fa[a].abs().max() * inv[a] for a in range(3)) + shear_rate
     adv = float((umax + torch.sqrt(cs2.max() * dxyz2)) / tc.cdt)
+    adv_lo = max(shear_rate + float(torch.sqrt(cs2.min() * dxyz2)),
+                 float(torch.sqrt(cs2.max() * dxyz2))) / tc.cdt
     va2 = 0.0
     if magnetic:
         pen = Pencils(model.ghosted(fa), model.grid, model.reg, cfg, eos,
@@ -1470,16 +1601,18 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
                      * pen.rho1()).max())
         del pen, bb
     adv_b = float((umax + torch.sqrt(cs2.max() * dxyz2 + va2)) / tc.cdt)
-    chik = ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
+    chik = (ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
+            if ent is not None else 0.0)
     mag = cfg.module("magnetic")
     dxyz6 = sum(i ** 6 for i in inv)
     dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0, chik,
-              ent.chi * eos.gamma if ent.chi_conduction else 0.0) \
+              ent.chi * eos.gamma if ent is not None and ent.chi_conduction
+              else 0.0) \
         * dxyz2 / tc.cdtv \
         + max(fr.hyper3_coefficients(cfg)) * dxyz6 / tc.cdtv3
     check(1.0 / math.hypot(adv_b, dif) * (1 - 1e-5) <= dt_next
-          <= 1.0 / max(adv, dif) * (1 + 1e-5),
-          f"dt {dt_next} outside the CFL bounds ({adv}-{adv_b}, {dif})")
+          <= 1.0 / max(adv_lo, dif) * (1 + 1e-5),
+          f"dt {dt_next} outside the CFL bounds ({adv_lo}-{adv_b}, {dif})")
     u1 = urms(torch, fa)
     ups = shape[0] * shape[1] * shape[2] / (ms_step * 1e-3)
     names = fr.zg_kernels(model)
@@ -1886,7 +2019,8 @@ def zg_parts(model):
     split (K6/K7, with aa K6m/K7m, with Shear K6s/K7s or K6ms/K7ms and
     the x/y fills with the shifted faces, forced the kick)."""
     sfx = ("m" if "aa" in model.reg.slots else "") + (
-        "s" if model.shear is not None else "")
+        "s" if model.shear is not None else "") + (
+        "i" if "ss" not in model.reg.slots else "")
     parts = {"rhs_zg": "K6" + sfx, "rhs_zg_upd": f"K7{sfx} x2",
              "z_slabs": "z_slabs x3", "bc_writeback": "bc_writeback"}
     if model.shear is not None:

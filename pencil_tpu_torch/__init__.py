@@ -13,6 +13,8 @@ central differences, the 2N-RK orders 1-4):
 * stratified convection with a non-periodic z axis, with and without
   Magnetic (magnetoconvection), rotation and chi-const conduction
   (``configs.conv_slab``);
+* the isothermal stratified layer, hydro or MHD, under constant gravity
+  or in the stratified shearing box (the MRI box; ``configs.strat_box``);
 * the sheared, rotating MHD box with shock viscosity and hyper-diffusion
   (``configs.shear_box``);
 * the shocked periodic box: forced MHD with shock viscosity

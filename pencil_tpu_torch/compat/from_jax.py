@@ -2,7 +2,8 @@
 
 The port's configurations have no weights: both packages build the same
 configuration from the same kwargs, so the state is all that crosses —
-the flagship's 7 fields (uu, lnrho, aa), forced hydro's 4 (uu, lnrho),
+the flagship's 7 fields (uu, lnrho, aa), forced hydro's 4 (uu, lnrho)
+(the isothermal stratified layer's too),
 the 8 and 5 of non-isothermal turbulence (uu, lnrho, ss, aa; uu, lnrho,
 ss), stratified convection's 5 (uu, lnrho, ss), magnetoconvection's 8
 (uu, lnrho, ss, aa), the shear and shock boxes' 8 slots (uu, lnrho, aa,

@@ -84,6 +84,62 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                  *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
 
 
+def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
+              Omega=1.0, forcing=0.0, hyper3=False):
+    """The isothermal stratified layer: a box x, y, z ∈ [−2, 2] (Lx = Ly
+    = Lz = 4), x and y periodic, z walls, isothermal gas (γ = 1, cs0 = 1)
+    in hydrostatic balance (``Density(init='isothermal')``), so the scale
+    height is H = cs0/Ω = 1; gaussian-noise velocity of amplitude 1e-3,
+    ν = 5e-3; 4 fields (uu, lnrho), or 7 (uu, lnrho, aa) with
+    ``magnetic``: η = 5e-3 and a gaussian-noise seed A of 1e-3, the
+    perfect-conductor walls A_x = A_y = 0, ∂A_z/∂z = 0 ('a', 'a', 's').
+    u has stress-free walls with u_z = 0 ('s', 's', 'a') and lnρ the
+    linear extrapolation 'a2'.  ``n`` is an int (a cube) or (nx, ny, nz).
+
+    ``shear`` (the default) makes it the vertically stratified isothermal
+    shearing box: vertical gravity g_z = −Ω²z ('linear-z'), Keplerian
+    shear q = 3/2 at the rotation rate ``Omega`` (which must be > 0) with
+    its Coriolis force; with ``magnetic`` the MRI box of Stone, Hawley,
+    Gammie & Balbus 1996 (ApJ 463, 656).  Without it, constant gravity
+    g_z = −1 and no rotation: isothermal stratified turbulence, forced
+    with ``forcing`` > 0 (helical forcing of that amplitude at kf = 3,
+    kicked after each step), the set-up of the negative effective
+    magnetic pressure runs (Brandenburg, Kemel, Kleeorin, Mitra &
+    Rogachevskii 2011, ApJ 740, L50) without their imposed field.
+    ``hyper3`` adds del6 hyper-diffusion of u, lnρ and (with Magnetic) A
+    with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as ``conv_slab`` does.  The values are
+    this configuration's own, not a reference sample's."""
+    if shear and not Omega > 0.0:
+        raise ValueError("strat_box: shear=True needs Omega > 0 "
+                         "(S = -q Omega, g_z = -Omega^2 z)")
+    pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-2.0, y0=-2.0, z0=-2.0,
+                        Lx=4.0, Ly=4.0, Lz=4.0, periodic=(True, True, False))
+    den, visc, eta3 = _hyper3(pkg, grid, hyper3)
+    bcz = (pkg.BC.parse("ux", "s"), pkg.BC.parse("uy", "s"),
+           pkg.BC.parse("uz", "a"), pkg.BC.parse("lnrho", "a2"))
+    mag = ()
+    if magnetic:
+        bcz += (pkg.BC.parse("ax", "a"), pkg.BC.parse("ay", "a"),
+                pkg.BC.parse("az", "s"))
+        mag = (pkg.Magnetic(eta=5e-3, init="gaussian-noise", ampl=1e-3,
+                            **eta3),)
+    rot = ((pkg.Gravity(gravz_profile="linear-z", gravz=-Omega ** 2),
+            pkg.Shear(Omega=Omega, qshear=1.5)) if shear
+           else (pkg.Gravity(gravz_profile="const", gravz=-1.0),))
+    return pkg.Config(
+        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
+        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+                 pkg.Density(init="isothermal", **den),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3,
+                           Omega=Omega if shear else 0.0),
+                 *rot,
+                 pkg.Viscosity(nu=5e-3, **visc),
+                 *mag,
+                 *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
+
+
 def _hyper3(pkg, gs, hyper3):
     """(Density, Viscosity, Magnetic keyword arguments) of del6
     hyper-diffusion with h3 = 5e-3·dx⁵ where ``hyper3``, else ({}, {}, {})

@@ -73,7 +73,16 @@
 // nx+6, ny+6, nz), read at ghosted offsets as the shear builds read it,
 // and their slabs are the z ghosts of that ghosted stack, (nc, nx+6,
 // ny+6, NG), so the z ghosts beside the shifted x faces are the z BCs
-// applied to those faces, as JAX's 3-axis fill gives them.
+// applied to those faces, as JAX's 3-axis fill gives them.  Built with
+// -DPC_ZG=1 without -DPC_ENT (with or without -DPC_MAG=0, with or without
+// -DPC_SHEAR=1) they give the isothermal stratified layer's K6i/K7i (uu,
+// lnrho), K6mi/K7mi (uu, lnrho, aa), K6si/K7si and K6msi/K7msi (the same
+// with Shear, the stratified isothermal shearing box): the z-ghosted
+// march and Shear terms on the periodic builds' isothermal terms, no
+// conduction, heating or layers, and gravity g_z(z) read per z from a
+// vector (the cooling profile's slot, prof_c): gravz ('const') or
+// gravz z ('linear-z').  Their CFL rate is the periodic builds' constant
+// one; they have ROT and H3 instances, no CHI.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -107,6 +116,8 @@
 //   K6s, K7s, K6ms, K7ms        <- the same two, traced with Shear (and
 //                                 Magnetic): `_fetch_zg` of the 3-axis fill
 //                                 with the shifted x faces
+//   K6i, K7i, K6mi, K7mi,       <- the same two, traced without Entropy (and
+//   K6si, K7si, K6msi, K7msi      with Magnetic, with Shear)
 //
 // What bounds them on an H100: every kernel is a stencil over all 7 fields
 // (hydro: 4).  Device memory moves (nc + nvar)*4 B in and nvar*4 B (K2,
@@ -218,9 +229,9 @@
 #endif
 #ifndef PC_ZG
 #define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
-#endif                 //    with PC_MAG K6m, K7m)
-#if PC_ZG && (!PC_ENT || PC_SHOCK)
-#error "the z-ghosted builds take the entropy layouts without a shock slot"
+#endif                 //    with PC_MAG K6m, K7m; without PC_ENT K6i ...)
+#if PC_ZG && PC_SHOCK
+#error "the z-ghosted builds take the layouts without a shock slot"
 #endif
 // the builds with the DEFER, LAST and KICK instances: a shear build, with
 // or without the shock slot, runs its first kernel and the update only
@@ -296,15 +307,17 @@ struct PcParams {
   float w6[3];     // 6th difference, paired weights o = 1..3
   float inv6[3];   // 1/dx^6, 1/dy^6, 1/dz^6 as x^2*x^4 in f32
   float S;
-  // the z-ghosted build (PC_ZG): gravity on uz, the cooling layer
-  // cool*prof_c*(cs2 - cs2c)/(cs2c rho T) and the heating layer
-  // heat_norm*prof_h/(rho T)
+  // the z-ghosted builds with ss (PC_ZG, PC_ENT): gravity on uz, the
+  // cooling layer cool*prof_c*(cs2 - cs2c)/(cs2c rho T) and the heating
+  // layer heat_norm*prof_h/(rho T); the isothermal ones read g_z(z) from
+  // prof_c and none of these
   float gravz, cool, cs2c, heat_norm;
 };
 
 // The z-ghosted build's inputs beside the interior stack: the z-halo slabs
 // (NV, nx, ny, NG) below z = 0 and above z = nz - 1, and the cooling and
-// heating profiles (nz; zeros where a layer is off).  The other builds
+// heating profiles (nz; zeros where a layer is off); without PC_ENT the
+// gravity g_z(z) (nz) in prof_c, and prof_h unread.  The other builds
 // pass none.
 struct ZgIn {
   const float* zlo;
@@ -434,7 +447,8 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // The z-ghosted build adds gravity after
 // the pressure force and the layer terms after the heating, in the order
 // of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
-// point's cooling profile, lay_h heat_norm times its heating profile, and
+// point's cooling profile (without PC_ENT its g_z), lay_h heat_norm times
+// its heating profile, and
 // its conduction and heating terms, and with aa eta del2 A and the Ohmic
 // heat, are compiled in (no test of a coefficient: a layer that is off
 // has a profile of zeros, a coefficient that is off adds 0); CHI adds
@@ -521,8 +535,10 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     for (int a = 0; a < 3; ++a)
       duu[a] = __fadd_rn(duu[a], __fmul_rn(-2.0f, c[a]));
   }
-#if PC_ZG
+#if PC_ZG && PC_ENT
   duu[2] = duu[2] + P.gravz;   // constant gravity
+#elif PC_ZG
+  duu[2] = duu[2] + lay_c;     // g_z at this point's z
 #endif
 #if PC_SHEAR
   // shear: -S x d/dy of every evolved field, duy -= S ux (dAx -= S Ay
@@ -755,7 +771,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     float dif = has_dif ? (md * P.dxyz2) / P.cdtv : 0.0f;
     if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
     dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
-#elif PC_ZG
+#elif PC_ZG && PC_ENT
     // max(nu, [eta,] K gamma/(rho cp)) at this point (maxdif = max(nu,
     // eta)): with nothing diffusive dif = 0 and the root gives dt1a exactly
     // H3: plus the constant del6 rate
@@ -770,6 +786,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     if constexpr (H3) dif = __fadd_rn(dif, P.dif3);
     dt1 = dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + dif * dif);
 #else
+    // the isothermal builds, periodic or z-ghosted: the constant rates
     if constexpr (H3) {
       // the constant rates, diffusive plus del6 (dif3 > 0 here)
       const float dif = __fadd_rn(P.dif, P.dif3);
@@ -962,10 +979,16 @@ __host__ __device__ constexpr int smem_floats() {
                      + 64)
 // Two blocks per SM where two rings fit under the ~196 KB carve-out (the
 // 4-field K1; each block with the 1 KB the system keeps): those instances
-// are held to 128 registers.
+// are held to 128 registers.  Not the z-ghosted builds (PC_MINB2 = 0):
+// their two sources (ZgSrc) do not fit, and the 4-field K6i held to 128
+// spilled 24 B a thread; PC_MINB2=1 builds that variant.
+#ifndef PC_MINB2
+#define PC_MINB2 (!PC_ZG)
+#endif
 template <bool FIRST, bool DEFER>
 __host__ __device__ constexpr int min_blocks() {
-  return 2 * (4 * smem_floats<FIRST, DEFER>() + STATIC_SMEM + 1024) <= 200704
+  return PC_MINB2
+      && 2 * (4 * smem_floats<FIRST, DEFER>() + STATIC_SMEM + 1024) <= 200704
       ? 2 : 1;
 }
 static_assert(!PC_TAILS  // no DEFER instance in the shock and zg builds
@@ -1070,10 +1093,15 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // each copy's source: fa, or a z-halo slab at the two ends of z
   const ZgSrc src0 = zg_source(rc.d0, bz, P, fa, zg);
   const ZgSrc src1 = zg_source(rc.d1, bz, P, fa, zg);
-  // the layer profiles at this thread's z, fixed along the march
+  // the layer profiles (without PC_ENT g_z) at this thread's z, fixed
+  // along the march
   const int izl = min(gz, P.nz - 1);
   const float lay_c = zg.prof_c[izl];
+#if PC_ENT
   const float lay_h = P.heat_norm * zg.prof_h[izl];
+#else
+  const float lay_h = 0.0f;
+#endif
 #else
   const float lay_c = 0.0f, lay_h = 0.0f;
 #endif
@@ -1308,10 +1336,13 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // that the instances without them keep the shared layout of a build
   // that lacks those; each first kernel of the aux builds with ss and aa
   // has one of its own too (tags 8-11), and so has each of the z-ghosted
-  // shear builds (tags 12-19)
+  // shear builds (tags 12-19), and so has each of the z-ghosted builds
+  // without ss (tags 20-35)
   constexpr bool XT = CHI || (H3 && PC_TAILS);
   constexpr bool ZH3 = H3 && PC_ZG;
-  constexpr int TAG = PC_ZG && PC_SHEAR
+  constexpr int TAG = PC_ZG && !PC_ENT
+      ? 20 + ROT + 2 * H3 + 4 * PC_SHEAR + 8 * PC_MAG
+      : PC_ZG && PC_SHEAR
       ? 12 + ROT + 2 * CHI + 4 * H3
       : PC_JOINS && PC_ENT && PC_MAG
       ? 8 + ROT + 2 * H3
@@ -1359,8 +1390,8 @@ static int launch_rot(const PcParams* p, const float* fa, const float* dfin,
 // The instance with the Coriolis force where Omega is not 0 (K8 has none)
 // and with the build's own terms where they are on: the del6 terms where a
 // hyper coefficient is not 0 (H3: every build), chi-const where cp chi is
-// not 0 (CHI: the z-ghosted builds, each with both flags, four instances
-// a rotation).
+// not 0 (CHI: the z-ghosted builds with ss, each with both flags, four
+// instances a rotation).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
@@ -1368,7 +1399,7 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const ZgIn& zg = ZgIn{}) {
   if constexpr (!FAKE) {
     const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
-#if PC_ZG
+#if PC_ZG && PC_ENT
     if (p->cpchi > 0.0f)
       return hyper
           ? launch_rot<FIRST, DEFER, LAST, KICK, true, true>(
@@ -1509,12 +1540,12 @@ int pc_tile_shape(int* out) {
 // attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
 // and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
 // and without the kick; + 16 with rotation, + 32 with the del6 terms (H3),
-// + 64 with chi-const (CHI, the z-ghosted builds only).  Only the
+// + 64 with chi-const (CHI, the z-ghosted builds with ss only).  Only the
 // isothermal MHD build has K8 (1, 3, 6, 7; none with rotation or H3).  The
 // shock and shear builds have 0 and 8 (K1s and K5w, or K4 and K5, and
 // those of their other layouts), each with the four flag sets, the
 // z-ghosted builds 0 and 8 (K6 and
-// K7, K6m and K7m) with the eight.
+// K7, K6m and K7m) with the eight, those without ss with the four.
 int pc_flagship_attrs(int which, int* out) {
   switch (which) {
 #if PC_MAG && !PC_ENT && PC_TAILS
@@ -1531,7 +1562,7 @@ int pc_flagship_attrs(int which, int* out) {
     case 1: return attrs_of<true, false, false>(base, out);
     case 2: return attrs_of<false, true, false>(base, out);
     case 3: return attrs_of<true, true, false>(base, out);
-#if PC_ZG
+#if PC_ZG && PC_ENT
     case 4: return attrs_of<false, false, true>(base, out);
     case 5: return attrs_of<true, false, true>(base, out);
     case 6: return attrs_of<false, true, true>(base, out);

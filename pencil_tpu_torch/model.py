@@ -52,7 +52,12 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   K6s/K7s and K6ms/K7ms, which read the stack ghosted in x and y with the
   x faces shifted by deltay at t0 + c·dt (``zg_input``) and the z slabs
   of that stack.  With forcing (forced convection) the kick follows the
-  writeback, as JAX's ``after_timestep`` gives it.
+  writeback, as JAX's ``after_timestep`` gives it.  The isothermal
+  stratified layer — the flagship's or forced hydro's modules under
+  gravity 'const' or 'linear-z', with or without Shear (the stratified
+  isothermal shearing box, the MRI box with Magnetic) — runs the same
+  chain on the builds without ss: K6i/K7i, K6mi/K7mi, K6si/K7si and
+  K6msi/K7msi, which read g_z(z) as a vector.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -141,11 +146,16 @@ WRAP_SETS = (FLAGSHIP_MODULES, HYDRO_MODULES, ENT_MHD_MODULES,
              ENT_HYDRO_MODULES)
 CONVSLAB_MODULES = frozenset(("eos", "density", "hydro", "gravity",
                               "viscosity", "entropy"))
-# stratified convection and magnetoconvection, and each in a shearing box
-# (Ω and forcing optional in all)
-ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"},
-               CONVSLAB_MODULES | {"shear"},
-               CONVSLAB_MODULES | {"magnetic", "shear"})
+# stratified convection and magnetoconvection, and the isothermal
+# stratified layer, hydro and MHD, each also in a shearing box (Ω and
+# forcing optional in all)
+ENT_ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"},
+                   CONVSLAB_MODULES | {"shear"},
+                   CONVSLAB_MODULES | {"magnetic", "shear"})
+ISO_ZGHOST_SETS = tuple(base | {"gravity"} | shear
+                        for base in (HYDRO_MODULES, FLAGSHIP_MODULES)
+                        for shear in (set(), {"shear"}))
+ZGHOST_SETS = ENT_ZGHOST_SETS + ISO_ZGHOST_SETS
 # the shearing box, MHD or hydro, each with or without the shock slot, and
 # the shocked periodic box, MHD or hydro (forcing optional in all; each
 # also with an entropy field)
@@ -183,7 +193,9 @@ def fused_mode(cfg: Config):
     with or without an entropy field, each with or without del6
     hyper-diffusion), 'zghost' (stratified convection and
     magnetoconvection, each with or without Shear, forcing, Ω, chi-const
-    and del6 hyper-diffusion), 'zroll' (the shearing box, MHD or hydro,
+    and del6 hyper-diffusion, and the isothermal stratified layer, hydro
+    or MHD, with or without Shear, forcing, Ω and del6; gravity
+    'linear-z' on the isothermal sets only), 'zroll' (the shearing box, MHD or hydro,
     with or without the shock slot, each also with an entropy field) or
     'wrap_aux' (the shocked periodic box, MHD or hydro, each also with an
     entropy field), or (None, why ``cfg`` is outside all of these sets).
@@ -209,6 +221,11 @@ def fused_mode(cfg: Config):
         aux = full and (unforced in ZROLL_SETS or unforced in SHOCKBOX_SETS)
         if not (zghost or wrap or aux):
             return None, _outside(names, periodic)
+        grav = cfg.module("gravity")
+        if zghost and unforced in ENT_ZGHOST_SETS and grav.linear:
+            return None, (f"options ['Gravity {grav.gravz_profile}'] (the "
+                          "z-ghosted builds with ss add a constant g_z; "
+                          "only the isothermal ones read g_z(z))")
         ent = cfg.module("entropy")
         if not zghost and ent is not None and (ent.cool != 0.0
                                                or ent.luminosity != 0.0):
@@ -235,7 +252,8 @@ def _outside(names, periodic):
             f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
             f"{sorted(HYDRO_MODULES)}, each with or without 'entropy', on "
             f"a periodic grid, {sorted(CONVSLAB_MODULES)} with or without "
-            "'magnetic' and with or without 'shear' with a non-periodic z, "
+            "'entropy' and with or without 'magnetic' and 'shear' with a "
+            "non-periodic z, "
             f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
             f"{sorted(HYDRO_MODULES | {'shear'})}, each with or without "
             "'shock' and with or without 'entropy', and these with "

@@ -58,6 +58,14 @@ wrappers on the template built with ``PC_SHEAR=1`` too (libraries
 ``fused_rhs_zg_mag_shear``, K6ms and K7ms, ``*_mag_shear``), on the stack
 ghosted in x and y with the shifted x faces (nc, nx+6, ny+6, nz) and the
 z-halo slabs of that stack (nc, nx+6, ny+6, 3) (``Model.zg_input``).
+The isothermal stratified layer (the flagship's or forced hydro's
+modules under gravity, with or without Shear) runs them on the template
+built with ``PC_ZG=1`` and without ``PC_ENT`` (libraries
+``fused_rhs_zg_iso``, ``fused_rhs_zg_iso_mag``, ``fused_rhs_zg_iso_shear``
+and ``fused_rhs_zg_iso_mag_shear``: K6i/K7i, K6mi/K7mi, K6si/K7si,
+K6msi/K7msi, launch names with ``_iso``, ``_iso_mag``, ``_iso_shear``,
+``_iso_mag_shear``), which read g_z(z) as a vector (``zg_profiles``) and
+have no CHI instances.
 
 The shocked periodic box (wrap_aux mode), on the raw periodic 8-slot state
 (8, nx, ny, nz) (uu, lnrho, aa, shock) after the shock pre-pass: the
@@ -243,14 +251,14 @@ def _kicked(model, fa, kick):
 
 
 def rhs_zg_plain(model, fa, zlo, zhi):
-    """K6's (K6m's) plain version: (df, 0-d max of 1/dt) on the interior
-    stack and its z-halo slabs."""
+    """K6's (K6m's, K6i's, K6mi's) plain version: (df, 0-d max of 1/dt)
+    on the interior stack and its z-halo slabs."""
     return rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi), ghosted=True)
 
 
 def rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef):
-    """K7's (K7m's) plain version: (df, f); df is written over
-    df_prev."""
+    """K7's (K7m's, K7i's, K7mi's) plain version: (df, f); df is written
+    over df_prev."""
     alpha, bdt = coef[0], coef[1]
     dfa, _ = rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi),
                        want_dt1=False, ghosted=True)
@@ -259,16 +267,16 @@ def rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef):
 
 
 def rhs_zg_shear_plain(model, fg, zlo, zhi):
-    """K6s's (K6ms's) plain version: (df, 0-d max of 1/dt) on the
-    x/y-ghosted stack with the shifted x faces and its z-halo slabs, x at
-    the kernels' nodes."""
+    """K6s's (K6ms's, K6si's, K6msi's) plain version: (df, 0-d max of
+    1/dt) on the x/y-ghosted stack with the shifted x faces and its z-halo
+    slabs, x at the kernels' nodes."""
     return rhs_plain(model, ghosted_from_sheared_z_slabs(fg, zlo, zhi),
                      ghosted=True, grid=node_grid(model))
 
 
 def rhs_zg_shear_upd_plain(model, fg, zlo, zhi, df_prev, coef):
-    """K7s's (K7ms's) plain version: (df, f); df is written over
-    df_prev."""
+    """K7s's (K7ms's, K7si's, K7msi's) plain version: (df, f); df is
+    written over df_prev."""
     alpha, bdt = coef[0], coef[1]
     dfa, _ = rhs_plain(model, ghosted_from_sheared_z_slabs(fg, zlo, zhi),
                        want_dt1=False, ghosted=True, grid=node_grid(model))
@@ -454,10 +462,12 @@ AUX_KERNELS = {lib: tuple(k + sfx for k in base)
 
 
 # the z-ghosted builds, each with its field layout, its module set (the
-# conv-slab's, with Magnetic, and each with Shear; forcing rides along as
-# the kick after the step) and its two launch names
+# conv-slab's, with Magnetic, and each with Shear; the isothermal
+# stratified layer's, hydro or MHD, each with Shear; forcing rides along
+# as the kick after the step) and its two launch names
 _CONVSLAB = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
                        "entropy"))
+_STRAT = _ISO | {"gravity"}
 _ZG_BUILDS = {
     "fused_rhs_zg": (_HENT, _CONVSLAB, ("rhs_zg", "rhs_zg_upd")),
     "fused_rhs_zg_mag": (_ENT, _CONVSLAB | {"magnetic"},
@@ -466,21 +476,34 @@ _ZG_BUILDS = {
                            ("rhs_zg_shear", "rhs_zg_upd_shear")),
     "fused_rhs_zg_mag_shear": (_ENT, _CONVSLAB | {"magnetic", "shear"},
                                ("rhs_zg_mag_shear", "rhs_zg_upd_mag_shear")),
+    "fused_rhs_zg_iso": (_HYD, _STRAT, ("rhs_zg_iso", "rhs_zg_upd_iso")),
+    "fused_rhs_zg_iso_mag": (_MHD, _STRAT | {"magnetic"},
+                             ("rhs_zg_iso_mag", "rhs_zg_upd_iso_mag")),
+    "fused_rhs_zg_iso_shear": (_HYD, _STRAT | {"shear"},
+                               ("rhs_zg_iso_shear", "rhs_zg_upd_iso_shear")),
+    "fused_rhs_zg_iso_mag_shear": (_MHD, _STRAT | {"magnetic", "shear"},
+                                   ("rhs_zg_iso_mag_shear",
+                                    "rhs_zg_upd_iso_mag_shear")),
 }
 ZG_KERNELS = {lib: names for lib, (_, _, names) in _ZG_BUILDS.items()}
+# the z-ghosted builds with ss, the only ones with CHI instances
+ZG_CHI_LIBRARIES = tuple(lib for lib, (layout, _, _) in _ZG_BUILDS.items()
+                         if "ss" in layout)
 
 
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
 # The H3 instances of the periodic builds (suffix _h3) and the CHI and H3
-# instances of the z-ghosted builds (_chi, _h3, _chi_h3) count under names
-# of their own; the aux builds' H3 instances under their builds' names.
+# instances of the z-ghosted builds (_chi, _h3, _chi_h3; the builds
+# without ss have no CHI) count under names of their own; the aux builds'
+# H3 instances under their builds' names.
 LAUNCHES = dict.fromkeys(
     [k + sfx + h3 for h3 in ("", "_h3") for sfx in _SUFFIX.values()
      for k in _WRAP_KERNELS]
     + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
     + [k + chi + h3 for chi in ("", "_chi") for h3 in ("", "_h3")
-       for names in ZG_KERNELS.values() for k in names]
+       for lib, names in ZG_KERNELS.items() for k in names
+       if not chi or lib in ZG_CHI_LIBRARIES]
     + [k for names in AUX_KERNELS.values() for k in names], 0)
 
 
@@ -532,9 +555,13 @@ def zg_library(model) -> str:
     'fused_rhs_zg' (the conv-slab's uu, lnrho, ss) or 'fused_rhs_zg_mag'
     (with aa and Magnetic), or with Shear 'fused_rhs_zg_shear' and
     'fused_rhs_zg_mag_shear', each with or without forcing, Ω, chi-const
-    conduction and del6 hyper-diffusion, on a grid with z walls and x, y
-    periodic; raises for another layout, module set or grid.  Found once
-    per model: the conv-slab step is bound by the host."""
+    conduction and del6 hyper-diffusion; without ss (the isothermal
+    stratified layer: uu, lnrho and with Magnetic aa) 'fused_rhs_zg_iso',
+    'fused_rhs_zg_iso_mag', and with Shear 'fused_rhs_zg_iso_shear' and
+    'fused_rhs_zg_iso_mag_shear', each with or without forcing, Ω and
+    del6; on a grid with z walls and x, y periodic; raises for another
+    layout, module set or grid.  Found once per model: the conv-slab step
+    is bound by the host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
@@ -549,7 +576,8 @@ def zg_library(model) -> str:
             return lib
     raise NotImplementedError(
         "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules, "
-        f"with or without Magnetic's aa and Shear, with z walls only, got "
+        "with or without Magnetic's aa and Shear, or the same without ss "
+        f"and Entropy, with z walls only, got "
         f"{reg.comp_names} of {sorted(names)}, periodic="
         f"{tuple(cfg.grid.periodic)}")
 
@@ -569,16 +597,20 @@ def zg_kernels(model):
 
 
 def zg_profiles(model):
-    """(cooling profile, heating profile) of ``model`` as device vectors
-    (nz,), zeros where a layer is off, as the plain version computes them;
-    built once per model."""
+    """The z profiles that ``model``'s z-ghosted build reads, as the plain
+    version computes them, each a device vector (nz,): with ss (cooling
+    profile, heating profile), zeros where a layer is off; without it
+    (g_z(z) of the port's Gravity, None), the gravity in the cooling
+    profile's place.  Built once per model."""
     p = model.__dict__.get("_zg_profiles")
     if p is None:
         z = model.grid.z
-        prof = model.cfg.module("entropy").heat_cool_profiles(
-            z, model.cfg.grid)
-        p = tuple((torch.zeros_like(z) if v is None else v).contiguous()
-                  for v in prof)
+        ent = model.cfg.module("entropy")
+        if ent is None:
+            p = (model.cfg.module("gravity").gz(z).contiguous(), None)
+        else:
+            p = tuple((torch.zeros_like(z) if v is None else v).contiguous()
+                      for v in ent.heat_cool_profiles(z, model.cfg.grid))
         model.__dict__["_zg_profiles"] = p
     return p
 
@@ -697,17 +729,19 @@ def library_instances(lib):
     (CHI).  The periodic builds have the five kernels (and the kick's)
     with H3 (launch names with _h3), only the isothermal MHD build K8 (no
     rotation or H3); the shock builds have their two kernels with H3
-    (" h3"), the z-ghosted builds theirs with CHI (launch names with _chi)
-    and with H3 (_h3), each with or without the other."""
+    (" h3"), the z-ghosted builds theirs with CHI (launch names with _chi;
+    the builds with ss only) and with H3 (_h3), each with or without the
+    other."""
     rot = (("", 0), (" rot", 16))
     if lib in AUX_KERNELS:
         return {(kernel + flag + h3).rstrip(): which + r + x
                 for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
                 for h3, x in (("", 0), (" h3", 32)) for flag, r in rot}
     if lib in ZG_KERNELS:
+        chis = (("", 0), ("_chi", 64))[:1 + (lib in ZG_CHI_LIBRARIES)]
         return {kernel + chi + h3 + flag: which + r + x + y
                 for kernel, which in zip(ZG_KERNELS[lib], (0, 8))
-                for chi, x in (("", 0), ("_chi", 64))
+                for chi, x in chis
                 for h3, y in (("", 0), ("_h3", 32)) for flag, r in rot}
     sfx = _SUFFIX[lib]
     out = {}
@@ -879,7 +913,7 @@ def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
 
 def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
     """(library, its launch names (``zg_kernels``), the output shape, the
-    inputs after the stream: the slabs and the layer profiles) of
+    inputs after the stream: the slabs and the z profiles) of
     ``model``'s z-ghosted build, after checking every input: fa and the
     slabs ghosted in x and y for a shear build."""
     p = kernel_params(model)
@@ -896,11 +930,12 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
         _check(coef, (2,), "coef")
     return lib, zg_kernels(model), shape, (
         zlo.data_ptr(), zhi.data_ptr(),
-        *(v.data_ptr() for v in zg_profiles(model)))
+        *(None if v is None else v.data_ptr() for v in zg_profiles(model)))
 
 
 def rhs_zg(model, fa, zlo, zhi):
-    """K6 (K6m with aa; K6s, K6ms with Shear): replaces ``kernel_zg`` +
+    """K6 (K6m with aa; K6s, K6ms with Shear; K6i, K6mi, K6si, K6msi
+    without ss): replaces ``kernel_zg`` +
     ``_fetch_zg`` (fused_rhs.py:317, :301), on the interior stack (with
     Shear: the x/y-ghosted one) and its z-halo slabs.  Returns (df, 0-d
     max of 1/dt)."""
@@ -916,7 +951,8 @@ def rhs_zg(model, fa, zlo, zhi):
 
 
 def rhs_zg_upd(model, fa, zlo, zhi, df_prev, coef):
-    """K7 (K7m with aa; K7s, K7ms with Shear): replaces ``kernel_zg_upd``
+    """K7 (K7m with aa; K7s, K7ms with Shear; K7i, K7mi, K7si, K7msi
+    without ss): replaces ``kernel_zg_upd``
     (fused_rhs.py:349).  Returns (df, f); df is df_prev's buffer,
     overwritten."""
     if not _dispatch(fa):

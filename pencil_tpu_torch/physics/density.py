@@ -4,7 +4,9 @@ of ``pencil_tpu/physics/density.py:113-157``):
     Dlnρ/Dt = −∇·u [+ D₃ Σ_a ∂⁶lnρ/∂x_a⁶]
 
 with the 'simplified' hyper-diffusion of lnρ (:137-149).  Initial
-conditions: 'zero', 'gaussian-noise' and 'piecew-poly' (:214-227)."""
+conditions: 'zero', 'gaussian-noise', 'piecew-poly' (:214-227) and
+'isothermal', lnρ = lnρ0 − γΦ/cs0² in the gravity's potential Φ
+(:180-199, without an entropy field)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -52,6 +54,21 @@ class Density(ModuleBase):
         accumulate(df, "lnrho", out)
 
     def init_fields(self, grid, spec, generator, cfg=None):
+        if self.init == "isothermal":
+            # isothermal stratification (reference isothermal_density,
+            # density.f90:3108-3175); the JAX module's matching ss is not
+            # ported
+            if cfg is not None and cfg.module("entropy") is not None:
+                raise NotImplementedError(
+                    "pencil_tpu_torch: Density(init='isothermal') with an "
+                    "entropy field (its '+ss' term, ss = −(cp − cv)(lnρ − "
+                    "lnρ0), is not ported)")
+            eos = cfg.module("eos")
+            grav = cfg.module("gravity")
+            pot = grav.potential_field(grid, spec) if grav else 0.0
+            ones = torch.ones(spec.shape, dtype=grid.z.dtype,
+                              device=grid.z.device)
+            return {"lnrho": (eos.lnrho0 - eos.gamma * pot / eos.cs20) * ones}
         if self.init == "piecew-poly":
             # the layers are the entropy module's (density.f90 piecew-poly)
             ent = cfg.module("entropy") if cfg else None

@@ -24,9 +24,12 @@ ring fields for ``--auto-skip``),
 K6 and K7 of ``fused_rhs_zg``, the same names of
 ``fused_rhs_zg_mag`` its K6m and K7m, of ``fused_rhs_zg_shear`` and
 ``fused_rhs_zg_mag_shear`` their K6s/K7s and K6ms/K7ms (5 and 8 ring
-fields), and K6rot, K7rot their Coriolis
-instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones
-and K6chih3, K7chih3 both; K1h3, K2h3, K3h3, K3midh3
+fields), of ``fused_rhs_zg_iso``, ``fused_rhs_zg_iso_mag``,
+``fused_rhs_zg_iso_shear`` and ``fused_rhs_zg_iso_mag_shear`` K6i/K7i,
+K6mi/K7mi, K6si/K7si and K6msi/K7msi (4 and 7 ring fields), and K6rot,
+K7rot their Coriolis
+instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones,
+K6chih3, K7chih3 both and K6roth3, K7roth3 del6 with rotation; K1h3, K2h3, K3h3, K3midh3
 and K2Lh3 are the del6 instances of the four periodic builds);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
 that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
@@ -86,6 +89,8 @@ INSTANCES = {
     # the z-ghosted builds' del6 instances, alone and beside chi-const
     "K6h3": (1, 0, 0, 0, 0, 0, 1), "K7h3": (0, 0, 0, 0, 0, 0, 1),
     "K6chih3": (1, 0, 0, 0, 0, 0, 1, 1), "K7chih3": (0, 0, 0, 0, 0, 0, 1, 1),
+    # with rotation too (the stratified MRI box with del6)
+    "K6roth3": (1, 0, 0, 0, 0, 1, 1), "K7roth3": (0, 0, 0, 0, 0, 1, 1),
 }
 NFLAGS = 8       # the template arguments of pc_flagship
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template

@@ -237,10 +237,11 @@ def test_kernel_params_take_both_layouts():
 
 @pytest.mark.parametrize("which", ("conv_slab", "shear_box", "entropy"))
 def test_kernel_params_refuse_other_layouts(which):
-    """The conv-slab's gravity and walls on the isothermal MHD set (uu,
-    lnrho, aa under gravity, no ss: the template's z-ghosted builds take
-    the conv-slab's entropy layouts only; the conv-slab with Magnetic runs
-    them, tests/test_torch_zghost_mhd.py), the shear box with an entropy
+    """The conv-slab's gravity on the isothermal MHD set on a fully
+    periodic grid (uu, lnrho, aa under gravity, no ss: the template's
+    z-ghosted builds take z walls, and with them this set runs,
+    tests/test_torch_zghost_iso.py; the periodic builds have no gravity
+    term, ROADMAP Queue 2 A item 4), the shear box with an entropy
     field beside its shock slot under constant gravity (uu, lnrho, ss,
     aa, shock: the template's shock and shear builds take that layout,
     tests/test_torch_aux_mhd_entropy.py, but have no gravity term) and an
@@ -252,7 +253,7 @@ def test_kernel_params_refuse_other_layouts(which):
                modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0), pt.Density(),
                         pt.Hydro(), mag.module("gravity"),
                         mag.module("viscosity"), mag.module("magnetic")),
-               bcz=tuple(bc for bc in mag.bcz if bc.comp != "ss")),
+               grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=()),
            "shear_box": lambda: shear_box(8).replace(modules=tuple(
                pt.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0)
                if m.name == "eos" else m for m in shear_box(8).modules)

@@ -31,7 +31,8 @@ import torch
 
 import pencil_tpu_torch as pt
 from pencil_tpu_torch.configs import (conv_slab, forced_entropy,
-                                     forced_hydro, shear_box, shock_box)
+                                     forced_hydro, shear_box, shock_box,
+                                     strat_box)
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -639,12 +640,15 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
 def test_zghost_instances_hold_no_local_memory(cuda, lib):
     """K6 and K7 of fused_rhs_zg, K6m and K7m of fused_rhs_zg_mag, and
     those of the shear builds (K6s, K7s, K6ms, K7ms), each without and
-    with rotation, chi-const and del6: no spill and no stack, one
-    256-thread block per SM or more."""
+    with rotation, chi-const and del6, and those of the builds without ss
+    (K6i, K7i, K6mi, K7mi, K6si, K7si, K6msi, K7msi), each without and
+    with rotation and del6: no spill and no stack, one 256-thread block
+    per SM or more."""
     attrs = fr.flagship_attrs(lib)
     first, upd = fr.ZG_KERNELS[lib]
+    chis = ("", "_chi") if lib in fr.ZG_CHI_LIBRARIES else ("",)
     assert set(attrs) == {k + chi + h3 + rot for k in (first, upd)
-                          for chi in ("", "_chi") for h3 in ("", "_h3")
+                          for chi in chis for h3 in ("", "_h3")
                           for rot in ("", " rot")}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
@@ -1018,6 +1022,92 @@ def test_zg_h3_steps_on_card_match_cpu(cuda, case):
                                            **ZG_H3_CASES[case]))
 
 
+# ---- the isothermal stratified layer (the z-ghosted builds without ss) -----
+# strat_box keyword arguments: K6i/K7i, K6mi/K7mi (constant gravity), their
+# Coriolis instances, K6si/K7si and K6msi/K7msi (g_z = -z, Ω = 1), the H3
+# instances, and a forced case (the kernels of the unforced set)
+ISO_CASES = {"iso": dict(magnetic=False, shear=False),
+             "iso_rot": dict(magnetic=False, shear=False, rot=1.0),
+             "iso_mag": dict(shear=False),
+             "iso_mag_rot_h3": dict(shear=False, rot=1.0, hyper3=True),
+             "iso_shear": dict(magnetic=False),
+             "iso_mag_shear": {},
+             "iso_shear_h3": dict(magnetic=False, hyper3=True),
+             "iso_mag_shear_h3": dict(hyper3=True),
+             "iso_mag_forced": dict(shear=False, forcing=0.05)}
+
+
+def iso_cfg(shape, case):
+    """strat_box of ``case``, with Ω about z where it has ``rot``, the
+    sheared ones from t = 0.37."""
+    kw = dict(ISO_CASES[case])
+    rot = kw.pop("rot", 0.0)
+    cfg = strat_box(shape, **kw)
+    if rot:
+        cfg = cfg.replace(modules=tuple(
+            pt.Hydro(init=m.init, ampl=m.ampl, Omega=rot)
+            if m.name == "hydro" else m for m in cfg.modules))
+    if cfg.module("shear") is not None:
+        cfg = cfg.replace(time=pt.TimeSpec(itorder=3, tstart=0.37))
+    return cfg
+
+
+def iso_fg(pm, seed=4):
+    """An isothermal stratified state on the card as the z-ghosted
+    kernels take it (``Model.zg_input``): the hydrostatic lnρ with noise,
+    noisy u and, with Magnetic, A (1e-2 each); with Shear ghosted in x and
+    y with the x faces shifted by deltay at t = 0.37."""
+    g = torch.Generator(pm.device).manual_seed(seed)
+    f = pm.init_state(0)["fields"]
+    shape = pm.cfg.grid.shape
+
+    def noise(sh):
+        return 1e-2 * torch.randn(sh, generator=g, device=pm.device)
+
+    parts = [noise((3,) + shape), (f["lnrho"] + noise(shape))[None]]
+    if "aa" in pm.reg.slots:
+        parts.append(noise((3,) + shape))
+    sdy = (pm.deltay(torch.tensor(0.37, device=pm.device))
+           if pm.shear is not None else None)
+    return pm.zg_input(torch.cat(parts).contiguous(), sdy)
+
+
+@pytest.mark.parametrize("case", ISO_CASES)
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_iso_kernels_match_plain(cuda, shape, case):
+    """K6i/K7i, K6mi/K7mi, K6si/K7si and K6msi/K7msi, with and without Ω
+    and del6, against their plain versions, each launched once under its
+    own name."""
+    pm = pt.Model(iso_cfg(shape, case), device=cuda)
+    first_p, upd_p = fr.zg_plain(pm)
+    inp = iso_fg(pm)
+    fr.reset_launches()
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K6i)")
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    inp2 = iso_fg(pm, seed=5)
+    df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp2, df_p.clone(), coef)
+    torch.cuda.synchronize()
+    assert_field_close(df2, df2_p, "df (K7i)")
+    assert_field_close(f2, f2_p, "f (K7i)")
+    first, upd = fr.zg_kernels(pm)
+    assert "_iso" in first and "_chi" not in first
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               **{first: 1, upd: 1})
+
+
+@pytest.mark.parametrize("case", ISO_CASES)
+def test_iso_steps_on_card_match_cpu(cuda, case):
+    """Three zghost steps of each isothermal stratified set on its build
+    without ss (forced: the same draws kicked after each step) against
+    the same steps on the CPU from the same fields, u and A with noise of
+    1e-2."""
+    _conv_slab_steps_match(cuda, iso_cfg((16, 16, 32), case))
+
+
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "conv_slab_rot", "conv_slab_mag",
                                    "conv_slab_mag_rot", "conv_slab_shear",
@@ -1029,7 +1119,8 @@ def test_zg_h3_steps_on_card_match_cpu(cuda, case):
                                    "ent_hydro", "ent_hydro_rk2",
                                    "ent_hydro_rk4", "flagship_h3",
                                    "conv_slab_mag_chi", "conv_slab_h3",
-                                   "conv_slab_mag_chi_h3_rot", *NEW_AUX))
+                                   "conv_slab_mag_chi_h3_rot", *NEW_AUX,
+                                   *ISO_CASES))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -1051,7 +1142,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
            "conv_slab_mag_chi": conv_slab(32, magnetic=True, chi=4e-3),
            **{"conv_slab_" + k: conv_slab(32, **ZG_H3_CASES[k])
               for k in ("h3", "mag_chi_h3_rot")},
-           **{k: BUILDS[k][0](32) for k in NEW_AUX}}
+           **{k: BUILDS[k][0](32) for k in NEW_AUX},
+           **{k: iso_cfg(32, k) for k in ISO_CASES}}
     for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
         for order in (3, 2, 4):
             cfg[name + ("" if order == 3 else f"_rk{order}")] = \
@@ -1062,3 +1154,4 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     s = pm.make_step()(pm.init_state(0))
     torch.cuda.synchronize()
     assert torch.isfinite(s["fields"]["uu"]).all()
+

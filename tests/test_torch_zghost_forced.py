@@ -132,6 +132,10 @@ def test_gate_admits_the_forced_sets(case):
     assert fr.zg_kernels(pm) == fr.zg_kernels(unforced)
 
 
+def _with_shock(cfg):
+    return cfg.replace(modules=cfg.modules + (pt.Shock(),))
+
+
 def _without(cfg, name):
     return cfg.replace(modules=tuple(m for m in cfg.modules
                                      if m.name != name),
@@ -139,17 +143,19 @@ def _without(cfg, name):
                                  if name != "entropy" or bc.comp != "ss"))
 
 
-# sets outside every chain, each with a z wall, and the module the reason
-# must name: the conv-slab with Shock, the isothermal set under gravity
-# (ROADMAP Queue 2 A item 3), forced or sheared, and the slab without
-# gravity
+# sets outside every chain and the module the reason must name: the
+# conv-slab with Shock, the forced isothermal set under gravity on a fully
+# periodic grid (ROADMAP Queue 2 A item 4; with z walls it runs since the
+# builds without ss, tests/test_torch_zghost_iso.py), the sheared
+# isothermal set with Shock, and the slab without gravity
 REFUSED = {
     "shock": (lambda: conv_slab(8).replace(
         modules=conv_slab(8).modules + (pt.Shock(),)), "shock"),
     "forced_isothermal": (lambda: _without(
-        conv_slab(8, forcing=FORCE), "entropy"), "gravity"),
-    "sheared_isothermal": (lambda: _without(
-        conv_slab(8, Omega=0.5, shear=True), "entropy"), "shear"),
+        conv_slab(8, forcing=FORCE), "entropy").replace(
+        grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=()), "gravity"),
+    "sheared_isothermal": (lambda: _with_shock(_without(
+        conv_slab(8, Omega=0.5, shear=True), "entropy")), "shear"),
     "sheared_no_gravity": (lambda: _without(
         conv_slab(8, Omega=0.5, shear=True), "gravity"), "shear"),
 }

@@ -32,7 +32,7 @@ from pencil_tpu.io.snapshot import save_snapshot
 from pencil_tpu.parallel.halo import fill_ghosts as j_fill_ghosts
 from pencil_tpu_torch.compat.from_jax import (overrides_from_numpy,
                                               snapshot_from_jax)
-from pencil_tpu_torch.configs import conv_slab
+from pencil_tpu_torch.configs import conv_slab, strat_box
 from pencil_tpu_torch.model import fused_gate, fused_mode, gate_reason
 from pencil_tpu_torch.ops import fused_rhs as fr
 from pencil_tpu_torch.parallel.halo import ghosted_from_z_slabs
@@ -244,17 +244,19 @@ def test_chi_const_is_admitted():
 
 
 def test_other_sets_stay_refused():
-    """The isothermal MHD set under gravity, and magnetoconvection with
-    Shock (no z-ghosted build has the shock slot; forced magnetoconvection,
-    the case here before, runs since the kick after the step,
+    """The isothermal hydro set under gravity on a fully periodic grid
+    (ROADMAP Queue 2 A item 4; the isothermal sets with z walls, the case
+    here before, run since the builds without ss,
+    tests/test_torch_zghost_iso.py), and magnetoconvection with Shock (no
+    z-ghosted build has the shock slot; forced magnetoconvection, the case
+    here before that, runs since the kick after the step,
     tests/test_torch_zghost_forced.py; η₃ since the H3 instances,
     tests/test_torch_zghost_hyper3.py), raise on the card, each for its
     module set: the set is tested before Entropy's layer profiles."""
     base = conv_slab(8, magnetic=True)
     shocked = base.replace(modules=base.modules + (pt.Shock(),))
-    iso = base.replace(modules=tuple(
-        m for m in base.modules if m.name != "entropy"), bcz=tuple(
-        bc for bc in base.bcz if bc.comp != "ss"))
+    walled = strat_box(8, magnetic=False, shear=False)
+    iso = walled.replace(grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=())
     for cfg in (shocked, iso):
         reason = gate_reason(cfg)
         assert reason is not None and reason.startswith("modules "), reason

@@ -25,7 +25,9 @@ K4e/K5e and K4ne/K5ne on the same inputs of their layouts, with ss and
 A), ``fused_rhs_zg`` (K6 and K7 on its
 stratified conv-slab input, the interior and its z-halo slabs) or
 ``fused_rhs_zg_mag`` (K6m and K7m on the same with a noisy vector
-potential).
+potential) or ``fused_rhs_zg_iso`` (K6i and K7i on the isothermal
+stratified layer's hydro input, ``strat_box(n, magnetic=False,
+shear=False)``: e.g. ``"" :PC_MINB2=1``, two blocks a SM).
 ``--parent-tree DIR`` (with a shock or a z-ghosted build) adds
 another checkout's package as one more column, ``parent``, on the same
 configuration (one it has no kernels for raises there): DIR holds an
@@ -69,7 +71,8 @@ from pathlib import Path
 LIBS = ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
         "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear",
         "fused_rhs_shock_ent", "fused_rhs_shear_ent",
-        "fused_rhs_shear_ent_ns", "fused_rhs_zg", "fused_rhs_zg_mag")
+        "fused_rhs_shear_ent_ns", "fused_rhs_zg", "fused_rhs_zg_mag",
+        "fused_rhs_zg_iso")
 PARENT = "parent"    # the column of --parent-tree
 # the name its package is imported under
 PARENT_PKG = "parent_pencil_tpu_torch"
@@ -82,14 +85,17 @@ PATH_CONFIG = {"fused_rhs_shock": ("shock_box", {}),
                "fused_rhs_shear_ent_ns": ("shear_box", {"entropy": True,
                                                         "shock": False}),
                "fused_rhs_zg": ("conv_slab", {}),
-               "fused_rhs_zg_mag": ("conv_slab", {"magnetic": True})}
+               "fused_rhs_zg_mag": ("conv_slab", {"magnetic": True}),
+               "fused_rhs_zg_iso": ("strat_box", {"magnetic": False,
+                                                  "shear": False})}
 _SHOCK_W, _SHEAR_W = ("rhs_wrap_shock", "rhs_wrap_shock_upd"), (
     "rhs_zroll", "rhs_zroll_upd")
 WRAPPERS = {"fused_rhs_shock": _SHOCK_W, "fused_rhs_shear": _SHEAR_W,
             "fused_rhs_shock_ent": _SHOCK_W, "fused_rhs_shear_ent": _SHEAR_W,
             "fused_rhs_shear_ent_ns": _SHEAR_W,
             "fused_rhs_zg": ("rhs_zg", "rhs_zg_upd"),
-            "fused_rhs_zg_mag": ("rhs_zg", "rhs_zg_upd")}
+            "fused_rhs_zg_mag": ("rhs_zg", "rhs_zg_upd"),
+            "fused_rhs_zg_iso": ("rhs_zg", "rhs_zg_upd")}
 
 
 def build(specs, base="fused_rhs"):
@@ -220,7 +226,7 @@ def main():
         cfg, kw = PATH_CONFIG[args.lib]
         model = pt.Model(getattr(pt.configs, cfg)(shape, **kw),
                          device="cuda")
-        if cfg == "conv_slab":
+        if cfg in ("conv_slab", "strat_box"):
             fa = cs.stratified_fa(torch, model, 1)
             inp = model.z_slabs(fa)      # pins fa's walls in place
         else:
