@@ -18,7 +18,12 @@ convection (``forcing=0.05``: K6, K7 and the kick after the step), the
 isothermal stratified layer (``strat_box``: the stratified MRI box and
 its hydro flow, and forced stratified MHD and hydro under constant
 gravity: K6msi/K7msi, K6si/K7si, K6mi/K7mi, K6i/K7i, on the z-ghosted
-builds without ss), the sheared, rotating
+builds without ss), the stratified shearing box with an energy equation
+(``strat_box(n, entropy=True)``, MHD and hydro: K6ms/K7ms and K6s/K7s,
+their CHI instances, under g_z = −Ω²z) and forced stratified turbulence
+in a periodic box (``strat_box(n, periodic=True, shear=False,
+forcing=...)``, MHD and hydro: K1-K3 and K1h-K3h under g_z = −sin(πz/2);
+every kernel but K8's reads g_z(z) as a vector), the sheared, rotating
 MHD box with shock viscosity and hyper-diffusion (kernels K4, K5) and
 the shocked periodic box (kernels K1s, K5w), these four on the same
 template's two shock builds, and the other isothermal layouts of those
@@ -55,7 +60,12 @@ Phases, each printing its own lines:
      the input at t = 0.37) with and without chi-const and del6 at 64³
      and 24×20×42, the z-ghosted builds without ss (K6i/K7i … K6msi/K7msi)
      with and without Ω and del6 at 64³, 32³, 16×24×40 and 24×20×42 (the
-     sheared ones at Ω = 1 from t = 0.37), the four periodic builds'
+     sheared ones at Ω = 1 from t = 0.37), every build under gravity at
+     64³ and 24×20×42 ('const', 'linear-z' and 'sin-z' in turn across the
+     chains: the periodic builds and the MHD one's H3 instances, the
+     twelve shock and shear builds, the four z-ghosted builds with ss
+     under 'linear-z' and 'sin-z', with Ω, chi-const or del6 in turn, the
+     four without ss under 'sin-z'), the four periodic builds'
      H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
@@ -74,8 +84,10 @@ Phases, each printing its own lines:
      Magnetic and chi-const, and with all three, both with del6 and
      magnetoconvection with del6, chi-const and Ω, the sheared conv-slab
      and magnetoconvection from t = 0.37, forced convection, the four
-     isothermal stratified sets and forced stratified MHD, the hydro
-     shock box,
+     isothermal stratified sets and forced stratified MHD, the stratified
+     shearing box with an energy equation (MHD and hydro, from t = 0.37)
+     and forced stratified turbulence in a periodic box (MHD and hydro),
+     the hydro shock box,
      the three other shear-box layouts, the three hydro layouts with ss
      and the three MHD layouts with ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
@@ -104,7 +116,12 @@ Phases, each printing its own lines:
      with the card's busy time, the isothermal stratified layer
      (strat_box(256) with and without hyper3=True, strat_box(256,
      magnetic=False), both with shear=False and forcing=0.05: one K6x
-     and two K7x a step of their builds), in 3 windows likewise,
+     and two K7x a step of their builds; strat_box(256, entropy=True)
+     with and without Magnetic: one K6ms or K6s and two K7ms or K7s, CHI
+     instances, a step), in 3 windows likewise, forced stratified
+     turbulence in a periodic box (strat_box(256, periodic=True,
+     shear=False, forcing=0.05) with and without Magnetic: one K1, K2, K3
+     or K1h, K2h, K3h a step),
      and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
@@ -126,7 +143,11 @@ Phases, each printing its own lines:
      shifted faces and the kick among the parts); the isothermal
      stratified paths' kernels and splits, K6i/K7i, K6mi/K7mi, K6si/K7si
      and K6msi/K7msi in turns with K6/K7, K6m/K7m, K6s/K7s and
-     K6ms/K7ms;
+     K6ms/K7ms; the paths under gravity: the sheared ones' kernels and
+     splits, K6ms/K7ms and K6s/K7s with chi-const in turns with the
+     sheared magnetoconvection's and conv-slab's, and the periodic ones'
+     K1, K2, K3 (K1h, K2h, K3h) in turns with the flagship's (forced
+     hydro's) same instances without gravity;
      K1sh/K5wh in turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5,
      K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
      K4h/K5h, K4hne/K5hne with K4hn/K5hn, K1se/K5wse with K1s/K5w,
@@ -249,12 +270,15 @@ ZG_H3_KERNELS = tuple(k + "_h3" for k in ZGHOST_KERNELS + ZGHOST_MAG_KERNELS)
 ISO_SFX = ("_iso", "_iso_mag", "_iso_shear", "_iso_mag_shear")
 ZG_ISO_KERNELS = tuple(k + sfx for sfx in ISO_SFX for k in ZGHOST_KERNELS)
 ZG_ISO_H3_KERNELS = tuple(k + "_iso_mag_shear_h3" for k in ZGHOST_KERNELS)
+# the CHI instances of the z-ghosted shear builds, which the stratified
+# shearing box with an energy equation runs (chi-const, g_z = −Ω²z)
+ZG_SHEAR_CHI_KERNELS = tuple(k + "_chi" for k in ZG_SHEAR_KERNELS)
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
                 + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
                 + NEW_AUX_KERNELS + ZG_H3_KERNELS + ZG_SHEAR_KERNELS
-                + ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS)
+                + ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS + ZG_SHEAR_CHI_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -286,7 +310,26 @@ STRAT_PATHS = {
     "forced stratified MHD": dict(shear=False, forcing=FORCE),
     "forced stratified hydro": dict(magnetic=False, shear=False,
                                     forcing=FORCE),
-    "stratified shear hydro": dict(magnetic=False)}
+    "stratified shear hydro": dict(magnetic=False),
+    # the stratified shearing box with an energy equation, MHD and hydro:
+    # K6ms/K7ms and K6s/K7s (their CHI instances) under g_z = −Ω²z
+    "stratified MRI box ent": dict(entropy=True),
+    "stratified shear hydro ent": dict(entropy=True, magnetic=False)}
+# forced stratified turbulence in a periodic box under g_z = −sin(πz/2),
+# MHD and hydro: the flagship's and forced hydro's kernels with gravity
+GRAV_WRAP_PATHS = {
+    "stratified periodic MHD": dict(periodic=True, shear=False,
+                                    forcing=FORCE),
+    "stratified periodic hydro": dict(periodic=True, shear=False,
+                                      magnetic=False, forcing=FORCE)}
+# each one's counterpart without gravity, timed in turns with it in
+# phase 4
+GRAV_COUNTERPART = {"stratified periodic MHD": "flagship",
+                    "stratified periodic hydro": "forced hydro"}
+# gravity on every build in phase 2: each profile's Gravity keyword
+# arguments ('sin-z': one period over the box's z)
+GRAVITY = {"const": dict(gravz=-1.0), "linear-z": dict(gravz=-1.0),
+           "sin-z": dict(gravz=-1.0)}
 # the four sets of the builds without ss in phase 2: label -> strat_box
 # keyword arguments
 ISO_SETS = {"hydro": dict(magnetic=False, shear=False),
@@ -296,7 +339,9 @@ ISO_SETS = {"hydro": dict(magnetic=False, shear=False),
 STRAT_COUNTERPART = {"stratified MRI box": "sheared magnetoconvection",
                      "forced stratified MHD": "magnetoconvection",
                      "forced stratified hydro": "conv-slab",
-                     "stratified shear hydro": "sheared conv-slab"}
+                     "stratified shear hydro": "sheared conv-slab",
+                     "stratified MRI box ent": "sheared magnetoconvection",
+                     "stratified shear hydro ent": "sheared conv-slab"}
 # launches of each kernel in one step of each phase-3 path
 PER_STEP = {
     "flagship": dict.fromkeys(FLAGSHIP_KERNELS, 1),
@@ -322,6 +367,12 @@ PER_STEP = {
     "forced stratified hydro": {"rhs_zg_iso": 1, "rhs_zg_upd_iso": 2},
     "stratified shear hydro": {"rhs_zg_iso_shear": 1,
                                "rhs_zg_upd_iso_shear": 2},
+    "stratified MRI box ent": {"rhs_zg_mag_shear_chi": 1,
+                               "rhs_zg_upd_mag_shear_chi": 2},
+    "stratified shear hydro ent": {"rhs_zg_shear_chi": 1,
+                                   "rhs_zg_upd_shear_chi": 2},
+    "stratified periodic MHD": dict.fromkeys(FLAGSHIP_KERNELS, 1),
+    "stratified periodic hydro": {k + "_hydro": 1 for k in FLAGSHIP_KERNELS},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -358,7 +409,8 @@ REPLACES.update({k + "_h3": REPLACES[k] for k in KERNEL_NAMES
                  if k + "_h3" in H3_KERNELS})
 REPLACES.update({k + sfx: REPLACES[k] for k in KERNEL_NAMES
                  for sfx in ("_chi", "_h3")
-                 if k + sfx in CHI_KERNELS + ZG_H3_KERNELS})
+                 if k + sfx in CHI_KERNELS + ZG_H3_KERNELS
+                 + ZG_SHEAR_CHI_KERNELS})
 # the aux builds' other layouts replace the same calls, traced for theirs
 REPLACES.update({k: REPLACES[base] for label in NEW_AUX_PATHS
                  for k, base in zip(AUX_NAMES[label], AUX_NAMES[
@@ -532,6 +584,7 @@ OPS.update({k + "_shear": OPS[k] + zg_shear_ops(n, n == 8, first)
             for k, n, first in (("rhs_zg", 5, True), ("rhs_zg_upd", 5, False),
                                 ("rhs_zg_mag", 8, True),
                                 ("rhs_zg_upd_mag", 8, False))})
+OPS.update({k + "_chi": OPS[k] + CHI_OPS for k in ZG_SHEAR_KERNELS})
 # the builds without ss: the periodic isothermal terms (HYDRO_RHS, or
 # FLAGSHIP_RHS with A), g_z(z) on u_z (1), the CFL maximum of the periodic
 # builds (16, with A 26) in the first kernel, the update of n fields in
@@ -612,6 +665,58 @@ def with_omega(pt, cfg, Omega):
     return cfg.replace(modules=tuple(
         pt.Hydro(init=m.init, ampl=m.ampl, Omega=Omega) if m.name == "hydro"
         else m for m in cfg.modules))
+
+
+def with_gravity(pt, cfg, profile):
+    """``cfg`` with Gravity of ``profile`` (GRAVITY) in place of its own,
+    or added: g_z = −1, −z, or −sin(2πz/Lz)."""
+    kw = dict(GRAVITY[profile])
+    if profile == "sin-z":
+        kw["kappa_z"] = 2.0 * math.pi / cfg.grid.Lz
+    return cfg.replace(modules=tuple(
+        m for m in cfg.modules if m.name != "gravity") + (
+        pt.Gravity(gravz_profile=profile, **kw),))
+
+
+def compare_gravity(torch, pt, fr, shape, errs):
+    """Phase 2: every library of the template under gravity against its
+    plain version, the profiles taken in turn across the chains: the four
+    periodic builds (and the MHD one's H3 instances), the twelve shock and
+    shear builds, the four z-ghosted builds with ss (with Ω, chi-const or
+    del6 in turn, the sheared ones at Ω = 1 from t = T_SHEAR) and the four
+    without ss."""
+    profiles = tuple(GRAVITY)
+    for i, (name, cfg) in enumerate((
+            ("flagship", flagship(pt, shape)),
+            ("forced hydro", forced_hydro(pt, shape)),
+            ("entropy MHD", forced_entropy(pt, shape, True)),
+            ("entropy hydro", forced_entropy(pt, shape, False)),
+            ("flagship h3", template_cfg(pt, "flagship h3", shape)))):
+        prof = profiles[i % 3]
+        compare_template(torch, pt, fr, f"{name} under gravity {prof}",
+                         with_gravity(pt, cfg, prof), errs, RTOL_FIELD)
+    for i, label in enumerate(AUX_PATHS):
+        prof = profiles[(i + 1) % 3]
+        compare_aux_kernels(torch, pt, fr, f"{label} under gravity {prof}",
+                            with_gravity(pt, aux_cfg(pt, label, shape),
+                                         prof), errs, AUX_RTOL[label])
+    extras = (dict(Omega=1.0), dict(chi=CHI), dict(hyper3=True), {})
+    for i, (magnetic, shear) in enumerate(((False, False), (True, False),
+                                           (False, True), (True, True))):
+        for prof in ("linear-z", "sin-z"):
+            kw = dict(extras[i], magnetic=magnetic)
+            if shear:
+                kw.update(Omega=1.0, shear=True)
+            cfg = with_gravity(pt, pt.configs.conv_slab(shape, **kw), prof)
+            if shear:
+                cfg = cfg.replace(time=pt.TimeSpec(itorder=3,
+                                                   tstart=T_SHEAR))
+            compare_zg_cfg(torch, pt, fr, cfg, f"conv-slab {kw} under "
+                           f"gravity {prof}", errs)
+    for iso, kw in ISO_SETS.items():
+        compare_zg_cfg(torch, pt, fr, with_gravity(pt, strat_cfg(
+            pt, shape, **kw), "sin-z"), f"isothermal stratified {iso} "
+            "under gravity sin-z", errs)
 
 
 def random_fa(torch, shape, seed, device, nvar=7):
@@ -1119,6 +1224,9 @@ def main():
                         f"isothermal stratified {iso}, Omega = {Omega:g}"
                         + (", del6" if hyper3 else ""), errs)
     mark("phase 2, the z-ghosted builds")
+    for shape in ((64, 64, 64), EDGE_SHAPE):
+        compare_gravity(torch, pt, fr, shape, errs)
+    mark("phase 2, every build under gravity")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
                          forced_hydro(pt, shape), errs)
@@ -1205,6 +1313,16 @@ def main():
             "forced MHD": dict(shear=False, forcing=FORCE)}).items():
         compare_steps(torch, pt, f"isothermal stratified {iso}",
                       strat_cfg(pt, n32, **kw), uu_noise=1e-2)
+    # the paths under gravity: the stratified shearing box with an energy
+    # equation, MHD and hydro, and forced stratified turbulence in a
+    # periodic box, MHD and hydro
+    for label in ("stratified MRI box ent", "stratified shear hydro ent"):
+        compare_steps(torch, pt, label, strat_cfg(pt, n32,
+                                                  **STRAT_PATHS[label]),
+                      uu_noise=1e-2)
+    for label, kw in GRAV_WRAP_PATHS.items():
+        compare_steps(torch, pt, label, pt.configs.strat_box(n32, **kw),
+                      uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
                   t0=T_SHEAR)
     sb = pt.configs.shear_box(n32)
@@ -1230,6 +1348,10 @@ def main():
                       name="entropy hydro")
     h3 = [run_flagship(torch, pt, fr, smi, shape, launches, name=name)
           for name in TEMPLATE_PATHS if name.endswith(" h3")]
+    grav = {label: run_flagship(torch, pt, fr, smi, shape, launches,
+                                name=label, cfg=pt.configs.strat_box(
+                                    shape, **kw))
+            for label, kw in GRAV_WRAP_PATHS.items()}
     mark("phase 3, the periodic builds at order 3")
     zg, zm = (run_conv_slab(torch, pt, fr, smi, shape, launches, label)
               for label in ("conv-slab", "magnetoconvection"))
@@ -1264,6 +1386,11 @@ def main():
         time_tails(torch, fr, path, errs, timings, bounds)
     for path in h3:
         time_h3_instances(torch, pt, fr, smi, path)
+    base = {"flagship": fl, "forced hydro": hy}
+    for label, path in grav.items():
+        time_gravity_turns(torch, fr, smi, label, path,
+                           GRAV_COUNTERPART[label],
+                           base[GRAV_COUNTERPART[label]])
     mark("phase 4, the periodic builds")
     for lib in _build.LIBRARIES:
         for inst, a in fr.flagship_attrs(lib).items():
@@ -1367,12 +1494,14 @@ def check_launches(label, counts, launches):
 
 
 def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
-                 name="flagship"):
+                 name="flagship", cfg=None):
     """Phase 3: one of the flagship template's paths (TEMPLATE_PATHS: the
     forced-MHD flagship, forced hydro on the 4-field build, non-isothermal
-    turbulence on the 8- and 5-field builds) at a 2N-RK order."""
+    turbulence on the 8- and 5-field builds) at a 2N-RK order, or the
+    path ``name`` of ``cfg`` (GRAV_WRAP_PATHS: the same chains under
+    gravity)."""
     label = name if itorder == 3 else f"{name} rk{itorder}"
-    cfg = template_cfg(pt, name, shape, itorder)
+    cfg = cfg or template_cfg(pt, name, shape, itorder)
     base = torch.cuda.memory_allocated()
     model = pt.Model(cfg, device="cuda")
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
@@ -1982,6 +2111,29 @@ def time_zg_instances(torch, fr, smi, model):
         upd: lambda m: fr.rhs_zg_upd(m, *inp, df1, coef)})
     print_turns(f"phase 4 {first}, {upd} and their Coriolis, chi-const "
                 f"and del6 instances at 256^3 on {smi}", times)
+
+
+def time_gravity_turns(torch, fr, smi, label, path, other, base):
+    """K1, K2 and K3 with the kick of a periodic path under gravity timed
+    in turns (A, B, B, A) with the same instances launched by its
+    counterpart without gravity ``base`` (a null g_z), both on the
+    gravity path's final state at 256³; phase 2 and 2b check them against
+    their plain versions."""
+    model, state, _ = path
+    fa = state["_fa"]
+    alpha, beta, _ = model.rk
+    dt_t = state["dt"]
+    c2 = torch.stack((model._alpha[1], beta[1] * dt_t, beta[0] * dt_t))
+    c3 = torch.stack((model._alpha[2], beta[2] * dt_t, model._zero))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt_t,
+                                     model.eos)
+    df1, _ = fr.rhs_first_plain(model, fa)
+    times = in_turns(torch, {label: model, other: base[0]}, {
+        "K1": lambda m: fr.rhs_first(m, fa),
+        "K2": lambda m: fr.rhs_tail_defer(m, fa, df1, c2),
+        "K3 kick": lambda m: fr.rhs_tail_last(m, fa, df1, c3, kick)})
+    print_turns(f"phase 4 {label} (g_z read) against {other} (no gravity) "
+                f"at 256^3 on {smi}", times)
 
 
 def time_h3_instances(torch, pt, fr, smi, path):

@@ -5,6 +5,7 @@ configuration in both.
 """
 from __future__ import annotations
 
+import math
 import sys
 
 
@@ -85,7 +86,8 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
 
 
 def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
-              Omega=1.0, forcing=0.0, hyper3=False):
+              Omega=1.0, forcing=0.0, hyper3=False, entropy=False,
+              periodic=False):
     """The isothermal stratified layer: a box x, y, z ∈ [−2, 2] (Lx = Ly
     = Lz = 4), x and y periodic, z walls, isothermal gas (γ = 1, cs0 = 1)
     in hydrostatic balance (``Density(init='isothermal')``), so the scale
@@ -107,36 +109,67 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
     magnetic pressure runs (Brandenburg, Kemel, Kleeorin, Mitra &
     Rogachevskii 2011, ApJ 740, L50) without their imposed field.
     ``hyper3`` adds del6 hyper-diffusion of u, lnρ and (with Magnetic) A
-    with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as ``conv_slab`` does.  The values are
-    this configuration's own, not a reference sample's."""
+    with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as ``conv_slab`` does.
+
+    ``entropy`` gives the gas an energy equation: an ideal gas with γ =
+    5/3 (cs0 = 1, cp = 1) and an entropy field with 'chi-const'
+    conduction, χ = ν = 5e-3, viscous (and with Magnetic Ohmic) heating,
+    as ``forced_entropy`` has; 5 fields (uu, lnrho, ss) or 8 with aa.  It
+    starts in the isothermal hydrostatic state with the matching ss =
+    −(cp − cv)(lnρ − lnρ0) (the additive '+ss' of Density 'isothermal'),
+    where T = T0; ss has the wall BC 'a2', as lnρ.  With the shear the
+    vertically stratified shearing box with an energy equation.
+
+    ``periodic`` makes z periodic (no z walls, no bcz) under the periodic
+    gravity g_z = −sin(κz) with κ = π/2, one period over Lz = 4
+    (``Gravity('sin-z')``), whose hydrostatic state Φ = −cos(κz)/κ holds
+    a stratified layer in a triply periodic box: forced stratified
+    turbulence with ``shear=False`` and ``forcing`` > 0 (``shear=True``
+    raises: the shear box's x faces and a z wall-less layer are not this
+    configuration).
+
+    The values are this configuration's own, not a reference sample's."""
+    if periodic and shear:
+        raise ValueError("strat_box: periodic=True takes shear=False "
+                         "(the sheared box has z walls)")
     if shear and not Omega > 0.0:
         raise ValueError("strat_box: shear=True needs Omega > 0 "
                          "(S = -q Omega, g_z = -Omega^2 z)")
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-2.0, y0=-2.0, z0=-2.0,
-                        Lx=4.0, Ly=4.0, Lz=4.0, periodic=(True, True, False))
+                        Lx=4.0, Ly=4.0, Lz=4.0,
+                        periodic=(True, True, periodic))
     den, visc, eta3 = _hyper3(pkg, grid, hyper3)
     bcz = (pkg.BC.parse("ux", "s"), pkg.BC.parse("uy", "s"),
            pkg.BC.parse("uz", "a"), pkg.BC.parse("lnrho", "a2"))
+    if entropy:
+        bcz += (pkg.BC.parse("ss", "a2"),)
     mag = ()
     if magnetic:
         bcz += (pkg.BC.parse("ax", "a"), pkg.BC.parse("ay", "a"),
                 pkg.BC.parse("az", "s"))
         mag = (pkg.Magnetic(eta=5e-3, init="gaussian-noise", ampl=1e-3,
                             **eta3),)
-    rot = ((pkg.Gravity(gravz_profile="linear-z", gravz=-Omega ** 2),
-            pkg.Shear(Omega=Omega, qshear=1.5)) if shear
-           else (pkg.Gravity(gravz_profile="const", gravz=-1.0),))
+    if periodic:
+        rot = (pkg.Gravity(gravz_profile="sin-z", gravz=-1.0,
+                           kappa_z=math.pi / 2.0),)
+    elif shear:
+        rot = (pkg.Gravity(gravz_profile="linear-z", gravz=-Omega ** 2),
+               pkg.Shear(Omega=Omega, qshear=1.5))
+    else:
+        rot = (pkg.Gravity(gravz_profile="const", gravz=-1.0),)
+    eos, ent = _energy(pkg, entropy, 5e-3)
     return pkg.Config(
-        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
-        modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
+        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused,
+        bcz=() if periodic else bcz,
+        modules=(eos,
                  pkg.Density(init="isothermal", **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3,
                            Omega=Omega if shear else 0.0),
                  *rot,
                  pkg.Viscosity(nu=5e-3, **visc),
-                 *mag,
+                 *mag, *ent,
                  *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
 
 

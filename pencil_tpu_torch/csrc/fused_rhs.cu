@@ -46,8 +46,8 @@
 // (with -DPC_MAG=0 -DPC_ENT=1) it gives stratified convection's K6
 // (pc_rhs_first) and K7 (pc_rhs_tail_mid) on the 5 fields uu, lnrho, ss:
 // the entropy-hydro terms with K-const conduction and viscous heating
-// compiled in, constant gravity on uz, and the cooling and heating layers,
-// whose profiles depend on z alone; z has physical boundaries.  Its march
+// compiled in and the cooling and heating layers, whose profiles depend on
+// z alone; z has physical boundaries.  Its march
 // reads the body rows from the interior stack, x and y wrapped as in the
 // periodic builds, and the three z-ghost cells below z = 0 and above z =
 // nz - 1 from two slabs (5, nx, ny, NG), zlo and zhi, that a z-only ghost
@@ -79,10 +79,17 @@
 // lnrho), K6mi/K7mi (uu, lnrho, aa), K6si/K7si and K6msi/K7msi (the same
 // with Shear, the stratified isothermal shearing box): the z-ghosted
 // march and Shear terms on the periodic builds' isothermal terms, no
-// conduction, heating or layers, and gravity g_z(z) read per z from a
-// vector (the cooling profile's slot, prof_c): gravz ('const') or
-// gravz z ('linear-z').  Their CFL rate is the periodic builds' constant
-// one; they have ROT and H3 instances, no CHI.
+// conduction, heating or layers.  Their CFL rate is the periodic builds'
+// constant one; they have ROT and H3 instances, no CHI.
+//
+// Every build but K8 adds gravity on uz: g_z(z), any z profile of the
+// Gravity module, read from a vector of nz floats (ZgIn.grav).  A
+// thread's z is fixed along its x-march, so the vector costs one load a
+// thread before the march and one add a point; without gravity the
+// pointer is null and the add is of -0, which leaves every sum bit for
+// bit as it is without the term (one add in every instance, no
+// compile-time flag: PERF.md §6 has the registers and times beside the
+// builds without the term).
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -307,23 +314,23 @@ struct PcParams {
   float w6[3];     // 6th difference, paired weights o = 1..3
   float inv6[3];   // 1/dx^6, 1/dy^6, 1/dz^6 as x^2*x^4 in f32
   float S;
-  // the z-ghosted builds with ss (PC_ZG, PC_ENT): gravity on uz, the
-  // cooling layer cool*prof_c*(cs2 - cs2c)/(cs2c rho T) and the heating
-  // layer heat_norm*prof_h/(rho T); the isothermal ones read g_z(z) from
-  // prof_c and none of these
-  float gravz, cool, cs2c, heat_norm;
+  // the z-ghosted builds with ss (PC_ZG, PC_ENT): the cooling layer
+  // cool*prof_c*(cs2 - cs2c)/(cs2c rho T) and the heating layer
+  // heat_norm*prof_h/(rho T)
+  float cool, cs2c, heat_norm;
 };
 
-// The z-ghosted build's inputs beside the interior stack: the z-halo slabs
-// (NV, nx, ny, NG) below z = 0 and above z = nz - 1, and the cooling and
-// heating profiles (nz; zeros where a layer is off); without PC_ENT the
-// gravity g_z(z) (nz) in prof_c, and prof_h unread.  The other builds
-// pass none.
+// The z inputs beside the stack: of the z-ghosted builds the z-halo slabs
+// (NV, nx, ny, NG) below z = 0 and above z = nz - 1 and, with PC_ENT, the
+// cooling and heating profiles (nz; zeros where a layer is off), which the
+// other builds pass as null; of every build gravity g_z(z) (nz), null
+// without gravity.
 struct ZgIn {
   const float* zlo;
   const float* zhi;
   const float* prof_c;
   const float* prof_h;
+  const float* grav;
 };
 
 // ---- the template's own stencil sums --------------------------------------
@@ -444,11 +451,12 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // their CFL takes chi gamma and K-const's rate among the diffusivities;
 // with aa they join the Ohmic heat after the viscous one, as Entropy adds
 // what Viscosity and Magnetic publish.
-// The z-ghosted build adds gravity after
-// the pressure force and the layer terms after the heating, in the order
-// of the JAX modules (hydro, gravity, viscosity, entropy); lay_c is this
-// point's cooling profile (without PC_ENT its g_z), lay_h heat_norm times
-// its heating profile, and
+// Every build adds gravity, grav (g_z at this point's z, -0 without
+// gravity), after the pressure force and the Coriolis force, as the JAX
+// modules run (hydro, gravity, shear, viscosity).  The z-ghosted build
+// with ss adds the layer terms after the heating, in the order of the JAX
+// modules (entropy last); lay_c is this point's cooling profile, lay_h
+// heat_norm times its heating profile, and
 // its conduction and heating terms, and with aa eta del2 A and the Ohmic
 // heat, are compiled in (no test of a coefficient: a layer that is off
 // has a profile of zeros, a coefficient that is off adds 0); CHI adds
@@ -459,7 +467,8 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
                                              const PcParams& P, float xn,
                                              float lay_c, float lay_h,
-                                             float* r, float& dt1) {
+                                             float grav, float* r,
+                                             float& dt1) {
   const float u[3] = {xt[0][NG], xt[1][NG], xt[2][NG]};
   const float lnrho = xt[LNRHO][NG];
 
@@ -535,11 +544,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     for (int a = 0; a < 3; ++a)
       duu[a] = __fadd_rn(duu[a], __fmul_rn(-2.0f, c[a]));
   }
-#if PC_ZG && PC_ENT
-  duu[2] = duu[2] + P.gravz;   // constant gravity
-#elif PC_ZG
-  duu[2] = duu[2] + lay_c;     // g_z at this point's z
-#endif
+  duu[2] = duu[2] + grav;      // gravity: g_z at this point's z
 #if PC_SHEAR
   // shear: -S x d/dy of every evolved field, duy -= S ux (dAx -= S Ay
   // joins where grad A is formed)
@@ -1093,15 +1098,14 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // each copy's source: fa, or a z-halo slab at the two ends of z
   const ZgSrc src0 = zg_source(rc.d0, bz, P, fa, zg);
   const ZgSrc src1 = zg_source(rc.d1, bz, P, fa, zg);
-  // the layer profiles (without PC_ENT g_z) at this thread's z, fixed
-  // along the march
-  const int izl = min(gz, P.nz - 1);
-  const float lay_c = zg.prof_c[izl];
-#if PC_ENT
-  const float lay_h = P.heat_norm * zg.prof_h[izl];
-#else
-  const float lay_h = 0.0f;
 #endif
+  // g_z and (PC_ZG with PC_ENT) the layer profiles at this thread's z,
+  // fixed along the march; without gravity -0, which adds nothing
+  const int izl = min(gz, P.nz - 1);
+  const float grav = zg.grav ? zg.grav[izl] : -0.0f;
+#if PC_ZG && PC_ENT
+  const float lay_c = zg.prof_c[izl];
+  const float lay_h = P.heat_norm * zg.prof_h[izl];
 #else
   const float lay_c = 0.0f, lay_h = 0.0f;
 #endif
@@ -1288,8 +1292,8 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       // PC_SHEAR: the node x of this plane, the JAX tile rule in f32
       const float xn = PC_SHEAR
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
-      flagship_rhs<FIRST, ROT, H3, CHI>(s, xt, xo, P, xn, lay_c, lay_h, r,
-                                        dt1);
+      flagship_rhs<FIRST, ROT, H3, CHI>(s, xt, xo, P, xn, lay_c, lay_h,
+                                        grav, r, dt1);
     }
 
     if (FIRST) {
@@ -1433,10 +1437,10 @@ static int first(const PcParams* p, const float* fa, float* df,
 #if PC_TAILS
 template <bool FAKE>
 static int tail_defer(const PcParams* p, const float* fa, const float* df1,
-                      const float* coef, float* df2, float* f2,
-                      void* stream) {
+                      const float* coef, float* df2, float* f2, void* stream,
+                      const ZgIn& zg = ZgIn{}) {
   return launch<false, true, false, false, FAKE>(
-      p, fa, df1, coef, nullptr, nullptr, df2, f2, nullptr, stream);
+      p, fa, df1, coef, nullptr, nullptr, df2, f2, nullptr, stream, zg);
 }
 
 // The sines, then the cosines, of the kick's partial phases A = kx*x +
@@ -1468,7 +1472,8 @@ __global__ void pc_kick_phases(const PcParams P,
 template <bool DEFER, bool FAKE>
 static int tail_last(const PcParams* p, const float* fa, const float* dfin,
                      const float* coef, const float* kick, const float* zc,
-                     float* tab, float* f, void* stream) {
+                     float* tab, float* f, void* stream,
+                     const ZgIn& zg = ZgIn{}) {
   if (kick) {
     const int nt = p->nx + p->ny + p->nz;
     pc_kick_phases<<<(nt + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
@@ -1476,10 +1481,10 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return launch<false, DEFER, true, true, FAKE>(
-        p, fa, dfin, coef, kick, tab, nullptr, f, nullptr, stream);
+        p, fa, dfin, coef, kick, tab, nullptr, f, nullptr, stream, zg);
   }
   return launch<false, DEFER, true, false, FAKE>(
-      p, fa, dfin, coef, nullptr, nullptr, nullptr, f, nullptr, stream);
+      p, fa, dfin, coef, nullptr, nullptr, nullptr, f, nullptr, stream, zg);
 }
 #endif  // PC_TAILS
 
@@ -1572,14 +1577,15 @@ int pc_flagship_attrs(int which, int* out) {
   }
 }
 
+// the inputs after the stream (and K3's and K2L's scratch): of the
+// z-ghosted build the slabs and profiles, then of every build g_z(z)
 #if PC_ZG
-// the z-ghosted build's inputs after the stream: the slabs and profiles
 #define ZG_INPUTS , const float *zlo, const float *zhi, const float *prof_c, \
                   const float *prof_h
-#define ZG_IN , ZgIn{zlo, zhi, prof_c, prof_h}
+#define ZG_IN(grav) ZgIn{zlo, zhi, prof_c, prof_h, grav}
 #else
 #define ZG_INPUTS
-#define ZG_IN
+#define ZG_IN(grav) ZgIn{nullptr, nullptr, nullptr, nullptr, grav}
 #endif
 
 // K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py);
@@ -1587,28 +1593,29 @@ int pc_flagship_attrs(int which, int* out) {
 // + `_dma_tile`, zroll), fa then the 8-slot state, ghosted in x and y for
 // K4; in the z-ghosted builds K6 and K6m (`kernel_zg` + `_fetch_zg`), fa
 // the interior (5 or 8, nx, ny, nz) with its z-halo slabs after the
-// stream.
+// stream; grav, g_z(z) or null, follows those.
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
-                 float* dt1blk, void* stream ZG_INPUTS) {
-  return first<false>(p, fa, df, dt1blk, stream ZG_IN);
+                 float* dt1blk, void* stream ZG_INPUTS, const float* grav) {
+  return first<false>(p, fa, df, dt1blk, stream, ZG_IN(grav));
 }
 
 #if PC_TAILS
 // K2: replaces `kernel_tail(defer_prev=True)` (pencil_tpu/ops/fused_rhs.py).
 int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
-                      const float* coef, float* df2, float* f2,
-                      void* stream) {
-  return tail_defer<false>(p, fa, df1, coef, df2, f2, stream);
+                      const float* coef, float* df2, float* f2, void* stream,
+                      const float* grav) {
+  return tail_defer<false>(p, fa, df1, coef, df2, f2, stream, ZG_IN(grav));
 }
 
 // K3: replaces `kernel_tail(last=True, with_kick)` (pencil_tpu/ops/
 // fused_rhs.py); kick may be null (unforced runs), else tab is scratch of
 // 2 (nx + ny + nz) floats (it follows the stream, so that a caller of the
-// older interface, without it, still runs an unforced tail).
+// older interface, without it, still runs an unforced tail); grav follows.
 int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
                      const float* coef, const float* kick, const float* zc,
-                     float* f3, void* stream, float* tab) {
-  return tail_last<false, false>(p, fa, df2, coef, kick, zc, tab, f3, stream);
+                     float* f3, void* stream, float* tab, const float* grav) {
+  return tail_last<false, false>(p, fa, df2, coef, kick, zc, tab, f3, stream,
+                                 ZG_IN(grav));
 }
 #endif  // PC_TAILS
 
@@ -1619,9 +1626,10 @@ int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
 // df_prev's own buffer.
 int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
                     const float* coef, float* df, float* f,
-                    void* stream ZG_INPUTS) {
+                    void* stream ZG_INPUTS, const float* grav) {
   return launch<false, false, false, false, false>(
-      p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream ZG_IN);
+      p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream,
+      ZG_IN(grav));
 }
 
 #if PC_TAILS
@@ -1630,8 +1638,9 @@ int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
 int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
                            const float* df1, const float* coef,
                            const float* kick, const float* zc, float* f,
-                           void* stream, float* tab) {
-  return tail_last<true, false>(p, fa, df1, coef, kick, zc, tab, f, stream);
+                           void* stream, float* tab, const float* grav) {
+  return tail_last<true, false>(p, fa, df1, coef, kick, zc, tab, f, stream,
+                                ZG_IN(grav));
 }
 #endif
 

@@ -34,10 +34,14 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 
   Each of these four sets may add del6 hyper-diffusion ('hyper3-simplified'
   viscosity, η₃, D₃): the wrappers then launch the H3 instances of the
-  same kernels.
+  same kernels.  Each may add Gravity, any of its z profiles, as may the
+  aux sets below: 'sin-z' has a periodic hydrostatic state, so a triply
+  periodic box holds a stratified layer (``configs.strat_box(n,
+  periodic=True, shear=False)``).  Every kernel but K8's reads g_z(z) as a
+  vector.
 
 * Stratified convection — the EOS with an entropy slot, lnρ density,
-  hydro (with optional Coriolis), constant gravity, 'nu-const' viscosity,
+  hydro (with optional Coriolis), gravity, 'nu-const' viscosity,
   entropy, and magnetoconvection, the same with resistive-gauge magnetic —
   with a non-periodic z axis, as the JAX package's zghost mode
   (model.py:704-775, :891): a z-only ghost fill cuts the z-halo slabs
@@ -54,10 +58,12 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   of that stack.  With forcing (forced convection) the kick follows the
   writeback, as JAX's ``after_timestep`` gives it.  The isothermal
   stratified layer — the flagship's or forced hydro's modules under
-  gravity 'const' or 'linear-z', with or without Shear (the stratified
-  isothermal shearing box, the MRI box with Magnetic) — runs the same
-  chain on the builds without ss: K6i/K7i, K6mi/K7mi, K6si/K7si and
-  K6msi/K7msi, which read g_z(z) as a vector.
+  gravity, with or without Shear (the stratified isothermal shearing
+  box, the MRI box with Magnetic) — runs the same chain on the builds
+  without ss: K6i/K7i, K6mi/K7mi, K6si/K7si and K6msi/K7msi.  Every
+  z-ghosted build reads g_z(z) as a vector, so any z profile of Gravity
+  runs on each (the stratified shearing box with an energy equation,
+  ``configs.strat_box(n, entropy=True)``, g_z = −Ω²z on K6ms/K7ms).
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -132,10 +138,10 @@ REGISTRATION_ORDER = (
 )
 
 # the module sets the fused kernels implement: the flagship and forced hydro
-# (forcing is optional) on a fully periodic grid, stratified convection
-# and magnetoconvection, with or without Shear, with z non-periodic and x,
-# y periodic (forcing is optional), and the
-# shearing box and the shocked box (forcing is optional) on a fully
+# (forcing and gravity are optional) on a fully periodic grid, stratified
+# convection and magnetoconvection, with or without Shear, with z
+# non-periodic and x, y periodic (forcing is optional), and the shearing
+# box and the shocked box (forcing and gravity are optional) on a fully
 # periodic grid
 HYDRO_MODULES = frozenset(("eos", "density", "hydro", "viscosity"))
 FLAGSHIP_MODULES = HYDRO_MODULES | {"magnetic"}
@@ -194,13 +200,15 @@ def fused_mode(cfg: Config):
     hyper-diffusion), 'zghost' (stratified convection and
     magnetoconvection, each with or without Shear, forcing, Ω, chi-const
     and del6 hyper-diffusion, and the isothermal stratified layer, hydro
-    or MHD, with or without Shear, forcing, Ω and del6; gravity
-    'linear-z' on the isothermal sets only), 'zroll' (the shearing box, MHD or hydro,
-    with or without the shock slot, each also with an entropy field) or
-    'wrap_aux' (the shocked periodic box, MHD or hydro, each also with an
-    entropy field), or (None, why ``cfg`` is outside all of these sets).
-    The module set is tested before any option of it, so a set that no
-    chain takes is refused for its modules."""
+    or MHD, with or without Shear, forcing, Ω and del6), 'zroll' (the
+    shearing box, MHD or hydro, with or without the shock slot, each also
+    with an entropy field) or 'wrap_aux' (the shocked periodic box, MHD or
+    hydro, each also with an entropy field), gravity (any z profile of
+    Gravity) optional in every periodic set and part of the z-ghosted
+    ones; or (None, why ``cfg`` is outside all of these sets).  The module
+    set is tested before any option of it, so a set that no chain takes is
+    refused for its modules; Entropy's layer profiles outside the
+    z-ghosted sets are refused for that option."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -216,16 +224,14 @@ def fused_mode(cfg: Config):
         full = periodic == (True, True, True)
         unforced = mods - {"forcing"}
         extra = _shock_options(cfg)
+        # gravity rides on every chain as its g_z(z) vector: optional on
+        # the periodic sets, part of the z-ghosted ones
+        free = unforced - {"gravity"}
         zghost = unforced in ZGHOST_SETS and periodic == (True, True, False)
-        wrap = unforced in WRAP_SETS and full
-        aux = full and (unforced in ZROLL_SETS or unforced in SHOCKBOX_SETS)
+        wrap = free in WRAP_SETS and full
+        aux = full and (free in ZROLL_SETS or free in SHOCKBOX_SETS)
         if not (zghost or wrap or aux):
             return None, _outside(names, periodic)
-        grav = cfg.module("gravity")
-        if zghost and unforced in ENT_ZGHOST_SETS and grav.linear:
-            return None, (f"options ['Gravity {grav.gravz_profile}'] (the "
-                          "z-ghosted builds with ss add a constant g_z; "
-                          "only the isothermal ones read g_z(z))")
         ent = cfg.module("entropy")
         if not zghost and ent is not None and (ent.cool != 0.0
                                                or ent.luminosity != 0.0):
@@ -234,8 +240,8 @@ def fused_mode(cfg: Config):
                           "them)")
         # nu-shock reads the Shock module's slot
         if aux and ("shock" in mods or not extra):
-            return ("zroll" if unforced in ZROLL_SETS else "wrap_aux"), None
-        if extra and "shock" not in mods and unforced in ZROLL_SETS:
+            return ("zroll" if free in ZROLL_SETS else "wrap_aux"), None
+        if extra and "shock" not in mods and free in ZROLL_SETS:
             return None, (f"options {extra} without the Shock module, "
                           "whose slot nu-shock reads")
         if extra:
@@ -257,8 +263,8 @@ def _outside(names, periodic):
             f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
             f"{sorted(HYDRO_MODULES | {'shear'})}, each with or without "
             "'shock' and with or without 'entropy', and these with "
-            "'shock' in place of 'shear' on a periodic grid, all with "
-            "optional forcing)")
+            "'shock' in place of 'shear' on a periodic grid, the periodic "
+            "ones with optional gravity, all with optional forcing)")
 
 
 def gate_reason(cfg: Config):
@@ -347,7 +353,8 @@ class Model:
         self.fake_rhs = bool(fake_rhs)
         if self.fake_rhs and (self.mode != "wrap" or cfg.time.itorder != 3
                               or cfg.module("magnetic") is None
-                              or cfg.module("entropy") is not None):
+                              or cfg.module("entropy") is not None
+                              or cfg.module("gravity") is not None):
             raise NotImplementedError(
                 "pencil_tpu_torch: fake_rhs (K8) runs on the MHD "
                 "flagship's fused 2N-RK3 chain only")
@@ -397,19 +404,30 @@ class Model:
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0, overrides: Dict = None) -> Dict:
         """``overrides``: field name → array replacing the module-generated
-        initial condition (the tests pass the JAX package's fields)."""
+        initial condition (the tests pass the JAX package's fields).  A
+        module's "+name" key is added to field ``name`` after the
+        overrides, as JAX's cross-field contributions are
+        (pencil_tpu/model.py:215-231, :283); a module whose slots are all
+        overridden contributes none."""
         overrides = overrides or {}
         self.generator.manual_seed(seed)
         gs = self.cfg.grid
-        fields = {}
+        fields, additive = {}, []
         for m in self.modules:
             if _slots_of(m) <= set(overrides):
                 continue
-            fields.update(m.init_fields(self.grid, gs, self.generator,
-                                        cfg=self.cfg))
+            for name, arr in m.init_fields(self.grid, gs, self.generator,
+                                           cfg=self.cfg).items():
+                if name.startswith("+"):
+                    additive.append((name[1:], arr))
+                else:
+                    fields[name] = arr
         for name, arr in overrides.items():
             fields[name] = torch.as_tensor(arr, dtype=self.dtype,
                                            device=self.device).clone()
+        for name, arr in additive:
+            if name in self.reg.slots:
+                fields[name] = fields[name] + arr
         for name, slot in self.reg.slots.items():
             if name not in fields:
                 # a slot no module initialises (the shock profile) starts

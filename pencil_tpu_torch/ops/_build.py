@@ -100,21 +100,22 @@ _p = ctypes.c_void_p
 # shear builds have the first and the middle kernel only (K1s and K5w, K4
 # and K5, and those of their other layouts), and
 # so have the z-ghosted builds (K6 and K7, K6m and K7m), whose two take
-# their z-halo slabs and layer profiles after the stream; K8 (the fake RHS)
-# is built for the MHD instances only
+# their z-halo slabs and layer profiles after the stream; every entry point
+# but K8's takes g_z(z) last; K8 (the fake RHS) is built for the MHD
+# instances only
 _SHOCK = {
     "pc_tile_shape": [_p],
     "pc_flagship_attrs": [ctypes.c_int, _p],
-    "pc_rhs_first": [_p] * 5,
-    "pc_rhs_tail_mid": [_p] * 7,
+    "pc_rhs_first": [_p] * 6,
+    "pc_rhs_tail_mid": [_p] * 8,
 }
 _FLAGSHIP = {
     **_SHOCK,
-    "pc_rhs_tail_defer": [_p] * 7,
-    "pc_rhs_tail_last": [_p] * 9,
-    "pc_rhs_tail_defer_last": [_p] * 9,
+    "pc_rhs_tail_defer": [_p] * 8,
+    "pc_rhs_tail_last": [_p] * 10,
+    "pc_rhs_tail_defer_last": [_p] * 10,
 }
-_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 9, "pc_rhs_tail_mid": [_p] * 11}
+_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 10, "pc_rhs_tail_mid": [_p] * 12}
 # each library's entry points: name -> argtypes (all return an int)
 SIGNATURES = {
     "fused_rhs": {

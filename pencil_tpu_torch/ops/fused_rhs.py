@@ -105,6 +105,12 @@ K1se, K5wse, ``*_ent``) and the MHD shear box with ss, with and without
 the shock slot (``fused_rhs_shear_ent``: K4e, K5e, ``*_ent``;
 ``fused_rhs_shear_ent_ns``: K4ne, K5ne, ``*_ent_ns``).
 
+Every kernel but K8 adds gravity g_z(z) on u_z where the model has a
+Gravity module, any of its z profiles, read from a device vector (nz,)
+(``gravity_vector``) that each launch passes last; so each module set of
+the periodic and aux chains may add Gravity (stratified turbulence in a
+periodic box under 'sin-z').
+
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
 block reads halos from; K7's df overwrites df_prev, which each point reads
@@ -366,8 +372,7 @@ class PcParams(ctypes.Structure):
         ("eta3", ctypes.c_float), ("diff3", ctypes.c_float),
         ("dif3", ctypes.c_float),
         ("w6", ctypes.c_float * 3), ("inv6", ctypes.c_float * 3),
-        ("S", ctypes.c_float),
-        ("gravz", ctypes.c_float), ("cool", ctypes.c_float),
+        ("S", ctypes.c_float), ("cool", ctypes.c_float),
         ("cs2c", ctypes.c_float), ("heat_norm", ctypes.c_float),
     ]
 
@@ -385,10 +390,10 @@ _LAYOUTS = {
                             "ss": slice(4, 5)},
 }
 # the modules whose terms the template implements (forcing rides along as
-# the kick); a layout with any other module (gravity, shear, shock) is not
-# the template's
+# the kick, gravity as its g_z(z) vector); a layout with any other module
+# (shear, shock) is not the template's
 _TEMPLATE_MODULES = frozenset(("eos", "density", "hydro", "viscosity",
-                               "magnetic", "entropy", "forcing"))
+                               "magnetic", "entropy", "gravity", "forcing"))
 
 
 def flagship_library(model) -> str:
@@ -416,7 +421,8 @@ def flagship_library(model) -> str:
 
 # The shock and shear builds of the template (the aux chains), each with
 # its field layout (an aux slot last, which the kernels read and never
-# write), its module set (forcing rides along as the kick after the step),
+# write), its module set (forcing rides along as the kick after the step,
+# gravity as its g_z(z) vector: both optional),
 # the base of its launch names (first, update) and their suffix: the
 # shocked periodic box, MHD or hydro (wrap_aux), and the shear box, MHD or
 # hydro, each with or without the shock slot (zroll); each also with an
@@ -521,12 +527,13 @@ def aux_library(model) -> str:
     if lib is not None:
         return lib
     reg = model.reg
-    names = {m.name for m in model.cfg.modules} - {"forcing"}
+    names = {m.name for m in model.cfg.modules} - {"forcing", "gravity"}
     ent = model.cfg.module("entropy")
     if ent is not None and (ent.cool != 0.0 or ent.luminosity != 0.0):
         raise NotImplementedError(
             "shock and shear kernels: no terms for the entropy layer "
-            "profiles (Entropy.cool/luminosity)")
+            "profiles (Entropy.cool/luminosity), which only the z-ghosted "
+            "builds of the conv-slab layout have")
     for lib, (layout, modules, _, _) in _AUX_BUILDS.items():
         n = max(sl.stop for sl in layout.values())
         if names == modules and reg.nf == n and set(reg.slots) == set(
@@ -596,23 +603,38 @@ def zg_kernels(model):
     return names
 
 
+def gravity_vector(model):
+    """g_z(z) of ``model``'s Gravity on the interior z, a device vector
+    (nz,) as the plain version computes it, which every kernel but K8
+    reads; None without Gravity (the kernels then add -0).  Built once per
+    model."""
+    if "_gravity_vector" not in model.__dict__:
+        grav = model.cfg.module("gravity")
+        model.__dict__["_gravity_vector"] = (
+            None if grav is None else grav.gz(model.grid.z).contiguous())
+    return model.__dict__["_gravity_vector"]
+
+
 def zg_profiles(model):
     """The z profiles that ``model``'s z-ghosted build reads, as the plain
-    version computes them, each a device vector (nz,): with ss (cooling
-    profile, heating profile), zeros where a layer is off; without it
-    (g_z(z) of the port's Gravity, None), the gravity in the cooling
-    profile's place.  Built once per model."""
+    version computes them, each a device vector (nz,) or None: (cooling
+    profile, heating profile, g_z(z)), the layers' zeros where a layer is
+    off; without ss (None, None, g_z(z)).  Built once per model."""
     p = model.__dict__.get("_zg_profiles")
     if p is None:
         z = model.grid.z
         ent = model.cfg.module("entropy")
-        if ent is None:
-            p = (model.cfg.module("gravity").gz(z).contiguous(), None)
-        else:
-            p = tuple((torch.zeros_like(z) if v is None else v).contiguous()
-                      for v in ent.heat_cool_profiles(z, model.cfg.grid))
+        layers = (None, None) if ent is None else tuple(
+            (torch.zeros_like(z) if v is None else v).contiguous()
+            for v in ent.heat_cool_profiles(z, model.cfg.grid))
+        p = layers + (gravity_vector(model),)
         model.__dict__["_zg_profiles"] = p
     return p
+
+
+def _ptr(t):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def launch_suffix(model) -> str:
@@ -641,7 +663,7 @@ def kernel_params(model) -> PcParams:
     if p is not None:
         return p
     cfg, gs = model.cfg, model.cfg.grid
-    if cfg.module("gravity") is not None:
+    if not all(gs.periodic):
         zg_library(model)
     elif "shock" in model.reg.slots or cfg.module("shear") is not None:
         aux_library(model)
@@ -672,7 +694,6 @@ def kernel_params(model) -> PcParams:
     dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
     heats = ent is not None
     hyd = cfg.module("hydro")
-    grav = cfg.module("gravity")
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
     fl3 = ctypes.c_float * 3
@@ -697,7 +718,6 @@ def kernel_params(model) -> PcParams:
         nu_shock=nu_shock, nu3=nu3, eta3=eta3, diff3=diff3, dif3=dif3,
         w6=fl3(*paired_weights(6)), inv6=fl3(*inv6),
         S=shear.S if shear is not None else 0.0,
-        gravz=grav.gravz if grav is not None else 0.0,
         cool=ent.cool if heats else 0.0,
         cs2c=ent.cs2c(eos) if heats else 0.0,
         heat_norm=ent.heat_norm(gs) if heats else 0.0)
@@ -827,10 +847,12 @@ def _flagship_check(model, fa, df=None, coef=None, fake=False):
 def _flagship_launch(name, lib, model, fa, *args, fake=False, after=()):
     """Launch the flagship template's entry ``name`` (its K8 variant with
     ``fake``) of library ``lib``, counted under that library's launch
-    name; ``args`` follow the constants and ``fa``, ``after`` the
-    stream."""
+    name; ``args`` follow the constants and ``fa``, ``after`` the stream,
+    and then, but for K8, g_z(z)."""
     name += "_fake" if fake else ""
     sfx = _SUFFIX[lib] + ("" if fake else _h3_suffix(model))
+    if not fake:
+        after = after + (_ptr(gravity_vector(model)),)
     _launch(name + sfx, fa, ctypes.addressof(kernel_params(model)),
             fa.data_ptr(), *args, lib=lib, entry=name, after=after)
 
@@ -913,7 +935,7 @@ def rhs_tail_defer_last(model, fa, df1, coef, kick=None):
 
 def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
     """(library, its launch names (``zg_kernels``), the output shape, the
-    inputs after the stream: the slabs and the z profiles) of
+    inputs after the stream: the slabs and the z profiles with g_z) of
     ``model``'s z-ghosted build, after checking every input: fa and the
     slabs ghosted in x and y for a shear build."""
     p = kernel_params(model)
@@ -929,8 +951,7 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
     if coef is not None:
         _check(coef, (2,), "coef")
     return lib, zg_kernels(model), shape, (
-        zlo.data_ptr(), zhi.data_ptr(),
-        *(None if v is None else v.data_ptr() for v in zg_profiles(model)))
+        zlo.data_ptr(), zhi.data_ptr(), *map(_ptr, zg_profiles(model)))
 
 
 def rhs_zg(model, fa, zlo, zhi):
@@ -996,7 +1017,8 @@ def _aux_first(model, fa, shear):
     df = fa.new_empty(shape)
     blk = fa.new_empty(_nblocks(shape[1:], lib))
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
-            df.data_ptr(), blk.data_ptr(), lib=lib, entry="rhs_first")
+            df.data_ptr(), blk.data_ptr(), lib=lib, entry="rhs_first",
+            after=(_ptr(gravity_vector(model)),))
     return df, torch.amax(blk)
 
 
@@ -1007,7 +1029,8 @@ def _aux_upd(model, fa, df_prev, coef, shear):
     f = df_prev.new_empty(shape)
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
             df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
-            f.data_ptr(), lib=lib, entry="rhs_tail_mid")
+            f.data_ptr(), lib=lib, entry="rhs_tail_mid",
+            after=(_ptr(gravity_vector(model)),))
     return df_prev, f
 
 

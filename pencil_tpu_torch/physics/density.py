@@ -5,8 +5,10 @@ of ``pencil_tpu/physics/density.py:113-157``):
 
 with the 'simplified' hyper-diffusion of lnρ (:137-149).  Initial
 conditions: 'zero', 'gaussian-noise', 'piecew-poly' (:214-227) and
-'isothermal', lnρ = lnρ0 − γΦ/cs0² in the gravity's potential Φ
-(:180-199, without an entropy field)."""
+'isothermal', lnρ = lnρ0 − γΦ/cs0² in the gravity's potential Φ, with
+an entropy field also the matching ss = −(cp − cv)(lnρ − lnρ0) as the
+additive key '+ss' (:180-199), which ``Model.init_state`` adds to the
+entropy module's own ss after the overrides, as JAX's does."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,6 +19,11 @@ import torch
 from .base import ModuleBase, accumulate
 from .initcond import init_scalar
 from .stratification import piecew_poly_profiles
+
+# the entropy inits that assign ss themselves, so Density 'isothermal'
+# adds no '+ss' (JAX density.py:192-196)
+ENTROPY_ASSIGNERS = frozenset(("isothermal", "const_ss", "polytropic",
+                               "polytropic_simple", "piecew-poly", "5"))
 
 
 @dataclass(frozen=True)
@@ -56,19 +63,20 @@ class Density(ModuleBase):
     def init_fields(self, grid, spec, generator, cfg=None):
         if self.init == "isothermal":
             # isothermal stratification (reference isothermal_density,
-            # density.f90:3108-3175); the JAX module's matching ss is not
-            # ported
-            if cfg is not None and cfg.module("entropy") is not None:
-                raise NotImplementedError(
-                    "pencil_tpu_torch: Density(init='isothermal') with an "
-                    "entropy field (its '+ss' term, ss = −(cp − cv)(lnρ − "
-                    "lnρ0), is not ported)")
+            # density.f90:3108-3175)
             eos = cfg.module("eos")
             grav = cfg.module("gravity")
             pot = grav.potential_field(grid, spec) if grav else 0.0
             ones = torch.ones(spec.shape, dtype=grid.z.dtype,
                               device=grid.z.device)
-            return {"lnrho": (eos.lnrho0 - eos.gamma * pot / eos.cs20) * ones}
+            lnrho = (eos.lnrho0 - eos.gamma * pot / eos.cs20) * ones
+            out = {"lnrho": lnrho}
+            ent = cfg.module("entropy")
+            # the reference always sets ss here; skipped only where the
+            # entropy init assigns (not adds) a profile of its own
+            if ent is not None and ent.init not in ENTROPY_ASSIGNERS:
+                out["+ss"] = -(eos.cp - eos.cv) * (lnrho - eos.lnrho0)
+            return out
         if self.init == "piecew-poly":
             # the layers are the entropy module's (density.f90 piecew-poly)
             ent = cfg.module("entropy") if cfg else None

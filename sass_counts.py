@@ -57,7 +57,11 @@ every instance of the template in the two builds instruction for
 instruction (the constant-bank offsets of the kernel parameters, which
 move where the parameter struct grows, left out); a library that the
 old copy does not build (its ``#error``) is listed as new, and an
-instance in one build only as "only in" that one.
+instance in one build only as "only in" that one.  For each instance
+that differs it prints the instructions of its march (the largest loop)
+and its local-memory instructions (LDL, STL) in both builds and, where a
+CUDA device is at hand, each named instance's registers and local bytes
+(``pc_flagship_attrs``) in both.
 Otherwise it needs cuobjdump (the CUDA toolkit); no card.  Prints one
 line per loop (per library with ``--parent``) and, last, one JSON object.
 """
@@ -238,10 +242,40 @@ def normalized(ins):
             for _, t in ins]
 
 
+def _shape(ins):
+    """(instructions of the march, the largest loop; local-memory
+    instructions) of an instance."""
+    spans = loops(ins)
+    march = sum(counts(ins, *spans[0]).values()) if spans else 0
+    local = sum(opcode(t) in ("LDL", "STL") for _, t in ins)
+    return march, local
+
+
+def _attrs(so, lib):
+    """Instance name -> (registers, local bytes) of the library file ``so``
+    built for ``lib``, or {} without a CUDA device."""
+    import ctypes
+    from pencil_tpu_torch.ops import fused_rhs as fr
+    try:
+        dll = ctypes.CDLL(str(so))
+        dll.pc_flagship_attrs.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        dll.pc_flagship_attrs.restype = ctypes.c_int
+        out = {}
+        for name, which in fr.library_instances(lib).items():
+            a = (ctypes.c_int * len(fr.ATTR_KEYS))()
+            if dll.pc_flagship_attrs(which, ctypes.addressof(a)) != 0:
+                return {}
+            out[name] = (a[0], a[1])
+        return out
+    except OSError:
+        return {}
+
+
 def compare_parent(src, libs):
     """Each library of ``libs`` built from ``src`` against the package's
     build: per library, its instances and those whose instructions
-    differ."""
+    differ, with their march and local-memory instructions and (with a
+    card) each instance's registers and local bytes in both builds."""
     from pencil_tpu_torch.ops import _build
     out_dir = _build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -276,14 +310,25 @@ def compare_parent(src, libs):
                 pairs = [(k, x, y) for k, (x, y) in enumerate(zip(a, b))
                          if x != y]
                 first = pairs[0][0] if pairs else min(len(a), len(b))
+                (ma, la), (mb, lb) = _shape(old_f[key]), _shape(new_f[key])
                 differ[key] = (f"{len(a)} -> {len(b)} instructions, "
+                               f"march {ma} -> {mb}, local-memory "
+                               f"instructions {la} -> {lb}, "
                                f"{len(pairs)} differ, first at {first}: "
                                + "; ".join(f"{k}: {x} -> {y}"
                                            for k, x, y in pairs[:4]))
-        result[lib] = {"instances": len(new_f), "differ": differ}
+        old_a, new_a = (_attrs(out_dir / f"{lib}.so", lib),
+                        _attrs(new[lib], lib))
+        attrs = {name: (old_a.get(name), r) for name, r in new_a.items()}
+        result[lib] = {"instances": len(new_f), "differ": differ,
+                       "registers_local": attrs}
         print(f"{lib}: {len(new_f)} functions, "
               + ("every one the parent's, instruction for instruction"
                  if not differ else f"differ: {differ}"), flush=True)
+        if attrs:
+            print(f"{lib}: (registers, local bytes) parent -> change: "
+                  + ", ".join(f"{n} {o} -> {r}" for n, (o, r)
+                              in attrs.items()), flush=True)
     return result
 
 

@@ -301,8 +301,10 @@ def test_gate_accepts_the_entropy_sets(variant, magnetic, itorder):
 REFUSED = {
     "cool": (dict(cool=15.0, cs2cool=1.0), (), "cool/luminosity"),
     "luminosity": (dict(luminosity=5e-3), (), "cool/luminosity"),
-    "gravity": (None, (pt.Gravity(gravz_profile="const", gravz=-1.0),),
-                "gravity"),
+    # gravity runs on the entropy builds; under it the layers still do not
+    "gravity": (dict(cool=15.0, cs2cool=1.0),
+                (pt.Gravity(gravz_profile="const", gravz=-1.0),),
+                "cool/luminosity"),
     "hyper3": (None, (), "hyper3-mesh"),
 }
 
@@ -310,8 +312,8 @@ REFUSED = {
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_gate_refuses_what_the_entropy_kernels_lack(case, magnetic):
-    """The layer profiles and gravity stay outside: a reason on the CPU
-    (the eager path), NotImplementedError on the card.  Of del6
+    """The layer profiles stay outside, also under gravity: a reason on
+    the CPU (the eager path), NotImplementedError on the card.  Of del6
     hyper-diffusion the H3 instances take 'hyper3-simplified' only: the
     'hyper3-mesh' flavour, which JAX has, raises as the port's Viscosity
     is built, with its name."""

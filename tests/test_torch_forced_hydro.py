@@ -237,27 +237,25 @@ def test_kernel_params_take_both_layouts():
 
 @pytest.mark.parametrize("which", ("conv_slab", "shear_box", "entropy"))
 def test_kernel_params_refuse_other_layouts(which):
-    """The conv-slab's gravity on the isothermal MHD set on a fully
-    periodic grid (uu, lnrho, aa under gravity, no ss: the template's
-    z-ghosted builds take z walls, and with them this set runs,
-    tests/test_torch_zghost_iso.py; the periodic builds have no gravity
-    term, ROADMAP Queue 2 A item 4), the shear box with an entropy
-    field beside its shock slot under constant gravity (uu, lnrho, ss,
-    aa, shock: the template's shock and shear builds take that layout,
-    tests/test_torch_aux_mhd_entropy.py, but have no gravity term) and an
+    """Magnetoconvection on a fully periodic grid (uu, lnrho, ss, aa under
+    gravity with the cooling and heating layers: the periodic builds take
+    gravity, tests/test_torch_gravity_chains.py, but have no layer terms;
+    the set without ss under gravity, the case here before, runs since),
+    the shear box with an entropy field beside its shock slot under
+    constant gravity with a cooling layer (uu, lnrho, ss, aa, shock: the
+    template's shock and shear builds take that layout and gravity, but
+    no layer; without the layer, the case here before, it runs) and an
     entropy slot with a cooling layer are not layouts and module sets of
     the flagship template's builds."""
     from pencil_tpu_torch.configs import conv_slab
     mag = conv_slab(8, magnetic=True)
     cfg = {"conv_slab": lambda: mag.replace(
-               modules=(pt.EosIdealGas(gamma=1.0, cs0=1.0), pt.Density(),
-                        pt.Hydro(), mag.module("gravity"),
-                        mag.module("viscosity"), mag.module("magnetic")),
                grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=()),
            "shear_box": lambda: shear_box(8).replace(modules=tuple(
                pt.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0)
                if m.name == "eos" else m for m in shear_box(8).modules)
-               + (pt.Entropy(iheatcond=("chi-const",), chi=5e-3),
+               + (pt.Entropy(iheatcond=("chi-const",), chi=5e-3, cool=15.0,
+                             cs2cool=1.0),
                   pt.Gravity(gravz_profile="const", gravz=-1.0))),
            "entropy": lambda: config(pt, n=8).replace(
                modules=config(pt, n=8).modules + (

@@ -8,8 +8,8 @@ K4he/K5he, K4hne/K5hne), K6/K7 of stratified convection, K6m/K7m
 of magnetoconvection, each z-ghosted pair also with Ω, K6s/K7s and
 K6ms/K7ms of the stratified shearing box, the H3 instances
 of the four periodic builds (del6 hyper-diffusion) and the CHI and H3
-instances of the z-ghosted builds (chi-const, del6)) against their plain
-PyTorch versions
+instances of the z-ghosted builds (chi-const, del6), and every build
+under gravity) against their plain PyTorch versions
 on the card, and steps on the card against the same steps on the CPU
 (forced convection and the stratified shearing box among them), and the
 run loop's restart on the card.
@@ -194,9 +194,8 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
             dict(Omega=1.0, shear=True) if "shear" in lib else {})),
             device=cuda)
         fa, zlo, zhi = stratified_fg(pm)
-        prof = fr.zg_profiles(pm)
-        after = (zlo.data_ptr(), zhi.data_ptr(), prof[0].data_ptr(),
-                 prof[1].data_ptr())
+        after = (zlo.data_ptr(), zhi.data_ptr(),
+                 *(t.data_ptr() for t in fr.zg_profiles(pm)))
 
         def plain(pm, fa):
             return fr.zg_plain(pm)[0](pm, fa, zlo, zhi)
@@ -215,7 +214,7 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
     stream = torch.cuda.current_stream().cuda_stream
     assert _build.load(lib).pc_rhs_first(
         ctypes.addressof(p), fa.data_ptr(), df.data_ptr(), blk.data_ptr(),
-        stream, *(after if lib in fr.ZG_KERNELS else ())) == 0
+        stream, *(after if lib in fr.ZG_KERNELS else (None,))) == 0
     torch.cuda.synchronize()
     assert bool(torch.isfinite(blk[:n]).all()) and bool((blk[:n] > 0).all())
     assert math.isnan(float(blk[n]))
@@ -630,8 +629,8 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
         ctypes.addressof(fr.kernel_params(pm)), fa.data_ptr(),
         df_prev.data_ptr(), coef.data_ptr(), df_out.data_ptr(),
         f_out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        zlo.data_ptr(), zhi.data_ptr(), prof[0].data_ptr(),
-        prof[1].data_ptr()) == 0
+        zlo.data_ptr(), zhi.data_ptr(),
+        *(t.data_ptr() for t in prof)) == 0
     torch.cuda.synchronize()
     assert torch.equal(df_in, df_out) and torch.equal(f_in, f_out)
 
@@ -1108,6 +1107,118 @@ def test_iso_steps_on_card_match_cpu(cuda, case):
     _conv_slab_steps_match(cuda, iso_cfg((16, 16, 32), case))
 
 
+# ---- gravity on every chain ---------------------------------------------------
+def with_gravity(cfg, profile):
+    """``cfg`` with Gravity of ``profile`` in place of its own, or added:
+    g_z = −1 ('const'), −z ('linear-z'), −sin(2πz/Lz) ('sin-z')."""
+    import math
+    kw = {"const": dict(gravz=-1.0), "linear-z": dict(gravz=-1.0),
+          "sin-z": dict(gravz=-1.0,
+                        kappa_z=2.0 * math.pi / cfg.grid.Lz)}[profile]
+    grav = pt.Gravity(gravz_profile=profile, **kw)
+    rest = tuple(m for m in cfg.modules if m.name != "gravity")
+    return cfg.replace(modules=rest + (grav,))
+
+
+# every library of the template with a gravity profile: (the library's
+# configuration, its profile)
+GRAV_WRAP = {"mhd": (lambda s: flagship(s), "sin-z"),
+             "hydro": (lambda s: forced_hydro(s), "const"),
+             "ent_mhd": (lambda s: forced_entropy(s), "linear-z"),
+             "ent_hydro": (lambda s: forced_entropy(s, magnetic=False),
+                           "sin-z"),
+             "mhd_h3": (lambda s: pt.configs.flagship(s, hyper3=True),
+                        "const")}
+GRAV_AUX = {build: (BUILDS[build][0], prof) for build, prof in zip(
+    AUX_BUILDS, ("sin-z", "const", "linear-z") * 4)}
+GRAV_ZG = {"conv_slab_linear": (dict(), "linear-z"),
+           "conv_slab_sin_rot": (dict(Omega=1.0), "sin-z"),
+           "mag_linear_chi": (dict(magnetic=True, chi=4e-3), "linear-z"),
+           "mag_sin_h3": (dict(magnetic=True, hyper3=True), "sin-z"),
+           "shear_linear": (dict(Omega=1.0, shear=True), "linear-z"),
+           "shear_sin_chi": (dict(Omega=1.0, shear=True, chi=4e-3),
+                             "sin-z"),
+           "mag_shear_linear": (dict(magnetic=True, Omega=1.0, shear=True),
+                                "linear-z"),
+           "mag_shear_sin_h3": (dict(magnetic=True, Omega=1.0, shear=True,
+                                     hyper3=True), "sin-z")}
+GRAV_ISO = {case: "sin-z" for case in ("iso", "iso_mag", "iso_shear",
+                                       "iso_mag_shear")}
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("case", sorted(GRAV_WRAP))
+def test_gravity_wrap_instances_match_plain(cuda, case, shape):
+    """K1, K2, K3, K3′ and K2L of each periodic build under gravity
+    against their plain versions (within 2e-5 × each field's max)."""
+    make, prof = GRAV_WRAP[case]
+    pm = pt.Model(with_gravity(make(shape), prof), device="cpu")
+    assert fr.gravity_vector(pm) is not None
+    _template_instances_match_plain(cuda, with_gravity(make(shape), prof),
+                                    RTOL_FIELD)
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("build", sorted(GRAV_AUX))
+def test_gravity_aux_instances_match_plain(cuda, build, shape):
+    """The first and update kernel of each shock and shear build under
+    gravity against their plain versions, within their builds' bounds."""
+    make, prof = GRAV_AUX[build]
+    _aux_kernels_match_plain(cuda, with_gravity(make(shape), prof),
+                             BUILDS[build][1])
+
+
+@pytest.mark.parametrize("case", sorted(GRAV_ZG))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_gravity_zg_instances_match_plain(cuda, shape, case):
+    """K6/K7, K6m/K7m, K6s/K7s and K6ms/K7ms (and their ROT, CHI and H3
+    instances) under 'linear-z' and 'sin-z' against their plain
+    versions."""
+    kw, prof = GRAV_ZG[case]
+    _zghost_kernels_match_plain(cuda, with_gravity(conv_slab(shape, **kw),
+                                                   prof))
+
+
+@pytest.mark.parametrize("case", sorted(GRAV_ISO))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_gravity_iso_instances_match_plain(cuda, shape, case):
+    """K6i/K7i … K6msi/K7msi under 'sin-z' against their plain
+    versions."""
+    pm = pt.Model(with_gravity(iso_cfg(shape, case), GRAV_ISO[case]),
+                  device=cuda)
+    first_p, upd_p = fr.zg_plain(pm)
+    inp = iso_fg(pm)
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K6i)")
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    df2, f2 = fr.rhs_zg_upd(pm, *inp, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp, df_p.clone(), coef)
+    assert_field_close(df2, df2_p, "df (K7i)")
+    assert_field_close(f2, f2_p, "f (K7i)")
+
+
+# the two new paths: the stratified shearing box with an energy equation,
+# MHD and hydro, and forced stratified turbulence in a periodic box
+GRAV_PATHS = {"strat_ent": dict(entropy=True),
+              "strat_ent_hydro": dict(entropy=True, magnetic=False),
+              "strat_periodic": dict(periodic=True, shear=False,
+                                     forcing=0.05),
+              "strat_periodic_hydro": dict(periodic=True, shear=False,
+                                           magnetic=False, forcing=0.05)}
+
+
+@pytest.mark.parametrize("case", sorted(GRAV_PATHS))
+def test_gravity_paths_on_card_match_cpu(cuda, case):
+    """Three steps of each new path on the card against the same steps on
+    the CPU from the same fields (u and A with noise of 1e-2; the sheared
+    ones from t = 0.37) and forcing draws."""
+    _conv_slab_steps_match(cuda, strat_box((16, 16, 32), **GRAV_PATHS[case]))
+
+
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "conv_slab_rot", "conv_slab_mag",
                                    "conv_slab_mag_rot", "conv_slab_shear",
@@ -1120,7 +1231,7 @@ def test_iso_steps_on_card_match_cpu(cuda, case):
                                    "ent_hydro_rk4", "flagship_h3",
                                    "conv_slab_mag_chi", "conv_slab_h3",
                                    "conv_slab_mag_chi_h3_rot", *NEW_AUX,
-                                   *ISO_CASES))
+                                   *ISO_CASES, *GRAV_PATHS))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -1143,7 +1254,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
            **{"conv_slab_" + k: conv_slab(32, **ZG_H3_CASES[k])
               for k in ("h3", "mag_chi_h3_rot")},
            **{k: BUILDS[k][0](32) for k in NEW_AUX},
-           **{k: iso_cfg(32, k) for k in ISO_CASES}}
+           **{k: iso_cfg(32, k) for k in ISO_CASES},
+           **{k: strat_box(32, **kw) for k, kw in GRAV_PATHS.items()}}
     for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
         for order in (3, 2, 4):
             cfg[name + ("" if order == 3 else f"_rk{order}")] = \

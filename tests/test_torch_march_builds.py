@@ -122,9 +122,9 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
                                ("rhs_zg_mag", "rhs_zg_upd_mag"))):
         sig = _build.SIGNATURES[lib]
         assert set(sig) == set(_build.SIGNATURES["fused_rhs_shock"])
-        # the slabs and the two profiles follow the stream
-        assert len(sig["pc_rhs_first"]) == 5 + 4
-        assert len(sig["pc_rhs_tail_mid"]) == 7 + 4
+        # the slabs, the two profiles and g_z(z) follow the stream
+        assert len(sig["pc_rhs_first"]) == 5 + 5
+        assert len(sig["pc_rhs_tail_mid"]) == 7 + 5
         assert fr.ZG_KERNELS[lib] == (first, upd)
         assert fr.library_instances(lib) == {
             first: 0, upd: 8, first + " rot": 16, upd + " rot": 24,
@@ -309,15 +309,19 @@ def test_rotating_conv_slab_step_launches_its_zg_build(recorded, monkeypatch,
 
 
 def test_kernel_params_carry_the_conv_slab_terms():
-    """kernel_params(conv_slab) holds what the retired ZgParams held:
-    gravity, the cooling layer and its target cs², the heating layer's
-    norm, K and ν, each the f32 of the value the plain version uses; and
-    max(ν, ·) as the CFL's constant diffusivity."""
+    """kernel_params(conv_slab) holds what the retired ZgParams held but
+    gravity, which the z profiles carry as the vector g_z(z): the cooling
+    layer and its target cs², the heating layer's norm, K and ν, each the
+    f32 of the value the plain version uses; and max(ν, ·) as the CFL's
+    constant diffusivity."""
     pm = pt.Model(conv_slab(SHAPE), device="cpu")
     p = fr.kernel_params(pm)
     ent, eos = pm.cfg.module("entropy"), pm.eos
     f32 = np.float32
-    want = {"gravz": pm.cfg.module("gravity").gravz, "cool": ent.cool,
+    prof_c, prof_h, gz = fr.zg_profiles(pm)
+    assert torch.equal(gz, torch.full_like(pm.grid.z, f32(
+        pm.cfg.module("gravity").gravz)))
+    want = {"cool": ent.cool,
             "cs2c": ent.cs2c(eos), "heat_norm": ent.heat_norm(pm.cfg.grid),
             "hcond0": ent.hcond0, "nu": pm.cfg.module("viscosity").nu,
             "two_nu": 2.0 * pm.cfg.module("viscosity").nu,
@@ -326,9 +330,8 @@ def test_kernel_params_carry_the_conv_slab_terms():
             "cpchi": 0.0}
     for name, v in want.items():
         assert getattr(p, name) == f32(v), name
-    assert p.gravz < 0.0 and p.cool > 0.0 and p.heat_norm > 0.0
+    assert float(gz[0]) < 0.0 and p.cool > 0.0 and p.heat_norm > 0.0
     assert p.hcond0 > 0.0 and p.isothermal == 0
-    prof_c, prof_h = fr.zg_profiles(pm)
     want_c, want_h = ent.heat_cool_profiles(pm.grid.z, pm.cfg.grid)
     assert torch.equal(prof_c, want_c) and torch.equal(prof_h, want_h)
 

@@ -96,10 +96,12 @@ OUTSIDE = {
     "unfused": dict(fused=False),
     # RKF45 (itorder 5) has no 2N-RK table: outside every chain
     "rkf45": dict(time=pt.TimeSpec(itorder=5)),
-    # the flagship under constant gravity (ROADMAP Queue 2 A): fused in
-    # JAX, eager here on the CPU; the template has no gravity term
+    # the flagship under constant gravity with Entropy's cooling layer
+    # (ROADMAP Queue 2 A): fused in JAX, eager here on the CPU; gravity
+    # runs on every chain, the layer profiles on the z-ghosted builds only
     "mhd_with_gravity": dict(modules=flagship().modules + (
-        pt.Gravity(gravz_profile="const", gravz=-1.0),)),
+        pt.Gravity(gravz_profile="const", gravz=-1.0),
+        pt.Entropy(cool=15.0, cs2cool=1.0))),
     "twice_forced": dict(modules=flagship().modules + (pt.Forcing(),)),
 }
 

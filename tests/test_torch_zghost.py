@@ -320,7 +320,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         pt.Entropy(cooling_profile="step")
     with pytest.raises(NotImplementedError):
-        pt.Gravity(gravz_profile="sin-z")
+        pt.Gravity(gravz_profile="central")
     with pytest.raises(NotImplementedError):
         pt.Model(conv_slab(16).replace(bcz=conv_slab(16).bcz[:4]),
                  device="cpu")

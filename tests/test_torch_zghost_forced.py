@@ -144,16 +144,16 @@ def _without(cfg, name):
 
 
 # sets outside every chain and the module the reason must name: the
-# conv-slab with Shock, the forced isothermal set under gravity on a fully
-# periodic grid (ROADMAP Queue 2 A item 4; with z walls it runs since the
-# builds without ss, tests/test_torch_zghost_iso.py), the sheared
+# conv-slab with Shock, the forced isothermal set under gravity with z
+# walls and Shock (with z walls alone it runs since the builds without
+# ss, tests/test_torch_zghost_iso.py, and on a fully periodic grid since
+# gravity on every chain, tests/test_torch_gravity_chains.py), the sheared
 # isothermal set with Shock, and the slab without gravity
 REFUSED = {
     "shock": (lambda: conv_slab(8).replace(
         modules=conv_slab(8).modules + (pt.Shock(),)), "shock"),
-    "forced_isothermal": (lambda: _without(
-        conv_slab(8, forcing=FORCE), "entropy").replace(
-        grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=()), "gravity"),
+    "forced_isothermal": (lambda: _with_shock(_without(
+        conv_slab(8, forcing=FORCE), "entropy")), "gravity"),
     "sheared_isothermal": (lambda: _with_shock(_without(
         conv_slab(8, Omega=0.5, shear=True), "entropy")), "shear"),
     "sheared_no_gravity": (lambda: _without(

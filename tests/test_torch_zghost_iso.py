@@ -7,8 +7,8 @@ against the zghost Pallas kernels traced for those sets, on the interior
 package's fill, with the shifted x faces for the sheared sets; the port's
 Gravity ('const', 'linear-z') and Density(init='isothermal') against
 JAX's; the gate, the libraries, the launch names and kernel constants;
-the refusal of 'linear-z' on the z-ghosted builds with ss; a step that
-leaves its input alone; a JAX state of each layout through the
+'linear-z' on the z-ghosted builds with ss, refused in a periodic box
+for the layer profiles; a step that leaves its input alone; a JAX state of each layout through the
 converters.  The steps are in tests/test_torch_zghost_iso_steps.py.
 
 The JAX side runs as tests/test_torch_zghost_shear.py runs it: the Pallas
@@ -182,7 +182,9 @@ def test_gravity_matches_jax(profile):
 def test_isothermal_density_matches_jax(case):
     """Density(init='isothermal'): lnρ = lnρ0 − γΦ/cs0², the JAX init bit
     for bit (−z under constant gravity, −z²/2 under 'linear-z'); with an
-    entropy field it raises, naming the unported '+ss' term."""
+    entropy field (strat_box(entropy=True)) also JAX's ss, its '+ss' term
+    −(cp − cv)(lnρ − lnρ0) added to Entropy's zeros, bit for bit: T = T0
+    everywhere."""
     shape = (4, 4, 12)
     js = pj.Model(strat_cfg(pj, shape, case, fused=False)).init_state(0)
     pm = pt.Model(strat_cfg(pt, shape, case), device="cpu")
@@ -191,12 +193,18 @@ def test_isothermal_density_matches_jax(case):
     z = pm.grid.z.numpy().astype(np.float64)
     want = -0.5 * z ** 2 if "shear" in case else -z
     np.testing.assert_allclose(got[0, 0], want, atol=1e-6)
-    slab = conv_slab(8)
-    cfg = slab.replace(modules=tuple(
-        pt.Density(init="isothermal") if m.name == "density" else m
-        for m in slab.modules))
-    with pytest.raises(NotImplementedError, match=r"\+ss"):
-        pt.Model(cfg, device="cpu").init_state(0)
+    kw = dict(CASES[case], entropy=True)
+    js = pj.Model(strat_box(shape, pkg=pj, fused=False, **kw)).init_state(0)
+    pm = pt.Model(strat_box(shape, **kw), device="cpu")
+    fields = pm.init_state(0)["fields"]
+    for k in ("lnrho", "ss"):
+        np.testing.assert_array_equal(fields[k].numpy(),
+                                      np.asarray(js["fields"][k]), k)
+    eos = pm.eos
+    lnTT = eos.gamma / eos.cp * fields["ss"] + (eos.gamma - 1.0) * (
+        fields["lnrho"] - eos.lnrho0)
+    assert float(lnTT.abs().max()) < 1e-6
+    assert float(fields["ss"].abs().max()) > 0.1
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -240,37 +248,44 @@ def test_gate_takes_the_isothermal_builds(case, extra):
     shear = "shear" in case
     assert list(p.om) == [0.0, 0.0, 1.0 if shear else 0.0]
     assert p.S == f32(-1.5 if shear else 0.0)
-    gz, unread = fr.zg_profiles(pm)
-    assert unread is None
+    *unread, gz = fr.zg_profiles(pm)
+    assert unread == [None, None]
+    assert gz is fr.gravity_vector(pm)
     z = pm.grid.z
     want = -1.0 * z if shear else torch.full_like(z, -1.0)
     assert torch.equal(gz, want)
 
 
 def test_entropy_builds_refuse_linear_z():
-    """The z-ghosted builds with ss add a constant g_z: on each conv-slab
-    set (with Magnetic, with Shear, with both) 'linear-z' is refused on
-    the card for that option, before any admission, and runs eagerly on
-    the CPU; 'const' stays admitted."""
+    """The z-ghosted builds with ss read g_z(z) as the others do: each
+    conv-slab set (with Magnetic, with Shear, with both) under 'linear-z'
+    runs the zghost chain; in a fully periodic box the same set is
+    refused on the card for its layer profiles (an option, before any
+    admission: no periodic build has them) and runs eagerly on the CPU."""
     for kw in ({}, dict(magnetic=True), dict(Omega=0.5, shear=True),
                dict(magnetic=True, Omega=0.5, shear=True)):
         base = conv_slab(8, **kw)
         cfg = base.replace(modules=tuple(
             pt.Gravity(gravz_profile="linear-z", gravz=-1.0)
             if m.name == "gravity" else m for m in base.modules))
-        reason = gate_reason(cfg)
-        assert reason is not None and reason.startswith("options "), reason
-        assert "linear-z" in reason
-        with pytest.raises(NotImplementedError, match="linear-z"):
-            pt.Model(cfg, device="cuda")
-        assert pt.Model(cfg, device="cpu").mode is None
+        assert fused_mode(cfg) == ("zghost", None)
         assert fused_mode(base) == ("zghost", None)
+        boxed = cfg.replace(grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=())
+        reason = gate_reason(boxed)
+        assert reason is not None and reason.startswith("options "), reason
+        assert "cool/luminosity" in reason
+        with pytest.raises(NotImplementedError, match="cool/luminosity"):
+            pt.Model(boxed, device="cuda")
+        assert pt.Model(boxed, device="cpu").mode is None
 
 
 def test_unported_gravity_stays_refused():
-    """Every other gravity profile, and gravx, still raises."""
-    for kw in (dict(gravz_profile="sin-z"), dict(gravz_profile="zero"),
-               dict(gravz_profile="Ferriere"), dict(gravx=1.0)):
+    """Every profile that is not a function of z alone still raises as the
+    module is built: gravx, an x profile, the central and the radial
+    potentials, and an unknown name."""
+    for kw in (dict(gravx=1.0), dict(gravx_profile="kepler"),
+               dict(gravz_profile="central"), dict(ipotential="newton"),
+               dict(gravz_profile="no-such-profile")):
         with pytest.raises(NotImplementedError):
             pt.Gravity(**kw)
 

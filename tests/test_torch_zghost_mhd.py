@@ -244,19 +244,21 @@ def test_chi_const_is_admitted():
 
 
 def test_other_sets_stay_refused():
-    """The isothermal hydro set under gravity on a fully periodic grid
-    (ROADMAP Queue 2 A item 4; the isothermal sets with z walls, the case
-    here before, run since the builds without ss,
-    tests/test_torch_zghost_iso.py), and magnetoconvection with Shock (no
-    z-ghosted build has the shock slot; forced magnetoconvection, the case
-    here before that, runs since the kick after the step,
+    """The isothermal hydro set under gravity with z walls and Shock (the
+    isothermal sets with z walls, the case here first, run since the
+    builds without ss, tests/test_torch_zghost_iso.py, and the set on a
+    fully periodic grid, the case after that, since gravity on every
+    chain, tests/test_torch_gravity_chains.py), and magnetoconvection with
+    Shock (no z-ghosted build has the shock slot; forced
+    magnetoconvection, the case here before, runs since the kick after the
+    step,
     tests/test_torch_zghost_forced.py; η₃ since the H3 instances,
     tests/test_torch_zghost_hyper3.py), raise on the card, each for its
     module set: the set is tested before Entropy's layer profiles."""
     base = conv_slab(8, magnetic=True)
     shocked = base.replace(modules=base.modules + (pt.Shock(),))
     walled = strat_box(8, magnetic=False, shear=False)
-    iso = walled.replace(grid=pt.GridSpec(nx=8, ny=8, nz=8), bcz=())
+    iso = walled.replace(modules=walled.modules + (pt.Shock(),))
     for cfg in (shocked, iso):
         reason = gate_reason(cfg)
         assert reason is not None and reason.startswith("modules "), reason
