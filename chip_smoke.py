@@ -129,7 +129,16 @@ Phases, each printing its own lines:
      "error": the rows it = 0, 1, 10, 20, 30, 40 all finite, COMPLETED,
      40 launches each of K1e, K2e, K3e, and a second run of 20 steps, a
      new model resumed from its var.npz and 20 more steps that gives the
-     first run's fields bit for bit;
+     first run's fields bit for bit; then the run driver's outputs on the
+     README quickstart's configuration (K1-K3, γ = 1.0001): 40 steps with
+     the helical-MHD columns, 4 kinetic and magnetic spectra, plane
+     averages every 10 steps, 2 phi-average dumps, 4 slices and 2
+     downsampled snapshots, against the same 40 steps without them (K1,
+     K2, K3 40 times each in both, every chunk under the sync debug mode
+     "error"; every file's records finite; Parseval on the final
+     velocity), and 20 steps with the time average, 3 sound probes and
+     timing.dat, one step a call; the wall µs per step and point of each,
+     the peak device memory and each evaluator's device ms;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
      256³, and the conv-slab's and magnetoconvection's step split (K6 or
@@ -163,6 +172,7 @@ raises, and the exit code is then not 0.  Without a CUDA device the script
 exits 1 and prints no result.  It imports no JAX.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -171,6 +181,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 N_MAIN = 256
 WARM, TIMED = 3, 20
@@ -1374,6 +1386,8 @@ def main():
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
                          name=path)
     run_simulate(torch, pt, fr, smi, shape)
+    run_outputs(torch, pt, fr, smi, shape)
+    mark("phase 3, the run driver's outputs")
     k8 = run_fake_chain(torch, pt, fr, smi, shape, launches,
                         float(fl[1]["dt"]))
 
@@ -1534,6 +1548,30 @@ def run_flagship(torch, pt, fr, smi, shape, launches, itorder=3,
     return model, state, ms_step
 
 
+def guarded_runs(torch, prun):
+    """A context in which every ``Run._advance`` call (a chunk of steps)
+    runs under the sync debug mode "error": no output may sit inside a
+    step."""
+    advance = prun.Run._advance
+
+    def guarded(self, state, k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return advance(self, state, k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    @contextlib.contextmanager
+    def ctx():
+        prun.Run._advance = guarded
+        try:
+            yield
+        finally:
+            prun.Run._advance = advance
+
+    return ctx()
+
+
 def run_simulate(torch, pt, fr, smi, shape):
     """Phase 3, through the run loop: simulate(forced_entropy) for 40
     steps with a row every 10 and a checkpoint every 20, every chunk of
@@ -1547,17 +1585,7 @@ def run_simulate(torch, pt, fr, smi, shape):
                "jrms", "jmax", "abm")
     cfg = pt.configs.forced_entropy(shape)
     params = prun.RunParams(it1=10, isave=20, print_columns=columns)
-    advance = prun.Run._advance
-
-    def guarded(self, state, k):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return advance(self, state, k)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    prun.Run._advance = guarded
-    try:
+    with guarded_runs(torch, prun):
         with tempfile.TemporaryDirectory() as tmp:
             fr.reset_launches()
             out = io.StringIO()
@@ -1591,8 +1619,6 @@ def run_simulate(torch, pt, fr, smi, shape):
                 again = prun.simulate(cfg, nt=20, datadir=tmp, params=params,
                                       resume=True)
             rows2 = read_time_series(os.path.join(tmp, "time_series.dat"))
-    finally:
-        prun.Run._advance = advance
     its2 = [int(v) for v in rows2["it"]]
     check(int(again["it"]) == 40 and its2 == [0, 1, 10, 20, 21, 30, 40],
           f"resumed run: it {int(again['it'])}, rows {its2}")
@@ -1606,6 +1632,228 @@ def run_simulate(torch, pt, fr, smi, shape):
           f"{its}, COMPLETED, launches {counts}; 20 steps + resume "
           f"from var.npz + 20 steps: the same fields bit for bit",
           flush=True)
+
+
+# the README quickstart's plane and phi averages: one name of each suffix
+# with a file (the x-averages, suffix myz, have none in the JAX writer)
+OUTPUT_AVERAGES = ("uxmz", "bymz", "rhomy", "uzmx", "bzmxy", "uxmxz")
+OUTPUT_PHI = ("uzmphi", "bzmphi")
+# the columns of helical MHD turbulence beside the run's basic ones
+OUTPUT_COLUMNS = (
+    "it", "t", "dt", "urms", "umax", "u2m", "brms", "bmax", "b2m", "jrms",
+    "jmax", "abm", "ux2m", "uy2m", "uz2m", "uxm", "uym", "uzm", "uxmax",
+    "uymax", "uzmax", "uxmin", "uymin", "uzmin", "uxuym", "uxuzm", "uyuzm",
+    "divum", "divu2m", "orms", "oum", "omax", "o2m", "ekin", "EEK", "Marms",
+    "Mamax", "bx2m", "by2m", "bz2m", "arms", "a2m", "axm", "aym", "azm",
+    "amax", "jbm", "j2m", "vA2m", "vArms", "vAmax", "bmx", "bmy", "bmz",
+    "bm2", "emag", "EEM", "epsK", "epsM")
+
+
+def quickstart(pt, shape):
+    """The README quickstart's configuration: forced MHD with γ = 1.0001."""
+    return pt.Config(
+        grid=pt.GridSpec(nx=shape[0], ny=shape[1], nz=shape[2]), fused=True,
+        modules=(pt.EosIdealGas(gamma=1.0001), pt.Density(),
+                 pt.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pt.Viscosity(ivisc=("nu-const",), nu=5e-3),
+                 pt.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3),
+                 pt.Forcing(force=0.07, kf=3.0)))
+
+
+def simulate_counted(torch, prun, fr, model, nt, datadir, params):
+    """simulate(model) from seed 0, its stdout captured; returns (state,
+    wall µs per step and point as the run prints it, launches, peak
+    device bytes, stdout)."""
+    fr.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = prun.simulate(model, nt=nt, datadir=datadir, params=params)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+    line = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith("Wall clock time/timestep/meshpoint")]
+    check(len(line) == 1, "no wall-clock line")
+    return (state, float(line[0].split("=")[1]), counts,
+            torch.cuda.max_memory_allocated(), out.getvalue())
+
+
+def fortran_records(raw):
+    """The payloads of a file of Fortran unformatted records."""
+    out, off = [], 0
+    while off < len(raw):
+        n = int(np.frombuffer(raw[off:off + 4], np.int32)[0])
+        out.append(raw[off + 4:off + 4 + n])
+        off += 8 + n
+    return out
+
+
+def run_outputs(torch, pt, fr, smi, shape):
+    """Phase 3, the run driver's outputs at full width: the README
+    quickstart's configuration through simulate on K1-K3, (a) 40 steps with
+    rows every 10 (the helical-MHD columns among them), a checkpoint every
+    20, 4 spectra of u and B, plane averages every 10, 2 phi-average dumps,
+    4 slices of ux and bz in xy and xz, 2 downsampled snapshots, and the
+    same 40 steps with none of them; (b) 20 steps with the time average,
+    3 sound probes and timing.dat, which take one step a call.  Every chunk
+    runs under the sync debug mode "error"; K1-K3 launch once a step with
+    and without outputs.  Checks each file's records and values, Parseval
+    on the final velocity, and prints the wall µs per step and point with
+    and without outputs, each evaluator's device ms and the peak device
+    memory."""
+    from pencil_tpu_torch import run as prun
+    from pencil_tpu_torch.io import averages, spectra
+    from pencil_tpu_torch.io.diagnostics import make_diagnostics
+    from pencil_tpu_torch.post import read
+    cfg = quickstart(pt, shape)
+    model = pt.Model(cfg, device="cuda")
+    # the time cadences from this run's dt (two steps, CFL-limited and
+    # nearly constant over 40): spectra and slices at it = 10, 20, 30, 40,
+    # phi averages and downsampled snapshots at 20 and 40
+    st = model.make_multi_step(2)(model.init_state(0))
+    dt = float(st["dt"])
+    del st
+    npoints = shape[0] * shape[1] * shape[2]
+    out_params = dict(
+        it1=10, isave=20, print_columns=OUTPUT_COLUMNS, dspec=5 * dt,
+        power_fields=("kin", "mag"), aver_names=OUTPUT_AVERAGES, it1d=10,
+        phiaver_names=OUTPUT_PHI, d2davg=15 * dt, dvid=5 * dt,
+        slice_fields=("ux", "bz"), slice_planes=("xy", "xz"),
+        downsampl=(2, 2, 2), dsnap_down=15 * dt)
+    want = dict.fromkeys(FLAGSHIP_KERNELS, 40)
+    with guarded_runs(torch, prun), tempfile.TemporaryDirectory() as tmp:
+        plain_dir, out_dir = (os.path.join(tmp, d) for d in ("plain", "out"))
+        _, us_plain, counts, peak_plain, _ = simulate_counted(
+            torch, prun, fr, model, 40, plain_dir, prun.RunParams(
+                it1=10, isave=20, print_columns=OUTPUT_COLUMNS))
+        check(counts == want, f"run without outputs: launches {counts}")
+        state, us_out, counts, peak_out, text = simulate_counted(
+            torch, prun, fr, model, 40, out_dir,
+            prun.RunParams(**out_params))
+        check(counts == want, f"run with outputs: launches {counts}")
+        print(text.splitlines()[0] + "\n" + text.splitlines()[-2],
+              flush=True)
+        # the files, their records and values
+        ts = read.ts(out_dir)
+        check(list(ts.it) == [0, 1, 10, 20, 30, 40], f"rows {list(ts.it)}")
+        check(ts.keys == list(OUTPUT_COLUMNS), "columns")
+        check(all(np.isfinite(getattr(ts, k)).all() for k in ts.keys),
+              "non-finite column")
+        nk = max(shape) // 2
+        for pf in ("kin", "mag"):
+            pw = read.power(pf, out_dir)
+            check(len(pw.t) == 4 and pw.spec.shape == (4, nk)
+                  and np.isfinite(pw.spec).all(),
+                  f"power_{pf}.dat: times {pw.t}, {pw.spec.shape}")
+        sizes = {"uxmz": shape[2], "bymz": shape[2], "rhomy": shape[1],
+                 "uzmx": shape[0], "bzmxy": shape[0] * shape[1],
+                 "uxmxz": shape[0] * shape[2]}
+        planes = {}
+        for n in OUTPUT_AVERAGES:
+            planes.setdefault(averages._suffix_of(n), []).append(n)
+        for names in planes.values():
+            av = read.aver(out_dir, names, sizes)
+            check(len(av.t) == 4 and all(
+                getattr(av, n).shape == (4, sizes[n])
+                and np.isfinite(getattr(av, n)).all() for n in names),
+                f"averages {names}: times {av.t}")
+        phi = sorted(f for f in os.listdir(os.path.join(out_dir, "averages"))
+                     if f.startswith("PHIAVG"))
+        check(phi == ["PHIAVG1", "PHIAVG2"], f"phi averages {phi}")
+        for f in phi:
+            with open(os.path.join(out_dir, "averages", f), "rb") as fh:
+                rec = fortran_records(fh.read())
+            nr, nz, nc, _ = np.frombuffer(rec[0], np.int32)
+            data = np.frombuffer(rec[2], np.float32)
+            check((nr, nz, nc) == (shape[0] // 2, shape[2], 2)
+                  and data.size == nr * nz * nc and np.isfinite(data).all()
+                  and rec[3][4:] == b"uzmphi,bzmphi", f"{f}")
+        for fld in ("ux", "bz"):
+            for plane in ("xy", "xz"):
+                sl = read.slices(fld, plane, out_dir)
+                check(sl.data.shape[0] == 4 and np.isfinite(sl.data).all(),
+                      f"slice {fld} {plane}: {sl.data.shape}")
+        down = sorted(f for f in os.listdir(out_dir) if f.startswith("VARd"))
+        check(down == ["VARd1.npz", "VARd2.npz"], f"snapshots {down}")
+        for f in down:
+            with np.load(os.path.join(out_dir, f)) as z:
+                check(z["uu"].shape == (3,) + tuple(n // 2 for n in shape)
+                      and all(np.isfinite(z[k]).all() for k in z.files),
+                      f"{f}")
+        check(os.path.exists(os.path.join(out_dir, "COMPLETED")),
+              "no COMPLETED")
+        # Parseval: Σ_k ½|û|² over every wavevector is ½<u²>; the shells
+        # stop at n/2 and leave out the corners of the cube
+        uu = state["fields"]["uu"]
+        fk = torch.fft.fftn(uu, dim=(-3, -2, -1)) / npoints
+        total = float((0.5 * torch.abs(fk) ** 2).double().sum())
+        u2m = float(make_diagnostics(model, ("u2m",))(state)["u2m"])
+        check(abs(total - 0.5 * u2m) <= 1e-4 * 0.5 * u2m,
+              f"Parseval: {total} against 0.5 u2m {0.5 * u2m}")
+        shells = float(spectra.shell_spectrum(uu).double().sum())
+        check(shells <= total * (1 + 1e-4),
+              f"shell sum {shells} above the sum over every mode {total}")
+        # (b) the outputs that take one step a call
+        b_dir = os.path.join(tmp, "b")
+        probes = ((0.1, -0.2, 0.3), (1.0, 2.0, -3.0), (-3.0, 0.0, 3.1))
+        b_params = prun.RunParams(
+            it1=10, isave=20, print_columns=("it", "t", "dt", "urms"),
+            tavg=10 * dt, sound_points=probes, sound_fields=("ux", "lnrho"),
+            it_timing=1)
+        _, us_b, counts, peak_b, _ = simulate_counted(
+            torch, prun, fr, model, 20, b_dir, b_params)
+        check(counts == dict.fromkeys(FLAGSHIP_KERNELS, 20),
+              f"one step a call: launches {counts}")
+        timing = open(os.path.join(b_dir, "timing.dat")).read().splitlines()
+        check([ln.split()[0] for ln in timing]
+              == [str(i) for i in range(1, 21)], "timing.dat rows")
+        sound = np.loadtxt(os.path.join(b_dir, "sound.dat"))
+        check(sound.shape == (20, 1 + 3 * 2) and np.isfinite(sound).all(),
+              f"sound.dat {sound.shape}")
+        with np.load(os.path.join(b_dir, "timeavg.npz")) as z:
+            check(sorted(z.files) == ["aa", "lnrho", "t", "uu"]
+                  and all(np.isfinite(z[k]).all() for k in z.files),
+                  "timeavg.npz")
+    # each evaluator's device time on the final state; the time average
+    # and the probes in a run with no other output
+    with tempfile.TemporaryDirectory() as tmp:
+        run = prun.Run(model, datadir=os.path.join(tmp, "a"), quiet=True,
+                       params=prun.RunParams(**out_params))
+        one = prun.Run(model, datadir=os.path.join(tmp, "b"), quiet=True,
+                       params=dataclasses.replace(b_params, isave=0))
+        t = float(state["t"])
+        ev = {
+            "spectrum kin": lambda: spectra.shell_spectrum(uu),
+            "spectrum mag": lambda: spectra.shell_spectrum(
+                averages.ghosted_pencils(model, state).bb()),
+            "averages (6 names)": lambda: run.averages(state),
+            "phi averages (2 names)": lambda: run.phiavg(state),
+            "slice capture (ux, bz in xy, xz)": lambda: run.slices.capture(
+                model, state),
+            "time-average update": lambda: one._write_outputs(
+                state, 1, t, dt),
+            "sound row (3 probes, 2 fields: gather, copy, a line written)":
+                lambda: one._write_sound(state, t),
+        }
+        ms = {k: time_ms(torch, fn, 5) for k, fn in ev.items()}
+    print(f"phase 3 {N_MAIN}^3 simulate(quickstart, nt=40, it1=10, isave=20) "
+          f"on {smi}: wall clock {us_out:.4e} microsec per step and "
+          f"meshpoint with the outputs ({len(OUTPUT_COLUMNS)} columns, "
+          f"4 spectra kin+mag, 4 records of {len(OUTPUT_AVERAGES)} "
+          f"averages, 2 phi dumps, 4 slices, 2 VARd), {us_plain:.4e} "
+          f"without; peak device memory {peak_out / 2**30:.3f} GiB with, "
+          f"{peak_plain / 2**30:.3f} GiB without; launches {want}; "
+          f"Parseval: sum over every mode {total:.6e}, 0.5 u2m "
+          f"{0.5 * u2m:.6e}, shell sum {shells:.6e}", flush=True)
+    print(f"phase 3 {N_MAIN}^3 simulate(quickstart, nt=20) with tavg, "
+          f"3 sound probes, it_timing=1 on {smi}: wall clock {us_b:.4e} "
+          f"microsec per step and meshpoint, peak {peak_b / 2**30:.3f} GiB; "
+          f"20 rows of timing.dat and sound.dat, timeavg.npz finite",
+          flush=True)
+    print(f"phase 4 {N_MAIN}^3 output evaluators on {smi}, device ms a call "
+          "(CUDA events, 5 calls after one): " + "; ".join(
+              f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
 
 
 def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):

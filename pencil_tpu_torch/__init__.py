@@ -21,7 +21,10 @@ central differences, the 2N-RK orders 1-4):
   (``configs.shock_box``).
 
 ``Run`` and ``simulate`` drive a model through a whole simulation:
-``time_series.dat``, rolling checkpoints and bit-exact restart.
+``time_series.dat``, rolling checkpoints and bit-exact restart, power
+spectra, plane and phi averages, slices, time averages, downsampled
+snapshots, sound probes and ``timing.dat`` (``post.read`` reads them
+back).
 
 The JAX package ``pencil_tpu`` is the reference it is held to; this
 package never imports it or JAX.

@@ -6,9 +6,16 @@ Each diagnostic is a named function over the ``Pencils`` container; the
 requested set is evaluated in one call on the model's device and comes back
 as 0-d tensors, so a caller can stack a row and copy it to the host once.
 Ported are the columns of the turbulence runs: the state scalars ``it``,
-``t``, ``dt``; hydro ``urms``, ``umax``, ``u2m``; density ``rhom``,
-``rhomin``, ``rhomax``; thermodynamics ``ssm``, ``TTm``, ``csm``, ``ethm``;
-magnetic ``brms``, ``bmax``, ``b2m``, ``jrms``, ``jmax``, ``abm``; and the
+``t``, ``dt``; hydro ``urms``, ``umax``, ``u2m``, the components' means,
+squares, extrema and products (``uxm`` … ``uyuzm``), ``divum``,
+``divu2m``, the vorticity's ``orms``, ``omax``, ``o2m``, the kinetic
+helicity ``oum``, ``ekin``, ``EEK`` and the Mach numbers ``Marms``,
+``Mamax``; density ``rhom``, ``rhomin``, ``rhomax``; thermodynamics
+``ssm``, ``TTm``, ``csm``, ``ethm``; magnetic ``brms``, ``bmax``, ``b2m``,
+``bm2``, ``bx2m`` … ``bz2m``, A's ``arms``, ``a2m``, ``axm`` … ``azm``,
+``amax``, ``jrms``, ``jmax``, ``j2m``, ``jbm``, ``abm``, the Alfvén speed's
+``vA2m``, ``vArms``, ``vAmax``, the mean fields ``bmx``, ``bmy``, ``bmz``,
+``EEM`` and ``emag``; the dissipation rates ``epsK`` and ``epsM``; and the
 integrals ``ekintot`` and ``ethtot``.  Plain torch: the JAX package computes
 them in jnp outside any kernel.  As there, the pencils read a ghost-filled
 copy of the state (wraps and BCs, without the shear shift), and a shock slot
@@ -81,6 +88,80 @@ def _umax(pen, st):
 @diag("u2m")
 def _u2m(pen, st):
     return _vmean(pen, pen.u2())
+
+
+for _i, _c in enumerate("xyz"):
+    DIAG_REGISTRY[f"u{_c}m"] = (
+        lambda pen, st, i=_i: _vmean(pen, pen.uu()[i]))
+    DIAG_REGISTRY[f"u{_c}2m"] = (
+        lambda pen, st, i=_i: _vmean(pen, pen.uu()[i] ** 2))
+    # the signed extrema of the raw component (hydro.f90:3991)
+    DIAG_REGISTRY[f"u{_c}max"] = lambda pen, st, i=_i: pen.uu()[i].max()
+    DIAG_REGISTRY[f"u{_c}min"] = lambda pen, st, i=_i: pen.uu()[i].min()
+for _i, _j, _n in ((0, 1, "uxuym"), (0, 2, "uxuzm"), (1, 2, "uyuzm")):
+    DIAG_REGISTRY[_n] = (
+        lambda pen, st, i=_i, j=_j: _vmean(pen, pen.uu()[i] * pen.uu()[j]))
+
+
+@diag("divum")
+def _divum(pen, st):
+    return _vmean(pen, pen.divu())
+
+
+@diag("divu2m")
+def _divu2m(pen, st):
+    return _vmean(pen, pen.divu() ** 2)
+
+
+def _o2(pen):
+    oo = pen.oo()
+    return oo[0] ** 2 + oo[1] ** 2 + oo[2] ** 2
+
+
+@diag("orms")
+def _orms(pen, st):
+    return _vrms(pen, _o2(pen))
+
+
+@diag("o2m")
+def _o2m(pen, st):
+    return _vmean(pen, _o2(pen))
+
+
+@diag("omax")
+def _omax(pen, st):
+    return torch.sqrt(_o2(pen).max())
+
+
+@diag("oum")
+def _oum(pen, st):
+    """Mean kinetic helicity <ω·u>."""
+    oo, uu = pen.oo(), pen.uu()
+    return _vmean(pen, oo[0] * uu[0] + oo[1] * uu[1] + oo[2] * uu[2])
+
+
+@diag("ekin")
+def _ekin(pen, st):
+    """<½ρu²> (hydro.f90:4067 idiag_EEK prints the same)."""
+    return 0.5 * _vmean(pen, pen.rho() * pen.u2())
+
+
+DIAG_REGISTRY["EEK"] = _ekin
+
+
+def _mach2(pen):
+    return pen.u2() / torch.clamp(pen.cs2(), min=1e-30)
+
+
+@diag("Marms")
+def _marms(pen, st):
+    """rms Mach number √<u²/cs²>."""
+    return _vrms(pen, _mach2(pen))
+
+
+@diag("Mamax")
+def _mamax(pen, st):
+    return torch.sqrt(_mach2(pen).max())
 
 
 @diag("ekintot")
@@ -169,11 +250,146 @@ def _abm(pen, st):
     return _vmean(pen, aa[0] * bb[0] + aa[1] * bb[1] + aa[2] * bb[2])
 
 
+for _i, _c in enumerate("xyz"):
+    DIAG_REGISTRY[f"b{_c}2m"] = (
+        lambda pen, st, i=_i: _vmean(pen, pen.bb()[i] ** 2))
+    DIAG_REGISTRY[f"a{_c}m"] = (
+        lambda pen, st, i=_i: _vmean(pen, pen.aa()[i]))
+
+
+@diag("bm2")
+def _bm2(pen, st):
+    """max(B²) (magnetic.f90:435)."""
+    return pen.b2().max()
+
+
+def _a2(pen):
+    aa = pen.aa()
+    return aa[0] ** 2 + aa[1] ** 2 + aa[2] ** 2
+
+
+@diag("arms")
+def _arms(pen, st):
+    return _vrms(pen, _a2(pen))
+
+
+@diag("a2m")
+def _a2m(pen, st):
+    return _vmean(pen, _a2(pen))
+
+
+@diag("amax")
+def _amax(pen, st):
+    """max|A| (magnetic.f90:6044)."""
+    return torch.sqrt(_a2(pen).max())
+
+
+@diag("j2m")
+def _j2m(pen, st):
+    return _vmean(pen, pen.j2())
+
+
+@diag("jbm")
+def _jbm(pen, st):
+    jj, bb = pen.jj(), pen.bb()
+    return _vmean(pen, jj[0] * bb[0] + jj[1] * bb[1] + jj[2] * bb[2])
+
+
+@diag("vA2m")
+def _va2m(pen, st):
+    return _vmean(pen, pen.b2() * pen.rho1())
+
+
+@diag("vArms")
+def _varms(pen, st):
+    return _vrms(pen, pen.va2())
+
+
+@diag("vAmax")
+def _vamax(pen, st):
+    return torch.sqrt(pen.va2().max())
+
+
+def _mean_field(pen, axes, comps):
+    """√<Σ B̄_c²> of the components ``comps`` of B averaged over ``axes``
+    (magnetic.f90 calc_bmx/calc_bmz: the components transverse to the
+    profile's axis carry the dynamo's mean field)."""
+    bb = pen.bb()
+    return torch.sqrt(torch.mean(sum(bb[c].mean(dim=axes) ** 2
+                                     for c in comps)))
+
+
+@diag("bmx")
+def _bmx(pen, st):
+    return _mean_field(pen, (1, 2), (1, 2))
+
+
+@diag("bmy")
+def _bmy(pen, st):
+    return _mean_field(pen, (0, 2), (0, 2))
+
+
+@diag("bmz")
+def _bmz(pen, st):
+    return _mean_field(pen, (0, 1), (0, 1))
+
+
+@diag("EEM")
+def _eem(pen, st):
+    """<B²/2> (magnetic.f90:5757)."""
+    return 0.5 * _vmean(pen, pen.b2())
+
+
+@diag("emag")
+def _emag(pen, st):
+    """∫B²/2 dV, a sum over the grid times the cell volume (a degenerate
+    axis weighs 1; magnetic.f90:533)."""
+    gs = pen.cfg.grid
+    dv = 1.0
+    for n, d in ((gs.nx, gs.dx), (gs.ny, gs.dy), (gs.nz, gs.dz)):
+        if n > 1:
+            dv *= d
+    return torch.sum(0.5 * pen.b2()) * dv
+
+
+# ---- dissipation ------------------------------------------------------------
+def _visc_heat(pen):
+    """Per-point viscous heating 2νS² + ν_sh·shock·(∇·u)² of the
+    configuration's Viscosity (the pencil the RHS leaves for Entropy is
+    not kept)."""
+    visc = pen.cfg.module("viscosity")
+    heat = torch.zeros_like(pen.divu())
+    if visc is None:
+        return heat
+    if visc.nu > 0.0:
+        heat = heat + 2.0 * visc.nu * pen.sij2()
+    if "nu-shock" in visc.ivisc and visc.nu_shock > 0.0 \
+            and "shock" in pen.reg.slots:
+        heat = heat + visc.nu_shock * pen.field("shock") * pen.divu() ** 2
+    return heat
+
+
+@diag("epsK")
+def _epsk(pen, st):
+    """<ρ·visc_heat> (viscosity.f90:2690)."""
+    return _vmean(pen, _visc_heat(pen) * pen.rho())
+
+
+@diag("epsM")
+def _epsm(pen, st):
+    """<η J²> (magnetic.f90:496)."""
+    mag = pen.cfg.module("magnetic")
+    return mag.eta * _vmean(pen, pen.j2())
+
+
 # the slot a diagnostic reads beyond uu and lnrho; without it the column is
 # refused like an unknown one (the JAX evaluator would fail on the missing
 # field)
-_NEEDS = {"brms": "aa", "bmax": "aa", "b2m": "aa", "jrms": "aa",
-          "jmax": "aa", "abm": "aa"}
+_NEEDS = dict.fromkeys(
+    ("brms", "bmax", "b2m", "bm2", "bx2m", "by2m", "bz2m", "arms", "a2m",
+     "axm", "aym", "azm", "amax", "jrms", "jmax", "j2m", "jbm", "abm",
+     "vA2m", "vArms", "vAmax", "bmx", "bmy", "bmz", "EEM", "emag", "epsM"),
+    "aa")
 _STATE_SCALARS = ("it", "t", "dt")
 
 

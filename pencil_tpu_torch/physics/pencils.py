@@ -189,6 +189,16 @@ class Pencils:
         return uij[0, 0] + uij[1, 1] + uij[2, 2]
 
     @_memo
+    def oo(self):
+        """Vorticity ∇×u (JAX pencils.py:403, the Cartesian branch)."""
+        uij = self.uij()
+        return torch.stack([
+            uij[2, 1] - uij[1, 2],
+            uij[0, 2] - uij[2, 0],
+            uij[1, 0] - uij[0, 1],
+        ])
+
+    @_memo
     def sij(self):
         """Traceless rate-of-strain S_ij: (3, 3, nx, ny, nz)."""
         uij = self.uij()
@@ -355,3 +365,8 @@ class Pencils:
     @_memo
     def jxbr(self):
         return self.jxb() * self.rho1()
+
+    @_memo
+    def va2(self):
+        """Alfvén speed squared B²/(µ₀ρ), µ₀ = 1."""
+        return self.b2() * self.rho1()

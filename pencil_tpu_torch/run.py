@@ -4,16 +4,22 @@
 Everything that depends on data but is slow lives here, outside the step:
 the output cadences (``it1`` diagnostics rows in ``time_series.dat``,
 ``isave`` rolling checkpoint ``var.npz``, ``dsnap`` snapshots
-``VAR<N>.npz``), control-file polling (STOP, SAVE), POSIX signals, the
-``dtmin`` abort with a crash dump, ``tmax`` and the wall-time limit.  The
-steps between two diagnostics rows run as one ``make_multi_step`` chunk
-with no host synchronisation inside; each row costs one device→host copy.
+``VAR<N>.npz``, ``it1d`` plane averages ``*averages.dat``, ``d2davg``
+phi averages ``averages/PHIAVG<n>``, ``dvid`` slices
+``slice_<field>_<plane>.npz``, ``dspec`` spectra ``power_<field>.dat``,
+the ``tavg`` running average ``timeavg.npz``, ``dsnap_down`` downsampled
+snapshots ``VARd<N>.npz``, ``sound_points`` probes ``sound.dat`` and
+``it_timing`` clock marks ``timing.dat``), control-file polling (STOP,
+SAVE), POSIX signals, the ``dtmin`` abort with a crash dump, ``tmax`` and
+the wall-time limit.  The steps between two diagnostics rows run as one
+``make_multi_step`` chunk with no host synchronisation inside; each output
+is evaluated on the model's device after the chunk and copied to the host
+in one go.
 
-Ported of ``RunParams``: nt, it1, isave, dsnap, tmax, dtmin, max_walltime,
-print_columns.  The other fields keep the JAX names and defaults, and
-``Run`` raises ``NotImplementedError`` when one is set to another value
-(averages, slices, spectra, time averages, downsampled snapshots, sound
-probes, the particle stalker, timing.dat, a sharded run, RELOAD).
+Every field of ``RunParams`` keeps the JAX name and default.  Not ported:
+the particle stalker (``dstalk``, ``npar_stalk``), a sharded run and
+RELOAD (``rundir``); ``Run`` raises ``NotImplementedError`` when one of
+them is asked for.
 """
 from __future__ import annotations
 
@@ -24,9 +30,14 @@ import signal
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from .io.averages import (AveragesWriter, PhiAvgWriter, ghosted_pencils,
+                          make_averages, make_phi_averages)
 from .io.diagnostics import make_diagnostics
+from .io.slices import SliceWriter
+from .io.spectra import SpectrumWriter, shell_spectrum
 from .io.snapshot import load_snapshot, save_snapshot
 from .io.timeseries import _DEFAULT_FMT, TimeSeriesWriter
 from .model import Model
@@ -64,9 +75,21 @@ class RunParams:
 
 
 # the fields whose features are not ported: any value but the default raises
-UNPORTED = ("it_timing", "it1d", "dvid", "dspec", "aver_names",
-            "phiaver_names", "d2davg", "tavg", "downsampl", "dsnap_down",
-            "power_fields", "sound_points", "dstalk", "npar_stalk")
+UNPORTED = ("dstalk", "npar_stalk")
+
+
+def to_host(tensors):
+    """Numpy copies of ``tensors`` (on one device, one dtype) made by one
+    device→host copy."""
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(tuple(t.shape)))
+        off += t.numel()
+    return out
 
 
 class Run:
@@ -100,6 +123,36 @@ class Run:
         self._nsnap = 0
         self._tsnap_last = 0.0
         self._sigstop = False
+        p = self.params
+        self.averages = None
+        self.aver_writer = None
+        if p.aver_names:
+            self.averages = make_averages(model, p.aver_names)
+            self.aver_writer = AveragesWriter(self.datadir, p.aver_names)
+        self.phiavg = None
+        if p.phiaver_names:
+            self.phiavg, rcyl, drcyl = make_phi_averages(model,
+                                                         p.phiaver_names)
+            self.phiavg_writer = PhiAvgWriter(
+                self.datadir, p.phiaver_names, model.grid, model.cfg.grid,
+                rcyl, drcyl)
+        self._t2davg_last = 0.0
+        self._tavg_fields = None    # running time average, on the device
+        self._tsnap_down_last = 0.0
+        self._nsnap_down = 0
+        self.slices = None
+        if p.dvid > 0:
+            self.slices = SliceWriter(self.datadir, p.slice_fields,
+                                      p.slice_planes)
+        self._tvid_last = 0.0
+        self._spec_writers = {}
+        if p.dspec > 0 and p.power_fields:
+            self._spec_writers = {
+                pf: SpectrumWriter(os.path.join(self.datadir,
+                                                f"power_{pf}.dat"))
+                for pf in p.power_fields}
+        self._tspec_last = 0.0
+        self._sound = self._sound_probes() if p.sound_points else None
 
     # ------------------------------------------------------------------
     def _control(self, name: str) -> bool:
@@ -128,6 +181,52 @@ class Run:
         save_snapshot(os.path.join(self.datadir, name), state,
                       model=self.model)
 
+    def _write_spectra(self, state, t):
+        """One record of each power_<field>.dat: "kin" the velocity's shell
+        spectrum, "mag" B's from the ghost-filled stack, any other name its
+        state field's."""
+        fields = self.model.unpack_state(state)["fields"]
+        specs = []
+        for pf in self._spec_writers:
+            if pf == "kin":
+                field = fields["uu"]
+            elif pf == "mag":
+                field = ghosted_pencils(self.model, state).bb()
+            else:
+                field = fields[pf]
+            specs.append(shell_spectrum(field))
+        for w, ek in zip(self._spec_writers.values(), to_host(specs)):
+            w.append(t, ek)
+
+    def _sound_probes(self):
+        """(slot, component or None, ix, iy, iz) of each sound field, the
+        indices over all probes as device tensors (reference sound.in;
+        the index int((x − x0)/dx) mod n of each axis, as JAX's)."""
+        gs = self.model.cfg.grid
+        idx = [(int((px - gs.x0) / gs.dx) % gs.nx,
+                int((py - gs.y0) / gs.dy) % gs.ny,
+                int((pz - gs.z0) / gs.dz) % gs.nz)
+               for px, py, pz in self.params.sound_points]
+        ix, iy, iz = (torch.tensor(v, device=self.model.device)
+                      for v in zip(*idx))
+        return [("uu" if f.startswith("u") else f,
+                 "xyz".index(f[1]) if f in ("ux", "uy", "uz") else None,
+                 ix, iy, iz) for f in self.params.sound_fields]
+
+    def _write_sound(self, state, t):
+        """One row of sound.dat: t, then each probe's sound fields (reference
+        write_sound, src/diagnostics.f90:497-617); one gather a field over
+        all probes, one copy to the host."""
+        fields = self.model.unpack_state(state)["fields"]
+        cols = []
+        for slot, comp, ix, iy, iz in self._sound:
+            arr = fields[slot] if comp is None else fields[slot][comp]
+            cols.append(arr[ix, iy, iz])
+        vals = to_host([torch.stack(cols, dim=1)])[0]    # (probe, field)
+        row = [f"{t:.6e}"] + [f"{float(v):.6e}" for v in vals.ravel()]
+        with open(os.path.join(self.datadir, "sound.dat"), "a") as fh:
+            fh.write(" ".join(row) + "\n")
+
     def resume(self):
         """Restart from the rolling checkpoint (reference rsnap): the state
         on the model's device, the model's generator as it was."""
@@ -145,14 +244,19 @@ class Run:
         return self._stepk[k](state)
 
     def _pick_chunk(self, p) -> int:
-        """Steps per call of ``_advance``: the diagnostics cadence, aligned
-        with the checkpoint cadence by their gcd.  The time-based cadence
-        (dsnap) is checked at chunk boundaries, so its output can be at
-        most it1 − 1 steps late, as the reference polls its control files
-        only at the diagnostic interval."""
+        """Steps per call of ``_advance``.  The per-step outputs (the time
+        average, the sound probes, timing.dat) force one; otherwise the
+        diagnostics cadence, aligned with the other step cadences (isave,
+        it1d) by their gcd.  The time-based cadences (dsnap, dvid, dspec,
+        d2davg, dsnap_down) are checked at chunk boundaries, so their
+        outputs can be at most it1 − 1 steps late, as the reference polls
+        its control files only at the diagnostic interval."""
+        if p.tavg > 0 or p.sound_points or p.it_timing:
+            return 1
         chunk = max(1, p.it1)
-        if p.isave:
-            chunk = math.gcd(chunk, p.isave)
+        for cad in (p.isave, p.it1d):
+            if cad:
+                chunk = math.gcd(chunk, cad)
         return chunk
 
     def main_loop(self, state: Dict) -> Dict:
@@ -175,6 +279,55 @@ class Run:
         finally:
             for sig, handler in old.items():
                 signal.signal(sig, handler)
+
+    def _write_outputs(self, state, i, t, dt):
+        """The outputs due after step ``i`` of the loop (at time ``t``, the
+        step's ``dt``), in the JAX loop's order (pencil_tpu/run.py:
+        341-408): plane averages, phi averages, the time average,
+        downsampled snapshots, slices, spectra."""
+        p = self.params
+        if p.it1d and i % p.it1d == 0 and self.averages:
+            prof = self.averages(state)
+            self.aver_writer.append(t, dict(zip(prof, to_host(
+                prof.values()))))
+        if self.phiavg and p.d2davg > 0 \
+                and t - self._t2davg_last >= p.d2davg:
+            self.phiavg_writer.append(t, to_host([self.phiavg(state)])[0])
+            self._t2davg_last = t
+        if p.tavg > 0:
+            # exponential time average with weight min(dt/tavg, 1)
+            # (reference timeavg.f90:77-88), a + w·(cur − a) as written:
+            # torch.lerp changes its formula at w ≥ 0.5
+            w = min(dt / p.tavg, 1.0)
+            cur = self.model.unpack_state(state)["fields"]
+            if self._tavg_fields is None:
+                self._tavg_fields = {k: v.clone() for k, v in cur.items()}
+            else:
+                self._tavg_fields = {k: a + w * (cur[k] - a)
+                                     for k, a in self._tavg_fields.items()}
+            if p.isave and i % p.isave == 0:
+                np.savez(os.path.join(self.datadir, "timeavg.npz"), t=t,
+                         **dict(zip(self._tavg_fields, to_host(
+                             self._tavg_fields.values()))))
+        if p.downsampl:
+            dd = p.dsnap_down or p.dsnap
+            if dd > 0 and t - self._tsnap_down_last >= dd:
+                # downsampled snapshot VARd<N> (reference run.f90:163-183
+                # ldownsampl + wsnap_down), strided on the device
+                self._nsnap_down += 1
+                sx, sy, sz = (list(p.downsampl) + [1, 1, 1])[:3]
+                fields = self.model.unpack_state(state)["fields"]
+                np.savez(os.path.join(
+                    self.datadir, f"VARd{self._nsnap_down}.npz"), t=t,
+                    **dict(zip(fields, to_host(
+                        v[..., ::sx, ::sy, ::sz] for v in fields.values()))))
+                self._tsnap_down_last = t
+        if self.slices and p.dvid > 0 and t - self._tvid_last >= p.dvid:
+            self.slices.capture(self.model, state)
+            self._tvid_last = t
+        if self._spec_writers and t - self._tspec_last >= p.dspec:
+            self._write_spectra(state, t)
+            self._tspec_last = t
 
     def _loop(self, state: Dict) -> Dict:
         p = self.params
@@ -199,15 +352,24 @@ class Run:
             else:
                 nxt = 1 if i == 0 else (i // chunk + 1) * chunk
                 k = min(nxt - i, p.nt - i)
+            t_step0 = time.time()
             state = self._advance(state, k)
             i += k
             it = it0 + i
+            # the copy waits for the chunk, so the clock below includes it
             dt, t = torch.stack((state["dt"], state["t"])).tolist()
             # per-chunk guards, whatever the diagnostics cadence: a blow-up
             # poisons dt through the CFL (reference run.f90:843)
             if not math.isfinite(dt):
                 self._checkpoint(state, "crash.npz")
                 raise FloatingPointError(f"non-finite dt at it={it}")
+            if p.it_timing and it % p.it_timing == 0:
+                # wall-clock marks at it_timing cadence (reference
+                # messages.f90:482-544)
+                with open(os.path.join(self.datadir, "timing.dat"),
+                          "a") as fh:
+                    fh.write(f"{it} {time.time() - t_wall0:.6f} step "
+                             f"{time.time() - t_step0:.6f}\n")
             if i % p.it1 == 0 or i == 1:
                 vals = self._write_diag(state)
                 if not math.isfinite(vals.get("urms", 0.0)):
@@ -222,10 +384,13 @@ class Run:
                 self._nsnap += 1
                 self._checkpoint(state, f"VAR{self._nsnap}.npz")
                 self._tsnap_last = t
+            self._write_outputs(state, i, t, dt)
             if self._sigstop or self._control("STOP"):
                 break
             if self._control("SAVE"):
                 self._checkpoint(state)
+            if self._sound is not None:
+                self._write_sound(state, t)
             if t >= p.tmax:
                 completed = True
                 break
@@ -245,6 +410,8 @@ class Run:
                              f"{time.time() - t_wall0:.1f}\n")
         else:
             completed = True
+        if self.slices:
+            self.slices.flush()
         self._checkpoint(state)
         elapsed = time.time() - t_wall0
         nsteps = int(state["it"]) - it0

@@ -12,7 +12,8 @@ instances of the z-ghosted builds (chi-const, del6), and every build
 under gravity) against their plain PyTorch versions
 on the card, and steps on the card against the same steps on the CPU
 (forced convection and the stratified shearing box among them), and the
-run loop's restart on the card.
+run loop's restart and its outputs (spectra, plane and phi averages) on
+the card against the CPU.
 Marked ``gpu``: they skip where there is no CUDA device.  On a machine
 with one, run them with
 
@@ -527,6 +528,44 @@ def test_run_restart_on_card_is_bit_exact(cuda, tmp_path):
     assert rows["it"] == [0, 1, 4, 8]
     assert all(torch.isfinite(torch.tensor(v)).all() for v in rows.values())
     assert (tmp_path / "a" / "COMPLETED").exists()
+
+
+def test_outputs_on_card_match_cpu(cuda):
+    """The spectra, plane averages and phi averages of one state on the
+    card against the same calls on the CPU: each within 2e-5 of its max
+    (the spectra of the card's cuFFT, the sums of its histogram)."""
+    from pencil_tpu_torch.io import averages, spectra
+    cfg = forced_entropy((16, 24, 20))
+    names = [f"{q}mz" for q in averages.QUANTS] + [
+        "uxmy", "bymx", "rhomxy", "uzmxz", "bzmyz"]
+    # one state for both: the card's generator draws other numbers
+    fields = {k: v.numpy() for k, v in pt.Model(cfg, device="cpu")
+              .init_state(3)["fields"].items()}
+    out = {}
+    for device in ("cuda", "cpu"):
+        pm = pt.Model(cfg, device=device)
+        state = pm.init_state(3, overrides=fields)
+        pen = averages.ghosted_pencils(pm, state)
+        res = {f"spec {k}": spectra.shell_spectrum(v) for k, v in
+               (("kin", state["fields"]["uu"]), ("mag", pen.bb()))}
+        res["spec xy"] = spectra.spectrum_xy(state["fields"]["uu"])
+        res["spec 1d"] = spectra.spectrum_1d(state["fields"]["uu"], 1)
+        e, h = spectra.helicity_spectrum(pen.uu(), pen.oo())
+        res.update({"spec hel e": e, "spec hel h": h})
+        res.update(averages.make_averages(pm, names)(pm.pack_state(state)))
+        res["phi"] = averages.make_phi_averages(
+            pm, ("uzmphi", "bzmphi"))[0](state)
+        if device == "cuda":
+            assert all(v.is_cuda for v in res.values())
+        out[device] = {k: v.cpu() for k, v in res.items()}
+        scale = {q: float(fn(pen).abs().max())
+                 for q, fn in averages.QUANTS.items()}
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k]
+        assert got.shape == want.shape and got.dtype == torch.float32, k
+        ref = (scale[averages.parse_aver_name(k)[0]]
+               if k in names else float(want.abs().max()))
+        assert float((got - want).abs().max()) <= RTOL_FIELD * ref, k
 
 
 def test_forced_shear_box_steps_on_card_match_cpu(cuda):

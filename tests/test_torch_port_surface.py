@@ -33,6 +33,10 @@ def test_import_pulls_in_no_jax():
         import pencil_tpu_torch.io.diagnostics
         import pencil_tpu_torch.io.snapshot
         import pencil_tpu_torch.io.timeseries
+        import pencil_tpu_torch.io.spectra
+        import pencil_tpu_torch.io.averages
+        import pencil_tpu_torch.io.slices
+        import pencil_tpu_torch.post.read
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'pencil_tpu')]
         print(bad)

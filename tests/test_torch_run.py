@@ -7,6 +7,7 @@ cadence, the control files, the guards, and the bit-exact restart from
 """
 import dataclasses
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -18,7 +19,10 @@ from pencil_tpu.io.diagnostics import make_diagnostics as jax_diagnostics
 from pencil_tpu.io.timeseries import TimeSeriesWriter as JaxWriter
 from pencil_tpu.io.timeseries import parse_print_in as jax_parse_print_in
 from pencil_tpu.run import RunParams as JaxRunParams
+from pencil_tpu_torch.io.averages import (PLANE_FILES, _suffix_of,
+                                          read_averages)
 from pencil_tpu_torch.io.diagnostics import make_diagnostics
+from pencil_tpu_torch.io.spectra import read_spectrum
 from pencil_tpu_torch.io.snapshot import load_snapshot, save_snapshot
 from pencil_tpu_torch.io.timeseries import (TimeSeriesWriter, parse_print_in,
                                             read_time_series)
@@ -30,10 +34,26 @@ torch.set_num_threads(1)
 COLUMNS = ("it", "t", "dt", "urms", "umax", "u2m", "rhom", "rhomin", "rhomax",
            "ssm", "TTm", "csm", "ethm", "brms", "bmax", "b2m", "jrms", "jmax",
            "abm", "ekintot", "ethtot")
+# the hydro, magnetic and dissipation columns of helical MHD turbulence
+HELICAL = ("ux2m", "uy2m", "uz2m", "uxm", "uym", "uzm", "uxmax", "uymax",
+           "uzmax", "uxmin", "uymin", "uzmin", "uxuym", "uxuzm", "uyuzm",
+           "divum", "divu2m", "orms", "oum", "omax", "o2m", "ekin", "EEK",
+           "Marms", "Mamax", "bx2m", "by2m", "bz2m", "arms", "a2m", "axm",
+           "aym", "azm", "amax", "jbm", "j2m", "vA2m", "vArms", "vAmax",
+           "bmx", "bmy", "bmz", "bm2", "emag", "EEM", "epsK", "epsM")
 # units in the last place allowed on the extrema: one, and four on jmax,
 # whose J = ∇∇·A − ∇²A is a difference of second derivatives that XLA may
 # contract into fused multiply-adds and torch does not
-MAXIMA = {"umax": 1, "bmax": 1, "jmax": 4, "rhomax": 1, "rhomin": 1}
+MAXIMA = {"umax": 1, "bmax": 1, "jmax": 4, "rhomax": 1, "rhomin": 1,
+          "uxmax": 1, "uymax": 1, "uzmax": 1, "uxmin": 1, "uymin": 1,
+          "uzmin": 1, "omax": 1, "Mamax": 1, "amax": 1, "vAmax": 1,
+          "bm2": 1}
+# signed means of zero-mean noise, whose sums cancel to a small part of
+# their terms: within 1e-6 of the rms of what they average (the square
+# root of the column named here); ∇·u's mean over a periodic box is zero
+# but for rounding
+SIGNED = {"uxm": "ux2m", "uym": "uy2m", "uzm": "uz2m", "axm": "a2m",
+          "aym": "a2m", "azm": "a2m", "divum": "divu2m"}
 
 
 def cfg8(**kw):
@@ -98,22 +118,26 @@ def both_rows():
     js = jm.init_state(2, overrides=fields)
     ps = pm.init_state(2, overrides=fields)
     want = {k: np.asarray(v) for k, v in
-            jax_diagnostics(jm, COLUMNS)(js).items()}
-    got = make_diagnostics(pm, COLUMNS)(ps)
-    assert list(got) == list(COLUMNS)
+            jax_diagnostics(jm, COLUMNS + HELICAL)(js).items()}
+    got = make_diagnostics(pm, COLUMNS + HELICAL)(ps)
+    assert list(got) == list(COLUMNS + HELICAL)
     assert all(v.ndim == 0 for v in got.values())
     return want, {k: v.numpy() for k, v in got.items()}
 
 
-@pytest.mark.parametrize("name", COLUMNS)
+@pytest.mark.parametrize("name", COLUMNS + HELICAL)
 def test_diagnostic_matches_jax(both_rows, name):
-    """Means within 1e-6 relative (a staged mean, axis by axis, as JAX's);
-    the maxima and minima within MAXIMA's units in the last place."""
+    """Means within 1e-6 relative (a staged mean, axis by axis, as JAX's),
+    the signed means of SIGNED within 1e-6 of their terms' rms; the maxima
+    and minima within MAXIMA's units in the last place."""
     want, got = both_rows
     w, g = np.float32(want[name]), np.float32(got[name])
     if name in MAXIMA:
         ulp = float(np.spacing(np.abs(w)))
         assert abs(float(g) - float(w)) <= MAXIMA[name] * ulp, name
+    elif name in SIGNED:
+        rms = float(np.sqrt(want[SIGNED[name]]))
+        assert abs(float(g) - float(w)) <= 1e-6 * rms, name
     else:
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=0.0)
     if name not in ("it", "t"):
@@ -168,6 +192,101 @@ def test_unported_run_features_raise(tmp_path, field):
         "params": RunParams(**{field: value})}
     with pytest.raises(NotImplementedError, match=field):
         Run(pm, datadir=tmp_path, **kw)
+
+
+def _layout_averages(d, name, n):
+    t, vals = read_averages(d / PLANE_FILES[_suffix_of(name)], [name],
+                            {name: n})
+    assert len(t) == 2 and vals[name].shape == (2, n)
+
+
+def _layout_phiavg(d):
+    raw = (d / "averages" / "PHIAVG1").read_bytes()
+    assert struct.unpack("<i4ii", raw[:24]) == (16, 4, 8, 1, 1, 16)
+    listed = (d / "averages" / "phiavg.files").read_text().split()
+    assert len(listed) >= 2 and listed == sorted(
+        f for f in os.listdir(d / "averages") if f.startswith("PHIAVG"))
+
+
+def _layout_slices(d):
+    for f in ("ux", "uz"):
+        for plane, shape in (("xy", (8, 8)), ("xz", (8, 8))):
+            with np.load(d / f"slice_{f}_{plane}.npz") as z:
+                assert sorted(z.files) == ["data", "t"]
+                assert z["data"].shape == (len(z["t"]),) + shape
+
+
+def _layout_snapshots(d, shape):
+    with np.load(d / "VARd1.npz") as z:
+        assert sorted(z.files) == ["aa", "lnrho", "ss", "t", "uu"]
+        assert z["uu"].shape == (3,) + shape and z["t"].ndim == 0
+
+
+def _layout_spectrum(d, name):
+    t, spec = read_spectrum(d / f"power_{name}.dat")
+    assert spec.shape == (len(t), 4) and len(t) >= 2
+
+
+def _layout_timeavg(d):
+    with np.load(d / "timeavg.npz") as z:
+        assert sorted(z.files) == ["aa", "lnrho", "ss", "t", "uu"]
+        assert z["uu"].shape == (3, 8, 8, 8) and z["t"].ndim == 0
+
+
+def _layout_sound(d):
+    rows = np.loadtxt(d / "sound.dat")
+    assert rows.shape == (4, 1 + 2)
+
+
+def _layout_timing(d):
+    rows = [ln.split() for ln in (d / "timing.dat").read_text()
+            .splitlines()]
+    assert [r[0] for r in rows] == ["2", "4"]
+    assert all(len(r) == 4 and r[2] == "step" for r in rows)
+
+
+# field → (the fields set, with the partner a field needs, the check of the
+# JAX-named file in the JAX layout)
+PORTED = {
+    "it_timing": (dict(it_timing=2), _layout_timing),
+    "it1d": (dict(it1d=2, aver_names=("uxmz",)),
+             lambda d: _layout_averages(d, "uxmz", 8)),
+    "aver_names": (dict(aver_names=("rhomy",), it1d=2),
+                   lambda d: _layout_averages(d, "rhomy", 8)),
+    "dvid": (dict(dvid=0.5), _layout_slices),
+    "dspec": (dict(dspec=0.5, power_fields=("kin",)),
+              lambda d: _layout_spectrum(d, "kin")),
+    "power_fields": (dict(power_fields=("mag",), dspec=0.5),
+                     lambda d: _layout_spectrum(d, "mag")),
+    "phiaver_names": (dict(phiaver_names=("uzmphi",), d2davg=0.6),
+                      _layout_phiavg),
+    "d2davg": (dict(d2davg=0.6, phiaver_names=("bzmphi",)),
+               _layout_phiavg),
+    "tavg": (dict(tavg=0.5, isave=2), _layout_timeavg),
+    "downsampl": (dict(downsampl=(2, 4, 1), dsnap=0.5),
+                  lambda d: _layout_snapshots(d, (4, 2, 8))),
+    "dsnap_down": (dict(dsnap_down=0.5, downsampl=(2, 2, 2)),
+                   lambda d: _layout_snapshots(d, (4, 4, 4))),
+    "sound_points": (dict(sound_points=((0.0, 0.0, 0.0), (1.0, 2.0, 3.0))),
+                     _layout_sound),
+}
+
+
+def test_every_run_field_is_ported_or_refused():
+    fields = {f.name for f in dataclasses.fields(RunParams)}
+    assert set(PORTED) | set(UNPORTED) <= fields
+    assert not set(PORTED) & set(UNPORTED)
+
+
+@pytest.mark.parametrize("field", sorted(PORTED))
+def test_ported_run_features_write_their_outputs(tmp_path, field):
+    """A field of RunParams whose output is ported, set with its partner
+    where it needs one, writes the JAX-named file in the JAX layout."""
+    kw, check = PORTED[field]
+    simulate(cfg8(), nt=4, datadir=tmp_path, quiet=True, device="cpu",
+             params=RunParams(it1=2, **kw))
+    check(tmp_path)
+    assert (tmp_path / "COMPLETED").exists()
 
 
 # ---- the loop ---------------------------------------------------------------------
