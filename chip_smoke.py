@@ -138,7 +138,15 @@ Phases, each printing its own lines:
      "error"; every file's records finite; Parseval on the final
      velocity), and 20 steps with the time average, 3 sound probes and
      timing.dat, one step a call; the wall µs per step and point of each,
-     the peak device memory and each evaluator's device ms;
+     the peak device memory and each evaluator's device ms; then the
+     run-directory entry point: two run directories at 256³ (helical MHD
+     turbulence in helical-MHDturb's shape, the reference's forcing draws
+     replayed, on K1-K3; stratified convection in conv-slab's shape on
+     K6/K7) through ``python -m pencil_tpu_torch`` start, run --nt 20 and
+     export in this process, the wall seconds of each, the launches per
+     step (1/1/1; 1/2) under the sync guard, the final state within 2e-5
+     of make_step's from the same replayed fields, the exported var.dat
+     read back through the C++ codec bit for bit;
   4. each kernel's time against its plain version, each plain chain's
      step time, and the K8 chain's step time beside the flagship's, at
      256³, and the conv-slab's and magnetoconvection's step split (K6 or
@@ -1388,6 +1396,8 @@ def main():
     run_simulate(torch, pt, fr, smi, shape)
     run_outputs(torch, pt, fr, smi, shape)
     mark("phase 3, the run driver's outputs")
+    run_rundir(torch, pt, fr, smi, shape)
+    mark("phase 3, the run directories")
     k8 = run_fake_chain(torch, pt, fr, smi, shape, launches,
                         float(fl[1]["dt"]))
 
@@ -1854,6 +1864,98 @@ def run_outputs(torch, pt, fr, smi, shape):
     print(f"phase 4 {N_MAIN}^3 output evaluators on {smi}, device ms a call "
           "(CUDA events, 5 calls after one): " + "; ".join(
               f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+
+
+# the run directories of phase 3 run_rundir: label -> (the writer in
+# pencil_tpu_torch.compat.samples, the path of PER_STEP its chain takes)
+RUNDIRS = {"helical MHD (helical-MHDturb)": ("helical_mhdturb", "flagship"),
+           "convection (conv-slab)": ("conv_slab", "conv-slab")}
+RUNDIR_NT = 20
+
+
+def run_rundir(torch, pt, fr, smi, shape):
+    """Phase 3, the run-directory entry point at full width: each run
+    directory of RUNDIRS written into a temporary directory, then
+    ``start``, ``run --nt 20`` and ``export`` through
+    ``pencil_tpu_torch.__main__.main`` in this process (the reference's
+    random stream replayed for the noise and, with the k.dat, the forcing;
+    every chunk of steps under the sync debug mode "error"; the launch
+    counts set to 0 just before ``run`` and read just after); the final
+    state against the same configuration through Model.make_step from the
+    same replayed fields; the exported var.dat read back through the C++
+    codec, bit for bit the run's final fields.  The directory is deleted
+    after each."""
+    from pencil_tpu_torch import run as prun
+    from pencil_tpu_torch.__main__ import main as cli
+    from pencil_tpu_torch.compat import io_dist, samples
+    from pencil_tpu_torch.compat.rundir import load_rundir
+    from pencil_tpu_torch.io.snapshot import load_snapshot
+    from pencil_tpu_torch.io.timeseries import read_time_series
+    check(io_dist.native_lib() is not None, "the C++ var.dat codec did not "
+          "build")
+    for label, (writer, path) in RUNDIRS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            d = getattr(samples, writer)(os.path.join(tmp, "run"), shape,
+                                         nt=RUNDIR_NT, it1=10)
+            secs = {}
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                cli(["start", d])
+                torch.cuda.synchronize()
+                secs["start"] = time.perf_counter() - t0
+                with guarded_runs(torch, prun):
+                    fr.reset_launches()
+                    t0 = time.perf_counter()
+                    cli(["run", d, "--nt", str(RUNDIR_NT)])
+                    torch.cuda.synchronize()
+                    secs["run"] = time.perf_counter() - t0
+                    counts = {k: v for k, v in fr.LAUNCHES.items() if v}
+                t0 = time.perf_counter()
+                cli(["export", d])
+                secs["export"] = time.perf_counter() - t0
+            per_step = PER_STEP[path]
+            check(counts == {k: n * RUNDIR_NT for k, n in per_step.items()},
+                  f"{label}: launches {counts}, need {per_step} per step")
+            if writer == "helical_mhdturb":
+                check(secs["start"] < 60.0,
+                      f"{label}: start took {secs['start']:.1f} s")
+            datadir = os.path.join(d, "data")
+            rows = read_time_series(os.path.join(datadir, "time_series.dat"))
+            check(all(math.isfinite(v) for vs in rows.values() for v in vs)
+                  and len(rows["t"]) == 4, f"{label}: time_series.dat")
+            cfg, info = load_rundir(d)
+            model = pt.Model(cfg, device="cuda")
+            check(model.mode == ("wrap" if path == "flagship" else "zghost"),
+                  f"{label}: chain {model.mode}")
+            cli_state = load_snapshot(os.path.join(datadir, "var.npz"),
+                                      model)
+            check(int(cli_state["it"]) == RUNDIR_NT, f"{label}: it")
+            ref = model.init_state(0, overrides=info["init_overrides"])
+            step = model.make_step()
+            for _ in range(RUNDIR_NT):
+                ref = step(ref)
+            worst = {}
+            for k, v in ref["fields"].items():
+                d_max = float((cli_state["fields"][k] - v).abs().max())
+                worst[k] = d_max / float(v.abs().max())
+                check(worst[k] <= RTOL_FIELD, f"{label}: {k} {worst[k]}")
+            vf = io_dist.read_var(os.path.join(datadir, "proc0", "var.dat"))
+            fa = model.reg.stack(cli_state["fields"]).cpu().numpy()
+            check(np.array_equal(vf.f[:, 3:-3, 3:-3, 3:-3], fa),
+                  f"{label}: var.dat read back differs")
+            del model, cli_state, ref, step, fa, vf
+            torch.cuda.empty_cache()
+        print(out.getvalue(), end="", flush=True)
+        print(f"phase 3 {N_MAIN}^3 run directory, {label} on {smi}: "
+              f"python -m pencil_tpu_torch start {secs['start']:.2f} s, "
+              f"run --nt {RUNDIR_NT} {secs['run']:.2f} s, export "
+              f"{secs['export']:.2f} s; launches per step {per_step}; no "
+              "sync inside a chunk; the CLI's state against make_step from "
+              "the same replayed fields: worst |diff|/max "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + "; var.dat read back by the C++ codec: bit for bit",
+              flush=True)
 
 
 def run_fake_chain(torch, pt, fr, smi, shape, launches, dt):

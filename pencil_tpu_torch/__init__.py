@@ -24,7 +24,10 @@ central differences, the 2N-RK orders 1-4):
 ``time_series.dat``, rolling checkpoints and bit-exact restart, power
 spectra, plane and phi averages, slices, time averages, downsampled
 snapshots, sound probes and ``timing.dat`` (``post.read`` reads them
-back).
+back).  ``python -m pencil_tpu_torch start|run|export <rundir>`` runs a
+Pencil Code run directory (``compat.rundir`` loads it, replaying the
+reference's random stream; ``compat.io_dist`` writes the reference's
+var.dat).
 
 The JAX package ``pencil_tpu`` is the reference it is held to; this
 package never imports it or JAX.

@@ -389,7 +389,9 @@ class Model:
         forcing = cfg.module("forcing")
         self.forcing = forcing if forcing is not None and forcing.force != 0.0 \
             else None
-        self._ftables = (self.forcing.tables(cfg.grid, self.device, self.dtype)
+        self._ftables = (self.forcing.tables(cfg.grid, self.device,
+                                             self.dtype,
+                                             shear=cfg.module("shear"))
                          if self.forcing is not None else None)
         # the random stream of init_state and of the forcing draws
         self.generator = torch.Generator(self.device)
@@ -569,9 +571,14 @@ class Model:
                     fg.narrow(1 + axis, pos_g, 1))
         return fa
 
-    def _draws(self):
+    def _draws(self, state=None, dt=None):
+        """One step's forcing draws: the hook's, in replay mode the step's
+        (it, end time) from ``state`` and ``dt`` (JAX model.py:924-933
+        passes the starting it and t + dt), else the generator's."""
         if self.forcing_draws is not None:
             return self.forcing_draws()
+        if self.forcing.sequence is not None:
+            return state["it"], state["t"] + dt
         return self.forcing.draw(self._ftables, self.generator)
 
     def _new_dt(self, dt1m, dt_prev):
@@ -595,15 +602,16 @@ class Model:
             out["fields"] = self.reg.unstack(fa)
         return out
 
-    def _kick_after(self, fa, dt):
+    def _kick_after(self, fa, dt, state=None):
         """``fa`` with the forcing kick added to its u rows after the step
-        (JAX model.py:924-933), for the chains whose kernels do not kick;
-        ``fa`` itself when the run is unforced."""
+        from ``state`` (JAX model.py:924-933), for the chains whose kernels
+        do not kick; ``fa`` itself when the run is unforced."""
         if self.forcing is None:
             return fa
         sl = self.reg.slice("uu")
         uu = self.forcing.after_timestep({"uu": fa[sl]}, self.grid,
-                                         self._ftables, self._draws(), dt,
+                                         self._ftables,
+                                         self._draws(state, dt), dt,
                                          self.eos)["uu"]
         return torch.cat([fa[: sl.start], uu, fa[sl.stop:]])
 
@@ -625,7 +633,7 @@ class Model:
         dt = self._new_dt(dt1m, state["dt"])
         if nsub == 1:
             return self._finish(state, self._kick_after(
-                fa + beta[0] * dt * df, dt), dt)
+                fa + beta[0] * dt * df, dt, state), dt)
         f = fa
         for isub in range(1, nsub):
             coef = torch.stack((self._alpha[isub], beta[isub] * dt,
@@ -638,8 +646,8 @@ class Model:
                 continue
             kick = None
             if self.forcing is not None:
-                kick = self.forcing.kick_vector(self._ftables, self._draws(),
-                                                dt, self.eos)
+                kick = self.forcing.kick_vector(
+                    self._ftables, self._draws(state, dt), dt, self.eos)
             if isub == 1:
                 f = defer_last(self, fa, df, coef, kick)
             else:
@@ -675,7 +683,7 @@ class Model:
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, fa = upd(self, *self.zg_input(fa, sdy(isub, dt)), df, coef)
         return self._finish(state, self._kick_after(self.bc_writeback(fa),
-                                                    dt), dt)
+                                                    dt, state), dt)
 
     def _aux_step(self, state: Dict, kernels=None):
         """One 2N-RK step of the zroll chain (JAX model.py:576-730) or the
@@ -717,7 +725,7 @@ class Model:
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, f_new = upd(self, kernel_input(fa, sdy), df, coef)
             fa = updated(fa, f_new)
-        return self._finish(state, self._kick_after(fa, dt), dt)
+        return self._finish(state, self._kick_after(fa, dt, state), dt)
 
     def _eager_step(self, state: Dict):
         """One 2N-RK step from the plain RHS, the boundary-plane writeback
@@ -751,7 +759,8 @@ class Model:
         fields = self.reg.unstack(self.bc_writeback(fa))
         if self.forcing is not None:
             fields = self.forcing.after_timestep(
-                fields, self.grid, self._ftables, self._draws(), dt, self.eos)
+                fields, self.grid, self._ftables, self._draws(state, dt), dt,
+                self.eos)
         return {"fields": fields, "t": state["t"] + dt, "dt": dt,
                 "it": state["it"] + 1}
 

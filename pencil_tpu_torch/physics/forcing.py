@@ -11,12 +11,21 @@ to u.  ``draw`` makes the three draws with a ``torch.Generator`` on the
 model's device; a caller may supply them instead (``Model.forcing_draws``),
 which is how the tests inject the JAX package's threefry draws.  Everything
 after the draws is device tensor arithmetic, so a step needs no host sync.
+
+Replay mode (``sequence`` set; JAX ``_replay``, pencil_tpu/physics/
+forcing.py:130-193, reference fconst_coefs_hel, src/forcing.f90:1578-1730):
+the run-directory loader records the reference's per-step draws (k,
+phase, φ) from its own random stream; the row of step ``it`` (the last
+row past the end) builds the separable helical eigenfunction, and the
+kick is fact·Re[(coef1 + i·coef2)·e^{i(k·x+phase)}], the same form as
+above with f_re = coef1, f_im = coef2 and N·dt = fact.  The table lives
+on the device and the row is picked by the state's ``it`` tensor.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import ClassVar
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
@@ -47,6 +56,14 @@ class ForcingTables:
     box: torch.Tensor        # (3,) 2π/L per axis
     norm: torch.Tensor       # 0-d 1/√(1+σ²)
     zero: torch.Tensor       # (1,) padding of the kick vector
+    # replay mode: the (nt, 5) rows (kx, ky, kz, phase, φ), √(1+σ²), the
+    # unit vectors x̂ and ŷ, and the grid and Shear of the kx shift
+    seq: Optional[torch.Tensor] = None
+    hel: Optional[torch.Tensor] = None
+    ex: Optional[torch.Tensor] = None
+    ey: Optional[torch.Tensor] = None
+    spec: object = None
+    shear: object = None
 
 
 @dataclass(frozen=True)
@@ -57,16 +74,38 @@ class Forcing(ModuleBase):
     kf: float = 3.0      # forcing-shell radius in box-wavenumber units
     dk: float = 0.5
     relhel: float = 1.0  # σ: 1 = maximally helical, 0 = non-helical
+    # replay mode: the reference's per-step draws ((kx, ky, kz, phase, φ),
+    # ...), the shell's mean |k| from k.dat, slope_ff and cs0eff as in
+    # fconst_coefs_hel; lscale_kvector_tobox scales k.dat's integer
+    # wavevectors by 2π/L per axis (kav stays unscaled, as there)
+    sequence: tuple = None
+    kav: float = 0.0
+    slope_ff: float = 0.0
+    cs0eff: float = 1.0
+    lscale_kvector_tobox: bool = False
 
-    def tables(self, spec, device, dtype=torch.float32) -> ForcingTables:
+    def tables(self, spec, device, dtype=torch.float32,
+               shear=None) -> ForcingTables:
+        """The model's forcing constants on ``device``; ``shear`` (the
+        Shear module or None) shifts a replayed kx into the shearing
+        frame."""
         box = [2.0 * np.pi / L for L in (spec.Lx, spec.Ly, spec.Lz)]
+        dev = dict(dtype=dtype, device=device)
+        replay = {}
+        if self.sequence is not None:
+            replay = dict(
+                seq=torch.tensor(self.sequence, **dev).reshape(-1, 5),
+                hel=torch.sqrt(torch.tensor(1.0 + self.relhel * self.relhel,
+                                            **dev)),
+                ex=torch.tensor([1.0, 0.0, 0.0], **dev),
+                ey=torch.tensor([0.0, 1.0, 0.0], **dev),
+                spec=spec, shear=shear)
         return ForcingTables(
-            shell=torch.as_tensor(shell_vectors(self.kf, self.dk),
-                                  dtype=dtype, device=device),
-            box=torch.tensor(box, dtype=dtype, device=device),
+            shell=torch.as_tensor(shell_vectors(self.kf, self.dk), **dev),
+            box=torch.tensor(box, **dev),
             norm=1.0 / torch.sqrt(torch.tensor(
-                1.0 + self.relhel * self.relhel, dtype=dtype, device=device)),
-            zero=torch.zeros(1, dtype=dtype, device=device))
+                1.0 + self.relhel * self.relhel, **dev)),
+            zero=torch.zeros(1, **dev), **replay)
 
     @staticmethod
     def draw(tables: ForcingTables, generator):
@@ -81,7 +120,10 @@ class Forcing(ModuleBase):
 
     def kick_coeffs(self, tables: ForcingTables, draws, dt, eos):
         """(k_phys(3), phase, f_re(3), f_im(3), N·dt) from one step's draws;
-        duu = N·dt·Re[(f_re + i f_im)·e^{i(k·x+phase)}]."""
+        duu = N·dt·Re[(f_re + i f_im)·e^{i(k·x+phase)}].  In replay mode
+        ``draws`` is (it, t): the step's index and its end time."""
+        if self.sequence is not None:
+            return self._replay_coeffs(tables, draws, dt)
         idx, phase, e = draws
         kvec = torch.index_select(tables.shell, 0, idx.reshape(1))[0]
         e = e / torch.sqrt(torch.sum(e * e))
@@ -100,6 +142,46 @@ class Forcing(ModuleBase):
         N = self.force * cs0 * torch.sqrt(
             kf_mag * cs0 / torch.clamp_min(dt, 1e-30))
         return k_phys, phase, f_re, f_im, N * dt
+
+    def _replay_coeffs(self, tables: ForcingTables, draws, dt):
+        """The replay's (k, phase, coef1, coef2, fact) from the sequence's
+        row ``it`` (JAX forcing.py:130-193: the shearing-frame kx shift at
+        ``t``, e = x̂ unless k ∥ x̂, rotated by φ about k)."""
+        it, t = draws
+        seq = tables.seq
+        row = torch.index_select(
+            seq, 0, torch.clamp(it, 0, seq.shape[0] - 1).reshape(1).long())[0]
+        kvec = row[:3]
+        if self.lscale_kvector_tobox:
+            kvec = kvec * tables.box
+        phase, phi = row[3], row[4]
+        kx, ky, kz = kvec[0], kvec[1], kvec[2]
+        if tables.shear is not None and t is not None:
+            # shearing-frame forcing: kx stays shear-periodic near kx0
+            # (forcing.f90:1396-1407); Fortran mod keeps the dividend's sign
+            gs = tables.spec
+            deltay = tables.shear.deltay(t, gs.Lx, gs.Ly)
+            pix = math.pi / gs.Lx
+            arg = ky * deltay / gs.Lx - pix
+            fmod = arg - torch.trunc(arg / (2.0 * pix)) * (2.0 * pix)
+            kx = kx + fmod + pix
+            kvec = torch.stack([kx, ky, kz])
+        e = torch.where((ky == 0.0) & (kz == 0.0), tables.ey, tables.ex)
+        e1 = torch.linalg.cross(kvec, e)
+        e1 = e1 / torch.sqrt(torch.sum(e1 * e1))
+        e2 = torch.linalg.cross(kvec, e1)
+        e2 = e2 / torch.sqrt(torch.sum(e2 * e2))
+        ee = torch.cos(phi) * e1 + torch.sin(phi) * e2
+        k2 = torch.sum(kvec * kvec)
+        k = torch.sqrt(k2)
+        kde = torch.sum(kvec * ee)
+        kxe = torch.linalg.cross(kvec, ee)
+        kkxe = torch.linalg.cross(kvec, kxe)
+        ffnorm = (tables.hel * k * torch.sqrt(k2 - kde * kde)
+                  / float(np.sqrt(self.kav * self.cs0eff ** 3))
+                  * (k / self.kav) ** self.slope_ff)
+        fact = self.force / ffnorm * torch.sqrt(dt)
+        return kvec, phase, k * kxe, self.relhel * kkxe, fact
 
     def kick_vector(self, tables: ForcingTables, draws, dt, eos):
         """The (12,) kick vector the last-substep kernel reads:

@@ -4,8 +4,8 @@ power()`` over a data directory).
 
 Host numpy code over the run's native outputs: ``time_series.dat``, the
 ``.npz`` snapshots, the slice ``.npz`` files, the ``*averages.dat`` files
-and ``power_*.dat``.  The reference-format var.dat and HDF5 snapshots need
-the compatibility codecs, which are not ported.
+and ``power_*.dat``; and the reference-format var.dat through the codec
+of ``compat/io_dist.py``.  HDF5 snapshots are not ported.
 """
 from __future__ import annotations
 
@@ -30,21 +30,40 @@ def ts(datadir="data"):
                            keys=list(data))
 
 
-def var(varfile="var.npz", datadir="data"):
+def var(varfile="var.npz", datadir="data", trimall=False):
     """Snapshot as an object with named field arrays (pc.read.var contract:
     var.uu, var.lnrho, ..., var.t, var.dt, var.it) from an ``.npz``
-    snapshot, the port's or the JAX package's."""
+    snapshot, the port's or the JAX package's; or from a reference-format
+    var.dat (``f``, ``t``, the coordinates and spacings, ``deltay``, and a
+    component per ``index.pro`` entry beside the file, its ghost zones cut
+    with ``trimall``), as JAX ``post/read.py:30-85`` reads it."""
     path = os.path.join(str(datadir), str(varfile))
     if not os.path.exists(path) and os.path.exists(str(varfile)):
         path = str(varfile)
-    if not path.endswith(".npz"):
+    if path.endswith(".npz"):
+        st = load_snapshot(path, device="cpu")
+        return SimpleNamespace(
+            **{k: v.numpy() for k, v in st["fields"].items()},
+            t=float(st["t"]), dt=float(st["dt"]), it=int(st["it"]))
+    if path.endswith(".h5"):
         raise NotImplementedError(
-            f"pencil_tpu_torch.post.read.var: {path}: only .npz snapshots "
-            "(the var.dat and HDF5 codecs are not ported)")
-    st = load_snapshot(path, device="cpu")
-    return SimpleNamespace(**{k: v.numpy() for k, v in st["fields"].items()},
-                           t=float(st["t"]), dt=float(st["dt"]),
-                           it=int(st["it"]))
+            f"pencil_tpu_torch.post.read.var: {path}: the HDF5 codec is "
+            "not ported")
+    from ..compat.io_dist import read_var
+    vf = read_var(path, datadir=datadir)
+    ns = SimpleNamespace(f=vf.f, t=vf.t, x=vf.x, y=vf.y, z=vf.z,
+                         dx=vf.dx, dy=vf.dy, dz=vf.dz, deltay=vf.deltay)
+    idx_path = os.path.join(os.path.dirname(path), "index.pro")
+    if os.path.exists(idx_path):
+        sl = (slice(3, -3) if trimall else slice(None),) * 3
+        with open(idx_path) as fh:
+            for line in fh:
+                if "=" in line:
+                    name, num = line.strip().split("=")
+                    i = int(num) - 1
+                    if 0 <= i < vf.f.shape[0]:
+                        setattr(ns, name.lstrip("i"), vf.f[(i,) + sl])
+    return ns
 
 
 def slices(field="ux", plane="xy", datadir="data"):

@@ -10,16 +10,16 @@ phi averages ``averages/PHIAVG<n>``, ``dvid`` slices
 the ``tavg`` running average ``timeavg.npz``, ``dsnap_down`` downsampled
 snapshots ``VARd<N>.npz``, ``sound_points`` probes ``sound.dat`` and
 ``it_timing`` clock marks ``timing.dat``), control-file polling (STOP,
-SAVE), POSIX signals, the ``dtmin`` abort with a crash dump, ``tmax`` and
-the wall-time limit.  The steps between two diagnostics rows run as one
+SAVE, and with a run directory RELOAD, which re-reads run.in), POSIX
+signals, the ``dtmin`` abort with a crash dump, ``tmax`` and the
+wall-time limit.  The steps between two diagnostics rows run as one
 ``make_multi_step`` chunk with no host synchronisation inside; each output
 is evaluated on the model's device after the chunk and copied to the host
 in one go.
 
 Every field of ``RunParams`` keeps the JAX name and default.  Not ported:
-the particle stalker (``dstalk``, ``npar_stalk``), a sharded run and
-RELOAD (``rundir``); ``Run`` raises ``NotImplementedError`` when one of
-them is asked for.
+the particle stalker (``dstalk``, ``npar_stalk``) and a sharded run;
+``Run`` raises ``NotImplementedError`` when one of them is asked for.
 """
 from __future__ import annotations
 
@@ -102,12 +102,11 @@ class Run:
                if getattr(self.params, f) != getattr(defaults, f)]
         if sharded:
             bad.append("sharded")
-        if rundir is not None:
-            bad.append("rundir (RELOAD)")
         if bad:
             raise NotImplementedError(
                 f"pencil_tpu_torch.Run: not ported: {', '.join(bad)}")
         self.model = model
+        self.rundir = rundir        # enables RELOAD
         self.datadir = str(datadir)
         self.quiet = quiet
         os.makedirs(self.datadir, exist_ok=True)
@@ -226,6 +225,28 @@ class Run:
         row = [f"{t:.6e}"] + [f"{float(v):.6e}" for v in vals.ravel()]
         with open(os.path.join(self.datadir, "sound.dat"), "a") as fh:
             fh.write(" ".join(row) + "\n")
+
+    def _reload(self, state):
+        """RELOAD: re-read the run directory through the loader and rebuild
+        the model and its step on the same device, keeping the state and
+        the generator's stream; the old model stays when the slot set
+        changed (JAX run.py:173-186)."""
+        from .compat.rundir import load_rundir
+        cfg, _ = load_rundir(self.rundir)
+        new_model = Model(cfg, device=self.model.device)
+        if list(new_model.reg.slots) != list(self.model.reg.slots):
+            print("RELOAD: slot set changed; keeping old model", flush=True)
+            return state
+        new_model.generator.set_state(self.model.generator.get_state())
+        self.model = new_model
+        self.step = new_model.make_step()
+        self._stepk = {}
+        self.diag = make_diagnostics(new_model,
+                                     [c[0] for c in self.ts_writer.columns],
+                                     allow_unknown=True)
+        if not self.quiet:
+            print("RELOAD: run parameters re-read, step rebuilt", flush=True)
+        return state
 
     def resume(self):
         """Restart from the rolling checkpoint (reference rsnap): the state
@@ -389,6 +410,9 @@ class Run:
                 break
             if self._control("SAVE"):
                 self._checkpoint(state)
+            if self._control("RELOAD") and self.rundir:
+                # reference RELOAD: re-read run.in (src/run.f90:543-580)
+                state = self._reload(state)
             if self._sound is not None:
                 self._write_sound(state, t)
             if t >= p.tmax:

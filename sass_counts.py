@@ -29,7 +29,8 @@ fields), of ``fused_rhs_zg_iso``, ``fused_rhs_zg_iso_mag``,
 K6mi/K7mi, K6si/K7si and K6msi/K7msi (4 and 7 ring fields), and K6rot,
 K7rot their Coriolis
 instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones,
-K6chih3, K7chih3 both and K6roth3, K7roth3 del6 with rotation; K1h3, K2h3, K3h3, K3midh3
+K6chih3, K7chih3 both, K6roth3, K7roth3 del6 with rotation and
+K6rotchi, K7rotchi chi-const with rotation; K1h3, K2h3, K3h3, K3midh3
 and K2Lh3 are the del6 instances of the four periodic builds);
 ``--so`` reads any library built from csrc/fused_rhs.cu, e.g. a variant
 that time_loader_variants.py left in pencil_tpu_torch/_build/variants/,
@@ -95,6 +96,9 @@ INSTANCES = {
     "K6chih3": (1, 0, 0, 0, 0, 0, 1, 1), "K7chih3": (0, 0, 0, 0, 0, 0, 1, 1),
     # with rotation too (the stratified MRI box with del6)
     "K6roth3": (1, 0, 0, 0, 0, 1, 1), "K7roth3": (0, 0, 0, 0, 0, 1, 1),
+    # chi-const with rotation (the stratified shearing box with ss)
+    "K6rotchi": (1, 0, 0, 0, 0, 1, 0, 1),
+    "K7rotchi": (0, 0, 0, 0, 0, 1, 0, 1),
 }
 NFLAGS = 8       # the template arguments of pc_flagship
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template

@@ -312,9 +312,11 @@ def test_post_read_reads_the_jax_files(tmp_path, models, reader):
 
 
 def test_post_read_refuses_what_is_not_ported(tmp_path):
-    (tmp_path / "var.dat").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="var.dat"):
-        pread.var("var.dat", tmp_path)
+    """The HDF5 snapshot (the reference var.dat is read since its codec
+    was ported)."""
+    (tmp_path / "var.h5").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="var.h5"):
+        pread.var("var.h5", tmp_path)
 
 
 # ---- both run loops with every output ----------------------------------------

@@ -37,6 +37,10 @@ def test_import_pulls_in_no_jax():
         import pencil_tpu_torch.io.averages
         import pencil_tpu_torch.io.slices
         import pencil_tpu_torch.post.read
+        import pencil_tpu_torch.__main__
+        import pencil_tpu_torch.compat.rundir
+        import pencil_tpu_torch.compat.io_dist
+        import pencil_tpu_torch.compat.pencil_rng
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'pencil_tpu')]
         print(bad)

@@ -180,15 +180,15 @@ def test_run_params_mirror_jax():
     assert mine == ref
 
 
-@pytest.mark.parametrize("field", UNPORTED + ("sharded", "rundir"))
+@pytest.mark.parametrize("field", UNPORTED + ("sharded",))
 def test_unported_run_features_raise(tmp_path, field):
     """A field of RunParams whose feature is not ported raises when it is
-    set, and so do a sharded run and RELOAD's rundir."""
+    set, and so does a sharded run."""
     pm = pt.Model(cfg8(), device="cpu")
     default = getattr(RunParams(), field, None)
-    value = {"sharded": True, "rundir": "."}.get(
+    value = {"sharded": True}.get(
         field, ("x",) if isinstance(default, tuple) else 1)
-    kw = {field: value} if field in ("sharded", "rundir") else {
+    kw = {field: value} if field == "sharded" else {
         "params": RunParams(**{field: value})}
     with pytest.raises(NotImplementedError, match=field):
         Run(pm, datadir=tmp_path, **kw)

@@ -1,0 +1,418 @@
+"""The run-directory loader of pencil_tpu_torch against pencil_tpu's, on
+the CPU: the namelist parser on a corpus of texts; the reference random
+streams (``MarsRan``, ``Ran0``) drawn, gaussian noise made and the helical
+forcing sequence drawn bit for bit as JAX's scalar code does; two run
+directories written here in the shapes of the reference samples
+``helical-MHDturb`` (with a ``k.dat``) and ``conv-slab`` loaded into the
+same modules, boundary conditions, time step, info and replayed initial
+fields as the JAX loader gives, and into ``configs.flagship`` and
+``configs.conv_slab``; the replayed forcing kick against JAX's
+``_replay`` (with Shear at t ≠ 0); the var.dat codec; and a refusal that
+names its slot, group or value for everything the port lacks.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import pencil_tpu as pj
+import pencil_tpu.compat.pencil_rng as jrng
+import pencil_tpu_torch as pt
+import pencil_tpu_torch.compat.pencil_rng as trng
+from pencil_tpu.compat.namelist import parse_namelists as jax_parse
+from pencil_tpu.compat.rundir import load_rundir as jax_load
+from pencil_tpu.core.grid import make_grid as jax_make_grid
+from pencil_tpu_torch.compat import io_dist, samples
+from pencil_tpu_torch.compat.namelist import parse_namelists
+from pencil_tpu_torch.compat.rundir import load_rundir
+from pencil_tpu_torch.core.grid import make_grid
+from pencil_tpu_torch.physics.forcing import shell_vectors
+from pencil_tpu_torch.post import read as pread
+
+torch.set_num_threads(1)
+
+HELICAL_N = 8
+CONV_N = (8, 8, 16)
+
+
+# ---- the two run directories -------------------------------------------------
+def helical_rundir(d, nt=6):
+    """helical-MHDturb's shape with the values of ``configs.flagship``."""
+    return samples.helical_mhdturb(d, HELICAL_N, nt=nt, it1=2)
+
+
+def conv_rundir(d, nt=6, uu_ampl="1e-3"):
+    """conv-slab's shape with the values of ``configs.conv_slab``."""
+    return samples.conv_slab(d, CONV_N, nt=nt, it1=2, uu_ampl=uu_ampl)
+
+
+RUNDIRS = {"helical": (helical_rundir, HELICAL_N, "flagship"),
+           "conv": (conv_rundir, CONV_N, "conv_slab")}
+
+
+# ---- the namelist parser -------------------------------------------------------
+CORPUS = [
+    "&init_pars\n  xyz0=-3.1416,-3.1416,-3.1416, lperi=T,T,F\n/\n",
+    "&hydro_init_pars\n inituu='gaussian-noise', ampluu=1e-3 ! noise\n/\n",
+    "&run_pars\n nt=10, it1=2, dsnap=1.d-1, random_gen='nr_f90'\n/\n",
+    "&entropy_run_pars\n iheatcond='K-const','chi-const', hcond0=8e-3\n/\n",
+    "&init_pars\n bcz = 's','s','a','a2','c1:cT', fbcz1=5*0., fbcz2=0.,0.,"
+    "0.,0.,1.\n/\n",
+    "&magnetic_init_pars\n initaa='Ax=cosysinz', amplaa(2)=1e-3, "
+    "kz_aa(1)=2.\n/\n",
+    "&forcing_run_pars\n iforce='helical', force=.07, relhel=-1.,"
+    " lscale_kvector_tobox=.true.\n/\n",
+    "&viscosity_run_pars\n ivisc='nu-const','hyper3-simplified', "
+    "nu=5e-3, nu_hyper3=1.e-10\n/\n&shear_run_pars\n qshear=1.5\n/\n",
+    "&init_pars\n cvsid='$Id: start.in,v 1.1 2020/01/01 x $'\n"
+    " unit_system='cgs', unit_length=3.08d21, lfix_unit_std=F\n/\n",
+    "&density_init_pars\n initlnrho='piecew-poly', widthlnrho=0.05,\n"
+    " ldensity_nolog=F\n/\n&eos_init_pars\n/\n",
+]
+
+
+@pytest.mark.parametrize("text", CORPUS, ids=range(len(CORPUS)))
+def test_namelist_parsing_matches_jax(text):
+    assert parse_namelists(text) == jax_parse(text)
+
+
+# ---- the random streams ----------------------------------------------------------
+def _state(r):
+    return (r.s1, r.s2) if hasattr(r, "s1") else r.s
+
+
+GENERATORS = {
+    "mars_start": lambda m, s: m.start_seed(s, 0),
+    "mars_rank3": lambda m, s: m.start_seed(s, 3),
+    "mars_init": lambda m, s: m.MarsRan(s),
+    "ran0_start": lambda m, s: m.Ran0(-((s - 1812 + 1) * 10)),
+    "ran0_seed": lambda m, s: m.Ran0(s),
+}
+
+
+@pytest.mark.parametrize("seed", (1812, 1813, 4242))
+@pytest.mark.parametrize("gen", sorted(GENERATORS))
+def test_streams_match_the_scalar_code(gen, seed, monkeypatch):
+    """draw, next after draw and the state after each, gaunoise_vect of 1
+    and 3 components and the forcing sequence: bit for bit against the JAX
+    scalar code, with the lane blocks small enough to be crossed."""
+    monkeypatch.setattr(trng, "_BLOCK", 997)
+    a, b = GENERATORS[gen](jrng, seed), GENERATORS[gen](trng, seed)
+    for n in (0, 1, 7, 2500):
+        x, y = a.draw(n), b.draw(n)
+        assert np.array_equal(x.view(np.uint32), y.view(np.uint32)), n
+        assert _state(a) == _state(b)
+        assert a.next() == b.next() and _state(a) == _state(b)
+    for ncomp in (1, 3):
+        x = jrng.gaunoise_vect(a, 1e-3, 14, 11, 9, ncomp)
+        y = trng.gaunoise_vect(b, 1e-3, 14, 11, 9, ncomp)
+        assert x.shape == y.shape == (ncomp, 14, 11, 9)
+        assert np.array_equal(x.view(np.uint32), y.view(np.uint32))
+        assert _state(a) == _state(b)
+    kk = shell_vectors(3.0, 0.5)
+    want = jrng.forcing_hel_sequence(a, 9, kk[:, 0], kk[:, 1], kk[:, 2])
+    got = trng.forcing_hel_sequence(b, 9, kk[:, 0], kk[:, 1], kk[:, 2])
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert _state(a) == _state(b)
+
+
+def test_k_dat_reads_as_jax_reads_it(tmp_path):
+    d = helical_rundir(tmp_path / "r")
+    want = jrng.read_k_dat(os.path.join(d, "k.dat"))
+    got = trng.read_k_dat(os.path.join(d, "k.dat"))
+    assert got[:2] == want[:2]
+    assert all(np.array_equal(g, w) for g, w in zip(got[2:], want[2:]))
+
+
+# ---- the loader ---------------------------------------------------------------------
+def _unreplayed(cfg):
+    """``cfg`` with its Forcing out of replay mode."""
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, sequence=None, kav=0.0)
+        if m.name == "forcing" else m for m in cfg.modules))
+
+
+def _by_name(modules):
+    return sorted(modules, key=lambda m: m.name)
+
+
+@pytest.mark.parametrize("name", sorted(RUNDIRS))
+def test_loader_matches_jax_and_the_configs(tmp_path, name):
+    """The same modules with the same shared fields, BCs, TimeSpec, grid,
+    info and replayed fields as the JAX loader; the configuration of
+    ``configs`` (the port's with fused=True; JAX's fields shared with it)
+    once the forcing's replay fields are set aside."""
+    write, n, config_fn = RUNDIRS[name]
+    d = write(tmp_path / name)
+    cfg, info = load_rundir(d)
+    jcfg, jinfo = jax_load(d)
+    assert cfg.fused and not jcfg.fused
+    assert cfg.grid == pt.GridSpec(**dataclasses.asdict(jcfg.grid))
+    assert cfg.time == pt.TimeSpec(**dataclasses.asdict(jcfg.time))
+    assert [type(m).__name__ for m in cfg.modules] == \
+        [type(m).__name__ for m in jcfg.modules]
+    for mine, ref in zip(cfg.modules, jcfg.modules):
+        for f in dataclasses.fields(mine):
+            assert getattr(mine, f.name) == getattr(ref, f.name), \
+                (mine.name, f.name)
+    for axis in ("bcx", "bcy", "bcz"):
+        assert [dataclasses.astuple(b) for b in getattr(cfg, axis)] == \
+            [dataclasses.astuple(b) for b in getattr(jcfg, axis)]
+    assert info.keys() == jinfo.keys()
+    for k in info:
+        if k != "init_overrides":
+            assert info[k] == jinfo[k], k
+    over, jover = info["init_overrides"], jinfo["init_overrides"]
+    assert over.keys() == jover.keys() and over
+    for k in over:
+        assert over[k].dtype == np.float32
+        assert np.array_equal(over[k], jover[k]), k
+    forcing = cfg.module("forcing")
+    if forcing is not None:
+        assert forcing.sequence == jcfg.module("forcing").sequence
+        assert len(forcing.sequence) == info["nt"]
+    want = getattr(pt.configs, config_fn)(n)
+    got = _unreplayed(cfg)
+    assert got.replace(modules=()) == want.replace(modules=())
+    assert _by_name(got.modules) == _by_name(want.modules)
+    jwant = getattr(pt.configs, config_fn)(n, fused=False, pkg=pj)
+    for mine, ref in zip(_by_name(got.modules), _by_name(jwant.modules)):
+        for f in dataclasses.fields(mine):
+            assert getattr(mine, f.name) == getattr(ref, f.name)
+
+
+def test_unmapped_groups_as_jax(tmp_path):
+    d = helical_rundir(tmp_path / "r")
+    with open(os.path.join(d, "run.in"), "a") as f:
+        f.write("&power_spectrum_run_pars\n  lintegrate_shell=T\n/\n")
+    assert load_rundir(d)[1]["unmapped_groups"] == \
+        jax_load(d)[1]["unmapped_groups"] == ["power_spectrum_run_pars"]
+
+
+def test_double_precision_runs_in_float32(tmp_path, capsys):
+    d = conv_rundir(tmp_path / "r")
+    with open(os.path.join(d, "src", "Makefile.local"), "a") as f:
+        f.write("REAL_PRECISION = double\n")
+    cfg, info = load_rundir(d)
+    assert cfg.dtype == "float32" and "float32" in info["real_precision"]
+    assert capsys.readouterr().err.count("REAL_PRECISION = double") == 1
+
+
+# everything the port lacks: (run directory, file, text appended or
+# (old, new) replaced, what the message names)
+REFUSED = {
+    # Makefile.local slots
+    "particles": ("helical", "src/Makefile.local",
+                  "PARTICLES = particles_dust\n", "PARTICLES"),
+    "chemistry": ("helical", "src/Makefile.local",
+                  "CHEMISTRY = chemistry\n", "CHEMISTRY"),
+    "radiation": ("conv", "src/Makefile.local",
+                  "RADIATION = radiation_ray\n", "RADIATION"),
+    "special": ("helical", "src/Makefile.local",
+                "SPECIAL = special/shell\n", "SPECIAL"),
+    "initial_condition": ("helical", "src/Makefile.local",
+                          "INITIAL_CONDITION = initial_condition/"
+                          "kelvin_helmholtz\n", "INITIAL_CONDITION"),
+    "eos_ionization": ("conv", "src/Makefile.local",
+                       "EOS = eos_ionization\n", "EOS"),
+    "hydro_kinematic": ("helical", "src/Makefile.local",
+                        ("HYDRO = hydro", "HYDRO = hydro_kinematic"),
+                        "HYDRO"),
+    "bfield": ("helical", "src/Makefile.local",
+               ("MAGNETIC = magnetic", "MAGNETIC = bfield"), "MAGNETIC"),
+    "boussinesq": ("conv", "src/Makefile.local",
+                   ("DENSITY = density", "DENSITY = experimental/boussinesq"),
+                   "DENSITY"),
+    "gravity_r": ("conv", "src/Makefile.local",
+                  ("GRAVITY = gravity_simple", "GRAVITY = gravity_r"),
+                  "GRAVITY"),
+    "temperature": ("conv", "src/Makefile.local",
+                    ("ENTROPY = entropy", "ENTROPY = temperature_idealgas"),
+                    "ENTROPY"),
+    "shock_highorder": ("helical", "src/Makefile.local",
+                        "SHOCK = shock_highorder\n", "SHOCK"),
+    "deriv_8th": ("helical", "src/Makefile.local", "DERIV = deriv_8th\n",
+                  "DERIV"),
+    # namelist groups of modules the port lacks
+    "pscalar_group": ("helical", "start.in",
+                      "&pscalar_init_pars\n  initlncc='gaussian'\n/\n",
+                      "pscalar"),
+    "particles_group": ("helical", "start.in",
+                        "&particles_init_pars\n  initxxp='random'\n/\n",
+                        "particles"),
+    "dust_group": ("helical", "run.in",
+                   "&dustvelocity_run_pars\n  nud=1e-3\n/\n", "dustvelocity"),
+    "testfield_group": ("helical", "run.in",
+                        "&testfield_run_pars\n  etatest=1e-3\n/\n",
+                        "testfield"),
+    "initial_condition_group": ("helical", "start.in",
+                                "&initial_condition_pars\n  ampl=1.\n/\n",
+                                "initial_condition_pars"),
+    "mean_field_group": ("helical", "run.in",
+                         "&magn_mf_run_pars\n  alpha_effect=1.\n/\n",
+                         "magn_mf"),
+    # values the port's modules do not take
+    "B_ext": ("helical", "run.in",
+              "&magnetic_run_pars\n  eta=5e-3, B_ext=0.,0.,0.1\n/\n",
+              "b_ext"),
+    "lupw_lnrho": ("helical", "run.in",
+                   "&density_run_pars\n  lupw_lnrho=T\n/\n", "lupw_lnrho"),
+    "iheatcond": ("conv", "run.in",
+                  ("iheatcond='K-const'", "iheatcond='chi-therm'"),
+                  "iheatcond"),
+    "cooling_profile": ("conv", "run.in",
+                        ("cs2cool=1.", "cs2cool=1., cooling_profile='tanh'"),
+                        "cooling_profile"),
+    "sinh_grid": ("conv", "start.in",
+                  ("lperi=T,T,F", "lperi=T,T,F, grid_func='linear',"
+                   "'linear','sinh'"), "grid_func"),
+    "spherical": ("helical", "start.in",
+                  ("random_gen='nr_f90'",
+                   "random_gen='nr_f90', coord_system='spherical'"),
+                  "coord_system"),
+    "nonperiodic_x": ("conv", "start.in", ("lperi=T,T,F", "lperi=F,T,F"),
+                      "lperi"),
+    "freeze_zones": ("conv", "run.in",
+                     ("nt=6,", "lfreeze_varint=T,T,T,T,T, nt=6,"),
+                     "lfreeze_varint"),
+    "itorder_5": ("helical", "run.in", ("itorder=3", "itorder=5"),
+                  "itorder"),
+    "density_nolog": ("conv", "start.in",
+                      ("initlnrho='piecew-poly'",
+                       "initlnrho='piecew-poly', ldensity_nolog=T"),
+                      "ldensity_nolog"),
+    "init_uu": ("helical", "start.in",
+                ("inituu='gaussian-noise'", "inituu='sinwave-x'"), "inituu"),
+    "init_ss": ("conv", "start.in",
+                ("initss='piecew-poly'", "initss='isothermal'"), "initss"),
+    "ivisc": ("helical", "run.in", ("ivisc='nu-const'", "ivisc='nu-therm'"),
+              "ivisc"),
+    "iforce": ("helical", "run.in", ("iforce='helical'", "iforce='irrot'"),
+               "iforce"),
+    "forcing_cont": ("helical", "run.in",
+                     ("relhel=1.,", "relhel=1., lforcing_cont=T,"),
+                     "lforcing_cont"),
+    "bc_mnemonic": ("conv", "run.in", ("'c1:cT'", "'c1:cT2'"), "cT2"),
+    "lupw_uu": ("helical", "run.in",
+                "&hydro_run_pars\n  lupw_uu=T\n/\n", "lupw_uu"),
+    "zeta": ("helical", "run.in", ("nu=5e-3,", "nu=5e-3, zeta=1e-3,"),
+             "zeta"),
+    "weno": ("helical", "run.in", ("itorder=3", "itorder=3, "
+                                   "lweno_transport=T"), "lweno_transport"),
+    "mu0": ("helical", "start.in",
+            ("random_gen='nr_f90'", "random_gen='nr_f90', "
+             "unit_velocity=1e5, unit_density=1e-24"), "mu0"),
+    "gravx_profile": ("conv", "start.in",
+                      ("gravz=-1.,", "gravz=-1., gravx_profile='linear',"),
+                      "gravx_profile"),
+    "cylinder_in_a_box": ("helical", "start.in",
+                          ("random_gen='nr_f90'", "random_gen='nr_f90', "
+                           "lcylinder_in_a_box=T"), "lcylinder_in_a_box"),
+    "shear_as_shift": ("helical", "run.in",
+                       "&shear_run_pars\n  qshear=1.5, "
+                       "lshearadvection_as_shift=T\n/\n",
+                       "lshearadvection_as_shift"),
+    "sshear": ("helical", "run.in", "&shear_run_pars\n  Sshear=-1.\n/\n",
+               "sshear"),
+    "chi_shock": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                     "chi_shock=1."), "chi_shock"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refusals_name_what_they_refuse(tmp_path, case):
+    which, fname, edit, what = REFUSED[case]
+    d = RUNDIRS[which][0](tmp_path / "r")
+    path = os.path.join(d, fname)
+    with open(path) as f:
+        text = f.read()
+    if isinstance(edit, tuple):
+        assert edit[0] in text
+        text = text.replace(edit[0], edit[1])
+    else:
+        text += edit
+    with open(path, "w") as f:
+        f.write(text)
+    with pytest.raises(NotImplementedError, match=what):
+        load_rundir(d)
+
+
+# ---- the replayed forcing kick ---------------------------------------------------
+@pytest.mark.parametrize("it", (0, 3, 40))
+@pytest.mark.parametrize("shear", (False, True), ids=("plain", "shear"))
+def test_replay_kick_matches_jax(it, shear):
+    """Row ``it`` of a sequence (40: past its end, the last row) kicks u as
+    JAX's ``_replay`` does, with Shear's kx shift at t = 0.37 + dt and
+    with k.dat vectors scaled to the box: within 1e-6 of the kick's max."""
+    rng = np.random.default_rng(it)
+    kk = shell_vectors(3.0, 0.5)
+    seq = tuple((*kk[rng.integers(len(kk))], float(rng.uniform(-3, 3)),
+                 float(rng.uniform(0, 6))) for _ in range(8))
+    spec = dict(nx=8, ny=12, nz=16, Lx=2.0, Ly=3.0, Lz=4.0)
+    kw = dict(force=0.07, kf=3.0, relhel=0.6, sequence=seq, kav=3.1,
+              cs0eff=1.3, lscale_kvector_tobox=True)
+    shear_kw = dict(qshear=1.5, Omega=0.8)
+    uu = rng.standard_normal((3, 8, 12, 16)).astype(np.float32)
+    t, dt = np.float32(0.37), np.float32(2.5e-2)
+    jcfg = pj.Config(grid=pj.GridSpec(**spec), modules=(
+        pj.Forcing(**kw), *((pj.Shear(**shear_kw),) if shear else ())))
+    want = pj.Forcing(**kw)._replay(
+        {"uu": uu}, jax_make_grid(jcfg.grid), jcfg, dt, np.int32(it),
+        t=t + dt)["uu"]
+    gs = pt.GridSpec(**spec)
+    forcing = pt.Forcing(**kw)
+    tables = forcing.tables(gs, "cpu",
+                            shear=pt.Shear(**shear_kw) if shear else None)
+    got = forcing.after_timestep(
+        {"uu": torch.tensor(uu)}, make_grid(gs, "cpu"), tables,
+        (torch.tensor(it, dtype=torch.int32), torch.tensor(t + dt)),
+        torch.tensor(dt), None)["uu"].numpy()
+    kick = np.asarray(want) - uu
+    assert np.abs(kick).max() > 1e-4
+    assert np.abs(got - np.asarray(want)).max() <= 1e-6 * np.abs(kick).max() \
+        + 2 * np.spacing(np.abs(uu).max())
+
+
+# ---- the var.dat codec ---------------------------------------------------------------
+def test_codec_round_trip_and_plain_version(tmp_path):
+    """The C++ codec and its plain version (numpy), each way: the same
+    bytes written, the fields, time, coordinates and deltay read back bit
+    for bit; the native build lands under pencil_tpu_torch/_build/."""
+    assert io_dist.native_lib() is not None
+    assert "_build" in str(io_dist._build_native())
+    rng = np.random.default_rng(1)
+    f = rng.standard_normal((5, 10, 11, 12)).astype(np.float32)
+    x, y, z = (np.linspace(0, 1, m) for m in (10, 11, 12))
+    dim = dict(mx=10, my=11, mz=12, mvar=5, maux=0, precision="S")
+    args = (f, 0.25, x, y, z, 0.1, 0.2, 0.3, 0.7)
+    io_dist.write_var(tmp_path / "native.dat", *args)
+    io_dist.np_write_var(tmp_path / "plain.dat", *args)
+    assert (tmp_path / "native.dat").read_bytes() == \
+        (tmp_path / "plain.dat").read_bytes()
+    for vf in (io_dist.read_var(tmp_path / "plain.dat", dim=dim),
+               io_dist.np_read_var(tmp_path / "native.dat", 10, 11, 12, 5,
+                                   np.float32)):
+        assert np.array_equal(vf.f, f)
+        assert vf.t == float(np.float32(0.25))
+        assert np.array_equal(vf.x, x.astype(np.float32))
+        assert vf.deltay == float(np.float32(0.7))
+
+
+def test_read_var_of_an_exported_state(tmp_path):
+    """post.read.var of the var.dat that export_state writes: the state's
+    fields inside wrapped ghost zones, named by index.pro."""
+    cfg = pt.configs.conv_slab(CONV_N)
+    model = pt.Model(cfg, device="cpu")
+    state = model.init_state(3)
+    io_dist.export_state(model, state, tmp_path)
+    v = pread.var("var.dat", tmp_path, trimall=True)
+    assert v.t == float(state["t"])
+    fa = model.reg.stack(state["fields"]).numpy()
+    for i, name in enumerate(model.reg.comp_names):
+        assert np.array_equal(getattr(v, name), fa[i]), name
+    assert np.array_equal(v.z[3:-3], model.grid.z.numpy())
+    assert np.array_equal(np.pad(fa, [(0, 0)] + [(3, 3)] * 3, mode="wrap"),
+                          v.f)
+    assert np.array_equal(pread.var("var.dat", tmp_path / "proc0").f, v.f)

@@ -1,0 +1,172 @@
+"""``python -m pencil_tpu_torch start|run|export <rundir>`` on the CPU
+against ``python -m pencil_tpu`` on a copy of the same run directory: the
+two run directories of tests/test_torch_rundir.py (helical MHD turbulence
+with the reference's forcing draws replayed, on the port's K1-K3 chain;
+stratified convection on K6/K7) started and run by both command lines,
+the port's chain on its kernels' plain versions, the JAX package on its
+jnp path (its loader's Config is not fused); the reference-layout data
+directory that both ``export`` commands write; and RELOAD, which re-reads
+run.in in the middle of a run.
+
+Bounds: each field within 2e-5 × its max and dt within 1e-6 relative
+(tests/test_fused.py); the rows of time_series.dat at the same steps, each
+printed value equal to JAX's or one unit apart in its last printed digit.
+The convection directory starts with velocity noise of 1e-2, not the
+sample's 1e-3, whose velocity after a few steps is the residual of the O(1)
+hydrostatic balance below its float32 floor (tests/test_torch_zghost.py,
+UU_AMPL).
+"""
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from pencil_tpu.__main__ import main as jax_main
+from pencil_tpu_torch.__main__ import main
+from pencil_tpu_torch.compat import io_dist
+from pencil_tpu_torch.compat.rundir import load_rundir
+from pencil_tpu_torch.io.snapshot import load_snapshot
+from pencil_tpu_torch.io.timeseries import read_time_series
+from pencil_tpu_torch.model import Model
+from pencil_tpu_torch.post import read as pread
+from pencil_tpu_torch.run import Run, RunParams
+from test_torch_rundir import conv_rundir, helical_rundir
+
+torch.set_num_threads(1)
+
+WRITERS = {"helical": lambda d: helical_rundir(d, nt=4),
+           "conv": lambda d: conv_rundir(d, nt=4, uu_ampl="1e-2")}
+
+
+@pytest.fixture(scope="module", params=sorted(WRITERS))
+def both_runs(request, tmp_path_factory):
+    """(port run directory, JAX run directory) after start, run and export
+    through each command line."""
+    base = tmp_path_factory.mktemp(request.param)
+    mine = WRITERS[request.param](base / "port")
+    ref = shutil.copytree(mine, base / "jax")
+    for cmd in ("start", "run", "export"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    return mine, str(ref)
+
+
+def test_cli_state_matches_jax(both_runs):
+    mine, ref = both_runs
+    got = pread.var("var.npz", os.path.join(mine, "data"))
+    with np.load(os.path.join(ref, "data", "var.npz")) as z:
+        want = {k[6:]: z[k] for k in z.files if k.startswith("field_")}
+        assert got.it == int(z["it"]) == 4
+        assert abs(got.dt - float(z["dt"])) <= 1e-6 * float(z["dt"])
+        assert abs(got.t - float(z["t"])) <= 1e-6 * float(z["t"])
+    assert want.keys() == {k for k in vars(got) if k not in ("t", "dt",
+                                                             "it")}
+    for k, w in want.items():
+        g = getattr(got, k)
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 2e-5 * np.abs(w).max(), k
+
+
+def _last_digit(text):
+    """One unit in the last printed digit of a Fortran number."""
+    mant, _, exp = text.upper().partition("E")
+    decimals = len(mant.split(".")[1]) if "." in mant else 0
+    return 10.0 ** (int(exp or 0) - decimals)
+
+
+def test_cli_time_series_matches_jax(both_runs):
+    mine, ref = both_runs
+    lines = [open(os.path.join(d, "data", "time_series.dat")).read()
+             .splitlines() for d in (mine, ref)]
+    assert lines[0][0] == lines[1][0]              # the header
+    assert len(lines[0]) == len(lines[1]) == 5     # it = 0, 1, 2, 4
+    for row, jrow in zip(lines[0][1:], lines[1][1:]):
+        for g, w in zip(row.split(), jrow.split()):
+            assert abs(float(g) - float(w)) <= _last_digit(w) * 1.0001, \
+                (row, jrow)
+    got, want = (read_time_series(os.path.join(d, "data", "time_series.dat"))
+                 for d in (mine, ref))
+    assert list(got) == list(want) and len(got) >= 6
+
+
+def test_cli_export_matches_jax(both_runs):
+    """dim.dat, index.pro and param.nml as JAX writes them; the var.dat
+    read back (the C++ codec and numpy) equal to the port's own final
+    state."""
+    mine, ref = both_runs
+    for name in ("dim.dat", "index.pro", "param.nml", "proc0/dim.dat",
+                 "proc0/proc0/dim.dat"):
+        assert open(os.path.join(mine, "data", name)).read() == \
+            open(os.path.join(ref, "data", name)).read(), name
+    cfg, _ = load_rundir(mine)
+    model = Model(cfg, device="cpu")
+    state = load_snapshot(os.path.join(mine, "data", "var.npz"), model)
+    fa = model.reg.stack(state["fields"]).numpy()
+    path = os.path.join(mine, "data", "proc0", "var.dat")
+    vf = io_dist.read_var(path)
+    plain = io_dist.np_read_var(path, *vf.f.shape[1:], vf.f.shape[0],
+                                np.float32)
+    for v in (vf, plain):
+        assert np.array_equal(v.f[:, 3:-3, 3:-3, 3:-3], fa)
+        assert v.t == float(state["t"])
+    jvf = io_dist.read_var(os.path.join(ref, "data", "proc0", "var.dat"))
+    assert vf.f.shape == jvf.f.shape
+    for a in ("x", "y", "z"):
+        assert np.array_equal(getattr(vf, a), getattr(jvf, a)), a
+
+
+def test_cli_refuses_a_sharded_run_and_the_card_without_one(tmp_path):
+    d = helical_rundir(tmp_path / "r")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        main(["run", d, "--sharded", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["start", d])
+
+
+def _reload_rundir(d):
+    os.makedirs(os.path.join(d, "src"))
+    with open(os.path.join(d, "start.in"), "w") as f:
+        f.write("&init_pars\n/\n&eos_init_pars\n gamma=1.0001\n/\n"
+                "&density_init_pars\n/\n&hydro_init_pars\n "
+                "inituu='gaussian-noise', ampluu=1e-2\n/\n")
+    with open(os.path.join(d, "src", "cparam.local"), "w") as f:
+        f.write("integer, parameter :: nxgrid=8,nygrid=8,nzgrid=8\n")
+
+
+RELOADED = {
+    "viscosity": ("&viscosity_run_pars\n ivisc='nu-const', nu=8e-3\n/\n",
+                  8e-3),
+    # a new field: the slot set changes and the old model stays
+    "new_slot": ("&viscosity_run_pars\n ivisc='nu-const', nu=2e-3\n/\n"
+                 "&magnetic_run_pars\n eta=1e-3\n/\n", 2e-3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RELOADED))
+def test_reload_control_file(tmp_path, case):
+    """RELOAD with a rundir rebuilds the step without losing state
+    (after tests/test_aux_subsystems.py:67)."""
+    rundir = str(tmp_path / "run")
+    _reload_rundir(rundir)
+    with open(os.path.join(rundir, "run.in"), "w") as f:
+        f.write("&run_pars\n nt=10, it1=5\n/\n&viscosity_run_pars\n "
+                "ivisc='nu-const', nu=2e-3\n/\n")
+    cfg, info = load_rundir(rundir)
+    model = Model(cfg, device="cpu")
+    datadir = os.path.join(rundir, "data")
+    run = Run(model, datadir=datadir, params=RunParams(nt=6, it1=3),
+              rundir=rundir, quiet=True)
+    state = model.init_state(0, overrides=info["init_overrides"])
+    os.makedirs(datadir, exist_ok=True)
+    text, nu = RELOADED[case]
+    with open(os.path.join(rundir, "run.in"), "w") as f:
+        f.write("&run_pars\n nt=10, it1=5\n/\n" + text)
+    open(os.path.join(datadir, "RELOAD"), "w").close()
+    state = run.main_loop(state)
+    assert int(state["it"]) == 6
+    assert not os.path.exists(os.path.join(datadir, "RELOAD"))
+    assert run.model.cfg.module("viscosity").nu == nu
+    assert (run.model is model) == (case == "new_slot")
