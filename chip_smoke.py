@@ -65,7 +65,11 @@ Phases, each printing its own lines:
      chains: the periodic builds and the MHD one's H3 instances, the
      twelve shock and shear builds, the four z-ghosted builds with ss
      under 'linear-z' and 'sin-z', with Ω, chi-const or del6 in turn, the
-     four without ss under 'sin-z'), the four periodic builds'
+     four without ss under 'sin-z'), every instance of the 24 builds
+     with the continuous forcing (the four profiles in turn) and, in the
+     12 MHD builds, B_ext at 24×20×42 (with and without Ω, del6 and
+     chi-const), and the instances without those flags at 64³ (within
+     the bounds of the checks without the terms), the four periodic builds'
      H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
@@ -87,7 +91,8 @@ Phases, each printing its own lines:
      isothermal stratified sets and forced stratified MHD, the stratified
      shearing box with an energy equation (MHD and hydro, from t = 0.37)
      and forced stratified turbulence in a periodic box (MHD and hydro),
-     the hydro shock box,
+     the imposed-field flagship, the ABC-flow dynamo, the Roberts flow and
+     the NEMPI box, the hydro shock box,
      the three other shear-box layouts, the three hydro layouts with ss
      and the three MHD layouts with ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
@@ -121,7 +126,13 @@ Phases, each printing its own lines:
      instances, a step), in 3 windows likewise, forced stratified
      turbulence in a periodic box (strat_box(256, periodic=True,
      shear=False, forcing=0.05) with and without Magnetic: one K1, K2, K3
-     or K1h, K2h, K3h a step),
+     or K1h, K2h, K3h a step), the flagship in an imposed field
+     (flagship(256, b_ext=(0, 0, 0.1))) and driven by the ABC flow alone
+     (flagship(256, fcont=("ABC", 0.1, 1.0)), force = 0) with one K1, K2,
+     K3 a step, the Roberts flow (forced_hydro(256, fcont=("RobertsFlow",
+     0.1, 1.0))) with one K1h, K2h, K3h, the negative-effective-magnetic-
+     pressure box (strat_box(256, shear=False, forcing=0.05, b_ext=(0,
+     NEMPI_B0, 0))) with one K6mi and two K7mi in 3 windows,
      and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
@@ -142,7 +153,9 @@ Phases, each printing its own lines:
      run-directory entry point: two run directories at 256³ (helical MHD
      turbulence in helical-MHDturb's shape, the reference's forcing draws
      replayed, on K1-K3; stratified convection in conv-slab's shape on
-     K6/K7) through ``python -m pencil_tpu_torch`` start, run --nt 20 and
+     K6/K7) and two at 128³ (helical-MHDturb's shape in an imposed field
+     B_ext, and driven by the continuous forcing 'ABC' in place of the
+     kicks) through ``python -m pencil_tpu_torch`` start, run --nt 20 and
      export in this process, the wall seconds of each, the launches per
      step (1/1/1; 1/2) under the sync guard, the final state within 2e-5
      of make_step's from the same replayed fields, the exported var.dat
@@ -164,7 +177,11 @@ Phases, each printing its own lines:
      splits, K6ms/K7ms and K6s/K7s with chi-const in turns with the
      sheared magnetoconvection's and conv-slab's, and the periodic ones'
      K1, K2, K3 (K1h, K2h, K3h) in turns with the flagship's (forced
-     hydro's) same instances without gravity;
+     hydro's) same instances without gravity; the paths with B_ext or
+     the continuous forcing: their K1, K2, K3 in turns with the same
+     instances of the flagship (forced hydro) without the term, with the
+     byte bound of each (the profile's field 12 B a point more), the NEMPI
+     box's K6mi/K7mi in turns with forced stratified MHD's;
      K1sh/K5wh in turns with K1s/K5w, K4n/K5n and K4h/K5h with K4/K5,
      K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
      K4h/K5h, K4hne/K5hne with K4hn/K5hn, K1se/K5wse with K1s/K5w,
@@ -334,7 +351,11 @@ STRAT_PATHS = {
     # the stratified shearing box with an energy equation, MHD and hydro:
     # K6ms/K7ms and K6s/K7s (their CHI instances) under g_z = −Ω²z
     "stratified MRI box ent": dict(entropy=True),
-    "stratified shear hydro ent": dict(entropy=True, magnetic=False)}
+    "stratified shear hydro ent": dict(entropy=True, magnetic=False),
+    # the negative-effective-magnetic-pressure box (Brandenburg et al.
+    # 2011): forced isothermal stratified MHD in a horizontal imposed
+    # field B0 = configs.NEMPI_B0 on K6mi/K7mi (phase 1 checks the value)
+    "NEMPI box": dict(shear=False, forcing=FORCE, b_ext=(0.0, 0.01, 0.0))}
 # forced stratified turbulence in a periodic box under g_z = −sin(πz/2),
 # MHD and hydro: the flagship's and forced hydro's kernels with gravity
 GRAV_WRAP_PATHS = {
@@ -346,6 +367,27 @@ GRAV_WRAP_PATHS = {
 # phase 4
 GRAV_COUNTERPART = {"stratified periodic MHD": "flagship",
                     "stratified periodic hydro": "forced hydro"}
+# the paths of B_ext and the continuous forcing at 256³: label ->
+# (configuration function, its keyword arguments); imposed-field MHD
+# turbulence, the ABC-flow dynamo (force = 0: the flow is driven by the
+# profile alone) and the Roberts flow on the periodic builds, the
+# negative-effective-magnetic-pressure box on K6mi/K7mi
+TERM_WRAP_PATHS = {
+    "imposed-field MHD": ("flagship", dict(b_ext=(0.0, 0.0, 0.1))),
+    "ABC-flow dynamo": ("flagship", dict(fcont=("ABC", 0.1, 1.0))),
+    "Roberts flow": ("forced_hydro", dict(fcont=("RobertsFlow", 0.1, 1.0)))}
+# each one's counterpart without the term, timed in turns with it in
+# phase 4
+TERM_COUNTERPART = {"imposed-field MHD": "flagship",
+                    "ABC-flow dynamo": "flagship",
+                    "Roberts flow": "forced hydro",
+                    "NEMPI box": "forced stratified MHD"}
+# B_ext and the continuous forcing on every build in phase 2: an imposed
+# field along no axis, of the size of the noise's curl A, and the four
+# profiles taken in turn across the builds
+B_EXT = (0.03, -0.05, 0.1)
+FCONT = ("ABC", "RobertsFlow", "cosx*cosy*cosz", "xz")
+TERMS_LABEL = ", with fcont (B_ext in the MHD builds)"
 # gravity on every build in phase 2: each profile's Gravity keyword
 # arguments ('sin-z': one period over the box's z)
 GRAVITY = {"const": dict(gravz=-1.0), "linear-z": dict(gravz=-1.0),
@@ -393,6 +435,10 @@ PER_STEP = {
                                    "rhs_zg_upd_shear_chi": 2},
     "stratified periodic MHD": dict.fromkeys(FLAGSHIP_KERNELS, 1),
     "stratified periodic hydro": {k + "_hydro": 1 for k in FLAGSHIP_KERNELS},
+    "imposed-field MHD": dict.fromkeys(FLAGSHIP_KERNELS, 1),
+    "ABC-flow dynamo": dict.fromkeys(FLAGSHIP_KERNELS, 1),
+    "Roberts flow": {k + "_hydro": 1 for k in FLAGSHIP_KERNELS},
+    "NEMPI box": {"rhs_zg_iso_mag": 1, "rhs_zg_upd_iso_mag": 2},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -737,6 +783,83 @@ def compare_gravity(torch, pt, fr, shape, errs):
         compare_zg_cfg(torch, pt, fr, with_gravity(pt, strat_cfg(
             pt, shape, **kw), "sin-z"), f"isothermal stratified {iso} "
             "under gravity sin-z", errs)
+
+
+def with_terms(pt, cfg, profile):
+    """``cfg`` with B_ext (B_EXT, its MHD sets) and the continuous forcing
+    ``profile`` at k1_ff = 1 with its maximum at 0.1 (the 'xz' envelope
+    over the box), on its Forcing module (whose kicks stay) or on a new one
+    without kicks."""
+    gs = cfg.grid
+    ampl = 0.1 / ((gs.Lx / 2) ** 2 * (gs.Lz / 2) ** 2) if profile == "xz" \
+        else 0.1
+    kw = dict(lforcing_cont=True, iforcing_cont=profile, ampl_ff=ampl,
+              k1_ff=1.0, fcont_box=(gs.x0, gs.x0 + gs.Lx, gs.z0,
+                                    gs.z0 + gs.Lz))
+    mods = tuple(dataclasses.replace(m, B_ext=B_EXT) if m.name == "magnetic"
+                 else dataclasses.replace(m, **kw) if m.name == "forcing"
+                 else m for m in cfg.modules)
+    if cfg.module("forcing") is None:
+        mods += (pt.Forcing(force=0.0, **kw),)
+    return cfg.replace(modules=mods)
+
+
+def compare_terms(torch, pt, fr, shape, errs, every=True):
+    """Phase 2: every instance of the 24 libraries with the continuous
+    forcing and, in the 12 MHD ones, B_ext against its plain version, the
+    four profiles taken in turn: the periodic builds' five kernels with
+    and without Ω, each also with del6; the aux builds' two with and
+    without Ω and del6; the z-ghosted builds with ss with Ω, chi-const and
+    del6 (the sheared ones at Ω = 1 from t = T_SHEAR), and those without
+    ss with Ω and del6.  ``every=False``: the instances without Ω, del6
+    and chi-const alone."""
+    turn = iter(range(10 ** 6))
+
+    def terms(cfg):
+        return with_terms(pt, cfg, FCONT[next(turn) % 4])
+
+    omegas = (0.0, 1.0) if every else (0.0,)
+    flags = (False, True) if every else (False,)
+    for name in TEMPLATE_PATHS:
+        if name.endswith(" h3") and not every:
+            continue
+        for Omega in omegas:
+            compare_template(torch, pt, fr,
+                             f"{name}, Omega = {Omega:g}" + TERMS_LABEL,
+                             terms(template_cfg(pt, name, shape,
+                                                Omega=Omega)),
+                             errs, RTOL_FIELD)
+    for label in AUX_PATHS:
+        for Omega in omegas:
+            for hyper3 in flags:
+                compare_aux_kernels(
+                    torch, pt, fr, f"{label}, Omega = {Omega:g}"
+                    + (", del6" if hyper3 else "") + TERMS_LABEL,
+                    terms(aux_variant(pt, aux_cfg(pt, label, shape), Omega,
+                                      hyper3)), errs, AUX_RTOL[label])
+    for magnetic in (False, True):
+        for shear in (False, True):
+            for Omega in ((1.0,) if shear else omegas):
+                for chi in ((0.0, CHI) if every else (0.0,)):
+                    for hyper3 in flags:
+                        kw = dict(magnetic=magnetic, Omega=Omega, chi=chi,
+                                  hyper3=hyper3, shear=shear)
+                        cfg = terms(pt.configs.conv_slab(shape, **kw))
+                        if shear:
+                            cfg = cfg.replace(time=pt.TimeSpec(
+                                itorder=3, tstart=T_SHEAR))
+                        compare_zg_cfg(torch, pt, fr, cfg,
+                                       f"conv-slab {kw}" + TERMS_LABEL, errs)
+    for iso, kw in ISO_SETS.items():
+        sheared = kw.get("shear", True)
+        for Omega in ((1.0,) if sheared else omegas):
+            for hyper3 in flags:
+                compare_zg_cfg(
+                    torch, pt, fr, terms(strat_cfg(pt, shape, Omega,
+                                                   hyper3=hyper3, **kw)),
+                    f"isothermal stratified {iso}, Omega = {Omega:g}"
+                    + (", del6" if hyper3 else "") + TERMS_LABEL,
+                    errs)
 
 
 def random_fa(torch, shape, seed, device, nvar=7):
@@ -1181,6 +1304,8 @@ def main():
           f"{nvcc.stdout.strip().splitlines()[-1]}", flush=True)
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    check(STRAT_PATHS["NEMPI box"]["b_ext"][1] == pt.configs.NEMPI_B0,
+          "the NEMPI box's B0 is not configs.NEMPI_B0")
 
     def mark(what):
         print(f"chip_smoke: {what} ended at "
@@ -1247,6 +1372,9 @@ def main():
     for shape in ((64, 64, 64), EDGE_SHAPE):
         compare_gravity(torch, pt, fr, shape, errs)
     mark("phase 2, every build under gravity")
+    compare_terms(torch, pt, fr, EDGE_SHAPE, errs)
+    compare_terms(torch, pt, fr, (64, 64, 64), errs, every=False)
+    mark("phase 2, every build with B_ext and the continuous forcing")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
                          forced_hydro(pt, shape), errs)
@@ -1343,6 +1471,10 @@ def main():
     for label, kw in GRAV_WRAP_PATHS.items():
         compare_steps(torch, pt, label, pt.configs.strat_box(n32, **kw),
                       uu_noise=1e-2)
+    for label, (make, kw) in TERM_WRAP_PATHS.items():
+        compare_steps(torch, pt, label, getattr(pt.configs, make)(n32, **kw))
+    compare_steps(torch, pt, "NEMPI box", strat_cfg(
+        pt, n32, **STRAT_PATHS["NEMPI box"]), uu_noise=1e-2)
     compare_steps(torch, pt, "shear box", pt.configs.shear_box(n32),
                   t0=T_SHEAR)
     sb = pt.configs.shear_box(n32)
@@ -1372,6 +1504,10 @@ def main():
                                 name=label, cfg=pt.configs.strat_box(
                                     shape, **kw))
             for label, kw in GRAV_WRAP_PATHS.items()}
+    terms = {label: run_flagship(torch, pt, fr, smi, shape, launches,
+                                 name=label, cfg=getattr(pt.configs, make)(
+                                     shape, **kw))
+             for label, (make, kw) in TERM_WRAP_PATHS.items()}
     mark("phase 3, the periodic builds at order 3")
     zg, zm = (run_conv_slab(torch, pt, fr, smi, shape, launches, label)
               for label in ("conv-slab", "magnetoconvection"))
@@ -1415,6 +1551,10 @@ def main():
         time_gravity_turns(torch, fr, smi, label, path,
                            GRAV_COUNTERPART[label],
                            base[GRAV_COUNTERPART[label]])
+    for label, path in terms.items():
+        time_term_turns(torch, fr, smi, label, path,
+                        TERM_COUNTERPART[label],
+                        base[TERM_COUNTERPART[label]])
     mark("phase 4, the periodic builds")
     for lib in _build.LIBRARIES:
         for inst, a in fr.flagship_attrs(lib).items():
@@ -1442,12 +1582,16 @@ def main():
     print_split(torch, fr, smi, zf)
     zpaths = {path[3]: path for path in (zg, zm, zs, zms)}
     for label, path in strat.items():
+        if label in TERM_COUNTERPART:
+            continue        # timed in turns with its counterpart below
         time_conv_slab(torch, fr, smi, path, errs, timings, bounds,
                        full=False)
         print_split(torch, fr, smi, path)
         if label in STRAT_COUNTERPART:
             time_zg_turns(torch, fr, smi, path,
                           zpaths[STRAT_COUNTERPART[label]])
+    time_zg_turns(torch, fr, smi, strat["NEMPI box"],
+                  strat[TERM_COUNTERPART["NEMPI box"]])
     mark("phase 4, the z-ghosted builds")
     for box in aux.values():
         time_aux_box(torch, fr, smi, box, errs, timings, bounds)
@@ -1868,8 +2012,19 @@ def run_outputs(torch, pt, fr, smi, shape):
 
 # the run directories of phase 3 run_rundir: label -> (the writer in
 # pencil_tpu_torch.compat.samples, the path of PER_STEP its chain takes)
-RUNDIRS = {"helical MHD (helical-MHDturb)": ("helical_mhdturb", "flagship"),
-           "convection (conv-slab)": ("conv_slab", "conv-slab")}
+# label -> (the compat.samples writer, the path whose launches a step it
+# runs, the writer's keyword arguments, its size: None for N_MAIN); the
+# imposed-field and ABC-flow directories (the loader's B_ext and
+# lforcing_cont) at 128³, which is enough to drive the loader and the CLI
+RUNDIRS = {"helical MHD (helical-MHDturb)": ("helical_mhdturb", "flagship",
+                                             {}, None),
+           "convection (conv-slab)": ("conv_slab", "conv-slab", {}, None),
+           "imposed-field MHD (helical-MHDturb, B_ext)": (
+               "helical_mhdturb", "flagship", dict(b_ext=(0.0, 0.0, 0.1)),
+               128),
+           "ABC-flow dynamo (helical-MHDturb, lforcing_cont)": (
+               "helical_mhdturb", "flagship", dict(fcont=("ABC", 0.1, 1.0)),
+               128)}
 RUNDIR_NT = 20
 
 
@@ -1893,10 +2048,12 @@ def run_rundir(torch, pt, fr, smi, shape):
     from pencil_tpu_torch.io.timeseries import read_time_series
     check(io_dist.native_lib() is not None, "the C++ var.dat codec did not "
           "build")
-    for label, (writer, path) in RUNDIRS.items():
+    for label, (writer, path, kw, n) in RUNDIRS.items():
+        size = n or shape[0]
         with tempfile.TemporaryDirectory() as tmp:
-            d = getattr(samples, writer)(os.path.join(tmp, "run"), shape,
-                                         nt=RUNDIR_NT, it1=10)
+            d = getattr(samples, writer)(os.path.join(tmp, "run"),
+                                         (size,) * 3, nt=RUNDIR_NT, it1=10,
+                                         **kw)
             secs = {}
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
@@ -1917,7 +2074,7 @@ def run_rundir(torch, pt, fr, smi, shape):
             per_step = PER_STEP[path]
             check(counts == {k: n * RUNDIR_NT for k, n in per_step.items()},
                   f"{label}: launches {counts}, need {per_step} per step")
-            if writer == "helical_mhdturb":
+            if writer == "helical_mhdturb" and not kw:
                 check(secs["start"] < 60.0,
                       f"{label}: start took {secs['start']:.1f} s")
             datadir = os.path.join(d, "data")
@@ -1928,6 +2085,13 @@ def run_rundir(torch, pt, fr, smi, shape):
             model = pt.Model(cfg, device="cuda")
             check(model.mode == ("wrap" if path == "flagship" else "zghost"),
                   f"{label}: chain {model.mode}")
+            if "b_ext" in kw:
+                check(cfg.module("magnetic").B_ext == kw["b_ext"],
+                      f"{label}: B_ext not loaded")
+            if "fcont" in kw:
+                check(fr.fcont_tensor(model) is not None
+                      and model.forcing is None,
+                      f"{label}: the continuous forcing not loaded")
             cli_state = load_snapshot(os.path.join(datadir, "var.npz"),
                                       model)
             check(int(cli_state["it"]) == RUNDIR_NT, f"{label}: it")
@@ -1947,7 +2111,7 @@ def run_rundir(torch, pt, fr, smi, shape):
             del model, cli_state, ref, step, fa, vf
             torch.cuda.empty_cache()
         print(out.getvalue(), end="", flush=True)
-        print(f"phase 3 {N_MAIN}^3 run directory, {label} on {smi}: "
+        print(f"phase 3 {size}^3 run directory, {label} on {smi}: "
               f"python -m pencil_tpu_torch start {secs['start']:.2f} s, "
               f"run --nt {RUNDIR_NT} {secs['run']:.2f} s, export "
               f"{secs['export']:.2f} s; launches per step {per_step}; no "
@@ -2484,6 +2648,43 @@ def time_gravity_turns(torch, fr, smi, label, path, other, base):
         "K3 kick": lambda m: fr.rhs_tail_last(m, fa, df1, c3, kick)})
     print_turns(f"phase 4 {label} (g_z read) against {other} (no gravity) "
                 f"at 256^3 on {smi}", times)
+
+
+def time_term_turns(torch, fr, smi, label, path, other, base):
+    """K1, K2 and K3 (with the kick where the path kicks) of a periodic
+    path with B_ext or the continuous forcing timed in turns (A, B, B, A) with the same instances
+    launched by its counterpart without the term ``base`` (B_ext = 0, a
+    null fcont), both on the path's final state at 256³, and the byte
+    bound of each: the field fcont adds 12 B a point to what a kernel
+    reads; phase 2 and 2b check them against their plain versions."""
+    model, state, _ = path
+    fa = state["_fa"]
+    alpha, beta, _ = model.rk
+    dt_t = state["dt"]
+    c2 = torch.stack((model._alpha[1], beta[1] * dt_t, beta[0] * dt_t))
+    c3 = torch.stack((model._alpha[2], beta[2] * dt_t, model._zero))
+    kick = model.forcing.kick_vector(model._ftables, model._draws(), dt_t,
+                                     model.eos) \
+        if model.forcing is not None else None
+    df1, _ = fr.rhs_first_plain(model, fa)
+    times = in_turns(torch, {label: model, other: base[0]}, {
+        "K1": lambda m: fr.rhs_first(m, fa),
+        "K2": lambda m: fr.rhs_tail_defer(m, fa, df1, c2),
+        "K3": lambda m: fr.rhs_tail_last(m, fa, df1, c3, kick)})
+    print_turns(f"phase 4 {label} against {other} at 256^3 on {smi}", times)
+    fcont = fr.fcont_tensor(model)
+    extra = 0 if fcont is None else fcont.numel() * fcont.element_size()
+    npts = fa[0].numel()
+    word = fa.element_size() * fa.shape[0]
+    # bytes a point: K1 reads f, writes df; K2 reads f and df1, writes df2
+    # and f2; K3 reads f and df2, writes f3
+    for name, nbuf in (("K1", 2), ("K2", 4), ("K3", 3)):
+        nbytes = nbuf * word * npts + extra
+        print(f"phase 4 {label} {name} at 256^3 on {smi}: bytes bound "
+              f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms ({nbytes / npts:.2f} "
+              "B a point), in turns " + ", ".join(
+                  f"{t:.4f}" for t in times[(name, label)]) + " ms",
+              flush=True)
 
 
 def time_h3_instances(torch, pt, fr, smi, path):

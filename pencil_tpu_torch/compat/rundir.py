@@ -215,6 +215,16 @@ def _g(groups, name) -> Dict:
     return dict(groups.get(name, {}))
 
 
+def _continuous(forcing):
+    """The continuous-forcing fields of ``forcing`` where it is on, which
+    the replay keeps; JAX's replay rebuilds Forcing without them (ROADMAP
+    Queue 3), so where it is off the replayed module is JAX's."""
+    if not forcing.lforcing_cont:
+        return {}
+    return {f: getattr(forcing, f) for f in (
+        "lforcing_cont", "iforcing_cont", "ampl_ff", "k1_ff", "fcont_box")}
+
+
 def _parity_replay(path, modules, grid, nt, init_pars, run_pars, cpar):
     """``random_gen='nr_f90'`` or 'min_std': reproduce the reference's
     machine-independent RNG stream through start.x's draw order
@@ -295,7 +305,8 @@ def _parity_replay(path, modules, grid, nt, init_pars, run_pars, cpar):
                     # normalization uses cs0 unless overridden
                     # (forcing.f90:906-913)
                     cs0eff=(m.cs0eff if m.cs0eff != 1.0 else cs0eff),
-                    lscale_kvector_tobox=m.lscale_kvector_tobox)
+                    lscale_kvector_tobox=m.lscale_kvector_tobox,
+                    **_continuous(m))
             if m.name == "forcing" else m
             for m in modules)
     return (overrides or None), modules
@@ -616,7 +627,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
         if bad:
             _refuse(f"&magnetic: iresistivity={bad!r}")
         _check("magnetic", mag_p, {
-            "b_ext": _zero3, "lweyl_gauge": False,
+            "lweyl_gauge": False,
             "limplicit_resistivity": False, "ladvective_gauge": False,
             "lboris_correction": False, "battery_term": 0.0,
             "hall_term": 0.0, "llorentzforce": True,
@@ -629,14 +640,16 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             ampl=float(_first(mag_p.get("amplaa", 0.0))),
             eta=float(mag_p.get("eta", 0.0)),
             eta_hyper3=float(mag_p.get("eta_hyper3", 0.0)),
-            lohmic_heat=bool(mag_p.get("lohmic_heat", True))))
+            lohmic_heat=bool(mag_p.get("lohmic_heat", True)),
+            # a short list sets the leading components (Fortran)
+            B_ext=tuple(float(b) for b in (list(_as_tuple(
+                mag_p.get("b_ext", 0.0))) + [0.0, 0.0])[:3])))
 
     for_p = grp("forcing")
     if for_p:
         iforce = str(for_p.get("iforce", "zero"))
         if iforce not in ("zero", "helical"):
             _refuse(f"&forcing: iforce={iforce!r} (zero and helical)")
-        _check("forcing", for_p, {"lforcing_cont": False})
         kf = float(for_p.get("kf", 0.0))
         kdat = os.path.join(path, "k.dat")
         if kf == 0.0 and os.path.exists(kdat):
@@ -650,7 +663,15 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             kf=kf or 3.0,
             relhel=float(for_p.get("relhel", 1.0)),
             lscale_kvector_tobox=bool(
-                for_p.get("lscale_kvector_tobox", False))))
+                for_p.get("lscale_kvector_tobox", False)),
+            # continuous forcing (JAX rundir.py:1569-1576): the first
+            # profile of iforcing_cont, 'xz' over the grid's x and z
+            lforcing_cont=bool(for_p.get("lforcing_cont", False)),
+            iforcing_cont=str(_first(for_p.get("iforcing_cont", ""))),
+            ampl_ff=float(_first(for_p.get("ampl_ff", 0.0))),
+            k1_ff=float(for_p.get("k1_ff", 1.0)),
+            fcont_box=(grid.x0, grid.x0 + grid.Lx,
+                       grid.z0, grid.z0 + grid.Lz)))
 
     shear_p = grp("shear")
     if shear_p:

@@ -4,7 +4,8 @@ written for ``python -m pencil_tpu_torch start|run|export <rundir>``:
 * ``helical_mhdturb``: forced helical MHD turbulence as in the sample
   helical-MHDturb (the nr_f90 random stream, gaussian-noise u and A,
   helical forcing drawn from a k.dat shell, |k| within 0.5 of 3), with
-  the values of ``configs.flagship``;
+  the values of ``configs.flagship``, optionally in an imposed field or
+  driven by continuous forcing;
 * ``conv_slab``: stratified convection as in the sample conv-slab (the
   default min_std stream, gaussian-noise u, piecewise polytropic layers,
   K-const conduction, heating and cooling layers, z walls), with the
@@ -40,12 +41,26 @@ def _cparam(n):
             f"integer, parameter :: nxgrid={nx},nygrid={ny},nzgrid={nz}\n")
 
 
-def helical_mhdturb(d, n, nt=20, it1=10, isave=100):
+def helical_mhdturb(d, n, nt=20, it1=10, isave=100, b_ext=None,
+                    fcont=None):
+    """helical-MHDturb's shape; ``b_ext`` = (Bx, By, Bz) imposes that
+    uniform field (``B_ext`` in &magnetic_run_pars); ``fcont`` = (profile,
+    ampl_ff, k1_ff) drives the flow by that continuous forcing in place of
+    the helical kicks (``lforcing_cont=T``, ``iforce='zero'``, no k.dat):
+    with 'ABC', the ABC-flow dynamo in this box."""
     kk = shell_vectors(3.0, 0.5)
     kav = float(np.sqrt((kk ** 2).sum(1)).mean())
     kdat = f"{len(kk)} {kav!r}\n" + "\n".join(
         " ".join(f"{v:.1f}" for v in kk[:, a]) for a in range(3)) + "\n"
     x0, lx = repr(-math.pi), repr(2.0 * math.pi)
+    mag = "  eta=5e-3" + ("" if b_ext is None else ", B_ext=" + ",".join(
+        repr(float(b)) for b in b_ext))
+    if fcont is None:
+        forcing = "  iforce='helical', force=0.07, relhel=1., kf=3."
+    else:
+        prof, ampl, k1 = fcont
+        forcing = (f"  iforce='zero', lforcing_cont=T, iforcing_cont="
+                   f"'{prof}', ampl_ff={float(ampl)!r}, k1_ff={float(k1)!r}")
     return _write(d, {
         "src/cparam.local": _cparam(n),
         "src/Makefile.local": (
@@ -65,13 +80,12 @@ def helical_mhdturb(d, n, nt=20, it1=10, isave=100):
             f"  nt={nt}, it1={it1}, isave={isave}, itorder=3\n"
             "  random_gen='nr_f90'\n/\n"
             "&eos_run_pars\n/\n&hydro_run_pars\n/\n&density_run_pars\n/\n"
-            "&forcing_run_pars\n"
-            "  iforce='helical', force=0.07, relhel=1., kf=3.\n/\n"
-            "&magnetic_run_pars\n  eta=5e-3\n/\n"
+            f"&forcing_run_pars\n{forcing}\n/\n"
+            f"&magnetic_run_pars\n{mag}\n/\n"
             "&viscosity_run_pars\n  nu=5e-3, ivisc='nu-const'\n/\n"),
         "print.in": "t(1p,e10.3)\ndt(1p,e10.3)\nurms(1p,e10.3)\nbrms\n"
                     "umax\nrhom\n",
-        "k.dat": kdat})
+        **({"k.dat": kdat} if fcont is None else {})})
 
 
 def conv_slab(d, n, nt=20, it1=10, isave=100, uu_ampl="1e-3"):

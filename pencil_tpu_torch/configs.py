@@ -87,7 +87,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
 
 def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
               Omega=1.0, forcing=0.0, hyper3=False, entropy=False,
-              periodic=False):
+              periodic=False, b_ext=None):
     """The isothermal stratified layer: a box x, y, z ∈ [−2, 2] (Lx = Ly
     = Lz = 4), x and y periodic, z walls, isothermal gas (γ = 1, cs0 = 1)
     in hydrostatic balance (``Density(init='isothermal')``), so the scale
@@ -107,7 +107,9 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
     with ``forcing`` > 0 (helical forcing of that amplitude at kf = 3,
     kicked after each step), the set-up of the negative effective
     magnetic pressure runs (Brandenburg, Kemel, Kleeorin, Mitra &
-    Rogachevskii 2011, ApJ 740, L50) without their imposed field.
+    Rogachevskii 2011, ApJ 740, L50), whose horizontal imposed field
+    ``b_ext`` = (0, B0, 0) adds (``Magnetic.B_ext``; this repository runs
+    B0 = ``NEMPI_B0`` = 0.01, below equipartition with the forced flow).
     ``hyper3`` adds del6 hyper-diffusion of u, lnρ and (with Magnetic) A
     with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as ``conv_slab`` does.
 
@@ -149,8 +151,10 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
     if magnetic:
         bcz += (pkg.BC.parse("ax", "a"), pkg.BC.parse("ay", "a"),
                 pkg.BC.parse("az", "s"))
-        mag = (pkg.Magnetic(eta=5e-3, init="gaussian-noise", ampl=1e-3,
-                            **eta3),)
+        mag = (_magnetic(pkg, b_ext, eta=5e-3, init="gaussian-noise",
+                         ampl=1e-3, **eta3),)
+    elif b_ext is not None:
+        raise ValueError("strat_box: b_ext needs magnetic=True")
     if periodic:
         rot = (pkg.Gravity(gravz_profile="sin-z", gravz=-1.0,
                            kappa_z=math.pi / 2.0),)
@@ -170,7 +174,35 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
                  *rot,
                  pkg.Viscosity(nu=5e-3, **visc),
                  *mag, *ent,
-                 *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
+                 *((_forcing(pkg, forcing, grid),) if forcing else ())))
+
+
+# the imposed field of the negative-effective-magnetic-pressure box
+# (``strat_box(n, shear=False, forcing=0.05, b_ext=(0, NEMPI_B0, 0))``): a
+# horizontal field well below equipartition with the forced flow
+NEMPI_B0 = 0.01
+
+
+def _forcing(pkg, force, grid, fcont=None):
+    """The Forcing module: helical forcing of amplitude ``force`` at kf =
+    3, kicked after each step, or with ``fcont`` = (profile, ampl_ff,
+    k1_ff) the continuous forcing of that profile in the RHS alone (force
+    = 0: no kick); the 'xz' envelope over ``grid``'s x and z extent, as
+    the run-directory loader sets it."""
+    if fcont is None:
+        return pkg.Forcing(force=force, kf=3.0)
+    prof, ampl, k1 = fcont
+    return pkg.Forcing(force=0.0, kf=3.0, lforcing_cont=True,
+                       iforcing_cont=prof, ampl_ff=ampl, k1_ff=k1,
+                       fcont_box=(grid.x0, grid.x0 + grid.Lx, grid.z0,
+                                  grid.z0 + grid.Lz))
+
+
+def _magnetic(pkg, b_ext=None, **kw):
+    """Magnetic with ``kw`` and, where ``b_ext`` is given, that imposed
+    uniform field."""
+    return pkg.Magnetic(**kw, **({} if b_ext is None else
+                                 dict(B_ext=tuple(float(b) for b in b_ext))))
 
 
 def _hyper3(pkg, gs, hyper3):
@@ -282,15 +314,20 @@ def shock_box(n, fused=True, pkg=None, magnetic=True, entropy=False):
                  pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))
 
 
-def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False):
+def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False,
+                 fcont=None):
     """Forced isothermal hydro turbulence, the flagship without Magnetic
     (BASELINE config 2): the default 2π cube, fully periodic, isothermal
     gas (cs = 1), ν = 5e-3, helical forcing of amplitude 0.07 at kf = 3;
     4 fields (uu, lnrho).  ``Omega`` > 0 adds the Coriolis force of a
     rotation about z; ``hyper3`` del6 hyper-diffusion of u and lnρ with
     ν₃ = D₃ = 5e-3·dx⁵ ('hyper3-simplified', ``diffrho_hyper3``), ν
-    unchanged.  ``n`` is an int (a cube) or (nx, ny, nz).  The values are
-    this repository's own, not a reference sample's."""
+    unchanged.  ``fcont`` = (profile, ampl_ff, k1_ff) drives the flow by
+    continuous forcing of that profile in place of the kicks (force =
+    0): ('RobertsFlow', a, 1) is the Roberts flow (Roberts 1972, Phil.
+    Trans. R. Soc. A 271, 411), the steady helical columns of the
+    Roberts-flow dynamo.  ``n`` is an int (a cube) or (nx, ny, nz).  The
+    values are this repository's own, not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
@@ -301,10 +338,11 @@ def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False):
                  pkg.Density(lupw_lnrho=False, **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Viscosity(nu=5e-3, **visc),
-                 pkg.Forcing(force=0.07, kf=3.0)))
+                 _forcing(pkg, 0.07, grid, fcont)))
 
 
-def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False):
+def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
+             b_ext=None, fcont=None):
     """Forced isothermal MHD turbulence, the package's headline workload
     (the configuration ``bench.py`` times): the default 2π cube, fully
     periodic, isothermal gas (cs = 1), ν = η = 5e-3, gaussian-noise u and A,
@@ -313,7 +351,13 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False):
     ``hyper3`` adds del6 hyper-diffusion of u, A and lnρ with ν₃ = η₃ =
     D₃ = 5e-3·dx⁵ ('hyper3-simplified', ``eta_hyper3``,
     ``diffrho_hyper3``: hyper-diffusive turbulence, a longer inertial
-    range at a given n), ν and η unchanged.  ``n`` is an int (a cube) or
+    range at a given n), ν and η unchanged.  ``b_ext`` = (Bx, By, Bz) adds
+    an imposed uniform field (``Magnetic.B_ext``): forced MHD turbulence
+    in an imposed field, as the imposed-field runs of the Pencil Code's
+    users drive it.  ``fcont`` = (profile, ampl_ff, k1_ff) drives the flow
+    by continuous forcing of that profile in place of the kicks (force =
+    0): ('ABC', a, 1) is the ABC-flow dynamo (Galloway & Frisch 1986,
+    Geophys. Astrophys. Fluid Dyn. 36, 53).  ``n`` is an int (a cube) or
     (nx, ny, nz).  The values are this repository's own, not a reference
     sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
@@ -326,9 +370,9 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False):
                  pkg.Density(lupw_lnrho=False, **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3),
                  pkg.Viscosity(nu=5e-3, **visc),
-                 pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3,
-                              **mag),
-                 pkg.Forcing(force=0.07, kf=3.0)))
+                 _magnetic(pkg, b_ext, init="gaussian-noise", ampl=1e-4,
+                           eta=5e-3, **mag),
+                 _forcing(pkg, 0.07, grid, fcont)))
 
 
 def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0,

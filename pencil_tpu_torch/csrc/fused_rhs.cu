@@ -89,7 +89,18 @@
 // pointer is null and the add is of -0, which leaves every sum bit for
 // bit as it is without the term (one add in every instance, no
 // compile-time flag: PERF.md §6 has the registers and times beside the
-// builds without the term).
+// builds without the term).  Every build but K8 also adds the continuous
+// forcing (the Forcing module's lforcing_cont) to du/dt last, read at the
+// point from a field (3, nx, ny, nz) (ZgIn.fcont), each plane's values
+// loaded while the plane before it is computed (loaded before the RHS of
+// their own plane, K1 and K3 ran 17-23 % over the unforced ones), behind
+// a test of the pointer, which is uniform: where the forcing is off the
+// pointer is null and none of it runs (adds of -0 and loads under a
+// per-thread predicate measured 2-3 % on K1 and K2; PERF.md §6).  Every
+// MHD build adds the imposed uniform field B_ext to B = curl A where B is
+// formed (PcParams.bext, -0 in a component that is 0: three adds of a
+// parameter, within the noise of the parent), so that u x B, J x B/rho
+// and the Alfven speed read it, as the JAX Pencils.bb gives it.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -318,19 +329,24 @@ struct PcParams {
   // cool*prof_c*(cs2 - cs2c)/(cs2c rho T) and the heating layer
   // heat_norm*prof_h/(rho T)
   float cool, cs2c, heat_norm;
+  // the imposed uniform field B_ext of the MHD builds, added to curl A
+  // (-0 in a component that is 0)
+  float bext[3];
 };
 
 // The z inputs beside the stack: of the z-ghosted builds the z-halo slabs
 // (NV, nx, ny, NG) below z = 0 and above z = nz - 1 and, with PC_ENT, the
 // cooling and heating profiles (nz; zeros where a layer is off), which the
 // other builds pass as null; of every build gravity g_z(z) (nz), null
-// without gravity.
+// without gravity, and the continuous forcing (3, nx, ny, nz), the
+// layout of df, null where it is off.
 struct ZgIn {
   const float* zlo;
   const float* zhi;
   const float* prof_c;
   const float* prof_h;
   const float* grav;
+  const float* fcont;
 };
 
 // ---- the template's own stencil sums --------------------------------------
@@ -453,12 +469,15 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // what Viscosity and Magnetic publish.
 // Every build adds gravity, grav (g_z at this point's z, -0 without
 // gravity), after the pressure force and the Coriolis force, as the JAX
-// modules run (hydro, gravity, shear, viscosity).  The z-ghosted build
+// modules run (hydro, gravity, shear, viscosity); the MHD builds add
+// B_ext to curl A as soon as B is formed.  The continuous forcing joins du
+// after this function returns (the march), after the Lorentz force, where
+// the Forcing module comes in the JAX module order.  The z-ghosted build
 // with ss adds the layer terms after the heating, in the order of the JAX
 // modules (entropy last); lay_c is this point's cooling profile, lay_h
-// heat_norm times its heating profile, and
-// its conduction and heating terms, and with aa eta del2 A and the Ohmic
-// heat, are compiled in (no test of a coefficient: a layer that is off
+// heat_norm times its heating profile, and its conduction and heating
+// terms, and with aa eta del2 A and the Ohmic heat, are compiled in (no
+// test of a coefficient: a layer that is off
 // has a profile of zeros, a coefficient that is off adds 0); CHI adds
 // 'chi-const' conduction after K-const, a flag as ROT is (a term behind a
 // runtime test measured 3-6 %).
@@ -621,8 +640,10 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     for (int j = 0; j < 3; ++j)
       aij[i][j] = __fmul_rn(dj1(s + (AX + i) * FPL, xt[AX + i], j, P.w1),
                             P.inv[j]);
-  const float bb[3] = {aij[2][1] - aij[1][2], aij[0][2] - aij[2][0],
-                       aij[1][0] - aij[0][1]};
+  // B = curl A + B_ext: the curl first, then one add (JAX Pencils.bb)
+  const float bb[3] = {__fadd_rn(aij[2][1] - aij[1][2], P.bext[0]),
+                       __fadd_rn(aij[0][2] - aij[2][0], P.bext[1]),
+                       __fadd_rn(aij[1][0] - aij[0][1], P.bext[2])};
   float jj[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -1252,6 +1273,14 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   int jm = 0;            // j % NR
   // field 0 at this thread's point of plane x0, in dfout and faout
   size_t g = ((size_t)x0 * P.ny + gy) * P.nz + gz;
+  // this point's continuous forcing on the plane computed (df's layout),
+  // one plane ahead; a point outside the grid stores nothing and loads none
+  float fc[3];
+  if (zg.fcont) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      fc[a] = active ? __ldg(zg.fcont + g + a * N) : 0.0f;
+  }
   for (int j = 0; j < np; ++j, jm = jm + 1 == NR ? 0 : jm + 1, g += plane) {
     cp_async_wait<PD - 1>();
     __syncthreads();
@@ -1294,6 +1323,18 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
       flagship_rhs<FIRST, ROT, H3, CHI>(s, xt, xo, P, xn, lay_c, lay_h,
                                         grav, r, dt1);
+      if (zg.fcont) {
+        // the continuous forcing joins du last (the Forcing module
+        // follows Magnetic), then the next plane's is loaded: a plane's
+        // steps cover the loads' latency
+#pragma unroll
+        for (int a = 0; a < 3; ++a) r[UX + a] = __fadd_rn(r[UX + a], fc[a]);
+        if (j + 1 < np) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            fc[a] = active ? __ldg(zg.fcont + g + plane + a * N) : 0.0f;
+        }
+      }
     }
 
     if (FIRST) {
@@ -1578,14 +1619,16 @@ int pc_flagship_attrs(int which, int* out) {
 }
 
 // the inputs after the stream (and K3's and K2L's scratch): of the
-// z-ghosted build the slabs and profiles, then of every build g_z(z)
+// z-ghosted build the slabs and profiles, then of every build g_z(z) and
+// the continuous forcing
 #if PC_ZG
 #define ZG_INPUTS , const float *zlo, const float *zhi, const float *prof_c, \
                   const float *prof_h
-#define ZG_IN(grav) ZgIn{zlo, zhi, prof_c, prof_h, grav}
+#define ZG_IN(grav, fcont) ZgIn{zlo, zhi, prof_c, prof_h, grav, fcont}
 #else
 #define ZG_INPUTS
-#define ZG_IN(grav) ZgIn{nullptr, nullptr, nullptr, nullptr, grav}
+#define ZG_IN(grav, fcont) ZgIn{nullptr, nullptr, nullptr, nullptr, grav, \
+                                fcont}
 #endif
 
 // K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py);
@@ -1593,29 +1636,34 @@ int pc_flagship_attrs(int which, int* out) {
 // + `_dma_tile`, zroll), fa then the 8-slot state, ghosted in x and y for
 // K4; in the z-ghosted builds K6 and K6m (`kernel_zg` + `_fetch_zg`), fa
 // the interior (5 or 8, nx, ny, nz) with its z-halo slabs after the
-// stream; grav, g_z(z) or null, follows those.
+// stream; grav, g_z(z) or null, follows those, then fcont, the continuous
+// forcing or null.
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
-                 float* dt1blk, void* stream ZG_INPUTS, const float* grav) {
-  return first<false>(p, fa, df, dt1blk, stream, ZG_IN(grav));
+                 float* dt1blk, void* stream ZG_INPUTS, const float* grav,
+                 const float* fcont) {
+  return first<false>(p, fa, df, dt1blk, stream, ZG_IN(grav, fcont));
 }
 
 #if PC_TAILS
 // K2: replaces `kernel_tail(defer_prev=True)` (pencil_tpu/ops/fused_rhs.py).
 int pc_rhs_tail_defer(const PcParams* p, const float* fa, const float* df1,
                       const float* coef, float* df2, float* f2, void* stream,
-                      const float* grav) {
-  return tail_defer<false>(p, fa, df1, coef, df2, f2, stream, ZG_IN(grav));
+                      const float* grav, const float* fcont) {
+  return tail_defer<false>(p, fa, df1, coef, df2, f2, stream,
+                           ZG_IN(grav, fcont));
 }
 
 // K3: replaces `kernel_tail(last=True, with_kick)` (pencil_tpu/ops/
 // fused_rhs.py); kick may be null (unforced runs), else tab is scratch of
 // 2 (nx + ny + nz) floats (it follows the stream, so that a caller of the
-// older interface, without it, still runs an unforced tail); grav follows.
+// older interface, without it, still runs an unforced tail); grav and
+// fcont follow.
 int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
                      const float* coef, const float* kick, const float* zc,
-                     float* f3, void* stream, float* tab, const float* grav) {
+                     float* f3, void* stream, float* tab, const float* grav,
+                     const float* fcont) {
   return tail_last<false, false>(p, fa, df2, coef, kick, zc, tab, f3, stream,
-                                 ZG_IN(grav));
+                                 ZG_IN(grav, fcont));
 }
 #endif  // PC_TAILS
 
@@ -1626,10 +1674,11 @@ int pc_rhs_tail_last(const PcParams* p, const float* fa, const float* df2,
 // df_prev's own buffer.
 int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
                     const float* coef, float* df, float* f,
-                    void* stream ZG_INPUTS, const float* grav) {
+                    void* stream ZG_INPUTS, const float* grav,
+                    const float* fcont) {
   return launch<false, false, false, false, false>(
       p, fa, df_prev, coef, nullptr, nullptr, df, f, nullptr, stream,
-      ZG_IN(grav));
+      ZG_IN(grav, fcont));
 }
 
 #if PC_TAILS
@@ -1638,9 +1687,10 @@ int pc_rhs_tail_mid(const PcParams* p, const float* fa, const float* df_prev,
 int pc_rhs_tail_defer_last(const PcParams* p, const float* fa,
                            const float* df1, const float* coef,
                            const float* kick, const float* zc, float* f,
-                           void* stream, float* tab, const float* grav) {
+                           void* stream, float* tab, const float* grav,
+                           const float* fcont) {
   return tail_last<true, false>(p, fa, df1, coef, kick, zc, tab, f, stream,
-                                ZG_IN(grav));
+                                ZG_IN(grav, fcont));
 }
 #endif
 

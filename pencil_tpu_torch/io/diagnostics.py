@@ -15,9 +15,11 @@ helicity ``oum``, ``ekin``, ``EEK`` and the Mach numbers ``Marms``,
 ``bm2``, ``bx2m`` … ``bz2m``, A's ``arms``, ``a2m``, ``axm`` … ``azm``,
 ``amax``, ``jrms``, ``jmax``, ``j2m``, ``jbm``, ``abm``, the Alfvén speed's
 ``vA2m``, ``vArms``, ``vAmax``, the mean fields ``bmx``, ``bmy``, ``bmz``,
-``EEM`` and ``emag``; the dissipation rates ``epsK`` and ``epsM``; and the
-integrals ``ekintot`` and ``ethtot``.  Plain torch: the JAX package computes
-them in jnp outside any kernel.  As there, the pencils read a ghost-filled
+``EEM`` and ``emag``, the extrema of B without B_ext ``bbxmax``,
+``bbymax``, ``bbzmax`` and the EMF along the imposed field ``uxbm``; the
+continuous forcing's work ``ufm`` and ``rufm``; the dissipation rates
+``epsK`` and ``epsM``; and the integrals ``ekintot`` and ``ethtot``.
+Plain torch: the JAX package computes them in jnp outside any kernel.  As there, the pencils read a ghost-filled
 copy of the state (wraps and BCs, without the shear shift), and a shock slot
 is rebuilt from the current fields first.
 """
@@ -25,9 +27,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterable
 
+import numpy as np
 import torch
 
-from ..physics.pencils import Pencils
+from ..physics.pencils import Pencils, b_ext
 
 
 def _staged_mean(x):
@@ -352,6 +355,57 @@ def _emag(pen, st):
     return torch.sum(0.5 * pen.b2()) * dv
 
 
+def _bbb(pen):
+    """B without B_ext (reference p%bbb, magnetic.f90:5784; JAX
+    diagnostics.py:954-962)."""
+    bb = pen.bb()
+    bext = b_ext(pen.cfg)
+    if bext is None:
+        return bb
+    return torch.stack([bb[a] - bext[a] for a in range(3)])
+
+
+for _i, _c in enumerate("xyz"):
+    DIAG_REGISTRY[f"bb{_c}max"] = (
+        lambda pen, st, i=_i: _bbb(pen)[i].abs().max())
+
+
+@diag("uxbm")
+def _uxbm(pen, st):
+    """<u×B>·B_ext/B_ext² (idiag_uxbm, magnetic.f90:664; JAX
+    diagnostics.py:1153-1163), in float32 as there."""
+    B0 = np.asarray(pen.cfg.module("magnetic").B_ext, np.float32)
+    B02 = max(np.float32((B0 ** 2).sum()), np.float32(1e-30))
+    uu, bb = pen.uu(), pen.bb()
+    uxb = (uu[1] * bb[2] - uu[2] * bb[1], uu[2] * bb[0] - uu[0] * bb[2],
+           uu[0] * bb[1] - uu[1] * bb[0])
+    return _vmean(pen, sum(uxb[a] * float(B0[a]) for a in range(3))) \
+        / float(B02)
+
+
+# ---- forcing ----------------------------------------------------------------
+def _uf(pen):
+    """u·f_cont of the continuous forcing (0 where it is off)."""
+    forc = pen.cfg.module("forcing")
+    uu = pen.uu()
+    if forc is None or not forc.lforcing_cont:
+        return torch.zeros_like(uu[0])
+    fc = forc.fcont(pen.grid)
+    return uu[0] * fc[0] + uu[1] * fc[1] + uu[2] * fc[2]
+
+
+@diag("ufm")
+def _ufm(pen, st):
+    """<u·f_cont> (forcing.f90:6075; JAX diagnostics.py:860-863)."""
+    return _vmean(pen, _uf(pen))
+
+
+@diag("rufm")
+def _rufm(pen, st):
+    """<ρ u·f_cont> (forcing.f90:6065; JAX diagnostics.py:866-869)."""
+    return _vmean(pen, pen.rho() * _uf(pen))
+
+
 # ---- dissipation ------------------------------------------------------------
 def _visc_heat(pen):
     """Per-point viscous heating 2νS² + ν_sh·shock·(∇·u)² of the
@@ -388,7 +442,8 @@ def _epsm(pen, st):
 _NEEDS = dict.fromkeys(
     ("brms", "bmax", "b2m", "bm2", "bx2m", "by2m", "bz2m", "arms", "a2m",
      "axm", "aym", "azm", "amax", "jrms", "jmax", "j2m", "jbm", "abm",
-     "vA2m", "vArms", "vAmax", "bmx", "bmy", "bmz", "EEM", "emag", "epsM"),
+     "vA2m", "vArms", "vAmax", "bmx", "bmy", "bmz", "EEM", "emag", "epsM",
+     "bbxmax", "bbymax", "bbzmax", "uxbm"),
     "aa")
 _STATE_SCALARS = ("it", "t", "dt")
 

@@ -34,11 +34,14 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
 
   Each of these four sets may add del6 hyper-diffusion ('hyper3-simplified'
   viscosity, η₃, D₃): the wrappers then launch the H3 instances of the
-  same kernels.  Each may add Gravity, any of its z profiles, as may the
-  aux sets below: 'sin-z' has a periodic hydrostatic state, so a triply
-  periodic box holds a stratified layer (``configs.strat_box(n,
-  periodic=True, shear=False)``).  Every kernel but K8's reads g_z(z) as a
-  vector.
+  same kernels.  Every set of every chain may add Magnetic's imposed
+  field B_ext (its MHD sets) and Forcing's continuous forcing
+  (``lforcing_cont``): every kernel but K8 adds B_ext to B = ∇×A and the
+  profile, a device field built once a model, to du/dt.  Each may add
+  Gravity, any of its z profiles, as may the aux sets below: 'sin-z' has
+  a periodic hydrostatic state, so a triply periodic box holds a
+  stratified layer (``configs.strat_box(n, periodic=True,
+  shear=False)``).  Every kernel but K8's reads g_z(z) as a vector.
 
 * Stratified convection — the EOS with an entropy slot, lnρ density,
   hydro (with optional Coriolis), gravity, 'nu-const' viscosity,
@@ -63,7 +66,9 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   without ss: K6i/K7i, K6mi/K7mi, K6si/K7si and K6msi/K7msi.  Every
   z-ghosted build reads g_z(z) as a vector, so any z profile of Gravity
   runs on each (the stratified shearing box with an energy equation,
-  ``configs.strat_box(n, entropy=True)``, g_z = −Ω²z on K6ms/K7ms).
+  ``configs.strat_box(n, entropy=True)``, g_z = −Ω²z on K6ms/K7ms), and
+  each of these sets runs without Gravity too (g_z = 0: unstratified
+  boxes between z walls).
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -117,6 +122,7 @@ from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
+from .physics.forcing import FCONT_PROFILES
 from .physics.pencils import Pencils
 
 # Fixed RHS evaluation order (reference calc_all_pencils order,
@@ -140,9 +146,10 @@ REGISTRATION_ORDER = (
 # the module sets the fused kernels implement: the flagship and forced hydro
 # (forcing and gravity are optional) on a fully periodic grid, stratified
 # convection and magnetoconvection, with or without Shear, with z
-# non-periodic and x, y periodic (forcing is optional), and the shearing
-# box and the shocked box (forcing and gravity are optional) on a fully
-# periodic grid
+# non-periodic and x, y periodic (forcing and gravity are optional), and
+# the shearing box and the shocked box (forcing and gravity are optional)
+# on a fully periodic grid; Magnetic's B_ext and Forcing's continuous
+# forcing ride on every set as terms of the template
 HYDRO_MODULES = frozenset(("eos", "density", "hydro", "viscosity"))
 FLAGSHIP_MODULES = HYDRO_MODULES | {"magnetic"}
 # the same two with an entropy field (non-isothermal turbulence)
@@ -162,6 +169,9 @@ ISO_ZGHOST_SETS = tuple(base | {"gravity"} | shear
                         for base in (HYDRO_MODULES, FLAGSHIP_MODULES)
                         for shear in (set(), {"shear"}))
 ZGHOST_SETS = ENT_ZGHOST_SETS + ISO_ZGHOST_SETS
+# the same with Gravity optional: a z-walled set without it runs the
+# z-ghosted chain with g_z = 0 (unstratified boxes between walls)
+ZGHOST_FREE_SETS = tuple(s - {"gravity"} for s in ZGHOST_SETS)
 # the shearing box, MHD or hydro, each with or without the shock slot, and
 # the shocked periodic box, MHD or hydro (forcing optional in all; each
 # also with an entropy field)
@@ -205,8 +215,10 @@ def fused_mode(cfg: Config):
     with an entropy field) or 'wrap_aux' (the shocked periodic box, MHD or
     hydro, each also with an entropy field), gravity (any z profile of
     Gravity) optional in every periodic set and part of the z-ghosted
-    ones; or (None, why ``cfg`` is outside all of these sets).  The module
-    set is tested before any option of it, so a set that no chain takes is
+    ones and optional there too (the z-walled sets without it: g_z = 0);
+    Magnetic's B_ext on every MHD set and continuous forcing on every set;
+    or (None, why ``cfg`` is outside all of these sets).  The module set
+    is tested before any option of it, so a set that no chain takes is
     refused for its modules; Entropy's layer profiles outside the
     z-ghosted sets are refused for that option."""
     names = [m.name for m in cfg.modules]
@@ -227,7 +239,8 @@ def fused_mode(cfg: Config):
         # gravity rides on every chain as its g_z(z) vector: optional on
         # the periodic sets, part of the z-ghosted ones
         free = unforced - {"gravity"}
-        zghost = unforced in ZGHOST_SETS and periodic == (True, True, False)
+        zghost = free in ZGHOST_FREE_SETS and periodic == (True, True,
+                                                           False)
         wrap = free in WRAP_SETS and full
         aux = full and (free in ZROLL_SETS or free in SHOCKBOX_SETS)
         if not (zghost or wrap or aux):
@@ -258,7 +271,7 @@ def _outside(names, periodic):
             f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
             f"{sorted(HYDRO_MODULES)}, each with or without 'entropy', on "
             f"a periodic grid, {sorted(CONVSLAB_MODULES)} with or without "
-            "'entropy' and with or without 'magnetic' and 'shear' with a "
+            "'entropy', 'gravity', 'magnetic' and 'shear' with a "
             "non-periodic z, "
             f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
             f"{sorted(HYDRO_MODULES | {'shear'})}, each with or without "
@@ -327,6 +340,12 @@ def _check_supported(cfg: Config):
         if visc is not None and visc.coefficients()[1] \
                 and cfg.module("shock") is None:
             problems.append("Viscosity 'nu-shock' without the Shock module")
+        forcing = cfg.module("forcing")
+        if forcing is not None and forcing.lforcing_cont \
+                and forcing.iforcing_cont not in FCONT_PROFILES:
+            problems.append(f"Forcing iforcing_cont="
+                            f"{forcing.iforcing_cont!r} (ported: "
+                            f"{sorted(set(FCONT_PROFILES) - {''})})")
     if problems:
         raise NotImplementedError("pencil_tpu_torch: " + "; ".join(problems))
 
@@ -362,8 +381,6 @@ class Model:
             raise NotImplementedError(
                 "pencil_tpu_torch: fake_rhs (K8) needs a fixed "
                 "TimeSpec.dt > 0 (its K1 reports no CFL rate)")
-        require_device(self.device)
-        self.dtype = torch.float32
         self.modules = tuple(sorted(cfg.modules, key=_order_key(MODULE_ORDER)))
         self.reg = Registry()
         for m in sorted(cfg.modules, key=_order_key(REGISTRATION_ORDER)):
@@ -379,6 +396,8 @@ class Model:
                 raise NotImplementedError(
                     f"pencil_tpu_torch: the non-periodic {'xyz'[axis]} axis "
                     f"needs one BC for each of {comps}, got {named}")
+        require_device(self.device)
+        self.dtype = torch.float32
         self.eos = cfg.module("eos")
         self.grid = make_grid(cfg.grid, self.device, self.dtype)
         self.rk = RK_TABLES[cfg.time.itorder]

@@ -101,21 +101,21 @@ _p = ctypes.c_void_p
 # and K5, and those of their other layouts), and
 # so have the z-ghosted builds (K6 and K7, K6m and K7m), whose two take
 # their z-halo slabs and layer profiles after the stream; every entry point
-# but K8's takes g_z(z) last; K8 (the fake RHS) is built for the MHD
-# instances only
+# but K8's takes g_z(z) and the continuous forcing last; K8 (the fake RHS)
+# is built for the MHD instances only
 _SHOCK = {
     "pc_tile_shape": [_p],
     "pc_flagship_attrs": [ctypes.c_int, _p],
-    "pc_rhs_first": [_p] * 6,
-    "pc_rhs_tail_mid": [_p] * 8,
+    "pc_rhs_first": [_p] * 7,
+    "pc_rhs_tail_mid": [_p] * 9,
 }
 _FLAGSHIP = {
     **_SHOCK,
-    "pc_rhs_tail_defer": [_p] * 8,
-    "pc_rhs_tail_last": [_p] * 10,
-    "pc_rhs_tail_defer_last": [_p] * 10,
+    "pc_rhs_tail_defer": [_p] * 9,
+    "pc_rhs_tail_last": [_p] * 11,
+    "pc_rhs_tail_defer_last": [_p] * 11,
 }
-_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 10, "pc_rhs_tail_mid": [_p] * 12}
+_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 11, "pc_rhs_tail_mid": [_p] * 13}
 # each library's entry points: name -> argtypes (all return an int)
 SIGNATURES = {
     "fused_rhs": {

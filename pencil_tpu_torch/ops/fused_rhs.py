@@ -107,9 +107,16 @@ the shock slot (``fused_rhs_shear_ent``: K4e, K5e, ``*_ent``;
 
 Every kernel but K8 adds gravity g_z(z) on u_z where the model has a
 Gravity module, any of its z profiles, read from a device vector (nz,)
-(``gravity_vector``) that each launch passes last; so each module set of
-the periodic and aux chains may add Gravity (stratified turbulence in a
-periodic box under 'sin-z').
+(``gravity_vector``) that each launch passes after the others; so each
+module set of the periodic and aux chains may add Gravity (stratified
+turbulence in a periodic box under 'sin-z'), and the z-ghosted ones may
+leave it out (g_z = 0).  Every kernel but K8 also adds the continuous
+forcing of Forcing(lforcing_cont=True) to du/dt last, read from a device
+field (3, nx, ny, nz) (``fcont_tensor``) passed after g_z(z), and every
+MHD kernel adds Magnetic's B_ext to B = ∇×A (a constant of
+``kernel_params``), so u×B, J×B/ρ and the Alfvén speed read the imposed
+field; with a null field the kernels skip the forcing, and a zero B_ext
+adds -0.
 
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
@@ -374,6 +381,7 @@ class PcParams(ctypes.Structure):
         ("w6", ctypes.c_float * 3), ("inv6", ctypes.c_float * 3),
         ("S", ctypes.c_float), ("cool", ctypes.c_float),
         ("cs2c", ctypes.c_float), ("heat_norm", ctypes.c_float),
+        ("bext", ctypes.c_float * 3),
     ]
 
 
@@ -566,19 +574,21 @@ def zg_library(model) -> str:
     stratified layer: uu, lnrho and with Magnetic aa) 'fused_rhs_zg_iso',
     'fused_rhs_zg_iso_mag', and with Shear 'fused_rhs_zg_iso_shear' and
     'fused_rhs_zg_iso_mag_shear', each with or without forcing, Ω and
-    del6; on a grid with z walls and x, y periodic; raises for another
-    layout, module set or grid.  Found once per model: the conv-slab step
-    is bound by the host."""
+    del6; each with or without Gravity (without it g_z = 0: the kernels
+    read a null vector); on a grid with z walls and x, y periodic; raises
+    for another layout, module set or grid.  Found once per model: the
+    conv-slab step is bound by the host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
     reg, cfg = model.reg, model.cfg
-    names = {m.name for m in cfg.modules} - {"forcing"}
+    names = {m.name for m in cfg.modules} - {"forcing", "gravity"}
     walls = tuple(cfg.grid.periodic) == (True, True, False)
     for lib, (layout, modules, _) in _ZG_BUILDS.items():
         n = sum(sl.stop - sl.start for sl in layout.values())
-        if walls and names == modules and reg.nvar == reg.nf == n and all(
-                reg.slice(k) == v for k, v in layout.items()):
+        if walls and names == modules - {"gravity"} \
+                and reg.nvar == reg.nf == n and all(
+                    reg.slice(k) == v for k, v in layout.items()):
             model.__dict__["_zg_library"] = lib
             return lib
     raise NotImplementedError(
@@ -615,6 +625,20 @@ def gravity_vector(model):
     return model.__dict__["_gravity_vector"]
 
 
+def fcont_tensor(model):
+    """The continuous forcing (3, nx, ny, nz) of ``model``'s Forcing on
+    the interior grid, a device tensor as the plain version computes it
+    (``Forcing.fcont``, float32), which every kernel but K8 adds to du/dt
+    last; None where it is off or its profile inert (the kernels then
+    skip it).  Built once per model."""
+    if "_fcont" not in model.__dict__:
+        forcing = model.cfg.module("forcing")
+        model.__dict__["_fcont"] = (
+            forcing.fcont(model.grid).contiguous()
+            if forcing is not None and forcing.fcont_live() else None)
+    return model.__dict__["_fcont"]
+
+
 def zg_profiles(model):
     """The z profiles that ``model``'s z-ghosted build reads, as the plain
     version computes them, each a device vector (nz,) or None: (cooling
@@ -635,6 +659,12 @@ def zg_profiles(model):
 def _ptr(t):
     """A tensor's device pointer, or None (a null pointer) for None."""
     return None if t is None else t.data_ptr()
+
+
+def _terms(model):
+    """The last inputs of every entry point but K8's: g_z(z) and the
+    continuous forcing, each a device pointer or null."""
+    return _ptr(gravity_vector(model)), _ptr(fcont_tensor(model))
 
 
 def launch_suffix(model) -> str:
@@ -720,7 +750,11 @@ def kernel_params(model) -> PcParams:
         S=shear.S if shear is not None else 0.0,
         cool=ent.cool if heats else 0.0,
         cs2c=ent.cs2c(eos) if heats else 0.0,
-        heat_norm=ent.heat_norm(gs) if heats else 0.0)
+        heat_norm=ent.heat_norm(gs) if heats else 0.0,
+        # the imposed field, -0 where a component is 0: the add leaves B
+        # bit for bit as the curl gives it
+        bext=fl3(*(b if b != 0.0 else -0.0 for b in (
+            mag.B_ext if mag is not None else (0.0, 0.0, 0.0)))))
     model.__dict__["_pc_params"] = p
     return p
 
@@ -848,11 +882,11 @@ def _flagship_launch(name, lib, model, fa, *args, fake=False, after=()):
     """Launch the flagship template's entry ``name`` (its K8 variant with
     ``fake``) of library ``lib``, counted under that library's launch
     name; ``args`` follow the constants and ``fa``, ``after`` the stream,
-    and then, but for K8, g_z(z)."""
+    and then, but for K8, g_z(z) and the continuous forcing."""
     name += "_fake" if fake else ""
     sfx = _SUFFIX[lib] + ("" if fake else _h3_suffix(model))
     if not fake:
-        after = after + (_ptr(gravity_vector(model)),)
+        after = after + _terms(model)
     _launch(name + sfx, fa, ctypes.addressof(kernel_params(model)),
             fa.data_ptr(), *args, lib=lib, entry=name, after=after)
 
@@ -951,7 +985,8 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
     if coef is not None:
         _check(coef, (2,), "coef")
     return lib, zg_kernels(model), shape, (
-        zlo.data_ptr(), zhi.data_ptr(), *map(_ptr, zg_profiles(model)))
+        zlo.data_ptr(), zhi.data_ptr(), *map(_ptr, zg_profiles(model)),
+        _ptr(fcont_tensor(model)))
 
 
 def rhs_zg(model, fa, zlo, zhi):
@@ -1018,7 +1053,7 @@ def _aux_first(model, fa, shear):
     blk = fa.new_empty(_nblocks(shape[1:], lib))
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
             df.data_ptr(), blk.data_ptr(), lib=lib, entry="rhs_first",
-            after=(_ptr(gravity_vector(model)),))
+            after=_terms(model))
     return df, torch.amax(blk)
 
 
@@ -1030,7 +1065,7 @@ def _aux_upd(model, fa, df_prev, coef, shear):
     _launch(name, fa, ctypes.addressof(kernel_params(model)), fa.data_ptr(),
             df_prev.data_ptr(), coef.data_ptr(), df_prev.data_ptr(),
             f.data_ptr(), lib=lib, entry="rhs_tail_mid",
-            after=(_ptr(gravity_vector(model)),))
+            after=_terms(model))
     return df_prev, f
 
 

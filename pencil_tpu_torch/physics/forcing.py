@@ -20,6 +20,16 @@ row past the end) builds the separable helical eigenfunction, and the
 kick is fact·Re[(coef1 + i·coef2)·e^{i(k·x+phase)}], the same form as
 above with f_re = coef1, f_im = coef2 and N·dt = fact.  The table lives
 on the device and the row is picked by the state's ``it`` tensor.
+
+Continuous forcing (``lforcing_cont``; JAX ``fcont``, pencil_tpu/physics/
+forcing.py:62-128, reference forcing_cont, src/forcing.f90): a fixed
+profile f(x) of amplitude ``ampl_ff`` and wavenumber ``k1_ff`` added to
+du/dt inside the RHS, in the Forcing module's place of the module order
+(after Magnetic's J×B/ρ): 'ABC' (Arnold-Beltrami-Childress; Galloway &
+Frisch 1986), 'RobertsFlow' (Roberts 1972), 'cosx*cosy*cosz' and 'xz' (a
+parabolic envelope over ``fcont_box``); '' and 'nothing' are inert.  The
+profile does not depend on time (JAX's RHS calls it at t = 0), so the
+kernels read it as a field built once a model.
 """
 from __future__ import annotations
 
@@ -30,7 +40,12 @@ from typing import ClassVar, Optional
 import numpy as np
 import torch
 
-from .base import ModuleBase
+from .base import ModuleBase, accumulate
+
+# the continuous-forcing profiles (JAX forcing.py:72-122): each name and
+# its alias; '' and 'nothing' are the inert ones
+FCONT_PROFILES = ("", "nothing", "xz", "cosx*cosy*cosz", "ABC", "abc",
+                  "RobertsFlow", "Roberts")
 
 
 def shell_vectors(kf: float, dk: float) -> np.ndarray:
@@ -83,6 +98,64 @@ class Forcing(ModuleBase):
     slope_ff: float = 0.0
     cs0eff: float = 1.0
     lscale_kvector_tobox: bool = False
+    # continuous forcing, a term of the RHS (JAX forcing.py:62-70)
+    lforcing_cont: bool = False
+    iforcing_cont: str = ""
+    ampl_ff: float = 0.0
+    k1_ff: float = 1.0
+    omega_fcont: float = 0.0
+    # box corners (x0, x1, z0, z1) of the 'xz' envelope
+    fcont_box: tuple = (0.0, 1.0, 0.0, 1.0)
+
+    def fcont(self, grid):
+        """The continuous-forcing profile (3, nx, ny, nz) on ``grid``'s
+        interior coordinates, in JAX's operation order
+        (pencil_tpu/physics/forcing.py:72-122); raises for a profile that
+        is not ported."""
+        k = self.k1_ff
+        x, y, z = grid.xg, grid.yg, grid.zg
+        prof = self.iforcing_cont
+        zero = torch.zeros_like(x + y + z)
+        if prof in ("", "nothing"):
+            return torch.stack([zero, zero, zero])
+        if prof == "xz":
+            gs = self.fcont_box
+            fy = (self.ampl_ff * (x - gs[0]) * (gs[1] - x)
+                  * (z - gs[2]) * (gs[3] - z)) + zero
+            return torch.stack([zero, fy, zero])
+        if prof == "cosx*cosy*cosz":
+            fact = -self.ampl_ff
+            return torch.stack([
+                fact * torch.sin(k * x) * torch.cos(k * y) * torch.cos(k * z),
+                fact * torch.cos(k * x) * torch.sin(k * y) * torch.cos(k * z),
+                fact * torch.cos(k * x) * torch.cos(k * y) * torch.sin(k * z),
+            ])
+        if prof in ("ABC", "abc"):
+            return self.ampl_ff * torch.stack([
+                torch.sin(k * z) + torch.cos(k * y) + zero,
+                torch.sin(k * x) + torch.cos(k * z) + zero,
+                torch.sin(k * y) + torch.cos(k * x) + zero,
+            ])
+        if prof in ("RobertsFlow", "Roberts"):
+            sqrt2 = 1.4142135623730951
+            return self.ampl_ff * torch.stack([
+                -torch.cos(k * x) * torch.sin(k * y) + zero,
+                torch.sin(k * x) * torch.cos(k * y) + zero,
+                sqrt2 * torch.cos(k * x) * torch.cos(k * y) + zero,
+            ])
+        raise NotImplementedError(
+            f"pencil_tpu_torch: iforcing_cont={prof!r} (ported: "
+            "cosx*cosy*cosz, ABC, RobertsFlow, xz)")
+
+    def fcont_live(self) -> bool:
+        """True where the continuous forcing adds a term (on, and not an
+        inert profile)."""
+        return self.lforcing_cont and self.iforcing_cont not in ("",
+                                                                 "nothing")
+
+    def rhs(self, pen, df, ts):
+        if self.lforcing_cont:
+            accumulate(df, "uu", self.fcont(pen.grid))
 
     def tables(self, spec, device, dtype=torch.float32,
                shear=None) -> ForcingTables:

@@ -3,11 +3,14 @@
 
     ∂A/∂t = u×B + η∇²A + η₃ Σ_a ∂⁶A/∂x_a⁶,    du/dt += J×B/ρ   (µ₀ = 1)
 
-with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  With an
+with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  ``B_ext``
+is an imposed uniform field: B = ∇×A + B_ext (``Pencils.bb``, JAX
+pencils.py:682-697), which u×B, J×B/ρ and the Alfvén speed read.  With an
 entropy slot the Ohmic heating η J² goes into the pencil cache for the
 entropy module (``lohmic_heat``; JAX magnetic.py:378-380).  The JAX
-module's other options (Weyl gauge, B_ext, shock resistivity, mean-field,
-Hall, ...) are not ported: their fields do not exist here."""
+module's other options (Weyl gauge, the advective gauge, shock
+resistivity, mean-field, Hall, ...) are not ported: their fields do not
+exist here."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -26,6 +29,7 @@ class Magnetic(ModuleBase):
     lohmic_heat: bool = True
     init: str = "zero"
     ampl: float = 0.0
+    B_ext: tuple = (0.0, 0.0, 0.0)
 
     def register(self, reg):
         reg.register("aa", 3, "pde", comps=("ax", "ay", "az"))

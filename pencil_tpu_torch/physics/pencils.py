@@ -15,6 +15,7 @@ the fused kernels are held to.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..integrate.timestep import pow6
@@ -31,6 +32,15 @@ def _memo(fn):
         return self._cache[key]
 
     return wrapper
+
+
+def b_ext(cfg):
+    """Magnetic's imposed field B_ext as three float32-exact floats, or
+    None where it is 0 (or there is no Magnetic)."""
+    mag = cfg.module("magnetic") if cfg is not None else None
+    if mag is None or not any(b != 0.0 for b in mag.B_ext):
+        return None
+    return tuple(float(np.float32(b)) for b in mag.B_ext)
 
 
 def _cross(a, b):
@@ -323,13 +333,15 @@ class Pencils:
 
     @_memo
     def bb(self):
-        """B = ∇×A."""
+        """B = ∇×A, plus the imposed uniform field B_ext where it is not 0
+        (JAX pencils.py:682-697: the curl first, then one add in f32)."""
         aij = self.aij()
-        return torch.stack([
-            aij[2, 1] - aij[1, 2],
-            aij[0, 2] - aij[2, 0],
-            aij[1, 0] - aij[0, 1],
-        ])
+        curl = (aij[2, 1] - aij[1, 2], aij[0, 2] - aij[2, 0],
+                aij[1, 0] - aij[0, 1])
+        bext = b_ext(self.cfg)
+        if bext is not None:
+            curl = tuple(c + b for c, b in zip(curl, bext))
+        return torch.stack(curl)
 
     @_memo
     def b2(self):

@@ -8,8 +8,9 @@ K4he/K5he, K4hne/K5hne), K6/K7 of stratified convection, K6m/K7m
 of magnetoconvection, each z-ghosted pair also with Ω, K6s/K7s and
 K6ms/K7ms of the stratified shearing box, the H3 instances
 of the four periodic builds (del6 hyper-diffusion) and the CHI and H3
-instances of the z-ghosted builds (chi-const, del6), and every build
-under gravity) against their plain PyTorch versions
+instances of the z-ghosted builds (chi-const, del6), every build
+under gravity, and every build with the continuous forcing and, with
+Magnetic, B_ext) against their plain PyTorch versions
 on the card, and steps on the card against the same steps on the CPU
 (forced convection and the stratified shearing box among them), and the
 run loop's restart and its outputs (spectra, plane and phi averages) on
@@ -1258,6 +1259,111 @@ def test_gravity_paths_on_card_match_cpu(cuda, case):
     _conv_slab_steps_match(cuda, strat_box((16, 16, 32), **GRAV_PATHS[case]))
 
 
+# ---- B_ext and the continuous forcing on every build ---------------------------
+FCONT = ("ABC", "RobertsFlow", "cosx*cosy*cosz", "xz")
+B_EXT = (0.03, -0.05, 0.1)
+
+
+def with_terms(cfg, profile):
+    """``cfg`` with B_ext (its MHD sets) and the continuous forcing
+    ``profile`` at k1_ff = 1, its maximum 0.1, on its Forcing module or a
+    new one without kicks."""
+    gs = cfg.grid
+    ampl = 0.1 / ((gs.Lx / 2) ** 2 * (gs.Lz / 2) ** 2) if profile == "xz" \
+        else 0.1
+    kw = dict(lforcing_cont=True, iforcing_cont=profile, ampl_ff=ampl,
+              k1_ff=1.0, fcont_box=(gs.x0, gs.x0 + gs.Lx, gs.z0,
+                                    gs.z0 + gs.Lz))
+    mods = tuple(dataclasses.replace(m, B_ext=B_EXT) if m.name == "magnetic"
+                 else dataclasses.replace(m, **kw) if m.name == "forcing"
+                 else m for m in cfg.modules)
+    if cfg.module("forcing") is None:
+        mods += (pt.Forcing(force=0.0, **kw),)
+    return cfg.replace(modules=mods)
+
+
+TERM_WRAP = {"mhd": lambda s: flagship(s),
+             "hydro": lambda s: forced_hydro(s),
+             "ent_mhd": lambda s: forced_entropy(s),
+             "ent_hydro": lambda s: forced_entropy(s, magnetic=False),
+             "mhd_h3_rot": lambda s: with_omega(
+                 pt.configs.flagship(s, hyper3=True), 1.0)}
+
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("case", sorted(TERM_WRAP))
+def test_terms_wrap_instances_match_plain(cuda, case, shape):
+    """K1, K2, K3, K3′ and K2L of each periodic build with the continuous
+    forcing (a profile each) and, on the MHD builds, B_ext against their
+    plain versions."""
+    cfg = with_terms(TERM_WRAP[case](shape),
+                     FCONT[sorted(TERM_WRAP).index(case) % 4])
+    assert fr.fcont_tensor(pt.Model(cfg, device="cpu")) is not None
+    _template_instances_match_plain(cuda, cfg, RTOL_FIELD)
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("build", sorted(AUX_BUILDS))
+def test_terms_aux_instances_match_plain(cuda, build, shape):
+    """The first and update kernel of each shock and shear build with the
+    continuous forcing and, on the MHD builds, B_ext, within their
+    builds' bounds."""
+    make, rtol = BUILDS[build]
+    _aux_kernels_match_plain(cuda, with_terms(
+        make(shape), FCONT[AUX_BUILDS.index(build) % 4]), rtol)
+
+
+@pytest.mark.parametrize("case", sorted(ZG_CASES))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_terms_zg_instances_match_plain(cuda, shape, case):
+    """K6/K7, K6m/K7m, K6s/K7s and K6ms/K7ms with the continuous forcing
+    and, with Magnetic, B_ext against their plain versions."""
+    _zghost_kernels_match_plain(cuda, with_terms(
+        conv_slab(shape, **ZG_CASES[case]),
+        FCONT[sorted(ZG_CASES).index(case) % 4]))
+
+
+@pytest.mark.parametrize("case", ISO_CASES)
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_terms_iso_instances_match_plain(cuda, shape, case):
+    """K6i/K7i … K6msi/K7msi with the continuous forcing and, with
+    Magnetic, B_ext against their plain versions."""
+    pm = pt.Model(with_terms(iso_cfg(shape, case),
+                             FCONT[list(ISO_CASES).index(case) % 4]),
+                  device=cuda)
+    first_p, upd_p = fr.zg_plain(pm)
+    inp = iso_fg(pm)
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K6i)")
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    df2, f2 = fr.rhs_zg_upd(pm, *inp, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp, df_p.clone(), coef)
+    assert_field_close(df2, df2_p, "df (K7i)")
+    assert_field_close(f2, f2_p, "f (K7i)")
+
+
+# the four new paths: imposed-field MHD turbulence, the NEMPI box, the
+# ABC-flow dynamo and the Roberts flow
+TERM_PATHS = {
+    "bext": lambda s: pt.configs.flagship(s, b_ext=(0.0, 0.0, 0.1)),
+    "nempi": lambda s: strat_box(s, shear=False, forcing=0.05,
+                                 b_ext=(0.0, pt.configs.NEMPI_B0, 0.0)),
+    "abc": lambda s: pt.configs.flagship(s, fcont=("ABC", 0.1, 1.0)),
+    "roberts": lambda s: forced_hydro(s, fcont=("RobertsFlow", 0.1, 1.0))}
+
+
+@pytest.mark.parametrize("case", sorted(TERM_PATHS))
+def test_term_paths_on_card_match_cpu(cuda, case):
+    """Three steps of each new path on the card against the same steps on
+    the CPU from the same fields and forcing draws."""
+    _conv_slab_steps_match(cuda, TERM_PATHS[case]((16, 16, 32)))
+
+
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",
                                    "conv_slab_rot", "conv_slab_mag",
                                    "conv_slab_mag_rot", "conv_slab_shear",
@@ -1270,7 +1376,7 @@ def test_gravity_paths_on_card_match_cpu(cuda, case):
                                    "ent_hydro_rk4", "flagship_h3",
                                    "conv_slab_mag_chi", "conv_slab_h3",
                                    "conv_slab_mag_chi_h3_rot", *NEW_AUX,
-                                   *ISO_CASES, *GRAV_PATHS))
+                                   *ISO_CASES, *GRAV_PATHS, *TERM_PATHS))
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     """A CUDA tensor launches the kernel; the plain version is not called."""
     def boom(*a, **k):
@@ -1294,7 +1400,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
               for k in ("h3", "mag_chi_h3_rot")},
            **{k: BUILDS[k][0](32) for k in NEW_AUX},
            **{k: iso_cfg(32, k) for k in ISO_CASES},
-           **{k: strat_box(32, **kw) for k, kw in GRAV_PATHS.items()}}
+           **{k: strat_box(32, **kw) for k, kw in GRAV_PATHS.items()},
+           **{k: make(32) for k, make in TERM_PATHS.items()}}
     for name, magnetic in (("ent_mhd", True), ("ent_hydro", False)):
         for order in (3, 2, 4):
             cfg[name + ("" if order == 3 else f"_rk{order}")] = \

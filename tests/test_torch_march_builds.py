@@ -122,9 +122,10 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
                                ("rhs_zg_mag", "rhs_zg_upd_mag"))):
         sig = _build.SIGNATURES[lib]
         assert set(sig) == set(_build.SIGNATURES["fused_rhs_shock"])
-        # the slabs, the two profiles and g_z(z) follow the stream
-        assert len(sig["pc_rhs_first"]) == 5 + 5
-        assert len(sig["pc_rhs_tail_mid"]) == 7 + 5
+        # the slabs, the two profiles, g_z(z) and the continuous forcing
+        # follow the stream
+        assert len(sig["pc_rhs_first"]) == 5 + 6
+        assert len(sig["pc_rhs_tail_mid"]) == 7 + 6
         assert fr.ZG_KERNELS[lib] == (first, upd)
         assert fr.library_instances(lib) == {
             first: 0, upd: 8, first + " rot": 16, upd + " rot": 24,
@@ -157,6 +158,8 @@ class _Recorder:
 
     def __getattr__(self, fn):
         def call(*args):
+            # every wrapper passes each argument its entry point takes
+            assert len(args) == len(_build.SIGNATURES[self.lib][fn]), fn
             if fn == "pc_tile_shape":
                 out = (ctypes.c_int * 3).from_address(args[0])
                 out[:] = [64, 8, 32]

@@ -48,6 +48,38 @@ def conv_rundir(d, nt=6, uu_ampl="1e-3"):
     return samples.conv_slab(d, CONV_N, nt=nt, it1=2, uu_ampl=uu_ampl)
 
 
+def _edited(d, edits, columns=()):
+    """Edit the run directory ``d`` in place: each (file, old, new) of
+    ``edits`` once, ``columns`` appended to print.in (columns that are
+    never negative: a negative value fills its width and runs into the
+    one before it); returns ``d``."""
+    for name, old, new in edits:
+        path = os.path.join(d, name)
+        with open(path) as f:
+            text = f.read()
+        assert old in text, (name, old)
+        with open(path, "w") as f:
+            f.write(text.replace(old, new, 1))
+    with open(os.path.join(d, "print.in"), "a") as f:
+        f.write("".join(c + "\n" for c in columns))
+    return d
+
+
+def bext_rundir(d, nt=4):
+    """helical-MHDturb's shape in an imposed field B_ext = (0, 0, 0.1),
+    printing the extrema of B without it and the mean field along z."""
+    return _edited(samples.helical_mhdturb(d, HELICAL_N, nt=nt, it1=2,
+                                           b_ext=(0.0, 0.0, 0.1)), [],
+                   columns=("bbzmax", "bmz"))
+
+
+def fcont_rundir(d, nt=4):
+    """The ABC-flow dynamo in helical-MHDturb's shape: continuous forcing
+    'ABC' in place of the helical kicks."""
+    return samples.helical_mhdturb(d, HELICAL_N, nt=nt, it1=2,
+                                   fcont=("ABC", 0.1, 1.0))
+
+
 RUNDIRS = {"helical": (helical_rundir, HELICAL_N, "flagship"),
            "conv": (conv_rundir, CONV_N, "conv_slab")}
 
@@ -183,6 +215,51 @@ def test_loader_matches_jax_and_the_configs(tmp_path, name):
             assert getattr(mine, f.name) == getattr(ref, f.name)
 
 
+@pytest.mark.parametrize("name", ("bext", "fcont"))
+def test_loader_maps_b_ext_and_fcont_as_jax(tmp_path, name):
+    """b_ext and lforcing_cont map as JAX's loader maps them
+    (pencil_tpu/compat/rundir.py:1475-1550, :1569-1576): every field of
+    the port's Magnetic and Forcing equal to the JAX module's, the 'xz'
+    box from the grid."""
+    d = {"bext": bext_rundir, "fcont": fcont_rundir}[name](tmp_path / "r")
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    for mod in ("magnetic", "forcing"):
+        mine, ref = cfg.module(mod), jcfg.module(mod)
+        for f in dataclasses.fields(mine):
+            assert getattr(mine, f.name) == getattr(ref, f.name), \
+                (mod, f.name)
+    if name == "bext":
+        assert cfg.module("magnetic").B_ext == (0.0, 0.0, 0.1)
+    else:
+        forcing = cfg.module("forcing")
+        assert forcing.fcont_live() and forcing.force == 0.0
+        gs = cfg.grid
+        assert forcing.fcont_box == (gs.x0, gs.x0 + gs.Lx, gs.z0,
+                                     gs.z0 + gs.Lz)
+
+
+def test_replay_keeps_the_continuous_forcing(tmp_path):
+    """A run directory with the reference's forcing draws (k.dat) and
+    continuous forcing replays the draws and keeps the continuous term;
+    JAX's replay rebuilds Forcing without it (ROADMAP Queue 3), so the
+    port's module is held to JAX's loaded one field by field but for
+    those."""
+    d = _edited(helical_rundir(tmp_path / "r"), [(
+        "run.in", "relhel=1., kf=3.",
+        "relhel=1., kf=3., lforcing_cont=T, iforcing_cont='ABC',"
+        " ampl_ff=0.1")])
+    mine = load_rundir(d)[0].module("forcing")
+    ref = jax_load(d)[0].module("forcing")
+    assert mine.sequence is not None and mine.sequence == ref.sequence
+    assert mine.lforcing_cont and mine.iforcing_cont == "ABC"
+    assert not ref.lforcing_cont            # the reference's fault
+    cont = ("lforcing_cont", "iforcing_cont", "ampl_ff", "fcont_box")
+    for f in dataclasses.fields(mine):
+        if f.name not in cont:
+            assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+
+
 def test_unmapped_groups_as_jax(tmp_path):
     d = helical_rundir(tmp_path / "r")
     with open(os.path.join(d, "run.in"), "a") as f:
@@ -254,9 +331,6 @@ REFUSED = {
                          "&magn_mf_run_pars\n  alpha_effect=1.\n/\n",
                          "magn_mf"),
     # values the port's modules do not take
-    "B_ext": ("helical", "run.in",
-              "&magnetic_run_pars\n  eta=5e-3, B_ext=0.,0.,0.1\n/\n",
-              "b_ext"),
     "lupw_lnrho": ("helical", "run.in",
                    "&density_run_pars\n  lupw_lnrho=T\n/\n", "lupw_lnrho"),
     "iheatcond": ("conv", "run.in",
@@ -291,9 +365,6 @@ REFUSED = {
               "ivisc"),
     "iforce": ("helical", "run.in", ("iforce='helical'", "iforce='irrot'"),
                "iforce"),
-    "forcing_cont": ("helical", "run.in",
-                     ("relhel=1.,", "relhel=1., lforcing_cont=T,"),
-                     "lforcing_cont"),
     "bc_mnemonic": ("conv", "run.in", ("'c1:cT'", "'c1:cT2'"), "cT2"),
     "lupw_uu": ("helical", "run.in",
                 "&hydro_run_pars\n  lupw_uu=T\n/\n", "lupw_uu"),

@@ -2,7 +2,9 @@
 against ``python -m pencil_tpu`` on a copy of the same run directory: the
 two run directories of tests/test_torch_rundir.py (helical MHD turbulence
 with the reference's forcing draws replayed, on the port's K1-K3 chain;
-stratified convection on K6/K7) started and run by both command lines,
+stratified convection on K6/K7) and two of the first one's shape, in an
+imposed field (``B_ext``) and driven by continuous forcing ('ABC', the
+helical kicks off), started and run by both command lines,
 the port's chain on its kernels' plain versions, the JAX package on its
 jnp path (its loader's Config is not fused); the reference-layout data
 directory that both ``export`` commands write; and RELOAD, which re-reads
@@ -32,12 +34,14 @@ from pencil_tpu_torch.io.timeseries import read_time_series
 from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
-from test_torch_rundir import conv_rundir, helical_rundir
+from test_torch_rundir import (bext_rundir, conv_rundir, fcont_rundir,
+                               helical_rundir)
 
 torch.set_num_threads(1)
 
 WRITERS = {"helical": lambda d: helical_rundir(d, nt=4),
-           "conv": lambda d: conv_rundir(d, nt=4, uu_ampl="1e-2")}
+           "conv": lambda d: conv_rundir(d, nt=4, uu_ampl="1e-2"),
+           "bext": bext_rundir, "fcont": fcont_rundir}
 
 
 @pytest.fixture(scope="module", params=sorted(WRITERS))

@@ -295,7 +295,9 @@ def test_gate_rejects_on_cuda(case):
     Magnetic, with Shear, each with optional forcing), or with a BC the
     port lacks, a CUDA configuration raises (no GPU needed: the gate
     raises first); the extra module is Shock, which no z-ghosted build
-    has (forcing, the extra module here before, is admitted now)."""
+    has (forcing, the extra module here before, is admitted now), the
+    missing one Viscosity (Gravity, the missing module here before, is
+    optional since the z-walled sets without it run the chain)."""
     cfg = conv_slab(16)
     if case == "unported_bc":
         cfg = cfg.replace(bcz=cfg.bcz[:2] + (pt.BC("uz", "cop", "cop"),)
@@ -304,7 +306,7 @@ def test_gate_rejects_on_cuda(case):
         cfg = cfg.replace(modules=cfg.modules + (pt.Shock(),))
     elif case == "missing_module":
         cfg = cfg.replace(modules=tuple(m for m in cfg.modules
-                                        if m.name != "gravity"))
+                                        if m.name != "viscosity"))
     else:
         cfg = cfg.replace(grid=pt.GridSpec(nx=16, ny=16, nz=16), bcz=())
     assert gate_reason(cfg) is not None

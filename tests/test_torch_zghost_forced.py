@@ -148,7 +148,9 @@ def _without(cfg, name):
 # walls and Shock (with z walls alone it runs since the builds without
 # ss, tests/test_torch_zghost_iso.py, and on a fully periodic grid since
 # gravity on every chain, tests/test_torch_gravity_chains.py), the sheared
-# isothermal set with Shock, and the slab without gravity
+# isothermal set with Shock, and the sheared slab without gravity with
+# Shock (without gravity alone it runs since the z-walled sets without
+# Gravity, tests/test_torch_bext.py)
 REFUSED = {
     "shock": (lambda: conv_slab(8).replace(
         modules=conv_slab(8).modules + (pt.Shock(),)), "shock"),
@@ -156,8 +158,8 @@ REFUSED = {
         conv_slab(8, forcing=FORCE), "entropy")), "gravity"),
     "sheared_isothermal": (lambda: _with_shock(_without(
         conv_slab(8, Omega=0.5, shear=True), "entropy")), "shear"),
-    "sheared_no_gravity": (lambda: _without(
-        conv_slab(8, Omega=0.5, shear=True), "gravity"), "shear"),
+    "sheared_no_gravity": (lambda: _with_shock(_without(
+        conv_slab(8, Omega=0.5, shear=True), "gravity")), "shock"),
 }
 
 

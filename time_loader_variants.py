@@ -5,7 +5,7 @@ process on one card.
 
     python3 time_loader_variants.py [VARIANT ...] [--n 256] [--reps 2]
                                     [--lib fused_rhs] [--parent-tree DIR]
-                                    [--steps]
+                                    [--steps] [--bitwise]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
 package's) and -D definitions for it, e.g. ``:PC_PD=1`` or
@@ -14,7 +14,8 @@ wrong by design (a phase left out to time the rest alone): it is timed
 only, and the agreement check, which stays as it is for every other
 variant, is skipped for it and said so.  ``--lib`` names the template's
 library whose definitions every variant is built with and whose
-instances are timed:
+instances are timed (``--terms``: with B_ext and the continuous
+forcing 'ABC' on, the periodic builds only):
 ``fused_rhs`` (the MHD flagship), ``fused_rhs_hydro``, ``fused_rhs_ent``,
 ``fused_rhs_hydro_ent`` (e.g. ``--lib fused_rhs_ent "" :PC_PD=1
 :PC_OQLAG=0`` for the 8-field tails), ``fused_rhs_shock`` (K1s and K5w on
@@ -52,7 +53,9 @@ once, and its instances' registers, local bytes, shared memory and
 blocks per SM printed; then every
 instance of each variant is checked against the plain PyTorch version
 (K8's K1 and K2 variants bit for bit; K8 exists in ``fused_rhs``
-only) and timed by CUDA events over 20 launches, the variants in turns
+only; with ``--bitwise`` each output also against the first variant's,
+bit for bit) and timed by CUDA events over 20 launches, the variants in
+turns
 (v1, v2, ..., then again) ``--reps`` times, the SM clock and the power
 draw sampled meanwhile.  Prints one line per kernel and variant and,
 last, one JSON object.  Needs a CUDA device; imports no JAX.
@@ -176,6 +179,13 @@ def main():
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--lib", default="fused_rhs", choices=LIBS)
     ap.add_argument("--parent-tree", metavar="DIR")
+    ap.add_argument("--terms", action="store_true",
+                    help="with a periodic build: its configuration with "
+                    "B_ext (the MHD builds) and the continuous forcing "
+                    "'ABC' (chip_smoke.py's with_terms)")
+    ap.add_argument("--bitwise", action="store_true",
+                    help="also compare every output of each variant with "
+                    "the first variant's, bit for bit")
     ap.add_argument("--steps", action="store_true",
                     help="with a shock or z-ghosted build: time its "
                     "path's whole step (the shock pre-pass, fills and "
@@ -192,6 +202,8 @@ def main():
     from pencil_tpu_torch.ops import fused_rhs as fr
 
     two = args.lib in PATH_CONFIG      # a path of two kernels
+    if args.terms and two:
+        ap.error("--terms takes a periodic build's --lib")
     if (args.parent_tree or args.steps) and not two:
         ap.error("--parent-tree and --steps take a shock build's --lib or "
                  "a z-ghosted one")
@@ -246,7 +258,10 @@ def main():
     else:
         path = {"fused_rhs" + sfx: name
                 for name, sfx in cs.TEMPLATE_PATHS.items()}[args.lib]
-        model = pt.Model(cs.template_cfg(pt, path, shape), device="cuda")
+        cfg = cs.template_cfg(pt, path, shape)
+        if args.terms:
+            cfg = cs.with_terms(pt, cfg, "ABC")
+        model = pt.Model(cfg, device="cuda")
         fa = cs.random_fa(torch, shape, 1, torch.device("cuda"),
                           model.reg.nvar)
         df1, dt1m = fr.rhs_first_plain(model, fa)
@@ -349,6 +364,7 @@ def main():
 
     print(f"time_loader_variants on {smi}, {shape}, {args.lib}",
           flush=True)
+    first_out = {}      # --bitwise: the first checked variant's outputs
     for spec in specs:
         if spec.startswith("~"):
             print(f"variant {spec!r}: timed only, wrong by design, not "
@@ -367,6 +383,15 @@ def main():
                 else:
                     cs.check(cs.rel_err(a, b)[1] <= rtol[k],
                              f"{spec} {k}: rel err {cs.rel_err(a, b)}")
+            if args.bitwise:
+                ref = first_out.setdefault(k, got)
+                same = all(torch.equal(a, b) for a, b in zip(got, ref))
+                print(f"variant {spec or 'default'!r} {k}: "
+                      + ("bit for bit the first variant's" if same else
+                         "differs from the first variant's by "
+                         + ", ".join(f"{float((a - b).abs().max()):.3e}"
+                                     for a, b in zip(got, ref))),
+                      flush=True)
         print(f"variant {spec or 'default'!r}: every kernel agrees with "
               f"its plain version", flush=True)
     times = {spec: {k: [] for k in calls} for spec in specs}
