@@ -35,7 +35,12 @@ non-isothermal supersonic turbulence (K1she, K5whe) and the hydro shear
 box with ss, with and without the shock slot (K4he, K5he; K4hne, K5hne),
 and the MHD ones with an entropy field: non-isothermal MHD shock
 turbulence (K1se, K5wse) and the MHD shear box with ss, with and without
-the shock slot (K4e, K5e; K4ne, K5ne).
+the shock slot (K4e, K5e; K4ne, K5ne), and the upwinding of the advection
+(``upwind=True``: the UPW instances of every build, launch names
+``*_upw``) on the flagship and the conv-slab, and the shock diffusivities
+(``shock_box(n, shock_diffusion=True)``: D_sh, with Magnetic η_sh, with
+ss χ_sh; the SHK instances, launch names ``*_sd``) on the shocked boxes,
+MHD with ss and hydro.
 
     python3 chip_smoke.py
 
@@ -69,7 +74,11 @@ Phases, each printing its own lines:
      with the continuous forcing (the four profiles in turn) and, in the
      12 MHD builds, B_ext at 24×20×42 (with and without Ω, del6 and
      chi-const), and the instances without those flags at 64³ (within
-     the bounds of the checks without the terms), the four periodic builds'
+     the bounds of the checks without the terms), every UPW instance of
+     the 24 builds with the three lupw flags on (with and without Ω and,
+     with ss, chi-const) and every instance of the 8 builds with the
+     shock slot with the three shock diffusivities on (with and without
+     Ω, del6 and the upwinding) at 24×20×42, the four periodic builds'
      H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
@@ -78,7 +87,7 @@ Phases, each printing its own lines:
      shear-box input at t = 0.37 with a positive shock slot, the shock-box
      input at urms ≈ 1 with its shock slot from the pre-pass; the entropy
      instances within 2e-5, with chi-const alone, with K-const beside it
-     and with K-const alone, the last two with Ω = 1), and three full
+     and with K-const alone, the last two with Ω = 1), and two full
      steps of each path on the card against the same steps on the CPU at
      32³ (the flagship, forced hydro and both entropy sets at orders 2, 3
      and 4, the first two with Ω = 1 at order 3, the four with
@@ -92,7 +101,9 @@ Phases, each printing its own lines:
      shearing box with an energy equation (MHD and hydro, from t = 0.37)
      and forced stratified turbulence in a periodic box (MHD and hydro),
      the imposed-field flagship, the ABC-flow dynamo, the Roberts flow and
-     the NEMPI box, the hydro shock box,
+     the NEMPI box, the upwinded flagship and conv-slab, the shocked
+     boxes with the shock diffusivities (MHD with ss, hydro), the hydro
+     shock box,
      the three other shear-box layouts, the three hydro layouts with ss
      and the three MHD layouts with ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
@@ -132,7 +143,13 @@ Phases, each printing its own lines:
      K3 a step, the Roberts flow (forced_hydro(256, fcont=("RobertsFlow",
      0.1, 1.0))) with one K1h, K2h, K3h, the negative-effective-magnetic-
      pressure box (strat_box(256, shear=False, forcing=0.05, b_ext=(0,
-     NEMPI_B0, 0))) with one K6mi and two K7mi in 3 windows,
+     NEMPI_B0, 0))) with one K6mi and two K7mi in 3 windows, the
+     upwinded flagship (flagship(256, upwind=True)) with one K1, K2, K3
+     UPW a step, the upwinded conv-slab (conv_slab(256, upwind=True))
+     with one K6 and two K7 UPW in 3 windows, the shocked boxes with the
+     whole shock-capturing set (shock_box(256, entropy=True,
+     shock_diffusion=True): one K1se and two K5wse SHK; shock_box(256,
+     magnetic=False, shock_diffusion=True): one K1sh and two K5wh SHK),
      and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
@@ -186,7 +203,10 @@ Phases, each printing its own lines:
      K4hn/K5hn with K4h/K5h, K1she/K5whe with K1sh/K5wh, K4he/K5he with
      K4h/K5h, K4hne/K5hne with K4hn/K5hn, K1se/K5wse with K1s/K5w,
      K4e/K5e with K4/K5, K4ne/K5ne with K4n/K5n, each on its own path's
-     final state; for each
+     final state; the upwinded paths' UPW kernels checked and timed
+     against their plain versions and in turns with the flagship's K1-K3
+     and the conv-slab's K6/K7, the shocked boxes with the shock
+     diffusivities in turns with the same kernels without them; for each
      instance of the flagship template (csrc/fused_rhs.cu, all 24
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
@@ -310,12 +330,23 @@ ZG_ISO_H3_KERNELS = tuple(k + "_iso_mag_shear_h3" for k in ZGHOST_KERNELS)
 # the CHI instances of the z-ghosted shear builds, which the stratified
 # shearing box with an energy equation runs (chi-const, g_z = −Ω²z)
 ZG_SHEAR_CHI_KERNELS = tuple(k + "_chi" for k in ZG_SHEAR_KERNELS)
+# the UPW instances (upwinding of the advection: lupw_lnrho, lupw_uu,
+# lupw_ss) that the phase-3 paths run: the flagship's K1-K3 and the
+# conv-slab's K6/K7
+UPW_KERNELS = tuple(k + "_upw" for k in FLAGSHIP_KERNELS)
+ZG_UPW_KERNELS = tuple(k + "_upw" for k in ZGHOST_KERNELS)
+# the SHK instances (the shock diffusivities D_sh, η_sh, χ_sh) that the
+# phase-3 paths run, launch names with the suffix _sd: K1se/K5wse and
+# K1sh/K5wh
+SD_KERNELS = tuple(k + "_sd" for label in ("shock box ent", "hydro shock box")
+                   for k in AUX_NAMES[label])
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
                 + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
                 + NEW_AUX_KERNELS + ZG_H3_KERNELS + ZG_SHEAR_KERNELS
-                + ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS + ZG_SHEAR_CHI_KERNELS)
+                + ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS + ZG_SHEAR_CHI_KERNELS
+                + UPW_KERNELS + ZG_UPW_KERNELS + SD_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -338,7 +369,9 @@ CONV_SLAB_PATHS = {
     "sheared conv-slab": dict(Omega=OMEGA_SHEAR, shear=True),
     "sheared magnetoconvection": dict(magnetic=True, Omega=OMEGA_SHEAR,
                                       shear=True),
-    "forced conv-slab": dict(forcing=FORCE)}
+    "forced conv-slab": dict(forcing=FORCE),
+    # stratified convection with lnρ, u and s upwinded: K6/K7 UPW
+    "conv-slab upwind": dict(upwind=True)}
 # the isothermal stratified layer's paths of phase 3: label -> strat_box
 # keyword arguments (the MRI box: Magnetic, Shear, g_z = −z, Ω = 1)
 STRAT_PATHS = {
@@ -382,6 +415,22 @@ TERM_COUNTERPART = {"imposed-field MHD": "flagship",
                     "ABC-flow dynamo": "flagship",
                     "Roberts flow": "forced hydro",
                     "NEMPI box": "forced stratified MHD"}
+# upwinding and the shock diffusivities at 256³: forced MHD turbulence
+# with lnρ and u upwinded, "flagship upwind", on K1-K3 UPW (the 8-field
+# wrap build with the least register room; the conv-slab's is in
+# CONV_SLAB_PATHS), and supersonic turbulence with the whole
+# shock-capturing set (ν_sh, D_sh, η_sh, χ_sh): MHD with an energy
+# equation on K1se/K5wse and hydro on K1sh/K5wh, labels as AUX_PATHS's
+SHOCK_DIFFUSION_PATHS = {
+    "shock box ent sd": ("shock_box", dict(entropy=True,
+                                           shock_diffusion=True), "_ent"),
+    "hydro shock box sd": ("shock_box", dict(magnetic=False,
+                                             shock_diffusion=True),
+                           "_hydro")}
+# each one's counterpart without the option, timed in turns with it in
+# phase 4
+OPTION_COUNTERPART = {"shock box ent sd": "shock box ent",
+                      "hydro shock box sd": "hydro shock box"}
 # B_ext and the continuous forcing on every build in phase 2: an imposed
 # field along no axis, of the size of the noise's curl A, and the four
 # profiles taken in turn across the builds
@@ -442,6 +491,11 @@ PER_STEP = {
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
+PER_STEP["flagship upwind"] = dict.fromkeys(UPW_KERNELS, 1)
+PER_STEP["conv-slab upwind"] = {"rhs_zg_upw": 1, "rhs_zg_upd_upw": 2}
+PER_STEP.update({label: {k + "_sd": n for k, n in
+                         PER_STEP[OPTION_COUNTERPART[label]].items()}
+                 for label in SHOCK_DIFFUSION_PATHS})
 # the other template paths launch the flagship's kernels of their builds
 for _name, _sfx in TEMPLATE_PATHS.items():
     for _order in ("", " rk4", " rk2"):
@@ -482,6 +536,11 @@ REPLACES.update({k: REPLACES[base] for label in NEW_AUX_PATHS
                  for k, base in zip(AUX_NAMES[label], AUX_NAMES[
                      "shear box" if AUX_PATHS[label][0] == "shear_box"
                      else "shock box"])})
+# the UPW instances replace the same calls, traced with the lupw flags
+REPLACES.update({k + "_upw": REPLACES[k]
+                 for k in FLAGSHIP_KERNELS + ZGHOST_KERNELS})
+# the SHK instances the same calls, traced with the shock diffusivities
+REPLACES.update({k: REPLACES[k[:-len("_sd")]] for k in SD_KERNELS})
 # every kernel is an instance of the flagship template
 SOURCES = dict.fromkeys(KERNEL_NAMES, "pencil_tpu_torch/csrc/fused_rhs.cu")
 
@@ -636,6 +695,27 @@ OPS.update({k + "_chi": OPS[k] + CHI_OPS
 OPS.update({k + "_h3": OPS[k] + n * HYPER3 + (k in ("rhs_zg", "rhs_zg_mag"))
             for ks, n in ((ZGHOST_KERNELS, 4), (ZGHOST_MAG_KERNELS, 7))
             for k in ks})
+# the upwinding of one field: three unscaled 6th differences (12 each: a
+# scaled one less its product with 1/Δ⁶), and per axis |u_a|, its product
+# with the difference and with 1/(60Δ_a), the 2 sums and the join to the
+# advection (12); the UPW instances upwind lnρ and u on the flagship, lnρ,
+# u and s on the conv-slab
+UPWIND = 3 * (D2 - 1) + 12
+OPS.update({k + "_upw": OPS[k] + 4 * UPWIND for k in FLAGSHIP_KERNELS})
+OPS.update({k + "_upw": OPS[k] + 5 * UPWIND for k in ZGHOST_KERNELS})
+# the shock diffusivities of the SHK instances (∇shock is formed already,
+# for ν_sh): D_sh adds |∇lnρ|² and ∇shock·∇lnρ (5 each), the joins
+# D_sh[shock(∇²lnρ + |∇lnρ|²) + ∇shock·∇lnρ] (5) and ∇²lnρ (three scaled
+# second differences and 2 sums, 41) where no conduction block forms it
+# (the isothermal builds); η_sh −(η_sh shock)J (1, and 2 per component);
+# χ_sh (∇lnρ+∇lnT)·∇lnT (8), ∇shock·∇lnT (5) and the joins (5) on the
+# conduction block's ∇²lnT and ∇lnT; the first kernel takes each one's
+# rate into its diffusivity max (2)
+SD_RHO, SD_DEL2, SD_ETA, SD_CHI, SD_RATE = 15, 3 * D2 + 2, 7, 18, 2
+OPS.update({k + sfx + "_sd": OPS[k + sfx] + n * SD_RATE * first + ops
+            for sfx, n, ops in (("_ent", 3, SD_RHO + SD_ETA + SD_CHI),
+                                ("_hydro", 1, SD_RHO + SD_DEL2))
+            for k, first in zip(SHOCK_KERNELS, (True, False))})
 
 
 def zg_shear_ops(n, magnetic, first):
@@ -862,6 +942,72 @@ def compare_terms(torch, pt, fr, shape, errs, every=True):
                     errs)
 
 
+def compare_upwind(torch, pt, fr, shape, errs):
+    """Phase 2: every UPW instance of the 24 libraries, with lupw_lnrho,
+    lupw_uu and (with ss) lupw_ss on, against its plain version: the
+    periodic builds' five kernels, the aux builds' two (del6 off: no
+    instance has both) and the z-ghosted builds' two, each with and
+    without Ω, those with ss with and without chi-const too (the sheared
+    ones at Ω = 1 from t = T_SHEAR)."""
+    upwind = pt.configs.with_upwind
+    for name in TEMPLATE_PATHS:
+        if name.endswith(" h3"):
+            continue
+        for Omega in (0.0, 1.0):
+            compare_template(torch, pt, fr,
+                             f"{name}, Omega = {Omega:g}, upwind",
+                             upwind(template_cfg(pt, name, shape,
+                                                 Omega=Omega)),
+                             errs, RTOL_FIELD)
+    for label in AUX_PATHS:
+        for Omega in (0.0, 1.0):
+            compare_aux_kernels(
+                torch, pt, fr, f"{label}, Omega = {Omega:g}, upwind",
+                upwind(aux_variant(pt, aux_cfg(pt, label, shape), Omega,
+                                   False)), errs, AUX_RTOL[label])
+    for magnetic in (False, True):
+        for shear in (False, True):
+            for Omega in ((1.0,) if shear else (0.0, 1.0)):
+                for chi in (0.0, CHI):
+                    kw = dict(magnetic=magnetic, Omega=Omega, chi=chi,
+                              shear=shear, upwind=True)
+                    cfg = pt.configs.conv_slab(shape, **kw)
+                    if shear:
+                        cfg = cfg.replace(time=pt.TimeSpec(
+                            itorder=3, tstart=T_SHEAR))
+                    compare_zg_cfg(torch, pt, fr, cfg, f"conv-slab {kw}",
+                                   errs)
+    for iso, kw in ISO_SETS.items():
+        for Omega in ((1.0,) if kw.get("shear", True) else (0.0, 1.0)):
+            compare_zg_cfg(
+                torch, pt, fr, upwind(strat_cfg(pt, shape, Omega, **kw)),
+                f"isothermal stratified {iso}, Omega = {Omega:g}, upwind",
+                errs)
+
+
+def compare_shock_diffusion(torch, pt, fr, shape, errs):
+    """Phase 2: every instance of the 8 builds with the shock slot, with
+    D_sh, η_sh (MHD) and χ_sh (with ss) on (their SHK instances), against
+    its plain version: with and without Ω and del6, and with the
+    upwinding with and without Ω."""
+    sd = pt.configs.with_shock_diffusion
+    for label in AUX_PATHS:
+        cfg = aux_cfg(pt, label, shape)
+        if cfg.module("shock") is None:
+            continue
+        for Omega in (0.0, 1.0):
+            for hyper3 in (False, True):
+                compare_aux_kernels(
+                    torch, pt, fr, f"{label}, Omega = {Omega:g}"
+                    + (", del6" if hyper3 else "") + ", shock diffusion",
+                    sd(aux_variant(pt, cfg, Omega, hyper3)), errs,
+                    AUX_RTOL[label])
+            compare_aux_kernels(
+                torch, pt, fr, f"{label}, Omega = {Omega:g}, upwind, shock "
+                "diffusion", pt.configs.with_upwind(sd(aux_variant(
+                    pt, cfg, Omega, False))), errs, AUX_RTOL[label])
+
+
 def random_fa(torch, shape, seed, device, nvar=7):
     """(nvar, *shape) noise: uu, lnrho and the fields after them (aa; ss;
     ss and aa)."""
@@ -1059,8 +1205,9 @@ def shocked_fa(torch, pm, seed):
 
 
 def aux_cfg(pt, label, shape):
-    """The configuration of the aux path ``label`` (AUX_PATHS)."""
-    make, kw, _ = AUX_PATHS[label]
+    """The configuration of the aux path ``label`` (AUX_PATHS or
+    SHOCK_DIFFUSION_PATHS)."""
+    make, kw, _ = AUX_PATHS.get(label) or SHOCK_DIFFUSION_PATHS[label]
     return getattr(pt.configs, make)(shape, **kw)
 
 
@@ -1099,7 +1246,7 @@ def compare_aux_kernels(torch, pt, fr, label, cfg, errs, rtol):
     first_p, upd_p = ((fr.rhs_zroll_plain, fr.rhs_zroll_upd_plain) if zroll
                       else (fr.rhs_wrap_shock_plain,
                             fr.rhs_wrap_shock_upd_plain))
-    names = fr.AUX_KERNELS[fr.aux_library(pm)]
+    names = fr.aux_kernels(pm)
     shape = cfg.grid.shape
     fg = aux_input(torch, pm, 1)
     nvar = pm.reg.nvar
@@ -1197,7 +1344,7 @@ def compare_zg_cfg(torch, pt, fr, cfg, label, errs):
                   errs, RTOL_FIELD)
 
 
-def compare_steps(torch, pt, label, cfg, nsteps=3, uu_noise=0.0, t0=None):
+def compare_steps(torch, pt, label, cfg, nsteps=2, uu_noise=0.0, t0=None):
     """Phase 2b: full steps on the card against the CPU (plain versions),
     same fields and, when forced, the same forcing draws; ``uu_noise`` > 0
     replaces the initial velocity with noise of that amplitude, ``t0``
@@ -1375,6 +1522,9 @@ def main():
     compare_terms(torch, pt, fr, EDGE_SHAPE, errs)
     compare_terms(torch, pt, fr, (64, 64, 64), errs, every=False)
     mark("phase 2, every build with B_ext and the continuous forcing")
+    compare_upwind(torch, pt, fr, EDGE_SHAPE, errs)
+    compare_shock_diffusion(torch, pt, fr, EDGE_SHAPE, errs)
+    mark("phase 2, the UPW instances and the shock diffusivities")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
                          forced_hydro(pt, shape), errs)
@@ -1486,6 +1636,13 @@ def main():
         compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
                       uu_noise=0.0 if shear else 0.1,
                       t0=T_SHEAR if shear else None)
+    compare_steps(torch, pt, "flagship upwind",
+                  pt.configs.flagship(n32, upwind=True))
+    compare_steps(torch, pt, "conv-slab upwind", pt.configs.conv_slab(
+        n32, **CONV_SLAB_PATHS["conv-slab upwind"]), uu_noise=1e-2)
+    for label in SHOCK_DIFFUSION_PATHS:
+        compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
+                      uu_noise=0.1)
 
     mark("phase 2b")
     # ---- phase 3: the main paths at 256³ ------------------------------
@@ -1525,6 +1682,14 @@ def main():
     aux = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
            for label in AUX_PATHS}
     mark("phase 3, the aux builds")
+    fu = run_flagship(torch, pt, fr, smi, shape, launches,
+                      name="flagship upwind",
+                      cfg=pt.configs.flagship(shape, upwind=True))
+    zu = run_conv_slab(torch, pt, fr, smi, shape, launches,
+                       "conv-slab upwind", nwin=VARIANT_WINDOWS)
+    sd = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
+          for label in SHOCK_DIFFUSION_PATHS}
+    mark("phase 3, upwinding and the shock diffusivities")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -1598,6 +1763,15 @@ def main():
     for label in NEW_AUX_PATHS:
         time_aux_turns(torch, fr, smi, aux[label],
                        aux[AUX_COUNTERPART[label]])
+    mark("phase 4, the aux builds")
+    time_flagship(torch, fr, smi, fu, errs, timings, bounds,
+                  label="flagship upwind")
+    time_term_turns(torch, fr, smi, "flagship upwind", fu, "flagship", fl)
+    time_conv_slab(torch, fr, smi, zu, errs, timings, bounds, full=False)
+    time_zg_turns(torch, fr, smi, zu, zg)
+    for label, box in sd.items():
+        time_aux_box(torch, fr, smi, box, errs, timings, bounds)
+        time_aux_turns(torch, fr, smi, box, aux[OPTION_COUNTERPART[label]])
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -2318,6 +2492,9 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     nu, nu_shock, nu3 = vis.coefficients()
     ent = cfg.module("entropy")
     chig = ent.chi * eos.gamma if ent is not None else 0.0
+    # the largest shock diffusivity per unit shock: ν_sh, D_sh, η_sh, γχ_sh
+    d_sh, e_sh, c_sh = fr.shock_coefficients(cfg, model.reg)
+    nu_shock = max(nu_shock, d_sh, e_sh, eos.gamma * c_sh)
     shear = cfg.module("shear")
     shear_rate = (abs(shear.S) * float(model.grid.x.abs().max())
                   if shear else 0.0)
@@ -2392,9 +2569,10 @@ def time_pairs(torch, kname, kern, plain, errs, timings, bounds, inputs,
           flush=True)
 
 
-def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
+def time_flagship(torch, fr, smi, fl, errs, timings, bounds, label=None):
     """K1-K3, or K1h-K3h, checked and timed on the main path's final
-    state, and the plain chain's step."""
+    state, and the plain chain's step; ``label`` names a path outside
+    TEMPLATE_PATHS."""
     model, state, ms_step = fl
     sfx = fr.launch_suffix(model)
     fa = state["_fa"]
@@ -2430,7 +2608,7 @@ def time_flagship(torch, fr, smi, fl, errs, timings, bounds):
     plain_ms = time_ms(
         torch, lambda: model._fused_step(plain_state, plain_chain),
         PLAIN_CALLS, warm=False)
-    name = {v: k for k, v in TEMPLATE_PATHS.items()}[sfx]
+    name = label or {v: k for k, v in TEMPLATE_PATHS.items()}[sfx]
     print(f"phase 4 {name} plain chain at 256^3 on {smi}: {plain_ms:.4f} "
           f"ms/step (kernel chain {ms_step:.4f} ms/step)", flush=True)
 
@@ -2652,9 +2830,10 @@ def time_gravity_turns(torch, fr, smi, label, path, other, base):
 
 def time_term_turns(torch, fr, smi, label, path, other, base):
     """K1, K2 and K3 (with the kick where the path kicks) of a periodic
-    path with B_ext or the continuous forcing timed in turns (A, B, B, A) with the same instances
-    launched by its counterpart without the term ``base`` (B_ext = 0, a
-    null fcont), both on the path's final state at 256³, and the byte
+    path with B_ext, the continuous forcing or the upwinding (its UPW
+    instances) timed in turns (A, B, B, A) with the instances launched by
+    its counterpart without the term ``base`` (B_ext = 0, a null fcont, no
+    lupw flag), both on the path's final state at 256³, and the byte
     bound of each: the field fcont adds 12 B a point to what a kernel
     reads; phase 2 and 2b check them against their plain versions."""
     model, state, _ = path
@@ -2858,11 +3037,12 @@ def aux_kernel_inputs(torch, fr, model, state):
 
 def time_aux_box(torch, fr, smi, box, errs, timings, bounds):
     """K4/K5 (shear box), K1s/K5w (shock box) or those of their other
-    layouts checked and timed on the main path's final state, then the
-    plain chain's step and the parts of the step around the kernels."""
+    layouts (the instances that the path launches: UPW, SHK) checked and
+    timed on the main path's final state, then the plain chain's step and
+    the parts of the step around the kernels."""
     label, model, state, ms_step = box
     fa = state["_fa"]
-    names = fr.AUX_KERNELS[fr.aux_library(model)]
+    names = fr.aux_kernels(model)
     first, upd, first_p, upd_p, fg, df1, coef = aux_kernel_inputs(
         torch, fr, model, state)
     sdy = model.deltay(state["t"])
@@ -2913,7 +3093,7 @@ def time_aux_turns(torch, fr, smi, box, other):
     for label, model, state, _ in (box, other):
         first, upd, _, _, fg, df1, coef = aux_kernel_inputs(
             torch, fr, model, state)
-        names = fr.AUX_KERNELS[fr.aux_library(model)]
+        names = fr.aux_kernels(model)
         paths[label] = ((names[0], lambda m=model, g=fg, k=first: k(m, g)),
                         (names[1], lambda m=model, g=fg, d=df1, c=coef,
                          k=upd: k(m, g, d, c)))

@@ -67,6 +67,8 @@ UNPORTED_GROUPS = (
     "particles_number", "interstellar", "heatflux", "special")
 # plain groups the JAX loader maps
 UNPORTED_PLAIN = ("initial_condition_pars", "implicit_diffusion_run_pars")
+# the iresistivity values that select the shock resistivity eta_shock
+SHOCK_RESISTIVITY = ("eta-shock", "eta_shock", "shock")
 # the initial conditions of the port's modules
 INITS = {
     "hydro": ("zero", "nothing", "gaussian-noise"),
@@ -508,7 +510,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
     if "density_init_pars" in start or den_p:
         _check("density", den_p, {
             "ldensity_nolog": False, "lrelativistic_eos": False,
-            "diffrho": 0.0, "cdiffrho": 0.0, "diffrho_shock": 0.0,
+            "diffrho": 0.0, "cdiffrho": 0.0,
             "beta_glnrho_global": _zero3, "lfreeze_lnrhoint": False,
             "lfreeze_lnrhoext": False})
         modules.append(Density(
@@ -517,6 +519,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             ampl=float(_first(den_p.get("ampllnrho", 0.0))),
             width=float(den_p.get("widthlnrho", 0.05)),
             lupw_lnrho=bool(den_p.get("lupw_lnrho", False)),
+            diffrho_shock=float(den_p.get("diffrho_shock", 0.0)),
             diffrho_hyper3=float(den_p.get("diffrho_hyper3", 0.0)),
             lhyper3_polar=any("sph" in str(v) or "cyl" in str(v)
                               for v in _as_tuple(den_p.get("idiff", ""))),
@@ -531,7 +534,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
                 f"{ent_p0['beta_glnrho_global']!r}")
     if "hydro_init_pars" in start or hyd_p:
         _check("hydro", hyd_p, {
-            "lupw_uu": False, "urand": 0.0, "dampuext": 0.0,
+            "urand": 0.0, "dampuext": 0.0,
             "dampuint": 0.0, "lomega_int": False,
             "lremove_mean_momenta": False, "lcdt_tauf": False,
             "lpressuregradient_gas": True, "lfreeze_uint": False,
@@ -541,7 +544,8 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             ampl=float(_first(hyd_p.get("ampluu",
                                         hyd_p.get("max_uu", 0.0)))),
             Omega=float(hyd_p.get("omega", 0.0)),
-            theta=float(hyd_p.get("theta", 0.0))))
+            theta=float(hyd_p.get("theta", 0.0)),
+            lupw_uu=bool(hyd_p.get("lupw_uu", False))))
 
     grav_p = grp("grav")
     if grav_p and "nogravity" not in mkf.get("GRAVITY", "nogravity"):
@@ -573,9 +577,9 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
         # NOTE: an empty &entropy_init_pars group alone does NOT select
         # the module — the Makefile default is ENERGY=noentropy
         _check("entropy", ent_p, {
-            "cooltype": "", "mixinglength_flux": 0.0, "chi_shock": 0.0,
+            "cooltype": "", "mixinglength_flux": 0.0,
             "chi_hyper3": 0.0, "chi_hyper3_mesh": 0.0,
-            "chi_hyper3_aniso": _zero3, "tau_cool": 0.0, "lupw_ss": False,
+            "chi_hyper3_aniso": _zero3, "tau_cool": 0.0,
             "lthdiff_hmax": False, "rcool": 0.0, "chi_t": 0.0,
             "lchit_fluct": False, "heat_uniform": 0.0,
             "cool_uniform": 0.0, "lread_hcond": False,
@@ -589,6 +593,8 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             iheatcond=_as_tuple(ent_p.get("iheatcond", "K-const")),
             hcond0=float(ent_p.get("hcond0", 0.0)),
             chi=float(ent_p.get("chi", 0.0)),
+            chi_shock=float(ent_p.get("chi_shock", 0.0)),
+            lupw_ss=bool(ent_p.get("lupw_ss", False)),
             luminosity=float(ent_p.get("luminosity", 0.0)),
             wheat=float(ent_p.get("wheat", 0.1)),
             cool=float(ent_p.get("cool", 0.0)),
@@ -623,7 +629,8 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
                 _refuse(f"&{stem}_init_pars/&{stem}_run_pars (mean-field "
                         "magnetic)")
         ires = [str(v) for v in _as_tuple(mag_p.get("iresistivity", ""))]
-        bad = [v for v in ires if v not in ("", "eta-const", "hyper3")]
+        bad = [v for v in ires if v not in ("", "eta-const", "hyper3")
+               + SHOCK_RESISTIVITY]
         if bad:
             _refuse(f"&magnetic: iresistivity={bad!r}")
         _check("magnetic", mag_p, {
@@ -640,6 +647,10 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             ampl=float(_first(mag_p.get("amplaa", 0.0))),
             eta=float(mag_p.get("eta", 0.0)),
             eta_hyper3=float(mag_p.get("eta_hyper3", 0.0)),
+            # the shock resistivity where iresistivity names it (JAX
+            # rundir.py:1509-1512)
+            eta_shock=float(mag_p.get("eta_shock", 0.0))
+            if set(SHOCK_RESISTIVITY) & set(ires) else 0.0,
             lohmic_heat=bool(mag_p.get("lohmic_heat", True)),
             # a short list sets the leading components (Fortran)
             B_ext=tuple(float(b) for b in (list(_as_tuple(

@@ -5,12 +5,39 @@ configuration in both.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import sys
 
+# the upwinding flag of each module that advects a field
+UPWIND_FLAGS = {"density": "lupw_lnrho", "hydro": "lupw_uu",
+                "entropy": "lupw_ss"}
+
+
+def with_upwind(cfg):
+    """``cfg`` (of either package) with the advection of every field it
+    has upwinded: lupw_lnrho, lupw_uu and, with ss, lupw_ss."""
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **{UPWIND_FLAGS[m.name]: True})
+        if m.name in UPWIND_FLAGS else m for m in cfg.modules))
+
+
+def with_shock_diffusion(cfg, coef=1.0):
+    """``cfg`` (of either package) with the shock diffusivities at
+    ``coef``: D_sh of lnρ (``diffrho_shock``), with Magnetic the shock
+    resistivity η_sh (``eta_shock``) and with ss shock heat conduction
+    χ_sh (iheatcond 'shock' with ``chi_shock``)."""
+    new = {"density": lambda m: dict(diffrho_shock=coef),
+           "magnetic": lambda m: dict(eta_shock=coef),
+           "entropy": lambda m: dict(iheatcond=tuple(m.iheatcond)
+                                     + ("shock",), chi_shock=coef)}
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **new[m.name](m)) if m.name in new else m
+        for m in cfg.modules))
+
 
 def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
-              hyper3=False, shear=False, forcing=0.0):
+              hyper3=False, shear=False, forcing=0.0, upwind=False):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -39,8 +66,10 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     walls (Käpylä, Korpi & Brandenburg 2008, A&A 491, 353).  ``forcing``
     > 0 adds helical forcing of that amplitude at kf = 3, kicked after
     each step: forced convection (with ``magnetic`` forced
-    magnetoconvection).  The values are this configuration's own, not the
-    sample's start.in/run.in.
+    magnetoconvection).  ``upwind`` upwinds the advection of lnρ, u and s
+    (``lupw_lnrho``, ``lupw_uu``, ``lupw_ss``: 5th-order upwinding, the
+    reference's der6_upwind), ν, χ and K unchanged.  The values are this
+    configuration's own, not the sample's start.in/run.in.
 
     The bottom c1 flux follows the run-directory loader's rule
     (pencil_tpu/compat/rundir.py:2400-2406):
@@ -68,7 +97,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                             **eta3),)
     heat = (dict(iheatcond=("K-const", "chi-const"), chi=chi) if chi > 0.0
             else dict(iheatcond=("K-const",)))
-    return pkg.Config(
+    cfg = pkg.Config(
         grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
         modules=(pkg.EosIdealGas(gamma=gamma, cs0=1.0, cp=cp),
                  pkg.Density(init="piecew-poly", **den),
@@ -83,6 +112,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                              wcool=0.2, cs2cool=cs2cool),
                  *mag,
                  *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
+    return with_upwind(cfg) if upwind else cfg
 
 
 def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
@@ -280,7 +310,8 @@ def _energy(pkg, entropy, chi):
             (pkg.Entropy(iheatcond=("chi-const",), chi=chi),))
 
 
-def shock_box(n, fused=True, pkg=None, magnetic=True, entropy=False):
+def shock_box(n, fused=True, pkg=None, magnetic=True, entropy=False,
+              shock_diffusion=False):
     """Supersonic forced MHD turbulence with shock viscosity, the Pencil
     Code's shock-capturing set-up (Haugen, Brandenburg & Mee 2004, MNRAS
     353, 947): the default 2π cube, fully periodic, isothermal gas
@@ -294,14 +325,19 @@ def shock_box(n, fused=True, pkg=None, magnetic=True, entropy=False):
     'chi-const' conduction, χ = ν = 1e-3, and viscous (shock heating
     included) and Ohmic heating: supersonic turbulence with an energy
     equation, 6 slots without Magnetic (uu, lnrho, ss, shock), 9 with it.
-    ``n`` is an int (a cube) or (nx, ny, nz).  The values are this
+    ``shock_diffusion`` completes the shock-capturing set beside ν_sh:
+    shock diffusion of lnρ D_sh = 1 (``diffrho_shock``), with Magnetic
+    the shock resistivity η_sh = 1 (``eta_shock``) and with ``entropy``
+    shock heat conduction χ_sh = 1 (iheatcond 'shock' beside chi-const),
+    each of the size of ν_sh, so each spreads a shock over the same few
+    cells.  ``n`` is an int (a cube) or (nx, ny, nz).  The values are this
     configuration's own, not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     mag = ((pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=1e-3),)
            if magnetic else ())
     eos, ent = _energy(pkg, entropy, 1e-3)
-    return pkg.Config(
+    cfg = pkg.Config(
         grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz),
         time=pkg.TimeSpec(itorder=3), fused=fused,
         modules=(eos,
@@ -312,6 +348,7 @@ def shock_box(n, fused=True, pkg=None, magnetic=True, entropy=False):
                  *mag, *ent,
                  pkg.Shock(),
                  pkg.Forcing(force=0.2, kf=3.0, relhel=0.0)))
+    return with_shock_diffusion(cfg) if shock_diffusion else cfg
 
 
 def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False,
@@ -342,7 +379,7 @@ def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False,
 
 
 def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
-             b_ext=None, fcont=None):
+             b_ext=None, fcont=None, upwind=False):
     """Forced isothermal MHD turbulence, the package's headline workload
     (the configuration ``bench.py`` times): the default 2π cube, fully
     periodic, isothermal gas (cs = 1), ν = η = 5e-3, gaussian-noise u and A,
@@ -357,14 +394,17 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
     users drive it.  ``fcont`` = (profile, ampl_ff, k1_ff) drives the flow
     by continuous forcing of that profile in place of the kicks (force =
     0): ('ABC', a, 1) is the ABC-flow dynamo (Galloway & Frisch 1986,
-    Geophys. Astrophys. Fluid Dyn. 36, 53).  ``n`` is an int (a cube) or
+    Geophys. Astrophys. Fluid Dyn. 36, 53).  ``upwind`` upwinds the
+    advection of lnρ and u (``lupw_lnrho``, ``lupw_uu``: 5th-order
+    upwinding, the reference's der6_upwind, which damps the grid-scale
+    wiggles of advection), ν and η unchanged.  ``n`` is an int (a cube) or
     (nx, ny, nz).  The values are this repository's own, not a reference
     sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
     den, visc, mag = _hyper3(pkg, grid, hyper3)
-    return pkg.Config(
+    cfg = pkg.Config(
         grid=grid, time=pkg.TimeSpec(itorder=itorder, dt=dt), fused=fused,
         modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
                  pkg.Density(lupw_lnrho=False, **den),
@@ -373,6 +413,7 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
                  _magnetic(pkg, b_ext, init="gaussian-noise", ampl=1e-4,
                            eta=5e-3, **mag),
                  _forcing(pkg, 0.07, grid, fcont)))
+    return with_upwind(cfg) if upwind else cfg
 
 
 def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0,

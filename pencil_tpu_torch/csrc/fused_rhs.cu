@@ -100,7 +100,16 @@
 // MHD build adds the imposed uniform field B_ext to B = curl A where B is
 // formed (PcParams.bext, -0 in a component that is 0: three adds of a
 // parameter, within the noise of the parent), so that u x B, J x B/rho
-// and the Alfven speed read it, as the JAX Pencils.bb gives it.
+// and the Alfven speed read it, as the JAX Pencils.bb gives it.  Every
+// build has instances with the flag UPW (picked on the host where an lupw
+// flag is on, never beside H3): the 5th-order upwinding of the advection
+// of lnrho, u and ss (the reference's der6_upwind), each field behind a
+// uniform test of its own flag.  The shock builds have instances with the
+// flag SHK (picked where a shock diffusivity is not 0, beside each of
+// their other instances) that add the shock diffusivities of lnrho, A and
+// ss (diffrho_shock, eta_shock, chi_shock), each behind a uniform test of
+// its coefficient: the three tests in every instance cost K1se 4.5 % with
+// the coefficients at 0 (PERF.md §6).
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -332,6 +341,14 @@ struct PcParams {
   // the imposed uniform field B_ext of the MHD builds, added to curl A
   // (-0 in a component that is 0)
   float bext[3];
+  // the shock builds' shock diffusivities, each 0 where its term is off:
+  // of lnrho (diffrho_shock), of A (eta_shock, with A) and of ss
+  // (chi_shock, with ss), and gamma*chi_shock, its CFL rate per shock
+  float diffrho_shock, eta_shock, chi_shock, gchi_shock;
+  // upwinding (the UPW instances): 1/(60 dx_a) in f32, and whether it acts
+  // on lnrho, on u and on ss (lupw_lnrho, lupw_uu, lupw_ss)
+  float upw_inv[3];
+  int upw[3];
 };
 
 // The z inputs beside the stack: of the z-ghosted builds the z-halo slabs
@@ -439,6 +456,20 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
   return __fadd_rn(acc, __fmul_rn(dj2(p, x, 2, P.w6), P.inv6[2]));
 }
 
+// The 5th-order upwinding of the advection of one field at one point (JAX
+// Pencils.ugrad(upwind=True), reference der6_upwind):
+// sum_a |u_a| d6_a f/(60 dx_a), the 6th difference of each axis as del6
+// forms it, the three axes joined in the JAX order
+__device__ __forceinline__ float upwind(const float* p, const float* x,
+                                        const float* u, const PcParams& P) {
+  float acc = __fmul_rn(__fmul_rn(fabsf(u[0]), dj2(p, x, 0, P.w6)),
+                        P.upw_inv[0]);
+  acc = __fmaf_rn(__fmul_rn(fabsf(u[1]), dj2(p, x, 1, P.w6)), P.upw_inv[1],
+                  acc);
+  return __fmaf_rn(__fmul_rn(fabsf(u[2]), dj2(p, x, 2, P.w6)),
+                   P.upw_inv[2], acc);
+}
+
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the ring slot of its plane; field c is at s + c*FPL, its x taps in
 // xt[c], the x neighbours' planes at the offsets xo.  Term order follows
@@ -480,8 +511,19 @@ __device__ __forceinline__ float del6(const float* p, const float* x,
 // test of a coefficient: a layer that is off
 // has a profile of zeros, a coefficient that is off adds 0); CHI adds
 // 'chi-const' conduction after K-const, a flag as ROT is (a term behind a
-// runtime test measured 3-6 %).
-template <bool WANT_DT1, bool ROT, bool H3, bool CHI>
+// runtime test measured 3-6 %).  UPW (every build, not beside H3: both
+// damp the same grid-scale noise) upwinds the advection of lnrho, of each
+// u component (after the pressure force, before the Coriolis force) and of
+// ss, each field behind a uniform test of its flag (P.upw), so that one
+// instance serves any mix of lupw_lnrho, lupw_uu and lupw_ss.  SHK (the
+// shock builds) adds the shock diffusivities where their coefficients are
+// not 0 (a uniform test each, as nu-shock's): D_sh [shock (del2 lnrho +
+// |grad lnrho|^2) + grad shock . grad lnrho] after the density terms and
+// before D3 del6 lnrho, -eta_sh shock J after eta3 del6 A, chi_sh [shock
+// (del2 lnT + (grad lnrho + grad lnT) . grad lnT) + grad shock . grad lnT]
+// after chi-const, and their rates D_sh shock, eta_sh shock and gamma
+// chi_sh shock among the diffusivities of the CFL.
+template <bool WANT_DT1, bool ROT, bool H3, bool CHI, bool UPW, bool SHK>
 __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
                                              const PcParams& P, float xn,
@@ -511,23 +553,56 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #endif
 #if PC_SHOCK
   // the shock profile (its x taps in registers too: read from the ring
-  // they measured 0-4 % slower), and its gradient where nu-shock is on
+  // they measured 0-4 % slower), and its gradient where a term reads it:
+  // nu-shock and, with SHK, the shock diffusion of lnrho and the shock
+  // conduction
   const float shock = xt[SHOCK][NG];
+  const bool gshock = SHK ? P.nu_shock > 0.0f || P.diffrho_shock > 0.0f
+                                || P.chi_shock > 0.0f
+                          : P.nu_shock > 0.0f;
   float gsh[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
-    gsh[a] = P.nu_shock > 0.0f
+    gsh[a] = gshock
         ? __fmul_rn(dj1(s + SHOCK * FPL, xt[SHOCK], a, P.w1), P.inv[a])
         : 0.0f;
 #endif
 
 #if PC_JOINS
-  // density: -u.grad(lnrho) - div u [+ D3 del6 lnrho], then the shear term
-  float rl = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+  // density: -u.grad(lnrho) [less its upwinding] - div u [+ shock
+  // diffusion] [+ D3 del6 lnrho], then the shear term
+  float rl;
+  if constexpr (UPW) {
+    float ug = (u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2];
+    if (P.upw[0]) ug = __fsub_rn(ug, upwind(s + LNRHO * FPL, xt[LNRHO], u, P));
+    rl = -ug - divu;
+  } else {
+    rl = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+  }
+#if PC_SHOCK
+  if (SHK && P.diffrho_shock > 0.0f) {
+    float d2l = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float l2 = __fmul_rn(dj2(s + LNRHO * FPL, xt[LNRHO], a, P.w2),
+                                 P.invsq[a]);
+      d2l = (a == 0) ? l2 : d2l + l2;
+    }
+    const float g2 = (gl[0] * gl[0] + gl[1] * gl[1]) + gl[2] * gl[2];
+    const float gsgl = (gsh[0] * gl[0] + gsh[1] * gl[1]) + gsh[2] * gl[2];
+    rl = __fadd_rn(rl, P.diffrho_shock * (shock * (d2l + g2) + gsgl));
+  }
+#endif
   if (H3) rl = rl + P.diff3 * del6(s + LNRHO * FPL, xt[LNRHO], P);
 #else
-  // density: -u.grad(lnrho) - div u [+ D3 del6 lnrho]
-  r[LNRHO] = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+  // density: -u.grad(lnrho) [less its upwinding] - div u [+ D3 del6 lnrho]
+  if constexpr (UPW) {
+    float ug = (u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2];
+    if (P.upw[0]) ug = __fsub_rn(ug, upwind(s + LNRHO * FPL, xt[LNRHO], u, P));
+    r[LNRHO] = -ug - divu;
+  } else {
+    r[LNRHO] = -((u[0] * gl[0] + u[1] * gl[1]) + u[2] * gl[2]) - divu;
+  }
   if constexpr (H3)
     r[LNRHO] = __fadd_rn(
         r[LNRHO], __fmul_rn(P.diff3, del6(s + LNRHO * FPL, xt[LNRHO], P)));
@@ -553,6 +628,15 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #else
     duu[a] = -ugu + (-cs2) * gl[a];
 #endif
+  }
+  if constexpr (UPW) {
+    // upwinding of each component: + sum_a |u_a| d6_a u_c/(60 dx_a)
+    if (P.upw[1]) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        duu[c] = __fadd_rn(duu[c], upwind(s + (UX + c) * FPL, xt[UX + c], u,
+                                          P));
+    }
   }
   if constexpr (ROT) {
     const float c[3] = {
@@ -668,6 +752,11 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     float out = uxb;
     if (PC_ZG || P.eta > 0.0f) out = out + P.eta * del2;
     if (H3) out = out + P.eta3 * del6(aa, xt[AX + a], P);
+#if PC_SHOCK
+    // the shock resistivity -eta_sh shock J (mu0 = 1)
+    if (SHK && P.eta_shock > 0.0f)
+      out = __fsub_rn(out, (P.eta_shock * shock) * jj[a]);
+#endif
 #if PC_SHEAR
     // the Shear module's terms come first: -S x dA/dy, and -S Ay on Ax
     float ra = __fmul_rn(muy0, aij[a][1]);
@@ -701,11 +790,19 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #endif
 
 #if PC_ENT
-  // entropy: -u.grad(ss) + K-const and chi-const conduction + viscous and
-  // Ohmic heating
-  float ds = -((u[0] * gs[0] + u[1] * gs[1]) + u[2] * gs[2]);
+  // entropy: -u.grad(ss) [less its upwinding] + K-const, chi-const [and
+  // shock] conduction + viscous and Ohmic heating
+  float ds;
+  if constexpr (UPW) {
+    float ug = (u[0] * gs[0] + u[1] * gs[1]) + u[2] * gs[2];
+    if (P.upw[2]) ug = __fsub_rn(ug, upwind(s + SS * FPL, xt[SS], u, P));
+    ds = -ug;
+  } else {
+    ds = -((u[0] * gs[0] + u[1] * gs[1]) + u[2] * gs[2]);
+  }
   float chik = 0.0f;   // the K-const CFL rate K gamma/(rho cp) at this point
-  if (PC_ZG || P.hcond0 > 0.0f || P.cpchi > 0.0f) {
+  if (PC_ZG || P.hcond0 > 0.0f || P.cpchi > 0.0f
+      || (PC_SHOCK && SHK && P.chi_shock > 0.0f)) {
     float gt[3], d2l = 0.0f, d2s = 0.0f;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -729,6 +826,14 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
                          + gt[2] * (gt[2] + gl[2]);
       ds = ds + P.cpchi * (del2lnTT + gdot);
     }
+#if PC_SHOCK
+    if (SHK && P.chi_shock > 0.0f) {
+      const float g2 = ((gl[0] + gt[0]) * gt[0] + (gl[1] + gt[1]) * gt[1])
+                       + (gl[2] + gt[2]) * gt[2];
+      const float gsgt = (gsh[0] * gt[0] + gsh[1] * gt[1]) + gsh[2] * gt[2];
+      ds = ds + P.chi_shock * (shock * (del2lnTT + g2) + gsgt);
+    }
+#endif
   }
 #if PC_SHOCK
   // the viscous heat 2 nu S^2 + nu_sh shock (div u)^2, in Viscosity's order
@@ -781,14 +886,22 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #if PC_JOINS && !PC_ZG
     // the diffusivity max(nu, nu_sh*shock, eta) at this point (the terms of
     // the build's layout; with ss also chi gamma of chi-const, in maxdif,
-    // and K-const's K gamma/(rho cp)), plus the constant del6 rate
+    // and K-const's K gamma/(rho cp); the shock diffusivities D_sh shock,
+    // eta_sh shock and gamma chi_sh shock), plus the constant del6 rate
     const bool has_dif = P.nu > 0.0f || (PC_SHOCK && P.nu_shock > 0.0f)
                          || (PC_MAG && P.eta > 0.0f)
-                         || (PC_ENT && (P.maxdif > 0.0f || P.hcond0 > 0.0f));
+                         || (PC_ENT && (P.maxdif > 0.0f || P.hcond0 > 0.0f))
+                         || (PC_SHOCK && SHK);
     float md = 0.0f;
     if (P.nu > 0.0f) md = P.nu;
 #if PC_SHOCK
     if (P.nu_shock > 0.0f) md = fmaxf(md, P.nu_shock * shock);
+    if constexpr (SHK) {
+      if (P.diffrho_shock > 0.0f) md = fmaxf(md, P.diffrho_shock * shock);
+      if (PC_MAG && P.eta_shock > 0.0f) md = fmaxf(md, P.eta_shock * shock);
+      if (PC_ENT && P.chi_shock > 0.0f)
+        md = fmaxf(md, P.gchi_shock * shock);
+    }
 #endif
     if (PC_MAG && P.eta > 0.0f) md = fmaxf(md, P.eta);
 #if PC_ENT
@@ -1032,7 +1145,9 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // FAKE puts f*1.0000001 in place of the RHS (the K8 memory floor); ROT
 // adds the Coriolis force (launch() picks it where P.om is not 0), H3 the
 // del6 terms (picked where a hyper coefficient is not 0), CHI the
-// z-ghosted builds' chi-const term (picked where cp chi is not 0).  coef =
+// z-ghosted builds' chi-const term (picked where cp chi is not 0), UPW the
+// upwinding (picked where an lupw flag is on; never beside H3), SHK the
+// shock builds' shock diffusivities (picked where one is not 0).  coef =
 // [alpha, beta*dt, cprev] and kick = [k(3), phase, f_re(3), f_im(3), N*dt,
 // 0] live on the device, so no launch needs a host copy of dt.  dfin and
 // dfout may be one buffer (K3'): each thread reads and writes only its own
@@ -1054,7 +1169,7 @@ static_assert(MX <= NTHREADS, "one thread per plane reads the kick's sin/cos");
 // the grid (its ring position holds wrapped data): it just loads and
 // stores nothing of its own there.
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
-          bool H3, bool CHI>
+          bool H3, bool CHI, bool UPW, bool SHK>
 __global__ void __launch_bounds__(NTHREADS, min_blocks<FIRST, DEFER>())
 pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
             const float* __restrict__ coef, const float* __restrict__ kick,
@@ -1321,8 +1436,8 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       // PC_SHEAR: the node x of this plane, the JAX tile rule in f32
       const float xn = PC_SHEAR
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
-      flagship_rhs<FIRST, ROT, H3, CHI>(s, xt, xo, P, xn, lay_c, lay_h,
-                                        grav, r, dt1);
+      flagship_rhs<FIRST, ROT, H3, CHI, UPW, SHK>(s, xt, xo, P, xn, lay_c,
+                                                  lay_h, grav, r, dt1);
       if (zg.fcont) {
         // the continuous forcing joins du last (the Forcing module
         // follows Magnetic), then the next plane's is loaded: a plane's
@@ -1382,10 +1497,13 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // that lacks those; each first kernel of the aux builds with ss and aa
   // has one of its own too (tags 8-11), and so has each of the z-ghosted
   // shear builds (tags 12-19), and so has each of the z-ghosted builds
-  // without ss (tags 20-35)
+  // without ss (tags 20-35), and each UPW instance (tags 36-39) and SHK
+  // instance (tags 40-47)
   constexpr bool XT = CHI || (H3 && PC_TAILS);
   constexpr bool ZH3 = H3 && PC_ZG;
-  constexpr int TAG = PC_ZG && !PC_ENT
+  constexpr int TAG = SHK ? 40 + ROT + 2 * H3 + 4 * UPW
+      : UPW ? 36 + ROT + 2 * CHI
+      : PC_ZG && !PC_ENT
       ? 20 + ROT + 2 * H3 + 4 * PC_SHEAR + 8 * PC_MAG
       : PC_ZG && PC_SHEAR
       ? 12 + ROT + 2 * CHI + 4 * H3
@@ -1399,12 +1517,13 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
 }
 
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE, bool ROT,
-          bool H3, bool CHI>
+          bool H3, bool CHI, bool UPW, bool SHK = false>
 static int launch_as(const PcParams* p, const float* fa, const float* dfin,
                      const float* coef, const float* kick, const float* ktab,
                      float* dfout, float* faout, float* dt1blk, void* stream,
                      const ZgIn& zg) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI>;
+  auto kern =
+      pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI, UPW, SHK>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1419,31 +1538,74 @@ static int launch_as(const PcParams* p, const float* fa, const float* dfin,
 }
 
 // launch_as with the Coriolis force where Omega is not 0
-template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool H3, bool CHI>
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool H3, bool CHI,
+          bool UPW = false, bool SHK = false>
 static int launch_rot(const PcParams* p, const float* fa, const float* dfin,
                       const float* coef, const float* kick, const float* ktab,
                       float* dfout, float* faout, float* dt1blk, void* stream,
                       const ZgIn& zg) {
   const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
   return rot
-      ? launch_as<FIRST, DEFER, LAST, KICK, false, true, H3, CHI>(
+      ? launch_as<FIRST, DEFER, LAST, KICK, false, true, H3, CHI, UPW, SHK>(
             p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg)
-      : launch_as<FIRST, DEFER, LAST, KICK, false, false, H3, CHI>(
+      : launch_as<FIRST, DEFER, LAST, KICK, false, false, H3, CHI, UPW, SHK>(
             p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
 }
+
+#if PC_SHOCK
+// The shock builds' SHK instances (a shock diffusivity on): with rotation
+// where Omega is not 0, beside the del6 terms or the upwinding where those
+// are on.
+template <bool FIRST, bool DEFER, bool LAST, bool KICK>
+static int launch_shk(const PcParams* p, const float* fa, const float* dfin,
+                      const float* coef, const float* kick, const float* ktab,
+                      float* dfout, float* faout, float* dt1blk, void* stream,
+                      const ZgIn& zg) {
+  const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
+  if (p->upw[0] || p->upw[1] || p->upw[2])
+    return hyper ? (int)cudaErrorInvalidValue
+                 : launch_rot<FIRST, DEFER, LAST, KICK, false, false, true,
+                              true>(p, fa, dfin, coef, kick, ktab, dfout,
+                                    faout, dt1blk, stream, zg);
+  return hyper
+      ? launch_rot<FIRST, DEFER, LAST, KICK, true, false, false, true>(
+            p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg)
+      : launch_rot<FIRST, DEFER, LAST, KICK, false, false, false, true>(
+            p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+}
+#endif
 
 // The instance with the Coriolis force where Omega is not 0 (K8 has none)
 // and with the build's own terms where they are on: the del6 terms where a
 // hyper coefficient is not 0 (H3: every build), chi-const where cp chi is
 // not 0 (CHI: the z-ghosted builds with ss, each with both flags, four
-// instances a rotation).
+// instances a rotation), the upwinding where an lupw flag is on (UPW: every
+// build, with CHI where the build has it; beside a hyper coefficient no
+// instance, an invalid value), the shock diffusivities where one is on
+// (SHK: the shock builds, beside each of the others).
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
                   float* dfout, float* faout, float* dt1blk, void* stream,
                   const ZgIn& zg = ZgIn{}) {
   if constexpr (!FAKE) {
+#if PC_SHOCK
+    if (p->diffrho_shock > 0.0f || p->eta_shock > 0.0f
+        || p->chi_shock > 0.0f)
+      return launch_shk<FIRST, DEFER, LAST, KICK>(
+          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+#endif
     const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
+    if (p->upw[0] || p->upw[1] || p->upw[2]) {
+      if (hyper) return (int)cudaErrorInvalidValue;
+#if PC_ZG && PC_ENT
+      if (p->cpchi > 0.0f)
+        return launch_rot<FIRST, DEFER, LAST, KICK, false, true, true>(
+            p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+#endif
+      return launch_rot<FIRST, DEFER, LAST, KICK, false, false, true>(
+          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+    }
 #if PC_ZG && PC_ENT
     if (p->cpchi > 0.0f)
       return hyper
@@ -1459,10 +1621,11 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
           p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
     const bool rot = p->om[0] != 0.0f || p->om[1] != 0.0f || p->om[2] != 0.0f;
     if (rot)
-      return launch_as<FIRST, DEFER, LAST, KICK, false, true, false, false>(
-          p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+      return launch_as<FIRST, DEFER, LAST, KICK, false, true, false, false,
+                       false>(p, fa, dfin, coef, kick, ktab, dfout, faout,
+                              dt1blk, stream, zg);
   }
-  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false, false>(
+  return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false, false, false>(
       p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
 }
 
@@ -1532,9 +1695,11 @@ static int tail_last(const PcParams* p, const float* fa, const float* dfin,
 // Registers, local (spill) bytes per thread, static and dynamic shared
 // memory per block, and resident blocks per SM of one instance.
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE,
-          bool ROT = false, bool H3 = false, bool CHI = false>
+          bool ROT = false, bool H3 = false, bool CHI = false,
+          bool UPW = false, bool SHK = false>
 static int attrs(int* out) {
-  auto kern = pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI>;
+  auto kern =
+      pc_flagship<FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI, UPW, SHK>;
   const int smem = 4 * smem_floats<FIRST, DEFER>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1554,19 +1719,27 @@ static int attrs(int* out) {
 }
 
 // attrs() of the instance `base` of pc_flagship_attrs with rotation ROT and
-// the flags H3 and CHI
-template <bool ROT, bool H3, bool CHI>
+// the flags H3, CHI, UPW and SHK
+template <bool ROT, bool H3, bool CHI, bool UPW = false, bool SHK = false>
 static int attrs_of(int base, int* out) {
   switch (base) {
-    case 0: return attrs<true, false, false, false, false, ROT, H3, CHI>(out);
-    case 8: return attrs<false, false, false, false, false, ROT, H3, CHI>(out);
+    case 0:
+      return attrs<true, false, false, false, false, ROT, H3, CHI, UPW, SHK>(
+          out);
+    case 8:
+      return attrs<false, false, false, false, false, ROT, H3, CHI, UPW,
+                   SHK>(out);
 #if PC_TAILS
-    case 2: return attrs<false, true, false, false, false, ROT, H3, CHI>(out);
-    case 4: return attrs<false, false, true, true, false, ROT, H3, CHI>(out);
-    case 5: return attrs<false, false, true, false, false, ROT, H3, CHI>(out);
-    case 9: return attrs<false, true, true, true, false, ROT, H3, CHI>(out);
+    case 2:
+      return attrs<false, true, false, false, false, ROT, H3, CHI, UPW>(out);
+    case 4:
+      return attrs<false, false, true, true, false, ROT, H3, CHI, UPW>(out);
+    case 5:
+      return attrs<false, false, true, false, false, ROT, H3, CHI, UPW>(out);
+    case 9:
+      return attrs<false, true, true, true, false, ROT, H3, CHI, UPW>(out);
     case 10:
-      return attrs<false, true, true, false, false, ROT, H3, CHI>(out);
+      return attrs<false, true, true, false, false, ROT, H3, CHI, UPW>(out);
 #endif
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1586,7 +1759,9 @@ int pc_tile_shape(int* out) {
 // attrs() of instance `which`: 0 K1, 1 K8-K1, 2 K2, 3 K8-K2, 4/5 K3 with
 // and without the kick, 6/7 K8-K3 with and without, 8 K3', 9/10 K2L with
 // and without the kick; + 16 with rotation, + 32 with the del6 terms (H3),
-// + 64 with chi-const (CHI, the z-ghosted builds with ss only).  Only the
+// + 64 with chi-const (CHI, the z-ghosted builds with ss only), + 128 with
+// the upwinding (UPW: every build, not with H3), + 256 with the shock
+// diffusivities (SHK: the shock builds, not with CHI).  Only the
 // isothermal MHD build has K8 (1, 3, 6, 7; none with rotation or H3).  The
 // shock and shear builds have 0 and 8 (K1s and K5w, or K4 and K5, and
 // those of their other layouts), each with the four flag sets, the
@@ -1613,6 +1788,20 @@ int pc_flagship_attrs(int which, int* out) {
     case 5: return attrs_of<true, false, true>(base, out);
     case 6: return attrs_of<false, true, true>(base, out);
     case 7: return attrs_of<true, true, true>(base, out);
+#endif
+    case 8: return attrs_of<false, false, false, true>(base, out);
+    case 9: return attrs_of<true, false, false, true>(base, out);
+#if PC_ZG && PC_ENT
+    case 12: return attrs_of<false, false, true, true>(base, out);
+    case 13: return attrs_of<true, false, true, true>(base, out);
+#endif
+#if PC_SHOCK
+    case 16: return attrs_of<false, false, false, false, true>(base, out);
+    case 17: return attrs_of<true, false, false, false, true>(base, out);
+    case 18: return attrs_of<false, true, false, false, true>(base, out);
+    case 19: return attrs_of<true, true, false, false, true>(base, out);
+    case 24: return attrs_of<false, false, false, true, true>(base, out);
+    case 25: return attrs_of<true, false, false, true, true>(base, out);
 #endif
     default: return (int)cudaErrorInvalidValue;
   }

@@ -115,10 +115,11 @@ from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import BC_REGISTRY
-from .ops.fused_rhs import (rhs_first, rhs_plain, rhs_tail_defer,
-                            rhs_tail_defer_last, rhs_tail_last, rhs_tail_mid,
-                            rhs_wrap_shock, rhs_wrap_shock_upd, rhs_zg,
-                            rhs_zg_upd, rhs_zroll, rhs_zroll_upd)
+from .ops.fused_rhs import (hyper3_coefficients, rhs_first, rhs_plain,
+                            rhs_tail_defer, rhs_tail_defer_last,
+                            rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
+                            rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
+                            rhs_zroll, rhs_zroll_upd, upwind_flags)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
@@ -198,10 +199,31 @@ def _unported_bcs(cfg: Config):
 
 def _shock_options(cfg: Config):
     """The options in use that only the shear-box and shock-box kernels
-    implement: nu-shock."""
-    visc = cfg.module("viscosity")
-    return (["Viscosity nu-shock"]
-            if visc is not None and visc.coefficients()[1] else [])
+    implement, each reading the Shock module's slot: nu-shock and the
+    shock diffusivities of lnρ, A and s."""
+    visc, den = cfg.module("viscosity"), cfg.module("density")
+    mag, ent = cfg.module("magnetic"), cfg.module("entropy")
+    return [name for name, on in (
+        ("Viscosity nu-shock", visc is not None and visc.coefficients()[1]),
+        ("Density diffrho_shock", den is not None and den.diffrho_shock > 0),
+        ("Magnetic eta_shock", mag is not None and mag.eta_shock > 0),
+        ("Entropy chi_shock", ent is not None and "shock" in ent.iheatcond
+         and ent.chi_shock > 0)) if on]
+
+
+def _upwind_with_hyper3(cfg: Config):
+    """The upwinding flags in use beside a del6 coefficient, named with
+    those coefficients, or None: no kernel instance has both (upwinding
+    and hyper-diffusion damp the same grid-scale noise)."""
+    upw = [name for name, on in zip(("lupw_lnrho", "lupw_uu", "lupw_ss"),
+                                    upwind_flags(cfg)) if on]
+    hyper = [name for name, c in zip(("nu_hyper3", "eta_hyper3",
+                                      "diffrho_hyper3"),
+                                     hyper3_coefficients(cfg)) if c > 0.0]
+    if upw and hyper:
+        return (f"options {upw} (upwinding) with {hyper} (del6 "
+                "hyper-diffusion): no kernel instance has both")
+    return None
 
 
 def fused_mode(cfg: Config):
@@ -217,10 +239,14 @@ def fused_mode(cfg: Config):
     Gravity) optional in every periodic set and part of the z-ghosted
     ones and optional there too (the z-walled sets without it: g_z = 0);
     Magnetic's B_ext on every MHD set and continuous forcing on every set;
-    or (None, why ``cfg`` is outside all of these sets).  The module set
-    is tested before any option of it, so a set that no chain takes is
-    refused for its modules; Entropy's layer profiles outside the
-    z-ghosted sets are refused for that option."""
+    the upwinding (lupw_lnrho, lupw_uu, lupw_ss) on every set, but not
+    beside a del6 coefficient; nu-shock and the shock diffusivities
+    (diffrho_shock, eta_shock, chi_shock) on the sets with the Shock
+    module's slot; or (None, why ``cfg`` is outside all of these sets).
+    The module set is tested before any option of it, so a set that no
+    chain takes is refused for its modules; Entropy's layer profiles
+    outside the z-ghosted sets, the upwinding beside del6 and the shock
+    terms without the slot are refused for those options."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -251,12 +277,15 @@ def fused_mode(cfg: Config):
             return None, ("options ['Entropy.cool/luminosity'] (the layer "
                           "profiles: only the conv-slab kernels implement "
                           "them)")
-        # nu-shock reads the Shock module's slot
+        both = _upwind_with_hyper3(cfg)
+        if both:
+            return None, both
+        # nu-shock and the shock diffusivities read the Shock module's slot
         if aux and ("shock" in mods or not extra):
             return ("zroll" if free in ZROLL_SETS else "wrap_aux"), None
         if extra and "shock" not in mods and free in ZROLL_SETS:
             return None, (f"options {extra} without the Shock module, "
-                          "whose slot nu-shock reads")
+                          "whose slot they read")
         if extra:
             return None, (f"options {extra} (only the shear-box and "
                           "shock-box kernels implement them)")

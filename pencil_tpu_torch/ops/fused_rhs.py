@@ -118,6 +118,17 @@ MHD kernel adds Magnetic's B_ext to B = ∇×A (a constant of
 field; with a null field the kernels skip the forcing, and a zero B_ext
 adds -0.
 
+Every build has UPW instances, picked where an lupw flag is on
+(``upwind_flags``: lupw_lnrho, lupw_uu, lupw_ss), which upwind the
+advection of those fields (Σ_a |u_a|·δ⁶_a f/(60Δ_a), JAX
+``Pencils.ugrad(upwind=True)``), counted under the launch names with the
+suffix ``_upw`` (after ``_chi``); no instance has both UPW and H3, and
+``kernel_params`` refuses the pair.  The builds with the shock slot have
+a SHK twin of each instance, picked where one of the shock diffusivities
+D_sh, η_sh and χ_sh is on (``shock_coefficients``; 0 in a layout without
+the slot), which adds them; it counts under its twin's launch name with
+the suffix ``_sd`` (after ``_upw``).
+
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
 block reads halos from; K7's df overwrites df_prev, which each point reads
@@ -382,6 +393,9 @@ class PcParams(ctypes.Structure):
         ("S", ctypes.c_float), ("cool", ctypes.c_float),
         ("cs2c", ctypes.c_float), ("heat_norm", ctypes.c_float),
         ("bext", ctypes.c_float * 3),
+        ("diffrho_shock", ctypes.c_float), ("eta_shock", ctypes.c_float),
+        ("chi_shock", ctypes.c_float), ("gchi_shock", ctypes.c_float),
+        ("upw_inv", ctypes.c_float * 3), ("upw", ctypes.c_int * 3),
     ]
 
 
@@ -475,6 +489,13 @@ AUX_KERNELS = {lib: tuple(k + sfx for k in base)
                for lib, (_, _, base, sfx) in _AUX_BUILDS.items()}
 
 
+def _sd_flags(lib):
+    """The launch-name suffixes of an aux build's instances without and
+    with the shock diffusivities: ('', '_sd') with the shock slot, else
+    ('',)."""
+    return ("", "_sd")[:1 + ("shock" in _AUX_BUILDS[lib][0])]
+
+
 # the z-ghosted builds, each with its field layout, its module set (the
 # conv-slab's, with Magnetic, and each with Shear; the isothermal
 # stratified layer's, hydro or MHD, each with Shear; forcing rides along
@@ -510,15 +531,19 @@ ZG_CHI_LIBRARIES = tuple(lib for lib, (layout, _, _) in _ZG_BUILDS.items()
 # The H3 instances of the periodic builds (suffix _h3) and the CHI and H3
 # instances of the z-ghosted builds (_chi, _h3, _chi_h3; the builds
 # without ss have no CHI) count under names of their own; the aux builds'
-# H3 instances under their builds' names.
+# H3 instances under their builds' names.  The UPW instances of every
+# build count under names of their own, with the suffix _upw (after _chi),
+# and the SHK instances of the builds with the shock slot under theirs,
+# with the suffix _sd (after _upw).
 LAUNCHES = dict.fromkeys(
-    [k + sfx + h3 for h3 in ("", "_h3") for sfx in _SUFFIX.values()
-     for k in _WRAP_KERNELS]
+    [k + sfx + flag for flag in ("", "_h3", "_upw")
+     for sfx in _SUFFIX.values() for k in _WRAP_KERNELS]
     + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
-    + [k + chi + h3 for chi in ("", "_chi") for h3 in ("", "_h3")
+    + [k + chi + flag for chi in ("", "_chi") for flag in ("", "_h3", "_upw")
        for lib, names in ZG_KERNELS.items() for k in names
        if not chi or lib in ZG_CHI_LIBRARIES]
-    + [k for names in AUX_KERNELS.values() for k in names], 0)
+    + [k + upw + sd for lib, names in AUX_KERNELS.items() for k in names
+       for upw in ("", "_upw") for sd in _sd_flags(lib)], 0)
 
 
 def reset_launches():
@@ -552,6 +577,37 @@ def aux_library(model) -> str:
         "shock and shear kernels: the (uu, lnrho[, ss][, aa][, shock]) "
         "layouts of the shear and shocked boxes and their modules only, "
         f"got {reg.comp_names} of {sorted(names)}")
+
+
+def upwind_flags(cfg):
+    """(lupw_lnrho, lupw_uu, lupw_ss) of ``cfg``, False for each whose
+    module is absent."""
+    den, hyd, ent = (cfg.module(n) for n in ("density", "hydro", "entropy"))
+    return (bool(den is not None and den.lupw_lnrho),
+            bool(hyd is not None and hyd.lupw_uu),
+            bool(ent is not None and ent.lupw_ss))
+
+
+def shock_coefficients(cfg, reg):
+    """(D_sh, η_sh, χ_sh) of ``cfg``: the shock diffusivities of lnρ, A
+    and s, each 0 where it is off or the layout has no shock slot (JAX's
+    modules then skip the term)."""
+    if "shock" not in reg.slots:
+        return 0.0, 0.0, 0.0
+    den, mag, ent = (cfg.module(n) for n in ("density", "magnetic",
+                                             "entropy"))
+    return (max(den.diffrho_shock, 0.0) if den is not None else 0.0,
+            max(mag.eta_shock, 0.0) if mag is not None else 0.0,
+            ent.chi_shock if ent is not None
+            and ent.shock_conduction(reg) else 0.0)
+
+
+def aux_kernels(model):
+    """The launch names (first, update) of ``model``'s aux build:
+    AUX_KERNELS's, with the suffix _upw where its UPW instances run, then
+    _sd where its SHK instances run."""
+    return tuple(k + _upw_suffix(model) + _sd_suffix(model)
+                 for k in AUX_KERNELS[aux_library(model)])
 
 
 def hyper3_coefficients(cfg):
@@ -603,11 +659,12 @@ def zg_kernels(model):
     """The launch names (first, update) of ``model``'s z-ghosted build:
     ZG_KERNELS's, with the suffix _chi where its CHI instances run
     (chi-const on), then _h3 where its H3 instances run (a del6
-    coefficient on); found once per model."""
+    coefficient on) or _upw where its UPW instances run (an lupw flag
+    on); found once per model."""
     names = model.__dict__.get("_zg_kernels")
     if names is None:
         chi = "_chi" if kernel_params(model).cpchi > 0.0 else ""
-        sfx = chi + _h3_suffix(model)
+        sfx = chi + _flag_suffix(model)
         names = tuple(k + sfx for k in ZG_KERNELS[zg_library(model)])
         model.__dict__["_zg_kernels"] = names
     return names
@@ -670,20 +727,40 @@ def _terms(model):
 def launch_suffix(model) -> str:
     """The suffix of the launch names of ``model``'s instances of the
     flagship template: its periodic library's ('', '_hydro', '_ent' or
-    '_hydro_ent'), then '_h3' where it launches the H3 instances; or its
-    aux build's ('', '_hydro', '_ns', '_hydro_ns', '_hydro_ent',
-    '_hydro_ent_ns', '_ent', '_ent_ns'), whose H3 instances count under
-    the same names."""
+    '_hydro_ent'), then '_h3' where it launches the H3 instances or
+    '_upw' where it launches the UPW ones; or its aux build's ('',
+    '_hydro', '_ns', '_hydro_ns', '_hydro_ent', '_hydro_ent_ns', '_ent',
+    '_ent_ns'), whose H3 instances count under the same names, then
+    '_upw' where it launches the UPW instances and '_sd' where it launches
+    the SHK ones."""
     if model.mode in ("zroll", "wrap_aux"):
-        return _AUX_BUILDS[aux_library(model)][3]
-    return _SUFFIX[flagship_library(model)] + _h3_suffix(model)
+        return (_AUX_BUILDS[aux_library(model)][3] + _upw_suffix(model)
+                + _sd_suffix(model))
+    return _SUFFIX[flagship_library(model)] + _flag_suffix(model)
 
 
-def _h3_suffix(model) -> str:
+def _flag_suffix(model) -> str:
     """'_h3' where ``model``'s del6 coefficients are not all 0 in f32 (the
-    kernels' own test, which picks the H3 instances), else ''."""
+    kernels' own test, which picks the H3 instances), '_upw' where an
+    lupw flag is on (the UPW instances; never both), else ''."""
     p = kernel_params(model)
-    return "_h3" if p.nu3 > 0.0 or p.eta3 > 0.0 or p.diff3 > 0.0 else ""
+    if p.nu3 > 0.0 or p.eta3 > 0.0 or p.diff3 > 0.0:
+        return "_h3"
+    return _upw_suffix(model)
+
+
+def _upw_suffix(model) -> str:
+    """'_upw' where ``model`` launches the UPW instances, else ''."""
+    return "_upw" if any(kernel_params(model).upw) else ""
+
+
+def _sd_suffix(model) -> str:
+    """'_sd' where ``model`` launches the SHK instances (a shock
+    diffusivity on, which only a layout with the shock slot can have),
+    else ''."""
+    p = kernel_params(model)
+    return ("_sd" if p.diffrho_shock > 0.0 or p.eta_shock > 0.0
+            or p.chi_shock > 0.0 else "")
 
 
 def kernel_params(model) -> PcParams:
@@ -724,6 +801,13 @@ def kernel_params(model) -> PcParams:
     dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
     heats = ent is not None
     hyd = cfg.module("hydro")
+    upw = upwind_flags(cfg)
+    if any(upw) and m3 > 0.0:
+        raise NotImplementedError(
+            "fused kernels: upwinding (lupw_lnrho, lupw_uu, lupw_ss) with "
+            "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3): "
+            "no instance has both")
+    diffrho_shock, eta_shock, chi_shock = shock_coefficients(cfg, model.reg)
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
     fl3 = ctypes.c_float * 3
@@ -754,7 +838,12 @@ def kernel_params(model) -> PcParams:
         # the imposed field, -0 where a component is 0: the add leaves B
         # bit for bit as the curl gives it
         bext=fl3(*(b if b != 0.0 else -0.0 for b in (
-            mag.B_ext if mag is not None else (0.0, 0.0, 0.0)))))
+            mag.B_ext if mag is not None else (0.0, 0.0, 0.0)))),
+        diffrho_shock=diffrho_shock, eta_shock=eta_shock,
+        chi_shock=chi_shock, gchi_shock=eos.gamma * chi_shock,
+        # 1/(60 Δ_a), the upwinding's scale, rounded in f32
+        upw_inv=fl3(*(inv / f32(60.0))),
+        upw=(ctypes.c_int * 3)(*upw))
     model.__dict__["_pc_params"] = p
     return p
 
@@ -780,7 +869,10 @@ def library_instances(lib):
     """Instance name (its launch name first) -> ``pc_flagship_attrs``
     index of each instance of the template's library ``lib``: +16 with
     rotation (" rot"), +32 with the del6 terms (H3), +64 with chi-const
-    (CHI).  The periodic builds have the five kernels (and the kick's)
+    (CHI), +128 with the upwinding (UPW, launch names with _upw; never
+    beside H3), +256 with the shock diffusivities (SHK, launch names with
+    _sd after _upw: the twin of each instance of the builds with the shock
+    slot).  The periodic builds have the five kernels (and the kick's)
     with H3 (launch names with _h3), only the isothermal MHD build K8 (no
     rotation or H3); the shock builds have their two kernels with H3
     (" h3"), the z-ghosted builds theirs with CHI (launch names with _chi;
@@ -788,15 +880,19 @@ def library_instances(lib):
     other."""
     rot = (("", 0), (" rot", 16))
     if lib in AUX_KERNELS:
-        return {(kernel + flag + h3).rstrip(): which + r + x
+        return {kernel + upw + sd + flag + h3: which + r + x + z
                 for kernel, which in zip(AUX_KERNELS[lib], (0, 8))
-                for h3, x in (("", 0), (" h3", 32)) for flag, r in rot}
+                for upw, h3, x in (("", "", 0), ("", " h3", 32),
+                                   ("_upw", "", 128))
+                for sd, z in zip(_sd_flags(lib), (0, 256))
+                for flag, r in rot}
     if lib in ZG_KERNELS:
         chis = (("", 0), ("_chi", 64))[:1 + (lib in ZG_CHI_LIBRARIES)]
         return {kernel + chi + h3 + flag: which + r + x + y
                 for kernel, which in zip(ZG_KERNELS[lib], (0, 8))
                 for chi, x in chis
-                for h3, y in (("", 0), ("_h3", 32)) for flag, r in rot}
+                for h3, y in (("", 0), ("_h3", 32), ("_upw", 128))
+                for flag, r in rot}
     sfx = _SUFFIX[lib]
     out = {}
     for which, name in enumerate(FLAGSHIP_INSTANCES):
@@ -805,7 +901,7 @@ def library_instances(lib):
             if not sfx:
                 out[name] = which
             continue
-        for h3, x in (("", 0), ("_h3", 32)):
+        for h3, x in (("", 0), ("_h3", 32), ("_upw", 128)):
             for flag, r in rot:
                 out[(kernel + sfx + h3 + " " + kick).strip() + flag] = \
                     which + r + x
@@ -884,7 +980,7 @@ def _flagship_launch(name, lib, model, fa, *args, fake=False, after=()):
     name; ``args`` follow the constants and ``fa``, ``after`` the stream,
     and then, but for K8, g_z(z) and the continuous forcing."""
     name += "_fake" if fake else ""
-    sfx = _SUFFIX[lib] + ("" if fake else _h3_suffix(model))
+    sfx = _SUFFIX[lib] + ("" if fake else _flag_suffix(model))
     if not fake:
         after = after + _terms(model)
     _launch(name + sfx, fa, ctypes.addressof(kernel_params(model)),
@@ -1030,7 +1126,7 @@ def _aux_check(model, fa, shear, df_prev=None, coef=None):
     kind that ``model`` takes."""
     p = kernel_params(model)
     lib = aux_library(model)
-    names = AUX_KERNELS[lib]
+    names = aux_kernels(model)
     if (_AUX_BUILDS[lib][2] == _ZROLL) != shear:
         raise NotImplementedError(
             f"{names[0]} runs this model, not "

@@ -1,9 +1,16 @@
 """Continuity equation in the log formulation (counterpart of the lnρ branch
 of ``pencil_tpu/physics/density.py:113-157``):
 
-    Dlnρ/Dt = −∇·u [+ D₃ Σ_a ∂⁶lnρ/∂x_a⁶]
+    Dlnρ/Dt = −∇·u [+ Σ_a |u_a|δ⁶_a lnρ/(60Δ_a)]
+              [+ D_sh(shock(∇²lnρ + |∇lnρ|²) + ∇shock·∇lnρ)]
+              [+ D₃ Σ_a ∂⁶lnρ/∂x_a⁶]
 
-with the 'simplified' hyper-diffusion of lnρ (:137-149).  Initial
+with 5th-order upwinding of the advection (``lupw_lnrho``, :113), shock
+diffusion (``diffrho_shock``, :126-136; it acts only where the Shock
+module's slot exists) and the 'simplified' hyper-diffusion of lnρ
+(:137-149).  The JAX module's non-log density, ``diffrho`` and its other
+hyper-diffusion flavours are not ported: the polar, mesh and anisotropic
+ones raise.  Initial
 conditions: 'zero', 'gaussian-noise', 'piecew-poly' (:214-227) and
 'isothermal', lnρ = lnρ0 − γΦ/cs0² in the gravity's potential Φ, with
 an entropy field also the matching ss = −(cp − cv)(lnρ − lnρ0) as the
@@ -30,7 +37,8 @@ ENTROPY_ASSIGNERS = frozenset(("isothermal", "const_ss", "polytropic",
 class Density(ModuleBase):
     name: ClassVar[str] = "density"
 
-    lupw_lnrho: bool = False
+    lupw_lnrho: bool = False       # 5th-order upwinding of u·∇lnρ
+    diffrho_shock: float = 0.0     # shock diffusion of lnρ (idiff='shock')
     diffrho_hyper3: float = 0.0    # del6 hyperdiffusion (simplified flavor)
     init: str = "zero"
     ampl: float = 0.0
@@ -41,8 +49,6 @@ class Density(ModuleBase):
     diffrho_hyper3_aniso: tuple = (0.0, 0.0, 0.0)
 
     def __post_init__(self):
-        if self.lupw_lnrho:
-            raise NotImplementedError("pencil_tpu_torch: lupw_lnrho")
         if self.lhyper3_polar or self.diffrho_hyper3_mesh \
                 or any(self.diffrho_hyper3_aniso):
             raise NotImplementedError(
@@ -54,7 +60,17 @@ class Density(ModuleBase):
         reg.register("lnrho", 1, "pde")
 
     def rhs(self, pen, df, ts):
-        out = -pen.ugrad("lnrho") - pen.divu()
+        out = -pen.ugrad("lnrho", upwind=self.lupw_lnrho) - pen.divu()
+        if self.diffrho_shock > 0.0 and "shock" in pen.reg.slots:
+            # D_sh·[shock·(∇²lnρ + |∇lnρ|²) + ∇shock·∇lnρ]
+            shock = pen.field("shock")
+            gshock = pen.grad("shock")
+            gl = pen.glnrho()
+            g2 = gl[0] ** 2 + gl[1] ** 2 + gl[2] ** 2
+            gsgl = sum(gshock[a] * gl[a] for a in range(3))
+            out = out + self.diffrho_shock * (
+                shock * (pen.del2lnrho() + g2) + gsgl)
+            ts.diffus(self.diffrho_shock * shock)
         if self.diffrho_hyper3 > 0.0:
             out = out + self.diffrho_hyper3 * pen.del6s_scaled("lnrho")
             ts.diffus3(self.diffrho_hyper3)

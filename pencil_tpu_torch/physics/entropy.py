@@ -2,15 +2,20 @@
 ``pencil_tpu/physics/entropy.py`` that stratified convection and
 non-isothermal turbulence read; reference src/entropy.f90 ``denergy_dt``):
 
-    Ds/Dt = −u·∇s + (K/ρ)(∇²lnT + |∇lnT|²)
-            + cp·χ·(∇²lnT + ∇lnT·(∇lnT + ∇lnρ)) + 2νS²/T + ηJ²/(ρT)
+    Ds/Dt = −u·∇s [+ Σ_a |u_a|δ⁶_a s/(60Δ_a)] + (K/ρ)(∇²lnT + |∇lnT|²)
+            + cp·χ·(∇²lnT + ∇lnT·(∇lnT + ∇lnρ))
+            + χ_sh·(shock(∇²lnT + (∇lnρ + ∇lnT)·∇lnT) + ∇shock·∇lnT)
+            + 2νS²/T + ηJ²/(ρT)
             − cool·p_c(z)·(cs² − cs²_cool)/(cs²_cool·ρT) + L·p_h(z)/(N·ρT)
 
-with constant conductivity K ('K-const', its CFL rate χ = Kγ/(ρcp) per
-point), constant thermal diffusivity χ ('chi-const', CFL rate χγ), viscous
-heating published by Viscosity, Ohmic heating published by Magnetic, a
-gaussian cooling layer at the top and a volume-normalized gaussian heating
-layer at the bottom.
+with 5th-order upwinding of the advection (``lupw_ss``), constant
+conductivity K ('K-const', its CFL rate χ = Kγ/(ρcp) per point), constant
+thermal diffusivity χ ('chi-const', CFL rate χγ), shock heat conduction
+('shock' with ``chi_shock``, CFL rate γχ_sh·shock; it acts only where the
+Shock module's slot exists, JAX entropy.py:230-241), viscous heating
+published by Viscosity, Ohmic heating published by Magnetic, a gaussian
+cooling layer at the top and a volume-normalized gaussian heating layer
+at the bottom.
 The layer profiles depend on z alone; ``heat_cool_profiles`` computes them
 once per model, so the plain version and the kernel read the same f32
 vectors.  Every other option of the JAX module raises or has no field.
@@ -35,6 +40,8 @@ class Entropy(ModuleBase):
     iheatcond: Tuple[str, ...] = ("K-const",)
     hcond0: float = 0.0        # K for 'K-const'
     chi: float = 0.0           # χ for 'chi-const'
+    chi_shock: float = 0.0     # χ_sh for 'shock'
+    lupw_ss: bool = False      # 5th-order upwinding of u·∇s
     luminosity: float = 0.0    # bottom heating layer
     wheat: float = 0.1
     cool: float = 0.0          # top cooling layer
@@ -53,10 +60,10 @@ class Entropy(ModuleBase):
     width: float = 0.05
 
     def __post_init__(self):
-        if not set(self.iheatcond) <= {"K-const", "chi-const"}:
+        if not set(self.iheatcond) <= {"K-const", "chi-const", "shock"}:
             raise NotImplementedError(
                 f"pencil_tpu_torch: iheatcond={self.iheatcond!r} "
-                "(only K-const and chi-const)")
+                "(only K-const, chi-const and shock)")
         if self.cooling_profile != "gaussian":
             raise NotImplementedError(
                 f"pencil_tpu_torch: cooling_profile="
@@ -72,6 +79,11 @@ class Entropy(ModuleBase):
     @property
     def chi_conduction(self) -> bool:
         return "chi-const" in self.iheatcond and self.chi > 0.0
+
+    def shock_conduction(self, reg) -> bool:
+        """'shock' conduction on, in a layout with the shock slot."""
+        return ("shock" in self.iheatcond and self.chi_shock > 0.0
+                and "shock" in reg.slots)
 
     def cs2c(self, eos) -> float:
         """The cooling target: cs2cool, or cs20 when it is 0."""
@@ -98,7 +110,7 @@ class Entropy(ModuleBase):
 
     def rhs(self, pen, df, ts):
         eos = pen.eos
-        out = -pen.ugrad("ss")
+        out = -pen.ugrad("ss", upwind=self.lupw_ss)
         glnTT = pen.glnTT()
         glnTT2 = glnTT[0] ** 2 + glnTT[1] ** 2 + glnTT[2] ** 2
         if self.conduction:
@@ -110,6 +122,16 @@ class Entropy(ModuleBase):
             gdot = sum(glnTT[a] * (glnTT[a] + glnrho[a]) for a in range(3))
             out = out + eos.cp * self.chi * (pen.del2lnTT() + gdot)
             ts.diffus(self.chi * eos.gamma)
+        if self.shock_conduction(pen.reg):
+            # χ_sh·[shock·(∇²lnT + (∇lnρ+∇lnT)·∇lnT) + ∇shock·∇lnT]
+            shock = pen.field("shock")
+            gshock = pen.grad("shock")
+            glnrho = pen.glnrho()
+            g2 = sum((glnrho[a] + glnTT[a]) * glnTT[a] for a in range(3))
+            gsglnTT = sum(gshock[a] * glnTT[a] for a in range(3))
+            out = out + self.chi_shock * (
+                shock * (pen.del2lnTT() + g2) + gsglnTT)
+            ts.diffus(eos.gamma * self.chi_shock * shock)
         # viscous and Ohmic heating published by those modules
         heat = pen._cache.get("visc_heat")
         if heat is not None:

@@ -1,9 +1,11 @@
 """Momentum equation (counterpart of ``pencil_tpu/physics/hydro.py:133-238``):
 
-    Du/Dt = −∇p/ρ − 2Ω×u + (viscous, Lorentz, shear terms from their
-            own modules)
+    Du/Dt = −∇p/ρ [+ Σ_a |u_a|δ⁶_a u/(60Δ_a)] − 2Ω×u + (viscous, Lorentz,
+            shear terms from their own modules)
 
-Hydro owns advection, the pressure force, the Coriolis force (Ω at angle
+Hydro owns advection, with 5th-order upwinding of each component where
+``lupw_uu`` (JAX hydro.py:161-167, after the pressure force and before
+the Coriolis force; no CFL term), the pressure force, the Coriolis force (Ω at angle
 θ from the z axis, in degrees) and the advective CFL terms: advec_uu =
 Σ_a |u_a|·dline_1_a linearly, and cs²·Σ_a Δ_a⁻² squared."""
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .initcond import init_vector
 class Hydro(ModuleBase):
     name: ClassVar[str] = "hydro"
 
+    lupw_uu: bool = False     # 5th-order upwinding of (u·∇)u
     Omega: float = 0.0        # rotation rate
     theta: float = 0.0        # angle of Ω from the z axis, degrees
     init: str = "zero"
@@ -38,6 +41,9 @@ class Hydro(ModuleBase):
 
     def rhs(self, pen, df, ts):
         out = -pen.ugu() + pen.fpres()
+        if self.lupw_uu:
+            # +Σ_a |u_a|·δ⁶_a u/(60Δ_a) per component
+            out = out + pen.upwind("uu", pen.uu())
         if self.Omega != 0.0:
             om = self.omega_vector()
             uu = pen.uu()

@@ -1,16 +1,19 @@
 """Induction equation for the vector potential A in the resistive gauge
 (counterpart of ``pencil_tpu/physics/magnetic.py:181-254, :333-377``):
 
-    ∂A/∂t = u×B + η∇²A + η₃ Σ_a ∂⁶A/∂x_a⁶,    du/dt += J×B/ρ   (µ₀ = 1)
+    ∂A/∂t = u×B + η∇²A + η₃ Σ_a ∂⁶A/∂x_a⁶ − η_sh·shock·J,
+    du/dt += J×B/ρ   (µ₀ = 1)
 
 with the anisotropic Alfvén CFL term Σ_a (B_a·dline_1_a)²/ρ.  ``B_ext``
 is an imposed uniform field: B = ∇×A + B_ext (``Pencils.bb``, JAX
-pencils.py:682-697), which u×B, J×B/ρ and the Alfvén speed read.  With an
-entropy slot the Ohmic heating η J² goes into the pencil cache for the
-entropy module (``lohmic_heat``; JAX magnetic.py:378-380).  The JAX
-module's other options (Weyl gauge, the advective gauge, shock
-resistivity, mean-field, Hall, ...) are not ported: their fields do not
-exist here."""
+pencils.py:682-697), which u×B, J×B/ρ and the Alfvén speed read.  The
+shock resistivity ``eta_shock`` (iresistivity 'eta-shock', JAX
+magnetic.py:255-258) acts only where the Shock module's slot exists, with
+its rate η_sh·shock in the CFL.  With an entropy slot the Ohmic heating
+η J² goes into the pencil cache for the entropy module (``lohmic_heat``;
+JAX magnetic.py:378-380), without the shock term.  The JAX module's other
+options (Weyl gauge, the advective gauge, mean-field, Hall, ...) are not
+ported: their fields do not exist here."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -26,6 +29,7 @@ class Magnetic(ModuleBase):
 
     eta: float = 0.0
     eta_hyper3: float = 0.0
+    eta_shock: float = 0.0     # shock resistivity (iresistivity 'eta-shock')
     lohmic_heat: bool = True
     init: str = "zero"
     ampl: float = 0.0
@@ -42,6 +46,10 @@ class Magnetic(ModuleBase):
         if self.eta_hyper3 > 0.0:
             out = out + self.eta_hyper3 * pen.del6v_scaled("aa")
             ts.diffus3(self.eta_hyper3)
+        if self.eta_shock > 0.0 and "shock" in pen.reg.slots:
+            shock = pen.field("shock")
+            out = out - self.eta_shock * shock[None] * pen.jj()
+            ts.diffus(self.eta_shock * shock)
         accumulate(df, "aa", out)
         bb = pen.bb()
         d1 = pen.dline_1()

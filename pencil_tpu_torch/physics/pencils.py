@@ -168,10 +168,22 @@ class Pencils:
         arr = self._crop(self._slab(name), (0, 1, 2))
         return arr[0] if self.reg.slots[name].ncomp == 1 else arr
 
-    def ugrad(self, name):
-        """u·∇f for a scalar field."""
+    def ugrad(self, name, upwind=False):
+        """u·∇f for a scalar field, with ``upwind`` less the 5th-order
+        upwinding Σ_a |u_a|·δ⁶_a f/(60Δ_a) (reference der6_upwind, the
+        lupw_* flags; JAX pencils.py:341-353)."""
         uu = self.uu_advec()
-        return sum(uu[a] * self.d(name, a)[0] for a in range(3))
+        out = sum(uu[a] * self.d(name, a)[0] for a in range(3))
+        if upwind:
+            out = out - self.upwind(name, uu)[0]
+        return out
+
+    def upwind(self, name, uu):
+        """Σ_a |u_a|·δ⁶_a f/(60Δ_a) of each component of ``name``, the
+        plain 6th difference ``d6_raw`` in JAX's product order:
+        (ncomp, nx, ny, nz)."""
+        return sum(uu[a].abs() * self.d6_raw(name, a) * self._inv(a) / 60.0
+                   for a in range(3))
 
     # ---- hydro -----------------------------------------------------------
     @_memo

@@ -74,8 +74,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-# template arguments FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI of each
-# instance of pc_flagship (trailing false flags may be left out)
+# template arguments FIRST, DEFER, LAST, KICK, FAKE, ROT, H3, CHI, UPW, SHK
+# of each instance of pc_flagship (trailing false flags may be left out)
 INSTANCES = {
     "K1": (1, 0, 0, 0, 0, 0, 0), "K2": (0, 1, 0, 0, 0, 0, 0),
     "K3": (0, 0, 1, 1, 0, 0, 0), "K3nokick": (0, 0, 1, 0, 0, 0, 0),
@@ -99,8 +99,29 @@ INSTANCES = {
     # chi-const with rotation (the stratified shearing box with ss)
     "K6rotchi": (1, 0, 0, 0, 0, 1, 0, 1),
     "K7rotchi": (0, 0, 0, 0, 0, 1, 0, 1),
+    # the upwinding (UPW) of every build: the periodic builds' five
+    # kernels, the first and update kernel of the others (K1upw and
+    # K3midupw are the shock builds' K1s/K5w and the shear builds' K4/K5
+    # with it; K6upw and K7upw the z-ghosted builds', also with rotation
+    # and beside chi-const)
+    "K1upw": (1, 0, 0, 0, 0, 0, 0, 0, 1), "K2upw": (0, 1, 0, 0, 0, 0, 0, 0, 1),
+    "K3upw": (0, 0, 1, 1, 0, 0, 0, 0, 1),
+    "K3midupw": (0, 0, 0, 0, 0, 0, 0, 0, 1),
+    "K2Lupw": (0, 1, 1, 1, 0, 0, 0, 0, 1),
+    "K6upw": (1, 0, 0, 0, 0, 0, 0, 0, 1), "K7upw": (0, 0, 0, 0, 0, 0, 0, 0, 1),
+    "K6rotupw": (1, 0, 0, 0, 0, 1, 0, 0, 1),
+    "K7rotupw": (0, 0, 0, 0, 0, 1, 0, 0, 1),
+    "K6chiupw": (1, 0, 0, 0, 0, 0, 0, 1, 1),
+    "K7chiupw": (0, 0, 0, 0, 0, 0, 0, 1, 1),
+    "K4upw": (1, 0, 0, 0, 0, 1, 0, 0, 1), "K5upw": (0, 0, 0, 0, 0, 1, 0, 0, 1),
+    # the shock builds' shock diffusivities (SHK): K1s/K5w's and K4/K5's
+    # twins (the latter with rotation and del6, as the shear box runs)
+    "K1ssd": (1, 0, 0, 0, 0, 0, 0, 0, 0, 1),
+    "K5wsd": (0, 0, 0, 0, 0, 0, 0, 0, 0, 1),
+    "K4sd": (1, 0, 0, 0, 0, 1, 1, 0, 0, 1),
+    "K5sd": (0, 0, 0, 0, 0, 1, 1, 0, 0, 1),
 }
-NFLAGS = 8       # the template arguments of pc_flagship
+NFLAGS = 10      # the template arguments of pc_flagship
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template
 ZR_INSTANCES = {"zr-K4": (0, 0), "zr-K5": (1, 0), "zr-K1s": (0, 1),
                 "zr-K5w": (1, 1)}
@@ -109,7 +130,8 @@ ZR_INSTANCES = {"zr-K4": (0, 0), "zr-K5": (1, 0), "zr-K1s": (0, 1),
 def mangled(kname):
     """The parts of mangled names that pick an instance: its NFLAGS
     arguments, then, while the last is false, the names of builds from
-    before that flag (CHI, then H3: seven and six arguments)."""
+    before that flag (SHK, UPW, CHI, then H3: nine, eight, seven and six
+    arguments)."""
     if kname in ZR_INSTANCES:
         mode, wrap = ZR_INSTANCES[kname]
         return [f"pc_shearboxILi{mode}ELb{wrap}E"]
@@ -255,9 +277,11 @@ def _shape(ins):
     return march, local
 
 
-def _attrs(so, lib):
+def _attrs(so, lib, parent=False):
     """Instance name -> (registers, local bytes) of the library file ``so``
-    built for ``lib``, or {} without a CUDA device."""
+    built for ``lib``, or {} without a CUDA device; ``parent``: ``so`` is
+    built from an older source, which may lack the UPW and SHK instances
+    (indices from 128), and those it lacks are left out."""
     import ctypes
     from pencil_tpu_torch.ops import fused_rhs as fr
     try:
@@ -267,9 +291,10 @@ def _attrs(so, lib):
         out = {}
         for name, which in fr.library_instances(lib).items():
             a = (ctypes.c_int * len(fr.ATTR_KEYS))()
-            if dll.pc_flagship_attrs(which, ctypes.addressof(a)) != 0:
+            if dll.pc_flagship_attrs(which, ctypes.addressof(a)) == 0:
+                out[name] = (a[0], a[1])
+            elif not (parent and which >= 128):
                 return {}
-            out[name] = (a[0], a[1])
         return out
     except OSError:
         return {}
@@ -321,7 +346,7 @@ def compare_parent(src, libs):
                                f"{len(pairs)} differ, first at {first}: "
                                + "; ".join(f"{k}: {x} -> {y}"
                                            for k, x, y in pairs[:4]))
-        old_a, new_a = (_attrs(out_dir / f"{lib}.so", lib),
+        old_a, new_a = (_attrs(out_dir / f"{lib}.so", lib, parent=True),
                         _attrs(new[lib], lib))
         attrs = {name: (old_a.get(name), r) for name, r in new_a.items()}
         result[lib] = {"instances": len(new_f), "differ": differ,

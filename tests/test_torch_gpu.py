@@ -34,7 +34,8 @@ import torch
 import pencil_tpu_torch as pt
 from pencil_tpu_torch.configs import (conv_slab, forced_entropy,
                                      forced_hydro, shear_box, shock_box,
-                                     strat_box)
+                                     strat_box, with_shock_diffusion,
+                                     with_upwind)
 from pencil_tpu_torch.ops import fused_rhs as fr
 
 RTOL_FIELD = 2e-5
@@ -216,7 +217,8 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
     stream = torch.cuda.current_stream().cuda_stream
     assert _build.load(lib).pc_rhs_first(
         ctypes.addressof(p), fa.data_ptr(), df.data_ptr(), blk.data_ptr(),
-        stream, *(after if lib in fr.ZG_KERNELS else (None,))) == 0
+        stream, *(after if lib in fr.ZG_KERNELS else (None,)),
+        None) == 0
     torch.cuda.synchronize()
     assert bool(torch.isfinite(blk[:n]).all()) and bool((blk[:n] > 0).all())
     assert math.isnan(float(blk[n]))
@@ -670,7 +672,7 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
         df_prev.data_ptr(), coef.data_ptr(), df_out.data_ptr(),
         f_out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         zlo.data_ptr(), zhi.data_ptr(),
-        *(t.data_ptr() for t in prof)) == 0
+        *(t.data_ptr() for t in prof), None) == 0
     torch.cuda.synchronize()
     assert torch.equal(df_in, df_out) and torch.equal(f_in, f_out)
 
@@ -681,13 +683,14 @@ def test_zghost_instances_hold_no_local_memory(cuda, lib):
     those of the shear builds (K6s, K7s, K6ms, K7ms), each without and
     with rotation, chi-const and del6, and those of the builds without ss
     (K6i, K7i, K6mi, K7mi, K6si, K7si, K6msi, K7msi), each without and
-    with rotation and del6: no spill and no stack, one 256-thread block
-    per SM or more."""
+    with rotation and del6, and each build's upwinding instances (_upw)
+    beside the chi-const ones where it has them: no spill and no stack,
+    one 256-thread block per SM or more."""
     attrs = fr.flagship_attrs(lib)
     first, upd = fr.ZG_KERNELS[lib]
     chis = ("", "_chi") if lib in fr.ZG_CHI_LIBRARIES else ("",)
-    assert set(attrs) == {k + chi + h3 + rot for k in (first, upd)
-                          for chi in chis for h3 in ("", "_h3")
+    assert set(attrs) == {k + chi + flag + rot for k in (first, upd)
+                          for chi in chis for flag in ("", "_h3", "_upw")
                           for rot in ("", " rot")}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
@@ -767,7 +770,7 @@ def _aux_kernels_match_plain(cuda, cfg, rtol):
         make, kinds = sheared_fg, ("rhs_zroll", "rhs_zroll_upd")
     else:
         make, kinds = shocked_fa, ("rhs_wrap_shock", "rhs_wrap_shock_upd")
-    names = fr.AUX_KERNELS[fr.aux_library(pm)]
+    names = fr.aux_kernels(pm)
     first, upd = (getattr(fr, k) for k in kinds)
     first_p, upd_p = (getattr(fr, k + "_plain") for k in kinds)
     fg = make(pm)
@@ -941,11 +944,12 @@ def test_new_aux_steps_on_card_match_cpu(cuda, case):
     set(fr.AUX_KERNELS) - {"fused_rhs_shock", "fused_rhs_shear"}))
 def test_new_aux_instances_hold_no_local_memory(cuda, lib):
     """Every instance of the ten newer builds (first and update, with
-    and without Ω and the del6 terms): no spill and no stack, one
-    256-thread block per SM or more, its shared memory within a block's
-    227 KB."""
+    and without Ω and the del6 terms, and with and without Ω the
+    upwinding; with the shock slot each also with the shock
+    diffusivities): no spill and no stack, one 256-thread block per SM or
+    more, its shared memory within a block's 227 KB."""
     attrs = fr.flagship_attrs(lib)
-    assert len(attrs) == 8
+    assert len(attrs) == (12 if lib.endswith("_ns") else 24)
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1, (name, a)
@@ -1362,6 +1366,120 @@ def test_term_paths_on_card_match_cpu(cuda, case):
     """Three steps of each new path on the card against the same steps on
     the CPU from the same fields and forcing draws."""
     _conv_slab_steps_match(cuda, TERM_PATHS[case]((16, 16, 32)))
+
+
+# ---- upwinding and the shock diffusivities ---------------------------------------
+@pytest.mark.parametrize("omega", (0.0, 1.0), ids=("still", "rot"))
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("case", ("mhd", "hydro", "ent_mhd", "ent_hydro"))
+def test_upw_wrap_instances_match_plain(cuda, case, shape, omega):
+    """K1, K2, K3 and K2L with and without the kick, and K3′ of each
+    periodic build with the lupw flags on (the UPW instances, with Ω
+    their Coriolis UPW instances) against their plain versions, counted
+    under the launch names with _upw."""
+    cfg = with_upwind(TERM_WRAP[case](shape))
+    if omega:
+        cfg = with_omega(cfg, omega)
+    assert fr.launch_suffix(pt.Model(cfg, device="cpu")).endswith("_upw")
+    _template_instances_match_plain(cuda, cfg, RTOL_FIELD)
+
+
+@pytest.mark.parametrize("omega", (0.0, 1.0), ids=("still", "rot"))
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("build", sorted(AUX_BUILDS))
+def test_upw_aux_instances_match_plain(cuda, build, shape, omega):
+    """The first and update kernel of each shock and shear build with the
+    lupw flags on (del6 off), with and without Ω, within their builds'
+    bounds."""
+    make, rtol = BUILDS[build]
+    _aux_kernels_match_plain(cuda, with_upwind(aux_variant(
+        make(shape), omega, False)), rtol)
+
+
+@pytest.mark.parametrize("case", ("conv_slab", "rot", "mag", "mag_rot",
+                                  "shear", "mag_shear"))
+@pytest.mark.parametrize("chi", (0.0, 4e-3), ids=("K", "chi"))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_upw_zg_instances_match_plain(cuda, shape, chi, case):
+    """K6/K7, K6m/K7m, K6s/K7s and K6ms/K7ms with lnρ, u and s upwinded,
+    with and without Ω and chi-const, against their plain versions."""
+    _zghost_kernels_match_plain(cuda, conv_slab(
+        shape, upwind=True, chi=chi, **ZG_CASES[case]))
+
+
+@pytest.mark.parametrize("case", ("iso", "iso_rot", "iso_mag", "iso_shear",
+                                  "iso_mag_shear"))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_upw_iso_instances_match_plain(cuda, shape, case):
+    """K6i/K7i … K6msi/K7msi with lnρ and u upwinded against their plain
+    versions."""
+    pm = pt.Model(with_upwind(iso_cfg(shape, case)), device=cuda)
+    first_p, upd_p = fr.zg_plain(pm)
+    inp = iso_fg(pm)
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K6i upw)")
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    df2, f2 = fr.rhs_zg_upd(pm, *inp, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp, df_p.clone(), coef)
+    assert_field_close(df2, df2_p, "df (K7i upw)")
+    assert_field_close(f2, f2_p, "f (K7i upw)")
+
+
+@pytest.mark.parametrize("hyper3, upwind", ((False, False), (True, False),
+                                            (False, True)),
+                         ids=("plain", "h3", "upw"))
+@pytest.mark.parametrize("omega", (0.0, 1.0), ids=("still", "rot"))
+@pytest.mark.parametrize("build", ("shock", "shear", "shock_hydro",
+                                   "shear_hydro", "shock_hydro_ent",
+                                   "shear_hydro_ent", "shock_ent",
+                                   "shear_ent"))
+def test_shock_diffusion_instances_match_plain(cuda, build, omega, hyper3,
+                                               upwind):
+    """Every instance of the 8 builds with the shock slot with D_sh, η_sh
+    (MHD) and χ_sh (with ss) on, against its plain version at 24×20×42
+    (the UPW instances without del6)."""
+    make, rtol = BUILDS[build]
+    cfg = with_shock_diffusion(aux_variant(make((24, 20, 42)), omega,
+                                           hyper3))
+    _aux_kernels_match_plain(cuda, with_upwind(cfg) if upwind else cfg,
+                             rtol)
+
+
+# the four new paths: forced MHD turbulence and stratified convection
+# upwinded, the shocked boxes with the whole shock-capturing set
+OPTION_PATHS = {
+    "flagship_upwind": lambda s: pt.configs.flagship(s, upwind=True),
+    "conv_slab_upwind": lambda s: conv_slab(s, upwind=True),
+    "shock_box_ent_sd": lambda s: shock_box(s, entropy=True,
+                                            shock_diffusion=True),
+    "hydro_shock_box_sd": lambda s: shock_box(s, magnetic=False,
+                                              shock_diffusion=True)}
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_PATHS))
+def test_option_paths_on_card_match_cpu(cuda, case):
+    """Three steps of each new path on the card against the same steps on
+    the CPU from the same fields and forcing draws."""
+    cfg = OPTION_PATHS[case]((16, 16, 32))
+    if case.startswith("conv"):
+        _conv_slab_steps_match(cuda, cfg)
+    elif "shock" in case:
+        _steps_match(cuda, cfg, uu_noise=0.1)
+    else:
+        _steps_match(cuda, cfg)
+
+
+def test_card_refuses_upwinding_beside_hyper3(cuda):
+    """lupw flags beside a del6 coefficient raise before any launch."""
+    fr.reset_launches()
+    with pytest.raises(NotImplementedError, match="hyper3"):
+        pt.Model(pt.configs.flagship(32, hyper3=True, upwind=True),
+                 device=cuda)
+    assert not any(fr.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("which", ("flagship", "rk2", "rk4", "conv_slab",

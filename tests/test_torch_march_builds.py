@@ -106,7 +106,9 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
     layout (PC_MAG left at 1), each with the shock builds' four entry
     points, a Coriolis instance (+16), a del6 one (+32, launch names with
     _h3) and a chi-const one (+64, launch names with _chi) of both
-    kernels, each with or without the others; the 4x4x16 zghost template
+    kernels, each with or without the others, and an upwinding one (+128,
+    launch names with _upw) with or without Coriolis and chi-const, never
+    beside del6; the 4x4x16 zghost template
     is gone from the build and from csrc/."""
     libs = _build.LIBRARIES
     assert libs["fused_rhs_zg"] == ("fused_rhs.cu", (
@@ -133,7 +135,11 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
             upd + "_h3 rot": 56, first + "_chi": 64, upd + "_chi": 72,
             first + "_chi rot": 80, upd + "_chi rot": 88,
             first + "_chi_h3": 96, upd + "_chi_h3": 104,
-            first + "_chi_h3 rot": 112, upd + "_chi_h3 rot": 120}
+            first + "_chi_h3 rot": 112, upd + "_chi_h3 rot": 120,
+            first + "_upw": 128, upd + "_upw": 136,
+            first + "_upw rot": 144, upd + "_upw rot": 152,
+            first + "_chi_upw": 192, upd + "_chi_upw": 200,
+            first + "_chi_upw rot": 208, upd + "_chi_upw rot": 216}
         for sfx in ("", "_chi", "_h3", "_chi_h3"):
             assert first + sfx in fr.LAUNCHES and upd + sfx in fr.LAUNCHES
 
@@ -141,13 +147,27 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
 @pytest.mark.parametrize("lib", sorted(fr.AUX_KERNELS))
 def test_shock_builds_have_their_two_kernels(lib):
     """pc_flagship_attrs of a shock build: its first and update kernel,
-    each without and with rotation (+16) and the del6 terms (+32)."""
+    each without and with rotation (+16) and the del6 terms (+32), and
+    with and without rotation the upwinding (+128); with the shock slot
+    the shock diffusivities' twin of each (+256), counted under its
+    launch name with the suffix _sd."""
     first, upd = fr.AUX_KERNELS[lib]
-    assert fr.library_instances(lib) == {
+    want = {
         first: 0, upd: 8, first + " rot": 16, upd + " rot": 24,
         first + " h3": 32, upd + " h3": 40, first + " rot h3": 48,
-        upd + " rot h3": 56}
-    assert first in fr.LAUNCHES and upd in fr.LAUNCHES
+        upd + " rot h3": 56, first + "_upw": 128, upd + "_upw": 136,
+        first + "_upw rot": 144, upd + "_upw rot": 152}
+    sds = ("",)
+    if "_ns" not in lib:
+        sds = ("", "_sd")
+        for k, v in list(want.items()):
+            name, _, rest = k.partition(" ")
+            want[(name + "_sd " + rest).rstrip()] = v + 256
+    assert fr.library_instances(lib) == want
+    for upw in ("", "_upw"):
+        for sd in sds:
+            assert first + upw + sd in fr.LAUNCHES
+            assert upd + upw + sd in fr.LAUNCHES
 
 
 class _Recorder:

@@ -180,7 +180,7 @@ def test_unsupported_configs_raise_on_every_device(over):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        pt.Density(lupw_lnrho=True)
+        pt.Density(lhyper3_polar=True)
     with pytest.raises(NotImplementedError):
         pt.Viscosity(ivisc=("nu-shock",))
     with pytest.raises(NotImplementedError):

@@ -80,6 +80,37 @@ def fcont_rundir(d, nt=4):
                                    fcont=("ABC", 0.1, 1.0))
 
 
+def upwind_rundir(d, nt=4):
+    """conv-slab's shape (velocity noise of 1e-2) with the advection of
+    lnρ, u and s upwinded: lupw_lnrho, lupw_uu, lupw_ss."""
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="1e-2"), [
+        ("run.in", "&hydro_run_pars\n/\n&density_run_pars\n/\n",
+         "&hydro_run_pars\n  lupw_uu=T\n/\n"
+         "&density_run_pars\n  lupw_lnrho=T\n/\n"),
+        ("run.in", "hcond0=8e-3, ", "hcond0=8e-3, lupw_ss=T, ")])
+
+
+def shock_rundir(d, nt=4):
+    """helical-MHDturb's shape with an entropy field (γ = 5/3, chi-const
+    χ = 1e-3) and the whole shock-capturing set: the Shock module,
+    nu-shock, diffrho_shock, the shock resistivity (iresistivity
+    'eta-shock') and shock conduction (iheatcond 'shock'), each 1."""
+    return _edited(helical_rundir(d, nt=nt), [
+        ("src/Makefile.local", "ENTROPY = noentropy",
+         "ENTROPY = entropy\nSHOCK = shock"),
+        ("start.in", "cs0=1., gamma=1.", "cs0=1., gamma=1.6666667, cp=1."),
+        ("start.in", "&density_init_pars\n/\n",
+         "&density_init_pars\n/\n&entropy_init_pars\n/\n"),
+        ("run.in", "&density_run_pars\n/\n",
+         "&density_run_pars\n  diffrho_shock=1.\n/\n"
+         "&entropy_run_pars\n  iheatcond='chi-const','shock', chi=1e-3, "
+         "chi_shock=1.\n/\n"),
+        ("run.in", "  eta=5e-3", "  eta=5e-3, iresistivity='eta-const',"
+         "'eta-shock', eta_shock=1."),
+        ("run.in", "nu=5e-3, ivisc='nu-const'",
+         "nu=5e-3, nu_shock=1., ivisc='nu-const','nu-shock'")])
+
+
 RUNDIRS = {"helical": (helical_rundir, HELICAL_N, "flagship"),
            "conv": (conv_rundir, CONV_N, "conv_slab")}
 
@@ -239,6 +270,33 @@ def test_loader_maps_b_ext_and_fcont_as_jax(tmp_path, name):
                                      gs.z0 + gs.Lz)
 
 
+@pytest.mark.parametrize("name", ("upwind", "shock"))
+def test_loader_maps_upwinding_and_shock_diffusion_as_jax(tmp_path, name):
+    """lupw_lnrho, lupw_uu, lupw_ss and diffrho_shock, eta_shock (with
+    iresistivity 'eta-shock') and chi_shock (with iheatcond 'shock') map
+    as JAX's loader maps them (pencil_tpu/compat/rundir.py:720-724, :953,
+    :1199-1205, :1509-1518): every field the two modules share equal."""
+    d = {"upwind": upwind_rundir, "shock": shock_rundir}[name](tmp_path / "r")
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    mods = ("density", "hydro", "entropy", "magnetic", "viscosity")
+    for mod in mods:
+        mine, ref = cfg.module(mod), jcfg.module(mod)
+        assert (mine is None) == (ref is None), mod
+        for f in dataclasses.fields(mine) if mine is not None else ():
+            assert getattr(mine, f.name) == getattr(ref, f.name), \
+                (mod, f.name)
+    den, hyd, ent = (cfg.module(m) for m in ("density", "hydro", "entropy"))
+    if name == "upwind":
+        assert den.lupw_lnrho and hyd.lupw_uu and ent.lupw_ss
+        assert pt.Model(cfg, device="cpu").mode == "zghost"
+    else:
+        assert den.diffrho_shock == cfg.module("magnetic").eta_shock \
+            == ent.chi_shock == 1.0 and "shock" in ent.iheatcond
+        assert cfg.module("shock") is not None
+        assert pt.Model(cfg, device="cpu").mode == "wrap_aux"
+
+
 def test_replay_keeps_the_continuous_forcing(tmp_path):
     """A run directory with the reference's forcing draws (k.dat) and
     continuous forcing replays the draws and keeps the continuous term;
@@ -331,8 +389,8 @@ REFUSED = {
                          "&magn_mf_run_pars\n  alpha_effect=1.\n/\n",
                          "magn_mf"),
     # values the port's modules do not take
-    "lupw_lnrho": ("helical", "run.in",
-                   "&density_run_pars\n  lupw_lnrho=T\n/\n", "lupw_lnrho"),
+    "diffrho": ("helical", "run.in",
+                "&density_run_pars\n  diffrho=1e-3\n/\n", "diffrho"),
     "iheatcond": ("conv", "run.in",
                   ("iheatcond='K-const'", "iheatcond='chi-therm'"),
                   "iheatcond"),
@@ -366,8 +424,9 @@ REFUSED = {
     "iforce": ("helical", "run.in", ("iforce='helical'", "iforce='irrot'"),
                "iforce"),
     "bc_mnemonic": ("conv", "run.in", ("'c1:cT'", "'c1:cT2'"), "cT2"),
-    "lupw_uu": ("helical", "run.in",
-                "&hydro_run_pars\n  lupw_uu=T\n/\n", "lupw_uu"),
+    "iresistivity": ("helical", "run.in",
+                     ("eta=5e-3", "eta=5e-3, iresistivity='eta-zdep'"),
+                     "iresistivity"),
     "zeta": ("helical", "run.in", ("nu=5e-3,", "nu=5e-3, zeta=1e-3,"),
              "zeta"),
     "weno": ("helical", "run.in", ("itorder=3", "itorder=3, "
@@ -387,8 +446,8 @@ REFUSED = {
                        "lshearadvection_as_shift"),
     "sshear": ("helical", "run.in", "&shear_run_pars\n  Sshear=-1.\n/\n",
                "sshear"),
-    "chi_shock": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
-                                     "chi_shock=1."), "chi_shock"),
+    "chi_hyper3": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                      "chi_hyper3=1e-6"), "chi_hyper3"),
 }
 
 

@@ -4,7 +4,10 @@ two run directories of tests/test_torch_rundir.py (helical MHD turbulence
 with the reference's forcing draws replayed, on the port's K1-K3 chain;
 stratified convection on K6/K7) and two of the first one's shape, in an
 imposed field (``B_ext``) and driven by continuous forcing ('ABC', the
-helical kicks off), started and run by both command lines,
+helical kicks off), started and run by both command lines, and two the
+loader refused before: the convection directory with lupw_lnrho,
+lupw_uu and lupw_ss, and the first one's shape with ss and the shock
+diffusivities beside nu-shock (started and run only),
 the port's chain on its kernels' plain versions, the JAX package on its
 jnp path (its loader's Config is not fused); the reference-layout data
 directory that both ``export`` commands write; and RELOAD, which re-reads
@@ -35,7 +38,7 @@ from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
 from test_torch_rundir import (bext_rundir, conv_rundir, fcont_rundir,
-                               helical_rundir)
+                               helical_rundir, shock_rundir, upwind_rundir)
 
 torch.set_num_threads(1)
 
@@ -58,7 +61,12 @@ def both_runs(request, tmp_path_factory):
 
 
 def test_cli_state_matches_jax(both_runs):
-    mine, ref = both_runs
+    assert_states_match(*both_runs)
+
+
+def assert_states_match(mine, ref, skip=()):
+    """The final var.npz of the two run directories: it, t and dt, and
+    every field but those of ``skip`` within 2e-5 × its max."""
     got = pread.var("var.npz", os.path.join(mine, "data"))
     with np.load(os.path.join(ref, "data", "var.npz")) as z:
         want = {k[6:]: z[k] for k in z.files if k.startswith("field_")}
@@ -68,9 +76,29 @@ def test_cli_state_matches_jax(both_runs):
     assert want.keys() == {k for k in vars(got) if k not in ("t", "dt",
                                                              "it")}
     for k, w in want.items():
+        if k in skip:
+            continue
         g = getattr(got, k)
         assert g.shape == w.shape
         assert np.abs(g - w).max() <= 2e-5 * np.abs(w).max(), k
+
+
+@pytest.mark.parametrize("name", ("upwind", "shock"))
+def test_cli_runs_upwinding_and_shock_diffusion(tmp_path, name):
+    """Run directories the loader refused before: conv-slab's shape with
+    lupw_lnrho, lupw_uu and lupw_ss (the port's K6/K7 chain), and
+    helical-MHDturb's shape with ss and the whole shock-capturing set,
+    diffrho_shock, eta_shock and chi_shock beside nu-shock (the chain of
+    K1se/K5wse), started and run by both command lines; the port's
+    final state against JAX's jnp path (the stored shock slot left out:
+    JAX's jnp path keeps its zeros there, ROADMAP Queue 3)."""
+    mine = {"upwind": upwind_rundir, "shock": shock_rundir}[name](
+        tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref), skip=("shock",))
 
 
 def _last_digit(text):

@@ -6,6 +6,8 @@ process on one card.
     python3 time_loader_variants.py [VARIANT ...] [--n 256] [--reps 2]
                                     [--lib fused_rhs] [--parent-tree DIR]
                                     [--steps] [--bitwise]
+    python3 time_loader_variants.py --option upwind|shock ... [--lib all]
+                                    [--n 256]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
 package's) and -D definitions for it, e.g. ``:PC_PD=1`` or
@@ -58,7 +60,26 @@ bit for bit) and timed by CUDA events over 20 launches, the variants in
 turns
 (v1, v2, ..., then again) ``--reps`` times, the SM clock and the power
 draw sampled meanwhile.  Prints one line per kernel and variant and,
-last, one JSON object.  Needs a CUDA device; imports no JAX.
+last, one JSON object.
+
+``--option`` times one build's kernels (``--lib``, any of the
+template's 24 libraries, or ``all``) with an option on against the same
+kernels with it off, instead of variants: the upwinding (``upwind``:
+lupw_lnrho, lupw_uu, lupw_ss, the UPW instances of every build) or the
+shock diffusivities (``shock``: diffrho_shock, eta_shock, chi_shock, the
+SHK instances of the 8 builds with the shock slot).  Each build runs
+chip_smoke.py's configuration of it (the periodic builds'
+TEMPLATE_PATHS sets, the shock and shear builds' AUX_PATHS sets without
+del6, the z-ghosted builds' conv_slab and strat_box sets, the sheared
+ones at Ω = 1 from t = T_SHEAR), as it is and through ``configs``'
+``with_upwind`` or ``with_shock_diffusion``, on chip_smoke.py's noisy
+inputs at n³.  Each kernel with the option on is checked against its
+plain version (chip_smoke.py's bounds at 256³), then every kernel is
+timed by CUDA events over 20 launches, off, on, on, off, and the
+registers and local bytes of both instances printed
+(``pc_flagship_attrs``).  One line per build, then one JSON object.
+
+Needs a CUDA device; imports no JAX.
 """
 import argparse
 import concurrent.futures
@@ -159,6 +180,170 @@ def kernel_pair(fr, model, names, inp, scratch, df1, coef, wrappers):
             {names[1]: lambda: upd(model, *inp, df1.clone(), coef)})
 
 
+def agree(cs, what, got, want, rtol):
+    """Check a kernel's outputs against its plain version's: a 0-d CFL
+    maximum within RTOL_DT relative, each field within ``rtol`` × its max
+    (None: bit for bit)."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        if a.ndim == 0:
+            r = abs(float(a) / float(b) - 1.0)
+            cs.check(r <= cs.RTOL_DT, f"{what}: dt rel err {r}")
+        elif rtol is None:
+            cs.check(torch.equal(a, b), f"{what}: not exact")
+        else:
+            r = cs.rel_err(a, b)[1]
+            cs.check(r <= rtol, f"{what}: rel err {r}")
+
+
+def option_builds(pt, cs, fr, shape):
+    """library -> (label, configuration) of every build of the template,
+    found through the wrappers' own library lookup."""
+    out = {}
+    for name in cs.TEMPLATE_PATHS:
+        if not name.endswith(" h3"):
+            cfg = cs.template_cfg(pt, name, shape)
+            out[fr.flagship_library(pt.Model(cfg, device="cpu"))] = (
+                name, cfg)
+    for label in cs.AUX_PATHS:
+        cfg = cs.aux_cfg(pt, label, shape)
+        cfg = cs.aux_variant(pt, cfg, cfg.module("hydro").Omega, False)
+        if cfg.module("shear") is not None:
+            cfg = cfg.replace(time=pt.TimeSpec(itorder=3,
+                                               tstart=cs.T_SHEAR))
+        out[fr.aux_library(pt.Model(cfg, device="cpu"))] = (label, cfg)
+    for kw in ({}, dict(magnetic=True), dict(shear=True, Omega=1.0),
+               dict(magnetic=True, shear=True, Omega=1.0)):
+        cfg = pt.configs.conv_slab(shape, **kw)
+        if kw.get("shear"):
+            cfg = cfg.replace(time=pt.TimeSpec(itorder=3,
+                                               tstart=cs.T_SHEAR))
+        out[fr.zg_library(pt.Model(cfg, device="cpu"))] = (
+            f"conv-slab {kw}", cfg)
+    for iso, kw in cs.ISO_SETS.items():
+        cfg = cs.strat_cfg(pt, shape, **kw)
+        out[fr.zg_library(pt.Model(cfg, device="cpu"))] = (
+            f"isothermal stratified {iso}", cfg)
+    return out
+
+
+def option_kernels(torch, cs, fr, model, shape):
+    """(kernel kind -> fn(model), kind -> (fn(model) of the check, plain
+    fn(model))) of ``model``'s build on one noisy input at ``shape``: the
+    periodic builds' K1, K2, K3 and K2L with the kick and K3′, the
+    others' first and update kernel."""
+    if model.mode == "wrap":
+        fa = cs.random_fa(torch, shape, 1, torch.device("cuda"),
+                          model.reg.nvar)
+        df1, dt1m = fr.rhs_first_plain(model, fa)
+        _, beta, _ = model.rk
+        dt = 1.0 / dt1m
+        c2 = torch.stack((model._alpha[1], beta[1] * dt, beta[0] * dt))
+        c3 = torch.stack((model._alpha[2], beta[2] * dt, beta[1] * dt))
+        kick = model.forcing.kick_vector(model._ftables, model._draws(), dt,
+                                         model.eos)
+        scratch = df1.clone()
+        args = {"rhs_first": (fa,), "rhs_tail_defer": (fa, df1, c2),
+                "rhs_tail_last": (fa, df1, c3, kick),
+                "rhs_tail_defer_last": (fa, df1, c3, kick)}
+        timed = {k: lambda m, k=k, a=a: getattr(fr, k)(m, *a)
+                 for k, a in args.items()}
+        checked = {k: (fn, lambda m, k=k, a=args[k]: getattr(
+            fr, k + "_plain")(m, *a)) for k, fn in timed.items()}
+        timed["rhs_tail_mid"] = lambda m: fr.rhs_tail_mid(m, fa, scratch, c3)
+        checked["rhs_tail_mid"] = tuple(
+            lambda m, fn=fn: fn(m, fa, df1.clone(), c3)
+            for fn in (fr.rhs_tail_mid, fr.rhs_tail_mid_plain))
+        return timed, checked
+    if model.mode == "zghost":
+        inp = cs.zg_input(torch, model, 3)
+        first, upd = fr.rhs_zg, fr.rhs_zg_upd
+        first_p, upd_p = fr.zg_plain(model)
+    else:
+        inp = (cs.aux_input(torch, model, 3),)
+        first, upd = ((fr.rhs_zroll, fr.rhs_zroll_upd) if model.mode
+                      == "zroll" else (fr.rhs_wrap_shock,
+                                       fr.rhs_wrap_shock_upd))
+        first_p, upd_p = (getattr(fr, k.__name__ + "_plain")
+                          for k in (first, upd))
+    df1, dt1m = first_p(model, *inp)
+    coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
+    scratch = df1.clone()
+    timed = {"first": lambda m: first(m, *inp),
+             "update": lambda m: upd(m, *inp, scratch, coef)}
+    checked = {"first": (timed["first"], lambda m: first_p(m, *inp)),
+               "update": (lambda m: upd(m, *inp, df1.clone(), coef),
+                          lambda m: upd_p(m, *inp, df1.clone(), coef))}
+    return timed, checked
+
+
+def time_options(args, smi):
+    """The ``--option`` mode: each build's kernels with each option on
+    against the same kernels with it off."""
+    import torch
+    import chip_smoke as cs
+    import pencil_tpu_torch as pt
+    import pencil_tpu_torch.configs  # noqa: F401  (pt.configs)
+    from pencil_tpu_torch.ops import _build
+    from pencil_tpu_torch.ops import fused_rhs as fr
+
+    _build.start()
+    shape = (args.n,) * 3
+    builds = option_builds(pt, cs, fr, shape)
+    libs = list(_build.LIBRARIES) if args.lib == "all" else [args.lib]
+    result = {}
+    for option in args.option:
+        turn = {"upwind": pt.configs.with_upwind,
+                "shock": pt.configs.with_shock_diffusion}[option]
+        for lib in libs:
+            label, cfg = builds[lib]
+            if option == "shock" and cfg.module("shock") is None:
+                continue
+            models = {"off": pt.Model(cfg, device="cuda"),
+                      "on": pt.Model(turn(cfg), device="cuda")}
+            timed, checked = option_kernels(torch, cs, fr, models["on"],
+                                            shape)
+            for kind, (kern, plain) in checked.items():
+                agree(cs, f"{lib} {option} {kind}", kern(models["on"]),
+                      plain(models["on"]), cs.RTOL_FIELD)
+            times = cs.in_turns(torch, models, timed)
+            # each state's instances: those under the launch names its
+            # kernels counted, with rotation where Ω ≠ 0, as
+            # pc_flagship_attrs reports them
+            attrs = fr.flagship_attrs(lib)
+            regs = {}
+            for state, m in models.items():
+                fr.reset_launches()
+                for fn in timed.values():
+                    fn(m)
+                launched = {k for k, v in fr.LAUNCHES.items() if v}
+                rot = bool(m.cfg.module("hydro").Omega)
+                regs[state] = {
+                    n: (a["registers"], a["local_bytes"])
+                    for n, a in attrs.items()
+                    if n.split()[0] in launched
+                    and set(n.split()[1:]) <= {"kick", "rot"}
+                    and ("rot" in n.split()) == rot}
+            result[f"{option} {lib}"] = {
+                f"{kind} {state}": ts for (kind, state), ts in times.items()}
+            print(f"time_loader_variants --option {option} {lib} ({label}) "
+                  f"at {shape} on {smi}, in turns (off, on, on, off): "
+                  + "; ".join(f"{kind} {state} " + ", ".join(
+                      f"{t:.4f}" for t in ts) + " ms"
+                      for (kind, state), ts in times.items())
+                  + "; (registers, local bytes): " + "; ".join(
+                      f"{state} " + ", ".join(f"{n} {r}" for n, r in
+                                              regs[state].items())
+                      for state in models), flush=True)
+            del models, timed, checked
+            torch.cuda.empty_cache()
+    print(json.dumps({"device": smi, "shape": shape, "ms": result}),
+          flush=True)
+    return 0
+
+
 def host_ms(torch, fn, n):
     """Mean ms the host takes to issue fn() over n calls (after one
     warm-up), not waiting for the device."""
@@ -177,7 +362,9 @@ def main():
     ap.add_argument("variants", nargs="*", default=[""])
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--reps", type=int, default=2)
-    ap.add_argument("--lib", default="fused_rhs", choices=LIBS)
+    ap.add_argument("--lib", default="fused_rhs",
+                    help=f"one of {', '.join(LIBS)}; with --option any "
+                    "library of the template, or 'all'")
     ap.add_argument("--parent-tree", metavar="DIR")
     ap.add_argument("--terms", action="store_true",
                     help="with a periodic build: its configuration with "
@@ -190,7 +377,12 @@ def main():
                     help="with a shock or z-ghosted build: time its "
                     "path's whole step (the shock pre-pass, fills and "
                     "both kernels) per variant too")
+    ap.add_argument("--option", nargs="+", choices=("upwind", "shock"),
+                    help="time each option on against off, in place of "
+                    "variants")
     args = ap.parse_args()
+    if not args.option and args.lib not in LIBS:
+        ap.error(f"--lib: one of {', '.join(LIBS)}")
     import torch
     if not torch.cuda.is_available():
         print("time_loader_variants: no CUDA device", file=sys.stderr)
@@ -211,6 +403,8 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    if args.option:
+        return time_options(args, smi)
     pp = load_parent(args.parent_tree) if args.parent_tree else None
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         pbuild = pool.submit(pp.ops._build.build) if pp else None
@@ -225,6 +419,12 @@ def main():
         for inst, which in fr.library_instances(args.lib).items():
             a = (ctypes.c_int * len(fr.ATTR_KEYS))()
             rc = lib.pc_flagship_attrs(which, ctypes.addressof(a))
+            if rc == 1 and which >= 128 and spec.lstrip("~").partition(
+                    ":")[0]:
+                # a variant of another source may predate the UPW and SHK
+                # instances (an invalid value); the package's has them all
+                print(f"variant {spec!r} {inst}: not built", flush=True)
+                continue
             cs.check(rc == 0, f"{spec} {inst}: pc_flagship_attrs {rc}")
             print(f"variant {spec or 'default'!r} {inst} on {smi}: "
                   + ", ".join(f"{k} {v}" for k, v in zip(fr.ATTR_KEYS, a)),
@@ -375,14 +575,9 @@ def main():
             if k.startswith("step"):
                 continue
             got = variant_fresh[spec].get(k, fn)()
-            got = [t for t in (got if isinstance(got, tuple) else (got,))
-                   if t.ndim]
-            for a, b in zip(got, want[k]):
-                if rtol[k] is None:
-                    cs.check(torch.equal(a, b), f"{spec} {k}: not exact")
-                else:
-                    cs.check(cs.rel_err(a, b)[1] <= rtol[k],
-                             f"{spec} {k}: rel err {cs.rel_err(a, b)}")
+            got = tuple(t for t in (got if isinstance(got, tuple)
+                                    else (got,)) if t.ndim)
+            agree(cs, f"{spec} {k}", got, tuple(want[k]), rtol[k])
             if args.bitwise:
                 ref = first_out.setdefault(k, got)
                 same = all(torch.equal(a, b) for a, b in zip(got, ref))
@@ -436,4 +631,11 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        # a failure stops the nvcc runs still going
+        build = sys.modules.get("pencil_tpu_torch.ops._build")
+        if build is not None:
+            build.cancel()
+    sys.exit(rc)
