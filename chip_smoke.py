@@ -40,7 +40,13 @@ the shock slot (K4e, K5e; K4ne, K5ne), and the upwinding of the advection
 ``*_upw``) on the flagship and the conv-slab, and the shock diffusivities
 (``shock_box(n, shock_diffusion=True)``: D_sh, with Magnetic η_sh, with
 ss χ_sh; the SHK instances, launch names ``*_sd``) on the shocked boxes,
-MHD with ss and hydro.
+MHD with ss and hydro, and stratified convection and magnetoconvection
+with the Shock module's slot between the walls (``conv_slab(n,
+shock=True)``: ν_sh; kernels K6k, K7k and, with Magnetic and chi-const,
+K6mk, K7mk, launch names ``rhs_zg_shock*``, ``rhs_zg_mag_shock*``, each
+also with the shock diffusivities, ``*_sd``, on the z-ghosted builds with
+the shock slot) and the shocked box with the 'highorder' profile
+(``shock_box(n)`` with ``Shock(variant="highorder")``, K1s and K5w).
 
     python3 chip_smoke.py
 
@@ -78,7 +84,11 @@ Phases, each printing its own lines:
      the 24 builds with the three lupw flags on (with and without Ω and,
      with ss, chi-const) and every instance of the 8 builds with the
      shock slot with the three shock diffusivities on (with and without
-     Ω, del6 and the upwinding) at 24×20×42, the four periodic builds'
+     Ω, del6 and the upwinding) at 24×20×42, every instance of the two
+     z-ghosted builds with the shock slot (with and without Ω, chi-const,
+     the upwinding and the shock diffusivities) at 64³ and 24×20×42 and
+     their plain and SHK ones at 32×64×128 and 16×24×40, the four periodic
+     builds'
      H3 instances with and
      without Ω at 64³, 32×64×128 and 24×20×42 (each field
      within 2e-5 × its max, and within 1e-6 for K1s, K5w, K3′, K2L, K8,
@@ -102,8 +112,10 @@ Phases, each printing its own lines:
      and forced stratified turbulence in a periodic box (MHD and hydro),
      the imposed-field flagship, the ABC-flow dynamo, the Roberts flow and
      the NEMPI box, the upwinded flagship and conv-slab, the shocked
-     boxes with the shock diffusivities (MHD with ss, hydro), the hydro
-     shock box,
+     boxes with the shock diffusivities (MHD with ss, hydro), the shocked
+     conv-slab and magnetoconvection with chi-const, each with and
+     without the shock diffusivities, the shocked box with the 'highorder'
+     profile, the hydro shock box,
      the three other shear-box layouts, the three hydro layouts with ss
      and the three MHD layouts with ss);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
@@ -150,7 +162,13 @@ Phases, each printing its own lines:
      whole shock-capturing set (shock_box(256, entropy=True,
      shock_diffusion=True): one K1se and two K5wse SHK; shock_box(256,
      magnetic=False, shock_diffusion=True): one K1sh and two K5wh SHK),
-     and the K8 chain (Model(fake_rhs=True))
+     the shocked conv-slab (conv_slab(256, shock=True), with and without
+     with_shock_diffusion: one K6k and two K7k, or their SHK instances, a
+     step) and magnetoconvection (conv_slab(256, magnetic=True,
+     shock=True, chi=4e-3), likewise: one K6mk and two K7mk, CHI or CHI
+     and SHK, a step), each in 3 windows, the shocked box with the
+     'highorder' profile (shock_box(256) with Shock(variant="highorder"):
+     one K1s and two K5w a step), and the K8 chain (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
      checkpoint every 20, every chunk of steps under the sync debug mode
@@ -206,8 +224,12 @@ Phases, each printing its own lines:
      final state; the upwinded paths' UPW kernels checked and timed
      against their plain versions and in turns with the flagship's K1-K3
      and the conv-slab's K6/K7, the shocked boxes with the shock
-     diffusivities in turns with the same kernels without them; for each
-     instance of the flagship template (csrc/fused_rhs.cu, all 24
+     diffusivities in turns with the same kernels without them; the
+     shocked conv-slab paths' K6k/K7k and K6mk/K7mk (with and without
+     SHK) checked and timed against their plain versions, in turns with
+     K6/K7 and K6m/K7m, and their step split (the three shock pre-passes a
+     part); the 'highorder' shocked box's K1s/K5w and its pre-pass; for
+     each instance of the flagship template (csrc/fused_rhs.cu, all 26
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
@@ -340,13 +362,20 @@ ZG_UPW_KERNELS = tuple(k + "_upw" for k in ZGHOST_KERNELS)
 # K1sh/K5wh
 SD_KERNELS = tuple(k + "_sd" for label in ("shock box ent", "hydro shock box")
                    for k in AUX_NAMES[label])
+# the z-ghosted builds with the shock slot on the phase-3 paths: K6k/K7k
+# (ν_sh) and K6mk/K7mk with chi-const, each with and without the shock
+# diffusivities (SHK, _sd)
+ZG_SHOCK_KERNELS = tuple(k + sfx + sd for sfx in ("_shock", "_mag_shock_chi")
+                         for sd in ("", "_sd")
+                         for k in ("rhs_zg", "rhs_zg_upd"))
 KERNEL_NAMES = (FLAGSHIP_KERNELS + TAIL_KERNELS + FAKE_KERNELS
                 + HYDRO_KERNELS + ENT_KERNELS + HYDRO_ENT_KERNELS
                 + ZROLL_KERNELS + SHOCK_KERNELS + ZGHOST_KERNELS
                 + ZGHOST_MAG_KERNELS + H3_KERNELS + CHI_KERNELS
                 + NEW_AUX_KERNELS + ZG_H3_KERNELS + ZG_SHEAR_KERNELS
                 + ZG_ISO_KERNELS + ZG_ISO_H3_KERNELS + ZG_SHEAR_CHI_KERNELS
-                + UPW_KERNELS + ZG_UPW_KERNELS + SD_KERNELS)
+                + UPW_KERNELS + ZG_UPW_KERNELS + SD_KERNELS
+                + ZG_SHOCK_KERNELS)
 # the phase-3 paths on the flagship template: name -> launch suffix; " h3"
 # the same set with del6 hyper-diffusion (its H3 instances)
 TEMPLATE_PATHS = {"flagship": "", "forced hydro": "_hydro",
@@ -371,7 +400,25 @@ CONV_SLAB_PATHS = {
                                       shear=True),
     "forced conv-slab": dict(forcing=FORCE),
     # stratified convection with lnρ, u and s upwinded: K6/K7 UPW
-    "conv-slab upwind": dict(upwind=True)}
+    "conv-slab upwind": dict(upwind=True),
+    # supersonic stratified convection and magnetoconvection with shocks
+    # (ν_sh = 1), the latter with chi-const, each also with the shock
+    # diffusivities (a label ending in " sd": with_shock_diffusion):
+    # K6k/K7k, K6mk/K7mk and their SHK instances
+    "shocked conv-slab": dict(shock=True),
+    "shocked conv-slab sd": dict(shock=True),
+    "shocked magnetoconvection chi": dict(magnetic=True, shock=True,
+                                          chi=CHI),
+    "shocked magnetoconvection chi sd": dict(magnetic=True, shock=True,
+                                             chi=CHI)}
+# each shocked conv-slab path's counterpart without the slot, timed in
+# turns with it in phase 4, and the phase-3 label of its launch names
+ZG_SHOCK_COUNTERPART = {"shocked conv-slab": "conv-slab",
+                        "shocked conv-slab sd": "conv-slab",
+                        "shocked magnetoconvection chi":
+                            "magnetoconvection chi",
+                        "shocked magnetoconvection chi sd":
+                            "magnetoconvection chi"}
 # the isothermal stratified layer's paths of phase 3: label -> strat_box
 # keyword arguments (the MRI box: Magnetic, Shear, g_z = −z, Ω = 1)
 STRAT_PATHS = {
@@ -431,6 +478,9 @@ SHOCK_DIFFUSION_PATHS = {
 # phase 4
 OPTION_COUNTERPART = {"shock box ent sd": "shock box ent",
                       "hydro shock box sd": "hydro shock box"}
+# the shocked box with the Shock module's 'highorder' profile on K1s/K5w
+# (aux_cfg swaps the profile in), a label as AUX_PATHS's
+SHOCK_VARIANT_PATHS = {"shock box highorder": ("shock_box", {}, "")}
 # B_ext and the continuous forcing on every build in phase 2: an imposed
 # field along no axis, of the size of the noise's curl A, and the four
 # profiles taken in turn across the builds
@@ -496,6 +546,10 @@ PER_STEP["conv-slab upwind"] = {"rhs_zg_upw": 1, "rhs_zg_upd_upw": 2}
 PER_STEP.update({label: {k + "_sd": n for k, n in
                          PER_STEP[OPTION_COUNTERPART[label]].items()}
                  for label in SHOCK_DIFFUSION_PATHS})
+PER_STEP.update({label: {first: 1, upd: 2} for label, (first, upd) in zip(
+    (k for k in CONV_SLAB_PATHS if k.startswith("shocked")),
+    zip(ZG_SHOCK_KERNELS[::2], ZG_SHOCK_KERNELS[1::2]))})
+PER_STEP["shock box highorder"] = PER_STEP["shock box"]
 # the other template paths launch the flagship's kernels of their builds
 for _name, _sfx in TEMPLATE_PATHS.items():
     for _order in ("", " rk4", " rk2"):
@@ -541,6 +595,11 @@ REPLACES.update({k + "_upw": REPLACES[k]
                  for k in FLAGSHIP_KERNELS + ZGHOST_KERNELS})
 # the SHK instances the same calls, traced with the shock diffusivities
 REPLACES.update({k: REPLACES[k[:-len("_sd")]] for k in SD_KERNELS})
+# the z-ghosted builds with the shock slot replace the zghost calls,
+# traced with the Shock module (and Magnetic, chi-const, the shock
+# diffusivities)
+REPLACES.update({k: REPLACES[k.split("_shock")[0].replace("_mag", "")]
+                 for k in ZG_SHOCK_KERNELS})
 # every kernel is an instance of the flagship template
 SOURCES = dict.fromkeys(KERNEL_NAMES, "pencil_tpu_torch/csrc/fused_rhs.cu")
 
@@ -716,6 +775,25 @@ OPS.update({k + sfx + "_sd": OPS[k + sfx] + n * SD_RATE * first + ops
             for sfx, n, ops in (("_ent", 3, SD_RHO + SD_ETA + SD_CHI),
                                 ("_hydro", 1, SD_RHO + SD_DEL2))
             for k, first in zip(SHOCK_KERNELS, (True, False))})
+
+
+# the shock slot on the z-ghosted builds: ∇shock (3 scaled first
+# derivatives), the ν_sh force (7 a component: shock(∇∇·u + ∇·u ∇lnρ) +
+# ∇·u ∇shock, ν_sh's product, the join) and the shock heat ν_sh shock
+# (∇·u)² (4); the first kernel takes ν_sh shock into its diffusivity max
+# (2); the SHK instances the shock diffusivities as the aux builds with ss
+# count them (D_sh, χ_sh, with A η_sh, each rate in the first kernel's
+# max)
+ZG_SHOCK_OPS = 3 * D1 + 21 + 4
+for _k, _first in (("rhs_zg", True), ("rhs_zg_upd", False)):
+    for _base, _mag in (("", False), ("_mag", True)):
+        _ops = OPS[_k + _base] + ZG_SHOCK_OPS + SD_RATE * _first
+        for _chi in ("", "_chi"):
+            _c = _ops + (CHI_OPS if _chi else 0)
+            OPS[_k + _base + "_shock" + _chi] = _c
+            OPS[_k + _base + "_shock" + _chi + "_sd"] = (
+                _c + SD_RHO + SD_CHI + SD_ETA * _mag
+                + (2 + _mag) * SD_RATE * _first)
 
 
 def zg_shear_ops(n, magnetic, first):
@@ -1205,10 +1283,26 @@ def shocked_fa(torch, pm, seed):
 
 
 def aux_cfg(pt, label, shape):
-    """The configuration of the aux path ``label`` (AUX_PATHS or
-    SHOCK_DIFFUSION_PATHS)."""
-    make, kw, _ = AUX_PATHS.get(label) or SHOCK_DIFFUSION_PATHS[label]
-    return getattr(pt.configs, make)(shape, **kw)
+    """The configuration of the aux path ``label`` (AUX_PATHS,
+    SHOCK_DIFFUSION_PATHS or SHOCK_VARIANT_PATHS)."""
+    import dataclasses
+    make, kw, _ = (AUX_PATHS.get(label) or SHOCK_DIFFUSION_PATHS.get(label)
+                   or SHOCK_VARIANT_PATHS[label])
+    cfg = getattr(pt.configs, make)(shape, **kw)
+    if label not in SHOCK_VARIANT_PATHS:
+        return cfg
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, variant="highorder") if m.name == "shock"
+        else m for m in cfg.modules))
+
+
+def conv_slab_cfg(pt, label, shape):
+    """The configuration of the conv-slab path ``label``
+    (CONV_SLAB_PATHS), with the shock diffusivities where it ends in
+    " sd"."""
+    cfg = pt.configs.conv_slab(shape, **CONV_SLAB_PATHS[label])
+    return (pt.configs.with_shock_diffusion(cfg) if label.endswith(" sd")
+            else cfg)
 
 
 def aux_variant(pt, cfg, Omega, hyper3):
@@ -1274,7 +1368,9 @@ def stratified_fa(torch, pm, seed):
     """(5, nx, ny, nz) on the card, or (8, ...) with Magnetic: the
     piecew-poly lnρ and s with noise, noisy velocities and a noisy vector
     potential; without ss (the isothermal stratified layer, 4 or 7) the
-    hydrostatic lnρ with noise."""
+    hydrostatic lnρ with noise; with the shock slot a positive profile of
+    1e-3 last (ν_sh·shock of the size of ν), which the kernels only
+    read."""
     g = torch.Generator("cuda").manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
@@ -1287,6 +1383,9 @@ def stratified_fa(torch, pm, seed):
         parts.append((f["ss"] + noise(shape))[None])
     if "aa" in pm.reg.slots:
         parts.append(noise((3,) + shape))
+    if "shock" in pm.reg.slots:
+        parts.append(1e-3 * torch.rand((1,) + shape, generator=g,
+                                       device="cuda"))
     return torch.cat(parts).contiguous()
 
 
@@ -1342,6 +1441,32 @@ def compare_zg_cfg(torch, pt, fr, cfg, label, errs):
     compare_pairs(f"{label} (max 1/dt rel err {dt_rel:.2e})", shape,
                   {first: [(df, df_p)], upd: [(df2, df2_p), (f2, f2_p)]},
                   errs, RTOL_FIELD)
+
+
+def compare_zg_shock(torch, pt, fr, shape, errs, every=True):
+    """Phase 2: the z-ghosted builds with the shock slot (K6k/K7k,
+    K6mk/K7mk) against their plain versions, with and without the shock
+    diffusivities (SHK) and, where ``every``, Ω = 1 (ROT), chi-const (CHI)
+    and the upwinding (UPW): every instance."""
+    flags = (False, True) if every else (False,)
+    for magnetic in (False, True):
+        for Omega in (0.0, 1.0) if every else (0.0,):
+            for chi in (0.0, CHI) if every else (0.0,):
+                for upwind in flags:
+                    for sd in (False, True):
+                        cfg = pt.configs.conv_slab(
+                            shape, magnetic=magnetic, Omega=Omega, chi=chi,
+                            upwind=upwind, shock=True)
+                        compare_zg_cfg(
+                            torch, pt, fr,
+                            pt.configs.with_shock_diffusion(cfg) if sd
+                            else cfg,
+                            "shocked " + ("magnetoconvection" if magnetic
+                                          else "conv-slab")
+                            + (f", Omega = {Omega:g}" if Omega else "")
+                            + (f", chi = {chi:g}" if chi else "")
+                            + (", upwind" if upwind else "")
+                            + (", shock diffusion" if sd else ""), errs)
 
 
 def compare_steps(torch, pt, label, cfg, nsteps=2, uu_noise=0.0, t0=None):
@@ -1525,6 +1650,11 @@ def main():
     compare_upwind(torch, pt, fr, EDGE_SHAPE, errs)
     compare_shock_diffusion(torch, pt, fr, EDGE_SHAPE, errs)
     mark("phase 2, the UPW instances and the shock diffusivities")
+    for shape in ((64, 64, 64), EDGE_SHAPE):
+        compare_zg_shock(torch, pt, fr, shape, errs)
+    for shape in ((32, 64, 128), (16, 24, 40)):
+        compare_zg_shock(torch, pt, fr, shape, errs, every=False)
+    mark("phase 2, the z-ghosted builds with the shock slot")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
                          forced_hydro(pt, shape), errs)
@@ -1602,8 +1732,8 @@ def main():
         compare_steps(torch, pt, label, pt.configs.conv_slab(n32, **kw),
                       uu_noise=1e-2)
     for label in ("sheared conv-slab", "sheared magnetoconvection"):
-        compare_steps(torch, pt, label, pt.configs.conv_slab(
-            n32, **CONV_SLAB_PATHS[label]), uu_noise=1e-2, t0=T_SHEAR)
+        compare_steps(torch, pt, label, conv_slab_cfg(pt, label, n32),
+                      uu_noise=1e-2, t0=T_SHEAR)
     # the isothermal stratified layer: its sets' initial velocity (1e-3)
     # sits beside the O(1) pressure and gravity forces, so noise of 1e-2,
     # as the conv-slab's
@@ -1638,9 +1768,15 @@ def main():
                       t0=T_SHEAR if shear else None)
     compare_steps(torch, pt, "flagship upwind",
                   pt.configs.flagship(n32, upwind=True))
-    compare_steps(torch, pt, "conv-slab upwind", pt.configs.conv_slab(
-        n32, **CONV_SLAB_PATHS["conv-slab upwind"]), uu_noise=1e-2)
+    compare_steps(torch, pt, "conv-slab upwind",
+                  conv_slab_cfg(pt, "conv-slab upwind", n32), uu_noise=1e-2)
     for label in SHOCK_DIFFUSION_PATHS:
+        compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
+                      uu_noise=0.1)
+    for label in ZG_SHOCK_COUNTERPART:
+        compare_steps(torch, pt, label, conv_slab_cfg(pt, label, n32),
+                      uu_noise=1e-2)
+    for label in SHOCK_VARIANT_PATHS:
         compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
                       uu_noise=0.1)
 
@@ -1690,6 +1826,13 @@ def main():
     sd = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
           for label in SHOCK_DIFFUSION_PATHS}
     mark("phase 3, upwinding and the shock diffusivities")
+    zk = {label: run_conv_slab(torch, pt, fr, smi, shape, launches, label,
+                               nwin=VARIANT_WINDOWS)
+          for label in ZG_SHOCK_COUNTERPART}
+    hi = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
+          for label in SHOCK_VARIANT_PATHS}
+    mark("phase 3, the shock slot between walls and the 'highorder' "
+         "profile")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -1772,6 +1915,17 @@ def main():
     for label, box in sd.items():
         time_aux_box(torch, fr, smi, box, errs, timings, bounds)
         time_aux_turns(torch, fr, smi, box, aux[OPTION_COUNTERPART[label]])
+    zbase = {"conv-slab": zg, "magnetoconvection chi": zmc}
+    for label, path in zk.items():
+        time_conv_slab(torch, fr, smi, path, errs, timings, bounds,
+                       full=False)
+        if not label.endswith(" sd"):
+            print_split(torch, fr, smi, path)
+        time_zg_turns(torch, fr, smi, path,
+                      zbase[ZG_SHOCK_COUNTERPART[label]])
+    for box in hi.values():
+        time_prepass_turns(torch, smi, box, aux["shock box"])
+        time_aux_turns(torch, fr, smi, box, aux["shock box"])
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -2338,7 +2492,7 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     base = torch.cuda.memory_allocated()
     cfg = (pt.configs.strat_box(shape, **STRAT_PATHS[label])
            if label in STRAT_PATHS
-           else pt.configs.conv_slab(shape, **CONV_SLAB_PATHS[label]))
+           else conv_slab_cfg(pt, label, shape))
     model = pt.Model(cfg, device="cuda")
     magnetic = "aa" in model.reg.slots
     u0, state, ms_step, peak, counts = timed_steps(torch, fr, model, base)
@@ -2371,8 +2525,7 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
              if busy else "busy: not measured (torch.profiler recorded "
              "none)"), flush=True)
     fa = state["_fa"]
-    nvar = model.reg.nvar
-    check(tuple(fa.shape) == (nvar,) + shape,
+    check(tuple(fa.shape) == (model.reg.nf,) + shape,
           f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
     # uz, and with Magnetic A_x and A_y, are 0 on the walls (forced, the
@@ -2422,9 +2575,18 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
             if ent is not None else 0.0)
     mag = cfg.module("magnetic")
     dxyz6 = sum(i ** 6 for i in inv)
+    # with the shock slot the largest shock diffusivity, ν_sh, D_sh, η_sh
+    # or γχ_sh, times the largest shock of the next step's first pre-pass
+    shock = 0.0
+    if "shock" in model.reg.slots:
+        sl = model.reg.slice("shock")
+        d_sh, e_sh, c_sh = fr.shock_coefficients(cfg, model.reg)
+        shock = max(cfg.module("viscosity").coefficients()[1], d_sh, e_sh,
+                    eos.gamma * c_sh) * float(
+            model._refresh_aux_fa(fa)[sl].max())
     dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0, chik,
               ent.chi * eos.gamma if ent is not None and ent.chi_conduction
-              else 0.0) \
+              else 0.0, shock) \
         * dxyz2 / tc.cdtv \
         + max(fr.hyper3_coefficients(cfg)) * dxyz6 / tc.cdtv3
     check(1.0 / math.hypot(adv_b, dif) * (1 - 1e-5) <= dt_next
@@ -2899,12 +3061,16 @@ def time_h3_instances(torch, pt, fr, smi, path):
 def zg_parts(model):
     """The conv-slab step's parts: the step's call -> its name in the
     split (K6/K7, with aa K6m/K7m, with Shear K6s/K7s or K6ms/K7ms and
-    the x/y fills with the shifted faces, forced the kick)."""
+    the x/y fills with the shifted faces, with the shock slot K6k/K7k or
+    K6mk/K7mk and the shock pre-passes, forced the kick)."""
     sfx = ("m" if "aa" in model.reg.slots else "") + (
         "s" if model.shear is not None else "") + (
-        "i" if "ss" not in model.reg.slots else "")
+        "i" if "ss" not in model.reg.slots else "") + (
+        "k" if "shock" in model.reg.slots else "")
     parts = {"rhs_zg": "K6" + sfx, "rhs_zg_upd": f"K7{sfx} x2",
              "z_slabs": "z_slabs x3", "bc_writeback": "bc_writeback"}
+    if "shock" in model.reg.slots:
+        parts["_refresh_aux_fa"] = "shock pre-pass x3"
     if model.shear is not None:
         parts["ghosted"] = "x/y fills x3"
     if model.forcing is not None:
@@ -2942,7 +3108,7 @@ def conv_slab_split(torch, fr, model, state, n):
 
     # instance attributes shadow the methods that _zghost_step calls
     methods = [m for m in ("z_slabs", "bc_writeback", "ghosted",
-                           "_kick_after") if m in names]
+                           "_kick_after", "_refresh_aux_fa") if m in names]
     for m in methods:
         setattr(model, m, ranged(names[m], getattr(model, m), (
             lambda fa, axes=(0, 1, 2), sdy=None: sdy is not None)
@@ -3107,6 +3273,23 @@ def time_aux_turns(torch, fr, smi, box, other):
           f"turns ({box[0]}, {other[0]}, {other[0]}, {box[0]}): "
           + "; ".join(f"{name} " + ", ".join(f"{t:.4f}" for t in ts)
                       + " ms" for name, ts in times.items()), flush=True)
+
+
+def time_prepass_turns(torch, smi, box, other):
+    """The shock pre-pass of the aux path ``box`` (the 'highorder'
+    profile) timed in turns (A, B, B, A, 20 calls a turn) with that of
+    ``other`` (the 'original' one), each on its own path's final state at
+    256³."""
+    paths = {label: (model, state) for label, model, state, _ in (box, other)}
+    times = {}
+    for label in (box[0], other[0], other[0], box[0]):
+        model, state = paths[label]
+        times.setdefault(label, []).append(time_ms(
+            torch, lambda: model._refresh_aux_fa(state["_fa"]), 20))
+    print(f"phase 4 the shock pre-pass of {box[0]} against {other[0]} at "
+          f"256^3 on {smi}, in turns: " + "; ".join(
+              f"{label} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+              for label, ts in times.items()), flush=True)
 
 
 if __name__ == "__main__":

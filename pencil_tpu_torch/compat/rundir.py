@@ -15,10 +15,12 @@ the port lacks, and a value the port's modules do not take.  A group the
 JAX loader leaves unmapped is listed in ``info["unmapped_groups"]``, as
 there; unknown parameters inside a mapped group are ignored, as there.
 
-Two departures from the JAX loader: the Config has ``fused=True`` (a run
-directory on the card takes a kernel chain), and ``REAL_PRECISION =
+Three departures from the JAX loader: the Config has ``fused=True`` (a
+run directory on the card takes a kernel chain), ``REAL_PRECISION =
 double`` runs in float32, as the JAX loader does without x64 mode, which
-it says once on stderr and in ``info["real_precision"]``.
+it says once on stderr and in ``info["real_precision"]``, and
+&shock_run_pars' ``lmax_shock`` is mapped (the JAX loader leaves the
+Shock module's at True).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ SLOTS = {
     "GRAVITY": ("gravity_simple", "nogravity"),
     "FORCING": ("forcing", "noforcing"),
     "SHEAR": ("shear", "noshear"),
-    "SHOCK": ("shock", "noshock"),
+    "SHOCK": ("shock", "shock_highorder", "noshock"),
     "VISCOSITY": ("viscosity", "noviscosity"),
     "DERIV": ("deriv",),
     "TIMESTEP": ("timestep",),
@@ -699,12 +701,16 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
                      _as_tuple(vis_p.get("ivisc", "")))
             or float(ent_p.get("chi_shock", 0.0)) != 0.0
             or ("shock" in shock_slot and "noshock" not in shock_slot)):
-        _check("shock", shk_p, {
-            "ishock_max": 1, "lgaussian_smooth": False,
-            "lconvergence_only": True, "shock_div_pow": 1.0})
+        # every switch of &shock_run_pars (JAX rundir.py:1635-1650, which
+        # leaves lmax_shock at its default)
         modules.append(Shock(
             variant="highorder" if "highorder" in shock_slot
-            else "original"))
+            else "original",
+            ishock_max=int(shk_p.get("ishock_max", 1)),
+            lgaussian_smooth=bool(shk_p.get("lgaussian_smooth", False)),
+            lconvergence_only=bool(shk_p.get("lconvergence_only", True)),
+            shock_div_pow=float(shk_p.get("shock_div_pow", 1.0)),
+            lmax_shock=bool(shk_p.get("lmax_shock", True))))
 
     modules = tuple(modules)
     bcs = _boundary_conditions(modules, init_pars, run_pars)

@@ -37,7 +37,8 @@ def with_shock_diffusion(cfg, coef=1.0):
 
 
 def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
-              hyper3=False, shear=False, forcing=0.0, upwind=False):
+              hyper3=False, shear=False, forcing=0.0, upwind=False,
+              shock=False):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -68,8 +69,14 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     each step: forced convection (with ``magnetic`` forced
     magnetoconvection).  ``upwind`` upwinds the advection of lnρ, u and s
     (``lupw_lnrho``, ``lupw_uu``, ``lupw_ss``: 5th-order upwinding, the
-    reference's der6_upwind), ν, χ and K unchanged.  The values are this
-    configuration's own, not the sample's start.in/run.in.
+    reference's der6_upwind), ν, χ and K unchanged.  ``shock`` adds the
+    Shock module (its 'original' profile) and shock viscosity 'nu-shock'
+    with ν_sh = 1 beside ν, and the slot's z BC 's' last in bcz (the
+    reference gives every f-array slot a code): supersonic stratified
+    convection and, with ``magnetic``, magnetoconvection with shocks
+    (``with_shock_diffusion`` adds the shock diffusion of lnρ, s and A).
+    The values are this configuration's own, not the sample's
+    start.in/run.in.
 
     The bottom c1 flux follows the run-directory loader's rule
     (pencil_tpu/compat/rundir.py:2400-2406):
@@ -95,6 +102,10 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                 pkg.BC.parse("az", "s"))
         mag = (pkg.Magnetic(eta=4e-3, init="gaussian-noise", ampl=1e-4,
                             **eta3),)
+    if shock:
+        bcz += (pkg.BC.parse("shock", "s"),)
+        visc = dict(visc, ivisc=tuple(visc["ivisc"]) + ("nu-shock",),
+                    nu_shock=1.0)
     heat = (dict(iheatcond=("K-const", "chi-const"), chi=chi) if chi > 0.0
             else dict(iheatcond=("K-const",)))
     cfg = pkg.Config(
@@ -111,7 +122,8 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                              luminosity=5e-3, wheat=0.1, cool=15.0,
                              wcool=0.2, cs2cool=cs2cool),
                  *mag,
-                 *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ())))
+                 *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ()),
+                 *((pkg.Shock(),) if shock else ())))
     return with_upwind(cfg) if upwind else cfg
 
 

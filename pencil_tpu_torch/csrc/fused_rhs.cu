@@ -80,7 +80,16 @@
 // with Shear, the stratified isothermal shearing box): the z-ghosted
 // march and Shear terms on the periodic builds' isothermal terms, no
 // conduction, heating or layers.  Their CFL rate is the periodic builds'
-// constant one; they have ROT and H3 instances, no CHI.
+// constant one; they have ROT and H3 instances, no CHI.  Built with
+// -DPC_ZG=1 -DPC_ENT=1 -DPC_SHOCK=1 (with or without -DPC_MAG=0) they give
+// stratified convection's and magnetoconvection's K6k/K7k and K6mk/K7mk
+// with the shock profile as a read-only 6th or 9th slot, its z ghosts in
+// the slabs beside the other fields' (the slot's own z BC, 's'): the
+// z-ghosted terms plus nu-shock (the shock viscous force and heat, the
+// shock diffusivity in the CFL) and, in their SHK instances, the shock
+// diffusivities, joined as the shock builds join theirs (PC_JOINS).  They
+// have ROT, CHI and UPW instances and a SHK twin of each, no H3 (del6
+// beside the slot is refused on the host): sixteen instances a kernel.
 //
 // Every build but K8 adds gravity on uz: g_z(z), any z profile of the
 // Gravity module, read from a vector of nz floats (ZgIn.grav).  A
@@ -257,8 +266,8 @@
 #ifndef PC_ZG
 #define PC_ZG 0        // 1: the conv-slab's z-ghosted source, terms (K6, K7;
 #endif                 //    with PC_MAG K6m, K7m; without PC_ENT K6i ...)
-#if PC_ZG && PC_SHOCK
-#error "the z-ghosted builds take the layouts without a shock slot"
+#if PC_ZG && PC_SHOCK && (PC_SHEAR || !PC_ENT)
+#error "the z-ghosted builds with a shock slot are the conv-slab's (PC_ENT)"
 #endif
 // the builds with the DEFER, LAST and KICK instances: a shear build, with
 // or without the shock slot, runs its first kernel and the update only
@@ -352,7 +361,7 @@ struct PcParams {
 };
 
 // The z inputs beside the stack: of the z-ghosted builds the z-halo slabs
-// (NV, nx, ny, NG) below z = 0 and above z = nz - 1 and, with PC_ENT, the
+// (NC, nx, ny, NG) below z = 0 and above z = nz - 1 and, with PC_ENT, the
 // cooling and heating profiles (nz; zeros where a layer is off), which the
 // other builds pass as null; of every build gravity g_z(z) (nz), null
 // without gravity, and the continuous forcing (3, nx, ny, nz), the
@@ -913,8 +922,18 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #elif PC_ZG && PC_ENT
     // max(nu, [eta,] K gamma/(rho cp)) at this point (maxdif = max(nu,
     // eta)): with nothing diffusive dif = 0 and the root gives dt1a exactly
-    // H3: plus the constant del6 rate
-    float dif = (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv;
+    // H3: plus the constant del6 rate.  With the shock slot also nu_sh
+    // shock and, SHK, D_sh shock, eta_sh shock and gamma chi_sh shock
+    float md = fmaxf(P.maxdif, chik);
+#if PC_SHOCK
+    if (P.nu_shock > 0.0f) md = fmaxf(md, P.nu_shock * shock);
+    if constexpr (SHK) {
+      if (P.diffrho_shock > 0.0f) md = fmaxf(md, P.diffrho_shock * shock);
+      if (PC_MAG && P.eta_shock > 0.0f) md = fmaxf(md, P.eta_shock * shock);
+      if (P.chi_shock > 0.0f) md = fmaxf(md, P.gchi_shock * shock);
+    }
+#endif
+    float dif = (md * P.dxyz2) / P.cdtv;
     if constexpr (H3) dif = __fadd_rn(dif, P.dif3);
     dt1 = sqrtf(dt1a * dt1a + dif * dif);
 #elif PC_ENT
@@ -1498,10 +1517,13 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
   // has one of its own too (tags 8-11), and so has each of the z-ghosted
   // shear builds (tags 12-19), and so has each of the z-ghosted builds
   // without ss (tags 20-35), and each UPW instance (tags 36-39) and SHK
-  // instance (tags 40-47)
+  // instance (tags 40-47), and each instance of the z-ghosted builds with
+  // the shock slot (tags 56-71: SHK beside CHI there too)
   constexpr bool XT = CHI || (H3 && PC_TAILS);
   constexpr bool ZH3 = H3 && PC_ZG;
-  constexpr int TAG = SHK ? 40 + ROT + 2 * H3 + 4 * UPW
+  constexpr int TAG = PC_ZG && PC_SHOCK
+      ? 56 + ROT + 2 * CHI + 4 * UPW + 8 * SHK
+      : SHK ? 40 + ROT + 2 * H3 + 4 * UPW
       : UPW ? 36 + ROT + 2 * CHI
       : PC_ZG && !PC_ENT
       ? 20 + ROT + 2 * H3 + 4 * PC_SHEAR + 8 * PC_MAG
@@ -1583,11 +1605,48 @@ static int launch_shk(const PcParams* p, const float* fa, const float* dfin,
 // build, with CHI where the build has it; beside a hyper coefficient no
 // instance, an invalid value), the shock diffusivities where one is on
 // (SHK: the shock builds, beside each of the others).
+#if PC_ZG && PC_SHOCK
+// The z-ghosted builds with the shock slot: CHI where cp chi is not 0, UPW
+// where an lupw flag is on, SHK where a shock diffusivity is on, each with
+// or without the others, with rotation where Omega is not 0.
+template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool CHI, bool SHK>
+static int launch_zgs(const PcParams* p, const float* fa, const float* dfin,
+                      const float* coef, const float* kick,
+                      const float* ktab, float* dfout, float* faout,
+                      float* dt1blk, void* stream, const ZgIn& zg) {
+  if (p->upw[0] || p->upw[1] || p->upw[2])
+    return launch_rot<FIRST, DEFER, LAST, KICK, false, CHI, true, SHK>(
+        p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+  return launch_rot<FIRST, DEFER, LAST, KICK, false, CHI, false, SHK>(
+      p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+}
+#endif
+
 template <bool FIRST, bool DEFER, bool LAST, bool KICK, bool FAKE>
 static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const float* coef, const float* kick, const float* ktab,
                   float* dfout, float* faout, float* dt1blk, void* stream,
                   const ZgIn& zg = ZgIn{}) {
+#if PC_ZG && PC_SHOCK
+  // no H3 instance beside the slot: the host refuses del6 here
+  if (p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f)
+    return (int)cudaErrorInvalidValue;
+  const bool shk = p->diffrho_shock > 0.0f || p->eta_shock > 0.0f
+                   || p->chi_shock > 0.0f;
+  if (p->cpchi > 0.0f)
+    return shk ? launch_zgs<FIRST, DEFER, LAST, KICK, true, true>(
+                     p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk,
+                     stream, zg)
+               : launch_zgs<FIRST, DEFER, LAST, KICK, true, false>(
+                     p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk,
+                     stream, zg);
+  return shk ? launch_zgs<FIRST, DEFER, LAST, KICK, false, true>(
+                   p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk,
+                   stream, zg)
+             : launch_zgs<FIRST, DEFER, LAST, KICK, false, false>(
+                   p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk,
+                   stream, zg);
+#else
   if constexpr (!FAKE) {
 #if PC_SHOCK
     if (p->diffrho_shock > 0.0f || p->eta_shock > 0.0f
@@ -1627,6 +1686,7 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
   }
   return launch_as<FIRST, DEFER, LAST, KICK, FAKE, false, false, false, false>(
       p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
+#endif
 }
 
 // The substep-1 kernel and the three tail kinds, real or fake.
@@ -1761,7 +1821,8 @@ int pc_tile_shape(int* out) {
 // and without the kick; + 16 with rotation, + 32 with the del6 terms (H3),
 // + 64 with chi-const (CHI, the z-ghosted builds with ss only), + 128 with
 // the upwinding (UPW: every build, not with H3), + 256 with the shock
-// diffusivities (SHK: the shock builds, not with CHI).  Only the
+// diffusivities (SHK: the shock builds, with CHI only in the z-ghosted
+// ones, which have no H3).  Only the
 // isothermal MHD build has K8 (1, 3, 6, 7; none with rotation or H3).  The
 // shock and shear builds have 0 and 8 (K1s and K5w, or K4 and K5, and
 // those of their other layouts), each with the four flag sets, the
@@ -1781,13 +1842,17 @@ int pc_flagship_attrs(int which, int* out) {
   switch (which >> 4) {
     case 0: return attrs_of<false, false, false>(base, out);
     case 1: return attrs_of<true, false, false>(base, out);
+#if !(PC_ZG && PC_SHOCK)
     case 2: return attrs_of<false, true, false>(base, out);
     case 3: return attrs_of<true, true, false>(base, out);
+#endif
 #if PC_ZG && PC_ENT
     case 4: return attrs_of<false, false, true>(base, out);
     case 5: return attrs_of<true, false, true>(base, out);
+#if !PC_SHOCK
     case 6: return attrs_of<false, true, true>(base, out);
     case 7: return attrs_of<true, true, true>(base, out);
+#endif
 #endif
     case 8: return attrs_of<false, false, false, true>(base, out);
     case 9: return attrs_of<true, false, false, true>(base, out);
@@ -1798,10 +1863,18 @@ int pc_flagship_attrs(int which, int* out) {
 #if PC_SHOCK
     case 16: return attrs_of<false, false, false, false, true>(base, out);
     case 17: return attrs_of<true, false, false, false, true>(base, out);
+#if !PC_ZG
     case 18: return attrs_of<false, true, false, false, true>(base, out);
     case 19: return attrs_of<true, true, false, false, true>(base, out);
+#endif
     case 24: return attrs_of<false, false, false, true, true>(base, out);
     case 25: return attrs_of<true, false, false, true, true>(base, out);
+#endif
+#if PC_ZG && PC_SHOCK
+    case 20: return attrs_of<false, false, true, false, true>(base, out);
+    case 21: return attrs_of<true, false, true, false, true>(base, out);
+    case 28: return attrs_of<false, false, true, true, true>(base, out);
+    case 29: return attrs_of<true, false, true, true, true>(base, out);
 #endif
     default: return (int)cudaErrorInvalidValue;
   }

@@ -68,7 +68,15 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   runs on each (the stratified shearing box with an energy equation,
   ``configs.strat_box(n, entropy=True)``, g_z = −Ω²z on K6ms/K7ms), and
   each of these sets runs without Gravity too (g_z = 0: unstratified
-  boxes between z walls).
+  boxes between z walls).  Stratified convection and magnetoconvection
+  with the Shock module's slot (``configs.conv_slab(n, shock=True)``:
+  'nu-shock', optionally the shock diffusivities, chi-const, Ω, forcing
+  and upwinding; its bcz gives the slot a code) rebuild the slot before
+  each kernel, as the aux chains below do (its z ghosts by that code, the
+  pre-pass's own fill by bc_sym), and run K6k/K7k and K6mk/K7mk, which
+  read it with its z slabs; without a bcz code for the slot the model is
+  refused (the JAX package's fused and jnp paths fill its ghosts
+  differently there).
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -114,7 +122,7 @@ from .core.device import require_device
 from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
-from .ops.boundary import BC_REGISTRY
+from .ops.boundary import BC_REGISTRY, bc_sym
 from .ops.fused_rhs import (hyper3_coefficients, rhs_first, rhs_plain,
                             rhs_tail_defer, rhs_tail_defer_last,
                             rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
@@ -146,7 +154,7 @@ REGISTRATION_ORDER = (
 
 # the module sets the fused kernels implement: the flagship and forced hydro
 # (forcing and gravity are optional) on a fully periodic grid, stratified
-# convection and magnetoconvection, with or without Shear, with z
+# convection and magnetoconvection, with or without Shear or Shock, with z
 # non-periodic and x, y periodic (forcing and gravity are optional), and
 # the shearing box and the shocked box (forcing and gravity are optional)
 # on a fully periodic grid; Magnetic's B_ext and Forcing's continuous
@@ -169,7 +177,12 @@ ENT_ZGHOST_SETS = (CONVSLAB_MODULES, CONVSLAB_MODULES | {"magnetic"},
 ISO_ZGHOST_SETS = tuple(base | {"gravity"} | shear
                         for base in (HYDRO_MODULES, FLAGSHIP_MODULES)
                         for shear in (set(), {"shear"}))
-ZGHOST_SETS = ENT_ZGHOST_SETS + ISO_ZGHOST_SETS
+# stratified convection and magnetoconvection with the Shock module's
+# slot: ν_sh and the shock diffusivities between walls (Ω and forcing
+# optional)
+SHOCK_ZGHOST_SETS = (CONVSLAB_MODULES | {"shock"},
+                     CONVSLAB_MODULES | {"magnetic", "shock"})
+ZGHOST_SETS = ENT_ZGHOST_SETS + ISO_ZGHOST_SETS + SHOCK_ZGHOST_SETS
 # the same with Gravity optional: a z-walled set without it runs the
 # z-ghosted chain with g_z = 0 (unstratified boxes between walls)
 ZGHOST_FREE_SETS = tuple(s - {"gravity"} for s in ZGHOST_SETS)
@@ -198,9 +211,9 @@ def _unported_bcs(cfg: Config):
 
 
 def _shock_options(cfg: Config):
-    """The options in use that only the shear-box and shock-box kernels
-    implement, each reading the Shock module's slot: nu-shock and the
-    shock diffusivities of lnρ, A and s."""
+    """The options in use that only the kernels of the sets with the
+    Shock module's slot implement, each reading that slot: nu-shock and
+    the shock diffusivities of lnρ, A and s."""
     visc, den = cfg.module("viscosity"), cfg.module("density")
     mag, ent = cfg.module("magnetic"), cfg.module("entropy")
     return [name for name, on in (
@@ -211,18 +224,35 @@ def _shock_options(cfg: Config):
          and ent.chi_shock > 0)) if on]
 
 
+def _hyper3_names(cfg: Config):
+    """The del6 coefficients in use, named."""
+    return [name for name, c in zip(("nu_hyper3", "eta_hyper3",
+                                     "diffrho_hyper3"),
+                                    hyper3_coefficients(cfg)) if c > 0.0]
+
+
 def _upwind_with_hyper3(cfg: Config):
     """The upwinding flags in use beside a del6 coefficient, named with
     those coefficients, or None: no kernel instance has both (upwinding
     and hyper-diffusion damp the same grid-scale noise)."""
     upw = [name for name, on in zip(("lupw_lnrho", "lupw_uu", "lupw_ss"),
                                     upwind_flags(cfg)) if on]
-    hyper = [name for name, c in zip(("nu_hyper3", "eta_hyper3",
-                                      "diffrho_hyper3"),
-                                     hyper3_coefficients(cfg)) if c > 0.0]
+    hyper = _hyper3_names(cfg)
     if upw and hyper:
         return (f"options {upw} (upwinding) with {hyper} (del6 "
                 "hyper-diffusion): no kernel instance has both")
+    return None
+
+
+def _hyper3_with_walled_shock(cfg: Config):
+    """The del6 coefficients in use beside the Shock module on a z-walled
+    grid, named, or None: the z-ghosted builds with the shock slot have no
+    H3 instance."""
+    hyper = _hyper3_names(cfg)
+    if hyper and cfg.module("shock") is not None \
+            and not all(cfg.grid.periodic):
+        return (f"options {hyper} (del6 hyper-diffusion) with the Shock "
+                "module on a z-walled grid: no kernel instance has both")
     return None
 
 
@@ -231,8 +261,9 @@ def fused_mode(cfg: Config):
     with or without an entropy field, each with or without del6
     hyper-diffusion), 'zghost' (stratified convection and
     magnetoconvection, each with or without Shear, forcing, Ω, chi-const
-    and del6 hyper-diffusion, and the isothermal stratified layer, hydro
-    or MHD, with or without Shear, forcing, Ω and del6), 'zroll' (the
+    and del6 hyper-diffusion, or with the Shock module's slot, forcing, Ω
+    and chi-const, and the isothermal stratified layer, hydro or MHD, with
+    or without Shear, forcing, Ω and del6), 'zroll' (the
     shearing box, MHD or hydro, with or without the shock slot, each also
     with an entropy field) or 'wrap_aux' (the shocked periodic box, MHD or
     hydro, each also with an entropy field), gravity (any z profile of
@@ -245,8 +276,9 @@ def fused_mode(cfg: Config):
     module's slot; or (None, why ``cfg`` is outside all of these sets).
     The module set is tested before any option of it, so a set that no
     chain takes is refused for its modules; Entropy's layer profiles
-    outside the z-ghosted sets, the upwinding beside del6 and the shock
-    terms without the slot are refused for those options."""
+    outside the z-ghosted sets, the upwinding beside del6, del6 beside a
+    z-walled Shock and the shock terms without the slot are refused for
+    those options."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -277,7 +309,7 @@ def fused_mode(cfg: Config):
             return None, ("options ['Entropy.cool/luminosity'] (the layer "
                           "profiles: only the conv-slab kernels implement "
                           "them)")
-        both = _upwind_with_hyper3(cfg)
+        both = _upwind_with_hyper3(cfg) or _hyper3_with_walled_shock(cfg)
         if both:
             return None, both
         # nu-shock and the shock diffusivities read the Shock module's slot
@@ -286,9 +318,9 @@ def fused_mode(cfg: Config):
         if extra and "shock" not in mods and free in ZROLL_SETS:
             return None, (f"options {extra} without the Shock module, "
                           "whose slot they read")
-        if extra:
-            return None, (f"options {extra} (only the shear-box and "
-                          "shock-box kernels implement them)")
+        if extra and "shock" not in mods:
+            return None, (f"options {extra} (only the kernels of the sets "
+                          "with the Shock module's slot implement them)")
         return ("wrap" if wrap else "zghost"), None
     return None, _outside(names, periodic)
 
@@ -300,7 +332,8 @@ def _outside(names, periodic):
             f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
             f"{sorted(HYDRO_MODULES)}, each with or without 'entropy', on "
             f"a periodic grid, {sorted(CONVSLAB_MODULES)} with or without "
-            "'entropy', 'gravity', 'magnetic' and 'shear' with a "
+            "'entropy', 'gravity', 'magnetic' and 'shear', and with "
+            "'entropy' also with 'shock' in place of 'shear', with a "
             "non-periodic z, "
             f"{sorted(FLAGSHIP_MODULES | {'shear'})} and "
             f"{sorted(HYDRO_MODULES | {'shear'})}, each with or without "
@@ -364,8 +397,21 @@ def _check_supported(cfg: Config):
         problems.append("a module set without eos, density and hydro")
     else:
         visc = cfg.module("viscosity")
-        if cfg.module("shock") is not None and not all(gs.periodic):
-            problems.append("Shock on a non-periodic grid")
+        if cfg.module("shock") is not None:
+            for axis, bcs in enumerate((cfg.bcx, cfg.bcy, cfg.bcz)):
+                codes = {(bc.low, bc.high) for bc in bcs
+                         if bc.comp == "shock"}
+                if not gs.periodic[axis] and codes != {("s", "s")}:
+                    xyz = "xyz"[axis]
+                    problems.append(
+                        f"Shock on the non-periodic {xyz} axis without the "
+                        f"BC 's' for its 'shock' slot in bc{xyz} (add "
+                        "BC('shock', 's'): the reference gives the slot a "
+                        "code, the chains on the card fill its ghosts by "
+                        "that code and the eager path and the pre-pass by "
+                        "the symmetric closure, and without one the JAX "
+                        "package's fused and jnp paths fill them "
+                        "differently)")
         if visc is not None and visc.coefficients()[1] \
                 and cfg.module("shock") is None:
             problems.append("Viscosity 'nu-shock' without the Shock module")
@@ -567,14 +613,20 @@ class Model:
         return self.shear.deltay(t, gs.Lx, gs.Ly)
 
     def _make_halo1(self, shear_dy):
-        """Ghost fill of one interior scalar on the periodic grid (JAX
-        model.py:368-395; a Shock on a non-periodic grid is refused)."""
+        """Ghost fill of one interior scalar: the periodic wrap, then on
+        each non-periodic axis the symmetric closure ``bc_sym`` about the
+        boundary plane (JAX model.py:368-395; the reference's shock ghosts
+        by bc 's')."""
         gs = self.cfg.grid
 
         def halo1(x):
-            return fill_ghosts(x[None], gs, ((), (), ()), self.reg,
-                               self.grid, self.cfg, None,
-                               shear_dy=shear_dy)[0]
+            xg = fill_ghosts(x[None], gs, ((), (), ()), self.reg,
+                             self.grid, self.cfg, None,
+                             shear_dy=shear_dy)[0]
+            for axis in self._nonperiodic:
+                for side in (0, 1):
+                    bc_sym(xg, axis, side, 0.0, None)
+            return xg
 
         return halo1
 
@@ -590,18 +642,43 @@ class Model:
                 fg[self.reg.slice(aname)] = halo1(interior)[None]
         return fg
 
-    def _refresh_aux_fa(self, fa, shear_dy=None):
-        """``fa`` with each aux slot rebuilt from its evolved fields, a new
-        tensor (the fused chains' pre-pass; JAX model.py:411-428)."""
+    def _refresh_aux_fa(self, f, shear_dy=None):
+        """The stack of all slots, a new tensor: the evolved fields, the
+        first nvar rows of ``f`` (which may hold the aux slots too), and
+        each aux slot rebuilt from them (the fused chains' pre-pass; JAX
+        model.py:411-428).  The aux modules read the evolved fields
+        alone, so only those are ghosted, each by its own BCs."""
+        nvar = self.reg.nvar
+        evolved = self.reg.comp_names[:nvar]
+        bcs = tuple(tuple(bc for bc in axis if bc.comp in evolved)
+                    for axis in self.bc_axes)
+        pen = Pencils(fill_ghosts(f[:nvar], self.cfg.grid, bcs, self.reg,
+                                  self.grid, self.cfg, self.eos,
+                                  shear_dy=shear_dy),
+                      self.grid, self.reg, self.cfg, self.eos, ghosted=True)
         halo1 = self._make_halo1(shear_dy)
-        pen = Pencils(self.ghosted(fa, shear_dy=shear_dy), self.grid,
-                      self.reg, self.cfg, self.eos, ghosted=True)
+        aux = {}
         for m in self._aux_modules:
-            for aname, interior in m.compute_aux(pen, halo1).items():
-                sl = self.reg.slice(aname)
-                fa = torch.cat([fa[: sl.start], interior[None],
-                                fa[sl.stop:]])
-        return fa
+            aux.update(m.compute_aux(pen, halo1))
+        del pen
+        return torch.cat([f[:nvar]] + [
+            aux[s.name][None] for s in self.reg.slots.values()
+            if s.start >= nvar])
+
+    def _refreshed(self, f, shear_dy=None):
+        """A kernel's input stack: ``_refresh_aux_fa`` where the layout
+        has aux slots, else ``f`` itself."""
+        if self.reg.nf > self.reg.nvar:
+            return self._refresh_aux_fa(f, shear_dy)
+        return f
+
+    def _with_aux(self, fa, f_new):
+        """The stack after a step: the evolved fields ``f_new`` and, where
+        the layout has them, the aux slots of ``fa`` (the last
+        pre-pass's)."""
+        if self.reg.nf > self.reg.nvar:
+            return torch.cat([f_new, fa[self.reg.nvar:]])
+        return f_new
 
     def bc_writeback(self, fa):
         """Copy the BC-applied boundary planes of every non-periodic axis
@@ -703,15 +780,20 @@ class Model:
         return self._finish(state, f, dt)
 
     def _zghost_step(self, state: Dict, kernels=(rhs_zg, rhs_zg_upd)):
-        """One 2N-RK step as the zghost chain (JAX model.py:704-775,
-        :891, :924-933): K6 and a torch axpy, then K7 per substep, each on
-        a fresh ``zg_input`` (with Shear the x faces shifted by deltay at
-        t0 + c·dt: substep 1 with the old dt, the others with the new
-        one), then the boundary-plane writeback and the forcing kick.  No
-        tensor of ``state`` is written.  ``kernels`` lets a measurement
-        time the plain versions through the same chain."""
+        """One 2N-RK step as the zghost chain (JAX model.py:411-460,
+        :704-775, :891, :924-933): K6 and a torch axpy, then K7 per
+        substep, each on a fresh ``zg_input`` (with Shear the x faces
+        shifted by deltay at t0 + c·dt: substep 1 with the old dt, the
+        others with the new one), then the boundary-plane writeback and the
+        forcing kick.  Where the state has the shock slot, each substep
+        first rebuilds it from the substep's state (``_refresh_aux_fa``,
+        its ghosts by the z BCs), the kernels read it with its z slabs, and
+        the update keeps it out of the RK sum: the state's slot is the last
+        pre-pass's.  No tensor of ``state`` is written.  ``kernels`` lets
+        a measurement time the plain versions through the same chain."""
         first, upd = kernels
         alpha, beta, cstage = self.rk
+        nvar = self.reg.nvar
         fa = state["_fa"] if "_fa" in state else self.reg.stack(
             state["fields"])
         shear = self.shear is not None
@@ -721,15 +803,21 @@ class Model:
                 else None
 
         # z_slabs pins the boundary planes of its argument in place: K6
-        # reads a copy (with Shear the x/y-ghosted one), the axpy (as
-        # JAX's) the caller's stack, which stays as it was
-        df, dt1m = first(self, *self.zg_input(fa if shear else fa.clone(),
-                                              sdy(0, state["dt"])))
+        # reads a copy (with Shear the x/y-ghosted one; with the shock slot
+        # the pre-pass's new stack), the axpy (as JAX's) the caller's
+        # stack, which stays as it was
+        src = self._refreshed(fa)
+        if src is fa and not shear:
+            src = fa.clone()
+        df, dt1m = first(self, *self.zg_input(src, sdy(0, state["dt"])))
         dt = self._new_dt(dt1m, state["dt"])
-        fa = fa + beta[0] * dt * df
+        f_new = fa[:nvar] + beta[0] * dt * df
         for isub in range(1, len(alpha)):
+            fa = self._refreshed(f_new)
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
-            df, fa = upd(self, *self.zg_input(fa, sdy(isub, dt)), df, coef)
+            df, f_new = upd(self, *self.zg_input(fa, sdy(isub, dt)), df,
+                            coef)
+        fa = self._with_aux(fa, f_new)
         return self._finish(state, self._kick_after(self.bc_writeback(fa),
                                                     dt, state), dt)
 
@@ -748,31 +836,24 @@ class Model:
         first, upd = kernels or ((rhs_wrap_shock, rhs_wrap_shock_upd) if wrap
                                  else (rhs_zroll, rhs_zroll_upd))
         nvar = self.reg.nvar
-        aux = self.reg.nf > nvar
-
-        def refreshed(fa, sdy):
-            return self._refresh_aux_fa(fa, sdy) if aux else fa
 
         def kernel_input(fa, sdy):
             return fa if wrap else self.ghosted(fa, (0, 1), sdy)
-
-        def updated(fa, f_new):
-            return torch.cat([f_new, fa[nvar:]]) if aux else f_new
 
         alpha, beta, cstage = self.rk
         fa = state["_fa"] if "_fa" in state else self.reg.stack(
             state["fields"])
         t0, dt = state["t"], state["dt"]
         sdy = None if wrap else self.deltay(t0 + cstage[0] * dt)
-        df, dt1m = first(self, kernel_input(refreshed(fa, sdy), sdy))
+        df, dt1m = first(self, kernel_input(self._refreshed(fa, sdy), sdy))
         dt = self._new_dt(dt1m, state["dt"])
-        fa = updated(fa, fa[:nvar] + beta[0] * dt * df)
+        f_new = fa[:nvar] + beta[0] * dt * df
         for isub in range(1, len(alpha)):
             sdy = None if wrap else self.deltay(t0 + cstage[isub] * dt)
-            fa = refreshed(fa, sdy)
+            fa = self._refreshed(f_new, sdy)
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, f_new = upd(self, kernel_input(fa, sdy), df, coef)
-            fa = updated(fa, f_new)
+        fa = self._with_aux(fa, f_new)
         return self._finish(state, self._kick_after(fa, dt, state), dt)
 
     def _eager_step(self, state: Dict):

@@ -1,7 +1,7 @@
 """Build and load the kernels of ``csrc/`` with nvcc, at first use.
 
 Each library is one ``csrc/*.cu`` built with its own -D definitions
-(``LIBRARIES``: the flagship template's source gives 24, the MHD
+(``LIBRARIES``: the flagship template's source gives 26, the MHD
 instances, the 4-field hydro ones with ``PC_MAG=0``, both with an
 entropy field, ``PC_ENT=1``, the MHD and hydro ones with the shock slot,
 ``PC_SHOCK=1``, on the periodic state, the shear box's on its ghosted
@@ -9,9 +9,9 @@ stack, ``PC_SHEAR=1``, MHD or hydro, with or without the shock slot, all
 of both with an entropy field too, and the 5- and 8-field entropy
 ones with ``PC_ZG=1``, stratified convection and magnetoconvection on the
 interior stack and its z-halo slabs, both also with ``PC_SHEAR=1``, the
-stratified shearing box on the x/y-ghosted stack and its slabs, and the
-same four without ``PC_ENT``, the isothermal stratified layer), with a
-plain C
+stratified shearing box on the x/y-ghosted stack and its slabs, or with
+``PC_SHOCK=1``, the two with the shock slot, and the same four without
+``PC_ENT`` and the slot, the isothermal stratified layer), with a plain C
 interface, loaded with ``ctypes``, so a build needs no PyTorch headers and
 takes seconds; the libraries are compiled in parallel, one nvcc each, at
 most one per CPU, the longest first, in the background (``start``), and
@@ -93,6 +93,12 @@ LIBRARIES = {
                                                 "-DPC_SHEAR=1")),
     "fused_rhs_zg_iso_mag_shear": ("fused_rhs.cu", ("-DPC_ZG=1",
                                                     "-DPC_SHEAR=1")),
+    # stratified convection and magnetoconvection with the shock slot: the
+    # z-ghosted builds with ss reading the Shock module's profile
+    "fused_rhs_zg_shock": ("fused_rhs.cu", ("-DPC_MAG=0", "-DPC_ENT=1",
+                                            "-DPC_ZG=1", "-DPC_SHOCK=1")),
+    "fused_rhs_zg_mag_shock": ("fused_rhs.cu", ("-DPC_ENT=1", "-DPC_ZG=1",
+                                                "-DPC_SHOCK=1")),
 }
 
 _p = ctypes.c_void_p
@@ -147,6 +153,8 @@ SIGNATURES = {
     "fused_rhs_zg_iso_mag": _ZG,
     "fused_rhs_zg_iso_shear": _ZG,
     "fused_rhs_zg_iso_mag_shear": _ZG,
+    "fused_rhs_zg_shock": _ZG,
+    "fused_rhs_zg_mag_shock": _ZG,
 }
 
 _libs = {}
@@ -182,11 +190,12 @@ def library_path(name: str) -> Path:
 def _nvcc_order() -> list:
     """The libraries in the order their nvcc runs start, the longest first:
     by entry points (the periodic builds' tails), then the z-ghosted
-    builds with ss (eight instances a kernel, the others four), then
-    fields."""
+    builds with ss (twelve or, with the shock slot, sixteen instances a
+    kernel, the others six), then slots."""
     def key(name):
         defs = LIBRARIES[name][1]
-        fields = 4 + 3 * ("-DPC_MAG=0" not in defs) + ("-DPC_ENT=1" in defs)
+        fields = (4 + 3 * ("-DPC_MAG=0" not in defs) + ("-DPC_ENT=1" in defs)
+                  + ("-DPC_SHOCK=1" in defs))
         chi = "-DPC_ZG=1" in defs and "-DPC_ENT=1" in defs
         return len(SIGNATURES[name]), chi, fields
     return sorted(LIBRARIES, key=key, reverse=True)

@@ -65,7 +65,13 @@ built with ``PC_ZG=1`` and without ``PC_ENT`` (libraries
 and ``fused_rhs_zg_iso_mag_shear``: K6i/K7i, K6mi/K7mi, K6si/K7si,
 K6msi/K7msi, launch names with ``_iso``, ``_iso_mag``, ``_iso_shear``,
 ``_iso_mag_shear``), which read g_z(z) as a vector (``zg_profiles``) and
-have no CHI instances.
+have no CHI instances.  Stratified convection and magnetoconvection with
+the Shock module's slot run them on the template built with ``PC_SHOCK=1``
+too (libraries ``fused_rhs_zg_shock``, K6k/K7k, launch names with
+``_shock``, and ``fused_rhs_zg_mag_shock``, K6mk/K7mk, ``_mag_shock``),
+on the interior stack of all slots (6 or 9, the slot last) and its z
+slabs, the slot's among them; they add ν_sh and have CHI, UPW and SHK
+instances, no H3.
 
 The shocked periodic box (wrap_aux mode), on the raw periodic 8-slot state
 (8, nx, ny, nz) (uu, lnrho, aa, shock) after the shock pre-pass: the
@@ -275,19 +281,20 @@ def _kicked(model, fa, kick):
 
 
 def rhs_zg_plain(model, fa, zlo, zhi):
-    """K6's (K6m's, K6i's, K6mi's) plain version: (df, 0-d max of 1/dt)
-    on the interior stack and its z-halo slabs."""
+    """K6's (K6m's, K6i's, K6mi's, K6k's, K6mk's) plain version: (df, 0-d
+    max of 1/dt) on the interior stack and its z-halo slabs, the shock
+    slot among them where the layout has it."""
     return rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi), ghosted=True)
 
 
 def rhs_zg_upd_plain(model, fa, zlo, zhi, df_prev, coef):
-    """K7's (K7m's, K7i's, K7mi's) plain version: (df, f); df is written
-    over df_prev."""
+    """K7's (K7m's, K7i's, K7mi's, K7k's, K7mk's) plain version: (df, f)
+    of the evolved fields; df is written over df_prev."""
     alpha, bdt = coef[0], coef[1]
     dfa, _ = rhs_plain(model, ghosted_from_z_slabs(fa, zlo, zhi),
                        want_dt1=False, ghosted=True)
     df_prev.copy_(alpha * df_prev + dfa)
-    return df_prev, fa + bdt * df_prev
+    return df_prev, fa[: model.reg.nvar] + bdt * df_prev
 
 
 def rhs_zg_shear_plain(model, fg, zlo, zhi):
@@ -490,16 +497,18 @@ AUX_KERNELS = {lib: tuple(k + sfx for k in base)
 
 
 def _sd_flags(lib):
-    """The launch-name suffixes of an aux build's instances without and
-    with the shock diffusivities: ('', '_sd') with the shock slot, else
-    ('',)."""
-    return ("", "_sd")[:1 + ("shock" in _AUX_BUILDS[lib][0])]
+    """The launch-name suffixes of an aux or z-ghosted build's instances
+    without and with the shock diffusivities: ('', '_sd') with the shock
+    slot, else ('',)."""
+    layout = (_AUX_BUILDS.get(lib) or _ZG_BUILDS[lib])[0]
+    return ("", "_sd")[:1 + ("shock" in layout)]
 
 
 # the z-ghosted builds, each with its field layout, its module set (the
-# conv-slab's, with Magnetic, and each with Shear; the isothermal
-# stratified layer's, hydro or MHD, each with Shear; forcing rides along
-# as the kick after the step) and its two launch names
+# conv-slab's, with Magnetic, and each with Shear or with the Shock
+# module's slot last; the isothermal stratified layer's, hydro or MHD,
+# each with Shear; forcing rides along as the kick after the step) and its
+# two launch names
 _CONVSLAB = frozenset(("eos", "density", "hydro", "gravity", "viscosity",
                        "entropy"))
 _STRAT = _ISO | {"gravity"}
@@ -519,28 +528,46 @@ _ZG_BUILDS = {
     "fused_rhs_zg_iso_mag_shear": (_MHD, _STRAT | {"magnetic", "shear"},
                                    ("rhs_zg_iso_mag_shear",
                                     "rhs_zg_upd_iso_mag_shear")),
+    "fused_rhs_zg_shock": (dict(_HENT, shock=slice(5, 6)),
+                           _CONVSLAB | {"shock"},
+                           ("rhs_zg_shock", "rhs_zg_upd_shock")),
+    "fused_rhs_zg_mag_shock": (dict(_ENT, shock=slice(8, 9)),
+                               _CONVSLAB | {"magnetic", "shock"},
+                               ("rhs_zg_mag_shock", "rhs_zg_upd_mag_shock")),
 }
 ZG_KERNELS = {lib: names for lib, (_, _, names) in _ZG_BUILDS.items()}
 # the z-ghosted builds with ss, the only ones with CHI instances
 ZG_CHI_LIBRARIES = tuple(lib for lib, (layout, _, _) in _ZG_BUILDS.items()
                          if "ss" in layout)
+# the z-ghosted builds with the shock slot: SHK instances (the shock
+# diffusivities), no H3 ones (del6 beside the slot is refused)
+ZG_SHOCK_LIBRARIES = tuple(lib for lib, (layout, _, _) in _ZG_BUILDS.items()
+                           if "shock" in layout)
+
+
+def _zg_flags(lib):
+    """The launch-name flags (after _chi) of a z-ghosted build's
+    instances: ('', '_h3', '_upw'), without '_h3' in the builds with the
+    shock slot."""
+    return ("", "_upw") if lib in ZG_SHOCK_LIBRARIES else ("", "_h3", "_upw")
 
 
 # Launches of each kernel: a wrapper adds one where it launches, and
 # nowhere else, so a run can show that its main path went through them.
 # The H3 instances of the periodic builds (suffix _h3) and the CHI and H3
 # instances of the z-ghosted builds (_chi, _h3, _chi_h3; the builds
-# without ss have no CHI) count under names of their own; the aux builds'
-# H3 instances under their builds' names.  The UPW instances of every
-# build count under names of their own, with the suffix _upw (after _chi),
-# and the SHK instances of the builds with the shock slot under theirs,
-# with the suffix _sd (after _upw).
+# without ss have no CHI, those with the shock slot no H3) count under
+# names of their own; the aux builds' H3 instances under their builds'
+# names.  The UPW instances of every build count under names of their own,
+# with the suffix _upw (after _chi), and the SHK instances of the builds
+# with the shock slot under theirs, with the suffix _sd (after _upw).
 LAUNCHES = dict.fromkeys(
     [k + sfx + flag for flag in ("", "_h3", "_upw")
      for sfx in _SUFFIX.values() for k in _WRAP_KERNELS]
     + ["rhs_first_fake", "rhs_tail_defer_fake", "rhs_tail_last_fake"]
-    + [k + chi + flag for chi in ("", "_chi") for flag in ("", "_h3", "_upw")
-       for lib, names in ZG_KERNELS.items() for k in names
+    + [k + chi + flag + sd for lib, names in ZG_KERNELS.items()
+       for chi in ("", "_chi") for flag in _zg_flags(lib)
+       for sd in _sd_flags(lib) for k in names
        if not chi or lib in ZG_CHI_LIBRARIES]
     + [k + upw + sd for lib, names in AUX_KERNELS.items() for k in names
        for upw in ("", "_upw") for sd in _sd_flags(lib)], 0)
@@ -631,9 +658,12 @@ def zg_library(model) -> str:
     'fused_rhs_zg_iso_mag', and with Shear 'fused_rhs_zg_iso_shear' and
     'fused_rhs_zg_iso_mag_shear', each with or without forcing, Ω and
     del6; each with or without Gravity (without it g_z = 0: the kernels
-    read a null vector); on a grid with z walls and x, y periodic; raises
-    for another layout, module set or grid.  Found once per model: the
-    conv-slab step is bound by the host."""
+    read a null vector); with the Shock module's slot after ss (or aa)
+    'fused_rhs_zg_shock' and 'fused_rhs_zg_mag_shock', each with or
+    without forcing, Ω, chi-const and the shock diffusivities; on a grid
+    with z walls and x, y periodic; raises for another layout, module set
+    or grid.  Found once per model: the conv-slab step is bound by the
+    host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
@@ -641,16 +671,17 @@ def zg_library(model) -> str:
     names = {m.name for m in cfg.modules} - {"forcing", "gravity"}
     walls = tuple(cfg.grid.periodic) == (True, True, False)
     for lib, (layout, modules, _) in _ZG_BUILDS.items():
-        n = sum(sl.stop - sl.start for sl in layout.values())
-        if walls and names == modules - {"gravity"} \
-                and reg.nvar == reg.nf == n and all(
+        n = max(sl.stop for sl in layout.values())
+        if walls and names == modules - {"gravity"} and reg.nf == n \
+                and reg.nvar == n - ("shock" in layout) and all(
                     reg.slice(k) == v for k, v in layout.items()):
             model.__dict__["_zg_library"] = lib
             return lib
     raise NotImplementedError(
         "zghost kernels: the conv-slab's (uu, lnrho, ss) layout and modules, "
-        "with or without Magnetic's aa and Shear, or the same without ss "
-        f"and Entropy, with z walls only, got "
+        "with or without Magnetic's aa and with Shear or the Shock module's "
+        "slot, or the same without ss and Entropy, with Shear, with z walls "
+        "only, got "
         f"{reg.comp_names} of {sorted(names)}, periodic="
         f"{tuple(cfg.grid.periodic)}")
 
@@ -660,11 +691,12 @@ def zg_kernels(model):
     ZG_KERNELS's, with the suffix _chi where its CHI instances run
     (chi-const on), then _h3 where its H3 instances run (a del6
     coefficient on) or _upw where its UPW instances run (an lupw flag
-    on); found once per model."""
+    on), then _sd where its SHK instances run (a shock diffusivity on,
+    the builds with the shock slot); found once per model."""
     names = model.__dict__.get("_zg_kernels")
     if names is None:
         chi = "_chi" if kernel_params(model).cpchi > 0.0 else ""
-        sfx = chi + _flag_suffix(model)
+        sfx = chi + _flag_suffix(model) + _sd_suffix(model)
         names = tuple(k + sfx for k in ZG_KERNELS[zg_library(model)])
         model.__dict__["_zg_kernels"] = names
     return names
@@ -807,6 +839,11 @@ def kernel_params(model) -> PcParams:
             "fused kernels: upwinding (lupw_lnrho, lupw_uu, lupw_ss) with "
             "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3): "
             "no instance has both")
+    if m3 > 0.0 and "shock" in model.reg.slots and not all(gs.periodic):
+        raise NotImplementedError(
+            "fused kernels: del6 hyper-diffusion (nu_hyper3, eta_hyper3, "
+            "diffrho_hyper3) with the Shock module's slot on a z-walled "
+            "grid: no instance has both")
     diffrho_shock, eta_shock, chi_shock = shock_coefficients(cfg, model.reg)
     x0, y0 = _node0(gs)
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
@@ -877,7 +914,8 @@ def library_instances(lib):
     rotation or H3); the shock builds have their two kernels with H3
     (" h3"), the z-ghosted builds theirs with CHI (launch names with _chi;
     the builds with ss only) and with H3 (_h3), each with or without the
-    other."""
+    other; those with the shock slot have no H3 instance, and a SHK twin
+    (_sd) of each of the others."""
     rot = (("", 0), (" rot", 16))
     if lib in AUX_KERNELS:
         return {kernel + upw + sd + flag + h3: which + r + x + z
@@ -888,10 +926,12 @@ def library_instances(lib):
                 for flag, r in rot}
     if lib in ZG_KERNELS:
         chis = (("", 0), ("_chi", 64))[:1 + (lib in ZG_CHI_LIBRARIES)]
-        return {kernel + chi + h3 + flag: which + r + x + y
+        bits = {"": 0, "_h3": 32, "_upw": 128}
+        return {kernel + chi + h3 + sd + flag: which + r + x + bits[h3] + z
                 for kernel, which in zip(ZG_KERNELS[lib], (0, 8))
                 for chi, x in chis
-                for h3, y in (("", 0), ("_h3", 32), ("_upw", 128))
+                for h3 in _zg_flags(lib)
+                for sd, z in zip(_sd_flags(lib), (0, 256))
                 for flag, r in rot}
     sfx = _SUFFIX[lib]
     out = {}
@@ -1072,7 +1112,7 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
     lib = zg_library(model)
     shape = (model.reg.nvar, p.nx, p.ny, p.nz)
     g2 = 2 * NGHOST if model.shear is not None else 0
-    src = (shape[0], p.nx + g2, p.ny + g2)
+    src = (model.reg.nf, p.nx + g2, p.ny + g2)
     _check(fa, src + (p.nz,), "fa")
     for name, t in (("zlo", zlo), ("zhi", zhi)):
         _check(t, src + (NGHOST,), name)
@@ -1086,11 +1126,11 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
 
 
 def rhs_zg(model, fa, zlo, zhi):
-    """K6 (K6m with aa; K6s, K6ms with Shear; K6i, K6mi, K6si, K6msi
-    without ss): replaces ``kernel_zg`` +
+    """K6 (K6m with aa; K6s, K6ms with Shear; K6k, K6mk with the shock
+    slot; K6i, K6mi, K6si, K6msi without ss): replaces ``kernel_zg`` +
     ``_fetch_zg`` (fused_rhs.py:317, :301), on the interior stack (with
-    Shear: the x/y-ghosted one) and its z-halo slabs.  Returns (df, 0-d
-    max of 1/dt)."""
+    Shear: the x/y-ghosted one; with the shock slot: all nf slots) and its
+    z-halo slabs.  Returns (df, 0-d max of 1/dt)."""
     if not _dispatch(fa):
         return zg_plain(model)[0](model, fa, zlo, zhi)
     lib, (name, _), shape, after = _zg_inputs(model, fa, zlo, zhi)
@@ -1103,10 +1143,10 @@ def rhs_zg(model, fa, zlo, zhi):
 
 
 def rhs_zg_upd(model, fa, zlo, zhi, df_prev, coef):
-    """K7 (K7m with aa; K7s, K7ms with Shear; K7i, K7mi, K7si, K7msi
-    without ss): replaces ``kernel_zg_upd``
-    (fused_rhs.py:349).  Returns (df, f); df is df_prev's buffer,
-    overwritten."""
+    """K7 (K7m with aa; K7s, K7ms with Shear; K7k, K7mk with the shock
+    slot; K7i, K7mi, K7si, K7msi without ss): replaces ``kernel_zg_upd``
+    (fused_rhs.py:349).  Returns (df, f) of the evolved fields; df is
+    df_prev's buffer, overwritten."""
     if not _dispatch(fa):
         return zg_plain(model)[1](model, fa, zlo, zhi, df_prev, coef)
     lib, (_, name), shape, after = _zg_inputs(model, fa, zlo, zhi, df_prev,

@@ -26,7 +26,10 @@ K6 and K7 of ``fused_rhs_zg``, the same names of
 ``fused_rhs_zg_mag_shear`` their K6s/K7s and K6ms/K7ms (5 and 8 ring
 fields), of ``fused_rhs_zg_iso``, ``fused_rhs_zg_iso_mag``,
 ``fused_rhs_zg_iso_shear`` and ``fused_rhs_zg_iso_mag_shear`` K6i/K7i,
-K6mi/K7mi, K6si/K7si and K6msi/K7msi (4 and 7 ring fields), and K6rot,
+K6mi/K7mi, K6si/K7si and K6msi/K7msi (4 and 7 ring fields), of
+``fused_rhs_zg_shock`` and ``fused_rhs_zg_mag_shock`` K6k/K7k and
+K6mk/K7mk (6 and 9 ring fields; K6sd, K7sd, K6chisd, K7chisd their SHK
+instances alone and beside chi-const), and K6rot,
 K7rot their Coriolis
 instances, K6chi, K7chi their chi-const ones, K6h3, K7h3 their del6 ones,
 K6chih3, K7chih3 both, K6roth3, K7roth3 del6 with rotation and
@@ -120,6 +123,12 @@ INSTANCES = {
     "K5wsd": (0, 0, 0, 0, 0, 0, 0, 0, 0, 1),
     "K4sd": (1, 0, 0, 0, 0, 1, 1, 0, 0, 1),
     "K5sd": (0, 0, 0, 0, 0, 1, 1, 0, 0, 1),
+    # the z-ghosted builds with the shock slot: K6k/K7k (K6mk/K7mk) are
+    # their K6 and K7; their SHK twins, alone and beside chi-const
+    "K6sd": (1, 0, 0, 0, 0, 0, 0, 0, 0, 1),
+    "K7sd": (0, 0, 0, 0, 0, 0, 0, 0, 0, 1),
+    "K6chisd": (1, 0, 0, 0, 0, 0, 0, 1, 0, 1),
+    "K7chisd": (0, 0, 0, 0, 0, 0, 0, 1, 0, 1),
 }
 NFLAGS = 10      # the template arguments of pc_flagship
 # MODE (0 first, 1 update) and WRAP of pc_shearbox, the 4x4x16 template

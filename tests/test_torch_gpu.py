@@ -6,7 +6,8 @@ layouts (K1sh/K5wh, K4n/K5n, K4h/K5h, K4hn/K5hn, each with and without Ω
 and del6) and of their hydro layouts with an entropy field (K1she/K5whe,
 K4he/K5he, K4hne/K5hne), K6/K7 of stratified convection, K6m/K7m
 of magnetoconvection, each z-ghosted pair also with Ω, K6s/K7s and
-K6ms/K7ms of the stratified shearing box, the H3 instances
+K6ms/K7ms of the stratified shearing box, K6k/K7k and K6mk/K7mk of the
+shocked conv-slab and magnetoconvection, the H3 instances
 of the four periodic builds (del6 hyper-diffusion) and the CHI and H3
 instances of the z-ghosted builds (chi-const, del6), every build
 under gravity, and every build with the continuous forcing and, with
@@ -584,7 +585,8 @@ def stratified_fg(pm, seed=4):
     with Magnetic a noisy vector potential, as the z-ghosted kernels take
     it (``Model.zg_input``): (fa, zlo, zhi), fa's boundary planes pinned,
     the slabs from the z-only fill; with Shear fa ghosted in x and y with
-    the x faces shifted by deltay at t = 0.37, and its slabs."""
+    the x faces shifted by deltay at t = 0.37, and its slabs; with the
+    shock slot a positive profile of 1e-3 last."""
     g = torch.Generator(pm.device).manual_seed(seed)
     f = pm.init_state(0)["fields"]
     shape = pm.cfg.grid.shape
@@ -596,6 +598,9 @@ def stratified_fg(pm, seed=4):
              (f["ss"] + noise(shape))[None]]
     if "aa" in pm.reg.slots:
         parts.append(noise((3,) + shape))
+    if "shock" in pm.reg.slots:
+        parts.append(1e-3 * torch.rand((1,) + shape, generator=g,
+                                       device=pm.device))
     sdy = (pm.deltay(torch.tensor(0.37, device=pm.device))
            if pm.shear is not None else None)
     return pm.zg_input(torch.cat(parts).contiguous(), sdy)
@@ -684,13 +689,19 @@ def test_zghost_instances_hold_no_local_memory(cuda, lib):
     with rotation, chi-const and del6, and those of the builds without ss
     (K6i, K7i, K6mi, K7mi, K6si, K7si, K6msi, K7msi), each without and
     with rotation and del6, and each build's upwinding instances (_upw)
-    beside the chi-const ones where it has them: no spill and no stack,
-    one 256-thread block per SM or more."""
+    beside the chi-const ones where it has them, and those of the builds
+    with the shock slot (K6k, K7k, K6mk, K7mk), each with and without
+    rotation, chi-const, the upwinding and the shock diffusivities (_sd),
+    no del6: no spill and no stack, one 256-thread block per SM or
+    more."""
     attrs = fr.flagship_attrs(lib)
     first, upd = fr.ZG_KERNELS[lib]
     chis = ("", "_chi") if lib in fr.ZG_CHI_LIBRARIES else ("",)
-    assert set(attrs) == {k + chi + flag + rot for k in (first, upd)
-                          for chi in chis for flag in ("", "_h3", "_upw")
+    shock = lib in fr.ZG_SHOCK_LIBRARIES
+    flags = ("", "_upw") if shock else ("", "_h3", "_upw")
+    sds = ("", "_sd") if shock else ("",)
+    assert set(attrs) == {k + chi + flag + sd + rot for k in (first, upd)
+                          for chi in chis for flag in flags for sd in sds
                           for rot in ("", " rot")}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
@@ -1531,3 +1542,45 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch, which):
     torch.cuda.synchronize()
     assert torch.isfinite(s["fields"]["uu"]).all()
 
+
+
+# the z-ghosted builds with the shock slot: conv_slab keyword arguments
+ZG_SHOCK_CASES = {"conv": dict(shock=True),
+                  "mag": dict(shock=True, magnetic=True)}
+
+
+@pytest.mark.parametrize("sd", (False, True), ids=("nu_sh", "sd"))
+@pytest.mark.parametrize("upwind", (False, True), ids=("plain", "upw"))
+@pytest.mark.parametrize("chi", (0.0, 4e-3), ids=("K", "chi"))
+@pytest.mark.parametrize("omega", (0.0, 1.0), ids=("still", "rot"))
+@pytest.mark.parametrize("case", sorted(ZG_SHOCK_CASES))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_zg_shock_instances_match_plain(cuda, shape, case, omega, chi,
+                                        upwind, sd):
+    """K6k/K7k and K6mk/K7mk, every instance (with and without Ω,
+    chi-const, the upwinding and the shock diffusivities), on the interior
+    stack of all slots with a positive shock profile and its z slabs,
+    against their plain versions."""
+    cfg = conv_slab(shape, Omega=omega, chi=chi, upwind=upwind,
+                    **ZG_SHOCK_CASES[case])
+    _zghost_kernels_match_plain(cuda, with_shock_diffusion(cfg) if sd
+                                else cfg)
+
+
+@pytest.mark.parametrize("sd", (False, True), ids=("nu_sh", "sd"))
+@pytest.mark.parametrize("case", sorted(ZG_SHOCK_CASES))
+def test_zg_shock_steps_on_card_match_cpu(cuda, case, sd):
+    """Three steps of the shocked conv-slab and magnetoconvection (the
+    shock pre-pass before each kernel) on the card against the CPU."""
+    cfg = conv_slab((16, 16, 32), **ZG_SHOCK_CASES[case])
+    _conv_slab_steps_match(cuda, with_shock_diffusion(cfg) if sd else cfg)
+
+
+def test_highorder_shock_box_steps_on_card_match_cpu(cuda):
+    """Three steps of the shocked box with the 'highorder' profile
+    (K1s/K5w) on the card against the CPU from the same fields and
+    draws."""
+    cfg = shock_box(32)
+    _steps_match(cuda, cfg.replace(modules=tuple(
+        dataclasses.replace(m, variant="highorder") if m.name == "shock"
+        else m for m in cfg.modules)), uu_noise=0.1)

@@ -18,7 +18,7 @@ import torch
 
 import pencil_tpu_torch as pt
 from pencil_tpu_torch.configs import (conv_slab, flagship, shear_box,
-                                     shock_box)
+                                     shock_box, with_shock_diffusion)
 from pencil_tpu_torch.ops import _build
 from pencil_tpu_torch.ops import fused_rhs as fr
 from pencil_tpu_torch.ops.stencil import NGHOST
@@ -60,7 +60,8 @@ open(args[args.index("-o") + 1], "w").close()
 
 def test_build_starts_the_longest_first_one_per_cpu(tmp_path, monkeypatch):
     """The nvcc runs start in the background, the periodic builds first,
-    then the z-ghosted ones, then the shock and shear builds, at most one
+    then the z-ghosted ones with ss (with and without the shock slot),
+    then the shock and shear builds, at most one
     per CPU at a time; waiting for one library does not wait for the
     rest, and a failed run raises with nvcc's output while the others
     are built (a fake nvcc that logs its runs)."""
@@ -86,9 +87,11 @@ def test_build_starts_the_longest_first_one_per_cpu(tmp_path, monkeypatch):
     # two runs start together: their log lines may come in either order
     assert set(started[:4]) == {"fused_rhs", "fused_rhs_ent",
                                 "fused_rhs_hydro_ent", "fused_rhs_hydro"}
-    assert set(started[4:8]) == {"fused_rhs_zg_mag", "fused_rhs_zg",
-                                 "fused_rhs_zg_mag_shear",
-                                 "fused_rhs_zg_shear"}
+    assert set(started[4:10]) == {"fused_rhs_zg_mag", "fused_rhs_zg",
+                                  "fused_rhs_zg_mag_shear",
+                                  "fused_rhs_zg_shear",
+                                  "fused_rhs_zg_mag_shock",
+                                  "fused_rhs_zg_shock"}
     assert sorted(started) == sorted(_build.LIBRARIES)
     at_once = peak = 0
     for word, _ in events:
@@ -329,6 +332,75 @@ def test_rotating_conv_slab_step_launches_its_zg_build(recorded, monkeypatch,
     first, upd = fr.ZG_KERNELS[lib]
     assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
                                **{first: 1, upd: 2})
+
+
+def test_libraries_hold_the_zg_shock_builds():
+    """K6k/K7k and K6mk/K7mk are the flagship source built with PC_ZG=1
+    and PC_SHOCK=1 on the conv-slab's layouts with the shock slot last,
+    with the z-ghosted builds' entry points; each kernel has sixteen
+    instances, with and without rotation (+16), chi-const (+64), the
+    upwinding (+128) and the shock diffusivities (+256, launch names with
+    _sd), and none with del6."""
+    libs = _build.LIBRARIES
+    assert libs["fused_rhs_zg_shock"] == ("fused_rhs.cu", (
+        "-DPC_MAG=0", "-DPC_ENT=1", "-DPC_ZG=1", "-DPC_SHOCK=1"))
+    assert libs["fused_rhs_zg_mag_shock"] == ("fused_rhs.cu", (
+        "-DPC_ENT=1", "-DPC_ZG=1", "-DPC_SHOCK=1"))
+    for lib, (first, upd) in (
+            ("fused_rhs_zg_shock", ("rhs_zg_shock", "rhs_zg_upd_shock")),
+            ("fused_rhs_zg_mag_shock", ("rhs_zg_mag_shock",
+                                        "rhs_zg_upd_mag_shock"))):
+        assert _build.SIGNATURES[lib] == _build.SIGNATURES["fused_rhs_zg"]
+        assert fr.ZG_KERNELS[lib] == (first, upd)
+        assert lib in fr.ZG_SHOCK_LIBRARIES and lib in fr.ZG_CHI_LIBRARIES
+        want = {}
+        for k, base in ((first, 0), (upd, 8)):
+            for chi, c in (("", 0), ("_chi", 64)):
+                for upw, u in (("", 0), ("_upw", 128)):
+                    for sd, d in (("", 0), ("_sd", 256)):
+                        name = k + chi + upw + sd
+                        want[name] = base + c + u + d
+                        want[name + " rot"] = base + c + u + d + 16
+                        assert name in fr.LAUNCHES
+        assert fr.library_instances(lib) == want
+
+
+@pytest.mark.parametrize("sd", (False, True), ids=("nu_sh", "sd"))
+@pytest.mark.parametrize("magnetic", (False, True), ids=("hydro", "mag"))
+def test_shocked_conv_slab_step_launches_its_zg_shock_build(
+        recorded, monkeypatch, magnetic, sd):
+    """The shocked conv-slab and magnetoconvection at order 3: one K6k and
+    two K7k (K6mk, K7mk) per step, or their SHK instances with the shock
+    diffusivities, of the build of the layout, each on the stack of all
+    slots after the pre-pass and its slabs."""
+    cfg = conv_slab(SHAPE, magnetic=magnetic, shock=True)
+    pm = pt.Model(with_shock_diffusion(cfg) if sd else cfg, device="cpu")
+    lib = "fused_rhs_zg_mag_shock" if magnetic else "fused_rhs_zg_shock"
+    monkeypatch.setattr(fr, "_nblocks", lambda shape, lib: 1)
+    monkeypatch.setattr(torch, "amax", lambda t: torch.ones(()))
+    pm._zghost_step(pm.init_state(0))
+    assert recorded == [(lib, "pc_rhs_first")] + [
+        (lib, "pc_rhs_tail_mid")] * 2
+    first, upd = (k + ("_sd" if sd else "") for k in fr.ZG_KERNELS[lib])
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0),
+                               **{first: 1, upd: 2})
+
+
+def test_zg_shock_wrappers_take_every_slot(recorded):
+    """K6k and K7k take the interior stack of all 6 slots and slabs of 6
+    components, and give df and f of the 5 evolved fields; the stack
+    without the slot is refused."""
+    pm = pt.Model(conv_slab(SHAPE, shock=True), device="cpu")
+    fa = torch.zeros((6,) + SHAPE)
+    slab = torch.zeros((6,) + SHAPE[:2] + (NGHOST,))
+    df, _ = fr.rhs_zg(pm, fa, slab, slab)
+    assert df.shape == (5,) + SHAPE
+    df2, f2 = fr.rhs_zg_upd(pm, fa, slab, slab, torch.zeros((5,) + SHAPE),
+                            torch.zeros(2))
+    assert df2.shape == f2.shape == (5,) + SHAPE
+    with pytest.raises(ValueError):
+        fr.rhs_zg(pm, fa[:5].contiguous(), slab[:5].contiguous(),
+                  slab[:5].contiguous())
 
 
 def test_kernel_params_carry_the_conv_slab_terms():

@@ -28,6 +28,7 @@ from pencil_tpu_torch.compat import io_dist, samples
 from pencil_tpu_torch.compat.namelist import parse_namelists
 from pencil_tpu_torch.compat.rundir import load_rundir
 from pencil_tpu_torch.core.grid import make_grid
+from pencil_tpu_torch.ops import fused_rhs as fr
 from pencil_tpu_torch.physics.forcing import shell_vectors
 from pencil_tpu_torch.post import read as pread
 
@@ -109,6 +110,30 @@ def shock_rundir(d, nt=4):
          "'eta-shock', eta_shock=1."),
         ("run.in", "nu=5e-3, ivisc='nu-const'",
          "nu=5e-3, nu_shock=1., ivisc='nu-const','nu-shock'")])
+
+
+def shock_highorder_rundir(d, nt=4):
+    """``shock_rundir`` with the reference's shock_highorder module and
+    switches of &shock_run_pars: the maximum over ±2 cells, 'gaussian'
+    7-point smoothing."""
+    return _edited(shock_rundir(d, nt=nt), [
+        ("src/Makefile.local", "SHOCK = shock", "SHOCK = shock_highorder"),
+        ("run.in", "&density_run_pars\n",
+         "&shock_run_pars\n  ishock_max=2, lgaussian_smooth=T\n/\n"
+         "&density_run_pars\n")])
+
+
+def conv_shock_rundir(d, nt=4):
+    """conv-slab's shape (velocity noise of 5e-2) with the Shock module
+    between its walls: nu-shock (ν_sh = 1) beside ν, and the slot's bcz
+    code 's' in start.in and run.in."""
+    bcz = "bcz='s','s','a','a2','c1:cT'"
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="5e-2"), [
+        ("src/Makefile.local", "VISCOSITY = viscosity",
+         "VISCOSITY = viscosity\nSHOCK = shock"),
+        ("start.in", bcz, bcz + ",'s'"), ("run.in", bcz, bcz + ",'s'"),
+        ("run.in", "nu=4e-3", "nu=4e-3, nu_shock=1., "
+         "ivisc='nu-const','nu-shock'")])
 
 
 RUNDIRS = {"helical": (helical_rundir, HELICAL_N, "flagship"),
@@ -297,6 +322,68 @@ def test_loader_maps_upwinding_and_shock_diffusion_as_jax(tmp_path, name):
         assert pt.Model(cfg, device="cpu").mode == "wrap_aux"
 
 
+# the switches of &shock_run_pars (appended to run.in) and the Shock
+# module's fields they set
+SHOCK_SWITCHES = {
+    "ishock_max": ("ishock_max=3", dict(ishock_max=3)),
+    "lgaussian_smooth": ("lgaussian_smooth=T", dict(lgaussian_smooth=True)),
+    "lconvergence_only": ("lconvergence_only=F",
+                          dict(lconvergence_only=False)),
+    "shock_div_pow": ("shock_div_pow=2.", dict(shock_div_pow=2.0)),
+}
+
+
+@pytest.mark.parametrize("switch", sorted(SHOCK_SWITCHES))
+@pytest.mark.parametrize("slot", ("shock", "shock_highorder"))
+def test_loader_maps_the_shock_switches_as_jax(tmp_path, switch, slot):
+    """SHOCK = shock or shock_highorder and each switch of
+    &shock_run_pars map as JAX's loader maps them
+    (pencil_tpu/compat/rundir.py:1635-1650): the two Shock modules equal
+    field by field."""
+    text, want = SHOCK_SWITCHES[switch]
+    d = _edited(shock_rundir(tmp_path / "r"), [
+        ("src/Makefile.local", "SHOCK = shock", f"SHOCK = {slot}"),
+        ("run.in", "&density_run_pars\n",
+         f"&shock_run_pars\n  {text}\n/\n&density_run_pars\n")])
+    mine, ref = (load(d)[0].module("shock") for load in (load_rundir,
+                                                         jax_load))
+    for f in dataclasses.fields(mine):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    variant = "highorder" if slot == "shock_highorder" else "original"
+    assert mine == pt.Shock(variant=variant, **want)
+
+
+def test_loader_maps_lmax_shock(tmp_path):
+    """&shock_run_pars' lmax_shock maps to the Shock module's (the JAX
+    loader leaves it at its default, True)."""
+    d = _edited(shock_rundir(tmp_path / "r"), [
+        ("run.in", "&density_run_pars\n",
+         "&shock_run_pars\n  lmax_shock=F\n/\n&density_run_pars\n")])
+    assert load_rundir(d)[0].module("shock") == pt.Shock(lmax_shock=False)
+    assert jax_load(d)[0].module("shock").lmax_shock
+
+
+def test_loader_takes_a_walled_shock_with_its_bc(tmp_path):
+    """A z-walled conv-slab directory with the Shock module: the slot's
+    bcz code comes through as any other slot's, as in JAX's loader, and
+    the configuration runs the zghost chain on K6k/K7k; without the code
+    the port refuses the directory, naming the slot."""
+    d = conv_shock_rundir(tmp_path / "r")
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    assert pt.BC("shock", "s", "s") in cfg.bcz
+    assert [(bc.comp, bc.low, bc.high) for bc in cfg.bcz] == [
+        (bc.comp, bc.low, bc.high) for bc in jcfg.bcz]
+    assert cfg.module("viscosity").coefficients()[1] == 1.0
+    pm = pt.Model(cfg, device="cpu")
+    assert pm.mode == "zghost"
+    assert fr.zg_kernels(pm) == ("rhs_zg_shock", "rhs_zg_upd_shock")
+    bare = _edited(conv_shock_rundir(tmp_path / "s"), [
+        ("start.in", ",'s'\n", "\n"), ("run.in", ",'s'\n", "\n")])
+    with pytest.raises(NotImplementedError, match="'shock' slot"):
+        pt.Model(load_rundir(bare)[0], device="cpu")
+
+
 def test_replay_keeps_the_continuous_forcing(tmp_path):
     """A run directory with the reference's forcing draws (k.dat) and
     continuous forcing replays the draws and keeps the continuous term;
@@ -366,8 +453,6 @@ REFUSED = {
     "temperature": ("conv", "src/Makefile.local",
                     ("ENTROPY = entropy", "ENTROPY = temperature_idealgas"),
                     "ENTROPY"),
-    "shock_highorder": ("helical", "src/Makefile.local",
-                        "SHOCK = shock_highorder\n", "SHOCK"),
     "deriv_8th": ("helical", "src/Makefile.local", "DERIV = deriv_8th\n",
                   "DERIV"),
     # namelist groups of modules the port lacks

@@ -7,7 +7,10 @@ imposed field (``B_ext``) and driven by continuous forcing ('ABC', the
 helical kicks off), started and run by both command lines, and two the
 loader refused before: the convection directory with lupw_lnrho,
 lupw_uu and lupw_ss, and the first one's shape with ss and the shock
-diffusivities beside nu-shock (started and run only),
+diffusivities beside nu-shock, with SHOCK = shock_highorder (ishock_max
+= 2, 'gaussian' smoothing) too, and the convection directory with the
+Shock module and nu-shock between its walls, the slot's bcz code 's'
+(started and run only),
 the port's chain on its kernels' plain versions, the JAX package on its
 jnp path (its loader's Config is not fused); the reference-layout data
 directory that both ``export`` commands write; and RELOAD, which re-reads
@@ -37,8 +40,9 @@ from pencil_tpu_torch.io.timeseries import read_time_series
 from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
-from test_torch_rundir import (bext_rundir, conv_rundir, fcont_rundir,
-                               helical_rundir, shock_rundir, upwind_rundir)
+from test_torch_rundir import (bext_rundir, conv_rundir, conv_shock_rundir,
+                               fcont_rundir, helical_rundir, shock_rundir,
+                               shock_highorder_rundir, upwind_rundir)
 
 torch.set_num_threads(1)
 
@@ -94,6 +98,24 @@ def test_cli_runs_upwinding_and_shock_diffusion(tmp_path, name):
     JAX's jnp path keeps its zeros there, ROADMAP Queue 3)."""
     mine = {"upwind": upwind_rundir, "shock": shock_rundir}[name](
         tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref), skip=("shock",))
+
+
+@pytest.mark.parametrize("name", ("highorder", "conv_shock"))
+def test_cli_runs_the_shock_module_whole(tmp_path, name):
+    """Run directories the loader refused before: helical-MHDturb's shape
+    with the whole shock-capturing set and SHOCK = shock_highorder (the
+    chain of K1se/K5wse, the 'highorder' profile in its pre-pass), and
+    conv-slab's shape with SHOCK = shock, nu-shock and the slot's z BC
+    's' (the chain of K6k/K7k), started and run by both command lines;
+    the port's final state against JAX's jnp path (the stored shock slot
+    left out, as above)."""
+    mine = {"highorder": shock_highorder_rundir,
+            "conv_shock": conv_shock_rundir}[name](tmp_path / "port")
     ref = shutil.copytree(mine, tmp_path / "jax")
     for cmd in ("start", "run"):
         main([cmd, mine, "--device", "cpu"])

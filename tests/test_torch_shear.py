@@ -329,8 +329,11 @@ REJECTED = {
     "safi": lambda: _replace_module(
         shear_box(16), "shear",
         lambda: pt.Shear(lshearadvection_as_shift=True)),
+    # the highorder profile itself runs since every switch of the Shock
+    # module (ACCEPTED); its max filter past the ghost width does not
     "shock_highorder": lambda: _replace_module(
-        shear_box(16), "shock", lambda: pt.Shock(variant="highorder")),
+        shear_box(16), "shock",
+        lambda: pt.Shock(variant="highorder", ishock_max=4)),
     "hyper3_mesh": lambda: _replace_module(
         shear_box(16), "viscosity",
         lambda: pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-4)),
@@ -340,8 +343,9 @@ REJECTED = {
 @pytest.mark.parametrize("case", sorted(REJECTED))
 def test_gate_rejects_on_cuda(case):
     """Outside the shear-box kernels a CUDA model raises before it
-    allocates (no GPU needed); SAFI, the highorder shock and hyper3-mesh
-    raise on every device."""
+    allocates (no GPU needed); SAFI, the highorder shock's max filter
+    over more than the ghost width (ishock_max = 4) and hyper3-mesh raise
+    on every device."""
     with pytest.raises(NotImplementedError):
         cfg = REJECTED[case]()
         assert gate_reason(cfg) is not None
@@ -357,13 +361,19 @@ ACCEPTED = {
     "coriolis_without_shear": (lambda: shear_box(16).replace(modules=(
         pt.EosIdealGas(gamma=1.0), pt.Density(), pt.Hydro(Omega=1.0),
         pt.Viscosity(nu=5e-4), pt.Magnetic(eta=5e-4))), "wrap"),
+    # the Shock module's 'highorder' profile: the pre-pass builds it, the
+    # shear box's kernels read it as they read the 'original' one
+    "shock_highorder": (lambda: _replace_module(
+        shear_box(16), "shock", lambda: pt.Shock(variant="highorder")),
+        "zroll"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ACCEPTED))
 def test_gate_accepts_on_cuda(case):
-    """The forced shear box and the flagship with Coriolis run a fused
-    chain on the card and on the CPU."""
+    """The forced shear box, the flagship with Coriolis and the shear box
+    with the 'highorder' shock profile run a fused chain on the card and
+    on the CPU."""
     make, mode = ACCEPTED[case]
     cfg = make()
     assert gate_reason(cfg) is None

@@ -292,18 +292,24 @@ def test_gate_accepts_conv_slab():
                                   "missing_module", "periodic_z"))
 def test_gate_rejects_on_cuda(case):
     """Outside the conv-slab's module sets (the set alone, with
-    Magnetic, with Shear, each with optional forcing), or with a BC the
-    port lacks, a CUDA configuration raises (no GPU needed: the gate
-    raises first); the extra module is Shock, which no z-ghosted build
-    has (forcing, the extra module here before, is admitted now), the
-    missing one Viscosity (Gravity, the missing module here before, is
-    optional since the z-walled sets without it run the chain)."""
+    Magnetic, with Shear or with Shock, each with optional forcing), or
+    with a BC the port lacks, a CUDA configuration raises (no GPU needed:
+    the gate raises first); the extra module is Shock in the sheared slab,
+    which no z-ghosted build has (Shock in the unsheared slab, the case
+    here before, runs since the z-ghosted builds with the shock slot,
+    tests/test_torch_zghost_shock.py; forcing, the extra module before
+    that, is admitted too), its slot given its BC, so that the set is
+    what is refused; the missing one Viscosity (Gravity, the missing
+    module here before, is optional since the z-walled sets without it
+    run the chain)."""
     cfg = conv_slab(16)
     if case == "unported_bc":
         cfg = cfg.replace(bcz=cfg.bcz[:2] + (pt.BC("uz", "cop", "cop"),)
                           + cfg.bcz[3:])
     elif case == "extra_module":
-        cfg = cfg.replace(modules=cfg.modules + (pt.Shock(),))
+        cfg = conv_slab(16, Omega=0.5, shear=True)
+        cfg = cfg.replace(modules=cfg.modules + (pt.Shock(),),
+                          bcz=cfg.bcz + (pt.BC("shock", "s", "s"),))
     elif case == "missing_module":
         cfg = cfg.replace(modules=tuple(m for m in cfg.modules
                                         if m.name != "viscosity"))

@@ -133,7 +133,8 @@ def test_gate_admits_the_forced_sets(case):
 
 
 def _with_shock(cfg):
-    return cfg.replace(modules=cfg.modules + (pt.Shock(),))
+    return cfg.replace(modules=cfg.modules + (pt.Shock(),),
+                       bcz=cfg.bcz + (pt.BC("shock", "s", "s"),))
 
 
 def _without(cfg, name):
@@ -144,7 +145,11 @@ def _without(cfg, name):
 
 
 # sets outside every chain and the module the reason must name: the
-# conv-slab with Shock, the forced isothermal set under gravity with z
+# sheared conv-slab with Shock, its slot given its BC (the conv-slab with
+# Shock, the case here before, runs since the z-ghosted builds with the
+# shock slot, tests/test_torch_zghost_shock.py; Shock in the sheared slab
+# stays refused for its module set), the forced isothermal set under
+# gravity with z
 # walls and Shock (with z walls alone it runs since the builds without
 # ss, tests/test_torch_zghost_iso.py, and on a fully periodic grid since
 # gravity on every chain, tests/test_torch_gravity_chains.py), the sheared
@@ -152,8 +157,8 @@ def _without(cfg, name):
 # Shock (without gravity alone it runs since the z-walled sets without
 # Gravity, tests/test_torch_bext.py)
 REFUSED = {
-    "shock": (lambda: conv_slab(8).replace(
-        modules=conv_slab(8).modules + (pt.Shock(),)), "shock"),
+    "shock": (lambda: _with_shock(conv_slab(8, Omega=0.5, shear=True)),
+              "shock"),
     "forced_isothermal": (lambda: _with_shock(_without(
         conv_slab(8, forcing=FORCE), "entropy")), "gravity"),
     "sheared_isothermal": (lambda: _with_shock(_without(

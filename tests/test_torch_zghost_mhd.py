@@ -248,17 +248,22 @@ def test_other_sets_stay_refused():
     isothermal sets with z walls, the case here first, run since the
     builds without ss, tests/test_torch_zghost_iso.py, and the set on a
     fully periodic grid, the case after that, since gravity on every
-    chain, tests/test_torch_gravity_chains.py), and magnetoconvection with
-    Shock (no z-ghosted build has the shock slot; forced
-    magnetoconvection, the case here before, runs since the kick after the
-    step,
-    tests/test_torch_zghost_forced.py; η₃ since the H3 instances,
-    tests/test_torch_zghost_hyper3.py), raise on the card, each for its
-    module set: the set is tested before Entropy's layer profiles."""
-    base = conv_slab(8, magnetic=True)
-    shocked = base.replace(modules=base.modules + (pt.Shock(),))
+    chain, tests/test_torch_gravity_chains.py), and sheared
+    magnetoconvection with Shock (magnetoconvection with Shock, the case
+    here before, runs since the z-ghosted builds with the shock slot,
+    tests/test_torch_zghost_shock.py, but no sheared build has that slot
+    between walls; forced magnetoconvection, the case before that, runs
+    since the kick after the step, tests/test_torch_zghost_forced.py; η₃
+    since the H3 instances, tests/test_torch_zghost_hyper3.py), each with
+    its slot's BC 's', raise on the card, each for its module set: the set
+    is tested before Entropy's layer profiles."""
+    slot_bc = (pt.BC("shock", "s", "s"),)
+    base = conv_slab(8, magnetic=True, Omega=0.5, shear=True)
+    shocked = base.replace(modules=base.modules + (pt.Shock(),),
+                           bcz=base.bcz + slot_bc)
     walled = strat_box(8, magnetic=False, shear=False)
-    iso = walled.replace(modules=walled.modules + (pt.Shock(),))
+    iso = walled.replace(modules=walled.modules + (pt.Shock(),),
+                         bcz=walled.bcz + slot_bc)
     for cfg in (shocked, iso):
         reason = gate_reason(cfg)
         assert reason is not None and reason.startswith("modules "), reason

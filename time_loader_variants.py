@@ -28,7 +28,9 @@ K4e/K5e and K4ne/K5ne on the same inputs of their layouts, with ss and
 A), ``fused_rhs_zg`` (K6 and K7 on its
 stratified conv-slab input, the interior and its z-halo slabs) or
 ``fused_rhs_zg_mag`` (K6m and K7m on the same with a noisy vector
-potential) or ``fused_rhs_zg_iso`` (K6i and K7i on the isothermal
+potential) or ``fused_rhs_zg_shock`` and ``fused_rhs_zg_mag_shock``
+(K6k/K7k and K6mk/K7mk on the same with a positive shock slot) or
+``fused_rhs_zg_iso`` (K6i and K7i on the isothermal
 stratified layer's hydro input, ``strat_box(n, magnetic=False,
 shear=False)``: e.g. ``"" :PC_MINB2=1``, two blocks a SM).
 ``--parent-tree DIR`` (with a shock or a z-ghosted build) adds
@@ -96,7 +98,7 @@ LIBS = ("fused_rhs", "fused_rhs_hydro", "fused_rhs_ent",
         "fused_rhs_hydro_ent", "fused_rhs_shock", "fused_rhs_shear",
         "fused_rhs_shock_ent", "fused_rhs_shear_ent",
         "fused_rhs_shear_ent_ns", "fused_rhs_zg", "fused_rhs_zg_mag",
-        "fused_rhs_zg_iso")
+        "fused_rhs_zg_iso", "fused_rhs_zg_shock", "fused_rhs_zg_mag_shock")
 PARENT = "parent"    # the column of --parent-tree
 # the name its package is imported under
 PARENT_PKG = "parent_pencil_tpu_torch"
@@ -111,7 +113,10 @@ PATH_CONFIG = {"fused_rhs_shock": ("shock_box", {}),
                "fused_rhs_zg": ("conv_slab", {}),
                "fused_rhs_zg_mag": ("conv_slab", {"magnetic": True}),
                "fused_rhs_zg_iso": ("strat_box", {"magnetic": False,
-                                                  "shear": False})}
+                                                  "shear": False}),
+               "fused_rhs_zg_shock": ("conv_slab", {"shock": True}),
+               "fused_rhs_zg_mag_shock": ("conv_slab", {"magnetic": True,
+                                                        "shock": True})}
 _SHOCK_W, _SHEAR_W = ("rhs_wrap_shock", "rhs_wrap_shock_upd"), (
     "rhs_zroll", "rhs_zroll_upd")
 WRAPPERS = {"fused_rhs_shock": _SHOCK_W, "fused_rhs_shear": _SHEAR_W,
@@ -119,7 +124,9 @@ WRAPPERS = {"fused_rhs_shock": _SHOCK_W, "fused_rhs_shear": _SHEAR_W,
             "fused_rhs_shear_ent_ns": _SHEAR_W,
             "fused_rhs_zg": ("rhs_zg", "rhs_zg_upd"),
             "fused_rhs_zg_mag": ("rhs_zg", "rhs_zg_upd"),
-            "fused_rhs_zg_iso": ("rhs_zg", "rhs_zg_upd")}
+            "fused_rhs_zg_iso": ("rhs_zg", "rhs_zg_upd"),
+            "fused_rhs_zg_shock": ("rhs_zg", "rhs_zg_upd"),
+            "fused_rhs_zg_mag_shock": ("rhs_zg", "rhs_zg_upd")}
 
 
 def build(specs, base="fused_rhs"):
@@ -215,7 +222,8 @@ def option_builds(pt, cs, fr, shape):
                                                tstart=cs.T_SHEAR))
         out[fr.aux_library(pt.Model(cfg, device="cpu"))] = (label, cfg)
     for kw in ({}, dict(magnetic=True), dict(shear=True, Omega=1.0),
-               dict(magnetic=True, shear=True, Omega=1.0)):
+               dict(magnetic=True, shear=True, Omega=1.0), dict(shock=True),
+               dict(magnetic=True, shock=True)):
         cfg = pt.configs.conv_slab(shape, **kw)
         if kw.get("shear"):
             cfg = cfg.replace(time=pt.TimeSpec(itorder=3,
