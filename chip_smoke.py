@@ -46,7 +46,14 @@ shock=True)``: ν_sh; kernels K6k, K7k and, with Magnetic and chi-const,
 K6mk, K7mk, launch names ``rhs_zg_shock*``, ``rhs_zg_mag_shock*``, each
 also with the shock diffusivities, ``*_sd``, on the z-ghosted builds with
 the shock slot) and the shocked box with the 'highorder' profile
-(``shock_box(n)`` with ``Shock(variant="highorder")``, K1s and K5w).
+(``shock_box(n)`` with ``Shock(variant="highorder")``, K1s and K5w), and
+the shearing box's own options: SAFI (``safi=True``: the shear flow's
+advection as a Fourier shift between substeps, the shear builds' kernels
+with the flow's nodes at 0), the mesh flavour of del6 (``hyper3="mesh"``:
+every H3 instance with the mesh weights and rate) and the mean momenta
+removed after each step (``remove_mean_momenta=True``): the sheared,
+rotating MHD box with all three (K4/K5), the stratified MRI box
+(K6msi/K7msi) and the sheared conv-slab (K6s/K7s) with SAFI.
 
     python3 chip_smoke.py
 
@@ -117,7 +124,13 @@ Phases, each printing its own lines:
      without the shock diffusivities, the shocked box with the 'highorder'
      profile, the hydro shock box,
      the three other shear-box layouts, the three hydro layouts with ss
-     and the three MHD layouts with ss);
+     and the three MHD layouts with ss), and at 64³ and 24×20×42 each of
+     the twelve shear builds' two kernels with SAFI (without del6, and
+     with the mesh flavour) and every H3 instance with the mesh weights
+     (the twelve aux builds, the eight z-ghosted builds with H3, the four
+     periodic builds' five kernels), and two steps at 32³ of the forced
+     flagship with the mean removal (the kick after it) and with the mesh
+     flavour, and of the three SAFI paths;
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -168,7 +181,14 @@ Phases, each printing its own lines:
      shock=True, chi=4e-3), likewise: one K6mk and two K7mk, CHI or CHI
      and SHK, a step), each in 3 windows, the shocked box with the
      'highorder' profile (shock_box(256) with Shock(variant="highorder"):
-     one K1s and two K5w a step), and the K8 chain (Model(fake_rhs=True))
+     one K1s and two K5w a step), the SAFI paths (shear_box(256,
+     safi=True, hyper3="mesh", remove_mean_momenta=True): one K4 and two
+     K5; strat_box(256, safi=True): one K6msi and two K7msi;
+     conv_slab(256, shear=True, Omega=0.5, safi=True): one K6s and two
+     K7s), each with its dt beside the dt that the same state sets
+     without SAFI and two steps on the card against the same steps on
+     the CPU (the fields made on the CPU), and the K8 chain
+     (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
      checkpoint every 20, every chunk of steps under the sync debug mode
@@ -228,7 +248,11 @@ Phases, each printing its own lines:
      shocked conv-slab paths' K6k/K7k and K6mk/K7mk (with and without
      SHK) checked and timed against their plain versions, in turns with
      K6/K7 and K6m/K7m, and their step split (the three shock pre-passes a
-     part); the 'highorder' shocked box's K1s/K5w and its pre-pass; for
+     part); the 'highorder' shocked box's K1s/K5w and its pre-pass; the
+     SAFI paths' kernels checked and timed, in turns with their
+     counterparts without SAFI, the z-ghosted ones' step splits (the three
+     SAFI shifts a part) and the shear box's shift of one substep (device
+     ms, kernels, host issue ms); for
      each instance of the flagship template (csrc/fused_rhs.cu, all 26
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
@@ -411,6 +435,10 @@ CONV_SLAB_PATHS = {
                                           chi=CHI),
     "shocked magnetoconvection chi sd": dict(magnetic=True, shock=True,
                                              chi=CHI)}
+# SAFI (the shear advection as a shift between substeps) on the
+# z-ghosted shear builds: the sheared conv-slab on K6s/K7s
+CONV_SLAB_PATHS["SAFI sheared conv-slab"] = dict(Omega=OMEGA_SHEAR,
+                                                 shear=True, safi=True)
 # each shocked conv-slab path's counterpart without the slot, timed in
 # turns with it in phase 4, and the phase-3 label of its launch names
 ZG_SHOCK_COUNTERPART = {"shocked conv-slab": "conv-slab",
@@ -435,7 +463,10 @@ STRAT_PATHS = {
     # the negative-effective-magnetic-pressure box (Brandenburg et al.
     # 2011): forced isothermal stratified MHD in a horizontal imposed
     # field B0 = configs.NEMPI_B0 on K6mi/K7mi (phase 1 checks the value)
-    "NEMPI box": dict(shear=False, forcing=FORCE, b_ext=(0.0, 0.01, 0.0))}
+    "NEMPI box": dict(shear=False, forcing=FORCE, b_ext=(0.0, 0.01, 0.0)),
+    # the stratified MRI box with SAFI: K6msi/K7msi, the shift between
+    # substeps
+    "SAFI stratified MRI box": dict(safi=True)}
 # forced stratified turbulence in a periodic box under g_z = −sin(πz/2),
 # MHD and hydro: the flagship's and forced hydro's kernels with gravity
 GRAV_WRAP_PATHS = {
@@ -478,6 +509,27 @@ SHOCK_DIFFUSION_PATHS = {
 # phase 4
 OPTION_COUNTERPART = {"shock box ent sd": "shock box ent",
                       "hydro shock box sd": "hydro shock box"}
+# the sheared, rotating MHD box with SAFI, the mesh flavour of del6 on u
+# and lnρ (η₃ on A) and the mean momenta removed after each step: K4/K5
+# (H3), the shift between substeps; a label as AUX_PATHS's
+SAFI_AUX_PATHS = {"SAFI shear box": ("shear_box", dict(
+    safi=True, hyper3="mesh", remove_mean_momenta=True), "")}
+# each SAFI path's counterpart without SAFI (the same instance, S in the
+# advection terms; the shear box's also without the mesh flavour and the
+# mean removal), timed in turns with it in phase 4
+# the SAFI shift of a stratified state Fourier-transforms lnρ's O(1)
+# profile along y, whose float32 roundoff the pressure gradient turns into
+# velocity noise: with velocity noise of 1e-2, two transforms that round
+# differently (the card's cuFFT, the CPU's pocketfft) part by 1.1e-5 to
+# 2.6e-5 of u's max after 2 steps at 8×8×16 to 64³ (the full transform
+# against one of the field less its y-mean, on the CPU), at the 2e-5
+# bound; with noise of 1e-1 a tenth of that.  So the SAFI stratified
+# paths are held to the CPU with that noise, as the conv-slab is with 1e-2
+# for its own float32 floor (ROADMAP Queue 3, not faults)
+SAFI_UU_NOISE = 0.1
+SAFI_COUNTERPART = {"SAFI shear box": "shear box",
+                    "SAFI stratified MRI box": "stratified MRI box",
+                    "SAFI sheared conv-slab": "sheared conv-slab"}
 # the shocked box with the Shock module's 'highorder' profile on K1s/K5w
 # (aux_cfg swaps the profile in), a label as AUX_PATHS's
 SHOCK_VARIANT_PATHS = {"shock box highorder": ("shock_box", {}, "")}
@@ -550,6 +602,8 @@ PER_STEP.update({label: {first: 1, upd: 2} for label, (first, upd) in zip(
     (k for k in CONV_SLAB_PATHS if k.startswith("shocked")),
     zip(ZG_SHOCK_KERNELS[::2], ZG_SHOCK_KERNELS[1::2]))})
 PER_STEP["shock box highorder"] = PER_STEP["shock box"]
+PER_STEP.update({label: PER_STEP[other]
+                 for label, other in SAFI_COUNTERPART.items()})
 # the other template paths launch the flagship's kernels of their builds
 for _name, _sfx in TEMPLATE_PATHS.items():
     for _order in ("", " rk4", " rk2"):
@@ -1269,6 +1323,107 @@ def compare_hyper3(torch, pt, fr, shape, errs):
                              errs, RTOL_FIELD)
 
 
+def with_safi(cfg):
+    """``cfg`` with its Shear's advection as a shift between substeps
+    (SAFI): the shear builds' kernels with the shear flow's nodes at 0."""
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, lshearadvection_as_shift=True)
+        if m.name == "shear" else m for m in cfg.modules))
+
+
+def with_mesh(cfg):
+    """``cfg`` with the mesh flavour of del6 in place of the 'simplified'
+    one on u and lnρ ('hyper3-mesh', diffrho_hyper3_mesh at
+    configs.MESH_HYPER3; η₃ stays on A): the same H3 instances with the
+    mesh weights dline_1/60 and the mesh rate in the CFL."""
+    import pencil_tpu_torch.configs as configs
+    c = configs.MESH_HYPER3
+    new = {"viscosity": lambda m: dict(
+               ivisc=tuple(v for v in m.ivisc if v != "hyper3-simplified")
+               + ("hyper3-mesh",), nu_hyper3=0.0, nu_hyper3_mesh=c),
+           "density": lambda m: dict(diffrho_hyper3=0.0,
+                                     diffrho_hyper3_mesh=c)}
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **new[m.name](m)) if m.name in new else m
+        for m in cfg.modules))
+
+
+def compare_shifts(torch, pt, ny):
+    """Phase 2: the shear-periodic x faces' Fourier shift (on a view of a
+    ghosted stack) and the SAFI shift at ``ny`` rows on the card against
+    the CPU, within 1e-6 of each field's max (cuFFT's C2R once read the
+    imaginary part of the Nyquist bin from 128 rows up)."""
+    from pencil_tpu_torch.core.grid import make_grid
+    from pencil_tpu_torch.physics.shear import fourier_shift_y
+    g = torch.Generator().manual_seed(ny)
+    slab = torch.randn((8, 14, ny + 6, 16), generator=g)[..., 0:3,
+                                                          3:3 + ny, :]
+    gs = pt.GridSpec(nx=8, ny=ny, nz=16, x0=-0.5, y0=-0.5, z0=-0.5,
+                     Lx=1.0, Ly=1.0, Lz=1.0)
+    shear = pt.Shear(lshearadvection_as_shift=True)
+    a = torch.randn((7, 8, ny, 16), generator=g)
+    worst = 0.0
+    for what, fn in (
+            ("x faces", lambda dev: fourier_shift_y(
+                slab.to(dev), torch.tensor(0.555, device=dev), 1.0)),
+            ("SAFI", lambda dev: shear.shift_advection(
+                a.to(dev), make_grid(gs, dev), 1.0,
+                torch.tensor(3e-3, device=dev)))):
+        r = rel_err(fn(torch.device("cuda")).cpu(), fn(torch.device("cpu")))
+        check(r[1] <= RTOL_NEW, f"{ny} rows, {what} shift rel err {r[1]}")
+        worst = max(worst, r[1])
+    print(f"phase 2 the Fourier shifts at {ny} rows: card vs CPU, worst "
+          f"field rel err {worst:.2e}", flush=True)
+
+
+def compare_safi_mesh(torch, pt, fr, shape, errs):
+    """Phase 2: each shear build's two kernels with SAFI (the shear flow's
+    nodes at 0: the twelve shear builds, their instances without and with
+    del6, the latter in its mesh flavour) and every H3 instance with the
+    mesh weights (the twelve aux builds, the eight z-ghosted builds with
+    H3, the four periodic builds' five kernels) against their plain
+    versions on CUDA inputs, each field within 2e-5 × its max."""
+    for label, (make, _, _) in AUX_PATHS.items():
+        cfg = aux_cfg(pt, label, shape)
+        mesh = with_mesh(aux_variant(pt, cfg, 1.0, True))
+        if make == "shear_box":
+            compare_aux_kernels(torch, pt, fr, f"{label}, SAFI",
+                                with_safi(cfg), errs, RTOL_FIELD)
+            mesh = with_safi(mesh)
+        compare_aux_kernels(torch, pt, fr, f"{label}, Omega = 1, mesh del6"
+                            + (", SAFI" if make == "shear_box" else ""),
+                            mesh, errs, RTOL_FIELD)
+    for magnetic in (False, True):
+        for shear in (False, True):
+            cfg = pt.configs.conv_slab(shape, magnetic=magnetic,
+                                       Omega=1.0, shear=shear)
+            label = ("sheared " if shear else "") + (
+                "magnetoconvection" if magnetic else "conv-slab")
+            mesh = with_mesh(pt.configs.conv_slab(
+                shape, magnetic=magnetic, Omega=1.0, shear=shear,
+                hyper3=True))
+            if shear:
+                compare_zg_cfg(torch, pt, fr, with_safi(cfg),
+                               f"{label}, SAFI", errs)
+                mesh = with_safi(mesh)
+            compare_zg_cfg(torch, pt, fr, mesh, f"{label}, mesh del6"
+                           + (", SAFI" if shear else ""), errs)
+    for iso, kw in ISO_SETS.items():
+        sheared = kw.get("shear", True)
+        cfg = strat_cfg(pt, shape, 1.0, **kw)
+        if sheared:
+            compare_zg_cfg(torch, pt, fr, with_safi(cfg),
+                           f"isothermal stratified {iso}, SAFI", errs)
+        mesh = with_mesh(strat_cfg(pt, shape, 1.0, hyper3=True, **kw))
+        compare_zg_cfg(torch, pt, fr, with_safi(mesh) if sheared else mesh,
+                       f"isothermal stratified {iso}, mesh del6"
+                       + (", SAFI" if sheared else ""), errs)
+    for name in TEMPLATE_PATHS:
+        if name.endswith(" h3"):
+            compare_template(torch, pt, fr, f"{name} mesh", with_mesh(
+                template_cfg(pt, name, shape)), errs, RTOL_FIELD)
+
+
 def shocked_fa(torch, pm, seed):
     """(nf, nx, ny, nz) on the card: a noisy shock-box state of the
     model's layout at urms ≈ 1 (lnρ 5e-2, s and A 1e-2) with its shock
@@ -1287,6 +1442,7 @@ def aux_cfg(pt, label, shape):
     SHOCK_DIFFUSION_PATHS or SHOCK_VARIANT_PATHS)."""
     import dataclasses
     make, kw, _ = (AUX_PATHS.get(label) or SHOCK_DIFFUSION_PATHS.get(label)
+                   or SAFI_AUX_PATHS.get(label)
                    or SHOCK_VARIANT_PATHS[label])
     cfg = getattr(pt.configs, make)(shape, **kw)
     if label not in SHOCK_VARIANT_PATHS:
@@ -1469,11 +1625,13 @@ def compare_zg_shock(torch, pt, fr, shape, errs, every=True):
                             + (", shock diffusion" if sd else ""), errs)
 
 
-def compare_steps(torch, pt, label, cfg, nsteps=2, uu_noise=0.0, t0=None):
+def compare_steps(torch, pt, label, cfg, nsteps=2, uu_noise=0.0, t0=None,
+                  phase="2b"):
     """Phase 2b: full steps on the card against the CPU (plain versions),
-    same fields and, when forced, the same forcing draws; ``uu_noise`` > 0
-    replaces the initial velocity with noise of that amplitude, ``t0``
-    the start time."""
+    same fields, made on the CPU, and, when forced, the same forcing
+    draws; ``uu_noise`` > 0 replaces the initial velocity with noise of
+    that amplitude, ``t0`` the start time; ``phase`` the phase that
+    prints the line (3: a main path at 256³)."""
     cpu = torch.device("cpu")
     shape = cfg.grid.shape
     fields = dict(pt.Model(cfg, device=cpu).init_state(5)["fields"])
@@ -1503,9 +1661,9 @@ def compare_steps(torch, pt, label, cfg, nsteps=2, uu_noise=0.0, t0=None):
         r = float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
         check(r <= RTOL_FIELD, f"{label} step field {k} rel err {r}")
         worst = max(worst, r)
-    print(f"phase 2b {shape} {label}: {nsteps} steps on the card vs the "
-          f"CPU: worst field rel err {worst:.2e}, dt rel err {dt_rel:.2e}",
-          flush=True)
+    print(f"phase {phase} {shape} {label}: {nsteps} steps on the card vs "
+          f"the CPU: worst field rel err {worst:.2e}, dt rel err "
+          f"{dt_rel:.2e}", flush=True)
 
 
 def sheared_fg(torch, pm, seed):
@@ -1655,6 +1813,11 @@ def main():
     for shape in ((32, 64, 128), (16, 24, 40)):
         compare_zg_shock(torch, pt, fr, shape, errs, every=False)
     mark("phase 2, the z-ghosted builds with the shock slot")
+    for ny in (64, 128, 256):
+        compare_shifts(torch, pt, ny)
+    for shape in ((64, 64, 64), EDGE_SHAPE):
+        compare_safi_mesh(torch, pt, fr, shape, errs)
+    mark("phase 2, SAFI and the mesh flavour of del6")
     for shape in ((64, 64, 64), (32, 64, 128), EDGE_SHAPE):
         compare_template(torch, pt, fr, "forced hydro",
                          forced_hydro(pt, shape), errs)
@@ -1678,7 +1841,9 @@ def main():
         compare_kernels(torch, pt, fr, shape, errs)
         compare_tail_kernels(torch, pt, fr, shape, errs)
     libs = _build.build()
-    print(f"phase 2: kernels built in {_build.build_seconds:.1f} s, each "
+    built = ("found built (no nvcc run)" if _build.build_seconds is None
+             else f"built in {_build.build_seconds:.1f} s")
+    print(f"phase 2: kernels {built}, each "
           "library's nvcc ended at: " + ", ".join(
               f"{k} {t:.1f} s" for k, t in sorted(
                   _build.build_times.items(), key=lambda kv: kv[1]))
@@ -1779,6 +1944,23 @@ def main():
     for label in SHOCK_VARIANT_PATHS:
         compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
                       uu_noise=0.1)
+    # SAFI, the mesh flavour and the mean removal: the forced flagship's
+    # mean comes out before the kick, which then follows K3 (no kick in
+    # K3); the SAFI paths from t = T_SHEAR
+    compare_steps(torch, pt, "flagship, mean momenta removed",
+                  pt.configs.flagship(n32, remove_mean_momenta=True))
+    compare_steps(torch, pt, "flagship mesh",
+                  pt.configs.flagship(n32, hyper3="mesh"))
+    for label in SAFI_AUX_PATHS:
+        compare_steps(torch, pt, label, aux_cfg(pt, label, n32),
+                      t0=T_SHEAR)
+    compare_steps(torch, pt, "SAFI stratified MRI box",
+                  strat_cfg(pt, n32, **STRAT_PATHS["SAFI stratified MRI "
+                                                   "box"]),
+                  uu_noise=SAFI_UU_NOISE)
+    compare_steps(torch, pt, "SAFI sheared conv-slab",
+                  conv_slab_cfg(pt, "SAFI sheared conv-slab", n32),
+                  uu_noise=SAFI_UU_NOISE, t0=T_SHEAR)
 
     mark("phase 2b")
     # ---- phase 3: the main paths at 256³ ------------------------------
@@ -1833,6 +2015,31 @@ def main():
           for label in SHOCK_VARIANT_PATHS}
     mark("phase 3, the shock slot between walls and the 'highorder' "
          "profile")
+    # SAFI at 256³ (the stratified MRI box with it is among ``strat``):
+    # each path's dt beside the dt its counterpart without SAFI sets on the
+    # same state, and two steps on the card against the CPU
+    safi = {label: run_aux_box(torch, pt, fr, smi, shape, launches, label)
+            for label in SAFI_AUX_PATHS}
+    zsafi = run_conv_slab(torch, pt, fr, smi, shape, launches,
+                          "SAFI sheared conv-slab", nwin=VARIANT_WINDOWS)
+    for label, model, state in ((*safi["SAFI shear box"][:3],),
+                                (zsafi[3], *zsafi[:2]),
+                                ("SAFI stratified MRI box",
+                                 *strat["SAFI stratified MRI box"][:2])):
+        print_safi_dt(torch, pt, fr, smi, label, model, state)
+    # two steps of each SAFI path on the card against the CPU: the shear
+    # box at full width (its x faces and its shift at 256 rows; the CPU's
+    # plain chain takes ~150 s for it), the z-walled two at 128³
+    compare_steps(torch, pt, "SAFI shear box", aux_cfg(
+        pt, "SAFI shear box", shape), t0=T_SHEAR, phase="3")
+    n128 = (N_MAIN // 2,) * 3
+    compare_steps(torch, pt, "SAFI stratified MRI box", strat_cfg(
+        pt, n128, **STRAT_PATHS["SAFI stratified MRI box"]),
+        uu_noise=SAFI_UU_NOISE, phase="3")
+    compare_steps(torch, pt, "SAFI sheared conv-slab", conv_slab_cfg(
+        pt, "SAFI sheared conv-slab", n128), uu_noise=SAFI_UU_NOISE,
+        t0=T_SHEAR, phase="3")
+    mark("phase 3, SAFI, the mesh flavour and the mean removal")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -1926,6 +2133,15 @@ def main():
     for box in hi.values():
         time_prepass_turns(torch, smi, box, aux["shock box"])
         time_aux_turns(torch, fr, smi, box, aux["shock box"])
+    for label, box in safi.items():
+        time_aux_box(torch, fr, smi, box, errs, timings, bounds)
+        time_aux_turns(torch, fr, smi, box, aux[SAFI_COUNTERPART[label]])
+        time_safi_shift(torch, smi, box[1], box[2], label)
+    time_conv_slab(torch, fr, smi, zsafi, errs, timings, bounds, full=False)
+    print_split(torch, fr, smi, zsafi)
+    time_zg_turns(torch, fr, smi, zsafi, zs)
+    time_zg_turns(torch, fr, smi, strat["SAFI stratified MRI box"],
+                  strat["stratified MRI box"])
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -1947,6 +2163,68 @@ def main():
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def print_safi_dt(torch, pt, fr, smi, label, model, state):
+    """Phase 3: the dt that the SAFI path's state sets, beside the dt that
+    the same configuration without SAFI sets on the same state (its first
+    kernel's CFL maximum on the same input): SAFI drops |S x|/Δy from
+    the CFL."""
+    cfg = model.cfg.replace(modules=tuple(
+        dataclasses.replace(m, lshearadvection_as_shift=False)
+        if m.name == "shear" else m for m in model.cfg.modules))
+    plain = pt.Model(cfg, device="cuda")
+    dts = []
+    for m in (model, plain):
+        if m.mode == "zroll":
+            sdy = m.deltay(state["t"])
+            _, dt1m = fr.rhs_zroll(m, m.ghosted(m._refresh_aux_fa(
+                state["_fa"], sdy), (0, 1), sdy))
+        else:
+            sdy = m.deltay(state["t"] + m.rk[2][0] * state["dt"])
+            _, dt1m = fr.rhs_zg(m, *m.zg_input(state["_fa"].clone(), sdy))
+        dts.append(float(m._new_dt(dt1m, state["dt"])))
+    print(f"phase 3 {N_MAIN}^3 {label} on {smi}: dt {dts[0]:.6e} with SAFI, "
+          f"{dts[1]:.6e} without it on the same state (x "
+          f"{dts[0] / dts[1]:.4f})", flush=True)
+
+
+def time_safi_shift(torch, smi, model, state, label):
+    """Phase 4: one substep's SAFI shift of the evolved fields and the df
+    carry at 256³ (``Model._safi_shift``): its device ms (CUDA events, 20
+    calls), its kernels and busy ms (torch.profiler) and the host's ms to
+    issue it."""
+    nvar = model.reg.nvar
+    f = state["_fa"][:nvar]
+    df = f.clone()
+    dt = state["dt"]
+
+    def shift():
+        return model._safi_shift(0, dt, f, df)
+
+    ms = time_ms(torch, shift, 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        shift()
+    host = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    busy, nkern = device_busy(torch, shift, 3)
+    print(f"phase 4 {label} SAFI shift of {nvar} fields and their df at "
+          f"256^3 on {smi}: {ms:.4f} ms a substep (CUDA events), the card "
+          + (f"busy {busy:.4f} ms in {nkern} kernels" if busy else
+             "busy: not measured (torch.profiler recorded none)")
+          + f", the host {host:.4f} ms to issue it", flush=True)
+
+
+def sheared_rate(model):
+    """max |S·x| of the model's background shear flow, which the CFL
+    holds; 0 without Shear and under SAFI, which shifts the fields
+    instead."""
+    shear = model.cfg.module("shear")
+    if shear is None or shear.lshearadvection_as_shift:
+        return 0.0
+    return abs(shear.S) * float(model.grid.x.abs().max())
 
 
 def timed_steps(torch, fr, model, base):
@@ -2555,9 +2833,10 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     cs2 = (eos.cs20 * torch.exp(eos.gamma / eos.cp * fa[4]
                                 + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
            if ent is not None else torch.full((), eos.cs20, device="cuda"))
-    shear = cfg.module("shear")
-    shear_rate = (abs(shear.S) * float(model.grid.x.abs().max()) * inv[1]
-                  if shear else 0.0)
+    # the shear flow's rate (none under SAFI) and the mesh flavours'
+    # constant root join the advective rate
+    shear_rate = sheared_rate(model) * inv[1] + float(
+        fr.kernel_params(model).hmesh)
     umax = sum(fa[a].abs().max() * inv[a] for a in range(3)) + shear_rate
     adv = float((umax + torch.sqrt(cs2.max() * dxyz2)) / tc.cdt)
     adv_lo = max(shear_rate + float(torch.sqrt(cs2.min() * dxyz2)),
@@ -2657,14 +2936,15 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     # the largest shock diffusivity per unit shock: ν_sh, D_sh, η_sh, γχ_sh
     d_sh, e_sh, c_sh = fr.shock_coefficients(cfg, model.reg)
     nu_shock = max(nu_shock, d_sh, e_sh, eos.gamma * c_sh)
-    shear = cfg.module("shear")
-    shear_rate = (abs(shear.S) * float(model.grid.x.abs().max())
-                  if shear else 0.0)
+    # the shear flow's rate (none under SAFI) and the mesh flavours'
+    # constant root join the advective rate
+    shear_rate = sheared_rate(model)
+    mesh = float(fr.kernel_params(model).hmesh)
     sound = math.sqrt(cs2_lo * dxyz2)
     umax = sum(float(fa[a].abs().max()) * inv[a] for a in range(3))
-    adv_lo = (shear_rate * inv[1] + sound) / tc.cdt
+    adv_lo = (shear_rate * inv[1] + sound + mesh) / tc.cdt
     adv_hi = (umax + shear_rate * inv[1]
-              + math.sqrt(cs2_hi * dxyz2 + va2)) / tc.cdt
+              + math.sqrt(cs2_hi * dxyz2 + va2) + mesh) / tc.cdt
     dif3 = max(nu3, eta3,
                cfg.module("density").diffrho_hyper3) * dxyz6 / tc.cdtv3
     dif_lo = max(nu, eta, chig) * dxyz2 / tc.cdtv + dif3
@@ -3075,6 +3355,8 @@ def zg_parts(model):
         parts["ghosted"] = "x/y fills x3"
     if model.forcing is not None:
         parts["_kick_after"] = "kick"
+    if model.safi:
+        parts["_safi_shift"] = "SAFI shift x3"
     return parts
 
 
@@ -3108,7 +3390,8 @@ def conv_slab_split(torch, fr, model, state, n):
 
     # instance attributes shadow the methods that _zghost_step calls
     methods = [m for m in ("z_slabs", "bc_writeback", "ghosted",
-                           "_kick_after", "_refresh_aux_fa") if m in names]
+                           "_kick_after", "_refresh_aux_fa", "_safi_shift")
+               if m in names]
     for m in methods:
         setattr(model, m, ranged(names[m], getattr(model, m), (
             lambda fa, axes=(0, 1, 2), sdy=None: sdy is not None)

@@ -538,7 +538,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
         _check("hydro", hyd_p, {
             "urand": 0.0, "dampuext": 0.0,
             "dampuint": 0.0, "lomega_int": False,
-            "lremove_mean_momenta": False, "lcdt_tauf": False,
+            "lcdt_tauf": False,
             "lpressuregradient_gas": True, "lfreeze_uint": False,
             "lfreeze_uext": False})
         modules.append(Hydro(
@@ -547,7 +547,9 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
                                         hyd_p.get("max_uu", 0.0)))),
             Omega=float(hyd_p.get("omega", 0.0)),
             theta=float(hyd_p.get("theta", 0.0)),
-            lupw_uu=bool(hyd_p.get("lupw_uu", False))))
+            lupw_uu=bool(hyd_p.get("lupw_uu", False)),
+            lremove_mean_momenta=bool(
+                hyd_p.get("lremove_mean_momenta", False))))
 
     grav_p = grp("grav")
     if grav_p and "nogravity" not in mkf.get("GRAVITY", "nogravity"):
@@ -621,7 +623,11 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
                 vis_p.get("ivisc", "nu-const"))),
             nu=float(vis_p.get("nu", 0.0)),
             nu_hyper3=float(vis_p.get("nu_hyper3", 0.0)),
-            nu_shock=float(vis_p.get("nu_shock", 0.0))))
+            nu_shock=float(vis_p.get("nu_shock", 0.0)),
+            # JAX's loader leaves ν₃ᵐ at its default of 5 whatever the run
+            # sets (pencil_tpu/compat/rundir.py:1262-1274): the port reads
+            # it, as the reference does
+            nu_hyper3_mesh=float(vis_p.get("nu_hyper3_mesh", 5.0))))
 
     mag_p = grp("magnetic")
     if ("magnetic_init_pars" in start or mag_p) \
@@ -688,10 +694,10 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
 
     shear_p = grp("shear")
     if shear_p:
-        _check("shear", shear_p, {"sshear": 0.0})
         modules.append(Shear(
             qshear=float(shear_p.get("qshear", 1.5)),
             Omega=float(shear_p.get("omega", hyd_p.get("omega", 1.0))),
+            Sshear=float(shear_p.get("sshear", 0.0)),
             lshearadvection_as_shift=bool(
                 shear_p.get("lshearadvection_as_shift", False))))
 

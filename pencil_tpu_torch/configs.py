@@ -38,7 +38,7 @@ def with_shock_diffusion(cfg, coef=1.0):
 
 def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
               hyper3=False, shear=False, forcing=0.0, upwind=False,
-              shock=False):
+              shock=False, safi=False):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -58,13 +58,16 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     number of 1, is the value this repository runs).  ``hyper3`` adds del6
     hyper-diffusion of u, lnρ and (with Magnetic) A with ν₃ = D₃ = η₃ =
     5e-3·dx⁵ ('hyper3-simplified', ``diffrho_hyper3``, ``eta_hyper3``), as
-    in ``flagship``: hyper-diffusive convection, ν and η unchanged.
-    ``shear`` puts the slab in a shearing box: Shear with Keplerian
-    shear q = 3/2 at the rotation rate ``Omega`` (which must be > 0; the
-    Coriolis force of that Ω is on too), its background flow S·x along y
-    with S = −qΩ and shear-periodic x faces; the stratified shearing box
-    of convection-driven dynamo runs in a rotating, sheared slab with z
-    walls (Käpylä, Korpi & Brandenburg 2008, A&A 491, 353).  ``forcing``
+    in ``flagship``: hyper-diffusive convection, ν and η unchanged;
+    ``hyper3="mesh"`` the mesh flavour on u and lnρ in its place (as
+    ``_hyper3`` sets it).  ``shear`` puts the slab in a shearing box:
+    Shear with Keplerian shear q = 3/2 at the rotation rate ``Omega``
+    (which must be > 0; the Coriolis force of that Ω is on too), its
+    background flow S·x along y with S = −qΩ and shear-periodic x faces;
+    the stratified shearing box of convection-driven dynamo runs in a
+    rotating, sheared slab with z walls (Käpylä, Korpi & Brandenburg 2008,
+    A&A 491, 353); ``safi`` advects by that flow as a shift after each
+    substep (``lshearadvection_as_shift``).  ``forcing``
     > 0 adds helical forcing of that amplitude at kf = 3, kicked after
     each step: forced convection (with ``magnetic`` forced
     magnetoconvection).  ``upwind`` upwinds the advection of lnρ, u and s
@@ -86,6 +89,8 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     if shear and not Omega > 0.0:
         raise ValueError("conv_slab: shear=True needs Omega > 0 "
                          "(S = -q Omega)")
+    if safi and not shear:
+        raise ValueError("conv_slab: safi=True needs shear=True")
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.68,
@@ -114,7 +119,9 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                  pkg.Density(init="piecew-poly", **den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Gravity(gravz_profile="const", gravz=gravz),
-                 *((pkg.Shear(Omega=Omega, qshear=1.5),) if shear else ()),
+                 *((pkg.Shear(Omega=Omega, qshear=1.5,
+                              lshearadvection_as_shift=safi),)
+                   if shear else ()),
                  pkg.Viscosity(nu=4e-3, **visc),
                  pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
                              mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
@@ -129,7 +136,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
 
 def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
               Omega=1.0, forcing=0.0, hyper3=False, entropy=False,
-              periodic=False, b_ext=None):
+              periodic=False, b_ext=None, safi=False):
     """The isothermal stratified layer: a box x, y, z ∈ [−2, 2] (Lx = Ly
     = Lz = 4), x and y periodic, z walls, isothermal gas (γ = 1, cs0 = 1)
     in hydrostatic balance (``Density(init='isothermal')``), so the scale
@@ -144,7 +151,10 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
     shearing box: vertical gravity g_z = −Ω²z ('linear-z'), Keplerian
     shear q = 3/2 at the rotation rate ``Omega`` (which must be > 0) with
     its Coriolis force; with ``magnetic`` the MRI box of Stone, Hawley,
-    Gammie & Balbus 1996 (ApJ 463, 656).  Without it, constant gravity
+    Gammie & Balbus 1996 (ApJ 463, 656); ``safi`` advects by the shear
+    flow as a shift after each substep (``lshearadvection_as_shift``),
+    as the MRI boxes of Johansen, Youdin & Klahr 2009 (ApJ 697, 1269) do.
+    Without it, constant gravity
     g_z = −1 and no rotation: isothermal stratified turbulence, forced
     with ``forcing`` > 0 (helical forcing of that amplitude at kf = 3,
     kicked after each step), the set-up of the negative effective
@@ -153,7 +163,8 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
     ``b_ext`` = (0, B0, 0) adds (``Magnetic.B_ext``; this repository runs
     B0 = ``NEMPI_B0`` = 0.01, below equipartition with the forced flow).
     ``hyper3`` adds del6 hyper-diffusion of u, lnρ and (with Magnetic) A
-    with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as ``conv_slab`` does.
+    with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as ``conv_slab`` does (``"mesh"``: the
+    mesh flavour on u and lnρ).
 
     ``entropy`` gives the gas an energy equation: an ideal gas with γ =
     5/3 (cs0 = 1, cp = 1) and an entropy field with 'chi-const'
@@ -179,6 +190,8 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
     if shear and not Omega > 0.0:
         raise ValueError("strat_box: shear=True needs Omega > 0 "
                          "(S = -q Omega, g_z = -Omega^2 z)")
+    if safi and not shear:
+        raise ValueError("strat_box: safi=True needs shear=True")
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-2.0, y0=-2.0, z0=-2.0,
@@ -202,7 +215,8 @@ def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,
                            kappa_z=math.pi / 2.0),)
     elif shear:
         rot = (pkg.Gravity(gravz_profile="linear-z", gravz=-Omega ** 2),
-               pkg.Shear(Omega=Omega, qshear=1.5))
+               pkg.Shear(Omega=Omega, qshear=1.5,
+                         lshearadvection_as_shift=safi))
     else:
         rot = (pkg.Gravity(gravz_profile="const", gravz=-1.0),)
     eos, ent = _energy(pkg, entropy, 5e-3)
@@ -247,22 +261,36 @@ def _magnetic(pkg, b_ext=None, **kw):
                                  dict(B_ext=tuple(float(b) for b in b_ext))))
 
 
+# the coefficient of the mesh flavours of del6 ('hyper3-mesh',
+# diffrho_hyper3_mesh): the JAX Viscosity's default ν₃ᵐ, resolution-free
+MESH_HYPER3 = 5.0
+
+
 def _hyper3(pkg, gs, hyper3):
     """(Density, Viscosity, Magnetic keyword arguments) of del6
     hyper-diffusion with h3 = 5e-3·dx⁵ where ``hyper3``, else ({}, {}, {})
     and the viscosity's 'nu-const' alone: ν₃ = η₃ = D₃ = h3, the shear box's
     rule, which keeps the del6 CFL rate at about a third of the advective
-    rate at every n on the 2π box."""
+    rate at every n on the 2π box.  ``hyper3="mesh"``: the mesh flavour
+    on u and lnρ ('hyper3-mesh', ``diffrho_hyper3_mesh``, ν₃ᵐ = D₃ᵐ =
+    ``MESH_HYPER3``) and η₃ = h3 on A (the Magnetic module has no mesh
+    flavour, in JAX as here)."""
     if not hyper3:
         return {}, dict(ivisc=("nu-const",)), {}
     h3 = 5e-3 * gs.dx ** 5
+    if hyper3 == "mesh":
+        return (dict(diffrho_hyper3_mesh=MESH_HYPER3),
+                dict(ivisc=("nu-const", "hyper3-mesh"),
+                     nu_hyper3_mesh=MESH_HYPER3),
+                dict(eta_hyper3=h3))
     return (dict(diffrho_hyper3=h3),
             dict(ivisc=("nu-const", "hyper3-simplified"), nu_hyper3=h3),
             dict(eta_hyper3=h3))
 
 
 def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True,
-              entropy=False):
+              entropy=False, safi=False, hyper3=True,
+              remove_mean_momenta=False):
     """A sheared, rotating MHD box with shock viscosity and
     hyper-diffusion, the accretion-disk set-up of shearing-box MRI users:
     a unit cube centred on the origin, fully periodic with shear-periodic
@@ -287,29 +315,47 @@ def shear_box(n, fused=True, pkg=None, magnetic=True, shock=True,
     The hyper-diffusivity h3 = 5e-3·(1/n)⁵ keeps the del6 CFL rate
     h3·dxyz6/cdtv3 (cdtv3 = 0.01) at about half the advective rate at
     every n, so the term shows at 16³ and stays stable at 256³.
+    ``hyper3="mesh"`` puts the mesh flavour on u and lnρ in its place
+    ('hyper3-mesh' and ``diffrho_hyper3_mesh`` at ``MESH_HYPER3``, the
+    resolution-free normalisation of the reference's shearing-box runs),
+    η₃ = h3 staying on A; ``hyper3=False`` drops del6.
+
+    ``safi`` advects by the shear flow as a shift after each substep
+    (``lshearadvection_as_shift``: SAFI, Johansen, Youdin & Klahr 2009,
+    ApJ 697, 1269), exact, so the flow's |S x|/Δy leaves the CFL.
+    ``remove_mean_momenta`` takes the volume-mean momentum out of u after
+    each step (``lremove_mean_momenta``), the shearing box's guard against
+    a mean wind.
     """
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
-    h3 = 5e-3 * (1.0 / nx) ** 5
-    visc = (dict(ivisc=("nu-const", "nu-shock", "hyper3-simplified"),
-                 nu_shock=1.0) if shock
-            else dict(ivisc=("nu-const", "hyper3-simplified")))
+    grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.5,
+                        Lx=1.0, Ly=1.0, Lz=1.0)
+    den, visc, eta3 = _hyper3(pkg, grid, hyper3)
+    if shock:
+        visc = dict(visc, ivisc=visc["ivisc"][:1] + ("nu-shock",)
+                    + visc["ivisc"][1:], nu_shock=1.0)
     tail = ((pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-4,
-                          eta_hyper3=h3),) if magnetic
+                          **eta3),) if magnetic
             else (pkg.Forcing(force=0.05, kf=3.0, relhel=0.0),))
     eos, ent = _energy(pkg, entropy, 5e-4)
     return pkg.Config(
-        grid=pkg.GridSpec(nx=nx, ny=ny, nz=nz, x0=-0.5, y0=-0.5, z0=-0.5,
-                          Lx=1.0, Ly=1.0, Lz=1.0),
-        time=pkg.TimeSpec(itorder=3), fused=fused,
+        grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused,
         modules=(eos,
-                 pkg.Density(init="gaussian-noise", ampl=1e-2,
-                             diffrho_hyper3=h3),
-                 pkg.Hydro(init="gaussian-noise", ampl=1e-2, Omega=1.0),
-                 pkg.Shear(Omega=1.0, qshear=1.5),
-                 pkg.Viscosity(nu=5e-4, nu_hyper3=h3, **visc),
+                 pkg.Density(init="gaussian-noise", ampl=1e-2, **den),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-2, Omega=1.0,
+                           **_mean_removal(remove_mean_momenta)),
+                 pkg.Shear(Omega=1.0, qshear=1.5,
+                           lshearadvection_as_shift=safi),
+                 pkg.Viscosity(nu=5e-4, **visc),
                  *tail, *ent,
                  *((pkg.Shock(),) if shock else ())))
+
+
+def _mean_removal(on):
+    """Hydro's keyword for ``lremove_mean_momenta`` where ``on``, else
+    none (the configuration of before)."""
+    return dict(lremove_mean_momenta=True) if on else {}
 
 
 def _energy(pkg, entropy, chi):
@@ -391,7 +437,8 @@ def forced_hydro(n, fused=True, pkg=None, Omega=0.0, hyper3=False,
 
 
 def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
-             b_ext=None, fcont=None, upwind=False):
+             b_ext=None, fcont=None, upwind=False,
+             remove_mean_momenta=False):
     """Forced isothermal MHD turbulence, the package's headline workload
     (the configuration ``bench.py`` times): the default 2π cube, fully
     periodic, isothermal gas (cs = 1), ν = η = 5e-3, gaussian-noise u and A,
@@ -409,9 +456,12 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
     Geophys. Astrophys. Fluid Dyn. 36, 53).  ``upwind`` upwinds the
     advection of lnρ and u (``lupw_lnrho``, ``lupw_uu``: 5th-order
     upwinding, the reference's der6_upwind, which damps the grid-scale
-    wiggles of advection), ν and η unchanged.  ``n`` is an int (a cube) or
-    (nx, ny, nz).  The values are this repository's own, not a reference
-    sample's."""
+    wiggles of advection), ν and η unchanged.  ``hyper3="mesh"`` takes
+    the mesh flavour of del6 on u and lnρ in place of h3 (``_hyper3``).
+    ``remove_mean_momenta`` takes the volume-mean momentum out of u after
+    each step, before the forcing kick (``lremove_mean_momenta``).  ``n``
+    is an int (a cube) or (nx, ny, nz).  The values are this repository's
+    own, not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
@@ -420,7 +470,8 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
         grid=grid, time=pkg.TimeSpec(itorder=itorder, dt=dt), fused=fused,
         modules=(pkg.EosIdealGas(gamma=1.0, cs0=1.0),
                  pkg.Density(lupw_lnrho=False, **den),
-                 pkg.Hydro(init="gaussian-noise", ampl=1e-3),
+                 pkg.Hydro(init="gaussian-noise", ampl=1e-3,
+                           **_mean_removal(remove_mean_momenta)),
                  pkg.Viscosity(nu=5e-3, **visc),
                  _magnetic(pkg, b_ext, init="gaussian-noise", ampl=1e-4,
                            eta=5e-3, **mag),

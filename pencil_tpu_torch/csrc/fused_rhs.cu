@@ -118,7 +118,16 @@
 // their other instances) that add the shock diffusivities of lnrho, A and
 // ss (diffrho_shock, eta_shock, chi_shock), each behind a uniform test of
 // its coefficient: the three tests in every instance cost K1se 4.5 % with
-// the coefficients at 0 (PERF.md §6).
+// the coefficients at 0 (PERF.md §6).  Every H3 instance weights the del6
+// of u and of lnrho by weights of their own (PcParams.h6u, h6l: 1/dx^6 of
+// 'hyper3-simplified', or dline_1/60 of the mesh flavour, 'hyper3-mesh'
+// and diffrho_hyper3_mesh, whose coefficient is then c pi^-5), A's by
+// 1/dx^6, and its first kernels add the mesh flavours' constant rate
+// (PcParams.hmesh, 0 without them) to the advective CFL after the
+// wave-speed root.  SAFI (the shear flow's advection as a shift between
+// substeps, on the host) needs no instance: the shear builds take the
+// flow's x nodes at 0 (PcParams.x0, dx), so its advection terms and CFL
+// rate add 0.
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -325,7 +334,11 @@ struct PcParams {
   float nu, eta;
   float cs20, gm1, lnrho0;   // cs2 = cs20*exp(gm1*(lnrho - lnrho0))
   float dxyz2, cdt, dif;     // dif = max(nu, eta)*dxyz2/cdtv
-  float x0, y0, dx, dy;      // node coordinates for the kick
+  // node coordinates: of the kick, and in the shear builds x0 and dx of
+  // the shear flow S x (0 under SAFI, which shifts the fields between
+  // substeps instead: the flow's advection terms and CFL rate then add 0,
+  // while the stretching terms keep S)
+  float x0, y0, dx, dy;
   float om[3];               // Omega; -2 Omega x u when not all zero
   // the entropy instances (PC_ENT): cs2 = cs20*exp(g_cp*ss + gm1*(lnrho -
   // lnrho0)), lnT = lnTT0 + g_cp*ss + gm1*(lnrho - lnrho0)
@@ -358,7 +371,17 @@ struct PcParams {
   // on lnrho, on u and on ss (lupw_lnrho, lupw_uu, lupw_ss)
   float upw_inv[3];
   int upw[3];
+  // the del6 weights of u and of lnrho per axis: inv6 of
+  // 'hyper3-simplified', dline_1/60 of the mesh flavour ('hyper3-mesh',
+  // diffrho_hyper3_mesh, whose coefficient nu3 or diff3 is then c pi^-5;
+  // A's del6, which has no mesh flavour, takes inv6); and the constant
+  // root of the mesh flavours' rates, which the H3 instances add to the
+  // advective CFL (0 without them)
+  float h6u[3], h6l[3];
+  float hmesh;
 };
+
+enum { H6U, H6L, H6A };
 
 // The z inputs beside the stack: of the z-ghosted builds the z-halo slabs
 // (NC, nx, ny, NG) below z = 0 and above z = nz - 1 and, with PC_ENT, the
@@ -457,12 +480,16 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
 
 // del6 of one field at one point: the 6th difference has the even paired
 // form of the second derivative (weights 15, -6, 1), so dj2 with w6 sums it,
-// differences first; the three axes join in the JAX order
+// differences first; the three axes join in the JAX order, each weighted
+// by field F's own weights (F = H6U, H6L: P.h6u, P.h6l, 1/dx_a^6 or
+// dline_1/60 of the mesh flavour; H6A: P.inv6)
+template <int F>
 __device__ __forceinline__ float del6(const float* p, const float* x,
                                       const PcParams& P) {
-  float acc = __fmul_rn(dj2(p, x, 0, P.w6), P.inv6[0]);
-  acc = __fadd_rn(acc, __fmul_rn(dj2(p, x, 1, P.w6), P.inv6[1]));
-  return __fadd_rn(acc, __fmul_rn(dj2(p, x, 2, P.w6), P.inv6[2]));
+  const float* h = F == H6U ? P.h6u : F == H6L ? P.h6l : P.inv6;
+  float acc = __fmul_rn(dj2(p, x, 0, P.w6), h[0]);
+  acc = __fadd_rn(acc, __fmul_rn(dj2(p, x, 1, P.w6), h[1]));
+  return __fadd_rn(acc, __fmul_rn(dj2(p, x, 2, P.w6), h[2]));
 }
 
 // The 5th-order upwinding of the advection of one field at one point (JAX
@@ -493,7 +520,7 @@ __device__ __forceinline__ float upwind(const float* p, const float* x,
 // shear, viscosity (nu-const, nu-shock, hyper3 as one force; without the
 // shock slot the periodic builds' form), magnetic, with the joins of the
 // zroll kernels that these builds replace (PC_JOINS); xn is the x node
-// of this point's plane (the Shear terms).  H3 adds the del6
+// of this point's plane (the Shear terms; 0 under SAFI).  H3 adds the del6
 // hyper-diffusion terms of u, A and lnrho, all three, a coefficient of 0
 // adding 0 (a flag as ROT is, picked on the host: without it the shocked
 // box's K1s and K5w measured 4-5 % faster; testing each coefficient inside
@@ -602,7 +629,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     rl = __fadd_rn(rl, P.diffrho_shock * (shock * (d2l + g2) + gsgl));
   }
 #endif
-  if (H3) rl = rl + P.diff3 * del6(s + LNRHO * FPL, xt[LNRHO], P);
+  if (H3) rl = rl + P.diff3 * del6<H6L>(s + LNRHO * FPL, xt[LNRHO], P);
 #else
   // density: -u.grad(lnrho) [less its upwinding] - div u [+ D3 del6 lnrho]
   if constexpr (UPW) {
@@ -614,7 +641,8 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   }
   if constexpr (H3)
     r[LNRHO] = __fadd_rn(
-        r[LNRHO], __fmul_rn(P.diff3, del6(s + LNRHO * FPL, xt[LNRHO], P)));
+        r[LNRHO],
+        __fmul_rn(P.diff3, del6<H6L>(s + LNRHO * FPL, xt[LNRHO], P)));
 #endif
 
   // hydro: -(u.grad)u - cs2 (grad(lnrho) + grad(ss)/cp) - 2 Omega x u
@@ -710,13 +738,13 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     if (P.nu_shock > 0.0f)
       fv = __fadd_rn(fv, P.nu_shock * (shock * (gdiv + divu * gl[a])
                                        + divu * gsh[a]));
-    if (H3) fv = __fadd_rn(fv, P.nu3 * del6(ua, xt[UX + a], P));
+    if (H3) fv = __fadd_rn(fv, P.nu3 * del6<H6U>(ua, xt[UX + a], P));
     duu[a] = __fadd_rn(duu[a], fv);
 #else
     if constexpr (H3) {
       // nu-const, then nu3 del6 u, joined to du as one force
       float fv = P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
-      fv = __fadd_rn(fv, __fmul_rn(P.nu3, del6(ua, xt[UX + a], P)));
+      fv = __fadd_rn(fv, __fmul_rn(P.nu3, del6<H6U>(ua, xt[UX + a], P)));
       duu[a] = __fadd_rn(duu[a], fv);
     } else {
       duu[a] = duu[a] + P.nu * ((del2 + (1.0f / 3.0f) * gdiv) + 2.0f * sgl);
@@ -760,7 +788,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #if PC_JOINS
     float out = uxb;
     if (PC_ZG || P.eta > 0.0f) out = out + P.eta * del2;
-    if (H3) out = out + P.eta3 * del6(aa, xt[AX + a], P);
+    if (H3) out = out + P.eta3 * del6<H6A>(aa, xt[AX + a], P);
 #if PC_SHOCK
     // the shock resistivity -eta_sh shock J (mu0 = 1)
     if (SHK && P.eta_shock > 0.0f)
@@ -777,7 +805,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     r[AX + a] = PC_ZG || P.eta > 0.0f ? uxb + P.eta * del2 : uxb;
     if constexpr (H3)
       r[AX + a] = __fadd_rn(r[AX + a],
-                            __fmul_rn(P.eta3, del6(aa, xt[AX + a], P)));
+                            __fmul_rn(P.eta3, del6<H6A>(aa, xt[AX + a], P)));
 #endif
   }
 #if !PC_ENT
@@ -891,6 +919,8 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #else
     adv = adv + sqrtf(cs2 * P.dxyz2);
 #endif
+    // H3: the mesh flavours' constant root after the wave-speed root
+    if constexpr (H3) adv = __fadd_rn(adv, P.hmesh);
     const float dt1a = adv / P.cdt;
 #if PC_JOINS && !PC_ZG
     // the diffusivity max(nu, nu_sh*shock, eta) at this point (the terms of

@@ -65,7 +65,7 @@ def cfl_dt1(ts, grid, time_cfg):
     """Pointwise inverse timestep (reference src/equ.f90:1100-1151; JAX
     integrate/timestep.py:49-100):
 
-        maxadvec   = Σ advec_lin + √advec_cs2
+        maxadvec   = Σ advec_lin + √advec_cs2 + √advec2_hypermesh
         dt1_advec  = maxadvec/cdt
         dt1_diffus = maxdiffus·dxyz₂/cdtv + maxdiffus3·dxyz₆/cdtv3
         dt1_max    = √(dt1_advec² + dt1_diffus²)
@@ -76,6 +76,8 @@ def cfl_dt1(ts, grid, time_cfg):
     adv = ts.maxadvec
     if not isinstance(ts.advec_cs2, float):
         adv = adv + torch.sqrt(ts.advec_cs2)
+    if not isinstance(ts.advec2_hypermesh, float):
+        adv = adv + torch.sqrt(ts.advec2_hypermesh)
     dt1_a = adv / time_cfg.cdt
     if _zero(ts.maxdiffus) and _zero(ts.maxdiffus3):
         return dt1_a

@@ -105,6 +105,20 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   slot: K4e, K5e; K4ne, K5ne).  Without the shock slot a substep has no
   pre-pass.
 
+The shear sets of the zroll and zghost chains take SAFI (Shear's
+``lshearadvection_as_shift``, JAX model.py:809-822): their kernels run
+with the shear flow's x nodes at 0, so that the RHS holds no −S x ∂f/∂y
+and the CFL no |S x|/Δy, and after each substep ``_safi_shift`` moves the
+evolved fields (and the df carry, but after the last substep) by the
+flow over that substep's time, a Fourier phase (``Shear.
+shift_advection``, torch.fft on the card); the shock slot is rebuilt from
+the shifted state.  Every H3 instance takes the mesh flavour of del6
+('hyper3-mesh' viscosity, ``diffrho_hyper3_mesh``) on u and lnρ, each
+field with weights of its own.  Hydro's ``lremove_mean_momenta`` runs on
+every chain after the writeback and before the kick (JAX's after-step
+hooks, Hydro before Forcing): the flagship chain's last kernel then does
+not kick, and the kick follows the removal.
+
 ``fused_gate`` decides whether a configuration runs one of the chains.  On
 a CUDA device a configuration outside the gate raises; on the CPU it runs
 the eager 2N-RK path built from the same plain module code (the
@@ -123,7 +137,7 @@ from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import BC_REGISTRY, bc_sym
-from .ops.fused_rhs import (hyper3_coefficients, rhs_first, rhs_plain,
+from .ops.fused_rhs import (hyper3_terms, rhs_first, rhs_plain,
                             rhs_tail_defer, rhs_tail_defer_last,
                             rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
                             rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
@@ -225,10 +239,28 @@ def _shock_options(cfg: Config):
 
 
 def _hyper3_names(cfg: Config):
-    """The del6 coefficients in use, named."""
-    return [name for name, c in zip(("nu_hyper3", "eta_hyper3",
-                                     "diffrho_hyper3"),
-                                    hyper3_coefficients(cfg)) if c > 0.0]
+    """The del6 coefficients in use, named: each field's 'simplified' or
+    mesh flavour."""
+    return [name for name, c in hyper3_terms(cfg) if c > 0.0]
+
+
+def _hyper3_twice(cfg: Config):
+    """Why ``cfg`` is outside the kernels for taking both flavours of
+    del6 on one field ('hyper3-simplified' and 'hyper3-mesh' of u,
+    diffrho_hyper3 and diffrho_hyper3_mesh of lnρ: each field has one
+    weight and one coefficient in the H3 instances), or None."""
+    visc, den = cfg.module("viscosity"), cfg.module("density")
+    both = []
+    if visc is not None and visc.coefficients()[2] > 0.0 \
+            and visc.mesh_coefficient() > 0.0:
+        both.append("Viscosity 'hyper3-simplified' with 'hyper3-mesh'")
+    if den is not None and den.diffrho_hyper3 > 0.0 \
+            and den.diffrho_hyper3_mesh > 0.0:
+        both.append("Density diffrho_hyper3 with diffrho_hyper3_mesh")
+    if both:
+        return (f"options {both} (both flavours of del6 on one field: no "
+                "kernel instance has them)")
+    return None
 
 
 def _upwind_with_hyper3(cfg: Config):
@@ -271,14 +303,18 @@ def fused_mode(cfg: Config):
     ones and optional there too (the z-walled sets without it: g_z = 0);
     Magnetic's B_ext on every MHD set and continuous forcing on every set;
     the upwinding (lupw_lnrho, lupw_uu, lupw_ss) on every set, but not
-    beside a del6 coefficient; nu-shock and the shock diffusivities
+    beside a del6 coefficient; either flavour of del6 ('simplified' or
+    mesh) on each of u and lnρ, but not both on one field; SAFI on the
+    shear sets; lremove_mean_momenta on every set; nu-shock and the shock
+    diffusivities
     (diffrho_shock, eta_shock, chi_shock) on the sets with the Shock
     module's slot; or (None, why ``cfg`` is outside all of these sets).
     The module set is tested before any option of it, so a set that no
     chain takes is refused for its modules; Entropy's layer profiles
     outside the z-ghosted sets, the upwinding beside del6, del6 beside a
-    z-walled Shock and the shock terms without the slot are refused for
-    those options."""
+    z-walled Shock, both flavours of del6 on one field and the shock
+    terms without the slot are refused for those options, and SAFI
+    outside the shear sets is named with the module set."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -302,14 +338,15 @@ def fused_mode(cfg: Config):
         wrap = free in WRAP_SETS and full
         aux = full and (free in ZROLL_SETS or free in SHOCKBOX_SETS)
         if not (zghost or wrap or aux):
-            return None, _outside(names, periodic)
+            return None, _outside(names, periodic, cfg)
         ent = cfg.module("entropy")
         if not zghost and ent is not None and (ent.cool != 0.0
                                                or ent.luminosity != 0.0):
             return None, ("options ['Entropy.cool/luminosity'] (the layer "
                           "profiles: only the conv-slab kernels implement "
                           "them)")
-        both = _upwind_with_hyper3(cfg) or _hyper3_with_walled_shock(cfg)
+        both = (_upwind_with_hyper3(cfg) or _hyper3_with_walled_shock(cfg)
+                or _hyper3_twice(cfg))
         if both:
             return None, both
         # nu-shock and the shock diffusivities read the Shock module's slot
@@ -322,13 +359,17 @@ def fused_mode(cfg: Config):
             return None, (f"options {extra} (only the kernels of the sets "
                           "with the Shock module's slot implement them)")
         return ("wrap" if wrap else "zghost"), None
-    return None, _outside(names, periodic)
+    return None, _outside(names, periodic, cfg)
 
 
-def _outside(names, periodic):
+def _outside(names, periodic, cfg):
     """The refusal of a module set (with the grid's periodicity) that no
-    chain takes."""
-    return (f"modules {sorted(names)} with periodic={periodic} (the "
+    chain takes, naming SAFI where the set's Shear has it (the shear
+    sets' kernels alone take it)."""
+    shear = cfg.module("shear")
+    safi = ("Shear lshearadvection_as_shift (SAFI) with "
+            if shear is not None and shear.lshearadvection_as_shift else "")
+    return (f"{safi}modules {sorted(names)} with periodic={periodic} (the "
             f"kernels implement {sorted(FLAGSHIP_MODULES)} and "
             f"{sorted(HYDRO_MODULES)}, each with or without 'entropy', on "
             f"a periodic grid, {sorted(CONVSLAB_MODULES)} with or without "
@@ -477,6 +518,12 @@ class Model:
         self.grid = make_grid(cfg.grid, self.device, self.dtype)
         self.rk = RK_TABLES[cfg.time.itorder]
         self.shear = cfg.module("shear")
+        # SAFI: the shear advection as a shift after each substep
+        self.safi = bool(self.shear is not None
+                         and self.shear.lshearadvection_as_shift)
+        hydro = cfg.module("hydro")
+        # Hydro's lremove_mean_momenta, run after each step
+        self._mean_remover = hydro if hydro.lremove_mean_momenta else None
         # farray-level auxiliaries built in a pre-pass (the shock profile)
         self._aux_modules = tuple(m for m in self.modules
                                   if hasattr(m, "compute_aux"))
@@ -727,6 +774,42 @@ class Model:
             out["fields"] = self.reg.unstack(fa)
         return out
 
+    def _safi_shift(self, isub, dt, f, df):
+        """(f, df) after substep ``isub`` of a step of length ``dt``: with
+        SAFI the evolved rows ``f`` shifted by the background flow over
+        dtsub = (c_{isub+1} − c_isub)·dt (c_nsub = 1), and the df carry
+        too on every substep but the last (JAX model.py:809-822: the
+        reference's advance_shear with the true time increment of the
+        substep, RK3: dt·(1/3, 5/12, 1/4)), each a new tensor; without SAFI
+        both as they are."""
+        if not self.safi:
+            return f, df
+        cstage = self.rk[2]
+        last = isub == len(cstage) - 1
+        dtsub = ((1.0 if last else cstage[isub + 1]) - cstage[isub]) * dt
+        Ly = self.cfg.grid.Ly
+        f = self.shear.shift_advection(f, self.grid, Ly, dtsub)
+        if not last:
+            df = self.shear.shift_advection(df, self.grid, Ly, dtsub)
+        return f, df
+
+    def _remove_mean_momenta(self, fa):
+        """``fa`` with the volume-mean momentum taken out of its u rows
+        (Hydro's lremove_mean_momenta), a new stack; ``fa`` itself where
+        the option is off."""
+        if self._mean_remover is None:
+            return fa
+        sl = self.reg.slice("uu")
+        uu = self._mean_remover.remove_mean_momenta(
+            fa[sl], fa[self.reg.slice("lnrho")][0])
+        return torch.cat([fa[: sl.start], uu, fa[sl.stop:]])
+
+    def _after_step(self, fa, dt, state=None):
+        """``fa`` after the after-step hooks of the step from ``state``,
+        in the JAX order (model.py:924-933, Hydro before Forcing): the
+        mean momenta removed, then the forcing kick."""
+        return self._kick_after(self._remove_mean_momenta(fa), dt, state)
+
     def _kick_after(self, fa, dt, state=None):
         """``fa`` with the forcing kick added to its u rows after the step
         from ``state`` (JAX model.py:924-933), for the chains whose kernels
@@ -757,8 +840,12 @@ class Model:
         df, dt1m = first(self, fa, **fake)
         dt = self._new_dt(dt1m, state["dt"])
         if nsub == 1:
-            return self._finish(state, self._kick_after(
+            return self._finish(state, self._after_step(
                 fa + beta[0] * dt * df, dt, state), dt)
+        # the last kernel kicks, unless the mean momenta come out before
+        # the kick (JAX's kick_ok, model.py:657-661)
+        kick_in_kernel = self.forcing is not None \
+            and self._mean_remover is None
         f = fa
         for isub in range(1, nsub):
             coef = torch.stack((self._alpha[isub], beta[isub] * dt,
@@ -770,13 +857,15 @@ class Model:
                     df, f = mid(self, f, df, coef)
                 continue
             kick = None
-            if self.forcing is not None:
+            if kick_in_kernel:
                 kick = self.forcing.kick_vector(
                     self._ftables, self._draws(state, dt), dt, self.eos)
             if isub == 1:
                 f = defer_last(self, fa, df, coef, kick)
             else:
                 f = last(self, f, df, coef, kick, **fake)
+        if not kick_in_kernel:
+            f = self._after_step(f, dt, state)
         return self._finish(state, f, dt)
 
     def _zghost_step(self, state: Dict, kernels=(rhs_zg, rhs_zg_upd)):
@@ -784,8 +873,10 @@ class Model:
         :704-775, :891, :924-933): K6 and a torch axpy, then K7 per
         substep, each on a fresh ``zg_input`` (with Shear the x faces
         shifted by deltay at t0 + c·dt: substep 1 with the old dt, the
-        others with the new one), then the boundary-plane writeback and the
-        forcing kick.  Where the state has the shock slot, each substep
+        others with the new one; under SAFI each substep's update followed
+        by ``_safi_shift``), then the boundary-plane writeback and the
+        after-step hooks (the mean removal, the forcing kick).  Where the
+        state has the shock slot, each substep
         first rebuilds it from the substep's state (``_refresh_aux_fa``,
         its ghosts by the z BCs), the kernels read it with its z slabs, and
         the update keeps it out of the RK sum: the state's slot is the last
@@ -811,14 +902,16 @@ class Model:
             src = fa.clone()
         df, dt1m = first(self, *self.zg_input(src, sdy(0, state["dt"])))
         dt = self._new_dt(dt1m, state["dt"])
-        f_new = fa[:nvar] + beta[0] * dt * df
+        f_new, df = self._safi_shift(0, dt, fa[:nvar] + beta[0] * dt * df,
+                                     df)
         for isub in range(1, len(alpha)):
             fa = self._refreshed(f_new)
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, f_new = upd(self, *self.zg_input(fa, sdy(isub, dt)), df,
                             coef)
+            f_new, df = self._safi_shift(isub, dt, f_new, df)
         fa = self._with_aux(fa, f_new)
-        return self._finish(state, self._kick_after(self.bc_writeback(fa),
+        return self._finish(state, self._after_step(self.bc_writeback(fa),
                                                     dt, state), dt)
 
     def _aux_step(self, state: Dict, kernels=None):
@@ -828,7 +921,9 @@ class Model:
         ghosts with the x faces shifted by deltay at t0 + c·dt (substep 1
         with the old dt, the others with the new one), while wrap_aux's
         kernels fetch their halos by index wrap.  K4/K1s and a torch axpy,
-        then K5/K5w per substep; the forcing kick follows the step.  The
+        then K5/K5w per substep, under SAFI each update followed by
+        ``_safi_shift``; the after-step hooks (the mean removal, the
+        forcing kick) follow the step.  The
         state's shock slot is the last pre-pass's.  No tensor of
         ``state`` is written.  ``kernels`` = (first, upd) lets a
         measurement time the plain versions through the same chain."""
@@ -847,19 +942,22 @@ class Model:
         sdy = None if wrap else self.deltay(t0 + cstage[0] * dt)
         df, dt1m = first(self, kernel_input(self._refreshed(fa, sdy), sdy))
         dt = self._new_dt(dt1m, state["dt"])
-        f_new = fa[:nvar] + beta[0] * dt * df
+        f_new, df = self._safi_shift(0, dt, fa[:nvar] + beta[0] * dt * df,
+                                     df)
         for isub in range(1, len(alpha)):
             sdy = None if wrap else self.deltay(t0 + cstage[isub] * dt)
             fa = self._refreshed(f_new, sdy)
             coef = torch.stack((self._alpha[isub], beta[isub] * dt))
             df, f_new = upd(self, kernel_input(fa, sdy), df, coef)
+            f_new, df = self._safi_shift(isub, dt, f_new, df)
         fa = self._with_aux(fa, f_new)
-        return self._finish(state, self._kick_after(fa, dt, state), dt)
+        return self._finish(state, self._after_step(fa, dt, state), dt)
 
     def _eager_step(self, state: Dict):
-        """One 2N-RK step from the plain RHS, the boundary-plane writeback
-        and the kick applied after the substeps (CPU only; JAX
-        model.py:733-775, :891, :924-933).  With a non-periodic axis, shear
+        """One 2N-RK step from the plain RHS (under SAFI each substep's
+        update followed by ``_safi_shift``), the boundary-plane writeback,
+        the mean removal and the kick applied after the substeps (CPU only;
+        JAX model.py:733-822, :891, :924-933).  With a non-periodic axis, shear
         or an aux module the RHS reads a ghosted stack; the aux slots are
         written into that stack only, so the state keeps its own."""
         alpha, beta, cstage = self.rk
@@ -883,9 +981,11 @@ class Model:
                 df = dfa
             else:
                 df = alpha[isub] * df + dfa
-            upd = fa[:nvar] + beta[isub] * dt * df
+            upd, df = self._safi_shift(isub, dt,
+                                       fa[:nvar] + beta[isub] * dt * df, df)
             fa = torch.cat([upd, fa[nvar:]]) if fa.shape[0] > nvar else upd
-        fields = self.reg.unstack(self.bc_writeback(fa))
+        fields = self.reg.unstack(self._remove_mean_momenta(
+            self.bc_writeback(fa)))
         if self.forcing is not None:
             fields = self.forcing.after_timestep(
                 fields, self.grid, self._ftables, self._draws(state, dt), dt,

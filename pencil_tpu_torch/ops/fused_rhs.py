@@ -135,6 +135,16 @@ D_sh, η_sh and χ_sh is on (``shock_coefficients``; 0 in a layout without
 the slot), which adds them; it counts under its twin's launch name with
 the suffix ``_sd`` (after ``_upw``).
 
+Every H3 instance weights each field's del6 on its own: u's and lnρ's by
+``PcParams.h6u`` and ``h6l`` (Δ_a⁻⁶ of 'hyper3-simplified', or
+dline_1_a/60 of the mesh flavour, 'hyper3-mesh' and
+``diffrho_hyper3_mesh``, whose coefficients ν₃ and D₃ are then
+ν₃ᵐ·π⁻⁵ and D₃ᵐ·π⁻⁵), A's by Δ_a⁻⁶, and adds the mesh flavours' constant
+rate ``hmesh`` to the advective CFL after the wave-speed root (0 without
+them).  Under SAFI the shear builds' kernels take the x nodes of the
+shear flow at 0 (``PcParams.x0``, ``dx``), so that they add no advection
+by it and no |S x|/Δy: no new instance either.
+
 ``coef`` = [α, βΔt(, cprev)] and ``kick`` (12,) are device tensors, so no
 launch needs a host copy of dt.  Outputs never go to a buffer another
 block reads halos from; K7's df overwrites df_prev, which each point reads
@@ -155,6 +165,7 @@ from ..parallel.halo import (ghosted_from_sheared_z_slabs,
                              ghosted_from_z_slabs)
 from ..physics.base import TimestepAccum
 from ..physics.pencils import Pencils
+from ..physics.viscosity import PI5_1
 from . import _build
 from .stencil import BIDIAG, BIDIAG_TAPS, NGHOST, i, paired_weights
 
@@ -403,6 +414,8 @@ class PcParams(ctypes.Structure):
         ("diffrho_shock", ctypes.c_float), ("eta_shock", ctypes.c_float),
         ("chi_shock", ctypes.c_float), ("gchi_shock", ctypes.c_float),
         ("upw_inv", ctypes.c_float * 3), ("upw", ctypes.c_int * 3),
+        ("h6u", ctypes.c_float * 3), ("h6l", ctypes.c_float * 3),
+        ("hmesh", ctypes.c_float),
     ]
 
 
@@ -640,12 +653,30 @@ def aux_kernels(model):
 def hyper3_coefficients(cfg):
     """(ν₃, η₃, D₃) of ``cfg``, 0 for each that is off: the
     'hyper3-simplified' viscosity, the hyper-resistivity and the lnρ
-    hyper-diffusion."""
+    hyper-diffusion (the flavour whose rate is a diffusive one)."""
     visc, mag = cfg.module("viscosity"), cfg.module("magnetic")
     den = cfg.module("density")
     return (visc.coefficients()[2] if visc is not None else 0.0,
             max(mag.eta_hyper3, 0.0) if mag is not None else 0.0,
             max(den.diffrho_hyper3, 0.0) if den is not None else 0.0)
+
+
+def hyper3_mesh_coefficients(cfg):
+    """(ν₃ᵐ, D₃ᵐ) of ``cfg``, 0 for each that is off: the mesh flavours
+    of the viscosity ('hyper3-mesh') and of the lnρ hyper-diffusion
+    (``diffrho_hyper3_mesh``); the port's Magnetic has none, as JAX's."""
+    visc, den = cfg.module("viscosity"), cfg.module("density")
+    return (visc.mesh_coefficient() if visc is not None else 0.0,
+            max(den.diffrho_hyper3_mesh, 0.0) if den is not None else 0.0)
+
+
+def hyper3_terms(cfg):
+    """Every del6 coefficient of ``cfg`` as (option name, coefficient), 0
+    where it is off: ν₃ and ν₃ᵐ of u, η₃ of A, D₃ and D₃ᵐ of lnρ."""
+    return tuple(zip(("nu_hyper3", "eta_hyper3", "diffrho_hyper3",
+                      "nu_hyper3_mesh", "diffrho_hyper3_mesh"),
+                     hyper3_coefficients(cfg)
+                     + hyper3_mesh_coefficients(cfg)))
 
 
 def zg_library(model) -> str:
@@ -816,12 +847,22 @@ def kernel_params(model) -> PcParams:
     mag = cfg.module("magnetic")
     eta = mag.eta if mag is not None else 0.0
     # the del6 hyper-diffusion (the H3 instances) and its constant CFL
-    # rate max(ν₃, η₃, D₃)·dxyz₆/cdtv3
+    # rate max(ν₃, η₃, D₃)·dxyz₆/cdtv3 of the 'simplified' flavours; a
+    # field with the mesh flavour has ν₃ᵐ·π⁻⁵ for its coefficient and
+    # dline_1/60 for its weights in place of Δ⁻⁶, and their rates join
+    # the advective CFL as one constant root (``mesh_rate``)
     nu3, eta3, diff3 = hyper3_coefficients(cfg)
+    nu3m, diff3m = hyper3_mesh_coefficients(cfg)
     inv6 = pow6(inv)
     m3 = max(nu3, eta3, diff3)
     dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
     dif3 = f32(m3) * dxyz6 / f32(cfg.time.cdtv3) if m3 > 0.0 else f32(0)
+    if (nu3 > 0.0 and nu3m > 0.0) or (diff3 > 0.0 and diff3m > 0.0):
+        raise NotImplementedError(
+            "fused kernels: both flavours of del6 on one field ('hyper3-"
+            "simplified' with 'hyper3-mesh', diffrho_hyper3 with "
+            "diffrho_hyper3_mesh): no instance has them")
+    mesh6 = inv / f32(60.0)
     shear = cfg.module("shear")
     eos = model.eos
     ent = cfg.module("entropy")
@@ -834,18 +875,24 @@ def kernel_params(model) -> PcParams:
     heats = ent is not None
     hyd = cfg.module("hydro")
     upw = upwind_flags(cfg)
-    if any(upw) and m3 > 0.0:
+    if any(upw) and max(m3, nu3m, diff3m) > 0.0:
         raise NotImplementedError(
             "fused kernels: upwinding (lupw_lnrho, lupw_uu, lupw_ss) with "
-            "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3): "
-            "no instance has both")
-    if m3 > 0.0 and "shock" in model.reg.slots and not all(gs.periodic):
+            "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3 "
+            "or their mesh flavours): no instance has both")
+    if max(m3, nu3m, diff3m) > 0.0 and "shock" in model.reg.slots \
+            and not all(gs.periodic):
         raise NotImplementedError(
             "fused kernels: del6 hyper-diffusion (nu_hyper3, eta_hyper3, "
-            "diffrho_hyper3) with the Shock module's slot on a z-walled "
-            "grid: no instance has both")
+            "diffrho_hyper3 or their mesh flavours) with the Shock "
+            "module's slot on a z-walled grid: no instance has both")
     diffrho_shock, eta_shock, chi_shock = shock_coefficients(cfg, model.reg)
     x0, y0 = _node0(gs)
+    # the x nodes of the shear flow S·x in the shear builds: all 0 under
+    # SAFI, which shifts the fields between substeps instead, so that the
+    # flow's advection terms and CFL rate add 0 (the stretching terms keep
+    # S)
+    safi = shear is not None and shear.lshearadvection_as_shift
     wm = [sgn * c for c in BIDIAG for _, _, sgn in BIDIAG_TAPS]
     fl3 = ctypes.c_float * 3
     p = PcParams(
@@ -857,7 +904,7 @@ def kernel_params(model) -> PcParams:
         nu=max(nu, 0.0), eta=max(eta, 0.0),
         cs20=eos.cs20, gm1=eos.gamma - 1.0, lnrho0=eos.lnrho0,
         dxyz2=dxyz2, cdt=cfg.time.cdt, dif=dif,
-        x0=x0, y0=y0, dx=gs.dx, dy=gs.dy,
+        x0=0.0 if safi else x0, y0=y0, dx=0.0 if safi else gs.dx, dy=gs.dy,
         om=(ctypes.c_float * 3)(*(hyd.omega_vector() if hyd.Omega != 0.0
                                   else (0, 0, 0))),
         g_cp=eos.gamma / eos.cp, cp=eos.cp, gamma=eos.gamma,
@@ -866,7 +913,9 @@ def kernel_params(model) -> PcParams:
         eta_heat=max(eta, 0.0) if heats and mag is not None
         and mag.lohmic_heat else 0.0,
         maxdif=maxdiffus, cdtv=cfg.time.cdtv,
-        nu_shock=nu_shock, nu3=nu3, eta3=eta3, diff3=diff3, dif3=dif3,
+        nu_shock=nu_shock, nu3=nu3m * PI5_1 if nu3m > 0.0 else nu3,
+        eta3=eta3, diff3=diff3m * PI5_1 if diff3m > 0.0 else diff3,
+        dif3=dif3,
         w6=fl3(*paired_weights(6)), inv6=fl3(*inv6),
         S=shear.S if shear is not None else 0.0,
         cool=ent.cool if heats else 0.0,
@@ -880,9 +929,29 @@ def kernel_params(model) -> PcParams:
         chi_shock=chi_shock, gchi_shock=eos.gamma * chi_shock,
         # 1/(60 Δ_a), the upwinding's scale, rounded in f32
         upw_inv=fl3(*(inv / f32(60.0))),
-        upw=(ctypes.c_int * 3)(*upw))
+        upw=(ctypes.c_int * 3)(*upw),
+        h6u=fl3(*(mesh6 if nu3m > 0.0 else inv6)),
+        h6l=fl3(*(mesh6 if diff3m > 0.0 else inv6)),
+        hmesh=mesh_rate(cfg, inv))
     model.__dict__["_pc_params"] = p
     return p
+
+
+def mesh_rate(cfg, inv):
+    """The constant root √Σ (c·π⁻⁵·√Σ_a dline_1_a²)² of the mesh flavours
+    in use (D₃ᵐ's, then ν₃ᵐ's: the module order), in f32 in the plain
+    version's order, which the H3 instances add to the advective CFL
+    after the wave-speed root; 0 without them (the add leaves the rate
+    bit for bit)."""
+    f32 = np.float32
+    sq = np.sqrt((inv[0] * inv[0] + inv[1] * inv[1]) + inv[2] * inv[2])
+    adv2 = None
+    nu3m, diff3m = hyper3_mesh_coefficients(cfg)
+    for c in (diff3m, nu3m):
+        if c > 0.0:
+            v = f32(c * PI5_1) * sq
+            adv2 = v * v if adv2 is None else adv2 + v * v
+    return f32(0.0) if adv2 is None else np.sqrt(adv2)
 
 
 def _nblocks(shape, lib="fused_rhs"):

@@ -19,11 +19,19 @@ class TimestepAccum:
     def __init__(self):
         self.maxadvec = 0.0    # Σ_a |u_a|·dline_1_a  (linear advection terms)
         self.advec_cs2 = 0.0   # (cs² + vA²)·Σ_a Δ_a⁻²  (wave speeds, squared)
+        self.advec2_hypermesh = 0.0  # Σ (c·π⁻⁵·√Σ_a dline_a⁻²)²  (mesh hyper)
         self.maxdiffus = 0.0   # max(ν, η, χ, ...) — scaled by dxyz_2 at the end
         self.maxdiffus3 = 0.0  # hyper-diffusivities — scaled by dxyz_6
 
     def advec(self, val):
         self.maxadvec = self.maxadvec + val
+
+    def advec_mesh(self, val):
+        """The rate of a mesh hyper-diffusion, c·π⁻⁵·√Σ_a dline_1_a²: its
+        square joins advec2_hypermesh, whose root joins maxadvec linearly
+        after the wave-speed root (JAX physics/base.py:31-36; reference
+        density.f90:2801-2803, equ.f90:1100-1107)."""
+        self.advec2_hypermesh = self.advec2_hypermesh + val * val
 
     def advec2(self, val):
         """Squared wave-speed term; its root joins maxadvec linearly."""

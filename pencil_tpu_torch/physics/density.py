@@ -4,13 +4,15 @@ of ``pencil_tpu/physics/density.py:113-157``):
     Dlnρ/Dt = −∇·u [+ Σ_a |u_a|δ⁶_a lnρ/(60Δ_a)]
               [+ D_sh(shock(∇²lnρ + |∇lnρ|²) + ∇shock·∇lnρ)]
               [+ D₃ Σ_a ∂⁶lnρ/∂x_a⁶]
+              [+ D₃ᵐ·π⁻⁵ Σ_a δ⁶_a lnρ·dline_1_a/60]
 
 with 5th-order upwinding of the advection (``lupw_lnrho``, :113), shock
 diffusion (``diffrho_shock``, :126-136; it acts only where the Shock
-module's slot exists) and the 'simplified' hyper-diffusion of lnρ
-(:137-149).  The JAX module's non-log density, ``diffrho`` and its other
-hyper-diffusion flavours are not ported: the polar, mesh and anisotropic
-ones raise.  Initial
+module's slot exists), the 'simplified' hyper-diffusion of lnρ
+(:137-149) and its mesh flavour (``diffrho_hyper3_mesh``, :150-156),
+whose rate joins the advective CFL (``advec_mesh``).  The JAX module's
+non-log density, ``diffrho`` and its other hyper-diffusion flavours are
+not ported: the polar and anisotropic ones raise.  Initial
 conditions: 'zero', 'gaussian-noise', 'piecew-poly' (:214-227) and
 'isothermal', lnρ = lnρ0 − γΦ/cs0² in the gravity's potential Φ, with
 an entropy field also the matching ss = −(cp − cv)(lnρ − lnρ0) as the
@@ -25,6 +27,7 @@ import torch
 
 from .base import ModuleBase, accumulate
 from .initcond import init_scalar
+from .viscosity import PI5_1
 from .stratification import piecew_poly_profiles
 
 # the entropy inits that assign ss themselves, so Density 'isothermal'
@@ -40,21 +43,20 @@ class Density(ModuleBase):
     lupw_lnrho: bool = False       # 5th-order upwinding of u·∇lnρ
     diffrho_shock: float = 0.0     # shock diffusion of lnρ (idiff='shock')
     diffrho_hyper3: float = 0.0    # del6 hyperdiffusion (simplified flavor)
+    diffrho_hyper3_mesh: float = 0.0   # its mesh flavour
     init: str = "zero"
     ampl: float = 0.0
     width: float = 0.05
     # the JAX module's other hyper-diffusion flavours, not ported
     lhyper3_polar: bool = False
-    diffrho_hyper3_mesh: float = 0.0
     diffrho_hyper3_aniso: tuple = (0.0, 0.0, 0.0)
 
     def __post_init__(self):
-        if self.lhyper3_polar or self.diffrho_hyper3_mesh \
-                or any(self.diffrho_hyper3_aniso):
+        if self.lhyper3_polar or any(self.diffrho_hyper3_aniso):
             raise NotImplementedError(
                 "pencil_tpu_torch: Density hyper-diffusion other than the "
-                "'simplified' diffrho_hyper3 (lhyper3_polar, "
-                "diffrho_hyper3_mesh, diffrho_hyper3_aniso)")
+                "'simplified' diffrho_hyper3 and diffrho_hyper3_mesh "
+                "(lhyper3_polar, diffrho_hyper3_aniso)")
 
     def register(self, reg):
         reg.register("lnrho", 1, "pde")
@@ -74,6 +76,12 @@ class Density(ModuleBase):
         if self.diffrho_hyper3 > 0.0:
             out = out + self.diffrho_hyper3 * pen.del6s_scaled("lnrho")
             ts.diffus3(self.diffrho_hyper3)
+        if self.diffrho_hyper3_mesh > 0.0:
+            d1 = pen.dline_1()
+            out = out + self.diffrho_hyper3_mesh * PI5_1 * sum(
+                pen.d6_raw("lnrho", a)[0] * d1[a] / 60.0 for a in range(3))
+            ts.advec_mesh(self.diffrho_hyper3_mesh * PI5_1 * torch.sqrt(
+                d1[0] ** 2 + d1[1] ** 2 + d1[2] ** 2))
         accumulate(df, "lnrho", out)
 
     def init_fields(self, grid, spec, generator, cfg=None):

@@ -7,7 +7,14 @@ Hydro owns advection, with 5th-order upwinding of each component where
 ``lupw_uu`` (JAX hydro.py:161-167, after the pressure force and before
 the Coriolis force; no CFL term), the pressure force, the Coriolis force (Ω at angle
 θ from the z axis, in degrees) and the advective CFL terms: advec_uu =
-Σ_a |u_a|·dline_1_a linearly, and cs²·Σ_a Δ_a⁻² squared."""
+Σ_a |u_a|·dline_1_a linearly, and cs²·Σ_a Δ_a⁻² squared.
+
+``lremove_mean_momenta`` (JAX hydro.py:98-116, reference
+remove_mean_momenta, hydro.f90:7346; the shearing box's guard against a
+mean wind) takes the volume-mean momentum out of u after every step:
+u −= ⟨ρu⟩/⟨ρ⟩ with ρ = exp(lnρ).  The model runs it after the
+boundary-plane writeback and before the forcing kick, the order of the
+JAX after-step hooks (Hydro before Forcing)."""
 from __future__ import annotations
 
 import math
@@ -30,6 +37,7 @@ class Hydro(ModuleBase):
     theta: float = 0.0        # angle of Ω from the z axis, degrees
     init: str = "zero"
     ampl: float = 0.0
+    lremove_mean_momenta: bool = False
 
     def register(self, reg):
         reg.register("uu", 3, "pde", comps=("ux", "uy", "uz"))
@@ -38,6 +46,13 @@ class Hydro(ModuleBase):
         """Ω as (Ωx, Ωy, Ωz) host floats (JAX hydro.py:169-170)."""
         th = math.radians(self.theta)
         return (self.Omega * math.sin(th), 0.0, self.Omega * math.cos(th))
+
+    def remove_mean_momenta(self, uu, lnrho):
+        """u − ⟨ρu⟩/⟨ρ⟩, ρ = exp(lnρ), as a new tensor: device tensor ops
+        only, no host sync."""
+        rho = torch.exp(lnrho)
+        rum = torch.mean(rho[None] * uu, dim=(1, 2, 3))
+        return uu - (rum / torch.mean(rho))[:, None, None, None]
 
     def rhs(self, pen, df, ts):
         out = -pen.ugu() + pen.fpres()

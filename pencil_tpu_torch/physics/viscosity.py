@@ -5,8 +5,11 @@ flavours in the JAX order:
     'nu-const'           ν(∇²u + ⅓∇∇·u + 2S·∇lnρ)
     'nu-shock'           ν_sh[shock(∇∇·u + ∇·u ∇lnρ) + ∇·u ∇shock]
     'hyper3-simplified'  ν₃ Σ_a ∂⁶u/∂x_a⁶
+    'hyper3-mesh'        ν₃ᵐ·π⁻⁵ Σ_a δ⁶_a u·dline_1_a/60, whose rate
+                         ν₃ᵐ·π⁻⁵·√Σ_a dline_1_a² joins the advective CFL
+                         (``advec_mesh``)
 
-'nu-const' is always selected; the other two are optional.  With an
+'nu-const' is always selected; the other three are optional.  With an
 entropy slot the viscous heating (2νS² + ν_sh·shock·(∇·u)²) goes into the
 pencil cache for the entropy module (JAX viscosity.py:224-227).
 """
@@ -19,7 +22,11 @@ import torch
 
 from .base import ModuleBase, accumulate
 
-OPTIONAL = ("nu-shock", "hyper3-simplified")
+OPTIONAL = ("nu-shock", "hyper3-simplified", "hyper3-mesh")
+
+# π⁻⁵ of the mesh flavours' normalisation (JAX viscosity.py:219, reference
+# viscosity.f90:1857)
+PI5_1 = 1.0 / 306.0196847852814
 
 
 @dataclass(frozen=True)
@@ -30,6 +37,7 @@ class Viscosity(ModuleBase):
     nu: float = 0.0
     nu_hyper3: float = 0.0
     nu_shock: float = 0.0
+    nu_hyper3_mesh: float = 5.0
 
     def __post_init__(self):
         iv = tuple(self.ivisc)
@@ -45,6 +53,11 @@ class Viscosity(ModuleBase):
         return (max(self.nu, 0.0),
                 max(self.nu_shock, 0.0) if "nu-shock" in iv else 0.0,
                 max(self.nu_hyper3, 0.0) if "hyper3-simplified" in iv
+                else 0.0)
+
+    def mesh_coefficient(self):
+        """ν₃ᵐ of 'hyper3-mesh', 0 where it contributes nothing."""
+        return (max(self.nu_hyper3_mesh, 0.0) if "hyper3-mesh" in self.ivisc
                 else 0.0)
 
     def rhs(self, pen, df, ts):
@@ -76,6 +89,13 @@ class Viscosity(ModuleBase):
         if nu_hyper3 > 0.0:
             fvisc = fvisc + nu_hyper3 * pen.del6v_scaled("uu")
             ts.diffus3(nu_hyper3)
+        nu_mesh = self.mesh_coefficient()
+        if nu_mesh > 0.0:
+            d1 = pen.dline_1()
+            fvisc = fvisc + nu_mesh * PI5_1 * sum(
+                pen.d6_raw("uu", a) * d1[a] / 60.0 for a in range(3))
+            ts.advec_mesh(nu_mesh * PI5_1 * torch.sqrt(
+                d1[0] ** 2 + d1[1] ** 2 + d1[2] ** 2))
         if not isinstance(fvisc, float):
             accumulate(df, "uu", fvisc)
         if not isinstance(heat, float):

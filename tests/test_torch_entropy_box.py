@@ -305,6 +305,7 @@ REFUSED = {
     "gravity": (dict(cool=15.0, cs2cool=1.0),
                 (pt.Gravity(gravz_profile="const", gravz=-1.0),),
                 "cool/luminosity"),
+    # del6 in both flavours on u: no H3 instance has two weights a field
     "hyper3": (None, (), "hyper3-mesh"),
 }
 
@@ -314,25 +315,44 @@ REFUSED = {
 def test_gate_refuses_what_the_entropy_kernels_lack(case, magnetic):
     """The layer profiles stay outside, also under gravity: a reason on
     the CPU (the eager path), NotImplementedError on the card.  Of del6
-    hyper-diffusion the H3 instances take 'hyper3-simplified' only: the
-    'hyper3-mesh' flavour, which JAX has, raises as the port's Viscosity
-    is built, with its name."""
+    hyper-diffusion the H3 instances take one flavour a field: 'hyper3-
+    mesh' beside 'hyper3-simplified' is refused with its name (each alone
+    runs: test_gate_admits_the_mesh_flavour_on_the_entropy_sets)."""
     entropy, extra, word = REFUSED[case]
-    if case == "hyper3":
-        with pytest.raises(NotImplementedError, match=word):
-            pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-3,
-                         nu_hyper3=1e-9)
-        return
     cfg = config(pt, magnetic=magnetic, entropy=entropy)
     cfg = cfg.replace(modules=cfg.modules + extra)
+    if case == "hyper3":
+        cfg = cfg.replace(modules=tuple(
+            pt.Viscosity(ivisc=("nu-const", "hyper3-simplified",
+                                "hyper3-mesh"), nu=5e-3, nu_hyper3=1e-9)
+            if m.name == "viscosity" else m for m in cfg.modules))
     assert word in gate_reason(cfg)
     assert fused_gate(cfg, "cpu") is False
     with pytest.raises(NotImplementedError, match=word):
         fused_gate(cfg, "cuda")
     pm = pt.Model(cfg, device="cpu")
     assert pm.mode is None
-    with pytest.raises(NotImplementedError, match="layout"):
+    with pytest.raises(NotImplementedError,
+                       match=word if case == "hyper3" else "layout"):
         fr.kernel_params(pm)
+
+
+@pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
+def test_gate_admits_the_mesh_flavour_on_the_entropy_sets(magnetic):
+    """Both entropy sets with 'hyper3-mesh' viscosity and
+    diffrho_hyper3_mesh (η₃ on A with Magnetic) run the wrap chain on
+    their builds' H3 instances with the mesh weights, counted under the
+    launch names with _h3; the JAX package has the flavour too."""
+    cfg = forced_entropy(8, magnetic=magnetic, hyper3="mesh")
+    assert gate_reason(cfg) is None
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    pm = pt.Model(cfg, device="cpu")
+    assert pm.mode == "wrap" and fr.launch_suffix(pm).endswith("_h3")
+    p = fr.kernel_params(pm)
+    assert p.hmesh > 0.0 and p.nu3 > 0.0 and p.diff3 > 0.0
+    jcfg = forced_entropy(8, pkg=pj, magnetic=magnetic, hyper3="mesh")
+    assert jcfg.module("viscosity").ivisc == ("nu-const", "hyper3-mesh")
 
 
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))
@@ -357,9 +377,10 @@ def test_gate_admits_hyper3_on_the_entropy_sets(magnetic):
 def test_gate_admits_chi_const_on_the_conv_slab():
     """The z-ghosted builds' CHI instances take chi-const beside K-const:
     the conv-slab set with it runs the zghost chain, and so does the same
-    set with D₃ del6 hyper-diffusion (their H3 instances); the 'mesh'
-    flavour of D₃, which JAX has, stays refused: the port's Density raises
-    as it is built, with the option's name."""
+    set with D₃ del6 hyper-diffusion (their H3 instances) and with its
+    'mesh' flavour (the same instances with the mesh weights); both
+    flavours of D₃ at once are refused on the card, with the option's
+    name."""
     cfg = conv_slab(8)
     cfg = cfg.replace(modules=tuple(
         dataclasses.replace(m, iheatcond=("K-const", "chi-const"), chi=1e-3)
@@ -374,8 +395,17 @@ def test_gate_admits_chi_const_on_the_conv_slab():
     assert gate_reason(hyper) is None
     assert fused_gate(hyper, "cuda") is True
     assert pt.Model(hyper, device="cpu").mode == "zghost"
+    mesh = cfg.replace(modules=tuple(
+        pt.Density(init="piecew-poly", diffrho_hyper3_mesh=5.0)
+        if m.name == "density" else m for m in cfg.modules))
+    assert gate_reason(mesh) is None
+    assert fused_gate(mesh, "cuda") is True
+    both = cfg.replace(modules=tuple(
+        pt.Density(init="piecew-poly", diffrho_hyper3=1e-9,
+                   diffrho_hyper3_mesh=5.0)
+        if m.name == "density" else m for m in cfg.modules))
     with pytest.raises(NotImplementedError, match="diffrho_hyper3_mesh"):
-        pt.Density(init="piecew-poly", diffrho_hyper3_mesh=1e-9)
+        fused_gate(both, "cuda")
     assert gate_reason(conv_slab(8)) is None
 
 

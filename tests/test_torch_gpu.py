@@ -721,7 +721,10 @@ def test_conv_slab_steps_on_card_match_cpu(cuda, case):
     _conv_slab_steps_match(cuda, conv_slab((16, 16, 32), **ZG_CASES[case]))
 
 
-def _conv_slab_steps_match(cuda, cfg):
+def _conv_slab_steps_match(cuda, cfg, noise=1e-2):
+    """Three steps of a z-walled set on the card against the CPU from the
+    same fields, u and A replaced by noise of amplitude ``noise``, and
+    the same forcing draws."""
     shape = cfg.grid.shape
     if cfg.module("shear") is not None:
         cfg = cfg.replace(time=pt.TimeSpec(itorder=3, tstart=0.37))
@@ -729,7 +732,7 @@ def _conv_slab_steps_match(cuda, cfg):
     g = torch.Generator().manual_seed(5)
     for k in ("uu", "aa"):
         if k in fields:
-            fields[k] = 1e-2 * torch.randn((3,) + shape, generator=g)
+            fields[k] = noise * torch.randn((3,) + shape, generator=g)
     draws = [(torch.randint(0, 20, (1,), generator=g),
               torch.rand((), generator=g) * 6.0 - 3.0,
               torch.randn(3, generator=g)) for _ in range(3)]
@@ -1584,3 +1587,185 @@ def test_highorder_shock_box_steps_on_card_match_cpu(cuda):
     _steps_match(cuda, cfg.replace(modules=tuple(
         dataclasses.replace(m, variant="highorder") if m.name == "shock"
         else m for m in cfg.modules)), uu_noise=0.1)
+
+
+# ---- SAFI, the mesh flavour of del6 and the mean removal -------------------
+def with_safi(cfg):
+    """``cfg`` with its Shear's advection as a shift between substeps."""
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, lshearadvection_as_shift=True)
+        if m.name == "shear" else m for m in cfg.modules))
+
+
+def with_mesh(cfg):
+    """``cfg`` with the mesh flavour of del6 on u and lnρ in place of the
+    'simplified' one (η₃ stays on A)."""
+    c = pt.configs.MESH_HYPER3
+    new = {"viscosity": lambda m: dict(
+               ivisc=tuple(v for v in m.ivisc if v != "hyper3-simplified")
+               + ("hyper3-mesh",), nu_hyper3=0.0, nu_hyper3_mesh=c),
+           "density": lambda m: dict(diffrho_hyper3=0.0,
+                                     diffrho_hyper3_mesh=c)}
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **new[m.name](m)) if m.name in new else m
+        for m in cfg.modules))
+
+
+SHEAR_AUX = tuple(b for b in AUX_BUILDS if b.startswith("shear"))
+
+
+@pytest.mark.parametrize("mesh", (False, True), ids=("plain", "mesh"))
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("build", SHEAR_AUX)
+def test_safi_shear_kernels_match_plain(cuda, build, shape, mesh):
+    """K4/K5 of each shear build with the flow's nodes at 0 (SAFI), with
+    del6 simplified or, ``mesh``, in its mesh flavour, against their plain
+    versions (which drop the advection and its CFL term)."""
+    cfg = with_safi(BUILDS[build][0](shape))
+    if mesh:
+        cfg = with_mesh(cfg)
+    pm = pt.Model(cfg, device=cuda)
+    p = fr.kernel_params(pm)
+    assert p.x0 == p.dx == 0.0 and p.S != 0.0
+    _aux_kernels_match_plain(cuda, cfg, RTOL_FIELD)
+
+
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+@pytest.mark.parametrize("build", sorted(set(AUX_BUILDS) - set(SHEAR_AUX)))
+def test_mesh_shock_kernels_match_plain(cuda, build, shape):
+    """K1s/K5w of each shocked build's H3 instance with the mesh weights
+    against their plain versions."""
+    _aux_kernels_match_plain(
+        cuda, with_mesh(_with_h3(BUILDS[build][0](shape))), RTOL_FIELD)
+
+
+def _with_h3(cfg):
+    """``cfg`` with del6 of u, A and lnρ at 5e-3·dx⁵ ('simplified')."""
+    h3 = 5e-3 * cfg.grid.dx ** 5
+    new = {"density": dict(diffrho_hyper3=h3),
+           "magnetic": dict(eta_hyper3=h3)}
+    out = []
+    for m in cfg.modules:
+        if m.name == "viscosity":
+            m = dataclasses.replace(m, ivisc=tuple(m.ivisc) + (
+                "hyper3-simplified",), nu_hyper3=h3)
+        elif m.name in new:
+            m = dataclasses.replace(m, **new[m.name])
+        out.append(m)
+    return cfg.replace(modules=tuple(out))
+
+
+# the z-ghosted sets with SAFI and the mesh flavour: conv_slab or
+# strat_box keyword arguments
+ZG_SAFI = {"shear_safi": (conv_slab, dict(Omega=1.0, shear=True)),
+           "mag_shear_safi": (conv_slab, dict(magnetic=True, Omega=1.0,
+                                              shear=True)),
+           "iso_shear_safi": (strat_box, dict(magnetic=False)),
+           "iso_mag_shear_safi": (strat_box, {})}
+
+
+@pytest.mark.parametrize("mesh", (False, True), ids=("plain", "mesh"))
+@pytest.mark.parametrize("case", sorted(ZG_SAFI))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_safi_zghost_kernels_match_plain(cuda, shape, case, mesh):
+    """K6s/K7s, K6ms/K7ms, K6si/K7si and K6msi/K7msi with SAFI, their
+    instance without del6 or their H3 instance with the mesh weights,
+    against their plain versions."""
+    make, kw = ZG_SAFI[case]
+    cfg = with_safi(make(shape, hyper3=mesh, **kw))
+    if mesh:
+        cfg = with_mesh(cfg)
+    cfg = cfg.replace(time=pt.TimeSpec(itorder=3, tstart=0.37))
+    pm = pt.Model(cfg, device=cuda)
+    if "ss" in pm.reg.slots:
+        _zghost_kernels_match_plain(cuda, cfg)
+        return
+    first_p, upd_p = fr.zg_plain(pm)
+    inp = iso_fg(pm)
+    df, dt1m = fr.rhs_zg(pm, *inp)
+    df_p, dt1m_p = first_p(pm, *inp)
+    torch.testing.assert_close(dt1m, dt1m_p, rtol=RTOL_DT, atol=0.0)
+    assert_field_close(df, df_p, "df (K6)")
+    coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m_p))
+    inp2 = iso_fg(pm, seed=5)
+    df2, f2 = fr.rhs_zg_upd(pm, *inp2, df_p.clone(), coef)
+    df2_p, f2_p = upd_p(pm, *inp2, df_p.clone(), coef)
+    assert_field_close(df2, df2_p, "df (K7)")
+    assert_field_close(f2, f2_p, "f (K7)")
+
+
+@pytest.mark.parametrize("case", ("conv", "mag"))
+@pytest.mark.parametrize("shape", FLAGSHIP_SHAPES, ids=FLAGSHIP_IDS)
+def test_mesh_zghost_kernels_match_plain(cuda, shape, case):
+    """K6/K7 and K6m/K7m's H3 instances with the mesh weights."""
+    _zghost_kernels_match_plain(cuda, with_mesh(conv_slab(
+        shape, magnetic=case == "mag", hyper3=True)))
+
+
+@pytest.mark.parametrize("case", ("mhd", "hydro", "ent_mhd", "ent_hydro"))
+@pytest.mark.parametrize("shape", ((32, 32, 32), (24, 20, 42)),
+                         ids=("32^3", "24x20x42"))
+def test_mesh_template_instances_match_plain(cuda, shape, case):
+    """K1, K2, K3, K3′ and K2L's H3 instances of the four periodic builds
+    with the mesh weights and the mesh rate in the CFL."""
+    make = {"mhd": pt.configs.flagship, "hydro": forced_hydro,
+            "ent_mhd": forced_entropy,
+            "ent_hydro": lambda s, **k: forced_entropy(s, magnetic=False,
+                                                       **k)}[case]
+    _template_instances_match_plain(cuda, make(shape, hyper3="mesh"),
+                                    RTOL_FIELD)
+
+
+@pytest.mark.parametrize("case", ("shear_box", "strat_box", "conv_slab"))
+def test_safi_steps_on_card_match_cpu(cuda, case):
+    """Three SAFI steps (the shift between substeps on the card) against
+    the same steps on the CPU: the shear box with the mesh flavour and the
+    mean removal, the stratified MRI box and the sheared conv-slab.  The
+    stratified sets start from velocity noise of 1e-1: the shift's
+    transform of lnρ's O(1) profile rounds differently in cuFFT and on
+    the CPU, and with noise of 1e-2 the u it drives parts by up to 2.6e-5
+    of its max (chip_smoke.py, SAFI_UU_NOISE)."""
+    if case == "shear_box":
+        _steps_match(cuda, shear_box((16, 16, 32), safi=True, hyper3="mesh",
+                                     remove_mean_momenta=True), t0=0.37)
+    elif case == "strat_box":
+        _conv_slab_steps_match(cuda, strat_box((16, 16, 32), safi=True),
+                               noise=0.1)
+    else:
+        _conv_slab_steps_match(cuda, conv_slab((16, 16, 32), Omega=0.5,
+                                               shear=True, safi=True),
+                               noise=0.1)
+
+
+def test_mean_removal_flagship_steps_on_card_match_cpu(cuda):
+    """The forced flagship with lremove_mean_momenta: K3 without its kick,
+    the mean removed, then the kick, on the card against the CPU."""
+    _steps_match(cuda, pt.configs.flagship((16, 16, 32),
+                                           remove_mean_momenta=True))
+
+
+@pytest.mark.parametrize("ny", (64, 128, 256))
+def test_fourier_shifts_on_card_match_cpu(cuda, ny):
+    """The shear-periodic x faces' shift (on a view of a ghosted stack)
+    and the SAFI shift on the card against the CPU: cuFFT's C2R read the
+    imaginary part of the Nyquist bin from 128 rows up, which parted the
+    faces by 1e-2 of their max at 256 (the shifts now hand it a real
+    bin)."""
+    from pencil_tpu_torch.core.grid import make_grid
+    from pencil_tpu_torch.physics.shear import fourier_shift_y
+    g = torch.Generator().manual_seed(0)
+    fg = torch.randn((8, 14, ny + 6, 16), generator=g)
+    slab = fg[..., 0:3, 3:3 + ny, :]
+    dy = torch.tensor(0.555)
+    want = fourier_shift_y(slab, dy, 1.0)
+    got = fourier_shift_y(slab.to(cuda), dy.to(cuda), 1.0).cpu()
+    assert_field_close(got, want, "x faces")
+    gs = pt.GridSpec(nx=8, ny=ny, nz=16, x0=-0.5, y0=-0.5, z0=-0.5)
+    sh = pt.Shear(lshearadvection_as_shift=True)
+    a = torch.randn((7, 8, ny, 16), generator=g)
+    out = [sh.shift_advection(a.to(dev), make_grid(gs, dev), 1.0,
+                              torch.tensor(3e-3, device=dev)).cpu()
+           for dev in (cuda, torch.device("cpu"))]
+    assert_field_close(out[0], out[1], "SAFI shift")

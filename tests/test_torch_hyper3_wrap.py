@@ -209,15 +209,14 @@ def test_gate_admits_hyper3_on_the_wrap_sets(case):
 
 
 def test_other_hyper3_flavours_stay_refused():
-    """'hyper3-mesh' (and every other flavour of the JAX modules) raises as
-    the port's Viscosity or Density is built, with its name: the H3
-    instances take 'hyper3-simplified' and diffrho_hyper3 only; nu-shock
-    on a periodic set without the Shock module stays outside the wrap
-    chain, named."""
-    for flavour in ("hyper3-mesh", "hyper3_nu-const_aniso", "hyper3-sph"):
+    """Every flavour of the JAX modules but 'hyper3-simplified' and the
+    mesh one (diffrho_hyper3, diffrho_hyper3_mesh) raises as the port's
+    Viscosity or Density is built, with its name; nu-shock on a periodic
+    set without the Shock module stays outside the wrap chain, named."""
+    for flavour in ("hyper3_nu-const_aniso", "hyper3-sph"):
         with pytest.raises(NotImplementedError, match=flavour):
             pt.Viscosity(ivisc=("nu-const", flavour), nu=5e-3)
-    for kw in (dict(lhyper3_polar=True), dict(diffrho_hyper3_mesh=1.0),
+    for kw in (dict(lhyper3_polar=True),
                dict(diffrho_hyper3_aniso=(1e-9, 0.0, 0.0))):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             pt.Density(diffrho_hyper3=1e-9, **kw)
@@ -228,6 +227,24 @@ def test_other_hyper3_flavours_stay_refused():
     assert "nu-shock" in gate_reason(shocked)
     with pytest.raises(NotImplementedError, match="nu-shock"):
         fused_gate(shocked, "cuda")
+
+
+@pytest.mark.parametrize("case", sorted(SETS))
+def test_mesh_flavour_takes_the_h3_instances(case):
+    """'hyper3-mesh' and diffrho_hyper3_mesh (``hyper3="mesh"``: η₃ stays
+    on A), once refused as the modules were built, run each periodic
+    set's H3 instances on the card and on the CPU, with ν₃ᵐ·π⁻⁵ and
+    D₃ᵐ·π⁻⁵ for coefficients and the mesh rate in the CFL."""
+    cfg = config(pt, case, (8, 8, 8), hyper3="mesh")
+    assert fused_mode(cfg) == ("wrap", None)
+    for dev in ("cpu", "cuda"):
+        assert fused_gate(cfg, dev) is True
+    pm = pt.Model(cfg, device="cpu")
+    assert fr.launch_suffix(pm) == SUFFIX[case]
+    p = fr.kernel_params(pm)
+    pi5 = np.float32(configs.MESH_HYPER3 / 306.0196847852814)
+    assert p.nu3 == pi5 == p.diff3 and p.hmesh > 0.0
+    assert (p.dif3 > 0.0) == ("aa" in pm.reg.slots)
 
 
 @pytest.mark.parametrize("pkg", (pt, pj), ids=("port", "jax"))

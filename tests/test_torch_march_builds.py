@@ -433,19 +433,39 @@ def test_kernel_params_carry_the_conv_slab_terms():
 
 @pytest.mark.parametrize("case", ("magnetic_hyper3", "hyper3"))
 def test_zg_build_refuses_what_it_has_no_terms_for(case):
-    """The 'hyper3-mesh' viscosity in the conv-slab set, with or without
-    Magnetic: the z-ghosted builds have no mesh hyper-diffusion, and the
-    port's Viscosity refuses it as it is built, naming it ('hyper3-
-    simplified', Ω and chi-const they have: the H3, ROT and CHI
-    instances, whose constants this set fills)."""
+    """The conv-slab set, with or without Magnetic, with 'hyper3-mesh'
+    beside 'hyper3-simplified' on u: the z-ghosted builds' H3 instances
+    have one weight a field, and the constants refuse the pair, naming it
+    ('hyper3-simplified', the mesh flavour alone, Ω and chi-const they
+    have: the H3, ROT and CHI instances, whose constants this set
+    fills)."""
     cfg = conv_slab(SHAPE, magnetic=case.startswith("magnetic"),
                     hyper3=True)
     p = fr.kernel_params(pt.Model(cfg, device="cpu"))
     assert p.nu3 > 0.0 and p.diff3 > 0.0 and p.dif3 > 0.0
     assert (p.eta3 > 0.0) == case.startswith("magnetic")
     visc = cfg.module("viscosity")
+    both = cfg.replace(modules=tuple(
+        dataclasses.replace(visc, ivisc=visc.ivisc + ("hyper3-mesh",))
+        if m.name == "viscosity" else m for m in cfg.modules))
     with pytest.raises(NotImplementedError, match="hyper3-mesh"):
-        dataclasses.replace(visc, ivisc=("nu-const", "hyper3-mesh"))
+        fr.kernel_params(pt.Model(both, device="cpu"))
+
+
+@pytest.mark.parametrize("case", ("magnetic_hyper3", "hyper3"))
+def test_zg_build_takes_the_mesh_flavour(case):
+    """The conv-slab set, with or without Magnetic, with 'hyper3-mesh' and
+    diffrho_hyper3_mesh (η₃ on A): the H3 instances with the mesh weights
+    dline_1/60 on u and lnρ and the mesh rate in the CFL, the constant
+    diffusive rate η₃'s alone."""
+    mag = case.startswith("magnetic")
+    pm = pt.Model(conv_slab(SHAPE, magnetic=mag, hyper3="mesh"),
+                  device="cpu")
+    p = fr.kernel_params(pm)
+    assert all(k.endswith("_h3") for k in fr.zg_kernels(pm))
+    assert p.hmesh > 0.0 and p.nu3 > 0.0 and p.diff3 > 0.0
+    assert (p.dif3 > 0.0) == mag and (p.eta3 > 0.0) == mag
+    assert list(p.h6u) == list(p.h6l) != list(p.inv6)
 
 
 @pytest.mark.parametrize("magnetic", (True, False), ids=("mhd", "hydro"))

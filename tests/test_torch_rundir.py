@@ -28,6 +28,7 @@ from pencil_tpu_torch.compat import io_dist, samples
 from pencil_tpu_torch.compat.namelist import parse_namelists
 from pencil_tpu_torch.compat.rundir import load_rundir
 from pencil_tpu_torch.core.grid import make_grid
+from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.ops import fused_rhs as fr
 from pencil_tpu_torch.physics.forcing import shell_vectors
 from pencil_tpu_torch.post import read as pread
@@ -134,6 +135,22 @@ def conv_shock_rundir(d, nt=4):
         ("start.in", bcz, bcz + ",'s'"), ("run.in", bcz, bcz + ",'s'"),
         ("run.in", "nu=4e-3", "nu=4e-3, nu_shock=1., "
          "ivisc='nu-const','nu-shock'")])
+
+
+def safi_rundir(d, nt=4):
+    """helical-MHDturb's shape in a rotating shearing box (Ω = 1, q =
+    3/2) with SAFI, the mesh flavour of del6 on u and lnρ (ν₃ᵐ = D₃ᵐ =
+    5), η₃ on A and the mean momenta removed after each step."""
+    return _edited(helical_rundir(d, nt=nt), [
+        ("run.in", "&hydro_run_pars\n/\n",
+         "&hydro_run_pars\n  omega=1., lremove_mean_momenta=T\n/\n"
+         "&shear_run_pars\n  qshear=1.5, lshearadvection_as_shift=T\n/\n"),
+        ("run.in", "&density_run_pars\n/\n",
+         "&density_run_pars\n  diffrho_hyper3_mesh=5.\n/\n"),
+        ("run.in", "  eta=5e-3", "  eta=5e-3, iresistivity='eta-const',"
+         "'hyper3', eta_hyper3=5e-5"),
+        ("run.in", "nu=5e-3, ivisc='nu-const'",
+         "nu=5e-3, nu_hyper3_mesh=5., ivisc='nu-const','hyper3-mesh'")])
 
 
 RUNDIRS = {"helical": (helical_rundir, HELICAL_N, "flagship"),
@@ -525,15 +542,71 @@ REFUSED = {
     "cylinder_in_a_box": ("helical", "start.in",
                           ("random_gen='nr_f90'", "random_gen='nr_f90', "
                            "lcylinder_in_a_box=T"), "lcylinder_in_a_box"),
-    "shear_as_shift": ("helical", "run.in",
-                       "&shear_run_pars\n  qshear=1.5, "
-                       "lshearadvection_as_shift=T\n/\n",
-                       "lshearadvection_as_shift"),
-    "sshear": ("helical", "run.in", "&shear_run_pars\n  Sshear=-1.\n/\n",
-               "sshear"),
     "chi_hyper3": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
                                       "chi_hyper3=1e-6"), "chi_hyper3"),
+    # the mesh flavour of del6 runs on u and lnρ; of s it stays refused
+    "chi_hyper3_mesh": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                           "chi_hyper3_mesh=5."),
+                        "chi_hyper3_mesh"),
+    "beta_glnrho_global": ("helical", "start.in",
+                           ("&density_init_pars\n/\n",
+                            "&density_init_pars\n  beta_glnrho_global="
+                            "-0.1,0.,0.\n/\n"), "beta_glnrho_global"),
+    "fargo": ("helical", "run.in", ("itorder=3", "itorder=3, "
+                                    "lfargo_advection=T"),
+              "lfargo_advection"),
 }
+
+
+# the shearing box's options that the loader once refused: (the &shear
+# group appended to run.in, the Shear that it maps to)
+SHEAR_MAPPED = {
+    "shear_as_shift": ("&shear_run_pars\n  qshear=1.5, "
+                       "lshearadvection_as_shift=T\n/\n",
+                       dict(qshear=1.5, lshearadvection_as_shift=True)),
+    "sshear": ("&shear_run_pars\n  Sshear=-1.\n/\n",
+               dict(Sshear=-1.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHEAR_MAPPED))
+def test_loader_maps_the_shear_options(tmp_path, case):
+    """lshearadvection_as_shift and Sshear map onto the port's Shear (JAX
+    rundir.py:1579-1587), and the run takes the shear build's chain."""
+    d = helical_rundir(tmp_path / "r")
+    text, want = SHEAR_MAPPED[case]
+    with open(os.path.join(d, "run.in"), "a") as f:
+        f.write(text)
+    cfg, _ = load_rundir(d)
+    shear = cfg.module("shear")
+    for k, v in want.items():
+        assert getattr(shear, k) == v, k
+    assert shear.S == want.get("Sshear", -1.5)
+    assert Model(cfg, device="cpu").mode == "zroll"
+
+
+def test_loader_maps_the_mesh_and_the_mean_removal(tmp_path):
+    """ivisc 'hyper3-mesh' with nu_hyper3_mesh (read, where JAX's loader
+    keeps its default of 5: ROADMAP Queue 3), diffrho_hyper3_mesh and
+    lremove_mean_momenta map onto the port's modules; the defaults are
+    JAX's."""
+    d = safi_rundir(tmp_path / "r")
+    cfg, _ = load_rundir(d)
+    visc, den = cfg.module("viscosity"), cfg.module("density")
+    assert visc.ivisc == ("nu-const", "hyper3-mesh")
+    assert visc.nu_hyper3_mesh == 5.0 and den.diffrho_hyper3_mesh == 5.0
+    assert cfg.module("hydro").lremove_mean_momenta
+    assert cfg.module("shear").lshearadvection_as_shift
+    assert cfg.module("magnetic").eta_hyper3 == 5e-5
+    with open(os.path.join(d, "run.in")) as f:
+        text = f.read().replace("nu_hyper3_mesh=5.", "nu_hyper3_mesh=3.")
+    with open(os.path.join(d, "run.in"), "w") as f:
+        f.write(text)
+    assert load_rundir(d)[0].module("viscosity").nu_hyper3_mesh == 3.0
+    plain, _ = load_rundir(helical_rundir(tmp_path / "p"))
+    assert plain.module("viscosity").nu_hyper3_mesh == 5.0
+    assert plain.module("density").diffrho_hyper3_mesh == 0.0
+    assert not plain.module("hydro").lremove_mean_momenta
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))

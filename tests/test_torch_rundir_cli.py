@@ -9,8 +9,9 @@ loader refused before: the convection directory with lupw_lnrho,
 lupw_uu and lupw_ss, and the first one's shape with ss and the shock
 diffusivities beside nu-shock, with SHOCK = shock_highorder (ishock_max
 = 2, 'gaussian' smoothing) too, and the convection directory with the
-Shock module and nu-shock between its walls, the slot's bcz code 's'
-(started and run only),
+Shock module and nu-shock between its walls, the slot's bcz code 's',
+and the first one's shape in a rotating shearing box with SAFI, the mesh
+flavour of del6 and lremove_mean_momenta (started and run only),
 the port's chain on its kernels' plain versions, the JAX package on its
 jnp path (its loader's Config is not fused); the reference-layout data
 directory that both ``export`` commands write; and RELOAD, which re-reads
@@ -41,8 +42,9 @@ from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
 from test_torch_rundir import (bext_rundir, conv_rundir, conv_shock_rundir,
-                               fcont_rundir, helical_rundir, shock_rundir,
-                               shock_highorder_rundir, upwind_rundir)
+                               fcont_rundir, helical_rundir, safi_rundir,
+                               shock_rundir, shock_highorder_rundir,
+                               upwind_rundir)
 
 torch.set_num_threads(1)
 
@@ -224,3 +226,17 @@ def test_reload_control_file(tmp_path, case):
     assert not os.path.exists(os.path.join(datadir, "RELOAD"))
     assert run.model.cfg.module("viscosity").nu == nu
     assert (run.model is model) == (case == "new_slot")
+
+
+def test_cli_runs_the_safi_shearing_box(tmp_path):
+    """A run directory the loader refused before: helical-MHDturb's shape
+    in a rotating shearing box with SAFI, 'hyper3-mesh' and
+    diffrho_hyper3_mesh (η₃ on A) and lremove_mean_momenta, started and
+    run by both command lines (the port's zroll chain with the shift
+    between substeps; JAX's jnp path); the final states agree."""
+    mine = safi_rundir(tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref))

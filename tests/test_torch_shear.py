@@ -26,7 +26,7 @@ from pencil_tpu.ops import stencil as j_stencil
 from pencil_tpu.parallel.halo import fill_ghosts as j_fill_ghosts
 from pencil_tpu.physics.pencils import Pencils as JPencils
 from pencil_tpu_torch.compat.from_jax import overrides_from_numpy
-from pencil_tpu_torch.configs import shear_box
+from pencil_tpu_torch.configs import conv_slab, shear_box
 from pencil_tpu_torch.model import fused_gate, gate_reason
 from pencil_tpu_torch.ops import fused_rhs as fr
 from pencil_tpu_torch.ops import smooth, stencil
@@ -326,26 +326,32 @@ def _replace_module(cfg, name, new):
 
 
 REJECTED = {
-    "safi": lambda: _replace_module(
-        shear_box(16), "shear",
-        lambda: pt.Shear(lshearadvection_as_shift=True)),
     # the highorder profile itself runs since every switch of the Shock
     # module (ACCEPTED); its max filter past the ghost width does not
     "shock_highorder": lambda: _replace_module(
         shear_box(16), "shock",
         lambda: pt.Shock(variant="highorder", ishock_max=4)),
-    "hyper3_mesh": lambda: _replace_module(
+    # SAFI and 'hyper3-mesh' run (ACCEPTED); both flavours of del6 on u,
+    # or SAFI on a module set that no shear build has, do not
+    "hyper3_mesh_and_simplified": lambda: _replace_module(
         shear_box(16), "viscosity",
-        lambda: pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-4)),
+        lambda: pt.Viscosity(ivisc=("nu-const", "hyper3-simplified",
+                                    "hyper3-mesh"), nu=5e-4,
+                             nu_hyper3=1e-9)),
+    "safi_beside_the_walled_shock": lambda: conv_slab(
+        8, shock=True, Omega=0.5).replace(modules=conv_slab(
+            8, shock=True, Omega=0.5).modules + (
+            pt.Shear(Omega=0.5, lshearadvection_as_shift=True),)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REJECTED))
 def test_gate_rejects_on_cuda(case):
     """Outside the shear-box kernels a CUDA model raises before it
-    allocates (no GPU needed); SAFI, the highorder shock's max filter
-    over more than the ghost width (ishock_max = 4) and hyper3-mesh raise
-    on every device."""
+    allocates (no GPU needed); the highorder shock's max filter over more
+    than the ghost width (ishock_max = 4) raises on every device, both
+    flavours of del6 on one field and SAFI outside the shear sets on the
+    card."""
     with pytest.raises(NotImplementedError):
         cfg = REJECTED[case]()
         assert gate_reason(cfg) is not None
@@ -366,14 +372,23 @@ ACCEPTED = {
     "shock_highorder": (lambda: _replace_module(
         shear_box(16), "shock", lambda: pt.Shock(variant="highorder")),
         "zroll"),
+    # SAFI: K4/K5 with the shear flow's nodes at 0, the shift between substeps
+    "safi": (lambda: _replace_module(
+        shear_box(16), "shear",
+        lambda: pt.Shear(lshearadvection_as_shift=True)), "zroll"),
+    # 'hyper3-mesh' alone on u: K4/K5's H3 instance with the mesh weights
+    "hyper3_mesh": (lambda: _replace_module(
+        shear_box(16), "viscosity",
+        lambda: pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=5e-4)),
+        "zroll"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ACCEPTED))
 def test_gate_accepts_on_cuda(case):
-    """The forced shear box, the flagship with Coriolis and the shear box
-    with the 'highorder' shock profile run a fused chain on the card and
-    on the CPU."""
+    """The forced shear box, the flagship with Coriolis, the shear box
+    with the 'highorder' shock profile, with SAFI and with 'hyper3-mesh'
+    run a fused chain on the card and on the CPU."""
     make, mode = ACCEPTED[case]
     cfg = make()
     assert gate_reason(cfg) is None

@@ -197,19 +197,27 @@ def test_fused_mode_takes_the_chi_instances(case):
 def test_hyper3_on_the_conv_slab_stays_refused():
     """Of del6 hyper-diffusion on the z-ghosted sets, which JAX fuses, the
     H3 instances take 'hyper3-simplified', η₃ and D₃
-    (tests/test_torch_zghost_hyper3.py); the 'hyper3-mesh' flavour, which
-    JAX has, stays refused: the port's Viscosity raises as it is built,
-    naming it, beside the set with chi-const that the zghost chain
-    runs."""
+    (tests/test_torch_zghost_hyper3.py) and the 'hyper3-mesh' flavour in
+    place of 'hyper3-simplified' (tests/test_torch_hyper3_mesh.py), beside
+    the set with chi-const that the zghost chain runs; both flavours on u
+    at once stay refused on the card, named."""
     cfg = conv_slab(8, magnetic=True, chi=CHI, hyper3=True)
     assert gate_reason(cfg) is None
     assert fr.zg_kernels(pt.Model(cfg, device="cpu")) == (
         "rhs_zg_mag_chi_h3", "rhs_zg_upd_mag_chi_h3")
-    with pytest.raises(NotImplementedError, match="hyper3-mesh"):
-        cfg.replace(modules=tuple(
-            pt.Viscosity(ivisc=("nu-const", "hyper3-mesh"), nu=4e-3,
+
+    def visc(*ivisc):
+        return cfg.replace(modules=tuple(
+            pt.Viscosity(ivisc=("nu-const",) + ivisc, nu=4e-3,
                          nu_hyper3=1e-9) if m.name == "viscosity"
             else m for m in cfg.modules))
+
+    mesh = visc("hyper3-mesh")
+    assert gate_reason(mesh) is None
+    assert fr.zg_kernels(pt.Model(mesh, device="cpu")) == (
+        "rhs_zg_mag_chi_h3", "rhs_zg_upd_mag_chi_h3")
+    with pytest.raises(NotImplementedError, match="hyper3-mesh"):
+        fused_gate(visc("hyper3-simplified", "hyper3-mesh"), "cuda")
 
 
 @pytest.mark.parametrize("pkg", (pt, pj), ids=("port", "jax"))

@@ -6,7 +6,8 @@ process on one card.
     python3 time_loader_variants.py [VARIANT ...] [--n 256] [--reps 2]
                                     [--lib fused_rhs] [--parent-tree DIR]
                                     [--steps] [--bitwise]
-    python3 time_loader_variants.py --option upwind|shock ... [--lib all]
+    python3 time_loader_variants.py --option upwind|shock|safi|mesh ...
+                                    [--lib all]
                                     [--n 256]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
@@ -67,9 +68,13 @@ last, one JSON object.
 ``--option`` times one build's kernels (``--lib``, any of the
 template's 24 libraries, or ``all``) with an option on against the same
 kernels with it off, instead of variants: the upwinding (``upwind``:
-lupw_lnrho, lupw_uu, lupw_ss, the UPW instances of every build) or the
+lupw_lnrho, lupw_uu, lupw_ss, the UPW instances of every build), the
 shock diffusivities (``shock``: diffrho_shock, eta_shock, chi_shock, the
-SHK instances of the 8 builds with the shock slot).  Each build runs
+SHK instances of the 8 builds with the shock slot), SAFI (``safi``: the
+12 shear builds with the shear flow's nodes at 0, the same instances) or
+the mesh flavour of del6 (``mesh``: every build with H3 instances, whose
+configuration then has 'simplified' del6 of u, A and lnρ off and the
+mesh flavour on u and lnρ on, the same H3 instances).  Each build runs
 chip_smoke.py's configuration of it (the periodic builds'
 TEMPLATE_PATHS sets, the shock and shear builds' AUX_PATHS sets without
 del6, the z-ghosted builds' conv_slab and strat_box sets, the sheared
@@ -304,11 +309,19 @@ def time_options(args, smi):
     result = {}
     for option in args.option:
         turn = {"upwind": pt.configs.with_upwind,
-                "shock": pt.configs.with_shock_diffusion}[option]
+                "shock": pt.configs.with_shock_diffusion,
+                "safi": cs.with_safi, "mesh": cs.with_mesh}[option]
         for lib in libs:
             label, cfg = builds[lib]
             if option == "shock" and cfg.module("shock") is None:
                 continue
+            if option == "safi" and cfg.module("shear") is None:
+                continue
+            if option == "mesh":
+                if lib in fr.ZG_SHOCK_LIBRARIES:
+                    continue        # no H3 instance beside a walled shock
+                cfg = cs.aux_variant(pt, cfg, cfg.module("hydro").Omega,
+                                     True)
             models = {"off": pt.Model(cfg, device="cuda"),
                       "on": pt.Model(turn(cfg), device="cuda")}
             timed, checked = option_kernels(torch, cs, fr, models["on"],
@@ -385,7 +398,8 @@ def main():
                     help="with a shock or z-ghosted build: time its "
                     "path's whole step (the shock pre-pass, fills and "
                     "both kernels) per variant too")
-    ap.add_argument("--option", nargs="+", choices=("upwind", "shock"),
+    ap.add_argument("--option", nargs="+",
+                    choices=("upwind", "shock", "safi", "mesh"),
                     help="time each option on against off, in place of "
                     "variants")
     args = ap.parse_args()
