@@ -439,6 +439,46 @@ CONV_SLAB_PATHS = {
 # z-ghosted shear builds: the sheared conv-slab on K6s/K7s
 CONV_SLAB_PATHS["SAFI sheared conv-slab"] = dict(Omega=OMEGA_SHEAR,
                                                  shear=True, safi=True)
+# Entropy's other conduction and cooling terms on the z-ghosted builds
+# with ss: phase 2's flavour sets (conv_slab keyword arguments, a set's
+# terms in one configuration), each held on the six builds' instances
+# that it reaches, and the three paths at 256³ in phase 3: convection
+# with the layered K(z) of 'K-profile' (K6/K7), with Kramers opacity (the
+# CHI instances K6/K7 chi) and magnetoconvection with Kramers opacity,
+# Newtonian cooling of T towards the top's and the 'cubic_step' cooling
+# profile (K6m/K7m chi)
+TAU_COOL = 2.0
+HEATCOND_SETS = {
+    "K-profile, tau_cool, uniform heating and cooling, step": dict(
+        heatcond="K-profile", tau_cool=TAU_COOL, cooling_profile="step",
+        entropy=dict(heat_uniform=1e-2, cool_uniform=2e-3)),
+    "kramers clipped, step2": dict(
+        heatcond="kramers", cooling_profile="step2", entropy=dict(
+            zcool=0.1, chimin_kramers=6e-3, chimax_kramers=1.5e-2)),
+    "chi-cspeed, K-profile, tau_cool, lin-z": dict(
+        chi=CHI, chi_cspeed=0.5, heatcond="K-profile", tau_cool=TAU_COOL,
+        cooling_profile="lin-z")}
+ZG_SS_BUILDS = {"conv-slab": {}, "magnetoconvection": dict(magnetic=True),
+                "sheared conv-slab": dict(shear=True, Omega=1.0),
+                "sheared magnetoconvection": dict(magnetic=True, shear=True,
+                                                  Omega=1.0),
+                "shocked conv-slab": dict(shock=True),
+                "shocked magnetoconvection": dict(magnetic=True,
+                                                  shock=True)}
+HEATCOND_PATHS = {
+    "conv-slab K-profile": dict(heatcond="K-profile"),
+    "conv-slab kramers": dict(heatcond="kramers"),
+    "magnetoconvection kramers cooled": dict(
+        magnetic=True, heatcond="kramers", tau_cool=TAU_COOL,
+        cooling_profile="cubic_step")}
+CONV_SLAB_PATHS.update(HEATCOND_PATHS)
+# each one's counterparts, timed in turns with it in phase 4 on one
+# input: K-const, and beside the CHI instances chi-const
+HEATCOND_COUNTERPART = {
+    "conv-slab K-profile": ("conv-slab",),
+    "conv-slab kramers": ("conv-slab", "conv-slab chi"),
+    "magnetoconvection kramers cooled": ("magnetoconvection",
+                                         "magnetoconvection chi")}
 # each shocked conv-slab path's counterpart without the slot, timed in
 # turns with it in phase 4, and the phase-3 label of its launch names
 ZG_SHOCK_COUNTERPART = {"shocked conv-slab": "conv-slab",
@@ -590,6 +630,10 @@ PER_STEP = {
     "ABC-flow dynamo": dict.fromkeys(FLAGSHIP_KERNELS, 1),
     "Roberts flow": {k + "_hydro": 1 for k in FLAGSHIP_KERNELS},
     "NEMPI box": {"rhs_zg_iso_mag": 1, "rhs_zg_upd_iso_mag": 2},
+    "conv-slab K-profile": {"rhs_zg": 1, "rhs_zg_upd": 2},
+    "conv-slab kramers": {"rhs_zg_chi": 1, "rhs_zg_upd_chi": 2},
+    "magnetoconvection kramers cooled": {"rhs_zg_mag_chi": 1,
+                                         "rhs_zg_upd_mag_chi": 2},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -1625,6 +1669,69 @@ def compare_zg_shock(torch, pt, fr, shape, errs, every=True):
                             + (", shock diffusion" if sd else ""), errs)
 
 
+def compare_heatcond(torch, pt, fr, shape, errs):
+    """Phase 2: Entropy's other conduction and cooling terms on the six
+    z-ghosted builds with ss against their plain versions: each flavour
+    set of HEATCOND_SETS on each build's first and update kernel, and the
+    sets of the base and the CHI instances (K-profile; Kramers) also on
+    their UPW, H3 and (with the shock slot) SHK twins, the Kramers set
+    also with Ω = 1 (ROT; the sheared builds always), so every instance
+    that the terms reach runs them."""
+    base, chi, _ = HEATCOND_SETS
+    for build, bkw in ZG_SS_BUILDS.items():
+        shock = "shock" in bkw
+        twins = [{}, dict(upwind=True)] + ([] if shock else
+                                           [dict(hyper3=True)])
+        for label, kw in HEATCOND_SETS.items():
+            for twin in (twins if label in (base, chi) else [{}]):
+                for sd in ((False, True) if shock and label != base
+                           else (False,)):
+                    cfg = pt.configs.conv_slab(shape, **bkw, **kw, **twin)
+                    compare_zg_cfg(
+                        torch, pt, fr,
+                        pt.configs.with_shock_diffusion(cfg) if sd else cfg,
+                        f"{build}, {label}" + "".join(
+                            f", {k}" for k in twin)
+                        + (", shock diffusion" if sd else ""), errs)
+            if label == chi and "shear" not in bkw:
+                compare_zg_cfg(torch, pt, fr, pt.configs.conv_slab(
+                    shape, **bkw, **kw, Omega=1.0),
+                    f"{build}, {label}, Omega = 1", errs)
+
+
+def conduction_rate(torch, fr, model, fa):
+    """The largest conductive CFL rate γK/(ρcp) of the conduction
+    flavours that ``model`` runs on the state ``fa`` (K-const's, K(z)'s of
+    'K-profile', Kramers' clipped K, 'chi-cspeed''s γχT^c); 0 without
+    them."""
+    ent, eos = model.cfg.module("entropy"), model.eos
+    if ent is None:
+        return 0.0
+    lnrho = fa[3]
+    lnTT = (eos.lnTT0 + eos.gamma / eos.cp * fa[4]
+            + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
+    rates = [0.0]
+    if ent.conduction:
+        rates.append(ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp
+                     * eos.gamma)
+    kprof = fr.kprof_vector(model)
+    if kprof is not None:
+        rates.append(float((kprof[0] * torch.exp(-lnrho)).max())
+                     / eos.cp * eos.gamma)
+    if ent.kramers:
+        n = ent.nkramers
+        k = ent.hcond0_kramers * torch.exp(-(2.0 * n + 1.0) * lnrho
+                                           + 6.5 * n * lnTT)
+        if ent.chimax_kramers > 0.0:
+            k = k.clamp(ent.chimin_kramers * eos.cp,
+                        ent.chimax_kramers * eos.cp)
+        rates.append(float(k.max()) / eos.cp * eos.gamma)
+    if ent.cspeed_conduction:
+        rates.append(eos.gamma * ent.chi
+                     * float(torch.exp(ent.chi_cspeed * lnTT).max()))
+    return max(rates)
+
+
 def compare_steps(torch, pt, label, cfg, nsteps=2, uu_noise=0.0, t0=None,
                   phase="2b"):
     """Phase 2b: full steps on the card against the CPU (plain versions),
@@ -1813,6 +1920,8 @@ def main():
     for shape in ((32, 64, 128), (16, 24, 40)):
         compare_zg_shock(torch, pt, fr, shape, errs, every=False)
     mark("phase 2, the z-ghosted builds with the shock slot")
+    compare_heatcond(torch, pt, fr, (32, 32, 32), errs)
+    mark("phase 2, Entropy's conduction and cooling flavours")
     for ny in (64, 128, 256):
         compare_shifts(torch, pt, ny)
     for shape in ((64, 64, 64), EDGE_SHAPE):
@@ -1961,6 +2070,9 @@ def main():
     compare_steps(torch, pt, "SAFI sheared conv-slab",
                   conv_slab_cfg(pt, "SAFI sheared conv-slab", n32),
                   uu_noise=SAFI_UU_NOISE, t0=T_SHEAR)
+    for label in HEATCOND_PATHS:
+        compare_steps(torch, pt, label, conv_slab_cfg(pt, label, n32),
+                      uu_noise=1e-2)
 
     mark("phase 2b")
     # ---- phase 3: the main paths at 256³ ------------------------------
@@ -2028,10 +2140,11 @@ def main():
                                  *strat["SAFI stratified MRI box"][:2])):
         print_safi_dt(torch, pt, fr, smi, label, model, state)
     # two steps of each SAFI path on the card against the CPU: the shear
-    # box at full width (its x faces and its shift at 256 rows; the CPU's
-    # plain chain takes ~150 s for it), the z-walled two at 128³
+    # box with the full width's 256 rows along y (its x faces and its
+    # shift, which cuFFT reads otherwise from 128 rows up), 64 in x and z
+    # (at 256³ the CPU's plain chain took ~150 s), the z-walled two at 128³
     compare_steps(torch, pt, "SAFI shear box", aux_cfg(
-        pt, "SAFI shear box", shape), t0=T_SHEAR, phase="3")
+        pt, "SAFI shear box", (64, N_MAIN, 64)), t0=T_SHEAR, phase="3")
     n128 = (N_MAIN // 2,) * 3
     compare_steps(torch, pt, "SAFI stratified MRI box", strat_cfg(
         pt, n128, **STRAT_PATHS["SAFI stratified MRI box"]),
@@ -2040,6 +2153,12 @@ def main():
         pt, "SAFI sheared conv-slab", n128), uu_noise=SAFI_UU_NOISE,
         t0=T_SHEAR, phase="3")
     mark("phase 3, SAFI, the mesh flavour and the mean removal")
+    hc = {label: run_conv_slab(torch, pt, fr, smi, shape, launches, label,
+                               nwin=VARIANT_WINDOWS)
+          for label in HEATCOND_PATHS}
+    for path in hc.values():
+        print_heatcond_dt(torch, pt, fr, smi, *path)
+    mark("phase 3, Entropy's conduction and cooling flavours")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -2142,6 +2261,10 @@ def main():
     time_zg_turns(torch, fr, smi, zsafi, zs)
     time_zg_turns(torch, fr, smi, strat["SAFI stratified MRI box"],
                   strat["stratified MRI box"])
+    counterpart = {path[3]: path for path in (zg, zc, zm, zmc)}
+    for label, path in hc.items():
+        time_heatcond_turns(torch, fr, smi, path, [
+            counterpart[o] for o in HEATCOND_COUNTERPART[label]], errs)
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -2187,6 +2310,62 @@ def print_safi_dt(torch, pt, fr, smi, label, model, state):
     print(f"phase 3 {N_MAIN}^3 {label} on {smi}: dt {dts[0]:.6e} with SAFI, "
           f"{dts[1]:.6e} without it on the same state (x "
           f"{dts[0] / dts[1]:.4f})", flush=True)
+
+
+def print_heatcond_dt(torch, pt, fr, smi, model, state, ms_step, label):
+    """Phase 3: the dt that a conduction path's state sets, beside the dt
+    that its K-const counterpart (``conv_slab`` with the same Magnetic and
+    the default conduction and cooling) sets on the same state: each
+    first kernel's CFL maximum on the same input."""
+    mag = model.cfg.module("magnetic") is not None
+    kconst = pt.Model(pt.configs.conv_slab(model.cfg.grid.shape,
+                                           magnetic=mag), device="cuda")
+    dts = []
+    for m in (model, kconst):
+        _, dt1m = fr.rhs_zg(m, *m.zg_input(state["_fa"].clone()))
+        dts.append(float(m._new_dt(dt1m, state["dt"])))
+    print(f"phase 3 {N_MAIN}^3 {label} on {smi}: dt {dts[0]:.6e}, the "
+          f"K-const set's on the same state {dts[1]:.6e} (x "
+          f"{dts[0] / dts[1]:.4f})", flush=True)
+
+
+def time_heatcond_turns(torch, fr, smi, path, others, errs):
+    """Phase 4: a conduction path's K6/K7 (HEATCOND_PATHS) checked against
+    their plain versions on the stratified noisy input at 256³, the plain
+    versions timed once, then the kernels timed in turns with those of its
+    counterparts (``others``: K-const, and chi-const beside the CHI
+    instances) on that one input."""
+    model, _, _, label = path
+    first, upd = fr.zg_kernels(model)
+    first_p, upd_p = fr.zg_plain(model)
+    inp = zg_input(torch, model, 3)
+    df1, dt1m = first_p(model, *inp)
+    coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
+    df, d1 = fr.rhs_zg(model, *inp)
+    dt_rel = abs(float(d1) / float(dt1m) - 1.0)
+    check(dt_rel <= RTOL_DT, f"{label} {first} at 256^3: dt rel err "
+          f"{dt_rel}")
+    pairs = {first: [(df, df1)],
+             upd: [(a, b) for a, b in zip(
+                 fr.rhs_zg_upd(model, *inp, df1.clone(), coef),
+                 upd_p(model, *inp, df1.clone(), coef))]}
+    compare_pairs(f"{label} at 256^3 (max 1/dt rel err {dt_rel:.2e})",
+                  (N_MAIN,) * 3, pairs, errs, RTOL_FIELD)
+    del df, pairs
+    scratch = df1.clone()
+    plain = {first: time_ms(torch, lambda: first_p(model, *inp), PLAIN_CALLS,
+                            warm=False),
+             upd: time_ms(torch, lambda: upd_p(model, *inp, scratch, coef),
+                          PLAIN_CALLS, warm=False)}
+    variants = {label: model, **{o[3]: o[0] for o in others}}
+    times = in_turns(torch, variants, {
+        "K6": lambda m: fr.rhs_zg(m, *inp),
+        "K7": lambda m: fr.rhs_zg_upd(m, *inp, scratch, coef)})
+    print_turns(f"phase 4 {label} ({first}, {upd}) against "
+                + ", ".join(o[3] for o in others)
+                + f" at 256^3 on {smi}, one input (plain versions: "
+                + ", ".join(f"{k} {t:.4f} ms" for k, t in plain.items())
+                + ")", times)
 
 
 def time_safi_shift(torch, smi, model, state, label):
@@ -2621,7 +2800,9 @@ def run_outputs(torch, pt, fr, smi, shape):
 # label -> (the compat.samples writer, the path whose launches a step it
 # runs, the writer's keyword arguments, its size: None for N_MAIN); the
 # imposed-field and ABC-flow directories (the loader's B_ext and
-# lforcing_cont) at 128³, which is enough to drive the loader and the CLI
+# lforcing_cont) and the Kramers convection directory (the loader's
+# iheatcond 'kramers', the CHI instances K6/K7 chi) at 128³, which is
+# enough to drive the loader and the CLI
 RUNDIRS = {"helical MHD (helical-MHDturb)": ("helical_mhdturb", "flagship",
                                              {}, None),
            "convection (conv-slab)": ("conv_slab", "conv-slab", {}, None),
@@ -2630,6 +2811,9 @@ RUNDIRS = {"helical MHD (helical-MHDturb)": ("helical_mhdturb", "flagship",
                128),
            "ABC-flow dynamo (helical-MHDturb, lforcing_cont)": (
                "helical_mhdturb", "flagship", dict(fcont=("ABC", 0.1, 1.0)),
+               128),
+           "Kramers convection (conv-slab, iheatcond='kramers')": (
+               "conv_slab", "conv-slab kramers", dict(heatcond="kramers"),
                128)}
 RUNDIR_NT = 20
 
@@ -2799,7 +2983,8 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
           f"({(max(windows) / min(windows) - 1) * 100:.2f} %); the host "
           f"issued windows 2-{nwin} in "
           + ", ".join(f"{w:.4f}" for w in issue) + " ms/step; the card "
-          + (f"busy {busy:.4f} ms a step in {nkern} kernels"
+          + (f"busy {busy:.4f} ms a step in {nkern} kernels ("
+             f"{busy / ms_step * 100:.1f} % of the step)"
              if busy else "busy: not measured (torch.profiler recorded "
              "none)"), flush=True)
     fa = state["_fa"]
@@ -2850,8 +3035,7 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
                      * pen.rho1()).max())
         del pen, bb
     adv_b = float((umax + torch.sqrt(cs2.max() * dxyz2 + va2)) / tc.cdt)
-    chik = (ent.hcond0 * float(torch.exp(-lnrho).max()) / eos.cp * eos.gamma
-            if ent is not None else 0.0)
+    chik = conduction_rate(torch, fr, model, fa)
     mag = cfg.module("magnetic")
     dxyz6 = sum(i ** 6 for i in inv)
     # with the shock slot the largest shock diffusivity, ν_sh, D_sh, η_sh

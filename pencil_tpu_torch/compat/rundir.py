@@ -583,12 +583,10 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
         _check("entropy", ent_p, {
             "cooltype": "", "mixinglength_flux": 0.0,
             "chi_hyper3": 0.0, "chi_hyper3_mesh": 0.0,
-            "chi_hyper3_aniso": _zero3, "tau_cool": 0.0,
+            "chi_hyper3_aniso": _zero3,
             "lthdiff_hmax": False, "rcool": 0.0, "chi_t": 0.0,
-            "lchit_fluct": False, "heat_uniform": 0.0,
-            "cool_uniform": 0.0, "lread_hcond": False,
-            "hcond0_kramers": 0.0, "lfreeze_sint": False,
-            "lfreeze_sext": False})
+            "lchit_fluct": False, "lread_hcond": False,
+            "lfreeze_sint": False, "lfreeze_sext": False})
         modules.append(Entropy(
             init=_init_of("entropy", "entropy_init_pars", "initss", ent_p),
             ampl=float(_first(ent_p.get(
@@ -598,6 +596,17 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             hcond0=float(ent_p.get("hcond0", 0.0)),
             chi=float(ent_p.get("chi", 0.0)),
             chi_shock=float(ent_p.get("chi_shock", 0.0)),
+            # Entropy's other conduction and cooling terms, as JAX's
+            # loader maps them (pencil_tpu/compat/rundir.py:1203-1238)
+            hcond0_kramers=float(ent_p.get("hcond0_kramers", 0.0)),
+            nkramers=float(ent_p.get("nkramers", 1.0)),
+            chimax_kramers=float(ent_p.get("chimax_kramers", 0.0)),
+            chimin_kramers=float(ent_p.get("chimin_kramers", 0.0)),
+            chi_cspeed=float(ent_p.get("chi_cspeed", 0.5)),
+            tau_cool=float(ent_p.get("tau_cool", 0.0)),
+            TTref_cool=float(ent_p.get("ttref_cool", 0.0)),
+            heat_uniform=float(ent_p.get("heat_uniform", 0.0)),
+            cool_uniform=float(ent_p.get("cool_uniform", 0.0)),
             lupw_ss=bool(ent_p.get("lupw_ss", False)),
             luminosity=float(ent_p.get("luminosity", 0.0)),
             wheat=float(ent_p.get("wheat", 0.1)),

@@ -88,7 +88,15 @@ def helical_mhdturb(d, n, nt=20, it1=10, isave=100, b_ext=None,
         **({"k.dat": kdat} if fcont is None else {})})
 
 
-def conv_slab(d, n, nt=20, it1=10, isave=100, uu_ampl="1e-3"):
+def conv_slab(d, n, nt=20, it1=10, isave=100, uu_ampl="1e-3",
+              heatcond="K-const"):
+    """conv-slab's run directory with the values of ``configs.conv_slab``;
+    ``heatcond="kramers"`` puts Kramers opacity (K₀ of
+    ``configs.KRAMERS_K0``, n = 1) in place of K-const."""
+    from ..configs import KRAMERS_K0
+    cond = {"K-const": "iheatcond='K-const', hcond0=8e-3, ",
+            "kramers": f"iheatcond='kramers', hcond0_kramers={KRAMERS_K0!r}, "
+                       "nkramers=1., "}[heatcond]
     bcz = "  bcz='s','s','a','a2','c1:cT'\n"
     return _write(d, {
         "src/cparam.local": _cparam(n),
@@ -110,6 +118,6 @@ def conv_slab(d, n, nt=20, it1=10, isave=100, uu_ampl="1e-3"):
             f"&run_pars\n  nt={nt}, it1={it1}, isave={isave}\n{bcz}/\n"
             "&eos_run_pars\n/\n&hydro_run_pars\n/\n&density_run_pars\n/\n"
             "&grav_run_pars\n/\n"
-            "&entropy_run_pars\n  iheatcond='K-const', hcond0=8e-3, "
+            f"&entropy_run_pars\n  {cond}"
             "luminosity=5e-3, wheat=0.1, cool=15., wcool=0.2, cs2cool=1.\n/\n"
             "&viscosity_run_pars\n  nu=4e-3\n/\n")})

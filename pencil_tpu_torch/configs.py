@@ -38,7 +38,8 @@ def with_shock_diffusion(cfg, coef=1.0):
 
 def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
               hyper3=False, shear=False, forcing=0.0, upwind=False,
-              shock=False, safi=False):
+              shock=False, safi=False, heatcond="K-const", chi_cspeed=None,
+              tau_cool=0.0, cooling_profile="gaussian", entropy=None):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -78,6 +79,19 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     reference gives every f-array slot a code): supersonic stratified
     convection and, with ``magnetic``, magnetoconvection with shocks
     (``with_shock_diffusion`` adds the shock diffusion of lnρ, s and A).
+    ``heatcond`` picks the conductivity: "K-const" (K = hcond0 = 8e-3,
+    the default), "K-profile" (K ∝ m + 1 in each polytropic layer, 8e-3
+    in the unstable one: the conductivity with which the piecewise
+    polytrope is in flux balance) or "kramers" (K = K₀T^6.5/ρ², n = 1,
+    no clip, K₀ = ``KRAMERS_K0``, with which K at z2 on the initial state
+    is 8e-3: convection whose unstable layer's depth sets itself, as in
+    Käpylä et al. 2017, ApJL 845, L23); ``chi_cspeed`` turns ``chi``'s
+    'chi-const' into 'chi-cspeed', χT^c with c = ``chi_cspeed``.
+    ``tau_cool`` > 0 adds Newtonian cooling of T towards the top layer's
+    temperature on that time; ``cooling_profile`` shapes the cooling
+    layer ('gaussian' at the top, 'step', 'step2', 'cubic_step' at z2 or
+    'lin-z'); ``entropy`` holds further Entropy fields (e.g.
+    ``heat_uniform``, ``cool_uniform``, ``chimax_kramers``).
     The values are this configuration's own, not the sample's
     start.in/run.in.
 
@@ -111,8 +125,21 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
         bcz += (pkg.BC.parse("shock", "s"),)
         visc = dict(visc, ivisc=tuple(visc["ivisc"]) + ("nu-shock",),
                     nu_shock=1.0)
-    heat = (dict(iheatcond=("K-const", "chi-const"), chi=chi) if chi > 0.0
-            else dict(iheatcond=("K-const",)))
+    if heatcond not in ("K-const", "K-profile", "kramers"):
+        raise ValueError(f"conv_slab: heatcond={heatcond!r} (K-const, "
+                         "K-profile or kramers)")
+    heat = dict(iheatcond=(heatcond,), hcond0=8e-3)
+    if heatcond == "kramers":
+        heat = dict(iheatcond=("kramers",), hcond0_kramers=KRAMERS_K0)
+    if chi > 0.0:
+        heat = dict(heat, chi=chi, iheatcond=heat["iheatcond"] + (
+            "chi-const" if chi_cspeed is None else "chi-cspeed",))
+        if chi_cspeed is not None:
+            heat["chi_cspeed"] = chi_cspeed
+    if tau_cool:
+        heat.update(tau_cool=tau_cool,
+                    TTref_cool=cs2cool / ((gamma - 1.0) * cp))
+    heat.update(cooling_profile=cooling_profile, **(entropy or {}))
     cfg = pkg.Config(
         grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused, bcz=bcz,
         modules=(pkg.EosIdealGas(gamma=gamma, cs0=1.0, cp=cp),
@@ -125,13 +152,19 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                  pkg.Viscosity(nu=4e-3, **visc),
                  pkg.Entropy(init="piecew-poly", z1=-0.5, z2=0.0, mpoly0=1.0,
                              mpoly1=mpoly1, mpoly2=0.0, isothtop=1,
-                             **heat, hcond0=8e-3,
-                             luminosity=5e-3, wheat=0.1, cool=15.0,
+                             **heat, luminosity=5e-3, wheat=0.1, cool=15.0,
                              wcool=0.2, cs2cool=cs2cool),
                  *mag,
                  *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ()),
                  *((pkg.Shock(),) if shock else ())))
     return with_upwind(cfg) if upwind else cfg
+
+
+# conv_slab's Kramers conductivity K = K₀T^6.5/ρ² (n = 1): K₀ such that K
+# at z2 = 0 on the initial state, where T = cs20/((γ − 1)cp) = 1.5 and
+# lnρ = γ·gravz·(z2 − ztop)/cs20 = 1.6/3 (the isothermal top layer from
+# ztop = 0.32), equals the K-const run's hcond0 = 8e-3
+KRAMERS_K0 = 8e-3 * math.exp(2.0 * (5.0 / 3.0) * 0.32) / 1.5 ** 6.5
 
 
 def strat_box(n, fused=True, pkg=None, magnetic=True, shear=True,

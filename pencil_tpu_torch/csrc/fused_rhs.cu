@@ -379,6 +379,19 @@ struct PcParams {
   // advective CFL (0 without them)
   float h6u[3], h6l[3];
   float hmesh;
+  // the z-ghosted builds with ss: the CHI instances' conduction term is
+  // A (del2 lnT + sum_a (kp_rho dlnrho_a + kp_T dlnT_a) dlnT_a), with A =
+  // cpchi exp(kq_rho lnrho + kq_T lnT) clipped to [kmin, kmax] where kmax
+  // > 0 and the CFL rate A gamma/cp at each point, where kexp is set
+  // ('kramers': cpchi = K0; 'chi-cspeed': cp chi); without kexp it is
+  // chi-const's cpchi (del2 lnT + grad lnT.(grad lnT + grad lnrho)), its
+  // rate chi gamma in maxdif
+  float kq_rho, kq_T, kp_rho, kp_T, kmin, kmax;
+  int kexp;
+  // and every instance of theirs: Newtonian cooling cp_g (T - ttref)/
+  // (tau_cool T) (cp_g = cp/gamma) and the uniform heating and cooling
+  // (heat_uniform - cool_uniform rho cp T)/(rho T), each 0 where off
+  float tau_cool, ttref, cp_g, heat_uniform, cool_uniform;
 };
 
 enum { H6U, H6L, H6A };
@@ -388,7 +401,8 @@ enum { H6U, H6L, H6A };
 // cooling and heating profiles (nz; zeros where a layer is off), which the
 // other builds pass as null; of every build gravity g_z(z) (nz), null
 // without gravity, and the continuous forcing (3, nx, ny, nz), the
-// layout of df, null where it is off.
+// layout of df, null where it is off; of the z-ghosted builds with ss
+// K(z) and dK/dz(z) of 'K-profile' (2, nz), null where it is off.
 struct ZgIn {
   const float* zlo;
   const float* zhi;
@@ -396,6 +410,7 @@ struct ZgIn {
   const float* prof_h;
   const float* grav;
   const float* fcont;
+  const float* kprof;
 };
 
 // ---- the template's own stencil sums --------------------------------------
@@ -558,13 +573,28 @@ __device__ __forceinline__ float upwind(const float* p, const float* x,
 // before D3 del6 lnrho, -eta_sh shock J after eta3 del6 A, chi_sh [shock
 // (del2 lnT + (grad lnrho + grad lnT) . grad lnT) + grad shock . grad lnT]
 // after chi-const, and their rates D_sh shock, eta_sh shock and gamma
-// chi_sh shock among the diffusivities of the CFL.
+// chi_sh shock among the diffusivities of the CFL.  The z-ghosted builds
+// with ss take Entropy's other conduction and cooling terms with no flag
+// of their own: after K-const, behind one uniform test of whether any of
+// them is on (zgx), the layered conductivity K(z) of 'K-profile' (kz and
+// dkz: K and dK/dz at this thread's z from their (2, nz) vector, loaded
+// before the march, 0 where it is not given), the uniform heating and
+// cooling (P.heat_uniform, cool_uniform) and Newtonian cooling
+// (P.tau_cool), each behind a test of its own (JAX adds the uniform terms
+// before the conduction and the cooling after it: the order moves the
+// rounding only; three tests on every point measured slower); and
+// Kramers opacity and 'chi-cspeed' in the CHI instances as chi-const's
+// term with other parameters (P.kexp: A = cpchi exp(kq_rho lnrho + kq_T
+// lnT), clipped, and the weights kp_rho, kp_T of the gradient product).
+// Their per-point rates (K(z) gamma/(rho cp), A gamma/cp, as products
+// with g_cp = gamma/cp) join K-const's in the CFL.
 template <bool WANT_DT1, bool ROT, bool H3, bool CHI, bool UPW, bool SHK>
 __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float (*xt)[NX], const int* xo,
                                              const PcParams& P, float xn,
                                              float lay_c, float lay_h,
-                                             float grav, float* r,
+                                             float grav, bool zgx,
+                                             float kz, float dkz, float* r,
                                              float& dt1) {
   const float u[3] = {xt[0][NG], xt[1][NG], xt[2][NG]};
   const float lnrho = xt[LNRHO][NG];
@@ -650,7 +680,8 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   const float dlnrho = lnrho - P.lnrho0;
   const float ssg = P.g_cp * xt[SS][NG];
   const float cs2 = P.cs20 * expf(ssg + P.gm1 * dlnrho);
-  const float TT1 = expf(-((P.lnTT0 + ssg) + P.gm1 * dlnrho));
+  const float lnTT = (P.lnTT0 + ssg) + P.gm1 * dlnrho;
+  const float TT1 = expf(-lnTT);
   const float rho1 = expf(-lnrho);
 #else
   const float cs2 = P.isothermal
@@ -837,7 +868,10 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
   } else {
     ds = -((u[0] * gs[0] + u[1] * gs[1]) + u[2] * gs[2]);
   }
-  float chik = 0.0f;   // the K-const CFL rate K gamma/(rho cp) at this point
+  // the conductive CFL rate at this point: K-const's K gamma/(rho cp), and
+  // in the z-ghosted builds the largest of it, K(z) gamma/(rho cp) and the
+  // CHI instances' A gamma/cp
+  float chik = 0.0f;
   if (PC_ZG || P.hcond0 > 0.0f || P.cpchi > 0.0f
       || (PC_SHOCK && SHK && P.chi_shock > 0.0f)) {
     float gt[3], d2l = 0.0f, d2s = 0.0f;
@@ -857,11 +891,52 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
       const float krho1 = P.hcond0 * rho1;
       ds = ds + krho1 * (del2lnTT + glnTT2);
       chik = (krho1 / P.cp) * P.gamma;
+#if PC_ZG
+      if (zgx) {
+        // Entropy's other terms (any on): 'K-profile' (K(z)/rho)(del2 lnT
+        // + |grad lnT|^2) + (K'(z)/rho) dlnT/dz, its rate K g_cp/rho; the
+        // uniform heating and cooling (heat_uniform - cool_uniform rho cp
+        // T)/(rho T); Newtonian cooling -cp (T - T_ref)/(gamma tau T)
+        if (kz != 0.0f || dkz != 0.0f) {
+          ds = ds + rho1 * (kz * (del2lnTT + glnTT2) + dkz * gt[2]);
+          chik = fmaxf(chik, (kz * rho1) * P.g_cp);
+        }
+        if (P.heat_uniform != 0.0f || P.cool_uniform != 0.0f) {
+          const float hu = P.heat_uniform
+                           - ((P.cool_uniform * expf(lnrho)) * P.cp)
+                             * expf(lnTT);
+          ds = ds + (hu * rho1) * TT1;
+        }
+        if (P.tau_cool != 0.0f) {
+          const float TT = expf(lnTT);
+          ds = ds - (P.cp_g * (TT - P.ttref)) / (P.tau_cool * TT);
+        }
+      }
+#endif
     }
     if (PC_ZG ? CHI : P.cpchi > 0.0f) {
+#if PC_ZG
+      // chi-const, 'kramers' or 'chi-cspeed': A (del2 lnT + sum_a (kp_rho
+      // dlnrho_a + kp_T dlnT_a) dlnT_a), A = cpchi, or with kexp cpchi
+      // exp(kq_rho lnrho + kq_T lnT) [clipped] and its rate A g_cp.
+      // chi-const's weights 1 and 1 give gt + gl exactly, so its term
+      // rounds bit for bit as the sum gt (gt + gl) did alone (a branch
+      // between two forms did not: the compiler fused that sum otherwise)
+      float a = P.cpchi;
+      if (P.kexp) {
+        a = P.cpchi * expf(P.kq_rho * lnrho + P.kq_T * lnTT);
+        if (P.kmax > 0.0f) a = fminf(fmaxf(a, P.kmin), P.kmax);
+        chik = fmaxf(chik, a * P.g_cp);
+      }
+      const float gdot = (gt[0] * (P.kp_rho * gl[0] + P.kp_T * gt[0])
+                          + gt[1] * (P.kp_rho * gl[1] + P.kp_T * gt[1]))
+                         + gt[2] * (P.kp_rho * gl[2] + P.kp_T * gt[2]);
+#else
+      const float a = P.cpchi;
       const float gdot = (gt[0] * (gt[0] + gl[0]) + gt[1] * (gt[1] + gl[1]))
                          + gt[2] * (gt[2] + gl[2]);
-      ds = ds + P.cpchi * (del2lnTT + gdot);
+#endif
+      ds = ds + a * (del2lnTT + gdot);
     }
 #if PC_SHOCK
     if (SHK && P.chi_shock > 0.0f) {
@@ -1294,6 +1369,18 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
 #else
   const float lay_c = 0.0f, lay_h = 0.0f;
 #endif
+#if PC_ZG && PC_ENT
+  // K(z) and dK/dz of 'K-profile' at this thread's z, 0 where it is off
+  // (loaded in the march, with the rates divided by cp, K6 ran slower),
+  // and whether any of Entropy's other terms is on
+  const float kz = zg.kprof ? __ldg(zg.kprof + izl) : 0.0f;
+  const float dkz = zg.kprof ? __ldg(zg.kprof + P.nz + izl) : 0.0f;
+  const bool zgx = zg.kprof || P.heat_uniform != 0.0f
+                   || P.cool_uniform != 0.0f || P.tau_cool != 0.0f;
+#else
+  const bool zgx = false;
+  const float kz = 0.0f, dkz = 0.0f;
+#endif
 
   // The kick's factors that do not change along the march (JAX
   // fused_rhs.py:441-466: theta = k.x + phase = A + B + C, one axis each):
@@ -1485,8 +1572,8 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       // PC_SHEAR: the node x of this plane, the JAX tile rule in f32
       const float xn = PC_SHEAR
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
-      flagship_rhs<FIRST, ROT, H3, CHI, UPW, SHK>(s, xt, xo, P, xn, lay_c,
-                                                  lay_h, grav, r, dt1);
+      flagship_rhs<FIRST, ROT, H3, CHI, UPW, SHK>(
+          s, xt, xo, P, xn, lay_c, lay_h, grav, zgx, kz, dkz, r, dt1);
       if (zg.fcont) {
         // the continuous forcing joins du last (the Forcing module
         // follows Magnetic), then the next plane's is loaded: a plane's
@@ -1911,25 +1998,26 @@ int pc_flagship_attrs(int which, int* out) {
 }
 
 // the inputs after the stream (and K3's and K2L's scratch): of the
-// z-ghosted build the slabs and profiles, then of every build g_z(z) and
-// the continuous forcing
+// z-ghosted build the slabs, the profiles and K(z), then of every build
+// g_z(z) and the continuous forcing
 #if PC_ZG
 #define ZG_INPUTS , const float *zlo, const float *zhi, const float *prof_c, \
-                  const float *prof_h
-#define ZG_IN(grav, fcont) ZgIn{zlo, zhi, prof_c, prof_h, grav, fcont}
+                  const float *prof_h, const float *kprof
+#define ZG_IN(grav, fcont) ZgIn{zlo, zhi, prof_c, prof_h, grav, fcont, kprof}
 #else
 #define ZG_INPUTS
 #define ZG_IN(grav, fcont) ZgIn{nullptr, nullptr, nullptr, nullptr, grav, \
-                                fcont}
+                                fcont, nullptr}
 #endif
 
 // K1: replaces `kernel` + `_dma_tile_wrap` (pencil_tpu/ops/fused_rhs.py);
 // in the shock builds K1s (the same with the shock slot) and K4 (`kernel`
 // + `_dma_tile`, zroll), fa then the 8-slot state, ghosted in x and y for
 // K4; in the z-ghosted builds K6 and K6m (`kernel_zg` + `_fetch_zg`), fa
-// the interior (5 or 8, nx, ny, nz) with its z-halo slabs after the
-// stream; grav, g_z(z) or null, follows those, then fcont, the continuous
-// forcing or null.
+// the interior (5 or 8, nx, ny, nz) with its z-halo slabs, the layer
+// profiles and K(z) of 'K-profile' (or null) after the stream; grav,
+// g_z(z) or null, follows those, then fcont, the continuous forcing or
+// null.
 int pc_rhs_first(const PcParams* p, const float* fa, float* df,
                  float* dt1blk, void* stream ZG_INPUTS, const float* grav,
                  const float* fcont) {

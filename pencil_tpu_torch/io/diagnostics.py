@@ -18,7 +18,8 @@ helicity ``oum``, ``ekin``, ``EEK`` and the Mach numbers ``Marms``,
 ``EEM`` and ``emag``, the extrema of B without B_ext ``bbxmax``,
 ``bbymax``, ``bbzmax`` and the EMF along the imposed field ``uxbm``; the
 continuous forcing's work ``ufm`` and ``rufm``; the dissipation rates
-``epsK`` and ``epsM``; and the integrals ``ekintot`` and ``ethtot``.
+``epsK`` and ``epsM``; the integrals ``ekintot`` and ``ethtot``; and the
+thermal diffusivity's share of the time step ``dtchi``.
 Plain torch: the JAX package computes them in jnp outside any kernel.  As there, the pencils read a ghost-filled
 copy of the state (wraps and BCs, without the shear shift), and a shock slot
 is rebuilt from the current fields first.
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..physics.pencils import Pencils, b_ext
+from ..physics.stratification import hcond_profile
 
 
 def _staged_mean(x):
@@ -434,6 +436,43 @@ def _epsm(pen, st):
     """<η J²> (magnetic.f90:496)."""
     mag = pen.cfg.module("magnetic")
     return mag.eta * _vmean(pen, pen.j2())
+
+
+# ---- time-step fractions ----------------------------------------------------
+@diag("dtchi")
+def _dtchi(pen, st):
+    """dt·γ·max(χ·Σ Δ⁻²)/cdtv, the share of the time step the thermal
+    diffusivity takes (JAX diagnostics.py:2815-2845, entropy.f90's
+    diffus_chi): χ = K/(ρcp) with K = hcond0 or, with 'K-profile', K(z)
+    (wherever hcond0 > 0, whatever the flavour), else Kramers' K/(ρcp)
+    clipped to [χ_min, χ_max], else χ (χT^c with 'chi-cspeed'), plus
+    χ_sh·shock/γ with shock conduction."""
+    cfg, e = pen.cfg, pen.eos
+    ent = cfg.module("entropy")
+    chi = 0.0
+    if ent is not None and ent.hcond0 > 0:
+        K = (hcond_profile(pen.grid.zg, ent.z1, ent.z2, ent.mpoly0,
+                           ent.mpoly1, ent.mpoly2, ent.hcond0, ent.width)
+             if "K-profile" in ent.iheatcond else ent.hcond0)
+        chi = K * pen.rho1() / e.cp
+    elif ent is not None and "kramers" in ent.iheatcond \
+            and ent.hcond0_kramers > 0.0:
+        n_ = ent.nkramers
+        chi = ent.hcond0_kramers * torch.exp(
+            -(2.0 * n_ + 1.0) * pen.lnrho() + (6.5 * n_) * pen.lnTT()) / e.cp
+        if ent.chimax_kramers > 0.0:
+            chi = torch.clamp(chi, ent.chimin_kramers, ent.chimax_kramers)
+    elif ent is not None:
+        chi = ent.chi
+        if {"chi-cspeed", "chi-therm"} & set(ent.iheatcond):
+            chi = chi * torch.exp(ent.chi_cspeed * pen.lnTT())
+    if ent is not None and ent.chi_shock > 0.0 and "shock" in pen.reg.slots \
+            and "shock" in ent.iheatcond:
+        chi = chi + ent.chi_shock * pen.field("shock") / e.gamma
+    g = pen.grid
+    dxyz2 = g.dx1 ** 2 + g.dy1 ** 2 + g.dz1 ** 2
+    chi = torch.as_tensor(chi, dtype=pen.f.dtype, device=pen.f.device)
+    return st["dt"] * e.gamma * torch.max(chi * dxyz2) / cfg.time.cdtv
 
 
 # the slot a diagnostic reads beyond uu and lnrho; without it the column is

@@ -76,7 +76,11 @@ of ``RK_TABLES`` (1-4; dt comes from substep 1 and serves every substep):
   pre-pass's own fill by bc_sym), and run K6k/K7k and K6mk/K7mk, which
   read it with its z slabs; without a bcz code for the slot the model is
   refused (the JAX package's fused and jnp paths fill its ghosts
-  differently there).
+  differently there).  Every z-ghosted set with ss takes Entropy's
+  other conduction and cooling terms ('K-profile', 'kramers' and
+  'chi-cspeed' conduction, one CHI-instance flavour at a time, Newtonian
+  cooling, uniform heating and cooling, the cooling layer's five
+  profiles) on the instances it runs; the other sets refuse them.
 
 * The sheared, rotating MHD box with shock viscosity and hyper-diffusion
   — the flagship's modules with Coriolis, 'nu-shock' and
@@ -141,7 +145,8 @@ from .ops.fused_rhs import (hyper3_terms, rhs_first, rhs_plain,
                             rhs_tail_defer, rhs_tail_defer_last,
                             rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
                             rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
-                            rhs_zroll, rhs_zroll_upd, upwind_flags)
+                            rhs_zroll, rhs_zroll_upd, upwind_flags,
+                            zg_entropy_options)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
@@ -288,6 +293,10 @@ def _hyper3_with_walled_shock(cfg: Config):
     return None
 
 
+# the conduction flavours that the CHI instances take, one at a time
+CHI_TERMS = ("chi-const", "kramers", "chi-cspeed", "chi-therm")
+
+
 def fused_mode(cfg: Config):
     """(mode, None) with mode 'wrap' (the flagship and forced-hydro chain,
     with or without an entropy field, each with or without del6
@@ -308,13 +317,18 @@ def fused_mode(cfg: Config):
     shear sets; lremove_mean_momenta on every set; nu-shock and the shock
     diffusivities
     (diffrho_shock, eta_shock, chi_shock) on the sets with the Shock
-    module's slot; or (None, why ``cfg`` is outside all of these sets).
+    module's slot; Entropy's 'K-profile', 'kramers', 'chi-cspeed',
+    tau_cool, heat_uniform and cool_uniform on the z-ghosted sets with
+    ss (one of chi-const, 'kramers' and 'chi-cspeed'); or (None, why
+    ``cfg`` is outside all of these sets).
     The module set is tested before any option of it, so a set that no
     chain takes is refused for its modules; Entropy's layer profiles
     outside the z-ghosted sets, the upwinding beside del6, del6 beside a
-    z-walled Shock, both flavours of del6 on one field and the shock
-    terms without the slot are refused for those options, and SAFI
-    outside the shear sets is named with the module set."""
+    z-walled Shock, both flavours of del6 on one field, the shock
+    terms without the slot, Entropy's other conduction and cooling terms
+    outside the z-ghosted sets and two CHI-instance flavours at once are
+    refused for those options, and SAFI outside the shear sets is named
+    with the module set."""
     names = [m.name for m in cfg.modules]
     if not cfg.fused:
         return None, "fused=False"
@@ -345,6 +359,18 @@ def fused_mode(cfg: Config):
             return None, ("options ['Entropy.cool/luminosity'] (the layer "
                           "profiles: only the conv-slab kernels implement "
                           "them)")
+        # Entropy's other conduction and cooling terms: the z-ghosted
+        # builds with ss only, one CHI-instance term at a time
+        if ent is not None and not zghost and zg_entropy_options(ent):
+            return None, (f"options {zg_entropy_options(ent)} (only the "
+                          "kernels of the z-ghosted sets with ss implement "
+                          "them)")
+        if ent is not None and sum((ent.chi_conduction, ent.kramers,
+                                    ent.cspeed_conduction)) > 1:
+            return None, ("options iheatcond "
+                          f"{[k for k in ent.iheatcond if k in CHI_TERMS]} "
+                          "(the CHI instances have one of chi-const, "
+                          "'kramers' and 'chi-cspeed')")
         both = (_upwind_with_hyper3(cfg) or _hyper3_with_walled_shock(cfg)
                 or _hyper3_twice(cfg))
         if both:

@@ -106,9 +106,9 @@ _p = ctypes.c_void_p
 # shear builds have the first and the middle kernel only (K1s and K5w, K4
 # and K5, and those of their other layouts), and
 # so have the z-ghosted builds (K6 and K7, K6m and K7m), whose two take
-# their z-halo slabs and layer profiles after the stream; every entry point
-# but K8's takes g_z(z) and the continuous forcing last; K8 (the fake RHS)
-# is built for the MHD instances only
+# their z-halo slabs, layer profiles and K(z) after the stream; every
+# entry point but K8's takes g_z(z) and the continuous forcing last; K8
+# (the fake RHS) is built for the MHD instances only
 _SHOCK = {
     "pc_tile_shape": [_p],
     "pc_flagship_attrs": [ctypes.c_int, _p],
@@ -121,7 +121,7 @@ _FLAGSHIP = {
     "pc_rhs_tail_last": [_p] * 11,
     "pc_rhs_tail_defer_last": [_p] * 11,
 }
-_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 11, "pc_rhs_tail_mid": [_p] * 13}
+_ZG = {**_SHOCK, "pc_rhs_first": [_p] * 12, "pc_rhs_tail_mid": [_p] * 14}
 # each library's entry points: name -> argtypes (all return an int)
 SIGNATURES = {
     "fused_rhs": {

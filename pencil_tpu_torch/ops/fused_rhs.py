@@ -135,6 +135,17 @@ D_sh, η_sh and χ_sh is on (``shock_coefficients``; 0 in a layout without
 the slot), which adds them; it counts under its twin's launch name with
 the suffix ``_sd`` (after ``_upw``).
 
+The z-ghosted builds with ss take Entropy's other conduction and cooling
+terms in every instance, without a flag of their own: 'K-profile''s K(z)
+and dK/dz from a device vector (2, nz) (``kprof_vector``), passed after
+the layer profiles and null where it is off; 'kramers' and 'chi-cspeed'
+as chi-const's term with other parameters in the CHI instances
+(``conduction_term``: an exponential factor, its clip and the weights of
+the gradient product), picked as chi-const is; Newtonian cooling and the
+uniform heating and cooling as constants of ``kernel_params``, each
+behind a uniform test.  The other builds refuse them
+(``zg_entropy_options``).
+
 Every H3 instance weights each field's del6 on its own: u's and lnρ's by
 ``PcParams.h6u`` and ``h6l`` (Δ_a⁻⁶ of 'hyper3-simplified', or
 dline_1_a/60 of the mesh flavour, 'hyper3-mesh' and
@@ -416,6 +427,13 @@ class PcParams(ctypes.Structure):
         ("upw_inv", ctypes.c_float * 3), ("upw", ctypes.c_int * 3),
         ("h6u", ctypes.c_float * 3), ("h6l", ctypes.c_float * 3),
         ("hmesh", ctypes.c_float),
+        ("kq_rho", ctypes.c_float), ("kq_T", ctypes.c_float),
+        ("kp_rho", ctypes.c_float), ("kp_T", ctypes.c_float),
+        ("kmin", ctypes.c_float), ("kmax", ctypes.c_float),
+        ("kexp", ctypes.c_int),
+        ("tau_cool", ctypes.c_float), ("ttref", ctypes.c_float),
+        ("cp_g", ctypes.c_float), ("heat_uniform", ctypes.c_float),
+        ("cool_uniform", ctypes.c_float),
     ]
 
 
@@ -776,6 +794,19 @@ def zg_profiles(model):
     return p
 
 
+def kprof_vector(model):
+    """K(z) and dK/dz(z) of 'K-profile' on the interior z, a device tensor
+    (2, nz) as the plain version computes them (``Entropy.hcond_z``),
+    which the z-ghosted builds with ss read; None where it is off (the
+    kernels then skip the term).  Built once per model."""
+    if "_kprof" not in model.__dict__:
+        ent = model.cfg.module("entropy")
+        model.__dict__["_kprof"] = (
+            torch.stack(ent.hcond_z(model.grid)).contiguous()
+            if ent is not None and ent.kprofile else None)
+    return model.__dict__["_kprof"]
+
+
 def _ptr(t):
     """A tensor's device pointer, or None (a null pointer) for None."""
     return None if t is None else t.data_ptr()
@@ -868,6 +899,14 @@ def kernel_params(model) -> PcParams:
     ent = cfg.module("entropy")
     chi = ent.chi if ent is not None and ent.chi_conduction else 0.0
     hcond0 = ent.hcond0 if ent is not None and ent.conduction else 0.0
+    # the CHI instances' term: chi-const, or 'kramers' or 'chi-cspeed' as
+    # its exponential form (kexp); Newtonian cooling and the uniform
+    # heating and cooling (the z-ghosted builds with ss)
+    if all(gs.periodic) and zg_entropy_options(ent):
+        raise NotImplementedError(
+            f"fused kernels: {zg_entropy_options(ent)} (the z-ghosted "
+            "builds with ss only)")
+    chiterm = conduction_term(ent, eos)
     # the constant diffusive rates; K-const's K·γ/(ρ·cp) joins per point
     maxdiffus = max([v for v in (nu, eta, chi * eos.gamma) if v > 0.0],
                     default=0.0)
@@ -908,7 +947,7 @@ def kernel_params(model) -> PcParams:
         om=(ctypes.c_float * 3)(*(hyd.omega_vector() if hyd.Omega != 0.0
                                   else (0, 0, 0))),
         g_cp=eos.gamma / eos.cp, cp=eos.cp, gamma=eos.gamma,
-        lnTT0=eos.lnTT0, cpchi=eos.cp * chi, hcond0=hcond0,
+        lnTT0=eos.lnTT0, cpchi=chiterm["cpchi"], hcond0=hcond0,
         two_nu=2.0 * max(nu, 0.0) if heats else 0.0,
         eta_heat=max(eta, 0.0) if heats and mag is not None
         and mag.lohmic_heat else 0.0,
@@ -932,9 +971,68 @@ def kernel_params(model) -> PcParams:
         upw=(ctypes.c_int * 3)(*upw),
         h6u=fl3(*(mesh6 if nu3m > 0.0 else inv6)),
         h6l=fl3(*(mesh6 if diff3m > 0.0 else inv6)),
-        hmesh=mesh_rate(cfg, inv))
+        hmesh=mesh_rate(cfg, inv),
+        kq_rho=chiterm["kq_rho"], kq_T=chiterm["kq_T"],
+        kp_rho=chiterm["kp_rho"], kp_T=chiterm["kp_T"],
+        kmin=chiterm["kmin"], kmax=chiterm["kmax"], kexp=chiterm["kexp"],
+        tau_cool=ent.tau_cool if heats else 0.0,
+        ttref=ent.TTref_cool if heats else 0.0,
+        cp_g=eos.cp / eos.gamma if heats else 0.0,
+        heat_uniform=ent.heat_uniform if heats else 0.0,
+        cool_uniform=ent.cool_uniform if heats else 0.0)
     model.__dict__["_pc_params"] = p
     return p
+
+
+def zg_entropy_options(ent):
+    """The options of ``ent`` that only the z-ghosted builds with ss
+    implement (Entropy's other conduction and cooling terms), named; []
+    for None."""
+    if ent is None:
+        return []
+    return [name for name, on in (
+        ("iheatcond 'K-profile'", ent.kprofile),
+        ("iheatcond 'kramers'", ent.kramers),
+        ("iheatcond 'chi-cspeed'", ent.cspeed_conduction),
+        ("tau_cool", ent.tau_cool != 0.0),
+        ("heat_uniform", ent.heat_uniform != 0.0),
+        ("cool_uniform", ent.cool_uniform != 0.0)) if on]
+
+
+def conduction_term(ent, eos):
+    """The parameters of the CHI instances' conduction term A(∇²lnT +
+    Σ_a (p_ρ∂_a lnρ + p_T∂_a lnT)∂_a lnT), A = c·exp(q_ρlnρ + q_T lnT)
+    clipped to [A_min, A_max] where A_max > 0: chi-const's (c = cp·χ, q =
+    0, p_ρ = p_T = 1; kexp 0: no exponential, its rate χγ constant),
+    'kramers' (c = K₀, q_ρ = −(2n+1), q_T = 6.5n, p_ρ = −2n, p_T = 6.5n +
+    1, the clip [χ_min, χ_max]·cp) or 'chi-cspeed' (c = cp·χ, q_T = c,
+    p_ρ = 1, p_T = 1 + c); at most one of the three (the instance has
+    one such term)."""
+    out = dict(cpchi=0.0, kq_rho=0.0, kq_T=0.0, kp_rho=1.0, kp_T=1.0,
+               kmin=0.0, kmax=0.0, kexp=0)
+    if ent is None:
+        return out
+    terms = [k for k, on in (("chi-const", ent.chi_conduction),
+                             ("kramers", ent.kramers),
+                             ("chi-cspeed", ent.cspeed_conduction)) if on]
+    if len(terms) > 1:
+        raise NotImplementedError(
+            f"fused kernels: iheatcond {terms} (one of chi-const, "
+            "'kramers' and 'chi-cspeed' a CHI instance)")
+    if ent.chi_conduction:
+        out["cpchi"] = eos.cp * ent.chi
+    elif ent.kramers:
+        n = ent.nkramers
+        out.update(cpchi=ent.hcond0_kramers, kq_rho=-(2.0 * n + 1.0),
+                   kq_T=6.5 * n, kp_rho=-2.0 * n, kp_T=6.5 * n + 1.0,
+                   kexp=1)
+        if ent.chimax_kramers > 0.0:
+            out.update(kmin=ent.chimin_kramers * eos.cp,
+                       kmax=ent.chimax_kramers * eos.cp)
+    elif ent.cspeed_conduction:
+        out.update(cpchi=eos.cp * ent.chi, kq_T=ent.chi_cspeed,
+                   kp_T=1.0 + ent.chi_cspeed, kexp=1)
+    return out
 
 
 def mesh_rate(cfg, inv):
@@ -1189,9 +1287,10 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
         _check(df_prev, shape, "df_prev")
     if coef is not None:
         _check(coef, (2,), "coef")
+    prof_c, prof_h, grav = map(_ptr, zg_profiles(model))
     return lib, zg_kernels(model), shape, (
-        zlo.data_ptr(), zhi.data_ptr(), *map(_ptr, zg_profiles(model)),
-        _ptr(fcont_tensor(model)))
+        zlo.data_ptr(), zhi.data_ptr(), prof_c, prof_h,
+        _ptr(kprof_vector(model)), grav, _ptr(fcont_tensor(model)))
 
 
 def rhs_zg(model, fa, zlo, zhi):

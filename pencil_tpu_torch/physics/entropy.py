@@ -2,23 +2,39 @@
 ``pencil_tpu/physics/entropy.py`` that stratified convection and
 non-isothermal turbulence read; reference src/entropy.f90 ``denergy_dt``):
 
-    Ds/Dt = −u·∇s [+ Σ_a |u_a|δ⁶_a s/(60Δ_a)] + (K/ρ)(∇²lnT + |∇lnT|²)
+    Ds/Dt = −u·∇s [+ Σ_a |u_a|δ⁶_a s/(60Δ_a)]
+            + (heat_uniform − cool_uniform·ρ·cp·T)/(ρT)
+            + (K/ρ)(∇²lnT + |∇lnT|²)
+            + (K(z)/ρ)(∇²lnT + |∇lnT|²) + (K′(z)/ρ)∂_z lnT
+            + (K_kr/ρ)(∇²lnT + Σ_a (−2n∂_a lnρ + (6.5n + 1)∂_a lnT)∂_a lnT)
+            + cp·χT^c·(∇²lnT + Σ_a (∂_a lnρ + (1 + c)∂_a lnT)∂_a lnT)
             + cp·χ·(∇²lnT + ∇lnT·(∇lnT + ∇lnρ))
             + χ_sh·(shock(∇²lnT + (∇lnρ + ∇lnT)·∇lnT) + ∇shock·∇lnT)
+            − cp(T − T_ref)/(γτT)
             + 2νS²/T + ηJ²/(ρT)
             − cool·p_c(z)·(cs² − cs²_cool)/(cs²_cool·ρT) + L·p_h(z)/(N·ρT)
 
-with 5th-order upwinding of the advection (``lupw_ss``), constant
-conductivity K ('K-const', its CFL rate χ = Kγ/(ρcp) per point), constant
-thermal diffusivity χ ('chi-const', CFL rate χγ), shock heat conduction
-('shock' with ``chi_shock``, CFL rate γχ_sh·shock; it acts only where the
-Shock module's slot exists, JAX entropy.py:230-241), viscous heating
-published by Viscosity, Ohmic heating published by Magnetic, a gaussian
-cooling layer at the top and a volume-normalized gaussian heating layer
-at the bottom.
-The layer profiles depend on z alone; ``heat_cool_profiles`` computes them
-once per model, so the plain version and the kernel read the same f32
-vectors.  Every other option of the JAX module raises or has no field.
+in JAX's order of the terms: 5th-order upwinding of the advection
+(``lupw_ss``), uniform volumetric heating and cooling (``heat_uniform``,
+``cool_uniform``), constant conductivity K ('K-const', its CFL rate
+Kγ/(ρcp) per point), the layered conductivity K(z) of 'K-profile' (K ∝
+m + 1 in each polytropic layer, ``hcond_z``; rate K(z)γ/(ρcp)), Kramers
+opacity ('kramers': K_kr/ρ = K₀ρ^(−2n−1)T^(6.5n), optionally clipped to
+[χ_min, χ_max]·cp; rate K_kr γ/(ρcp)), temperature-dependent diffusivity
+('chi-cspeed' or 'chi-therm': χT^c with c = ``chi_cspeed``; rate γχT^c),
+constant thermal diffusivity χ ('chi-const', CFL rate χγ), shock heat
+conduction ('shock' with ``chi_shock``, CFL rate γχ_sh·shock; it acts
+only where the Shock module's slot exists, JAX entropy.py:230-241),
+Newtonian cooling towards ``TTref_cool`` on the time ``tau_cool``,
+viscous heating published by Viscosity, Ohmic heating published by
+Magnetic, a cooling layer (``cooling_profile``: a gaussian at the top or
+``zcool``, a tanh step at z2 ('step') or at ``zcool`` ('step2'), a cubic
+step at z2 ('cubic_step') or z/wcool ('lin-z')) and a volume-normalized
+gaussian heating layer at the bottom.
+The layer profiles and K(z) depend on z alone; ``heat_cool_profiles``
+and ``hcond_z`` compute them once per model, so the plain version and the
+kernel read the same f32 vectors.  Every other option of the JAX module
+raises or has no field.
 """
 from __future__ import annotations
 
@@ -26,11 +42,21 @@ import math
 from dataclasses import dataclass
 from typing import ClassVar, Tuple
 
+import numpy as np
 import torch
 
 from .base import ModuleBase, accumulate
 from .initcond import init_scalar
-from .stratification import piecew_poly_profiles
+from .stratification import (cubic_step, hcond_profile,
+                             piecew_poly_profiles)
+
+
+# the conduction flavours and the cooling-layer shapes that are ported
+# ('K-profile' from mpoly0-2 and hcond0; its table form, lread_hcond,
+# needs gravx and is not)
+HEATCOND = frozenset(("K-const", "K-profile", "kramers", "chi-const",
+                      "chi-cspeed", "chi-therm", "shock"))
+COOLING_PROFILES = ("gaussian", "step", "step2", "cubic_step", "lin-z")
 
 
 @dataclass(frozen=True)
@@ -41,6 +67,15 @@ class Entropy(ModuleBase):
     hcond0: float = 0.0        # K for 'K-const'
     chi: float = 0.0           # χ for 'chi-const'
     chi_shock: float = 0.0     # χ_sh for 'shock'
+    hcond0_kramers: float = 0.0    # K₀ of 'kramers'
+    nkramers: float = 1.0          # its exponent n
+    chimax_kramers: float = 0.0    # its clip [χ_min, χ_max]·cp (χ_max > 0)
+    chimin_kramers: float = 0.0
+    chi_cspeed: float = 0.5    # the exponent c of 'chi-cspeed' (χT^c)
+    tau_cool: float = 0.0      # Newtonian cooling towards TTref_cool
+    TTref_cool: float = 0.0
+    heat_uniform: float = 0.0  # uniform volumetric heating and cooling
+    cool_uniform: float = 0.0
     lupw_ss: bool = False      # 5th-order upwinding of u·∇s
     luminosity: float = 0.0    # bottom heating layer
     wheat: float = 0.1
@@ -60,14 +95,15 @@ class Entropy(ModuleBase):
     width: float = 0.05
 
     def __post_init__(self):
-        if not set(self.iheatcond) <= {"K-const", "chi-const", "shock"}:
+        if not set(self.iheatcond) <= HEATCOND:
             raise NotImplementedError(
                 f"pencil_tpu_torch: iheatcond={self.iheatcond!r} "
-                "(only K-const, chi-const and shock)")
-        if self.cooling_profile != "gaussian":
+                f"(only {', '.join(sorted(HEATCOND))})")
+        if self.cooling_profile not in COOLING_PROFILES:
             raise NotImplementedError(
                 f"pencil_tpu_torch: cooling_profile="
-                f"{self.cooling_profile!r} (only gaussian)")
+                f"{self.cooling_profile!r} (only "
+                f"{', '.join(COOLING_PROFILES)})")
 
     def register(self, reg):
         reg.register("ss", 1, "pde")
@@ -79,6 +115,35 @@ class Entropy(ModuleBase):
     @property
     def chi_conduction(self) -> bool:
         return "chi-const" in self.iheatcond and self.chi > 0.0
+
+    @property
+    def kprofile(self) -> bool:
+        """'K-profile' on: K(z) from the polytropic layers, scale hcond0."""
+        return "K-profile" in self.iheatcond and self.hcond0 > 0.0
+
+    @property
+    def kramers(self) -> bool:
+        return "kramers" in self.iheatcond and self.hcond0_kramers > 0.0
+
+    @property
+    def cspeed_conduction(self) -> bool:
+        """'chi-cspeed' (or its other name 'chi-therm') on: χT^c."""
+        return bool({"chi-cspeed", "chi-therm"} & set(self.iheatcond)) \
+            and self.chi > 0.0
+
+    def hcond_z(self, grid):
+        """(K(z), dK/dz(z)) of 'K-profile' on the interior z, float32 in
+        JAX's op order (entropy.py:169-176): dK/dz a one-sided difference
+        with the step 1e-3·min Δz."""
+        def prof(z):
+            return hcond_profile(z, self.z1, self.z2, self.mpoly0,
+                                 self.mpoly1, self.mpoly2, self.hcond0,
+                                 self.width)
+        f32 = np.float32
+        dz = torch.tensor(f32(1e-3) * (f32(1.0) / np.max(grid.dz_1)),
+                          dtype=grid.z.dtype, device=grid.z.device)
+        K = prof(grid.z)
+        return K, (prof(grid.z + dz) - K) / dz
 
     def shock_conduction(self, reg) -> bool:
         """'shock' conduction on, in a layout with the shock slot."""
@@ -101,9 +166,20 @@ class Entropy(ModuleBase):
         float32 in the plain version's op order; None where off."""
         prof_c = prof_h = None
         if self.cool != 0.0:
-            ztop = spec.z0 + spec.Lz
-            zref = self.zcool if self.zcool != 0.0 else ztop
-            prof_c = torch.exp(-0.5 * ((z - zref) / self.wcool) ** 2)
+            shape = self.cooling_profile
+            w = max(self.wcool, 1e-30)
+            if shape == "step":
+                prof_c = 0.5 * (1.0 + torch.tanh((z - self.z2) / w))
+            elif shape == "step2":
+                prof_c = 0.5 * (1.0 + torch.tanh((z - self.zcool) / w))
+            elif shape == "cubic_step":
+                prof_c = cubic_step(z, self.z2, self.wcool)
+            elif shape == "lin-z":
+                prof_c = z / w
+            else:
+                ztop = spec.z0 + spec.Lz
+                zref = self.zcool if self.zcool != 0.0 else ztop
+                prof_c = torch.exp(-0.5 * ((z - zref) / self.wcool) ** 2)
         if self.luminosity != 0.0:
             prof_h = torch.exp(-0.5 * ((z - spec.z0) / self.wheat) ** 2)
         return prof_c, prof_h
@@ -111,12 +187,43 @@ class Entropy(ModuleBase):
     def rhs(self, pen, df, ts):
         eos = pen.eos
         out = -pen.ugrad("ss", upwind=self.lupw_ss)
+        if self.heat_uniform != 0.0 or self.cool_uniform != 0.0:
+            heat_u = (self.heat_uniform
+                      - self.cool_uniform * pen.rho() * eos.cp * pen.TT())
+            out = out + heat_u * pen.rho1() * pen.TT1()
         glnTT = pen.glnTT()
         glnTT2 = glnTT[0] ** 2 + glnTT[1] ** 2 + glnTT[2] ** 2
         if self.conduction:
             # (1/ρT)∇·(K∇T) = (K/ρ)(∇²lnT + |∇lnT|²)
             out = out + self.hcond0 * pen.rho1() * (pen.del2lnTT() + glnTT2)
             ts.diffus(self.hcond0 * pen.rho1() / eos.cp * eos.gamma)
+        if self.kprofile:
+            # (1/ρT)∇·(K(z)∇T) = (K/ρ)(∇²lnT + |∇lnT|²) + (K′/ρ)∂_z lnT
+            K, dKdz = self.hcond_z(pen.grid)
+            out = out + pen.rho1() * (
+                K * (pen.del2lnTT() + glnTT2) + dKdz * glnTT[2])
+            ts.diffus(K * pen.rho1() / eos.cp * eos.gamma)
+        if self.kramers:
+            # K_kr/ρ = K₀ρ^(−2n−1)T^(6.5n), clipped to [χ_min, χ_max]·cp
+            n_ = self.nkramers
+            Krho1 = self.hcond0_kramers * torch.exp(
+                -(2.0 * n_ + 1.0) * pen.lnrho() + (6.5 * n_) * pen.lnTT())
+            if self.chimax_kramers > 0.0:
+                Krho1 = torch.clamp(Krho1, self.chimin_kramers * eos.cp,
+                                    self.chimax_kramers * eos.cp)
+            glnrho = pen.glnrho()
+            g2 = sum((-2.0 * n_ * glnrho[a] + (6.5 * n_ + 1.0) * glnTT[a])
+                     * glnTT[a] for a in range(3))
+            out = out + Krho1 * (pen.del2lnTT() + g2)
+            ts.diffus(Krho1 / eos.cp * eos.gamma)
+        if self.cspeed_conduction:
+            # χ_eff = χT^c: cp·χ_eff(∇²lnT + (∇lnρ + (1 + c)∇lnT)·∇lnT)
+            thchi = self.chi * torch.exp(self.chi_cspeed * pen.lnTT())
+            glnrho = pen.glnrho()
+            g2 = sum((glnrho[a] + (1.0 + self.chi_cspeed) * glnTT[a])
+                     * glnTT[a] for a in range(3))
+            out = out + thchi * (pen.del2lnTT() + g2) * eos.cp
+            ts.diffus(eos.gamma * thchi)
         if self.chi_conduction:
             glnrho = pen.glnrho()
             gdot = sum(glnTT[a] * (glnTT[a] + glnrho[a]) for a in range(3))
@@ -132,6 +239,11 @@ class Entropy(ModuleBase):
             out = out + self.chi_shock * (
                 shock * (pen.del2lnTT() + g2) + gsglnTT)
             ts.diffus(eos.gamma * self.chi_shock * shock)
+        if self.tau_cool != 0.0:
+            # heat = −ρcp(T − T_ref)/(γτ), so ds/dt −= cp(T − T_ref)/(γτT)
+            TT = pen.TT()
+            out = out - eos.cp / eos.gamma * (TT - self.TTref_cool) \
+                / (self.tau_cool * TT)
         # viscous and Ohmic heating published by those modules
         heat = pen._cache.get("visc_heat")
         if heat is not None:

@@ -198,8 +198,9 @@ def test_dt1_buffer_matches_the_grid(cuda, lib):
             dict(Omega=1.0, shear=True) if "shear" in lib else {})),
             device=cuda)
         fa, zlo, zhi = stratified_fg(pm)
-        after = (zlo.data_ptr(), zhi.data_ptr(),
-                 *(t.data_ptr() for t in fr.zg_profiles(pm)))
+        # the slabs, the layer profiles, no K(z) ('K-profile' off), g_z
+        prof_c, prof_h, grav = (t.data_ptr() for t in fr.zg_profiles(pm))
+        after = (zlo.data_ptr(), zhi.data_ptr(), prof_c, prof_h, None, grav)
 
         def plain(pm, fa):
             return fr.zg_plain(pm)[0](pm, fa, zlo, zhi)
@@ -671,13 +672,13 @@ def test_zghost_update_in_place_equals_a_separate_df(cuda, shape, case):
     coef = torch.stack((pm._alpha[1], pm.rk[1][1] / dt1m))
     df_in, f_in = fr.rhs_zg_upd(pm, fa, zlo, zhi, df_prev.clone(), coef)
     df_out, f_out = torch.empty_like(df_prev), torch.empty_like(df_prev)
-    prof = fr.zg_profiles(pm)
+    prof_c, prof_h, grav = (t.data_ptr() for t in fr.zg_profiles(pm))
     assert _build.load(fr.zg_library(pm)).pc_rhs_tail_mid(
         ctypes.addressof(fr.kernel_params(pm)), fa.data_ptr(),
         df_prev.data_ptr(), coef.data_ptr(), df_out.data_ptr(),
         f_out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        zlo.data_ptr(), zhi.data_ptr(),
-        *(t.data_ptr() for t in prof), None) == 0
+        zlo.data_ptr(), zhi.data_ptr(), prof_c, prof_h, None, grav,
+        None) == 0
     torch.cuda.synchronize()
     assert torch.equal(df_in, df_out) and torch.equal(f_in, f_out)
 
@@ -1769,3 +1770,49 @@ def test_fourier_shifts_on_card_match_cpu(cuda, ny):
                               torch.tensor(3e-3, device=dev)).cpu()
            for dev in (cuda, torch.device("cpu"))]
     assert_field_close(out[0], out[1], "SAFI shift")
+
+
+# Entropy's other conduction and cooling terms on the z-ghosted builds
+# with ss: conv_slab keyword arguments of each case; 'K-profile' on the
+# base instances, Kramers (clipped) and 'chi-cspeed' on the CHI ones, each
+# with Newtonian cooling, uniform heating and cooling and a cooling profile
+HEATCOND_CASES = {
+    "kprofile": dict(heatcond="K-profile", tau_cool=2.0,
+                     cooling_profile="step",
+                     entropy=dict(heat_uniform=1e-2, cool_uniform=2e-3)),
+    "kramers": dict(heatcond="kramers", cooling_profile="cubic_step",
+                    entropy=dict(chimin_kramers=6e-3, chimax_kramers=1.5e-2)),
+    "cspeed": dict(chi=4e-3, chi_cspeed=0.5, tau_cool=2.0,
+                   cooling_profile="lin-z")}
+
+
+# the six builds: conv_slab keyword arguments
+SS_BUILDS = {"conv_slab": {}, "mag": dict(magnetic=True),
+             "shear": dict(Omega=1.0, shear=True),
+             "mag_shear": dict(magnetic=True, Omega=1.0, shear=True),
+             "shock": dict(shock=True),
+             "mag_shock": dict(magnetic=True, shock=True)}
+
+
+@pytest.mark.parametrize("build", sorted(SS_BUILDS))
+@pytest.mark.parametrize("case", sorted(HEATCOND_CASES))
+def test_heatcond_kernels_match_plain(cuda, case, build):
+    """K6/K7 of each z-ghosted build with ss, with 'K-profile' (the base
+    instances, K(z) read from its vector), Kramers and 'chi-cspeed' (the
+    CHI instances, their exponential form), against their plain
+    versions."""
+    _zghost_kernels_match_plain(cuda, conv_slab(
+        (32, 32, 32), **SS_BUILDS[build], **HEATCOND_CASES[case]))
+
+
+@pytest.mark.parametrize("case", ("kramers", "mag_kramers_cooled"))
+def test_heatcond_steps_on_card_match_cpu(cuda, case):
+    """Two steps of convection with Kramers opacity (K6/K7 chi) and of
+    magnetoconvection with Kramers opacity, Newtonian cooling and the
+    'cubic_step' profile (K6m/K7m chi) on the card against the CPU, the
+    state made on the CPU, velocity noise of 1e-2."""
+    kw = dict(heatcond="kramers")
+    if case == "mag_kramers_cooled":
+        kw.update(magnetic=True, tau_cool=2.0, cooling_profile="cubic_step")
+    _steps_match(cuda, conv_slab((32, 32, 32), **kw), nsteps=2,
+                 uu_noise=1e-2)

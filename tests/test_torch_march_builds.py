@@ -127,10 +127,10 @@ def test_libraries_hold_the_zg_build_and_no_zghost_template():
                                ("rhs_zg_mag", "rhs_zg_upd_mag"))):
         sig = _build.SIGNATURES[lib]
         assert set(sig) == set(_build.SIGNATURES["fused_rhs_shock"])
-        # the slabs, the two profiles, g_z(z) and the continuous forcing
-        # follow the stream
-        assert len(sig["pc_rhs_first"]) == 5 + 6
-        assert len(sig["pc_rhs_tail_mid"]) == 7 + 6
+        # the slabs, the two profiles, K(z) of 'K-profile', g_z(z) and the
+        # continuous forcing follow the stream
+        assert len(sig["pc_rhs_first"]) == 5 + 7
+        assert len(sig["pc_rhs_tail_mid"]) == 7 + 7
         assert fr.ZG_KERNELS[lib] == (first, upd)
         assert fr.library_instances(lib) == {
             first: 0, upd: 8, first + " rot": 16, upd + " rot": 24,

@@ -82,6 +82,18 @@ def fcont_rundir(d, nt=4):
                                    fcont=("ABC", 0.1, 1.0))
 
 
+def kramers_rundir(d, nt=4):
+    """conv-slab's shape (velocity noise of 1e-2) with Kramers opacity in
+    place of K-const (K₀ of configs.KRAMERS_K0, n = 1, clipped to χ in
+    [2e-3, 2e-2]), Newtonian cooling towards T = 1.5 on τ = 2 and the
+    cooling layer's 'cubic_step' profile."""
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="1e-2"), [
+        ("run.in", "iheatcond='K-const', hcond0=8e-3, ",
+         "iheatcond='kramers', hcond0_kramers=1.6662656847e-3, "
+         "nkramers=1., chimin_kramers=2e-3, chimax_kramers=2e-2, "
+         "tau_cool=2., TTref_cool=1.5, cooling_profile='cubic_step', ")])
+
+
 def upwind_rundir(d, nt=4):
     """conv-slab's shape (velocity noise of 1e-2) with the advection of
     lnρ, u and s upwinded: lupw_lnrho, lupw_uu, lupw_ss."""
@@ -339,6 +351,45 @@ def test_loader_maps_upwinding_and_shock_diffusion_as_jax(tmp_path, name):
         assert pt.Model(cfg, device="cpu").mode == "wrap_aux"
 
 
+# Entropy's other conduction and cooling options: the &entropy_run_pars
+# values (in place of conv-slab's iheatcond and hcond0) and what each
+# maps to beyond JAX's loader's field names
+HEATCOND_MAPPED = {
+    "kramers": "iheatcond='kramers', hcond0_kramers=1.7e-3, nkramers=0.5, "
+               "chimax_kramers=2e-2, chimin_kramers=1e-3, ",
+    "K-profile": "iheatcond='K-profile', hcond0=8e-3, ",
+    "chi-cspeed": "iheatcond='chi-cspeed', chi=4e-3, chi_cspeed=0.4, ",
+    "chi-therm": "iheatcond='chi-therm', chi=4e-3, ",
+    "cooling": "iheatcond='K-const', hcond0=8e-3, tau_cool=3., "
+               "TTref_cool=1.2, heat_uniform=1e-2, cool_uniform=2e-3, "
+               "cooling_profile='step2', zcool=0.1, ",
+    "step": "iheatcond='K-const', hcond0=8e-3, cooling_profile='step', ",
+    "cubic_step": "iheatcond='K-const', hcond0=8e-3, "
+                  "cooling_profile='cubic_step', ",
+    "lin-z": "iheatcond='K-const', hcond0=8e-3, cooling_profile='lin-z', ",
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEATCOND_MAPPED))
+def test_loader_maps_the_heat_conduction_as_jax(tmp_path, case):
+    """iheatcond 'kramers', 'K-profile', 'chi-cspeed' and 'chi-therm',
+    hcond0_kramers, nkramers, chimax_kramers, chimin_kramers,
+    chi_cspeed, tau_cool, TTref_cool, heat_uniform, cool_uniform and the
+    cooling profiles map as JAX's loader maps them
+    (pencil_tpu/compat/rundir.py:1196-1240): every field the two Entropy
+    modules share equal; the run takes the zghost chain."""
+    d = _edited(conv_rundir(tmp_path / "r"), [
+        ("run.in", "iheatcond='K-const', hcond0=8e-3, ",
+         HEATCOND_MAPPED[case])])
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    mine, ref = cfg.module("entropy"), jcfg.module("entropy")
+    for f in dataclasses.fields(mine):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    assert mine.iheatcond == (HEATCOND_MAPPED[case].split("'")[1],)
+    assert pt.Model(cfg, device="cpu").mode == "zghost"
+
+
 # the switches of &shock_run_pars (appended to run.in) and the Shock
 # module's fields they set
 SHOCK_SWITCHES = {
@@ -494,8 +545,18 @@ REFUSED = {
     "diffrho": ("helical", "run.in",
                 "&density_run_pars\n  diffrho=1e-3\n/\n", "diffrho"),
     "iheatcond": ("conv", "run.in",
-                  ("iheatcond='K-const'", "iheatcond='chi-therm'"),
+                  ("iheatcond='K-const'", "iheatcond='chit'"),
                   "iheatcond"),
+    # Entropy's options that stay out: the hcond table of 'K-profile', the
+    # entropy-fluctuation diffusion and the star-in-a-box cooling
+    "lread_hcond": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                       "lread_hcond=T"), "lread_hcond"),
+    "lchit_fluct": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                       "lchit_fluct=T"), "lchit_fluct"),
+    "cooltype": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                    "cooltype='shell'"), "cooltype"),
+    "lthdiff_hmax": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
+                                        "lthdiff_Hmax=T"), "lthdiff_hmax"),
     "cooling_profile": ("conv", "run.in",
                         ("cs2cool=1.", "cs2cool=1., cooling_profile='tanh'"),
                         "cooling_profile"),

@@ -11,7 +11,9 @@ diffusivities beside nu-shock, with SHOCK = shock_highorder (ishock_max
 = 2, 'gaussian' smoothing) too, and the convection directory with the
 Shock module and nu-shock between its walls, the slot's bcz code 's',
 and the first one's shape in a rotating shearing box with SAFI, the mesh
-flavour of del6 and lremove_mean_momenta (started and run only),
+flavour of del6 and lremove_mean_momenta, and the convection directory
+with Kramers opacity, Newtonian cooling and the 'cubic_step' cooling
+profile (started and run only),
 the port's chain on its kernels' plain versions, the JAX package on its
 jnp path (its loader's Config is not fused); the reference-layout data
 directory that both ``export`` commands write; and RELOAD, which re-reads
@@ -42,9 +44,9 @@ from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
 from test_torch_rundir import (bext_rundir, conv_rundir, conv_shock_rundir,
-                               fcont_rundir, helical_rundir, safi_rundir,
-                               shock_rundir, shock_highorder_rundir,
-                               upwind_rundir)
+                               fcont_rundir, helical_rundir, kramers_rundir,
+                               safi_rundir, shock_rundir,
+                               shock_highorder_rundir, upwind_rundir)
 
 torch.set_num_threads(1)
 
@@ -235,6 +237,20 @@ def test_cli_runs_the_safi_shearing_box(tmp_path):
     run by both command lines (the port's zroll chain with the shift
     between substeps; JAX's jnp path); the final states agree."""
     mine = safi_rundir(tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref))
+
+
+def test_cli_runs_kramers_conduction(tmp_path):
+    """A run directory the loader refused before: conv-slab's shape with
+    iheatcond 'kramers' (clipped), tau_cool and the 'cubic_step' cooling
+    profile, started and run by both command lines (the port's K6/K7
+    chain on their CHI instances' plain versions; JAX's jnp path); the
+    final states agree."""
+    mine = kramers_rundir(tmp_path / "port")
     ref = shutil.copytree(mine, tmp_path / "jax")
     for cmd in ("start", "run"):
         main([cmd, mine, "--device", "cpu"])

@@ -324,9 +324,9 @@ def test_gate_rejects_on_cuda(case):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        pt.Entropy(iheatcond=("K-profile",))
+        pt.Entropy(iheatcond=("chit",))
     with pytest.raises(NotImplementedError):
-        pt.Entropy(cooling_profile="step")
+        pt.Entropy(cooling_profile="tanh")
     with pytest.raises(NotImplementedError):
         pt.Gravity(gravz_profile="central")
     with pytest.raises(NotImplementedError):

@@ -9,6 +9,8 @@ process on one card.
     python3 time_loader_variants.py --option upwind|shock|safi|mesh ...
                                     [--lib all]
                                     [--n 256]
+    python3 time_loader_variants.py --option heatcond [--lib all]
+                                    [--n 256] [--parent-tree DIR]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
 package's) and -D definitions for it, e.g. ``:PC_PD=1`` or
@@ -85,6 +87,17 @@ plain version (chip_smoke.py's bounds at 256³), then every kernel is
 timed by CUDA events over 20 launches, off, on, on, off, and the
 registers and local bytes of both instances printed
 (``pc_flagship_attrs``).  One line per build, then one JSON object.
+
+``--option heatcond`` times the first and update kernel of each of the
+six z-ghosted builds with ss (``--lib`` one of them, or ``all``) under
+Entropy's conduction flavours in turns on one input: K-const (the
+build's configuration), 'K-profile', Newtonian cooling with the uniform
+heating and cooling (the base instances), chi-const and 'kramers' (the
+CHI instances); with ``--parent-tree DIR`` also the K-const and
+chi-const configurations through DIR's package, its own kernels, in the
+same turns.  Each flavour's kernels are checked against their plain
+versions first; the registers and local bytes of each instance are
+printed.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -292,6 +305,101 @@ def option_kernels(torch, cs, fr, model, shape):
     return timed, checked
 
 
+# --option heatcond: the six z-ghosted builds with ss (conv_slab keyword
+# arguments) and the conduction flavours timed on each (conv_slab keyword
+# arguments; those that an older conv_slab also takes: its columns with
+# --parent-tree)
+ZG_SS = {"fused_rhs_zg": {}, "fused_rhs_zg_mag": {"magnetic": True},
+         "fused_rhs_zg_shear": {"shear": True, "Omega": 1.0},
+         "fused_rhs_zg_mag_shear": {"magnetic": True, "shear": True,
+                                    "Omega": 1.0},
+         "fused_rhs_zg_shock": {"shock": True},
+         "fused_rhs_zg_mag_shock": {"magnetic": True, "shock": True}}
+HEATCOND_STATES = {
+    "K-const": {}, "K-profile": {"heatcond": "K-profile"},
+    "cooling": {"tau_cool": 2.0, "entropy": {"heat_uniform": 1e-2,
+                                             "cool_uniform": 2e-3}},
+    "chi-const": {"chi": 4e-3}, "kramers": {"heatcond": "kramers"}}
+PARENT_STATES = ("K-const", "chi-const")
+
+
+def time_heatcond(args, smi):
+    """The ``--option heatcond`` mode: each z-ghosted build with ss under
+    each conduction flavour (and the parent's K-const and chi-const), its
+    two kernels in turns on one input."""
+    import torch
+    import chip_smoke as cs
+    import pencil_tpu_torch as pt
+    import pencil_tpu_torch.configs  # noqa: F401  (pt.configs)
+    from pencil_tpu_torch.ops import _build
+    from pencil_tpu_torch.ops import fused_rhs as fr
+
+    pp = load_parent(args.parent_tree) if args.parent_tree else None
+    libs = list(ZG_SS) if args.lib == "all" else [args.lib]
+    # only these libraries are timed: build them alone, in both packages
+    for build in (_build, pp.ops._build) if pp else (_build,):
+        build.LIBRARIES = {k: v for k, v in build.LIBRARIES.items()
+                           if k in libs}
+        build.start()
+    shape = (args.n,) * 3
+    result = {}
+    for lib in libs:
+        bkw = ZG_SS[lib]
+        models = {name: pt.Model(pt.configs.conv_slab(shape, **bkw, **kw),
+                                 device="cuda")
+                  for name, kw in HEATCOND_STATES.items()}
+        ref = models["K-const"]
+        inp = cs.zg_input(torch, ref, 3)
+        df1, dt1m = fr.zg_plain(ref)[0](ref, *inp)
+        coef = torch.stack((ref._alpha[1], ref.rk[1][1] / dt1m))
+        scratch = df1.clone()
+        calls = {}
+        for name, m in models.items():
+            first_p, upd_p = fr.zg_plain(m)
+            agree(cs, f"{lib} {name} first", fr.rhs_zg(m, *inp),
+                  first_p(m, *inp), cs.RTOL_FIELD)
+            agree(cs, f"{lib} {name} update",
+                  fr.rhs_zg_upd(m, *inp, df1.clone(), coef),
+                  upd_p(m, *inp, df1.clone(), coef), cs.RTOL_FIELD)
+            calls[id(m)] = (
+                lambda m=m: fr.rhs_zg(m, *inp),
+                lambda m=m: fr.rhs_zg_upd(m, *inp, scratch, coef))
+        if pp:
+            pfr = pp.ops.fused_rhs
+            for name in PARENT_STATES:
+                pm = pp.Model(pp.configs.conv_slab(
+                    shape, **bkw, **HEATCOND_STATES[name]), device="cuda")
+                pinp = cs.zg_input(torch, pm, 3)
+                models[f"{PARENT} {name}"] = pm
+                calls[id(pm)] = (
+                    lambda pm=pm, pinp=pinp: pfr.rhs_zg(pm, *pinp),
+                    lambda pm=pm, pinp=pinp: pfr.rhs_zg_upd(
+                        pm, *pinp, scratch, coef))
+        times = cs.in_turns(torch, models, {
+            "first": lambda m: calls[id(m)][0](),
+            "update": lambda m: calls[id(m)][1]()})
+        attrs = fr.flagship_attrs(lib)
+        rot = " rot" if bkw.get("Omega") else ""
+        regs = {name: {n: (attrs[n + rot]["registers"],
+                           attrs[n + rot]["local_bytes"])
+                       for n in fr.zg_kernels(m)}
+                for name, m in models.items() if not name.startswith(PARENT)}
+        result[lib] = {f"{kind} {state}": ts
+                       for (kind, state), ts in times.items()}
+        print(f"time_loader_variants --option heatcond {lib} at {shape} on "
+              f"{smi}, in turns: " + "; ".join(
+                  f"{kind} {state} " + ", ".join(f"{t:.4f}" for t in ts)
+                  + " ms" for (kind, state), ts in times.items())
+              + "; (registers, local bytes): " + "; ".join(
+                  f"{state} " + ", ".join(f"{n} {r}" for n, r in r_.items())
+                  for state, r_ in regs.items()), flush=True)
+        del models, calls, inp, df1, scratch
+        torch.cuda.empty_cache()
+    print(json.dumps({"device": smi, "shape": shape, "ms": result}),
+          flush=True)
+    return 0
+
+
 def time_options(args, smi):
     """The ``--option`` mode: each build's kernels with each option on
     against the same kernels with it off."""
@@ -399,12 +507,16 @@ def main():
                     "path's whole step (the shock pre-pass, fills and "
                     "both kernels) per variant too")
     ap.add_argument("--option", nargs="+",
-                    choices=("upwind", "shock", "safi", "mesh"),
+                    choices=("upwind", "shock", "safi", "mesh", "heatcond"),
                     help="time each option on against off, in place of "
                     "variants")
     args = ap.parse_args()
     if not args.option and args.lib not in LIBS:
         ap.error(f"--lib: one of {', '.join(LIBS)}")
+    if args.option and "heatcond" in args.option and (
+            len(args.option) > 1 or args.lib not in (*ZG_SS, "all")):
+        ap.error(f"--option heatcond: alone, --lib one of "
+                 f"{', '.join(ZG_SS)} or all")
     import torch
     if not torch.cuda.is_available():
         print("time_loader_variants: no CUDA device", file=sys.stderr)
@@ -415,6 +527,12 @@ def main():
     from pencil_tpu_torch.ops import _build
     from pencil_tpu_torch.ops import fused_rhs as fr
 
+    if args.option == ["heatcond"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        return time_heatcond(args, smi)
     two = args.lib in PATH_CONFIG      # a path of two kernels
     if args.terms and two:
         ap.error("--terms takes a periodic build's --lib")
