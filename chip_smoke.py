@@ -53,7 +53,11 @@ with the flow's nodes at 0), the mesh flavour of del6 (``hyper3="mesh"``:
 every H3 instance with the mesh weights and rate) and the mean momenta
 removed after each step (``remove_mean_momenta=True``): the sheared,
 rotating MHD box with all three (K4/K5), the stratified MRI box
-(K6msi/K7msi) and the sheared conv-slab (K6s/K7s) with SAFI.
+(K6msi/K7msi) and the sheared conv-slab (K6s/K7s) with SAFI, and the
+z-wall boundary conditions: magnetoconvection with a vacuum exterior
+(ax, ay, az 'pot': the x/y-ghosted slabs on K6ms/K7ms at S = 0) and
+Kramers convection with a black-body top over a hydrostatic density top
+(ss 'c1:Fgs', lnρ 'a2:hs': K6/K7 chi).
 
     python3 chip_smoke.py
 
@@ -130,7 +134,12 @@ Phases, each printing its own lines:
      (the twelve aux builds, the eight z-ghosted builds with H3, the four
      periodic builds' five kernels), and two steps at 32³ of the forced
      flagship with the mean removal (the kick after it) and with the mesh
-     flavour, and of the three SAFI paths;
+     flavour, and of the three SAFI paths; every ported z-wall code's
+     fills (the 3-axis one, the chain's cut and layout, the pinned
+     boundary planes) on the card against the CPU at 32³, 'pot'/'pwd'/
+     'pfe' and 'c1' on A also at 128×128×16, each component within 1e-6
+     of its max, and two steps at 32³ of each layout route (the vacuum
+     exterior, the black-body top, 's0d' on ux and uy);
   3. the main paths at 256³ through Model(cfg, device="cuda"),
      init_state(0) and make_step(), 3 warm-up and 20 timed steps under
      torch.cuda.set_sync_debug_mode("error"), the launch counts set to 0
@@ -187,7 +196,11 @@ Phases, each printing its own lines:
      conv_slab(256, shear=True, Omega=0.5, safi=True): one K6s and two
      K7s), each with its dt beside the dt that the same state sets
      without SAFI and two steps on the card against the same steps on
-     the CPU (the fields made on the CPU), and the K8 chain
+     the CPU (the fields made on the CPU), the two z-wall paths
+     (conv_slab(256, magnetic=True) with ax, ay, az 'pot': one K6ms and
+     two K7ms at S = 0; conv_slab(256, heatcond="kramers") with ss
+     'c1:Fgs' and lnρ 'a2:hs', σ_SBt from configs.fgs_sigma: one K6 and
+     two K7 chi), each in 3 windows, and the K8 chain
      (Model(fake_rhs=True))
      with one launch of each of its three variants; then
      simulate(forced_entropy(256), nt=40) with rows every 10 steps and a
@@ -252,7 +265,10 @@ Phases, each printing its own lines:
      SAFI paths' kernels checked and timed, in turns with their
      counterparts without SAFI, the z-ghosted ones' step splits (the three
      SAFI shifts a part) and the shear box's shift of one substep (device
-     ms, kernels, host issue ms); for
+     ms, kernels, host issue ms); the z-wall paths' kernels checked and
+     their plain versions timed, in turns with their parent sets'
+     (magnetoconvection's K6m/K7m, the Kramers conv-slab's K6/K7 chi), and
+     their step splits (the z fills' device and host ms); for
      each instance of the flagship template (csrc/fused_rhs.cu, all 26
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
@@ -479,6 +495,64 @@ HEATCOND_COUNTERPART = {
     "conv-slab kramers": ("conv-slab", "conv-slab chi"),
     "magnetoconvection kramers cooled": ("magnetoconvection",
                                          "magnetoconvection chi")}
+# the z-wall codes: phase 2's fills of every ported code on the card
+# against the CPU at 32³ (WALL_CASES: a bcz override of conv_slab(n,
+# magnetic=True) each, with its conv_slab keyword arguments and
+# force_bound; the flux walls' Entropy fields in WALL_FLUX, σ_SBt from
+# configs.fgs_sigma), the FFT codes ('pot' and 'c1' on A) also at 128
+# rows, two steps of each layout route at 32³ (WALL_STEPS: the x/y-ghosted
+# slabs, the z-only cut of g + 1 planes and of 2g + 1), and two paths at
+# 256³: magnetoconvection with a vacuum exterior (ax, ay, az 'pot': the
+# x/y-ghosted layout on K6ms/K7ms at S = 0) and Kramers convection with a
+# black-body top over a hydrostatic density top (ss 'c1:Fgs', lnρ
+# 'a2:hs': K6/K7 chi)
+WALL_FLUX = dict(chi_t=2e-3, chit_prof1=0.5, chit_prof2=1.5, hcondbot=1e-3,
+                 hcondtop=2e-3, Fbot=0.02, Ftop=0.01)
+WALL_CASES = {
+    "der": ({"ux": ("der", 0.5, -0.3)}, {}, None),
+    "0, cop, e1": ({"ux": "cop", "uy": "0", "uz": "e1"}, {}, None),
+    "e2, 1s": ({"ux": "e2", "uy": "1s"}, {}, None),
+    "e3": ({"uz": "e3"}, {}, None),
+    "s0d, d1s, n1s": ({"ux": "s0d", "uy": ("d1s", 0.01, -0.02),
+                       "uz": ("n1s", 0.1, 0.2)}, {}, None),
+    "v, v3, out": ({"ux": "v", "uy": "v3", "uz": "out"}, {}, None),
+    "ouf, ubs": ({"uy": "ubs", "uz": "ouf"}, {}, None),
+    "nil, StS, none": ({"ux": "nil", "uy": "none", "lnrho": "StS"}, {},
+                       None),
+    "ism": ({"lnrho": ("ism", 0.9, 0.9), "ss": ("ism", 0.5, 0.5)}, {},
+            None),
+    "cdz, sT": ({"lnrho": "cdz", "ss": "sT"}, {}, None),
+    "c2": ({"ss": ("c2", 1.2, 0.0)}, {}, None),
+    "ctz": ({"ss": "ctz"}, {}, None),
+    "cT2": ({"ss": ("cT2", 0.0, 1.1)}, {}, None),
+    "ce": ({"ss": "ce"}, {}, None),
+    "hs": ({"lnrho": "a2:hs", "ss": "c1:hs"}, {}, None),
+    "div": ({"uz": ("div", 0.1, -0.1)}, {}, None),
+    "pot": ({"ax": "pot", "ay": "pot", "az": "pot"}, {}, None),
+    "pwd, pfe": ({"ux": "pwd", "uy": "pfe"}, {}, None),
+    "c1 on A": ({"ax": "c1", "ay": "c1", "az": "c1"}, {}, None),
+    "c1 on A, nil": ({"ax": "c1", "ay": "nil", "az": "nil"}, {}, None),
+    "Fgs, kramers": ({"lnrho": "a2:hs", "ss": "c1:Fgs"},
+                     dict(heatcond="kramers"), None),
+    "Fgs": ({"ss": "Fgs"}, {}, None),
+    "Fct": ({"ss": "Fct"}, {}, None),
+    "Fct, kramers": ({"ss": "Fct"}, dict(heatcond="kramers"), None),
+    "g": ({"ux": "g", "ss": "g"}, {}, ("", "cT")),
+}
+# the cases with a torch.fft, checked again with 128 rows along x and y
+WALL_FFT_CASES = ("pot", "pwd, pfe", "c1 on A", "c1 on A, nil")
+WALL_PATHS = {
+    "magnetoconvection vacuum": dict(magnetic=True, bcz=dict.fromkeys(
+        ("ax", "ay", "az"), "pot")),
+    "conv-slab kramers radiative": dict(heatcond="kramers", bcz={
+        "lnrho": "a2:hs", "ss": "c1:Fgs"})}
+CONV_SLAB_PATHS.update(WALL_PATHS)
+# each one's parent set, run in the same call, in turns with it in phase 4
+WALL_COUNTERPART = {"magnetoconvection vacuum": "magnetoconvection",
+                    "conv-slab kramers radiative": "conv-slab kramers"}
+# two steps on the card against the CPU at 32³ of each layout route
+WALL_STEPS = dict(WALL_PATHS, **{
+    "conv-slab s0d": dict(bcz={"ux": "s0d", "uy": "s0d"})})
 # each shocked conv-slab path's counterpart without the slot, timed in
 # turns with it in phase 4, and the phase-3 label of its launch names
 ZG_SHOCK_COUNTERPART = {"shocked conv-slab": "conv-slab",
@@ -634,6 +708,10 @@ PER_STEP = {
     "conv-slab kramers": {"rhs_zg_chi": 1, "rhs_zg_upd_chi": 2},
     "magnetoconvection kramers cooled": {"rhs_zg_mag_chi": 1,
                                          "rhs_zg_upd_mag_chi": 2},
+    # the vacuum exterior runs the MHD shear build at S = 0
+    "magnetoconvection vacuum": {"rhs_zg_mag_shear": 1,
+                                 "rhs_zg_upd_mag_shear": 2},
+    "conv-slab kramers radiative": {"rhs_zg_chi": 1, "rhs_zg_upd_chi": 2},
 }
 PER_STEP.update({label: {first: 1, upd: 2}
                  for label, (first, upd) in AUX_NAMES.items()})
@@ -1500,9 +1578,72 @@ def conv_slab_cfg(pt, label, shape):
     """The configuration of the conv-slab path ``label``
     (CONV_SLAB_PATHS), with the shock diffusivities where it ends in
     " sd"."""
-    cfg = pt.configs.conv_slab(shape, **CONV_SLAB_PATHS[label])
+    kw = CONV_SLAB_PATHS[label]
+    if "Fgs" in str(kw.get("bcz")):
+        # a black-body top that lets out the bottom's flux at the start
+        kw = dict(kw, entropy=dict(sigmaSBt=pt.configs.fgs_sigma()))
+    cfg = pt.configs.conv_slab(shape, **kw)
     return (pt.configs.with_shock_diffusion(cfg) if label.endswith(" sd")
             else cfg)
+
+
+def wall_cfg(pt, name, shape):
+    """The configuration of the z-wall case ``name`` (WALL_CASES):
+    magnetoconvection with the case's bcz codes, keyword arguments and
+    force_bound, and the flux walls' Entropy fields."""
+    over, kw, force = WALL_CASES[name]
+    cfg = pt.configs.conv_slab(shape, magnetic=True, bcz=over, **kw,
+                               entropy=dict(WALL_FLUX, sigmaSBt=(
+                                   pt.configs.fgs_sigma())))
+    return cfg if force is None else cfg.replace(force_bound=force)
+
+
+def compare_walls(torch, pt, shape, names):
+    """Phase 2: the z fills of the cases ``names`` of WALL_CASES on the
+    card against the CPU, on one stack made on the CPU (the initial lnρ
+    and s with noise of 1e-2, noise of 1e-2 in u and A; uz offset to 0.5
+    for 'e3', whose power law needs a positive field): the 3-axis fill,
+    the chain's (``Model.zg_input`` and the kernels' ghosting of its
+    layout) and the boundary planes that ``bc_writeback`` pins, each
+    component within 1e-6 of its max."""
+    from pencil_tpu_torch.parallel.halo import (
+        ghosted_from_sheared_z_slabs, ghosted_from_z_slabs)
+    cpu = torch.device("cpu")
+    worst = {}
+    for name in names:
+        cfg = wall_cfg(pt, name, shape)
+        models = {dev: pt.Model(cfg, device=dev) for dev in ("cuda", "cpu")}
+        init = models["cpu"].init_state(0)["fields"]
+        g = torch.Generator(cpu).manual_seed(7)
+
+        def noise(n):
+            return 1e-2 * torch.randn((n,) + shape, generator=g)
+
+        fa = torch.cat([noise(3), init["lnrho"] + noise(1),
+                        init["ss"] + noise(1), noise(3)])
+        if name == "e3":
+            fa[2] += 0.5
+        out = {}
+        for dev, m in models.items():
+            x = fa.to(dev)
+            body, zlo, zhi = m.zg_input(x.clone())
+            chain = (ghosted_from_sheared_z_slabs if m.zg_xy
+                     else ghosted_from_z_slabs)(body, zlo, zhi)
+            out[dev] = [t.cpu() for t in (m.ghosted(x), chain,
+                                          m.bc_writeback(x.clone()))]
+        err = 0.0
+        for a, b in zip(out["cuda"], out["cpu"]):
+            check(bool(torch.isfinite(a).all()), f"{name}: non-finite fill")
+            for c in range(b.shape[0]):
+                r = float((a[c] - b[c]).abs().max()) / max(
+                    float(b[c].abs().max()), 1e-30)
+                err = max(err, r)
+        check(err <= RTOL_NEW, f"{shape} z-wall {name}: card against the "
+              f"CPU rel err {err}")
+        worst[name] = err
+    print(f"phase 2 {shape} z-wall fills on the card against the CPU, "
+          f"worst component rel err: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
 
 
 def aux_variant(pt, cfg, Omega, hyper3):
@@ -1922,6 +2063,9 @@ def main():
     mark("phase 2, the z-ghosted builds with the shock slot")
     compare_heatcond(torch, pt, fr, (32, 32, 32), errs)
     mark("phase 2, Entropy's conduction and cooling flavours")
+    compare_walls(torch, pt, (32, 32, 32), WALL_CASES)
+    compare_walls(torch, pt, (128, 128, 16), WALL_FFT_CASES)
+    mark("phase 2, the z-wall codes' fills")
     for ny in (64, 128, 256):
         compare_shifts(torch, pt, ny)
     for shape in ((64, 64, 64), EDGE_SHAPE):
@@ -2073,6 +2217,11 @@ def main():
     for label in HEATCOND_PATHS:
         compare_steps(torch, pt, label, conv_slab_cfg(pt, label, n32),
                       uu_noise=1e-2)
+    for label, kw in WALL_STEPS.items():
+        if "Fgs" in str(kw["bcz"]):
+            kw = dict(kw, entropy=dict(sigmaSBt=pt.configs.fgs_sigma()))
+        compare_steps(torch, pt, label, pt.configs.conv_slab(n32, **kw),
+                      uu_noise=1e-2)
 
     mark("phase 2b")
     # ---- phase 3: the main paths at 256³ ------------------------------
@@ -2159,6 +2308,10 @@ def main():
     for path in hc.values():
         print_heatcond_dt(torch, pt, fr, smi, *path)
     mark("phase 3, Entropy's conduction and cooling flavours")
+    walls = {label: run_conv_slab(torch, pt, fr, smi, shape, launches,
+                                  label, nwin=VARIANT_WINDOWS)
+             for label in WALL_PATHS}
+    mark("phase 3, the z-wall paths")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -2265,6 +2418,10 @@ def main():
     for label, path in hc.items():
         time_heatcond_turns(torch, fr, smi, path, [
             counterpart[o] for o in HEATCOND_COUNTERPART[label]], errs)
+    parents = {path[3]: path for path in (zm, *hc.values())}
+    for label, path in walls.items():
+        time_wall_path(torch, fr, smi, path, parents[WALL_COUNTERPART[label]],
+                       errs)
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -2366,6 +2523,43 @@ def time_heatcond_turns(torch, fr, smi, path, others, errs):
                 + f" at 256^3 on {smi}, one input (plain versions: "
                 + ", ".join(f"{k} {t:.4f} ms" for k, t in plain.items())
                 + ")", times)
+
+
+def time_wall_path(torch, fr, smi, path, parent, errs):
+    """Phase 4: a z-wall path's K6/K7 (WALL_PATHS) checked against their
+    plain versions on the stratified noisy input at 256³ (of its layout:
+    the vacuum exterior's x/y-ghosted slabs), the plain versions timed
+    once, the kernels timed in turns with its parent set's, each on its
+    own input (``time_zg_turns``), and the step's split, the z fills'
+    device and host ms among the parts (``print_split``)."""
+    model, _, _, label = path
+    first, upd = fr.zg_kernels(model)
+    first_p, upd_p = fr.zg_plain(model)
+    inp = zg_input(torch, model, 3)
+    df1, dt1m = first_p(model, *inp)
+    coef = torch.stack((model._alpha[1], model.rk[1][1] / dt1m))
+    df, d1 = fr.rhs_zg(model, *inp)
+    dt_rel = abs(float(d1) / float(dt1m) - 1.0)
+    check(dt_rel <= RTOL_DT, f"{label} {first} at 256^3: dt rel err "
+          f"{dt_rel}")
+    pairs = {first: [(df, df1)],
+             upd: [(a, b) for a, b in zip(
+                 fr.rhs_zg_upd(model, *inp, df1.clone(), coef),
+                 upd_p(model, *inp, df1.clone(), coef))]}
+    compare_pairs(f"{label} at 256^3 (max 1/dt rel err {dt_rel:.2e})",
+                  (N_MAIN,) * 3, pairs, errs, RTOL_FIELD)
+    del df, pairs
+    scratch = df1.clone()
+    plain = {first: time_ms(torch, lambda: first_p(model, *inp), PLAIN_CALLS,
+                            warm=False),
+             upd: time_ms(torch, lambda: upd_p(model, *inp, scratch, coef),
+                          PLAIN_CALLS, warm=False)}
+    print(f"phase 4 {label} plain versions at 256^3 on {smi}: "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in plain.items()),
+          flush=True)
+    del inp, df1, scratch
+    time_zg_turns(torch, fr, smi, path, parent)
+    print_split(torch, fr, smi, path)
 
 
 def time_safi_shift(torch, smi, model, state, label):
@@ -2991,11 +3185,13 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     check(tuple(fa.shape) == (model.reg.nf,) + shape,
           f"state shape {tuple(fa.shape)}")
     check(bool(torch.isfinite(fa).all()), "non-finite field")
-    # uz, and with Magnetic A_x and A_y, are 0 on the walls (forced, the
+    # the components with the code 'a' at both walls (uz, and with
+    # Magnetic's perfect conductor A_x and A_y) are 0 on them (forced, the
     # kick after the writeback moves u off them, as JAX's does)
     comps = model.reg.comp_names
     for c in (() if model.forcing is not None else
-              [comps.index(k) for k in ("uz", "ax", "ay") if k in comps]):
+              [comps.index(bc.comp) for bc in model.cfg.bcz
+               if bc.low == bc.high == "a"]):
         check(bool((fa[c][:, :, [0, -1]] == 0).all()),
               f"{model.reg.comp_names[c]} not 0 on the walls")
     dt = float(state["dt"])
@@ -3528,14 +3724,14 @@ def zg_parts(model):
     the x/y fills with the shifted faces, with the shock slot K6k/K7k or
     K6mk/K7mk and the shock pre-passes, forced the kick)."""
     sfx = ("m" if "aa" in model.reg.slots else "") + (
-        "s" if model.shear is not None else "") + (
+        "s" if model.zg_xy else "") + (
         "i" if "ss" not in model.reg.slots else "") + (
         "k" if "shock" in model.reg.slots else "")
     parts = {"rhs_zg": "K6" + sfx, "rhs_zg_upd": f"K7{sfx} x2",
              "z_slabs": "z_slabs x3", "bc_writeback": "bc_writeback"}
     if "shock" in model.reg.slots:
         parts["_refresh_aux_fa"] = "shock pre-pass x3"
-    if model.shear is not None:
+    if model.zg_xy:
         parts["ghosted"] = "x/y fills x3"
     if model.forcing is not None:
         parts["_kick_after"] = "kick"
@@ -3578,7 +3774,7 @@ def conv_slab_split(torch, fr, model, state, n):
                if m in names]
     for m in methods:
         setattr(model, m, ranged(names[m], getattr(model, m), (
-            lambda fa, axes=(0, 1, 2), sdy=None: sdy is not None)
+            lambda fa, axes=(0, 1, 2), sdy=None: tuple(axes) == (0, 1))
             if m == "ghosted" else None))
     kernels = (ranged(names["rhs_zg"], fr.rhs_zg),
                ranged(names["rhs_zg_upd"], fr.rhs_zg_upd))

@@ -33,7 +33,7 @@ from typing import Dict, Tuple
 from ..core.config import Config, GridSpec, TimeSpec
 from ..core.farray import Registry
 from ..integrate.timestep import RK_TABLES
-from ..ops.boundary import BC, BC_REGISTRY
+from ..ops.boundary import BC, BC_REGISTRY, REFUSED
 from ..physics import (Density, Entropy, EosIdealGas, Forcing, Gravity,
                        Hydro, Magnetic, Shear, Shock, Viscosity)
 from .namelist import read_namelist_file
@@ -368,8 +368,7 @@ def _grid_time(init_pars, run_pars, cpar, nxyz):
     _check("init_pars", init_pars, {
         "lpole": _off, "lshift_origin": _off, "lcylinder_in_a_box": False,
         "lsphere_in_a_box": False, "llocal_iso": False,
-        "lfargo_advection": False, "lcylindrical_gravity": False,
-        "sigmasbt": 0.0})
+        "lfargo_advection": False, "lcylindrical_gravity": False})
     gc = init_pars.get("coeff_grid", 0.0)
     gc = (list(gc) if isinstance(gc, list) else [gc]) + [0.0] * 3
     grid = GridSpec(nx=nx, ny=ny, nz=nz,
@@ -468,7 +467,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
     _check("run_pars", run_pars, {
         "lweno_transport": False, "lisotropic_advection": False,
         "lfargo_advection": False, "lfreeze_varint": _off,
-        "lfreeze_varext": _off, "sigmasbt": 0.0})
+        "lfreeze_varext": _off})
     grid, time = _grid_time(init_pars, run_pars, cpar, nxyz)
 
     modules = []
@@ -498,7 +497,6 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             _refuse(f"&{name} (the port has no such module)")
 
     eos_p = grp("eos")
-    _check("eos", eos_p, {"sigmasbt": 0.0})
     units, mu0, cp = _units(init_pars, eos_p)
     if eos_p or "eos_init_pars" in start or "density_init_pars" in start:
         modules.append(EosIdealGas(
@@ -581,19 +579,31 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
         # NOTE: an empty &entropy_init_pars group alone does NOT select
         # the module — the Makefile default is ENERGY=noentropy
         _check("entropy", ent_p, {
-            "cooltype": "", "mixinglength_flux": 0.0,
+            "cooltype": "",
             "chi_hyper3": 0.0, "chi_hyper3_mesh": 0.0,
             "chi_hyper3_aniso": _zero3,
-            "lthdiff_hmax": False, "rcool": 0.0, "chi_t": 0.0,
+            "lthdiff_hmax": False, "rcool": 0.0,
             "lchit_fluct": False, "lread_hcond": False,
             "lfreeze_sint": False, "lfreeze_sext": False})
+        # MLT runs: hcond0 and Fbot derive from mixinglength_flux (JAX
+        # rundir.py:1170-1180; initialize_energy, entropy.f90:669-671)
+        mlf = float(ent_p.get("mixinglength_flux", 0.0))
+        hcond0 = float(ent_p.get("hcond0", 0.0))
+        fbot = float(ent_p.get("fbot", 0.0))
+        if mlf != 0.0 and hcond0 == 0.0:
+            game = float(eos_p.get("gamma", 5.0 / 3.0))
+            hcond0 = (-mlf * (float(ent_p.get("mpoly0", 1.5)) + 1.0)
+                      * (game - 1.0) / game
+                      / float(grav_p.get("gravz", -1.0)))
+            if fbot == 0.0:
+                fbot = mlf
         modules.append(Entropy(
             init=_init_of("entropy", "entropy_init_pars", "initss", ent_p),
             ampl=float(_first(ent_p.get(
                 "ampl_ss", ent_p.get("ss_const", 0.0)))),
             width=float(ent_p.get("widthss", 0.05)),
             iheatcond=_as_tuple(ent_p.get("iheatcond", "K-const")),
-            hcond0=float(ent_p.get("hcond0", 0.0)),
+            hcond0=hcond0,
             chi=float(ent_p.get("chi", 0.0)),
             chi_shock=float(ent_p.get("chi_shock", 0.0)),
             # Entropy's other conduction and cooling terms, as JAX's
@@ -620,7 +630,15 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             mpoly2=float(ent_p.get("mpoly2", 0.0)),
             z1=float(grav_p.get("z1", ent_p.get("z1", 0.0))),
             z2=float(grav_p.get("z2", ent_p.get("z2", 1.0))),
-            isothtop=int(ent_p.get("isothtop", 1))))
+            isothtop=int(ent_p.get("isothtop", 1)),
+            # the flux walls' fields (JAX rundir.py:1224-1233)
+            sigmaSBt=float(run_pars.get(
+                "sigmasbt", eos_p.get("sigmasbt",
+                                      init_pars.get("sigmasbt", 0.0)))),
+            chi_t=float(ent_p.get("chi_t", 0.0)),
+            chit_prof1=float(ent_p.get("chit_prof1", 1.0)),
+            chit_prof2=float(ent_p.get("chit_prof2", 1.0)),
+            Fbot=fbot, Ftop=float(ent_p.get("ftop", 0.0))))
 
     vis_p = grp("viscosity")
     if vis_p:
@@ -728,7 +746,7 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             lmax_shock=bool(shk_p.get("lmax_shock", True))))
 
     modules = tuple(modules)
-    bcs = _boundary_conditions(modules, init_pars, run_pars)
+    bcs = _boundary_conditions(modules, init_pars, run_pars, units)
     overrides, modules = _parity_replay(
         path, modules, grid, int(run_pars.get("nt", 100)),
         init_pars, run_pars, cpar)
@@ -752,10 +770,10 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
     return cfg, info
 
 
-def _boundary_conditions(modules, init_pars, run_pars):
+def _boundary_conditions(modules, init_pars, run_pars, units):
     """(bcx, bcy, bcz): run.in's codes over start.in's, one per
     communicated component in registration order, with fbc values and the
-    derived 'cT' and 'c1' values (JAX rundir.py:2346-2412)."""
+    derived 'cT', 'ism' and 'c1' values (JAX rundir.py:2346-2412)."""
     from ..model import REGISTRATION_ORDER, _order_key
     reg = Registry()
     for m in sorted(modules, key=_order_key(REGISTRATION_ORDER)):
@@ -787,6 +805,9 @@ def _boundary_conditions(modules, init_pars, run_pars):
             vals = [0.0, 0.0]
             parts = str(code).split(":")
             for side, c in ((0, parts[0]), (1, parts[-1])):
+                if c in REFUSED:
+                    _refuse(f"{axis_key}: {comp} {code!r} ({c!r} "
+                            f"{REFUSED[c]})")
                 if c not in BC_REGISTRY:
                     _refuse(f"{axis_key}: {comp} {code!r} (the BC "
                             f"mnemonics {sorted(BC_REGISTRY)})")
@@ -795,6 +816,13 @@ def _boundary_conditions(modules, init_pars, run_pars):
                     else 0.0
                 if c == "cT" and ent is not None and ent.cs2cool > 0:
                     v = ent.cs2cool
+                elif c == "ism":
+                    # the observed scale height: density_scale_factor or
+                    # 900 pc / unit_length (boundcond.f90:8613-8617)
+                    dsf = run_pars.get("density_scale_factor",
+                                       init_pars.get("density_scale_factor"))
+                    v = float(dsf) if dsf is not None else \
+                        2.7774e21 / units.get("unit_length", 1.0)
                 elif c == "c1" and ent is not None and grav is not None \
                         and eos is not None:
                     # equilibrium flux F/K = −dT/dz of the bottom polytrope:

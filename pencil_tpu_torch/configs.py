@@ -9,6 +9,8 @@ import dataclasses
 import math
 import sys
 
+import torch
+
 # the upwinding flag of each module that advects a field
 UPWIND_FLAGS = {"density": "lupw_lnrho", "hydro": "lupw_uu",
                 "entropy": "lupw_ss"}
@@ -39,7 +41,8 @@ def with_shock_diffusion(cfg, coef=1.0):
 def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
               hyper3=False, shear=False, forcing=0.0, upwind=False,
               shock=False, safi=False, heatcond="K-const", chi_cspeed=None,
-              tau_cool=0.0, cooling_profile="gaussian", entropy=None):
+              tau_cool=0.0, cooling_profile="gaussian", entropy=None,
+              bcz=None):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -91,7 +94,13 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     temperature on that time; ``cooling_profile`` shapes the cooling
     layer ('gaussian' at the top, 'step', 'step2', 'cubic_step' at z2 or
     'lin-z'); ``entropy`` holds further Entropy fields (e.g.
-    ``heat_uniform``, ``cool_uniform``, ``chimax_kramers``).
+    ``heat_uniform``, ``cool_uniform``, ``chimax_kramers``, or the flux
+    walls' ``sigmaSBt``, ``chi_t``, ``Fbot``).  ``bcz`` maps a component
+    to its z codes, a string 'low:high' (its values kept) or a tuple
+    (codes, lval, hval), in place of the default's; the order stays the
+    default's (e.g. ``{"ax": "pot", "ay": "pot", "az": "pot"}``, a vacuum
+    exterior; ``{"lnrho": "a2:hs", "ss": "c1:Fgs"}``, a hydrostatic
+    density top and a black-body top, ``fgs_sigma()`` giving σ_SBt).
     The values are this configuration's own, not the sample's
     start.in/run.in.
 
@@ -112,6 +121,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     den, visc, eta3 = _hyper3(pkg, grid, hyper3)
     gamma, cp, gravz, mpoly1, cs2cool = 5.0 / 3.0, 1.0, -1.0, 3.0, 1.0
     lval = -gamma * gravz / ((mpoly1 + 1.0) * (gamma - 1.0) * cp)
+    bcz_over = bcz
     bcz = (pkg.BC.parse("ux", "s"), pkg.BC.parse("uy", "s"),
            pkg.BC.parse("uz", "a"), pkg.BC.parse("lnrho", "a2"),
            pkg.BC.parse("ss", "c1:cT", lval=lval, hval=cs2cool))
@@ -125,6 +135,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
         bcz += (pkg.BC.parse("shock", "s"),)
         visc = dict(visc, ivisc=tuple(visc["ivisc"]) + ("nu-shock",),
                     nu_shock=1.0)
+    bcz = _override_bcz(pkg, bcz, bcz_over)
     if heatcond not in ("K-const", "K-profile", "kramers"):
         raise ValueError(f"conv_slab: heatcond={heatcond!r} (K-const, "
                          "K-profile or kramers)")
@@ -158,6 +169,52 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                  *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ()),
                  *((pkg.Shock(),) if shock else ())))
     return with_upwind(cfg) if upwind else cfg
+
+
+def _override_bcz(pkg, bcz, bcz_over):
+    """``bcz`` with the components of ``bcz_over`` (component → 'low:high'
+    or (codes, lval, hval)) given their codes; raises for a component
+    ``bcz`` lacks."""
+    bcz_over = dict(bcz_over or {})
+    comps = [bc.comp for bc in bcz]
+    unknown = sorted(set(bcz_over) - set(comps))
+    if unknown:
+        raise ValueError(f"bcz override of {unknown}: the components are "
+                         f"{comps}")
+    out = []
+    for bc in bcz:
+        over = bcz_over.get(bc.comp)
+        if over is None:
+            out.append(bc)
+            continue
+        code, lval, hval = (over, bc.lval, bc.hval) \
+            if isinstance(over, str) else over
+        out.append(pkg.BC.parse(bc.comp, code, lval=lval, hval=hval))
+    return tuple(out)
+
+
+def fgs_sigma():
+    """σ_SBt of a black-body top ('Fgs') for ``conv_slab(n,
+    heatcond="kramers")``: the flux that its bottom 'c1' lets in on the
+    initial state, K(z₀)·0.625 with Kramers' K = K₀T^6.5/ρ², over T⁴ at
+    the top, both at the end planes z₀ and z₀ + Lz of the piecewise
+    polytrope (the same at every n)."""
+    from .physics.stratification import piecew_poly_profiles
+    cfg = conv_slab(8, heatcond="kramers")
+    gs, eos = cfg.grid, cfg.module("eos")
+    ent = cfg.module("entropy")
+    z = torch.tensor([gs.z0, gs.z0 + gs.Lz], dtype=torch.float64)
+    lnrho, ss = piecew_poly_profiles(
+        z, gs, eos, gravz=cfg.module("gravity").gravz, z1=ent.z1, z2=ent.z2,
+        mpoly0=ent.mpoly0, mpoly1=ent.mpoly1, mpoly2=ent.mpoly2,
+        isothtop=ent.isothtop, width=ent.width)
+    cs2 = eos.cs20 * torch.exp(eos.gamma * ss / eos.cp
+                               + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
+    TT = (cs2 / ((eos.gamma - 1.0) * eos.cp)).tolist()
+    rho = torch.exp(lnrho).tolist()
+    c1 = next(bc for bc in cfg.bcz if bc.comp == "ss").lval
+    flux = KRAMERS_K0 * TT[0] ** 6.5 / rho[0] ** 2 * c1
+    return flux / TT[1] ** 4
 
 
 # conv_slab's Kramers conductivity K = K₀T^6.5/ρ² (n = 1): K₀ such that K

@@ -133,6 +133,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .core.config import Config
@@ -140,7 +141,8 @@ from .core.device import require_device
 from .core.farray import Registry
 from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
-from .ops.boundary import BC_REGISTRY, bc_sym
+from .ops.boundary import (BC_REGISTRY, COLUMN_CODES, DEEP_CODES,
+                           ENTROPY_CODES, FORCE_BOUND, REFUSED, bc_sym)
 from .ops.fused_rhs import (hyper3_terms, rhs_first, rhs_plain,
                             rhs_tail_defer, rhs_tail_defer_last,
                             rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
@@ -227,6 +229,12 @@ def _unported_bcs(cfg: Config):
     return sorted({code for bcs in (cfg.bcx, cfg.bcy, cfg.bcz) for bc in bcs
                    for code in (bc.low, bc.high)
                    if code and code not in BC_REGISTRY})
+
+
+def _bcz_codes(cfg: Config, codes):
+    """The mnemonics of ``codes`` that ``cfg``'s bcz uses, sorted."""
+    return sorted({c for bc in cfg.bcz for c in (bc.low, bc.high)
+                   if c in codes})
 
 
 def _shock_options(cfg: Config):
@@ -375,6 +383,12 @@ def fused_mode(cfg: Config):
                 or _hyper3_twice(cfg))
         if both:
             return None, both
+        columns = _bcz_codes(cfg, COLUMN_CODES)
+        if zghost and columns and "shock" in mods:
+            return None, (f"BC mnemonics {columns} with the Shock module's "
+                          "slot on a z-walled grid (their ghost columns "
+                          "need the x/y-ghosted slabs, which no z-ghosted "
+                          "build with the slot reads)")
         # nu-shock and the shock diffusivities read the Shock module's slot
         if aux and ("shock" in mods or not extra):
             return ("zroll" if free in ZROLL_SETS else "wrap_aux"), None
@@ -440,9 +454,31 @@ def _check_bcs(cfg: Config, problems):
             problems.append(f"physical BCs on periodic axis {'xyz'[axis]}")
     bad = _unported_bcs(cfg)
     if bad:
-        problems.append(f"BC mnemonics {bad}")
-    if cfg.force_bound != ("", ""):
-        problems.append("force_bound")
+        problems.append("BC mnemonics " + ", ".join(
+            f"{c!r} ({REFUSED[c]})" if c in REFUSED else repr(c)
+            for c in bad))
+    for side, prof in enumerate(cfg.force_bound):
+        if prof not in FORCE_BOUND:
+            problems.append(
+                f"force_bound {prof!r} of the {('low', 'high')[side]} wall "
+                f"(ported: {list(FORCE_BOUND)}; 'uxy_sin-cos' raises in the "
+                "JAX package on a z wall)")
+    for bc in cfg.bcz:
+        for code in {bc.low, bc.high}:
+            if code in ENTROPY_CODES and bc.comp != "ss":
+                problems.append(f"BC {code!r} on {bc.comp!r} (ss only)")
+            elif code == "c1" and bc.comp not in ("ss", "ax", "ay", "az"):
+                problems.append(f"BC 'c1' on {bc.comp!r} (the heat flux on "
+                                "ss and the potential field on A only)")
+            elif code == "hs" and bc.comp not in ("lnrho", "ss"):
+                problems.append(f"BC 'hs' on {bc.comp!r} (lnrho and ss "
+                                "only)")
+    if _bcz_codes(cfg, ("hs",)):
+        grav = cfg.module("gravity")
+        if grav is None or grav.gravz == 0.0 \
+                or grav.gravz_profile != "const":
+            problems.append("BC 'hs' without Gravity of a constant gravz "
+                            "≠ 0 ('const' profile)")
 
 
 def _check_supported(cfg: Config):
@@ -529,6 +565,14 @@ class Model:
             m.register(self.reg)
         self.reg.finalize()
         self.bc_axes = (cfg.bcx, cfg.bcy, cfg.bcz)
+        # the z-ghosted kernels' input layout: x/y-ghosted slabs with Shear
+        # and where a z BC writes ghost columns that no wrap gives; the
+        # planes z_slabs cuts at each end of z: g + 1, or 2g + 1 where a
+        # code reads 7
+        self.zg_xy = cfg.module("shear") is not None \
+            or bool(_bcz_codes(cfg, COLUMN_CODES))
+        self._zdepth = 2 * NGHOST + 1 if _bcz_codes(cfg, DEEP_CODES) \
+            else NGHOST + 1
         self._nonperiodic = tuple(a for a in range(3)
                                   if not cfg.grid.periodic[a])
         comps = self.reg.comp_names[: self.reg.ncom]
@@ -542,6 +586,10 @@ class Model:
         self.dtype = torch.float32
         self.eos = cfg.module("eos")
         self.grid = make_grid(cfg.grid, self.device, self.dtype)
+        # the z coordinates of the planes that z_slabs cuts
+        zgh, w = self.grid.zgh, self._zdepth
+        self._zgh_cut = np.concatenate([zgh[:NGHOST + w],
+                                        zgh[NGHOST + cfg.grid.nz - w:]])
         self.rk = RK_TABLES[cfg.time.itorder]
         self.shear = cfg.module("shear")
         # SAFI: the shear advection as a shift after each substep
@@ -647,35 +695,43 @@ class Model:
                            shear_dy=shear_dy)
 
     def z_slabs(self, fa):
-        """(fa, zlo, zhi): the z-halo slabs (ncom, nx, ny, g) below z = 0
-        and above z = nz − 1 of ``fa``'s communicated components, cut from
-        a z-only ``fill_ghosts`` of the g + 1 planes at each end of z (all
-        that a ported BC reads); the boundary planes that value-setting BCs
-        pin ('a', 'set', 'cT') are written into ``fa`` itself, in place,
-        as ``bc_writeback`` writes them (a no-op on a state that
-        ``init_state`` or a step made).  The 3-axis fill's z ghosts are
-        these slabs with x and y wrapped (JAX's ``_fetch_zg`` split)."""
+        """(fa, zlo, zhi): the z-halo slabs (ncom, X, Y, g) below z = 0
+        and above z = nz − 1 of ``fa``'s communicated components (X, Y its
+        x/y extent, ghosted or not), cut from a z-only ``fill_ghosts`` of
+        the planes at each end of z that the bcz codes read (g + 1, or
+        2g + 1 with 'e2', 's0d' or '1s'/'d1s'/'n1s'; the whole stack where
+        nz is below twice that), with the full grid's z coordinates at the
+        matching planes; the boundary planes that value-setting BCs pin
+        ('a', 'set', 'cT', 'c1' on A, 's0d', ...) are written into ``fa``
+        itself, in place, as ``bc_writeback`` writes them (a no-op on a
+        state that ``init_state`` or a step made).  The 3-axis fill's z
+        ghosts are these slabs with x and y wrapped (JAX's ``_fetch_zg``
+        split), or, from an x/y-ghosted ``fa``, these slabs as they are."""
         g, n, nz = NGHOST, self.reg.ncom, fa.shape[3]
-        w = g + 1
-        fw = fill_ghosts(torch.cat([fa[:n, ..., :w], fa[:n, ..., nz - w:]],
-                                   dim=3),
-                         self.cfg.grid, self.bc_axes, self.reg, self.grid,
-                         self.cfg, self.eos, axes=(2,))
+        w = self._zdepth
+        if nz < 2 * w:
+            fw = fill_ghosts(fa[:n], self.cfg.grid, self.bc_axes, self.reg,
+                             self.grid, self.cfg, self.eos, axes=(2,))
+        else:
+            fw = fill_ghosts(
+                torch.cat([fa[:n, ..., :w], fa[:n, ..., nz - w:]], dim=3),
+                self.cfg.grid, self.bc_axes, self.reg, self.grid, self.cfg,
+                self.eos, axes=(2,), zgh=self._zgh_cut)
+        mz = fw.shape[3]
         fa[:n, ..., :1].copy_(fw[..., g:g + 1])
-        fa[:n, ..., nz - 1:].copy_(fw[..., g + 2 * w - 1:g + 2 * w])
-        return (fa, fw[..., :g].contiguous(),
-                fw[..., g + 2 * w:].contiguous())
+        fa[:n, ..., nz - 1:].copy_(fw[..., mz - g - 1:mz - g])
+        return (fa, fw[..., :g].contiguous(), fw[..., mz - g:].contiguous())
 
     def zg_input(self, fa, sdy=None):
         """(body, zlo, zhi), the z-ghosted kernels' input from ``fa``:
-        without Shear ``z_slabs(fa)``, which pins ``fa``'s boundary planes
-        in place; with Shear (``sdy``, the y offset of the x faces) the
-        stack ghosted in x and y with the shifted faces and ``z_slabs`` of
-        that new stack, whose z BCs then act on the shifted faces over the
-        whole ghosted x/y extent, as JAX's 3-axis fill does (``fa`` is not
-        written)."""
-        return self.z_slabs(fa if sdy is None
-                            else self.ghosted(fa, (0, 1), sdy))
+        ``z_slabs(fa)``, which pins ``fa``'s boundary planes in place; or,
+        with Shear or a bcz code that writes ghost columns no wrap gives
+        ('pot', 'pwd', 'pfe', 'div': ``zg_xy``), the stack ghosted in x and
+        y (with Shear its x faces shifted by ``sdy``) and ``z_slabs`` of
+        that new stack, whose z BCs then act over the whole ghosted x/y
+        extent, as JAX's 3-axis fill does (``fa`` is not written)."""
+        return self.z_slabs(self.ghosted(fa, (0, 1), sdy) if self.zg_xy
+                            else fa)
 
     def deltay(self, t):
         """The shear-periodic y offset at device time ``t``, or None
@@ -756,10 +812,12 @@ class Model:
     def bc_writeback(self, fa):
         """Copy the BC-applied boundary planes of every non-periodic axis
         into ``fa``, in place, and return it: value-setting BCs ('a',
-        'set', 'cT') pin the state itself, not only its ghosted copy (JAX
-        model.py:962-996).  Every ported BC is pointwise across the
-        boundary plane, so ghosting that one axis gives the JAX package's
-        planes."""
+        'set', 'cT', 'c1' on A, 's0d', ...) pin the state itself, not only
+        its ghosted copy (JAX model.py:962-996).  Every ported BC sets the
+        boundary plane of a column from that column alone, or ('c1' on A)
+        from whole interior planes, never from ghost columns, so ghosting
+        that one axis gives the JAX package's planes; the ghost columns
+        that 'pot' and 'div' write in a 3-axis fill lie outside them."""
         g = NGHOST
         for axis in self._nonperiodic:
             fg = self.ghosted(fa, (axis,))
@@ -920,11 +978,11 @@ class Model:
                 else None
 
         # z_slabs pins the boundary planes of its argument in place: K6
-        # reads a copy (with Shear the x/y-ghosted one; with the shock slot
-        # the pre-pass's new stack), the axpy (as JAX's) the caller's
+        # reads a copy (in the x/y-ghosted layout that one; with the shock
+        # slot the pre-pass's new stack), the axpy (as JAX's) the caller's
         # stack, which stays as it was
         src = self._refreshed(fa)
-        if src is fa and not shear:
+        if src is fa and not self.zg_xy:
             src = fa.clone()
         df, dt1m = first(self, *self.zg_input(src, sdy(0, state["dt"])))
         dt = self._new_dt(dt1m, state["dt"])

@@ -339,8 +339,10 @@ def rhs_zg_shear_upd_plain(model, fg, zlo, zhi, df_prev, coef):
 
 def zg_plain(model):
     """The plain versions (first, update) of ``model``'s z-ghosted
-    kernels: K6/K7's, or with Shear K6s/K7s's."""
-    if model.shear is None:
+    kernels: K6/K7's, or in the x/y-ghosted layout (``Model.zg_xy``: Shear,
+    or the z BCs 'pot'/'div', which run the shear build at S = 0)
+    K6s/K7s's."""
+    if not model.zg_xy:
         return rhs_zg_plain, rhs_zg_upd_plain
     return rhs_zg_shear_plain, rhs_zg_shear_upd_plain
 
@@ -711,13 +713,17 @@ def zg_library(model) -> str:
     'fused_rhs_zg_shock' and 'fused_rhs_zg_mag_shock', each with or
     without forcing, Ω, chi-const and the shock diffusivities; on a grid
     with z walls and x, y periodic; raises for another layout, module set
-    or grid.  Found once per model: the conv-slab step is bound by the
-    host."""
+    or grid.  A set without Shear whose z BCs write ghost columns that no
+    wrap gives ('pot', 'pwd', 'pfe', 'div': ``Model.zg_xy``) runs its
+    Shear build, with S = 0, on the x/y-ghosted slabs.  Found once per
+    model: the conv-slab step is bound by the host."""
     lib = model.__dict__.get("_zg_library")
     if lib is not None:
         return lib
     reg, cfg = model.reg, model.cfg
     names = {m.name for m in cfg.modules} - {"forcing", "gravity"}
+    if model.zg_xy:
+        names |= {"shear"}
     walls = tuple(cfg.grid.periodic) == (True, True, False)
     for lib, (layout, modules, _) in _ZG_BUILDS.items():
         n = max(sl.stop for sl in layout.values())
@@ -1278,7 +1284,7 @@ def _zg_inputs(model, fa, zlo, zhi, df_prev=None, coef=None):
     p = kernel_params(model)
     lib = zg_library(model)
     shape = (model.reg.nvar, p.nx, p.ny, p.nz)
-    g2 = 2 * NGHOST if model.shear is not None else 0
+    g2 = 2 * NGHOST if model.zg_xy else 0
     src = (model.reg.nf, p.nx + g2, p.ny + g2)
     _check(fa, src + (p.nz,), "fa")
     for name, t in (("zlo", zlo), ("zhi", zhi)):

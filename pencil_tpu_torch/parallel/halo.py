@@ -36,10 +36,12 @@ def _wrap_axis(fg, axis, g):
 
 def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
                 cfg, eos=None, axes: Tuple[int, ...] = (0, 1, 2),
-                shear_dy=None):
+                shear_dy=None, zgh=None):
     """Interior stack (nc, nx, ny, nz) → a new stack ghosted along
     ``axes`` (nc, nx + 2g, ...).  ``fa`` is not modified.  ``shear_dy``
-    (a 0-d device tensor) makes the x faces shear-periodic."""
+    (a 0-d device tensor) makes the x faces shear-periodic.  ``zgh``: the
+    ghosted z coordinates of ``fa``'s planes where ``fa`` is a cut of the
+    full z extent (the z BCs that read coordinates read these)."""
     g = spec.nghost
     lead = fa.ndim - 3
     shape = list(fa.shape)
@@ -54,7 +56,8 @@ def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
     for axis in axes:
         _wrap_axis(fg, axis, g)
         if not spec.periodic[axis]:
-            apply_axis_bcs(fg, axis, bc_axes[axis], reg, grid, cfg, eos)
+            apply_axis_bcs(fg, axis, bc_axes[axis], reg, grid, cfg, eos,
+                           zgh=zgh if axis == 2 else None)
         if axis == 0 and shear_dy is not None:
             shift_x_faces(fg, shear_dy, spec.Ly, 1 in axes, 2 in axes)
     return fg
@@ -63,9 +66,12 @@ def fill_ghosts(fa, spec, bc_axes: Tuple[tuple, tuple, tuple], reg, grid,
 def ghosted_from_z_slabs(fa, zlo, zhi):
     """The stack ghosted in all three axes from the interior ``fa`` (nc,
     nx, ny, nz) and its z-halo slabs ``zlo`` and ``zhi`` (nc, nx, ny, g),
-    cut from a z-only fill: z joined, then x and y wrapped.  Every ported
-    BC acts on each (x, y) column by itself, so this is ``fill_ghosts``'
-    3-axis result, the ghost corners included."""
+    cut from a z-only fill: z joined, then x and y wrapped.  This is
+    ``fill_ghosts``' 3-axis result, the ghost corners included, where the
+    z BCs leave the ghost columns of their ghost planes as an x/y wrap of
+    the interior columns: every code but 'pot', 'pwd', 'pfe' (zeros there)
+    and 'div' (edge values), whose sets the model feeds the x/y-ghosted
+    layout (``ghosted_from_sheared_z_slabs``) instead."""
     g = zlo.shape[-1]
     nc, nx, ny, nz = fa.shape
     fg = fa.new_empty((nc, nx + 2 * g, ny + 2 * g, nz + 2 * g))
@@ -86,5 +92,8 @@ def ghosted_from_sheared_z_slabs(fg, zlo, zhi):
     the sheared counterpart of ``ghosted_from_z_slabs``.  The x/y fill
     shifts the x faces before the z BCs act on them, so this is
     ``fill_ghosts``' 3-axis result with ``shear_dy``, the corners beside
-    the shifted faces included."""
+    the shifted faces included, for every z BC: the slabs' ghost columns
+    are what the BCs wrote there.  The sets whose z BCs write ghost
+    columns that no wrap gives ('pot', 'div') take this layout without
+    Shear too (``shear_dy`` None)."""
     return torch.cat([zlo, fg, zhi], dim=-1)

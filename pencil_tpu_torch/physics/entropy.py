@@ -90,6 +90,18 @@ class Entropy(ModuleBase):
     z1: float = 0.0
     z2: float = 1.0
     isothtop: int = 1
+    # the flux walls 'Fgs'/'Fct' alone read these (the RHS does not):
+    # σ_SBt of the black-body wall, the turbulent χ_t with its profile
+    # factor at each wall, K at each wall (Kramers' K adds to it in
+    # 'Fgs' and replaces it in 'Fct') and the total flux of 'Fct'
+    sigmaSBt: float = 0.0
+    chi_t: float = 0.0
+    chit_prof1: float = 1.0
+    chit_prof2: float = 1.0
+    hcondbot: float = 0.0
+    hcondtop: float = 0.0
+    Fbot: float = 0.0
+    Ftop: float = 0.0
     init: str = "zero"
     ampl: float = 0.0
     width: float = 0.05

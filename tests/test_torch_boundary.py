@@ -117,7 +117,7 @@ def test_bc_parse_matches_jax_and_rejects_unported():
         b = pj.BC.parse(comp, code, lval=0.625, hval=1.0)
         assert (a.comp, a.low, a.high, a.lval, a.hval) \
             == (b.comp, b.low, b.high, b.lval, b.hval)
-    for code in ("cop", "s:der", "nonsense"):
+    for code in ("c3", "s:nfr", "nonsense"):
         with pytest.raises(KeyError):
             pt.BC.parse("ux", code)
 

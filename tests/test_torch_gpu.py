@@ -1816,3 +1816,104 @@ def test_heatcond_steps_on_card_match_cpu(cuda, case):
         kw.update(magnetic=True, tau_cool=2.0, cooling_profile="cubic_step")
     _steps_match(cuda, conv_slab((32, 32, 32), **kw), nsteps=2,
                  uu_noise=1e-2)
+
+
+# the z-wall codes, grouped: a bcz override of conv_slab(n, magnetic=True)
+# each, its conv_slab keyword arguments and force_bound (the cases of
+# tests/test_torch_bc_walls.py, several codes a case)
+WALL_FLUX = dict(chi_t=2e-3, chit_prof1=0.5, chit_prof2=1.5, hcondbot=1e-3,
+                 hcondtop=2e-3, Fbot=0.02, Ftop=0.01)
+WALL_CASES = {
+    "der_cop_0_e1": ({"ux": ("der", 0.5, -0.3), "uy": "cop:0",
+                      "uz": "e1"}, {}, None),
+    "e2_1s_e3": ({"ux": "e2", "uy": "1s", "uz": "e3"}, {}, None),
+    "s0d_d1s_n1s": ({"ux": "s0d", "uy": ("d1s", 0.01, -0.02),
+                     "uz": ("n1s", 0.1, 0.2)}, {}, None),
+    "v_v3_out": ({"ux": "v", "uy": "v3", "uz": "out"}, {}, None),
+    "ouf_ubs_nil": ({"ux": "nil", "uy": "ubs", "uz": "ouf"}, {}, None),
+    "ism": ({"lnrho": ("ism", 0.9, 0.9), "ss": ("ism", 0.5, 0.5)}, {},
+            None),
+    "cdz_sT": ({"lnrho": "cdz:StS", "ss": "sT"}, {}, None),
+    "c2_ctz": ({"ss": ("c2:ctz", 1.2, 0.0)}, {}, None),
+    "cT2_ce": ({"ss": ("cT2:ce", 0.0, 1.1)}, {}, None),
+    "hs": ({"lnrho": "a2:hs", "ss": "c1:hs"}, {}, None),
+    "div": ({"uz": ("div", 0.1, -0.1)}, {}, None),
+    "pot": ({"ax": "pot", "ay": "pwd", "az": "pfe"}, {}, None),
+    "c1_aa": ({"ax": "c1", "ay": "nil", "az": "c1"}, {}, None),
+    "Fgs_kramers": ({"lnrho": "a2:hs", "ss": "c1:Fgs"},
+                    dict(heatcond="kramers"), None),
+    "Fgs_Fct": ({"ss": "Fgs:Fct"}, {}, None),
+    "g": ({"ux": "g", "ss": "g"}, {}, ("", "cT")),
+}
+
+
+def _wall_fills_match(cuda, name, shape):
+    """The 3-axis fill, the chain's (zg_input and the kernels' ghosting)
+    and the pinned boundary planes of the case ``name`` on the card
+    against the CPU, on one stack made on the CPU: each component within
+    1e-6 of its max."""
+    from pencil_tpu_torch.parallel.halo import (
+        ghosted_from_sheared_z_slabs, ghosted_from_z_slabs)
+    over, kw, force = WALL_CASES[name]
+    cfg = conv_slab(shape, magnetic=True, bcz=over, **kw, entropy=dict(
+        WALL_FLUX, sigmaSBt=pt.configs.fgs_sigma()))
+    if force is not None:
+        cfg = cfg.replace(force_bound=force)
+    cpu = torch.device("cpu")
+    models = {dev: pt.Model(cfg, device=dev) for dev in (cuda, cpu)}
+    init = models[cpu].init_state(0)["fields"]
+    g = torch.Generator().manual_seed(7)
+    fa = 1e-2 * torch.randn((8,) + shape, generator=g)
+    fa[3:4] += init["lnrho"]
+    fa[4:5] += init["ss"]
+    if "e3" in name:
+        fa[2] += 0.5
+    out = []
+    for dev, m in models.items():
+        x = fa.to(dev)
+        body, zlo, zhi = m.zg_input(x.clone())
+        chain = (ghosted_from_sheared_z_slabs if m.zg_xy
+                 else ghosted_from_z_slabs)(body, zlo, zhi)
+        out.append([t.cpu() for t in (m.ghosted(x), chain,
+                                      m.bc_writeback(x.clone()))])
+    for a, b in zip(*out):
+        assert torch.isfinite(a).all()
+        for c in range(b.shape[0]):
+            err = float((a[c] - b[c]).abs().max())
+            assert err <= 1e-6 * max(float(b[c].abs().max()), 1e-30), \
+                (name, c, err)
+
+
+@pytest.mark.parametrize("case", sorted(WALL_CASES))
+def test_wall_fills_on_card_match_cpu(cuda, case):
+    _wall_fills_match(cuda, case, (32, 32, 32))
+
+
+@pytest.mark.parametrize("case", ("pot", "c1_aa"))
+def test_wall_fft_fills_on_card_match_cpu_at_128_rows(cuda, case):
+    """'pot'/'pwd'/'pfe' and 'c1' on A transform whole planes (torch.fft,
+    C2C): checked with 128 rows along x and y."""
+    _wall_fills_match(cuda, case, (128, 128, 16))
+
+
+# one set for each layout route of the z-walled chain: the x/y-ghosted
+# slabs (a vacuum exterior on K6ms/K7ms at S = 0), the cut of g + 1 planes
+# (a black-body top over a hydrostatic density top, K6/K7 chi) and of
+# 2g + 1 ('s0d')
+WALL_STEPS = {
+    "vacuum": dict(magnetic=True, bcz=dict.fromkeys(("ax", "ay", "az"),
+                                                     "pot")),
+    "radiative": dict(heatcond="kramers", bcz={"lnrho": "a2:hs",
+                                               "ss": "c1:Fgs"}),
+    "s0d": dict(bcz={"ux": "s0d", "uy": "s0d"})}
+
+
+@pytest.mark.parametrize("case", sorted(WALL_STEPS))
+def test_wall_steps_on_card_match_cpu(cuda, case):
+    """Two steps of each layout route on the card against the CPU, the
+    state made on the CPU, velocity noise of 1e-2."""
+    kw = WALL_STEPS[case]
+    if case == "radiative":
+        kw = dict(kw, entropy=dict(sigmaSBt=pt.configs.fgs_sigma()))
+    _steps_match(cuda, conv_slab((32, 32, 32), **kw), nsteps=2,
+                 uu_noise=1e-2)

@@ -94,6 +94,36 @@ def kramers_rundir(d, nt=4):
          "tau_cool=2., TTref_cool=1.5, cooling_profile='cubic_step', ")])
 
 
+def radiative_rundir(d, nt=4):
+    """The Kramers conv-slab directory (velocity noise of 1e-2) with a
+    black-body top (ss 'c1:Fgs', σ_SBt of ``configs.fgs_sigma``, the
+    turbulent χ_t with its profile factor at the top) above a hydrostatic
+    density top (lnρ 'a2:hs')."""
+    from pencil_tpu_torch.configs import fgs_sigma
+    return _edited(samples.conv_slab(d, CONV_N, nt=nt, it1=2, uu_ampl="1e-2",
+                                     heatcond="kramers"), [
+        ("run.in", "bcz='s','s','a','a2','c1:cT'",
+         f"bcz='s','s','a','a2:hs','c1:Fgs', sigmaSBt={fgs_sigma()!r}"),
+        ("run.in", "cs2cool=1.", "cs2cool=1., chi_t=1e-3, chit_prof2=2.")])
+
+
+def vacuum_rundir(d, nt=4):
+    """The conv-slab directory (velocity noise of 1e-2) made
+    magnetoconvection (η = 4e-3, A noise of 1e-2) with a vacuum exterior:
+    ax, ay, az 'pot' at both walls."""
+    bcz = ("bcz='s','s','a','a2','c1:cT'",
+           "bcz='s','s','a','a2','c1:cT','pot','pot','pot'")
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="1e-2"), [
+        ("src/Makefile.local", "MAGNETIC = nomagnetic",
+         "MAGNETIC = magnetic"),
+        ("start.in", "&density_init_pars",
+         "&magnetic_init_pars\n  initaa='gaussian-noise', amplaa=1e-2\n/\n"
+         "&density_init_pars"),
+        ("run.in", "&viscosity_run_pars",
+         "&magnetic_run_pars\n  eta=4e-3\n/\n&viscosity_run_pars"),
+        ("start.in",) + bcz, ("run.in",) + bcz])
+
+
 def upwind_rundir(d, nt=4):
     """conv-slab's shape (velocity noise of 1e-2) with the advection of
     lnρ, u and s upwinded: lupw_lnrho, lupw_uu, lupw_ss."""
@@ -367,6 +397,11 @@ HEATCOND_MAPPED = {
     "cubic_step": "iheatcond='K-const', hcond0=8e-3, "
                   "cooling_profile='cubic_step', ",
     "lin-z": "iheatcond='K-const', hcond0=8e-3, cooling_profile='lin-z', ",
+    # the flux walls' fields, and the mixing-length flux, from which JAX's
+    # loader derives hcond0 and Fbot
+    "flux_walls": "iheatcond='K-const', hcond0=8e-3, chi_t=1e-3, "
+                  "chit_prof1=0.5, chit_prof2=2., Fbot=0.02, Ftop=0.01, ",
+    "mixinglength": "iheatcond='K-const', mixinglength_flux=1e-2, ",
 }
 
 
@@ -387,6 +422,35 @@ def test_loader_maps_the_heat_conduction_as_jax(tmp_path, case):
     for f in dataclasses.fields(mine):
         assert getattr(mine, f.name) == getattr(ref, f.name), f.name
     assert mine.iheatcond == (HEATCOND_MAPPED[case].split("'")[1],)
+    assert pt.Model(cfg, device="cpu").mode == "zghost"
+
+
+# z-wall codes and the values the loader gives them: (run.in edits)
+WALLS_MAPPED = {
+    "ism": [("run.in", "bcz='s','s','a','a2','c1:cT'",
+             "bcz='s','s','a','ism','ism', density_scale_factor=0.7")],
+    "ism_unit_length": [("run.in", "bcz='s','s','a','a2','c1:cT'",
+                         "bcz='s','s','a','ism','c1:cT'")],
+    "sigmaSBt": [("run.in", "bcz='s','s','a','a2','c1:cT'",
+                  "bcz='s','s','a','a2:hs','c1:Fgs', sigmaSBt=4.8e-3")],
+    "zoo": [("run.in", "bcz='s','s','a','a2','c1:cT'",
+             "bcz='der:e2','s0d:1s','out:ubs','a2:cdz','sT:ce'")],
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALLS_MAPPED))
+def test_loader_maps_the_wall_codes_as_jax(tmp_path, case):
+    """The z-wall codes that the port fills, with their values ('ism':
+    density_scale_factor, or 900 pc over unit_length) and σ_SBt, load as
+    JAX's loader loads them (pencil_tpu/compat/rundir.py:1224-1233,
+    :2380-2406); the run takes the zghost chain."""
+    d = _edited(conv_rundir(tmp_path / "r"), WALLS_MAPPED[case])
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    assert [(b.comp, b.low, b.high, b.lval, b.hval) for b in cfg.bcz] \
+        == [(b.comp, b.low, b.high, b.lval, b.hval) for b in jcfg.bcz]
+    assert cfg.module("entropy").sigmaSBt \
+        == jcfg.module("entropy").sigmaSBt
     assert pt.Model(cfg, device="cpu").mode == "zghost"
 
 
@@ -586,7 +650,7 @@ REFUSED = {
               "ivisc"),
     "iforce": ("helical", "run.in", ("iforce='helical'", "iforce='irrot'"),
                "iforce"),
-    "bc_mnemonic": ("conv", "run.in", ("'c1:cT'", "'c1:cT2'"), "cT2"),
+    "bc_mnemonic": ("conv", "run.in", ("'c1:cT'", "'c1:c3'"), "c3"),
     "iresistivity": ("helical", "run.in",
                      ("eta=5e-3", "eta=5e-3, iresistivity='eta-zdep'"),
                      "iresistivity"),

@@ -45,8 +45,9 @@ from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
 from test_torch_rundir import (bext_rundir, conv_rundir, conv_shock_rundir,
                                fcont_rundir, helical_rundir, kramers_rundir,
-                               safi_rundir, shock_rundir,
-                               shock_highorder_rundir, upwind_rundir)
+                               radiative_rundir, safi_rundir, shock_rundir,
+                               shock_highorder_rundir, upwind_rundir,
+                               vacuum_rundir)
 
 torch.set_num_threads(1)
 
@@ -252,6 +253,26 @@ def test_cli_runs_kramers_conduction(tmp_path):
     final states agree."""
     mine = kramers_rundir(tmp_path / "port")
     ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref))
+
+
+@pytest.mark.parametrize("writer", (radiative_rundir, vacuum_rundir),
+                         ids=("Fgs", "pot"))
+def test_cli_runs_the_z_wall_codes(tmp_path, writer):
+    """Two run directories the loader refused before: the Kramers
+    conv-slab with a black-body top over a hydrostatic density top ('Fgs'
+    with σ_SBt and χ_t, 'hs'), and magnetoconvection with a vacuum
+    exterior ('pot' on A), started and run by both command lines (the
+    port's K6/K7 chain, the second on the x/y-ghosted layout of its shear
+    build's plain versions; JAX's jnp path); the final states agree."""
+    mine = writer(tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    cfg = load_rundir(mine)[0]
+    codes = {c for bc in cfg.bcz for c in (bc.low, bc.high)}
+    assert codes & {"Fgs", "pot"}
     for cmd in ("start", "run"):
         main([cmd, mine, "--device", "cpu"])
         jax_main([cmd, str(ref)])

@@ -304,7 +304,7 @@ def test_gate_rejects_on_cuda(case):
     run the chain)."""
     cfg = conv_slab(16)
     if case == "unported_bc":
-        cfg = cfg.replace(bcz=cfg.bcz[:2] + (pt.BC("uz", "cop", "cop"),)
+        cfg = cfg.replace(bcz=cfg.bcz[:2] + (pt.BC("uz", "c3", "c3"),)
                           + cfg.bcz[3:])
     elif case == "extra_module":
         cfg = conv_slab(16, Omega=0.5, shear=True)
