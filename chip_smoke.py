@@ -268,11 +268,30 @@ Phases, each printing its own lines:
      ms, kernels, host issue ms); the z-wall paths' kernels checked and
      their plain versions timed, in turns with their parent sets'
      (magnetoconvection's K6m/K7m, the Kramers conv-slab's K6/K7 chi), and
-     their step splits (the z fills' device and host ms); for
+     their step splits (the z fills' device and host ms); the paths of
+     Viscosity's other flavours and diffrho (VISC_COUNTERPART) in turns
+     with their counterparts with 'nu-const' (the same instances with
+     visx not taken); for
      each instance of the flagship template (csrc/fused_rhs.cu, all 26
      builds, with and without rotation and their own terms) its
      registers, local bytes (which must be 0: no spill, no stack), static
      and dynamic shared memory per block and resident blocks per SM.
+Phase 2 also holds every build's instances with Viscosity's other
+flavours and Density's diffrho on (PcParams.visx: 'nu-simplified',
+'rho-nu-const', the bulk ζ and diffrho everywhere, 'shock-simple' with the
+shock slot, 'nu-cspeed' between walls with ss, the anisotropic del6 on
+the H3 instances; with Ω, the upwinding, chi-const and the shock
+diffusivities) against their plain versions at 32³ (``compare_visc``),
+and phase 3 runs the six paths of configs.VISCOSITY_PATHS at 256³ beside
+their counterparts with 'nu-const', with two steps of each on the card
+against the CPU at 64³ (at 256³ the CPU's plain chain takes minutes a
+path).
+
+    python3 chip_smoke.py --only visc
+
+runs phase 1, those checks and paths and their counterparts, and their
+kernels in turns, alone (a quicker run for work on those terms; no
+kernels line and no result line).
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -495,6 +514,18 @@ HEATCOND_COUNTERPART = {
     "conv-slab kramers": ("conv-slab", "conv-slab chi"),
     "magnetoconvection kramers cooled": ("magnetoconvection",
                                          "magnetoconvection chi")}
+# Viscosity's other flavours and Density's diffrho: the paths of
+# configs.VISCOSITY_PATHS, each with the path of the same configuration
+# with 'nu-const' whose kernels (the same instances, visx taken) it
+# launches, timed beside it in phase 3 and in turns with it in phase 4
+VISC_COUNTERPART = {"flagship rho-nu-const": "flagship",
+                    "forced hydro aniso": "forced hydro h3",
+                    "shock box bulk": "hydro shock box ent",
+                    "conv-slab rho-nu-const": "conv-slab",
+                    "magnetoconvection nu-therm": "magnetoconvection",
+                    "shear box rho-nu-const": "shear box"}
+# the bulk viscosity of phase 2's checks
+VISC_ZETA = 1e-3
 # the z-wall codes: phase 2's fills of every ported code on the card
 # against the CPU at 32³ (WALL_CASES: a bcz override of conv_slab(n,
 # magnetic=True) each, with its conv_slab keyword arguments and
@@ -725,12 +756,16 @@ PER_STEP.update({label: {first: 1, upd: 2} for label, (first, upd) in zip(
     zip(ZG_SHOCK_KERNELS[::2], ZG_SHOCK_KERNELS[1::2]))})
 PER_STEP["shock box highorder"] = PER_STEP["shock box"]
 PER_STEP.update({label: PER_STEP[other]
+                 for label, other in VISC_COUNTERPART.items()
+                 if other in PER_STEP})
+PER_STEP.update({label: PER_STEP[other]
                  for label, other in SAFI_COUNTERPART.items()})
 # the other template paths launch the flagship's kernels of their builds
 for _name, _sfx in TEMPLATE_PATHS.items():
     for _order in ("", " rk4", " rk2"):
         PER_STEP[_name + _order] = {
             k + _sfx: n for k, n in PER_STEP["flagship" + _order].items()}
+PER_STEP["forced hydro aniso"] = PER_STEP["forced hydro h3"]
 _FR = "pencil_tpu/ops/fused_rhs.py:"
 REPLACES = {
     "rhs_first": _FR + "306", "rhs_tail_defer": _FR + "379",
@@ -1563,6 +1598,8 @@ def aux_cfg(pt, label, shape):
     """The configuration of the aux path ``label`` (AUX_PATHS,
     SHOCK_DIFFUSION_PATHS or SHOCK_VARIANT_PATHS)."""
     import dataclasses
+    if label in VISC_COUNTERPART:
+        return pt.configs.viscosity_path(label, shape)
     make, kw, _ = (AUX_PATHS.get(label) or SHOCK_DIFFUSION_PATHS.get(label)
                    or SAFI_AUX_PATHS.get(label)
                    or SHOCK_VARIANT_PATHS[label])
@@ -1577,7 +1614,9 @@ def aux_cfg(pt, label, shape):
 def conv_slab_cfg(pt, label, shape):
     """The configuration of the conv-slab path ``label``
     (CONV_SLAB_PATHS), with the shock diffusivities where it ends in
-    " sd"."""
+    " sd"; or a path of VISC_COUNTERPART."""
+    if label in VISC_COUNTERPART:
+        return pt.configs.viscosity_path(label, shape)
     kw = CONV_SLAB_PATHS[label]
     if "Fgs" in str(kw.get("bcz")):
         # a black-body top that lets out the bottom's flux at the start
@@ -1782,6 +1821,197 @@ def compare_zg_cfg(torch, pt, fr, cfg, label, errs):
     compare_pairs(f"{label} (max 1/dt rel err {dt_rel:.2e})", shape,
                   {first: [(df, df_p)], upd: [(df2, df2_p), (f2, f2_p)]},
                   errs, RTOL_FIELD)
+
+
+def with_visc(pt, cfg):
+    """``cfg`` with every flavour of Viscosity that its build takes beside
+    its own (visx taken): 'nu-simplified', 'rho-nu-const' and the bulk
+    ζ = VISC_ZETA in every build, 'shock-simple' with the shock slot,
+    'nu-cspeed' on the z-walled builds with ss, and diffrho = ν."""
+    visc = cfg.module("viscosity")
+    add = ("nu-simplified", "rho-nu-const", "rho-nu-const-bulk")
+    if cfg.module("shock") is not None:
+        add += ("shock-simple",)
+    if cfg.module("entropy") is not None and not all(cfg.grid.periodic):
+        add += ("nu-cspeed",)
+    return pt.configs.with_viscosity(cfg, tuple(visc.ivisc) + add,
+                                     zeta=VISC_ZETA, diffrho=visc.nu)
+
+
+def with_aniso(pt, cfg):
+    """``cfg`` (with 'hyper3-simplified' at ν₃) with
+    'hyper3_nu-const_aniso' at ν₃ⱼ = (ν₃, ν₃, ν₃/2) in its place, then
+    every flavour of ``with_visc``."""
+    visc = cfg.module("viscosity")
+    h3 = visc.nu_hyper3
+    cfg = pt.configs.with_viscosity(
+        cfg, tuple(v for v in visc.ivisc if v != "hyper3-simplified")
+        + ("hyper3_nu-const_aniso",), nu_aniso_hyper3=(h3, h3, h3 / 2))
+    return with_visc(pt, cfg)
+
+
+def with_hydro_omega(cfg, Omega):
+    """``cfg`` with its Hydro's Ω set (the ROT instances)."""
+    import dataclasses
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, Omega=Omega) if m.name == "hydro" else m
+        for m in cfg.modules))
+
+
+def compare_visc(torch, pt, fr, shape, errs):
+    """Phase 2: every build's instances with Viscosity's other flavours
+    and diffrho (visx taken) against their plain versions, at each build's
+    bound of phase 2: the periodic builds' base, ROT and UPW instances and
+    their H3 ones with the anisotropic del6; the aux builds' base, UPW and
+    (with the slot) SHK instances and their H3 ones with the anisotropic
+    del6; the z-ghosted builds' base and UPW instances, CHI (with ss), H3
+    with the anisotropic del6 (without the slot) and SHK (with it)."""
+    wpu = pt.configs.with_upwind
+    wsd = pt.configs.with_shock_diffusion
+
+    def refused(label, c):
+        # the instances built without the terms (they would spill)
+        why = pt.model.gate_reason(c)
+        if why is not None:
+            print(f"phase 2 {shape} {label}: refused on the card ({why})",
+                  flush=True)
+        return why is not None
+
+    for name in TEMPLATE_PATHS:
+        rtol = RTOL_FIELD if name.startswith("entropy") else RTOL_NEW
+        cfg = template_cfg(pt, name, shape)
+        if name.endswith(" h3"):
+            compare_template(torch, pt, fr, f"{name}, aniso del6 and visx",
+                             with_aniso(pt, cfg), errs, RTOL_FIELD)
+            continue
+        for what, c in (("visx", cfg),
+                        ("visx, Omega = 1", with_hydro_omega(cfg, 1.0)),
+                        ("visx, upwind", wpu(cfg))):
+            label = f"{name}, {what}"
+            if not refused(label, with_visc(pt, c)):
+                compare_template(torch, pt, fr, label, with_visc(pt, c),
+                                 errs, rtol)
+    for label in AUX_PATHS:
+        base = aux_cfg(pt, label, shape)
+        Omega = base.module("hydro").Omega
+        cfg = aux_variant(pt, base, Omega, False)
+        variants = {"visx": cfg, "visx, upwind": wpu(cfg),
+                    "aniso del6 and visx": aux_variant(pt, base, Omega,
+                                                       True)}
+        if cfg.module("shock") is not None:
+            variants["visx, shock diffusion"] = wsd(cfg)
+        for what, c in variants.items():
+            c = with_aniso(pt, c) if what.startswith("aniso") \
+                else with_visc(pt, c)
+            if not refused(f"{label}, {what}", c):
+                compare_aux_kernels(torch, pt, fr, f"{label}, {what}", c,
+                                    errs, AUX_RTOL[label])
+    for build, bkw in ZG_SS_BUILDS.items():
+        shock = "shock" in bkw
+        variants = {"visx": {}, "visx, upwind": dict(upwind=True),
+                    "visx, chi-const": dict(chi=CHI)}
+        if shock:
+            variants["visx, shock diffusion"] = {}
+        else:
+            variants["aniso del6 and visx"] = dict(hyper3=True)
+        for what, kw in variants.items():
+            c = pt.configs.conv_slab(shape, **bkw, **kw)
+            c = wsd(c) if what.endswith("diffusion") else c
+            c = with_aniso(pt, c) if what.startswith("aniso") \
+                else with_visc(pt, c)
+            compare_zg_cfg(torch, pt, fr, c, f"{build}, {what}", errs)
+    for iso, kw in ISO_SETS.items():
+        Omega = 1.0 if kw.get("shear", True) else 0.0
+        for what, h3 in (("visx", False), ("aniso del6 and visx", True)):
+            c = strat_cfg(pt, shape, Omega, hyper3=h3, **kw)
+            c = with_aniso(pt, c) if h3 else with_visc(pt, c)
+            compare_zg_cfg(torch, pt, fr, c,
+                           f"isothermal stratified {iso}, {what}", errs)
+        compare_zg_cfg(torch, pt, fr, with_visc(pt, pt.configs.with_upwind(
+            strat_cfg(pt, shape, Omega, **kw))),
+            f"isothermal stratified {iso}, visx, upwind", errs)
+
+
+def visc_rate(torch, model, fa):
+    """The largest diffusive CFL rate of Viscosity's other flavours and
+    diffrho on the state ``fa``: ν of 'nu-simplified', D, and at each
+    point ν/ρ, ζ/ρ and 'nu-cspeed''s μ_T = ν T^c; 0 without them."""
+    visc, den, eos = (model.cfg.module("viscosity"),
+                      model.cfg.module("density"), model.eos)
+    vt = visc.terms()
+    lnrho = fa[model.reg.slice("lnrho")][0]
+    r1 = float(torch.exp(-lnrho).max())
+    rates = [vt["nu-simplified"], den.diffrho, vt["rho-nu-const"] * r1,
+             vt["rho-nu-const-bulk"] * r1]
+    if vt["nu-cspeed"] > 0.0:
+        lnTT = (eos.lnTT0 + eos.gamma / eos.cp * fa[model.reg.slice("ss")][0]
+                + (eos.gamma - 1.0) * (lnrho - eos.lnrho0))
+        rates.append(vt["nu-cspeed"] * float(
+            torch.exp(visc.nu_cspeed * lnTT).max()))
+    return max(rates)
+
+
+def run_visc_paths(torch, pt, fr, smi, shape, launches, base):
+    """Phase 3: each path of VISC_COUNTERPART at 256³, through the runner
+    of its chain, its ms/step printed beside that of its counterpart with
+    'nu-const' (``base``: label -> that path's result, of this call); and
+    two steps of each on the card against the CPU at 64³.  Returns label
+    -> the path's result."""
+    out = {}
+    for label, other in VISC_COUNTERPART.items():
+        cfg = pt.configs.viscosity_path(label, shape)
+        mode = pt.model.fused_mode(cfg)[0]
+        if mode == "wrap":
+            out[label] = run_flagship(torch, pt, fr, smi, shape, launches,
+                                      name=label, cfg=cfg)
+            ms, ms0 = out[label][2], base[other][2]
+        elif mode == "zghost":
+            out[label] = run_conv_slab(torch, pt, fr, smi, shape, launches,
+                                       label, nwin=VARIANT_WINDOWS)
+            ms, ms0 = out[label][2], base[other][2]
+        else:
+            out[label] = run_aux_box(torch, pt, fr, smi, shape, launches,
+                                     label)
+            ms, ms0 = out[label][3], base[other][3]
+        print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {ms:.4f} ms/step, "
+              f"{other} (nu-const) {ms0:.4f} ms/step in this call "
+              f"({(ms / ms0 - 1) * 100:+.2f} %)", flush=True)
+    n64 = (N_MAIN // 4,) * 3
+    for label in VISC_COUNTERPART:
+        cfg = pt.configs.viscosity_path(label, n64)
+        if label.startswith("shear"):
+            compare_steps(torch, pt, label, cfg, t0=T_SHEAR, phase="3")
+        else:
+            compare_steps(torch, pt, label, cfg, phase="3", uu_noise=(
+                0.1 if label.startswith("shock") else 1e-2
+                if "conv" in label or "magneto" in label else 0.0))
+    return out
+
+
+def time_visc_turns(torch, fr, smi, label, path, other, opath):
+    """Phase 4: the kernels of the path ``label`` timed in turns (A, B, B,
+    A, 20 launches a turn) with those of its counterpart with 'nu-const'
+    ``other``, each on its own path's final state at 256³ (phase 2 and
+    phase 3's steps check them against their plain versions)."""
+    if label.startswith(("flagship", "forced")):
+        time_term_turns(torch, fr, smi, label, path, other, opath)
+        return
+    if path[0] == label:        # run_aux_box's (label, model, state, ms)
+        calls, variants = {}, {}
+        for lab, model, state, _ in (path, opath):
+            first, upd, _, _, fg, df1, coef = aux_kernel_inputs(
+                torch, fr, model, state)
+            variants[lab] = model
+            calls[id(model)] = (lambda m, k=first, g=fg: k(m, g),
+                                lambda m, k=upd, g=fg, d=df1, c=coef:
+                                k(m, g, d, c))
+        times = in_turns(torch, variants, {
+            "first": lambda m: calls[id(m)][0](m),
+            "update": lambda m: calls[id(m)][1](m)})
+        print_turns(f"phase 4 {label} against {other} at 256^3 on {smi}",
+                    times)
+        return
+    time_zg_turns(torch, fr, smi, path, opath)
 
 
 def compare_zg_shock(torch, pt, fr, shape, errs, every=True):
@@ -1990,6 +2220,8 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     mark("phase 1")
+    if sys.argv[1:] == ["--only", "visc"]:
+        return visc_only(torch, pt, fr, _build, smi, mark)
     # ---- phase 2: kernels against their plain versions ----------------
     # every instance checked, also those no phase-3 path runs (the
     # z-ghosted builds' CHI and H3 instances together)
@@ -2063,6 +2295,8 @@ def main():
     mark("phase 2, the z-ghosted builds with the shock slot")
     compare_heatcond(torch, pt, fr, (32, 32, 32), errs)
     mark("phase 2, Entropy's conduction and cooling flavours")
+    compare_visc(torch, pt, fr, (32, 32, 32), errs)
+    mark("phase 2, Viscosity's flavours and diffrho")
     compare_walls(torch, pt, (32, 32, 32), WALL_CASES)
     compare_walls(torch, pt, (128, 128, 16), WALL_FFT_CASES)
     mark("phase 2, the z-wall codes' fills")
@@ -2312,6 +2546,12 @@ def main():
                                   label, nwin=VARIANT_WINDOWS)
              for label in WALL_PATHS}
     mark("phase 3, the z-wall paths")
+    visc = run_visc_paths(torch, pt, fr, smi, shape, launches, {
+        "flagship": fl, "forced hydro h3": h3[1],
+        "hydro shock box ent": aux["hydro shock box ent"],
+        "conv-slab": zg, "magnetoconvection": zm,
+        "shear box": aux["shear box"]})
+    mark("phase 3, Viscosity's flavours and diffrho")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -2422,6 +2662,13 @@ def main():
     for label, path in walls.items():
         time_wall_path(torch, fr, smi, path, parents[WALL_COUNTERPART[label]],
                        errs)
+    vbase = {"flagship": fl, "forced hydro h3": h3[1],
+             "hydro shock box ent": aux["hydro shock box ent"],
+             "conv-slab": zg, "magnetoconvection": zm,
+             "shear box": aux["shear box"]}
+    for label, path in visc.items():
+        other = VISC_COUNTERPART[label]
+        time_visc_turns(torch, fr, smi, label, path, other, vbase[other])
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -2442,6 +2689,46 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def visc_only(torch, pt, fr, _build, smi, mark):
+    """``chip_smoke.py --only visc``: the checks and paths of Viscosity's
+    other flavours and diffrho alone (phase 2's compare_visc, every
+    instance's registers and local bytes, the six paths and their
+    counterparts at 256³, their kernels in turns), a quicker run for
+    work on those terms; it prints no kernels line and no result."""
+    errs = dict.fromkeys(fr.LAUNCHES)
+    compare_visc(torch, pt, fr, (32, 32, 32), errs)
+    mark("phase 2, Viscosity's flavours and diffrho")
+    for lib in _build.LIBRARIES:
+        for inst, a in fr.flagship_attrs(lib).items():
+            check(a["local_bytes"] == 0,
+                  f"{inst}: {a['local_bytes']} B of local memory")
+            print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
+                  f"{a['local_bytes']} B local", flush=True)
+    shape = (N_MAIN,) * 3
+    launches = {}
+    base = {
+        "flagship": run_flagship(torch, pt, fr, smi, shape, launches),
+        "forced hydro h3": run_flagship(torch, pt, fr, smi, shape, launches,
+                                        name="forced hydro h3"),
+        "hydro shock box ent": run_aux_box(torch, pt, fr, smi, shape,
+                                           launches, "hydro shock box ent"),
+        "conv-slab": run_conv_slab(torch, pt, fr, smi, shape, launches,
+                                   "conv-slab", nwin=VARIANT_WINDOWS),
+        "magnetoconvection": run_conv_slab(
+            torch, pt, fr, smi, shape, launches, "magnetoconvection",
+            nwin=VARIANT_WINDOWS),
+        "shear box": run_aux_box(torch, pt, fr, smi, shape, launches,
+                                 "shear box")}
+    visc = run_visc_paths(torch, pt, fr, smi, shape, launches, base)
+    mark("phase 3, Viscosity's flavours and diffrho")
+    for label, path in visc.items():
+        other = VISC_COUNTERPART[label]
+        time_visc_turns(torch, fr, smi, label, path, other, base[other])
+    mark("phase 4, Viscosity's flavours and diffrho")
+    print(smi, flush=True)
     return 0
 
 
@@ -3240,10 +3527,13 @@ def run_conv_slab(torch, pt, fr, smi, shape, launches, label,
     if "shock" in model.reg.slots:
         sl = model.reg.slice("shock")
         d_sh, e_sh, c_sh = fr.shock_coefficients(cfg, model.reg)
-        shock = max(cfg.module("viscosity").coefficients()[1], d_sh, e_sh,
+        vt = cfg.module("viscosity").terms()
+        shock = max(vt["nu-shock"], vt["shock-simple"], d_sh, e_sh,
                     eos.gamma * c_sh) * float(
             model._refresh_aux_fa(fa)[sl].max())
-    dif = max(cfg.module("viscosity").nu, mag.eta if mag else 0.0, chik,
+    # nu-const's ν, and the largest rate of the other flavours and diffrho
+    dif = max(cfg.module("viscosity").terms()["nu-const"],
+              visc_rate(torch, model, fa), mag.eta if mag else 0.0, chik,
               ent.chi * eos.gamma if ent is not None and ent.chi_conduction
               else 0.0, shock) \
         * dxyz2 / tc.cdtv \
@@ -3315,7 +3605,10 @@ def run_aux_box(torch, pt, fr, smi, shape, launches, label):
     chig = ent.chi * eos.gamma if ent is not None else 0.0
     # the largest shock diffusivity per unit shock: ν_sh, D_sh, η_sh, γχ_sh
     d_sh, e_sh, c_sh = fr.shock_coefficients(cfg, model.reg)
-    nu_shock = max(nu_shock, d_sh, e_sh, eos.gamma * c_sh)
+    nu_shock = max(nu_shock, vis.terms()["shock-simple"], d_sh, e_sh,
+                   eos.gamma * c_sh)
+    # Viscosity's other flavours and diffrho: their largest rate
+    nu = max(nu, visc_rate(torch, model, fa))
     # the shear flow's rate (none under SAFI) and the mesh flavours'
     # constant root join the advective rate
     shear_rate = sheared_rate(model)

@@ -510,7 +510,6 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
     if "density_init_pars" in start or den_p:
         _check("density", den_p, {
             "ldensity_nolog": False, "lrelativistic_eos": False,
-            "diffrho": 0.0, "cdiffrho": 0.0,
             "beta_glnrho_global": _zero3, "lfreeze_lnrhoint": False,
             "lfreeze_lnrhoext": False})
         modules.append(Density(
@@ -519,6 +518,9 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             ampl=float(_first(den_p.get("ampllnrho", 0.0))),
             width=float(den_p.get("widthlnrho", 0.05)),
             lupw_lnrho=bool(den_p.get("lupw_lnrho", False)),
+            # Fickian diffusion, cdiffrho where diffrho is not given (JAX
+            # rundir.py:723)
+            diffrho=float(den_p.get("diffrho", den_p.get("cdiffrho", 0.0))),
             diffrho_shock=float(den_p.get("diffrho_shock", 0.0)),
             diffrho_hyper3=float(den_p.get("diffrho_hyper3", 0.0)),
             lhyper3_polar=any("sph" in str(v) or "cyl" in str(v)
@@ -642,15 +644,17 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
 
     vis_p = grp("viscosity")
     if vis_p:
-        _check("viscosity", vis_p, {
-            "zeta": 0.0, "nu_aniso_hyper3": _zero3,
-            "limplicit_viscosity": False})
+        _check("viscosity", vis_p, {"limplicit_viscosity": False})
         modules.append(Viscosity(
             ivisc=tuple(str(v) for v in _as_tuple(
                 vis_p.get("ivisc", "nu-const"))),
             nu=float(vis_p.get("nu", 0.0)),
             nu_hyper3=float(vis_p.get("nu_hyper3", 0.0)),
             nu_shock=float(vis_p.get("nu_shock", 0.0)),
+            # the other flavours' coefficients (JAX rundir.py:1265-1274)
+            nu_cspeed=float(vis_p.get("nu_cspeed", 0.5)),
+            zeta=float(vis_p.get("zeta", 0.0)),
+            nu_aniso_hyper3=_aniso3(vis_p.get("nu_aniso_hyper3", 0.0)),
             # JAX's loader leaves ν₃ᵐ at its default of 5 whatever the run
             # sets (pencil_tpu/compat/rundir.py:1262-1274): the port reads
             # it, as the reference does

@@ -24,6 +24,19 @@ def with_upwind(cfg):
         if m.name in UPWIND_FLAGS else m for m in cfg.modules))
 
 
+def with_viscosity(cfg, ivisc, **coeffs):
+    """``cfg`` (of either package) with the viscosity flavours ``ivisc``
+    in place of its own, each keyword a coefficient of the Viscosity
+    module (``nu``, ``zeta``, ``nu_shock``, ``nu_hyper3``,
+    ``nu_aniso_hyper3``, ``nu_cspeed``, ...) but ``diffrho``, Density's
+    Fickian mass diffusion, which goes to the Density module."""
+    den = {k: coeffs.pop(k) for k in ("diffrho",) if k in coeffs}
+    new = {"viscosity": dict(coeffs, ivisc=tuple(ivisc)), "density": den}
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **new[m.name]) if m.name in new else m
+        for m in cfg.modules))
+
+
 def with_shock_diffusion(cfg, coef=1.0):
     """``cfg`` (of either package) with the shock diffusivities at
     ``coef``: D_sh of lnρ (``diffrho_shock``), with Magnetic the shock
@@ -597,3 +610,48 @@ def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0,
                  pkg.Entropy(iheatcond=("chi-const",), chi=5e-3),
                  *mag,
                  pkg.Forcing(force=0.07, kf=3.0)))
+
+
+# the paths of Viscosity's other flavours and Density's diffrho, each a
+# configuration function of this module, its keyword arguments and the
+# flavours (with_viscosity's) that replace its viscosity; a coefficient
+# given as a callable of the grid spacing dx is evaluated at the run's n
+VISCOSITY_PATHS = {
+    # the momentum-conserving form with a constant dynamic viscosity, and
+    # mass diffusion D = ν, on the flagship (K1-K3)
+    "flagship rho-nu-const": ("flagship", {}, ("rho-nu-const",),
+                              dict(nu=5e-3, diffrho=5e-3)),
+    # ν∇²u with an anisotropic del6 whose z coefficient is half the
+    # others' (the H3 instances of forced hydro)
+    "forced hydro aniso": ("forced_hydro", dict(hyper3=True),
+                           ("nu-simplified", "hyper3_nu-const_aniso"),
+                           dict(nu_aniso_hyper3=lambda dx: (
+                               5e-3 * dx ** 5, 5e-3 * dx ** 5,
+                               2.5e-3 * dx ** 5))),
+    # supersonic turbulence with an energy equation under bulk and simple
+    # shock viscosities (K1she, K5whe)
+    "shock box bulk": ("shock_box", dict(magnetic=False, entropy=True),
+                       ("rho-nu-const", "rho-nu-const-bulk", "shock-simple"),
+                       dict(nu=1e-3, zeta=1e-3, nu_shock=1.0)),
+    # stratified convection with μ = const and mass diffusion (K6/K7)
+    "conv-slab rho-nu-const": ("conv_slab", {}, ("rho-nu-const",),
+                               dict(diffrho=4e-3)),
+    # magnetoconvection with ν ∝ T^½ (K6m/K7m)
+    "magnetoconvection nu-therm": ("conv_slab", dict(magnetic=True),
+                                   ("nu-therm",), dict(nu_cspeed=0.5)),
+    # the MHD shear box with μ = const beside ν_sh and mass diffusion
+    # (K4/K5, their H3 instances)
+    "shear box rho-nu-const": ("shear_box", {}, ("rho-nu-const", "nu-shock"),
+                               dict(diffrho=5e-4)),
+}
+
+
+def viscosity_path(label, n, fused=True, pkg=None):
+    """The configuration of VISCOSITY_PATHS[label] at ``n`` (an int or
+    (nx, ny, nz)) in ``pkg``'s classes."""
+    make, kw, ivisc, coeffs = VISCOSITY_PATHS[label]
+    cfg = globals()[make](n, fused=fused, pkg=pkg, **kw)
+    dx = cfg.grid.dx
+    return with_viscosity(cfg, ivisc, **{
+        k: v(dx) if callable(v) else v for k, v in coeffs.items()})
+

@@ -127,7 +127,20 @@
 // wave-speed root.  SAFI (the shear flow's advection as a shift between
 // substeps, on the host) needs no instance: the shear builds take the
 // flow's x nodes at 0 (PcParams.x0, dx), so its advection terms and CFL
-// rate add 0.
+// rate add 0.  Every instance also takes Viscosity's other flavours
+// and Density's diffrho as parameters: 'nu-simplified', 'rho-nu-const',
+// the bulk zeta and diffrho in every build, 'shock-simple' in the builds
+// with the shock slot, 'nu-cspeed' in the z-ghosted builds with ss and,
+// in the H3 instances, the anisotropic del6 'hyper3_nu-const_aniso' (its
+// del6 the H3 term with nu3 = 1 and the weights nu3_j/dx_j^6, its
+// advective part sum_j u_{i,j} dlnrho_j nu3_j).  Behind one uniform test
+// of PcParams.visx (any of them on), after a plane's outputs are stored,
+// visx_rhs forms their terms and heat, reading the ring anew, the outputs
+// are stored again with them, and visx_dt1 joins their largest per-point
+// CFL rate (visx_rate) to the instance's diffusive maximum; not taken,
+// the instance runs its march of before up to its stores (untaken, the
+// terms tested inside the RHS measured 4-13 % slower, added between the
+// RHS and the stores 3-6 %: both split the schedule; PERF.md §6).
 //
 // These replace the Pallas kernels of pencil_tpu/ops/fused_rhs.py that the
 // flagship step launches (model.py:650-703), one template instance each
@@ -392,6 +405,19 @@ struct PcParams {
   // (tau_cool T) (cp_g = cp/gamma) and the uniform heating and cooling
   // (heat_uniform - cool_uniform rho cp T)/(rho T), each 0 where off
   float tau_cool, ttref, cp_g, heat_uniform, cool_uniform;
+  // Viscosity's other flavours and Density's diffrho, every instance,
+  // behind one uniform test of visx (any of them on; not taken, every
+  // instance computes what it did without them), each 0 where it is off:
+  // 'nu-simplified' nu_s, 'rho-nu-const' nu_r, 'rho-nu-const-bulk' zeta,
+  // diffrho, and where the build has their inputs 'shock-simple' nu_ss
+  // (the shock slot), 'nu-cspeed' nu_t with its exponent nu_c (the
+  // z-ghosted builds with ss) and the anisotropic nu3_j of
+  // 'hyper3_nu-const_aniso' (the H3 instances, whose del6 of u then has
+  // nu3 = 1 and the weights nu3_j/dx_j^6); the constant rates of nu_s and
+  // diffrho are in maxdif and dif, the anisotropic del6's in dif3
+  int visx;
+  float nu_s, nu_r, zeta, diffrho, nu_ss, nu_t, nu_c;
+  float nua[3];
 };
 
 enum { H6U, H6L, H6A };
@@ -521,6 +547,228 @@ __device__ __forceinline__ float upwind(const float* p, const float* x,
                    P.upw_inv[2], acc);
 }
 
+// ---- Viscosity's other flavours and diffrho (PcParams.visx) -------------
+// Derivatives of one field along axis j with its x taps read from the ring
+// (the planes at the offsets xo; xo[NG] = 0), as dj1 and dj2 form them
+// from the registers: the terms below recompute what they read, so that
+// the RHS before them keeps none of its values for them
+__device__ __forceinline__ float djr1(const float* p, const int* xo, int j,
+                                      const float* w) {
+  if (j == 0)
+    return sum1(p[xo[4]], p[xo[2]], p[xo[5]], p[xo[1]], p[xo[6]], p[xo[0]],
+                w);
+  const int st = j == 1 ? PZ : 1;
+  return sum1(p[st], p[-st], p[2 * st], p[-2 * st], p[3 * st], p[-3 * st],
+              w);
+}
+
+__device__ __forceinline__ float djr2(const float* p, const int* xo, int j,
+                                      const float* w) {
+  if (j == 0)
+    return sum2(p[0], p[xo[4]], p[xo[2]], p[xo[5]], p[xo[1]], p[xo[6]],
+                p[xo[0]], w);
+  const int st = j == 1 ? PZ : 1;
+  return sum2(p[0], p[st], p[-st], p[2 * st], p[-2 * st], p[3 * st],
+              p[-3 * st], w);
+}
+
+// The largest diffusive CFL rate of the flavours at this point (visx
+// taken): the constant nu_s and diffrho, nu_r/rho, zeta/rho and, where
+// the build has them, nu_ss shock and mu_T = nu_t exp(nu_c lnT)
+__device__ __forceinline__ float visx_rate(const PcParams& P,
+                                           float (*xt)[NX]) {
+  const float lnrho = xt[LNRHO][NG];
+  const float r1 = expf(-lnrho);
+  float md = fmaxf(P.nu_s, P.diffrho);
+  if (P.nu_r > 0.0f) md = fmaxf(md, __fmul_rn(P.nu_r, r1));
+  if (P.zeta > 0.0f) md = fmaxf(md, __fmul_rn(P.zeta, r1));
+#if PC_SHOCK
+  if (P.nu_ss > 0.0f) md = fmaxf(md, __fmul_rn(P.nu_ss, xt[SHOCK][NG]));
+#endif
+#if PC_ZG && PC_ENT
+  if (P.nu_t > 0.0f) {
+    const float lnTT = (P.lnTT0 + P.g_cp * xt[SS][NG])
+                       + P.gm1 * (lnrho - P.lnrho0);
+    md = fmaxf(md, __fmul_rn(P.nu_t, expf(P.nu_c * lnTT)));
+  }
+#endif
+  return md;
+}
+
+// The flavours' terms at this point (visx taken), added to the RHS r of
+// the instance: D (del2 lnrho + |grad lnrho|^2) to dlnrho; to du_a, in the
+// JAX order, 'nu-simplified' nu_s del2 u_a, 'rho-nu-const' (nu_r/rho)
+// (del2 u_a + d_a div u/3), the bulk (zeta/rho) d_a div u, H3's
+// anisotropic advective part sum_j u_{a,j} dlnrho_j nu3_j, 'shock-simple'
+// nu_ss (grad shock . grad u_a + shock del2 u_a) and 'nu-cspeed' mu_T
+// (del2 u_a + d_a div u/3 + 2 (S.grad lnrho)_a + 2 nu_c (S.grad lnT)_a),
+// as one force; with ss their heat 2 nu_s S^2 + 2 (nu_r/rho) S^2 +
+// (zeta/rho)(div u)^2 + 2 mu_T S^2 over T to ds.  Each coefficient of 0
+// is skipped, and so is each derivative that no term on reads (the rate
+// of strain S only with ss, grad u_a otherwise only for the aniso and
+// shock terms).  Everything is read from the ring anew (the empty asm
+// with a memory clobber keeps the compiler from reusing the RHS's loads),
+// so that the RHS keeps none of its values live for these terms.
+template <bool H3>
+__device__ __forceinline__ void visx_rhs(const float* s, const int* xo,
+                                         const PcParams& P, float* r) {
+  asm volatile("" ::: "memory");
+  const float lnrho = s[LNRHO * FPL];
+  const float r1 = expf(-lnrho);
+  const bool aniso = H3 && (P.nua[0] != 0.0f || P.nua[1] != 0.0f
+                            || P.nua[2] != 0.0f);
+  float gl[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    gl[a] = __fmul_rn(djr1(s + LNRHO * FPL, xo, a, P.w1), P.inv[a]);
+  if (P.diffrho > 0.0f) {
+    float d2l = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float l2 = __fmul_rn(djr2(s + LNRHO * FPL, xo, a, P.w2),
+                                 P.invsq[a]);
+      d2l = (a == 0) ? l2 : d2l + l2;
+    }
+    const float g2 = (gl[0] * gl[0] + gl[1] * gl[1]) + gl[2] * gl[2];
+    r[LNRHO] = __fadd_rn(r[LNRHO], __fmul_rn(P.diffrho, __fadd_rn(d2l, g2)));
+  }
+  const bool force = P.nu_s > 0.0f || P.nu_r > 0.0f || P.zeta > 0.0f
+                     || aniso || (PC_SHOCK && P.nu_ss > 0.0f)
+                     || (PC_ZG && PC_ENT && P.nu_t > 0.0f);
+  if (!force) return;
+#if PC_SHOCK
+  const float shock = s[SHOCK * FPL];
+  float gsh[3] = {0.0f, 0.0f, 0.0f};
+  if (P.nu_ss > 0.0f) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      gsh[a] = __fmul_rn(djr1(s + SHOCK * FPL, xo, a, P.w1), P.inv[a]);
+  }
+#endif
+#if PC_ENT
+  // with ss the whole velocity gradient: the heat reads S
+  float uij[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      uij[i][j] = __fmul_rn(djr1(s + (UX + i) * FPL, xo, j, P.w1),
+                            P.inv[j]);
+  const float divu = (uij[0][0] + uij[1][1]) + uij[2][2];
+  const float div3 = divu / 3.0f;
+  const float lnTT = (P.lnTT0 + P.g_cp * s[SS * FPL])
+                     + P.gm1 * (lnrho - P.lnrho0);
+#if PC_ZG
+  float gs[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    gs[a] = __fmul_rn(djr1(s + SS * FPL, xo, a, P.w1), P.inv[a]);
+  const float mut = P.nu_t > 0.0f
+      ? __fmul_rn(P.nu_t, expf(P.nu_c * lnTT)) : 0.0f;
+#endif
+  float sij2 = 0.0f;
+#endif
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float* ua = s + (UX + a) * FPL;
+#if PC_ENT
+    const float* ug = uij[a];
+    // the rate-of-strain row S_ab: its square, (S.grad lnrho)_a and (S.grad
+    // lnT)_a
+    float sgl = 0.0f;
+#if PC_ZG
+    float sgt = 0.0f;
+#endif
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      float sab = 0.5f * (uij[a][b] + uij[b][a]);
+      if (a == b) sab = sab - div3;
+      sgl = (b == 0) ? sab * gl[0] : sgl + sab * gl[b];
+#if PC_ZG
+      const float gt = P.gm1 * gl[b] + P.g_cp * gs[b];
+      sgt = (b == 0) ? sab * gt : sgt + sab * gt;
+#endif
+      sij2 = (a == 0 && b == 0) ? sab * sab : sij2 + sab * sab;
+    }
+#else
+    // without ss only the aniso and shock terms read grad u_a
+    float ug[3] = {0.0f, 0.0f, 0.0f};
+    if (aniso || (PC_SHOCK && P.nu_ss > 0.0f)) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        ug[j] = __fmul_rn(djr1(ua, xo, j, P.w1), P.inv[j]);
+    }
+#endif
+    const float dd[3] = {
+        __fmul_rn(djr2(ua, xo, 0, P.w2), P.invsq[0]),
+        __fmul_rn(djr2(ua, xo, 1, P.w2), P.invsq[1]),
+        __fmul_rn(djr2(ua, xo, 2, P.w2), P.invsq[2])};
+    const float del2 = (dd[0] + dd[1]) + dd[2];
+    float gdiv = 0.0f;
+    if (P.nu_r > 0.0f || P.zeta > 0.0f || (PC_ZG && PC_ENT && P.nu_t > 0.0f)) {
+      gdiv = dd[a];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j == a) continue;
+        const int lo = a < j ? a : j, hi = a < j ? j : a;
+        const float m = djmix(s + (UX + j) * FPL, lo, hi, xo, P.wm);
+        gdiv = gdiv + __fmul_rn(__fmul_rn(m, P.inv[lo]), P.inv[hi]);
+      }
+    }
+    float fv = 0.0f;
+    if (P.nu_s > 0.0f) fv = __fmul_rn(P.nu_s, del2);
+    if (P.nu_r > 0.0f)
+      fv = __fadd_rn(fv, __fmul_rn(__fmul_rn(P.nu_r, r1), __fadd_rn(
+          del2, __fmul_rn(1.0f / 3.0f, gdiv))));
+    if (P.zeta > 0.0f)
+      fv = __fadd_rn(fv, __fmul_rn(__fmul_rn(P.zeta, r1), gdiv));
+    if (aniso) {
+      float adv = __fmul_rn(__fmul_rn(ug[0], gl[0]), P.nua[0]);
+      adv = __fadd_rn(adv, __fmul_rn(__fmul_rn(ug[1], gl[1]), P.nua[1]));
+      adv = __fadd_rn(adv, __fmul_rn(__fmul_rn(ug[2], gl[2]), P.nua[2]));
+      fv = __fadd_rn(fv, adv);
+    }
+#if PC_SHOCK
+    if (P.nu_ss > 0.0f)
+      fv = __fadd_rn(fv, __fmul_rn(P.nu_ss, __fadd_rn(
+          (gsh[0] * ug[0] + gsh[1] * ug[1]) + gsh[2] * ug[2],
+          __fmul_rn(shock, del2))));
+#endif
+#if PC_ZG && PC_ENT
+    if (P.nu_t > 0.0f)
+      fv = __fadd_rn(fv, __fmul_rn(mut, ((del2 + (1.0f / 3.0f) * gdiv)
+                                         + 2.0f * sgl)
+                                        + (2.0f * P.nu_c) * sgt));
+#endif
+    r[UX + a] = __fadd_rn(r[UX + a], fv);
+  }
+#if PC_ENT
+  float heat = 0.0f;
+  if (P.nu_s > 0.0f) heat = __fmul_rn(2.0f * P.nu_s, sij2);
+  if (P.nu_r > 0.0f)
+    heat = __fadd_rn(heat, __fmul_rn(2.0f * __fmul_rn(P.nu_r, r1), sij2));
+  if (P.zeta > 0.0f)
+    heat = __fadd_rn(heat, __fmul_rn(__fmul_rn(P.zeta, r1),
+                                     __fmul_rn(divu, divu)));
+#if PC_ZG
+  if (P.nu_t > 0.0f) heat = __fadd_rn(heat, __fmul_rn(2.0f * mut, sij2));
+#endif
+  r[SS] = __fadd_rn(r[SS], __fmul_rn(heat, expf(-lnTT)));
+#endif
+}
+
+// The CFL 1/dt at this point with the flavours' rates (visx taken): the
+// instance's advective dt1a and diffusive maximum mdif (before its
+// scaling), the flavours' largest rate beside it, then the build's
+// constant del6 rate, as the plain version joins them
+__device__ __forceinline__ float visx_dt1(const PcParams& P,
+                                          float (*xt)[NX], float dt1a,
+                                          float mdif) {
+  float dif = (fmaxf(mdif, visx_rate(P, xt)) * P.dxyz2) / P.cdtv;
+  if (P.dif3 > 0.0f) dif = __fadd_rn(dif, P.dif3);
+  return sqrtf(dt1a * dt1a + dif * dif);
+}
+
 // The flagship RHS at one point.  `s` points at field 0 of this point in
 // the ring slot of its plane; field c is at s + c*FPL, its x taps in
 // xt[c], the x neighbours' planes at the offsets xo.  Term order follows
@@ -595,7 +843,8 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
                                              float lay_c, float lay_h,
                                              float grav, bool zgx,
                                              float kz, float dkz, float* r,
-                                             float& dt1) {
+                                             float& dt1, float& dt1a_out,
+                                             float& mdif) {
   const float u[3] = {xt[0][NG], xt[1][NG], xt[2][NG]};
   const float lnrho = xt[LNRHO][NG];
 
@@ -997,6 +1246,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     // H3: the mesh flavours' constant root after the wave-speed root
     if constexpr (H3) adv = __fadd_rn(adv, P.hmesh);
     const float dt1a = adv / P.cdt;
+    dt1a_out = dt1a;
 #if PC_JOINS && !PC_ZG
     // the diffusivity max(nu, nu_sh*shock, eta) at this point (the terms of
     // the build's layout; with ss also chi gamma of chi-const, in maxdif,
@@ -1021,6 +1271,7 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
 #if PC_ENT
     md = fmaxf(fmaxf(md, P.maxdif), chik);
 #endif
+    mdif = md;
     float dif = has_dif ? (md * P.dxyz2) / P.cdtv : 0.0f;
     if (P.dif3 > 0.0f) dif = has_dif ? dif + P.dif3 : P.dif3;
     dt1 = (has_dif || P.dif3 > 0.0f) ? sqrtf(dt1a * dt1a + dif * dif) : dt1a;
@@ -1038,18 +1289,21 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
       if (P.chi_shock > 0.0f) md = fmaxf(md, P.gchi_shock * shock);
     }
 #endif
+    mdif = md;
     float dif = (md * P.dxyz2) / P.cdtv;
     if constexpr (H3) dif = __fadd_rn(dif, P.dif3);
     dt1 = sqrtf(dt1a * dt1a + dif * dif);
 #elif PC_ENT
     // the K-const rate varies from point to point; H3: plus the constant
     // del6 rate
+    mdif = P.hcond0 > 0.0f ? fmaxf(P.maxdif, chik) : P.maxdif;
     float dif = P.hcond0 > 0.0f
         ? (fmaxf(P.maxdif, chik) * P.dxyz2) / P.cdtv : P.dif;
     if constexpr (H3) dif = __fadd_rn(dif, P.dif3);
     dt1 = dif == 0.0f ? dt1a : sqrtf(dt1a * dt1a + dif * dif);
 #else
     // the isothermal builds, periodic or z-ghosted: the constant rates
+    mdif = P.maxdif;
     if constexpr (H3) {
       // the constant rates, diffusive plus del6 (dif3 > 0 here)
       const float dif = __fadd_rn(P.dif, P.dif3);
@@ -1248,6 +1502,19 @@ __host__ __device__ constexpr int smem_floats() {
 #ifndef PC_MINB2
 #define PC_MINB2 (!PC_ZG)
 #endif
+// The instances that would spill with Viscosity's other flavours and
+// diffrho (visx_rhs, visx_dt1) in their march, measured on an NVIDIA H100
+// 80GB HBM3 (pc_flagship_attrs): the 4-field hydro build's K1 UPW at its
+// 128 registers (two blocks an SM; 8 B).  It is built without those
+// terms, as before them, and the host refuses the flavours where it
+// would launch it (_visx_spills in model.py, _visx_check in
+// ops/fused_rhs.py).
+template <bool FIRST, bool UPW>
+__host__ __device__ constexpr bool visx_spills() {
+  return !PC_MAG && !PC_ENT && !PC_SHOCK && !PC_SHEAR && !PC_ZG && FIRST
+         && UPW;
+}
+
 template <bool FIRST, bool DEFER>
 __host__ __device__ constexpr int min_blocks() {
   return PC_MINB2
@@ -1564,7 +1831,7 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
     }
 
     float r[NV];
-    float dt1 = 0.0f;
+    float dt1 = 0.0f, dt1a = 0.0f, mdif = 0.0f;
     if constexpr (FAKE) {
 #pragma unroll
       for (int c = 0; c < NV; ++c) r[c] = __fmul_rn(xt[c][NG], 1.0000001f);
@@ -1573,7 +1840,8 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       const float xn = PC_SHEAR
           ? __fadd_rn(P.x0, __fmul_rn(P.dx, (float)(x0 + j))) : 0.0f;
       flagship_rhs<FIRST, ROT, H3, CHI, UPW, SHK>(
-          s, xt, xo, P, xn, lay_c, lay_h, grav, zgx, kz, dkz, r, dt1);
+          s, xt, xo, P, xn, lay_c, lay_h, grav, zgx, kz, dkz, r, dt1, dt1a,
+          mdif);
       if (zg.fcont) {
         // the continuous forcing joins du last (the Forcing module
         // follows Magnetic), then the next plane's is loaded: a plane's
@@ -1588,12 +1856,32 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       }
     }
 
+    // Viscosity's other flavours and diffrho, where any is on (not in K8,
+    // nor in the instances that would spill with them): after the plane's
+    // outputs are stored as without them, their terms join them and the
+    // outputs are stored again, so that the instance's schedule up to its
+    // stores is the one of before (untaken, the terms inside its RHS or
+    // between it and the stores cost 3-13 %); a first kernel also takes
+    // their CFL rates
+    constexpr bool VX =
+        !FAKE && !visx_spills<FIRST, UPW>();
     if (FIRST) {
       if (active) {
         float* o = dfout + g;
 #pragma unroll
         for (int c = 0; c < NV; ++c, o += N) *o = r[c];
         dt1max = fmaxf(dt1max, dt1);
+      }
+      if constexpr (VX) {
+        if (__builtin_expect(P.visx != 0, 0)) {
+          visx_rhs<H3>(s, xo, P, r);
+          if (active) {
+            float* o = dfout + g;
+#pragma unroll
+            for (int c = 0; c < NV; ++c, o += N) *o = r[c];
+            dt1max = fmaxf(dt1max, visx_dt1(P, xt, dt1a, mdif));
+          }
+        }
       }
       continue;
     }
@@ -1624,6 +1912,26 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
         o = dfout + g;
 #pragma unroll
         for (int c = 0; c < NV; ++c, o += N) *o = dfn[c];
+      }
+    }
+    if constexpr (VX) {
+      if (__builtin_expect(P.visx != 0, 0)) {
+        // their terms v join df and, times beta dt, f
+        float v[NV];
+#pragma unroll
+        for (int c = 0; c < NV; ++c) v[c] = -0.0f;
+        visx_rhs<H3>(s, xo, P, v);
+        if (active) {
+          float* o = faout + g;
+#pragma unroll
+          for (int c = 0; c < NV; ++c, o += N)
+            *o = __fadd_rn(fnew[c], __fmul_rn(bdt, v[c]));
+          if (!LAST) {
+            o = dfout + g;
+#pragma unroll
+            for (int c = 0; c < NV; ++c, o += N) *o = __fadd_rn(dfn[c], v[c]);
+          }
+        }
       }
     }
   }

@@ -410,16 +410,21 @@ def _rufm(pen, st):
 
 # ---- dissipation ------------------------------------------------------------
 def _visc_heat(pen):
-    """Per-point viscous heating 2νS² + ν_sh·shock·(∇·u)² of the
-    configuration's Viscosity (the pencil the RHS leaves for Entropy is
-    not kept)."""
+    """Per-point viscous heating of the configuration's Viscosity as JAX's
+    evaluator recomputes it (diagnostics.py:729-744): 2νS² of 'nu-const'
+    or 'nu-simplified', (ζ/ρ)(∇·u)² of the bulk viscosity and
+    ν_sh·shock·(∇·u)² (the pencil the RHS leaves for Entropy is not
+    kept)."""
     visc = pen.cfg.module("viscosity")
     heat = torch.zeros_like(pen.divu())
     if visc is None:
         return heat
-    if visc.nu > 0.0:
+    if ({"nu-const", "simplified", "nu-simplified"} & set(visc.ivisc)) \
+            and visc.nu > 0.0:
         heat = heat + 2.0 * visc.nu * pen.sij2()
-    if "nu-shock" in visc.ivisc and visc.nu_shock > 0.0 \
+    if visc.selected("rho-nu-const-bulk") and visc.zeta > 0.0:
+        heat = heat + (visc.zeta / pen.rho()) * pen.divu() ** 2
+    if visc.selected("nu-shock") and visc.nu_shock > 0.0 \
             and "shock" in pen.reg.slots:
         heat = heat + visc.nu_shock * pen.field("shock") * pen.divu() ** 2
     return heat

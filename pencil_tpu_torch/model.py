@@ -148,7 +148,7 @@ from .ops.fused_rhs import (hyper3_terms, rhs_first, rhs_plain,
                             rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
                             rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
                             rhs_zroll, rhs_zroll_upd, upwind_flags,
-                            zg_entropy_options)
+                            viscosity_refusals, zg_entropy_options)
 from .ops.stencil import NGHOST
 from .parallel.halo import fill_ghosts
 from .physics.base import ModuleBase
@@ -245,6 +245,8 @@ def _shock_options(cfg: Config):
     mag, ent = cfg.module("magnetic"), cfg.module("entropy")
     return [name for name, on in (
         ("Viscosity nu-shock", visc is not None and visc.coefficients()[1]),
+        ("Viscosity 'shock-simple'",
+         visc is not None and visc.terms()["shock-simple"] > 0.0),
         ("Density diffrho_shock", den is not None and den.diffrho_shock > 0),
         ("Magnetic eta_shock", mag is not None and mag.eta_shock > 0),
         ("Entropy chi_shock", ent is not None and "shock" in ent.iheatcond
@@ -301,6 +303,31 @@ def _hyper3_with_walled_shock(cfg: Config):
     return None
 
 
+def _visx_names(cfg: Config):
+    """Viscosity's other flavours and Density's diffrho in use (the terms
+    every instance takes behind PcParams.visx), named."""
+    visc, den = cfg.module("viscosity"), cfg.module("density")
+    t = visc.terms() if visc is not None else {}
+    names = [f"Viscosity {k!r}" for k in (
+        "nu-simplified", "rho-nu-const", "rho-nu-const-bulk",
+        "hyper3_nu-const_aniso", "shock-simple", "nu-cspeed")
+        if k in t and (any(t[k]) if isinstance(t[k], tuple) else t[k] > 0)]
+    if den is not None and den.diffrho > 0.0:
+        names.append("Density diffrho")
+    return names
+
+
+def _visx_spills(cfg: Config, free, wrap):
+    """Why ``cfg`` is outside the kernels for launching the instance that
+    is built without Viscosity's other flavours and diffrho (it would
+    spill with them: ``visx_spills`` in csrc/fused_rhs.cu), or None."""
+    names = _visx_names(cfg)
+    if names and wrap and free == HYDRO_MODULES and any(upwind_flags(cfg)):
+        return (f"options {names} with upwinding on the 4-field hydro "
+                "build (its K1 UPW, at 128 registers, would spill)")
+    return None
+
+
 # the conduction flavours that the CHI instances take, one at a time
 CHI_TERMS = ("chi-const", "kramers", "chi-cspeed", "chi-therm")
 
@@ -327,8 +354,12 @@ def fused_mode(cfg: Config):
     (diffrho_shock, eta_shock, chi_shock) on the sets with the Shock
     module's slot; Entropy's 'K-profile', 'kramers', 'chi-cspeed',
     tau_cool, heat_uniform and cool_uniform on the z-ghosted sets with
-    ss (one of chi-const, 'kramers' and 'chi-cspeed'); or (None, why
-    ``cfg`` is outside all of these sets).
+    ss (one of chi-const, 'kramers' and 'chi-cspeed'); Viscosity's
+    'nu-simplified', 'rho-nu-const', the bulk ζ and Density's diffrho on
+    every set, 'shock-simple' on the sets with the shock slot,
+    'hyper3_nu-const_aniso' as the del6 of u and 'nu-cspeed' on the
+    z-ghosted sets with ss (``viscosity_refusals`` names the rest); or
+    (None, why ``cfg`` is outside all of these sets).
     The module set is tested before any option of it, so a set that no
     chain takes is refused for its modules; Entropy's layer profiles
     outside the z-ghosted sets, the upwinding beside del6, del6 beside a
@@ -383,6 +414,12 @@ def fused_mode(cfg: Config):
                 or _hyper3_twice(cfg))
         if both:
             return None, both
+        visc = viscosity_refusals(cfg, zghost and ent is not None)
+        if visc:
+            return None, f"options {visc}"
+        spill = _visx_spills(cfg, free, wrap)
+        if spill:
+            return None, spill
         columns = _bcz_codes(cfg, COLUMN_CODES)
         if zghost and columns and "shock" in mods:
             return None, (f"BC mnemonics {columns} with the Shock module's "
@@ -515,9 +552,11 @@ def _check_supported(cfg: Config):
                         "the symmetric closure, and without one the JAX "
                         "package's fused and jnp paths fill them "
                         "differently)")
-        if visc is not None and visc.coefficients()[1] \
-                and cfg.module("shock") is None:
-            problems.append("Viscosity 'nu-shock' without the Shock module")
+        if visc is not None and cfg.module("shock") is None:
+            for k in ("nu-shock", "shock-simple"):
+                if visc.terms()[k] > 0.0:
+                    problems.append(f"Viscosity {k!r} without the Shock "
+                                    "module")
         forcing = cfg.module("forcing")
         if forcing is not None and forcing.lforcing_cont \
                 and forcing.iforcing_cont not in FCONT_PROFILES:

@@ -436,6 +436,11 @@ class PcParams(ctypes.Structure):
         ("tau_cool", ctypes.c_float), ("ttref", ctypes.c_float),
         ("cp_g", ctypes.c_float), ("heat_uniform", ctypes.c_float),
         ("cool_uniform", ctypes.c_float),
+        ("visx", ctypes.c_int),
+        ("nu_s", ctypes.c_float), ("nu_r", ctypes.c_float),
+        ("zeta", ctypes.c_float), ("diffrho", ctypes.c_float),
+        ("nu_ss", ctypes.c_float), ("nu_t", ctypes.c_float),
+        ("nu_c", ctypes.c_float), ("nua", ctypes.c_float * 3),
     ]
 
 
@@ -670,6 +675,56 @@ def aux_kernels(model):
                  for k in AUX_KERNELS[aux_library(model)])
 
 
+# the Viscosity flavours that no kernel instance takes, with why
+CARD_REFUSED_VISCOSITY = {
+    "hyper3-nu-const": "the JAX fused path raises on it (ROADMAP Queue 3), "
+                       "and its 5th-difference lnrho term has no instance",
+    "hyper3-rho-nu-const-symm": "its d5_i d_j cross terms are a 7x7 "
+                                "stencil across the march",
+}
+
+
+def viscosity_refusals(cfg, zg_ss):
+    """The Viscosity flavours of ``cfg`` that the kernels of its chain do
+    not take, each named with why ([] when they take all): 'hyper3-nu-
+    const' and 'hyper3-rho-nu-const-symm' on every chain, 'nu-cspeed'
+    outside the z-ghosted builds with ss (``zg_ss``: the only ones with
+    lnT formed beside the viscous force and registers to spare), and
+    'hyper3_nu-const_aniso' beside another del6 flavour of u (one weight
+    vector a field)."""
+    visc = cfg.module("viscosity")
+    if visc is None:
+        return []
+    t = visc.terms()
+    out = [f"Viscosity {k!r} ({why})"
+           for k, why in CARD_REFUSED_VISCOSITY.items() if t[k] > 0.0]
+    if t["nu-cspeed"] > 0.0 and not zg_ss:
+        out.append("Viscosity 'nu-cspeed' outside the z-ghosted builds "
+                   "with ss (the periodic entropy builds hold 237-255 "
+                   "registers; the others have no lnT)")
+    if any(t["hyper3_nu-const_aniso"]) and (
+            t["hyper3-simplified"] > 0.0 or t["hyper3-mesh"] > 0.0):
+        out.append("Viscosity 'hyper3_nu-const_aniso' with another del6 "
+                   "flavour of u (one weight vector a field)")
+    return out
+
+
+def aniso_rate(cfg, inv):
+    """The constant del6 rate Σ_j ν₃ⱼΔⱼ⁻⁶/Σ_j Δⱼ⁻⁶ of 'hyper3_nu-const_
+    aniso', in f32 in the plain version's order; 0 where it is off."""
+    visc = cfg.module("viscosity")
+    nua = (visc.terms()["hyper3_nu-const_aniso"] if visc is not None
+           else (0.0, 0.0, 0.0))
+    if not any(nua):
+        return np.float32(0.0)
+    f32 = np.float32
+    d16 = pow6(inv)
+    num = f32(0.0)
+    for a in range(3):
+        num = num + f32(nua[a]) * d16[a]
+    return num / ((d16[0] + d16[1]) + d16[2])
+
+
 def hyper3_coefficients(cfg):
     """(ν₃, η₃, D₃) of ``cfg``, 0 for each that is off: the
     'hyper3-simplified' viscosity, the hyper-resistivity and the lnρ
@@ -692,11 +747,17 @@ def hyper3_mesh_coefficients(cfg):
 
 def hyper3_terms(cfg):
     """Every del6 coefficient of ``cfg`` as (option name, coefficient), 0
-    where it is off: ν₃ and ν₃ᵐ of u, η₃ of A, D₃ and D₃ᵐ of lnρ."""
+    where it is off: ν₃ and ν₃ᵐ of u, η₃ of A, D₃ and D₃ᵐ of lnρ, and the
+    largest |ν₃ⱼ| of 'hyper3_nu-const_aniso'."""
+    visc = cfg.module("viscosity")
+    nua = (visc.terms()["hyper3_nu-const_aniso"] if visc is not None
+           else (0.0,))
     return tuple(zip(("nu_hyper3", "eta_hyper3", "diffrho_hyper3",
-                      "nu_hyper3_mesh", "diffrho_hyper3_mesh"),
+                      "nu_hyper3_mesh", "diffrho_hyper3_mesh",
+                      "nu_aniso_hyper3"),
                      hyper3_coefficients(cfg)
-                     + hyper3_mesh_coefficients(cfg)))
+                     + hyper3_mesh_coefficients(cfg)
+                     + (max(abs(c) for c in nua),)))
 
 
 def zg_library(model) -> str:
@@ -880,7 +941,24 @@ def kernel_params(model) -> PcParams:
     inv = np.array(inverse_spacings(gs), f32)
     invsq = inv * inv
     dxyz2 = (invsq[0] + invsq[1]) + invsq[2]
-    nu, nu_shock, _ = cfg.module("viscosity").coefficients()
+    visc = cfg.module("viscosity")
+    vt = visc.terms()
+    nu, nu_shock = vt["nu-const"], vt["nu-shock"]
+    ent = cfg.module("entropy")
+    bad = viscosity_refusals(cfg, not all(gs.periodic) and ent is not None)
+    if bad:
+        raise NotImplementedError(f"fused kernels: {bad}")
+    den = cfg.module("density")
+    diffrho = max(den.diffrho, 0.0)
+    # Viscosity's other flavours and diffrho (visx): 'nu-simplified',
+    # 'rho-nu-const', the bulk ζ, 'shock-simple', 'nu-cspeed', the
+    # advective part of 'hyper3_nu-const_aniso' (whose del6 part is the
+    # H3 instances' with ν₃ = 1 and the weights ν₃ⱼΔⱼ⁻⁶) and D
+    nua = vt["hyper3_nu-const_aniso"]
+    nu_s, nu_r = vt["nu-simplified"], vt["rho-nu-const"]
+    zeta, nu_ss, nu_t = (vt["rho-nu-const-bulk"], vt["shock-simple"],
+                         vt["nu-cspeed"])
+    visx = any((nu_s, nu_r, zeta, nu_ss, nu_t, diffrho, *nua))
     mag = cfg.module("magnetic")
     eta = mag.eta if mag is not None else 0.0
     # the del6 hyper-diffusion (the H3 instances) and its constant CFL
@@ -891,7 +969,7 @@ def kernel_params(model) -> PcParams:
     nu3, eta3, diff3 = hyper3_coefficients(cfg)
     nu3m, diff3m = hyper3_mesh_coefficients(cfg)
     inv6 = pow6(inv)
-    m3 = max(nu3, eta3, diff3)
+    m3 = max(nu3, eta3, diff3, aniso_rate(cfg, inv))
     dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
     dif3 = f32(m3) * dxyz6 / f32(cfg.time.cdtv3) if m3 > 0.0 else f32(0)
     if (nu3 > 0.0 and nu3m > 0.0) or (diff3 > 0.0 and diff3m > 0.0):
@@ -902,7 +980,6 @@ def kernel_params(model) -> PcParams:
     mesh6 = inv / f32(60.0)
     shear = cfg.module("shear")
     eos = model.eos
-    ent = cfg.module("entropy")
     chi = ent.chi if ent is not None and ent.chi_conduction else 0.0
     hcond0 = ent.hcond0 if ent is not None and ent.conduction else 0.0
     # the CHI instances' term: chi-const, or 'kramers' or 'chi-cspeed' as
@@ -913,19 +990,21 @@ def kernel_params(model) -> PcParams:
             f"fused kernels: {zg_entropy_options(ent)} (the z-ghosted "
             "builds with ss only)")
     chiterm = conduction_term(ent, eos)
-    # the constant diffusive rates; K-const's K·γ/(ρ·cp) joins per point
-    maxdiffus = max([v for v in (nu, eta, chi * eos.gamma) if v > 0.0],
-                    default=0.0)
+    # the constant diffusive rates; K-const's K·γ/(ρ·cp) joins per point,
+    # and so do ν/ρ, ζ/ρ, ν_sh·shock and μ_T where visx is taken
+    maxdiffus = max([v for v in (nu, nu_s, eta, chi * eos.gamma, diffrho)
+                     if v > 0.0], default=0.0)
     dif = f32(maxdiffus) * dxyz2 / f32(cfg.time.cdtv) if maxdiffus else f32(0)
     heats = ent is not None
     hyd = cfg.module("hydro")
     upw = upwind_flags(cfg)
-    if any(upw) and max(m3, nu3m, diff3m) > 0.0:
+    hyper = max(c for _, c in hyper3_terms(cfg))
+    if any(upw) and hyper > 0.0:
         raise NotImplementedError(
             "fused kernels: upwinding (lupw_lnrho, lupw_uu, lupw_ss) with "
             "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3 "
             "or their mesh flavours): no instance has both")
-    if max(m3, nu3m, diff3m) > 0.0 and "shock" in model.reg.slots \
+    if hyper > 0.0 and "shock" in model.reg.slots \
             and not all(gs.periodic):
         raise NotImplementedError(
             "fused kernels: del6 hyper-diffusion (nu_hyper3, eta_hyper3, "
@@ -958,7 +1037,8 @@ def kernel_params(model) -> PcParams:
         eta_heat=max(eta, 0.0) if heats and mag is not None
         and mag.lohmic_heat else 0.0,
         maxdif=maxdiffus, cdtv=cfg.time.cdtv,
-        nu_shock=nu_shock, nu3=nu3m * PI5_1 if nu3m > 0.0 else nu3,
+        nu_shock=nu_shock,
+        nu3=nu3m * PI5_1 if nu3m > 0.0 else 1.0 if any(nua) else nu3,
         eta3=eta3, diff3=diff3m * PI5_1 if diff3m > 0.0 else diff3,
         dif3=dif3,
         w6=fl3(*paired_weights(6)), inv6=fl3(*inv6),
@@ -975,7 +1055,8 @@ def kernel_params(model) -> PcParams:
         # 1/(60 Δ_a), the upwinding's scale, rounded in f32
         upw_inv=fl3(*(inv / f32(60.0))),
         upw=(ctypes.c_int * 3)(*upw),
-        h6u=fl3(*(mesh6 if nu3m > 0.0 else inv6)),
+        h6u=fl3(*(mesh6 if nu3m > 0.0
+                  else np.array(nua, f32) * inv6 if any(nua) else inv6)),
         h6l=fl3(*(mesh6 if diff3m > 0.0 else inv6)),
         hmesh=mesh_rate(cfg, inv),
         kq_rho=chiterm["kq_rho"], kq_T=chiterm["kq_T"],
@@ -985,7 +1066,10 @@ def kernel_params(model) -> PcParams:
         ttref=ent.TTref_cool if heats else 0.0,
         cp_g=eos.cp / eos.gamma if heats else 0.0,
         heat_uniform=ent.heat_uniform if heats else 0.0,
-        cool_uniform=ent.cool_uniform if heats else 0.0)
+        cool_uniform=ent.cool_uniform if heats else 0.0,
+        visx=int(visx), nu_s=nu_s, nu_r=nu_r, zeta=zeta, diffrho=diffrho,
+        nu_ss=nu_ss, nu_t=nu_t, nu_c=visc.nu_cspeed if nu_t > 0.0 else 0.0,
+        nua=fl3(*nua))
     model.__dict__["_pc_params"] = p
     return p
 
@@ -1200,6 +1284,19 @@ def _flagship_launch(name, lib, model, fa, *args, fake=False, after=()):
             fa.data_ptr(), *args, lib=lib, entry=name, after=after)
 
 
+def _visx_check(model, lib, entry):
+    """Raise where ``model``'s flavours of visx would launch the instance
+    built without them (``visx_spills`` in csrc/fused_rhs.cu: it would
+    spill): the 4-field hydro build's K1 UPW."""
+    p = kernel_params(model)
+    if p.visx and lib == "fused_rhs_hydro" and entry == "rhs_first" \
+            and any(p.upw):
+        raise NotImplementedError(
+            f"fused kernels: {entry} of {lib} with upwinding is built "
+            "without Viscosity's other flavours and diffrho (it would "
+            "spill with them)")
+
+
 def rhs_first(model, fa, fake=False):
     """K1: replaces ``kernel`` + ``_dma_tile_wrap`` (fused_rhs.py:306, wrap
     mode); K8 with ``fake`` (the ``PC_FAKE_RHS`` branch, :127-133).
@@ -1208,6 +1305,8 @@ def rhs_first(model, fa, fake=False):
     if not _dispatch(fa):
         return rhs_first_plain(model, fa, fake)
     lib = _flagship_check(model, fa, fake=fake)
+    if not fake:
+        _visx_check(model, lib, "rhs_first")
     df = torch.empty_like(fa)
     blk = fa.new_empty(_nblocks(fa.shape[1:], lib))
     _flagship_launch("rhs_first", lib, model, fa, df.data_ptr(),

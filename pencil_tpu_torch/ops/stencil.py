@@ -97,6 +97,14 @@ def der2(f, axis, inv_d=None, wrap=True):
     return out if inv_d is None else out * inv_d ** 2
 
 
+def der5(f, axis, inv_d=None, wrap=True):
+    """5th derivative on the 7-point stencil, 2nd order (JAX
+    stencil.py:235), the building block of the 'hyper3-nu-const' and
+    'hyper3-rho-nu-const-symm' viscosities."""
+    out = _paired(f, axis, 5, wrap)
+    return out if inv_d is None else out * inv_d ** 5
+
+
 def der6(f, axis, wrap=True):
     """Unscaled 6th difference on the 7-point stencil (JAX stencil.py:239
     with inv_d=None), the building block of the del6 hyperdiffusion."""

@@ -2,17 +2,20 @@
 of ``pencil_tpu/physics/density.py:113-157``):
 
     Dlnρ/Dt = −∇·u [+ Σ_a |u_a|δ⁶_a lnρ/(60Δ_a)]
+              [+ D(∇²lnρ + |∇lnρ|²)]
               [+ D_sh(shock(∇²lnρ + |∇lnρ|²) + ∇shock·∇lnρ)]
               [+ D₃ Σ_a ∂⁶lnρ/∂x_a⁶]
               [+ D₃ᵐ·π⁻⁵ Σ_a δ⁶_a lnρ·dline_1_a/60]
 
-with 5th-order upwinding of the advection (``lupw_lnrho``, :113), shock
+with 5th-order upwinding of the advection (``lupw_lnrho``, :113), Fickian
+mass diffusion (``diffrho``, :120-125, its constant rate D), shock
 diffusion (``diffrho_shock``, :126-136; it acts only where the Shock
 module's slot exists), the 'simplified' hyper-diffusion of lnρ
 (:137-149) and its mesh flavour (``diffrho_hyper3_mesh``, :150-156),
 whose rate joins the advective CFL (``advec_mesh``).  The JAX module's
-non-log density, ``diffrho`` and its other hyper-diffusion flavours are
-not ported: the polar and anisotropic ones raise.  Initial
+non-log density and its other hyper-diffusion flavours are not ported:
+the polar one raises, and so does the anisotropic one, which JAX's log
+branch drops (it acts on ρ only, :94-102).  Initial
 conditions: 'zero', 'gaussian-noise', 'piecew-poly' (:214-227) and
 'isothermal', lnρ = lnρ0 − γΦ/cs0² in the gravity's potential Φ, with
 an entropy field also the matching ss = −(cp − cv)(lnρ − lnρ0) as the
@@ -41,6 +44,7 @@ class Density(ModuleBase):
     name: ClassVar[str] = "density"
 
     lupw_lnrho: bool = False       # 5th-order upwinding of u·∇lnρ
+    diffrho: float = 0.0           # Fickian mass diffusion D
     diffrho_shock: float = 0.0     # shock diffusion of lnρ (idiff='shock')
     diffrho_hyper3: float = 0.0    # del6 hyperdiffusion (simplified flavor)
     diffrho_hyper3_mesh: float = 0.0   # its mesh flavour
@@ -52,17 +56,27 @@ class Density(ModuleBase):
     diffrho_hyper3_aniso: tuple = (0.0, 0.0, 0.0)
 
     def __post_init__(self):
-        if self.lhyper3_polar or any(self.diffrho_hyper3_aniso):
+        if self.lhyper3_polar:
             raise NotImplementedError(
-                "pencil_tpu_torch: Density hyper-diffusion other than the "
-                "'simplified' diffrho_hyper3 and diffrho_hyper3_mesh "
-                "(lhyper3_polar, diffrho_hyper3_aniso)")
+                "pencil_tpu_torch: Density lhyper3_polar (the polar "
+                "hyper-diffusion needs curvilinear coordinates)")
+        if any(self.diffrho_hyper3_aniso):
+            raise NotImplementedError(
+                "pencil_tpu_torch: Density diffrho_hyper3_aniso on lnrho "
+                "(JAX's log-density branch drops it: only its non-log "
+                "branch, on rho, has the term)")
 
     def register(self, reg):
         reg.register("lnrho", 1, "pde")
 
     def rhs(self, pen, df, ts):
         out = -pen.ugrad("lnrho", upwind=self.lupw_lnrho) - pen.divu()
+        if self.diffrho > 0.0:
+            # diffusion of ρ in lnρ form: D(∇²lnρ + |∇lnρ|²)
+            gl = pen.glnrho()
+            g2 = gl[0] ** 2 + gl[1] ** 2 + gl[2] ** 2
+            out = out + self.diffrho * (pen.del2lnrho() + g2)
+            ts.diffus(self.diffrho)
         if self.diffrho_shock > 0.0 and "shock" in pen.reg.slots:
             # D_sh·[shock·(∇²lnρ + |∇lnρ|²) + ∇shock·∇lnρ]
             shock = pen.field("shock")

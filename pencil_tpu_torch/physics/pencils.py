@@ -104,6 +104,12 @@ class Pencils:
         return st.der6(self._gh_only(name, axis), axis, wrap=self._wr(axis))
 
     @_memo
+    def d5_raw(self, name, axis):
+        """Plain 5th difference, not scaled by Δ⁻⁵ (JAX pencils.py:236),
+        in every input mode (JAX's slices, so its wrapped tiles fail)."""
+        return st.der5(self._gh_only(name, axis), axis, wrap=self._wr(axis))
+
+    @_memo
     def del6v_scaled(self, name):
         """Σ_a ∂⁶f/∂x_a⁶ with the Δ⁻⁶ scaling (hyper3 'simplified'; JAX
         pencils.py:302-305)."""
@@ -209,6 +215,27 @@ class Pencils:
     def divu(self):
         uij = self.uij()
         return uij[0, 0] + uij[1, 1] + uij[2, 2]
+
+    @_memo
+    def grad5divu(self):
+        """(grad5divu)_i = Σ_j ∂⁵/∂x_i⁵ ∂u_j/∂x_j, the symmetric
+        hyper-viscosity's cross term (JAX pencils.py:312-333): i = j the
+        6th difference, i ≠ j ∂⁵_i then ∂_j of u_j, ghosted (or wrapped)
+        along those two axes."""
+        uu = self._slab("uu")
+        out = []
+        for a in range(3):
+            acc = self.d6_raw("uu", a)[a] * pow6(self._inv(a))
+            for j in range(3):
+                if j == a:
+                    continue
+                rest = tuple({0, 1, 2} - {a, j})
+                t = st.der5(self._crop(uu[j:j + 1], rest), a,
+                            wrap=self._wr(a))
+                t = st.der(t, j, wrap=self._wr(j))
+                acc = acc + t[0] * self._inv(a) ** 5 * self._inv(j)
+            out.append(acc)
+        return torch.stack(out)
 
     @_memo
     def oo(self):

@@ -1917,3 +1917,106 @@ def test_wall_steps_on_card_match_cpu(cuda, case):
         kw = dict(kw, entropy=dict(sigmaSBt=pt.configs.fgs_sigma()))
     _steps_match(cuda, conv_slab((32, 32, 32), **kw), nsteps=2,
                  uu_noise=1e-2)
+
+
+# ---- Viscosity's other flavours and Density's diffrho (visx) -------------------
+def _with_all_flavours(cfg):
+    """``cfg`` with every flavour its build takes beside its own:
+    'nu-simplified', 'rho-nu-const' and the bulk ζ = 1e-3 in every build,
+    'shock-simple' with the shock slot, 'nu-cspeed' on the z-walled builds
+    with ss, and diffrho = ν."""
+    visc = cfg.module("viscosity")
+    add = ("nu-simplified", "rho-nu-const", "rho-nu-const-bulk")
+    if cfg.module("shock") is not None:
+        add += ("shock-simple",)
+    if cfg.module("entropy") is not None and not all(cfg.grid.periodic):
+        add += ("nu-cspeed",)
+    return pt.configs.with_viscosity(cfg, tuple(visc.ivisc) + add,
+                                     zeta=1e-3, diffrho=visc.nu)
+
+
+VISC_TEMPLATE = {"mhd": lambda s: flagship(s),
+                 "hydro": lambda s: forced_hydro(s),
+                 "ent_mhd": lambda s: forced_entropy(s),
+                 "ent_hydro": lambda s: forced_entropy(s, magnetic=False)}
+
+
+@pytest.mark.parametrize("case", sorted(VISC_TEMPLATE))
+def test_visc_template_instances_match_plain(cuda, case):
+    """The four periodic builds' K1-K3, K3′ and K2L with every flavour on
+    (visx taken) against their plain versions at 32³."""
+    cfg = _with_all_flavours(VISC_TEMPLATE[case]((32, 32, 32)))
+    _template_instances_match_plain(
+        cuda, cfg, RTOL_FIELD if "ent" in case else 1e-6)
+
+
+def _aniso_cfg(case):
+    cfg = VISC_TEMPLATE[case]((32, 32, 32))
+    h3 = 5e-3 * cfg.grid.dx ** 5
+    return pt.configs.with_viscosity(
+        _with_h3(cfg), ("nu-simplified", "hyper3_nu-const_aniso"), nu=5e-3,
+        nu_aniso_hyper3=(h3, h3, h3 / 2))
+
+
+def test_visc_spilling_instance_raises(cuda):
+    """The 4-field hydro build's K1 UPW is built without the flavours'
+    terms (it would spill at its 128 registers): its wrapper raises with
+    them on, and the gate refuses the configuration."""
+    cfg = pt.configs.with_viscosity(with_upwind(forced_hydro((32, 32, 32))),
+                                    ("nu-const",), nu=5e-3, diffrho=1e-3)
+    assert "K1 UPW" in pt.model.gate_reason(cfg)
+    pm = pt.Model(with_upwind(forced_hydro((32, 32, 32))), device=cuda)
+    pm.__dict__["_pc_params"] = fr.kernel_params(
+        pt.Model(cfg, device="cpu"))
+    fa = random_fa((32, 32, 32), cuda, nvar=pm.reg.nvar)
+    with pytest.raises(NotImplementedError, match="spill"):
+        fr.rhs_first(pm, fa)
+
+
+@pytest.mark.parametrize("case", ("mhd", "hydro", "ent_mhd", "ent_hydro"))
+def test_visc_aniso_h3_instances_match_plain(cuda, case):
+    """The H3 instances of the four periodic builds with
+    'hyper3_nu-const_aniso' in place of 'hyper3-simplified' (ν₃ⱼ = ν₃,
+    ν₃, ν₃/2) and 'nu-simplified' against their plain versions."""
+    _template_instances_match_plain(cuda, _aniso_cfg(case), RTOL_FIELD)
+
+
+VISC_AUX = {"shock": dict(), "shock_hydro_ent": dict(magnetic=False,
+                                                       entropy=True),
+            "shock_ent": dict(entropy=True)}
+
+
+@pytest.mark.parametrize("case", sorted(VISC_AUX))
+def test_visc_aux_kernels_match_plain(cuda, case):
+    """K1s/K5w and two of their layouts with every flavour, 'shock-simple'
+    among them, against their plain versions at 32³."""
+    _aux_kernels_match_plain(cuda, _with_all_flavours(shock_box(
+        (32, 32, 32), **VISC_AUX[case])), 1e-6)
+
+
+@pytest.mark.parametrize("build", sorted(SS_BUILDS))
+def test_visc_zghost_kernels_match_plain(cuda, build):
+    """K6/K7 of each z-walled build with ss with every flavour,
+    'nu-cspeed' among them, against their plain versions at 32³."""
+    _zghost_kernels_match_plain(cuda, _with_all_flavours(conv_slab(
+        (32, 32, 32), **SS_BUILDS[build])))
+
+
+@pytest.mark.parametrize("label", (
+    "flagship rho-nu-const", "forced hydro aniso", "shock box bulk",
+    "conv-slab rho-nu-const", "magnetoconvection nu-therm",
+    "shear box rho-nu-const"))
+def test_visc_paths_on_card_match_cpu(cuda, label):
+    """Two steps of each path of configs.VISCOSITY_PATHS at 32³ on the
+    card against the CPU, the state made on the CPU (velocity noise of
+    1e-2 between walls, 0.1 in the shock box; the shear box from
+    t = 0.37)."""
+    cfg = pt.configs.viscosity_path(label, (32, 32, 32))
+    if label.startswith("shear"):
+        _steps_match(cuda, cfg, t0=0.37, nsteps=2)
+    elif label.startswith("shock"):
+        _steps_match(cuda, cfg, nsteps=2, uu_noise=0.1)
+    else:
+        _steps_match(cuda, cfg, nsteps=2,
+                     uu_noise=1e-2 if "conv" in label or "magneto" in label
+                     else 0.0)

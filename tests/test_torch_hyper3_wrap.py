@@ -209,11 +209,12 @@ def test_gate_admits_hyper3_on_the_wrap_sets(case):
 
 
 def test_other_hyper3_flavours_stay_refused():
-    """Every flavour of the JAX modules but 'hyper3-simplified' and the
-    mesh one (diffrho_hyper3, diffrho_hyper3_mesh) raises as the port's
-    Viscosity or Density is built, with its name; nu-shock on a periodic
-    set without the Shock module stays outside the wrap chain, named."""
-    for flavour in ("hyper3_nu-const_aniso", "hyper3-sph"):
+    """The flavours of the JAX modules that the port lacks ('nu-mixture',
+    which needs chemistry, the polar 'hyper3-sph' and the polar and
+    anisotropic diffusion of lnρ) raise as the port's Viscosity or Density
+    is built, with their names; nu-shock on a periodic set without the
+    Shock module stays outside the wrap chain, named."""
+    for flavour in ("nu-mixture", "hyper3-sph"):
         with pytest.raises(NotImplementedError, match=flavour):
             pt.Viscosity(ivisc=("nu-const", flavour), nu=5e-3)
     for kw in (dict(lhyper3_polar=True),

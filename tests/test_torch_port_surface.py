@@ -182,7 +182,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         pt.Density(lhyper3_polar=True)
     with pytest.raises(NotImplementedError):
-        pt.Viscosity(ivisc=("nu-shock",))
+        pt.Viscosity(ivisc=("nu-mixture",))
     with pytest.raises(NotImplementedError):
         pt.Model(flagship(modules=(pt.EosIdealGas(), pt.Density(init="xjump"),
                                    pt.Hydro()), fused=False),

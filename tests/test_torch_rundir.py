@@ -82,6 +82,27 @@ def fcont_rundir(d, nt=4):
                                    fcont=("ABC", 0.1, 1.0))
 
 
+def visc_rundir(d, nt=4):
+    """conv-slab's shape (velocity noise of 1e-2) with the momentum-
+    conserving viscosity 'rho-nu-const' (ν = 4e-3) and the bulk viscosity
+    ζ = 1e-3 in place of nu-const, and Fickian mass diffusion D = 4e-3."""
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="1e-2"), [
+        ("run.in", "&viscosity_run_pars\n  nu=4e-3\n",
+         "&viscosity_run_pars\n  nu=4e-3, ivisc='rho-nu-const',"
+         "'rho-nu-const-bulk', zeta=1e-3\n"),
+        ("run.in", "&density_run_pars\n", "&density_run_pars\n"
+         "  diffrho=4e-3\n")])
+
+
+def nu_therm_rundir(d, nt=4):
+    """conv-slab's shape (velocity noise of 1e-2) with the temperature-
+    dependent viscosity 'nu-therm', ν T^½, in place of nu-const."""
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="1e-2"), [
+        ("run.in", "&viscosity_run_pars\n  nu=4e-3\n",
+         "&viscosity_run_pars\n  nu=4e-3, ivisc='nu-therm', "
+         "nu_cspeed=0.5\n")])
+
+
 def kramers_rundir(d, nt=4):
     """conv-slab's shape (velocity noise of 1e-2) with Kramers opacity in
     place of K-const (K₀ of configs.KRAMERS_K0, n = 1, clipped to χ in
@@ -425,6 +446,46 @@ def test_loader_maps_the_heat_conduction_as_jax(tmp_path, case):
     assert pt.Model(cfg, device="cpu").mode == "zghost"
 
 
+# Viscosity's flavours and Density's diffrho the loader once refused: the
+# run.in edits of the helical directory
+VISC_MAPPED = {
+    "diffrho": [("run.in", "ivisc='nu-const'", "ivisc='rho-nu-const'"),
+                ("run.in", "&density_run_pars\n/\n",
+                 "&density_run_pars\n  diffrho=1e-3\n/\n")],
+    "cdiffrho": [("run.in", "&density_run_pars\n/\n",
+                  "&density_run_pars\n  cdiffrho=2e-3\n/\n")],
+    "zeta": [("run.in", "nu=5e-3,", "nu=5e-3, zeta=1e-3,"),
+             ("run.in", "ivisc='nu-const'",
+              "ivisc='nu-const','rho-nu-const-bulk'")],
+    "nu_therm": [("run.in", "ivisc='nu-const'",
+                  "ivisc='nu-therm', nu_cspeed=0.3")],
+    "aniso": [("run.in", "ivisc='nu-const'",
+               "ivisc='nu-simplified','hyper3_nu-const_aniso', "
+               "nu_aniso_hyper3=1e-6,1e-6,5e-7")],
+}
+
+
+@pytest.mark.parametrize("case", sorted(VISC_MAPPED))
+def test_loader_maps_the_viscosity_flavours_as_jax(tmp_path, case):
+    """ivisc's flavours with zeta, nu_cspeed and nu_aniso_hyper3, and
+    diffrho (cdiffrho where it is not given), load as JAX's loader loads
+    them (pencil_tpu/compat/rundir.py:723, :1265-1274): every field the
+    two modules share equal but ν₃ᵐ (the port reads it, JAX's loader
+    keeps its default)."""
+    d = _edited(helical_rundir(tmp_path / "r"), VISC_MAPPED[case])
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    for name in ("viscosity", "density"):
+        mine, ref = cfg.module(name), jcfg.module(name)
+        for f in dataclasses.fields(mine):
+            if f.name != "nu_hyper3_mesh" and hasattr(ref, f.name):
+                assert getattr(mine, f.name) == getattr(ref, f.name), \
+                    (name, f.name)
+    assert cfg.module("density").diffrho == {
+        "diffrho": 1e-3, "cdiffrho": 2e-3}.get(case, 0.0)
+    assert pt.Model(cfg, device="cpu") is not None
+
+
 # z-wall codes and the values the loader gives them: (run.in edits)
 WALLS_MAPPED = {
     "ism": [("run.in", "bcz='s','s','a','a2','c1:cT'",
@@ -606,8 +667,6 @@ REFUSED = {
                          "&magn_mf_run_pars\n  alpha_effect=1.\n/\n",
                          "magn_mf"),
     # values the port's modules do not take
-    "diffrho": ("helical", "run.in",
-                "&density_run_pars\n  diffrho=1e-3\n/\n", "diffrho"),
     "iheatcond": ("conv", "run.in",
                   ("iheatcond='K-const'", "iheatcond='chit'"),
                   "iheatcond"),
@@ -646,16 +705,15 @@ REFUSED = {
                 ("inituu='gaussian-noise'", "inituu='sinwave-x'"), "inituu"),
     "init_ss": ("conv", "start.in",
                 ("initss='piecew-poly'", "initss='isothermal'"), "initss"),
-    "ivisc": ("helical", "run.in", ("ivisc='nu-const'", "ivisc='nu-therm'"),
-              "ivisc"),
+    "ivisc": ("helical", "run.in", ("ivisc='nu-const'",
+                                    "ivisc='nu-const','nu-mixture'"),
+              "nu-mixture"),
     "iforce": ("helical", "run.in", ("iforce='helical'", "iforce='irrot'"),
                "iforce"),
     "bc_mnemonic": ("conv", "run.in", ("'c1:cT'", "'c1:c3'"), "c3"),
     "iresistivity": ("helical", "run.in",
                      ("eta=5e-3", "eta=5e-3, iresistivity='eta-zdep'"),
                      "iresistivity"),
-    "zeta": ("helical", "run.in", ("nu=5e-3,", "nu=5e-3, zeta=1e-3,"),
-             "zeta"),
     "weno": ("helical", "run.in", ("itorder=3", "itorder=3, "
                                    "lweno_transport=T"), "lweno_transport"),
     "mu0": ("helical", "start.in",

@@ -45,9 +45,10 @@ from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
 from test_torch_rundir import (bext_rundir, conv_rundir, conv_shock_rundir,
                                fcont_rundir, helical_rundir, kramers_rundir,
-                               radiative_rundir, safi_rundir, shock_rundir,
+                               nu_therm_rundir, radiative_rundir,
+                               safi_rundir, shock_rundir,
                                shock_highorder_rundir, upwind_rundir,
-                               vacuum_rundir)
+                               vacuum_rundir, visc_rundir)
 
 torch.set_num_threads(1)
 
@@ -277,3 +278,33 @@ def test_cli_runs_the_z_wall_codes(tmp_path, writer):
         main([cmd, mine, "--device", "cpu"])
         jax_main([cmd, str(ref)])
     assert_states_match(mine, str(ref))
+
+
+def _diffrho_rundir(d):
+    """The helical directory with 'rho-nu-const' in place of nu-const and
+    Fickian mass diffusion D = ν (the flagship's path of the flavours)."""
+    from test_torch_rundir import _edited
+    return _edited(helical_rundir(d, nt=4), [
+        ("run.in", "ivisc='nu-const'", "ivisc='rho-nu-const'"),
+        ("run.in", "&density_run_pars\n/\n",
+         "&density_run_pars\n  diffrho=5e-3\n/\n")])
+
+
+@pytest.mark.parametrize("writer", (_diffrho_rundir, visc_rundir,
+                                    nu_therm_rundir),
+                         ids=("rho-nu-const diffrho", "bulk zeta",
+                              "nu-therm"))
+def test_cli_runs_the_viscosity_flavours(tmp_path, writer):
+    """Three run directories the loader refused before: helical MHD with
+    'rho-nu-const' and diffrho (the port's K1-K3 chain), the conv-slab with
+    'rho-nu-const', the bulk ζ and diffrho, and the conv-slab with
+    'nu-therm' (K6/K7), started and run by both command lines (the port's
+    chains on their kernels' plain versions; JAX's jnp path); the final
+    states agree."""
+    mine = writer(tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref))
+

@@ -9,7 +9,7 @@ process on one card.
     python3 time_loader_variants.py --option upwind|shock|safi|mesh ...
                                     [--lib all]
                                     [--n 256]
-    python3 time_loader_variants.py --option heatcond [--lib all]
+    python3 time_loader_variants.py --option heatcond|visc [--lib all]
                                     [--n 256] [--parent-tree DIR]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
@@ -98,6 +98,16 @@ chi-const configurations through DIR's package, its own kernels, in the
 same turns.  Each flavour's kernels are checked against their plain
 versions first; the registers and local bytes of each instance are
 printed.
+
+``--option visc`` times each build's kernels (``--lib`` one of the
+template's 26 libraries, several joined by commas, or ``all``) with Viscosity's other flavours and
+Density's diffrho off (the build's configuration: visx not taken) and on
+(chip_smoke.py's ``with_visc``: every flavour that the build takes) and,
+for fused_rhs, fused_rhs_shock_hydro_ent and fused_rhs_zg, each flavour
+alone; with ``--parent-tree DIR`` also the build's configuration through
+DIR's package and its own kernels, all in turns on one input.  Each state
+with a flavour on is checked against its plain version first; the
+registers and local bytes of the off and on instances are printed.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -473,6 +483,116 @@ def time_options(args, smi):
     return 0
 
 
+# --option visc: the builds whose flavours are also timed one at a time
+VISC_SINGLE = ("fused_rhs", "fused_rhs_shock_hydro_ent", "fused_rhs_zg")
+
+
+def visc_states(pt, cs, cfg, lib):
+    """state -> configuration of one build for ``--option visc``: 'off'
+    (the build's configuration: visx not taken), 'on' (chip_smoke.py's
+    with_visc: every flavour the build takes) and, for VISC_SINGLE, each
+    flavour alone beside the build's own viscosity."""
+    out = {"off": cfg, "on": cs.with_visc(pt, cfg)}
+    if lib not in VISC_SINGLE:
+        return out
+    visc = cfg.module("viscosity")
+    own = tuple(visc.ivisc)
+    singles = {"nu-simplified": ("nu-simplified",),
+               "rho-nu-const": ("rho-nu-const",),
+               "bulk": ("rho-nu-const-bulk",)}
+    if cfg.module("shock") is not None:
+        singles["shock-simple"] = ("shock-simple",)
+    if cfg.module("entropy") is not None and not all(cfg.grid.periodic):
+        singles["nu-cspeed"] = ("nu-cspeed",)
+    for name, add in singles.items():
+        out[name] = pt.configs.with_viscosity(cfg, own + add,
+                                              zeta=cs.VISC_ZETA)
+    out["diffrho"] = pt.configs.with_viscosity(cfg, own, diffrho=visc.nu)
+    return out
+
+
+def time_visc(args, smi):
+    """The ``--option visc`` mode: each build's kernels with Viscosity's
+    other flavours and diffrho off (visx not taken) and on, and (with
+    ``--parent-tree``) the same configuration through the parent's own
+    package, all in turns on one input; for VISC_SINGLE each flavour
+    alone too."""
+    import torch
+    import chip_smoke as cs
+    import pencil_tpu_torch as pt
+    import pencil_tpu_torch.configs  # noqa: F401  (pt.configs)
+    from pencil_tpu_torch.ops import _build
+    from pencil_tpu_torch.ops import fused_rhs as fr
+
+    pp = load_parent(args.parent_tree) if args.parent_tree else None
+    libs = (list(_build.LIBRARIES) if args.lib == "all"
+            else args.lib.split(","))
+    for build in (_build, pp.ops._build) if pp else (_build,):
+        build.LIBRARIES = {k: v for k, v in build.LIBRARIES.items()
+                           if k in libs}
+        build.start()
+    # every library built before any is timed: nvcc on the host's cores
+    # beside a timed launch loop slows the launches
+    for build in (_build, pp.ops._build) if pp else (_build,):
+        build.build()
+    shape = (args.n,) * 3
+    builds = option_builds(pt, cs, fr, shape)
+    pbuilds = option_builds(pp, cs, pp.ops.fused_rhs, shape) if pp else {}
+    result = {}
+    for lib in libs:
+        label, cfg = builds[lib]
+        models = {k: pt.Model(c, device="cuda")
+                  for k, c in visc_states(pt, cs, cfg, lib).items()}
+        timed, checked = option_kernels(torch, cs, fr, models["off"], shape)
+        for state, m in models.items():
+            if state == "off":
+                continue
+            for kind, (kern, plain) in checked.items():
+                agree(cs, f"{lib} visc {state} {kind}", kern(m), plain(m),
+                      cs.RTOL_FIELD)
+        calls = {id(m): timed for m in models.values()}
+        if pp:
+            pm = pp.Model(pbuilds[lib][1], device="cuda")
+            ptimed, _ = option_kernels(torch, cs, pp.ops.fused_rhs, pm,
+                                       shape)
+            models = {PARENT: pm, **models}
+            calls[id(pm)] = ptimed
+        times = cs.in_turns(torch, models, {
+            kind: (lambda m, kind=kind: calls[id(m)][kind](m))
+            for kind in timed})
+        attrs = fr.flagship_attrs(lib)
+        regs = {}
+        for state in ("off", "on"):
+            m = models[state]
+            fr.reset_launches()
+            for fn in timed.values():
+                fn(m)
+            launched = {k for k, v in fr.LAUNCHES.items() if v}
+            rot = bool(m.cfg.module("hydro").Omega)
+            regs[state] = {
+                n: (a["registers"], a["local_bytes"])
+                for n, a in attrs.items()
+                if n.split()[0] in launched
+                and set(n.split()[1:]) <= {"kick", "rot"}
+                and ("rot" in n.split()) == rot}
+        result[lib] = {f"{kind} {state}": ts
+                       for (kind, state), ts in times.items()}
+        print(f"time_loader_variants --option visc {lib} ({label}) at "
+              f"{shape} on {smi}, in turns ({', '.join(models)}, then "
+              "back): " + "; ".join(
+                  f"{kind} {state} " + ", ".join(f"{t:.4f}" for t in ts)
+                  + " ms" for (kind, state), ts in times.items())
+              + "; (registers, local bytes): " + "; ".join(
+                  f"{state} " + ", ".join(f"{n} {r}" for n, r in
+                                          regs[state].items())
+                  for state in regs), flush=True)
+        del models, timed, checked, calls
+        torch.cuda.empty_cache()
+    print(json.dumps({"device": smi, "shape": shape, "ms": result}),
+          flush=True)
+    return 0
+
+
 def host_ms(torch, fn, n):
     """Mean ms the host takes to issue fn() over n calls (after one
     warm-up), not waiting for the device."""
@@ -507,7 +627,8 @@ def main():
                     "path's whole step (the shock pre-pass, fills and "
                     "both kernels) per variant too")
     ap.add_argument("--option", nargs="+",
-                    choices=("upwind", "shock", "safi", "mesh", "heatcond"),
+                    choices=("upwind", "shock", "safi", "mesh", "heatcond",
+                             "visc"),
                     help="time each option on against off, in place of "
                     "variants")
     args = ap.parse_args()
@@ -527,6 +648,14 @@ def main():
     from pencil_tpu_torch.ops import _build
     from pencil_tpu_torch.ops import fused_rhs as fr
 
+    if args.option and "visc" in args.option and len(args.option) > 1:
+        ap.error("--option visc: alone")
+    if args.option == ["visc"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        return time_visc(args, smi)
     if args.option == ["heatcond"]:
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
