@@ -291,7 +291,21 @@ path).
 
 runs phase 1, those checks and paths and their counterparts, and their
 kernels in turns, alone (a quicker run for work on those terms; no
-kernels line and no result line).
+kernels line and no result line).  Phase 2 also holds every H3 instance
+of the 12 builds with ss with each flavour of Entropy's hyper-diffusion
+of s (χ₃, the mesh χ₃ᵐ, the anisotropic χ₃ⱼ; the first beside Newtonian
+and uniform cooling) and every kernel of the 8 periodic builds with ss
+with the cooling terms alone against their plain versions at 32³
+(``compare_chi3``), phase 3 runs hyper-diffusive forced MHD turbulence
+with ss, χ₃ and Newtonian cooling (K1e-K3e H3) and hyper-diffusive
+convection with χ₃ (K6/K7 H3) at 256³ beside the same paths without
+them (ms/step and the card's busy ms/step), with two steps of each on
+the card against the CPU at 64³, and phase 4 times their kernels in
+turns with the counterparts'.
+
+    python3 chip_smoke.py --only chi3
+
+runs phase 1 and those alone, likewise.
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the exit code is then not 0.  Without a CUDA device the script
@@ -526,6 +540,23 @@ VISC_COUNTERPART = {"flagship rho-nu-const": "flagship",
                     "shear box rho-nu-const": "shear box"}
 # the bulk viscosity of phase 2's checks
 VISC_ZETA = 1e-3
+# Entropy's hyper-diffusion of s and its cooling: phase 2 holds every H3
+# instance of the 12 builds with ss with each flavour (χ₃, the mesh χ₃ᵐ,
+# the anisotropic χ₃ⱼ: configs.with_chi_hyper3's) against its plain
+# version, the first flavour beside CHI3_COOLING (Newtonian cooling
+# towards T = 1.2, off the inputs' T ≈ 1.5, and the uniform heating and
+# cooling), and every kernel of the 8 periodic builds with ss with
+# CHI3_COOLING alone; phase 3 runs two paths at 256³, each beside its
+# counterpart without the terms: (a) hyper-diffusive non-isothermal
+# forced MHD turbulence with χ₃ and Newtonian cooling towards the
+# initial T on CHI3_COOLING's τ (K1e-K3e H3), (b) hyper-diffusive
+# convection with χ₃ (K6/K7 H3)
+CHI3_FLAVOURS = (True, "mesh", "aniso")
+CHI3_COOLING = dict(tau_cool=1.0, TTref_cool=1.2, heat_uniform=1e-2,
+                    cool_uniform=2e-3)
+CHI3_COUNTERPART = {"entropy MHD h3 chi3 cooled": "entropy MHD h3",
+                    "conv-slab h3 chi3": "conv-slab h3"}
+CONV_SLAB_PATHS["conv-slab h3 chi3"] = dict(hyper3=True, chi_hyper3=True)
 # the z-wall codes: phase 2's fills of every ported code on the card
 # against the CPU at 32³ (WALL_CASES: a bcz override of conv_slab(n,
 # magnetic=True) each, with its conv_slab keyword arguments and
@@ -766,6 +797,8 @@ for _name, _sfx in TEMPLATE_PATHS.items():
         PER_STEP[_name + _order] = {
             k + _sfx: n for k, n in PER_STEP["flagship" + _order].items()}
 PER_STEP["forced hydro aniso"] = PER_STEP["forced hydro h3"]
+PER_STEP.update({label: PER_STEP[other]
+                 for label, other in CHI3_COUNTERPART.items()})
 _FR = "pencil_tpu/ops/fused_rhs.py:"
 REPLACES = {
     "rhs_first": _FR + "306", "rhs_tail_defer": _FR + "379",
@@ -2014,6 +2047,119 @@ def time_visc_turns(torch, fr, smi, label, path, other, opath):
     time_zg_turns(torch, fr, smi, path, opath)
 
 
+def with_cooling(pt, cfg):
+    """``cfg`` with the Entropy fields of CHI3_COOLING."""
+    return pt.configs.with_module(cfg, "entropy", **CHI3_COOLING)
+
+
+def chi3_path_cfg(pt, label, shape):
+    """The configuration of the path ``label`` of CHI3_COUNTERPART or of
+    its counterpart: (a) forced_entropy with del6, χ₃ and Newtonian
+    cooling, (b) conv_slab with del6 and χ₃ (CONV_SLAB_PATHS)."""
+    if label == "entropy MHD h3 chi3 cooled":
+        return pt.configs.forced_entropy(shape, hyper3=True, chi_hyper3=True,
+                                         tau_cool=CHI3_COOLING["tau_cool"])
+    if label in TEMPLATE_PATHS:
+        return template_cfg(pt, label, shape)
+    return conv_slab_cfg(pt, label, shape)
+
+
+def compare_chi3(torch, pt, fr, shape, errs):
+    """Phase 2: every H3 instance of the 12 builds with ss with each
+    flavour of Entropy's hyper-diffusion of s against its plain version,
+    the first flavour beside the cooling terms (the periodic builds' five
+    kernels with and without the kick, the aux builds' first and update
+    kernel, the z-ghosted builds' K6/K7 and their CHI H3 instances), and
+    every kernel of the 8 periodic builds with ss with the cooling terms
+    alone (their base instances), at each build's bound of phase 2."""
+    wc = pt.configs.with_chi_hyper3
+
+    def flavoured(cfg, flavour):
+        cfg = wc(cfg, flavour)
+        return with_cooling(pt, cfg) if flavour is True else cfg
+
+    for name in ("entropy MHD", "entropy hydro"):
+        compare_template(torch, pt, fr, f"{name}, cooling",
+                         with_cooling(pt, template_cfg(pt, name, shape)), errs,
+                         RTOL_FIELD)
+        for flavour in CHI3_FLAVOURS:
+            compare_template(
+                torch, pt, fr, f"{name} h3, chi3 {flavour}",
+                flavoured(template_cfg(pt, name + " h3", shape), flavour),
+                errs, RTOL_FIELD)
+    for label in AUX_PATHS:
+        base = aux_cfg(pt, label, shape)
+        if base.module("entropy") is None:
+            continue
+        Omega = base.module("hydro").Omega
+        compare_aux_kernels(
+            torch, pt, fr, f"{label}, cooling",
+            with_cooling(pt, aux_variant(pt, base, Omega, False)), errs,
+            AUX_RTOL[label])
+        for flavour in CHI3_FLAVOURS:
+            compare_aux_kernels(
+                torch, pt, fr, f"{label}, del6, chi3 {flavour}",
+                flavoured(aux_variant(pt, base, Omega, True), flavour),
+                errs, AUX_RTOL[label])
+    for build, bkw in ZG_SS_BUILDS.items():
+        if "shock" in bkw:
+            continue        # no H3 instance beside the walled slot
+        for flavour in CHI3_FLAVOURS:
+            compare_zg_cfg(torch, pt, fr, flavoured(pt.configs.conv_slab(
+                shape, **bkw, hyper3=True), flavour),
+                f"{build}, del6, chi3 {flavour}", errs)
+        compare_zg_cfg(torch, pt, fr, pt.configs.conv_slab(
+            shape, **bkw, hyper3=True, chi=CHI, chi_hyper3=True),
+            f"{build}, chi-const, del6, chi3", errs)
+
+
+def run_chi3_paths(torch, pt, fr, smi, shape, launches, base):
+    """Phase 3: the two paths of CHI3_COUNTERPART at 256³, through the
+    runner of each chain, each one's ms/step and the card's busy ms per
+    step printed beside its counterpart's (``base``: label -> that path's
+    result, of this call); and two steps of each on the card against the
+    CPU at 64³.  Returns label -> the path's result."""
+    out = {}
+    for label, other in CHI3_COUNTERPART.items():
+        if label in CONV_SLAB_PATHS:
+            out[label] = run_conv_slab(torch, pt, fr, smi, shape, launches,
+                                       label, nwin=VARIANT_WINDOWS)
+        else:
+            out[label] = run_flagship(torch, pt, fr, smi, shape, launches,
+                                      name=label, cfg=chi3_path_cfg(
+                                          pt, label, shape))
+        busy = {}
+        for lab, (model, state) in ((label, out[label][:2]),
+                                    (other, base[other][:2])):
+            step = model.make_step()
+            busy[lab] = device_busy(torch, lambda: step(state), 3)[0]
+        ms, ms0 = out[label][2], base[other][2]
+        print(f"phase 3 {N_MAIN}^3 {label} on {smi}: {ms:.4f} ms/step, "
+              f"the card busy {busy[label]:.4f} ms/step; {other} "
+              f"{ms0:.4f} ms/step, busy {busy[other]:.4f} ms/step in this "
+              f"call ({(ms / ms0 - 1) * 100:+.2f} %, busy "
+              f"{(busy[label] / busy[other] - 1) * 100:+.2f} %)",
+              flush=True)
+    n64 = (N_MAIN // 4,) * 3
+    for label in CHI3_COUNTERPART:
+        compare_steps(torch, pt, label, chi3_path_cfg(pt, label, n64),
+                      phase="3", uu_noise=1e-2 if "conv" in label else 0.0)
+    return out
+
+
+def time_chi3_turns(torch, fr, smi, paths, base):
+    """Phase 4: each CHI3_COUNTERPART path's kernels timed in turns (A, B,
+    B, A, 20 launches a turn) with its counterpart's, each on its own
+    path's final state at 256³ (phase 2 and phase 3's steps check them
+    against their plain versions)."""
+    for label, path in paths.items():
+        other = CHI3_COUNTERPART[label]
+        if label in CONV_SLAB_PATHS:
+            time_zg_turns(torch, fr, smi, path, base[other])
+        else:
+            time_term_turns(torch, fr, smi, label, path, other, base[other])
+
+
 def compare_zg_shock(torch, pt, fr, shape, errs, every=True):
     """Phase 2: the z-ghosted builds with the shock slot (K6k/K7k,
     K6mk/K7mk) against their plain versions, with and without the shock
@@ -2222,6 +2368,8 @@ def main():
     mark("phase 1")
     if sys.argv[1:] == ["--only", "visc"]:
         return visc_only(torch, pt, fr, _build, smi, mark)
+    if sys.argv[1:] == ["--only", "chi3"]:
+        return chi3_only(torch, pt, fr, _build, smi, mark)
     # ---- phase 2: kernels against their plain versions ----------------
     # every instance checked, also those no phase-3 path runs (the
     # z-ghosted builds' CHI and H3 instances together)
@@ -2297,6 +2445,8 @@ def main():
     mark("phase 2, Entropy's conduction and cooling flavours")
     compare_visc(torch, pt, fr, (32, 32, 32), errs)
     mark("phase 2, Viscosity's flavours and diffrho")
+    compare_chi3(torch, pt, fr, (32, 32, 32), errs)
+    mark("phase 2, Entropy's hyper-diffusion and cooling")
     compare_walls(torch, pt, (32, 32, 32), WALL_CASES)
     compare_walls(torch, pt, (128, 128, 16), WALL_FFT_CASES)
     mark("phase 2, the z-wall codes' fills")
@@ -2468,8 +2618,8 @@ def main():
                       name="entropy MHD")
     eh = run_flagship(torch, pt, fr, smi, shape, launches,
                       name="entropy hydro")
-    h3 = [run_flagship(torch, pt, fr, smi, shape, launches, name=name)
-          for name in TEMPLATE_PATHS if name.endswith(" h3")]
+    h3 = {name: run_flagship(torch, pt, fr, smi, shape, launches, name=name)
+          for name in TEMPLATE_PATHS if name.endswith(" h3")}
     grav = {label: run_flagship(torch, pt, fr, smi, shape, launches,
                                 name=label, cfg=pt.configs.strat_box(
                                     shape, **kw))
@@ -2547,11 +2697,14 @@ def main():
              for label in WALL_PATHS}
     mark("phase 3, the z-wall paths")
     visc = run_visc_paths(torch, pt, fr, smi, shape, launches, {
-        "flagship": fl, "forced hydro h3": h3[1],
+        "flagship": fl, "forced hydro h3": h3["forced hydro h3"],
         "hydro shock box ent": aux["hydro shock box ent"],
         "conv-slab": zg, "magnetoconvection": zm,
         "shear box": aux["shear box"]})
     mark("phase 3, Viscosity's flavours and diffrho")
+    cbase = {"entropy MHD h3": h3["entropy MHD h3"], "conv-slab h3": zh}
+    chi3 = run_chi3_paths(torch, pt, fr, smi, shape, launches, cbase)
+    mark("phase 3, Entropy's hyper-diffusion and cooling")
     for order in (4, 2):
         for path in TEMPLATE_PATHS:
             run_flagship(torch, pt, fr, smi, shape, launches, itorder=order,
@@ -2568,10 +2721,10 @@ def main():
     # ---- phase 4: kernels and the plain chains, timed at 256³ ---------
     time_flagship(torch, fr, smi, fl, errs, timings, bounds)
     time_tails(torch, fr, fl, errs, timings, bounds)
-    for path in (hy, em, eh, *h3):
+    for path in (hy, em, eh, *h3.values()):
         time_flagship(torch, fr, smi, path, errs, timings, bounds)
         time_tails(torch, fr, path, errs, timings, bounds)
-    for path in h3:
+    for path in h3.values():
         time_h3_instances(torch, pt, fr, smi, path)
     base = {"flagship": fl, "forced hydro": hy}
     for label, path in grav.items():
@@ -2662,13 +2815,14 @@ def main():
     for label, path in walls.items():
         time_wall_path(torch, fr, smi, path, parents[WALL_COUNTERPART[label]],
                        errs)
-    vbase = {"flagship": fl, "forced hydro h3": h3[1],
+    vbase = {"flagship": fl, "forced hydro h3": h3["forced hydro h3"],
              "hydro shock box ent": aux["hydro shock box ent"],
              "conv-slab": zg, "magnetoconvection": zm,
              "shear box": aux["shear box"]}
     for label, path in visc.items():
         other = VISC_COUNTERPART[label]
         time_visc_turns(torch, fr, smi, label, path, other, vbase[other])
+    time_chi3_turns(torch, fr, smi, chi3, cbase)
 
     mark("phase 4")
     unchecked = [k for k in KERNEL_NAMES if errs[k] is None]
@@ -2728,6 +2882,37 @@ def visc_only(torch, pt, fr, _build, smi, mark):
         other = VISC_COUNTERPART[label]
         time_visc_turns(torch, fr, smi, label, path, other, base[other])
     mark("phase 4, Viscosity's flavours and diffrho")
+    print(smi, flush=True)
+    return 0
+
+
+def chi3_only(torch, pt, fr, _build, smi, mark):
+    """``chip_smoke.py --only chi3``: the checks and paths of Entropy's
+    hyper-diffusion and cooling alone (phase 2's compare_chi3, every
+    instance's registers and local bytes, the two paths and their
+    counterparts at 256³ with two steps of each at 64³ against the CPU,
+    their kernels in turns), a quicker run for work on those terms; it
+    prints no kernels line and no result."""
+    errs = dict.fromkeys(fr.LAUNCHES)
+    compare_chi3(torch, pt, fr, (32, 32, 32), errs)
+    mark("phase 2, Entropy's hyper-diffusion and cooling")
+    for lib in _build.LIBRARIES:
+        for inst, a in fr.flagship_attrs(lib).items():
+            check(a["local_bytes"] == 0,
+                  f"{inst}: {a['local_bytes']} B of local memory")
+            print(f"phase 4 {inst} on {smi}: {a['registers']} registers, "
+                  f"{a['local_bytes']} B local", flush=True)
+    shape = (N_MAIN,) * 3
+    launches = {}
+    base = {
+        "entropy MHD h3": run_flagship(torch, pt, fr, smi, shape, launches,
+                                       name="entropy MHD h3"),
+        "conv-slab h3": run_conv_slab(torch, pt, fr, smi, shape, launches,
+                                      "conv-slab h3", nwin=VARIANT_WINDOWS)}
+    paths = run_chi3_paths(torch, pt, fr, smi, shape, launches, base)
+    mark("phase 3, Entropy's hyper-diffusion and cooling")
+    time_chi3_turns(torch, fr, smi, paths, base)
+    mark("phase 4, Entropy's hyper-diffusion and cooling")
     print(smi, flush=True)
     return 0
 

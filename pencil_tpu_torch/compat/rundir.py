@@ -582,8 +582,6 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
         # the module — the Makefile default is ENERGY=noentropy
         _check("entropy", ent_p, {
             "cooltype": "",
-            "chi_hyper3": 0.0, "chi_hyper3_mesh": 0.0,
-            "chi_hyper3_aniso": _zero3,
             "lthdiff_hmax": False, "rcool": 0.0,
             "lchit_fluct": False, "lread_hcond": False,
             "lfreeze_sint": False, "lfreeze_sext": False})
@@ -608,6 +606,10 @@ def load_rundir(path, nxyz=None) -> Tuple[Config, Dict]:
             hcond0=hcond0,
             chi=float(ent_p.get("chi", 0.0)),
             chi_shock=float(ent_p.get("chi_shock", 0.0)),
+            # the hyper-diffusion of s (JAX rundir.py:1200-1202)
+            chi_hyper3=float(ent_p.get("chi_hyper3", 0.0)),
+            chi_hyper3_mesh=float(ent_p.get("chi_hyper3_mesh", 0.0)),
+            chi_hyper3_aniso=_aniso3(ent_p.get("chi_hyper3_aniso", 0.0)),
             # Entropy's other conduction and cooling terms, as JAX's
             # loader maps them (pencil_tpu/compat/rundir.py:1203-1238)
             hcond0_kramers=float(ent_p.get("hcond0_kramers", 0.0)),

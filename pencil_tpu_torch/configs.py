@@ -24,6 +24,14 @@ def with_upwind(cfg):
         if m.name in UPWIND_FLAGS else m for m in cfg.modules))
 
 
+def with_module(cfg, name, **fields):
+    """``cfg`` (of either package) with the module ``name``'s ``fields``
+    replaced."""
+    return cfg.replace(modules=tuple(
+        dataclasses.replace(m, **fields) if m.name == name else m
+        for m in cfg.modules))
+
+
 def with_viscosity(cfg, ivisc, **coeffs):
     """``cfg`` (of either package) with the viscosity flavours ``ivisc``
     in place of its own, each keyword a coefficient of the Viscosity
@@ -31,10 +39,24 @@ def with_viscosity(cfg, ivisc, **coeffs):
     ``nu_aniso_hyper3``, ``nu_cspeed``, ...) but ``diffrho``, Density's
     Fickian mass diffusion, which goes to the Density module."""
     den = {k: coeffs.pop(k) for k in ("diffrho",) if k in coeffs}
-    new = {"viscosity": dict(coeffs, ivisc=tuple(ivisc)), "density": den}
-    return cfg.replace(modules=tuple(
-        dataclasses.replace(m, **new[m.name]) if m.name in new else m
-        for m in cfg.modules))
+    return with_module(with_module(cfg, "viscosity", ivisc=tuple(ivisc),
+                                   **coeffs), "density", **den)
+
+
+def with_chi_hyper3(cfg, flavour=True):
+    """``cfg`` (of either package, with Entropy) with the del6
+    hyper-diffusion of s: ``True`` χ₃ = 5e-3·dx⁵ (``chi_hyper3``, the
+    value of ``hyper3``'s ν₃, η₃ and D₃), "mesh" its mesh flavour
+    (``chi_hyper3_mesh`` = ``MESH_HYPER3``), "aniso" its anisotropic one
+    (``chi_hyper3_aniso`` = (χ₃, χ₃, χ₃/2)); ``False`` leaves ``cfg`` as
+    it is."""
+    if not flavour:
+        return cfg
+    h3 = 5e-3 * cfg.grid.dx ** 5
+    new = {True: dict(chi_hyper3=h3),
+           "mesh": dict(chi_hyper3_mesh=MESH_HYPER3),
+           "aniso": dict(chi_hyper3_aniso=(h3, h3, 0.5 * h3))}[flavour]
+    return with_module(cfg, "entropy", **new)
 
 
 def with_shock_diffusion(cfg, coef=1.0):
@@ -55,7 +77,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
               hyper3=False, shear=False, forcing=0.0, upwind=False,
               shock=False, safi=False, heatcond="K-const", chi_cspeed=None,
               tau_cool=0.0, cooling_profile="gaussian", entropy=None,
-              bcz=None):
+              bcz=None, chi_hyper3=False):
     """Stratified convection in the style of the Pencil Code's conv-slab
     sample: a stable layer (mpoly1 = 3) from z0 to z1, an unstable one
     (mpoly0 = 1) from z1 to z2 and an isothermal one above, under constant
@@ -114,6 +136,8 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
     default's (e.g. ``{"ax": "pot", "ay": "pot", "az": "pot"}``, a vacuum
     exterior; ``{"lnrho": "a2:hs", "ss": "c1:Fgs"}``, a hydrostatic
     density top and a black-body top, ``fgs_sigma()`` giving σ_SBt).
+    ``chi_hyper3`` adds the del6 hyper-diffusion of s (``with_chi_hyper3``:
+    True, "mesh" or "aniso"), ``hyper3`` unchanged.
     The values are this configuration's own, not the sample's
     start.in/run.in.
 
@@ -181,6 +205,7 @@ def conv_slab(n, fused=True, pkg=None, magnetic=False, Omega=0.0, chi=0.0,
                  *mag,
                  *((pkg.Forcing(force=forcing, kf=3.0),) if forcing else ()),
                  *((pkg.Shock(),) if shock else ())))
+    cfg = with_chi_hyper3(cfg, chi_hyper3)
     return with_upwind(cfg) if upwind else cfg
 
 
@@ -583,7 +608,7 @@ def flagship(n, fused=True, pkg=None, itorder=3, dt=0.0, hyper3=False,
 
 
 def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0,
-                   hyper3=False):
+                   hyper3=False, chi_hyper3=False, tau_cool=0.0):
     """Non-isothermal forced turbulence, the flagship with an entropy
     field: the default 2π cube, fully periodic, an ideal gas with γ = 5/3
     (cs0 = 1, cp = 1), ν = 5e-3, thermal diffusion 'chi-const' with
@@ -592,24 +617,32 @@ def forced_entropy(n, magnetic=True, fused=True, pkg=None, Omega=0.0,
     Ohmic heating.  8 fields (uu, lnrho, ss, aa), or 5 (uu, lnrho, ss)
     without Magnetic.  ``Omega`` > 0 adds the Coriolis force of a rotation
     about z; ``hyper3`` del6 hyper-diffusion of u, lnρ and (with Magnetic)
-    A with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as in ``flagship``.  ``n`` is an int
-    (a cube) or (nx, ny, nz).  The values are this repository's own (the
-    flagship's, plus χ = ν), not a reference sample's."""
+    A with ν₃ = D₃ = η₃ = 5e-3·dx⁵, as in ``flagship``; ``chi_hyper3``
+    that of s too (``with_chi_hyper3``: True, χ₃ = 5e-3·dx⁵, "mesh" or
+    "aniso"); ``tau_cool`` > 0 Newtonian cooling of T towards its initial
+    value cs0²/((γ − 1)cp) = 1.5 on that time, which holds the
+    temperature, and so the Mach number, of a forced run against its
+    viscous and Ohmic heating.  ``n`` is an int (a cube) or (nx, ny, nz).
+    The values are this repository's own (the flagship's, plus χ = ν),
+    not a reference sample's."""
     pkg = pkg or sys.modules[__name__.rsplit(".", 1)[0]]
     nx, ny, nz = (n, n, n) if isinstance(n, int) else n
     grid = pkg.GridSpec(nx=nx, ny=ny, nz=nz)
     den, visc, eta3 = _hyper3(pkg, grid, hyper3)
     mag = (pkg.Magnetic(init="gaussian-noise", ampl=1e-4, eta=5e-3,
                         **eta3),) if magnetic else ()
-    return pkg.Config(
+    gamma, cp = 5.0 / 3.0, 1.0
+    cool = (dict(tau_cool=tau_cool, TTref_cool=1.0 / ((gamma - 1.0) * cp))
+            if tau_cool else {})
+    return with_chi_hyper3(pkg.Config(
         grid=grid, time=pkg.TimeSpec(itorder=3), fused=fused,
-        modules=(pkg.EosIdealGas(gamma=5.0 / 3.0, cs0=1.0, cp=1.0),
+        modules=(pkg.EosIdealGas(gamma=gamma, cs0=1.0, cp=cp),
                  pkg.Density(**den),
                  pkg.Hydro(init="gaussian-noise", ampl=1e-3, Omega=Omega),
                  pkg.Viscosity(nu=5e-3, **visc),
-                 pkg.Entropy(iheatcond=("chi-const",), chi=5e-3),
+                 pkg.Entropy(iheatcond=("chi-const",), chi=5e-3, **cool),
                  *mag,
-                 pkg.Forcing(force=0.07, kf=3.0)))
+                 pkg.Forcing(force=0.07, kf=3.0))), chi_hyper3)
 
 
 # the paths of Viscosity's other flavours and Density's diffrho, each a

@@ -122,7 +122,11 @@
 // of u and of lnrho by weights of their own (PcParams.h6u, h6l: 1/dx^6 of
 // 'hyper3-simplified', or dline_1/60 of the mesh flavour, 'hyper3-mesh'
 // and diffrho_hyper3_mesh, whose coefficient is then c pi^-5), A's by
-// 1/dx^6, and its first kernels add the mesh flavours' constant rate
+// 1/dx^6, and with ss that of ss by h6s (chi_hyper3, chi_hyper3_mesh or
+// chi_hyper3_aniso, with no test: its coefficient chi3 is 0 where it is
+// off, as the others' are: tests inside the RHS measured up to +5-7 %
+// untaken, PERF.md §6), and its first
+// kernels add the mesh flavours' constant rate
 // (PcParams.hmesh, 0 without them) to the advective CFL after the
 // wave-speed root.  SAFI (the shear flow's advection as a shift between
 // substeps, on the host) needs no instance: the shear builds take the
@@ -134,7 +138,9 @@
 // in the H3 instances, the anisotropic del6 'hyper3_nu-const_aniso' (its
 // del6 the H3 term with nu3 = 1 and the weights nu3_j/dx_j^6, its
 // advective part sum_j u_{i,j} dlnrho_j nu3_j).  Behind one uniform test
-// of PcParams.visx (any of them on), after a plane's outputs are stored,
+// of PcParams.visx (any of them, or in a periodic build with ss
+// Entropy's Newtonian or uniform cooling, on), after a plane's outputs
+// are stored,
 // visx_rhs forms their terms and heat, reading the ring anew, the outputs
 // are stored again with them, and visx_dt1 joins their largest per-point
 // CFL rate (visx_rate) to the instance's diffusive maximum; not taken,
@@ -401,12 +407,15 @@ struct PcParams {
   // rate chi gamma in maxdif
   float kq_rho, kq_T, kp_rho, kp_T, kmin, kmax;
   int kexp;
-  // and every instance of theirs: Newtonian cooling cp_g (T - ttref)/
-  // (tau_cool T) (cp_g = cp/gamma) and the uniform heating and cooling
-  // (heat_uniform - cool_uniform rho cp T)/(rho T), each 0 where off
+  // and every instance of every build with ss (behind zgx in the
+  // z-ghosted builds' RHS, in the periodic ones' visx_rhs): Newtonian
+  // cooling cp_g (T - ttref)/(tau_cool T) (cp_g = cp/gamma) and the
+  // uniform heating and cooling (heat_uniform - cool_uniform rho cp
+  // T)/(rho T), each 0 where off
   float tau_cool, ttref, cp_g, heat_uniform, cool_uniform;
   // Viscosity's other flavours and Density's diffrho, every instance,
-  // behind one uniform test of visx (any of them on; not taken, every
+  // behind one uniform test of visx (any of them or, in a periodic build
+  // with ss, of the cooling terms above on; not taken, every
   // instance computes what it did without them), each 0 where it is off:
   // 'nu-simplified' nu_s, 'rho-nu-const' nu_r, 'rho-nu-const-bulk' zeta,
   // diffrho, and where the build has their inputs 'shock-simple' nu_ss
@@ -418,9 +427,21 @@ struct PcParams {
   int visx;
   float nu_s, nu_r, zeta, diffrho, nu_ss, nu_t, nu_c;
   float nua[3];
+  // the del6 hyper-diffusion of ss in the H3 instances with ss, 0 where
+  // it is off: its coefficient and weights per axis, chi_hyper3 with
+  // inv6, the mesh flavour's chi3m pi^-5 with dline_1/60, or the
+  // anisotropic flavour's 1 with chi3_j/dx_j^6 (one flavour at a time)
+  float chi3;
+  float h6s[3];
 };
 
-enum { H6U, H6L, H6A };
+enum { H6U, H6L, H6A, H6S };
+
+// Whether a del6 coefficient is on: the H3 instances run
+__host__ __device__ inline bool hyper_on(const PcParams* p) {
+  return p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f
+         || p->chi3 > 0.0f;
+}
 
 // The z inputs beside the stack: of the z-ghosted builds the z-halo slabs
 // (NC, nx, ny, NG) below z = 0 and above z = nz - 1 and, with PC_ENT, the
@@ -522,12 +543,16 @@ __device__ __forceinline__ float djmix(const float* p, int lo, int hi,
 // del6 of one field at one point: the 6th difference has the even paired
 // form of the second derivative (weights 15, -6, 1), so dj2 with w6 sums it,
 // differences first; the three axes join in the JAX order, each weighted
-// by field F's own weights (F = H6U, H6L: P.h6u, P.h6l, 1/dx_a^6 or
-// dline_1/60 of the mesh flavour; H6A: P.inv6)
+// by field F's own weights (F = H6U, H6L, H6S: P.h6u, P.h6l, P.h6s,
+// 1/dx_a^6, dline_1/60 of the mesh flavour or the anisotropic weights;
+// H6A: P.inv6)
 template <int F>
 __device__ __forceinline__ float del6(const float* p, const float* x,
                                       const PcParams& P) {
-  const float* h = F == H6U ? P.h6u : F == H6L ? P.h6l : P.inv6;
+  const float* h = F == H6U   ? P.h6u
+                   : F == H6L ? P.h6l
+                   : F == H6S ? P.h6s
+                              : P.inv6;
   float acc = __fmul_rn(dj2(p, x, 0, P.w6), h[0]);
   acc = __fadd_rn(acc, __fmul_rn(dj2(p, x, 1, P.w6), h[1]));
   return __fadd_rn(acc, __fmul_rn(dj2(p, x, 2, P.w6), h[2]));
@@ -596,7 +621,8 @@ __device__ __forceinline__ float visx_rate(const PcParams& P,
 }
 
 // The flavours' terms at this point (visx taken), added to the RHS r of
-// the instance: D (del2 lnrho + |grad lnrho|^2) to dlnrho; to du_a, in the
+// the instance: in a periodic build with ss first Entropy's cooling to
+// ds; D (del2 lnrho + |grad lnrho|^2) to dlnrho; to du_a, in the
 // JAX order, 'nu-simplified' nu_s del2 u_a, 'rho-nu-const' (nu_r/rho)
 // (del2 u_a + d_a div u/3), the bulk (zeta/rho) d_a div u, H3's
 // anisotropic advective part sum_j u_{a,j} dlnrho_j nu3_j, 'shock-simple'
@@ -615,6 +641,23 @@ __device__ __forceinline__ void visx_rhs(const float* s, const int* xo,
   asm volatile("" ::: "memory");
   const float lnrho = s[LNRHO * FPL];
   const float r1 = expf(-lnrho);
+#if PC_ENT && !PC_ZG
+  // the periodic builds' Entropy cooling (the z-ghosted builds' is in
+  // their RHS), in the JAX order: the uniform heating and cooling
+  // (heat_uniform - cool_uniform rho cp T)/(rho T), then Newtonian
+  // cooling -cp (T - T_ref)/(gamma tau T)
+  const float lnTc = (P.lnTT0 + P.g_cp * s[SS * FPL])
+                     + P.gm1 * (lnrho - P.lnrho0);
+  if (P.heat_uniform != 0.0f || P.cool_uniform != 0.0f) {
+    const float hu = P.heat_uniform
+                     - ((P.cool_uniform * expf(lnrho)) * P.cp) * expf(lnTc);
+    r[SS] = r[SS] + (hu * r1) * expf(-lnTc);
+  }
+  if (P.tau_cool != 0.0f) {
+    const float TT = expf(lnTc);
+    r[SS] = r[SS] - (P.cp_g * (TT - P.ttref)) / (P.tau_cool * TT);
+  }
+#endif
   const bool aniso = H3 && (P.nua[0] != 0.0f || P.nua[1] != 0.0f
                             || P.nua[2] != 0.0f);
   float gl[3];
@@ -830,7 +873,14 @@ __device__ __forceinline__ float visx_dt1(const PcParams& P,
 // cooling (P.heat_uniform, cool_uniform) and Newtonian cooling
 // (P.tau_cool), each behind a test of its own (JAX adds the uniform terms
 // before the conduction and the cooling after it: the order moves the
-// rounding only; three tests on every point measured slower); and
+// rounding only; three tests on every point measured slower); the
+// periodic builds with ss take the cooling in visx_rhs, after the stores
+// (inside their RHS its untaken tests cost up to +7 %).  The H3
+// instances with ss add chi3 del6 ss (weights P.h6s: any one flavour of
+// Entropy's hyper-diffusion) after the conduction, where JAX adds it
+// (JAX adds the mesh flavour after the cooling: the order moves the
+// rounding only); its rate is in dif3 (or, of the mesh flavour, in
+// hmesh).  And
 // Kramers opacity and 'chi-cspeed' in the CHI instances as chi-const's
 // term with other parameters (P.kexp: A = cpchi exp(kq_rho lnrho + kq_T
 // lnT), clipped, and the weights kp_rho, kp_T of the gradient product).
@@ -1196,6 +1246,10 @@ __device__ __forceinline__ void flagship_rhs(const float* s,
     }
 #endif
   }
+  // the del6 hyper-diffusion of ss (its x taps are those of grad ss),
+  // with no test: chi3 = 0 where it is off, as nu3, eta3 and diff3 are
+  if constexpr (H3)
+    ds = ds + P.chi3 * del6<H6S>(s + SS * FPL, xt[SS], P);
 #if PC_SHOCK
   // the viscous heat 2 nu S^2 + nu_sh shock (div u)^2, in Viscosity's order
   if (P.two_nu > 0.0f || P.nu_shock > 0.0f) {
@@ -1856,8 +1910,9 @@ pc_flagship(const PcParams P, const float* __restrict__ fa, const float* dfin,
       }
     }
 
-    // Viscosity's other flavours and diffrho, where any is on (not in K8,
-    // nor in the instances that would spill with them): after the plane's
+    // Viscosity's other flavours and diffrho, and in a periodic build with
+    // ss Entropy's cooling, where any is on (not in K8, nor in the instances that
+    // would spill with them): after the plane's
     // outputs are stored as without them, their terms join them and the
     // outputs are stored again, so that the instance's schedule up to its
     // stores is the one of before (untaken, the terms inside its RHS or
@@ -2008,7 +2063,7 @@ static int launch_shk(const PcParams* p, const float* fa, const float* dfin,
                       const float* coef, const float* kick, const float* ktab,
                       float* dfout, float* faout, float* dt1blk, void* stream,
                       const ZgIn& zg) {
-  const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
+  const bool hyper = hyper_on(p);
   if (p->upw[0] || p->upw[1] || p->upw[2])
     return hyper ? (int)cudaErrorInvalidValue
                  : launch_rot<FIRST, DEFER, LAST, KICK, false, false, true,
@@ -2054,7 +2109,7 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
                   const ZgIn& zg = ZgIn{}) {
 #if PC_ZG && PC_SHOCK
   // no H3 instance beside the slot: the host refuses del6 here
-  if (p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f)
+  if (hyper_on(p))
     return (int)cudaErrorInvalidValue;
   const bool shk = p->diffrho_shock > 0.0f || p->eta_shock > 0.0f
                    || p->chi_shock > 0.0f;
@@ -2079,7 +2134,7 @@ static int launch(const PcParams* p, const float* fa, const float* dfin,
       return launch_shk<FIRST, DEFER, LAST, KICK>(
           p, fa, dfin, coef, kick, ktab, dfout, faout, dt1blk, stream, zg);
 #endif
-    const bool hyper = p->nu3 > 0.0f || p->eta3 > 0.0f || p->diff3 > 0.0f;
+    const bool hyper = hyper_on(p);
     if (p->upw[0] || p->upw[1] || p->upw[2]) {
       if (hyper) return (int)cudaErrorInvalidValue;
 #if PC_ZG && PC_ENT

@@ -143,8 +143,8 @@ from .core.grid import make_grid
 from .integrate.timestep import RK_TABLES
 from .ops.boundary import (BC_REGISTRY, COLUMN_CODES, DEEP_CODES,
                            ENTROPY_CODES, FORCE_BOUND, REFUSED, bc_sym)
-from .ops.fused_rhs import (hyper3_terms, rhs_first, rhs_plain,
-                            rhs_tail_defer, rhs_tail_defer_last,
+from .ops.fused_rhs import (chi_hyper3_twice, hyper3_terms, rhs_first,
+                            rhs_plain, rhs_tail_defer, rhs_tail_defer_last,
                             rhs_tail_last, rhs_tail_mid, rhs_wrap_shock,
                             rhs_wrap_shock_upd, rhs_zg, rhs_zg_upd,
                             rhs_zroll, rhs_zroll_upd, upwind_flags,
@@ -260,10 +260,11 @@ def _hyper3_names(cfg: Config):
 
 
 def _hyper3_twice(cfg: Config):
-    """Why ``cfg`` is outside the kernels for taking both flavours of
-    del6 on one field ('hyper3-simplified' and 'hyper3-mesh' of u,
-    diffrho_hyper3 and diffrho_hyper3_mesh of lnρ: each field has one
-    weight and one coefficient in the H3 instances), or None."""
+    """Why ``cfg`` is outside the kernels for taking two flavours of del6
+    on one field ('hyper3-simplified' and 'hyper3-mesh' of u,
+    diffrho_hyper3 and diffrho_hyper3_mesh of lnρ, two of chi_hyper3,
+    chi_hyper3_mesh and chi_hyper3_aniso of s: each field has one weight
+    vector and one coefficient in the H3 instances), or None."""
     visc, den = cfg.module("viscosity"), cfg.module("density")
     both = []
     if visc is not None and visc.coefficients()[2] > 0.0 \
@@ -272,8 +273,11 @@ def _hyper3_twice(cfg: Config):
     if den is not None and den.diffrho_hyper3 > 0.0 \
             and den.diffrho_hyper3_mesh > 0.0:
         both.append("Density diffrho_hyper3 with diffrho_hyper3_mesh")
+    chis = chi_hyper3_twice(cfg)
+    if chis:
+        both.append(f"Entropy {' with '.join(chis)}")
     if both:
-        return (f"options {both} (both flavours of del6 on one field: no "
+        return (f"options {both} (two flavours of del6 on one field: no "
                 "kernel instance has them)")
     return None
 
@@ -348,13 +352,15 @@ def fused_mode(cfg: Config):
     Magnetic's B_ext on every MHD set and continuous forcing on every set;
     the upwinding (lupw_lnrho, lupw_uu, lupw_ss) on every set, but not
     beside a del6 coefficient; either flavour of del6 ('simplified' or
-    mesh) on each of u and lnρ, but not both on one field; SAFI on the
+    mesh) on each of u and lnρ, and one of Entropy's χ₃, χ₃ᵐ and χ₃ⱼ on
+    s, but not two on one field; SAFI on the
     shear sets; lremove_mean_momenta on every set; nu-shock and the shock
     diffusivities
     (diffrho_shock, eta_shock, chi_shock) on the sets with the Shock
-    module's slot; Entropy's 'K-profile', 'kramers', 'chi-cspeed',
-    tau_cool, heat_uniform and cool_uniform on the z-ghosted sets with
-    ss (one of chi-const, 'kramers' and 'chi-cspeed'); Viscosity's
+    module's slot; Entropy's 'K-profile', 'kramers' and 'chi-cspeed' on
+    the z-ghosted sets with ss (one of chi-const, 'kramers' and
+    'chi-cspeed'), tau_cool, heat_uniform and cool_uniform on every set
+    with ss; Viscosity's
     'nu-simplified', 'rho-nu-const', the bulk ζ and Density's diffrho on
     every set, 'shock-simple' on the sets with the shock slot,
     'hyper3_nu-const_aniso' as the del6 of u and 'nu-cspeed' on the
@@ -363,8 +369,8 @@ def fused_mode(cfg: Config):
     The module set is tested before any option of it, so a set that no
     chain takes is refused for its modules; Entropy's layer profiles
     outside the z-ghosted sets, the upwinding beside del6, del6 beside a
-    z-walled Shock, both flavours of del6 on one field, the shock
-    terms without the slot, Entropy's other conduction and cooling terms
+    z-walled Shock, two flavours of del6 on one field, the shock
+    terms without the slot, Entropy's other conduction terms
     outside the z-ghosted sets and two CHI-instance flavours at once are
     refused for those options, and SAFI outside the shear sets is named
     with the module set."""
@@ -398,8 +404,8 @@ def fused_mode(cfg: Config):
             return None, ("options ['Entropy.cool/luminosity'] (the layer "
                           "profiles: only the conv-slab kernels implement "
                           "them)")
-        # Entropy's other conduction and cooling terms: the z-ghosted
-        # builds with ss only, one CHI-instance term at a time
+        # Entropy's other conduction terms: the z-ghosted builds with ss
+        # only, one CHI-instance term at a time
         if ent is not None and not zghost and zg_entropy_options(ent):
             return None, (f"options {zg_entropy_options(ent)} (only the "
                           "kernels of the z-ghosted sets with ss implement "

@@ -141,18 +141,23 @@ and dK/dz from a device vector (2, nz) (``kprof_vector``), passed after
 the layer profiles and null where it is off; 'kramers' and 'chi-cspeed'
 as chi-const's term with other parameters in the CHI instances
 (``conduction_term``: an exponential factor, its clip and the weights of
-the gradient product), picked as chi-const is; Newtonian cooling and the
-uniform heating and cooling as constants of ``kernel_params``, each
-behind a uniform test.  The other builds refuse them
-(``zg_entropy_options``).
+the gradient product), picked as chi-const is.  The other builds refuse
+them (``zg_entropy_options``).  Every build with ss takes Newtonian
+cooling and the uniform heating and cooling as constants of
+``kernel_params``: the z-ghosted builds in their RHS behind ``zgx``, the
+periodic ones after a plane's stores with Viscosity's other flavours
+(they set ``visx`` there).
 
-Every H3 instance weights each field's del6 on its own: u's and lnρ's by
-``PcParams.h6u`` and ``h6l`` (Δ_a⁻⁶ of 'hyper3-simplified', or
-dline_1_a/60 of the mesh flavour, 'hyper3-mesh' and
-``diffrho_hyper3_mesh``, whose coefficients ν₃ and D₃ are then
-ν₃ᵐ·π⁻⁵ and D₃ᵐ·π⁻⁵), A's by Δ_a⁻⁶, and adds the mesh flavours' constant
-rate ``hmesh`` to the advective CFL after the wave-speed root (0 without
-them).  Under SAFI the shear builds' kernels take the x nodes of the
+Every H3 instance weights each field's del6 on its own: u's, lnρ's and
+s's by ``PcParams.h6u``, ``h6l`` and ``h6s`` (Δ_a⁻⁶ of
+'hyper3-simplified', ``diffrho_hyper3`` and ``chi_hyper3``, or
+dline_1_a/60 of the mesh flavour, 'hyper3-mesh', ``diffrho_hyper3_mesh``
+and ``chi_hyper3_mesh``, whose coefficients ν₃, D₃ and χ₃ are then
+ν₃ᵐ·π⁻⁵, D₃ᵐ·π⁻⁵ and χ₃ᵐ·π⁻⁵, or of u's and s's anisotropic flavours
+ν₃ⱼΔⱼ⁻⁶ and χ₃ⱼΔⱼ⁻⁶ with the coefficient 1), A's by Δ_a⁻⁶, and adds the
+mesh flavours' constant rate ``hmesh`` to the advective CFL after the
+wave-speed root (0 without them).  s's del6 (``chi3``, the builds with
+ss) is added with no test, its coefficient 0 where it is off.  Under SAFI the shear builds' kernels take the x nodes of the
 shear flow at 0 (``PcParams.x0``, ``dx``), so that they add no advection
 by it and no |S x|/Δy: no new instance either.
 
@@ -441,6 +446,7 @@ class PcParams(ctypes.Structure):
         ("zeta", ctypes.c_float), ("diffrho", ctypes.c_float),
         ("nu_ss", ctypes.c_float), ("nu_t", ctypes.c_float),
         ("nu_c", ctypes.c_float), ("nua", ctypes.c_float * 3),
+        ("chi3", ctypes.c_float), ("h6s", ctypes.c_float * 3),
     ]
 
 
@@ -709,20 +715,30 @@ def viscosity_refusals(cfg, zg_ss):
     return out
 
 
-def aniso_rate(cfg, inv):
-    """The constant del6 rate Σ_j ν₃ⱼΔⱼ⁻⁶/Σ_j Δⱼ⁻⁶ of 'hyper3_nu-const_
-    aniso', in f32 in the plain version's order; 0 where it is off."""
-    visc = cfg.module("viscosity")
-    nua = (visc.terms()["hyper3_nu-const_aniso"] if visc is not None
-           else (0.0, 0.0, 0.0))
-    if not any(nua):
+def aniso_rate(coeffs, inv):
+    """The constant del6 rate Σ_j c_jΔⱼ⁻⁶/Σ_j Δⱼ⁻⁶ of an anisotropic del6
+    with the coefficients ``coeffs`` ('hyper3_nu-const_aniso',
+    ``chi_hyper3_aniso``), in f32 in the plain version's order; 0 where
+    they are all 0."""
+    if not any(coeffs):
         return np.float32(0.0)
     f32 = np.float32
     d16 = pow6(inv)
     num = f32(0.0)
     for a in range(3):
-        num = num + f32(nua[a]) * d16[a]
+        num = num + f32(coeffs[a]) * d16[a]
     return num / ((d16[0] + d16[1]) + d16[2])
+
+
+def chi_hyper3_coefficients(cfg):
+    """(χ₃, χ₃ᵐ, (χ₃ₓ, χ₃ᵧ, χ₃_z)) of ``cfg``'s Entropy, 0 for each that is
+    off: the del6 hyper-diffusion of s, its mesh flavour and its
+    anisotropic flavour."""
+    ent = cfg.module("entropy")
+    if ent is None:
+        return 0.0, 0.0, (0.0, 0.0, 0.0)
+    return (max(ent.chi_hyper3, 0.0), max(ent.chi_hyper3_mesh, 0.0),
+            tuple(float(c) for c in ent.chi_hyper3_aniso))
 
 
 def hyper3_coefficients(cfg):
@@ -747,17 +763,32 @@ def hyper3_mesh_coefficients(cfg):
 
 def hyper3_terms(cfg):
     """Every del6 coefficient of ``cfg`` as (option name, coefficient), 0
-    where it is off: ν₃ and ν₃ᵐ of u, η₃ of A, D₃ and D₃ᵐ of lnρ, and the
-    largest |ν₃ⱼ| of 'hyper3_nu-const_aniso'."""
+    where it is off: ν₃ and ν₃ᵐ of u, η₃ of A, D₃ and D₃ᵐ of lnρ, the
+    largest |ν₃ⱼ| of 'hyper3_nu-const_aniso', and χ₃, χ₃ᵐ and the largest
+    |χ₃ⱼ| of s."""
     visc = cfg.module("viscosity")
     nua = (visc.terms()["hyper3_nu-const_aniso"] if visc is not None
            else (0.0,))
+    chi3, chi3m, chia = chi_hyper3_coefficients(cfg)
     return tuple(zip(("nu_hyper3", "eta_hyper3", "diffrho_hyper3",
                       "nu_hyper3_mesh", "diffrho_hyper3_mesh",
-                      "nu_aniso_hyper3"),
+                      "nu_aniso_hyper3", "chi_hyper3", "chi_hyper3_mesh",
+                      "chi_hyper3_aniso"),
                      hyper3_coefficients(cfg)
                      + hyper3_mesh_coefficients(cfg)
-                     + (max(abs(c) for c in nua),)))
+                     + (max(abs(c) for c in nua), chi3, chi3m,
+                        max(abs(c) for c in chia))))
+
+
+def chi_hyper3_twice(cfg):
+    """The flavours of Entropy's hyper-diffusion in use where more than
+    one is, named ([] otherwise): the H3 instances have one weight vector
+    and one coefficient for s."""
+    chi3, chi3m, chia = chi_hyper3_coefficients(cfg)
+    on = [name for name, c in (("chi_hyper3", chi3),
+                               ("chi_hyper3_mesh", chi3m),
+                               ("chi_hyper3_aniso", any(chia))) if c]
+    return on if len(on) > 1 else []
 
 
 def zg_library(model) -> str:
@@ -905,7 +936,7 @@ def _flag_suffix(model) -> str:
     kernels' own test, which picks the H3 instances), '_upw' where an
     lupw flag is on (the UPW instances; never both), else ''."""
     p = kernel_params(model)
-    if p.nu3 > 0.0 or p.eta3 > 0.0 or p.diff3 > 0.0:
+    if p.nu3 > 0.0 or p.eta3 > 0.0 or p.diff3 > 0.0 or p.chi3 > 0.0:
         return "_h3"
     return _upw_suffix(model)
 
@@ -953,7 +984,8 @@ def kernel_params(model) -> PcParams:
     # Viscosity's other flavours and diffrho (visx): 'nu-simplified',
     # 'rho-nu-const', the bulk ζ, 'shock-simple', 'nu-cspeed', the
     # advective part of 'hyper3_nu-const_aniso' (whose del6 part is the
-    # H3 instances' with ν₃ = 1 and the weights ν₃ⱼΔⱼ⁻⁶) and D
+    # H3 instances' with ν₃ = 1 and the weights ν₃ⱼΔⱼ⁻⁶) and D; Entropy's
+    # cooling joins them below
     nua = vt["hyper3_nu-const_aniso"]
     nu_s, nu_r = vt["nu-simplified"], vt["rho-nu-const"]
     zeta, nu_ss, nu_t = (vt["rho-nu-const-bulk"], vt["shock-simple"],
@@ -966,25 +998,31 @@ def kernel_params(model) -> PcParams:
     # field with the mesh flavour has ν₃ᵐ·π⁻⁵ for its coefficient and
     # dline_1/60 for its weights in place of Δ⁻⁶, and their rates join
     # the advective CFL as one constant root (``mesh_rate``)
+    # s's del6 (χ₃, the mesh χ₃ᵐ or the anisotropic χ₃ⱼ) the same way:
+    # coefficient chi3 and weights h6s, its rate in dif3 or hmesh
     nu3, eta3, diff3 = hyper3_coefficients(cfg)
     nu3m, diff3m = hyper3_mesh_coefficients(cfg)
+    chi3, chi3m, chia = chi_hyper3_coefficients(cfg)
     inv6 = pow6(inv)
-    m3 = max(nu3, eta3, diff3, aniso_rate(cfg, inv))
+    m3 = max(nu3, eta3, diff3, aniso_rate(nua, inv), chi3,
+             aniso_rate(chia, inv))
     dxyz6 = (inv6[0] + inv6[1]) + inv6[2]
     dif3 = f32(m3) * dxyz6 / f32(cfg.time.cdtv3) if m3 > 0.0 else f32(0)
-    if (nu3 > 0.0 and nu3m > 0.0) or (diff3 > 0.0 and diff3m > 0.0):
+    if (nu3 > 0.0 and nu3m > 0.0) or (diff3 > 0.0 and diff3m > 0.0) \
+            or chi_hyper3_twice(cfg):
         raise NotImplementedError(
-            "fused kernels: both flavours of del6 on one field ('hyper3-"
+            "fused kernels: two flavours of del6 on one field ('hyper3-"
             "simplified' with 'hyper3-mesh', diffrho_hyper3 with "
-            "diffrho_hyper3_mesh): no instance has them")
+            "diffrho_hyper3_mesh, two of chi_hyper3, chi_hyper3_mesh and "
+            "chi_hyper3_aniso): no instance has them")
     mesh6 = inv / f32(60.0)
     shear = cfg.module("shear")
     eos = model.eos
     chi = ent.chi if ent is not None and ent.chi_conduction else 0.0
     hcond0 = ent.hcond0 if ent is not None and ent.conduction else 0.0
     # the CHI instances' term: chi-const, or 'kramers' or 'chi-cspeed' as
-    # its exponential form (kexp); Newtonian cooling and the uniform
-    # heating and cooling (the z-ghosted builds with ss)
+    # its exponential form (kexp; the z-ghosted builds with ss); Newtonian
+    # cooling and the uniform heating and cooling (every build with ss)
     if all(gs.periodic) and zg_entropy_options(ent):
         raise NotImplementedError(
             f"fused kernels: {zg_entropy_options(ent)} (the z-ghosted "
@@ -1002,14 +1040,14 @@ def kernel_params(model) -> PcParams:
     if any(upw) and hyper > 0.0:
         raise NotImplementedError(
             "fused kernels: upwinding (lupw_lnrho, lupw_uu, lupw_ss) with "
-            "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3 "
-            "or their mesh flavours): no instance has both")
+            "del6 hyper-diffusion (nu_hyper3, eta_hyper3, diffrho_hyper3, "
+            "chi_hyper3 or their other flavours): no instance has both")
     if hyper > 0.0 and "shock" in model.reg.slots \
             and not all(gs.periodic):
         raise NotImplementedError(
             "fused kernels: del6 hyper-diffusion (nu_hyper3, eta_hyper3, "
-            "diffrho_hyper3 or their mesh flavours) with the Shock "
-            "module's slot on a z-walled grid: no instance has both")
+            "diffrho_hyper3, chi_hyper3 or their other flavours) with the "
+            "Shock module's slot on a z-walled grid: no instance has both")
     diffrho_shock, eta_shock, chi_shock = shock_coefficients(cfg, model.reg)
     x0, y0 = _node0(gs)
     # the x nodes of the shear flow S·x in the shear builds: all 0 under
@@ -1067,26 +1105,31 @@ def kernel_params(model) -> PcParams:
         cp_g=eos.cp / eos.gamma if heats else 0.0,
         heat_uniform=ent.heat_uniform if heats else 0.0,
         cool_uniform=ent.cool_uniform if heats else 0.0,
-        visx=int(visx), nu_s=nu_s, nu_r=nu_r, zeta=zeta, diffrho=diffrho,
+        # a periodic build with ss forms the cooling after its stores
+        visx=int(visx or (heats and all(gs.periodic) and any((
+            ent.tau_cool, ent.heat_uniform, ent.cool_uniform)))),
+        nu_s=nu_s, nu_r=nu_r, zeta=zeta, diffrho=diffrho,
         nu_ss=nu_ss, nu_t=nu_t, nu_c=visc.nu_cspeed if nu_t > 0.0 else 0.0,
-        nua=fl3(*nua))
+        nua=fl3(*nua),
+        chi3=(chi3m * PI5_1 if chi3m > 0.0 else 1.0 if any(chia)
+              else chi3),
+        h6s=fl3(*(mesh6 if chi3m > 0.0
+                  else np.array(chia, f32) * inv6 if any(chia) else inv6)))
     model.__dict__["_pc_params"] = p
     return p
 
 
 def zg_entropy_options(ent):
     """The options of ``ent`` that only the z-ghosted builds with ss
-    implement (Entropy's other conduction and cooling terms), named; []
-    for None."""
+    implement (Entropy's other conduction terms), named; []
+    for None.  Newtonian cooling and the uniform heating and cooling run
+    on every build with ss."""
     if ent is None:
         return []
     return [name for name, on in (
         ("iheatcond 'K-profile'", ent.kprofile),
         ("iheatcond 'kramers'", ent.kramers),
-        ("iheatcond 'chi-cspeed'", ent.cspeed_conduction),
-        ("tau_cool", ent.tau_cool != 0.0),
-        ("heat_uniform", ent.heat_uniform != 0.0),
-        ("cool_uniform", ent.cool_uniform != 0.0)) if on]
+        ("iheatcond 'chi-cspeed'", ent.cspeed_conduction)) if on]
 
 
 def conduction_term(ent, eos):
@@ -1127,7 +1170,7 @@ def conduction_term(ent, eos):
 
 def mesh_rate(cfg, inv):
     """The constant root √Σ (c·π⁻⁵·√Σ_a dline_1_a²)² of the mesh flavours
-    in use (D₃ᵐ's, then ν₃ᵐ's: the module order), in f32 in the plain
+    in use (D₃ᵐ's, ν₃ᵐ's, then χ₃ᵐ's: the module order), in f32 in the plain
     version's order, which the H3 instances add to the advective CFL
     after the wave-speed root; 0 without them (the add leaves the rate
     bit for bit)."""
@@ -1135,7 +1178,7 @@ def mesh_rate(cfg, inv):
     sq = np.sqrt((inv[0] * inv[0] + inv[1] * inv[1]) + inv[2] * inv[2])
     adv2 = None
     nu3m, diff3m = hyper3_mesh_coefficients(cfg)
-    for c in (diff3m, nu3m):
+    for c in (diff3m, nu3m, chi_hyper3_coefficients(cfg)[1]):
         if c > 0.0:
             v = f32(c * PI5_1) * sq
             adv2 = v * v if adv2 is None else adv2 + v * v

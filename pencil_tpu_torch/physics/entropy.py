@@ -10,7 +10,9 @@ non-isothermal turbulence read; reference src/entropy.f90 ``denergy_dt``):
             + cp·χT^c·(∇²lnT + Σ_a (∂_a lnρ + (1 + c)∂_a lnT)∂_a lnT)
             + cp·χ·(∇²lnT + ∇lnT·(∇lnT + ∇lnρ))
             + χ_sh·(shock(∇²lnT + (∇lnρ + ∇lnT)·∇lnT) + ∇shock·∇lnT)
+            + χ₃ Σ_a ∂⁶s/∂x_a⁶ + Σ_a χ₃ₐ∂⁶s/∂x_a⁶
             − cp(T − T_ref)/(γτT)
+            + χ₃ᵐπ⁻⁵ Σ_a δ⁶_a s·dline_1_a/60
             + 2νS²/T + ηJ²/(ρT)
             − cool·p_c(z)·(cs² − cs²_cool)/(cs²_cool·ρT) + L·p_h(z)/(N·ρT)
 
@@ -25,8 +27,13 @@ opacity ('kramers': K_kr/ρ = K₀ρ^(−2n−1)T^(6.5n), optionally clipped to
 constant thermal diffusivity χ ('chi-const', CFL rate χγ), shock heat
 conduction ('shock' with ``chi_shock``, CFL rate γχ_sh·shock; it acts
 only where the Shock module's slot exists, JAX entropy.py:230-241),
-Newtonian cooling towards ``TTref_cool`` on the time ``tau_cool``,
-viscous heating published by Viscosity, Ohmic heating published by
+the del6 hyper-diffusion of s (``chi_hyper3``, Δ_a⁻⁶-scaled, its rate χ₃
+a hyper-diffusivity), its anisotropic flavour (``chi_hyper3_aniso``, χ₃ₐ
+per axis, rate Σ_a χ₃ₐ dline_1_a⁶/Σ_a dline_1_a⁶), Newtonian cooling
+towards ``TTref_cool`` on the time ``tau_cool``, the mesh flavour of the
+hyper-diffusion (``chi_hyper3_mesh``, whose rate χ₃ᵐπ⁻⁵√Σ dline_1²
+joins the advective CFL; JAX entropy.py:242-279; the polar flavours
+raise), viscous heating published by Viscosity, Ohmic heating published by
 Magnetic, a cooling layer (``cooling_profile``: a gaussian at the top or
 ``zcool``, a tanh step at z2 ('step') or at ``zcool`` ('step2'), a cubic
 step at z2 ('cubic_step') or z/wcool ('lin-z')) and a volume-normalized
@@ -45,17 +52,26 @@ from typing import ClassVar, Tuple
 import numpy as np
 import torch
 
+from ..integrate.timestep import pow6
 from .base import ModuleBase, accumulate
 from .initcond import init_scalar
 from .stratification import (cubic_step, hcond_profile,
                              piecew_poly_profiles)
+from .viscosity import PI5_1
 
 
 # the conduction flavours and the cooling-layer shapes that are ported
 # ('K-profile' from mpoly0-2 and hcond0; its table form, lread_hcond,
-# needs gravx and is not)
+# needs gravx and is not); the names of the hyper-diffusion flavours
+# (reference entropy.f90 initialize_energy), whose terms follow their
+# coefficients, as JAX's do
 HEATCOND = frozenset(("K-const", "K-profile", "kramers", "chi-const",
-                      "chi-cspeed", "chi-therm", "shock"))
+                      "chi-cspeed", "chi-therm", "shock", "hyper3",
+                      "hyper3_ss", "hyper3-aniso", "hyper3_aniso",
+                      "hyper3-mesh", "hyper3_mesh"))
+# the polar flavours of the hyper-diffusion (JAX entropy.py:244-254)
+POLAR_HYPER3 = frozenset(("hyper3-sph", "hyper3_sph", "hyper3-cyl",
+                          "hyper3_cyl"))
 COOLING_PROFILES = ("gaussian", "step", "step2", "cubic_step", "lin-z")
 
 
@@ -67,6 +83,9 @@ class Entropy(ModuleBase):
     hcond0: float = 0.0        # K for 'K-const'
     chi: float = 0.0           # χ for 'chi-const'
     chi_shock: float = 0.0     # χ_sh for 'shock'
+    chi_hyper3: float = 0.0    # χ₃ of the del6 hyper-diffusion of s
+    chi_hyper3_mesh: float = 0.0   # its mesh flavour χ₃ᵐ
+    chi_hyper3_aniso: tuple = (0.0, 0.0, 0.0)  # its anisotropic χ₃ₐ
     hcond0_kramers: float = 0.0    # K₀ of 'kramers'
     nkramers: float = 1.0          # its exponent n
     chimax_kramers: float = 0.0    # its clip [χ_min, χ_max]·cp (χ_max > 0)
@@ -107,6 +126,11 @@ class Entropy(ModuleBase):
     width: float = 0.05
 
     def __post_init__(self):
+        polar = sorted(POLAR_HYPER3 & set(self.iheatcond))
+        if polar:
+            raise NotImplementedError(
+                f"pencil_tpu_torch: Entropy iheatcond {polar} (the polar "
+                "hyper-diffusion of s needs curvilinear coordinates)")
         if not set(self.iheatcond) <= HEATCOND:
             raise NotImplementedError(
                 f"pencil_tpu_torch: iheatcond={self.iheatcond!r} "
@@ -251,11 +275,28 @@ class Entropy(ModuleBase):
             out = out + self.chi_shock * (
                 shock * (pen.del2lnTT() + g2) + gsglnTT)
             ts.diffus(eos.gamma * self.chi_shock * shock)
+        if self.chi_hyper3 > 0.0:
+            out = out + self.chi_hyper3 * pen.del6s_scaled("ss")
+            ts.diffus3(self.chi_hyper3)
+        chia = self.chi_hyper3_aniso
+        if any(c != 0.0 for c in chia):
+            # Σ_a χ₃ₐ∂⁶s/∂x_a⁶, rate Σ_a χ₃ₐdline_1_a⁶/Σ_a dline_1_a⁶
+            out = out + sum(chia[a] * pen.d6_raw("ss", a)[0]
+                            * pow6(pen._inv(a)) for a in range(3))
+            d16 = [pow6(d) for d in pen.dline_1()]
+            ts.diffus3(sum(chia[a] * d16[a] for a in range(3))
+                       / (d16[0] + d16[1] + d16[2]))
         if self.tau_cool != 0.0:
             # heat = −ρcp(T − T_ref)/(γτ), so ds/dt −= cp(T − T_ref)/(γτT)
             TT = pen.TT()
             out = out - eos.cp / eos.gamma * (TT - self.TTref_cool) \
                 / (self.tau_cool * TT)
+        if self.chi_hyper3_mesh > 0.0:
+            d1 = pen.dline_1()
+            out = out + self.chi_hyper3_mesh * PI5_1 * sum(
+                pen.d6_raw("ss", a)[0] * d1[a] / 60.0 for a in range(3))
+            ts.advec_mesh(self.chi_hyper3_mesh * PI5_1 * torch.sqrt(
+                d1[0] ** 2 + d1[1] ** 2 + d1[2] ** 2))
         # viscous and Ohmic heating published by those modules
         heat = pen._cache.get("visc_heat")
         if heat is not None:

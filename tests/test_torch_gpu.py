@@ -2020,3 +2020,37 @@ def test_visc_paths_on_card_match_cpu(cuda, label):
         _steps_match(cuda, cfg, nsteps=2,
                      uu_noise=1e-2 if "conv" in label or "magneto" in label
                      else 0.0)
+
+
+# ---- Entropy's hyper-diffusion of s and its cooling -------------------------
+CHI3_SETS = {"ent_mhd": lambda s: forced_entropy(s, hyper3=True),
+             "ent_hydro": lambda s: forced_entropy(s, magnetic=False,
+                                                   hyper3=True),
+             "shock_ent": lambda s: _with_h3(shock_box(s, entropy=True)),
+             "shear_ent": lambda s: shear_box(s, entropy=True),
+             "conv_slab": lambda s: conv_slab(s, hyper3=True),
+             "mag_shear": lambda s: conv_slab(s, hyper3=True, **SS_BUILDS[
+                 "mag_shear"])}
+
+
+@pytest.mark.parametrize("flavour", (True, "mesh", "aniso"),
+                         ids=("chi3", "mesh", "aniso"))
+@pytest.mark.parametrize("case", sorted(CHI3_SETS))
+def test_chi3_h3_instances_match_plain(cuda, case, flavour):
+    """The H3 instances of a periodic, two aux and two z-ghosted builds
+    with ss, with each flavour of Entropy's hyper-diffusion of s (χ₃
+    beside Newtonian and uniform cooling), against their plain versions
+    at 32³."""
+    cfg = pt.configs.with_chi_hyper3(CHI3_SETS[case]((32, 32, 32)), flavour)
+    if flavour is True:
+        cfg = cfg.replace(modules=tuple(
+            dataclasses.replace(m, tau_cool=1.0, TTref_cool=1.2,
+                                heat_uniform=1e-2, cool_uniform=2e-3)
+            if m.name == "entropy" else m for m in cfg.modules))
+    mode = pt.model.fused_mode(cfg)[0]
+    if mode == "wrap":
+        _template_instances_match_plain(cuda, cfg, RTOL_FIELD)
+    elif mode == "zghost":
+        _zghost_kernels_match_plain(cuda, cfg)
+    else:
+        _aux_kernels_match_plain(cuda, cfg, RTOL_FIELD)

@@ -368,13 +368,12 @@ PERIODIC = {
     "entropy hydro": lambda: pt.configs.forced_entropy(8, magnetic=False),
     "shock box ent": lambda: pt.configs.shock_box(8, entropy=True),
     "shear box ent": lambda: pt.configs.shear_box(8, entropy=True)}
+# (Newtonian cooling and the uniform heating and cooling run on every
+# build with ss: tests/test_torch_chi_hyper3.py)
 PERIODIC_OPTIONS = {
     "'K-profile'": dict(iheatcond=("K-profile",), hcond0=4e-3),
     "'kramers'": dict(iheatcond=("kramers",), hcond0_kramers=1e-3),
-    "'chi-cspeed'": dict(iheatcond=("chi-cspeed",)),
-    "tau_cool": dict(tau_cool=1.0, TTref_cool=1.0),
-    "heat_uniform": dict(heat_uniform=0.1),
-    "cool_uniform": dict(cool_uniform=0.1)}
+    "'chi-cspeed'": dict(iheatcond=("chi-cspeed",))}
 
 
 @pytest.mark.parametrize("label", sorted(PERIODIC))

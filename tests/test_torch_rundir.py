@@ -115,6 +115,16 @@ def kramers_rundir(d, nt=4):
          "tau_cool=2., TTref_cool=1.5, cooling_profile='cubic_step', ")])
 
 
+def chi_hyper3_rundir(d, nt=4):
+    """conv-slab's shape (velocity noise of 1e-2) with the del6
+    hyper-diffusion of s, χ₃ = 5e-3·Δ⁵ ('hyper3' in iheatcond), and
+    Newtonian cooling towards T = 1.5 on τ = 2."""
+    return _edited(conv_rundir(d, nt=nt, uu_ampl="1e-2"), [
+        ("run.in", "iheatcond='K-const', ",
+         "iheatcond='K-const','hyper3', chi_hyper3=1.52587890625e-7, "
+         "tau_cool=2., TTref_cool=1.5, ")])
+
+
 def radiative_rundir(d, nt=4):
     """The Kramers conv-slab directory (velocity noise of 1e-2) with a
     black-body top (ss 'c1:Fgs', σ_SBt of ``configs.fgs_sigma``, the
@@ -446,6 +456,36 @@ def test_loader_maps_the_heat_conduction_as_jax(tmp_path, case):
     assert pt.Model(cfg, device="cpu").mode == "zghost"
 
 
+# Entropy's hyper-diffusion and cooling, which the loader once refused
+# (the first two) or the card did outside the z-walled builds (the third):
+# the &entropy_run_pars values added to conv-slab's
+CHI_HYPER3_MAPPED = {
+    "chi_hyper3": "iheatcond='K-const','hyper3', chi_hyper3=1.5e-7, ",
+    "chi_hyper3_mesh": "iheatcond='K-const','hyper3-mesh', "
+                       "chi_hyper3_mesh=5., ",
+    "tau_cool": "iheatcond='K-const', tau_cool=2., TTref_cool=1.5, ",
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHI_HYPER3_MAPPED))
+def test_loader_maps_the_entropy_hyper3_as_jax(tmp_path, case):
+    """chi_hyper3, chi_hyper3_mesh (with the flavours' names in
+    iheatcond) and tau_cool map as JAX's loader maps them
+    (pencil_tpu/compat/rundir.py:1200-1204): every field the two Entropy
+    modules share equal; the run takes the zghost chain, on its H3
+    instances where a del6 of s is on."""
+    d = _edited(conv_rundir(tmp_path / "r"), [
+        ("run.in", "iheatcond='K-const', ", CHI_HYPER3_MAPPED[case])])
+    cfg, _ = load_rundir(d)
+    jcfg, _ = jax_load(d)
+    mine, ref = cfg.module("entropy"), jcfg.module("entropy")
+    for f in dataclasses.fields(mine):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    pm = pt.Model(cfg, device="cpu")
+    assert pm.mode == "zghost"
+    assert fr.zg_kernels(pm)[0].endswith("_h3") == (case != "tau_cool")
+
+
 # Viscosity's flavours and Density's diffrho the loader once refused: the
 # run.in edits of the helical directory
 VISC_MAPPED = {
@@ -725,12 +765,11 @@ REFUSED = {
     "cylinder_in_a_box": ("helical", "start.in",
                           ("random_gen='nr_f90'", "random_gen='nr_f90', "
                            "lcylinder_in_a_box=T"), "lcylinder_in_a_box"),
-    "chi_hyper3": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
-                                      "chi_hyper3=1e-6"), "chi_hyper3"),
-    # the mesh flavour of del6 runs on u and lnρ; of s it stays refused
-    "chi_hyper3_mesh": ("conv", "run.in", ("cs2cool=1.", "cs2cool=1., "
-                                           "chi_hyper3_mesh=5."),
-                        "chi_hyper3_mesh"),
+    # the polar hyper-diffusion of s needs curvilinear coordinates
+    "chi_hyper3_polar": ("conv", "run.in",
+                         ("iheatcond='K-const', ",
+                          "iheatcond='K-const','hyper3-sph', "
+                          "chi_hyper3=1e-6, "), "hyper3-sph"),
     "beta_glnrho_global": ("helical", "start.in",
                            ("&density_init_pars\n/\n",
                             "&density_init_pars\n  beta_glnrho_global="

@@ -13,7 +13,8 @@ Shock module and nu-shock between its walls, the slot's bcz code 's',
 and the first one's shape in a rotating shearing box with SAFI, the mesh
 flavour of del6 and lremove_mean_momenta, and the convection directory
 with Kramers opacity, Newtonian cooling and the 'cubic_step' cooling
-profile (started and run only),
+profile, and with the del6 hyper-diffusion of s and Newtonian cooling
+(started and run only),
 the port's chain on its kernels' plain versions, the JAX package on its
 jnp path (its loader's Config is not fused); the reference-layout data
 directory that both ``export`` commands write; and RELOAD, which re-reads
@@ -43,8 +44,9 @@ from pencil_tpu_torch.io.timeseries import read_time_series
 from pencil_tpu_torch.model import Model
 from pencil_tpu_torch.post import read as pread
 from pencil_tpu_torch.run import Run, RunParams
-from test_torch_rundir import (bext_rundir, conv_rundir, conv_shock_rundir,
-                               fcont_rundir, helical_rundir, kramers_rundir,
+from test_torch_rundir import (bext_rundir, chi_hyper3_rundir, conv_rundir,
+                               conv_shock_rundir, fcont_rundir,
+                               helical_rundir, kramers_rundir,
                                nu_therm_rundir, radiative_rundir,
                                safi_rundir, shock_rundir,
                                shock_highorder_rundir, upwind_rundir,
@@ -254,6 +256,20 @@ def test_cli_runs_kramers_conduction(tmp_path):
     final states agree."""
     mine = kramers_rundir(tmp_path / "port")
     ref = shutil.copytree(mine, tmp_path / "jax")
+    for cmd in ("start", "run"):
+        main([cmd, mine, "--device", "cpu"])
+        jax_main([cmd, str(ref)])
+    assert_states_match(mine, str(ref))
+
+
+def test_cli_runs_the_hyper_diffusion_of_s(tmp_path):
+    """A run directory the loader refused before: conv-slab's shape with
+    chi_hyper3 ('hyper3' in iheatcond) and tau_cool, started and run by
+    both command lines (the port's K6/K7 chain on their H3 instances'
+    plain versions; JAX's jnp path); the final states agree."""
+    mine = chi_hyper3_rundir(tmp_path / "port")
+    ref = shutil.copytree(mine, tmp_path / "jax")
+    assert load_rundir(mine)[0].module("entropy").chi_hyper3 > 0.0
     for cmd in ("start", "run"):
         main([cmd, mine, "--device", "cpu"])
         jax_main([cmd, str(ref)])

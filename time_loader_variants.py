@@ -9,8 +9,9 @@ process on one card.
     python3 time_loader_variants.py --option upwind|shock|safi|mesh ...
                                     [--lib all]
                                     [--n 256]
-    python3 time_loader_variants.py --option heatcond|visc [--lib all]
-                                    [--n 256] [--parent-tree DIR]
+    python3 time_loader_variants.py --option heatcond|visc|chi3
+                                    [--lib all] [--n 256]
+                                    [--parent-tree DIR]
 
 A VARIANT is ``[SOURCE][:NAME=VALUE,...]``: a fused_rhs.cu (default the
 package's) and -D definitions for it, e.g. ``:PC_PD=1`` or
@@ -108,6 +109,16 @@ alone; with ``--parent-tree DIR`` also the build's configuration through
 DIR's package and its own kernels, all in turns on one input.  Each state
 with a flavour on is checked against its plain version first; the
 registers and local bytes of the off and on instances are printed.
+
+``--option chi3`` times each of the 12 builds with ss and H3 instances
+(``--lib`` one or several of them joined by commas, or ``all``) without
+del6 (the build's configuration), with del6 of u, A and lnρ (the H3
+instances, s's del6 not taken), with χ₃ too (the same instances) and
+with Newtonian and uniform cooling (the base instances); with ``--parent-tree DIR`` also the build's configuration
+and its del6 variant through DIR's package, its own kernels, all in
+turns on one input.  Each state but the first is checked against its
+plain version first; the registers and local bytes of the base and H3
+instances are printed.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -511,12 +522,64 @@ def visc_states(pt, cs, cfg, lib):
     return out
 
 
+# --option chi3: the 12 builds with ss and H3 instances
+CHI3_LIBS = ("fused_rhs_ent", "fused_rhs_hydro_ent", "fused_rhs_shock_ent",
+             "fused_rhs_shock_hydro_ent", "fused_rhs_shear_ent",
+             "fused_rhs_shear_ent_ns", "fused_rhs_shear_hydro_ent",
+             "fused_rhs_shear_hydro_ent_ns", "fused_rhs_zg",
+             "fused_rhs_zg_mag", "fused_rhs_zg_shear",
+             "fused_rhs_zg_mag_shear")
+
+
+def chi3_states(pt, cs, cfg, lib):
+    """state -> configuration of one build for ``--option chi3``: 'off'
+    (the build's configuration), 'h3' (with del6 of u, A and lnρ: the H3
+    instances, s's del6 not taken), 'chi3' (with χ₃ too) and 'cooled'
+    (the build's configuration with Newtonian and uniform cooling,
+    chip_smoke.py's CHI3_COOLING)."""
+    h3 = cs.aux_variant(pt, cfg, cfg.module("hydro").Omega, True)
+    return {"off": cfg, "h3": h3, "chi3": pt.configs.with_chi_hyper3(h3),
+            "cooled": cs.with_cooling(pt, cfg)}
+
+
+def chi3_parent_states(pp, cs, cfg):
+    """The parent's columns of ``--option chi3``: the build's
+    configuration and its H3 variant through the parent's package."""
+    return {"": cfg,
+            " h3": cs.aux_variant(pp, cfg, cfg.module("hydro").Omega, True)}
+
+
 def time_visc(args, smi):
     """The ``--option visc`` mode: each build's kernels with Viscosity's
     other flavours and diffrho off (visx not taken) and on, and (with
     ``--parent-tree``) the same configuration through the parent's own
     package, all in turns on one input; for VISC_SINGLE each flavour
     alone too."""
+    return time_states(args, smi, "visc", visc_states,
+                       lambda pp, cs, cfg: {"": cfg}, ("off", "on"))
+
+
+def time_chi3(args, smi):
+    """The ``--option chi3`` mode: each build with ss's kernels (CHI3_LIBS,
+    or those of ``--lib``) without and with del6 (s's del6 not taken),
+    with χ₃ and with the cooling terms, and (with
+    ``--parent-tree``) the build's configuration and its del6 variant
+    through the parent's own package, all in turns on one input."""
+    if args.lib == "all":
+        args.lib = ",".join(CHI3_LIBS)
+    return time_states(args, smi, "chi3", chi3_states, chi3_parent_states,
+                       ("off", "h3"))
+
+
+def time_states(args, smi, option, states, parent_states, shown):
+    """Each build's kernels (``--lib``: one library, several joined by
+    commas, or ``all``) under each configuration of ``states(pt, cs, cfg,
+    lib)`` (the first without the option: its kernels' inputs) and
+    ``parent_states(pp, cs, cfg)`` (through ``--parent-tree``'s package,
+    each a column ``parent`` + its key), in turns on one input; each
+    state but the first checked against its plain version first; the
+    registers and local bytes of the instances of the states ``shown``
+    printed."""
     import torch
     import chip_smoke as cs
     import pencil_tpu_torch as pt
@@ -542,42 +605,49 @@ def time_visc(args, smi):
     for lib in libs:
         label, cfg = builds[lib]
         models = {k: pt.Model(c, device="cuda")
-                  for k, c in visc_states(pt, cs, cfg, lib).items()}
-        timed, checked = option_kernels(torch, cs, fr, models["off"], shape)
+                  for k, c in states(pt, cs, cfg, lib).items()}
+        first = next(iter(models))
+        timed, checked = option_kernels(torch, cs, fr, models[first], shape)
         for state, m in models.items():
-            if state == "off":
+            if state == first:
                 continue
             for kind, (kern, plain) in checked.items():
-                agree(cs, f"{lib} visc {state} {kind}", kern(m), plain(m),
-                      cs.RTOL_FIELD)
+                agree(cs, f"{lib} {option} {state} {kind}", kern(m),
+                      plain(m), cs.RTOL_FIELD)
         calls = {id(m): timed for m in models.values()}
         if pp:
-            pm = pp.Model(pbuilds[lib][1], device="cuda")
-            ptimed, _ = option_kernels(torch, cs, pp.ops.fused_rhs, pm,
-                                       shape)
-            models = {PARENT: pm, **models}
-            calls[id(pm)] = ptimed
+            parents = {}
+            for key, pcfg in parent_states(pp, cs, pbuilds[lib][1]).items():
+                pm = pp.Model(pcfg, device="cuda")
+                ptimed, _ = option_kernels(torch, cs, pp.ops.fused_rhs, pm,
+                                           shape)
+                parents[PARENT + key] = pm
+                calls[id(pm)] = ptimed
+            models = {**parents, **models}
         times = cs.in_turns(torch, models, {
             kind: (lambda m, kind=kind: calls[id(m)][kind](m))
             for kind in timed})
         attrs = fr.flagship_attrs(lib)
         regs = {}
-        for state in ("off", "on"):
+        for state in shown:
             m = models[state]
             fr.reset_launches()
             for fn in timed.values():
                 fn(m)
             launched = {k for k, v in fr.LAUNCHES.items() if v}
             rot = bool(m.cfg.module("hydro").Omega)
+            # the aux builds' H3 instances count under their base names
+            h3 = max(c for _, c in fr.hyper3_terms(m.cfg)) > 0.0
             regs[state] = {
                 n: (a["registers"], a["local_bytes"])
                 for n, a in attrs.items()
                 if n.split()[0] in launched
-                and set(n.split()[1:]) <= {"kick", "rot"}
-                and ("rot" in n.split()) == rot}
+                and set(n.split()[1:]) <= {"kick", "rot", "h3"}
+                and ("rot" in n.split()) == rot
+                and ("h3" in n.split()) == h3}
         result[lib] = {f"{kind} {state}": ts
                        for (kind, state), ts in times.items()}
-        print(f"time_loader_variants --option visc {lib} ({label}) at "
+        print(f"time_loader_variants --option {option} {lib} ({label}) at "
               f"{shape} on {smi}, in turns ({', '.join(models)}, then "
               "back): " + "; ".join(
                   f"{kind} {state} " + ", ".join(f"{t:.4f}" for t in ts)
@@ -628,7 +698,7 @@ def main():
                     "both kernels) per variant too")
     ap.add_argument("--option", nargs="+",
                     choices=("upwind", "shock", "safi", "mesh", "heatcond",
-                             "visc"),
+                             "visc", "chi3"),
                     help="time each option on against off, in place of "
                     "variants")
     args = ap.parse_args()
@@ -648,14 +718,16 @@ def main():
     from pencil_tpu_torch.ops import _build
     from pencil_tpu_torch.ops import fused_rhs as fr
 
-    if args.option and "visc" in args.option and len(args.option) > 1:
-        ap.error("--option visc: alone")
-    if args.option == ["visc"]:
+    for alone in ("visc", "chi3"):
+        if args.option and alone in args.option and len(args.option) > 1:
+            ap.error(f"--option {alone}: alone")
+    if args.option in (["visc"], ["chi3"]):
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()
-        return time_visc(args, smi)
+        return (time_visc if args.option == ["visc"] else time_chi3)(
+            args, smi)
     if args.option == ["heatcond"]:
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
